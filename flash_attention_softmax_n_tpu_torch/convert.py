@@ -1,0 +1,48 @@
+"""Carry a JAX decoder parameter tree across to the port.
+
+``params_from_jax`` takes the tree with its leaves as numpy arrays (for
+example ``jax.tree.map(np.asarray, params)``, which keeps the JAX package's
+``QTensor`` nodes with numpy ``values``/``scales``) and returns the port's
+parameter dict on ``device``. It reads quantized leaves by their
+``values``/``scales``/``bits`` attributes, so nothing of the JAX package is
+imported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from flash_attention_softmax_n_tpu_torch._device import resolve_device
+from flash_attention_softmax_n_tpu_torch.quant.qtensor import QTensor
+
+__all__ = ["params_from_jax", "tensor_from_numpy"]
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """A numpy (or JAX) array as a tensor on ``device``, bf16 included."""
+    a = np.array(a, order="C")  # a writable copy: JAX's buffers are read-only
+    if a.dtype.name == "bfloat16":
+        # torch.from_numpy rejects ml_dtypes' bfloat16: cross as 16-bit ints
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _convert(x, device: torch.device):
+    if isinstance(x, dict):
+        return {k: _convert(v, device) for k, v in x.items()}
+    if hasattr(x, "values") and hasattr(x, "scales"):
+        bits = getattr(x, "bits", 8)
+        if bits != 8 or getattr(x, "packed_axis", None) is not None:
+            raise NotImplementedError(
+                f"bits={bits} quantized weights are not ported yet; see "
+                "ROADMAP.md")
+        return QTensor(tensor_from_numpy(x.values, device),
+                       tensor_from_numpy(x.scales, device),
+                       bits=8)
+    return tensor_from_numpy(x, device)
+
+
+def params_from_jax(tree, device=None):
+    """The JAX parameter tree (numpy leaves) as the port's parameters."""
+    return _convert(tree, resolve_device(device))

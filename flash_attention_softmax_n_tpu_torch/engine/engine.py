@@ -1,0 +1,847 @@
+"""Continuous-batching inference engine for softmax-N decoders.
+
+Counterpart of the serving core of
+``flash_attention_softmax_n_tpu/engine/engine.py``:
+
+  * a fixed pool of ``max_batch`` slots sharing one preallocated KV cache
+    (dense or int8), with per-slot lengths on the device;
+  * admission by batched prefill of same-bucket prompts (kernel K1);
+  * decode either one step at a time (``engine_decode``: the new rows go
+    into the cache by kernel K3) or in fused chunks of ``num_steps`` steps
+    (``engine_decode_loop``): the steps stay on the device, new rows go to
+    a bf16 ring by kernel K4, greedy tokens come from the lm_head kernel
+    K2, and one flush per chunk moves the ring into the cache. The host
+    syncs once per chunk.
+
+The request queue and slot bookkeeping are host-side Python. JAX's
+functional updates become in-place writes into the engine's tensors.
+Chunked prefill past offset 0, piggybacked prefill, the prefix cache,
+prewarm and meshes are not ported yet (ROADMAP.md) and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from collections import deque
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from flash_attention_softmax_n_tpu_torch._device import resolve_device
+from flash_attention_softmax_n_tpu_torch.kernels.cache_update import (
+    cache_append,
+    tail_append,
+)
+from flash_attention_softmax_n_tpu_torch.kernels.decode_attention import (
+    decode_attention_n,
+)
+from flash_attention_softmax_n_tpu_torch.kernels.quant_matmul import (
+    quantized_matmul_argmax,
+)
+from flash_attention_softmax_n_tpu_torch.models.decoder import (
+    DecoderConfig,
+    _layer,
+    _mm,
+    _repeat_kv,
+    layer_params,
+)
+from flash_attention_softmax_n_tpu_torch.models.layers import (
+    apply_rope,
+    rms_norm,
+    rope_frequencies,
+)
+from flash_attention_softmax_n_tpu_torch.ops.flash_attention import (
+    flash_attention_n,
+)
+from flash_attention_softmax_n_tpu_torch.ops.sampling import sample_tokens
+from flash_attention_softmax_n_tpu_torch.quant.kv_cache import (
+    init_quantized_kv_cache,
+    quantize_kv,
+)
+from flash_attention_softmax_n_tpu_torch.quant.qtensor import QTensor
+
+__all__ = ["Request", "InferenceEngine", "engine_prefill_batch",
+           "engine_prefill_chunk", "engine_decode", "engine_decode_loop"]
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet; see ROADMAP.md")
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request (host-side)."""
+
+    request_id: int
+    prompt: List[int]
+    max_new_tokens: int = 64
+    temperature: float = 0.0  # 0 = greedy
+    eos_token: Optional[int] = None
+    top_k: int = 0       # <= 0 = no k-truncation
+    top_p: float = 1.0   # >= 1 = no nucleus truncation
+    output: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+def _bucket(n: int, buckets=(32, 64, 96, 128, 256, 512, 1024, 2048)) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return -(-n // 1024) * 1024
+
+
+def _attention_over_slots(cfg: DecoderConfig, q, k_cache, v_cache, lengths,
+                          k_new=None, v_new=None, k_tail=None, v_tail=None,
+                          tail_lengths=None):
+    """q (B, H, hd) attention over a per-slot-length cache, plus the current
+    token's k/v rows (B, KVH, hd) as one extra key each and, in the fused
+    loop, the tail window."""
+    kwargs = dict(
+        softmax_n_param=cfg.softmax_n, scale=cfg.head_dim ** -0.5,
+        k_new=k_new, v_new=v_new, k_tail=k_tail, v_tail=v_tail,
+        tail_lengths=tail_lengths, implementation=cfg.decode_attn_impl)
+    if isinstance(k_cache, QTensor):
+        return decode_attention_n(
+            q, k_cache.values, v_cache.values, lengths,
+            k_scales=k_cache.scales, v_scales=v_cache.scales, **kwargs)
+    return decode_attention_n(q, k_cache, v_cache, lengths, **kwargs)
+
+
+def _layer_cache(cache_kv, i: int):
+    if isinstance(cache_kv, QTensor):
+        return QTensor(cache_kv.values[i], cache_kv.scales[i], bits=cache_kv.bits)
+    return cache_kv[i]
+
+
+def engine_prefill_batch(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
+                         true_lens: torch.Tensor, slots: torch.Tensor,
+                         cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Prefill ``nb`` slots with (nb, Lb) right-padded prompts in one pass.
+
+    Duplicate slot entries are idempotent. Returns (last-true-token logits
+    (nb, V), cache), the cache written in place.
+    """
+    return engine_prefill_chunk(params, cfg, tokens, true_lens, slots,
+                                cache, offset=0)
+
+
+def engine_prefill_chunk(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
+                         true_lens: torch.Tensor, slots: torch.Tensor,
+                         cache: Dict, *, offset: int
+                         ) -> Tuple[torch.Tensor, Dict]:
+    """Prefill a (nb, C) chunk at column ``offset``; only ``offset=0`` (the
+    whole prompt in one chunk) is ported."""
+    if offset != 0:
+        raise _not_ported("chunked prefill at offset > 0")
+    nb, c = tokens.shape
+    dev = tokens.device
+    x = params["embed"][tokens].to(cfg.dtype)
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
+                                device=dev)
+    positions = torch.arange(c, device=dev)
+    reps = cfg.n_heads // cfg.n_kv_heads
+
+    # chunk key j is valid iff j < true_len and, causally, j <= query row i
+    key_pos = torch.arange(c, device=dev)
+    valid = key_pos[None, None, :] < true_lens[:, None, None]  # (nb,1,C)
+    causal = key_pos[None, :] <= key_pos[:, None]  # (C,C)
+    mask = (valid & causal[None])[:, None]  # (nb,1,C,C)
+    impl = "xla" if cfg.attn_implementation == "xla" else "auto"
+
+    def write(cache_kv, i, new):
+        if isinstance(cache_kv, QTensor):
+            values, scales = quantize_kv(new, cache_kv.bits)
+            cache_kv.values[i, slots, :, :c] = values
+            cache_kv.scales[i, slots, :, :c] = scales
+        else:
+            cache_kv[i, slots, :, :c] = new.to(cache_kv.dtype)
+
+    for i in range(cfg.n_layers):
+        def attn(q, k, v, i=i):
+            q = apply_rope(q, cos, sin, positions)
+            k = apply_rope(k, cos, sin, positions)
+            write(cache["k"], i, k)
+            write(cache["v"], i, v)
+            ctx = flash_attention_n(
+                q, _repeat_kv(k, reps), _repeat_kv(v, reps),
+                softmax_n_param=cfg.softmax_n, attn_mask=mask,
+                implementation=impl)
+            return ctx, None
+
+        x, _, _ = _layer(cfg, x, layer_params(params["layers"], i), attn)
+
+    cache["lengths"][slots] = torch.clamp(true_lens, max=c).to(
+        cache["lengths"].dtype)
+    last = torch.clamp(true_lens - 1, 0, c - 1).long()
+    x_last = x[torch.arange(nb, device=dev), last][:, None]
+    x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
+    logits = _mm(x_last, params["lm_head"]).float()
+    return logits[:, 0], cache
+
+
+def _greedy_fusable(params: Dict, cfg: DecoderConfig) -> bool:
+    """Can greedy sampling ride the lm_head kernel (int8 unpacked lm_head)?"""
+    lm = params["lm_head"]
+    return (isinstance(lm, QTensor) and lm.bits == 8
+            and lm.packed_axis is None and cfg.act_bits != 8)
+
+
+def _decode_step(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
+                 cache: Dict, active: torch.Tensor, *,
+                 tail: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 tail_index: Optional[int] = None,
+                 tail_lengths: Optional[torch.Tensor] = None,
+                 greedy: bool = False):
+    """One decode step for all slots: tokens (B,) -> (logits (B, V) or greedy
+    tokens (B,), cache, tail).
+
+    Each layer attends the unmodified cache plus the current token's k/v as
+    an explicit extra key. The new rows of all layers are written once per
+    step: into the cache at each slot's length (K3), or in ``tail`` mode
+    into the ring at the shared ``tail_index`` (K4), the cache untouched
+    until the loop's flush. Lengths advance only for active slots.
+    ``greedy``: take the tokens from the lm_head kernel K2; the caller
+    checks ``_greedy_fusable`` first.
+    """
+    x = params["embed"][tokens][:, None].to(cfg.dtype)
+    dev = x.device
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
+                                device=dev)
+    lengths = cache["lengths"]
+    positions = lengths[:, None].long()
+    # in tail mode the cache holds only the pre-loop prefix
+    lengths_main = lengths if tail is None else lengths - tail_lengths
+    k_rows, v_rows = [], []
+    for i in range(cfg.n_layers):
+        kc, vc = _layer_cache(cache["k"], i), _layer_cache(cache["v"], i)
+        kt, vt = (tail[0][i], tail[1][i]) if tail is not None else (None, None)
+
+        def attn(q, k, v, kc=kc, vc=vc, kt=kt, vt=vt):
+            q = apply_rope(q, cos, sin, positions)
+            k = apply_rope(k, cos, sin, positions)
+            ctx = _attention_over_slots(
+                cfg, q[:, :, 0], kc, vc, lengths_main,
+                k_new=k[:, :, 0], v_new=v[:, :, 0],
+                k_tail=kt, v_tail=vt, tail_lengths=tail_lengths)
+            return ctx[:, :, None, :].to(x.dtype), (k[:, :, 0], v[:, :, 0])
+
+        x, _, (kr, vr) = _layer(cfg, x, layer_params(params["layers"], i), attn)
+        k_rows.append(kr)
+        v_rows.append(vr)
+    k_rows = torch.stack(k_rows)  # (NL, B, KVH, hd)
+    v_rows = torch.stack(v_rows)
+
+    if tail is not None:
+        tail = tail_append(tail[0], tail[1], k_rows.to(tail[0].dtype),
+                           v_rows.to(tail[1].dtype), tail_index)
+    else:
+        kq = cache["k"]
+        s_len = (kq.values if isinstance(kq, QTensor) else kq).shape[3]
+        write_pos = torch.clamp(lengths, max=s_len - 1).to(torch.int32)
+        if isinstance(kq, QTensor):
+            vq = cache["v"]
+            kv_, ks_ = quantize_kv(k_rows, kq.bits)
+            vv_, vs_ = quantize_kv(v_rows, vq.bits)
+            cache_append((kq.values, kq.scales, vq.values, vq.scales),
+                         (kv_, ks_, vv_, vs_), write_pos)
+        else:
+            cache_append((cache["k"], cache["v"]),
+                         (k_rows.to(cache["k"].dtype),
+                          v_rows.to(cache["v"].dtype)), write_pos)
+
+    cache["lengths"] = torch.where(active, lengths + 1, lengths)
+
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if greedy:
+        lm = params["lm_head"]
+        tok = quantized_matmul_argmax(x, lm.values, lm.scales)
+        return tok[:, 0], cache, tail
+    logits = _mm(x, params["lm_head"]).float()
+    return logits[:, 0], cache, tail
+
+
+def engine_decode(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
+                  cache: Dict, active: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """One decode step for all slots: tokens (B,) -> (logits (B, V), cache),
+    the new rows written into the cache in place (K3)."""
+    logits, cache, _ = _decode_step(params, cfg, tokens, cache, active)
+    return logits, cache
+
+
+def engine_decode_loop(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
+                       cache: Dict, active: torch.Tensor, *, num_steps: int,
+                       generator: Optional[torch.Generator] = None,
+                       temps: Optional[torch.Tensor] = None,
+                       top_k: Optional[torch.Tensor] = None,
+                       top_p: Optional[torch.Tensor] = None,
+                       attn_len: Optional[int] = None,
+                       ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+    """``num_steps >= 8`` decode steps that stay on the device (no host sync).
+
+    Returns ``(tokens_out (B, num_steps), cache, active)``. Greedy, or
+    per-slot sampling when ``temps`` (with ``top_k``/``top_p`` and a
+    ``generator``) is given.
+
+    New k/v rows go to a bf16 ring at the step index shared by all slots
+    (K4); attention covers cache prefix + ring + current token; one flush
+    per call moves the ring into the cache (quantizing it for int8 caches).
+    Requires ``lengths + round_up(num_steps, 8) <= max_len`` for every
+    active slot. ``attn_len``: the attention reads only the first
+    ``attn_len`` cache rows (exact while ``attn_len >= max(active
+    lengths)``).
+    """
+    if num_steps < 8:
+        raise _not_ported("fused chunks of fewer than 8 steps")
+    if temps is not None and generator is None:
+        raise ValueError("temperature sampling requires generator")
+
+    kc = cache["k"].values if isinstance(cache["k"], QTensor) else cache["k"]
+    nl, bsz, kvh, s_len, hd = kc.shape
+    w = -(-num_steps // 8) * 8
+    tail = tuple(torch.zeros((nl, bsz, kvh, w, hd), dtype=cfg.dtype,
+                             device=kc.device) for _ in range(2))
+    base = cache["lengths"]
+    step_cache = dict(cache)
+    if attn_len is not None and attn_len < s_len:
+        def _window(c):
+            if isinstance(c, QTensor):
+                return QTensor(c.values[:, :, :, :attn_len],
+                               c.scales[:, :, :, :attn_len], bits=c.bits)
+            return c[:, :, :, :attn_len]
+
+        step_cache["k"] = _window(cache["k"])
+        step_cache["v"] = _window(cache["v"])
+
+    greedy = temps is None and _greedy_fusable(params, cfg)
+    tok = tokens
+    outs = []
+    for i in range(num_steps):
+        out, step_cache, tail = _decode_step(
+            params, cfg, tok, step_cache, active, tail=tail, tail_index=i,
+            tail_lengths=step_cache["lengths"] - base, greedy=greedy)
+        if greedy:
+            nxt = out  # argmax fused into the lm_head kernel
+        elif temps is not None:
+            nxt = sample_tokens(out, generator, temps, top_k, top_p)
+        else:
+            nxt = torch.argmax(out, dim=-1).to(torch.int32)
+        tok = torch.where(active, nxt, tok)
+        outs.append(tok)
+
+    cache["lengths"] = step_cache["lengths"]
+    _flush_tail(cfg, cache["k"], cache["v"], tail[0], tail[1], base)
+    return torch.stack(outs, dim=1), cache, active
+
+
+def _flush_tail(cfg: DecoderConfig, k_cache, v_cache, k_tail, v_tail, base):
+    """Write the loop's ring (NL, B, KVH, W, hd) into the cache at each
+    slot's row ``base[b]``, in place, quantizing for int8 caches.
+
+    Rows past a slot's advanced length are garbage but land at positions
+    the slot's length excludes. If a window would run past the cache end
+    (a broken admission contract), it is shifted back to fit and only its
+    first rows are written, so earlier rows are never overwritten.
+    """
+    bsz, w = k_tail.shape[1], k_tail.shape[3]
+    dev = k_tail.device
+    s_len = (k_cache.values if isinstance(k_cache, QTensor) else k_cache).shape[3]
+    ar = torch.arange(w, device=dev)
+    base = base.long()
+    start = torch.clamp(base, max=s_len - w)
+    shift = base - start  # 0 when the contract holds
+    dest = start[:, None] + ar  # (B, W) cache rows
+    src = torch.clamp(ar[None, :] - shift[:, None], min=0)  # (B, W) ring rows
+    keep_new = (ar[None, :] >= shift[:, None])[..., None, None, None]
+    bidx = torch.arange(bsz, device=dev)[:, None].expand(bsz, w)
+
+    def write(dst, rows):
+        # dst (NL, B, KVH, S, D) and rows (NL, B, KVH, W, D) viewed slot-major
+        dv = dst.permute(1, 3, 0, 2, 4)
+        new = rows.permute(1, 3, 0, 2, 4)[bidx, src].to(dst.dtype)
+        dv[bidx, dest] = torch.where(keep_new, new, dv[bidx, dest])
+
+    for cache_kv, t in ((k_cache, k_tail), (v_cache, v_tail)):
+        if isinstance(cache_kv, QTensor):
+            tq, ts = quantize_kv(t, cache_kv.bits)
+            write(cache_kv.values, tq)
+            write(cache_kv.scales, ts)
+        else:
+            write(cache_kv, t)
+    return k_cache, v_cache
+
+
+class InferenceEngine:
+    """Slot-based continuous-batching engine.
+
+    Usage::
+
+        eng = InferenceEngine(cfg, params, max_batch=8, max_len=2048,
+                              kv_quantization='int8', piggyback_prefill=False)
+        rid = eng.submit([1, 2, 3], max_new_tokens=32)
+        finished = eng.run_until_done(loop_steps=64)
+    """
+
+    # admission group width: requests prefilled per batched dispatch
+    _ADMIT_G = 16
+    # scheduling overhead of a chunk boundary in decode-step units, until
+    # measured boundary/step times replace it
+    _SCHED_OVERHEAD_STEPS = 4
+
+    def __init__(self, cfg: DecoderConfig, params: Dict, *,
+                 max_batch: int = 8, max_len: Optional[int] = None,
+                 kv_quantization: Optional[str] = None,
+                 pad_token: int = 0, mesh=None,
+                 prefill_chunk: int = 256,
+                 piggyback_prefill: bool = True,
+                 device=None):
+        """``params`` must live on ``device`` (None: the card).
+        ``piggyback_prefill=True`` and ``mesh`` are not ported yet and
+        raise; prompts longer than ``prefill_chunk`` (the chunked lane) are
+        refused at ``submit``."""
+        if mesh is not None:
+            raise _not_ported("meshed serving")
+        if piggyback_prefill:
+            raise _not_ported("piggybacked prefill; pass "
+                              "piggyback_prefill=False")
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params are on {params['embed'].device}, the "
+                             f"engine on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.max_batch = max_batch
+        self.piggyback_prefill = False
+        self.max_len = max_len or cfg.max_seq_len
+        self.pad_token = pad_token
+        self._CHUNK = prefill_chunk
+        self._id_gen = itertools.count()
+        self.queue: deque[Request] = deque()
+        self.slots: List[Optional[Request]] = [None] * max_batch
+        self._slot_budget = [0] * max_batch
+        self._next_host = np.zeros((max_batch,), np.int32)
+        # host mirror of cache['lengths'] for scheduling, exact for live
+        # slots, so chunk planning never waits on the device
+        self._lengths_host = np.zeros((max_batch,), np.int64)
+        self._next_token = torch.zeros((max_batch,), dtype=torch.int32,
+                                       device=self.device)
+        self._generator = torch.Generator(device=self.device).manual_seed(0)
+        self.phase_times: Dict[str, float] = {}
+        self.phase_counts: Dict[str, int] = {}
+        self.chunk_log: List[Tuple[int, float]] = []
+        self.counters: Dict[str, int] = {}
+
+        if kv_quantization is not None:
+            self.cache = init_quantized_kv_cache(
+                cfg.n_layers, max_batch, cfg.n_kv_heads, self.max_len,
+                cfg.head_dim, mode=kv_quantization, device=self.device)
+        else:
+            shape = (cfg.n_layers, max_batch, cfg.n_kv_heads, self.max_len,
+                     cfg.head_dim)
+            self.cache = {
+                "k": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=self.device)}
+        self.cache["lengths"] = torch.zeros((max_batch,), dtype=torch.int32,
+                                            device=self.device)
+        self.cache.pop("length", None)
+
+    # -- public API ---------------------------------------------------------
+
+    def submit(self, prompt: List[int], max_new_tokens: int = 64,
+               temperature: float = 0.0,
+               eos_token: Optional[int] = None,
+               top_k: int = 0, top_p: float = 1.0) -> int:
+        if len(prompt) + max_new_tokens > self.max_len:
+            raise ValueError("prompt + max_new_tokens exceeds engine max_len")
+        if temperature == 0.0 and (top_k > 0 or top_p < 1.0):
+            raise ValueError(
+                "top_k/top_p require temperature > 0 (temperature=0 is "
+                "greedy argmax and ignores truncation)")
+        cc = self._CHUNK
+        if len(prompt) > cc and -(-len(prompt) // cc) * cc <= self.max_len:
+            raise _not_ported(f"chunked prefill of prompts longer than "
+                              f"prefill_chunk={cc}")
+        req = Request(next(self._id_gen), list(prompt), max_new_tokens,
+                      temperature, eos_token, top_k=top_k, top_p=top_p)
+        self.queue.append(req)
+        return req.request_id
+
+    def register_prefix(self, tokens: List[int]) -> int:
+        raise _not_ported("the prefix cache (register_prefix)")
+
+    def prewarm(self, loop_steps: int = 64, attn_lens=None) -> int:
+        raise _not_ported("prewarm (CUDA graphs)")
+
+    def step(self) -> List[Request]:
+        """Admit queued requests into free slots, run one decode step.
+
+        Returns requests that finished during this step.
+        """
+        finished = self._admit()
+        active_slots = [i for i, r in enumerate(self.slots) if r is not None]
+        if not active_slots:
+            return finished
+
+        active = self._active_mask()
+        logits, self.cache = engine_decode(self.params, self.cfg,
+                                           self._next_token, self.cache, active)
+        next_host = self._sample(logits, self.slots).cpu().numpy()
+        for i in active_slots:
+            self._lengths_host[i] += 1
+            req = self.slots[i]
+            tok = int(next_host[i])
+            req.output.append(tok)
+            self._slot_budget[i] -= 1
+            if (self._slot_budget[i] <= 0
+                    or (req.eos_token is not None and tok == req.eos_token)):
+                req.done = True
+                finished.append(req)
+                self.slots[i] = None
+            else:
+                self._next_host[i] = tok
+        self._next_token = self._to_device(self._next_host)
+        return finished
+
+    def run_until_done(self, max_steps: int = 100_000,
+                       loop_steps: Optional[int] = None) -> List[Request]:
+        """Drive all queued requests to completion.
+
+        ``loop_steps`` (at least 8): decode in fused chunks of up to that
+        many steps between scheduling points; falls back to single steps
+        only when a slot is too close to ``max_len`` for a chunk.
+        ``max_steps`` bounds decode-step work (a chunk counts its full
+        length, an admission-only iteration one).
+        """
+        if loop_steps is not None and loop_steps < 8:
+            raise _not_ported("fused chunks of fewer than 8 steps")
+        done = []
+        steps_left = max_steps
+        tic = time.perf_counter
+
+        def _t(phase, t0):
+            dt = tic() - t0
+            self.phase_times[phase] = self.phase_times.get(phase, 0.0) + dt
+            self.phase_counts[phase] = self.phase_counts.get(phase, 0) + 1
+            return tic()
+
+        while steps_left > 0:
+            if loop_steps is not None:
+                t0 = it0 = tic()
+                pending = self._admit_async()
+                t0 = _t("admit_dispatch", t0)
+                if not any(s is not None for s in self.slots):
+                    done.extend(self._finalize_admission(pending))
+                    _t("admit_sync", t0)
+                    if not self.queue:
+                        break
+                    steps_left -= 1
+                    continue
+                chunk = self._fused_chunk_len(loop_steps)
+                t0 = _t("chunk_plan", t0)
+                if chunk:
+                    handle = self._dispatch_chunk(chunk)
+                    t0 = _t("chunk_dispatch", t0)
+                    done.extend(self._finalize_admission(pending))
+                    t0 = _t("admit_sync", t0)
+                    boundary_s = t0 - it0
+                    done.extend(self._finalize_chunk(handle))
+                    t_end = _t("chunk_sync", t0)
+                    self.chunk_log.append((chunk, t_end - it0))
+                    self._update_sched_ewma(boundary_s, (t_end - t0) / chunk)
+                    steps_left -= chunk
+                    continue
+                done.extend(self._finalize_admission(pending))
+                _t("admit_sync", t0)
+            done.extend(self.step())
+            steps_left -= 1
+            if not self.queue and all(s is None for s in self.slots):
+                break
+        return done
+
+    def profile_report(self, reset: bool = True) -> Dict[str, Dict]:
+        """Per-phase host wall-clock of the fused serving loop since the last
+        reset: {phase: {'total_s', 'count', 'mean_ms'}}. Phases:
+        admit_dispatch (scheduling + prefill enqueue), chunk_plan,
+        chunk_dispatch (decode-chunk enqueue), admit_sync (first-token sync
+        of the round's prefills), chunk_sync (the chunk's token sync +
+        bookkeeping)."""
+        rep = {k: {"total_s": v, "count": self.phase_counts.get(k, 0),
+                   "mean_ms": v / max(self.phase_counts.get(k, 1), 1) * 1e3}
+               for k, v in sorted(self.phase_times.items())}
+        if reset:
+            self.phase_times = {}
+            self.phase_counts = {}
+            self.chunk_log = []
+        return rep
+
+    def counters_report(self, reset: bool = True) -> Dict[str, float]:
+        """Scheduling counters since the last reset, plus prefill_pad_waste
+        (share of prefill rows x tokens that is padding) and chunk_util
+        (kept tokens over dispatched chunk capacity)."""
+        rep: Dict[str, float] = dict(self.counters)
+        if rep.get("prefill_tokens"):
+            rep["prefill_pad_waste"] = round(
+                1.0 - rep.get("prefill_real_tokens", 0)
+                / rep["prefill_tokens"], 4)
+        if rep.get("chunk_capacity_tokens"):
+            rep["chunk_util"] = round(
+                rep.get("chunk_kept_tokens", 0)
+                / rep["chunk_capacity_tokens"], 4)
+            rep["chunk_live_util"] = round(
+                rep.get("chunk_kept_tokens", 0)
+                / max(rep.get("chunk_live_tokens", 1), 1), 4)
+        if reset:
+            self.counters = {}
+        return rep
+
+    # -- fused-loop serving internals ----------------------------------------
+
+    def _to_device(self, a) -> torch.Tensor:
+        return torch.as_tensor(a).to(self.device)
+
+    def _active_mask(self) -> torch.Tensor:
+        return self._to_device(np.array([r is not None for r in self.slots]))
+
+    def _update_sched_ewma(self, boundary_s: float, step_s: float) -> None:
+        a = 0.3
+        prev_b = getattr(self, "_ewma_boundary_s", None)
+        prev_s = getattr(self, "_ewma_step_s", None)
+        self._ewma_boundary_s = (boundary_s if prev_b is None
+                                 else (1 - a) * prev_b + a * boundary_s)
+        self._ewma_step_s = (step_s if prev_s is None
+                             else (1 - a) * prev_s + a * step_s)
+
+    @property
+    def _sched_overhead_steps(self) -> int:
+        b = getattr(self, "_ewma_boundary_s", None)
+        s = getattr(self, "_ewma_step_s", None)
+        if b and s:
+            return max(1, min(24, round(b / s)))
+        return self._SCHED_OVERHEAD_STEPS
+
+    def _chunk_steps(self, loop_steps: int) -> int:
+        """Adaptive chunk length: the power-of-two c <= loop_steps (or
+        loop_steps itself) maximizing sum_i min(rem_i, c) / (c + overhead)
+        over the live slots' remaining budgets; 0 if every budget is spent."""
+        rem = [self._slot_budget[i] for i, r in enumerate(self.slots)
+               if r is not None]
+        if not rem:
+            return loop_steps
+        if not any(rem):
+            return 0
+        best_c, best_rate = loop_steps, -1.0
+        cands = []
+        c = 8
+        while c <= loop_steps:
+            cands.append(c)
+            c *= 2
+        if loop_steps not in cands:
+            cands.append(loop_steps)
+        overhead = self._sched_overhead_steps
+        for c in cands:
+            rate = sum(min(r, c) for r in rem) / (c + overhead)
+            if rate > best_rate:
+                best_rate, best_c = rate, c
+        return best_c
+
+    def _fused_chunk_len(self, loop_steps: int) -> int:
+        """The adaptive chunk, halved until the fullest active slot's
+        max_len headroom holds its ring (rounded up to 8 rows); 0 when no
+        fused chunk fits."""
+        chunk = self._chunk_steps(loop_steps)
+        if not chunk:
+            return 0
+        amax = max((int(self._lengths_host[i])
+                    for i, r in enumerate(self.slots) if r is not None),
+                   default=0)
+        headroom = self.max_len - amax
+        while chunk:
+            if -(-chunk // 8) * 8 <= headroom:
+                return chunk
+            if chunk <= 8:
+                return 0
+            chunk //= 2
+        return 0
+
+    def _dispatch_chunk(self, loop_steps: int):
+        """Enqueue one fused decode chunk; returns the bookkeeping handle
+        (device tokens + the slots active at entry). No sync."""
+        entry_active = [i for i, r in enumerate(self.slots) if r is not None]
+        amax = max((int(self._lengths_host[i]) for i in entry_active),
+                   default=0)
+        # attention window: the loop attends cache rows up to the entry
+        # lengths of active slots, bucketed to 256s
+        attn_len = min(self.max_len, -(-max(amax, 1) // 256) * 256)
+        sample_kw = self._sampling_arrays(self.slots) or {}
+        if sample_kw:
+            sample_kw["generator"] = self._generator
+        toks, self.cache, _ = engine_decode_loop(
+            self.params, self.cfg, self._next_token, self.cache,
+            self._active_mask(), num_steps=loop_steps, attn_len=attn_len,
+            **sample_kw)
+        for i in entry_active:
+            self._lengths_host[i] += loop_steps
+        c = self.counters
+        c["chunks"] = c.get("chunks", 0) + 1
+        c["chunk_capacity_tokens"] = (c.get("chunk_capacity_tokens", 0)
+                                      + loop_steps * self.max_batch)
+        c["chunk_live_tokens"] = (c.get("chunk_live_tokens", 0)
+                                  + loop_steps * len(entry_active))
+        return toks, entry_active
+
+    def _finalize_chunk(self, handle) -> List[Request]:
+        """Sync on a chunk's tokens and do the bookkeeping. Slots freed
+        since dispatch are skipped; tokens past a budget or EOS are
+        discarded."""
+        toks, entry_active = handle
+        toks_host = toks.cpu().numpy()
+        finished = []
+        for i in entry_active:
+            req = self.slots[i]
+            if req is None:
+                continue
+            emitted = [int(t) for t in toks_host[i]]
+            take = min(self._slot_budget[i], len(emitted))
+            if req.eos_token is not None and req.eos_token in emitted[:take]:
+                take = emitted.index(req.eos_token) + 1
+            req.output.extend(emitted[:take])
+            self.counters["chunk_kept_tokens"] = (
+                self.counters.get("chunk_kept_tokens", 0) + take)
+            self._slot_budget[i] -= take
+            # a slot truncated mid-chunk is always freed, and re-admission
+            # prefills it from scratch
+            if (self._slot_budget[i] <= 0
+                    or (req.eos_token is not None
+                        and req.output[-1] == req.eos_token)):
+                req.done = True
+                finished.append(req)
+                self.slots[i] = None
+                self._slot_budget[i] = 0
+            else:
+                self._next_host[i] = req.output[-1]
+        self._next_token = self._to_device(self._next_host)
+        return finished
+
+    # -- admission ------------------------------------------------------------
+
+    def _admit(self) -> List[Request]:
+        """Synchronous admission (the per-step path)."""
+        return self._finalize_admission(self._admit_async())
+
+    def _admit_async(self) -> List[Tuple[List[Tuple[int, Request]],
+                                         torch.Tensor]]:
+        """Admit queued requests into free slots, prefilling same-bucket
+        groups in one batched forward. A group is padded to the smallest
+        power of two in [2, _ADMIT_G] that holds it by repeating its last
+        request (duplicate slot writes are idempotent). Enqueue only: the
+        first tokens go into ``_next_token`` on the device and the host
+        bookkeeping waits for ``_finalize_admission``."""
+        free = [i for i in range(self.max_batch) if self.slots[i] is None]
+        if not (free and self.queue):
+            return []
+        by_bucket: Dict[int, deque] = {}
+        order: List[int] = []
+        for req in self.queue:
+            # clamp so a near-max_len prompt cannot pad past the cache
+            bkt = min(_bucket(len(req.prompt)), self.max_len)
+            if bkt not in by_bucket:
+                by_bucket[bkt] = deque()
+                order.append(bkt)
+            by_bucket[bkt].append(req)
+        admitted: set = set()
+        nb_max = min(self._ADMIT_G, self.max_batch)
+        pending = []
+        while free and any(by_bucket.values()):
+            bucket = next(b for b in order if by_bucket[b])
+            dq = by_bucket[bucket]
+            group: List[Tuple[int, Request]] = []
+            while free and dq and len(group) < nb_max:
+                req = dq.popleft()
+                admitted.add(id(req))
+                group.append((free.pop(0), req))
+            pending.append((group, self._prefill_group(group, nb_max, bucket)))
+            for i, req in group:
+                self.slots[i] = req
+                self._lengths_host[i] = len(req.prompt)
+                self._slot_budget[i] = req.max_new_tokens - 1
+        if admitted:
+            self.queue = deque(r for r in self.queue if id(r) not in admitted)
+        return pending
+
+    def _prefill_group(self, group, nb_max: int, bucket: int) -> torch.Tensor:
+        """Prefill one padded group; returns its real rows' first tokens."""
+        nb = 2
+        while nb < len(group):
+            nb *= 2
+        nb = min(nb, nb_max)
+        padded = group + [group[-1]] * (nb - len(group))
+        c = self.counters
+        c["prefill_groups"] = c.get("prefill_groups", 0) + 1
+        c["prefill_rows"] = c.get("prefill_rows", 0) + nb
+        c["prefill_real_rows"] = c.get("prefill_real_rows", 0) + len(group)
+        c["prefill_tokens"] = c.get("prefill_tokens", 0) + nb * bucket
+        c["prefill_real_tokens"] = (c.get("prefill_real_tokens", 0)
+                                    + sum(len(r.prompt) for _, r in group))
+        tokens = np.full((nb, bucket), self.pad_token, np.int64)
+        for j, (_, r) in enumerate(padded):
+            tokens[j, :len(r.prompt)] = r.prompt
+        true_lens = self._to_device(np.array([len(r.prompt) for _, r in padded],
+                                             np.int32))
+        slots = self._to_device(np.array([i for i, _ in padded], np.int64))
+        logits, self.cache = engine_prefill_batch(
+            self.params, self.cfg, self._to_device(tokens), true_lens, slots,
+            self.cache)
+        toks = self._sample(logits, [r for _, r in padded])[:len(group)]
+        self._next_token[slots[:len(group)]] = toks
+        return toks
+
+    def _finalize_admission(self, pending) -> List[Request]:
+        """One sync for the whole admission round, then bookkeeping:
+        first-token append, EOS / 1-token finishes, next-token mirror."""
+        finished: List[Request] = []
+        if not pending:
+            return finished
+        all_toks = torch.cat([t for _, t in pending]).cpu().numpy()
+        k = 0
+        for group, _ in pending:
+            for i, req in group:
+                tok = int(all_toks[k])
+                k += 1
+                req.output.append(tok)
+                if (req.max_new_tokens <= 1
+                        or (req.eos_token is not None
+                            and tok == req.eos_token)):
+                    req.done = True
+                    finished.append(req)
+                    self.slots[i] = None
+                    self._slot_budget[i] = 0
+                else:
+                    self._next_host[i] = tok
+        return finished
+
+    def _sampling_arrays(self, rows: List[Optional[Request]]) -> Optional[Dict]:
+        """Per-row sampling settings as (B,) device tensors, or None if every
+        row is greedy; top_k/top_p only when some sampling row truncates."""
+        temps = [r.temperature if r is not None else 0.0 for r in rows]
+        if not any(t > 0 for t in temps):
+            return None
+        kw = {"temps": self._to_device(np.array(temps, np.float32))}
+        if any(r is not None and r.temperature > 0
+               and (r.top_k > 0 or r.top_p < 1.0) for r in rows):
+            kw["top_k"] = self._to_device(np.array(
+                [r.top_k if r is not None else 0 for r in rows], np.int64))
+            kw["top_p"] = self._to_device(np.array(
+                [r.top_p if r is not None else 1.0 for r in rows], np.float32))
+        return kw
+
+    def _sample(self, logits: torch.Tensor,
+                reqs: List[Optional[Request]]) -> torch.Tensor:
+        """Greedy at temperature 0, else per-row temperature/top-k/top-p.
+        ``reqs`` holds one Request (or None = greedy) per logits row."""
+        kw = self._sampling_arrays(reqs[:logits.shape[0]])
+        if kw is None:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return sample_tokens(logits, self._generator, kw["temps"],
+                             kw.get("top_k"), kw.get("top_p"))

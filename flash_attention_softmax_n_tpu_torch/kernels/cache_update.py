@@ -1,0 +1,80 @@
+"""In-place KV row writes for decode: kernels K3 (cache_append) and K4
+(tail_append).
+
+Counterpart of ``flash_attention_softmax_n_tpu/kernels/cache_update.py``.
+Both write into the caller's tensors in place and return them. On CUDA
+tensors the hand-written kernels (``csrc/cache_update.cu``) run; on CPU
+tensors the plain versions ``*_reference`` do.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from flash_attention_softmax_n_tpu_torch.kernels import _build
+
+__all__ = ["cache_append", "cache_append_reference", "tail_append",
+           "tail_append_reference"]
+
+
+def cache_append_reference(caches: Tuple[torch.Tensor, ...],
+                           news: Tuple[torch.Tensor, ...],
+                           positions: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Plain version of K3: caches[i][l, b, :, positions[b]] = news[i][l, b]."""
+    b = torch.arange(positions.shape[0], device=positions.device)
+    pos = positions.long()
+    for c, nw in zip(caches, news):
+        # (NL, B, KVH, S, D) viewed as (B, S, NL, KVH, D)
+        c.permute(1, 3, 0, 2, 4)[b, pos] = nw.permute(1, 0, 2, 3).to(c.dtype)
+    return tuple(caches)
+
+
+def tail_append_reference(k_tail: torch.Tensor, v_tail: torch.Tensor,
+                          k_new: torch.Tensor, v_new: torch.Tensor,
+                          index: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K4: tail[:, :, :, index] = new for k and v."""
+    k_tail[:, :, :, index] = k_new.to(k_tail.dtype)
+    v_tail[:, :, :, index] = v_new.to(v_tail.dtype)
+    return k_tail, v_tail
+
+
+def _cache_append_cuda(caches, news, positions):
+    _build.ops().cache_append(
+        list(caches), [nw.contiguous() for nw in news],
+        positions.to(torch.int32).contiguous())
+    _build.LAUNCHES["cache_append"] += 1
+    return tuple(caches)
+
+
+def cache_append(caches: Tuple[torch.Tensor, ...],
+                 news: Tuple[torch.Tensor, ...],
+                 positions: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Write ``news[i][l, b]`` into ``caches[i][l, b, :, positions[b], :]``.
+
+    caches[i] (NL, B, KVH, S, D_i); news[i] (NL, B, KVH, D_i); positions
+    (B,) int32 in [0, S), clamped by the caller. Writes in place and
+    returns the caches.
+    """
+    if caches[0].is_cuda:
+        return _cache_append_cuda(caches, news, positions)
+    return cache_append_reference(caches, news, positions)
+
+
+def _tail_append_cuda(k_tail, v_tail, k_new, v_new, index):
+    _build.ops().tail_append(k_tail, v_tail, k_new.contiguous(),
+                             v_new.contiguous(), int(index))
+    _build.LAUNCHES["tail_append"] += 1
+    return k_tail, v_tail
+
+
+def tail_append(k_tail: torch.Tensor, v_tail: torch.Tensor,
+                k_new: torch.Tensor, v_new: torch.Tensor,
+                index: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write ``new[l, b]`` into ``tail[l, b, :, index, :]`` at one ring index
+    shared by every slot, in place. k/v_tail (NL, B, KVH, W, D); k/v_new
+    (NL, B, KVH, D)."""
+    if k_tail.is_cuda:
+        return _tail_append_cuda(k_tail, v_tail, k_new, v_new, index)
+    return tail_append_reference(k_tail, v_tail, k_new, v_new, index)

@@ -1,0 +1,359 @@
+"""Llama-style decoder with softmax-N attention, inference only.
+
+Counterpart of ``flash_attention_softmax_n_tpu/models/decoder.py``. Layer
+weights are stacked on axis 0 as in the JAX parameter tree; the JAX
+``lax.scan`` over layers is a Python loop here. Prefill runs causal
+``flash_attention_n`` (kernel K1 on the card); decode attends a KV cache
+with the ``+n`` term in every step's denominator.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from flash_attention_softmax_n_tpu_torch._device import resolve_device
+from flash_attention_softmax_n_tpu_torch.models.layers import (
+    apply_rope,
+    rms_norm,
+    rope_frequencies,
+)
+from flash_attention_softmax_n_tpu_torch.ops.flash_attention import (
+    flash_attention_n,
+)
+from flash_attention_softmax_n_tpu_torch.ops.functional import softmax_n
+from flash_attention_softmax_n_tpu_torch.quant.qtensor import (
+    QTensor,
+    dequantize,
+)
+
+__all__ = ["DecoderConfig", "init_decoder_params", "decoder_forward",
+           "prefill", "decode_step", "greedy_generate", "init_kv_cache"]
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderConfig:
+    vocab_size: int = 32000
+    d_model: int = 2048
+    n_layers: int = 16
+    n_heads: int = 16
+    n_kv_heads: int = 16
+    d_ff: int = 5632
+    max_seq_len: int = 2048
+    rope_theta: float = 10000.0
+    softmax_n: float = 1.0
+    norm_eps: float = 1e-6
+    dtype: Any = torch.bfloat16
+    # 'auto'/'pallas': the fused forward (K1); 'xla': unfused tensor ops
+    attn_implementation: str = "auto"
+    # the fields below exist for parity with the JAX config; values other
+    # than these defaults need code that is not ported yet (ROADMAP.md)
+    act_bits: Any = None
+    int8_mm_impl: str = "xla"
+    decode_attn_impl: str = "xla"
+    remat: bool = False
+    attn_dropout: float = 0.0
+
+    def __post_init__(self):
+        unported = {"act_bits": self.act_bits is not None,
+                    "int8_mm_impl": self.int8_mm_impl != "xla",
+                    "remat": self.remat,
+                    "attn_dropout": self.attn_dropout > 0.0}
+        bad = [k for k, v in unported.items() if v]
+        if bad:
+            raise NotImplementedError(
+                f"DecoderConfig {bad} need code that is not ported yet; "
+                "see ROADMAP.md")
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+
+def init_decoder_params(cfg: DecoderConfig,
+                        generator: Union[int, torch.Generator] = 0, *,
+                        device=None) -> Dict:
+    """Random-init parameter dict (layer weights stacked on axis 0).
+
+    ``generator`` is a ``torch.Generator`` on ``device`` or an int seed for
+    one. The numbers differ from ``jax.random``'s; tests carry JAX's
+    parameters across with ``params_from_jax`` instead.
+    """
+    dev = resolve_device(device)
+    if isinstance(generator, int):
+        generator = torch.Generator(device=dev).manual_seed(generator)
+    d, hd = cfg.d_model, cfg.head_dim
+    nl, h, kvh, f = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+
+    def dense(shape, fan_in):
+        w = torch.randn(shape, generator=generator, device=dev,
+                        dtype=torch.float32)
+        return (w * fan_in ** -0.5).to(cfg.dtype)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=cfg.dtype, device=dev)
+
+    return {
+        "embed": dense((cfg.vocab_size, d), d),
+        "layers": {
+            "attn_norm": ones((nl, d)),
+            "wq": dense((nl, d, h * hd), d),
+            "wk": dense((nl, d, kvh * hd), d),
+            "wv": dense((nl, d, kvh * hd), d),
+            "wo": dense((nl, h * hd, d), h * hd),
+            "mlp_norm": ones((nl, d)),
+            "w_gate": dense((nl, d, f), d),
+            "w_up": dense((nl, d, f), d),
+            "w_down": dense((nl, f, d), f),
+        },
+        "final_norm": ones((d,)),
+        "lm_head": dense((d, cfg.vocab_size), d),
+    }
+
+
+def _mm(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w for a dense weight, x @ dequantize(w, x.dtype) for an int8
+    QTensor (f32 scale multiply, then one cast)."""
+    if isinstance(w, QTensor):
+        return x @ dequantize(w, x.dtype)
+    return x @ w
+
+
+def layer_params(layers: Dict, i: int) -> Dict:
+    """Layer ``i``'s slice of the stacked layer weights."""
+    return {k: (QTensor(v.values[i], v.scales[i], bits=v.bits)
+                if isinstance(v, QTensor) else v[i])
+            for k, v in layers.items()}
+
+
+def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, l, _ = x.shape
+    return x.reshape(b, l, n_heads, -1).transpose(1, 2)  # (B, H, L, hd)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, l, hd = x.shape
+    return x.transpose(1, 2).reshape(b, l, h * hd)
+
+
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    if n_rep == 1:
+        return x
+    b, kvh, l, hd = x.shape
+    return x[:, :, None].expand(b, kvh, n_rep, l, hd).reshape(b, kvh * n_rep,
+                                                              l, hd)
+
+
+def _layer(cfg: DecoderConfig, x, lp, attn_fn):
+    """One transformer block. ``attn_fn(q, k, v) -> (ctx, extras)``.
+
+    Fused projections (``wqkv`` for wq/wk/wv, ``w_gu`` for w_gate/w_up) are
+    split here.
+    """
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    if "wqkv" in lp:
+        qd = cfg.n_heads * cfg.head_dim
+        kvd = cfg.n_kv_heads * cfg.head_dim
+        qkv = _mm(h, lp["wqkv"])
+        q = _split_heads(qkv[..., :qd], cfg.n_heads)
+        k = _split_heads(qkv[..., qd:qd + kvd], cfg.n_kv_heads)
+        v = _split_heads(qkv[..., qd + kvd:], cfg.n_kv_heads)
+    else:
+        q = _split_heads(_mm(h, lp["wq"]), cfg.n_heads)
+        k = _split_heads(_mm(h, lp["wk"]), cfg.n_kv_heads)
+        v = _split_heads(_mm(h, lp["wv"]), cfg.n_kv_heads)
+    ctx, extras = attn_fn(q, k, v)
+    attn_out = _mm(_merge_heads(ctx), lp["wo"])
+    x = x + attn_out
+    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    if "w_gu" in lp:
+        gate, up = torch.chunk(_mm(h, lp["w_gu"]), 2, dim=-1)
+        mlp = _mm(F.silu(gate) * up, lp["w_down"])
+    else:
+        mlp = _mm(F.silu(_mm(h, lp["w_gate"])) * _mm(h, lp["w_up"]),
+                  lp["w_down"])
+    x = x + mlp
+    return x, attn_out, extras
+
+
+def _rope(cfg: DecoderConfig, device):
+    return rope_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
+                            device=device)
+
+
+def decoder_forward(params: Dict, cfg: DecoderConfig,
+                    tokens: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal forward: tokens (B, L) -> logits (B, L, V) f32."""
+    b, l = tokens.shape
+    x = params["embed"][tokens].to(cfg.dtype)
+    cos, sin = _rope(cfg, x.device)
+    positions = torch.arange(l, device=x.device)
+    reps = cfg.n_heads // cfg.n_kv_heads
+
+    def attn(q, k, v):
+        q = apply_rope(q, cos, sin, positions)
+        k = apply_rope(k, cos, sin, positions)
+        ctx = flash_attention_n(
+            q, _repeat_kv(k, reps), _repeat_kv(v, reps),
+            softmax_n_param=cfg.softmax_n, is_causal=True,
+            implementation=cfg.attn_implementation)
+        return ctx, None
+
+    for i in range(cfg.n_layers):
+        x, _, _ = _layer(cfg, x, layer_params(params["layers"], i), attn)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _mm(x, params["lm_head"]).float()
+
+
+# ----------------------------------------------------------------------------
+# KV-cache inference
+# ----------------------------------------------------------------------------
+
+
+def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: Optional[int] = None,
+                  dtype: Optional[Any] = None,
+                  quantization: Optional[str] = None, *, device=None) -> Dict:
+    """Preallocated KV cache (n_layers, B, KVH, S, hd); ``quantization``
+    None (dense) or 'int8'. ``length`` is a host int."""
+    dev = resolve_device(device)
+    s = max_len or cfg.max_seq_len
+    if quantization is not None:
+        from flash_attention_softmax_n_tpu_torch.quant.kv_cache import (
+            init_quantized_kv_cache,
+        )
+        cache = init_quantized_kv_cache(cfg.n_layers, batch, cfg.n_kv_heads,
+                                        s, cfg.head_dim, mode=quantization,
+                                        device=dev)
+        cache["length"] = 0
+        return cache
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, s, cfg.head_dim)
+    dt = dtype or cfg.dtype
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev),
+            "length": 0}
+
+
+def _is_quantized_cache(cache: Dict) -> bool:
+    return isinstance(cache["k"], QTensor)
+
+
+def prefill(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
+            cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Process the prompt (B, L), fill the cache in place, return the
+    last-token logits (B, V) and the cache."""
+    b, l = tokens.shape
+    x = params["embed"][tokens].to(cfg.dtype)
+    cos, sin = _rope(cfg, x.device)
+    positions = torch.arange(l, device=x.device)
+    reps = cfg.n_heads // cfg.n_kv_heads
+    quantized = _is_quantized_cache(cache)
+
+    for i in range(cfg.n_layers):
+        def attn(q, k, v, i=i):
+            q = apply_rope(q, cos, sin, positions)
+            k = apply_rope(k, cos, sin, positions)
+            if quantized:
+                from flash_attention_softmax_n_tpu_torch.quant.kv_cache import (
+                    quantize_kv,
+                )
+                for name, new in (("k", k), ("v", v)):
+                    values, scales = quantize_kv(new, cache[name].bits)
+                    cache[name].values[i, :, :, :l] = values
+                    cache[name].scales[i, :, :, :l] = scales
+            else:
+                cache["k"][i, :, :, :l] = k.to(cache["k"].dtype)
+                cache["v"][i, :, :, :l] = v.to(cache["v"].dtype)
+            ctx = flash_attention_n(
+                q, _repeat_kv(k, reps), _repeat_kv(v, reps),
+                softmax_n_param=cfg.softmax_n, is_causal=True,
+                implementation=cfg.attn_implementation)
+            return ctx, None
+
+        x, _, _ = _layer(cfg, x, layer_params(params["layers"], i), attn)
+    cache["length"] = l
+
+    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    logits = _mm(x, params["lm_head"]).float()
+    return logits[:, 0], cache
+
+
+def _cached_attention(cfg: DecoderConfig, q, k_cache, v_cache, length):
+    """Single-step attention over the dense cache; valid keys [0, length)."""
+    reps = cfg.n_heads // cfg.n_kv_heads
+    kf = _repeat_kv(k_cache, reps)
+    vf = _repeat_kv(v_cache, reps)
+    scores = torch.einsum("bhle,bhse->bhls", q.float(), kf.float())
+    scores = scores * (cfg.head_dim ** -0.5)
+    s = kf.shape[2]
+    valid = torch.arange(s, device=q.device)[None, None, None, :] < length
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = softmax_n(scores, n=cfg.softmax_n, axis=-1)
+    return torch.einsum("bhls,bhsv->bhlv", probs.to(vf.dtype), vf)
+
+
+def decode_step(params: Dict, cfg: DecoderConfig, token: torch.Tensor,
+                cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """One greedy-decode step: token (B,) -> (logits (B, V), cache), the
+    cache written in place at position ``cache['length']``."""
+    b = token.shape[0]
+    x = params["embed"][token][:, None].to(cfg.dtype)  # (B, 1, D)
+    cos, sin = _rope(cfg, x.device)
+    pos = int(cache["length"])
+    positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    quantized = _is_quantized_cache(cache)
+
+    for i in range(cfg.n_layers):
+        def attn(q, k, v, i=i):
+            q = apply_rope(q, cos, sin, positions)
+            k = apply_rope(k, cos, sin, positions)
+            if quantized:
+                from flash_attention_softmax_n_tpu_torch.quant.kv_cache import (
+                    cached_attention_quantized,
+                    update_quantized_cache,
+                )
+                kc = QTensor(cache["k"].values[i], cache["k"].scales[i])
+                vc = QTensor(cache["v"].values[i], cache["v"].scales[i])
+                update_quantized_cache(kc, k, pos)
+                update_quantized_cache(vc, v, pos)
+                ctx = cached_attention_quantized(
+                    q, kc, vc, pos + 1, softmax_n_param=cfg.softmax_n,
+                    scale=cfg.head_dim ** -0.5, compute_dtype=cfg.dtype)
+            else:
+                kc, vc = cache["k"][i], cache["v"][i]
+                kc[:, :, pos] = k[:, :, 0].to(kc.dtype)
+                vc[:, :, pos] = v[:, :, 0].to(vc.dtype)
+                ctx = _cached_attention(cfg, q, kc, vc, pos + 1)
+            return ctx.to(x.dtype), None
+
+        x, _, _ = _layer(cfg, x, layer_params(params["layers"], i), attn)
+    cache["length"] = pos + 1
+
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _mm(x, params["lm_head"]).float()
+    return logits[:, 0], cache
+
+
+def greedy_generate(params: Dict, cfg: DecoderConfig, prompt,
+                    max_new_tokens: int,
+                    kv_quantization: Optional[str] = None, *,
+                    device=None) -> torch.Tensor:
+    """Greedy decoding: prompt (B, L) -> generated tokens (B, max_new_tokens)
+    int32. ``kv_quantization``: None or 'int8'."""
+    dev = resolve_device(device)
+    prompt = torch.as_tensor(prompt, device=dev).long()
+    b, l = prompt.shape
+    cache = init_kv_cache(cfg, b, max_len=l + max_new_tokens,
+                          quantization=kv_quantization, device=dev)
+    logits, cache = prefill(params, cfg, prompt, cache)
+    token = torch.argmax(logits, dim=-1)
+    out = [token]
+    for _ in range(max_new_tokens - 1):
+        logits, cache = decode_step(params, cfg, token, cache)
+        token = torch.argmax(logits, dim=-1)
+        out.append(token)
+    return torch.stack(out, dim=1).to(torch.int32)

@@ -1,0 +1,158 @@
+"""Public fused softmax-N attention API.
+
+Counterpart of ``flash_attention_n``
+(``flash_attention_softmax_n_tpu/ops/flash_attention.py``):
+
+  * ``implementation='auto'`` or ``'pallas'``: the fused forward, kernel K1
+    on CUDA tensors and its plain version on CPU tensors; requires E == Ev;
+  * ``implementation='xla'``: the unfused formulation in plain tensor ops;
+    supports E != Ev.
+
+Inputs may be 2-D, 3-D or 4-D; 3-D K/V broadcast against 4-D Q; boolean
+masks (True = attend) become an f32 bias of -f32max/2, additive biases add
+to it, and both combine with ``is_causal``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from flash_attention_softmax_n_tpu_torch.kernels.flash_attention import (
+    flash_attention_n_fused,
+)
+from flash_attention_softmax_n_tpu_torch.ops.functional import softmax_n
+
+__all__ = ["flash_attention_n"]
+
+_BIG_NEG = -float(np.finfo(np.float32).max) / 2
+
+
+def _to_4d(x: torch.Tensor, name: str):
+    """Normalize to (B, H, L, E); returns (tensor, ndim_added)."""
+    if x.ndim == 4:
+        return x, 0
+    if x.ndim == 3:
+        return x[:, None], 1
+    if x.ndim == 2:
+        return x[None, None], 2
+    raise ValueError(f"{name} must be 2-D, 3-D, or 4-D, got {x.ndim}-D")
+
+
+def _mask_to_bias(attn_mask: torch.Tensor) -> torch.Tensor:
+    """Boolean attend-mask -> f32 additive bias (False -> -f32max/2: large
+    enough to zero the probability, small enough to avoid inf - inf)."""
+    zero = torch.zeros((), dtype=torch.float32, device=attn_mask.device)
+    return torch.where(attn_mask, zero, _BIG_NEG)
+
+
+def _bias_to_4d(b: torch.Tensor, L: int, S: int) -> torch.Tensor:
+    if b.ndim == 2:
+        b = b[None, None]
+    elif b.ndim == 3:
+        b = b[:, None]
+    elif b.ndim != 4:
+        raise ValueError("attention mask/bias must be 2-D, 3-D, or 4-D")
+    if b.shape[-2] not in (1, L) or b.shape[-1] not in (1, S):
+        raise ValueError(f"mask/bias trailing dims {tuple(b.shape[-2:])} "
+                         f"incompatible with (L={L}, S={S})")
+    if b.shape[-2] == 1 or b.shape[-1] == 1:
+        b = b.expand(*b.shape[:-2], L, S)
+    return b
+
+
+def flash_attention_n(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    softmax_n_param: Optional[float] = None,
+    scale: Optional[float] = None,
+    dropout_p: float = 0.0,
+    attn_mask: Optional[torch.Tensor] = None,
+    attn_bias: Optional[torch.Tensor] = None,
+    is_causal: bool = False,
+    *,
+    train: bool = True,
+    generator: Optional[torch.Generator] = None,
+    implementation: str = "auto",
+    mesh=None,
+) -> torch.Tensor:
+    """Scaled-dot-product attention with softmax-N (any real n >= 0).
+
+    ``attn_mask`` is boolean (True = attend); ``attn_bias`` is an additive
+    float bias; both may combine with ``is_causal``. Dropout runs on the
+    ``'xla'`` route only (the fused route's dropout is in the training
+    slice). ``mesh`` is not ported yet.
+    """
+    if mesh is not None:
+        raise NotImplementedError("sharded attention (mesh) is not ported "
+                                  "yet; see ROADMAP.md")
+    n = 0.0 if softmax_n_param is None else float(softmax_n_param)
+    if n < 0:
+        raise ValueError(f"softmax_n_param must be >= 0, got {n}")
+
+    q4, added = _to_4d(query, "query")
+    k4, _ = _to_4d(key, "key")
+    v4, _ = _to_4d(value, "value")
+
+    # MQA-style broadcast: 3-D K/V against 4-D Q shares KV across heads
+    if key.ndim == 3 and query.ndim == 4:
+        k4 = key[:, None].expand(key.shape[0], q4.shape[1], *key.shape[1:])
+        v4 = value[:, None].expand(value.shape[0], q4.shape[1],
+                                   *value.shape[1:])
+
+    L, S = q4.shape[-2], k4.shape[-2]
+    E, Ev = q4.shape[-1], v4.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(E)
+
+    bias = None
+    if attn_mask is not None:
+        if attn_mask.dtype != torch.bool:
+            raise ValueError("attn_mask must be boolean (True = attend); "
+                             "use attn_bias for additive float biases")
+        bias = _bias_to_4d(_mask_to_bias(attn_mask), L, S)
+    if attn_bias is not None:
+        b4 = _bias_to_4d(attn_bias.float(), L, S)
+        bias = b4 if bias is None else bias + b4
+
+    use_dropout = dropout_p > 0.0 and train
+    if use_dropout and generator is None:
+        raise ValueError("dropout requires generator")
+    if implementation == "auto":
+        implementation = "pallas" if E == Ev else "xla"
+    if implementation == "pallas" and E != Ev:
+        raise ValueError("pallas path requires E == Ev; use "
+                         "implementation='xla'")
+
+    if implementation == "pallas":
+        out = flash_attention_n_fused(
+            q4, k4, v4, softmax_n_param=n, scale=scale, bias=bias,
+            is_causal=is_causal,
+            dropout_rate=dropout_p if use_dropout else 0.0)
+    elif implementation == "xla":
+        scores = torch.einsum("bhle,bhse->bhls", q4.float(),
+                              k4.float()) * scale
+        if bias is not None:
+            scores = scores + bias
+        if is_causal:
+            causal = torch.ones((L, S), dtype=torch.bool,
+                                device=q4.device).tril(diagonal=S - L)
+            scores = scores.masked_fill(~causal, float("-inf"))
+        probs = softmax_n(scores, n=n, axis=-1)
+        if use_dropout:
+            keep = torch.rand(probs.shape, generator=generator,
+                              device=probs.device) < (1.0 - dropout_p)
+            probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0)
+        out = torch.einsum("bhls,bhsv->bhlv", probs.to(q4.dtype), v4)
+    else:
+        raise ValueError(f"unknown implementation {implementation!r}")
+
+    if added == 1:
+        out = out[:, 0]
+    elif added == 2:
+        out = out[0, 0]
+    return out

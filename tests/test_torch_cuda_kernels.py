@@ -1,0 +1,131 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: without a card every test skips (decided in the fixture,
+not at import). On the machine with the card run
+
+    python -m pytest tests/test_torch_cuda_kernels.py -q
+
+These cover what the serving shapes in ``chip_smoke.py`` do not: n = 0 and
+fractional n, rectangular causal with L < S and L > S (dead rows), f32
+inputs, head dims 32/64/128, ragged tiles, dense caches. Tolerances: f32
+within 2e-5 (summation order), bf16 within 2e-2 (p rounded to bf16 before
+PV, as in the plain version), lse within 1e-4; cache writes bit-exact.
+"""
+
+import pytest
+import torch
+
+from flash_attention_softmax_n_tpu_torch.kernels import _build
+from flash_attention_softmax_n_tpu_torch.kernels import cache_update as cu
+from flash_attention_softmax_n_tpu_torch.kernels import flash_attention as fa
+from flash_attention_softmax_n_tpu_torch.kernels import quant_matmul as qm
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("n", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("shape", [(200, 200, False), (150, 150, True),
+                                   (100, 164, True), (96, 40, True)])
+def test_flash_fwd_matches_plain(gen, dtype, d, n, shape):
+    L, S, causal = shape
+    q, k, v = (torch.randn((2, 3, m, d), generator=gen, device="cuda").to(dtype)
+               for m in (L, S, S))
+    before = _build.LAUNCHES["flash_fwd"]
+    o, lse = fa.flash_fwd(q, k, v, None, n=n, scale=d ** -0.5, is_causal=causal)
+    assert _build.LAUNCHES["flash_fwd"] == before + 1
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, None, n=n, scale=d ** -0.5,
+                                            is_causal=causal)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-6)
+
+
+@pytest.mark.parametrize("bias_shape", [(2, 1), (1, 3), (2, 3)])
+def test_flash_fwd_bias_broadcast(gen, bias_shape):
+    q, k, v = (torch.randn((2, 3, 70, 64), generator=gen, device="cuda")
+               for _ in range(3))
+    bias = torch.randn((*bias_shape, 70, 70), generator=gen, device="cuda")
+    bias[..., 5:9] = -torch.finfo(torch.float32).max / 2
+    o, lse = fa.flash_fwd(q, k, v, bias, n=1.0, scale=0.125, is_causal=True)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, bias, n=1.0, scale=0.125,
+                                            is_causal=True)
+    torch.testing.assert_close(o, o_ref, atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mkn", [(1, 64, 97), (13, 200, 1000), (64, 2048, 32000)])
+def test_qmm_argmax_matches_plain(gen, dtype, mkn):
+    m, k, n = mkn
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    x[-1, 3] = float("nan")  # a row whose logits are all NaN: index 0 wins
+    w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda").to(torch.int8)
+    s = torch.rand((n,), generator=gen, device="cuda") + 0.5
+    idx, val = qm.quantized_matmul_argmax(x, w, s, return_max=True)
+    idx_ref, val_ref = qm.quantized_matmul_argmax_reference(x, w, s)
+    top2 = torch.topk((x.float() @ w.float()) * s, 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 1e-4 * top2[:, 0].abs()
+    assert torch.equal(idx[decided], idx_ref[decided])
+    assert idx[-1].item() == idx_ref[-1].item() == 0
+    torch.testing.assert_close(val, val_ref, atol=0, rtol=1e-5, equal_nan=True)
+
+
+def test_qmm_argmax_first_index_wins_ties(gen):
+    x = torch.ones((3, 64), device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros((64, 300), device="cuda", dtype=torch.int8)
+    w[:, [70, 5, 260]] = 1  # a tie across tiles; column 5 is first
+    assert qm.quantized_matmul_argmax(x, w, torch.ones(300, device="cuda")).tolist() \
+        == [5, 5, 5]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cache_append_dense_bit_exact(gen, dtype):
+    caches = tuple(torch.randn((3, 5, 2, 33, 64), generator=gen, device="cuda")
+                   .to(dtype) for _ in range(2))
+    news = tuple(torch.randn((3, 5, 2, 64), generator=gen, device="cuda").to(dtype)
+                 for _ in range(2))
+    pos = torch.tensor([0, 32, 7, 7, 19], device="cuda", dtype=torch.int32)
+    got = tuple(c.clone() for c in caches)
+    want = tuple(c.clone() for c in caches)
+    cu.cache_append(got, news, pos)
+    cu.cache_append_reference(want, news, pos)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_tail_append_every_index(gen):
+    kt, vt = (torch.randn((2, 3, 4, 16, 64), generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    want = (kt.clone(), vt.clone())
+    for i in range(16):
+        kn, vn = (torch.randn((2, 3, 4, 64), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(2))
+        cu.tail_append(kt, vt, kn, vn, i)
+        cu.tail_append_reference(*want, kn, vn, i)
+    assert torch.equal(kt, want[0]) and torch.equal(vt, want[1])
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(gen):
+    q = torch.randn((1, 1, 8, 48), device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_fwd(q, q, q, None, n=1.0, scale=0.1, is_causal=False)
+    half = torch.randn((1, 1, 8, 64), device="cuda").half()
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        fa.flash_fwd(half, half, half, None, n=1.0, scale=0.1, is_causal=False)
+    # a contiguous cache that starts one byte past a word boundary
+    cache = torch.zeros(2 * 3 * 4 * 64 + 1, dtype=torch.int8,
+                        device="cuda")[1:].view(2, 3, 1, 4, 64)
+    rows = torch.ones((2, 3, 1, 64), dtype=torch.int8, device="cuda")
+    pos = torch.zeros(3, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="4-byte boundary"):
+        cu.cache_append((cache,), (rows,), pos)
+    with pytest.raises(ValueError, match="positions"):
+        cu.cache_append((cache.clone(),), (rows,), pos[:2])

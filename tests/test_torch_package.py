@@ -1,0 +1,73 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points run on the card unless told otherwise."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    code = (
+        "import sys\n"
+        "import flash_attention_softmax_n_tpu_torch as p\n"
+        "import flash_attention_softmax_n_tpu_torch.convert\n"
+        "import flash_attention_softmax_n_tpu_torch.engine\n"
+        "import flash_attention_softmax_n_tpu_torch.kernels._build\n"
+        "import flash_attention_softmax_n_tpu_torch.kernels.cache_update\n"
+        "import flash_attention_softmax_n_tpu_torch.kernels.decode_attention\n"
+        "import flash_attention_softmax_n_tpu_torch.kernels.flash_attention\n"
+        "import flash_attention_softmax_n_tpu_torch.kernels.quant_matmul\n"
+        "import flash_attention_softmax_n_tpu_torch.models\n"
+        "import flash_attention_softmax_n_tpu_torch.quant\n"
+        "import chip_smoke\n"
+        "assert p.TRITON_INSTALLED is False\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'jaxlib' or m.startswith('jaxlib.')\n"
+        "       or m == 'flash_attention_softmax_n_tpu'\n"
+        "       or m.startswith('flash_attention_softmax_n_tpu.')]\n"
+        "print(bad)\n"
+        "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_chip_smoke_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; this checks the CPU-only refusal")
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; this checks the CPU-only refusal")
+    from flash_attention_softmax_n_tpu_torch.convert import params_from_jax
+    from flash_attention_softmax_n_tpu_torch.engine import InferenceEngine
+    from flash_attention_softmax_n_tpu_torch.models import (
+        DecoderConfig,
+        greedy_generate,
+        init_decoder_params,
+    )
+    from flash_attention_softmax_n_tpu_torch.quant import init_quantized_kv_cache
+    cfg = DecoderConfig(vocab_size=16, d_model=8, n_layers=1, n_heads=2,
+                        n_kv_heads=1, d_ff=8, max_seq_len=8,
+                        dtype=torch.float32)
+    params = init_decoder_params(cfg, 0, device="cpu")
+    calls = [
+        lambda: InferenceEngine(cfg, params, piggyback_prefill=False),
+        lambda: init_decoder_params(cfg, 0),
+        lambda: params_from_jax({"embed": params["embed"].numpy()}),
+        lambda: greedy_generate(params, cfg, [[1, 2]], 2),
+        lambda: init_quantized_kv_cache(1, 1, 1, 4, 8),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

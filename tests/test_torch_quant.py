@@ -1,0 +1,172 @@
+"""Port parity: int8 quantization and the plain versions of kernels K2, K3
+and K4 against the JAX package (Pallas kernels in interpret mode).
+
+Quantization and the cache writes are held bit-exact (both sides divide in
+f32 and round half to even); the argmax's indices must be equal wherever
+the top-2 logit gap exceeds 1e-4, and its max logits agree within 1e-5
+relative (f32 accumulation in another order).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flash_attention_softmax_n_tpu.kernels import cache_update as jcu
+from flash_attention_softmax_n_tpu.kernels.quant_matmul import (
+    quantized_matmul_argmax as j_qmm_argmax,
+)
+from flash_attention_softmax_n_tpu.models import (
+    DecoderConfig as JConfig,
+    init_decoder_params as j_init,
+)
+from flash_attention_softmax_n_tpu.quant import kv_cache as jkv
+from flash_attention_softmax_n_tpu.quant import qtensor as jq
+from flash_attention_softmax_n_tpu.quant.weights import (
+    quantize_decoder_weights as j_quantize_weights,
+)
+from flash_attention_softmax_n_tpu_torch.convert import (
+    params_from_jax,
+    tensor_from_numpy,
+)
+from flash_attention_softmax_n_tpu_torch.kernels import cache_update as tcu
+from flash_attention_softmax_n_tpu_torch.kernels.quant_matmul import (
+    quantized_matmul_argmax as t_qmm_argmax,
+)
+from flash_attention_softmax_n_tpu_torch.quant import kv_cache as tkv
+from flash_attention_softmax_n_tpu_torch.quant import qtensor as tq
+from flash_attention_softmax_n_tpu_torch.quant.weights import (
+    quantize_decoder_weights as t_quantize_weights,
+)
+
+torch.set_num_threads(2)
+
+
+def _t(a):
+    return tensor_from_numpy(a, "cpu")
+
+
+@pytest.mark.parametrize("axis", [-1, 0, -2])
+def test_quantize_bit_exact(axis):
+    rng = np.random.RandomState(0)
+    x = rng.randn(3, 40, 24).astype(np.float32)
+    x[0, :, 0] = 0.0  # an all-zero slice takes scale 0
+    x[1, 5, :] = np.linspace(-2.5, 2.5, 24)  # values on .5 boundaries
+    jqt = jq.quantize(jnp.asarray(x), bits=8, axis=axis)
+    tqt = tq.quantize(_t(x), bits=8, axis=axis)
+    np.testing.assert_array_equal(tqt.values.numpy(), np.asarray(jqt.values))
+    np.testing.assert_array_equal(tqt.scales.numpy(), np.asarray(jqt.scales))
+    np.testing.assert_array_equal(tq.dequantize(tqt).numpy(),
+                                  np.asarray(jq.dequantize(jqt)))
+
+
+def test_quantize_kv_bit_exact():
+    x = np.random.RandomState(1).randn(2, 3, 17, 32).astype(np.float32) * 3
+    jv, js = jkv.quantize_kv(jnp.asarray(x), 8)
+    tv, ts = tkv.quantize_kv(_t(x), 8)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+def test_quantize_decoder_weights_bit_exact():
+    cfg = JConfig(vocab_size=50, d_model=32, n_layers=2, n_heads=4,
+                  n_kv_heads=2, d_ff=48, max_seq_len=16, dtype=jnp.float32)
+    jp = j_init(cfg, jax.random.PRNGKey(0))
+    want = params_from_jax(jax.tree.map(np.asarray, j_quantize_weights(jp, 8)),
+                           device="cpu")
+    got = t_quantize_weights(params_from_jax(jax.tree.map(np.asarray, jp),
+                                             device="cpu"), 8)
+    for name in ("wq", "w_down"):
+        assert got["layers"][name].scales.shape == (2, 1, want["layers"][
+            name].values.shape[-1])
+        assert torch.equal(got["layers"][name].values, want["layers"][name].values)
+        assert torch.equal(got["layers"][name].scales, want["layers"][name].scales)
+    assert torch.equal(got["lm_head"].values, want["lm_head"].values)
+    assert torch.equal(got["embed"], want["embed"])
+
+
+def test_int4_and_fp8_raise():
+    x = torch.ones(4, 8)
+    for bits in (4, -8):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tq.quantize(x, bits=bits)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tkv.init_quantized_kv_cache(1, 1, 1, 4, 8, mode="fp8", device="cpu")
+
+
+@pytest.mark.parametrize("m", [1, 8, 13])
+def test_qmm_argmax_matches_pallas(m):
+    rng = np.random.RandomState(m)
+    k, n = 256, 1000
+    x = rng.randn(m, k).astype(np.float32)
+    w = rng.randint(-127, 128, size=(k, n)).astype(np.int8)
+    s = (rng.rand(1, n).astype(np.float32) + 0.5) / 127.0
+    j_idx, j_val = j_qmm_argmax(jnp.asarray(x), jnp.asarray(w), jnp.asarray(s),
+                                return_max=True)
+    t_idx, t_val = t_qmm_argmax(_t(x), _t(w), _t(s), return_max=True)
+    assert t_idx.dtype == torch.int32
+    logits = (x.astype(np.float64) @ w.astype(np.float64)) * s
+    top2 = np.sort(logits, axis=-1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > 1e-4
+    np.testing.assert_array_equal(t_idx.numpy()[decided],
+                                  np.asarray(j_idx)[decided])
+    np.testing.assert_allclose(t_val.numpy(), np.asarray(j_val), rtol=1e-5)
+
+
+def test_qmm_argmax_first_index_wins_ties():
+    x = torch.ones(2, 4)
+    w = torch.zeros(4, 6, dtype=torch.int8)
+    w[:, 2] = 1
+    w[:, 4] = 1  # columns 2 and 4 tie
+    idx = t_qmm_argmax(x, w, torch.ones(6))
+    assert idx.tolist() == [2, 2]
+
+
+def test_cache_append_bit_exact_and_in_place():
+    rng = np.random.RandomState(2)
+    nl, b, kvh, s, d = 2, 3, 2, 16, 8
+    vals = rng.randint(-128, 128, size=(nl, b, kvh, s, d)).astype(np.int8)
+    scls = rng.rand(nl, b, kvh, s, 1).astype(np.float32)
+    new_v = rng.randint(-128, 128, size=(nl, b, kvh, d)).astype(np.int8)
+    new_s = rng.rand(nl, b, kvh, 1).astype(np.float32)
+    pos = np.array([0, 9, 15], np.int32)
+    jv, js = jcu.cache_append((jnp.asarray(vals), jnp.asarray(scls)),
+                              (jnp.asarray(new_v), jnp.asarray(new_s)),
+                              jnp.asarray(pos))
+    tv, ts = _t(vals), _t(scls)
+    out = tcu.cache_append((tv, ts), (_t(new_v), _t(new_s)), _t(pos))
+    assert out[0] is tv and out[1] is ts
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+def test_tail_append_bit_exact_and_in_place():
+    rng = np.random.RandomState(3)
+    shape = (2, 3, 2, 8, 16)
+    kt, vt = (rng.randn(*shape).astype(np.float32) for _ in range(2))
+    kn, vn = (rng.randn(*shape[:3], 16).astype(np.float32) for _ in range(2))
+    jk, jv = jcu.tail_append(jnp.asarray(kt), jnp.asarray(vt), jnp.asarray(kn),
+                             jnp.asarray(vn), jnp.asarray(5, jnp.int32))
+    tk, tv = _t(kt), _t(vt)
+    out = tcu.tail_append(tk, tv, _t(kn), _t(vn), 5)
+    assert out[0] is tk and out[1] is tv
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_quantized_cached_attention_matches_jax():
+    # decode_step's int8 cache attention (greedy_generate with int8 KV)
+    rng = np.random.RandomState(4)
+    q = rng.randn(2, 4, 1, 16).astype(np.float32)
+    kc = rng.randn(2, 2, 10, 16).astype(np.float32)
+    vc = rng.randn(2, 2, 10, 16).astype(np.float32)
+    jk, jv = (jq.QTensor(*jkv.quantize_kv(jnp.asarray(a), 8)) for a in (kc, vc))
+    tk, tv = (tq.QTensor(*tkv.quantize_kv(_t(a), 8)) for a in (kc, vc))
+    want = jkv.cached_attention_quantized(
+        jnp.asarray(q), jk, jv, 7, softmax_n_param=1.0, scale=0.25,
+        compute_dtype=jnp.float32)
+    got = tkv.cached_attention_quantized(
+        _t(q), tk, tv, 7, softmax_n_param=1.0, scale=0.25,
+        compute_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
