@@ -15,19 +15,35 @@ Phases, in order, each printing one JSON line:
 3. kernels: runs K1 flash_fwd, K2 qmm_argmax, K3 cache_append and K4
    tail_append on the card at serving shapes and holds each against its
    plain PyTorch version on the same card tensors;
-4. serving: the TinyLlama-1.1B shape (random weights from a seed, int8
+4. train kernels: K1 with ALiBi and dropout, K5 flash_bwd_dq and K6
+   flash_bwd_dkv against their plain versions (B2 H4 L200 S264 with bias,
+   ALiBi and dropout, f32 and bf16, n 0 and 1; then the training shape B2
+   H32 L=S=2048 d64 bf16 causal with dropout, timed), each run twice and
+   required bit-equal, and the three kernels' dropout masks required
+   bit-equal to the plain hash;
+5. serving: the TinyLlama-1.1B shape (random weights from a seed, int8
    weights, int8 KV) serves 96 requests through the fused decode loop and 4
    through the step path, counting each kernel's launches on those runs, and
    checks the tokens against ``greedy_generate`` and a teacher-forced
    ``decoder_forward``;
-5. profile: one 16-step fused chunk of 64 requests under ``torch.profiler``
+6. profile: one 16-step fused chunk of 64 requests under ``torch.profiler``
    gives the device's busy time, its idle share and the kernels that fill
-   it.
+   it;
+7. train_agreement: the TinyLlama-1.1B width at 2 layers in f32: every
+   parameter gradient of ``causal_lm_loss`` through the fused route (K1,
+   K5, K6) against the same through plain tensor ops (``"xla"``), relative
+   L2 error at most 1e-3;
+8. train: the full TinyLlama-1.1B shape (22 layers, bf16, n = 1, attention
+   dropout 0.1, remat) takes 4 AdamW steps on one B2 x L2048 batch through
+   ``make_train_step``, counting the kernels' launches; the losses must be
+   finite and fall, the gradients finite and not all zero; a fifth step
+   runs under ``torch.profiler``.
 
-Then it prints the kernels' JSON line (times, launches, bounds), the card's
-name and power limit from nvidia-smi, and last
-``{"ok": true, "device": {...}}``. Any failed check exits non-zero. The
-port is imported from the checkout; nothing of JAX is imported.
+Then it prints the kernels' JSON line (times, launches on the serving or
+the training run, bounds), the card's name and power limit from
+nvidia-smi, and last ``{"ok": true, "device": {...}}``. Any failed check
+exits non-zero. The port is imported from the checkout; nothing of JAX is
+imported.
 """
 
 from __future__ import annotations
@@ -40,8 +56,10 @@ from pathlib import Path
 
 import numpy as np
 
-# NVIDIA H100 SXM data sheet (dense): bf16 tensor-core peak and HBM3 rate
+# NVIDIA H100 SXM data sheet (dense): bf16 tensor-core peak, f32 peak
+# outside the tensor cores, and the HBM3 rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 TIMED_RUNS = 25
 
@@ -62,9 +80,9 @@ def require(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def bound_ms(bytes_moved: float, flops: float = 0.0):
+def bound_ms(bytes_moved: float, flops: float = 0.0, peak_flops: float = PEAK_BF16_FLOPS):
     t_bytes = bytes_moved / PEAK_HBM_BYTES
-    t_ops = flops / PEAK_BF16_FLOPS
+    t_ops = flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -288,7 +306,237 @@ def check_tail_append(torch, pkg, gen, *, NL, B, KVH, W, D):
 
 
 # ----------------------------------------------------------------------------
-# phase 4: serving at the TinyLlama-1.1B shape
+# phase 4: the training kernels (K1 with ALiBi and dropout, K5, K6)
+# ----------------------------------------------------------------------------
+
+FLASH_PY = f"{TPU_PKG}/kernels/flash_attention.py"
+CSRC = "flash_attention_softmax_n_tpu_torch/csrc"
+
+
+def attn_inputs(torch, gen, dtype, *, B, H, L, S, D, bias_shape=None, alibi=False, rate=0.0):
+    q, k, v, do = (torch.randn((B, H, m, D), generator=gen, device="cuda").to(dtype)
+                   for m in (L, S, S, L))
+    ex = {"bias": None, "slopes": None, "seed": None, "dropout_rate": rate}
+    if bias_shape is not None:
+        ex["bias"] = 0.5 * torch.randn((*bias_shape, L, S), generator=gen, device="cuda")
+    if alibi:
+        ex["slopes"] = torch.tensor([2.0 ** -(i % 8 + 1) for i in range(H)], device="cuda")
+    if rate > 0:
+        ex["seed"] = torch.tensor([-123457], dtype=torch.int32, device="cuda")
+    return q, k, v, do, ex
+
+
+def run_fwd(fa, plain, q, k, v, ex, *, n, causal):
+    fwd = fa.flash_fwd_reference if plain else fa.flash_fwd
+    return fwd(q, k, v, ex["bias"], n=n, scale=q.shape[-1] ** -0.5, is_causal=causal,
+               slopes=ex["slopes"], seed=ex["seed"], dropout_rate=ex["dropout_rate"])
+
+
+def run_bwd(fa, plain, q, k, v, do, o, lse, ex, *, causal):
+    """(dq, dk, dv, dbias, dslopes) through K5/K6 or their plain version"""
+    bwd = fa.flash_bwd_reference if plain else fa.flash_bwd
+    return bwd(q, k, v, ex["bias"], ex["slopes"], ex["seed"], o, lse, do,
+               scale=q.shape[-1] ** -0.5, is_causal=causal, dropout_rate=ex["dropout_rate"])
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|)"""
+    return float((got.float() - want.float()).abs().max()) / max(
+        1.0, float(want.float().abs().max()))
+
+
+def o_excess(got, want, want_abs) -> float:
+    """max of |o - o_plain| - (2^-7 |o_plain| + 2^-8 o_abs), o_abs the plain
+    forward with |v|: o may round one bf16 ulp apart, and each p, rounded
+    to bf16 against the running maximum in the kernel and the final one in
+    the plain version, half a bf16 ulp apart on either side"""
+    tol = 2.0 ** -7 * want.float().abs() + 2.0 ** -8 * want_abs.float()
+    return float(((got.float() - want.float()).abs() - tol).max())
+
+
+def check_attention(torch, fa, gen, dtype, *, n, causal, shape, **extras):
+    """K1, K5 and K6 against their plain versions on one input, each run
+    twice; both backward versions take the plain forward's o and lse, so
+    each kernel is held alone. Returns the inputs and the errors."""
+    B, H, L, S, D = shape
+    q, k, v, do, ex = attn_inputs(torch, gen, dtype, B=B, H=H, L=L, S=S, D=D, **extras)
+    o, lse = run_fwd(fa, False, q, k, v, ex, n=n, causal=causal)
+    o_ref, lse_ref = run_fwd(fa, True, q, k, v, ex, n=n, causal=causal)
+    o_abs = run_fwd(fa, True, q, k, v.abs(), ex, n=n, causal=causal)[0]
+    got = run_bwd(fa, False, q, k, v, do, o_ref, lse_ref, ex, causal=causal)
+    want = run_bwd(fa, True, q, k, v, do, o_ref, lse_ref, ex, causal=causal)
+    again = (*run_fwd(fa, False, q, k, v, ex, n=n, causal=causal),
+             *run_bwd(fa, False, q, k, v, do, o_ref, lse_ref, ex, causal=causal))
+    torch.cuda.synchronize()
+    first = (o, lse, *got)
+    repeat_equal = all((a is None and b is None) or torch.equal(a, b)
+                       for a, b in zip(first, again))
+    errs = {"o": float((o.float() - o_ref.float()).abs().max()),
+            "o_excess": o_excess(o, o_ref, o_abs),
+            "lse": float((lse - lse_ref).abs().max())}
+    for name, g, w in zip(("dq", "dk", "dv", "dbias", "dslopes"), got, want):
+        require((g is None) == (w is None), f"{name}: kernel and plain disagree on presence")
+        if g is not None:
+            errs[name] = rel_err(g, w)
+    f32 = dtype == torch.float32
+    gtol = 1e-4 if f32 else 2e-2
+    o_ok = errs["o"] <= 2e-5 if f32 else errs["o_excess"] <= 1e-6
+    name = (f"B{B} H{H} L{L} S{S} d{D} {'f32' if f32 else 'bf16'} n{n:g} "
+            f"{'causal' if causal else 'full'} {sorted(k for k, v in extras.items() if v)}")
+    require(o_ok and errs["lse"] <= 1e-3, f"K1 {name}: o/lse off the plain version: {errs}")
+    grad_errs = {k_: e for k_, e in errs.items() if k_ not in ("o", "o_excess", "lse")}
+    require(max(grad_errs.values()) <= gtol,
+            f"K5/K6 {name}: gradients off the plain version (tol {gtol} of max(1, |plain|)): "
+            f"{grad_errs}")
+    require(repeat_equal, f"{name}: two calls of the kernels are not bit-equal")
+    return (q, k, v, do, ex, o_ref, lse_ref), errs, name
+
+
+def check_dropout_masks(torch, fa):
+    """q = k = 0 makes p uniform (1/S), so the kept entries show directly:
+    K1's o with v = I, K5's dbias (= ds = dropped p times dp = 1, against
+    o = 0 and lse = log S) and K6's dv with dout = I are nonzero exactly
+    where the plain hash keeps."""
+    B, H, N, rate = 2, 4, 128, 0.3
+    z = torch.zeros((B, H, N, N), device="cuda")
+    eye = torch.eye(N, device="cuda").expand(B, H, N, N).contiguous()
+    e0 = torch.zeros_like(z)
+    e0[..., 0] = 1.0
+    seed = torch.tensor([-99], dtype=torch.int32, device="cuda")
+    keep = fa.dropout_multiplier(seed, (B, H, N, N), rate, "cuda") > 0
+    lse = torch.full((B, H, N), float(np.log(N)), device="cuda")
+    o, _ = fa.flash_fwd(z, z, eye, None, n=0.0, scale=1.0, is_causal=False, seed=seed,
+                        dropout_rate=rate)
+    dbias = fa.flash_bwd(z, z, e0, torch.zeros((1, 1, N, N), device="cuda"), None, seed, z,
+                         lse, e0, scale=1.0, is_causal=False, dropout_rate=rate)[3]
+    dv = fa.flash_bwd(z, z, z, None, None, seed, z, lse, eye, scale=1.0, is_causal=False,
+                      dropout_rate=rate)[2]
+    torch.cuda.synchronize()
+    equal = {"flash_fwd": bool(torch.equal(o != 0, keep)),
+             "flash_bwd_dq": bool(torch.equal(dbias != 0, keep)),
+             "flash_bwd_dkv": bool(torch.equal(dv.transpose(-1, -2) != 0, keep))}
+    emit({"phase": "dropout_masks", "shape": [B, H, N, N], "rate": rate,
+          "kept_share": float(keep.float().mean()), "bit_equal": equal})
+    require(all(equal.values()), f"a kernel's dropout mask differs from the plain hash: {equal}")
+
+
+def train_kernel_lines(torch, pkg, gen):
+    """The three kernels at the training shape (B2 H32 L=S=2048 d64 bf16
+    causal, n = 1, dropout 0.1, as every layer of the train phase runs
+    them): errors, and times against their bounds, plain versions and
+    scaled_dot_product_attention with one zero key/value row prepended."""
+    fa, ops = pkg["flash_attention"], pkg["build"].ops()
+    B, H, L, D, n, rate = 2, 32, 2048, 64, 1.0, 0.1
+    (q, k, v, do, ex, o, lse), errs, name = check_attention(
+        torch, fa, gen, torch.bfloat16, n=n, causal=True, shape=(B, H, L, L, D), rate=rate)
+    scale = D ** -0.5
+    pairs = B * H * L * (L + 1) / 2  # causal (query, key) pairs
+    bhld, bhl = B * H * L * D, B * H * L
+
+    # the operators alone, with the arguments the wrappers give them
+    scale_q = float(torch.tensor(scale, dtype=q.dtype))
+    thresh, mult = min(int(round(rate * 2 ** 31)), 2 ** 31 - 1), float(np.float32(1 / (1 - rate)))
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+    def k5():
+        ops.flash_bwd_dq(q, k, v, None, None, ex["seed"], do, lse, delta, dq, None, None,
+                         scale_q, scale, True, thresh, mult)
+
+    def k6():
+        ops.flash_bwd_dkv(q, k, v, None, None, ex["seed"], do, lse, delta, dk, dv, scale_q,
+                          True, thresh, mult)
+
+    def k1():
+        return run_fwd(fa, False, q, k, v, ex, n=n, causal=True)
+
+    slopes = torch.tensor([2.0 ** -(i % 8 + 1) for i in range(H)], device="cuda")
+
+    def k1_alibi():
+        return run_fwd(fa, False, q, k, v, {**ex, "slopes": slopes}, n=n, causal=True)
+
+    def plain_fwd():
+        return run_fwd(fa, True, q, k, v, ex, n=n, causal=True)
+
+    def plain_bwd():
+        return run_bwd(fa, True, q, k, v, do, o, lse, ex, causal=True)
+
+    def wrapper_bwd():
+        return run_bwd(fa, False, q, k, v, do, o, lse, ex, causal=True)
+
+    # the library yardstick: SDPA over K/V with one zero row prepended (n = 1)
+    # under the same causal mask and dropout rate; backward timed alone
+    zrow = torch.zeros((B, H, 1, D), dtype=q.dtype, device="cuda")
+    causal = torch.ones((L, L), dtype=torch.bool, device="cuda").tril()
+    mask1 = torch.cat([torch.ones((L, 1), dtype=torch.bool, device="cuda"), causal], -1)
+    ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                  for t in (q, torch.cat([zrow, k], 2), torch.cat([zrow, v], 2)))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=mask1, dropout_p=rate, scale=scale)
+
+    out_l = sdpa()
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out_l, (ql, kl, vl), do, retain_graph=True)
+
+    plain_bwd_ms, library_bwd_ms = time_ms(torch, plain_bwd), time_ms(torch, sdpa_bwd)
+    common = {"route": "cuda", "tolerance": "o: 2^-7 |o_plain| + 2^-8 (p|v|)_plain; grads: "
+                                            "2e-2 of max(1, |plain|); repeat calls bit-equal",
+              "path": "train"}
+    b1, by1 = bound_ms(4 * bhld * 2 + bhl * 4, 4.0 * D * pairs)
+    b5, by5 = bound_ms(5 * bhld * 2 + 2 * bhl * 4, 6.0 * D * pairs)
+    b6, by6 = bound_ms(6 * bhld * 2 + 2 * bhl * 4, 8.0 * D * pairs)
+    shape = f"B{B} H{H} L{L} S{L} d{D} bf16 causal n1 dropout {rate}"
+    lines = [
+        {**common, "name": f"flash_fwd +dropout {shape}", "counter": "flash_fwd",
+         "source": f"{CSRC}/flash_fwd.cu",
+         "replaces": f"{FLASH_PY}:345 _fwd_single_kernel, :279 _fwd_kernel, "
+                     ":501 _fwd_pipeline_kernel (ALiBi and dropout)",
+         "max_abs_err": errs["o"], "max_abs_err_lse": errs["lse"], "ms": time_ms(torch, k1),
+         "ms_with_alibi": time_ms(torch, k1_alibi),
+         "device_ms": device_ms(torch, k1, "flash_fwd_kernel"),
+         "plain_ms": time_ms(torch, plain_fwd), "bound_ms": b1, "bound_by": by1,
+         "library_ms": time_ms(torch, sdpa)},
+        {**common, "name": f"flash_bwd_dq {shape}", "counter": "flash_bwd_dq",
+         "source": f"{CSRC}/flash_bwd_dq.cu", "replaces": f"{FLASH_PY}:685 _bwd_dq_kernel",
+         "max_abs_err": errs["dq"], "ms": time_ms(torch, k5),
+         "device_ms": device_ms(torch, wrapper_bwd, "flash_bwd_dq_kernel"),
+         "plain_ms": plain_bwd_ms, "bound_ms": b5, "bound_by": by5,
+         "library_ms": library_bwd_ms},
+        {**common, "name": f"flash_bwd_dkv {shape}", "counter": "flash_bwd_dkv",
+         "source": f"{CSRC}/flash_bwd_dkv.cu", "replaces": f"{FLASH_PY}:777 _bwd_dkv_kernel",
+         "max_abs_err": max(errs["dk"], errs["dv"]), "ms": time_ms(torch, k6),
+         "device_ms": device_ms(torch, wrapper_bwd, "flash_bwd_dkv_kernel"),
+         "plain_ms": plain_bwd_ms, "bound_ms": b6, "bound_by": by6,
+         "library_ms": library_bwd_ms},
+    ]
+    for line in lines:
+        emit({"phase": "kernel", **{k_: line.get(k_) for k_ in (
+            "name", "max_abs_err", "tolerance", "ms", "ms_with_alibi", "device_ms", "plain_ms",
+            "library_ms")}})
+    emit({"phase": "kernel_note", "note": "flash_bwd plain_ms and library_ms cover dq, dk "
+          "and dv together (one plain backward, one SDPA backward); max_abs_err of the "
+          "backward lines is relative to max(1, |plain|)"})
+    return lines
+
+
+def train_kernels(torch, pkg, gen):
+    fa = pkg["flash_attention"]
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (0.0, 1.0):
+            _, errs, name = check_attention(
+                torch, fa, gen, dtype, n=n, causal=True, shape=(2, 4, 200, 264, 64),
+                bias_shape=(1, 4), alibi=True, rate=0.25)
+            emit({"phase": "kernel_check", "name": name, "errors": errs,
+                  "repeat_bit_equal": True})
+    check_dropout_masks(torch, fa)
+    return train_kernel_lines(torch, pkg, gen)
+
+
+# ----------------------------------------------------------------------------
+# phase 5: serving at the TinyLlama-1.1B shape
 # ----------------------------------------------------------------------------
 
 
@@ -323,7 +571,9 @@ def profile_chunk(torch, eng_mod, cfg, params):
     time and once under ``torch.profiler`` for the device's busy time and
     the kernels that fill it. Busy time is the sum of kernel and copy times
     (one stream, so they do not overlap); the idle share is against the
-    unprofiled wall time."""
+    unprofiled wall time. Annotation ranges on the device timeline (such
+    as ``Optimizer.step``) enclose kernels already counted and are left
+    out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -346,7 +596,7 @@ def profile_chunk(torch, eng_mod, cfg, params):
         wall_profiled = run()
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             ms, calls = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
@@ -461,11 +711,143 @@ def serve(torch, pkg):
     require(tf_agree >= 0.8, f"teacher-forced argmax share {tf_agree} < 0.8")
     require(deficit <= 0.5, f"teacher-forced logit deficit {deficit} > 0.5")
     # the main path is both runs: the fused loop (K1, K2, K4) and the step
-    # path near max_len (K1, K3); every kernel must have run in them
+    # path near max_len (K1, K3); every serving kernel must have run in them
     launches = {k: fused_launches[k] + step_launches[k] for k in fused_launches}
-    for name, count in launches.items():
-        require(count > 0, f"the serving runs never launched {name}")
+    for name in ("flash_fwd", "qmm_argmax", "cache_append", "tail_append"):
+        require(launches[name] > 0, f"the serving runs never launched {name}")
     profile_chunk(torch, eng_mod, cfg, params)
+    return launches
+
+
+# ----------------------------------------------------------------------------
+# phases 7-8: training at the TinyLlama-1.1B width
+# ----------------------------------------------------------------------------
+
+TINYLLAMA = dict(vocab_size=32000, d_model=2048, n_heads=32, n_kv_heads=4, d_ff=5632,
+                 max_seq_len=2048, softmax_n=1.0)
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return [x for k in tree for x in leaves(tree[k], f"{path}/{k}")]
+    return [(path, tree)]
+
+
+def train_agreement(torch, pkg):
+    """Every parameter gradient of causal_lm_loss at the TinyLlama-1.1B width
+    (2 layers, f32, B2 L1024, no dropout) through the fused route (K1, K5,
+    K6) against the same through plain tensor ops: relative L2 error at most
+    1e-3, the f32-on-GPU tolerance of BASELINE.md."""
+    dec, tr, build = pkg["decoder"], pkg["train"], pkg["build"]
+    kw = dict(TINYLLAMA, n_layers=2, dtype=torch.float32)
+    params = dec.init_decoder_params(dec.DecoderConfig(**kw), 1, device="cuda")
+    named = leaves(params)
+    for _, p in named:
+        p.requires_grad_(True)
+    tokens = torch.from_numpy(
+        np.random.RandomState(1).randint(0, kw["vocab_size"], size=(2, 1024))).cuda()
+    grads, losses, launches = {}, {}, {}
+    for impl in ("pallas", "xla"):
+        cfg = dec.DecoderConfig(**kw, attn_implementation=impl)
+        build.reset_launches()
+        loss = tr.causal_lm_loss(params, cfg, tokens)
+        grads[impl] = torch.autograd.grad(loss, [p for _, p in named])
+        torch.cuda.synchronize()
+        launches[impl] = {k: build.LAUNCHES[k] for k in TRAIN_KERNELS}
+        losses[impl] = loss.item()
+    errs = {path: float(torch.linalg.vector_norm((a - b).float())
+                        / torch.linalg.vector_norm(b.float()))
+            for (path, _), a, b in zip(named, grads["pallas"], grads["xla"])}
+    worst = max(errs.values())
+    emit({"phase": "train_agreement", "config": "TinyLlama-1.1B width, 2 layers, f32, B2 L1024",
+          "card": pkg["nvidia_smi"],
+          "loss": losses, "rel_l2_err": errs, "max_rel_l2_err": worst, "tolerance": 1e-3,
+          "launches": launches})
+    require(worst <= 1e-3, f"fused-route gradients differ from plain ops: {worst} > 1e-3")
+    require(all(launches["pallas"][k] > 0 for k in TRAIN_KERNELS),
+            f"the fused route did not launch every training kernel: {launches['pallas']}")
+    require(all(v == 0 for v in launches["xla"].values()), "the xla route launched a kernel")
+
+
+def profile_step(torch, step_fn, wall_s):
+    """One training step under torch.profiler: the device's busy time (kernel
+    and copy times on one stream, annotation ranges left out), its idle
+    share against ``wall_s`` (an unprofiled step's wall time), and the
+    kernels that fill it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            ms, calls = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    ours = {}
+    for name, (ms, calls) in by_name.items():
+        for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+            if kernel in name:
+                prev_ms, prev_calls = ours.get(kernel, (0.0, 0))
+                ours[kernel] = (prev_ms + ms, prev_calls + calls)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    emit({"phase": "train_profile", "wall_s_unprofiled": wall_s,
+          "device_busy_s": busy_ms / 1e3 if busy_ms else None,
+          "idle_share": 1.0 - busy_ms / 1e3 / wall_s if busy_ms else None,
+          "device_ops": sum(c for _, c in by_name.values()),
+          "port_kernels": {k: {"calls": c, "ms": ms, "ms_per_call": ms / c}
+                           for k, (ms, c) in sorted(ours.items())},
+          "top": [{"name": name[:90], "ms": ms, "calls": calls}
+                  for name, (ms, calls) in top]})
+
+
+def train(torch, pkg):
+    """4 AdamW steps (lr 3e-4) at the full TinyLlama-1.1B shape: 22 layers,
+    bf16, n = 1, attention dropout 0.1, remat, one B2 x L2048 batch from
+    numpy.random.RandomState(0), random weights from seed 0."""
+    dec, tr, build = pkg["decoder"], pkg["train"], pkg["build"]
+    cfg = dec.DecoderConfig(**TINYLLAMA, n_layers=22, dtype=torch.bfloat16, attn_dropout=0.1,
+                            remat=True)
+    init, step = tr.make_train_step(cfg, learning_rate=3e-4)
+    params, opt = init(dec.init_decoder_params(cfg, 0, device="cuda"))
+    b, l = 2, 2048
+    tokens = torch.from_numpy(
+        np.random.RandomState(0).randint(0, cfg.vocab_size, size=(b, l))).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    losses, walls = [], []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, tokens, generator=gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = {k: build.LAUNCHES[k] for k in TRAIN_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    grad_ok = {path: bool(torch.isfinite(p.grad).all()) and float(p.grad.abs().max()) > 0
+               for path, p in leaves(params)}
+    emit({"phase": "train", "config": "TinyLlama-1.1B shape, 22 layers, bf16, n 1, "
+                                      "attn_dropout 0.1, remat, AdamW lr 3e-4, B2 L2048",
+          "card": pkg["nvidia_smi"],
+          "losses": losses, "step_wall_s": walls,
+          "tokens_per_s": [b * l / w for w in walls], "max_memory_allocated": peak,
+          "launches": launches,
+          "launches_expected": {"flash_fwd": 44 * 4, "flash_bwd_dq": 22 * 4,
+                                "flash_bwd_dkv": 22 * 4},
+          "grads_finite_nonzero": all(grad_ok.values())})
+    require(all(np.isfinite(losses)), f"a training loss is not finite: {losses}")
+    require(losses[-1] < losses[0], f"the loss did not fall over 4 steps: {losses}")
+    require(all(grad_ok.values()),
+            f"gradients not finite or all zero: {[k for k, v in grad_ok.items() if not v]}")
+    for name, count in launches.items():
+        require(count > 0, f"the training run never launched {name}")
+    profile_step(torch, lambda: step(params, opt, tokens, generator=gen),
+                 float(np.median(walls[1:])))
     return launches
 
 
@@ -488,6 +870,7 @@ def main() -> int:
         from flash_attention_softmax_n_tpu_torch.ops import (
             flash_attention as ops_flash_attention,
         )
+        from flash_attention_softmax_n_tpu_torch.parallel import train as train_mod
         from flash_attention_softmax_n_tpu_torch.quant import weights
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
@@ -495,13 +878,14 @@ def main() -> int:
     pkg = {"build": _build, "flash_attention": flash_attention,
            "ops_flash_attention": ops_flash_attention, "quant_matmul": quant_matmul,
            "cache_update": cache_update, "decoder": decoder, "engine": engine,
-           "weights": weights}
+           "weights": weights, "train": train_mod}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
+    pkg["nvidia_smi"] = smi
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -533,12 +917,17 @@ def main() -> int:
         check_tail_append(torch, pkg, gen, NL=22, B=256, KVH=4, W=64, D=64),
     ]
     for kd in kernels:
+        kd["path"] = "serve"
         emit({"phase": "kernel", **{k: kd[k] for k in ("name", "max_abs_err", "tolerance", "ms",
                                                        "device_ms", "plain_ms", "library_ms")}})
+    kernels += train_kernels(torch, pkg, gen)
 
-    launches = serve(torch, pkg)
+    # each main path's launches: counts set to 0 just before it, read after
+    launches = {"serve": serve(torch, pkg)}
+    train_agreement(torch, pkg)
+    launches["train"] = train(torch, pkg)
     for kd in kernels:
-        kd["launches"] = launches[kd.pop("counter")]
+        kd["launches"] = launches[kd.pop("path")][kd.pop("counter")]
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

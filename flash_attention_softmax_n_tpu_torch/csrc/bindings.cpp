@@ -58,23 +58,20 @@ void check_shape(const at::Tensor& t, at::IntArrayRef shape, at::ScalarType dtyp
                     " must be ", dtype, " ", shape, ", got ", t.scalar_type(), " ", t.sizes());
 }
 
-void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
-               const std::optional<at::Tensor>& bias, const at::Tensor& o, const at::Tensor& lse,
-               double scale, double n, bool causal) {
-  const char* what = "flash_fwd";
+// the attention inputs that K1, K5 and K6 share (launchers.h FasnAttn)
+FasnAttn attn_args(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+                   const std::optional<at::Tensor>& bias, const std::optional<at::Tensor>& slopes,
+                   const std::optional<at::Tensor>& seed, double scale_q, bool causal,
+                   int64_t drop_threshold, double drop_mult, const char* what) {
   TORCH_CHECK_VALUE(q.dim() == 4 && k.dim() == 4, what, ": q and k must be (B, H, L|S, D)");
-  const c10::cuda::CUDAGuard guard(q.device());
   const int64_t B = q.size(0), H = q.size(1), L = q.size(2), D = q.size(3), S = k.size(2);
-  const int dtype = dtype_code(q, what);
-  TORCH_CHECK_VALUE(D == 32 || D == 64 || D == 128,
-                    "flash_fwd head dim must be one of (32, 64, 128), got ", D);
-  for (const at::Tensor* t : {&q, &k, &v, &o, &lse}) check_on(*t, q, what);
+  FasnAttn a{};
+  a.dtype = dtype_code(q, what);
+  TORCH_CHECK_VALUE(D == 32 || D == 64 || D == 128, what,
+                    " head dim must be one of (32, 64, 128), got ", D);
+  for (const at::Tensor* t : {&q, &k, &v}) check_on(*t, q, what);
   check_shape(k, {B, H, S, D}, q.scalar_type(), what, "k");
   check_shape(v, {B, H, S, D}, q.scalar_type(), what, "v");
-  check_shape(o, q.sizes(), q.scalar_type(), what, "o");
-  check_shape(lse, {B, H, L}, at::kFloat, what, "lse");
-  const float* bias_ptr = nullptr;
-  int64_t sb = 0, sh = 0;
   if (bias.has_value()) {
     const at::Tensor& b = *bias;
     check_on(b, q, what);
@@ -82,15 +79,116 @@ void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
                           (b.size(0) == 1 || b.size(0) == B) &&
                           (b.size(1) == 1 || b.size(1) == H) && b.size(2) == L && b.size(3) == S,
                       what, ": bias must be f32 (B|1, H|1, L, S), got ", b.sizes());
-    sh = b.size(1) == 1 ? 0 : L * S;
-    sb = b.size(0) == 1 ? 0 : b.size(1) * L * S;
-    bias_ptr = b.data_ptr<float>();
+    a.bias_sh = b.size(1) == 1 ? 0 : L * S;
+    a.bias_sb = b.size(0) == 1 ? 0 : b.size(1) * L * S;
+    a.bias = b.data_ptr<float>();
   }
-  check_launch(fasn_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, o.data_ptr(),
-                              lse.data_ptr<float>(), as_int(B, what), as_int(H, what),
-                              as_int(L, what), as_int(S, what), as_int(D, what), dtype, sb, sh,
-                              static_cast<float>(scale), static_cast<float>(n), causal ? 1 : 0,
+  if (slopes.has_value()) {
+    check_on(*slopes, q, what);
+    check_shape(*slopes, {H}, at::kFloat, what, "slopes");
+    a.slopes = slopes->data_ptr<float>();
+  }
+  if (seed.has_value()) {
+    check_on(*seed, q, what);
+    check_shape(*seed, {1}, at::kInt, what, "seed");
+    TORCH_CHECK_VALUE(drop_threshold >= 0 && drop_threshold <= INT_MAX, what,
+                      ": dropout threshold ", drop_threshold, " outside [0, 2^31)");
+    a.seed = seed->data_ptr<int>();
+    a.drop_threshold = static_cast<unsigned>(drop_threshold);
+    a.drop_mult = static_cast<float>(drop_mult);
+  }
+  a.q = q.data_ptr();
+  a.k = k.data_ptr();
+  a.v = v.data_ptr();
+  a.B = as_int(B, what);
+  a.H = as_int(H, what);
+  a.L = as_int(L, what);
+  a.S = as_int(S, what);
+  a.D = as_int(D, what);
+  a.scale_q = static_cast<float>(scale_q);
+  a.causal = causal ? 1 : 0;
+  return a;
+}
+
+void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+               const std::optional<at::Tensor>& bias, const std::optional<at::Tensor>& slopes,
+               const std::optional<at::Tensor>& seed, const at::Tensor& o, const at::Tensor& lse,
+               double scale, double n, bool causal, int64_t drop_threshold, double drop_mult) {
+  const char* what = "flash_fwd";
+  const c10::cuda::CUDAGuard guard(q.device());
+  const FasnAttn a = attn_args(q, k, v, bias, slopes, seed, scale, causal, drop_threshold,
+                               drop_mult, what);
+  check_on(o, q, what);
+  check_on(lse, q, what);
+  check_shape(o, q.sizes(), q.scalar_type(), what, "o");
+  check_shape(lse, {q.size(0), q.size(1), q.size(2)}, at::kFloat, what, "lse");
+  check_launch(fasn_flash_fwd(&a, static_cast<float>(n), o.data_ptr(), lse.data_ptr<float>(),
                               stream_of(q)),
+               what);
+}
+
+// dout like q; lse and delta (B, H, L) f32
+void check_bwd_rows(const at::Tensor& q, const at::Tensor& dout, const at::Tensor& lse,
+                    const at::Tensor& delta, const char* what) {
+  for (const at::Tensor* t : {&dout, &lse, &delta}) check_on(*t, q, what);
+  check_shape(dout, q.sizes(), q.scalar_type(), what, "dout");
+  check_shape(lse, {q.size(0), q.size(1), q.size(2)}, at::kFloat, what, "lse");
+  check_shape(delta, {q.size(0), q.size(1), q.size(2)}, at::kFloat, what, "delta");
+}
+
+void flash_bwd_dq(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+                  const std::optional<at::Tensor>& bias, const std::optional<at::Tensor>& slopes,
+                  const std::optional<at::Tensor>& seed, const at::Tensor& dout,
+                  const at::Tensor& lse, const at::Tensor& delta, const at::Tensor& dq,
+                  const std::optional<at::Tensor>& dbias,
+                  const std::optional<at::Tensor>& dslope_rows, double scale_q, double scale,
+                  bool causal, int64_t drop_threshold, double drop_mult) {
+  const char* what = "flash_bwd_dq";
+  const c10::cuda::CUDAGuard guard(q.device());
+  const FasnAttn a = attn_args(q, k, v, bias, slopes, seed, scale_q, causal, drop_threshold,
+                               drop_mult, what);
+  check_bwd_rows(q, dout, lse, delta, what);
+  check_on(dq, q, what);
+  check_shape(dq, q.sizes(), q.scalar_type(), what, "dq");
+  float* dbias_ptr = nullptr;
+  if (dbias.has_value()) {
+    check_on(*dbias, q, what);
+    check_shape(*dbias, {q.size(0), q.size(1), q.size(2), k.size(2)}, at::kFloat, what,
+                "dbias");
+    dbias_ptr = dbias->data_ptr<float>();
+  }
+  float* dslope_ptr = nullptr;
+  if (dslope_rows.has_value()) {
+    TORCH_CHECK_VALUE(slopes.has_value(), what, ": dslope_rows needs slopes");
+    check_on(*dslope_rows, q, what);
+    check_shape(*dslope_rows, {q.size(0), q.size(1), q.size(2)}, at::kFloat, what,
+                "dslope_rows");
+    dslope_ptr = dslope_rows->data_ptr<float>();
+  }
+  check_launch(fasn_flash_bwd_dq(&a, dout.data_ptr(), lse.data_ptr<float>(),
+                                 delta.data_ptr<float>(), static_cast<float>(scale),
+                                 dq.data_ptr(), dbias_ptr, dslope_ptr, stream_of(q)),
+               what);
+}
+
+void flash_bwd_dkv(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+                   const std::optional<at::Tensor>& bias, const std::optional<at::Tensor>& slopes,
+                   const std::optional<at::Tensor>& seed, const at::Tensor& dout,
+                   const at::Tensor& lse, const at::Tensor& delta, const at::Tensor& dk,
+                   const at::Tensor& dv, double scale_q, bool causal, int64_t drop_threshold,
+                   double drop_mult) {
+  const char* what = "flash_bwd_dkv";
+  const c10::cuda::CUDAGuard guard(q.device());
+  const FasnAttn a = attn_args(q, k, v, bias, slopes, seed, scale_q, causal, drop_threshold,
+                               drop_mult, what);
+  check_bwd_rows(q, dout, lse, delta, what);
+  check_on(dk, q, what);
+  check_on(dv, q, what);
+  check_shape(dk, k.sizes(), k.scalar_type(), what, "dk");
+  check_shape(dv, v.sizes(), v.scalar_type(), what, "dv");
+  check_launch(fasn_flash_bwd_dkv(&a, dout.data_ptr(), lse.data_ptr<float>(),
+                                  delta.data_ptr<float>(), dk.data_ptr(), dv.data_ptr(),
+                                  stream_of(q)),
                what);
 }
 
@@ -186,8 +284,18 @@ void tail_append(const at::Tensor& k_tail, const at::Tensor& v_tail, const at::T
 
 TORCH_LIBRARY(fasn, m) {
   m.def(
-      "flash_fwd(Tensor q, Tensor k, Tensor v, Tensor? bias, Tensor(a!) o, Tensor(b!) lse, "
-      "float scale, float n, bool causal) -> ()");
+      "flash_fwd(Tensor q, Tensor k, Tensor v, Tensor? bias, Tensor? slopes, Tensor? seed, "
+      "Tensor(a!) o, Tensor(b!) lse, float scale, float n, bool causal, int drop_threshold, "
+      "float drop_mult) -> ()");
+  m.def(
+      "flash_bwd_dq(Tensor q, Tensor k, Tensor v, Tensor? bias, Tensor? slopes, Tensor? seed, "
+      "Tensor dout, Tensor lse, Tensor delta, Tensor(a!) dq, Tensor(b!)? dbias, "
+      "Tensor(c!)? dslope_rows, float scale_q, float scale, bool causal, int drop_threshold, "
+      "float drop_mult) -> ()");
+  m.def(
+      "flash_bwd_dkv(Tensor q, Tensor k, Tensor v, Tensor? bias, Tensor? slopes, Tensor? seed, "
+      "Tensor dout, Tensor lse, Tensor delta, Tensor(a!) dk, Tensor(b!) dv, float scale_q, "
+      "bool causal, int drop_threshold, float drop_mult) -> ()");
   m.def("qmm_tiles(int n) -> int", &qmm_tiles);
   m.def(
       "qmm_argmax(Tensor x, Tensor w, Tensor scales, Tensor(a!) idx, Tensor(b!) val, "
@@ -200,6 +308,8 @@ TORCH_LIBRARY(fasn, m) {
 
 TORCH_LIBRARY_IMPL(fasn, CUDA, m) {
   m.impl("flash_fwd", &flash_fwd);
+  m.impl("flash_bwd_dq", &flash_bwd_dq);
+  m.impl("flash_bwd_dkv", &flash_bwd_dkv);
   m.impl("qmm_argmax", &qmm_argmax);
   m.impl("cache_append", &cache_append);
   m.impl("tail_append", &tail_append);

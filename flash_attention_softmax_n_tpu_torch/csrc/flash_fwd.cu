@@ -3,7 +3,8 @@
 // Replaces the Pallas forward kernels _fwd_single_kernel, _fwd_kernel and
 // _fwd_pipeline_kernel (flash_attention_softmax_n_tpu/kernels/
 // flash_attention.py:345, :279, :501): three TPU tilings of one function,
-//   o = softmax_n(q k^T * scale + bias) v,  lse = log(n + sum_j exp(s_j)).
+//   o = dropout(softmax_n(q k^T * scale + bias - alibi)) v,
+//   lse = log(n + sum_j exp(s_j)).
 // The +n enters as a phantom key with score 0 and value 0: the online
 // softmax starts from m = 0, l = n (n > 0) instead of m = NEG_INF, l = 0.
 //
@@ -19,104 +20,56 @@
 // matmuls around it.
 //
 // Numerics follow the Pallas kernel: the scale is folded into q in q's
-// dtype, scores and statistics are f32, the f32 bias is added before
-// masking, masked keys take NEG_INF (finite: -inf - -inf would be NaN),
-// p is rounded to v's dtype before the PV product, and at n == 0 a row with
-// no visible key (rectangular causal with L > S) gives o = 0, lse = NEG_INF.
+// dtype, scores and statistics are f32, the f32 bias and then the ALiBi term
+// are added before masking (flash_common.h), l sums the undropped p, p is
+// then multiplied by the dropout multiplier of its global (b, h, q, k) and
+// rounded to v's dtype before the PV product, and at n == 0 a row with no
+// visible key (rectangular causal with L > S) gives o = 0, lse = NEG_INF.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_common.h"
 
-#include <cfloat>
-#include <cstdint>
-
-#include "launchers.h"
-
+namespace fasn {
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int THREADS = 256;
-constexpr int RQ = BQ / 16;  // rows per thread
-constexpr int CK = BK / 16;  // score columns per thread
-// rounded from double, as the Python side computes it
-constexpr float NEG_INF = (float)(-0.7 * (double)FLT_MAX);
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// round an f32 value to T's precision and back
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int s = 8; s > 0; s >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, s));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int s = 8; s > 0; s >>= 1) x += __shfl_xor_sync(0xffffffffu, x, s);
-  return x;
-}
-
 template <int D>
-constexpr size_t smem_bytes() {
+constexpr size_t fwd_smem_bytes() {
   return sizeof(float) *
          (size_t(BQ) * (D + 1) + size_t(BK) * (D + 1) + size_t(BK) * D + size_t(BQ) * (BK + 1));
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const float* __restrict__ bias, T* __restrict__ o, float* __restrict__ lse,
-                     int H, int L, int S, long long bias_sb, long long bias_sh, float scale,
-                     float n, int causal) {
+    flash_fwd_kernel(const FasnAttn a, float n, T* __restrict__ o, float* __restrict__ lse) {
   constexpr int DP = D + 1;
   constexpr int BKP = BK + 1;
   constexpr int CD = D / 16;  // output columns per thread
   extern __shared__ float smem[];
-  float* sQ = smem;           // BQ x DP
-  float* sK = sQ + BQ * DP;   // BK x DP
-  float* sV = sK + BK * DP;   // BK x D
-  float* sP = sV + BK * D;    // BQ x BKP
+  float* sQ = smem;          // BQ x DP
+  float* sK = sQ + BQ * DP;  // BK x DP
+  float* sV = sK + BK * DP;  // BK x D
+  float* sP = sV + BK * D;   // BQ x BKP
 
   const int h = blockIdx.y, b = blockIdx.z;
+  const int L = a.L, S = a.S;
   const int q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const long long bh = (long long)b * H + h;
-  const T* qb = q + bh * L * D;
-  const T* kb = k + bh * S * D;
-  const T* vb = v + bh * S * D;
-  const float* biasb = bias ? bias + b * bias_sb + h * bias_sh : nullptr;
-  const int off = S - L;  // rectangular causal offset
+  const long long bh = (long long)b * a.H + h;
+  const T* qb = static_cast<const T*>(a.q) + bh * L * D;
+  const T* kb = static_cast<const T*>(a.k) + bh * S * D;
+  const T* vb = static_cast<const T*>(a.v) + bh * S * D;
+  const ScoreMods mods = score_mods(a, b, h);
+  const Dropout drop = dropout_of(a);
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, c = i % D;
     float val = 0.f;
-    if (q0 + r < L) val = round_to<T>(to_f32(qb[(long long)(q0 + r) * D + c]) * scale);
+    if (q0 + r < L) val = round_to<T>(to_f32(qb[(long long)(q0 + r) * D + c]) * a.scale_q);
     sQ[r * DP + c] = val;
   }
 
-  float m[RQ], l[RQ], acc[RQ][CD];
+  float m[R4], l[R4], acc[R4][CD];
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
+  for (int i = 0; i < R4; ++i) {
     m[i] = n > 0.f ? 0.f : NEG_INF;
     l[i] = n;
 #pragma unroll
@@ -124,9 +77,9 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   int kv_end = S;
-  if (causal) {
+  if (mods.causal) {
     const int last_row = min(q0 + BQ, L) - 1;
-    kv_end = min(S, last_row + off + 1);
+    kv_end = min(S, last_row + mods.off + 1);
   }
 
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
@@ -143,46 +96,42 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
 
-    float s[RQ][CK];
+    float s[R4][R4];
 #pragma unroll
-    for (int i = 0; i < RQ; ++i)
+    for (int i = 0; i < R4; ++i)
 #pragma unroll
-      for (int j = 0; j < CK; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < R4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float qv[RQ], kv[CK];
+      float qv[R4], kv[R4];
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) qv[i] = sQ[(ty + 16 * i) * DP + d];
+      for (int i = 0; i < R4; ++i) qv[i] = sQ[(ty + 16 * i) * DP + d];
 #pragma unroll
-      for (int j = 0; j < CK; ++j) kv[j] = sK[(tx + 16 * j) * DP + d];
+      for (int j = 0; j < R4; ++j) kv[j] = sK[(tx + 16 * j) * DP + d];
 #pragma unroll
-      for (int i = 0; i < RQ; ++i)
+      for (int i = 0; i < R4; ++i)
 #pragma unroll
-        for (int j = 0; j < CK; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        for (int j = 0; j < R4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
 #pragma unroll
-    for (int i = 0; i < RQ; ++i) {
+    for (int i = 0; i < R4; ++i) {
       const int qi = q0 + ty + 16 * i;
       float rmax = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        const bool ok = kj < S && qi < L && (!causal || kj <= qi + off);
-        float x = s[i][j];
-        if (ok && biasb) x += biasb[(long long)qi * S + kj];
-        x = ok ? x : NEG_INF;
-        s[i][j] = x;
-        rmax = fmaxf(rmax, x);
+      for (int j = 0; j < R4; ++j) {
+        s[i][j] = mods(s[i][j], qi, k0 + tx + 16 * j);
+        rmax = fmaxf(rmax, s[i][j]);
       }
       rmax = row_max16(rmax);
       const float m_new = fmaxf(m[i], rmax);
       const float alpha = expf(m[i] - m_new);
       float rsum = 0.f;
 #pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rsum += p;
+      for (int j = 0; j < R4; ++j) {
+        float p = expf(s[i][j] - m_new);
+        rsum += p;  // the denominator takes the undropped p
+        if (drop.on) p *= drop(b, h, qi, k0 + tx + 16 * j);
         sP[(ty + 16 * i) * BKP + tx + 16 * j] = round_to<T>(p);
       }
       rsum = row_sum16(rsum);
@@ -199,7 +148,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int c = 0; c < CD; ++c) vv[c] = sV[kk * D + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) {
+      for (int i = 0; i < R4; ++i) {
         const float p = sP[(ty + 16 * i) * BKP + kk];
 #pragma unroll
         for (int c = 0; c < CD; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
@@ -208,7 +157,7 @@ __global__ void __launch_bounds__(THREADS)
   }
 
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
+  for (int i = 0; i < R4; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= L) continue;
     const bool dead = n == 0.f && (l[i] == 0.f || m[i] == NEG_INF);
@@ -219,53 +168,17 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const float* bias, void* o,
-                   float* lse, int B, int H, int L, int S, long long bias_sb, long long bias_sh,
-                   float scale, float n, int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto kernel = flash_fwd_kernel<T, D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((L + BQ - 1) / BQ, H, B);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-      static_cast<T*>(o), lse, H, L, S, bias_sb, bias_sh, scale, n, causal);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, const float* bias,
-                       void* o, float* lse, int B, int H, int L, int S, long long bias_sb,
-                       long long bias_sh, float scale, float n, int causal,
-                       cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, bias, o, lse, B, H, L, S, bias_sb, bias_sh, scale, n, causal,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, bias, o, lse, B, H, L, S, bias_sb, bias_sh, scale, n, causal,
-                           stream);
-    case 128:
-      return launch<T, 128>(q, k, v, bias, o, lse, B, H, L, S, bias_sb, bias_sh, scale, n,
-                            causal, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
+}  // namespace fasn
 
-extern "C" int fasn_flash_fwd(const void* q, const void* k, const void* v, const float* bias,
-                              void* o, float* lse, int B, int H, int L, int S, int D, int dtype,
-                              long long bias_sb, long long bias_sh, float scale, float n,
-                              int causal, cudaStream_t stream) {
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, bias, o, lse, B, H, L, S, bias_sb, bias_sh,
-                                     scale, n, causal, stream);
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, bias, o, lse, B, H, L, S, bias_sb, bias_sh, scale, n,
-                             causal, stream);
-  return cudaErrorInvalidValue;
+extern "C" int fasn_flash_fwd(const FasnAttn* a, float n, void* o, float* lse,
+                              cudaStream_t stream) {
+  using namespace fasn;
+  const dim3 grid((a->L + BQ - 1) / BQ, a->H, a->B);
+  return dispatch(a->dtype, a->D, [&](auto t, auto d) {
+    using T = typename decltype(t)::type;
+    constexpr int D = decltype(d)::value;
+    return launch(flash_fwd_kernel<T, D>, grid, fwd_smem_bytes<D>(), stream, *a, n,
+                  static_cast<T*>(o), lse);
+  });
 }

@@ -11,13 +11,42 @@
 
 extern "C" {
 
-// K1 (flash_fwd.cu). q (B,H,L,D), k/v (B,H,S,D) contiguous, bf16 (dtype 1)
-// or f32 (dtype 0); bias null or f32 with contiguous (L,S) planes at element
-// strides bias_sb (batch) and bias_sh (head), 0 where broadcast; o like q;
-// lse (B,H,L) f32. `scale` is already rounded to the input dtype.
-int fasn_flash_fwd(const void* q, const void* k, const void* v, const float* bias, void* o,
-                   float* lse, int B, int H, int L, int S, int D, int dtype, long long bias_sb,
-                   long long bias_sh, float scale, float n, int causal, cudaStream_t stream);
+// The attention inputs that K1, K5 and K6 share. q (B,H,L,D), k/v (B,H,S,D)
+// contiguous, bf16 (dtype 1) or f32 (dtype 0), D in {32, 64, 128}; bias null
+// or f32 with contiguous (L,S) planes at element strides bias_sb (batch) and
+// bias_sh (head), 0 where broadcast; slopes null or (H,) f32 ALiBi slopes;
+// seed null (no dropout) or one int32 on the device, with the keep threshold
+// round(rate * 2^31) and the multiplier 1/(1-rate) in f32. `scale_q` is the
+// softmax scale rounded to the input dtype, folded into q.
+struct FasnAttn {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* bias;
+  long long bias_sb, bias_sh;
+  const float* slopes;
+  const int* seed;
+  unsigned drop_threshold;
+  float drop_mult;
+  int B, H, L, S, D, dtype;
+  float scale_q;
+  int causal;
+};
+
+// K1 (flash_fwd.cu): o like q, lse (B,H,L) f32.
+int fasn_flash_fwd(const FasnAttn* a, float n, void* o, float* lse, cudaStream_t stream);
+
+// K5 (flash_bwd_dq.cu): dq like q from dout like q, lse (B,H,L) f32 (the
+// forward's, or a caller's global one) and delta = rowsum(dout * o) (B,H,L)
+// f32; dq is multiplied by `scale` (unrounded). dbias null or (B,H,L,S) f32;
+// dslope_rows null or (B,H,L) f32, each query row's sum of ds * -|dist|.
+int fasn_flash_bwd_dq(const FasnAttn* a, const void* dout, const float* lse, const float* delta,
+                      float scale, void* dq, float* dbias, float* dslope_rows,
+                      cudaStream_t stream);
+
+// K6 (flash_bwd_dkv.cu): dk like k and dv like v, from the inputs of K5.
+int fasn_flash_bwd_dkv(const FasnAttn* a, const void* dout, const float* lse, const float* delta,
+                       void* dk, void* dv, cudaStream_t stream);
 
 // K2 (qmm_argmax.cu). Column tiles of pass 1: the scratch holds M * tiles.
 int fasn_qmm_tiles(int N);

@@ -46,7 +46,7 @@ from flash_attention_softmax_n_tpu_torch.models.decoder import (
     _layer,
     _mm,
     _repeat_kv,
-    layer_params,
+    layer_views,
 )
 from flash_attention_softmax_n_tpu_torch.models.layers import (
     apply_rope,
@@ -159,6 +159,7 @@ def engine_prefill_chunk(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
         else:
             cache_kv[i, slots, :, :c] = new.to(cache_kv.dtype)
 
+    layers = layer_views(params["layers"])
     for i in range(cfg.n_layers):
         def attn(q, k, v, i=i):
             q = apply_rope(q, cos, sin, positions)
@@ -171,7 +172,7 @@ def engine_prefill_chunk(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
                 implementation=impl)
             return ctx, None
 
-        x, _, _ = _layer(cfg, x, layer_params(params["layers"], i), attn)
+        x, _, _ = _layer(cfg, x, layers[i], attn)
 
     cache["lengths"][slots] = torch.clamp(true_lens, max=c).to(
         cache["lengths"].dtype)
@@ -215,6 +216,7 @@ def _decode_step(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
     # in tail mode the cache holds only the pre-loop prefix
     lengths_main = lengths if tail is None else lengths - tail_lengths
     k_rows, v_rows = [], []
+    layers = layer_views(params["layers"])
     for i in range(cfg.n_layers):
         kc, vc = _layer_cache(cache["k"], i), _layer_cache(cache["v"], i)
         kt, vt = (tail[0][i], tail[1][i]) if tail is not None else (None, None)
@@ -228,7 +230,7 @@ def _decode_step(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
                 k_tail=kt, v_tail=vt, tail_lengths=tail_lengths)
             return ctx[:, :, None, :].to(x.dtype), (k[:, :, 0], v[:, :, 0])
 
-        x, _, (kr, vr) = _layer(cfg, x, layer_params(params["layers"], i), attn)
+        x, _, (kr, vr) = _layer(cfg, x, layers[i], attn)
         k_rows.append(kr)
         v_rows.append(vr)
     k_rows = torch.stack(k_rows)  # (NL, B, KVH, hd)

@@ -7,7 +7,9 @@ together. The objects link into one shared library, loaded with
 ``torch.ops.load_library``, whose operators are ``torch.ops.fasn.*``. Only
 the bindings include PyTorch's headers, so ``nvcc`` never parses them and a
 build takes seconds. ``launchers.h`` declares the kernels' entry points
-for both sides, so the compiler checks every argument list.
+for both sides, so the compiler checks every argument list;
+``flash_common.h`` holds the device code that the three flash-attention
+kernels share.
 
 The library lands in ``_build/`` beside the package (listed in
 ``.gitignore``), named by a hash of the sources, flags and PyTorch version,
@@ -36,14 +38,16 @@ __all__ = ["LAUNCHES", "BUILD_SECONDS", "reset_launches", "build", "ops"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("flash_fwd.cu", "qmm_argmax.cu", "cache_update.cu")
+KERNELS = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu",
+           "qmm_argmax.cu", "cache_update.cu")
 BINDINGS = "bindings.cpp"
-HEADERS = ("launchers.h",)
+HEADERS = ("launchers.h", "flash_common.h")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 CXX_FLAGS = ["-std=c++17", "-O2", "-fPIC"]
 
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "qmm_argmax": 0,
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
+                            "flash_bwd_dkv": 0, "qmm_argmax": 0,
                             "cache_append": 0, "tail_append": 0}
 # wall seconds of each compile and of the link in this process's last build
 BUILD_SECONDS: Dict[str, float] = {}

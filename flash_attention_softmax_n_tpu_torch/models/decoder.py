@@ -1,19 +1,21 @@
-"""Llama-style decoder with softmax-N attention, inference only.
+"""Llama-style decoder with softmax-N attention.
 
 Counterpart of ``flash_attention_softmax_n_tpu/models/decoder.py``. Layer
 weights are stacked on axis 0 as in the JAX parameter tree; the JAX
-``lax.scan`` over layers is a Python loop here. Prefill runs causal
-``flash_attention_n`` (kernel K1 on the card); decode attends a KV cache
-with the ``+n`` term in every step's denominator.
+``lax.scan`` over layers is a Python loop here. ``decoder_forward`` and
+prefill run causal ``flash_attention_n`` (kernel K1 on the card, with K5/K6
+as its backward when training); decode attends a KV cache with the ``+n``
+term in every step's denominator.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from flash_attention_softmax_n_tpu_torch._device import resolve_device
 from flash_attention_softmax_n_tpu_torch.models.layers import (
@@ -51,19 +53,21 @@ class DecoderConfig:
     dtype: Any = torch.bfloat16
     # 'auto'/'pallas': the fused forward (K1); 'xla': unfused tensor ops
     attn_implementation: str = "auto"
+    # recompute each layer in the backward instead of storing its
+    # activations (torch.utils.checkpoint; JAX's jax.checkpoint)
+    remat: bool = False
+    # attention-probability dropout, active only under
+    # decoder_forward(train=True); the in-kernel hash on the fused route
+    attn_dropout: float = 0.0
     # the fields below exist for parity with the JAX config; values other
     # than these defaults need code that is not ported yet (ROADMAP.md)
     act_bits: Any = None
     int8_mm_impl: str = "xla"
     decode_attn_impl: str = "xla"
-    remat: bool = False
-    attn_dropout: float = 0.0
 
     def __post_init__(self):
         unported = {"act_bits": self.act_bits is not None,
-                    "int8_mm_impl": self.int8_mm_impl != "xla",
-                    "remat": self.remat,
-                    "attn_dropout": self.attn_dropout > 0.0}
+                    "int8_mm_impl": self.int8_mm_impl != "xla"}
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(
@@ -124,11 +128,22 @@ def _mm(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
-def layer_params(layers: Dict, i: int) -> Dict:
-    """Layer ``i``'s slice of the stacked layer weights."""
-    return {k: (QTensor(v.values[i], v.scales[i], bits=v.bits)
-                if isinstance(v, QTensor) else v[i])
-            for k, v in layers.items()}
+def layer_views(layers: Dict) -> List[Dict]:
+    """Every layer's views of the stacked layer weights.
+
+    Taken at once with ``torch.unbind``, so the backward stacks the layers'
+    gradients once; a ``select`` per layer would instead add a zero-filled
+    gradient of the whole stack for every layer.
+    """
+    cols = {}
+    for k, v in layers.items():
+        if isinstance(v, QTensor):
+            cols[k] = [QTensor(a, s, bits=v.bits) for a, s in
+                       zip(torch.unbind(v.values), torch.unbind(v.scales))]
+        else:
+            cols[k] = torch.unbind(v)
+    n_layers = len(next(iter(cols.values())))
+    return [{k: c[i] for k, c in cols.items()} for i in range(n_layers)]
 
 
 def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -186,26 +201,52 @@ def _rope(cfg: DecoderConfig, device):
                             device=device)
 
 
-def decoder_forward(params: Dict, cfg: DecoderConfig,
-                    tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence causal forward: tokens (B, L) -> logits (B, L, V) f32."""
+def decoder_forward(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
+                    *, train: bool = False,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+    """Full-sequence causal forward: tokens (B, L) -> logits (B, L, V) f32.
+
+    ``train=True`` activates ``cfg.attn_dropout``, which then needs
+    ``generator``: one int32 seed per layer is drawn from it. ``cfg.remat``
+    recomputes each layer in the backward (``torch.utils.checkpoint``).
+    """
     b, l = tokens.shape
+    dp = cfg.attn_dropout if train else 0.0
+    if dp > 0.0 and generator is None:
+        raise ValueError("train=True with cfg.attn_dropout > 0 requires "
+                         "generator")
     x = params["embed"][tokens].to(cfg.dtype)
     cos, sin = _rope(cfg, x.device)
     positions = torch.arange(l, device=x.device)
     reps = cfg.n_heads // cfg.n_kv_heads
+    # every layer's seed is drawn before any layer runs: checkpoint replays
+    # the default generators in the recompute but not a caller's, so a seed
+    # drawn inside a checkpointed layer would give the recompute another mask
+    seeds = [None] * cfg.n_layers
+    if dp > 0.0:
+        seeds = torch.randint(0, 2 ** 31 - 1, (cfg.n_layers,),
+                              generator=generator, device=generator.device,
+                              dtype=torch.int32).to(x.device)
 
-    def attn(q, k, v):
-        q = apply_rope(q, cos, sin, positions)
-        k = apply_rope(k, cos, sin, positions)
-        ctx = flash_attention_n(
-            q, _repeat_kv(k, reps), _repeat_kv(v, reps),
-            softmax_n_param=cfg.softmax_n, is_causal=True,
-            implementation=cfg.attn_implementation)
-        return ctx, None
+    def block(x, lp, seed):
+        def attn(q, k, v):
+            q = apply_rope(q, cos, sin, positions)
+            k = apply_rope(k, cos, sin, positions)
+            ctx = flash_attention_n(
+                q, _repeat_kv(k, reps), _repeat_kv(v, reps),
+                softmax_n_param=cfg.softmax_n, is_causal=True, dropout_p=dp,
+                train=train, dropout_seed=seed,
+                implementation=cfg.attn_implementation)
+            return ctx, None
 
-    for i in range(cfg.n_layers):
-        x, _, _ = _layer(cfg, x, layer_params(params["layers"], i), attn)
+        return _layer(cfg, x, lp, attn)[0]
+
+    for lp, seed in zip(layer_views(params["layers"]), seeds):
+        if cfg.remat:
+            x = checkpoint(block, x, lp, seed, use_reentrant=False)
+        else:
+            x = block(x, lp, seed)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _mm(x, params["lm_head"]).float()
 
@@ -252,6 +293,7 @@ def prefill(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
     positions = torch.arange(l, device=x.device)
     reps = cfg.n_heads // cfg.n_kv_heads
     quantized = _is_quantized_cache(cache)
+    layers = layer_views(params["layers"])
 
     for i in range(cfg.n_layers):
         def attn(q, k, v, i=i):
@@ -274,7 +316,7 @@ def prefill(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
                 implementation=cfg.attn_implementation)
             return ctx, None
 
-        x, _, _ = _layer(cfg, x, layer_params(params["layers"], i), attn)
+        x, _, _ = _layer(cfg, x, layers[i], attn)
     cache["length"] = l
 
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
@@ -306,6 +348,7 @@ def decode_step(params: Dict, cfg: DecoderConfig, token: torch.Tensor,
     pos = int(cache["length"])
     positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
     quantized = _is_quantized_cache(cache)
+    layers = layer_views(params["layers"])
 
     for i in range(cfg.n_layers):
         def attn(q, k, v, i=i):
@@ -330,7 +373,7 @@ def decode_step(params: Dict, cfg: DecoderConfig, token: torch.Tensor,
                 ctx = _cached_attention(cfg, q, kc, vc, pos + 1)
             return ctx.to(x.dtype), None
 
-        x, _, _ = _layer(cfg, x, layer_params(params["layers"], i), attn)
+        x, _, _ = _layer(cfg, x, layers[i], attn)
     cache["length"] = pos + 1
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

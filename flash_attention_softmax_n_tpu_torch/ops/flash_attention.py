@@ -3,10 +3,11 @@
 Counterpart of ``flash_attention_n``
 (``flash_attention_softmax_n_tpu/ops/flash_attention.py``):
 
-  * ``implementation='auto'`` or ``'pallas'``: the fused forward, kernel K1
-    on CUDA tensors and its plain version on CPU tensors; requires E == Ev;
-  * ``implementation='xla'``: the unfused formulation in plain tensor ops;
-    supports E != Ev.
+  * ``implementation='auto'`` or ``'pallas'``: the fused route, kernel K1
+    forward and K5/K6 backward on CUDA tensors, their plain versions on CPU
+    tensors; in-kernel hash dropout; requires E == Ev;
+  * ``implementation='xla'``: the unfused formulation in plain tensor ops,
+    differentiated by autograd; supports E != Ev.
 
 Inputs may be 2-D, 3-D or 4-D; 3-D K/V broadcast against 4-D Q; boolean
 masks (True = attend) become an f32 bias of -f32max/2, additive biases add
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from flash_attention_softmax_n_tpu_torch.kernels.flash_attention import (
+    dropout_multiplier,
     flash_attention_n_fused,
 )
 from flash_attention_softmax_n_tpu_torch.ops.functional import softmax_n
@@ -77,15 +79,19 @@ def flash_attention_n(
     *,
     train: bool = True,
     generator: Optional[torch.Generator] = None,
+    dropout_seed: Optional[torch.Tensor] = None,
     implementation: str = "auto",
     mesh=None,
 ) -> torch.Tensor:
     """Scaled-dot-product attention with softmax-N (any real n >= 0).
 
     ``attn_mask`` is boolean (True = attend); ``attn_bias`` is an additive
-    float bias; both may combine with ``is_causal``. Dropout runs on the
-    ``'xla'`` route only (the fused route's dropout is in the training
-    slice). ``mesh`` is not ported yet.
+    float bias; both may combine with ``is_causal``. Dropout (``dropout_p``
+    under ``train``) runs on both routes with the mask of the hash
+    ``dropout_keep``, keyed on an int32 seed: ``dropout_seed`` if given,
+    else one drawn from ``generator``. The fused route regenerates the mask
+    in its kernels; the ``'xla'`` route materializes it. ``mesh`` is not
+    ported yet.
     """
     if mesh is not None:
         raise NotImplementedError("sharded attention (mesh) is not ported "
@@ -120,8 +126,14 @@ def flash_attention_n(
         bias = b4 if bias is None else bias + b4
 
     use_dropout = dropout_p > 0.0 and train
-    if use_dropout and generator is None:
-        raise ValueError("dropout requires generator")
+    if use_dropout and dropout_seed is None:
+        if generator is None:
+            raise ValueError("dropout requires generator or dropout_seed")
+        # the counterpart of JAX's jax.random.randint(rng, (), 0, int32 max):
+        # a device tensor on the generator's device, so no host sync
+        dropout_seed = torch.randint(0, 2 ** 31 - 1, (), generator=generator,
+                                     device=generator.device,
+                                     dtype=torch.int32)
     if implementation == "auto":
         implementation = "pallas" if E == Ev else "xla"
     if implementation == "pallas" and E != Ev:
@@ -132,7 +144,11 @@ def flash_attention_n(
         out = flash_attention_n_fused(
             q4, k4, v4, softmax_n_param=n, scale=scale, bias=bias,
             is_causal=is_causal,
-            dropout_rate=dropout_p if use_dropout else 0.0)
+            dropout_rate=dropout_p if use_dropout else 0.0,
+            dropout_seed=dropout_seed,
+            # a boolean attend-mask is not a learned parameter: skip the
+            # (B, H, L, S) dbias unless a float bias was given
+            bias_needs_grad=attn_bias is not None)
     elif implementation == "xla":
         scores = torch.einsum("bhle,bhse->bhls", q4.float(),
                               k4.float()) * scale
@@ -144,9 +160,8 @@ def flash_attention_n(
             scores = scores.masked_fill(~causal, float("-inf"))
         probs = softmax_n(scores, n=n, axis=-1)
         if use_dropout:
-            keep = torch.rand(probs.shape, generator=generator,
-                              device=probs.device) < (1.0 - dropout_p)
-            probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0)
+            probs = probs * dropout_multiplier(dropout_seed, probs.shape,
+                                               dropout_p, probs.device)
         out = torch.einsum("bhls,bhsv->bhlv", probs.to(q4.dtype), v4)
     else:
         raise ValueError(f"unknown implementation {implementation!r}")

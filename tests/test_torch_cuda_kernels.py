@@ -5,13 +5,18 @@ not at import). On the machine with the card run
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
 
-These cover what the serving shapes in ``chip_smoke.py`` do not: n = 0 and
-fractional n, rectangular causal with L < S and L > S (dead rows), f32
-inputs, head dims 32/64/128, ragged tiles, dense caches. Tolerances: f32
-within 2e-5 (summation order), bf16 within 2e-2 (p rounded to bf16 before
-PV, as in the plain version), lse within 1e-4; cache writes bit-exact.
+These cover what the serving and training shapes in ``chip_smoke.py`` do
+not: n = 0 and fractional n, rectangular causal with L < S and L > S (dead
+rows), f32 inputs, head dims 32/64/128, ragged tiles, dense caches, and for
+the backward (K5, K6) bias, ALiBi and dropout in every combination.
+Tolerances: forward f32 within 2e-5 (summation order), bf16 within 2e-2 (p
+rounded to bf16 before PV, as in the plain version), lse within 1e-4;
+gradients within 1e-4 (f32) or 2e-2 (bf16: ds rounds to bf16 on either side
+of a tie) of the plain version's largest magnitude; dropout masks and
+repeated calls bit-equal; cache writes bit-exact.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -129,3 +134,149 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
         cu.cache_append((cache,), (rows,), pos)
     with pytest.raises(ValueError, match="positions"):
         cu.cache_append((cache.clone(),), (rows,), pos[:2])
+
+
+# ----------------------------------------------------------------------------
+# K1 with ALiBi and dropout, K5 and K6
+# ----------------------------------------------------------------------------
+
+
+def _attn_inputs(gen, dtype, B, H, L, S, d, *, bias_shape=None, alibi=False,
+                 rate=0.0):
+    q, k, v, do = (torch.randn((B, H, m, d), generator=gen, device="cuda").to(dtype)
+                   for m in (L, S, S, L))
+    extras = dict(bias=None, slopes=None, seed=None, dropout_rate=rate)
+    if bias_shape is not None:
+        extras["bias"] = 0.5 * torch.randn((*bias_shape, L, S), generator=gen,
+                                           device="cuda")
+    if alibi:
+        extras["slopes"] = torch.tensor([2.0 ** -(i + 1) for i in range(H)],
+                                        device="cuda")
+    if rate > 0:
+        extras["seed"] = torch.tensor([-123457], dtype=torch.int32, device="cuda")
+    return q, k, v, do, extras
+
+
+def _assert_close(got, want, tol):
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * max(1.0, float(want.float().abs().max())), err
+
+
+def _fwd_bwd(fn_fwd, fn_bwd, q, k, v, do, extras, *, n, causal, grad_bias=True):
+    scale = q.shape[-1] ** -0.5
+    o, lse = fn_fwd(q, k, v, extras["bias"], n=n, scale=scale, is_causal=causal,
+                    slopes=extras["slopes"], seed=extras["seed"],
+                    dropout_rate=extras["dropout_rate"])
+    grads = fn_bwd(q, k, v, extras["bias"], extras["slopes"], extras["seed"], o,
+                   lse, do, scale=scale, is_causal=causal,
+                   dropout_rate=extras["dropout_rate"], grad_bias=grad_bias)
+    return (o, lse), grads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [0.0, 1.0])
+@pytest.mark.parametrize("extra", ["none", "bias", "alibi", "dropout", "all"])
+def test_flash_fwd_bwd_extras_match_plain(gen, dtype, n, extra):
+    kw = dict(bias_shape=(2, 1) if extra in ("bias", "all") else None,
+              alibi=extra in ("alibi", "all"),
+              rate=0.25 if extra in ("dropout", "all") else 0.0)
+    q, k, v, do, extras = _attn_inputs(gen, dtype, 2, 4, 200, 264, 64, **kw)
+    before = {name: _build.LAUNCHES[name]
+              for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    (o, lse), got = _fwd_bwd(fa.flash_fwd, fa.flash_bwd, q, k, v, do, extras,
+                             n=n, causal=True)
+    assert all(_build.LAUNCHES[name] == c + 1 for name, c in before.items())
+    (o_ref, lse_ref), want = _fwd_bwd(fa.flash_fwd_reference,
+                                      fa.flash_bwd_reference, q, k, v, do,
+                                      extras, n=n, causal=True)
+    ftol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=ftol, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-6)
+    gtol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            _assert_close(g, w, gtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("n", [0.0, 1.0])
+@pytest.mark.parametrize("shape", [(200, 200, False), (150, 150, True),
+                                   (100, 164, True), (96, 40, True)])
+def test_flash_bwd_matches_plain(gen, dtype, d, n, shape):
+    L, S, causal = shape
+    q, k, v, do, extras = _attn_inputs(gen, dtype, 2, 3, L, S, d)
+    _, got = _fwd_bwd(fa.flash_fwd, fa.flash_bwd, q, k, v, do, extras, n=n,
+                      causal=causal)
+    _, want = _fwd_bwd(fa.flash_fwd_reference, fa.flash_bwd_reference, q, k,
+                       v, do, extras, n=n, causal=causal)
+    for g, w in zip(got[:3], want[:3]):
+        _assert_close(g, w, 1e-4 if dtype == torch.float32 else 2e-2)
+    if n == 0 and L > S:
+        dead = torch.arange(L, device="cuda") + (S - L) < 0
+        assert bool((got[0][:, :, dead] == 0).all())
+
+
+@pytest.mark.parametrize("bias_shape", [(2, 4), (1, 4), (2, 1), (1, 1)])
+def test_flash_bwd_bias_shapes_and_no_bias_grad(gen, bias_shape):
+    q, k, v, do, extras = _attn_inputs(gen, torch.float32, 2, 4, 96, 96, 64,
+                                       bias_shape=bias_shape)
+    _, got = _fwd_bwd(fa.flash_fwd, fa.flash_bwd, q, k, v, do, extras, n=1.0,
+                      causal=True)
+    _, want = _fwd_bwd(fa.flash_fwd_reference, fa.flash_bwd_reference, q, k,
+                       v, do, extras, n=1.0, causal=True)
+    assert got[3].shape == (2, 4, 96, 96)
+    _assert_close(got[3], want[3], 1e-4)
+    _, none = _fwd_bwd(fa.flash_fwd, fa.flash_bwd, q, k, v, do, extras, n=1.0,
+                       causal=True, grad_bias=False)
+    assert none[3] is None and torch.equal(none[0], got[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_repeat_bit_equal(gen, dtype):
+    q, k, v, do, extras = _attn_inputs(gen, dtype, 2, 4, 200, 264, 64,
+                                       bias_shape=(1, 4), alibi=True, rate=0.25)
+    first = _fwd_bwd(fa.flash_fwd, fa.flash_bwd, q, k, v, do, extras, n=1.0,
+                     causal=True)
+    again = _fwd_bwd(fa.flash_fwd, fa.flash_bwd, q, k, v, do, extras, n=1.0,
+                     causal=True)
+    flat = lambda r: [*r[0], *r[1]]  # noqa: E731
+    assert all(torch.equal(a, b) for a, b in zip(flat(first), flat(again)))
+
+
+def test_dropout_masks_bit_equal_to_the_hash(gen):
+    # q = k = 0 makes p uniform (1/S), so with v = I (K1), dout = I (K6:
+    # dv = pd^T) and o = 0 against an external lse = log S (K5: dbias = ds =
+    # pd * dp with dp = 1), the kept entries are exactly the nonzero ones
+    B, H, N = 2, 4, 128
+    z = torch.zeros((B, H, N, N), device="cuda")
+    eye = torch.eye(N, device="cuda").expand(B, H, N, N).contiguous()
+    seed = torch.tensor([-99], dtype=torch.int32, device="cuda")
+    rate = 0.3
+    keep = fa.dropout_multiplier(seed, (B, H, N, N), rate, "cuda") > 0
+    o, _ = fa.flash_fwd(z, z, eye, None, n=0.0, scale=1.0, is_causal=False,
+                        seed=seed, dropout_rate=rate)
+    assert torch.equal(o != 0, keep)
+    lse = torch.full((B, H, N), float(np.log(N)), device="cuda")
+    ones = torch.zeros_like(z)
+    ones[..., 0] = 1.0  # dout rows e_0 and v[:, 0] = 1 give dp = 1
+    _, _, dv, dbias, _ = fa.flash_bwd(z, z, ones, torch.zeros((1, 1, N, N), device="cuda"),
+                                      None, seed, z, lse, ones, scale=1.0,
+                                      is_causal=False, dropout_rate=rate)
+    assert torch.equal(dbias != 0, keep)
+    _, _, dv, _, _ = fa.flash_bwd(z, z, z, None, None, seed, z, lse, eye, scale=1.0,
+                                  is_causal=False, dropout_rate=rate)
+    assert torch.equal(dv.transpose(-1, -2) != 0, keep)
+
+
+def test_block_grads_against_an_external_lse(gen):
+    q, k, v, do, _ = _attn_inputs(gen, torch.float32, 1, 2, 120, 70, 64)
+    lse = torch.randn((1, 2, 120), generator=gen, device="cuda") + 6.0
+    o = torch.randn_like(q)
+    got = fa.flash_attention_block_grads(q, k, v, o, lse, do, is_causal=True)
+    want = fa.flash_bwd_reference(q, k, v, None, None, None, o, lse, do,
+                                  scale=64 ** -0.5, is_causal=True)[:3]
+    for g, w in zip(got, want):
+        _assert_close(g, w, 1e-4)
+

@@ -100,3 +100,5 @@ def test_init_decoder_params_shapes_and_seed():
 def test_unported_config_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tm.DecoderConfig(**TINY_KW, int8_mm_impl="pallas")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tm.DecoderConfig(**TINY_KW, act_bits=8)

@@ -101,10 +101,7 @@ def test_public_api_matches_jax(n, implementation):
 
 
 def test_unported_options_raise():
+    # ALiBi and dropout are ported: tests/test_torch_flash_backward.py
     q, k, v = (_t(a) for a in _qkv(4, 1, 2, 8, 8, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_fused(q, k, v, alibi_slopes=torch.ones(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_fused(q, k, v, dropout_rate=0.1, dropout_seed=0)
     with pytest.raises(NotImplementedError):
         t_flash(q, k, v, mesh=object())

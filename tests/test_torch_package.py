@@ -23,6 +23,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "import flash_attention_softmax_n_tpu_torch.kernels.flash_attention\n"
         "import flash_attention_softmax_n_tpu_torch.kernels.quant_matmul\n"
         "import flash_attention_softmax_n_tpu_torch.models\n"
+        "import flash_attention_softmax_n_tpu_torch.parallel\n"
         "import flash_attention_softmax_n_tpu_torch.quant\n"
         "import chip_smoke\n"
         "assert p.TRITON_INSTALLED is False\n"
