@@ -12,9 +12,11 @@ Phases, in order, each printing one JSON line:
 2. build: compiles ``flash_attention_softmax_n_tpu_torch/csrc/``: each
    ``*.cu`` kernel source with its own nvcc for sm_90a and the PyTorch
    operator bindings with the host C++ compiler, all started together;
-3. kernels: runs K1 flash_fwd, K2 qmm_argmax, K3 cache_append and K4
-   tail_append on the card at serving shapes and holds each against its
-   plain PyTorch version on the same card tensors;
+3. kernels: runs K1 flash_fwd, K2 qmm_argmax, K3 cache_append, K4
+   tail_append, K7 qmm (int8, W8A8 and int4), K8 decode_attn (int8 and
+   bf16 caches) and K9 fused_mlp on the card at serving shapes and holds
+   each against its plain PyTorch version on the same card tensors (K7-K9
+   also run twice and must be bit-equal);
 4. train kernels: K1 with ALiBi and dropout, K5 flash_bwd_dq and K6
    flash_bwd_dkv against their plain versions (B2 H4 L200 S264 with bias,
    ALiBi and dropout, f32 and bf16, n 0 and 1; then the training shape B2
@@ -25,10 +27,16 @@ Phases, in order, each printing one JSON line:
    weights, int8 KV) serves 96 requests through the fused decode loop and 4
    through the step path, counting each kernel's launches on those runs, and
    checks the tokens against ``greedy_generate`` and a teacher-forced
-   ``decoder_forward``;
+   ``decoder_forward``; then
 6. profile: one 16-step fused chunk of 64 requests under ``torch.profiler``
    gives the device's busy time, its idle share and the kernels that fill
-   it;
+   it, and against an admission-only run of the same requests the decode
+   step's own busy time. Phases 5-6 run twice: ``serve`` on the default routes (K1-K4, and
+   K7-K9 must not launch) and ``serve_pallas`` with
+   ``int8_mm_impl="pallas", decode_attn_impl="pallas"`` (K1-K4 and K7-K9
+   must all launch); then 8 requests each with int4 weights and with
+   ``act_bits=8`` go through the fused loop on the same routes (K7's int4
+   and W8A8 modes), held to the teacher-forced gate;
 7. train_agreement: the TinyLlama-1.1B width at 2 layers in f32: every
    parameter gradient of ``causal_lm_loss`` through the fused route (K1,
    K5, K6) against the same through plain tensor ops (``"xla"``), relative
@@ -48,6 +56,7 @@ imported.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -56,15 +65,17 @@ from pathlib import Path
 
 import numpy as np
 
-# NVIDIA H100 SXM data sheet (dense): bf16 tensor-core peak, f32 peak
-# outside the tensor cores, and the HBM3 rate
+# NVIDIA H100 SXM data sheet (dense): bf16 and int8 tensor-core peaks, f32
+# peak outside the tensor cores, and the HBM3 rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 TIMED_RUNS = 25
 
 ROOT = Path(__file__).resolve().parent
 TPU_PKG = "flash_attention_softmax_n_tpu"
+CSRC = "flash_attention_softmax_n_tpu_torch/csrc"
 
 
 def emit(obj) -> None:
@@ -305,12 +316,169 @@ def check_tail_append(torch, pkg, gen, *, NL, B, KVH, W, D):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+def repeat_equal(torch, fn, first) -> bool:
+    again = fn()
+    torch.cuda.synchronize()
+    pairs = zip(first, again) if isinstance(first, tuple) else [(first, again)]
+    return all(torch.equal(a, b) for a, b in pairs)
+
+
+def check_dequant_mm(torch, pkg, gen, *, M, K, N, mode="int8"):
+    """K7 at one serving shape: ``mode`` int8, w8a8 (int8 activations) or
+    int4 (grouped, packed along K)."""
+    qm, qt = pkg["quant_matmul"], pkg["qtensor"]
+    dev, dt = "cuda", torch.bfloat16
+    bits = 4 if mode == "int4" else 8
+    x = torch.randn((M, K), generator=gen, device=dev).to(dt)
+    wq = qt.quantize(torch.randn((K, N), generator=gen, device=dev) * K ** -0.5,
+                     bits=bits, axis=0)
+    xk, xs = qm.quantize_rows(x) if mode == "w8a8" else (x, None)
+
+    def kernel():
+        return qm._qmm_cuda(xk, xs, wq.values, wq.scales, bits, dt)
+
+    def plain():
+        return qm.quantized_matmul_reference(xk, xs, wq.values, wq.scales, bits=bits,
+                                             out_dtype=dt)
+
+    w_bf16 = qt.dequantize(wq, dt)
+
+    def library():
+        return x @ w_bf16
+
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    same = repeat_equal(torch, kernel, out)
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    # one bf16 ulp of the plain output (the two round f32 sums taken in
+    # another order); W8A8 sums integers and must match exactly
+    excess = float((diff - 2.0 ** -7 * ref.float().abs()).max())
+    ok = err == 0.0 if mode == "w8a8" else excess <= 1e-5 * float(ref.float().abs().max())
+    name = f"qmm {mode} M{M} K{K} N{N} bf16"
+    require(ok and same, f"{name}: max |out - plain| {err} (beyond one bf16 ulp: {excess}); "
+                         f"repeat bit-equal {same}")
+    bytes_moved = (xk.numel() * xk.element_size() + wq.values.numel() + N * 4 + M * N * 2
+                   + (M * 4 if xs is not None else 0))
+    b_ms, b_by = bound_ms(bytes_moved, 2.0 * M * K * N,
+                          PEAK_INT8_OPS if mode == "w8a8" else PEAK_BF16_FLOPS)
+    return {"name": name, "route": "cuda", "source": f"{CSRC}/qmm.cu",
+            "replaces": f"{TPU_PKG}/kernels/quant_matmul.py:65 _qmm_kernel",
+            "counter": "qmm", "max_abs_err": err,
+            "tolerance": "bit-exact" if mode == "w8a8" else "one bf16 ulp + 1e-5 max|out|",
+            "repeat_bit_equal": same, "splits": pkg["build"].ops().qmm_splits(M, K, N),
+            "ms": time_ms(torch, kernel), "device_ms": device_ms(torch, kernel, "qmm_splitk"),
+            "plain_ms": time_ms(torch, plain), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(torch, library),
+            "library": "torch.matmul over the weights dequantized to bf16"}
+
+
+def check_fused_mlp(torch, pkg, gen, *, M, K, F):
+    """K9 at a decode shape (bf16 x, int8 gate/up/down)."""
+    fm, qt = pkg["fused_mlp"], pkg["qtensor"]
+    dev, dt = "cuda", torch.bfloat16
+    x = torch.randn((M, K), generator=gen, device=dev).to(dt)
+    ws = [qt.quantize(torch.randn(shape, generator=gen, device=dev) * shape[0] ** -0.5,
+                      bits=8, axis=0) for shape in ((K, F), (K, F), (F, K))]
+    args = (x, ws[0].values, ws[0].scales, ws[1].values, ws[1].scales, ws[2].values,
+            ws[2].scales)
+
+    def kernel():
+        return fm._fused_mlp_cuda(*args)
+
+    def plain():
+        return fm.fused_mlp_reference(*args)
+
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    same = repeat_equal(torch, kernel, out)
+    err = float((out.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    name = f"fused_mlp M{M} K{K} F{F} bf16"
+    # h rounds to bf16 before the down product, on either side of a tie
+    require(err <= 2e-2 * scale and same,
+            f"{name}: max |out - plain| {err} > 2e-2 * {scale}, or repeat bit-equal {same}")
+    b_ms, b_by = bound_ms(M * K * 2 * 2 + 3 * K * F + (2 * F + K) * 4, 6.0 * M * K * F)
+    return {"name": name, "route": "cuda", "source": f"{CSRC}/fused_mlp.cu",
+            "replaces": f"{TPU_PKG}/kernels/fused_mlp.py:44 _mlp_kernel",
+            "counter": "fused_mlp", "max_abs_err": err, "tolerance": "2e-2 max|out|",
+            "repeat_bit_equal": same,
+            "ms": time_ms(torch, kernel), "device_ms": device_ms(torch, kernel, "fused_mlp_"),
+            "plain_ms": time_ms(torch, plain), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "library": "none: no one PyTorch call computes it (three GEMMs and a silu)"}
+
+
+def check_decode_attn(torch, pkg, gen, *, B, KVH, G, S, D, cache):
+    """K8 at the fused loop's shape: bf16 q over an int8 (with scales) or a
+    bf16 cache view of one layer, lengths drawn from 0..S."""
+    da, kv = pkg["decode_attention"], pkg["kv_cache"]
+    dev = "cuda"
+    full = [torch.randn((2, B, KVH, S, D), generator=gen, device=dev) for _ in range(2)]
+    if cache == "int8":
+        (kq, ksf), (vq, vsf) = (kv.quantize_kv(t, 8) for t in full)
+        k, v, ks, vs = kq[1], vq[1], ksf[1], vsf[1]
+    else:
+        k, v = (t.to(torch.bfloat16)[1] for t in full)
+        ks = vs = None
+    q = (torch.randn((B, KVH, G, D), generator=gen, device=dev) * D ** -0.5).to(torch.bfloat16)
+    lengths = torch.randint(0, S + 1, (B,), generator=gen, device=dev).to(torch.int32)
+    lengths[0] = 0
+    lengths[1] = S
+
+    def kernel():
+        return da._decode_attn_cuda(q, None, k, v, lengths, ks, vs)
+
+    def plain():
+        return da.decode_attn_stats_reference(q, None, k, v, lengths, ks, vs)
+
+    (acc, m, l), (acc_r, m_r, l_r) = kernel(), plain()
+    torch.cuda.synchronize()
+    same = repeat_equal(torch, kernel, (acc, m, l))
+    live = lengths > 0
+    out, out_r = acc[live] / l[live][..., None], acc_r[live] / l_r[live][..., None]
+    err = float((out - out_r).abs().max())
+    err_m = float((m[live] - m_r[live]).abs().max())
+    err_l = float(((l[live] - l_r[live]).abs() / l_r[live]).max())
+    empty_ok = bool((acc[~live] == 0).all() and (l[~live] == 0).all())
+    name = f"decode_attn B{B} KVH{KVH} G{G} S{S} d{D} {cache} cache, bf16 q"
+    # p rounds to bf16 against a split's own maximum in the kernel and the
+    # running one in the plain version
+    require(err <= 2e-2 and err_m <= 1e-3 and err_l <= 1e-3 and empty_ok and same,
+            f"{name}: out {err} (tol 2e-2), m {err_m}, l rel {err_l} (tol 1e-3), empty slots "
+            f"zero {empty_ok}, repeat bit-equal {same}")
+
+    # the library yardstick: SDPA over a bf16 cache with a length mask
+    kb, vb = (t.to(torch.bfloat16) for t in full)
+    kb, vb = kb[1], vb[1]
+    qh = q.reshape(B, KVH * G, 1, D)
+    mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None].long())[:, None, None, :]
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qh, kb, vb, attn_mask=mask, scale=1.0, enable_gqa=True)
+
+    total = float(lengths.sum())
+    elem = k.element_size()
+    bytes_moved = (q.numel() * 2 + total * KVH * (2 * D * elem + (8 if ks is not None else 0))
+                   + B * KVH * G * (D + 2) * 4 + B * 4)
+    b_ms, b_by = bound_ms(bytes_moved, 4.0 * G * D * KVH * total)
+    return {"name": name, "route": "cuda", "source": f"{CSRC}/decode_attn.cu",
+            "replaces": f"{TPU_PKG}/kernels/decode_attention.py:60 _kernel",
+            "counter": "decode_attn", "max_abs_err": err, "max_abs_err_m": err_m,
+            "max_rel_err_l": err_l, "tolerance": "out 2e-2, m and l 1e-3",
+            "repeat_bit_equal": same, "positions": int(total),
+            "ms": time_ms(torch, kernel), "device_ms": device_ms(torch, kernel, "decode_attn_"),
+            "plain_ms": time_ms(torch, plain), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(torch, library),
+            "library": "scaled_dot_product_attention(enable_gqa=True), bf16 cache, length mask"}
+
+
 # ----------------------------------------------------------------------------
 # phase 4: the training kernels (K1 with ALiBi and dropout, K5, K6)
 # ----------------------------------------------------------------------------
 
 FLASH_PY = f"{TPU_PKG}/kernels/flash_attention.py"
-CSRC = "flash_attention_softmax_n_tpu_torch/csrc"
 
 
 def attn_inputs(torch, gen, dtype, *, B, H, L, S, D, bias_shape=None, alibi=False, rate=0.0):
@@ -565,7 +733,16 @@ def teacher_forced(torch, pkg, cfg, params, req):
             float((best.values - chosen).max()))
 
 
-def profile_chunk(torch, eng_mod, cfg, params):
+SERVE_KERNELS = ("flash_fwd", "qmm_argmax", "cache_append", "tail_append")
+PALLAS_KERNELS = ("qmm", "decode_attn", "fused_mlp")
+# the port's kernels as torch.profiler names them (substrings)
+PROFILED_KERNELS = ("flash_fwd_kernel", "qmm_tile_kernel", "qmm_reduce_kernel",
+                    "write_rows_kernel", "qmm_splitk_kernel", "qmm_splitk_sum_kernel",
+                    "decode_attn_split_kernel", "decode_attn_merge_kernel",
+                    "fused_mlp_kernel", "fused_mlp_sum_kernel")
+
+
+def profile_chunk(torch, eng_mod, cfg, params, phase="profile"):
     """Where a fused chunk's time goes: 64 requests (64-token prompts) are
     admitted and decoded in one 16-step chunk, once unprofiled for the wall
     time and once under ``torch.profiler`` for the device's busy time and
@@ -573,79 +750,113 @@ def profile_chunk(torch, eng_mod, cfg, params):
     (one stream, so they do not overlap); the idle share is against the
     unprofiled wall time. Annotation ranges on the device timeline (such
     as ``Optimizer.step``) enclose kernels already counted and are left
-    out."""
+    out. A third run admits the same requests with a budget of one token
+    (the same four prefill groups, no decode step), so that the 16 steps'
+    own busy time is the difference."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def run():
+    def run(budget):
         eng = eng_mod.InferenceEngine(cfg, params, max_batch=64, max_len=512,
                                       kv_quantization="int8", piggyback_prefill=False)
         rng = np.random.RandomState(1)
         for _ in range(64):
-            eng.submit(rng.randint(0, cfg.vocab_size, size=64).tolist(), max_new_tokens=17)
+            eng.submit(rng.randint(0, cfg.vocab_size, size=64).tolist(), max_new_tokens=budget)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         done = eng.run_until_done(loop_steps=64)
         torch.cuda.synchronize()
-        require(len(done) == 64 and eng.counters_report()["chunks"] == 1,
-                "the profiled run did not serve its 64 requests in one chunk")
+        require(len(done) == 64 and eng.counters_report().get("chunks", 0) == int(budget > 1),
+                f"the profiled run (budget {budget}) did not serve its 64 requests in "
+                f"{int(budget > 1)} chunk")
         return time.perf_counter() - t0
 
-    wall = run()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall_profiled = run()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            ms, calls = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
+    def profiled(budget):
+        """(wall s, {kernel name: (device ms, calls)}) of one run"""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall_profiled = run(budget)
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+                ms, calls = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
+        return wall_profiled, by_name
+
+    def port_kernels(by_name):
+        """the port's own kernels, by device time alone (CUDA events around
+        a wrapper also count its host dispatch)"""
+        ours = {}
+        for name, (ms, calls) in by_name.items():
+            for kernel in PROFILED_KERNELS:
+                if kernel in name:
+                    prev_ms, prev_calls = ours.get(kernel, (0.0, 0))
+                    ours[kernel] = (prev_ms + ms, prev_calls + calls)
+        return {k: {"calls": c, "ms": ms, "ms_per_call": ms / c}
+                for k, (ms, c) in sorted(ours.items())}
+
+    wall = run(17)
+    wall_profiled, by_name = profiled(17)
+    _, by_name_admit = profiled(1)
     busy_ms = sum(ms for ms, _ in by_name.values())
+    busy_admit_ms = sum(ms for ms, _ in by_name_admit.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    # the port's own kernels, by device time alone (CUDA events around a
-    # wrapper also count its host dispatch)
-    ours = {}
-    for name, (ms, calls) in by_name.items():
-        for kernel in ("flash_fwd_kernel", "qmm_tile_kernel", "qmm_reduce_kernel",
-                       "write_rows_kernel"):
-            if kernel in name:
-                prev_ms, prev_calls = ours.get(kernel, (0.0, 0))
-                ours[kernel] = (prev_ms + ms, prev_calls + calls)
-    emit({"phase": "profile", "requests": 64, "steps": 16, "wall_s": wall,
+    emit({"phase": phase, "requests": 64, "steps": 16, "wall_s": wall,
           "wall_s_profiled": wall_profiled,
           "device_busy_s": busy_ms / 1e3 if busy_ms else None,
           "idle_share": 1.0 - busy_ms / 1e3 / wall if busy_ms else None,
           "device_ops": sum(c for _, c in by_name.values()),
-          "port_kernels": {k: {"calls": c, "ms_per_call": ms / c}
-                           for k, (ms, c) in sorted(ours.items())},
+          "device_busy_admission_s": busy_admit_ms / 1e3,
+          "decode_step_busy_ms": (busy_ms - busy_admit_ms) / 16,
+          "port_kernels": port_kernels(by_name),
+          "port_kernels_admission": port_kernels(by_name_admit),
           "top": [{"name": name[:90], "ms": ms, "calls": calls}
                   for name, (ms, calls) in top]})
 
 
-def serve(torch, pkg):
-    dec, eng_mod, build = pkg["decoder"], pkg["engine"], pkg["build"]
-    # TinyLlama-1.1B shape (bench.py build_model): vocab 32000, d 2048,
-    # 22 layers, 32 query / 4 KV heads, d_ff 5632
-    cfg = dec.DecoderConfig(vocab_size=32000, d_model=2048, n_layers=22, n_heads=32,
-                            n_kv_heads=4, d_ff=5632, max_seq_len=2048, softmax_n=1.0,
-                            dtype=torch.bfloat16)
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = pkg["weights"].quantize_decoder_weights(
-        dec.init_decoder_params(cfg, gen, device="cuda"), bits=8)
-    torch.cuda.synchronize()
-    emit({"phase": "weights", "seconds": time.perf_counter() - t0,
-          "config": "TinyLlama-1.1B shape, random N(0, 1/fan_in) from seed 0, int8 "
-                    "per-output-channel"})
+def serve_requests(rng, cfg, n):
+    """n requests: prompts of 16-127 tokens, budgets 16-63 (bench.py)"""
+    out = []
+    for _ in range(n):
+        plen, budget = int(rng.randint(16, 128)), int(rng.randint(16, 64))
+        out.append((rng.randint(0, cfg.vocab_size, size=plen).tolist(), budget))
+    return out
 
-    # fused loop: 96 requests, prompts 16-127 tokens, budgets 16-63 (bench.py)
+
+def check_served(done, budgets, cfg, what):
+    require(all(len(r.output) == budgets[r.request_id] for r in done),
+            f"{what}: a request did not emit exactly its budget")
+    require(all(0 <= t < cfg.vocab_size for r in done for t in r.output),
+            f"{what}: a token is outside the vocabulary")
+
+
+def teacher_forced_gate(torch, pkg, cfg, params, reqs, phase, extra=None):
+    """Each emitted token should be the argmax of a full-sequence forward on
+    its own prefix, up to near-ties (held to >= 0.8 of the tokens), and never
+    more than 0.5 below that forward's best logit (a wrong token sits ~4
+    below)."""
+    scored = [teacher_forced(torch, pkg, cfg, params, r) for r in reqs]
+    n_checked = sum(len(r.output) for r in reqs)
+    tf_agree = sum(s[0] for s in scored) / n_checked
+    deficit = max(s[1] for s in scored)
+    emit({"phase": phase, **(extra or {}),
+          "teacher_forced_argmax_share": tf_agree, "argmax_threshold": 0.8,
+          "teacher_forced_max_deficit": deficit, "deficit_threshold": 0.5,
+          "tokens_teacher_forced": n_checked})
+    require(tf_agree >= 0.8, f"{phase}: teacher-forced argmax share {tf_agree} < 0.8")
+    require(deficit <= 0.5, f"{phase}: teacher-forced logit deficit {deficit} > 0.5")
+
+
+def serve_route(torch, pkg, cfg, params, prefix=""):
+    """96 requests through the fused loop and 4 step by step on one route,
+    with every gate; returns the kernels' launches on the two runs."""
+    dec, eng_mod, build = pkg["decoder"], pkg["engine"], pkg["build"]
+    phase = (prefix + "_") if prefix else ""
+    # fused loop: 96 requests (bench.py)
     eng = eng_mod.InferenceEngine(cfg, params, max_batch=64, max_len=512,
                                   kv_quantization="int8", piggyback_prefill=False)
-    rng = np.random.RandomState(0)
-    reqs = {}
-    for _ in range(96):
-        plen, budget = int(rng.randint(16, 128)), int(rng.randint(16, 64))
-        prompt = rng.randint(0, cfg.vocab_size, size=plen).tolist()
-        reqs[eng.submit(prompt, max_new_tokens=budget)] = budget
+    budgets = {}
+    for prompt, budget in serve_requests(np.random.RandomState(0), cfg, 96):
+        budgets[eng.submit(prompt, max_new_tokens=budget)] = budget
     torch.cuda.synchronize()
     build.reset_launches()
     t0 = time.perf_counter()
@@ -655,11 +866,8 @@ def serve(torch, pkg):
     fused_launches = dict(build.LAUNCHES)
     n_tok = sum(len(r.output) for r in done)
     require(len(done) == 96, f"fused loop finished {len(done)} of 96 requests")
-    require(all(len(r.output) == reqs[r.request_id] for r in done),
-            "a fused-loop request did not emit exactly its budget")
-    require(all(0 <= t < cfg.vocab_size for r in done for t in r.output),
-            "a fused-loop token is outside the vocabulary")
-    emit({"phase": "serve_fused", "requests": len(done), "tokens": n_tok,
+    check_served(done, budgets, cfg, f"{phase}fused loop")
+    emit({"phase": f"{phase or 'serve_'}fused", "requests": len(done), "tokens": n_tok,
           "wall_s": wall, "tokens_per_s": n_tok / wall, "launches": fused_launches,
           "profile": eng.profile_report(), "counters": eng.counters_report()})
 
@@ -678,7 +886,7 @@ def serve(torch, pkg):
     require(len(step_done) == 4 and all(
         len(a.output) == len(b.output) for a, b in zip(step_done, first4)),
         "step path did not finish its 4 requests with their budgets")
-    emit({"phase": "serve_step", "requests": 4,
+    emit({"phase": f"{phase or 'serve_'}step", "requests": 4,
           "tokens": sum(len(r.output) for r in step_done), "wall_s": step_wall,
           "launches": step_launches})
 
@@ -693,30 +901,80 @@ def serve(torch, pkg):
                                   kv_quantization="int8")[0].tolist()
         agree.append(lcp(r.output, ref) / len(r.output))
     mean_agree = float(np.mean(agree))
-    # teacher-forced check, which does not cascade: each emitted token
-    # should be the argmax of a full-sequence forward on its own prefix,
-    # up to near-ties (held to >= 0.8 of the tokens), and never more than
-    # 0.5 below that forward's best logit (a wrong token sits ~4 below)
-    checked = step_done + sorted(done, key=lambda r: r.request_id)[:8]
-    scored = [teacher_forced(torch, pkg, cfg, params, r) for r in checked]
-    n_checked = sum(len(r.output) for r in checked)
-    tf_agree = sum(s[0] for s in scored) / n_checked
-    deficit = max(s[1] for s in scored)
-    emit({"phase": "agreement", "greedy_generate_prefix_share": agree,
-          "mean": mean_agree, "threshold": 0.1,
-          "teacher_forced_argmax_share": tf_agree, "argmax_threshold": 0.8,
-          "teacher_forced_max_deficit": deficit, "deficit_threshold": 0.5,
-          "tokens_teacher_forced": n_checked})
-    require(mean_agree >= 0.1, f"greedy_generate agreement {mean_agree} < 0.1")
-    require(tf_agree >= 0.8, f"teacher-forced argmax share {tf_agree} < 0.8")
-    require(deficit <= 0.5, f"teacher-forced logit deficit {deficit} > 0.5")
+    # teacher-forced check, which does not cascade
+    teacher_forced_gate(torch, pkg, cfg, params,
+                        step_done + sorted(done, key=lambda r: r.request_id)[:8],
+                        f"{phase}agreement",
+                        {"greedy_generate_prefix_share": agree, "mean": mean_agree,
+                         "threshold": 0.1})
+    require(mean_agree >= 0.1, f"{phase}greedy_generate agreement {mean_agree} < 0.1")
     # the main path is both runs: the fused loop (K1, K2, K4) and the step
-    # path near max_len (K1, K3); every serving kernel must have run in them
+    # path (K1, K3), with K7-K9 on the pallas routes
     launches = {k: fused_launches[k] + step_launches[k] for k in fused_launches}
-    for name in ("flash_fwd", "qmm_argmax", "cache_append", "tail_append"):
-        require(launches[name] > 0, f"the serving runs never launched {name}")
-    profile_chunk(torch, eng_mod, cfg, params)
+    pallas = cfg.int8_mm_impl == "pallas" and cfg.decode_attn_impl == "pallas"
+    for name in SERVE_KERNELS + (PALLAS_KERNELS if pallas else ()):
+        require(launches[name] > 0, f"the {prefix or 'serve'} runs never launched {name}")
+    if not pallas:
+        for name in PALLAS_KERNELS:
+            require(launches[name] == 0, f"the default routes launched {name}")
+    profile_chunk(torch, eng_mod, cfg, params, f"{phase}profile")
     return launches
+
+
+def serve_mode(torch, pkg, cfg, params, mode):
+    """8 requests through the fused loop with int4 weights or W8A8, on the
+    pallas routes, held to budgets, vocabulary and the teacher-forced gate;
+    returns the kernels' launches on the run."""
+    eng_mod, build = pkg["engine"], pkg["build"]
+    eng = eng_mod.InferenceEngine(cfg, params, max_batch=8, max_len=512,
+                                  kv_quantization="int8", piggyback_prefill=False)
+    budgets = {}
+    for prompt, budget in serve_requests(np.random.RandomState(2), cfg, 8):
+        budgets[eng.submit(prompt, max_new_tokens=budget)] = budget
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run_until_done(loop_steps=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    require(len(done) == 8, f"serve_{mode}: finished {len(done)} of 8 requests")
+    check_served(done, budgets, cfg, f"serve_{mode}")
+    n_tok = sum(len(r.output) for r in done)
+    emit({"phase": f"serve_{mode}", "requests": 8, "tokens": n_tok, "wall_s": wall,
+          "tokens_per_s": n_tok / wall, "launches": launches})
+    teacher_forced_gate(torch, pkg, cfg, params, sorted(done, key=lambda r: r.request_id),
+                        f"serve_{mode}_agreement")
+    for name in ("flash_fwd", "qmm", "decode_attn", "tail_append"):
+        require(launches[name] > 0, f"serve_{mode} never launched {name}")
+    return launches
+
+
+def serve(torch, pkg):
+    """Both serving routes at the TinyLlama-1.1B shape, then int4 and W8A8;
+    returns each path's launches."""
+    dec, weights = pkg["decoder"], pkg["weights"]
+    # TinyLlama-1.1B shape (bench.py build_model): vocab 32000, d 2048,
+    # 22 layers, 32 query / 4 KV heads, d_ff 5632
+    cfg = dec.DecoderConfig(vocab_size=32000, d_model=2048, n_layers=22, n_heads=32,
+                            n_kv_heads=4, d_ff=5632, max_seq_len=2048, softmax_n=1.0,
+                            dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dense = dec.init_decoder_params(cfg, gen, device="cuda")
+    params = weights.quantize_decoder_weights(dense, bits=8)
+    params4 = weights.quantize_decoder_weights(dense, bits=4)
+    del dense
+    torch.cuda.synchronize()
+    emit({"phase": "weights", "seconds": time.perf_counter() - t0,
+          "config": "TinyLlama-1.1B shape, random N(0, 1/fan_in) from seed 0, int8 "
+                    "per-output-channel (and grouped int4 for serve_int4)"})
+    pallas = dataclasses.replace(cfg, int8_mm_impl="pallas", decode_attn_impl="pallas")
+    return {"serve": serve_route(torch, pkg, cfg, params),
+            "serve_pallas": serve_route(torch, pkg, pallas, params, "serve_pallas"),
+            "serve_int4": serve_mode(torch, pkg, pallas, params4, "int4"),
+            "serve_w8a8": serve_mode(torch, pkg, dataclasses.replace(pallas, act_bits=8),
+                                     params, "w8a8")}
 
 
 # ----------------------------------------------------------------------------
@@ -863,7 +1121,9 @@ def main() -> int:
         from flash_attention_softmax_n_tpu_torch.kernels import (
             _build,
             cache_update,
+            decode_attention,
             flash_attention,
+            fused_mlp,
             quant_matmul,
         )
         from flash_attention_softmax_n_tpu_torch.models import decoder
@@ -871,14 +1131,15 @@ def main() -> int:
             flash_attention as ops_flash_attention,
         )
         from flash_attention_softmax_n_tpu_torch.parallel import train as train_mod
-        from flash_attention_softmax_n_tpu_torch.quant import weights
+        from flash_attention_softmax_n_tpu_torch.quant import kv_cache, qtensor, weights
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 1
     pkg = {"build": _build, "flash_attention": flash_attention,
            "ops_flash_attention": ops_flash_attention, "quant_matmul": quant_matmul,
-           "cache_update": cache_update, "decoder": decoder, "engine": engine,
-           "weights": weights, "train": train_mod}
+           "cache_update": cache_update, "decode_attention": decode_attention,
+           "fused_mlp": fused_mlp, "decoder": decoder, "engine": engine,
+           "weights": weights, "qtensor": qtensor, "kv_cache": kv_cache, "train": train_mod}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -918,12 +1179,34 @@ def main() -> int:
     ]
     for kd in kernels:
         kd["path"] = "serve"
+    # K7-K9 at the pallas route's shapes: M = 64 the fused loop's batch
+    # (N 2048 wq/wo, 256 wk/wv, 5632 w_gate/w_up), M = 2048 a full admission
+    # group (16 x 128); K8 at B64 with int8 (the route's) and bf16 caches
+    pallas_lines = [
+        check_dequant_mm(torch, pkg, gen, M=64, K=2048, N=2048),
+        check_dequant_mm(torch, pkg, gen, M=64, K=2048, N=256),
+        check_dequant_mm(torch, pkg, gen, M=64, K=2048, N=5632),
+        check_dequant_mm(torch, pkg, gen, M=2048, K=2048, N=5632),
+        check_decode_attn(torch, pkg, gen, B=64, KVH=4, G=8, S=512, D=64, cache="int8"),
+        check_decode_attn(torch, pkg, gen, B=64, KVH=4, G=8, S=512, D=64, cache="bf16"),
+        check_fused_mlp(torch, pkg, gen, M=64, K=2048, F=5632),
+        check_fused_mlp(torch, pkg, gen, M=256, K=2048, F=5632),
+    ]
+    for kd in pallas_lines:
+        kd["path"] = "serve_pallas"
+    for mode in ("w8a8", "int4"):
+        kd = check_dequant_mm(torch, pkg, gen, M=64, K=2048, N=5632, mode=mode)
+        kd["path"] = f"serve_{mode}"
+        pallas_lines.append(kd)
+    kernels += pallas_lines
+    for kd in kernels:
         emit({"phase": "kernel", **{k: kd[k] for k in ("name", "max_abs_err", "tolerance", "ms",
-                                                       "device_ms", "plain_ms", "library_ms")}})
+                                                       "device_ms", "plain_ms", "bound_ms",
+                                                       "library_ms")}})
     kernels += train_kernels(torch, pkg, gen)
 
     # each main path's launches: counts set to 0 just before it, read after
-    launches = {"serve": serve(torch, pkg)}
+    launches = serve(torch, pkg)
     train_agreement(torch, pkg)
     launches["train"] = train(torch, pkg)
     for kd in kernels:

@@ -4,8 +4,8 @@
 example ``jax.tree.map(np.asarray, params)``, which keeps the JAX package's
 ``QTensor`` nodes with numpy ``values``/``scales``) and returns the port's
 parameter dict on ``device``. It reads quantized leaves by their
-``values``/``scales``/``bits`` attributes, so nothing of the JAX package is
-imported.
+``values``/``scales``/``bits``/``packed_axis`` attributes (int8 and grouped
+int4), so nothing of the JAX package is imported.
 """
 
 from __future__ import annotations
@@ -33,13 +33,13 @@ def _convert(x, device: torch.device):
         return {k: _convert(v, device) for k, v in x.items()}
     if hasattr(x, "values") and hasattr(x, "scales"):
         bits = getattr(x, "bits", 8)
-        if bits != 8 or getattr(x, "packed_axis", None) is not None:
+        if bits not in (8, 4):
             raise NotImplementedError(
                 f"bits={bits} quantized weights are not ported yet; see "
                 "ROADMAP.md")
         return QTensor(tensor_from_numpy(x.values, device),
                        tensor_from_numpy(x.scales, device),
-                       bits=8)
+                       bits=bits, packed_axis=getattr(x, "packed_axis", None))
     return tensor_from_numpy(x, device)
 
 

@@ -280,6 +280,181 @@ void tail_append(const at::Tensor& k_tail, const at::Tensor& v_tail, const at::T
                what);
 }
 
+int64_t qmm_splits(int64_t m, int64_t k, int64_t n) {
+  return fasn_qmm_splits(as_int(m, "qmm_splits"), as_int(k, "qmm_splits"),
+                         as_int(n, "qmm_splits"));
+}
+
+void qmm(const at::Tensor& x, const std::optional<at::Tensor>& x_scales, const at::Tensor& w,
+         const at::Tensor& scales, const at::Tensor& out, const at::Tensor& part, int64_t bits) {
+  const char* what = "quantized_matmul";
+  TORCH_CHECK_VALUE(bits == 8 || bits == 4, what, ": bits must be 8 or 4, got ", bits);
+  TORCH_CHECK_VALUE(x.dim() == 2 && w.dim() == 2, what, ": x (M, K) and w (K, N) are 2-D");
+  const int64_t M = x.size(0), K = x.size(1), N = w.size(1);
+  TORCH_CHECK_VALUE(w.size(0) * (bits == 4 ? 2 : 1) == K, what, ": x K=", K, " and w ",
+                    w.sizes(), " disagree");
+  TORCH_CHECK_VALUE(bits == 8 || K % 256 == 0, what, ": int4 needs K % 256 == 0, got K=", K);
+  const c10::cuda::CUDAGuard guard(x.device());
+  int x_dtype;
+  const float* xs_ptr = nullptr;
+  if (x.scalar_type() == at::kChar) {
+    TORCH_CHECK_VALUE(x_scales.has_value(), what, ": int8 x (W8A8) needs x_scales");
+    check_on(*x_scales, x, what);
+    check_shape(*x_scales, {M}, at::kFloat, what, "x_scales");
+    xs_ptr = x_scales->data_ptr<float>();
+    x_dtype = 2;
+  } else {
+    TORCH_CHECK_VALUE(!x_scales.has_value(), what, ": x_scales go with int8 x only");
+    x_dtype = dtype_code(x, what);
+  }
+  for (const at::Tensor* t : {&x, &w, &scales, &out}) check_on(*t, x, what);
+  check_shape(w, {w.size(0), N}, at::kChar, what, "w");
+  check_shape(scales, {N}, at::kFloat, what, "scales");
+  TORCH_CHECK_VALUE(out.sizes() == at::IntArrayRef({M, N}), what, ": out must be (M, N)");
+  const int splits = fasn_qmm_splits(as_int(M, what), as_int(K, what), as_int(N, what));
+  float* part_ptr = nullptr;
+  if (splits > 1) {
+    check_on(part, x, what);
+    check_shape(part, {splits, M, N}, at::kFloat, what, "part");
+    part_ptr = part.data_ptr<float>();
+  }
+  check_launch(fasn_qmm(x.data_ptr(), xs_ptr, w.data_ptr(), scales.data_ptr<float>(), part_ptr,
+                        out.data_ptr(), as_int(M, what), as_int(K, what), as_int(N, what),
+                        x_dtype, static_cast<int>(bits), dtype_code(out, what), stream_of(x)),
+               what);
+}
+
+int64_t fused_mlp_tiles(int64_t f) { return fasn_fused_mlp_tiles(as_int(f, "fused_mlp_tiles")); }
+
+void fused_mlp(const at::Tensor& x, const at::Tensor& wg, const at::Tensor& sg,
+               const at::Tensor& wu, const at::Tensor& su, const at::Tensor& wd,
+               const at::Tensor& sd, const at::Tensor& out, const at::Tensor& part) {
+  const char* what = "fused_mlp_matmul";
+  TORCH_CHECK_VALUE(x.dim() == 2 && wg.dim() == 2, what, ": x (M, K) and wg (K, F) are 2-D");
+  const int64_t M = x.size(0), K = x.size(1), F = wg.size(1);
+  TORCH_CHECK_VALUE(K % 64 == 0 && F % 64 == 0, what, ": K and F must be multiples of 64, got K=",
+                    K, " F=", F);
+  const c10::cuda::CUDAGuard guard(x.device());
+  const int dtype = dtype_code(x, what);
+  for (const at::Tensor* t : {&x, &wg, &sg, &wu, &su, &wd, &sd, &out, &part})
+    check_on(*t, x, what);
+  check_shape(wg, {K, F}, at::kChar, what, "wg");
+  check_shape(wu, {K, F}, at::kChar, what, "wu");
+  check_shape(wd, {F, K}, at::kChar, what, "wd");
+  check_shape(sg, {F}, at::kFloat, what, "sg");
+  check_shape(su, {F}, at::kFloat, what, "su");
+  check_shape(sd, {K}, at::kFloat, what, "sd");
+  check_shape(out, {M, K}, x.scalar_type(), what, "out");
+  const int tiles = fasn_fused_mlp_tiles(as_int(F, what));
+  check_shape(part, {tiles, M, K}, at::kFloat, what, "part");
+  check_launch(fasn_fused_mlp(x.data_ptr(), wg.data_ptr(), sg.data_ptr<float>(), wu.data_ptr(),
+                              su.data_ptr<float>(), wd.data_ptr(), sd.data_ptr<float>(),
+                              part.data_ptr<float>(), out.data_ptr(), as_int(M, what),
+                              as_int(K, what), as_int(F, what), dtype, stream_of(x)),
+               what);
+}
+
+int64_t decode_attn_splits(int64_t s) {
+  return fasn_decode_attn_splits(as_int(s, "decode_attn_splits"));
+}
+
+int kv_code(const at::Tensor& t, const char* what) {
+  if (t.scalar_type() == at::kFloat) return 0;
+  if (t.scalar_type() == at::kBFloat16) return 1;
+  if (t.scalar_type() == at::kChar) return 2;
+  TORCH_CHECK_VALUE(false, what, " takes f32, bf16 or int8 caches, got ", t.scalar_type());
+  return -1;
+}
+
+// a cache view (B, KVH, S, D|1) on ref's card with unit stride along D
+void check_view(const at::Tensor& t, const at::Tensor& ref, at::IntArrayRef shape,
+                const char* what, const char* name) {
+  TORCH_CHECK_VALUE(t.is_cuda() && t.device() == ref.device(), what,
+                    ": all tensors must be on one CUDA device");
+  TORCH_CHECK_VALUE(t.sizes() == shape, what, ": ", name, " must be ", shape, ", got ",
+                    t.sizes());
+  TORCH_CHECK_VALUE(shape[3] == 1 || t.stride(3) == 1, what, ": ", name,
+                    " needs unit stride along the head dim");
+}
+
+void decode_attn(const at::Tensor& q, const std::optional<at::Tensor>& q_scales,
+                 const at::Tensor& k, const at::Tensor& v,
+                 const std::optional<at::Tensor>& k_scales,
+                 const std::optional<at::Tensor>& v_scales, const at::Tensor& lengths,
+                 const at::Tensor& acc, const at::Tensor& m, const at::Tensor& l,
+                 const at::Tensor& part_acc, const at::Tensor& part_m, const at::Tensor& part_l) {
+  const char* what = "decode_attention_n";
+  TORCH_CHECK_VALUE(q.dim() == 4 && k.dim() == 4, what,
+                    ": q (B, KVH, G, hd) and k (B, KVH, S, hd) are 4-D");
+  const int64_t B = q.size(0), KVH = q.size(1), G = q.size(2), HD = q.size(3), S = k.size(2);
+  TORCH_CHECK_VALUE(G >= 1 && G <= 16 && HD >= 1 && HD <= 128, what,
+                    ": needs 1 <= G <= 16 query rows per KV head and hd <= 128, got G=", G,
+                    " hd=", HD);
+  const c10::cuda::CUDAGuard guard(q.device());
+  FasnDecode a{};
+  if (q.scalar_type() == at::kChar) {
+    TORCH_CHECK_VALUE(q_scales.has_value() && k.scalar_type() == at::kChar, what,
+                      ": int8 q (int8 compute) needs q_scales and an int8 cache");
+    check_on(*q_scales, q, what);
+    check_shape(*q_scales, {B, KVH, G}, at::kFloat, what, "q_scales");
+    a.q_scales = q_scales->data_ptr<float>();
+    a.q_dtype = 2;
+  } else {
+    a.q_dtype = dtype_code(q, what);
+  }
+  check_on(q, q, what);
+  a.kv_dtype = kv_code(k, what);
+  check_view(k, q, {B, KVH, S, HD}, what, "k");
+  check_view(v, q, {B, KVH, S, HD}, what, "v");
+  TORCH_CHECK_VALUE(v.scalar_type() == k.scalar_type(), what, ": k and v must share a dtype");
+  TORCH_CHECK_VALUE(k_scales.has_value() == v_scales.has_value() &&
+                        k_scales.has_value() == (a.kv_dtype == 2),
+                    what, ": an int8 cache needs k and v scales, a dense one none");
+  if (k_scales.has_value()) {
+    for (const at::Tensor* t : {&*k_scales, &*v_scales}) {
+      check_view(*t, q, {B, KVH, S, 1}, what, "scales");
+      TORCH_CHECK_VALUE(t->scalar_type() == at::kFloat, what, ": scales must be f32");
+    }
+    a.k_scales = k_scales->data_ptr<float>();
+    a.v_scales = v_scales->data_ptr<float>();
+    a.ks_sb = k_scales->stride(0);
+    a.ks_sh = k_scales->stride(1);
+    a.ks_ss = k_scales->stride(2);
+    a.vs_sb = v_scales->stride(0);
+    a.vs_sh = v_scales->stride(1);
+    a.vs_ss = v_scales->stride(2);
+  }
+  check_on(lengths, q, what);
+  check_shape(lengths, {B}, at::kInt, what, "lengths");
+  const int splits = fasn_decode_attn_splits(as_int(S, what));
+  for (const at::Tensor* t : {&acc, &m, &l, &part_acc, &part_m, &part_l}) check_on(*t, q, what);
+  check_shape(acc, {B, KVH, G, HD}, at::kFloat, what, "acc");
+  check_shape(m, {B, KVH, G}, at::kFloat, what, "m");
+  check_shape(l, {B, KVH, G}, at::kFloat, what, "l");
+  check_shape(part_acc, {B, KVH, splits, G, HD}, at::kFloat, what, "part_acc");
+  check_shape(part_m, {B, KVH, splits, G}, at::kFloat, what, "part_m");
+  check_shape(part_l, {B, KVH, splits, G}, at::kFloat, what, "part_l");
+  a.q = q.data_ptr();
+  a.k = k.data_ptr();
+  a.v = v.data_ptr();
+  a.lengths = lengths.data_ptr<int>();
+  a.k_sb = k.stride(0);
+  a.k_sh = k.stride(1);
+  a.k_ss = k.stride(2);
+  a.v_sb = v.stride(0);
+  a.v_sh = v.stride(1);
+  a.v_ss = v.stride(2);
+  a.B = as_int(B, what);
+  a.KVH = as_int(KVH, what);
+  a.G = as_int(G, what);
+  a.HD = as_int(HD, what);
+  a.S = as_int(S, what);
+  check_launch(fasn_decode_attn(&a, part_acc.data_ptr<float>(), part_m.data_ptr<float>(),
+                                part_l.data_ptr<float>(), acc.data_ptr<float>(),
+                                m.data_ptr<float>(), l.data_ptr<float>(), stream_of(q)),
+               what);
+}
+
 }  // namespace
 
 TORCH_LIBRARY(fasn, m) {
@@ -304,6 +479,19 @@ TORCH_LIBRARY(fasn, m) {
   m.def(
       "tail_append(Tensor(a!) k_tail, Tensor(b!) v_tail, Tensor k_new, Tensor v_new, "
       "int index) -> ()");
+  m.def("qmm_splits(int m, int k, int n) -> int", &qmm_splits);
+  m.def(
+      "qmm(Tensor x, Tensor? x_scales, Tensor w, Tensor scales, Tensor(a!) out, "
+      "Tensor(b!) part, int bits) -> ()");
+  m.def("fused_mlp_tiles(int f) -> int", &fused_mlp_tiles);
+  m.def(
+      "fused_mlp(Tensor x, Tensor wg, Tensor sg, Tensor wu, Tensor su, Tensor wd, Tensor sd, "
+      "Tensor(a!) out, Tensor(b!) part) -> ()");
+  m.def("decode_attn_splits(int s) -> int", &decode_attn_splits);
+  m.def(
+      "decode_attn(Tensor q, Tensor? q_scales, Tensor k, Tensor v, Tensor? k_scales, "
+      "Tensor? v_scales, Tensor lengths, Tensor(a!) acc, Tensor(b!) m, Tensor(c!) l, "
+      "Tensor(d!) part_acc, Tensor(e!) part_m, Tensor(f!) part_l) -> ()");
 }
 
 TORCH_LIBRARY_IMPL(fasn, CUDA, m) {
@@ -313,4 +501,7 @@ TORCH_LIBRARY_IMPL(fasn, CUDA, m) {
   m.impl("qmm_argmax", &qmm_argmax);
   m.impl("cache_append", &cache_append);
   m.impl("tail_append", &tail_append);
+  m.impl("qmm", &qmm);
+  m.impl("fused_mlp", &fused_mlp);
+  m.impl("decode_attn", &decode_attn);
 }

@@ -71,4 +71,53 @@ int fasn_tail_append(void* k_tail, void* v_tail, const void* k_new, const void* 
                      int row_bytes, int index, int NL, int B, int KVH, int W,
                      cudaStream_t stream);
 
+// K7 (qmm.cu). K splits of an (M, K, N) product: the scratch holds
+// splits * M * N four-byte partials when splits > 1 (none otherwise).
+int fasn_qmm_splits(int M, int K, int N);
+
+// K7. x (M,K) contiguous, f32 (x_dtype 0), bf16 (1) or int8 (2, W8A8, with
+// x_scales (M,) f32); w int8 (K,N), or int4 (bits 4) packed (K/2,N) in
+// groups of 256 rows with K % 256 == 0, contiguous; scales (N,) f32; out
+// (M,N) contiguous, f32 (out_dtype 0) or bf16 (1).
+int fasn_qmm(const void* x, const float* x_scales, const void* w, const float* scales,
+             float* partial, void* out, int M, int K, int N, int x_dtype, int bits, int out_dtype,
+             cudaStream_t stream);
+
+// K9 (fused_mlp.cu). d_ff tiles: the scratch holds tiles * M * K f32.
+int fasn_fused_mlp_tiles(int F);
+
+// K9. x (M,K) contiguous, f32 (dtype 0) or bf16 (1); wg, wu int8 (K,F) and
+// wd int8 (F,K) contiguous, K % 64 == 0 and F % 64 == 0; sg, su (F,) and
+// sd (K,) f32; out (M,K) like x.
+int fasn_fused_mlp(const void* x, const void* wg, const float* sg, const void* wu,
+                   const float* su, const void* wd, const float* sd, float* partial, void* out,
+                   int M, int K, int F, int dtype, cudaStream_t stream);
+
+// K8's inputs. q (B,KVH,G,HD) contiguous, f32 (q_dtype 0), bf16 (1) or
+// int8 (2, int8 compute, with q_scales (B,KVH,G) f32); k and v (B,KVH,S,HD)
+// f32 (kv_dtype 0), bf16 (1) or int8 (2) at element strides *_sb, *_sh,
+// *_ss with unit stride along HD; k_scales/v_scales null (dense) or f32
+// (B,KVH,S,1) at element strides ks_*/vs_*; lengths (B,) int32 on the
+// device. G <= 16, HD <= 128.
+struct FasnDecode {
+  const void* q;
+  const float* q_scales;
+  const void* k;
+  const void* v;
+  const float* k_scales;
+  const float* v_scales;
+  const int* lengths;
+  long long k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
+  long long ks_sb, ks_sh, ks_ss, vs_sb, vs_sh, vs_ss;
+  int B, KVH, G, HD, S, q_dtype, kv_dtype;
+};
+
+// K8 (decode_attn.cu). Splits of S: the scratch holds part_acc
+// (B,KVH,splits,G,HD), part_m and part_l (B,KVH,splits,G), f32.
+int fasn_decode_attn_splits(int S);
+
+// K8. acc (B,KVH,G,HD), m and l (B,KVH,G), f32 and contiguous.
+int fasn_decode_attn(const FasnDecode* a, float* part_acc, float* part_m, float* part_l,
+                     float* acc, float* m, float* l, cudaStream_t stream);
+
 }  // extern "C"

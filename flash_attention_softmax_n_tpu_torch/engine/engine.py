@@ -11,7 +11,11 @@ Counterpart of the serving core of
     (``engine_decode_loop``): the steps stay on the device, new rows go to
     a bf16 ring by kernel K4, greedy tokens come from the lm_head kernel
     K2, and one flush per chunk moves the ring into the cache. The host
-    syncs once per chunk.
+    syncs once per chunk;
+  * ``cfg.int8_mm_impl="pallas"`` takes the int8 matmuls to kernel K7 and
+    the decode MLP to K9 (models/decoder.py), and
+    ``cfg.decode_attn_impl="pallas"`` the decode attention to K8, which
+    reads only each slot's valid cache rows.
 
 The request queue and slot bookkeeping are host-side Python. JAX's
 functional updates become in-place writes into the engine's tensors.
@@ -179,7 +183,8 @@ def engine_prefill_chunk(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
     last = torch.clamp(true_lens - 1, 0, c - 1).long()
     x_last = x[torch.arange(nb, device=dev), last][:, None]
     x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
-    logits = _mm(x_last, params["lm_head"]).float()
+    logits = _mm(x_last, params["lm_head"], cfg.act_bits,
+                 cfg.int8_mm_impl).float()
     return logits[:, 0], cache
 
 
@@ -261,7 +266,8 @@ def _decode_step(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
         lm = params["lm_head"]
         tok = quantized_matmul_argmax(x, lm.values, lm.scales)
         return tok[:, 0], cache, tail
-    logits = _mm(x, params["lm_head"]).float()
+    logits = _mm(x, params["lm_head"], cfg.act_bits,
+                 cfg.int8_mm_impl).float()
     return logits[:, 0], cache, tail
 
 

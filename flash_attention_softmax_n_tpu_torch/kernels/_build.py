@@ -39,7 +39,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu",
-           "qmm_argmax.cu", "cache_update.cu")
+           "qmm_argmax.cu", "cache_update.cu", "qmm.cu", "fused_mlp.cu",
+           "decode_attn.cu")
 BINDINGS = "bindings.cpp"
 HEADERS = ("launchers.h", "flash_common.h")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,7 +49,8 @@ CXX_FLAGS = ["-std=c++17", "-O2", "-fPIC"]
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0, "qmm_argmax": 0,
-                            "cache_append": 0, "tail_append": 0}
+                            "cache_append": 0, "tail_append": 0, "qmm": 0,
+                            "fused_mlp": 0, "decode_attn": 0}
 # wall seconds of each compile and of the link in this process's last build
 BUILD_SECONDS: Dict[str, float] = {}
 

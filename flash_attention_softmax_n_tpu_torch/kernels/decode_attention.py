@@ -1,12 +1,22 @@
 """Single-token softmax-N attention over a per-slot-length (int8) KV cache.
 
 Counterpart of ``decode_attention_n``
-(``flash_attention_softmax_n_tpu/kernels/decode_attention.py``) on its
-``implementation="xla"`` route, which the serving path takes: unnormalized
-(acc, m, l) statistics over the cache as plain tensor ops, then the
-epilogue that merges the tail window and the current token's self-term and
-adds ``+n`` exactly once. Products take bf16 (or f32) operands with f32
-accumulation. The Pallas decode kernel (``implementation="pallas"``) is
+(``flash_attention_softmax_n_tpu/kernels/decode_attention.py``): unnormalized
+(acc, m, l) statistics over the cache, then the epilogue (torch ops) that
+merges the tail window and the current token's self-term and adds ``+n``
+exactly once. Two routes compute the statistics, as in JAX:
+
+  * ``implementation="pallas"`` (the default): kernel K8
+    (``csrc/decode_attn.cu``) on a CUDA tensor, which reads only the
+    positions below each slot's length, or its plain version
+    ``decode_attn_stats_reference`` on a CPU tensor. It rounds q to q's own
+    type and walks 256-position tiles with a running maximum, as the Pallas
+    kernel does; ``int8_compute`` quantizes q per row and the probabilities
+    per row per tile, and both products run on integers.
+  * ``implementation="xla"``: plain tensor ops over the whole padded cache,
+    q rounded to bf16 unless the cache is f32.
+
+Products take bf16 (or f32) operands with f32 accumulation. fp8 caches are
 still to be ported (ROADMAP.md).
 """
 
@@ -17,9 +27,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["decode_attention_n"]
+from flash_attention_softmax_n_tpu_torch.kernels import _build
+
+__all__ = ["decode_attention_n", "decode_attn_stats_reference"]
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
+TILE = 256  # positions per tile of the Pallas kernel, and per split of K8
 
 
 def _operand(x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
@@ -55,6 +68,110 @@ def _decode_attn_stats_xla(
     return acc, m, l
 
 
+def decode_attn_stats_reference(
+    q: torch.Tensor,
+    q_scales: Optional[torch.Tensor],
+    k_values: torch.Tensor,
+    v_values: torch.Tensor,
+    lengths: torch.Tensor,
+    k_scales: Optional[torch.Tensor],
+    v_scales: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K8: (acc (B, KVH, G, hd), m, l (B, KVH, G)) f32.
+
+    q (B, KVH, G, hd) pre-scaled in its compute type (bf16 or f32), or int8
+    with per-row scales ``q_scales`` (B, KVH, G, 1) under int8 compute.
+    Walks the cache in tiles of min(256, S rounded up to 128) positions with
+    a running maximum, as the Pallas kernel does. Rows of length 0 come
+    back as (acc 0, m NEG_INF, l 0).
+    """
+    batch, kvh, group, hd = q.shape
+    s_len = k_values.shape[2]
+    quantized = k_scales is not None
+    int8c = q.dtype == torch.int8
+    cd = torch.float32 if v_values.dtype == torch.float32 else torch.bfloat16
+    block = min(TILE, -(-s_len // 128) * 128)
+    lens = lengths.long()
+    m = torch.full((batch, kvh, group), NEG_INF, device=q.device)
+    l = torch.zeros((batch, kvh, group), device=q.device)
+    acc = torch.zeros((batch, kvh, group, hd), device=q.device)
+    for s0 in range(0, s_len, block):
+        live = (s0 < lens)[:, None, None]  # the tile holds a valid position
+        kt = k_values[:, :, s0:s0 + block]
+        if int8c:
+            # int32 sums, exact in f64, then rounded to f32
+            s = (q.double() @ kt.double().transpose(-1, -2)).float() * q_scales
+        else:
+            s = q.float() @ kt.to(q.dtype).float().transpose(-1, -2)
+        if quantized:
+            s = s * k_scales[:, :, s0:s0 + block].transpose(-1, -2)
+        pos = s0 + torch.arange(kt.shape[2], device=q.device)
+        s = torch.where(pos < lens[:, None, None, None], s, NEG_INF)
+        m_next = torch.maximum(m, torch.amax(s, dim=-1))
+        alpha = torch.exp(m - m_next)
+        p = torch.exp(s - m_next[..., None])
+        l_next = l * alpha + torch.sum(p, dim=-1)
+        if quantized:
+            p = p * v_scales[:, :, s0:s0 + block].transpose(-1, -2)
+        vt = v_values[:, :, s0:s0 + block]
+        if int8c:
+            r_max = torch.amax(p, dim=-1, keepdim=True)
+            r_scale = torch.where(r_max == 0.0, 1.0, r_max / 127.0)
+            r_int = torch.clamp(torch.round(p / r_scale), -128, 127)
+            pv = (r_int.double() @ vt.double()).float() * r_scale
+        else:
+            pv = p.to(cd).float() @ vt.to(cd).float()
+        m = torch.where(live, m_next, m)
+        l = torch.where(live, l_next, l)
+        acc = torch.where(live[..., None], acc * alpha[..., None] + pv, acc)
+    return acc, m, l
+
+
+def _decode_attn_cuda(qv, q_scales, k_values, v_values, lengths, k_scales,
+                      v_scales):
+    batch, kvh, group, hd = qv.shape
+    dev = qv.device
+    ops = _build.ops()
+    splits = ops.decode_attn_splits(k_values.shape[2])
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    acc, m, l = f32(batch, kvh, group, hd), f32(batch, kvh, group), f32(batch, kvh, group)
+    ops.decode_attn(
+        qv.contiguous(),
+        None if q_scales is None else q_scales.reshape(batch, kvh, group).contiguous(),
+        k_values, v_values, k_scales, v_scales,
+        lengths.to(torch.int32).contiguous(), acc, m, l,
+        f32(batch, kvh, splits, group, hd), f32(batch, kvh, splits, group),
+        f32(batch, kvh, splits, group))
+    _build.LAUNCHES["decode_attn"] += 1
+    return acc, m, l
+
+
+def _decode_attn_stats(q, k_values, v_values, lengths, k_scales, v_scales, *,
+                       int8_compute: bool, in_dtype: torch.dtype):
+    """The ``"pallas"`` route's statistics; q (B, KVH, G, hd) f32,
+    pre-scaled. q is rounded to ``in_dtype``, or quantized per row under
+    ``int8_compute``, outside the kernel, as JAX does."""
+    if k_values.dtype.is_floating_point and k_values.element_size() == 1:
+        raise NotImplementedError(
+            "fp8 KV caches are not ported yet; see ROADMAP.md")
+    if int8_compute:
+        q_absmax = torch.amax(torch.abs(q), dim=-1, keepdim=True)
+        q_scales = torch.where(q_absmax == 0, 1.0, q_absmax / 127.0)
+        qv = torch.clamp(torch.round(q / q_scales), -128, 127).to(torch.int8)
+    else:
+        qv, q_scales = q.to(in_dtype), None
+    args = (qv, q_scales, k_values, v_values, lengths, k_scales, v_scales)
+    if qv.is_cuda:
+        return _decode_attn_cuda(*args)
+    if qv.device.type != "cpu":
+        raise ValueError(f"decode_attention_n runs on CUDA or CPU tensors, "
+                         f"not {qv.device}")
+    return decode_attn_stats_reference(*args)
+
+
 def decode_attention_n(
     q: torch.Tensor,
     k_values: torch.Tensor,
@@ -70,7 +187,8 @@ def decode_attention_n(
     k_tail: Optional[torch.Tensor] = None,
     v_tail: Optional[torch.Tensor] = None,
     tail_lengths: Optional[torch.Tensor] = None,
-    implementation: str = "xla",
+    int8_compute: bool = False,
+    implementation: str = "pallas",
 ) -> torch.Tensor:
     """Single-token softmax-N attention over a padded (quantized) KV cache.
 
@@ -78,25 +196,29 @@ def decode_attention_n(
     (B, KVH, S, 1) f32 when quantized; lengths (B,) valid keys per slot.
     ``k_new``/``v_new`` (B, KVH, hd): the current token, attended as one
     extra key. ``k_tail``/``v_tail`` (B, KVH, W, hd) with ``tail_lengths``
-    (B,): the fused loop's recent-token window. Returns (B, H, hd) in q's
-    dtype.
+    (B,): the fused loop's recent-token window. ``int8_compute`` (off by
+    default; int8 caches only): integer QK and PV on the ``"pallas"``
+    route. Returns (B, H, hd) in q's dtype.
     """
-    if implementation == "pallas":
-        raise NotImplementedError(
-            "the Pallas decode-attention kernel is not ported yet; use "
-            "implementation='xla' (see ROADMAP.md)")
-    if implementation != "xla":
+    if implementation not in ("xla", "pallas"):
         raise ValueError(f"unknown decode attention implementation "
-                         f"{implementation!r}")
+                         f"{implementation!r}; expected 'xla' or 'pallas'")
     batch, heads, hd = q.shape
     kvh = k_values.shape[1]
     group = heads // kvh
     if scale is None:
         scale = hd ** -0.5
+    if int8_compute and (k_scales is None or k_values.dtype != torch.int8):
+        raise ValueError("int8_compute requires an int8-quantized cache")
 
     qg = q.reshape(batch, kvh, group, hd).float() * scale
-    acc, m, l = _decode_attn_stats_xla(qg, k_values, v_values, lengths,
-                                       k_scales, v_scales)
+    if implementation == "xla":
+        acc, m, l = _decode_attn_stats_xla(qg, k_values, v_values, lengths,
+                                           k_scales, v_scales)
+    else:
+        acc, m, l = _decode_attn_stats(
+            qg, k_values, v_values, lengths, k_scales, v_scales,
+            int8_compute=int8_compute, in_dtype=q.dtype)
 
     if k_tail is not None:
         # row j of the tail is position lengths[b] - tail_lengths[b] + j;

@@ -5,12 +5,17 @@ weights are stacked on axis 0 as in the JAX parameter tree; the JAX
 ``lax.scan`` over layers is a Python loop here. ``decoder_forward`` and
 prefill run causal ``flash_attention_n`` (kernel K1 on the card, with K5/K6
 as its backward when training); decode attends a KV cache with the ``+n``
-term in every step's denominator.
+term in every step's denominator. Quantized weights route as in JAX
+(``_mm``): int8 to ``x @ dequantize(w)`` on the ``"xla"`` route and to the
+dequant matmul K7 on the ``"pallas"`` route, int4 and W8A8 to K7, and the
+decode SwiGLU block to the fused MLP K9 where JAX fuses it
+(``_mlp_fusable``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
@@ -18,6 +23,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from flash_attention_softmax_n_tpu_torch._device import resolve_device
+from flash_attention_softmax_n_tpu_torch.kernels.fused_mlp import (
+    fused_mlp_matmul,
+    mlp_fusion_eligible,
+)
+from flash_attention_softmax_n_tpu_torch.kernels.quant_matmul import (
+    quantized_matmul,
+)
 from flash_attention_softmax_n_tpu_torch.models.layers import (
     apply_rope,
     rms_norm,
@@ -59,20 +71,24 @@ class DecoderConfig:
     # attention-probability dropout, active only under
     # decoder_forward(train=True); the in-kernel hash on the fused route
     attn_dropout: float = 0.0
-    # the fields below exist for parity with the JAX config; values other
-    # than these defaults need code that is not ported yet (ROADMAP.md)
+    # 8: quantize the activations of quantized matmuls per row (W8A8 on
+    # the dequant matmul K7)
     act_bits: Any = None
+    # int8 matmuls: "xla" x @ dequantize(w); "pallas" the dequant matmul
+    # K7, and the decode MLP on the fused kernel K9 (int4 and W8A8 take K7
+    # on either route)
     int8_mm_impl: str = "xla"
+    # engine decode attention: "xla" plain ops over the padded cache;
+    # "pallas" the kernel K8, which reads only each slot's valid rows
     decode_attn_impl: str = "xla"
 
     def __post_init__(self):
-        unported = {"act_bits": self.act_bits is not None,
-                    "int8_mm_impl": self.int8_mm_impl != "xla"}
-        bad = [k for k, v in unported.items() if v]
-        if bad:
-            raise NotImplementedError(
-                f"DecoderConfig {bad} need code that is not ported yet; "
-                "see ROADMAP.md")
+        if self.act_bits not in (None, 8):
+            raise ValueError(f"act_bits must be None or 8, got {self.act_bits}")
+        for name in ("int8_mm_impl", "decode_attn_impl"):
+            if getattr(self, name) not in ("xla", "pallas"):
+                raise ValueError(f"{name} must be 'xla' or 'pallas', got "
+                                 f"{getattr(self, name)!r}")
 
     @property
     def head_dim(self) -> int:
@@ -120,12 +136,43 @@ def init_decoder_params(cfg: DecoderConfig,
     }
 
 
-def _mm(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w for a dense weight, x @ dequantize(w, x.dtype) for an int8
-    QTensor (f32 scale multiply, then one cast)."""
+def _mm(x: torch.Tensor, w, act_bits=None,
+        int8_mm_impl: str = "xla") -> torch.Tensor:
+    """x @ w for a dense weight; for a QTensor, as JAX's ``_mm`` routes it:
+    int4 with K % 256 dequantizes inline, int8 without ``act_bits`` on the
+    ``"xla"`` route is ``x @ dequantize(w, x.dtype)`` (f32 scale multiply,
+    then one cast), and everything else goes to the dequant matmul K7
+    (``act_bits=8``: W8A8)."""
     if isinstance(w, QTensor):
-        return x @ dequantize(w, x.dtype)
+        k = w.logical_shape[-2]
+        if w.bits == 4 and k % 256:
+            return x @ dequantize(w, x.dtype)
+        if (w.bits == 8 and act_bits != 8 and w.packed_axis is None
+                and int8_mm_impl == "xla"):
+            return x @ dequantize(w, x.dtype)
+        return quantized_matmul(x, w.values, w.scales, bits=w.bits,
+                                act_quant=act_bits == 8)
     return x @ w
+
+
+def _mlp_fusable(h: torch.Tensor, lp: Dict, act_bits,
+                 int8_mm_impl: str = "xla") -> bool:
+    """Does JAX route this SwiGLU block to the fused MLP kernel? int8
+    unpacked gate/up/down on the ``"pallas"`` route, one token per row
+    (L == 1), no activation quantization, and a shape that
+    ``mlp_fusion_eligible`` takes."""
+    ws = [lp.get("w_gate"), lp.get("w_up"), lp.get("w_down")]
+    if int8_mm_impl != "pallas":
+        return False
+    if act_bits is not None or h.shape[-2] != 1 or not all(
+            isinstance(w, QTensor) and w.bits == 8 and w.packed_axis is None
+            for w in ws):
+        return False
+    m_total = math.prod(h.shape[:-1])
+    k, f = ws[0].values.shape
+    return (tuple(ws[1].values.shape) == (k, f)
+            and tuple(ws[2].values.shape) == (f, k)
+            and mlp_fusion_eligible(m_total, k, f, 8))
 
 
 def layer_views(layers: Dict) -> List[Dict]:
@@ -138,8 +185,9 @@ def layer_views(layers: Dict) -> List[Dict]:
     cols = {}
     for k, v in layers.items():
         if isinstance(v, QTensor):
-            cols[k] = [QTensor(a, s, bits=v.bits) for a, s in
-                       zip(torch.unbind(v.values), torch.unbind(v.scales))]
+            cols[k] = [QTensor(a, s, bits=v.bits, packed_axis=v.packed_axis)
+                       for a, s in zip(torch.unbind(v.values),
+                                       torch.unbind(v.scales))]
         else:
             cols[k] = torch.unbind(v)
     n_layers = len(next(iter(cols.values())))
@@ -170,28 +218,37 @@ def _layer(cfg: DecoderConfig, x, lp, attn_fn):
     Fused projections (``wqkv`` for wq/wk/wv, ``w_gu`` for w_gate/w_up) are
     split here.
     """
+    ab, mi = cfg.act_bits, cfg.int8_mm_impl
+
+    def mm(a, w):
+        return _mm(a, w, ab, mi)
+
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     if "wqkv" in lp:
         qd = cfg.n_heads * cfg.head_dim
         kvd = cfg.n_kv_heads * cfg.head_dim
-        qkv = _mm(h, lp["wqkv"])
+        qkv = mm(h, lp["wqkv"])
         q = _split_heads(qkv[..., :qd], cfg.n_heads)
         k = _split_heads(qkv[..., qd:qd + kvd], cfg.n_kv_heads)
         v = _split_heads(qkv[..., qd + kvd:], cfg.n_kv_heads)
     else:
-        q = _split_heads(_mm(h, lp["wq"]), cfg.n_heads)
-        k = _split_heads(_mm(h, lp["wk"]), cfg.n_kv_heads)
-        v = _split_heads(_mm(h, lp["wv"]), cfg.n_kv_heads)
+        q = _split_heads(mm(h, lp["wq"]), cfg.n_heads)
+        k = _split_heads(mm(h, lp["wk"]), cfg.n_kv_heads)
+        v = _split_heads(mm(h, lp["wv"]), cfg.n_kv_heads)
     ctx, extras = attn_fn(q, k, v)
-    attn_out = _mm(_merge_heads(ctx), lp["wo"])
+    attn_out = mm(_merge_heads(ctx), lp["wo"])
     x = x + attn_out
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     if "w_gu" in lp:
-        gate, up = torch.chunk(_mm(h, lp["w_gu"]), 2, dim=-1)
-        mlp = _mm(F.silu(gate) * up, lp["w_down"])
+        gate, up = torch.chunk(mm(h, lp["w_gu"]), 2, dim=-1)
+        mlp = mm(F.silu(gate) * up, lp["w_down"])
+    elif _mlp_fusable(h, lp, ab, mi):
+        wg, wu, wd = lp["w_gate"], lp["w_up"], lp["w_down"]
+        mlp = fused_mlp_matmul(h, wg.values, wg.scales, wu.values, wu.scales,
+                               wd.values, wd.scales)
     else:
-        mlp = _mm(F.silu(_mm(h, lp["w_gate"])) * _mm(h, lp["w_up"]),
-                  lp["w_down"])
+        mlp = mm(F.silu(mm(h, lp["w_gate"])) * mm(h, lp["w_up"]),
+                 lp["w_down"])
     x = x + mlp
     return x, attn_out, extras
 
@@ -248,7 +305,8 @@ def decoder_forward(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
         else:
             x = block(x, lp, seed)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _mm(x, params["lm_head"]).float()
+    return _mm(x, params["lm_head"], cfg.act_bits,
+               cfg.int8_mm_impl).float()
 
 
 # ----------------------------------------------------------------------------
@@ -320,7 +378,8 @@ def prefill(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
     cache["length"] = l
 
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    logits = _mm(x, params["lm_head"]).float()
+    logits = _mm(x, params["lm_head"], cfg.act_bits,
+                 cfg.int8_mm_impl).float()
     return logits[:, 0], cache
 
 
@@ -377,7 +436,8 @@ def decode_step(params: Dict, cfg: DecoderConfig, token: torch.Tensor,
     cache["length"] = pos + 1
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _mm(x, params["lm_head"]).float()
+    logits = _mm(x, params["lm_head"], cfg.act_bits,
+                 cfg.int8_mm_impl).float()
     return logits[:, 0], cache
 
 

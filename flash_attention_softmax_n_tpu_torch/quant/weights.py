@@ -1,4 +1,4 @@
-"""Weight-only int8 quantization of decoder parameter dictionaries.
+"""Weight-only int8 / int4 quantization of decoder parameter dictionaries.
 
 Counterpart of ``quantize_decoder_weights`` in
 ``flash_attention_softmax_n_tpu/quant/weights.py``: stacked (n_layers, K, N)
@@ -27,7 +27,8 @@ def _quantize_leaf(w, bits: int) -> QTensor:
 def quantize_decoder_weights(params: Dict, bits: int = 8,
                              include: Optional[Iterable[str]] = None,
                              quantize_lm_head: bool = True) -> Dict:
-    """Quantize decoder matmul weights (``include``: a subset of names)."""
+    """Quantize decoder matmul weights to ``bits`` (8, or 4 packed along
+    the contraction axis); ``include``: a subset of names."""
     names = set(include) if include is not None else set(DECODER_MATMUL_WEIGHTS)
     out = {
         "embed": params["embed"],

@@ -8,12 +8,19 @@ not at import). On the machine with the card run
 These cover what the serving and training shapes in ``chip_smoke.py`` do
 not: n = 0 and fractional n, rectangular causal with L < S and L > S (dead
 rows), f32 inputs, head dims 32/64/128, ragged tiles, dense caches, and for
-the backward (K5, K6) bias, ALiBi and dropout in every combination.
+the backward (K5, K6) bias, ALiBi and dropout in every combination; for
+K7-K9 every mode (int8, W8A8, int4, W4A8; dense, int8 and int8-compute
+caches), ragged M/N/F, slot lengths 0 and full, strided cache views.
 Tolerances: forward f32 within 2e-5 (summation order), bf16 within 2e-2 (p
 rounded to bf16 before PV, as in the plain version), lse within 1e-4;
 gradients within 1e-4 (f32) or 2e-2 (bf16: ds rounds to bf16 on either side
 of a tie) of the plain version's largest magnitude; dropout masks and
-repeated calls bit-equal; cache writes bit-exact.
+repeated calls bit-equal; cache writes bit-exact. K7: f32 within 1e-5 of
+max |out|, bf16 within one bf16 ulp; W8A8 bit-exact (integer sums, the same
+f32 epilogue). K9: f32 within 1e-5, bf16 within 2e-2 of max |out|. K8:
+outputs within 1e-5 (f32 cache) or 2e-2 (p rounded to bf16 or requantized
+to int8 against a split's own maximum where the plain version uses the
+running one).
 """
 
 import numpy as np
@@ -22,8 +29,11 @@ import torch
 
 from flash_attention_softmax_n_tpu_torch.kernels import _build
 from flash_attention_softmax_n_tpu_torch.kernels import cache_update as cu
+from flash_attention_softmax_n_tpu_torch.kernels import decode_attention as da
 from flash_attention_softmax_n_tpu_torch.kernels import flash_attention as fa
+from flash_attention_softmax_n_tpu_torch.kernels import fused_mlp as fm
 from flash_attention_softmax_n_tpu_torch.kernels import quant_matmul as qm
+from flash_attention_softmax_n_tpu_torch.quant import qtensor as qt
 
 pytestmark = pytest.mark.cuda
 
@@ -280,3 +290,153 @@ def test_block_grads_against_an_external_lse(gen):
     for g, w in zip(got, want):
         _assert_close(g, w, 1e-4)
 
+
+
+# ----------------------------------------------------------------------------
+# K7 (dequant matmul), K9 (fused MLP), K8 (decode attention)
+# ----------------------------------------------------------------------------
+
+
+def _qweight(gen, k, n, bits):
+    w = torch.randn((k, n), generator=gen, device="cuda")
+    q = qt.quantize(w, bits=bits, axis=0)
+    return q.values, q.scales
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["int8", "w8a8", "int4", "w4a8"])
+@pytest.mark.parametrize("mkn", [(1, 256, 97), (13, 512, 200), (64, 2048, 256),
+                                 (300, 768, 1000)])
+def test_qmm_matches_plain(gen, dtype, mode, mkn):
+    m, k, n = mkn
+    bits, act = (4 if "4" in mode else 8), mode in ("w8a8", "w4a8")
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    wv, ws = _qweight(gen, k, n, bits)
+    before = _build.LAUNCHES["qmm"]
+    out = qm.quantized_matmul(x, wv, ws, bits=bits, act_quant=act)
+    assert _build.LAUNCHES["qmm"] == before + 1
+    again = qm.quantized_matmul(x, wv, ws, bits=bits, act_quant=act)
+    xq, xs = qm.quantize_rows(x) if act else (x, None)
+    ref = qm.quantized_matmul_reference(xq, xs, wv, ws, bits=bits, out_dtype=dtype)
+    assert out.dtype == dtype and out.shape == (m, n) and torch.equal(out, again)
+    if act:
+        assert torch.equal(out, ref)
+    else:
+        atol = 1e-5 * float(ref.float().abs().max())
+        rtol = 0 if dtype == torch.float32 else 2.0 ** -7
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+def test_qmm_f32_out_from_bf16_and_leading_dims(gen):
+    x = torch.randn((2, 3, 512), generator=gen, device="cuda").to(torch.bfloat16)
+    wv, ws = _qweight(gen, 512, 130, 8)
+    out = qm.quantized_matmul(x, wv, ws, out_dtype=torch.float32)
+    ref = qm.quantized_matmul_reference(x.reshape(6, 512), None, wv, ws, bits=8,
+                                        out_dtype=torch.float32).reshape(2, 3, 130)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, atol=1e-5 * float(ref.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mkf", [(1, 128, 256), (13, 256, 1024), (64, 2048, 5632),
+                                 (300, 512, 1536)])
+def test_fused_mlp_matches_plain(gen, dtype, mkf):
+    m, k, f = mkf
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    (wg, sg), (wu, su) = _qweight(gen, k, f, 8), _qweight(gen, k, f, 8)
+    wd, sd = _qweight(gen, f, k, 8)
+    before = _build.LAUNCHES["fused_mlp"]
+    out = fm.fused_mlp_matmul(x, wg, sg, wu, su, wd, sd)
+    assert _build.LAUNCHES["fused_mlp"] == before + 1
+    again = fm.fused_mlp_matmul(x, wg, sg, wu, su, wd, sd)
+    ref = fm.fused_mlp_reference(x, wg, sg, wu, su, wd, sd)
+    assert out.dtype == dtype and torch.equal(out, again)
+    tol = (1e-5 if dtype == torch.float32 else 2e-2) * float(ref.float().abs().max())
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+
+
+def _decode_inputs(gen, cache, qdtype, group, hd, *, B=5, KVH=2, S=600):
+    """A strided cache view (layer 1 of 2, S cut from 700), lengths 0, 1,
+    full, a non-multiple of the 256-position split, and 511."""
+    full_k, full_v = (torch.randn((2, B, KVH, 700, hd), generator=gen, device="cuda")
+                      for _ in range(2))
+    ks = vs = None
+    if cache.startswith("int8"):
+        from flash_attention_softmax_n_tpu_torch.quant.kv_cache import quantize_kv
+        (kv, ksf), (vv, vsf) = quantize_kv(full_k, 8), quantize_kv(full_v, 8)
+        k, v = kv[1, :, :, :S], vv[1, :, :, :S]
+        ks, vs = ksf[1, :, :, :S], vsf[1, :, :, :S]
+    else:
+        dt = torch.float32 if cache == "f32" else torch.bfloat16
+        k, v = full_k.to(dt)[1, :, :, :S], full_v.to(dt)[1, :, :, :S]
+    assert not k.is_contiguous()
+    q = torch.randn((B, KVH, group, hd), generator=gen, device="cuda") * hd ** -0.5
+    lengths = torch.tensor([0, 1, S, 257, 511][:B], device="cuda", dtype=torch.int32)
+    return q, k, v, ks, vs, lengths
+
+
+def _prep_q(q, cache, qdtype):
+    if cache == "int8_compute":
+        absmax = q.abs().amax(-1, keepdim=True)
+        scales = torch.where(absmax == 0, 1.0, absmax / 127.0)
+        return torch.clamp(torch.round(q / scales), -128, 127).to(torch.int8), scales
+    return q.to(qdtype), None
+
+
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8", "int8_compute"])
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gh", [(1, 64), (4, 128), (8, 64), (16, 32)])
+def test_decode_attn_matches_plain(gen, cache, qdtype, gh):
+    group, hd = gh
+    q, k, v, ks, vs, lengths = _decode_inputs(gen, cache, qdtype, group, hd)
+    qv, qs = _prep_q(q, cache, qdtype)
+    before = _build.LAUNCHES["decode_attn"]
+    acc, m, l = da._decode_attn_cuda(qv, qs, k, v, lengths, ks, vs)
+    assert _build.LAUNCHES["decode_attn"] == before + 1
+    again = da._decode_attn_cuda(qv, qs, k, v, lengths, ks, vs)
+    assert all(torch.equal(a, b) for a, b in zip((acc, m, l), again))
+    acc_r, m_r, l_r = da.decode_attn_stats_reference(qv, qs, k, v, lengths, ks, vs)
+    # slot 0 holds nothing: (0, NEG_INF, 0) exactly
+    assert torch.equal(acc[0], torch.zeros_like(acc[0]))
+    assert bool((m[0] == da.NEG_INF).all()) and bool((l[0] == 0).all())
+    live = lengths > 0
+    torch.testing.assert_close(m[live], m_r[live], atol=1e-4, rtol=0)
+    torch.testing.assert_close(l[live], l_r[live], atol=0, rtol=1e-4)
+    out, out_r = acc[live] / l[live][..., None], acc_r[live] / l_r[live][..., None]
+    exact = cache == "f32" and qdtype == torch.float32
+    torch.testing.assert_close(out, out_r, atol=1e-5 if exact else 2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_decode_attn_reads_only_valid_rows(gen, cache):
+    q, k, v, ks, vs, lengths = _decode_inputs(gen, cache, torch.bfloat16, 8, 64)
+    qv, _ = _prep_q(q, cache, torch.bfloat16)
+    want = da._decode_attn_cuda(qv, None, k, v, lengths, ks, vs)
+    # poison every row at or past a slot's length: the statistics must not move
+    pos = torch.arange(k.shape[2], device="cuda")
+    dead = (pos[None, :] >= lengths[:, None].long())[:, None, :, None]
+    if cache == "int8":
+        ks, vs = (torch.where(dead, float("nan"), s) for s in (ks, vs))
+    else:
+        k, v = (torch.where(dead, float("nan"), t).to(t.dtype) for t in (k, v))
+    got = da._decode_attn_cuda(qv, None, k, v, lengths, ks, vs)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_decode_attention_n_pallas_route_end_to_end(gen, monkeypatch):
+    # the whole op (epilogue with tail, self-term and +n) through K8 against
+    # the same op with the plain statistics
+    B, KVH, G, hd, W = 4, 2, 4, 64, 16
+    q0, k, v, ks, vs, lengths = _decode_inputs(gen, "int8", torch.bfloat16, G, hd, B=B)
+    q = q0.reshape(B, KVH * G, hd).to(torch.bfloat16)
+    kn, vn = (torch.randn((B, KVH, hd), generator=gen, device="cuda") for _ in range(2))
+    kt, vt = (torch.randn((B, KVH, W, hd), generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    tl = torch.tensor([3, 0, 16, 1], device="cuda", dtype=torch.int32)
+    kw = dict(k_scales=ks, v_scales=vs, softmax_n_param=1.0, k_new=kn, v_new=vn,
+              k_tail=kt, v_tail=vt, tail_lengths=tl)
+    got = da.decode_attention_n(q, k, v, lengths, **kw)
+    monkeypatch.setattr(da, "_decode_attn_cuda", da.decode_attn_stats_reference)
+    want = da.decode_attention_n(q, k, v, lengths, **kw)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)

@@ -77,7 +77,19 @@ def test_empty_slot_without_new_token_is_zero():
 
 
 def test_pallas_route_raises():
+    # "pallas" runs now (K8's plain version on the CPU); an fp8 cache, an
+    # unknown route and int8 compute over a dense cache raise
     q = torch.randn(1, 2, 8)
     kc = torch.randn(1, 1, 4, 8)
+    out = t_decode(q, kc, kc, torch.tensor([4]), implementation="pallas")
+    torch.testing.assert_close(
+        out, t_decode(q, kc, kc, torch.tensor([4]), implementation="xla"),
+        atol=TOL, rtol=0)
+    fp8 = kc.to(torch.float8_e4m3fn)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_decode(q, kc, kc, torch.tensor([4]), implementation="pallas")
+        t_decode(q, fp8, fp8, torch.tensor([4]), implementation="pallas",
+                 k_scales=torch.ones(1, 1, 4, 1), v_scales=torch.ones(1, 1, 4, 1))
+    with pytest.raises(ValueError, match="implementation"):
+        t_decode(q, kc, kc, torch.tensor([4]), implementation="mosaic")
+    with pytest.raises(ValueError, match="int8_compute"):
+        t_decode(q, kc, kc, torch.tensor([4]), int8_compute=True)

@@ -18,6 +18,9 @@ from flash_attention_softmax_n_tpu.quant.weights import (
 )
 from flash_attention_softmax_n_tpu_torch import models as tm
 from flash_attention_softmax_n_tpu_torch.convert import params_from_jax
+from flash_attention_softmax_n_tpu_torch.quant.weights import (
+    quantize_decoder_weights as t_quantize_weights,
+)
 
 torch.set_num_threads(2)
 TOL = 1e-5
@@ -98,7 +101,15 @@ def test_init_decoder_params_shapes_and_seed():
 
 
 def test_unported_config_raises():
+    # the all-kernel routes and W8A8 construct now; fp8 weights do not
+    cfg = tm.DecoderConfig(**TINY_KW, int8_mm_impl="pallas",
+                           decode_attn_impl="pallas", act_bits=8)
+    assert (cfg.int8_mm_impl, cfg.decode_attn_impl, cfg.act_bits) == (
+        "pallas", "pallas", 8)
+    for kw in (dict(int8_mm_impl="mosaic"), dict(decode_attn_impl="triton"),
+               dict(act_bits=4)):
+        with pytest.raises(ValueError):
+            tm.DecoderConfig(**TINY_KW, **kw)
+    params = tm.init_decoder_params(cfg, 0, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tm.DecoderConfig(**TINY_KW, int8_mm_impl="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tm.DecoderConfig(**TINY_KW, act_bits=8)
+        t_quantize_weights(params, -8)

@@ -21,6 +21,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "import flash_attention_softmax_n_tpu_torch.kernels.cache_update\n"
         "import flash_attention_softmax_n_tpu_torch.kernels.decode_attention\n"
         "import flash_attention_softmax_n_tpu_torch.kernels.flash_attention\n"
+        "import flash_attention_softmax_n_tpu_torch.kernels.fused_mlp\n"
         "import flash_attention_softmax_n_tpu_torch.kernels.quant_matmul\n"
         "import flash_attention_softmax_n_tpu_torch.models\n"
         "import flash_attention_softmax_n_tpu_torch.parallel\n"

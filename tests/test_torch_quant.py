@@ -87,10 +87,14 @@ def test_quantize_decoder_weights_bit_exact():
 
 
 def test_int4_and_fp8_raise():
+    # int4 quantizes now (packed along the scale's axis); fp8 still raises
     x = torch.ones(4, 8)
-    for bits in (4, -8):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tq.quantize(x, bits=bits)
+    q4 = tq.quantize(x, bits=4, axis=0)
+    assert (q4.bits, q4.packed_axis, tuple(q4.values.shape)) == (4, -2, (2, 8))
+    assert q4.logical_shape == (4, 8)
+    assert torch.equal(tq.dequantize(q4), x)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tq.quantize(x, bits=-8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tkv.init_quantized_kv_cache(1, 1, 1, 4, 8, mode="fp8", device="cpu")
 

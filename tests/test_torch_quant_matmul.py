@@ -1,0 +1,167 @@
+"""Port parity: grouped int4 packing, the dequant matmul K7 and the fused
+SwiGLU MLP K9 (plain versions on the CPU) against the JAX package, whose
+Pallas kernels run in interpret mode.
+
+Packing and int4 quantization are held bit-exact. ``quantized_matmul``:
+f32 within 1e-5 of max |out| (f32 sums in another order); bf16 within one
+bf16 ulp (rtol 2^-7, the two round one f32 sum apart), with 1e-5 of max
+|out| for values near 0. W8A8 sums integers and is exact before the scales.
+``fused_mlp_matmul``: f32 within 1e-5 of max |out|; bf16 within 2e-2 of
+max |out| (h rounds to bf16 on either side of a tie before the down
+product).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flash_attention_softmax_n_tpu.kernels import fused_mlp as jfm
+from flash_attention_softmax_n_tpu.kernels import quant_matmul as jqm
+from flash_attention_softmax_n_tpu.quant import qtensor as jq
+from flash_attention_softmax_n_tpu_torch.convert import tensor_from_numpy
+from flash_attention_softmax_n_tpu_torch.kernels import fused_mlp as tfm
+from flash_attention_softmax_n_tpu_torch.kernels import quant_matmul as tqm
+from flash_attention_softmax_n_tpu_torch.quant import qtensor as tq
+
+torch.set_num_threads(2)
+
+
+def _t(a):
+    return tensor_from_numpy(np.asarray(a), "cpu")
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+@pytest.mark.parametrize("rows", [256, 512, 6])  # 6: one group of the whole axis
+@pytest.mark.parametrize("axis", [0, 1])
+def test_int4_pack_unpack_every_byte_bit_exact(rows, axis):
+    # every byte value in every row position of a group
+    b = (np.arange(rows // 2 * 256) % 256 - 128).astype(np.int8)
+    packed = b.reshape(rows // 2, 256)
+    if axis == 1:
+        packed = np.ascontiguousarray(packed.T)
+    want = np.asarray(jq.unpack_int4(jnp.asarray(packed), axis))
+    got = tq.unpack_int4(_t(packed), axis)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.dtype == torch.int8 and got.min() >= -8 and got.max() <= 7
+    np.testing.assert_array_equal(tq.pack_int4(got, axis).numpy(), packed)
+    np.testing.assert_array_equal(
+        tq.pack_int4(got, axis).numpy(),
+        np.asarray(jq.pack_int4(jnp.asarray(want), axis)))
+
+
+@pytest.mark.parametrize("axis", [0, -2, 1, -1])
+def test_quantize_int4_bit_exact(axis):
+    rng = np.random.RandomState(0)
+    x = rng.randn(512, 6).astype(np.float32) * 3
+    x[:, 0] = 0.0  # a zero column: scale 0
+    x[7, :] = np.linspace(-3.5, 3.5, 6)  # values on .5 boundaries
+    if axis in (1, -1):
+        x = np.ascontiguousarray(x.T)
+    jqt = jq.quantize(jnp.asarray(x), bits=4, axis=axis)
+    tqt = tq.quantize(_t(x), bits=4, axis=axis)
+    assert tqt.packed_axis == jqt.packed_axis < 0
+    assert tqt.logical_shape == tuple(jqt.logical_shape)
+    np.testing.assert_array_equal(tqt.values.numpy(), np.asarray(jqt.values))
+    np.testing.assert_array_equal(tqt.scales.numpy(), np.asarray(jqt.scales))
+    np.testing.assert_array_equal(tq.dequantize(tqt).numpy(),
+                                  np.asarray(jq.dequantize(jqt)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [1, 13, 300])
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_matmul_matches_pallas(bits, act_quant, m, dtype):
+    rng = np.random.RandomState(m + bits)
+    k, n = 512, 200  # N not a multiple of 128: ragged tiles
+    xj = jnp.asarray(rng.randn(m, k).astype(np.float32)).astype(dtype)
+    w = jq.quantize(jnp.asarray(rng.randn(k, n).astype(np.float32)), bits=bits,
+                    axis=0)
+    want = np.asarray(jqm.quantized_matmul(xj, w.values, w.scales, bits=bits,
+                                           act_quant=act_quant).astype(jnp.float32))
+    got = tqm.quantized_matmul(_t(xj), _t(w.values), _t(w.scales), bits=bits,
+                               act_quant=act_quant)
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == (m, n)
+    scale = np.abs(want).max()
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(got), want, atol=1e-5 * scale, rtol=0)
+    else:
+        np.testing.assert_allclose(_np(got), want, atol=1e-5 * scale,
+                                   rtol=2.0 ** -7)
+
+
+def test_quantized_matmul_leading_dims_and_out_dtype():
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 3, 256).astype(np.float32)
+    w = jq.quantize(jnp.asarray(rng.randn(256, 40).astype(np.float32)), bits=8,
+                    axis=0)
+    want = np.asarray(jqm.quantized_matmul(jnp.asarray(x).astype(jnp.bfloat16),
+                                           w.values, w.scales,
+                                           out_dtype=jnp.float32))
+    got = tqm.quantized_matmul(_t(x).to(torch.bfloat16), _t(w.values),
+                               _t(w.scales), out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 3, 40)
+    np.testing.assert_allclose(got.numpy(), want,
+                               atol=1e-5 * np.abs(want).max(), rtol=0)
+
+
+def test_quantized_matmul_rejects_bad_shapes():
+    x = torch.randn(4, 128)
+    with pytest.raises(ValueError, match="K % 256"):
+        tqm.quantized_matmul(x, torch.zeros(64, 8, dtype=torch.int8),
+                             torch.ones(8), bits=4)
+    with pytest.raises(ValueError, match="contraction"):
+        tqm.quantized_matmul(x, torch.zeros(100, 8, dtype=torch.int8),
+                             torch.ones(8))
+    with pytest.raises(ValueError, match="bits"):
+        tqm.quantized_matmul(x, torch.zeros(128, 8, dtype=torch.int8),
+                             torch.ones(8), bits=2)
+
+
+def test_mlp_fusion_eligible_matches_jax():
+    # the grid of tests/test_quant.py's routing cases, and around its edges
+    cases = [(m, k, f, bits)
+             for m in (1, 8, 64, 256, 300, 512, 513, 2048)
+             for k in (32, 128, 256, 2048, 4096, 8192)
+             for f in (64, 256, 1024, 5632, 11008, 14336)
+             for bits in (8, 4)]
+    for m, k, f, bits in cases:
+        assert (tfm.mlp_fusion_eligible(m, k, f, bits)
+                == jfm.mlp_fusion_eligible(m, k, f, bits)), (m, k, f, bits)
+    assert tfm.mlp_fusion_eligible(64, 2048, 5632, 8)  # TinyLlama decode
+    assert not tfm.mlp_fusion_eligible(64, 32, 64, 8)  # K % 128
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kf", [(128, 256), (256, 1024)])
+@pytest.mark.parametrize("m", [1, 8, 64])
+def test_fused_mlp_matches_pallas(m, kf, dtype):
+    k, f = kf
+    rng = np.random.RandomState(m + k)
+    xj = jnp.asarray(rng.randn(m, k).astype(np.float32)).astype(dtype)
+    wg, wu = (jq.quantize(jnp.asarray(rng.randn(k, f).astype(np.float32)),
+                          bits=8, axis=0) for _ in range(2))
+    wd = jq.quantize(jnp.asarray(rng.randn(f, k).astype(np.float32)), bits=8,
+                     axis=0)
+    want = np.asarray(jfm.fused_mlp_matmul(
+        xj, wg.values, wg.scales, wu.values, wu.scales, wd.values,
+        wd.scales).astype(jnp.float32))
+    got = tfm.fused_mlp_matmul(_t(xj), _t(wg.values), _t(wg.scales),
+                               _t(wu.values), _t(wu.scales), _t(wd.values),
+                               _t(wd.scales))
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == (m, k)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(_np(got), want, atol=tol * np.abs(want).max(),
+                               rtol=0)
+
+
+def test_fused_mlp_rejects_mismatched_weights():
+    x = torch.randn(2, 128)
+    w = torch.zeros(128, 256, dtype=torch.int8)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        tfm.fused_mlp_matmul(x, w, torch.ones(256), w, torch.ones(256), w,
+                             torch.ones(128))
