@@ -13,10 +13,11 @@ Phases, in order, each printing one JSON line:
    ``*.cu`` kernel source with its own nvcc for sm_90a and the PyTorch
    operator bindings with the host C++ compiler, all started together;
 3. kernels: runs K1 flash_fwd, K2 qmm_argmax, K3 cache_append, K4
-   tail_append, K7 qmm (int8, W8A8 and int4), K8 decode_attn (int8 and
-   bf16 caches) and K9 fused_mlp on the card at serving shapes and holds
-   each against its plain PyTorch version on the same card tensors (K7-K9
-   also run twice and must be bit-equal);
+   tail_append, K7 qmm (int8, W8A8 and int4), K8 decode_attn (int8, fp8
+   and bf16 caches), K9 fused_mlp and K10 prefill_phase (its four modes,
+   B2 H32 L2048 hd64) on the card at their paths' shapes and holds each
+   against its plain PyTorch version on the same card tensors (K7-K10 also
+   run twice and must be bit-equal);
 4. train kernels: K1 with ALiBi and dropout, K5 flash_bwd_dq and K6
    flash_bwd_dkv against their plain versions (B2 H4 L200 S264 with bias,
    ALiBi and dropout, f32 and bf16, n 0 and 1; then the training shape B2
@@ -36,7 +37,13 @@ Phases, in order, each printing one JSON line:
    ``int8_mm_impl="pallas", decode_attn_impl="pallas"`` (K1-K4 and K7-K9
    must all launch); then 8 requests each with int4 weights and with
    ``act_bits=8`` go through the fused loop on the same routes (K7's int4
-   and W8A8 modes), held to the teacher-forced gate;
+   and W8A8 modes), held to the teacher-forced gate, and ``serve_fp8``
+   puts 8 requests through the fused loop and 2 through the step path with
+   fp8 e4m3 weights and an fp8 KV cache (K8's fp8 mode, K1, K3, K4);
+6b. prefill_phases: one run of the prefill-phase profile
+   (``python -m flash_attention_softmax_n_tpu_torch.utils.profile_prefill_phases``)
+   at B2 H32 L2048 hd64: K10's four modes and K1 without and with the
+   causal mask, each timed, its lines printed;
 7. train_agreement: the TinyLlama-1.1B width at 2 layers in f32: every
    parameter gradient of ``causal_lm_loss`` through the fused route (K1,
    K5, K6) against the same through plain tensor ops (``"xla"``), relative
@@ -45,7 +52,8 @@ Phases, in order, each printing one JSON line:
    dropout 0.1, remat) takes 4 AdamW steps on one B2 x L2048 batch through
    ``make_train_step``, counting the kernels' launches; the losses must be
    finite and fall, the gradients finite and not all zero; a fifth step
-   runs under ``torch.profiler``.
+   runs under ``torch.profiler``, its idle share read against its own
+   wall time.
 
 Then it prints the kernels' JSON line (times, launches on the serving or
 the training run, bounds), the card's name and power limit from
@@ -58,20 +66,16 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 import numpy as np
 
-# NVIDIA H100 SXM data sheet (dense): bf16 and int8 tensor-core peaks, f32
-# peak outside the tensor cores, and the HBM3 rate
-PEAK_BF16_FLOPS = 989e12
-PEAK_INT8_OPS = 1979e12
-PEAK_F32_FLOPS = 67e12
-PEAK_HBM_BYTES = 3.35e12
 TIMED_RUNS = 25
+# the card's published peaks (utils.profiling.H100), set by main() once the
+# port is imported
+CHIP = None
 
 ROOT = Path(__file__).resolve().parent
 TPU_PKG = "flash_attention_softmax_n_tpu"
@@ -91,9 +95,11 @@ def require(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def bound_ms(bytes_moved: float, flops: float = 0.0, peak_flops: float = PEAK_BF16_FLOPS):
-    t_bytes = bytes_moved / PEAK_HBM_BYTES
-    t_ops = flops / peak_flops
+def bound_ms(bytes_moved: float, flops: float = 0.0, peak_flops=None):
+    """(least ms for the bytes and the operations, which bounds it); bf16
+    operations unless ``peak_flops`` names another peak"""
+    t_bytes = bytes_moved / CHIP.hbm_bw
+    t_ops = flops / (peak_flops or CHIP.bf16_flops)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -361,7 +367,7 @@ def check_dequant_mm(torch, pkg, gen, *, M, K, N, mode="int8"):
     bytes_moved = (xk.numel() * xk.element_size() + wq.values.numel() + N * 4 + M * N * 2
                    + (M * 4 if xs is not None else 0))
     b_ms, b_by = bound_ms(bytes_moved, 2.0 * M * K * N,
-                          PEAK_INT8_OPS if mode == "w8a8" else PEAK_BF16_FLOPS)
+                          CHIP.int8_ops if mode == "w8a8" else CHIP.bf16_flops)
     return {"name": name, "route": "cuda", "source": f"{CSRC}/qmm.cu",
             "replaces": f"{TPU_PKG}/kernels/quant_matmul.py:65 _qmm_kernel",
             "counter": "qmm", "max_abs_err": err,
@@ -410,13 +416,14 @@ def check_fused_mlp(torch, pkg, gen, *, M, K, F):
 
 
 def check_decode_attn(torch, pkg, gen, *, B, KVH, G, S, D, cache):
-    """K8 at the fused loop's shape: bf16 q over an int8 (with scales) or a
-    bf16 cache view of one layer, lengths drawn from 0..S."""
+    """K8 at the fused loop's shape: bf16 q over an int8 or fp8 (with
+    scales) or a bf16 cache view of one layer, lengths drawn from 0..S."""
     da, kv = pkg["decode_attention"], pkg["kv_cache"]
     dev = "cuda"
     full = [torch.randn((2, B, KVH, S, D), generator=gen, device=dev) for _ in range(2)]
-    if cache == "int8":
-        (kq, ksf), (vq, vsf) = (kv.quantize_kv(t, 8) for t in full)
+    if cache in ("int8", "fp8"):
+        (kq, ksf), (vq, vsf) = (kv.quantize_kv(t, 8 if cache == "int8" else -8)
+                                for t in full)
         k, v, ks, vs = kq[1], vq[1], ksf[1], vsf[1]
     else:
         k, v = (t.to(torch.bfloat16)[1] for t in full)
@@ -472,6 +479,56 @@ def check_decode_attn(torch, pkg, gen, *, B, KVH, G, S, D, cache):
             "plain_ms": time_ms(torch, plain), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(torch, library),
             "library": "scaled_dot_product_attention(enable_gqa=True), bf16 cache, length mask"}
+
+
+def check_mini(torch, pkg, gen, *, mode, B, H, L, D):
+    """K10 in one mode at the prefill-phase profile's shape: bf16 q, k, v
+    of 0.3·N(0, 1), as the profile draws them."""
+    pp = pkg["prefill_phases"]
+    q, k, v = ((0.3 * torch.randn((B, H, L, D), generator=gen, device="cuda"))
+               .to(torch.bfloat16) for _ in range(3))
+
+    def kernel():
+        return pp._mini_cuda(mode, q, k, v)
+
+    def plain():
+        return pp.mini_reference(mode, q, k, v)
+
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    same = repeat_equal(torch, kernel, out)
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    # o is bf16 and the two sum in different orders, so o may round one
+    # bf16 ulp apart (2^-7 |o|); p rounds to bf16 from f32 values that may
+    # differ in their last bits (l summed in another order), so a rare p
+    # rounds the other way: one per row, 2^-7 max|p| max|v|
+    excess = float((diff - pp.mini_tolerance(mode, q, k, v, ref)).max())
+    name = f"prefill_phase {mode} B{B} H{H} L{L} d{D} bf16"
+    require(excess <= 0 and same,
+            f"{name}: max |o - plain| - tolerance is {excess} (> 0 fails); "
+            f"repeat bit-equal {same}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library = {"softmax": (lambda: sdpa(q, k, v, scale=1.0),
+                           "scaled_dot_product_attention(scale=1.0)"),
+               "mask_softmax": (lambda: sdpa(q, k, v, is_causal=True, scale=1.0),
+                                "scaled_dot_product_attention(is_causal=True, scale=1.0)"),
+               "dots_only": (lambda: torch.matmul(torch.matmul(q, k.transpose(-1, -2)), v),
+                             "two torch.matmul calls, bf16 scores"),
+               "exp_only": (None, "none: no one PyTorch call computes exp(q k^T) v")}[mode]
+    # mask_softmax needs only the causal half of the score square
+    pairs = B * H * (L * (L + 1) / 2 if mode == "mask_softmax" else L * L)
+    b_ms, b_by = bound_ms(4 * B * H * L * D * 2, 4.0 * D * pairs)
+    return {"name": name, "route": "cuda", "source": f"{CSRC}/prefill_phases.cu",
+            "replaces": "scripts/profile_prefill_phases.py:45 _mini_kernel",
+            "counter": f"mini_{mode}", "max_abs_err": err, "max_excess_over_tol": excess,
+            "tolerance": "2^-7 (|o_plain| + row max |p| * head max |v|), mini_tolerance",
+            "repeat_bit_equal": same,
+            "ms": time_ms(torch, kernel),
+            "device_ms": device_ms(torch, kernel, "prefill_phase_kernel"),
+            "plain_ms": time_ms(torch, plain), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(torch, library[0]) if library[0] else None,
+            "library": library[1]}
 
 
 # ----------------------------------------------------------------------------
@@ -747,8 +804,10 @@ def profile_chunk(torch, eng_mod, cfg, params, phase="profile"):
     admitted and decoded in one 16-step chunk, once unprofiled for the wall
     time and once under ``torch.profiler`` for the device's busy time and
     the kernels that fill it. Busy time is the sum of kernel and copy times
-    (one stream, so they do not overlap); the idle share is against the
-    unprofiled wall time. Annotation ranges on the device timeline (such
+    (one stream, so they do not overlap); ``idle_share_profiled`` is against
+    the profiled run's own wall time (required in [0, 1]), ``idle_share``
+    against the unprofiled one, as earlier runs reported it. Annotation
+    ranges on the device timeline (such
     as ``Optimizer.step``) enclose kernels already counted and are left
     out. A third run admits the same requests with a budget of one token
     (the same four prefill groups, no decode step), so that the 16 steps'
@@ -799,10 +858,12 @@ def profile_chunk(torch, eng_mod, cfg, params, phase="profile"):
     _, by_name_admit = profiled(1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     busy_admit_ms = sum(ms for ms, _ in by_name_admit.values())
+    idle_profiled = 1.0 - busy_ms / 1e3 / wall_profiled
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     emit({"phase": phase, "requests": 64, "steps": 16, "wall_s": wall,
           "wall_s_profiled": wall_profiled,
           "device_busy_s": busy_ms / 1e3 if busy_ms else None,
+          "idle_share_profiled": idle_profiled,
           "idle_share": 1.0 - busy_ms / 1e3 / wall if busy_ms else None,
           "device_ops": sum(c for _, c in by_name.values()),
           "device_busy_admission_s": busy_admit_ms / 1e3,
@@ -811,6 +872,9 @@ def profile_chunk(torch, eng_mod, cfg, params, phase="profile"):
           "port_kernels_admission": port_kernels(by_name_admit),
           "top": [{"name": name[:90], "ms": ms, "calls": calls}
                   for name, (ms, calls) in top]})
+    require(busy_ms > 0 and 0.0 <= idle_profiled <= 1.0,
+            f"{phase}: idle share {idle_profiled} against the profiled wall "
+            f"{wall_profiled} s is outside [0, 1] (device busy {busy_ms} ms)")
 
 
 def serve_requests(rng, cfg, n):
@@ -921,32 +985,57 @@ def serve_route(torch, pkg, cfg, params, prefix=""):
     return launches
 
 
-def serve_mode(torch, pkg, cfg, params, mode):
-    """8 requests through the fused loop with int4 weights or W8A8, on the
-    pallas routes, held to budgets, vocabulary and the teacher-forced gate;
-    returns the kernels' launches on the run."""
+def serve_mode(torch, pkg, cfg, params, mode, *, kv="int8", step_requests=0,
+               launched=("flash_fwd", "qmm", "decode_attn", "tail_append"), idle=()):
+    """8 requests through the fused loop (and the first ``step_requests`` of
+    them again through the step path) with int4, W8A8 or fp8 weights and a
+    ``kv`` cache, on the pallas routes, held to budgets, vocabulary and the
+    teacher-forced gate; every kernel in ``launched`` must launch on the
+    runs and none in ``idle``. Returns the kernels' launches on the runs."""
     eng_mod, build = pkg["engine"], pkg["build"]
     eng = eng_mod.InferenceEngine(cfg, params, max_batch=8, max_len=512,
-                                  kv_quantization="int8", piggyback_prefill=False)
+                                  kv_quantization=kv, piggyback_prefill=False)
     budgets = {}
     for prompt, budget in serve_requests(np.random.RandomState(2), cfg, 8):
         budgets[eng.submit(prompt, max_new_tokens=budget)] = budget
     torch.cuda.synchronize()
     build.reset_launches()
     t0 = time.perf_counter()
-    done = eng.run_until_done(loop_steps=64)
+    done = sorted(eng.run_until_done(loop_steps=64), key=lambda r: r.request_id)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     require(len(done) == 8, f"serve_{mode}: finished {len(done)} of 8 requests")
     check_served(done, budgets, cfg, f"serve_{mode}")
     n_tok = sum(len(r.output) for r in done)
-    emit({"phase": f"serve_{mode}", "requests": 8, "tokens": n_tok, "wall_s": wall,
-          "tokens_per_s": n_tok / wall, "launches": launches})
-    teacher_forced_gate(torch, pkg, cfg, params, sorted(done, key=lambda r: r.request_id),
-                        f"serve_{mode}_agreement")
-    for name in ("flash_fwd", "qmm", "decode_attn", "tail_append"):
+    emit({"phase": f"serve_{mode}", "requests": 8, "kv": kv, "tokens": n_tok,
+          "wall_s": wall, "tokens_per_s": n_tok / wall, "launches": launches})
+    checked = list(done)
+    if step_requests:
+        # the step path: K3 writes each step's rows into the cache
+        step_eng = eng_mod.InferenceEngine(cfg, params, max_batch=step_requests, max_len=512,
+                                           kv_quantization=kv, piggyback_prefill=False)
+        for r in done[:step_requests]:
+            step_eng.submit(r.prompt, max_new_tokens=len(r.output))
+        build.reset_launches()
+        t0 = time.perf_counter()
+        step_done = sorted(step_eng.run_until_done(), key=lambda r: r.request_id)
+        torch.cuda.synchronize()
+        step_wall = time.perf_counter() - t0
+        step_launches = dict(build.LAUNCHES)
+        require(len(step_done) == step_requests and all(
+            len(a.output) == len(b.output) for a, b in zip(step_done, done)),
+            f"serve_{mode} step path did not finish its requests with their budgets")
+        emit({"phase": f"serve_{mode}_step", "requests": step_requests,
+              "tokens": sum(len(r.output) for r in step_done), "wall_s": step_wall,
+              "launches": step_launches})
+        launches = {k: launches[k] + step_launches[k] for k in launches}
+        checked += step_done
+    teacher_forced_gate(torch, pkg, cfg, params, checked, f"serve_{mode}_agreement")
+    for name in launched:
         require(launches[name] > 0, f"serve_{mode} never launched {name}")
+    for name in idle:
+        require(launches[name] == 0, f"serve_{mode} launched {name}")
     return launches
 
 
@@ -964,17 +1053,50 @@ def serve(torch, pkg):
     dense = dec.init_decoder_params(cfg, gen, device="cuda")
     params = weights.quantize_decoder_weights(dense, bits=8)
     params4 = weights.quantize_decoder_weights(dense, bits=4)
+    params_fp8 = weights.quantize_decoder_weights(dense, bits=-8)
     del dense
     torch.cuda.synchronize()
     emit({"phase": "weights", "seconds": time.perf_counter() - t0,
           "config": "TinyLlama-1.1B shape, random N(0, 1/fan_in) from seed 0, int8 "
-                    "per-output-channel (and grouped int4 for serve_int4)"})
+                    "per-output-channel (grouped int4 for serve_int4, fp8 e4m3 for "
+                    "serve_fp8)"})
     pallas = dataclasses.replace(cfg, int8_mm_impl="pallas", decode_attn_impl="pallas")
     return {"serve": serve_route(torch, pkg, cfg, params),
             "serve_pallas": serve_route(torch, pkg, pallas, params, "serve_pallas"),
             "serve_int4": serve_mode(torch, pkg, pallas, params4, "int4"),
             "serve_w8a8": serve_mode(torch, pkg, dataclasses.replace(pallas, act_bits=8),
-                                     params, "w8a8")}
+                                     params, "w8a8"),
+            # fp8 weights dequantize inline, as in JAX: K2, K7 and K9 stay idle
+            "serve_fp8": serve_mode(torch, pkg, pallas, params_fp8, "fp8", kv="fp8",
+                                    step_requests=2,
+                                    launched=("flash_fwd", "decode_attn", "tail_append",
+                                              "cache_append"),
+                                    idle=("qmm", "qmm_argmax", "fused_mlp"))}
+
+
+# ----------------------------------------------------------------------------
+# phase 6b: the prefill-phase profile
+# ----------------------------------------------------------------------------
+
+
+def prefill_phases(torch, pkg):
+    """One run of the prefill-phase profile entry point at its headline
+    shape; returns the kernels' launches on the run."""
+    build = pkg["build"]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    lines = pkg["profile_prefill_phases"].run((2, 32, 2048, 64), iters=10)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    for line in lines:
+        emit({"phase": "prefill_phases", **line})
+    for line in lines[1:]:
+        require(np.isfinite(line["ms"]) and line["ms"] > 0,
+                f"prefill_phases: {line['name']} has no time")
+    for mode in pkg["prefill_phases"].MODES:
+        require(launches[f"mini_{mode}"] > 0, f"prefill_phases never launched K10 {mode}")
+    require(launches["flash_fwd"] > 0, "prefill_phases never launched K1")
+    return launches
 
 
 # ----------------------------------------------------------------------------
@@ -1031,14 +1153,18 @@ def train_agreement(torch, pkg):
 def profile_step(torch, step_fn, wall_s):
     """One training step under torch.profiler: the device's busy time (kernel
     and copy times on one stream, annotation ranges left out), its idle
-    share against ``wall_s`` (an unprofiled step's wall time), and the
-    kernels that fill it."""
+    share against the profiled step's own synchronised wall time
+    (``idle_share_profiled``, required in [0, 1]) and, as earlier runs
+    reported it, against ``wall_s`` (an unprofiled step's wall time), and
+    the kernels that fill it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         step_fn()
         torch.cuda.synchronize()
+        wall_profiled = time.perf_counter() - t0
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
@@ -1052,14 +1178,20 @@ def profile_step(torch, step_fn, wall_s):
                 prev_ms, prev_calls = ours.get(kernel, (0.0, 0))
                 ours[kernel] = (prev_ms + ms, prev_calls + calls)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    emit({"phase": "train_profile", "wall_s_unprofiled": wall_s,
+    idle_profiled = 1.0 - busy_ms / 1e3 / wall_profiled
+    emit({"phase": "train_profile", "wall_s_profiled": wall_profiled,
+          "wall_s_unprofiled": wall_s,
           "device_busy_s": busy_ms / 1e3 if busy_ms else None,
+          "idle_share_profiled": idle_profiled,
           "idle_share": 1.0 - busy_ms / 1e3 / wall_s if busy_ms else None,
           "device_ops": sum(c for _, c in by_name.values()),
           "port_kernels": {k: {"calls": c, "ms": ms, "ms_per_call": ms / c}
                            for k, (ms, c) in sorted(ours.items())},
           "top": [{"name": name[:90], "ms": ms, "calls": calls}
                   for name, (ms, calls) in top]})
+    require(busy_ms > 0 and 0.0 <= idle_profiled <= 1.0,
+            f"train_profile: idle share {idle_profiled} against the profiled wall "
+            f"{wall_profiled} s is outside [0, 1] (device busy {busy_ms} ms)")
 
 
 def train(torch, pkg):
@@ -1124,6 +1256,7 @@ def main() -> int:
             decode_attention,
             flash_attention,
             fused_mlp,
+            prefill_phases as prefill_phases_mod,
             quant_matmul,
         )
         from flash_attention_softmax_n_tpu_torch.models import decoder
@@ -1132,6 +1265,10 @@ def main() -> int:
         )
         from flash_attention_softmax_n_tpu_torch.parallel import train as train_mod
         from flash_attention_softmax_n_tpu_torch.quant import kv_cache, qtensor, weights
+        from flash_attention_softmax_n_tpu_torch.utils import (
+            profile_prefill_phases,
+            profiling,
+        )
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 1
@@ -1139,13 +1276,15 @@ def main() -> int:
            "ops_flash_attention": ops_flash_attention, "quant_matmul": quant_matmul,
            "cache_update": cache_update, "decode_attention": decode_attention,
            "fused_mlp": fused_mlp, "decoder": decoder, "engine": engine,
-           "weights": weights, "qtensor": qtensor, "kv_cache": kv_cache, "train": train_mod}
+           "weights": weights, "qtensor": qtensor, "kv_cache": kv_cache, "train": train_mod,
+           "prefill_phases": prefill_phases_mod,
+           "profile_prefill_phases": profile_prefill_phases}
+    global CHIP
+    CHIP = profiling.H100
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = profiling.card_description(torch.device("cuda", 0))
     pkg["nvidia_smi"] = smi
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
@@ -1198,8 +1337,23 @@ def main() -> int:
         kd = check_dequant_mm(torch, pkg, gen, M=64, K=2048, N=5632, mode=mode)
         kd["path"] = f"serve_{mode}"
         pallas_lines.append(kd)
+    # K8's fp8 mode at serve_fp8's shapes: the fused loop's 8 slots over its
+    # 256-row window (prompts and budgets stay under 256 tokens), the step
+    # path's 2 slots over the whole 512-row cache
+    for B, S in ((8, 256), (2, 512)):
+        kd = check_decode_attn(torch, pkg, gen, B=B, KVH=4, G=8, S=S, D=64, cache="fp8")
+        kd["path"] = "serve_fp8"
+        pallas_lines.append(kd)
+    # K10 at the prefill-phase profile's shape
+    for mode in prefill_phases_mod.MODES:
+        kd = check_mini(torch, pkg, gen, mode=mode, B=2, H=32, L=2048, D=64)
+        kd["path"] = "prefill_phases"
+        pallas_lines.append(kd)
     kernels += pallas_lines
-    for kd in kernels:
+    # K8's fp8 mode beside its int8 and bf16 lines at B64, held all the
+    # same; no path runs fp8 at B64, so it stays out of the kernels line
+    fp8_b64 = check_decode_attn(torch, pkg, gen, B=64, KVH=4, G=8, S=512, D=64, cache="fp8")
+    for kd in kernels + [fp8_b64]:
         emit({"phase": "kernel", **{k: kd[k] for k in ("name", "max_abs_err", "tolerance", "ms",
                                                        "device_ms", "plain_ms", "bound_ms",
                                                        "library_ms")}})
@@ -1207,6 +1361,7 @@ def main() -> int:
 
     # each main path's launches: counts set to 0 just before it, read after
     launches = serve(torch, pkg)
+    launches["prefill_phases"] = prefill_phases(torch, pkg)
     train_agreement(torch, pkg)
     launches["train"] = train(torch, pkg)
     for kd in kernels:

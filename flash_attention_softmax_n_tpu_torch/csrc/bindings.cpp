@@ -362,7 +362,9 @@ int kv_code(const at::Tensor& t, const char* what) {
   if (t.scalar_type() == at::kFloat) return 0;
   if (t.scalar_type() == at::kBFloat16) return 1;
   if (t.scalar_type() == at::kChar) return 2;
-  TORCH_CHECK_VALUE(false, what, " takes f32, bf16 or int8 caches, got ", t.scalar_type());
+  if (t.scalar_type() == at::kFloat8_e4m3fn) return 3;
+  TORCH_CHECK_VALUE(false, what, " takes f32, bf16, int8 or fp8 e4m3 caches, got ",
+                    t.scalar_type());
   return -1;
 }
 
@@ -408,8 +410,8 @@ void decode_attn(const at::Tensor& q, const std::optional<at::Tensor>& q_scales,
   check_view(v, q, {B, KVH, S, HD}, what, "v");
   TORCH_CHECK_VALUE(v.scalar_type() == k.scalar_type(), what, ": k and v must share a dtype");
   TORCH_CHECK_VALUE(k_scales.has_value() == v_scales.has_value() &&
-                        k_scales.has_value() == (a.kv_dtype == 2),
-                    what, ": an int8 cache needs k and v scales, a dense one none");
+                        k_scales.has_value() == (a.kv_dtype >= 2),
+                    what, ": an int8 or fp8 cache needs k and v scales, a dense one none");
   if (k_scales.has_value()) {
     for (const at::Tensor* t : {&*k_scales, &*v_scales}) {
       check_view(*t, q, {B, KVH, S, 1}, what, "scales");
@@ -455,6 +457,27 @@ void decode_attn(const at::Tensor& q, const std::optional<at::Tensor>& q_scales,
                what);
 }
 
+void prefill_phase(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+                   const at::Tensor& o, int64_t mode) {
+  const char* what = "prefill_phase";
+  TORCH_CHECK_VALUE(q.dim() == 4, what, ": q, k, v and o are (B, H, L, D)");
+  TORCH_CHECK_VALUE(mode >= 0 && mode <= 3, what, ": mode must be 0-3, got ", mode);
+  const int64_t D = q.size(3);
+  TORCH_CHECK_VALUE(D == 32 || D == 64 || D == 128, what,
+                    " head dim must be one of (32, 64, 128), got ", D);
+  const c10::cuda::CUDAGuard guard(q.device());
+  const int dtype = dtype_code(q, what);
+  for (const at::Tensor* t : {&q, &k, &v, &o}) {
+    check_on(*t, q, what);
+    check_shape(*t, q.sizes(), q.scalar_type(), what, "k, v and o");
+  }
+  check_launch(fasn_prefill_phase(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                  as_int(q.size(0), what), as_int(q.size(1), what),
+                                  as_int(q.size(2), what), as_int(D, what), dtype,
+                                  static_cast<int>(mode), stream_of(q)),
+               what);
+}
+
 }  // namespace
 
 TORCH_LIBRARY(fasn, m) {
@@ -492,6 +515,7 @@ TORCH_LIBRARY(fasn, m) {
       "decode_attn(Tensor q, Tensor? q_scales, Tensor k, Tensor v, Tensor? k_scales, "
       "Tensor? v_scales, Tensor lengths, Tensor(a!) acc, Tensor(b!) m, Tensor(c!) l, "
       "Tensor(d!) part_acc, Tensor(e!) part_m, Tensor(f!) part_l) -> ()");
+  m.def("prefill_phase(Tensor q, Tensor k, Tensor v, Tensor(a!) o, int mode) -> ()");
 }
 
 TORCH_LIBRARY_IMPL(fasn, CUDA, m) {
@@ -504,4 +528,5 @@ TORCH_LIBRARY_IMPL(fasn, CUDA, m) {
   m.impl("qmm", &qmm);
   m.impl("fused_mlp", &fused_mlp);
   m.impl("decode_attn", &decode_attn);
+  m.impl("prefill_phase", &prefill_phase);
 }

@@ -7,13 +7,15 @@
 //
 // Replaces the Pallas kernel _kernel
 // (flash_attention_softmax_n_tpu/kernels/decode_attention.py:60), which
-// walks 256-position tiles in order with a running (m, l, acc). Rounding
-// follows it: q comes in its compute type (bf16 or f32; int8 with per-row
-// scales under int8 compute), k is rounded to q's type, p is rounded to bf16
-// before the PV product unless the cache is f32, and under int8 compute p is
-// requantized per row over each 256-position tile and both products are
-// integer (exact in f32 here: hd * 128 * 128 and 256 * 127 * 128 stay below
-// 2^24).
+// walks 256-position tiles in order with a running (m, l, acc). The cache is
+// f32, bf16, int8 or fp8 e4m3 (the last two with per-position scales, one
+// byte read per cached value). Rounding follows the Pallas kernel: q comes in
+// its compute type (bf16 or f32; int8 with per-row scales under int8
+// compute), k is rounded to q's type (exact from int8 and e4m3), p is rounded
+// to bf16 before the PV product unless the cache is f32, and under int8
+// compute p is requantized per row over each 256-position tile and both
+// products are integer (exact in f32 here: hd * 128 * 128 and 256 * 127 *
+// 128 stay below 2^24).
 //
 // Design (flash decoding): the grid is (256-position split, KV head, slot);
 // a split at or past the slot's length exits at once, so only positions
@@ -31,6 +33,7 @@
 // version computes with scalar f32 FMAs.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -52,6 +55,7 @@ constexpr float NEG_INF = -0.7f * FLT_MAX;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
@@ -251,6 +255,8 @@ cudaError_t by_cache(const FasnDecode& a, float* part_acc, float* part_m, float*
   if (a.kv_dtype == 1)
     return launch<QT, __nv_bfloat16, false>(a, part_acc, part_m, part_l, acc, m, l, stream);
   if (a.kv_dtype == 2) return launch<QT, int8_t, false>(a, part_acc, part_m, part_l, acc, m, l, stream);
+  if (a.kv_dtype == 3)
+    return launch<QT, __nv_fp8_e4m3, false>(a, part_acc, part_m, part_l, acc, m, l, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -2,8 +2,10 @@
 // (flash_bwd_dq.cu) and K6 (flash_bwd_dkv.cu): tile shape, dtype
 // conversions, row reductions, the score modifiers (bias, ALiBi, causal
 // mask) and the dropout hash, so the three kernels form every score and
-// every dropout decision the same way. Device code: only the .cu files,
-// compiled by nvcc, include it.
+// every dropout decision the same way. The prefill-phase kernel K10
+// (prefill_phases.cu) takes the tile shape, conversions, reductions and
+// launch helpers. Device code: only the .cu files, compiled by nvcc,
+// include it.
 
 #pragma once
 

@@ -95,8 +95,9 @@ int fasn_fused_mlp(const void* x, const void* wg, const float* sg, const void* w
 
 // K8's inputs. q (B,KVH,G,HD) contiguous, f32 (q_dtype 0), bf16 (1) or
 // int8 (2, int8 compute, with q_scales (B,KVH,G) f32); k and v (B,KVH,S,HD)
-// f32 (kv_dtype 0), bf16 (1) or int8 (2) at element strides *_sb, *_sh,
-// *_ss with unit stride along HD; k_scales/v_scales null (dense) or f32
+// f32 (kv_dtype 0), bf16 (1), int8 (2) or fp8 e4m3 (3) at element strides
+// *_sb, *_sh, *_ss with unit stride along HD; k_scales/v_scales null
+// (dense) or f32
 // (B,KVH,S,1) at element strides ks_*/vs_*; lengths (B,) int32 on the
 // device. G <= 16, HD <= 128.
 struct FasnDecode {
@@ -119,5 +120,11 @@ int fasn_decode_attn_splits(int S);
 // K8. acc (B,KVH,G,HD), m and l (B,KVH,G), f32 and contiguous.
 int fasn_decode_attn(const FasnDecode* a, float* part_acc, float* part_m, float* part_l,
                      float* acc, float* m, float* l, cudaStream_t stream);
+
+// K10 (prefill_phases.cu). q, k, v and o (B,H,L,D) contiguous, bf16 (dtype
+// 1) or f32 (0), D in {32, 64, 128}; mode 0 dots_only, 1 exp_only, 2
+// softmax, 3 mask_softmax.
+int fasn_prefill_phase(const void* q, const void* k, const void* v, void* o, int B, int H, int L,
+                       int D, int dtype, int mode, cudaStream_t stream);
 
 }  // extern "C"

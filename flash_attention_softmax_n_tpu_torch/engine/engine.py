@@ -4,7 +4,7 @@ Counterpart of the serving core of
 ``flash_attention_softmax_n_tpu/engine/engine.py``:
 
   * a fixed pool of ``max_batch`` slots sharing one preallocated KV cache
-    (dense or int8), with per-slot lengths on the device;
+    (dense, int8 or fp8), with per-slot lengths on the device;
   * admission by batched prefill of same-bucket prompts (kernel K1);
   * decode either one step at a time (``engine_decode``: the new rows go
     into the cache by kernel K3) or in fused chunks of ``num_steps`` steps
@@ -65,7 +65,7 @@ from flash_attention_softmax_n_tpu_torch.quant.kv_cache import (
     init_quantized_kv_cache,
     quantize_kv,
 )
-from flash_attention_softmax_n_tpu_torch.quant.qtensor import QTensor
+from flash_attention_softmax_n_tpu_torch.quant.qtensor import QTensor, as_bytes
 
 __all__ = ["Request", "InferenceEngine", "engine_prefill_batch",
            "engine_prefill_chunk", "engine_decode", "engine_decode_loop"]
@@ -158,7 +158,7 @@ def engine_prefill_chunk(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
     def write(cache_kv, i, new):
         if isinstance(cache_kv, QTensor):
             values, scales = quantize_kv(new, cache_kv.bits)
-            cache_kv.values[i, slots, :, :c] = values
+            as_bytes(cache_kv.values)[i, slots, :, :c] = as_bytes(values)
             cache_kv.scales[i, slots, :, :c] = scales
         else:
             cache_kv[i, slots, :, :c] = new.to(cache_kv.dtype)
@@ -295,7 +295,8 @@ def engine_decode_loop(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
 
     New k/v rows go to a bf16 ring at the step index shared by all slots
     (K4); attention covers cache prefix + ring + current token; one flush
-    per call moves the ring into the cache (quantizing it for int8 caches).
+    per call moves the ring into the cache (quantizing it for int8 and fp8
+    caches).
     Requires ``lengths + round_up(num_steps, 8) <= max_len`` for every
     active slot. ``attn_len``: the attention reads only the first
     ``attn_len`` cache rows (exact while ``attn_len >= max(active
@@ -346,7 +347,8 @@ def engine_decode_loop(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
 
 def _flush_tail(cfg: DecoderConfig, k_cache, v_cache, k_tail, v_tail, base):
     """Write the loop's ring (NL, B, KVH, W, hd) into the cache at each
-    slot's row ``base[b]``, in place, quantizing for int8 caches.
+    slot's row ``base[b]``, in place, quantizing for int8 and fp8 caches
+    (whose values move as bytes).
 
     Rows past a slot's advanced length are garbage but land at positions
     the slot's length excludes. If a window would run past the cache end
@@ -367,6 +369,7 @@ def _flush_tail(cfg: DecoderConfig, k_cache, v_cache, k_tail, v_tail, base):
 
     def write(dst, rows):
         # dst (NL, B, KVH, S, D) and rows (NL, B, KVH, W, D) viewed slot-major
+        dst, rows = as_bytes(dst), as_bytes(rows)
         dv = dst.permute(1, 3, 0, 2, 4)
         new = rows.permute(1, 3, 0, 2, 4)[bidx, src].to(dst.dtype)
         dv[bidx, dest] = torch.where(keep_new, new, dv[bidx, dest])

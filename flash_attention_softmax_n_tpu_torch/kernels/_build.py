@@ -8,8 +8,8 @@ together. The objects link into one shared library, loaded with
 the bindings include PyTorch's headers, so ``nvcc`` never parses them and a
 build takes seconds. ``launchers.h`` declares the kernels' entry points
 for both sides, so the compiler checks every argument list;
-``flash_common.h`` holds the device code that the three flash-attention
-kernels share.
+``flash_common.h`` holds the device code that the flash-attention kernels
+(K1, K5, K6) and the prefill-phase kernel K10 share.
 
 The library lands in ``_build/`` beside the package (listed in
 ``.gitignore``), named by a hash of the sources, flags and PyTorch version,
@@ -40,7 +40,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu",
            "qmm_argmax.cu", "cache_update.cu", "qmm.cu", "fused_mlp.cu",
-           "decode_attn.cu")
+           "decode_attn.cu", "prefill_phases.cu")
 BINDINGS = "bindings.cpp"
 HEADERS = ("launchers.h", "flash_common.h")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,7 +50,10 @@ CXX_FLAGS = ["-std=c++17", "-O2", "-fPIC"]
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0, "qmm_argmax": 0,
                             "cache_append": 0, "tail_append": 0, "qmm": 0,
-                            "fused_mlp": 0, "decode_attn": 0}
+                            "fused_mlp": 0, "decode_attn": 0,
+                            # K10, one count per mode
+                            "mini_dots_only": 0, "mini_exp_only": 0,
+                            "mini_softmax": 0, "mini_mask_softmax": 0}
 # wall seconds of each compile and of the link in this process's last build
 BUILD_SECONDS: Dict[str, float] = {}
 

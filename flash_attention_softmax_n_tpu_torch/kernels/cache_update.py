@@ -14,6 +14,7 @@ from typing import Tuple
 import torch
 
 from flash_attention_softmax_n_tpu_torch.kernels import _build
+from flash_attention_softmax_n_tpu_torch.quant.qtensor import as_bytes
 
 __all__ = ["cache_append", "cache_append_reference", "tail_append",
            "tail_append_reference"]
@@ -22,12 +23,14 @@ __all__ = ["cache_append", "cache_append_reference", "tail_append",
 def cache_append_reference(caches: Tuple[torch.Tensor, ...],
                            news: Tuple[torch.Tensor, ...],
                            positions: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Plain version of K3: caches[i][l, b, :, positions[b]] = news[i][l, b]."""
+    """Plain version of K3: caches[i][l, b, :, positions[b]] = news[i][l, b]
+    (fp8 rows move as bytes)."""
     b = torch.arange(positions.shape[0], device=positions.device)
     pos = positions.long()
     for c, nw in zip(caches, news):
         # (NL, B, KVH, S, D) viewed as (B, S, NL, KVH, D)
-        c.permute(1, 3, 0, 2, 4)[b, pos] = nw.permute(1, 0, 2, 3).to(c.dtype)
+        rows = as_bytes(nw.to(c.dtype)).permute(1, 0, 2, 3)
+        as_bytes(c).permute(1, 3, 0, 2, 4)[b, pos] = rows
     return tuple(caches)
 
 

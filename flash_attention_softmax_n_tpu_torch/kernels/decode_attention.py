@@ -1,4 +1,5 @@
-"""Single-token softmax-N attention over a per-slot-length (int8) KV cache.
+"""Single-token softmax-N attention over a per-slot-length KV cache (int8,
+fp8 e4m3 or dense).
 
 Counterpart of ``decode_attention_n``
 (``flash_attention_softmax_n_tpu/kernels/decode_attention.py``): unnormalized
@@ -16,8 +17,9 @@ exactly once. Two routes compute the statistics, as in JAX:
   * ``implementation="xla"``: plain tensor ops over the whole padded cache,
     q rounded to bf16 unless the cache is f32.
 
-Products take bf16 (or f32) operands with f32 accumulation. fp8 caches are
-still to be ported (ROADMAP.md).
+Products take bf16 (or f32) operands with f32 accumulation: fp8 values
+round to bf16 exactly, and the probabilities round to bf16 before PV unless
+the cache is f32.
 """
 
 from __future__ import annotations
@@ -154,9 +156,6 @@ def _decode_attn_stats(q, k_values, v_values, lengths, k_scales, v_scales, *,
     """The ``"pallas"`` route's statistics; q (B, KVH, G, hd) f32,
     pre-scaled. q is rounded to ``in_dtype``, or quantized per row under
     ``int8_compute``, outside the kernel, as JAX does."""
-    if k_values.dtype.is_floating_point and k_values.element_size() == 1:
-        raise NotImplementedError(
-            "fp8 KV caches are not ported yet; see ROADMAP.md")
     if int8_compute:
         q_absmax = torch.amax(torch.abs(q), dim=-1, keepdim=True)
         q_scales = torch.where(q_absmax == 0, 1.0, q_absmax / 127.0)
@@ -192,7 +191,7 @@ def decode_attention_n(
 ) -> torch.Tensor:
     """Single-token softmax-N attention over a padded (quantized) KV cache.
 
-    q (B, H, hd); k/v_values (B, KVH, S, hd) int8 or dense; k/v_scales
+    q (B, H, hd); k/v_values (B, KVH, S, hd) int8, fp8 or dense; k/v_scales
     (B, KVH, S, 1) f32 when quantized; lengths (B,) valid keys per slot.
     ``k_new``/``v_new`` (B, KVH, hd): the current token, attended as one
     extra key. ``k_tail``/``v_tail`` (B, KVH, W, hd) with ``tail_lengths``

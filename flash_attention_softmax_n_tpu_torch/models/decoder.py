@@ -7,9 +7,10 @@ prefill run causal ``flash_attention_n`` (kernel K1 on the card, with K5/K6
 as its backward when training); decode attends a KV cache with the ``+n``
 term in every step's denominator. Quantized weights route as in JAX
 (``_mm``): int8 to ``x @ dequantize(w)`` on the ``"xla"`` route and to the
-dequant matmul K7 on the ``"pallas"`` route, int4 and W8A8 to K7, and the
-decode SwiGLU block to the fused MLP K9 where JAX fuses it
-(``_mlp_fusable``).
+dequant matmul K7 on the ``"pallas"`` route, int4 and W8A8 to K7, fp8 to
+``x @ dequantize(w)`` on either route, and the decode SwiGLU block to the
+fused MLP K9 where JAX fuses it (``_mlp_fusable``). KV caches are dense,
+int8 or fp8.
 """
 
 from __future__ import annotations
@@ -139,13 +140,13 @@ def init_decoder_params(cfg: DecoderConfig,
 def _mm(x: torch.Tensor, w, act_bits=None,
         int8_mm_impl: str = "xla") -> torch.Tensor:
     """x @ w for a dense weight; for a QTensor, as JAX's ``_mm`` routes it:
-    int4 with K % 256 dequantizes inline, int8 without ``act_bits`` on the
-    ``"xla"`` route is ``x @ dequantize(w, x.dtype)`` (f32 scale multiply,
-    then one cast), and everything else goes to the dequant matmul K7
-    (``act_bits=8``: W8A8)."""
+    fp8, and int4 with K % 256, dequantize inline, int8 without
+    ``act_bits`` on the ``"xla"`` route is ``x @ dequantize(w, x.dtype)``
+    (f32 scale multiply, then one cast), and everything else goes to the
+    dequant matmul K7 (``act_bits=8``: W8A8)."""
     if isinstance(w, QTensor):
         k = w.logical_shape[-2]
-        if w.bits == 4 and k % 256:
+        if w.bits == -8 or (w.bits == 4 and k % 256):
             return x @ dequantize(w, x.dtype)
         if (w.bits == 8 and act_bits != 8 and w.packed_axis is None
                 and int8_mm_impl == "xla"):
@@ -318,7 +319,7 @@ def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: Optional[int] = None,
                   dtype: Optional[Any] = None,
                   quantization: Optional[str] = None, *, device=None) -> Dict:
     """Preallocated KV cache (n_layers, B, KVH, S, hd); ``quantization``
-    None (dense) or 'int8'. ``length`` is a host int."""
+    None (dense), 'int8' or 'fp8'. ``length`` is a host int."""
     dev = resolve_device(device)
     s = max_len or cfg.max_seq_len
     if quantization is not None:
@@ -418,8 +419,8 @@ def decode_step(params: Dict, cfg: DecoderConfig, token: torch.Tensor,
                     cached_attention_quantized,
                     update_quantized_cache,
                 )
-                kc = QTensor(cache["k"].values[i], cache["k"].scales[i])
-                vc = QTensor(cache["v"].values[i], cache["v"].scales[i])
+                kc, vc = (QTensor(cache[n].values[i], cache[n].scales[i],
+                                  bits=cache[n].bits) for n in ("k", "v"))
                 update_quantized_cache(kc, k, pos)
                 update_quantized_cache(vc, v, pos)
                 ctx = cached_attention_quantized(
@@ -446,7 +447,7 @@ def greedy_generate(params: Dict, cfg: DecoderConfig, prompt,
                     kv_quantization: Optional[str] = None, *,
                     device=None) -> torch.Tensor:
     """Greedy decoding: prompt (B, L) -> generated tokens (B, max_new_tokens)
-    int32. ``kv_quantization``: None or 'int8'."""
+    int32. ``kv_quantization``: None, 'int8' or 'fp8'."""
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt, device=dev).long()
     b, l = prompt.shape

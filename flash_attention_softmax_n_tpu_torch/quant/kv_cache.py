@@ -1,4 +1,4 @@
-"""Quantized int8 KV cache with per-token-per-head scales.
+"""Quantized int8 or fp8 (e4m3) KV cache with per-token-per-head scales.
 
 Counterpart of ``flash_attention_softmax_n_tpu/quant/kv_cache.py``. The
 dequantization rides the attention math: scores are scaled by the k scale
@@ -13,7 +13,12 @@ import torch
 
 from flash_attention_softmax_n_tpu_torch._device import resolve_device
 from flash_attention_softmax_n_tpu_torch.ops.functional import softmax_n
-from flash_attention_softmax_n_tpu_torch.quant.qtensor import INT8_MAX, QTensor
+from flash_attention_softmax_n_tpu_torch.quant.qtensor import (
+    FP8,
+    FP8_MAX,
+    INT8_MAX,
+    QTensor,
+)
 
 __all__ = [
     "init_quantized_kv_cache",
@@ -25,45 +30,44 @@ __all__ = [
 NEG_INF = -1e30
 
 
-def _require_int8_mode(mode: str) -> None:
-    if mode == "fp8":
-        raise NotImplementedError(
-            "fp8 KV caches are not ported yet; see ROADMAP.md")
-    if mode != "int8":
-        raise ValueError(f"unknown KV quantization mode {mode!r}")
+_MODES = {"int8": (torch.int8, 8), "fp8": (FP8, -8)}
 
 
 def init_quantized_kv_cache(n_layers: int, batch: int, n_kv_heads: int,
                             max_len: int, head_dim: int, mode: str = "int8",
                             device=None) -> Dict:
-    """Cache dict with QTensor k/v: int8 values and f32 scale planes, on the
-    card unless ``device`` says otherwise."""
-    _require_int8_mode(mode)
+    """Cache dict with QTensor k/v: int8 or fp8 values (``mode``) and f32
+    scale planes, on the card unless ``device`` says otherwise."""
+    if mode not in _MODES:
+        raise ValueError(f"unknown KV quantization mode {mode!r}")
+    dt, bits = _MODES[mode]
     device = resolve_device(device)
     shape = (n_layers, batch, n_kv_heads, max_len, head_dim)
     sshape = (n_layers, batch, n_kv_heads, max_len, 1)
 
     def qt():
-        return QTensor(torch.zeros(shape, dtype=torch.int8, device=device),
+        return QTensor(torch.zeros(shape, dtype=dt, device=device),
                        torch.zeros(sshape, dtype=torch.float32, device=device),
-                       bits=8)
+                       bits=bits)
 
     return {"k": qt(), "v": qt(),
             "length": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def quantize_kv(x: torch.Tensor, bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-token symmetric int8 quantization along head_dim (last axis).
+    """Per-token symmetric quantization along head_dim (last axis): int8
+    (``bits=8``) or fp8 e4m3 (``bits=-8``).
 
-    x (..., S, head_dim) -> (values int8, scales (..., S, 1) f32).
+    x (..., S, head_dim) -> (values, scales (..., S, 1) f32).
     """
-    if bits != 8:
-        raise NotImplementedError(
-            f"bits={bits} KV quantization is not ported yet; see ROADMAP.md")
+    if bits not in (8, -8):
+        raise ValueError(f"KV quantization takes bits 8 or -8, got {bits}")
     xf = x.float()
     absmax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
-    scales = absmax / INT8_MAX
+    scales = absmax / (INT8_MAX if bits == 8 else FP8_MAX)
     safe = torch.where(scales == 0, 1.0, scales)
+    if bits == -8:
+        return (xf / safe).to(FP8), scales
     values = torch.clamp(torch.round(xf / safe), -128, 127).to(torch.int8)
     return values, scales
 

@@ -1,7 +1,10 @@
-"""Quantized tensor container and int8 / grouped-int4 quantize/dequantize.
+"""Quantized tensor container and int8 / grouped-int4 / fp8 quantize and
+dequantize.
 
 Counterpart of ``flash_attention_softmax_n_tpu/quant/qtensor.py``. fp8
-(``bits=-8``) is still to be ported (see ROADMAP.md).
+(``bits=-8``) stores ``torch.float8_e4m3fn`` values with f32 absmax scales
+that map each slice onto +-448, so the cast never saturates and gives JAX's
+bytes.
 """
 
 from __future__ import annotations
@@ -11,10 +14,13 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["QTensor", "quantize", "dequantize", "pack_int4", "unpack_int4"]
+__all__ = ["QTensor", "quantize", "dequantize", "pack_int4", "unpack_int4",
+           "as_bytes"]
 
 INT4_MAX = 7.0
 INT8_MAX = 127.0
+FP8_MAX = 448.0  # float8_e4m3fn max normal
+FP8 = torch.float8_e4m3fn
 INT4_GROUP = 256  # rows per packing group (two halves of 128)
 
 
@@ -42,11 +48,15 @@ class QTensor:
 
 
 def _check_bits(bits: int) -> None:
-    if bits == -8:
-        raise NotImplementedError(
-            "bits=-8 (fp8) is not ported yet; see ROADMAP.md")
-    if bits not in (8, 4):
+    if bits not in (8, 4, -8):
         raise ValueError(f"unsupported bits {bits}")
+
+
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """An fp8 tensor viewed as uint8, anything else as it is: moving fp8
+    values is moving bytes, and some PyTorch ops (indexed writes,
+    ``torch.where``) have no fp8 kernel on every device."""
+    return t.view(torch.uint8) if t.dtype == FP8 else t
 
 
 def _int4_group(axis_len: int) -> int:
@@ -90,14 +100,17 @@ def quantize(x: torch.Tensor, bits: int = 8, axis: int = -1,
 
     ``axis`` is the reduction axis of the scale: a (K, N) weight with
     ``axis=0`` gets per-output-channel (1, N) scales. Rounds half to even.
-    ``bits=4`` packs along ``axis`` (``pack_int4``).
+    ``bits=4`` packs along ``axis`` (``pack_int4``); ``bits=-8`` casts to
+    fp8 e4m3 (round to nearest even).
     """
     _check_bits(bits)
-    qmax = INT8_MAX if bits == 8 else INT4_MAX
+    qmax = {8: INT8_MAX, 4: INT4_MAX, -8: FP8_MAX}[bits]
     xf = x.float()
     absmax = torch.amax(torch.abs(xf), dim=axis, keepdim=True)
     scales = (absmax / qmax).to(scale_dtype)
     safe = torch.where(scales == 0, 1.0, scales.float())
+    if bits == -8:
+        return QTensor((xf / safe).to(FP8), scales, bits=-8)
     q = torch.clamp(torch.round(xf / safe), -qmax - 1, qmax).to(torch.int8)
     if bits == 4:
         ax = axis % x.ndim - x.ndim

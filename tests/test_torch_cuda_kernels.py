@@ -9,8 +9,9 @@ These cover what the serving and training shapes in ``chip_smoke.py`` do
 not: n = 0 and fractional n, rectangular causal with L < S and L > S (dead
 rows), f32 inputs, head dims 32/64/128, ragged tiles, dense caches, and for
 the backward (K5, K6) bias, ALiBi and dropout in every combination; for
-K7-K9 every mode (int8, W8A8, int4, W4A8; dense, int8 and int8-compute
-caches), ragged M/N/F, slot lengths 0 and full, strided cache views.
+K7-K9 every mode (int8, W8A8, int4, W4A8; dense, int8, int8-compute and
+fp8 caches), ragged M/N/F, slot lengths 0 and full, strided cache views;
+K10 in its four modes at head dims 32/64/128, bf16 and f32, ragged L.
 Tolerances: forward f32 within 2e-5 (summation order), bf16 within 2e-2 (p
 rounded to bf16 before PV, as in the plain version), lse within 1e-4;
 gradients within 1e-4 (f32) or 2e-2 (bf16: ds rounds to bf16 on either side
@@ -20,7 +21,10 @@ max |out|, bf16 within one bf16 ulp; W8A8 bit-exact (integer sums, the same
 f32 epilogue). K9: f32 within 1e-5, bf16 within 2e-2 of max |out|. K8:
 outputs within 1e-5 (f32 cache) or 2e-2 (p rounded to bf16 or requantized
 to int8 against a split's own maximum where the plain version uses the
-running one).
+running one). K10: f32 within 1e-5 of max(1, max |o|); bf16 within
+``mini_tolerance``, one bf16 ulp of |o| plus one p of each row rounded to
+bf16 the other way (p is rounded from values that may differ in their
+last bits).
 """
 
 import numpy as np
@@ -32,6 +36,7 @@ from flash_attention_softmax_n_tpu_torch.kernels import cache_update as cu
 from flash_attention_softmax_n_tpu_torch.kernels import decode_attention as da
 from flash_attention_softmax_n_tpu_torch.kernels import flash_attention as fa
 from flash_attention_softmax_n_tpu_torch.kernels import fused_mlp as fm
+from flash_attention_softmax_n_tpu_torch.kernels import prefill_phases as pp
 from flash_attention_softmax_n_tpu_torch.kernels import quant_matmul as qm
 from flash_attention_softmax_n_tpu_torch.quant import qtensor as qt
 
@@ -361,9 +366,10 @@ def _decode_inputs(gen, cache, qdtype, group, hd, *, B=5, KVH=2, S=600):
     full_k, full_v = (torch.randn((2, B, KVH, 700, hd), generator=gen, device="cuda")
                       for _ in range(2))
     ks = vs = None
-    if cache.startswith("int8"):
+    if cache.startswith("int8") or cache == "fp8":
         from flash_attention_softmax_n_tpu_torch.quant.kv_cache import quantize_kv
-        (kv, ksf), (vv, vsf) = quantize_kv(full_k, 8), quantize_kv(full_v, 8)
+        bits = -8 if cache == "fp8" else 8
+        (kv, ksf), (vv, vsf) = quantize_kv(full_k, bits), quantize_kv(full_v, bits)
         k, v = kv[1, :, :, :S], vv[1, :, :, :S]
         ks, vs = ksf[1, :, :, :S], vsf[1, :, :, :S]
     else:
@@ -383,7 +389,7 @@ def _prep_q(q, cache, qdtype):
     return q.to(qdtype), None
 
 
-@pytest.mark.parametrize("cache", ["f32", "bf16", "int8", "int8_compute"])
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8", "int8_compute", "fp8"])
 @pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("gh", [(1, 64), (4, 128), (8, 64), (16, 32)])
 def test_decode_attn_matches_plain(gen, cache, qdtype, gh):
@@ -407,7 +413,7 @@ def test_decode_attn_matches_plain(gen, cache, qdtype, gh):
     torch.testing.assert_close(out, out_r, atol=1e-5 if exact else 2e-2, rtol=0)
 
 
-@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("cache", ["bf16", "int8", "fp8"])
 def test_decode_attn_reads_only_valid_rows(gen, cache):
     q, k, v, ks, vs, lengths = _decode_inputs(gen, cache, torch.bfloat16, 8, 64)
     qv, _ = _prep_q(q, cache, torch.bfloat16)
@@ -415,7 +421,7 @@ def test_decode_attn_reads_only_valid_rows(gen, cache):
     # poison every row at or past a slot's length: the statistics must not move
     pos = torch.arange(k.shape[2], device="cuda")
     dead = (pos[None, :] >= lengths[:, None].long())[:, None, :, None]
-    if cache == "int8":
+    if cache in ("int8", "fp8"):
         ks, vs = (torch.where(dead, float("nan"), s) for s in (ks, vs))
     else:
         k, v = (torch.where(dead, float("nan"), t).to(t.dtype) for t in (k, v))
@@ -423,11 +429,12 @@ def test_decode_attn_reads_only_valid_rows(gen, cache):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-def test_decode_attention_n_pallas_route_end_to_end(gen, monkeypatch):
+@pytest.mark.parametrize("cache", ["int8", "fp8"])
+def test_decode_attention_n_pallas_route_end_to_end(gen, monkeypatch, cache):
     # the whole op (epilogue with tail, self-term and +n) through K8 against
     # the same op with the plain statistics
     B, KVH, G, hd, W = 4, 2, 4, 64, 16
-    q0, k, v, ks, vs, lengths = _decode_inputs(gen, "int8", torch.bfloat16, G, hd, B=B)
+    q0, k, v, ks, vs, lengths = _decode_inputs(gen, cache, torch.bfloat16, G, hd, B=B)
     q = q0.reshape(B, KVH * G, hd).to(torch.bfloat16)
     kn, vn = (torch.randn((B, KVH, hd), generator=gen, device="cuda") for _ in range(2))
     kt, vt = (torch.randn((B, KVH, W, hd), generator=gen, device="cuda").to(torch.bfloat16)
@@ -440,3 +447,94 @@ def test_decode_attention_n_pallas_route_end_to_end(gen, monkeypatch):
     want = da.decode_attention_n(q, k, v, lengths, **kw)
     assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+
+
+def test_decode_attn_rejects_fp8_int8_compute(gen):
+    q, k, v, ks, vs, lengths = _decode_inputs(gen, "fp8", torch.bfloat16, 4, 64)
+    with pytest.raises(ValueError, match="int8 cache"):
+        da._decode_attn_cuda(*_prep_q(q, "int8_compute", None), k, v, lengths, ks, vs)
+    with pytest.raises(ValueError, match="scales"):
+        da._decode_attn_cuda(q.to(torch.bfloat16), None, k, v, lengths, None, None)
+
+
+# ----------------------------------------------------------------------------
+# K10 (the prefill-phase kernel)
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", pp.MODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("L", [64, 200, 512])
+def test_prefill_phase_matches_plain(gen, mode, dtype, d, L):
+    q, k, v = ((0.3 * torch.randn((2, 3, L, d), generator=gen, device="cuda")).to(dtype)
+               for _ in range(3))
+    before = _build.LAUNCHES[f"mini_{mode}"]
+    out = pp.mini(mode, q, k, v)
+    assert _build.LAUNCHES[f"mini_{mode}"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert torch.equal(out, pp.mini(mode, q, k, v))
+    ref = pp.mini_reference(mode, q, k, v)
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 1e-5 * max(1.0, float(ref.abs().max()))
+    else:
+        assert bool((diff <= pp.mini_tolerance(mode, q, k, v, ref)).all())
+
+
+def test_prefill_phase_rejects_what_it_does_not_take(gen):
+    q = torch.randn((1, 2, 64, 48), device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        pp.mini("softmax", q, q, q)
+    q = torch.randn((1, 2, 64, 64), device="cuda")
+    with pytest.raises(ValueError, match="prefill_phase"):
+        pp.mini("softmax", q, q[:, :, :32], q)
+    with pytest.raises(ValueError, match="unknown mode"):
+        pp.mini("relu", q, q, q)
+
+
+# ----------------------------------------------------------------------------
+# fp8 weights and KV caches through the decoder on the card
+# ----------------------------------------------------------------------------
+
+
+def _decode_logits(params, cfg, tokens, kv, dev):
+    """prefill, then three decode steps on fixed tokens; the logits"""
+    from flash_attention_softmax_n_tpu_torch import models as tm
+
+    def to(x):
+        if isinstance(x, dict):
+            return {k: to(v) for k, v in x.items()}
+        if isinstance(x, qt.QTensor):
+            return qt.QTensor(x.values.to(dev), x.scales.to(dev), bits=x.bits)
+        return x.to(dev)
+
+    p = to(params)
+    cache = tm.init_kv_cache(cfg, tokens.shape[0], max_len=16, quantization=kv,
+                             device=dev)
+    out, cache = tm.prefill(p, cfg, tokens.to(dev), cache)
+    outs, tok = [out], torch.argmax(out, -1)
+    for _ in range(3):
+        out, cache = tm.decode_step(p, cfg, tok, cache)
+        outs.append(out)
+    return torch.stack(outs).cpu()
+
+
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+def test_decode_steps_with_quantized_cache_match_the_cpu(gen, kv):
+    # fp8 weights; prefill (K1, head dim 64) and decode_step write the cache
+    # rows by slices and attend through cached_attention_quantized; f32,
+    # logits within 1e-4 of the same calls on the CPU (summation order)
+    from flash_attention_softmax_n_tpu_torch import models as tm
+    from flash_attention_softmax_n_tpu_torch.quant.weights import (
+        quantize_decoder_weights,
+    )
+    cfg = tm.DecoderConfig(vocab_size=97, d_model=256, n_layers=2, n_heads=4,
+                           n_kv_heads=2, d_ff=256, max_seq_len=128,
+                           dtype=torch.float32)
+    params = quantize_decoder_weights(tm.init_decoder_params(cfg, 0, device="cpu"),
+                                      bits=-8)
+    tokens = torch.randint(0, 97, (2, 11), generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(_decode_logits(params, cfg, tokens, kv, "cuda"),
+                               _decode_logits(params, cfg, tokens, kv, "cpu"),
+                               atol=1e-4, rtol=0)

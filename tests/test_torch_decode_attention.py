@@ -76,20 +76,52 @@ def test_empty_slot_without_new_token_is_zero():
     assert torch.isfinite(out).all()
 
 
-def test_pallas_route_raises():
-    # "pallas" runs now (K8's plain version on the CPU); an fp8 cache, an
-    # unknown route and int8 compute over a dense cache raise
+def test_pallas_route_and_fp8_cache_match_jax():
+    # "pallas" runs (K8's plain version on the CPU), an fp8 cache too, on
+    # both routes against JAX's Pallas kernel in interpret mode: within
+    # 8e-2 (tests/test_decode_attention.py's fp8 tolerance), and each route
+    # within 1e-5 of JAX's same route. An unknown route and int8 compute
+    # over a dense or an fp8 cache raise.
     q = torch.randn(1, 2, 8)
     kc = torch.randn(1, 1, 4, 8)
     out = t_decode(q, kc, kc, torch.tensor([4]), implementation="pallas")
     torch.testing.assert_close(
         out, t_decode(q, kc, kc, torch.tensor([4]), implementation="xla"),
         atol=TOL, rtol=0)
-    fp8 = kc.to(torch.float8_e4m3fn)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_decode(q, fp8, fp8, torch.tensor([4]), implementation="pallas",
-                 k_scales=torch.ones(1, 1, 4, 1), v_scales=torch.ones(1, 1, 4, 1))
+    rng = np.random.RandomState(6)
+    b, h, kvh, s, hd = 3, 8, 2, 300, 64
+    qf = (0.5 * rng.randn(b, h, hd)).astype(np.float32)
+    kq, ks = (np.asarray(a) for a in quantize_kv(jnp.asarray(rng.randn(b, kvh, s, hd)
+                                                            .astype(np.float32)), -8))
+    vq, vs = (np.asarray(a) for a in quantize_kv(jnp.asarray(rng.randn(b, kvh, s, hd)
+                                                            .astype(np.float32)), -8))
+    lengths = np.array([300, 0, 129], np.int32)
+    kw = dict(k_scales=ks, v_scales=vs, k_new=rng.randn(b, kvh, hd).astype(np.float32),
+              v_new=rng.randn(b, kvh, hd).astype(np.float32))
+    for dt in (jnp.float32, jnp.bfloat16):
+        jargs = (jnp.asarray(qf).astype(dt), jnp.asarray(kq), jnp.asarray(vq),
+                 jnp.asarray(lengths))
+        targs = (_t(np.asarray(jargs[0])), _t(kq), _t(vq), _t(lengths))
+        assert targs[1].dtype == torch.float8_e4m3fn
+        jw = {k_: jnp.asarray(v_) for k_, v_ in kw.items()}
+        tw = {k_: _t(v_) for k_, v_ in kw.items()}
+        want_pallas = np.asarray(j_decode(*jargs, softmax_n_param=1.0, **jw,
+                                          implementation="pallas", interpret=True),
+                                 np.float32)
+        for route in ("xla", "pallas"):
+            got = t_decode(*targs, softmax_n_param=1.0, **tw,
+                           implementation=route).float().numpy()
+            want = (want_pallas if route == "pallas" else np.asarray(
+                j_decode(*jargs, softmax_n_param=1.0, **jw, implementation="xla"),
+                np.float32))
+            np.testing.assert_allclose(got, want_pallas, atol=8e-2, rtol=0)
+            # bf16 outputs: one bf16 ulp of |out| apart at most
+            tol = TOL if dt == jnp.float32 else 2.0 ** -7 * np.abs(want).max()
+            np.testing.assert_allclose(got, want, atol=tol, rtol=0)
     with pytest.raises(ValueError, match="implementation"):
         t_decode(q, kc, kc, torch.tensor([4]), implementation="mosaic")
     with pytest.raises(ValueError, match="int8_compute"):
         t_decode(q, kc, kc, torch.tensor([4]), int8_compute=True)
+    with pytest.raises(ValueError, match="int8_compute"):
+        t_decode(targs[0], targs[1], targs[2], targs[3], k_scales=tw["k_scales"],
+                 v_scales=tw["v_scales"], int8_compute=True)

@@ -100,8 +100,11 @@ def test_init_decoder_params_shapes_and_seed():
     assert torch.equal(a["layers"]["wq"], b["layers"]["wq"])
 
 
-def test_unported_config_raises():
-    # the all-kernel routes and W8A8 construct now; fp8 weights do not
+def test_fp8_weights_and_config_validation(jparams):
+    # the all-kernel routes, W8A8 and fp8 weights run; unknown routes,
+    # act_bits and bit widths raise. fp8 weights (dequantized inline, as
+    # JAX does) give JAX's logits within TOL and, with an fp8 KV cache,
+    # JAX's greedy tokens.
     cfg = tm.DecoderConfig(**TINY_KW, int8_mm_impl="pallas",
                            decode_attn_impl="pallas", act_bits=8)
     assert (cfg.int8_mm_impl, cfg.decode_attn_impl, cfg.act_bits) == (
@@ -111,5 +114,17 @@ def test_unported_config_raises():
         with pytest.raises(ValueError):
             tm.DecoderConfig(**TINY_KW, **kw)
     params = tm.init_decoder_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_quantize_weights(params, -8)
+    with pytest.raises(ValueError, match="bits"):
+        t_quantize_weights(params, 2)
+    jc, tc = _configs()
+    jp = j_quantize_weights(jparams, -8)
+    tp = t_quantize_weights(_port(jparams), -8)
+    assert tp["layers"]["wq"].values.dtype == torch.float8_e4m3fn
+    want = np.asarray(jm.decoder_forward(jp, jc, jnp.asarray(TOKENS)))
+    got = tm.decoder_forward(tp, tc, torch.from_numpy(TOKENS).long())
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+    want = np.asarray(jm.greedy_generate(jp, jc, jnp.asarray(TOKENS), 7,
+                                         kv_quantization="fp8"))
+    got = tm.greedy_generate(tp, tc, TOKENS, 7, kv_quantization="fp8",
+                             device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)

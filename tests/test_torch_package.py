@@ -22,16 +22,20 @@ def test_port_and_chip_smoke_import_no_jax():
         "import flash_attention_softmax_n_tpu_torch.kernels.decode_attention\n"
         "import flash_attention_softmax_n_tpu_torch.kernels.flash_attention\n"
         "import flash_attention_softmax_n_tpu_torch.kernels.fused_mlp\n"
+        "import flash_attention_softmax_n_tpu_torch.kernels.prefill_phases\n"
         "import flash_attention_softmax_n_tpu_torch.kernels.quant_matmul\n"
         "import flash_attention_softmax_n_tpu_torch.models\n"
         "import flash_attention_softmax_n_tpu_torch.parallel\n"
         "import flash_attention_softmax_n_tpu_torch.quant\n"
+        "import flash_attention_softmax_n_tpu_torch.utils.profile_prefill_phases\n"
+        "import flash_attention_softmax_n_tpu_torch.utils.profiling\n"
         "import chip_smoke\n"
         "assert p.TRITON_INSTALLED is False\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m.startswith('jaxlib.')\n"
         "       or m == 'flash_attention_softmax_n_tpu'\n"
-        "       or m.startswith('flash_attention_softmax_n_tpu.')]\n"
+        "       or m.startswith('flash_attention_softmax_n_tpu.')\n"
+        "       or m == 'scripts' or m.startswith('scripts.')]\n"
         "print(bad)\n"
         "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -59,6 +63,7 @@ def test_entry_points_default_to_the_card():
         init_decoder_params,
     )
     from flash_attention_softmax_n_tpu_torch.quant import init_quantized_kv_cache
+    from flash_attention_softmax_n_tpu_torch.utils import profile_prefill_phases
     cfg = DecoderConfig(vocab_size=16, d_model=8, n_layers=1, n_heads=2,
                         n_kv_heads=1, d_ff=8, max_seq_len=8,
                         dtype=torch.float32)
@@ -69,6 +74,9 @@ def test_entry_points_default_to_the_card():
         lambda: params_from_jax({"embed": params["embed"].numpy()}),
         lambda: greedy_generate(params, cfg, [[1, 2]], 2),
         lambda: init_quantized_kv_cache(1, 1, 1, 4, 8),
+        lambda: init_quantized_kv_cache(1, 1, 1, 4, 8, mode="fp8"),
+        lambda: profile_prefill_phases.run((1, 1, 64, 32)),
+        lambda: profile_prefill_phases.main(["--shape", "1,1,64,32"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -86,17 +86,42 @@ def test_quantize_decoder_weights_bit_exact():
     assert torch.equal(got["embed"], want["embed"])
 
 
-def test_int4_and_fp8_raise():
-    # int4 quantizes now (packed along the scale's axis); fp8 still raises
+def _u8(a):
+    """fp8 values as their bytes (numpy uint8), from either side"""
+    if isinstance(a, torch.Tensor):
+        return a.view(torch.uint8).numpy()
+    return np.asarray(a).view(np.uint8)
+
+
+def test_int4_and_fp8_quantize_match_jax():
+    # int4 quantizes (packed along the scale's axis) and fp8 gives JAX's
+    # bytes; bit widths and cache modes outside those raise
     x = torch.ones(4, 8)
     q4 = tq.quantize(x, bits=4, axis=0)
     assert (q4.bits, q4.packed_axis, tuple(q4.values.shape)) == (4, -2, (2, 8))
     assert q4.logical_shape == (4, 8)
     assert torch.equal(tq.dequantize(q4), x)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tq.quantize(x, bits=-8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tkv.init_quantized_kv_cache(1, 1, 1, 4, 8, mode="fp8", device="cpu")
+    xf = np.random.RandomState(5).randn(6, 40).astype(np.float32) * 30
+    xf[2] = 0.0  # a slice of zeros takes scale 0
+    jq8 = jq.quantize(jnp.asarray(xf), bits=-8, axis=-1)
+    tq8 = tq.quantize(_t(xf), bits=-8, axis=-1)
+    assert (tq8.bits, tq8.values.dtype) == (-8, torch.float8_e4m3fn)
+    np.testing.assert_array_equal(_u8(tq8.values), _u8(jq8.values))
+    np.testing.assert_array_equal(tq8.scales.numpy(), np.asarray(jq8.scales))
+    np.testing.assert_array_equal(tq.dequantize(tq8).numpy(),
+                                  np.asarray(jq.dequantize(jq8)))
+    jc = jkv.init_quantized_kv_cache(2, 3, 2, 8, 16, mode="fp8")
+    tc = tkv.init_quantized_kv_cache(2, 3, 2, 8, 16, mode="fp8", device="cpu")
+    for name in ("k", "v"):
+        assert tc[name].bits == jc[name].bits == -8
+        np.testing.assert_array_equal(_u8(tc[name].values), _u8(jc[name].values))
+        np.testing.assert_array_equal(tc[name].scales.numpy(),
+                                      np.asarray(jc[name].scales))
+    assert tc["k"].values.data_ptr() != tc["v"].values.data_ptr()
+    with pytest.raises(ValueError, match="bits"):
+        tq.quantize(x, bits=2)
+    with pytest.raises(ValueError, match="mode"):
+        tkv.init_quantized_kv_cache(1, 1, 1, 4, 8, mode="int4", device="cpu")
 
 
 @pytest.mark.parametrize("m", [1, 8, 13])
