@@ -13,11 +13,13 @@ Phases, in order, each printing one JSON line:
    ``*.cu`` kernel source with its own nvcc for sm_90a and the PyTorch
    operator bindings with the host C++ compiler, all started together;
 3. kernels: runs K1 flash_fwd, K2 qmm_argmax, K3 cache_append, K4
-   tail_append, K7 qmm (int8, W8A8 and int4), K8 decode_attn (int8, fp8
-   and bf16 caches), K9 fused_mlp and K10 prefill_phase (its four modes,
-   B2 H32 L2048 hd64) on the card at their paths' shapes and holds each
-   against its plain PyTorch version on the same card tensors (K7-K10 also
-   run twice and must be bit-equal);
+   tail_append, K7 qmm (int8, W8A8 and int4, at decode M64 and at the
+   admission groups' M1024 and M2048; each line prints its plan and
+   producer, and the library call's own device time), K8 decode_attn
+   (int8, fp8 and bf16 caches), K9 fused_mlp and K10 prefill_phase (its
+   four modes, B2 H32 L2048 hd64) on the card at their paths' shapes and
+   holds each against its plain PyTorch version on the same card tensors
+   (K7-K10 also run twice and must be bit-equal);
 4. train kernels: K1 with ALiBi and dropout, K5 flash_bwd_dq and K6
    flash_bwd_dkv against their plain versions (B2 H4 L200 S264 with bias,
    ALiBi and dropout, f32 and bf16, n 0 and 1; then the training shape B2
@@ -29,10 +31,12 @@ Phases, in order, each printing one JSON line:
    through the step path, counting each kernel's launches on those runs, and
    checks the tokens against ``greedy_generate`` and a teacher-forced
    ``decoder_forward``; then
-6. profile: one 16-step fused chunk of 64 requests under ``torch.profiler``
-   gives the device's busy time, its idle share and the kernels that fill
-   it, and against an admission-only run of the same requests the decode
-   step's own busy time. Phases 5-6 run twice: ``serve`` on the default routes (K1-K4, and
+6. profile: one 16-step fused chunk of 64 requests, three times
+   unprofiled and each time at once under ``torch.profiler``, gives the
+   device's busy time, its idle share against the unprofiled wall just
+   before (``idle_share_paired``, median and spread) and the kernels that
+   fill it, and against an admission-only run of the same requests the
+   decode step's own busy time. Phases 5-6 run twice: ``serve`` on the default routes (K1-K4, and
    K7-K9 must not launch) and ``serve_pallas`` with
    ``int8_mm_impl="pallas", decode_attn_impl="pallas"`` (K1-K4 and K7-K9
    must all launch); then 8 requests each with int4 weights and with
@@ -51,9 +55,9 @@ Phases, in order, each printing one JSON line:
 8. train: the full TinyLlama-1.1B shape (22 layers, bf16, n = 1, attention
    dropout 0.1, remat) takes 4 AdamW steps on one B2 x L2048 batch through
    ``make_train_step``, counting the kernels' launches; the losses must be
-   finite and fall, the gradients finite and not all zero; a fifth step
-   runs under ``torch.profiler``, its idle share read against its own
-   wall time.
+   finite and fall, the gradients finite and not all zero; then three
+   pairs of an unprofiled step and a step under ``torch.profiler`` give
+   the step's paired idle share.
 
 Then it prints the kernels' JSON line (times, launches on the serving or
 the training run, bounds), the card's name and power limit from
@@ -120,23 +124,49 @@ def time_ms(torch, fn, runs: int = TIMED_RUNS) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
-def device_ms(torch, fn, kernel: str, runs: int = TIMED_RUNS):
+def device_ms(torch, fn, kernel, runs: int = TIMED_RUNS):
     """Mean device time per call of the kernels whose name holds ``kernel``
-    over ``runs`` calls under ``torch.profiler``: the kernel alone, without
-    the wrapper's host dispatch that CUDA events also count. None if the
-    profiler saw no such kernel."""
+    (a substring, a tuple of them, or None for every kernel, as for a
+    library call) over ``runs`` calls under ``torch.profiler``: the kernels
+    alone, without the host dispatch that CUDA events also count. None if
+    the profiler saw no such kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    return device_ms_of(torch, [(fn, kernel)], runs)[0]
+
+
+def device_ms_of(torch, pairs, runs: int = TIMED_RUNS):
+    """``device_ms`` of several (fn, kernel) pairs in one profiler session
+    (each session costs seconds of host time): each fn runs ``runs`` times
+    in turn, and its device time is read from the events under its own
+    ``record_function`` range."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn, _ in pairs:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and kernel in e.name)
-    return total_us / 1e3 / runs if total_us else None
+        for i, (fn, _) in enumerate(pairs):
+            with record_function(f"device_ms_{i}"):
+                for _ in range(runs):
+                    fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    ranges = {e.name: e.time_range for e in events
+              if e.device_type == DeviceType.CPU and e.name.startswith("device_ms_")}
+    out = []
+    for i, (_, kernel) in enumerate(pairs):
+        names = (kernel,) if isinstance(kernel, str) else kernel
+        span = ranges[f"device_ms_{i}"]
+        total_us = sum(e.time_range.elapsed_us() for e in events
+                       if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                       and span.start <= e.time_range.start <= span.end
+                       and (names is None or any(k in e.name for k in names)))
+        out.append(total_us / 1e3 / runs if total_us else None)
+    return out
 
 
 # ----------------------------------------------------------------------------
@@ -329,9 +359,16 @@ def repeat_equal(torch, fn, first) -> bool:
     return all(torch.equal(a, b) for a, b in pairs)
 
 
+# K7's kernels as torch.profiler names them: the tensor-core kernel, the f32
+# mode's scalar kernel and the split-K sum
+QMM_KERNELS = ("qmm_wgmma_kernel", "qmm_splitk_kernel", "qmm_splitk_sum_kernel")
+
+
 def check_dequant_mm(torch, pkg, gen, *, M, K, N, mode="int8"):
     """K7 at one serving shape: ``mode`` int8, w8a8 (int8 activations) or
-    int4 (grouped, packed along K)."""
+    int4 (grouped, packed along K). Prints the plan (tiles, ring, splits,
+    producer) and, beside ``library_ms``, the library call's own device
+    time ``library_device_ms``."""
     qm, qt = pkg["quant_matmul"], pkg["qtensor"]
     dev, dt = "cuda", torch.bfloat16
     bits = 4 if mode == "int4" else 8
@@ -339,6 +376,7 @@ def check_dequant_mm(torch, pkg, gen, *, M, K, N, mode="int8"):
     wq = qt.quantize(torch.randn((K, N), generator=gen, device=dev) * K ** -0.5,
                      bits=bits, axis=0)
     xk, xs = qm.quantize_rows(x) if mode == "w8a8" else (x, None)
+    plan = qm.qmm_plan(M, K, N, qm.qmm_mode(xk.dtype, bits))
 
     def kernel():
         return qm._qmm_cuda(xk, xs, wq.values, wq.scales, bits, dt)
@@ -368,14 +406,15 @@ def check_dequant_mm(torch, pkg, gen, *, M, K, N, mode="int8"):
                    + (M * 4 if xs is not None else 0))
     b_ms, b_by = bound_ms(bytes_moved, 2.0 * M * K * N,
                           CHIP.int8_ops if mode == "w8a8" else CHIP.bf16_flops)
+    k_dev, lib_dev = device_ms_of(torch, [(kernel, QMM_KERNELS), (library, None)])
     return {"name": name, "route": "cuda", "source": f"{CSRC}/qmm.cu",
             "replaces": f"{TPU_PKG}/kernels/quant_matmul.py:65 _qmm_kernel",
             "counter": "qmm", "max_abs_err": err,
             "tolerance": "bit-exact" if mode == "w8a8" else "one bf16 ulp + 1e-5 max|out|",
-            "repeat_bit_equal": same, "splits": pkg["build"].ops().qmm_splits(M, K, N),
-            "ms": time_ms(torch, kernel), "device_ms": device_ms(torch, kernel, "qmm_splitk"),
+            "repeat_bit_equal": same, "producer": plan.producer, "plan": plan._asdict(),
+            "ms": time_ms(torch, kernel), "device_ms": k_dev,
             "plain_ms": time_ms(torch, plain), "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(torch, library),
+            "library_ms": time_ms(torch, library), "library_device_ms": lib_dev,
             "library": "torch.matmul over the weights dequantized to bf16"}
 
 
@@ -794,25 +833,57 @@ SERVE_KERNELS = ("flash_fwd", "qmm_argmax", "cache_append", "tail_append")
 PALLAS_KERNELS = ("qmm", "decode_attn", "fused_mlp")
 # the port's kernels as torch.profiler names them (substrings)
 PROFILED_KERNELS = ("flash_fwd_kernel", "qmm_tile_kernel", "qmm_reduce_kernel",
-                    "write_rows_kernel", "qmm_splitk_kernel", "qmm_splitk_sum_kernel",
-                    "decode_attn_split_kernel", "decode_attn_merge_kernel",
-                    "fused_mlp_kernel", "fused_mlp_sum_kernel")
+                    "write_rows_kernel", *QMM_KERNELS, "decode_attn_split_kernel",
+                    "decode_attn_merge_kernel", "fused_mlp_kernel", "fused_mlp_sum_kernel")
+
+
+# pairs for the paired idle share: an unprofiled run's synchronised wall,
+# then at once an identical profiled run's device busy time
+IDLE_PAIRS = 3
+# The profiler adds a little device time of its own (the traced launches
+# run slightly longer), so a run that leaves the card almost never idle can
+# read a paired share just below 0; below -0.05 the pair is not one run's.
+IDLE_FLOOR = -0.05
+
+
+def device_by_name(prof):
+    """{kernel or copy name: (device ms, calls)} of a profiled window.
+    Busy time is their sum (one stream, so they do not overlap); annotation
+    ranges on the device timeline (such as ``Optimizer.step``) enclose
+    kernels already counted and are left out."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            ms, calls = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
+    return by_name
+
+
+def paired_idle_share(phase, pairs):
+    """{median, min, max, values} of 1 - busy_profiled / wall_unprofiled
+    over (unprofiled wall s, profiled busy ms) pairs, each required in
+    [IDLE_FLOOR, 1]."""
+    values = [1.0 - busy_ms / 1e3 / wall for wall, busy_ms in pairs]
+    require(all(IDLE_FLOOR <= v <= 1.0 for v in values),
+            f"{phase}: a paired idle share {values} is outside [{IDLE_FLOOR}, 1]")
+    return {"median": float(np.median(values)), "min": min(values), "max": max(values),
+            "values": values}
 
 
 def profile_chunk(torch, eng_mod, cfg, params, phase="profile"):
     """Where a fused chunk's time goes: 64 requests (64-token prompts) are
-    admitted and decoded in one 16-step chunk, once unprofiled for the wall
-    time and once under ``torch.profiler`` for the device's busy time and
-    the kernels that fill it. Busy time is the sum of kernel and copy times
-    (one stream, so they do not overlap); ``idle_share_profiled`` is against
-    the profiled run's own wall time (required in [0, 1]), ``idle_share``
-    against the unprofiled one, as earlier runs reported it. Annotation
-    ranges on the device timeline (such
-    as ``Optimizer.step``) enclose kernels already counted and are left
-    out. A third run admits the same requests with a budget of one token
-    (the same four prefill groups, no decode step), so that the 16 steps'
-    own busy time is the difference."""
-    from torch.autograd import DeviceType
+    admitted and decoded in one 16-step chunk, IDLE_PAIRS times unprofiled
+    for the wall time, each followed at once by the same run under
+    ``torch.profiler`` for the device's busy time (the first also for the
+    kernels that fill it). ``idle_share_paired`` is 1 - busy over the
+    unprofiled wall just before, its median and spread;
+    ``idle_share_profiled`` (against the profiled run's own wall, required
+    in [0, 1]) and ``idle_share`` (the first pair's) are kept as earlier
+    runs reported them. A last run admits the same requests with a budget
+    of one token (the same four prefill groups, no decode step), so that
+    the 16 steps' own busy time is the difference."""
     from torch.profiler import ProfilerActivity, profile
 
     def run(budget):
@@ -834,12 +905,7 @@ def profile_chunk(torch, eng_mod, cfg, params, phase="profile"):
         """(wall s, {kernel name: (device ms, calls)}) of one run"""
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall_profiled = run(budget)
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-                ms, calls = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
-        return wall_profiled, by_name
+        return wall_profiled, device_by_name(prof)
 
     def port_kernels(by_name):
         """the port's own kernels, by device time alone (CUDA events around
@@ -853,18 +919,27 @@ def profile_chunk(torch, eng_mod, cfg, params, phase="profile"):
         return {k: {"calls": c, "ms": ms, "ms_per_call": ms / c}
                 for k, (ms, c) in sorted(ours.items())}
 
-    wall = run(17)
-    wall_profiled, by_name = profiled(17)
+    runs = []
+    for _ in range(IDLE_PAIRS):
+        wall_unprofiled = run(17)
+        runs.append((wall_unprofiled, *profiled(17)))
+    wall, wall_profiled, by_name = runs[0]
     _, by_name_admit = profiled(1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     busy_admit_ms = sum(ms for ms, _ in by_name_admit.values())
     idle_profiled = 1.0 - busy_ms / 1e3 / wall_profiled
+    paired = paired_idle_share(phase, [(w, sum(ms for ms, _ in names.values()))
+                                       for w, _, names in runs])
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     emit({"phase": phase, "requests": 64, "steps": 16, "wall_s": wall,
           "wall_s_profiled": wall_profiled,
           "device_busy_s": busy_ms / 1e3 if busy_ms else None,
+          "idle_share_paired": paired,
           "idle_share_profiled": idle_profiled,
           "idle_share": 1.0 - busy_ms / 1e3 / wall if busy_ms else None,
+          "pairs": [{"wall_s": w, "wall_s_profiled": wp,
+                     "device_busy_s": sum(ms for ms, _ in names.values()) / 1e3}
+                    for w, wp, names in runs],
           "device_ops": sum(c for _, c in by_name.values()),
           "device_busy_admission_s": busy_admit_ms / 1e3,
           "decode_step_busy_ms": (busy_ms - busy_admit_ms) / 16,
@@ -1151,26 +1226,34 @@ def train_agreement(torch, pkg):
 
 
 def profile_step(torch, step_fn, wall_s):
-    """One training step under torch.profiler: the device's busy time (kernel
-    and copy times on one stream, annotation ranges left out), its idle
-    share against the profiled step's own synchronised wall time
-    (``idle_share_profiled``, required in [0, 1]) and, as earlier runs
-    reported it, against ``wall_s`` (an unprofiled step's wall time), and
-    the kernels that fill it."""
-    from torch.autograd import DeviceType
+    """Training steps under torch.profiler: IDLE_PAIRS times an unprofiled
+    step's synchronised wall, then at once a profiled step's device busy
+    time (kernel and copy times on one stream, annotation ranges left out);
+    ``idle_share_paired`` is 1 - busy over the wall just before, its median
+    and spread. The first profiled step also gives the kernels that fill
+    it, ``idle_share_profiled`` (against its own wall, required in [0, 1])
+    and, as earlier runs reported it, ``idle_share`` against ``wall_s``
+    (the median unprofiled step of the training run)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def timed():
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         step_fn()
         torch.cuda.synchronize()
-        wall_profiled = time.perf_counter() - t0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            ms, calls = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
+        return time.perf_counter() - t0
+
+    runs = []
+    for _ in range(IDLE_PAIRS):
+        wall_unprofiled = timed()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall_profiled = timed()
+        runs.append((wall_unprofiled, wall_profiled, device_by_name(prof)))
+    _, wall_profiled, by_name = runs[0]
     busy_ms = sum(ms for ms, _ in by_name.values())
+    paired = paired_idle_share("train_profile",
+                               [(w, sum(ms for ms, _ in names.values()))
+                                for w, _, names in runs])
     ours = {}
     for name, (ms, calls) in by_name.items():
         for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
@@ -1182,8 +1265,12 @@ def profile_step(torch, step_fn, wall_s):
     emit({"phase": "train_profile", "wall_s_profiled": wall_profiled,
           "wall_s_unprofiled": wall_s,
           "device_busy_s": busy_ms / 1e3 if busy_ms else None,
+          "idle_share_paired": paired,
           "idle_share_profiled": idle_profiled,
           "idle_share": 1.0 - busy_ms / 1e3 / wall_s if busy_ms else None,
+          "pairs": [{"wall_s": w, "wall_s_profiled": wp,
+                     "device_busy_s": sum(ms for ms, _ in names.values()) / 1e3}
+                    for w, wp, names in runs],
           "device_ops": sum(c for _, c in by_name.values()),
           "port_kernels": {k: {"calls": c, "ms": ms, "ms_per_call": ms / c}
                            for k, (ms, c) in sorted(ours.items())},
@@ -1319,13 +1406,18 @@ def main() -> int:
     for kd in kernels:
         kd["path"] = "serve"
     # K7-K9 at the pallas route's shapes: M = 64 the fused loop's batch
-    # (N 2048 wq/wo, 256 wk/wv, 5632 w_gate/w_up), M = 2048 a full admission
-    # group (16 x 128); K8 at B64 with int8 (the route's) and bf16 caches
+    # (N 2048 wq/wo, 256 wk/wv, 5632 w_gate/w_up), M = 1024 the profiled
+    # chunk's admission group (16 x 64; K5632 N2048 is w_down), M = 2048 a
+    # full admission group (16 x 128); K8 at B64 with int8 (the route's) and
+    # bf16 caches
     pallas_lines = [
         check_dequant_mm(torch, pkg, gen, M=64, K=2048, N=2048),
         check_dequant_mm(torch, pkg, gen, M=64, K=2048, N=256),
         check_dequant_mm(torch, pkg, gen, M=64, K=2048, N=5632),
+        *(check_dequant_mm(torch, pkg, gen, M=1024, K=2048, N=n) for n in (256, 2048, 5632)),
+        check_dequant_mm(torch, pkg, gen, M=1024, K=5632, N=2048),
         check_dequant_mm(torch, pkg, gen, M=2048, K=2048, N=5632),
+        check_dequant_mm(torch, pkg, gen, M=2048, K=5632, N=2048),
         check_decode_attn(torch, pkg, gen, B=64, KVH=4, G=8, S=512, D=64, cache="int8"),
         check_decode_attn(torch, pkg, gen, B=64, KVH=4, G=8, S=512, D=64, cache="bf16"),
         check_fused_mlp(torch, pkg, gen, M=64, K=2048, F=5632),
@@ -1333,10 +1425,13 @@ def main() -> int:
     ]
     for kd in pallas_lines:
         kd["path"] = "serve_pallas"
+    # int4 and W8A8 at decode (M64: N5632 gate/up, K5632 N2048 down; those
+    # routes do not fuse the MLP) and at the admission group (M1024)
     for mode in ("w8a8", "int4"):
-        kd = check_dequant_mm(torch, pkg, gen, M=64, K=2048, N=5632, mode=mode)
-        kd["path"] = f"serve_{mode}"
-        pallas_lines.append(kd)
+        for M, K, N in ((64, 2048, 5632), (64, 5632, 2048), (1024, 2048, 5632)):
+            kd = check_dequant_mm(torch, pkg, gen, M=M, K=K, N=N, mode=mode)
+            kd["path"] = f"serve_{mode}"
+            pallas_lines.append(kd)
     # K8's fp8 mode at serve_fp8's shapes: the fused loop's 8 slots over its
     # 256-row window (prompts and budgets stay under 256 tokens), the step
     # path's 2 slots over the whole 512-row cache
@@ -1356,7 +1451,8 @@ def main() -> int:
     for kd in kernels + [fp8_b64]:
         emit({"phase": "kernel", **{k: kd[k] for k in ("name", "max_abs_err", "tolerance", "ms",
                                                        "device_ms", "plain_ms", "bound_ms",
-                                                       "library_ms")}})
+                                                       "library_ms", "library_device_ms",
+                                                       "producer", "plan") if k in kd}})
     kernels += train_kernels(torch, pkg, gen)
 
     # each main path's launches: counts set to 0 just before it, read after

@@ -280,13 +280,14 @@ void tail_append(const at::Tensor& k_tail, const at::Tensor& v_tail, const at::T
                what);
 }
 
-int64_t qmm_splits(int64_t m, int64_t k, int64_t n) {
-  return fasn_qmm_splits(as_int(m, "qmm_splits"), as_int(k, "qmm_splits"),
-                         as_int(n, "qmm_splits"));
+int64_t qmm_stage_k(int64_t x_dtype) {
+  TORCH_CHECK_VALUE(x_dtype >= 0 && x_dtype <= 2, "qmm_stage_k: x_dtype 0, 1 or 2");
+  return fasn_qmm_stage_k(static_cast<int>(x_dtype));
 }
 
 void qmm(const at::Tensor& x, const std::optional<at::Tensor>& x_scales, const at::Tensor& w,
-         const at::Tensor& scales, const at::Tensor& out, const at::Tensor& part, int64_t bits) {
+         const at::Tensor& scales, const at::Tensor& out, const at::Tensor& part, int64_t bits,
+         int64_t bm, int64_t stages, int64_t splits, int64_t slices_per_split, bool tma) {
   const char* what = "quantized_matmul";
   TORCH_CHECK_VALUE(bits == 8 || bits == 4, what, ": bits must be 8 or 4, got ", bits);
   TORCH_CHECK_VALUE(x.dim() == 2 && w.dim() == 2, what, ": x (M, K) and w (K, N) are 2-D");
@@ -311,16 +312,34 @@ void qmm(const at::Tensor& x, const std::optional<at::Tensor>& x_scales, const a
   check_shape(w, {w.size(0), N}, at::kChar, what, "w");
   check_shape(scales, {N}, at::kFloat, what, "scales");
   TORCH_CHECK_VALUE(out.sizes() == at::IntArrayRef({M, N}), what, ": out must be (M, N)");
-  const int splits = fasn_qmm_splits(as_int(M, what), as_int(K, what), as_int(N, what));
-  float* part_ptr = nullptr;
+  // the plan: every K slice in one split, none empty; TMA only where the
+  // row strides and base addresses are multiples of 16 bytes
+  const int64_t stage_k = fasn_qmm_stage_k(x_dtype);
+  const int64_t n_slices = (K + stage_k - 1) / stage_k;
+  TORCH_CHECK_VALUE(bm == 64 || (x_dtype != 0 && bm == 128) || (x_dtype == 1 && bm == 256),
+                    what, ": bm ", bm, " is not a tile height of this mode");
+  TORCH_CHECK_VALUE(splits >= 1 && slices_per_split >= 1 &&
+                        splits * slices_per_split >= n_slices &&
+                        (splits - 1) * slices_per_split < n_slices,
+                    what, ": ", splits, " splits of ", slices_per_split, " slices do not cover ",
+                    n_slices, " slices once");
+  if (tma) {
+    TORCH_CHECK_VALUE(x_dtype != 0 && (K * x.element_size()) % 16 == 0 && N % 16 == 0 &&
+                          reinterpret_cast<uintptr_t>(x.data_ptr()) % 16 == 0 &&
+                          reinterpret_cast<uintptr_t>(w.data_ptr()) % 16 == 0,
+                      what, ": TMA needs bf16 or int8 x, 16-byte row strides and addresses");
+  }
+  void* part_ptr = nullptr;
   if (splits > 1) {
     check_on(part, x, what);
     check_shape(part, {splits, M, N}, at::kFloat, what, "part");
-    part_ptr = part.data_ptr<float>();
+    part_ptr = part.data_ptr();
   }
   check_launch(fasn_qmm(x.data_ptr(), xs_ptr, w.data_ptr(), scales.data_ptr<float>(), part_ptr,
                         out.data_ptr(), as_int(M, what), as_int(K, what), as_int(N, what),
-                        x_dtype, static_cast<int>(bits), dtype_code(out, what), stream_of(x)),
+                        x_dtype, static_cast<int>(bits), dtype_code(out, what),
+                        static_cast<int>(bm), as_int(stages, what), as_int(splits, what),
+                        as_int(slices_per_split, what), tma ? 1 : 0, stream_of(x)),
                what);
 }
 
@@ -502,10 +521,11 @@ TORCH_LIBRARY(fasn, m) {
   m.def(
       "tail_append(Tensor(a!) k_tail, Tensor(b!) v_tail, Tensor k_new, Tensor v_new, "
       "int index) -> ()");
-  m.def("qmm_splits(int m, int k, int n) -> int", &qmm_splits);
+  m.def("qmm_stage_k(int x_dtype) -> int", &qmm_stage_k);
   m.def(
       "qmm(Tensor x, Tensor? x_scales, Tensor w, Tensor scales, Tensor(a!) out, "
-      "Tensor(b!) part, int bits) -> ()");
+      "Tensor(b!) part, int bits, int bm, int stages, int splits, int slices_per_split, "
+      "bool tma) -> ()");
   m.def("fused_mlp_tiles(int f) -> int", &fused_mlp_tiles);
   m.def(
       "fused_mlp(Tensor x, Tensor wg, Tensor sg, Tensor wu, Tensor su, Tensor wd, Tensor sd, "

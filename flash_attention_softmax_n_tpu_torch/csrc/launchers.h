@@ -71,16 +71,24 @@ int fasn_tail_append(void* k_tail, void* v_tail, const void* k_new, const void* 
                      int row_bytes, int index, int NL, int B, int KVH, int W,
                      cudaStream_t stream);
 
-// K7 (qmm.cu). K splits of an (M, K, N) product: the scratch holds
-// splits * M * N four-byte partials when splits > 1 (none otherwise).
-int fasn_qmm_splits(int M, int K, int N);
+// K7 (qmm.cu). Logical K rows of one slice (stage) for x_dtype (below):
+// ceil(K / this) slices are split among the CTAs of one output tile.
+int fasn_qmm_stage_k(int x_dtype);
 
 // K7. x (M,K) contiguous, f32 (x_dtype 0), bf16 (1) or int8 (2, W8A8, with
 // x_scales (M,) f32); w int8 (K,N), or int4 (bits 4) packed (K/2,N) in
 // groups of 256 rows with K % 256 == 0, contiguous; scales (N,) f32; out
-// (M,N) contiguous, f32 (out_dtype 0) or bf16 (1).
+// (M,N) contiguous, f32 (out_dtype 0) or bf16 (1). The plan
+// (kernels/quant_matmul.py qmm_plan): bm rows per tile (64 for f32 x; 64
+// or 128 for int8 x; 64, 128 or 256 for bf16 x), the ring's `stages` (1
+// for f32 x, otherwise the depth the kernel is built with), `splits`
+// ranges of `slices_per_split` slices (every slice in one, none empty; the
+// scratch holds splits * M * N four-byte partials when splits > 1), and
+// use_tma (bf16 or int8 x only) where x's and w's row strides and base
+// addresses are multiples of 16 bytes.
 int fasn_qmm(const void* x, const float* x_scales, const void* w, const float* scales,
-             float* partial, void* out, int M, int K, int N, int x_dtype, int bits, int out_dtype,
+             void* partial, void* out, int M, int K, int N, int x_dtype, int bits, int out_dtype,
+             int bm, int stages, int splits, int slices_per_split, int use_tma,
              cudaStream_t stream);
 
 // K9 (fused_mlp.cu). d_ff tiles: the scratch holds tiles * M * K f32.

@@ -12,7 +12,8 @@ than an argmax over bf16-rounded logits.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -25,7 +26,101 @@ from flash_attention_softmax_n_tpu_torch.quant.qtensor import (
 
 __all__ = ["quantized_matmul", "quantized_matmul_reference",
            "quantize_rows", "quantized_matmul_argmax",
-           "quantized_matmul_argmax_reference"]
+           "quantized_matmul_argmax_reference", "QMM_MODES", "QmmPlan",
+           "qmm_mode", "qmm_plan"]
+
+# K7's modes: bf16 x with int8 or int4 weights, int8 x (W8A8) with int8 or
+# int4 weights, and f32 x (either weight type)
+QMM_MODES = ("int8", "int4", "w8a8", "w4a8", "f32")
+_SMS = 132  # the H100's streaming multiprocessors
+_SMEM = 232448  # bytes of shared memory one block may use on the H100
+_MAX_STAGES = 8
+_MAX_SPLITS = 32
+_MIN_SLICES_PER_SPLIT = 2
+
+
+class QmmPlan(NamedTuple):
+    """How ``csrc/qmm.cu`` runs one (M, K, N) product."""
+
+    kernel: str        # "wgmma" (tensor cores) or "scalar" (f32 x)
+    bm: int            # output rows per tile: 64, 128 or (bf16 x) 256
+    bn: int            # output columns per tile
+    bk: int            # logical K rows per stage (slice)
+    stages: int        # depth of the shared-memory ring
+    splits: int        # K ranges, each summed by its own CTAs
+    slices_per_split: int
+    producer: str      # "tma", "predicated" (row strides TMA cannot take) or "scalar"
+
+
+# the time of a 256-row bf16 tile against a 128-row one at the same K
+# (qmm_wgmma_kernel on an NVIDIA H100 80GB HBM3: 1.1 against 0.64 us a stage)
+_TILE_256_COST = 1.75
+
+
+def _rounds(m: int, n: int, bm: int) -> int:
+    """rounds of one (bm x 128) tile per SM that cover an (m, n) output"""
+    return math.ceil(math.ceil(m / bm) * math.ceil(n / 128) / _SMS)
+
+
+def qmm_mode(x_dtype: torch.dtype, bits: int) -> str:
+    """K7's mode for activations of ``x_dtype`` (int8 under W8A8)."""
+    if x_dtype == torch.int8:
+        return "w4a8" if bits == 4 else "w8a8"
+    if x_dtype == torch.bfloat16:
+        return "int4" if bits == 4 else "int8"
+    if x_dtype == torch.float32:
+        return "f32"
+    raise ValueError(f"quantized_matmul takes bf16 or f32 inputs, got {x_dtype}")
+
+
+def qmm_plan(m: int, k: int, n: int, mode: str) -> QmmPlan:
+    """The tiles, ring, K splits and producer of K7 for an (M, K, N)
+    product in ``mode`` (``QMM_MODES``).
+
+    The tensor-core kernel's tiles are 128 columns by 64 rows of x below
+    M = 128 and 128 from there; bf16 x takes 256 rows where that needs
+    fewer rounds of tiles over the SMs by more than a 256-row tile's extra
+    cost. A stage is one 128-byte row of K: 64 logical K rows of bf16 x,
+    128 of int8 x, so an int4 stage lies in one half of one 256-row group
+    (one nibble of as many packed byte rows). The ring is as deep as
+    shared memory allows (5-8 stages). The producer is TMA unless a row
+    stride is not a multiple of 16 bytes (bf16 x with K % 8, int8 x with
+    K % 16, W with N % 16). Where the tiles fill less than half the card's
+    SMs, K is split into as many ranges (at least two slices each) as keep
+    the tiles within one round over the SMs. f32 x takes the scalar kernel (64x64 tiles, 32-deep
+    slices, split to about two CTAs per SM), which loads without TMA.
+    """
+    if mode not in QMM_MODES:
+        raise ValueError(f"qmm_plan: mode {mode!r} is not one of {QMM_MODES}")
+    if mode == "f32":
+        kernel, bm, bn, bk, stages, producer = "scalar", 64, 64, 32, 1, "scalar"
+        tiles = math.ceil(m / bm) * math.ceil(n / bn)
+        # about two CTAs per SM in flight
+        want = math.ceil(2 * _SMS / tiles) if tiles < 2 * _SMS else 1
+    else:
+        int8_x = mode in ("w8a8", "w4a8")
+        kernel, bm, bn = "wgmma", 128 if m >= 128 else 64, 128
+        bk = 128 if int8_x else 64
+        if bm == 128 and not int8_x and (_rounds(m, n, 256) * _TILE_256_COST
+                                         < _rounds(m, n, 128)):
+            bm = 256
+        # the ring: as many stages of x (bm rows of 128 bytes) and W (bk
+        # rows of 128 bytes) as fit beside 2 KB and, under W8A8, three
+        # converted W tiles (128 rows of 128 bytes each)
+        converted = 3 * bn * 128 if int8_x else 0
+        stages = min(_MAX_STAGES, (_SMEM - converted - 2048) // ((bm + bk) * 128))
+        aligned = (k * (1 if int8_x else 2)) % 16 == 0 and n % 16 == 0
+        producer = "tma" if aligned else "predicated"
+        tiles = math.ceil(m / bm) * math.ceil(n / bn)
+        # persistent CTAs, one per SM: as many splits as keep the tiles
+        # within one round over the SMs
+        want = _SMS // tiles if 2 * tiles <= _SMS else 1
+    n_slices = math.ceil(k / bk)
+    splits = min(want, max(1, n_slices // _MIN_SLICES_PER_SPLIT), _MAX_SPLITS)
+    # no empty split: as many splits as ceil-sized ranges of slices
+    per = math.ceil(n_slices / splits)
+    return QmmPlan(kernel, bm, bn, bk, stages, math.ceil(n_slices / per), per,
+                   producer)
 
 
 def _route(x: torch.Tensor, what: str) -> bool:
@@ -63,17 +158,26 @@ def quantized_matmul_reference(x2: torch.Tensor, x_scales: Optional[torch.Tensor
     return out.to(out_dtype)
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and starting on a 16-byte boundary (TMA's), copied
+    only where a view starts elsewhere."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _qmm_cuda(x2, x_scales, w_values, w_scales, bits, out_dtype):
     m, k = x2.shape
     n = w_values.shape[1]
+    plan = qmm_plan(m, k, n, qmm_mode(x2.dtype, bits))
     ops = _build.ops()
-    splits = ops.qmm_splits(m, k, n)
     out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
-    part = torch.empty((splits, m, n) if splits > 1 else (0,),
+    part = torch.empty((plan.splits, m, n) if plan.splits > 1 else (0,),
                        dtype=torch.float32, device=x2.device)
     xs = None if x_scales is None else x_scales.reshape(-1).contiguous()
-    ops.qmm(x2.contiguous(), xs, w_values.contiguous(),
-            w_scales.reshape(-1).float().contiguous(), out, part, bits)
+    ops.qmm(_aligned16(x2), xs, _aligned16(w_values),
+            w_scales.reshape(-1).float().contiguous(), out, part, bits,
+            plan.bm, plan.stages, plan.splits, plan.slices_per_split,
+            plan.producer == "tma")
     _build.LAUNCHES["qmm"] += 1
     return out
 

@@ -342,6 +342,85 @@ def test_qmm_f32_out_from_bf16_and_leading_dims(gen):
     torch.testing.assert_close(out, ref, atol=1e-5 * float(ref.abs().max()), rtol=0)
 
 
+# K7's tensor-core modes: K at the ring's wrap (its stages of 64 logical K
+# rows, 128 under W8A8: "ring") and one stage past it ("ring+1"; int4 rounds
+# K up to whole 256-row groups), M either side of a 64-row tile and at an
+# admission group, both producers (N 200, and K % 8 for bf16 x or K % 16 for
+# int8 x, take the predicated one), and K5632
+_QMM_WGMMA_CASES = [
+    ("int8", 1, 256, 256), ("int8", 63, "ring", 256), ("int8", 65, "ring+1", 200),
+    ("int8", 1024, "ring+1", 256), ("int8", 13, 300, 256), ("int8", 64, 5632, 2048),
+    ("w8a8", 1, 512, 256), ("w8a8", 63, "ring", 256), ("w8a8", 65, "ring+1", 200),
+    ("w8a8", 1024, "ring+1", 512), ("w8a8", 13, 312, 256), ("w8a8", 64, 5632, 2048),
+    ("int4", 1, 256, 256), ("int4", 63, "ring", 256), ("int4", 65, "ring+1", 200),
+    ("int4", 1024, "ring+1", 256), ("int4", 64, 5632, 2048),
+    ("w4a8", 1, 512, 256), ("w4a8", 63, "ring", 256), ("w4a8", 65, "ring+1", 200),
+    ("w4a8", 1024, "ring+1", 512), ("w4a8", 64, 5632, 2048),
+    # 256-row tiles (bf16 x at M2048 N5632)
+    ("int8", 2048, "ring+1", 5632), ("int4", 2048, "ring", 5632),
+]
+
+
+def _case_k(mode, m, k, n):
+    if isinstance(k, int):
+        return k
+    plan = qm.qmm_plan(m, 4096, n, mode)
+    k = (plan.stages + (k == "ring+1")) * plan.bk
+    return -(-k // 256) * 256 if mode in ("int4", "w4a8") else k
+
+
+@pytest.mark.parametrize("case", _QMM_WGMMA_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_qmm_wgmma_matches_plain(gen, case):
+    mode, m, k, n = case
+    k = _case_k(mode, m, k, n)
+    bits, act = (4 if "4" in mode else 8), mode in ("w8a8", "w4a8")
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    wv, ws = _qweight(gen, k, n, bits)
+    xq, xs = qm.quantize_rows(x) if act else (x, None)
+    plan = qm.qmm_plan(m, k, n, mode)
+    assert plan.kernel == "wgmma"
+    before = _build.LAUNCHES["qmm"]
+    out = qm.quantized_matmul(x, wv, ws, bits=bits, act_quant=act)
+    again = qm.quantized_matmul(x, wv, ws, bits=bits, act_quant=act)
+    assert _build.LAUNCHES["qmm"] == before + 2
+    ref = qm.quantized_matmul_reference(xq, xs, wv, ws, bits=bits, out_dtype=torch.bfloat16)
+    assert torch.equal(out, again), plan
+    if act:
+        assert torch.equal(out, ref), plan
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7,
+                                   atol=1e-5 * float(ref.float().abs().max()))
+
+
+@pytest.mark.parametrize("mkn", [(1024, 256, 2048), (1024, 512, 256), (64, 2048, 5632)])
+def test_qmm_wgmma_f32_out(gen, mkn):
+    # f32 output from the tensor cores, with one split (1024 x 2048) and more
+    m, k, n = mkn
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    wv, ws = _qweight(gen, k, n, 8)
+    out = qm.quantized_matmul(x, wv, ws, out_dtype=torch.float32)
+    ref = qm.quantized_matmul_reference(x, None, wv, ws, bits=8, out_dtype=torch.float32)
+    torch.testing.assert_close(out, ref, atol=1e-5 * float(ref.abs().max()), rtol=0)
+
+
+def test_qmm_plan_matches_the_kernels_and_bad_plans_raise(gen):
+    ops = _build.ops()
+    for code, mode in ((0, "f32"), (1, "int8"), (2, "w8a8")):
+        assert ops.qmm_stage_k(code) == qm.qmm_plan(64, 512, 256, mode).bk
+    x = torch.randn((64, 512), generator=gen, device="cuda").to(torch.bfloat16)
+    wv, ws = _qweight(gen, 512, 256, 8)
+    ws = ws.reshape(-1).float().contiguous()
+    out = torch.empty((64, 256), dtype=torch.bfloat16, device="cuda")
+    part = torch.empty((2, 64, 256), device="cuda")
+    with pytest.raises(ValueError, match="do not cover"):  # 8 slices, 2 x 3
+        ops.qmm(x, None, wv, ws, out, part, 8, 64, 8, 2, 3, True)
+    with pytest.raises(ValueError, match="TMA"):  # N % 16 != 0
+        ops.qmm(x, None, wv[:, :200].contiguous(), ws[:200].contiguous(),
+                out[:, :200].contiguous(), part, 8, 64, 8, 2, 4, True)
+    with pytest.raises(RuntimeError, match="invalid argument"):  # not the built ring
+        ops.qmm(x, None, wv, ws, out, part, 8, 64, 3, 2, 4, True)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mkf", [(1, 128, 256), (13, 256, 1024), (64, 2048, 5632),
                                  (300, 512, 1536)])

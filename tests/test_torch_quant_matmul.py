@@ -122,6 +122,138 @@ def test_quantized_matmul_rejects_bad_shapes():
                              torch.ones(8), bits=2)
 
 
+# K7's plan at the shapes its paths give it (TinyLlama-1.1B: K 2048 or 5632,
+# N 256, 2048, 2560, 5632, 11264; M 1-64 decode, 1024-2048 admission) and at
+# the card tests' ragged ones
+_PATH_SHAPES = [(m, k, n) for m in (1, 8, 64, 1024, 2048) for k in (2048, 5632)
+                for n in (256, 2048, 2560, 5632, 11264)]
+_RAGGED_SHAPES = [(1, 256, 97), (13, 512, 200), (64, 2048, 256), (300, 768, 1000),
+                  (6, 512, 130), (63, 320, 200), (65, 640, 256), (13, 300, 256),
+                  (13, 312, 256), (1024, 2048, 512)]
+
+
+def _plan_shapes(mode):
+    shapes = _PATH_SHAPES + _RAGGED_SHAPES
+    if mode in ("int4", "w4a8"):  # grouped int4 needs K % 256 == 0
+        shapes = [(m, k, n) for m, k, n in shapes if k % 256 == 0]
+    return shapes
+
+
+@pytest.mark.parametrize("mode", tqm.QMM_MODES)
+def test_qmm_plan_covers_every_slice_once(mode):
+    for m, k, n in _plan_shapes(mode):
+        plan = tqm.qmm_plan(m, k, n, mode)
+        n_slices = -(-k // plan.bk)
+        per = plan.slices_per_split
+        assert plan.splits >= 1 and per >= 1, (m, k, n, plan)
+        # consecutive ranges of `per` slices: all covered, the last not empty
+        assert plan.splits * per >= n_slices > (plan.splits - 1) * per, (m, k, n, plan)
+        if mode == "f32" or m < 128:
+            assert plan.bm == 64
+        else:
+            assert plan.bm in ((128, 256) if mode in ("int8", "int4") else (128,))
+
+
+def test_qmm_plan_takes_256_rows_only_where_it_saves_rounds():
+    # M2048 N5632: 704 tiles of 128 rows (6 rounds of 132) or 352 of 256 (3)
+    assert tqm.qmm_plan(2048, 2048, 5632, "int8").bm == 256
+    assert tqm.qmm_plan(2048, 2048, 5632, "int4").bm == 256
+    assert tqm.qmm_plan(2048, 2048, 5632, "w8a8").bm == 128  # int8 x: 128 at most
+    # M1024 N5632: 3 rounds either way once the 256-row tile's cost counts
+    assert tqm.qmm_plan(1024, 2048, 5632, "int8").bm == 128
+    assert tqm.qmm_plan(1024, 5632, 2048, "int8").bm == 128  # one round of 128 tiles
+    plan = tqm.qmm_plan(2048, 2048, 5632, "int8")
+    assert plan.stages == 5 and plan.splits == 1
+
+
+def test_qmm_plan_splits_only_narrow_products():
+    # a full wave of tiles is not split; decode at N 5632 is, to a wave
+    assert tqm.qmm_plan(1024, 2048, 2048, "int8").splits == 1  # 128 tiles
+    assert tqm.qmm_plan(2048, 5632, 2048, "int8").splits == 1
+    plan = tqm.qmm_plan(64, 2048, 5632, "int8")  # 44 tiles
+    assert plan.splits == 3 and 44 * plan.splits <= 132
+    assert tqm.qmm_plan(64, 5632, 2048, "w8a8").splits == 8  # 16 tiles: 128, not 144
+    assert tqm.qmm_plan(64, 2048, 5632, "f32").splits > 1  # the scalar plan: 2 per SM
+    # the persistent kernel's tiles, splits included, stay within one round
+    for mode in ("int8", "int4", "w8a8", "w4a8"):
+        for m, k, n in _plan_shapes(mode):
+            plan = tqm.qmm_plan(m, k, n, mode)
+            if plan.splits > 1:
+                assert -(-m // plan.bm) * -(-n // plan.bn) * plan.splits <= 132, (m, k, n)
+
+
+@pytest.mark.parametrize("mode", ["int4", "w4a8"])
+def test_qmm_plan_int4_stage_stays_in_one_half_group(mode):
+    # a stage's logical rows: one nibble of packed byte rows of one group
+    for m, k, n in _plan_shapes(mode):
+        plan = tqm.qmm_plan(m, k, n, mode)
+        for t in range(k // plan.bk):
+            first = t * plan.bk
+            assert first // 128 == (first + plan.bk - 1) // 128, (k, plan, t)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4", "w8a8", "w4a8"])
+def test_qmm_plan_predicated_exactly_where_a_row_stride_is_unaligned(mode):
+    x_bytes = 1 if mode in ("w8a8", "w4a8") else 2
+    ks = range(256, 1024 + 1, 256) if mode in ("int4", "w4a8") else range(248, 320)
+    for k in ks:
+        for n in range(240, 272):
+            plan = tqm.qmm_plan(64, k, n, mode)
+            assert plan.kernel == "wgmma"
+            unaligned = (k * x_bytes) % 16 != 0 or n % 16 != 0
+            assert plan.producer == ("predicated" if unaligned else "tma"), (k, n)
+
+
+def test_qmm_mode_and_f32_plan():
+    assert tqm.qmm_mode(torch.float32, 8) == tqm.qmm_mode(torch.float32, 4) == "f32"
+    assert tqm.qmm_mode(torch.bfloat16, 4) == "int4"
+    assert tqm.qmm_mode(torch.int8, 8) == "w8a8"
+    plan = tqm.qmm_plan(64, 2048, 5632, "f32")
+    assert (plan.kernel, plan.producer, plan.bk) == ("scalar", "scalar", 32)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        tqm.qmm_mode(torch.float16, 8)
+    with pytest.raises(ValueError, match="mode"):
+        tqm.qmm_plan(64, 256, 256, "fp8")
+
+
+def _nibble(b, high):
+    """sign-extended nibble of each int8 byte, by integer arithmetic"""
+    v = (b.to(torch.int32) >> 4) if high else (((b.to(torch.int32) & 15) ^ 8) - 8)
+    return v
+
+
+@pytest.mark.parametrize("mode", ["int4", "w4a8"])
+def test_int4_stage_order_matches_the_reference(mode):
+    """The kernel's int4 stages, emulated: stage t is x's columns
+    [t*bk, (t+1)*bk), which lie in one half h of one 256-row group g, times
+    nibble h of packed byte rows 128g + (their offset in the half)."""
+    rng = np.random.RandomState(7)
+    m, k, n = 5, 768, 48
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(torch.bfloat16)
+    w = tq.quantize(torch.from_numpy(rng.randn(k, n).astype(np.float32)), bits=4, axis=0)
+    act = mode == "w4a8"
+    xk, xs = tqm.quantize_rows(x) if act else (x, None)
+    bk = tqm.qmm_plan(m, k, n, mode).bk
+    acc = torch.zeros((m, n), dtype=torch.int64 if act else torch.float32)
+    for t in range(k // bk):
+        g, j = divmod(t * bk, 256)
+        rows = w.values[128 * g + j % 128:128 * g + j % 128 + bk]
+        wt = _nibble(rows, j >= 128)
+        cols = slice(t * bk, (t + 1) * bk)
+        if act:
+            acc += xk[:, cols].to(torch.int64) @ wt.to(torch.int64)
+        else:
+            acc += xk[:, cols].float() @ wt.float()
+    s = w.scales.reshape(1, -1).float()
+    got = acc.float() * s * xs.reshape(-1, 1) if act else acc * s
+    want = tqm.quantized_matmul_reference(xk, xs, w.values, w.scales, bits=4,
+                                          out_dtype=torch.float32)
+    if act:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=0)
+
+
 def test_mlp_fusion_eligible_matches_jax():
     # the grid of tests/test_quant.py's routing cases, and around its edges
     cases = [(m, k, f, bits)
