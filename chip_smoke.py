@@ -19,13 +19,16 @@ Phases, in order, each printing one JSON line:
    (int8, fp8 and bf16 caches), K9 fused_mlp and K10 prefill_phase (its
    four modes, B2 H32 L2048 hd64) on the card at their paths' shapes and
    holds each against its plain PyTorch version on the same card tensors
-   (K7-K10 also run twice and must be bit-equal);
+   (K7-K10 also run twice and must be bit-equal); K7's f32 mode (the
+   scalar kernel, on no path) at M64 and M1024, K2048 N2048, against
+   ``torch.matmul`` in f32; K1 and K10 lines give TFLOP/s too;
 4. train kernels: K1 with ALiBi and dropout, K5 flash_bwd_dq and K6
    flash_bwd_dkv against their plain versions (B2 H4 L200 S264 with bias,
    ALiBi and dropout, f32 and bf16, n 0 and 1; then the training shape B2
    H32 L=S=2048 d64 bf16 causal with dropout, timed), each run twice and
-   required bit-equal, and the three kernels' dropout masks required
-   bit-equal to the plain hash;
+   required bit-equal, K1 with ALiBi and dropout held at the training
+   shape, and the three kernels' dropout masks (K1 in f32 and bf16)
+   required bit-equal to the plain hash;
 5. serving: the TinyLlama-1.1B shape (random weights from a seed, int8
    weights, int8 KV) serves 96 requests through the fused decode loop and 4
    through the step path, counting each kernel's launches on those runs, and
@@ -84,6 +87,12 @@ CHIP = None
 ROOT = Path(__file__).resolve().parent
 TPU_PKG = "flash_attention_softmax_n_tpu"
 CSRC = "flash_attention_softmax_n_tpu_torch/csrc"
+# K1's and K10's kernels as torch.profiler names them: bf16 inputs take the
+# TMA + wgmma kernel, f32 the scalar one
+FLASH_FWD_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_kernel")
+MINI_KERNELS = ("prefill_phase_wgmma_kernel", "prefill_phase_kernel")
+# f32 outside the tensor cores, H100 SXM (NVIDIA's data sheet, 700 W)
+F32_FLOPS = 67e12
 
 
 def emit(obj) -> None:
@@ -105,6 +114,11 @@ def bound_ms(bytes_moved: float, flops: float = 0.0, peak_flops=None):
     t_bytes = bytes_moved / CHIP.hbm_bw
     t_ops = flops / (peak_flops or CHIP.bf16_flops)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def tflops(ops: float, ms):
+    """TFLOP/s of ``ops`` operations done in ``ms`` (None if not timed)"""
+    return ops / (ms * 1e-3) / 1e12 if ms else None
 
 
 def time_ms(torch, fn, runs: int = TIMED_RUNS) -> float:
@@ -233,15 +247,15 @@ def check_flash(torch, pkg, gen, *, B, H, L, S, D, masked):
     if bias is not None:
         bytes_moved += bias.numel() * 4
     b_ms, b_by = bound_ms(bytes_moved, 4.0 * pairs * D)
+    dev_ms = device_ms(torch, kernel, FLASH_FWD_KERNELS)
     return {"name": name, "route": "cuda",
             "source": "flash_attention_softmax_n_tpu_torch/csrc/flash_fwd.cu",
             "replaces": f"{TPU_PKG}/kernels/flash_attention.py:345 _fwd_single_kernel, "
                         ":279 _fwd_kernel, :501 _fwd_pipeline_kernel",
             "counter": "flash_fwd",
             "max_abs_err": err_o, "max_abs_err_lse": err_lse, "tolerance": tol_o,
-            "ms": time_ms(torch, kernel),
-            "device_ms": device_ms(torch, kernel, "flash_fwd_kernel"),
-            "plain_ms": time_ms(torch, plain),
+            "ms": time_ms(torch, kernel), "device_ms": dev_ms,
+            "tflops": tflops(4.0 * pairs * D, dev_ms), "plain_ms": time_ms(torch, plain),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(torch, library)}
 
 
@@ -418,6 +432,48 @@ def check_dequant_mm(torch, pkg, gen, *, M, K, N, mode="int8"):
             "library": "torch.matmul over the weights dequantized to bf16"}
 
 
+def check_dequant_f32(torch, pkg, gen, *, M, K, N):
+    """K7 with f32 activations (int8 weights, f32 out): the scalar kernel
+    ``qmm_splitk_kernel`` (and its split-K sum), bound by f32 operations at
+    67 TFLOP/s, against ``torch.matmul`` in f32 (TF32 off) over the weights
+    dequantized to f32."""
+    qm, qt = pkg["quant_matmul"], pkg["qtensor"]
+    dev, dt = "cuda", torch.float32
+    x = torch.randn((M, K), generator=gen, device=dev)
+    wq = qt.quantize(torch.randn((K, N), generator=gen, device=dev) * K ** -0.5, bits=8, axis=0)
+
+    def kernel():
+        return qm._qmm_cuda(x, None, wq.values, wq.scales, 8, dt)
+
+    def plain():
+        return qm.quantized_matmul_reference(x, None, wq.values, wq.scales, bits=8, out_dtype=dt)
+
+    w_f32 = qt.dequantize(wq, dt)
+
+    def library():
+        return x @ w_f32
+
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    same = repeat_equal(torch, kernel, out)
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    name = f"qmm f32 M{M} K{K} N{N} f32"
+    require(err <= 1e-5 * scale and same,
+            f"{name}: max |out - plain| {err} > 1e-5 * {scale}, or repeat bit-equal {same}")
+    b_ms, b_by = bound_ms(x.numel() * 4 + wq.values.numel() + N * 4 + M * N * 4,
+                          2.0 * M * K * N, F32_FLOPS)
+    k_dev, lib_dev = device_ms_of(torch, [(kernel, QMM_KERNELS), (library, None)])
+    return {"name": name, "route": "cuda", "source": f"{CSRC}/qmm.cu",
+            "replaces": f"{TPU_PKG}/kernels/quant_matmul.py:65 _qmm_kernel",
+            "counter": "qmm", "max_abs_err": err, "tolerance": "1e-5 max|out|",
+            "repeat_bit_equal": same, "ms": time_ms(torch, kernel), "device_ms": k_dev,
+            "tflops": tflops(2.0 * M * K * N, k_dev), "plain_ms": time_ms(torch, plain),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(torch, library),
+            "library_device_ms": lib_dev,
+            "library": "torch.matmul in f32 (TF32 off) over the weights dequantized to f32"}
+
+
 def check_fused_mlp(torch, pkg, gen, *, M, K, F):
     """K9 at a decode shape (bf16 x, int8 gate/up/down)."""
     fm, qt = pkg["fused_mlp"], pkg["qtensor"]
@@ -558,13 +614,14 @@ def check_mini(torch, pkg, gen, *, mode, B, H, L, D):
     # mask_softmax needs only the causal half of the score square
     pairs = B * H * (L * (L + 1) / 2 if mode == "mask_softmax" else L * L)
     b_ms, b_by = bound_ms(4 * B * H * L * D * 2, 4.0 * D * pairs)
+    dev_ms = device_ms(torch, kernel, MINI_KERNELS)
     return {"name": name, "route": "cuda", "source": f"{CSRC}/prefill_phases.cu",
             "replaces": "scripts/profile_prefill_phases.py:45 _mini_kernel",
             "counter": f"mini_{mode}", "max_abs_err": err, "max_excess_over_tol": excess,
             "tolerance": "2^-7 (|o_plain| + row max |p| * head max |v|), mini_tolerance",
             "repeat_bit_equal": same,
-            "ms": time_ms(torch, kernel),
-            "device_ms": device_ms(torch, kernel, "prefill_phase_kernel"),
+            "ms": time_ms(torch, kernel), "device_ms": dev_ms,
+            "tflops": tflops(4.0 * D * pairs, dev_ms),
             "plain_ms": time_ms(torch, plain), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(torch, library[0]) if library[0] else None,
             "library": library[1]}
@@ -658,9 +715,9 @@ def check_attention(torch, fa, gen, dtype, *, n, causal, shape, **extras):
 
 def check_dropout_masks(torch, fa):
     """q = k = 0 makes p uniform (1/S), so the kept entries show directly:
-    K1's o with v = I, K5's dbias (= ds = dropped p times dp = 1, against
-    o = 0 and lse = log S) and K6's dv with dout = I are nonzero exactly
-    where the plain hash keeps."""
+    K1's o with v = I (f32, and bf16 through the wgmma kernel), K5's dbias
+    (= ds = dropped p times dp = 1, against o = 0 and lse = log S) and K6's
+    dv with dout = I are nonzero exactly where the plain hash keeps."""
     B, H, N, rate = 2, 4, 128, 0.3
     z = torch.zeros((B, H, N, N), device="cuda")
     eye = torch.eye(N, device="cuda").expand(B, H, N, N).contiguous()
@@ -671,12 +728,16 @@ def check_dropout_masks(torch, fa):
     lse = torch.full((B, H, N), float(np.log(N)), device="cuda")
     o, _ = fa.flash_fwd(z, z, eye, None, n=0.0, scale=1.0, is_causal=False, seed=seed,
                         dropout_rate=rate)
+    zb, eyeb = z.to(torch.bfloat16), eye.to(torch.bfloat16)
+    o_bf16, _ = fa.flash_fwd(zb, zb, eyeb, None, n=0.0, scale=1.0, is_causal=False, seed=seed,
+                             dropout_rate=rate)
     dbias = fa.flash_bwd(z, z, e0, torch.zeros((1, 1, N, N), device="cuda"), None, seed, z,
                          lse, e0, scale=1.0, is_causal=False, dropout_rate=rate)[3]
     dv = fa.flash_bwd(z, z, z, None, None, seed, z, lse, eye, scale=1.0, is_causal=False,
                       dropout_rate=rate)[2]
     torch.cuda.synchronize()
     equal = {"flash_fwd": bool(torch.equal(o != 0, keep)),
+             "flash_fwd_bf16": bool(torch.equal(o_bf16 != 0, keep)),
              "flash_bwd_dq": bool(torch.equal(dbias != 0, keep)),
              "flash_bwd_dkv": bool(torch.equal(dv.transpose(-1, -2) != 0, keep))}
     emit({"phase": "dropout_masks", "shape": [B, H, N, N], "rate": rate,
@@ -715,6 +776,19 @@ def train_kernel_lines(torch, pkg, gen):
         return run_fwd(fa, False, q, k, v, ex, n=n, causal=True)
 
     slopes = torch.tensor([2.0 ** -(i % 8 + 1) for i in range(H)], device="cuda")
+    # K1 with ALiBi and dropout on the same inputs, against its plain version
+    ex_alibi = {**ex, "slopes": slopes}
+    o_a, lse_a = run_fwd(fa, False, q, k, v, ex_alibi, n=n, causal=True)
+    o_a_ref, lse_a_ref = run_fwd(fa, True, q, k, v, ex_alibi, n=n, causal=True)
+    o_a_abs = run_fwd(fa, True, q, k, v.abs(), ex_alibi, n=n, causal=True)[0]
+    torch.cuda.synchronize()
+    errs_a = {"o": float((o_a.float() - o_a_ref.float()).abs().max()),
+              "o_excess": o_excess(o_a, o_a_ref, o_a_abs),
+              "lse": float((lse_a - lse_a_ref).abs().max())}
+    del o_a_ref, o_a_abs
+    emit({"phase": "kernel_check", "name": f"K1 {name} +alibi", "errors": errs_a})
+    require(errs_a["o_excess"] <= 1e-6 and errs_a["lse"] <= 1e-3,
+            f"K1 {name} +alibi: o/lse off the plain version: {errs_a}")
 
     def k1_alibi():
         return run_fwd(fa, False, q, k, v, {**ex, "slopes": slopes}, n=n, causal=True)
@@ -750,6 +824,7 @@ def train_kernel_lines(torch, pkg, gen):
                                             "2e-2 of max(1, |plain|); repeat calls bit-equal",
               "path": "train"}
     b1, by1 = bound_ms(4 * bhld * 2 + bhl * 4, 4.0 * D * pairs)
+    k1_dev = device_ms(torch, k1, FLASH_FWD_KERNELS)
     b5, by5 = bound_ms(5 * bhld * 2 + 2 * bhl * 4, 6.0 * D * pairs)
     b6, by6 = bound_ms(6 * bhld * 2 + 2 * bhl * 4, 8.0 * D * pairs)
     shape = f"B{B} H{H} L{L} S{L} d{D} bf16 causal n1 dropout {rate}"
@@ -760,7 +835,7 @@ def train_kernel_lines(torch, pkg, gen):
                      ":501 _fwd_pipeline_kernel (ALiBi and dropout)",
          "max_abs_err": errs["o"], "max_abs_err_lse": errs["lse"], "ms": time_ms(torch, k1),
          "ms_with_alibi": time_ms(torch, k1_alibi),
-         "device_ms": device_ms(torch, k1, "flash_fwd_kernel"),
+         "device_ms": k1_dev, "tflops": tflops(4.0 * D * pairs, k1_dev),
          "plain_ms": time_ms(torch, plain_fwd), "bound_ms": b1, "bound_by": by1,
          "library_ms": time_ms(torch, sdpa)},
         {**common, "name": f"flash_bwd_dq {shape}", "counter": "flash_bwd_dq",
@@ -778,8 +853,8 @@ def train_kernel_lines(torch, pkg, gen):
     ]
     for line in lines:
         emit({"phase": "kernel", **{k_: line.get(k_) for k_ in (
-            "name", "max_abs_err", "tolerance", "ms", "ms_with_alibi", "device_ms", "plain_ms",
-            "library_ms")}})
+            "name", "max_abs_err", "tolerance", "ms", "ms_with_alibi", "device_ms", "tflops",
+            "plain_ms", "bound_ms", "library_ms")}})
     emit({"phase": "kernel_note", "note": "flash_bwd plain_ms and library_ms cover dq, dk "
           "and dv together (one plain backward, one SDPA backward); max_abs_err of the "
           "backward lines is relative to max(1, |plain|)"})
@@ -832,7 +907,7 @@ def teacher_forced(torch, pkg, cfg, params, req):
 SERVE_KERNELS = ("flash_fwd", "qmm_argmax", "cache_append", "tail_append")
 PALLAS_KERNELS = ("qmm", "decode_attn", "fused_mlp")
 # the port's kernels as torch.profiler names them (substrings)
-PROFILED_KERNELS = ("flash_fwd_kernel", "qmm_tile_kernel", "qmm_reduce_kernel",
+PROFILED_KERNELS = (*FLASH_FWD_KERNELS, "qmm_tile_kernel", "qmm_reduce_kernel",
                     "write_rows_kernel", *QMM_KERNELS, "decode_attn_split_kernel",
                     "decode_attn_merge_kernel", "fused_mlp_kernel", "fused_mlp_sum_kernel")
 
@@ -1256,7 +1331,7 @@ def profile_step(torch, step_fn, wall_s):
                                 for w, _, names in runs])
     ours = {}
     for name, (ms, calls) in by_name.items():
-        for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+        for kernel in (*FLASH_FWD_KERNELS, "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
             if kernel in name:
                 prev_ms, prev_calls = ours.get(kernel, (0.0, 0))
                 ours[kernel] = (prev_ms + ms, prev_calls + calls)
@@ -1448,11 +1523,15 @@ def main() -> int:
     # K8's fp8 mode beside its int8 and bf16 lines at B64, held all the
     # same; no path runs fp8 at B64, so it stays out of the kernels line
     fp8_b64 = check_decode_attn(torch, pkg, gen, B=64, KVH=4, G=8, S=512, D=64, cache="fp8")
-    for kd in kernels + [fp8_b64]:
+    # K7's f32 mode (the scalar kernel): no path gives K7 f32 activations,
+    # so its lines stay out of the kernels line too
+    f32_lines = [check_dequant_f32(torch, pkg, gen, M=M, K=2048, N=2048) for M in (64, 1024)]
+    for kd in kernels + [fp8_b64] + f32_lines:
         emit({"phase": "kernel", **{k: kd[k] for k in ("name", "max_abs_err", "tolerance", "ms",
-                                                       "device_ms", "plain_ms", "bound_ms",
-                                                       "library_ms", "library_device_ms",
-                                                       "producer", "plan") if k in kd}})
+                                                       "device_ms", "tflops", "plain_ms",
+                                                       "bound_ms", "bound_by", "library_ms",
+                                                       "library_device_ms", "producer",
+                                                       "plan") if k in kd}})
     kernels += train_kernels(torch, pkg, gen)
 
     # each main path's launches: counts set to 0 just before it, read after

@@ -8,17 +8,41 @@ kernel's plain PyTorch version. Public API::
 
     from flash_attention_softmax_n_tpu_torch import (
         softmax_n, slow_attention_n, flash_attention_n,
+        flash_attention_n_triton, PALLAS_INSTALLED, TRITON_INSTALLED,
     )
 """
+
+import functools as _functools
+import warnings as _warnings
 
 from flash_attention_softmax_n_tpu_torch.ops.flash_attention import flash_attention_n
 from flash_attention_softmax_n_tpu_torch.ops.functional import slow_attention_n, softmax_n
 
+# The JAX package's flag that its fused kernel route exists: True here too,
+# meaning that flash_attention_n(implementation="pallas") reaches the fused
+# kernels (K1 forward, K5/K6 backward, CUDA C++ on the card). No Pallas is
+# involved; the name is kept so that callers of the JAX package run as they
+# are.
+PALLAS_INSTALLED = True
 # the reference library's flag for its optional Triton kernel; the port's
 # kernels are CUDA C++
 TRITON_INSTALLED = False
 
+
+@_functools.wraps(flash_attention_n)
+def flash_attention_n_triton(*args, **kwargs):
+    """Migration alias for the reference library's Triton entry point, as in
+    the JAX package: warns, then calls ``flash_attention_n`` on the fused
+    route (``implementation="pallas"`` unless the caller names another)."""
+    _warnings.warn(
+        "flash_attention_n_triton is the reference API's name; it routes to "
+        "the fused kernels (implementation='pallas'). Call flash_attention_n "
+        "directly.", stacklevel=2)
+    kwargs.setdefault("implementation", "pallas")
+    return flash_attention_n(*args, **kwargs)
+
+
 __version__ = "0.1.0"
 
 __all__ = ["softmax_n", "slow_attention_n", "flash_attention_n",
-           "TRITON_INSTALLED"]
+           "flash_attention_n_triton", "PALLAS_INSTALLED", "TRITON_INSTALLED"]

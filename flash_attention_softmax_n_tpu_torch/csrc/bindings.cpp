@@ -16,6 +16,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <initializer_list>
 #include <optional>
 
 #include "launchers.h"
@@ -50,6 +51,15 @@ void check_on(const at::Tensor& t, const at::Tensor& ref, const char* what) {
   TORCH_CHECK_VALUE(t.is_contiguous(), what, ": tensors must be contiguous");
   TORCH_CHECK_VALUE(reinterpret_cast<uintptr_t>(t.data_ptr()) % 4 == 0, what,
                     ": tensors must start on a 4-byte boundary");
+}
+
+// bf16 inputs of the TMA kernels (K1, K10): each tensor's first row on a
+// 16-byte boundary, as TMA requires (their rows are 64-256 bytes)
+void check_tma(std::initializer_list<const at::Tensor*> ts, const char* what) {
+  for (const at::Tensor* t : ts)
+    TORCH_CHECK_VALUE(t->scalar_type() != at::kBFloat16 ||
+                          reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0,
+                      what, ": bf16 tensors must start on a 16-byte boundary (TMA)");
 }
 
 void check_shape(const at::Tensor& t, at::IntArrayRef shape, at::ScalarType dtype,
@@ -118,6 +128,7 @@ void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
   const c10::cuda::CUDAGuard guard(q.device());
   const FasnAttn a = attn_args(q, k, v, bias, slopes, seed, scale, causal, drop_threshold,
                                drop_mult, what);
+  check_tma({&q, &k, &v}, what);
   check_on(o, q, what);
   check_on(lse, q, what);
   check_shape(o, q.sizes(), q.scalar_type(), what, "o");
@@ -490,6 +501,7 @@ void prefill_phase(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v
     check_on(*t, q, what);
     check_shape(*t, q.sizes(), q.scalar_type(), what, "k, v and o");
   }
+  check_tma({&q, &k, &v}, what);
   check_launch(fasn_prefill_phase(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                                   as_int(q.size(0), what), as_int(q.size(1), what),
                                   as_int(q.size(2), what), as_int(D, what), dtype,

@@ -4,8 +4,11 @@
 // mask) and the dropout hash, so the three kernels form every score and
 // every dropout decision the same way. The prefill-phase kernel K10
 // (prefill_phases.cu) takes the tile shape, conversions, reductions and
-// launch helpers. Device code: only the .cu files, compiled by nvcc,
-// include it.
+// launch helpers. The tile shape, thread layout and 16-lane reductions are
+// those of the scalar f32 kernels; the bf16 kernels of K1 and K10 run on
+// attn_tile.h's tensor-core tile and take the score modifiers, the dropout
+// hash and NEG_INF from here. Device code: only the .cu files, compiled by
+// nvcc, include it.
 
 #pragma once
 

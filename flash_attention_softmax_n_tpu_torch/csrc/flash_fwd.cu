@@ -8,28 +8,47 @@
 // The +n enters as a phantom key with score 0 and value 0: the online
 // softmax starts from m = 0, l = n (n > 0) instead of m = NEG_INF, l = 0.
 //
-// Design: one CTA per (q tile of 64 rows, head, batch); the CTA loops over
-// KV tiles of 64 keys with an f32 online softmax, so scores never reach
-// device memory. 256 threads; thread (ty, tx) owns rows ty + 16 i (i < 4)
-// of the tile, score columns tx + 16 j and output columns tx + 16 j, so the
-// row statistics (m, l) and the rescale factor live in registers and a row
-// reduction is a shuffle across 16 lanes. Products are scalar f32 FMAs from
-// shared memory (no tensor cores yet), so at long sequences the kernel is
-// bound by shared-memory bandwidth and f32 issue rate, far from the card's
-// bf16 tensor-core bound; at serving prefill shapes it is small next to the
-// matmuls around it.
+// What bounds it on the H100: 4 D operations per visible (query, key) pair
+// at 989 TFLOP/s (bf16). At B2 H32 L=S=2048 d64 causal that is 0.0348 ms
+// (the exp unit, 16 results a clock per SM, needs about 0.03 ms for the
+// 134M exponentials: it co-limits at d64); at the serving prefill's B16
+// H32 L=S=128 with the engine's f32 mask the bytes bound it, 0.0104 ms
+// (the (B, 1, L, S) mask is most of them).
+//
+// bf16: flash_fwd_wgmma_kernel, on the attention tile of attn_tile.h. One
+// CTA takes 128 query rows of one (b, h); a producer warp keeps K and V
+// tiles of 128 keys in flight with TMA while two consumer warpgroups, 64
+// rows each, run S = Q K^T and O += P V on the tensor cores (wgmma), with P
+// passed from the S accumulator to the A operand in registers, so scores
+// never leave the SM and shared memory holds only Q, K and V. The softmax
+// runs on the accumulator fragment: row statistics reduce over a quad of
+// lanes. The two warpgroups run independently, so one's softmax overlaps
+// the other's products. A causal CTA walks only the key tiles at or left of
+// its diagonal and masks only those that cross it; the heaviest query
+// tiles launch first. Inputs must start on 16 bytes (TMA); the operator
+// raises otherwise.
+//
+// f32: flash_fwd_kernel, scalar f32 FMAs from shared memory on 64 x 64
+// tiles (wgmma has no f32 x f32 product, and TF32 would not hold f32's
+// tolerance); the training path's f32 runs and the card tests take it.
 //
 // Numerics follow the Pallas kernel: the scale is folded into q in q's
-// dtype, scores and statistics are f32, the f32 bias and then the ALiBi term
-// are added before masking (flash_common.h), l sums the undropped p, p is
-// then multiplied by the dropout multiplier of its global (b, h, q, k) and
+// dtype (each consumer rewrites its Q rows in shared memory once), scores
+// and statistics are f32, the f32 bias and then the ALiBi term are added
+// before masking (flash_common.h), l sums the undropped p, p is then
+// multiplied by the dropout multiplier of its global (b, h, q, k) and
 // rounded to v's dtype before the PV product, and at n == 0 a row with no
 // visible key (rectangular causal with L > S) gives o = 0, lse = NEG_INF.
 
+#include "attn_tile.h"
 #include "flash_common.h"
 
 namespace fasn {
 namespace {
+
+// ---------------------------------------------------------------------------
+// f32: scalar FMAs
+// ---------------------------------------------------------------------------
 
 template <int D>
 constexpr size_t fwd_smem_bytes() {
@@ -168,17 +187,188 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: TMA and wgmma (attn_tile.h)
+// ---------------------------------------------------------------------------
+
+// q * scale_q rounded to bf16, in place over the warpgroup's 64 Q rows
+template <int D>
+__device__ __forceinline__ void scale_q_rows(uint8_t* q, int wg, float scale_q) {
+  using T = attn::Tile<D>;
+  const int t = threadIdx.x % 128;
+#pragma unroll
+  for (int b = 0; b < T::BOXES; ++b) {
+    uint4* rows = reinterpret_cast<uint4*>(q + b * T::BOX + wg * 64 * T::ROW);
+    for (int c = t; c < 64 * T::ROW / 16; c += 128) {
+      uint4 w = rows[c];
+      uint32_t* u = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[e]));
+        u[e] = attn::bf16_bits(f.x * scale_q, f.y * scale_q);
+      }
+      rows[c] = w;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(attn::THREADS, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap, const FasnAttn a, float n,
+                           __nv_bfloat16* __restrict__ o, float* __restrict__ lse) {
+  using namespace attn;
+  extern __shared__ uint8_t smem_raw[];
+  const Ring<D> r = make_ring<D>(smem_raw);
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TQ;
+  const int L = a.L, S = a.S, off = S - L;
+  // keys at or left of the tile's last row's diagonal
+  const int kv_end = a.causal ? min(S, min(q0 + TQ, L) + off) : S;
+  const int tiles = kv_end > 0 ? (kv_end + TK - 1) / TK : 0;
+  if (threadIdx.x >= CONSUMERS) {
+    if (threadIdx.x == CONSUMERS) produce<D>(r, &qmap, &kmap, &vmap, bh, q0, tiles, 0);
+    return;
+  }
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int row0 = q0 + 64 * wg;  // the warpgroup's first query row
+  const int g = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
+  const ScoreMods mods = score_mods(a, b, h);
+  const Dropout drop = dropout_of(a);
+  const bool plain = mods.bias == nullptr && !mods.alibi;
+
+  float m[2], l[2], acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = n > 0.f ? 0.f : NEG_INF;
+    l[i] = t % 4 == 0 ? n : 0.f;  // the quad's partial sums; n counted once
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  if (tiles > 0) {
+    mbar_wait(r.q_full(), 0);
+    scale_q_rows<D>(r.mem, wg, a.scale_q);
+    fence_proxy_async();
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+  }
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * TK;
+    // no row of the warpgroup sees a key of this tile: skip it
+    const bool active = row0 < L && (!mods.causal || k0 <= row0 + 63 + off);
+    mbar_wait(r.full_k(stage), phase);
+    if (active) {
+      float s[64];
+      qk<D>(s, r.q(), r.k(stage), wg);
+      // masks, bias and ALiBi only where a key is past S or a diagonal
+      if (!plain || k0 + TK > S || (mods.causal && k0 + TK - 1 > row0 + off)) {
+#pragma unroll
+        for (int e = 0; e < 64; ++e)
+          s[e] = mods(s[e], row0 + g + 8 * ((e / 2) % 2), k0 + 8 * (e / 4) + c0 + e % 2);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int qi = row0 + g + 8 * i;
+        const float m_new = fmaxf(m[i], row_max(s, i));
+        const float alpha = exp_fast(m[i] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float p = exp_fast(s[4 * j + 2 * i + c] - m_new);
+            sum += p;  // the denominator takes the undropped p
+            if (drop.on) p *= drop(b, h, qi, k0 + 8 * j + c0 + c);
+            s[4 * j + 2 * i + c] = p;
+          }
+        l[i] = l[i] * alpha + sum;
+        m[i] = m_new;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          acc[4 * j + 2 * i] *= alpha;
+          acc[4 * j + 2 * i + 1] *= alpha;
+        }
+      }
+      uint32_t p[TK / 16][4];
+      to_a_frags(s, p);
+      mbar_wait(r.full_v(stage), phase);
+      pv<D>(acc, p, r.v(stage));
+    } else {
+      mbar_wait(r.full_v(stage), phase);  // the slot is refilled only once V has landed
+    }
+    if (t == 0) mbar_arrive(r.empty(stage));
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  const int valid = L - row0;
+  if (valid <= 0) return;
+  float lf[2];
+  bool dead[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lf[i] = quad_sum(l[i]);
+    dead[i] = n == 0.f && (lf[i] == 0.f || m[i] == NEG_INF);
+  }
+  store_rows<D>(acc, o + ((long long)bh * L + row0) * D, valid,
+                [&](int i, float x) { return dead[i] ? 0.f : x / lf[i]; });
+  if (t % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (g + 8 * i < valid)
+        lse[(long long)bh * L + row0 + g + 8 * i] = dead[i] ? NEG_INF : m[i] + logf(lf[i]);
+  }
+}
+
+template <int D>
+cudaError_t launch_wgmma(const FasnAttn& a, float n, void* o, float* lse, cudaStream_t stream) {
+  using namespace attn;
+  auto kernel = flash_fwd_wgmma_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<D>::SMEM);
+  if (err != cudaSuccess) return err;
+  const long long heads = (long long)a.B * a.H;
+  CUtensorMap qm{}, km{}, vm{};
+  if (!encode_rows(&qm, a.q, heads, a.L, D) || !encode_rows(&km, a.k, heads, a.S, D) ||
+      !encode_rows(&vm, a.v, heads, a.S, D))
+    return cudaErrorInvalidValue;
+  kernel<<<tile_grid(heads, a.L), attn::THREADS, Tile<D>::SMEM, stream>>>(
+      qm, km, vm, a, n, static_cast<__nv_bfloat16*>(o), lse);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace fasn
 
 extern "C" int fasn_flash_fwd(const FasnAttn* a, float n, void* o, float* lse,
                               cudaStream_t stream) {
   using namespace fasn;
+  if (a->dtype == 1) {
+    switch (a->D) {
+      case 32:
+        return launch_wgmma<32>(*a, n, o, lse, stream);
+      case 64:
+        return launch_wgmma<64>(*a, n, o, lse, stream);
+      case 128:
+        return launch_wgmma<128>(*a, n, o, lse, stream);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
+  if (a->dtype != 0) return cudaErrorInvalidValue;
   const dim3 grid((a->L + BQ - 1) / BQ, a->H, a->B);
-  return dispatch(a->dtype, a->D, [&](auto t, auto d) {
+  auto f32 = [&](auto t, auto d) {
     using T = typename decltype(t)::type;
     constexpr int D = decltype(d)::value;
     return launch(flash_fwd_kernel<T, D>, grid, fwd_smem_bytes<D>(), stream, *a, n,
                   static_cast<T*>(o), lse);
-  });
+  };
+  return dispatch_d<float>(a->D, f32);
 }

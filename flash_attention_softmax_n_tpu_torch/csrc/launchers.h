@@ -33,7 +33,8 @@ struct FasnAttn {
   int causal;
 };
 
-// K1 (flash_fwd.cu): o like q, lse (B,H,L) f32.
+// K1 (flash_fwd.cu): o like q, lse (B,H,L) f32. bf16 takes the TMA kernel:
+// q, k and v must start on 16 bytes, and L, S >= 1.
 int fasn_flash_fwd(const FasnAttn* a, float n, void* o, float* lse, cudaStream_t stream);
 
 // K5 (flash_bwd_dq.cu): dq like q from dout like q, lse (B,H,L) f32 (the
@@ -131,7 +132,8 @@ int fasn_decode_attn(const FasnDecode* a, float* part_acc, float* part_m, float*
 
 // K10 (prefill_phases.cu). q, k, v and o (B,H,L,D) contiguous, bf16 (dtype
 // 1) or f32 (0), D in {32, 64, 128}; mode 0 dots_only, 1 exp_only, 2
-// softmax, 3 mask_softmax.
+// softmax, 3 mask_softmax. bf16 takes the TMA kernel: q, k and v must start
+// on 16 bytes.
 int fasn_prefill_phase(const void* q, const void* k, const void* v, void* o, int B, int H, int L,
                        int D, int dtype, int mode, cudaStream_t stream);
 

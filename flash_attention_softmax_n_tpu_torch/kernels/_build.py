@@ -9,7 +9,11 @@ the bindings include PyTorch's headers, so ``nvcc`` never parses them and a
 build takes seconds. ``launchers.h`` declares the kernels' entry points
 for both sides, so the compiler checks every argument list;
 ``flash_common.h`` holds the device code that the flash-attention kernels
-(K1, K5, K6) and the prefill-phase kernel K10 share.
+(K1, K5, K6) and the prefill-phase kernel K10 share; ``hopper.h`` the
+inline PTX of the tensor-core kernels (TMA, mbarriers, wgmma and its
+descriptors) and libcuda's tensor-map encoder, which K7, K1 and K10
+include; ``attn_tile.h`` the TMA + wgmma attention tile of K1's and K10's
+bf16 kernels.
 
 The library lands in ``_build/`` beside the package (listed in
 ``.gitignore``), named by a hash of the sources, flags and PyTorch version,
@@ -42,7 +46,7 @@ KERNELS = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu",
            "qmm_argmax.cu", "cache_update.cu", "qmm.cu", "fused_mlp.cu",
            "decode_attn.cu", "prefill_phases.cu")
 BINDINGS = "bindings.cpp"
-HEADERS = ("launchers.h", "flash_common.h")
+HEADERS = ("launchers.h", "flash_common.h", "hopper.h", "attn_tile.h")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 CXX_FLAGS = ["-std=c++17", "-O2", "-fPIC"]

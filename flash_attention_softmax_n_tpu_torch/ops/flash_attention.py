@@ -81,6 +81,8 @@ def flash_attention_n(
     generator: Optional[torch.Generator] = None,
     dropout_seed: Optional[torch.Tensor] = None,
     implementation: str = "auto",
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
     mesh=None,
 ) -> torch.Tensor:
     """Scaled-dot-product attention with softmax-N (any real n >= 0).
@@ -90,8 +92,10 @@ def flash_attention_n(
     under ``train``) runs on both routes with the mask of the hash
     ``dropout_keep``, keyed on an int32 seed: ``dropout_seed`` if given,
     else one drawn from ``generator``. The fused route regenerates the mask
-    in its kernels; the ``'xla'`` route materializes it. ``mesh`` is not
-    ported yet.
+    in its kernels; the ``'xla'`` route materializes it. ``block_q`` and
+    ``block_k`` are accepted for the JAX package's signature and ignored:
+    its TPU tiling is not ported, and the kernels choose their own tiles.
+    ``mesh`` is not ported yet.
     """
     if mesh is not None:
         raise NotImplementedError("sharded attention (mesh) is not ported "

@@ -11,7 +11,10 @@ rows), f32 inputs, head dims 32/64/128, ragged tiles, dense caches, and for
 the backward (K5, K6) bias, ALiBi and dropout in every combination; for
 K7-K9 every mode (int8, W8A8, int4, W4A8; dense, int8, int8-compute and
 fp8 caches), ragged M/N/F, slot lengths 0 and full, strided cache views;
-K10 in its four modes at head dims 32/64/128, bf16 and f32, ragged L.
+K10 in its four modes at head dims 32/64/128, bf16 and f32, ragged L. The
+bf16 K1 and K10 run the TMA + wgmma tile (128-row tiles): L and S ending
+mid-tile, every bias broadcast, ALiBi, dropout, and misaligned inputs that
+must raise.
 Tolerances: forward f32 within 2e-5 (summation order), bf16 within 2e-2 (p
 rounded to bf16 before PV, as in the plain version), lse within 1e-4;
 gradients within 1e-4 (f32) or 2e-2 (bf16: ds rounds to bf16 on either side
@@ -285,6 +288,84 @@ def test_dropout_masks_bit_equal_to_the_hash(gen):
     assert torch.equal(dv.transpose(-1, -2) != 0, keep)
 
 
+# K1's bf16 kernel (TMA + wgmma): L and S ending mid-tile (its tiles are 128
+# rows), rectangular causal with L < S and with L > S (dead rows at n = 0),
+# the three head dims; o within 2e-3 + 2^-7 |o_plain| (o rounds one bf16 ulp
+# apart, p may round to bf16 on the other side of a tie), lse within 1e-3,
+# as chip_smoke.check_flash holds it; repeat calls bit-equal
+_WGMMA_SHAPES = [(1, 1, False), (63, 63, True), (65, 65, True), (127, 127, False),
+                 (129, 129, True), (2049, 2049, True), (100, 300, True), (300, 100, True),
+                 (129, 65, False)]
+
+
+def _check_bf16_fwd(got, want):
+    (o, lse), (o_ref, lse_ref) = got, want
+    excess = float(((o.float() - o_ref.float()).abs() - 2.0 ** -7 * o_ref.float().abs()).max())
+    assert excess <= 2e-3, excess
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("n", [0.0, 1.0])
+@pytest.mark.parametrize("shape", _WGMMA_SHAPES, ids=lambda s: "L{}-S{}-{}".format(*s))
+def test_flash_fwd_wgmma_matches_plain(gen, d, n, shape):
+    L, S, causal = shape
+    q, k, v = (torch.randn((1, 2, m, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for m in (L, S, S))
+    kw = dict(n=n, scale=d ** -0.5, is_causal=causal)
+    got = fa.flash_fwd(q, k, v, None, **kw)
+    _check_bf16_fwd(got, fa.flash_fwd_reference(q, k, v, None, **kw))
+    again = fa.flash_fwd(q, k, v, None, **kw)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    if n == 0 and causal and L > S:
+        dead = torch.arange(L, device="cuda") + (S - L) < 0
+        assert bool((got[0][:, :, dead] == 0).all())
+        assert bool((got[1][:, :, dead] == fa.NEG_INF).all())
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("extra", ["bias11", "bias21", "bias13", "bias23", "alibi", "dropout",
+                                   "all"])
+def test_flash_fwd_wgmma_extras_match_plain(gen, d, extra):
+    bias_shape = {"bias11": (1, 1), "bias21": (2, 1), "bias13": (1, 3), "bias23": (2, 3),
+                  "all": (2, 1)}.get(extra)
+    q, k, v, _, ex = _attn_inputs(gen, torch.bfloat16, 2, 3, 200, 264, d, bias_shape=bias_shape,
+                                  alibi=extra in ("alibi", "all"),
+                                  rate=0.25 if extra in ("dropout", "all") else 0.0)
+    kw = dict(n=1.0, scale=d ** -0.5, is_causal=True, slopes=ex["slopes"], seed=ex["seed"],
+              dropout_rate=ex["dropout_rate"])
+    got = fa.flash_fwd(q, k, v, ex["bias"], **kw)
+    _check_bf16_fwd(got, fa.flash_fwd_reference(q, k, v, ex["bias"], **kw))
+    assert torch.equal(got[0], fa.flash_fwd(q, k, v, ex["bias"], **kw)[0])
+
+
+def test_flash_fwd_bf16_dropout_mask_bit_equal_to_the_hash(gen):
+    # the dropout probe of test_dropout_masks_bit_equal_to_the_hash through
+    # K1's bf16 kernel: q = k = 0, v = I (head dim 128, one key tile), so o
+    # is nonzero where the hash keeps
+    B, H, N, rate = 2, 4, 128, 0.3
+    z = torch.zeros((B, H, N, N), device="cuda", dtype=torch.bfloat16)
+    eye = torch.eye(N, device="cuda").expand(B, H, N, N).to(torch.bfloat16).contiguous()
+    seed = torch.tensor([-99], dtype=torch.int32, device="cuda")
+    keep = fa.dropout_multiplier(seed, (B, H, N, N), rate, "cuda") > 0
+    o, _ = fa.flash_fwd(z, z, eye, None, n=0.0, scale=1.0, is_causal=False, seed=seed,
+                        dropout_rate=rate)
+    assert torch.equal(o != 0, keep)
+
+
+def test_flash_fwd_wgmma_rejects_misaligned_inputs(gen):
+    # contiguous bf16 views starting 4 bytes past an allocation: TMA needs 16
+    base = torch.randn(2 * 128 * 64 + 2, device="cuda").to(torch.bfloat16)
+    q = base[2:].view(1, 2, 128, 64)
+    k = torch.randn((1, 2, 128, 64), device="cuda").to(torch.bfloat16)
+    before = _build.LAUNCHES["flash_fwd"]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa.flash_fwd(q, k, k, None, n=1.0, scale=0.125, is_causal=True)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        pp.mini("softmax", q, k, k)
+    assert _build.LAUNCHES["flash_fwd"] == before
+
+
 def test_block_grads_against_an_external_lse(gen):
     q, k, v, do, _ = _attn_inputs(gen, torch.float32, 1, 2, 120, 70, 64)
     lse = torch.randn((1, 2, 120), generator=gen, device="cuda") + 6.0
@@ -544,7 +625,7 @@ def test_decode_attn_rejects_fp8_int8_compute(gen):
 @pytest.mark.parametrize("mode", pp.MODES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("L", [64, 200, 512])
+@pytest.mark.parametrize("L", [64, 129, 200, 512, 2048])
 def test_prefill_phase_matches_plain(gen, mode, dtype, d, L):
     q, k, v = ((0.3 * torch.randn((2, 3, L, d), generator=gen, device="cuda")).to(dtype)
                for _ in range(3))

@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -30,7 +31,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "import flash_attention_softmax_n_tpu_torch.utils.profile_prefill_phases\n"
         "import flash_attention_softmax_n_tpu_torch.utils.profiling\n"
         "import chip_smoke\n"
-        "assert p.TRITON_INSTALLED is False\n"
+        "assert p.TRITON_INSTALLED is False and p.PALLAS_INSTALLED is True\n"
+        "assert callable(p.flash_attention_n_triton)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m.startswith('jaxlib.')\n"
         "       or m == 'flash_attention_softmax_n_tpu'\n"
@@ -81,3 +83,45 @@ def test_entry_points_default_to_the_card():
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def _qkv(seed=0, shape=(1, 2, 16, 8)):
+    rng = np.random.RandomState(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                 for _ in range(3))
+
+
+def test_public_api_matches_the_jax_package():
+    import flash_attention_softmax_n_tpu as jp
+
+    import flash_attention_softmax_n_tpu_torch as tp
+    assert tp.__all__ == jp.__all__
+    assert all(hasattr(tp, name) for name in tp.__all__)
+    assert tp.PALLAS_INSTALLED is jp.PALLAS_INSTALLED is True
+    assert tp.TRITON_INSTALLED is jp.TRITON_INSTALLED is False
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_triton_alias_warns_and_takes_the_fused_route(causal):
+    import flash_attention_softmax_n_tpu_torch as tp
+    q, k, v = _qkv()
+    with pytest.warns(UserWarning, match="reference API's name"):
+        got = tp.flash_attention_n_triton(q, k, v, softmax_n_param=1.0, is_causal=causal)
+    want = tp.flash_attention_n(q, k, v, softmax_n_param=1.0, is_causal=causal,
+                                implementation="pallas")
+    assert torch.equal(got, want)
+    # a caller's own implementation is kept
+    with pytest.warns(UserWarning):
+        xla = tp.flash_attention_n_triton(q, k, v, softmax_n_param=1.0, is_causal=causal,
+                                          implementation="xla")
+    torch.testing.assert_close(xla, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("blocks", [(None, None), (128, 128), (64, 512)])
+def test_block_sizes_are_accepted_and_ignored(blocks):
+    from flash_attention_softmax_n_tpu_torch import flash_attention_n
+    q, k, v = _qkv(1)
+    bq, bk = blocks
+    got = flash_attention_n(q, k, v, softmax_n_param=1.0, is_causal=True, block_q=bq,
+                            block_k=bk)
+    assert torch.equal(got, flash_attention_n(q, k, v, softmax_n_param=1.0, is_causal=True))
