@@ -24,11 +24,14 @@ Phases, in order, each printing one JSON line:
    ``torch.matmul`` in f32; K1 and K10 lines give TFLOP/s too;
 4. train kernels: K1 with ALiBi and dropout, K5 flash_bwd_dq and K6
    flash_bwd_dkv against their plain versions (B2 H4 L200 S264 with bias,
-   ALiBi and dropout, f32 and bf16, n 0 and 1; then the training shape B2
-   H32 L=S=2048 d64 bf16 causal with dropout, timed), each run twice and
-   required bit-equal, K1 with ALiBi and dropout held at the training
-   shape, and the three kernels' dropout masks (K1 in f32 and bf16)
-   required bit-equal to the plain hash;
+   ALiBi and dropout, f32 and bf16, n 0 and 1, bf16 at d64 and d128, so
+   both chunk shapes of the bf16 wgmma kernels run; then the training shape
+   B2 H32 L=S=2048 d64 bf16 causal with dropout, timed: each kernel's
+   TFLOP/s, and the backward pair with delta against SDPA's backward by
+   device time), each run twice and required bit-equal, K1 with ALiBi and
+   dropout held at the training shape, and the three kernels' dropout masks
+   (each in f32 and bf16) required bit-equal to the plain hash; gradients
+   are held element by element and as a whole (``BWD_NORM_TOL``);
 5. serving: the TinyLlama-1.1B shape (random weights from a seed, int8
    weights, int8 KV) serves 96 requests through the fused decode loop and 4
    through the step path, counting each kernel's launches on those runs, and
@@ -87,9 +90,11 @@ CHIP = None
 ROOT = Path(__file__).resolve().parent
 TPU_PKG = "flash_attention_softmax_n_tpu"
 CSRC = "flash_attention_softmax_n_tpu_torch/csrc"
-# K1's and K10's kernels as torch.profiler names them: bf16 inputs take the
-# TMA + wgmma kernel, f32 the scalar one
+# K1's, K5's, K6's and K10's kernels as torch.profiler names them: bf16
+# inputs take the TMA + wgmma kernel, f32 the scalar one
 FLASH_FWD_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_kernel")
+FLASH_DQ_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_kernel")
+FLASH_DKV_KERNELS = ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_kernel")
 MINI_KERNELS = ("prefill_phase_wgmma_kernel", "prefill_phase_kernel")
 # f32 outside the tensor cores, H100 SXM (NVIDIA's data sheet, 700 W)
 F32_FLOPS = 67e12
@@ -632,6 +637,14 @@ def check_mini(torch, pkg, gen, *, mode, B, H, L, D):
 # ----------------------------------------------------------------------------
 
 FLASH_PY = f"{TPU_PKG}/kernels/flash_attention.py"
+# K5's and K6's gradients against their plain version: each element within
+# 2e-2 (bf16) or 1e-4 (f32) of max(1, max |plain|), and the whole within
+# these shares of max(1, ||plain||). On an H100 the checks below read at
+# most 2.8e-3 in bf16 (dv: the kernel rounds the dropped p to bf16, the
+# plain version keeps f32; dq and dk 1.7e-4) and 3.1e-7 in f32; a copy of
+# K5 that skipped one 64-key chunk for query rows from 1024 on read 8.3e-2
+# on dq at the training shape
+BWD_NORM_TOL = {"bf16": 1e-2, "f32": 1e-5}
 
 
 def attn_inputs(torch, gen, dtype, *, B, H, L, S, D, bias_shape=None, alibi=False, rate=0.0):
@@ -666,6 +679,13 @@ def rel_err(got, want) -> float:
         1.0, float(want.float().abs().max()))
 
 
+def norm_err(got, want) -> float:
+    """||got - want|| over max(1, ||want||): a gradient wrong only where it
+    is small beside max |want| (far tiles of a long causal row) still moves
+    it; a gradient that is zero (one key and n = 0) is held absolutely"""
+    return float((got.float() - want.float()).norm()) / max(1.0, float(want.float().norm()))
+
+
 def o_excess(got, want, want_abs) -> float:
     """max of |o - o_plain| - (2^-7 |o_plain| + 2^-8 o_abs), o_abs the plain
     forward with |v|: o may round one bf16 ulp apart, and each p, rounded
@@ -695,29 +715,37 @@ def check_attention(torch, fa, gen, dtype, *, n, causal, shape, **extras):
     errs = {"o": float((o.float() - o_ref.float()).abs().max()),
             "o_excess": o_excess(o, o_ref, o_abs),
             "lse": float((lse - lse_ref).abs().max())}
+    norm, plain_max = {}, {}
     for name, g, w in zip(("dq", "dk", "dv", "dbias", "dslopes"), got, want):
         require((g is None) == (w is None), f"{name}: kernel and plain disagree on presence")
         if g is not None:
             errs[name] = rel_err(g, w)
+            norm[name] = norm_err(g, w)
+            plain_max[name] = float(w.float().abs().max())
     f32 = dtype == torch.float32
     gtol = 1e-4 if f32 else 2e-2
+    ntol = BWD_NORM_TOL["f32" if f32 else "bf16"]
     o_ok = errs["o"] <= 2e-5 if f32 else errs["o_excess"] <= 1e-6
     name = (f"B{B} H{H} L{L} S{S} d{D} {'f32' if f32 else 'bf16'} n{n:g} "
             f"{'causal' if causal else 'full'} {sorted(k for k, v in extras.items() if v)}")
     require(o_ok and errs["lse"] <= 1e-3, f"K1 {name}: o/lse off the plain version: {errs}")
     grad_errs = {k_: e for k_, e in errs.items() if k_ not in ("o", "o_excess", "lse")}
+    errs["norm"], errs["plain_max"] = norm, plain_max
     require(max(grad_errs.values()) <= gtol,
             f"K5/K6 {name}: gradients off the plain version (tol {gtol} of max(1, |plain|)): "
-            f"{grad_errs}")
+            f"{grad_errs}, max |plain| {plain_max}")
+    require(max(norm.values()) <= ntol,
+            f"K5/K6 {name}: gradients off the plain version (tol {ntol} of max(1, ||plain||)): "
+            f"{norm}, max |plain| {plain_max}")
     require(repeat_equal, f"{name}: two calls of the kernels are not bit-equal")
     return (q, k, v, do, ex, o_ref, lse_ref), errs, name
 
 
 def check_dropout_masks(torch, fa):
     """q = k = 0 makes p uniform (1/S), so the kept entries show directly:
-    K1's o with v = I (f32, and bf16 through the wgmma kernel), K5's dbias
-    (= ds = dropped p times dp = 1, against o = 0 and lse = log S) and K6's
-    dv with dout = I are nonzero exactly where the plain hash keeps."""
+    K1's o with v = I, K5's dbias (= ds = dropped p times dp = 1, against o
+    = 0 and lse = log S) and K6's dv with dout = I are nonzero exactly where
+    the plain hash keeps; each in f32 and in bf16 (the wgmma kernels)."""
     B, H, N, rate = 2, 4, 128, 0.3
     z = torch.zeros((B, H, N, N), device="cuda")
     eye = torch.eye(N, device="cuda").expand(B, H, N, N).contiguous()
@@ -735,11 +763,18 @@ def check_dropout_masks(torch, fa):
                          lse, e0, scale=1.0, is_causal=False, dropout_rate=rate)[3]
     dv = fa.flash_bwd(z, z, z, None, None, seed, z, lse, eye, scale=1.0, is_causal=False,
                       dropout_rate=rate)[2]
+    e0b = e0.to(torch.bfloat16)
+    dbias_bf16 = fa.flash_bwd(zb, zb, e0b, torch.zeros((1, 1, N, N), device="cuda"), None, seed,
+                              zb, lse, e0b, scale=1.0, is_causal=False, dropout_rate=rate)[3]
+    dv_bf16 = fa.flash_bwd(zb, zb, zb, None, None, seed, zb, lse, eyeb, scale=1.0,
+                           is_causal=False, dropout_rate=rate)[2]
     torch.cuda.synchronize()
     equal = {"flash_fwd": bool(torch.equal(o != 0, keep)),
              "flash_fwd_bf16": bool(torch.equal(o_bf16 != 0, keep)),
              "flash_bwd_dq": bool(torch.equal(dbias != 0, keep)),
-             "flash_bwd_dkv": bool(torch.equal(dv.transpose(-1, -2) != 0, keep))}
+             "flash_bwd_dq_bf16": bool(torch.equal(dbias_bf16 != 0, keep)),
+             "flash_bwd_dkv": bool(torch.equal(dv.transpose(-1, -2) != 0, keep)),
+             "flash_bwd_dkv_bf16": bool(torch.equal(dv_bf16.transpose(-1, -2) != 0, keep))}
     emit({"phase": "dropout_masks", "shape": [B, H, N, N], "rate": rate,
           "kept_share": float(keep.float().mean()), "bit_equal": equal})
     require(all(equal.values()), f"a kernel's dropout mask differs from the plain hash: {equal}")
@@ -754,6 +789,7 @@ def train_kernel_lines(torch, pkg, gen):
     B, H, L, D, n, rate = 2, 32, 2048, 64, 1.0, 0.1
     (q, k, v, do, ex, o, lse), errs, name = check_attention(
         torch, fa, gen, torch.bfloat16, n=n, causal=True, shape=(B, H, L, L, D), rate=rate)
+    emit({"phase": "kernel_check", "name": name, "errors": errs, "repeat_bit_equal": True})
     scale = D ** -0.5
     pairs = B * H * L * (L + 1) / 2  # causal (query, key) pairs
     bhld, bhl = B * H * L * D, B * H * L
@@ -820,9 +856,15 @@ def train_kernel_lines(torch, pkg, gen):
         return torch.autograd.grad(out_l, (ql, kl, vl), do, retain_graph=True)
 
     plain_bwd_ms, library_bwd_ms = time_ms(torch, plain_bwd), time_ms(torch, sdpa_bwd)
+    # one profiler session: K5 and K6 alone, the wrapper's every kernel
+    # (delta's torch ops, K5, K6), SDPA's backward's every kernel
+    k5_dev, k6_dev, pair_dev, library_bwd_dev = device_ms_of(
+        torch, [(wrapper_bwd, FLASH_DQ_KERNELS), (wrapper_bwd, FLASH_DKV_KERNELS),
+                (wrapper_bwd, None), (sdpa_bwd, None)])
     common = {"route": "cuda", "tolerance": "o: 2^-7 |o_plain| + 2^-8 (p|v|)_plain; grads: "
-                                            "2e-2 of max(1, |plain|); repeat calls bit-equal",
-              "path": "train"}
+                                            "2e-2 of max(1, |plain|) and "
+                                            f"{BWD_NORM_TOL['bf16']} of max(1, ||plain||); repeat "
+                                            "calls bit-equal", "path": "train"}
     b1, by1 = bound_ms(4 * bhld * 2 + bhl * 4, 4.0 * D * pairs)
     k1_dev = device_ms(torch, k1, FLASH_FWD_KERNELS)
     b5, by5 = bound_ms(5 * bhld * 2 + 2 * bhl * 4, 6.0 * D * pairs)
@@ -841,32 +883,46 @@ def train_kernel_lines(torch, pkg, gen):
         {**common, "name": f"flash_bwd_dq {shape}", "counter": "flash_bwd_dq",
          "source": f"{CSRC}/flash_bwd_dq.cu", "replaces": f"{FLASH_PY}:685 _bwd_dq_kernel",
          "max_abs_err": errs["dq"], "ms": time_ms(torch, k5),
-         "device_ms": device_ms(torch, wrapper_bwd, "flash_bwd_dq_kernel"),
+         "device_ms": k5_dev, "tflops": tflops(6.0 * D * pairs, k5_dev),
          "plain_ms": plain_bwd_ms, "bound_ms": b5, "bound_by": by5,
          "library_ms": library_bwd_ms},
         {**common, "name": f"flash_bwd_dkv {shape}", "counter": "flash_bwd_dkv",
          "source": f"{CSRC}/flash_bwd_dkv.cu", "replaces": f"{FLASH_PY}:777 _bwd_dkv_kernel",
          "max_abs_err": max(errs["dk"], errs["dv"]), "ms": time_ms(torch, k6),
-         "device_ms": device_ms(torch, wrapper_bwd, "flash_bwd_dkv_kernel"),
+         "device_ms": k6_dev, "tflops": tflops(8.0 * D * pairs, k6_dev),
          "plain_ms": plain_bwd_ms, "bound_ms": b6, "bound_by": by6,
          "library_ms": library_bwd_ms},
     ]
+    # the pair as the training step runs it (flash_bwd: delta, K5, K6)
+    # against SDPA's backward, both by device time and by CUDA events. Its
+    # bound counts what dq, dk and dv need, 10·d a pair (S, dP, dV, dK, dQ
+    # once each), not the 14·d the two kernels do: each recomputes S and dP
+    b56, by56 = bound_ms(8 * bhld * 2 + bhl * 4, 10.0 * D * pairs)
+    emit({"phase": "kernel_pair", "name": f"flash_bwd (delta + K5 + K6) {shape}",
+          "ms": time_ms(torch, wrapper_bwd), "device_ms": pair_dev,
+          "tflops": tflops(10.0 * D * pairs, pair_dev), "bound_ms": b56, "bound_by": by56,
+          "library_ms": library_bwd_ms, "library_device_ms": library_bwd_dev,
+          "vs_library_device": pair_dev / library_bwd_dev if pair_dev and library_bwd_dev
+          else None})
     for line in lines:
         emit({"phase": "kernel", **{k_: line.get(k_) for k_ in (
             "name", "max_abs_err", "tolerance", "ms", "ms_with_alibi", "device_ms", "tflops",
             "plain_ms", "bound_ms", "library_ms")}})
     emit({"phase": "kernel_note", "note": "flash_bwd plain_ms and library_ms cover dq, dk "
           "and dv together (one plain backward, one SDPA backward); max_abs_err of the "
-          "backward lines is relative to max(1, |plain|)"})
+          "backward lines is relative to max(1, |plain|); the kernel_check lines give "
+          "each gradient's error against max(1, ||plain||) (norm) and max |plain|"})
     return lines
 
 
 def train_kernels(torch, pkg, gen):
     fa = pkg["flash_attention"]
-    for dtype in (torch.float32, torch.bfloat16):
+    # bf16 at d128 too: K5's and K6's wgmma kernels cut their tiles into
+    # other chunks there (K6: 32 query rows)
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 64), (torch.bfloat16, 128)):
         for n in (0.0, 1.0):
             _, errs, name = check_attention(
-                torch, fa, gen, dtype, n=n, causal=True, shape=(2, 4, 200, 264, 64),
+                torch, fa, gen, dtype, n=n, causal=True, shape=(2, 4, 200, 264, d),
                 bias_shape=(1, 4), alibi=True, rate=0.25)
             emit({"phase": "kernel_check", "name": name, "errors": errs,
                   "repeat_bit_equal": True})
@@ -919,6 +975,10 @@ IDLE_PAIRS = 3
 # run slightly longer), so a run that leaves the card almost never idle can
 # read a paired share just below 0; below -0.05 the pair is not one run's.
 IDLE_FLOOR = -0.05
+# a pair whose profiled busy time is further than this share from the
+# median pair's is flagged: torch.profiler once read a whole training step
+# on an H100 at half of every kernel's time, calls complete
+BUSY_SPREAD = 0.1
 
 
 def device_by_name(prof):
@@ -937,14 +997,22 @@ def device_by_name(prof):
 
 
 def paired_idle_share(phase, pairs):
-    """{median, min, max, values} of 1 - busy_profiled / wall_unprofiled
-    over (unprofiled wall s, profiled busy ms) pairs, each required in
-    [IDLE_FLOOR, 1]."""
+    """{median, min, max, values, busy_outliers} of 1 - busy_profiled /
+    wall_unprofiled over (unprofiled wall s, profiled busy ms) pairs, each
+    required in [IDLE_FLOOR, 1]. ``busy_outliers`` are the pairs whose busy
+    time is more than BUSY_SPREAD from the median pair's: they stay in the
+    values and are named on stderr, so a bad profiler window shows."""
     values = [1.0 - busy_ms / 1e3 / wall for wall, busy_ms in pairs]
     require(all(IDLE_FLOOR <= v <= 1.0 for v in values),
             f"{phase}: a paired idle share {values} is outside [{IDLE_FLOOR}, 1]")
+    busy = [busy_ms for _, busy_ms in pairs]
+    mid = float(np.median(busy))
+    outliers = [i for i, b in enumerate(busy) if abs(b - mid) > BUSY_SPREAD * mid]
+    if outliers:
+        print(f"chip_smoke: {phase}: profiled busy ms {busy}: pairs {outliers} are more than "
+              f"{BUSY_SPREAD:.0%} from the median", file=sys.stderr)
     return {"median": float(np.median(values)), "min": min(values), "max": max(values),
-            "values": values}
+            "values": values, "busy_outliers": outliers}
 
 
 def profile_chunk(torch, eng_mod, cfg, params, phase="profile"):
@@ -1305,10 +1373,12 @@ def profile_step(torch, step_fn, wall_s):
     step's synchronised wall, then at once a profiled step's device busy
     time (kernel and copy times on one stream, annotation ranges left out);
     ``idle_share_paired`` is 1 - busy over the wall just before, its median
-    and spread. The first profiled step also gives the kernels that fill
-    it, ``idle_share_profiled`` (against its own wall, required in [0, 1])
-    and, as earlier runs reported it, ``idle_share`` against ``wall_s``
-    (the median unprofiled step of the training run)."""
+    and spread. The profiled step with the median busy time also gives the
+    kernels that fill it, ``idle_share_profiled`` (against its own wall,
+    required in [0, 1]) and, as earlier runs reported it, ``idle_share``
+    against ``wall_s`` (the median unprofiled step of the training run).
+    A pair whose busy time is far from the others is flagged in
+    ``idle_share_paired["busy_outliers"]`` (see BUSY_SPREAD)."""
     from torch.profiler import ProfilerActivity, profile
 
     def timed():
@@ -1324,20 +1394,23 @@ def profile_step(torch, step_fn, wall_s):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall_profiled = timed()
         runs.append((wall_unprofiled, wall_profiled, device_by_name(prof)))
-    _, wall_profiled, by_name = runs[0]
-    busy_ms = sum(ms for ms, _ in by_name.values())
+    busy = [sum(ms for ms, _ in names.values()) for _, _, names in runs]
+    median_run = sorted(range(IDLE_PAIRS), key=busy.__getitem__)[IDLE_PAIRS // 2]
+    _, wall_profiled, by_name = runs[median_run]
+    busy_ms = busy[median_run]
     paired = paired_idle_share("train_profile",
                                [(w, sum(ms for ms, _ in names.values()))
                                 for w, _, names in runs])
     ours = {}
     for name, (ms, calls) in by_name.items():
-        for kernel in (*FLASH_FWD_KERNELS, "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+        for kernel in (*FLASH_FWD_KERNELS, *FLASH_DQ_KERNELS, *FLASH_DKV_KERNELS):
             if kernel in name:
                 prev_ms, prev_calls = ours.get(kernel, (0.0, 0))
                 ours[kernel] = (prev_ms + ms, prev_calls + calls)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     idle_profiled = 1.0 - busy_ms / 1e3 / wall_profiled
-    emit({"phase": "train_profile", "wall_s_profiled": wall_profiled,
+    emit({"phase": "train_profile", "breakdown_pair": median_run,
+          "wall_s_profiled": wall_profiled,
           "wall_s_unprofiled": wall_s,
           "device_busy_s": busy_ms / 1e3 if busy_ms else None,
           "idle_share_paired": paired,

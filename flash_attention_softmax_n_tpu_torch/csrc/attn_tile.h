@@ -1,6 +1,10 @@
 // The Hopper attention tile that K1 (flash_fwd.cu) and K10
 // (prefill_phases.cu) share for bf16 inputs: one CTA takes TQ = 128 query
-// rows of one (b, h) and walks its keys in tiles of TK = 128.
+// rows of one (b, h) and walks its keys in tiles of TK = 128. The backward
+// kernels K5 (flash_bwd_dq.cu) and K6 (flash_bwd_dkv.cu) take the same
+// ring with two resident tiles (Q and dO, or K and V) and walk the other
+// pair; they cut each ring tile into chunks of 64 (or 32) rows, so that
+// two score fragments and their accumulators fit the registers.
 //
 // - Threads: two consumer warpgroups, each owning 64 of the query rows,
 //   and one producer warp whose first lane issues every TMA load (288
@@ -55,20 +59,22 @@ struct Tile {
   static constexpr int GROUP = 8 * ROW;          // bytes of 8 rows: one swizzle repeat
   static constexpr int BOX = TQ * ROW;           // one 128-row box (TQ == TK)
   static constexpr int TILE = BOXES * BOX;       // a whole 128-row tile of q, k or v
-  static constexpr int BAR_AT = TILE * (1 + 2 * STAGES);
-  // q_full, full_k[STAGES], full_v[STAGES], empty[STAGES]; + room to align
-  static constexpr int SMEM = BAR_AT + 8 * (1 + 3 * STAGES) + 1024;
   static_assert(TQ == TK, "one box shape serves q, k and v");
 };
 
-// Q at the base, then slot s's K and V tiles; the barriers after them.
-template <int D>
+// RES resident tiles at the base (K1, K10: Q; K5: Q, dO; K6: K, V), then
+// slot s's two ring tiles (K and V; K6: Q and dO); the barriers after them.
+template <int D, int RES = 1>
 struct Ring {
   using T = Tile<D>;
+  static constexpr int BAR_AT = T::TILE * (RES + 2 * STAGES);
+  // q_full, full_k[STAGES], full_v[STAGES], empty[STAGES]; + room to align
+  static constexpr int SMEM = BAR_AT + 8 * (1 + 3 * STAGES) + 1024;
   uint8_t* mem;  // the generic address of `base`
   uint32_t base, bars;
   __device__ uint32_t q() const { return base; }
-  __device__ uint32_t k(int s) const { return base + T::TILE * (1 + 2 * s); }
+  __device__ uint32_t res(int i) const { return base + T::TILE * i; }
+  __device__ uint32_t k(int s) const { return base + T::TILE * (RES + 2 * s); }
   __device__ uint32_t v(int s) const { return k(s) + T::TILE; }
   __device__ uint32_t q_full() const { return bars; }
   __device__ uint32_t full_k(int s) const { return bars + 8 * (1 + s); }
@@ -78,14 +84,14 @@ struct Ring {
 
 // The ring in dynamic shared memory, aligned to 1 KB; barriers initialised
 // by thread 0, then the whole CTA synchronises once.
-template <int D>
-__device__ __forceinline__ Ring<D> make_ring(uint8_t* smem_raw) {
-  Ring<D> r;
+template <int D, int RES = 1>
+__device__ __forceinline__ Ring<D, RES> make_ring(uint8_t* smem_raw) {
+  Ring<D, RES> r;
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t pad = (1024 - (raw & 1023)) & 1023;
   r.mem = smem_raw + pad;
   r.base = raw + pad;
-  r.bars = r.base + Tile<D>::BAR_AT;
+  r.bars = r.base + Ring<D, RES>::BAR_AT;
   if (threadIdx.x == 0) {
     mbar_init(r.q_full(), 1);
     for (int s = 0; s < STAGES; ++s) {
@@ -108,23 +114,26 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, 
     tma_3d(dst + b * Tile<D>::BOX, map, bar, b * Tile<D>::BOX_COLS, row0, bh);
 }
 
-// The producer (one lane): Q, then `tiles` key tiles from row 0 in order;
-// the first `k_only` of them bring K alone (full_v is then arrived on
-// without bytes, so its phases stay those of the slot), the rest K and V
-// from row (i - k_only) * TK.
-template <int D>
-__device__ __forceinline__ void produce(const Ring<D>& r, const CUtensorMap* qmap,
+// The producer (one lane): the RES resident tiles from row `res_row` on
+// q_full, then `tiles` ring tiles in order from tile `first`; the first
+// `k_only` of them bring K alone (full_v is then arrived on without bytes,
+// so its phases stay those of the slot), the rest K and V from row (first
+// + i - k_only) * TK.
+template <int D, int RES>
+__device__ __forceinline__ void produce(const Ring<D, RES>& r,
+                                        const CUtensorMap* const (&res_maps)[RES], int res_row,
                                         const CUtensorMap* kmap, const CUtensorMap* vmap, int bh,
-                                        int q0, int tiles, int k_only) {
+                                        int first, int tiles, int k_only) {
   using T = Tile<D>;
   if (tiles == 0) return;
-  mbar_expect_tx(r.q_full(), T::TILE);
-  load_tile<D>(r.q(), qmap, r.q_full(), q0, bh);
+  mbar_expect_tx(r.q_full(), RES * T::TILE);
+#pragma unroll
+  for (int i = 0; i < RES; ++i) load_tile<D>(r.res(i), res_maps[i], r.q_full(), res_row, bh);
   int stage = 0;
   uint32_t phase = 0;
   for (int i = 0; i < tiles; ++i) {
     mbar_wait(r.empty(stage), phase ^ 1);
-    const int row = (i < k_only ? i : i - k_only) * TK;
+    const int row = (first + (i < k_only ? i : i - k_only)) * TK;
     mbar_expect_tx(r.full_k(stage), T::TILE);
     load_tile<D>(r.k(stage), kmap, r.full_k(stage), row, bh);
     if (i < k_only) {
@@ -140,36 +149,51 @@ __device__ __forceinline__ void produce(const Ring<D>& r, const CUtensorMap* qma
   }
 }
 
-// s = Q_wg K^T over the D / 16 k16 steps: Q's rows 64 wg .. 64 wg + 63 (A)
-// and the slot's 128 keys (B), both K-major
-template <int D>
-__device__ __forceinline__ void qk(float (&s)[64], uint32_t q, uint32_t k, int wg) {
+// issues s = A B^T over the D / 16 k16 steps as one wgmma group, without
+// waiting: A the 64 rows at `a`, B the 2 M rows at `b` (M = 64, 32 or 16
+// floats: 128, 64 or 32 rows), both K-major tiles of the ring's layout
+template <int D, int M>
+__device__ __forceinline__ void qk_async(float (&s)[M], uint32_t a, uint32_t b) {
   using T = Tile<D>;
   constexpr int PER_BOX = T::BOX_COLS / 16;
   wgmma_fence();
 #pragma unroll
   for (int st = 0; st < D / 16; ++st) {
     const uint32_t off = (st / PER_BOX) * T::BOX + (st % PER_BOX) * 32;
-    wgmma_ss(s, desc_of(q + wg * 64 * T::ROW + off, 16, T::GROUP, T::LAYOUT),
-             desc_of(k + off, 16, T::GROUP, T::LAYOUT), st > 0);
+    wgmma_ss(s, desc_of(a + off, 16, T::GROUP, T::LAYOUT), desc_of(b + off, 16, T::GROUP, T::LAYOUT),
+             st > 0);
   }
   wgmma_commit();
+}
+
+// s = Q_wg K^T: Q's rows 64 wg .. 64 wg + 63 (A) and the slot's 128 keys (B)
+template <int D>
+__device__ __forceinline__ void qk(float (&s)[64], uint32_t q, uint32_t k, int wg) {
+  qk_async<D>(s, q + wg * 64 * Tile<D>::ROW, k);
   wgmma_wait<0>();
   fence_regs(s);
 }
 
-// o += P V over the tile's 8 k16 steps: p[kk] the A fragment of keys 16 kk
-// .. 16 kk + 15, V (keys x D, D contiguous) MN-major: 8-key groups GROUP
-// bytes apart, D's 64-column boxes BOX bytes apart
-template <int D>
-__device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&p)[TK / 16][4],
-                                   uint32_t v) {
+// issues o += P V over STEPS k16 steps as one wgmma group, without waiting:
+// p[kk] the A fragment of rows 16 kk .. 16 kk + 15 of V (rows x D, D
+// contiguous, from `v`), read MN-major: 8-row groups GROUP bytes apart, D's
+// 64-column boxes BOX bytes apart
+template <int D, int STEPS>
+__device__ __forceinline__ void pv_async(float (&o)[D / 2], const uint32_t (&p)[STEPS][4],
+                                         uint32_t v) {
   using T = Tile<D>;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < TK / 16; ++kk)
+  for (int kk = 0; kk < STEPS; ++kk)
     wgmma<1>(o, p[kk], desc_of(v + kk * 16 * T::ROW, T::BOX, T::GROUP, T::LAYOUT));
   wgmma_commit();
+}
+
+// o += P V over the tile's 8 k16 steps
+template <int D>
+__device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&p)[TK / 16][4],
+                                   uint32_t v) {
+  pv_async<D>(o, p, v);
   wgmma_wait<0>();
   fence_regs(o);
 }
@@ -183,17 +207,43 @@ __device__ __forceinline__ uint32_t bf16_bits(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// the S fragment, rounded to bf16, as the A fragments of its 8 k16 slices:
-// slice kk holds columns 16 kk + [0, 8) (j = 2 kk) and 16 kk + [8, 16) (j =
-// 2 kk + 1), rows g (i = 0) and g + 8 (i = 1)
-__device__ __forceinline__ void to_a_frags(const float (&s)[64], uint32_t (&p)[TK / 16][4]) {
+// an m64nN fragment (M = N / 2 floats), rounded to bf16, as the A
+// fragments of its N / 16 k16 slices: slice kk holds columns 16 kk + [0, 8)
+// (j = 2 kk) and 16 kk + [8, 16) (j = 2 kk + 1), rows g (i = 0) and g + 8
+// (i = 1)
+template <int M>
+__device__ __forceinline__ void to_a_frags(const float (&s)[M], uint32_t (&p)[M / 8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < TK / 16; ++kk) {
+  for (int kk = 0; kk < M / 8; ++kk) {
     const int j0 = 8 * kk, j1 = 8 * kk + 4;
     p[kk][0] = bf16_bits(s[j0], s[j0 + 1]);
     p[kk][1] = bf16_bits(s[j0 + 2], s[j0 + 3]);
     p[kk][2] = bf16_bits(s[j1], s[j1 + 1]);
     p[kk][3] = bf16_bits(s[j1 + 2], s[j1 + 3]);
+  }
+}
+
+// x * scale_q rounded to bf16, in place over rows 64 wg .. 64 wg + 63 of
+// the 128-row tile at `tile` (generic address): each thread of the
+// warpgroup rewrites 16-byte chunks; the caller then fences the async proxy
+// and synchronises before wgmma reads the rows
+template <int D>
+__device__ __forceinline__ void scale_q_rows(uint8_t* tile, int wg, float scale_q) {
+  using T = Tile<D>;
+  const int t = threadIdx.x % 128;
+#pragma unroll
+  for (int b = 0; b < T::BOXES; ++b) {
+    uint4* rows = reinterpret_cast<uint4*>(tile + b * T::BOX + wg * 64 * T::ROW);
+    for (int c = t; c < 64 * T::ROW / 16; c += 128) {
+      uint4 w = rows[c];
+      uint32_t* u = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[e]));
+        u[e] = bf16_bits(f.x * scale_q, f.y * scale_q);
+      }
+      rows[c] = w;
+    }
   }
 }
 
@@ -249,6 +299,18 @@ inline bool encode_rows(CUtensorMap* map, const void* base, long long heads, int
             unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
             box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// host: the maps of q (L rows), k and v (S rows) and, for the backward
+// kernels, of dout (L rows)
+struct AttnMaps {
+  CUtensorMap q, k, v, dout;
+};
+inline bool encode_attn(AttnMaps* m, const FasnAttn& a, int D, const void* dout = nullptr) {
+  const long long heads = (long long)a.B * a.H;
+  return encode_rows(&m->q, a.q, heads, a.L, D) && encode_rows(&m->k, a.k, heads, a.S, D) &&
+         encode_rows(&m->v, a.v, heads, a.S, D) &&
+         (dout == nullptr || encode_rows(&m->dout, dout, heads, a.L, D));
 }
 
 // grid: x the (b, h) pair, y the query tile, heaviest (last) first

@@ -53,8 +53,8 @@ void check_on(const at::Tensor& t, const at::Tensor& ref, const char* what) {
                     ": tensors must start on a 4-byte boundary");
 }
 
-// bf16 inputs of the TMA kernels (K1, K10): each tensor's first row on a
-// 16-byte boundary, as TMA requires (their rows are 64-256 bytes)
+// bf16 inputs of the TMA kernels (K1, K5, K6, K10): each tensor's first row
+// on a 16-byte boundary, as TMA requires (their rows are 64-256 bytes)
 void check_tma(std::initializer_list<const at::Tensor*> ts, const char* what) {
   for (const at::Tensor* t : ts)
     TORCH_CHECK_VALUE(t->scalar_type() != at::kBFloat16 ||
@@ -159,6 +159,7 @@ void flash_bwd_dq(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
   const FasnAttn a = attn_args(q, k, v, bias, slopes, seed, scale_q, causal, drop_threshold,
                                drop_mult, what);
   check_bwd_rows(q, dout, lse, delta, what);
+  check_tma({&q, &k, &v, &dout}, what);
   check_on(dq, q, what);
   check_shape(dq, q.sizes(), q.scalar_type(), what, "dq");
   float* dbias_ptr = nullptr;
@@ -193,6 +194,7 @@ void flash_bwd_dkv(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v
   const FasnAttn a = attn_args(q, k, v, bias, slopes, seed, scale_q, causal, drop_threshold,
                                drop_mult, what);
   check_bwd_rows(q, dout, lse, delta, what);
+  check_tma({&q, &k, &v, &dout}, what);
   check_on(dk, q, what);
   check_on(dv, q, what);
   check_shape(dk, k.sizes(), k.scalar_type(), what, "dk");

@@ -7,25 +7,50 @@
 //   dv = (p * dropmult)^T dout,
 //   dk = (p (dp * dropmult - delta))^T (q * scale)   (q arrives scaled).
 //
-// Design: one CTA per (KV tile of 64 keys, head, batch) loops over the
-// query tiles of 64 rows, from the first one that can see the tile
-// causally, so dk and dv accumulate in registers with no reduction across
-// CTAs and no atomics. 256 threads: thread (ty, tx) owns key rows ty + 16 i,
-// query columns tx + 16 j of the transposed score tile, and dk/dv columns
-// tx + 16 c. Each score tile is recomputed as K1 forms it
-// (flash_common.h); the dropped p (rounded to dout's dtype) and ds
-// (rounded to q's dtype) go through shared memory for the two transposed
-// products. Scalar f32 FMAs from shared memory (no tensor cores yet): bound
-// by shared-memory bandwidth and f32 issue rate, far from the card's bf16
-// tensor-core bound of 8 D operations per visible (query, key) pair.
+// What bounds it on the H100: 8 D operations per visible (query, key) pair
+// (S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q) at 989 TFLOP/s
+// (bf16): 0.070 ms at the training shape B2 H32 L=S=2048 d64 causal.
+//
+// bf16: flash_bwd_dkv_wgmma_kernel, on the attention tile of attn_tile.h
+// with K and V resident. One CTA takes 128 keys of one (b, h); the producer
+// warp loads K and V once, then keeps Q and dO tiles of 128 query rows in
+// flight with TMA, from the first tile that sees the CTA's keys. Two
+// consumer warpgroups of 64 keys each walk every tile in chunks of 64
+// query rows (32 at D 128), so that S^T, dP^T, dK and dV nearly fit the 168
+// registers a thread of 288 gets (ptxas spills 40, 56 and 1008 bytes at D
+// 32, 64 and 128): S^T = K Q_s^T and dP^T = V dO^T as two
+// wgmma groups in flight together, with the fragment's rows keys and its
+// columns queries (lse and delta per column, the dropout hash at (b, h,
+// column, row)); then dV += (P mult)^T dO and dK += dS^T Q_s with the
+// dropped p (rounded to dout's dtype) and ds (rounded to q's) passed from
+// the fragments to A-operand registers, dO and Q_s read MN-major. Q_s, q *
+// scale rounded to bf16, is formed in shared memory: each warpgroup
+// rewrites half of the Q tile, then the consumers synchronise once a tile,
+// which also publishes the tile's lse and delta that each warpgroup copies
+// into its own shared buffer. dk and dv accumulate in registers over the
+// sweep: no reduction across CTAs, no atomics, repeat calls bit-equal. The
+// low key tiles, which causal rows see most, launch first. Inputs must
+// start on 16 bytes (TMA); the operator raises otherwise.
+//
+// f32: flash_bwd_dkv_kernel, scalar f32 FMAs from shared memory on 64 x 64
+// tiles (wgmma has no f32 x f32 product): one CTA per (KV tile of 64 keys,
+// head, batch) loops over the query tiles of 64 rows; thread (ty, tx) owns
+// key rows ty + 16 i, query columns tx + 16 j of the transposed score tile,
+// and dk/dv columns tx + 16 c; the dropped p and ds go through shared
+// memory for the two transposed products.
 //
 // lse is clamped at DEAD_LSE as in K5, so dead rows (n == 0, L > S) add
 // nothing; query rows past L and keys past S are masked in the tile.
 
+#include "attn_tile.h"
 #include "flash_common.h"
 
 namespace fasn {
 namespace {
+
+// ---------------------------------------------------------------------------
+// f32: scalar FMAs
+// ---------------------------------------------------------------------------
 
 template <int D>
 constexpr size_t dkv_smem_bytes() {
@@ -185,18 +210,187 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: TMA and wgmma (attn_tile.h)
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct DkvShape {
+  static constexpr int QC = D <= 64 ? 64 : 32;  // query rows of a chunk
+  // after the ring's barriers: per warpgroup two buffers (by tile parity)
+  // of a tile's clamped lse in log2 units and its delta
+  static constexpr int ROWS_AT = attn::Ring<D, 2>::BAR_AT + 64;
+  static constexpr int SMEM = attn::Ring<D, 2>::SMEM + 64 + 2 * 2 * 2 * attn::TQ * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(attn::THREADS, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const __grid_constant__ CUtensorMap vmap,
+                               const __grid_constant__ CUtensorMap domap, const FasnAttn a,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv) {
+  using namespace attn;
+  using T = Tile<D>;
+  constexpr int QC = DkvShape<D>::QC;
+  extern __shared__ uint8_t smem_raw[];
+  // resident: K, V; each ring slot: Q (as "k") and dO (as "v")
+  const Ring<D, 2> r = make_ring<D, 2>(smem_raw);
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.y * TK;
+  const int L = a.L, S = a.S, off = S - L;
+  // the first query tile with a row that sees key k0 (row >= k0 - off)
+  const int first = a.causal ? max(0, k0 - off) / TQ : 0;
+  const int tiles = max(0, (L + TQ - 1) / TQ - first);
+  if (threadIdx.x >= CONSUMERS) {
+    if (threadIdx.x == CONSUMERS) {
+      const CUtensorMap* const res[2] = {&kmap, &vmap};
+      produce<D, 2>(r, res, k0, &qmap, &domap, bh, first, tiles, 0);
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int kw0 = k0 + 64 * wg;  // the warpgroup's first key
+  const int g = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
+  const ScoreMods mods = score_mods(a, b, h);
+  const Dropout drop = dropout_of(a);
+  const bool plain = mods.bias == nullptr && !mods.alibi;
+  float* rows = reinterpret_cast<float*>(r.mem + DkvShape<D>::ROWS_AT) + wg * 2 * 2 * TQ;
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  // thread t carries query row t of the next tile: lse (clamped, log2
+  // units) and delta, loaded a tile ahead
+  auto row_vals = [&](int it, float& l2, float& dl) {
+    const int qi = (first + it) * TQ + t;
+    l2 = qi < L ? fmaxf(lse[(long long)bh * L + qi], DEAD_LSE) * LOG2E : 0.f;
+    dl = qi < L ? delta[(long long)bh * L + qi] : 0.f;
+  };
+  float next_l2 = 0.f, next_dl = 0.f;
+  if (tiles > 0) {
+    row_vals(0, next_l2, next_dl);
+    mbar_wait(r.q_full(), 0);
+  }
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = 0; it < tiles; ++it) {
+    const int q0 = (first + it) * TQ;
+    float* buf = rows + (it % 2) * 2 * TQ;  // [0, TQ) lse, [TQ, 2 TQ) delta
+    buf[t] = next_l2;
+    buf[TQ + t] = next_dl;
+    if (it + 1 < tiles) row_vals(it + 1, next_l2, next_dl);
+    mbar_wait(r.full_k(stage), phase);
+    mbar_wait(r.full_v(stage), phase);
+    // Q_s: this warpgroup's half of the Q tile, then both warpgroups meet
+    scale_q_rows<D>(r.mem + (r.k(stage) - r.base), wg, a.scale_q);
+    fence_proxy_async();
+    asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
+#pragma unroll 1
+    for (int c = 0; c < TQ / QC; ++c) {
+      const int qc0 = q0 + c * QC;
+      // no key of the warpgroup is seen by a row of this chunk: skip it
+      if (kw0 >= S || qc0 >= L || (mods.causal && qc0 + QC - 1 + off < kw0)) continue;
+      const uint32_t qc = r.k(stage) + c * QC * T::ROW, doc = r.v(stage) + c * QC * T::ROW;
+      float s[QC / 2], dp[QC / 2];
+      qk_async<D>(s, r.res(0) + wg * 64 * T::ROW, qc);
+      qk_async<D>(dp, r.res(1) + wg * 64 * T::ROW, doc);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      // fragment row: key kw0 + g + 8 i; column: query qc0 + 8 j + c0 + cc
+      if (!plain || qc0 + QC > L || kw0 + 64 > S || (mods.causal && qc0 + off < kw0 + 63)) {
+#pragma unroll
+        for (int e = 0; e < QC / 2; ++e)
+          s[e] = mods(s[e], qc0 + 8 * (e / 4) + c0 + e % 2, kw0 + g + 8 * ((e / 2) % 2));
+      }
+#pragma unroll
+      for (int e = 0; e < QC / 2; ++e) {
+        const int col = c * QC + 8 * (e / 4) + c0 + e % 2;
+        const float p = exp2f(fmaf(s[e], LOG2E, -buf[col]));
+        if (drop.on) {
+          const float mult = drop(b, h, q0 + col, kw0 + g + 8 * ((e / 2) % 2));
+          s[e] = p * mult;
+          dp[e] = p * (dp[e] * mult - buf[TQ + col]);
+        } else {
+          s[e] = p;
+          dp[e] = p * (dp[e] - buf[TQ + col]);
+        }
+      }
+      uint32_t fp[QC / 16][4], fs[QC / 16][4];
+      to_a_frags(s, fp);
+      pv_async<D>(dv_acc, fp, doc);
+      to_a_frags(dp, fs);
+      pv_async<D>(dk_acc, fs, qc);
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+    }
+    if (t == 0) mbar_arrive(r.empty(stage));
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  const int valid = min(64, S - kw0);
+  if (valid <= 0) return;
+  const auto same = [](int, float x) { return x; };
+  store_rows<D>(dk_acc, dk + ((long long)bh * S + kw0) * D, valid, same);
+  store_rows<D>(dv_acc, dv + ((long long)bh * S + kw0) * D, valid, same);
+}
+
+template <int D>
+cudaError_t launch_wgmma(const FasnAttn& a, const void* dout, const float* lse,
+                         const float* delta, void* dk, void* dv, cudaStream_t stream) {
+  using namespace attn;
+  auto kernel = flash_bwd_dkv_wgmma_kernel<D>;
+  constexpr int smem = DkvShape<D>::SMEM;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  AttnMaps m{};
+  if (!encode_attn(&m, a, D, dout)) return cudaErrorInvalidValue;
+  // x the (b, h) pair, y the key tile: the low tiles, which causal rows see
+  // most, first
+  const dim3 grid(static_cast<unsigned>((long long)a.B * a.H),
+                  static_cast<unsigned>((a.S + TK - 1) / TK));
+  kernel<<<grid, attn::THREADS, smem, stream>>>(m.q, m.k, m.v, m.dout, a, lse, delta,
+                                                static_cast<__nv_bfloat16*>(dk),
+                                                static_cast<__nv_bfloat16*>(dv));
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace fasn
 
 extern "C" int fasn_flash_bwd_dkv(const FasnAttn* a, const void* dout, const float* lse,
                                   const float* delta, void* dk, void* dv, cudaStream_t stream) {
   using namespace fasn;
+  if (a->dtype == 1) {
+    switch (a->D) {
+      case 32:
+        return launch_wgmma<32>(*a, dout, lse, delta, dk, dv, stream);
+      case 64:
+        return launch_wgmma<64>(*a, dout, lse, delta, dk, dv, stream);
+      case 128:
+        return launch_wgmma<128>(*a, dout, lse, delta, dk, dv, stream);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
+  if (a->dtype != 0) return cudaErrorInvalidValue;
   const dim3 grid((a->S + BK - 1) / BK, a->H, a->B);
-  return dispatch(a->dtype, a->D, [&](auto t, auto d) {
+  auto f32 = [&](auto t, auto d) {
     using T = typename decltype(t)::type;
     constexpr int D = decltype(d)::value;
     return launch(flash_bwd_dkv_kernel<T, D>, grid, dkv_smem_bytes<D>(), stream, *a,
                   static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
                   static_cast<T*>(dv));
-  });
+  };
+  return dispatch_d<float>(a->D, f32);
 }

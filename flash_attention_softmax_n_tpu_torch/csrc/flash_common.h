@@ -5,9 +5,9 @@
 // every dropout decision the same way. The prefill-phase kernel K10
 // (prefill_phases.cu) takes the tile shape, conversions, reductions and
 // launch helpers. The tile shape, thread layout and 16-lane reductions are
-// those of the scalar f32 kernels; the bf16 kernels of K1 and K10 run on
-// attn_tile.h's tensor-core tile and take the score modifiers, the dropout
-// hash and NEG_INF from here. Device code: only the .cu files, compiled by
+// those of the scalar f32 kernels; the bf16 kernels of K1, K5, K6 and K10
+// run on attn_tile.h's tensor-core tile and take the score modifiers, the
+// dropout hash, NEG_INF and DEAD_LSE from here. Device code: only the .cu files, compiled by
 // nvcc, include it.
 
 #pragma once
@@ -128,8 +128,9 @@ __device__ __forceinline__ Dropout dropout_of(const FasnAttn& a) {
   return d;
 }
 
-// Calls f(Type<T>{}, Int<D>{}) for the inputs' dtype (0 f32, 1 bf16) and
-// head dim (32, 64, 128); cudaErrorInvalidValue for anything else.
+// Calls f(Type<T>{}, Int<D>{}) for the head dim (32, 64, 128);
+// cudaErrorInvalidValue for anything else. The scalar kernels take T =
+// float (bf16 inputs run on attn_tile.h).
 template <typename T>
 struct Type {
   using type = T;
@@ -151,13 +152,6 @@ cudaError_t dispatch_d(int D, F& f) {
     default:
       return cudaErrorInvalidValue;
   }
-}
-
-template <typename F>
-cudaError_t dispatch(int dtype, int D, F f) {
-  if (dtype == 0) return dispatch_d<float>(D, f);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(D, f);
-  return cudaErrorInvalidValue;
 }
 
 // launch with `smem` bytes of dynamic shared memory, raising the kernel's

@@ -191,27 +191,6 @@ __global__ void __launch_bounds__(THREADS)
 // bf16: TMA and wgmma (attn_tile.h)
 // ---------------------------------------------------------------------------
 
-// q * scale_q rounded to bf16, in place over the warpgroup's 64 Q rows
-template <int D>
-__device__ __forceinline__ void scale_q_rows(uint8_t* q, int wg, float scale_q) {
-  using T = attn::Tile<D>;
-  const int t = threadIdx.x % 128;
-#pragma unroll
-  for (int b = 0; b < T::BOXES; ++b) {
-    uint4* rows = reinterpret_cast<uint4*>(q + b * T::BOX + wg * 64 * T::ROW);
-    for (int c = t; c < 64 * T::ROW / 16; c += 128) {
-      uint4 w = rows[c];
-      uint32_t* u = reinterpret_cast<uint32_t*>(&w);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[e]));
-        u[e] = attn::bf16_bits(f.x * scale_q, f.y * scale_q);
-      }
-      rows[c] = w;
-    }
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(attn::THREADS, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -228,7 +207,10 @@ __global__ void __launch_bounds__(attn::THREADS, 1)
   const int kv_end = a.causal ? min(S, min(q0 + TQ, L) + off) : S;
   const int tiles = kv_end > 0 ? (kv_end + TK - 1) / TK : 0;
   if (threadIdx.x >= CONSUMERS) {
-    if (threadIdx.x == CONSUMERS) produce<D>(r, &qmap, &kmap, &vmap, bh, q0, tiles, 0);
+    if (threadIdx.x == CONSUMERS) {
+      const CUtensorMap* const res[1] = {&qmap};
+      produce<D, 1>(r, res, q0, &kmap, &vmap, bh, 0, tiles, 0);
+    }
     return;
   }
 
@@ -332,15 +314,12 @@ cudaError_t launch_wgmma(const FasnAttn& a, float n, void* o, float* lse, cudaSt
   using namespace attn;
   auto kernel = flash_fwd_wgmma_kernel<D>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<D>::SMEM);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<D>::SMEM);
   if (err != cudaSuccess) return err;
-  const long long heads = (long long)a.B * a.H;
-  CUtensorMap qm{}, km{}, vm{};
-  if (!encode_rows(&qm, a.q, heads, a.L, D) || !encode_rows(&km, a.k, heads, a.S, D) ||
-      !encode_rows(&vm, a.v, heads, a.S, D))
-    return cudaErrorInvalidValue;
-  kernel<<<tile_grid(heads, a.L), attn::THREADS, Tile<D>::SMEM, stream>>>(
-      qm, km, vm, a, n, static_cast<__nv_bfloat16*>(o), lse);
+  AttnMaps m{};
+  if (!encode_attn(&m, a, D)) return cudaErrorInvalidValue;
+  kernel<<<tile_grid((long long)a.B * a.H, a.L), attn::THREADS, Ring<D>::SMEM, stream>>>(
+      m.q, m.k, m.v, a, n, static_cast<__nv_bfloat16*>(o), lse);
   return cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels: K7
-// (qmm.cu), K1 (flash_fwd.cu) and K10 (prefill_phases.cu). Inline PTX for
+// (qmm.cu), K1 (flash_fwd.cu), K5 (flash_bwd_dq.cu), K6 (flash_bwd_dkv.cu)
+// and K10 (prefill_phases.cu). Inline PTX for
 // shared-memory addresses, mbarriers, TMA loads, proxy fences, wgmma
 // operand descriptors and wgmma itself, and on the host libcuda's
 // cuTensorMapEncodeTiled. Device code: only the .cu files, compiled by
@@ -195,8 +196,8 @@ __device__ __forceinline__ void wgmma(float (&d)[16], const uint32_t (&a)[4], ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
 }
 
-// d = A (64 x 16) * B (16 x 128) + (accumulate ? d : 0), bf16 A and B both
-// K-major in shared memory
+// d = A (64 x 16) * B (16 x N) + (accumulate ? d : 0), bf16 A and B both
+// K-major in shared memory, N = 128, 64 or 32 by the size of d
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
       "{\n"
@@ -206,6 +207,30 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
       ", %64, %65, p, 1, 1, 0, 0;\n"
       "}\n"
       : HOP_D64(HOP_F)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOP_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOP_D32(HOP_F)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " HOP_REGS16
+      ", %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOP_D16(HOP_F, 0)
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

@@ -41,11 +41,13 @@ int fasn_flash_fwd(const FasnAttn* a, float n, void* o, float* lse, cudaStream_t
 // forward's, or a caller's global one) and delta = rowsum(dout * o) (B,H,L)
 // f32; dq is multiplied by `scale` (unrounded). dbias null or (B,H,L,S) f32;
 // dslope_rows null or (B,H,L) f32, each query row's sum of ds * -|dist|.
+// bf16 takes the TMA kernel: q, k, v and dout must start on 16 bytes.
 int fasn_flash_bwd_dq(const FasnAttn* a, const void* dout, const float* lse, const float* delta,
                       float scale, void* dq, float* dbias, float* dslope_rows,
                       cudaStream_t stream);
 
-// K6 (flash_bwd_dkv.cu): dk like k and dv like v, from the inputs of K5.
+// K6 (flash_bwd_dkv.cu): dk like k and dv like v, from the inputs of K5;
+// bf16 takes the TMA kernel, as K5 does.
 int fasn_flash_bwd_dkv(const FasnAttn* a, const void* dout, const float* lse, const float* delta,
                        void* dk, void* dv, cudaStream_t stream);
 

@@ -221,8 +221,10 @@ __global__ void __launch_bounds__(attn::THREADS, 1)
   const int n_k = (kv_end + TK - 1) / TK;
   const int k_only = NORMALISE ? n_k : 0;  // pass 1 needs no V
   if (threadIdx.x >= CONSUMERS) {
-    if (threadIdx.x == CONSUMERS)
-      produce<D>(r, &qmap, &kmap, &vmap, bh, q0, k_only + n_k, k_only);
+    if (threadIdx.x == CONSUMERS) {
+      const CUtensorMap* const res[1] = {&qmap};
+      produce<D, 1>(r, res, q0, &kmap, &vmap, bh, 0, k_only + n_k, k_only);
+    }
     return;
   }
 
@@ -318,13 +320,13 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, l
   using namespace attn;
   auto kernel = prefill_phase_wgmma_kernel<D, MODE>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<D>::SMEM);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<D>::SMEM);
   if (err != cudaSuccess) return err;
   CUtensorMap qm{}, km{}, vm{};
   if (!encode_rows(&qm, q, heads, L, D) || !encode_rows(&km, k, heads, L, D) ||
       !encode_rows(&vm, v, heads, L, D))
     return cudaErrorInvalidValue;
-  kernel<<<tile_grid(heads, L), attn::THREADS, Tile<D>::SMEM, stream>>>(
+  kernel<<<tile_grid(heads, L), attn::THREADS, Ring<D>::SMEM, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), L);
   return cudaGetLastError();
 }

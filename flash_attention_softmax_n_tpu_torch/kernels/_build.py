@@ -11,9 +11,9 @@ for both sides, so the compiler checks every argument list;
 ``flash_common.h`` holds the device code that the flash-attention kernels
 (K1, K5, K6) and the prefill-phase kernel K10 share; ``hopper.h`` the
 inline PTX of the tensor-core kernels (TMA, mbarriers, wgmma and its
-descriptors) and libcuda's tensor-map encoder, which K7, K1 and K10
-include; ``attn_tile.h`` the TMA + wgmma attention tile of K1's and K10's
-bf16 kernels.
+descriptors) and libcuda's tensor-map encoder, which K7, K1, K5, K6 and
+K10 include; ``attn_tile.h`` the TMA + wgmma attention tile of K1's, K5's,
+K6's and K10's bf16 kernels.
 
 The library lands in ``_build/`` beside the package (listed in
 ``.gitignore``), named by a hash of the sources, flags and PyTorch version,

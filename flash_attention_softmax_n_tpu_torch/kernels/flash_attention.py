@@ -181,8 +181,10 @@ def flash_bwd_reference(q, k, v, bias, slopes, seed, o, lse, do, *,
     Rounding points follow the kernels: lse is clamped at DEAD_LSE,
     ``p = exp(s - lse)``, dp = do v^T in f32 times the dropout multiplier,
     ``ds = p (dp - delta)``; ds is rounded to k's dtype for dq (times the
-    scale), to q's dtype for dk (against the scaled q), and the dropped p to
-    do's dtype for dv. dbias is ds as f32 (B,H,L,S) when a bias is given
+    scale) and to q's dtype for dk (against the scaled q); dv takes the
+    dropped p in f32 against do widened to f32, as the JAX kernel does (the
+    bf16 kernel rounds it to bf16 for the tensor cores, within the card
+    tests' tolerance). dbias is ds as f32 (B,H,L,S) when a bias is given
     and ``grad_bias``; dslopes (H,) is the sum of ``ds * -|dist|`` over
     batch and positions when slopes are given and ``grad_slopes``.
     """
@@ -200,7 +202,7 @@ def flash_bwd_reference(q, k, v, bias, slopes, seed, o, lse, do, *,
     ds = p * (dp - delta)
     dq = ((ds.to(k.dtype).float() @ k.float()) * scale).to(q.dtype)
     dk = (ds.to(q.dtype).float().transpose(-1, -2) @ qs).to(k.dtype)
-    dv = (pd.to(q.dtype).float().transpose(-1, -2) @ do).to(v.dtype)
+    dv = (pd.transpose(-1, -2) @ do).to(v.dtype)
     dbias = ds if bias is not None and grad_bias else None
     dslopes = None
     if slopes is not None and grad_slopes:

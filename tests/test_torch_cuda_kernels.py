@@ -12,9 +12,10 @@ the backward (K5, K6) bias, ALiBi and dropout in every combination; for
 K7-K9 every mode (int8, W8A8, int4, W4A8; dense, int8, int8-compute and
 fp8 caches), ragged M/N/F, slot lengths 0 and full, strided cache views;
 K10 in its four modes at head dims 32/64/128, bf16 and f32, ragged L. The
-bf16 K1 and K10 run the TMA + wgmma tile (128-row tiles): L and S ending
-mid-tile, every bias broadcast, ALiBi, dropout, and misaligned inputs that
-must raise.
+bf16 K1, K5, K6 and K10 run the TMA + wgmma tile (128-row tiles): L and S
+ending mid-tile, every bias broadcast, ALiBi, dropout (K5's and K6's masks
+bit-equal to the hash), a ring block against an external lse, and
+misaligned inputs that must raise.
 Tolerances: forward f32 within 2e-5 (summation order), bf16 within 2e-2 (p
 rounded to bf16 before PV, as in the plain version), lse within 1e-4;
 gradients within 1e-4 (f32) or 2e-2 (bf16: ds rounds to bf16 on either side
@@ -177,7 +178,19 @@ def _attn_inputs(gen, dtype, B, H, L, S, d, *, bias_shape=None, alibi=False,
 
 def _assert_close(got, want, tol):
     err = float((got.float() - want.float()).abs().max())
-    assert err <= tol * max(1.0, float(want.float().abs().max())), err
+    top = float(want.float().abs().max())
+    assert err <= tol * max(1.0, top), (err, "max |plain|", top)
+
+
+# K5's and K6's bf16 gradients as a whole: ||got - plain|| within 1e-2 of
+# max(1, ||plain||), as chip_smoke.BWD_NORM_TOL holds them; an error only
+# on far tiles, small beside max |plain|, still moves it
+_BWD_NORM_TOL = 1e-2
+
+
+def _assert_norm_close(got, want, tol):
+    err = float((got.float() - want.float()).norm()) / max(1.0, float(want.float().norm()))
+    assert err <= tol, (err, "max |plain|", float(want.float().abs().max()))
 
 
 def _fwd_bwd(fn_fwd, fn_bwd, q, k, v, do, extras, *, n, causal, grad_bias=True):
@@ -263,13 +276,15 @@ def test_flash_kernels_repeat_bit_equal(gen, dtype):
     assert all(torch.equal(a, b) for a, b in zip(flat(first), flat(again)))
 
 
-def test_dropout_masks_bit_equal_to_the_hash(gen):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_masks_bit_equal_to_the_hash(gen, dtype):
     # q = k = 0 makes p uniform (1/S), so with v = I (K1), dout = I (K6:
     # dv = pd^T) and o = 0 against an external lse = log S (K5: dbias = ds =
-    # pd * dp with dp = 1), the kept entries are exactly the nonzero ones
+    # pd * dp with dp = 1), the kept entries are exactly the nonzero ones;
+    # bf16 runs the wgmma kernels (head dim N = 128, one tile)
     B, H, N = 2, 4, 128
-    z = torch.zeros((B, H, N, N), device="cuda")
-    eye = torch.eye(N, device="cuda").expand(B, H, N, N).contiguous()
+    z = torch.zeros((B, H, N, N), device="cuda", dtype=dtype)
+    eye = torch.eye(N, device="cuda").expand(B, H, N, N).to(dtype).contiguous()
     seed = torch.tensor([-99], dtype=torch.int32, device="cuda")
     rate = 0.3
     keep = fa.dropout_multiplier(seed, (B, H, N, N), rate, "cuda") > 0
@@ -366,16 +381,90 @@ def test_flash_fwd_wgmma_rejects_misaligned_inputs(gen):
     assert _build.LAUNCHES["flash_fwd"] == before
 
 
-def test_block_grads_against_an_external_lse(gen):
-    q, k, v, do, _ = _attn_inputs(gen, torch.float32, 1, 2, 120, 70, 64)
-    lse = torch.randn((1, 2, 120), generator=gen, device="cuda") + 6.0
-    o = torch.randn_like(q)
-    got = fa.flash_attention_block_grads(q, k, v, o, lse, do, is_causal=True)
-    want = fa.flash_bwd_reference(q, k, v, None, None, None, o, lse, do,
-                                  scale=64 ** -0.5, is_causal=True)[:3]
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 64),
+                                     (torch.bfloat16, 128)])
+def test_block_grads_against_an_external_lse(gen, dtype, d):
+    # the ring's use: one kv block against a global lse (here from the same
+    # block and 50 more keys), o and dout of the whole range
+    L, S = 200, 140
+    q, k, v, do, _ = _attn_inputs(gen, dtype, 1, 2, L, S + 50, d)
+    o, lse = fa.flash_fwd_reference(q, k, v, None, n=1.0, scale=d ** -0.5, is_causal=True)
+    kb, vb = k[:, :, 50:].contiguous(), v[:, :, 50:].contiguous()
+    got = fa.flash_attention_block_grads(q, kb, vb, o, lse, do, is_causal=True)
+    want = fa.flash_bwd_reference(q, kb, vb, None, None, None, o, lse, do,
+                                  scale=d ** -0.5, is_causal=True)[:3]
     for g, w in zip(got, want):
-        _assert_close(g, w, 1e-4)
+        if dtype == torch.float32:
+            _assert_close(g, w, 1e-4)
+        else:
+            _assert_close(g, w, 2e-2)
+            _assert_norm_close(g, w, _BWD_NORM_TOL)
 
+
+# K5's and K6's bf16 kernels (TMA + wgmma, on K1's tile): the shapes of
+# _WGMMA_SHAPES, each backward held alone against the plain version from
+# the plain forward's o and lse, within 2e-2 of max(1, |plain|) (ds and the
+# dropped p round to bf16 on either side of a tie; the kernel rounds the
+# dropped p to bf16 for dv, the plain version keeps it in f32) and within
+# _BWD_NORM_TOL of max(1, ||plain||); dbias within 1e-4 (f32, from the same p);
+# repeat calls bit-equal
+def _bwd_bf16(gen, B, H, L, S, d, *, n=1.0, causal=True, **extras):
+    q, k, v, do, ex = _attn_inputs(gen, torch.bfloat16, B, H, L, S, d, **extras)
+    kw = dict(n=n, scale=d ** -0.5, is_causal=causal, slopes=ex["slopes"], seed=ex["seed"],
+              dropout_rate=ex["dropout_rate"])
+    o, lse = fa.flash_fwd_reference(q, k, v, ex["bias"], **kw)
+    args = (q, k, v, ex["bias"], ex["slopes"], ex["seed"], o, lse, do)
+    bkw = dict(scale=d ** -0.5, is_causal=causal, dropout_rate=ex["dropout_rate"])
+    before = {name: _build.LAUNCHES[name] for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+    got = fa.flash_bwd(*args, **bkw)
+    assert all(_build.LAUNCHES[name] == c + 1 for name, c in before.items())
+    want = fa.flash_bwd_reference(*args, **bkw)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias", "dslopes"), got, want):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            _assert_close(g, w, 1e-4 if name == "dbias" else 2e-2)
+            _assert_norm_close(g, w, _BWD_NORM_TOL)
+    again = fa.flash_bwd(*args, **bkw)
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, again))
+    return got
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("n", [0.0, 1.0])
+@pytest.mark.parametrize("shape", _WGMMA_SHAPES, ids=lambda s: "L{}-S{}-{}".format(*s))
+def test_flash_bwd_wgmma_matches_plain(gen, d, n, shape):
+    L, S, causal = shape
+    dq, dk, dv, _, _ = _bwd_bf16(gen, 1, 2, L, S, d, n=n, causal=causal)
+    if n == 0 and causal and L > S:
+        dead = torch.arange(L, device="cuda") + (S - L) < 0
+        assert bool((dq[:, :, dead] == 0).all())
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("extra", ["bias11", "bias21", "bias13", "bias23", "alibi", "dropout",
+                                   "all"])
+def test_flash_bwd_wgmma_extras_match_plain(gen, d, extra):
+    bias_shape = {"bias11": (1, 1), "bias21": (2, 1), "bias13": (1, 3), "bias23": (2, 3),
+                  "all": (2, 1)}.get(extra)
+    _bwd_bf16(gen, 2, 3, 200, 264, d, bias_shape=bias_shape, alibi=extra in ("alibi", "all"),
+              rate=0.25 if extra in ("dropout", "all") else 0.0)
+
+
+def test_flash_bwd_wgmma_rejects_misaligned_inputs(gen):
+    # contiguous bf16 views starting 4 bytes past an allocation: TMA needs 16
+    base = torch.randn(2 * 128 * 64 + 2, device="cuda").to(torch.bfloat16)
+    bad = base[2:].view(1, 2, 128, 64)
+    k = torch.randn((1, 2, 128, 64), device="cuda").to(torch.bfloat16)
+    rows = torch.zeros((1, 2, 128), device="cuda")
+    ops = _build.ops()
+    for q, do in ((bad, k), (k, bad)):
+        before = {name: _build.LAUNCHES[name] for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            fa.flash_bwd(q, k, k, None, None, None, k, rows, do, scale=0.125, is_causal=True)
+        assert all(_build.LAUNCHES[name] == c for name, c in before.items())
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            ops.flash_bwd_dkv(q, k, k, None, None, None, do, rows, rows, torch.empty_like(k),
+                              torch.empty_like(k), 0.125, True, 0, 1.0)
 
 
 # ----------------------------------------------------------------------------

@@ -2,10 +2,12 @@
 
 CPU tensors take the plain versions of K1 (forward) and K5/K6 (backward);
 the JAX side runs its Pallas kernels in interpret mode. The same inputs,
-made with numpy from a seed, go to both. f32 throughout: forwards within
-1e-5 and dq/dk/dv/dbias within 1e-4 (only summation order differs),
-dslopes within rtol 2e-4, atol 1e-5 (a sum over every (b, q, k) of the
-head). The dropout hash must agree bit for bit.
+made with numpy from a seed, go to both. f32: forwards within 1e-5 and
+dq/dk/dv/dbias within 1e-4 (only summation order differs), dslopes within
+rtol 2e-4, atol 1e-5 (a sum over every (b, q, k) of the head). bf16 at
+d128 (the card kernels' tile edges): gradients within one bf16 ulp, with
+few elements differing at all (``test_bf16_grads_match_jax_vjp``). The
+dropout hash must agree bit for bit.
 """
 
 import jax
@@ -156,6 +158,48 @@ def test_grads_match_jax_vjp(n, case):
     if n == 0 and L > S:
         dead = np.arange(L) + (S - L) < 0
         assert (got[0][:, :, dead] == 0).all()
+
+
+@pytest.mark.parametrize("n", [0.0, 1.0])
+@pytest.mark.parametrize("case", [(129, 129), (100, 300)],
+                         ids=["L129-S129", "L100-S300"])
+def test_bf16_grads_match_jax_vjp(n, case):
+    # bf16 at d128, causal, L and S ending mid-tile of the card's 128-row
+    # tiles: the plain version (which the card tests hold K5/K6 against)
+    # must round where JAX's kernels round (ds to bf16 for dq and dk, the
+    # dropped p kept in f32 for dv). Each element within one bf16 ulp
+    # (2^-7 |jax|) plus 2^-9 of the largest |jax| (sums that cancel carry
+    # the f32 summation order and o's own one-ulp differences through
+    # delta); and at most 2% of the elements may differ at all, which a
+    # rounding point out of place (e.g. p rounded to bf16 for dv: 41%)
+    # exceeds.
+    L, S = case
+    arrays = _arrays(13, (1, 2, L, 128), (1, 2, S, 128), (1, 2, S, 128),
+                     (1, 2, L, 128), scale=1.0)
+    bf = [np.asarray(jnp.asarray(a).astype(jnp.bfloat16)) for a in arrays]
+
+    def j_fn(q, k, v):
+        return j_fused(q, k, v, softmax_n_param=n, is_causal=True)
+
+    _, vjp = jax.vjp(j_fn, *(jnp.asarray(a) for a in bf[:3]))
+    want = vjp(jnp.asarray(bf[3]))
+    tin = [torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+           .requires_grad_(True) for a in bf[:3]]
+    out = t_fused(*tin, softmax_n_param=n, is_causal=True)
+    got = torch.autograd.grad(
+        out, tin, grad_outputs=torch.from_numpy(bf[3].astype(np.float32))
+        .to(torch.bfloat16))
+    for w, g, name in zip(want, got, "qkv"):
+        assert g.dtype == torch.bfloat16
+        w = np.asarray(w.astype(jnp.float32))
+        g = g.float().numpy()
+        diff = np.abs(g - w)
+        excess = diff - 2.0 ** -7 * np.abs(w) - 2.0 ** -9 * np.abs(w).max()
+        assert excess.max() <= 0, (name, float(excess.max()))
+        assert (diff > 0).mean() <= 0.02, (name, float((diff > 0).mean()))
+    if n == 0 and L > S:
+        dead = np.arange(L) + (S - L) < 0
+        assert (got[0].float().numpy()[:, :, dead] == 0).all()
 
 
 @pytest.mark.parametrize("bshape", [(2, 2), (1, 2), (2, 1), (1, 1)])
