@@ -16,7 +16,11 @@ Phases, in order, each printing one JSON line:
    tail_append, K7 qmm (int8, W8A8 and int4, at decode M64 and at the
    admission groups' M1024 and M2048; each line prints its plan and
    producer, and the library call's own device time), K8 decode_attn
-   (int8, fp8 and bf16 caches), K9 fused_mlp and K10 prefill_phase (its
+   (int8, fp8 and bf16 caches, at utils/bench_decode_attn.py's lines and
+   seeds; each line prints its split length and product design), K9
+   fused_mlp (M64 and M256; both phases' plans, TFLOP/s and, for
+   information, cuBLAS's device time over the weights dequantized to bf16)
+   and K10 prefill_phase (its
    four modes, B2 H32 L2048 hd64) on the card at their paths' shapes and
    holds each against its plain PyTorch version on the same card tensors
    (K7-K10 also run twice and must be bit-equal); K7's f32 mode (the
@@ -86,6 +90,8 @@ TIMED_RUNS = 25
 # the card's published peaks (utils.profiling.H100), set by main() once the
 # port is imported
 CHIP = None
+# K8's serving lines (utils/bench_decode_attn.LINES), set by main() too
+K8_LINES = ()
 
 ROOT = Path(__file__).resolve().parent
 TPU_PKG = "flash_attention_softmax_n_tpu"
@@ -479,8 +485,19 @@ def check_dequant_f32(torch, pkg, gen, *, M, K, N):
             "library": "torch.matmul in f32 (TF32 off) over the weights dequantized to f32"}
 
 
+# K9's kernels as torch.profiler names them: bf16 x's gate/up phase (and
+# its split sum, which forms h), its down phase (K7's kernel under K9's
+# name) and that phase's split sum; f32 x's scalar kernel and its sum
+FUSED_MLP_KERNELS = ("fused_mlp_gateup_kernel", "fused_mlp_swiglu_sum_kernel",
+                     "fused_mlp_down_kernel", "fused_mlp_down_sum_kernel", "fused_mlp_kernel",
+                     "fused_mlp_sum_kernel")
+
+
 def check_fused_mlp(torch, pkg, gen, *, M, K, F):
-    """K9 at a decode shape (bf16 x, int8 gate/up/down)."""
+    """K9 at a decode shape (bf16 x, int8 gate/up/down). Prints the plan of
+    both phases and, beside ``library: none``, the device time of cuBLAS
+    over the same weights dequantized to bf16 (three ``torch.matmul`` and a
+    silu), from the same profiler session."""
     fm, qt = pkg["fused_mlp"], pkg["qtensor"]
     dev, dt = "cuda", torch.bfloat16
     x = torch.randn((M, K), generator=gen, device=dev).to(dt)
@@ -488,6 +505,7 @@ def check_fused_mlp(torch, pkg, gen, *, M, K, F):
                       bits=8, axis=0) for shape in ((K, F), (K, F), (F, K))]
     args = (x, ws[0].values, ws[0].scales, ws[1].values, ws[1].scales, ws[2].values,
             ws[2].scales)
+    plan = fm.fused_mlp_plan(M, K, F, dt)
 
     def kernel():
         return fm._fused_mlp_cuda(*args)
@@ -495,43 +513,56 @@ def check_fused_mlp(torch, pkg, gen, *, M, K, F):
     def plain():
         return fm.fused_mlp_reference(*args)
 
+    wg_b, wu_b, wd_b = (qt.dequantize(w, dt) for w in ws)
+    silu = torch.nn.functional.silu
+
+    def cublas():
+        return (silu(x @ wg_b) * (x @ wu_b)) @ wd_b
+
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
     same = repeat_equal(torch, kernel, out)
     err = float((out.float() - ref.float()).abs().max())
     scale = float(ref.float().abs().max())
+    err_norm = norm_err(out, ref)
+    norm_tol = BWD_NORM_TOL["bf16"]
     name = f"fused_mlp M{M} K{K} F{F} bf16"
     # h rounds to bf16 before the down product, on either side of a tie
-    require(err <= 2e-2 * scale and same,
-            f"{name}: max |out - plain| {err} > 2e-2 * {scale}, or repeat bit-equal {same}")
+    require(err <= 2e-2 * scale and err_norm <= norm_tol and same,
+            f"{name}: max |out - plain| {err} > 2e-2 * {scale}, or norm-wise {err_norm} > "
+            f"{norm_tol}, or repeat bit-equal {same}")
     b_ms, b_by = bound_ms(M * K * 2 * 2 + 3 * K * F + (2 * F + K) * 4, 6.0 * M * K * F)
+    k_dev, cublas_dev = device_ms_of(torch, [(kernel, FUSED_MLP_KERNELS), (cublas, None)])
     return {"name": name, "route": "cuda", "source": f"{CSRC}/fused_mlp.cu",
             "replaces": f"{TPU_PKG}/kernels/fused_mlp.py:44 _mlp_kernel",
-            "counter": "fused_mlp", "max_abs_err": err, "tolerance": "2e-2 max|out|",
+            "counter": "fused_mlp", "max_abs_err": err, "norm_err": err_norm,
+            "tolerance": "2e-2 max|out|; norm-wise 1e-2 max(1, ||plain||)",
             "repeat_bit_equal": same,
-            "ms": time_ms(torch, kernel), "device_ms": device_ms(torch, kernel, "fused_mlp_"),
+            "plan": {"kernel": plan.kernel, "gate_up": plan.gate_up._asdict(),
+                     "down": plan.down._asdict()},
+            "ms": time_ms(torch, kernel), "device_ms": k_dev,
+            "tflops": tflops(6.0 * M * K * F, k_dev),
             "plain_ms": time_ms(torch, plain), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,
-            "library": "none: no one PyTorch call computes it (three GEMMs and a silu)"}
+            "library": "none: no one PyTorch call computes it (three GEMMs and a silu)",
+            "cublas_device_ms": cublas_dev,
+            "cublas": "three torch.matmul and a silu over the weights dequantized to bf16"}
 
 
-def check_decode_attn(torch, pkg, gen, *, B, KVH, G, S, D, cache):
-    """K8 at the fused loop's shape: bf16 q over an int8 or fp8 (with
-    scales) or a bf16 cache view of one layer, lengths drawn from 0..S."""
+# K8's kernels as torch.profiler names them: the split kernel and the merge
+DECODE_ATTN_KERNELS = ("decode_attn_split_kernel", "decode_attn_merge_kernel")
+
+
+def check_decode_attn(torch, pkg, line):
+    """K8 at one of its serving lines (``bench_decode_attn.LINES``): bf16 q
+    over an int8 or fp8 (with scales) or a bf16 cache view of one layer,
+    lengths drawn from 0..S by the line's own seed, as the K8 benchmark
+    draws them. Prints the plan's split length, products and the CTAs of
+    its grid."""
     da, kv = pkg["decode_attention"], pkg["kv_cache"]
     dev = "cuda"
-    full = [torch.randn((2, B, KVH, S, D), generator=gen, device=dev) for _ in range(2)]
-    if cache in ("int8", "fp8"):
-        (kq, ksf), (vq, vsf) = (kv.quantize_kv(t, 8 if cache == "int8" else -8)
-                                for t in full)
-        k, v, ks, vs = kq[1], vq[1], ksf[1], vsf[1]
-    else:
-        k, v = (t.to(torch.bfloat16)[1] for t in full)
-        ks = vs = None
-    q = (torch.randn((B, KVH, G, D), generator=gen, device=dev) * D ** -0.5).to(torch.bfloat16)
-    lengths = torch.randint(0, S + 1, (B,), generator=gen, device=dev).to(torch.int32)
-    lengths[0] = 0
-    lengths[1] = S
+    B, KVH, G, S, D, cache, _ = line
+    q, k, v, ks, vs, lengths, full = pkg["bench_decode_attn"].line_inputs(kv, line)
 
     def kernel():
         return da._decode_attn_cuda(q, None, k, v, lengths, ks, vs)
@@ -565,6 +596,8 @@ def check_decode_attn(torch, pkg, gen, *, B, KVH, G, S, D, cache):
         return torch.nn.functional.scaled_dot_product_attention(
             qh, kb, vb, attn_mask=mask, scale=1.0, enable_gqa=True)
 
+    split = da.decode_attn_plan(B, KVH, S, D, k.element_size(), False)
+    products = da.decode_attn_products(q.dtype, k.dtype, D)
     total = float(lengths.sum())
     elem = k.element_size()
     bytes_moved = (q.numel() * 2 + total * KVH * (2 * D * elem + (8 if ks is not None else 0))
@@ -575,7 +608,10 @@ def check_decode_attn(torch, pkg, gen, *, B, KVH, G, S, D, cache):
             "counter": "decode_attn", "max_abs_err": err, "max_abs_err_m": err_m,
             "max_rel_err_l": err_l, "tolerance": "out 2e-2, m and l 1e-3",
             "repeat_bit_equal": same, "positions": int(total),
-            "ms": time_ms(torch, kernel), "device_ms": device_ms(torch, kernel, "decode_attn_"),
+            "plan": {"split": split, "ctas": B * KVH * -(-S // split),
+                     "products": "mma" if products == da.MMA else "fma"},
+            "ms": time_ms(torch, kernel),
+            "device_ms": device_ms(torch, kernel, DECODE_ATTN_KERNELS),
             "plain_ms": time_ms(torch, plain), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(torch, library),
             "library": "scaled_dot_product_attention(enable_gqa=True), bf16 cache, length mask"}
@@ -964,8 +1000,8 @@ SERVE_KERNELS = ("flash_fwd", "qmm_argmax", "cache_append", "tail_append")
 PALLAS_KERNELS = ("qmm", "decode_attn", "fused_mlp")
 # the port's kernels as torch.profiler names them (substrings)
 PROFILED_KERNELS = (*FLASH_FWD_KERNELS, "qmm_tile_kernel", "qmm_reduce_kernel",
-                    "write_rows_kernel", *QMM_KERNELS, "decode_attn_split_kernel",
-                    "decode_attn_merge_kernel", "fused_mlp_kernel", "fused_mlp_sum_kernel")
+                    "write_rows_kernel", *QMM_KERNELS, *DECODE_ATTN_KERNELS,
+                    *FUSED_MLP_KERNELS)
 
 
 # pairs for the paired idle share: an unprofiled run's synchronised wall,
@@ -1019,12 +1055,12 @@ def profile_chunk(torch, eng_mod, cfg, params, phase="profile"):
     """Where a fused chunk's time goes: 64 requests (64-token prompts) are
     admitted and decoded in one 16-step chunk, IDLE_PAIRS times unprofiled
     for the wall time, each followed at once by the same run under
-    ``torch.profiler`` for the device's busy time (the first also for the
-    kernels that fill it). ``idle_share_paired`` is 1 - busy over the
-    unprofiled wall just before, its median and spread;
-    ``idle_share_profiled`` (against the profiled run's own wall, required
-    in [0, 1]) and ``idle_share`` (the first pair's) are kept as earlier
-    runs reported them. A last run admits the same requests with a budget
+    ``torch.profiler`` for the device's busy time (the pair with the median
+    busy time also for the kernels that fill it, ``breakdown_pair``).
+    ``idle_share_paired`` is 1 - busy over the unprofiled wall just before,
+    its median and spread; ``idle_share_profiled`` (against the profiled
+    run's own wall, required in [0, 1]) and ``idle_share`` (the breakdown
+    pair's) are kept as earlier runs reported them. A last run admits the same requests with a budget
     of one token (the same four prefill groups, no decode step), so that
     the 16 steps' own busy time is the difference."""
     from torch.profiler import ProfilerActivity, profile
@@ -1066,7 +1102,11 @@ def profile_chunk(torch, eng_mod, cfg, params, phase="profile"):
     for _ in range(IDLE_PAIRS):
         wall_unprofiled = run(17)
         runs.append((wall_unprofiled, *profiled(17)))
-    wall, wall_profiled, by_name = runs[0]
+    # the breakdown from the pair with the median busy time, as
+    # profile_step takes it: a profiler window can drop or stretch events
+    busy_of = [sum(ms for ms, _ in names.values()) for _, _, names in runs]
+    median_run = sorted(range(IDLE_PAIRS), key=busy_of.__getitem__)[IDLE_PAIRS // 2]
+    wall, wall_profiled, by_name = runs[median_run]
     _, by_name_admit = profiled(1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     busy_admit_ms = sum(ms for ms, _ in by_name_admit.values())
@@ -1074,7 +1114,8 @@ def profile_chunk(torch, eng_mod, cfg, params, phase="profile"):
     paired = paired_idle_share(phase, [(w, sum(ms for ms, _ in names.values()))
                                        for w, _, names in runs])
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    emit({"phase": phase, "requests": 64, "steps": 16, "wall_s": wall,
+    emit({"phase": phase, "requests": 64, "steps": 16, "breakdown_pair": median_run,
+          "wall_s": wall,
           "wall_s_profiled": wall_profiled,
           "device_busy_s": busy_ms / 1e3 if busy_ms else None,
           "idle_share_paired": paired,
@@ -1501,6 +1542,7 @@ def main() -> int:
         from flash_attention_softmax_n_tpu_torch.parallel import train as train_mod
         from flash_attention_softmax_n_tpu_torch.quant import kv_cache, qtensor, weights
         from flash_attention_softmax_n_tpu_torch.utils import (
+            bench_decode_attn,
             profile_prefill_phases,
             profiling,
         )
@@ -1513,8 +1555,10 @@ def main() -> int:
            "fused_mlp": fused_mlp, "decoder": decoder, "engine": engine,
            "weights": weights, "qtensor": qtensor, "kv_cache": kv_cache, "train": train_mod,
            "prefill_phases": prefill_phases_mod,
-           "profile_prefill_phases": profile_prefill_phases}
-    global CHIP
+           "profile_prefill_phases": profile_prefill_phases,
+           "bench_decode_attn": bench_decode_attn}
+    global CHIP, K8_LINES
+    K8_LINES = bench_decode_attn.LINES
     CHIP = profiling.H100
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1566,8 +1610,8 @@ def main() -> int:
         check_dequant_mm(torch, pkg, gen, M=1024, K=5632, N=2048),
         check_dequant_mm(torch, pkg, gen, M=2048, K=2048, N=5632),
         check_dequant_mm(torch, pkg, gen, M=2048, K=5632, N=2048),
-        check_decode_attn(torch, pkg, gen, B=64, KVH=4, G=8, S=512, D=64, cache="int8"),
-        check_decode_attn(torch, pkg, gen, B=64, KVH=4, G=8, S=512, D=64, cache="bf16"),
+        check_decode_attn(torch, pkg, K8_LINES[0]),  # B64 S512 int8
+        check_decode_attn(torch, pkg, K8_LINES[1]),  # B64 S512 bf16
         check_fused_mlp(torch, pkg, gen, M=64, K=2048, F=5632),
         check_fused_mlp(torch, pkg, gen, M=256, K=2048, F=5632),
     ]
@@ -1583,8 +1627,8 @@ def main() -> int:
     # K8's fp8 mode at serve_fp8's shapes: the fused loop's 8 slots over its
     # 256-row window (prompts and budgets stay under 256 tokens), the step
     # path's 2 slots over the whole 512-row cache
-    for B, S in ((8, 256), (2, 512)):
-        kd = check_decode_attn(torch, pkg, gen, B=B, KVH=4, G=8, S=S, D=64, cache="fp8")
+    for line in K8_LINES[3:]:  # fp8 at B8 S256, B2 S512
+        kd = check_decode_attn(torch, pkg, line)
         kd["path"] = "serve_fp8"
         pallas_lines.append(kd)
     # K10 at the prefill-phase profile's shape
@@ -1595,7 +1639,7 @@ def main() -> int:
     kernels += pallas_lines
     # K8's fp8 mode beside its int8 and bf16 lines at B64, held all the
     # same; no path runs fp8 at B64, so it stays out of the kernels line
-    fp8_b64 = check_decode_attn(torch, pkg, gen, B=64, KVH=4, G=8, S=512, D=64, cache="fp8")
+    fp8_b64 = check_decode_attn(torch, pkg, K8_LINES[2])
     # K7's f32 mode (the scalar kernel): no path gives K7 f32 activations,
     # so its lines stay out of the kernels line too
     f32_lines = [check_dequant_f32(torch, pkg, gen, M=M, K=2048, N=2048) for M in (64, 1024)]
@@ -1603,8 +1647,8 @@ def main() -> int:
         emit({"phase": "kernel", **{k: kd[k] for k in ("name", "max_abs_err", "tolerance", "ms",
                                                        "device_ms", "tflops", "plain_ms",
                                                        "bound_ms", "bound_by", "library_ms",
-                                                       "library_device_ms", "producer",
-                                                       "plan") if k in kd}})
+                                                       "library_device_ms", "cublas_device_ms",
+                                                       "producer", "plan") if k in kd}})
     kernels += train_kernels(torch, pkg, gen)
 
     # each main path's launches: counts set to 0 just before it, read after

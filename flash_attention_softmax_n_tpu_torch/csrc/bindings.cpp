@@ -358,18 +358,38 @@ void qmm(const at::Tensor& x, const std::optional<at::Tensor>& x_scales, const a
 
 int64_t fused_mlp_tiles(int64_t f) { return fasn_fused_mlp_tiles(as_int(f, "fused_mlp_tiles")); }
 
+// one phase of K9's bf16 plan: a tile height of the kernels, K slices
+// covered once, TMA only where x's and w's row strides and bases are
+// multiples of 16 bytes
+void check_mlp_phase(const char* what, const char* phase, int64_t bm, int64_t k, int64_t n,
+                     int64_t splits, int64_t per, int64_t tma, const at::Tensor& x,
+                     std::initializer_list<const at::Tensor*> ws) {
+  TORCH_CHECK_VALUE(bm == 64 || bm == 128 || bm == 256, what, ": ", phase, " bm ", bm,
+                    " is not a tile height");
+  const int64_t n_slices = (k + 63) / 64;
+  TORCH_CHECK_VALUE(splits >= 1 && per >= 1 && splits * per >= n_slices &&
+                        (splits - 1) * per < n_slices,
+                    what, ": ", phase, " ", splits, " splits of ", per, " slices do not cover ",
+                    n_slices, " slices once");
+  if (tma) {
+    bool ok = (k * 2) % 16 == 0 && n % 16 == 0 &&
+              reinterpret_cast<uintptr_t>(x.data_ptr()) % 16 == 0;
+    for (const at::Tensor* w : ws) ok = ok && reinterpret_cast<uintptr_t>(w->data_ptr()) % 16 == 0;
+    TORCH_CHECK_VALUE(ok, what, ": ", phase, " TMA needs 16-byte row strides and addresses");
+  }
+}
+
 void fused_mlp(const at::Tensor& x, const at::Tensor& wg, const at::Tensor& sg,
                const at::Tensor& wu, const at::Tensor& su, const at::Tensor& wd,
-               const at::Tensor& sd, const at::Tensor& out, const at::Tensor& part) {
+               const at::Tensor& sd, const at::Tensor& out, const at::Tensor& h,
+               const at::Tensor& gu_part, const at::Tensor& dn_part, at::IntArrayRef plan) {
   const char* what = "fused_mlp_matmul";
   TORCH_CHECK_VALUE(x.dim() == 2 && wg.dim() == 2, what, ": x (M, K) and wg (K, F) are 2-D");
   const int64_t M = x.size(0), K = x.size(1), F = wg.size(1);
-  TORCH_CHECK_VALUE(K % 64 == 0 && F % 64 == 0, what, ": K and F must be multiples of 64, got K=",
-                    K, " F=", F);
   const c10::cuda::CUDAGuard guard(x.device());
-  const int dtype = dtype_code(x, what);
-  for (const at::Tensor* t : {&x, &wg, &sg, &wu, &su, &wd, &sd, &out, &part})
-    check_on(*t, x, what);
+  FasnMlp a{};
+  a.dtype = dtype_code(x, what);
+  for (const at::Tensor* t : {&x, &wg, &sg, &wu, &su, &wd, &sd, &out}) check_on(*t, x, what);
   check_shape(wg, {K, F}, at::kChar, what, "wg");
   check_shape(wu, {K, F}, at::kChar, what, "wu");
   check_shape(wd, {F, K}, at::kChar, what, "wd");
@@ -377,17 +397,48 @@ void fused_mlp(const at::Tensor& x, const at::Tensor& wg, const at::Tensor& sg,
   check_shape(su, {F}, at::kFloat, what, "su");
   check_shape(sd, {K}, at::kFloat, what, "sd");
   check_shape(out, {M, K}, x.scalar_type(), what, "out");
-  const int tiles = fasn_fused_mlp_tiles(as_int(F, what));
-  check_shape(part, {tiles, M, K}, at::kFloat, what, "part");
-  check_launch(fasn_fused_mlp(x.data_ptr(), wg.data_ptr(), sg.data_ptr<float>(), wu.data_ptr(),
-                              su.data_ptr<float>(), wd.data_ptr(), sd.data_ptr<float>(),
-                              part.data_ptr<float>(), out.data_ptr(), as_int(M, what),
-                              as_int(K, what), as_int(F, what), dtype, stream_of(x)),
-               what);
-}
-
-int64_t decode_attn_splits(int64_t s) {
-  return fasn_decode_attn_splits(as_int(s, "decode_attn_splits"));
+  FasnMlpPlan p{};
+  if (a.dtype == 0) {
+    TORCH_CHECK_VALUE(K % 64 == 0 && F % 64 == 0, what,
+                      ": f32 x needs K and F in multiples of 64, got K=", K, " F=", F);
+    check_on(gu_part, x, what);
+    check_shape(gu_part, {fasn_fused_mlp_tiles(as_int(F, what)), M, K}, at::kFloat, what,
+                "gu_part");
+    a.gu_part = gu_part.data_ptr<float>();
+  } else {
+    TORCH_CHECK_VALUE(plan.size() == 10, what, ": the bf16 plan has 10 entries, got ",
+                      plan.size());
+    check_mlp_phase(what, "gate/up", plan[0], K, F, plan[2], plan[3], plan[4], x, {&wg, &wu});
+    check_on(h, x, what);
+    check_shape(h, {M, F}, at::kBFloat16, what, "h");
+    check_mlp_phase(what, "down", plan[5], F, K, plan[7], plan[8], plan[9], h, {&wd});
+    if (plan[2] > 1) {
+      check_on(gu_part, x, what);
+      check_shape(gu_part, {2 * plan[2], M, F}, at::kFloat, what, "gu_part");
+      a.gu_part = gu_part.data_ptr<float>();
+    }
+    if (plan[7] > 1) {
+      check_on(dn_part, x, what);
+      check_shape(dn_part, {plan[7], M, K}, at::kFloat, what, "dn_part");
+      a.dn_part = dn_part.data_ptr<float>();
+    }
+    a.h = h.data_ptr();
+    int q[10];
+    for (int i = 0; i < 10; ++i) q[i] = as_int(plan[i], what);
+    p = FasnMlpPlan{q[0], q[1], q[2], q[3], q[4] != 0, q[5], q[6], q[7], q[8], q[9] != 0};
+  }
+  a.x = x.data_ptr();
+  a.wg = wg.data_ptr();
+  a.sg = sg.data_ptr<float>();
+  a.wu = wu.data_ptr();
+  a.su = su.data_ptr<float>();
+  a.wd = wd.data_ptr();
+  a.sd = sd.data_ptr<float>();
+  a.out = out.data_ptr();
+  a.M = as_int(M, what);
+  a.K = as_int(K, what);
+  a.F = as_int(F, what);
+  check_launch(fasn_fused_mlp(&a, &p, stream_of(x)), what);
 }
 
 int kv_code(const at::Tensor& t, const char* what) {
@@ -416,7 +467,8 @@ void decode_attn(const at::Tensor& q, const std::optional<at::Tensor>& q_scales,
                  const std::optional<at::Tensor>& k_scales,
                  const std::optional<at::Tensor>& v_scales, const at::Tensor& lengths,
                  const at::Tensor& acc, const at::Tensor& m, const at::Tensor& l,
-                 const at::Tensor& part_acc, const at::Tensor& part_m, const at::Tensor& part_l) {
+                 const at::Tensor& part_acc, const at::Tensor& part_m, const at::Tensor& part_l,
+                 int64_t split, int64_t products) {
   const char* what = "decode_attention_n";
   TORCH_CHECK_VALUE(q.dim() == 4 && k.dim() == 4, what,
                     ": q (B, KVH, G, hd) and k (B, KVH, S, hd) are 4-D");
@@ -460,7 +512,12 @@ void decode_attn(const at::Tensor& q, const std::optional<at::Tensor>& q_scales,
   }
   check_on(lengths, q, what);
   check_shape(lengths, {B}, at::kInt, what, "lengths");
-  const int splits = fasn_decode_attn_splits(as_int(S, what));
+  TORCH_CHECK_VALUE(fasn_decode_attn_plan_ok(as_int(split, what), as_int(products, what),
+                                            as_int(G, what), as_int(HD, what), a.q_dtype,
+                                            a.kv_dtype),
+                    what, ": a split of ", split, " positions with products ", products,
+                    " is not a plan the kernel takes here");
+  const int64_t splits = (S + split - 1) / split;
   for (const at::Tensor* t : {&acc, &m, &l, &part_acc, &part_m, &part_l}) check_on(*t, q, what);
   check_shape(acc, {B, KVH, G, HD}, at::kFloat, what, "acc");
   check_shape(m, {B, KVH, G}, at::kFloat, what, "m");
@@ -483,7 +540,9 @@ void decode_attn(const at::Tensor& q, const std::optional<at::Tensor>& q_scales,
   a.G = as_int(G, what);
   a.HD = as_int(HD, what);
   a.S = as_int(S, what);
-  check_launch(fasn_decode_attn(&a, part_acc.data_ptr<float>(), part_m.data_ptr<float>(),
+  check_launch(fasn_decode_attn(&a, static_cast<int>(split), static_cast<int>(products),
+                                part_acc.data_ptr<float>(),
+                                part_m.data_ptr<float>(),
                                 part_l.data_ptr<float>(), acc.data_ptr<float>(),
                                 m.data_ptr<float>(), l.data_ptr<float>(), stream_of(q)),
                what);
@@ -543,12 +602,12 @@ TORCH_LIBRARY(fasn, m) {
   m.def("fused_mlp_tiles(int f) -> int", &fused_mlp_tiles);
   m.def(
       "fused_mlp(Tensor x, Tensor wg, Tensor sg, Tensor wu, Tensor su, Tensor wd, Tensor sd, "
-      "Tensor(a!) out, Tensor(b!) part) -> ()");
-  m.def("decode_attn_splits(int s) -> int", &decode_attn_splits);
+      "Tensor(a!) out, Tensor(b!) h, Tensor(c!) gu_part, Tensor(d!) dn_part, int[] plan) -> ()");
   m.def(
       "decode_attn(Tensor q, Tensor? q_scales, Tensor k, Tensor v, Tensor? k_scales, "
       "Tensor? v_scales, Tensor lengths, Tensor(a!) acc, Tensor(b!) m, Tensor(c!) l, "
-      "Tensor(d!) part_acc, Tensor(e!) part_m, Tensor(f!) part_l) -> ()");
+      "Tensor(d!) part_acc, Tensor(e!) part_m, Tensor(f!) part_l, int split, int products) "
+      "-> ()");
   m.def("prefill_phase(Tensor q, Tensor k, Tensor v, Tensor(a!) o, int mode) -> ()");
 }
 

@@ -94,15 +94,43 @@ int fasn_qmm(const void* x, const float* x_scales, const void* w, const float* s
              int bm, int stages, int splits, int slices_per_split, int use_tma,
              cudaStream_t stream);
 
-// K9 (fused_mlp.cu). d_ff tiles: the scratch holds tiles * M * K f32.
+// K9 (fused_mlp.cu). f32 x: d_ff tiles of the scalar kernel, whose
+// scratch gu_part holds tiles * M * K f32.
 int fasn_fused_mlp_tiles(int F);
 
-// K9. x (M,K) contiguous, f32 (dtype 0) or bf16 (1); wg, wu int8 (K,F) and
-// wd int8 (F,K) contiguous, K % 64 == 0 and F % 64 == 0; sg, su (F,) and
-// sd (K,) f32; out (M,K) like x.
-int fasn_fused_mlp(const void* x, const void* wg, const float* sg, const void* wu,
-                   const float* su, const void* wd, const float* sd, float* partial, void* out,
-                   int M, int K, int F, int dtype, cudaStream_t stream);
+// K9's inputs. x (M,K) contiguous, f32 (dtype 0) or bf16 (1); wg, wu int8
+// (K,F) and wd int8 (F,K) contiguous; sg, su (F,) and sd (K,) f32; out (M,K)
+// like x. bf16: h (M,F) bf16 scratch; gu_part (2 * gu_splits, M, F) and
+// dn_part (dn_splits, M, K) f32 scratch where the phase splits K. f32: K % 64
+// == 0 and F % 64 == 0, gu_part as fasn_fused_mlp_tiles says.
+struct FasnMlp {
+  const void* x;
+  const void* wg;
+  const float* sg;
+  const void* wu;
+  const float* su;
+  const void* wd;
+  const float* sd;
+  void* h;
+  float* gu_part;
+  float* dn_part;
+  void* out;
+  int M, K, F, dtype;
+};
+
+// K9's plan for bf16 x (kernels/fused_mlp.py fused_mlp_plan), one set per
+// phase (gu: x @ [Wg | Wu] -> h, 64 d_ff columns a tile; dn: h @ Wd, K7's
+// tiles): rows per tile (64, 128 or 256), the ring's stages (the depth the
+// kernel is built with), splits ranges of per 64-row K slices (every slice
+// in one, none empty), and TMA where the row strides and base addresses are
+// multiples of 16 bytes (else the predicated producer).
+struct FasnMlpPlan {
+  int gu_bm, gu_stages, gu_splits, gu_per, gu_tma;
+  int dn_bm, dn_stages, dn_splits, dn_per, dn_tma;
+};
+
+// K9. plan is read for bf16 x only; the operator has checked it.
+int fasn_fused_mlp(const FasnMlp* a, const FasnMlpPlan* plan, cudaStream_t stream);
 
 // K8's inputs. q (B,KVH,G,HD) contiguous, f32 (q_dtype 0), bf16 (1) or
 // int8 (2, int8 compute, with q_scales (B,KVH,G) f32); k and v (B,KVH,S,HD)
@@ -124,13 +152,21 @@ struct FasnDecode {
   int B, KVH, G, HD, S, q_dtype, kv_dtype;
 };
 
-// K8 (decode_attn.cu). Splits of S: the scratch holds part_acc
-// (B,KVH,splits,G,HD), part_m and part_l (B,KVH,splits,G), f32.
-int fasn_decode_attn_splits(int S);
+// K8 (decode_attn.cu). 1 if the kernel takes this plan: `split` positions
+// per CTA (32, 64, 128 or 256; exactly 256 under int8 compute, q_dtype 2)
+// whose shared-memory layout fits a block, and `products` 0 (f32 FMAs, any
+// mode) or 1 (mma.sync: bf16 q, a bf16, int8 or fp8 cache, HD a multiple of
+// 16); 1 <= G <= 16, HD <= 128. The operator calls it once, before launching.
+int fasn_decode_attn_plan_ok(int split, int products, int G, int HD, int q_dtype, int kv_dtype);
 
-// K8. acc (B,KVH,G,HD), m and l (B,KVH,G), f32 and contiguous.
-int fasn_decode_attn(const FasnDecode* a, float* part_acc, float* part_m, float* part_l,
-                     float* acc, float* m, float* l, cudaStream_t stream);
+// K8. A plan that fasn_decode_attn_plan_ok accepts (kernels/decode_attention.py
+// decode_attn_plan and decode_attn_products); scratch part_acc
+// (B,KVH,splits,G,HD), part_m and part_l (B,KVH,splits,G) with splits =
+// ceil(S / split); acc (B,KVH,G,HD), m and l (B,KVH,G); all f32 and
+// contiguous.
+int fasn_decode_attn(const FasnDecode* a, int split, int products, float* part_acc,
+                     float* part_m, float* part_l, float* acc, float* m, float* l,
+                     cudaStream_t stream);
 
 // K10 (prefill_phases.cu). q, k, v and o (B,H,L,D) contiguous, bf16 (dtype
 // 1) or f32 (0), D in {32, 64, 128}; mode 0 dots_only, 1 exp_only, 2

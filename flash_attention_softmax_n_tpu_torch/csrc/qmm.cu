@@ -51,7 +51,8 @@
 // CTA per SM is in flight; the split partials (f32, or int32 under W8A8) go
 // to a scratch buffer and qmm_splitk_sum_kernel sums them in split order,
 // then applies the scales and casts: no atomics, so repeated calls are
-// bit-equal.
+// bit-equal. The ring, producer, consumers and kernel body live in
+// qmm_tile.h, which K9 (fused_mlp.cu) builds on too.
 //
 // f32 activations take qmm_splitk_kernel, scalar f32 FMAs on 64x64 tiles:
 // wgmma has no f32 x f32 product, and TF32 would not hold the f32
@@ -67,39 +68,11 @@
 
 #include "hopper.h"
 #include "launchers.h"
+#include "qmm_tile.h"
 
 namespace {
 
-using namespace hopper;
-
-// ---------------------------------------------------------------------------
-// shared by both kernels
-// ---------------------------------------------------------------------------
-
-// out[at], out[at + 1] (pair) or out[at] alone, in bf16 or f32
-__device__ __forceinline__ void store_out(void* out, bool bf16, long long at, float v0, float v1,
-                                          bool pair) {
-  if (bf16) {
-    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + at;
-    if (pair)
-      *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
-    else
-      *o = __float2bfloat16(v0);
-  } else {
-    float* o = static_cast<float*>(out) + at;
-    if (pair)
-      *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
-    else
-      *o = v0;
-  }
-}
-
-// one output element: scale after accumulation, then the row scale (W8A8)
-__device__ __forceinline__ float scaled(float acc, float s, const float* x_scales, int row) {
-  float v = acc * s;
-  if (x_scales != nullptr) v = v * x_scales[row];
-  return v;
-}
+using namespace qmm_tile;
 
 // sum the split partials in split order, then the epilogue
 template <bool INTX>
@@ -108,22 +81,12 @@ __global__ void qmm_splitk_sum_kernel(const void* __restrict__ part,
                                       const float* __restrict__ x_scales, void* __restrict__ out,
                                       int out_bf16, int M, int N, int splits) {
   using Acc = typename std::conditional<INTX, int, float>::type;
-  const Acc* p = static_cast<const Acc*>(part);
-  const long long total = (long long)M * N;
-  for (long long at = blockIdx.x * (long long)blockDim.x + threadIdx.x; at < total;
-       at += (long long)gridDim.x * blockDim.x) {
-    Acc acc = 0;
-    for (int s = 0; s < splits; ++s) acc += p[s * total + at];
-    const int row = static_cast<int>(at / N);
-    store_out(out, out_bf16, at, scaled(static_cast<float>(acc), scales[at % N], x_scales, row),
-              0.f, false);
-  }
+  splitk_sum(static_cast<const Acc*>(part), scales, x_scales, out, out_bf16, M, N, splits);
 }
 
 cudaError_t launch_sum(bool intx, const void* part, const float* scales, const float* x_scales,
                        void* out, int out_bf16, int M, int N, int splits, cudaStream_t stream) {
-  const long long total = (long long)M * N;
-  const int blocks = static_cast<int>(std::min<long long>((total + 255) / 256, 132 * 16));
+  const int blocks = sum_blocks((long long)M * N);
   if (intx)
     qmm_splitk_sum_kernel<true>
         <<<blocks, 256, 0, stream>>>(part, scales, x_scales, out, out_bf16, M, N, splits);
@@ -250,454 +213,20 @@ cudaError_t launch_f32(int bits, const float* x, const int8_t* w, const float* s
 }
 
 // ---------------------------------------------------------------------------
-// the tensor-core kernel: TMA ring, W converted on its way to wgmma
+// the tensor-core kernel (qmm_tile.h): TMA ring, W converted on its way to wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int BN = 128;           // output columns per CTA
-constexpr int ROW = 128;          // bytes of K in one tile row (one 128-byte swizzle row)
-constexpr int B_BUFS = 3;         // W8A8: converted W tiles in rotation (see consume_s8)
-constexpr int SMEM_MAX = 232448;  // shared memory one block may use on the H100
-constexpr int MAX_STAGES = 8;
-
-// S8: int8 x (W8A8), else bf16 x. BITS: 8 or 4 (grouped int4). BM: x rows
-// per CTA (64 or 128).
-template <bool S8, int BITS, int BM>
-struct Cfg {
-  static constexpr int BK = S8 ? 128 : 64;  // logical K rows per stage: one 128-byte row
-  static constexpr int X_STAGE = BM * ROW;
-  static constexpr int W_STAGE = BK * BN;   // W byte rows (of one nibble, for int4)
-  static constexpr int B_BYTES = S8 ? B_BUFS * BN * ROW : 0;
-  // as deep a ring as shared memory holds, so that loads stay in flight
-  // for several stages' worth of wgmma (2 KB kept for alignment and barriers)
-  static constexpr int FIT = (SMEM_MAX - B_BYTES - 2048) / (X_STAGE + W_STAGE);
-  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
-  static constexpr int RING = STAGES * (X_STAGE + W_STAGE);
-  static constexpr int BAR_AT = RING + B_BYTES;  // full[STAGES], empty[STAGES]
-  static constexpr int SMEM = BAR_AT + 2 * STAGES * 8 + 1024;  // + room to align to 1 KB
-  static_assert(SMEM <= SMEM_MAX, "the ring does not fit");
-  // consumer warpgroups: bf16 x, one per 64 of the 128 columns; int8 x, one
-  // per 64 rows of x
-  static constexpr int CONSUMERS = S8 ? 2 * BM : 256;
-  static constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
-  static constexpr int TX_BYTES = X_STAGE + W_STAGE;
-};
-
-// four 8x8 matrices of 16-bit elements, each delivered transposed
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// Stage t is x's columns [t * BK, (t + 1) * BK). For int8 W they are W's
-// rows too. For grouped int4 they lie in one half of one 256-row group g
-// (BK divides 128): the low nibbles (h = 0) or the high ones (h = 1) of
-// byte rows 128g + (the columns' offset in the half); each byte row is thus
-// loaded once per nibble, the second time mostly from L2.
-template <int BITS, int BK>
-__device__ __forceinline__ int w_row(int t) {
-  const int k = t * BK;
-  return BITS == 8 ? k : (k / 256) * 128 + k % 128;
-}
-
-template <int BITS, int BK>
-__device__ __forceinline__ int nibble_of(int t) {
-  return BITS == 4 && (t * BK) % 256 >= 128;
-}
-
-// the sign-extended low (h = 0) or high (h = 1) nibble of each byte
-__device__ __forceinline__ uint32_t nibbles(uint32_t v, int h) {
-  const uint32_t n = (h ? v >> 4 : v) & 0x0F0F0F0Fu;
-  return n | ((n & 0x08080808u) * 0x1Eu);
-}
-
-// byte b of a word of int8 values each biased by +128, as f32: the bits
-// 0x4B0000xx are 2^23 + xx exactly
-__device__ __forceinline__ float biased_byte_f32(uint32_t biased, uint32_t b) {
-  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540u | b)) - 8388736.0f;
-}
-
-// two small integers held in f32 as a bf16 pair: the upper halves are exact
-__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
-}
-
-// One output tile: its first row and column, and its range of K slices.
-struct Tile {
-  int m0, n0, split, t_begin, nk;
-};
-
-// tile u: row tiles fastest, then splits, then column tiles
-template <int BM, int BK>
-__device__ __forceinline__ Tile tile_of(int u, int M, int K, int splits, int per) {
-  const int tiles_m = (M + BM - 1) / BM, rest = u / tiles_m;
-  Tile tile;
-  tile.m0 = (u % tiles_m) * BM;
-  tile.split = rest % splits;
-  tile.n0 = (rest / splits) * BN;
-  tile.t_begin = tile.split * per;
-  tile.nk = min((K + BK - 1) / BK, tile.t_begin + per) - tile.t_begin;
-  return tile;
-}
-
-// The shared-memory ring: stages of x and W, and their full and empty barriers.
-template <bool S8, int BITS, int BM>
-struct Ring {
-  using C = Cfg<S8, BITS, BM>;
-  uint8_t* smem;
-  uint32_t bars;
-  __device__ uint32_t full(int s) const { return bars + 8 * s; }
-  __device__ uint32_t empty(int s) const { return bars + 8 * (C::STAGES + s); }
-  __device__ uint8_t* x_stage(int s) const { return smem + s * (C::X_STAGE + C::W_STAGE); }
-  __device__ uint8_t* w_stage(int s) const { return x_stage(s) + C::X_STAGE; }
-};
-
-struct Args {
-  const void* x;
-  const float* x_scales;
-  const int8_t* w;
-  const float* scales;
-  void* part;
-  void* out;
-  int out_bf16, M, K, N, splits, per, use_tma, tiles;
-};
-
-// the producer warp's fallback where TMA cannot go: element loads into the
-// layout TMA would have written (zeros past M, K and N)
-template <bool S8, int BITS, int BM>
-__device__ __forceinline__ void load_stage_predicated(uint8_t* xs, uint8_t* ws, const Args& g,
-                                                      int m0, int n0, int t, int lane) {
-  using C = Cfg<S8, BITS, BM>;
-  constexpr int ES = S8 ? 1 : 2;  // bytes of one x element
-  for (int e = lane; e < BM * C::BK; e += 32) {
-    const int r = e / C::BK, c = e % C::BK, gm = m0 + r, gk = t * C::BK + c;
-    uint8_t* dst = xs + sw128(r * ROW + c * ES);
-    const bool in = gm < g.M && gk < g.K;
-    if (S8)
-      *reinterpret_cast<int8_t*>(dst) =
-          in ? static_cast<const int8_t*>(g.x)[(long long)gm * g.K + gk] : int8_t(0);
-    else
-      *reinterpret_cast<uint16_t*>(dst) =
-          in ? static_cast<const uint16_t*>(g.x)[(long long)gm * g.K + gk] : uint16_t(0);
-  }
-  const int w_rows = BITS == 4 ? g.K / 2 : g.K;
-  for (int e = lane; e < C::W_STAGE; e += 32) {
-    const int r = w_row<BITS, C::BK>(t) + e / BN, gn = n0 + e % BN;
-    ws[sw128(e)] = (r < w_rows && gn < g.N) ? static_cast<uint8_t>(g.w[(long long)r * g.N + gn])
-                                            : uint8_t(0);
-  }
-}
-
-// The producer warp: every tile's stages, in the consumers' order, by TMA
-// (x's box and W's rows, both with the 128-byte swizzle) or predicated loads.
-template <bool S8, int BITS, int BM>
-__device__ __forceinline__ void produce(const Ring<S8, BITS, BM>& ring, const Args& g,
-                                        const CUtensorMap* xmap, const CUtensorMap* wmap) {
-  using C = Cfg<S8, BITS, BM>;
-  const int lane = threadIdx.x % 32;
-  int stage = 0;
-  uint32_t phase = 0;
-  for (int u = blockIdx.x; u < g.tiles; u += gridDim.x) {
-    const Tile tile = tile_of<BM, C::BK>(u, g.M, g.K, g.splits, g.per);
-    for (int it = 0; it < tile.nk; ++it) {
-      const int t = tile.t_begin + it;
-      mbar_wait(ring.empty(stage), phase ^ 1);
-      if (g.use_tma) {
-        if (lane == 0) {
-          mbar_expect_tx(ring.full(stage), C::TX_BYTES);
-          tma_2d(smem_u32(ring.x_stage(stage)), xmap, ring.full(stage), t * C::BK, tile.m0);
-          tma_2d(smem_u32(ring.w_stage(stage)), wmap, ring.full(stage), tile.n0,
-                 w_row<BITS, C::BK>(t));
-        }
-      } else {
-        load_stage_predicated<S8, BITS, BM>(ring.x_stage(stage), ring.w_stage(stage), g, tile.m0,
-                                            tile.n0, t, lane);
-        fence_proxy_async();
-        mbar_arrive(ring.full(stage));
-      }
-      if (++stage == C::STAGES) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-  }
-}
-
-// out[m][n], out[m][n + 1] (where n + 1 < N) from two f32 values: through
-// the epilogue with one split, else as the split's partial
-template <typename Acc>
-__device__ __forceinline__ void write_pair(const Args& g, const Tile& tile, int m, int n, Acc v0,
-                                           Acc v1, float s0, float s1) {
-  const long long at = (long long)m * g.N + n;
-  const bool two = n + 1 < g.N;
-  if (g.splits == 1) {
-    const float o0 = scaled(static_cast<float>(v0), s0, g.x_scales, m);
-    const float o1 = scaled(static_cast<float>(v1), s1, g.x_scales, m);
-    if (g.N % 2 == 0) {  // n is even: an aligned pair
-      store_out(g.out, g.out_bf16, at, o0, o1, true);
-    } else {
-      store_out(g.out, g.out_bf16, at, o0, 0.f, false);
-      if (two) store_out(g.out, g.out_bf16, at + 1, o1, 0.f, false);
-    }
-  } else {
-    Acc* p = static_cast<Acc*>(g.part) + (long long)tile.split * g.M * g.N + at;
-    p[0] = v0;
-    if (two) p[1] = v1;
-  }
-}
-
-// bf16 x: out^T = W^T x^T. Warpgroup wg owns columns n0 + 64 wg + [0, 64),
-// 16 per warp, as wgmma's A operand in registers: each warp takes its W
-// bytes from the stage with ldmatrix (16-bit pairs of columns, transposed:
-// a thread gets rows 2q, 2q + 1 of columns 2p, 2p + 1), converts them to
-// bf16 in registers, and feeds A row p from column 2p and row p + 8 from
-// column 2p + 1. x's stage is the B operand (BM x 64, K-major). Nothing is
-// written back to shared memory, and the warpgroups never wait for each
-// other; three wgmma stay in flight while the next k16 step converts.
-template <int BITS, int BM>
-__device__ __forceinline__ void consume_bf16(const Ring<false, BITS, BM>& ring, const Args& g) {
-  using C = Cfg<false, BITS, BM>;
-  const int ct = threadIdx.x, wg = ct / 128, warp = (ct % 128) / 32, lane = ct % 32;
-  const uint32_t chunk = 4 * wg + warp;  // the warp's 16 columns: a 16-byte chunk of a W row
-  int stage = 0;
-  uint32_t phase = 0;
-  for (int u = blockIdx.x; u < g.tiles; u += gridDim.x) {
-    const Tile tile = tile_of<BM, C::BK>(u, g.M, g.K, g.splits, g.per);
-    float d[BM / 2];
-#pragma unroll
-    for (int i = 0; i < BM / 2; ++i) d[i] = 0.f;
-    int prev = -1;
-    for (int it = 0; it < tile.nk; ++it) {
-      mbar_wait(ring.full(stage), phase);
-      const uint32_t wb = smem_u32(ring.w_stage(stage)), xb = smem_u32(ring.x_stage(stage));
-      // W rows 32c + lane: matrix j of call c is k rows 32c + 8j .. + 7
-      uint32_t raw[2][4];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const uint32_t k = 32 * c + lane;
-        ldmatrix_x4_trans(raw[c], wb + k * ROW + ((chunk ^ (k & 7)) << 4));
-      }
-      const int h = nibble_of<BITS, C::BK>(tile.t_begin + it);
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        // the k16 step s: k rows 16s .. 16s + 7 (lo) and 16s + 8 .. 16s + 15 (hi)
-        uint32_t lo = raw[s / 2][2 * (s % 2)], hi = raw[s / 2][2 * (s % 2) + 1];
-        if (BITS == 4) {
-          lo = nibbles(lo, h);
-          hi = nibbles(hi, h);
-        }
-        lo ^= 0x80808080u;
-        hi ^= 0x80808080u;
-        // bytes: (k 2q, col 2p), (2q, 2p + 1), (2q + 1, 2p), (2q + 1, 2p + 1)
-        const uint32_t a[4] = {
-            bf16_pair(biased_byte_f32(lo, 0), biased_byte_f32(lo, 2)),
-            bf16_pair(biased_byte_f32(lo, 1), biased_byte_f32(lo, 3)),
-            bf16_pair(biased_byte_f32(hi, 0), biased_byte_f32(hi, 2)),
-            bf16_pair(biased_byte_f32(hi, 1), biased_byte_f32(hi, 3))};
-        wgmma_fence();
-        wgmma(d, a, desc_sw128(xb + 32 * s));
-        wgmma_commit();
-        // at most three steps stay in flight: step s - 3's A registers are free
-        wgmma_wait<3>();
-      }
-      fence_regs(d);
-      // every step of the previous stage is done: its x and W can be refilled
-      if (prev >= 0 && ct % 128 == 0) mbar_arrive(ring.empty(prev));
-      prev = stage;
-      if (++stage == C::STAGES) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-    wgmma_wait<0>();
-    fence_regs(d);
-    if (ct % 128 == 0) mbar_arrive(ring.empty(prev));
-
-    // d[4j + 2i + c]: A row 16 warp + p + 8i (column 2p + i of the warp's
-    // 16), B column 8j + 2q + c (row of x)
-    const int p = lane / 4, q = lane % 4;
-    const int n = tile.n0 + 64 * wg + 16 * warp + 2 * p;
-    if (n >= g.N) continue;
-    const float s0 = g.scales[n], s1 = n + 1 < g.N ? g.scales[n + 1] : 0.f;
-#pragma unroll
-    for (int j = 0; j < BM / 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int m = tile.m0 + 8 * j + 2 * q + c;
-        if (m < g.M) write_pair(g, tile, m, n, d[4 * j + c], d[4 * j + 2 + c], s0, s1);
-      }
-  }
-}
-
-// W's stage (BK rows x 128 bytes, N-contiguous, 128-byte swizzle) into
-// wgmma's B operand for W8A8: (128 columns x 128 bytes of K), int8, K-major
-// with the 128-byte swizzle (8-bit operands must be K-major). One task is 4
-// columns by one 16-byte chunk q of K: its W words are one column word of
-// 16 rows (a warp reads whole rows, free of bank conflicts), and it stores
-// 4 chunks. Task c stores its columns rotated by (c >> 1) & 3, so each 8
-// lanes of a 16-byte store hit 8 distinct bank groups.
-template <int BITS, int BM>
-__device__ __forceinline__ void convert_stage_s8(const uint8_t* wst, uint8_t* bbuf, int nibble,
-                                                 int ct) {
-  for (int task = ct; task < 256; task += Cfg<true, BITS, BM>::CONSUMERS) {
-    const int c = task % 32, q = task / 32;
-    uint32_t u[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const uint32_t v =
-          *reinterpret_cast<const uint32_t*>(wst + sw128((q * 16 + j) * ROW + 4 * c));
-      u[j] = BITS == 4 ? nibbles(v, nibble) : v;
-    }
-    const uint32_t rot = (c >> 1) & 3;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t b = (i + rot) & 3;  // column 4c + b
-      const uint32_t sel = b | ((b + 4) << 4);
-      uint32_t o[4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-        o[m] = __byte_perm(__byte_perm(u[4 * m], u[4 * m + 1], sel),
-                           __byte_perm(u[4 * m + 2], u[4 * m + 3], sel), 0x5410);
-      *reinterpret_cast<uint4*>(bbuf + sw128((4 * c + b) * ROW + q * 16)) =
-          make_uint4(o[0], o[1], o[2], o[3]);
-    }
-  }
-}
-
-// int8 x (W8A8): x's stage is wgmma's A operand (warpgroup wg owns its rows
-// 64 wg + [0, 64)), and the consumers rewrite W's stage as the B operand in
-// shared memory (convert_stage_s8). Three converted tiles rotate so that the
-// conversion of stage g + 1 overlaps the wgmma of stage g; a proxy fence
-// and a barrier of the consumers hand each tile to wgmma.
-template <int BITS, int BM>
-__device__ __forceinline__ void consume_s8(const Ring<true, BITS, BM>& ring, const Args& g) {
-  using C = Cfg<true, BITS, BM>;
-  const int ct = threadIdx.x, wg = ct / 128, lane = ct % 32;
-  int stage = 0, gs = 0;  // gs: stages consumed, over all tiles
-  uint32_t phase = 0;
-  for (int u = blockIdx.x; u < g.tiles; u += gridDim.x) {
-    const Tile tile = tile_of<BM, C::BK>(u, g.M, g.K, g.splits, g.per);
-    int d[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) d[i] = 0;
-    int prev = -1;
-    for (int it = 0; it < tile.nk; ++it, ++gs) {
-      mbar_wait(ring.full(stage), phase);
-      // Both warpgroups' wgmma of stage gs - 3 read this buffer last; each
-      // finished it (wait_group 1 after stage gs - 2, or 0 at a tile's end)
-      // before reaching the barrier of stage gs - 1, which this thread passed.
-      uint8_t* bb = ring.smem + C::RING + (gs % B_BUFS) * BN * ROW;
-      convert_stage_s8<BITS, BM>(ring.w_stage(stage), bb,
-                                 nibble_of<BITS, C::BK>(tile.t_begin + it), ct);
-      fence_proxy_async();
-      asm volatile("bar.sync 1, %0;" ::"n"(C::CONSUMERS) : "memory");
-      fence_regs(d);
-      wgmma_fence();
-      const uint32_t a0 = smem_u32(ring.x_stage(stage)) + wg * 64 * ROW, b0 = smem_u32(bb);
-#pragma unroll
-      for (int s = 0; s < 4; ++s) wgmma(d, desc_sw128(a0 + 32 * s), desc_sw128(b0 + 32 * s));
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_regs(d);
-      // the wgmma of the previous stage is done: its x and W can be refilled
-      if (prev >= 0 && ct % 128 == 0) mbar_arrive(ring.empty(prev));
-      prev = stage;
-      if (++stage == C::STAGES) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-    wgmma_wait<0>();
-    fence_regs(d);
-    if (ct % 128 == 0) mbar_arrive(ring.empty(prev));
-
-    // d[4j + 2i + c]: row 16 warp + lane / 4 + 8i, column 8j + 2 (lane % 4) + c
-    const int row0 = tile.m0 + wg * 64 + ((ct % 128) / 32) * 16 + lane / 4;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = tile.n0 + 8 * j + 2 * (lane % 4);
-      if (col >= g.N) continue;
-      const float s0 = g.scales[col], s1 = col + 1 < g.N ? g.scales[col + 1] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = row0 + 8 * i;
-        if (row < g.M)
-          write_pair(g, tile, row, col, d[4 * j + 2 * i], d[4 * j + 2 * i + 1], s0, s1);
-      }
-    }
-  }
-}
-
-// Persistent: CTA b takes tiles b, b + grid, ... (tile_of's order), and its
-// producer runs on into the next tile while the consumers write the last
-// one. A tile goes through the epilogue when there is one split, else its
-// partial (f32, int32 under W8A8) goes to part[split][M][N].
 template <bool S8, int BITS, int BM>
 __global__ void __launch_bounds__(Cfg<S8, BITS, BM>::THREADS, 1)
     qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                      const __grid_constant__ CUtensorMap wmap, const Args g) {
-  using C = Cfg<S8, BITS, BM>;
-  extern __shared__ uint8_t smem_raw[];
-  Ring<S8, BITS, BM> ring;
-  ring.smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  ring.bars = smem_u32(ring.smem + C::BAR_AT);
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < C::STAGES; ++s) {
-      mbar_init(ring.full(s), g.use_tma ? 1 : 32);
-      mbar_init(ring.empty(s), C::CONSUMERS / 128);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x >= C::CONSUMERS)
-    produce<S8, BITS, BM>(ring, g, &xmap, &wmap);
-  else if constexpr (S8)
-    consume_s8<BITS, BM>(ring, g);
-  else
-    consume_bf16<BITS, BM>(ring, g);
-}
-
-// a 2-D row-major (rows x cols) byte or bf16 map with a (box_cols x box_rows) box
-bool encode_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type, int elem_bytes,
-               int rows, int cols, int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  wgmma_body<S8, BITS, BM, false>(&xmap, &wmap, nullptr, g);
 }
 
 template <bool S8, int BITS, int BM>
-cudaError_t launch_wgmma(Args g, int stages, cudaStream_t stream) {
-  using C = Cfg<S8, BITS, BM>;
-  if (stages != C::STAGES) return cudaErrorInvalidValue;  // the plan disagrees with the build
-  auto kernel = qmm_wgmma_kernel<S8, BITS, BM>;
+cudaError_t launch_tc(Args g, int stages, cudaStream_t stream) {
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-  if (err != cudaSuccess) return err;
-  CUtensorMap xmap{}, wmap{};  // left zero for the predicated producer, which reads neither
-  if (g.use_tma) {
-    const bool ok =
-        encode_2d(&xmap, g.x, S8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                  S8 ? 1 : 2, g.M, g.K, C::BK, BM, CU_TENSOR_MAP_SWIZZLE_128B) &&
-        encode_2d(&wmap, g.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, BITS == 4 ? g.K / 2 : g.K, g.N, BN,
-                  C::BK, CU_TENSOR_MAP_SWIZZLE_128B);
-    if (!ok) return cudaErrorInvalidValue;
-  }
-  int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  g.tiles = ((g.M + BM - 1) / BM) * ((g.N + BN - 1) / BN) * g.splits;
-  kernel<<<std::min(g.tiles, sms), C::THREADS, C::SMEM, stream>>>(xmap, wmap, g);
-  err = cudaGetLastError();
+      launch_wgmma<S8, BITS, BM, false>(qmm_wgmma_kernel<S8, BITS, BM>, g, stages, stream);
   if (err != cudaSuccess || g.splits == 1) return err;
   return launch_sum(S8, g.part, g.scales, g.x_scales, g.out, g.out_bf16, g.M, g.N, g.splits,
                     stream);
@@ -705,10 +234,10 @@ cudaError_t launch_wgmma(Args g, int stages, cudaStream_t stream) {
 
 template <bool S8, int BITS>
 cudaError_t by_rows(int bm, const Args& g, int stages, cudaStream_t stream) {
-  if (bm == 64) return launch_wgmma<S8, BITS, 64>(g, stages, stream);
-  if (bm == 128) return launch_wgmma<S8, BITS, 128>(g, stages, stream);
+  if (bm == 64) return launch_tc<S8, BITS, 64>(g, stages, stream);
+  if (bm == 128) return launch_tc<S8, BITS, 128>(g, stages, stream);
   if constexpr (!S8)  // W8A8 would need four consumer warpgroups
-    if (bm == 256) return launch_wgmma<S8, BITS, 256>(g, stages, stream);
+    if (bm == 256) return launch_tc<S8, BITS, 256>(g, stages, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -741,8 +270,8 @@ extern "C" int fasn_qmm(const void* x, const float* x_scales, const void* w, con
                             static_cast<float*>(partial), out, out_dtype, M, K, N, splits,
                             slices_per_split, stream)
                : cudaErrorInvalidValue;
-  const Args g{x, x_dtype == 2 ? x_scales : nullptr, wq, scales, partial, out, out_dtype, M, K, N,
-               splits, slices_per_split, use_tma, 0};
+  const Args g{x,   x_dtype == 2 ? x_scales : nullptr, wq, scales, nullptr, nullptr, partial,
+               out, out_dtype, M, K, N, splits, slices_per_split, use_tma, 0};
   if (x_dtype == 1) return by_shape<false>(bits, bm, g, stages, stream);
   if (x_dtype == 2) return by_shape<true>(bits, bm, g, stages, stream);
   return cudaErrorInvalidValue;

@@ -13,7 +13,8 @@ for both sides, so the compiler checks every argument list;
 inline PTX of the tensor-core kernels (TMA, mbarriers, wgmma and its
 descriptors) and libcuda's tensor-map encoder, which K7, K1, K5, K6 and
 K10 include; ``attn_tile.h`` the TMA + wgmma attention tile of K1's, K5's,
-K6's and K10's bf16 kernels.
+K6's and K10's bf16 kernels; ``qmm_tile.h`` K7's tensor-core dequant matmul
+(TMA ring, producer warp, converting consumers), on which K9 builds too.
 
 The library lands in ``_build/`` beside the package (listed in
 ``.gitignore``), named by a hash of the sources, flags and PyTorch version,
@@ -46,7 +47,7 @@ KERNELS = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu",
            "qmm_argmax.cu", "cache_update.cu", "qmm.cu", "fused_mlp.cu",
            "decode_attn.cu", "prefill_phases.cu")
 BINDINGS = "bindings.cpp"
-HEADERS = ("launchers.h", "flash_common.h", "hopper.h", "attn_tile.h")
+HEADERS = ("launchers.h", "flash_common.h", "hopper.h", "attn_tile.h", "qmm_tile.h")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 CXX_FLAGS = ["-std=c++17", "-O2", "-fPIC"]

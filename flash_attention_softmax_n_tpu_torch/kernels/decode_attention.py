@@ -9,7 +9,8 @@ exactly once. Two routes compute the statistics, as in JAX:
 
   * ``implementation="pallas"`` (the default): kernel K8
     (``csrc/decode_attn.cu``) on a CUDA tensor, which reads only the
-    positions below each slot's length, or its plain version
+    positions below each slot's length in splits whose length
+    ``decode_attn_plan`` chooses per call, or its plain version
     ``decode_attn_stats_reference`` on a CPU tensor. It rounds q to q's own
     type and walks 256-position tiles with a running maximum, as the Pallas
     kernel does; ``int8_compute`` quantizes q per row and the probabilities
@@ -26,15 +27,62 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import math
+
 import numpy as np
 import torch
 
 from flash_attention_softmax_n_tpu_torch.kernels import _build
 
-__all__ = ["decode_attention_n", "decode_attn_stats_reference"]
+__all__ = ["decode_attention_n", "decode_attn_stats_reference", "decode_attn_plan",
+           "decode_attn_products"]
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
-TILE = 256  # positions per tile of the Pallas kernel, and per split of K8
+TILE = 256  # positions per tile of the Pallas kernel, and K8's longest split
+SPLITS = (256, 128, 64, 32)  # K8's split lengths, longest first
+_SMS = 132  # the H100's streaming multiprocessors
+_KV_SMEM = 48 * 1024  # shared bytes a split's k and v rows may take: 4 CTAs an SM
+FMA, MMA = 0, 1  # K8's products: f32 FMAs, or mma.sync in bf16
+
+
+def decode_attn_plan(batch: int, kvh: int, s_len: int, hd: int, kv_elem: int,
+                     int8_compute: bool) -> int:
+    """K8's split length (positions per CTA) for a (B, KVH, S, hd) cache of
+    ``kv_elem``-byte values: the longest of ``SPLITS`` whose grid over
+    (split, KV head, slot) holds at least one CTA per SM when every slot
+    is full and whose k and v rows (each padded to 16 bytes, plus one
+    16-byte chunk) fit 48 KB of shared memory, else the shortest that
+    fits. The 48 KB keep four CTAs on an SM: a bf16 cache at hd 64 and
+    B64 S512 took 0.0283 ms at 256-position splits (72 KB of rows, two
+    CTAs an SM) and 0.0176 at 128 on an NVIDIA H100 80GB HBM3
+    (``utils/bench_decode_attn.py``). A longer target costs where slots
+    are short against the window: the fused loop's chunk (B64, a 256-row
+    window, slots of 64-80 rows) ran K8 35% longer at 64-position splits
+    (four CTAs per SM) than at 256. Under int8 compute it is the Pallas
+    kernel's 256-position tile: p is requantized per row over each tile, so
+    another length computes another function.
+    """
+    if int8_compute:
+        return TILE
+    row = -(-hd * kv_elem // 16) * 16 + 16
+    fits = [sp for sp in SPLITS if 2 * sp * row <= _KV_SMEM]
+    for sp in fits:
+        if batch * kvh * math.ceil(s_len / sp) >= _SMS:
+            return sp
+    return fits[-1]
+
+
+def decode_attn_products(q_dtype: torch.dtype, kv_dtype: torch.dtype,
+                         hd: int) -> int:
+    """K8's products: ``MMA`` (mma.sync m16n8k16, bf16 operands, f32
+    accumulators) for bf16 q over a bf16, int8 or fp8 cache with hd a
+    multiple of 16, whose values widen to bf16 exactly; ``FMA`` (f32 FMAs)
+    otherwise: f32 q or an f32 cache keeps f32 products, and int8
+    compute's integer products are exact in f32.
+    """
+    mma = (q_dtype == torch.bfloat16 and hd % 16 == 0
+           and kv_dtype in (torch.bfloat16, torch.int8, torch.float8_e4m3fn))
+    return MMA if mma else FMA
 
 
 def _operand(x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
@@ -132,9 +180,12 @@ def decode_attn_stats_reference(
 def _decode_attn_cuda(qv, q_scales, k_values, v_values, lengths, k_scales,
                       v_scales):
     batch, kvh, group, hd = qv.shape
+    s_len = k_values.shape[2]
     dev = qv.device
     ops = _build.ops()
-    splits = ops.decode_attn_splits(k_values.shape[2])
+    split = decode_attn_plan(batch, kvh, s_len, hd, k_values.element_size(),
+                             qv.dtype == torch.int8)
+    splits = math.ceil(s_len / split)
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -146,7 +197,8 @@ def _decode_attn_cuda(qv, q_scales, k_values, v_values, lengths, k_scales,
         k_values, v_values, k_scales, v_scales,
         lengths.to(torch.int32).contiguous(), acc, m, l,
         f32(batch, kvh, splits, group, hd), f32(batch, kvh, splits, group),
-        f32(batch, kvh, splits, group))
+        f32(batch, kvh, splits, group), split,
+        decode_attn_products(qv.dtype, k_values.dtype, hd))
     _build.LAUNCHES["decode_attn"] += 1
     return acc, m, l
 

@@ -9,7 +9,9 @@ with g and u accumulated in f32 and scaled before the silu, h = silu(g)*u
 rounded to x's type before the down product, and sd applied after the
 down product's accumulation. On a CUDA tensor the hand-written kernel
 (``csrc/fused_mlp.cu``) runs; on a CPU tensor the plain version
-``fused_mlp_reference`` does.
+``fused_mlp_reference`` does. For bf16 x the kernel runs two tensor-core
+phases, planned here by ``fused_mlp_plan``: x @ [Wg | Wu] into h, then
+h @ Wd; f32 x takes a scalar kernel.
 
 ``mlp_fusion_eligible`` is JAX's routing predicate, copied with its TPU
 VMEM arithmetic: it decides which function the decoder computes (the fused
@@ -19,14 +21,20 @@ must route exactly as JAX does. It sets no tile of K9.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from flash_attention_softmax_n_tpu_torch.kernels import _build
+from flash_attention_softmax_n_tpu_torch.kernels.quant_matmul import (
+    QmmPlan,
+    aligned16,
+    wgmma_plan,
+)
 
-__all__ = ["fused_mlp_matmul", "fused_mlp_reference", "mlp_fusion_eligible"]
+__all__ = ["fused_mlp_matmul", "fused_mlp_reference", "mlp_fusion_eligible",
+           "MlpPlan", "fused_mlp_plan"]
 
 # JAX's per-kernel scoped-VMEM budget on v5e (kernels/quant_matmul.py),
 # kept only for the routing predicate
@@ -62,6 +70,33 @@ def mlp_fusion_eligible(m_total: int, k: int, f: int, bits: int) -> bool:
                               min(256, _round_up(m_total, 8))) is not None)
 
 
+# K splits of the down product at most: at M64 K2048 F5632 its partials'
+# round trip is then 2 * 4 * 64 * 2048 * 4 bytes = 4.2 MB, which keeps K9's
+# device-memory traffic within 1.2x its 34.6 MB of weights
+_DOWN_MAX_SPLITS = 4
+
+
+class MlpPlan(NamedTuple):
+    """How ``csrc/fused_mlp.cu`` runs one (M, K, F) MLP."""
+
+    kernel: str                  # "wgmma" (bf16 x) or "scalar" (f32 x)
+    gate_up: Optional[QmmPlan]   # x @ [Wg | Wu] -> h: 64 d_ff columns of each a tile
+    down: Optional[QmmPlan]      # h @ Wd: K7's tiles, at most _DOWN_MAX_SPLITS splits
+
+
+def fused_mlp_plan(m: int, k: int, f: int, x_dtype: torch.dtype) -> MlpPlan:
+    """K9's plan for x (M, K) of ``x_dtype`` and d_ff F: for bf16 x the
+    tensor-core plan of each phase (``quant_matmul.wgmma_plan``; the gate/up
+    phase's stage carries 64 columns of both Wg and Wu), for f32 x the
+    scalar kernel."""
+    if x_dtype == torch.float32:
+        return MlpPlan("scalar", None, None)
+    if x_dtype != torch.bfloat16:
+        raise ValueError(f"fused_mlp_matmul takes bf16 or f32 inputs, got {x_dtype}")
+    return MlpPlan("wgmma", wgmma_plan(m, k, f, dual=True),
+                   wgmma_plan(m, f, k, max_splits=_DOWN_MAX_SPLITS))
+
+
 def fused_mlp_reference(x2, wg_values, wg_scales, wu_values, wu_scales,
                         wd_values, wd_scales) -> torch.Tensor:
     """Plain version of K9 on x (M, K)."""
@@ -72,19 +107,36 @@ def fused_mlp_reference(x2, wg_values, wg_scales, wu_values, wu_scales,
     return out.to(x2.dtype)
 
 
+def _phase_ints(p: QmmPlan):
+    return [p.bm, p.stages, p.splits, p.slices_per_split, int(p.producer == "tma")]
+
+
 def _fused_mlp_cuda(x2, wg, sg, wu, su, wd, sd):
     m, k = x2.shape
     f = wg.shape[1]
+    plan = fused_mlp_plan(m, k, f, x2.dtype)
     ops = _build.ops()
-    out = torch.empty((m, k), dtype=x2.dtype, device=x2.device)
-    part = torch.empty((ops.fused_mlp_tiles(f), m, k), dtype=torch.float32,
-                       device=x2.device)
+    dev = x2.device
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
 
     def vec(s):
         return s.reshape(-1).float().contiguous()
 
-    ops.fused_mlp(x2.contiguous(), wg.contiguous(), vec(sg), wu.contiguous(),
-                  vec(su), wd.contiguous(), vec(sd), out, part)
+    out = torch.empty((m, k), dtype=x2.dtype, device=dev)
+    h = dn_part = f32(0)
+    if plan.kernel == "scalar":
+        gu_part, ints = f32(ops.fused_mlp_tiles(f), m, k), []
+    else:
+        gu, dn = plan.gate_up, plan.down
+        h = torch.empty((m, f), dtype=torch.bfloat16, device=dev)
+        gu_part = f32(2 * gu.splits, m, f) if gu.splits > 1 else f32(0)
+        if dn.splits > 1:
+            dn_part = f32(dn.splits, m, k)
+        ints = _phase_ints(gu) + _phase_ints(dn)
+    ops.fused_mlp(aligned16(x2), aligned16(wg), vec(sg), aligned16(wu), vec(su),
+                  aligned16(wd), vec(sd), out, h, gu_part, dn_part, ints)
     _build.LAUNCHES["fused_mlp"] += 1
     return out
 
@@ -96,8 +148,8 @@ def fused_mlp_matmul(x: torch.Tensor,
                      ) -> torch.Tensor:
     """silu(x @ Wg) * (x @ Wu) @ Wd with int8 weights: x (..., K) bf16 or
     f32; wg/wu int8 (K, F) with per-column scales (F,); wd int8 (F, K) with
-    per-column scales (K,). Returns (..., K) in x's type. The kernel takes
-    K and F in multiples of 64."""
+    per-column scales (K,). Returns (..., K) in x's type. With f32 x the
+    kernel takes K and F in multiples of 64."""
     k = x.shape[-1]
     f = wg_values.shape[1]
     if (tuple(wg_values.shape) != (k, f) or tuple(wu_values.shape) != (k, f)

@@ -27,7 +27,7 @@ from flash_attention_softmax_n_tpu_torch.quant.qtensor import (
 __all__ = ["quantized_matmul", "quantized_matmul_reference",
            "quantize_rows", "quantized_matmul_argmax",
            "quantized_matmul_argmax_reference", "QMM_MODES", "QmmPlan",
-           "qmm_mode", "qmm_plan"]
+           "qmm_mode", "qmm_plan", "wgmma_plan"]
 
 # K7's modes: bf16 x with int8 or int4 weights, int8 x (W8A8) with int8 or
 # int4 weights, and f32 x (either weight type)
@@ -57,9 +57,9 @@ class QmmPlan(NamedTuple):
 _TILE_256_COST = 1.75
 
 
-def _rounds(m: int, n: int, bm: int) -> int:
-    """rounds of one (bm x 128) tile per SM that cover an (m, n) output"""
-    return math.ceil(math.ceil(m / bm) * math.ceil(n / 128) / _SMS)
+def _rounds(m: int, n: int, bm: int, bn: int) -> int:
+    """rounds of one (bm x bn) tile per SM that cover an (m, n) output"""
+    return math.ceil(math.ceil(m / bm) * math.ceil(n / bn) / _SMS)
 
 
 def qmm_mode(x_dtype: torch.dtype, bits: int) -> str:
@@ -73,54 +73,69 @@ def qmm_mode(x_dtype: torch.dtype, bits: int) -> str:
     raise ValueError(f"quantized_matmul takes bf16 or f32 inputs, got {x_dtype}")
 
 
+def _split(n_slices: int, want: int, max_splits: int = _MAX_SPLITS) -> Tuple[int, int]:
+    """(splits, slices per split): at most ``want`` and ``max_splits``
+    ranges of at least two slices each, none empty"""
+    splits = min(want, max(1, n_slices // _MIN_SLICES_PER_SPLIT), max_splits)
+    per = math.ceil(n_slices / splits)
+    return math.ceil(n_slices / per), per
+
+
+def wgmma_plan(m: int, k: int, n: int, *, int8_x: bool = False, dual: bool = False,
+               max_splits: int = _MAX_SPLITS) -> QmmPlan:
+    """The tensor-core kernel's plan (``csrc/qmm_tile.h``) for an (M, K, N)
+    product: K7's bf16 or int8 x, or (``dual``) K9's gate/up phase, whose
+    tiles are 64 columns of each of two weight matrices.
+
+    Tiles are 64 rows of x below M = 128 and 128 from there; bf16 x takes
+    256 rows where that needs fewer rounds of tiles over the SMs by more
+    than a 256-row tile's extra cost. A stage is one 128-byte row of K: 64
+    logical K rows of bf16 x, 128 of int8 x, so an int4 stage lies in one
+    half of one 256-row group (one nibble of as many packed byte rows); its
+    W bytes are as many 128-byte rows (``dual``: two matrices' 64-byte
+    rows). The ring is as deep as shared memory allows (4-8 stages) beside
+    2 KB and, under W8A8, three converted W tiles or, under ``dual``,
+    warpgroup 1's accumulators handed to warpgroup 0. The producer is TMA
+    unless a row stride is not a multiple of 16 bytes (bf16 x with K % 8,
+    int8 x with K % 16, W with N % 16). Where the tiles fill less than half
+    the card's SMs, K is split into as many ranges (at least two slices
+    each, at most ``max_splits``) as keep the tiles within one round over
+    the SMs.
+    """
+    bn = 64 if dual else 128
+    bm = 128 if m >= 128 else 64
+    bk = 128 if int8_x else 64
+    if bm == 128 and not int8_x and (_rounds(m, n, 256, bn) * _TILE_256_COST
+                                     < _rounds(m, n, 128, bn)):
+        bm = 256
+    reserved = 3 * bn * 128 if int8_x else (256 * bm if dual else 0)
+    stages = min(_MAX_STAGES, (_SMEM - reserved - 2048) // ((bm + bk) * 128))
+    aligned = (k * (1 if int8_x else 2)) % 16 == 0 and n % 16 == 0
+    tiles = math.ceil(m / bm) * math.ceil(n / bn)
+    # persistent CTAs, one per SM: as many splits as keep the tiles within
+    # one round over the SMs
+    want = _SMS // tiles if 2 * tiles <= _SMS else 1
+    splits, per = _split(math.ceil(k / bk), want, max_splits)
+    return QmmPlan("wgmma", bm, bn, bk, stages, splits, per,
+                   "tma" if aligned else "predicated")
+
+
 def qmm_plan(m: int, k: int, n: int, mode: str) -> QmmPlan:
     """The tiles, ring, K splits and producer of K7 for an (M, K, N)
-    product in ``mode`` (``QMM_MODES``).
-
-    The tensor-core kernel's tiles are 128 columns by 64 rows of x below
-    M = 128 and 128 from there; bf16 x takes 256 rows where that needs
-    fewer rounds of tiles over the SMs by more than a 256-row tile's extra
-    cost. A stage is one 128-byte row of K: 64 logical K rows of bf16 x,
-    128 of int8 x, so an int4 stage lies in one half of one 256-row group
-    (one nibble of as many packed byte rows). The ring is as deep as
-    shared memory allows (5-8 stages). The producer is TMA unless a row
-    stride is not a multiple of 16 bytes (bf16 x with K % 8, int8 x with
-    K % 16, W with N % 16). Where the tiles fill less than half the card's
-    SMs, K is split into as many ranges (at least two slices each) as keep
-    the tiles within one round over the SMs. f32 x takes the scalar kernel (64x64 tiles, 32-deep
-    slices, split to about two CTAs per SM), which loads without TMA.
+    product in ``mode`` (``QMM_MODES``): ``wgmma_plan`` for bf16 or int8 x
+    (W's int8 or int4 columns 128 to a tile); f32 x takes the scalar kernel
+    (64x64 tiles, 32-deep slices, split to about two CTAs per SM), which
+    loads without TMA.
     """
     if mode not in QMM_MODES:
         raise ValueError(f"qmm_plan: mode {mode!r} is not one of {QMM_MODES}")
-    if mode == "f32":
-        kernel, bm, bn, bk, stages, producer = "scalar", 64, 64, 32, 1, "scalar"
-        tiles = math.ceil(m / bm) * math.ceil(n / bn)
-        # about two CTAs per SM in flight
-        want = math.ceil(2 * _SMS / tiles) if tiles < 2 * _SMS else 1
-    else:
-        int8_x = mode in ("w8a8", "w4a8")
-        kernel, bm, bn = "wgmma", 128 if m >= 128 else 64, 128
-        bk = 128 if int8_x else 64
-        if bm == 128 and not int8_x and (_rounds(m, n, 256) * _TILE_256_COST
-                                         < _rounds(m, n, 128)):
-            bm = 256
-        # the ring: as many stages of x (bm rows of 128 bytes) and W (bk
-        # rows of 128 bytes) as fit beside 2 KB and, under W8A8, three
-        # converted W tiles (128 rows of 128 bytes each)
-        converted = 3 * bn * 128 if int8_x else 0
-        stages = min(_MAX_STAGES, (_SMEM - converted - 2048) // ((bm + bk) * 128))
-        aligned = (k * (1 if int8_x else 2)) % 16 == 0 and n % 16 == 0
-        producer = "tma" if aligned else "predicated"
-        tiles = math.ceil(m / bm) * math.ceil(n / bn)
-        # persistent CTAs, one per SM: as many splits as keep the tiles
-        # within one round over the SMs
-        want = _SMS // tiles if 2 * tiles <= _SMS else 1
-    n_slices = math.ceil(k / bk)
-    splits = min(want, max(1, n_slices // _MIN_SLICES_PER_SPLIT), _MAX_SPLITS)
-    # no empty split: as many splits as ceil-sized ranges of slices
-    per = math.ceil(n_slices / splits)
-    return QmmPlan(kernel, bm, bn, bk, stages, math.ceil(n_slices / per), per,
-                   producer)
+    if mode != "f32":
+        return wgmma_plan(m, k, n, int8_x=mode in ("w8a8", "w4a8"))
+    tiles = math.ceil(m / 64) * math.ceil(n / 64)
+    # about two CTAs per SM in flight
+    want = math.ceil(2 * _SMS / tiles) if tiles < 2 * _SMS else 1
+    splits, per = _split(math.ceil(k / 32), want)
+    return QmmPlan("scalar", 64, 64, 32, 1, splits, per, "scalar")
 
 
 def _route(x: torch.Tensor, what: str) -> bool:
@@ -158,7 +173,7 @@ def quantized_matmul_reference(x2: torch.Tensor, x_scales: Optional[torch.Tensor
     return out.to(out_dtype)
 
 
-def _aligned16(t: torch.Tensor) -> torch.Tensor:
+def aligned16(t: torch.Tensor) -> torch.Tensor:
     """t contiguous and starting on a 16-byte boundary (TMA's), copied
     only where a view starts elsewhere."""
     t = t.contiguous()
@@ -174,7 +189,7 @@ def _qmm_cuda(x2, x_scales, w_values, w_scales, bits, out_dtype):
     part = torch.empty((plan.splits, m, n) if plan.splits > 1 else (0,),
                        dtype=torch.float32, device=x2.device)
     xs = None if x_scales is None else x_scales.reshape(-1).contiguous()
-    ops.qmm(_aligned16(x2), xs, _aligned16(w_values),
+    ops.qmm(aligned16(x2), xs, aligned16(w_values),
             w_scales.reshape(-1).float().contiguous(), out, part, bits,
             plan.bm, plan.stages, plan.splits, plan.slices_per_split,
             plan.producer == "tma")

@@ -591,22 +591,85 @@ def test_qmm_plan_matches_the_kernels_and_bad_plans_raise(gen):
         ops.qmm(x, None, wv, ws, out, part, 8, 64, 3, 2, 4, True)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mkf", [(1, 128, 256), (13, 256, 1024), (64, 2048, 5632),
-                                 (300, 512, 1536)])
-def test_fused_mlp_matches_plain(gen, dtype, mkf):
-    m, k, f = mkf
+# K9 at M either side of a 64-row tile and up to the fusion limit (512),
+# with K and F that split the gate/up phase's K (13 x 256 x 1024: 16 tiles
+# of 64 d_ff columns, 4 slices) and that do not (64 x 2048 x 5632: 88
+# tiles), 256-row gate/up tiles (256 x 2048 x 5632), and K 128, where the
+# gate/up phase has 2 slices and does not split but the down phase does
+_MLP_SHAPES = [(1, 128, 256), (1, 512, 256), (13, 256, 1024), (64, 2048, 5632),
+               (65, 512, 1536), (256, 2048, 5632), (300, 512, 1536), (512, 1024, 2816)]
+
+
+def _mlp_inputs(gen, dtype, m, k, f):
     x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
     (wg, sg), (wu, su) = _qweight(gen, k, f, 8), _qweight(gen, k, f, 8)
     wd, sd = _qweight(gen, f, k, 8)
+    return x, wg, sg, wu, su, wd, sd
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mkf", _MLP_SHAPES, ids=lambda c: "-".join(map(str, c)))
+def test_fused_mlp_matches_plain(gen, dtype, mkf):
+    args = _mlp_inputs(gen, dtype, *mkf)
     before = _build.LAUNCHES["fused_mlp"]
-    out = fm.fused_mlp_matmul(x, wg, sg, wu, su, wd, sd)
+    out = fm.fused_mlp_matmul(*args)
     assert _build.LAUNCHES["fused_mlp"] == before + 1
-    again = fm.fused_mlp_matmul(x, wg, sg, wu, su, wd, sd)
-    ref = fm.fused_mlp_reference(x, wg, sg, wu, su, wd, sd)
+    again = fm.fused_mlp_matmul(*args)
+    ref = fm.fused_mlp_reference(*args)
     assert out.dtype == dtype and torch.equal(out, again)
     tol = (1e-5 if dtype == torch.float32 else 2e-2) * float(ref.float().abs().max())
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    if dtype == torch.bfloat16:
+        # as a whole too: an error on a few tiles, small beside max |plain|,
+        # still moves the norm (h rounds to bf16 on either side of a tie)
+        _assert_norm_close(out, ref, 1e-2)
+
+
+@pytest.mark.parametrize("mkf", [(13, 200, 300), (64, 2048, 5640)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_fused_mlp_predicated_producers(gen, mkf):
+    # F % 16 (and K % 16) that TMA cannot take: the predicated producers
+    m, k, f = mkf
+    plan = fm.fused_mlp_plan(m, k, f, torch.bfloat16)
+    assert plan.gate_up.producer == "predicated"
+    args = _mlp_inputs(gen, torch.bfloat16, m, k, f)
+    out, again = fm.fused_mlp_matmul(*args), fm.fused_mlp_matmul(*args)
+    ref = fm.fused_mlp_reference(*args)
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=2e-2 * float(ref.float().abs().max()))
+    _assert_norm_close(out, ref, 1e-2)
+
+
+def test_fused_mlp_counts_one_launch_and_no_qmm(gen):
+    # the down product runs K7's kernel under K9's name, from K9's launcher
+    args = _mlp_inputs(gen, torch.bfloat16, 64, 2048, 5632)
+    before = dict(_build.LAUNCHES)
+    fm.fused_mlp_matmul(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_mlp"] == before["fused_mlp"] + 1
+    assert _build.LAUNCHES["qmm"] == before["qmm"]
+
+
+def test_fused_mlp_bad_plans_raise(gen):
+    x, wg, sg, wu, su, wd, sd = _mlp_inputs(gen, torch.bfloat16, 64, 512, 256)
+    sg, su, sd = (t.reshape(-1).float().contiguous() for t in (sg, su, sd))
+    ops = _build.ops()
+    plan = fm.fused_mlp_plan(64, 512, 256, torch.bfloat16)
+    out = torch.empty_like(x)
+    h = torch.empty((64, 256), dtype=torch.bfloat16, device="cuda")
+    gp = torch.empty((2 * plan.gate_up.splits, 64, 256), device="cuda")
+    dp = torch.empty((plan.down.splits, 64, 512), device="cuda")
+    good = fm._phase_ints(plan.gate_up) + fm._phase_ints(plan.down)
+    ops.fused_mlp(x, wg, sg, wu, su, wd, sd, out, h, gp, dp, good)
+    bad_cover = list(good)
+    bad_cover[3] = 1  # one slice a split: 8 slices are not covered
+    with pytest.raises(ValueError, match="do not cover"):
+        ops.fused_mlp(x, wg, sg, wu, su, wd, sd, out, h, gp, dp, bad_cover)
+    bad_ring = list(good)
+    bad_ring[1] = 3  # not the ring the kernel is built with
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        ops.fused_mlp(x, wg, sg, wu, su, wd, sd, out, h, gp, dp, bad_ring)
 
 
 def _decode_inputs(gen, cache, qdtype, group, hd, *, B=5, KVH=2, S=600):
@@ -704,6 +767,145 @@ def test_decode_attn_rejects_fp8_int8_compute(gen):
         da._decode_attn_cuda(*_prep_q(q, "int8_compute", None), k, v, lengths, ks, vs)
     with pytest.raises(ValueError, match="scales"):
         da._decode_attn_cuda(q.to(torch.bfloat16), None, k, v, lengths, None, None)
+
+
+# the split lengths the plan takes at the serving shapes: serve_fp8's fused
+# loop (B8 over a 256-row window) and step path (B2 over 512 rows), and
+# serve_pallas's B64 over 512 rows with int8
+@pytest.mark.parametrize("case", [(8, 256, "fp8", 32), (2, 512, "fp8", 32),
+                                  (64, 512, "int8", 256)], ids=lambda c: "-".join(map(str, c)))
+def test_decode_attn_at_planned_splits(gen, case):
+    B, S, cache, split = case
+    KVH, G, hd = 4, 8, 64
+    assert da.decode_attn_plan(B, KVH, S, hd, 1, False) == split
+    assert B * KVH * -(-S // split) >= 128  # at least about one CTA per SM
+    full = [torch.randn((2, B, KVH, S, hd), generator=gen, device="cuda") for _ in range(2)]
+    from flash_attention_softmax_n_tpu_torch.quant.kv_cache import quantize_kv
+    (kq, ksf), (vq, vsf) = (quantize_kv(t, -8 if cache == "fp8" else 8) for t in full)
+    k, v, ks, vs = kq[1], vq[1], ksf[1], vsf[1]
+    q = (torch.randn((B, KVH, G, hd), generator=gen, device="cuda") * hd ** -0.5)
+    qv = q.to(torch.bfloat16)
+    lengths = torch.randint(0, S + 1, (B,), generator=gen, device="cuda").to(torch.int32)
+    lengths[0], lengths[-1] = 0, S
+    got = da._decode_attn_cuda(qv, None, k, v, lengths, ks, vs)
+    again = da._decode_attn_cuda(qv, None, k, v, lengths, ks, vs)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    acc, m, l = got
+    acc_r, m_r, l_r = da.decode_attn_stats_reference(qv, None, k, v, lengths, ks, vs)
+    live = lengths > 0
+    assert torch.equal(acc[~live], torch.zeros_like(acc[~live]))
+    assert bool((m[~live] == da.NEG_INF).all()) and bool((l[~live] == 0).all())
+    torch.testing.assert_close(m[live], m_r[live], atol=1e-4, rtol=0)
+    torch.testing.assert_close(l[live], l_r[live], atol=0, rtol=1e-4)
+    torch.testing.assert_close(acc[live] / l[live][..., None],
+                               acc_r[live] / l_r[live][..., None], atol=2e-2, rtol=0)
+
+
+def _decode_direct(qv, qs, k, v, ks, vs, lengths, split, products):
+    """K8's operator called with a plan of the caller's: (acc, m, l)"""
+    B, KVH, G, hd = qv.shape
+    n = -(-k.shape[2] // split)
+    outs = [torch.empty(s, device="cuda") for s in ((B, KVH, G, hd), (B, KVH, G), (B, KVH, G),
+                                                     (B, KVH, n, G, hd), (B, KVH, n, G),
+                                                     (B, KVH, n, G))]
+    _build.ops().decode_attn(qv, qs, k, v, ks, vs, lengths, *outs, split, products)
+    return outs[:3]
+
+
+def _assert_decode_close(got, qv, qs, k, v, ks, vs, lengths, atol):
+    acc, m, l = got
+    acc_r, m_r, l_r = da.decode_attn_stats_reference(qv, qs, k, v, lengths, ks, vs)
+    live = lengths > 0
+    assert torch.equal(acc[~live], torch.zeros_like(acc[~live]))
+    assert bool((m[~live] == da.NEG_INF).all()) and bool((l[~live] == 0).all())
+    torch.testing.assert_close(m[live], m_r[live], atol=1e-4, rtol=0)
+    torch.testing.assert_close(l[live], l_r[live], atol=0, rtol=1e-4)
+    torch.testing.assert_close(acc[live] / l[live][..., None],
+                               acc_r[live] / l_r[live][..., None], atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("products", [da.FMA, da.MMA], ids=["fma", "mma"])
+@pytest.mark.parametrize("split", da.SPLITS)
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8", "fp8"])
+def test_decode_attn_every_split_length(gen, split, cache, products):
+    # each split length the kernel takes, called with it directly, with
+    # either product design where it applies (an f32 cache: FMAs only)
+    q, k, v, ks, vs, lengths = _decode_inputs(gen, cache, torch.bfloat16, 8, 64)
+    qv = q.to(torch.bfloat16)
+    if cache == "f32" and products == da.MMA:
+        with pytest.raises(ValueError, match="not a plan"):
+            _decode_direct(qv, None, k, v, ks, vs, lengths, split, products)
+        return
+
+    def run():
+        return _decode_direct(qv, None, k, v, ks, vs, lengths, split, products)
+
+    (acc, m, l), again = run(), run()
+    assert all(torch.equal(a, b) for a, b in zip((acc, m, l), again))
+    acc_r, m_r, l_r = da.decode_attn_stats_reference(qv, None, k, v, lengths, ks, vs)
+    live = lengths > 0
+    torch.testing.assert_close(m[live], m_r[live], atol=1e-4, rtol=0)
+    torch.testing.assert_close(l[live], l_r[live], atol=0, rtol=1e-4)
+    torch.testing.assert_close(acc[live] / l[live][..., None],
+                               acc_r[live] / l_r[live][..., None], atol=2e-2, rtol=0)
+
+
+def test_decode_attn_int8_compute_keeps_256_position_splits(gen):
+    q, k, v, ks, vs, lengths = _decode_inputs(gen, "int8_compute", None, 8, 64)
+    qv, qs = _prep_q(q, "int8_compute", None)
+    B, KVH, G, hd = qv.shape
+    assert da.decode_attn_plan(64, 4, 256, hd, 1, True) == 256  # even where 32 fills the card
+    assert da.decode_attn_products(qv.dtype, k.dtype, hd) == da.FMA
+    with pytest.raises(ValueError, match="split of 32"):
+        _decode_direct(qv, qs.reshape(B, KVH, G), k, v, ks, vs, lengths, 32, da.FMA)
+    with pytest.raises(ValueError, match="products 1"):  # integer products stay FMAs
+        _decode_direct(qv, qs.reshape(B, KVH, G), k, v, ks, vs, lengths, 256, da.MMA)
+
+
+# views the 16-byte copies cannot take (rows of 34 or 42 values, no
+# multiple of 16 bytes in any cache type; a base one element off 16 bytes):
+# K8 copies them element by element into the same shared layout, zero past
+# hd (the offset view at hd 64 takes the mma products with bf16 q)
+@pytest.mark.parametrize("view", ["hd34", "hd42", "offset"])
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
+def test_decode_attn_element_copies(gen, cache, view):
+    hd = {"hd34": 34, "hd42": 42, "offset": 64}[view]
+    qdtype = torch.float32 if cache == "f32" else torch.bfloat16
+    q, k, v, ks, vs, lengths = _decode_inputs(gen, cache, qdtype, 8, hd)
+    if view == "offset":
+        # the same values in a buffer one element longer, viewed from its
+        # second element
+        def shift(t):
+            flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device="cuda")
+            flat[1:] = t.reshape(-1)
+            return flat[1:].view(t.shape)
+        k, v = shift(k.contiguous()), shift(v.contiguous())
+        assert k.data_ptr() % 16 != 0
+    else:
+        assert (hd * k.element_size()) % 16 != 0
+    qv, _ = _prep_q(q, cache, qdtype)
+    got = da._decode_attn_cuda(qv, None, k, v, lengths, ks, vs)
+    again = da._decode_attn_cuda(qv, None, k, v, lengths, ks, vs)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _assert_decode_close(got, qv, None, k, v, ks, vs, lengths,
+                         1e-5 if cache == "f32" else 2e-2)
+
+
+# both product designs at the serving lines' shape (G 8, hd 64): each
+# against the plain version, and the two within the same tolerance
+@pytest.mark.parametrize("cache", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("split", [32, 256])
+def test_decode_attn_products_agree(gen, cache, split):
+    q, k, v, ks, vs, lengths = _decode_inputs(gen, cache, torch.bfloat16, 8, 64)
+    qv = q.to(torch.bfloat16)
+    assert da.decode_attn_products(qv.dtype, k.dtype, 64) == da.MMA
+    fma = _decode_direct(qv, None, k, v, ks, vs, lengths, split, da.FMA)
+    mma = _decode_direct(qv, None, k, v, ks, vs, lengths, split, da.MMA)
+    for got in (fma, mma):
+        _assert_decode_close(got, qv, None, k, v, ks, vs, lengths, 2e-2)
+    live = lengths > 0
+    torch.testing.assert_close(mma[0][live] / mma[2][live][..., None],
+                               fma[0][live] / fma[2][live][..., None], atol=2e-2, rtol=0)
 
 
 # ----------------------------------------------------------------------------

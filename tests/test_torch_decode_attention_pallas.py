@@ -110,3 +110,59 @@ def test_pallas_route_differs_from_xla_only_in_q_rounding():
     xla = tda.decode_attention_n(*args, implementation="xla", **kws)
     assert not torch.equal(pallas, xla)
     torch.testing.assert_close(pallas_bf16_q, xla, atol=2e-2, rtol=0)
+
+
+# K8's split planner (kernels/decode_attention.decode_attn_plan): the
+# serving shapes' split lengths, int8 compute's fixed tile, and the shared
+# memory cap
+@pytest.mark.parametrize("case", [(8, 4, 256, 64, 1, 32), (2, 4, 512, 64, 1, 32),
+                                  (64, 4, 512, 64, 1, 256), (64, 4, 256, 64, 1, 256),
+                                  (64, 4, 512, 64, 2, 128), (5, 2, 600, 64, 2, 32),
+                                  (16, 4, 512, 64, 1, 128)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_decode_attn_plan_fills_the_card_with_the_longest_split(case):
+    b, kvh, s, hd, elem, want = case
+    split = tda.decode_attn_plan(b, kvh, s, hd, elem, False)
+    assert split == want
+    ctas = b * kvh * -(-s // split)
+    assert ctas >= 132 or split == min(tda.SPLITS)
+    # no longer split would have put a CTA on each SM within 48 KB of rows
+    row = -(-hd * elem // 16) * 16 + 16
+    for longer in tda.SPLITS:
+        if longer > split:
+            assert b * kvh * -(-s // longer) < 132 or 2 * longer * row > 48 * 1024
+
+
+def test_decode_attn_plan_int8_compute_keeps_the_pallas_tile():
+    for b, s in ((2, 512), (8, 256), (64, 512), (1, 64)):
+        assert tda.decode_attn_plan(b, 4, s, 64, 1, True) == tda.TILE == 256
+
+
+def test_decode_attn_plan_caps_the_split_by_shared_memory():
+    # f32 rows at hd 128: 528 padded bytes, so 32 positions of k and v
+    # (33 KB) are the most within 48 KB; bf16 at hd 64 (144 bytes): 128
+    assert tda.decode_attn_plan(256, 8, 4096, 128, 4, False) == 32
+    assert tda.decode_attn_plan(64, 4, 512, 64, 2, False) == 128
+    for split in tda.SPLITS:
+        for hd in (32, 64, 128):
+            for elem in (1, 2, 4):
+                got = tda.decode_attn_plan(1, 1, split, hd, elem, False)
+                assert 2 * got * (-(-hd * elem // 16) * 16 + 16) <= 48 * 1024
+
+
+# K8's product design (kernels/decode_attention.decode_attn_products): the
+# tensor cores where bf16 operands are exact and hd fills 16-wide steps,
+# f32 FMAs elsewhere
+@pytest.mark.parametrize("case", [
+    (torch.bfloat16, torch.int8, 64, tda.MMA),
+    (torch.bfloat16, torch.float8_e4m3fn, 64, tda.MMA),
+    (torch.bfloat16, torch.bfloat16, 128, tda.MMA),
+    (torch.bfloat16, torch.bfloat16, 32, tda.MMA),
+    (torch.bfloat16, torch.float32, 64, tda.FMA),  # f32 cache: f32 PV
+    (torch.float32, torch.bfloat16, 64, tda.FMA),  # f32 q: f32 products
+    (torch.int8, torch.int8, 64, tda.FMA),  # int8 compute: exact integer sums
+    (torch.bfloat16, torch.int8, 40, tda.FMA),  # hd not a multiple of 16
+], ids=lambda c: str(c))
+def test_decode_attn_products_plan(case):
+    q_dtype, kv_dtype, hd, want = case
+    assert tda.decode_attn_products(q_dtype, kv_dtype, hd) == want
