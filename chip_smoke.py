@@ -12,7 +12,10 @@ Phases, in order, each printing one JSON line:
 2. build: compiles ``flash_attention_softmax_n_tpu_torch/csrc/``: each
    ``*.cu`` kernel source with its own nvcc for sm_90a and the PyTorch
    operator bindings with the host C++ compiler, all started together;
-3. kernels: runs K1 flash_fwd, K2 qmm_argmax, K3 cache_append, K4
+3. kernels: runs K1 flash_fwd, K2 qmm_argmax (M64 and M256; each line
+   prints its plan, W's achieved GB/s, at M64 the other vocab tile width's
+   device time, and, for information, cuBLAS's device time for the GEMM
+   and max over W dequantized to bf16), K3 cache_append, K4
    tail_append, K7 qmm (int8, W8A8 and int4, at decode M64 and at the
    admission groups' M1024 and M2048; each line prints its plan and
    producer, and the library call's own device time), K8 decode_attn
@@ -23,7 +26,7 @@ Phases, in order, each printing one JSON line:
    and K10 prefill_phase (its
    four modes, B2 H32 L2048 hd64) on the card at their paths' shapes and
    holds each against its plain PyTorch version on the same card tensors
-   (K7-K10 also run twice and must be bit-equal); K7's f32 mode (the
+   (K2 and K7-K10 also run twice and must be bit-equal); K7's f32 mode (the
    scalar kernel, on no path) at M64 and M1024, K2048 N2048, against
    ``torch.matmul`` in f32; K1 and K10 lines give TFLOP/s too;
 4. train kernels: K1 with ALiBi and dropout, K5 flash_bwd_dq and K6
@@ -270,18 +273,36 @@ def check_flash(torch, pkg, gen, *, B, H, L, S, D, masked):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(torch, library)}
 
 
+# K2's kernels as torch.profiler names them: bf16 x's tensor-core kernel,
+# f32 x's scalar kernel, and the merge of both
+QMM_ARGMAX_KERNELS = ("qmm_argmax_wgmma_kernel", "qmm_argmax_scalar_kernel",
+                      "qmm_argmax_merge_kernel")
+
+
 def check_qmm(torch, pkg, gen, *, M, K, N):
+    """K2 at a serving shape (bf16 x, int8 W): held against its plain
+    version and required bit-equal over two calls. Prints the plan, W's
+    achieved GB/s (its bytes over the device time) and, for information,
+    cuBLAS's device time for
+    ``torch.max((x @ W_bf16) * s, -1)`` with W dequantized to bf16
+    beforehand, from the same profiler session."""
     qm = pkg["quant_matmul"]
     dev = "cuda"
     x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
     w = torch.randint(-127, 128, (K, N), generator=gen, device=dev).to(torch.int8)
     s = (torch.rand((1, N), generator=gen, device=dev) + 0.5) / (127.0 * K ** 0.5)
+    plan = qm.qmm_argmax_plan(M, K, N, x.dtype)
 
     def kernel():
         return qm.quantized_matmul_argmax(x, w, s, return_max=True)
 
     def plain():
         return qm.quantized_matmul_argmax_reference(x, w, s)
+
+    w_bf16 = w.to(torch.bfloat16)
+
+    def cublas():
+        return torch.max((x @ w_bf16) * s, dim=-1)
 
     idx, val = kernel()
     idx_ref, val_ref = plain()
@@ -293,19 +314,27 @@ def check_qmm(torch, pkg, gen, *, M, K, N):
     idx_ok = bool(torch.equal(idx[decided], idx_ref[decided]))
     rel = float(((val - val_ref).abs() / val_ref.abs().clamp(min=1e-6)).max())
     err = float((val - val_ref).abs().max())
-    require(idx_ok and rel <= 1e-3,
+    same = repeat_equal(torch, kernel, (idx, val))
+    require(idx_ok and rel <= 1e-3 and same,
             f"qmm_argmax: indices equal where the top-2 gap > 1e-3: {idx_ok}; "
-            f"max relative error of the max {rel} (tol 1e-3)")
+            f"max relative error of the max {rel} (tol 1e-3); repeat bit-equal {same}")
     b_ms, b_by = bound_ms(x.numel() * 2 + w.numel() + N * 4 + M * 8, 2.0 * M * K * N)
-    return {"name": f"qmm_argmax M{M} K{K} N{N}", "route": "cuda",
-            "source": "flash_attention_softmax_n_tpu_torch/csrc/qmm_argmax.cu",
+    k_dev, cublas_dev = device_ms_of(torch, [(kernel, QMM_ARGMAX_KERNELS), (cublas, None)])
+    line = {"name": f"qmm_argmax M{M} K{K} N{N}", "route": "cuda",
+            "source": f"{CSRC}/qmm_argmax.cu",
             "replaces": f"{TPU_PKG}/kernels/quant_matmul.py:117 _qmm_argmax_kernel",
             "counter": "qmm_argmax",
             "max_abs_err": err, "max_rel_err": rel, "tolerance": 1e-3,
-            "undecided_rows": int((~decided).sum()),
-            "ms": time_ms(torch, kernel), "device_ms": device_ms(torch, kernel, "qmm_"),
+            "undecided_rows": int((~decided).sum()), "repeat_bit_equal": same,
+            "plan": plan._asdict(), "producer": plan.producer,
+            "ms": time_ms(torch, kernel), "device_ms": k_dev,
+            "w_gbps": w.numel() / (k_dev * 1e-3) / 1e9 if k_dev else None,
             "plain_ms": time_ms(torch, plain),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library": "none: no one PyTorch call computes it (a GEMM and a max)",
+            "cublas_device_ms": cublas_dev,
+            "cublas": "torch.max((x @ W) * s, -1) over W dequantized to bf16"}
+    return line
 
 
 def check_cache_append(torch, pkg, gen, *, NL, B, KVH, S, D):
@@ -999,7 +1028,7 @@ def teacher_forced(torch, pkg, cfg, params, req):
 SERVE_KERNELS = ("flash_fwd", "qmm_argmax", "cache_append", "tail_append")
 PALLAS_KERNELS = ("qmm", "decode_attn", "fused_mlp")
 # the port's kernels as torch.profiler names them (substrings)
-PROFILED_KERNELS = (*FLASH_FWD_KERNELS, "qmm_tile_kernel", "qmm_reduce_kernel",
+PROFILED_KERNELS = (*FLASH_FWD_KERNELS, *QMM_ARGMAX_KERNELS,
                     "write_rows_kernel", *QMM_KERNELS, *DECODE_ATTN_KERNELS,
                     *FUSED_MLP_KERNELS)
 
@@ -1648,7 +1677,8 @@ def main() -> int:
                                                        "device_ms", "tflops", "plain_ms",
                                                        "bound_ms", "bound_by", "library_ms",
                                                        "library_device_ms", "cublas_device_ms",
-                                                       "producer", "plan") if k in kd}})
+                                                       "w_gbps", "producer", "plan")
+                                       if k in kd}})
     kernels += train_kernels(torch, pkg, gen)
 
     # each main path's launches: counts set to 0 just before it, read after

@@ -205,30 +205,54 @@ void flash_bwd_dkv(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v
                what);
 }
 
-int64_t qmm_tiles(int64_t n) { return fasn_qmm_tiles(as_int(n, "qmm_tiles")); }
-
 void qmm_argmax(const at::Tensor& x, const at::Tensor& w, const at::Tensor& scales,
                 const at::Tensor& idx, const at::Tensor& val, const at::Tensor& part_val,
-                const at::Tensor& part_idx) {
+                const at::Tensor& part_idx, int64_t bm, int64_t ctas, bool tma) {
   const char* what = "quantized_matmul_argmax";
   TORCH_CHECK_VALUE(x.dim() == 2 && w.dim() == 2 && w.size(0) == x.size(1), what,
                     ": x (M, K) and w (K, N) must agree on K");
   const c10::cuda::CUDAGuard guard(x.device());
   const int64_t M = x.size(0), K = x.size(1), N = w.size(1);
+  TORCH_CHECK_VALUE(M >= 1 && K >= 1 && N >= 1, what, ": x ", x.sizes(), " and w ", w.sizes(),
+                    " must not be empty");
   const int dtype = dtype_code(x, what);
-  const int64_t tiles = fasn_qmm_tiles(as_int(N, what));
   for (const at::Tensor* t : {&x, &w, &scales, &idx, &val, &part_val, &part_idx})
     check_on(*t, x, what);
   check_shape(w, {K, N}, at::kChar, what, "w");
   check_shape(scales, {N}, at::kFloat, what, "scales");
   check_shape(idx, {M}, at::kInt, what, "idx");
   check_shape(val, {M}, at::kFloat, what, "val");
-  check_shape(part_val, {M, tiles}, at::kFloat, what, "part_val");
-  check_shape(part_idx, {M, tiles}, at::kInt, what, "part_idx");
+  // the plan: f32 x, the scalar kernel's 64 x 64 tiles, a slot per column
+  // tile; bf16 x, 64 x 256, 128 x 128 or 256 x 128 tiles on persistent CTAs
+  // a multiple of the row tiles, a slot per CTA of a row tile
+  int64_t slots;
+  if (dtype == 0) {
+    TORCH_CHECK_VALUE(bm == 64 && ctas == (N + 63) / 64 && !tma, what,
+                      ": f32 x takes the scalar plan (64 x 64 tiles, one CTA a column tile)");
+    slots = ctas;
+  } else {
+    TORCH_CHECK_VALUE(bm == 64 || bm == 128 || bm == 256, what, ": no kernel takes ", bm,
+                      "-row tiles");
+    const int64_t bn = bm == 64 ? 256 : 128;
+    const int64_t tiles_m = (M + bm - 1) / bm, tiles = tiles_m * ((N + bn - 1) / bn);
+    TORCH_CHECK_VALUE(ctas >= tiles_m && ctas % tiles_m == 0 && ctas <= tiles, what, ": ", ctas,
+                      " CTAs are not a multiple of the ", tiles_m, " row tiles within the ",
+                      tiles, " tiles");
+    slots = ctas / tiles_m;
+  }
+  if (tma) {
+    TORCH_CHECK_VALUE(dtype == 1 && (K * 2) % 16 == 0 && N % 16 == 0 &&
+                          reinterpret_cast<uintptr_t>(x.data_ptr()) % 16 == 0 &&
+                          reinterpret_cast<uintptr_t>(w.data_ptr()) % 16 == 0,
+                      what, ": TMA needs bf16 x, 16-byte row strides and addresses");
+  }
+  check_shape(part_val, {M, slots}, at::kFloat, what, "part_val");
+  check_shape(part_idx, {M, slots}, at::kInt, what, "part_idx");
   check_launch(fasn_qmm_argmax(x.data_ptr(), w.data_ptr(), scales.data_ptr<float>(),
                                part_val.data_ptr<float>(), part_idx.data_ptr<int>(),
                                idx.data_ptr<int>(), val.data_ptr<float>(), as_int(M, what),
-                               as_int(K, what), as_int(N, what), dtype, stream_of(x)),
+                               as_int(K, what), as_int(N, what), dtype, static_cast<int>(bm),
+                               as_int(ctas, what), tma ? 1 : 0, stream_of(x)),
                what);
 }
 
@@ -586,10 +610,9 @@ TORCH_LIBRARY(fasn, m) {
       "flash_bwd_dkv(Tensor q, Tensor k, Tensor v, Tensor? bias, Tensor? slopes, Tensor? seed, "
       "Tensor dout, Tensor lse, Tensor delta, Tensor(a!) dk, Tensor(b!) dv, float scale_q, "
       "bool causal, int drop_threshold, float drop_mult) -> ()");
-  m.def("qmm_tiles(int n) -> int", &qmm_tiles);
   m.def(
       "qmm_argmax(Tensor x, Tensor w, Tensor scales, Tensor(a!) idx, Tensor(b!) val, "
-      "Tensor(c!) part_val, Tensor(d!) part_idx) -> ()");
+      "Tensor(c!) part_val, Tensor(d!) part_idx, int bm, int ctas, bool tma) -> ()");
   m.def("cache_append(Tensor(a!)[] caches, Tensor[] news, Tensor positions) -> ()");
   m.def(
       "tail_append(Tensor(a!) k_tail, Tensor(b!) v_tail, Tensor k_new, Tensor v_new, "

@@ -51,15 +51,19 @@ int fasn_flash_bwd_dq(const FasnAttn* a, const void* dout, const float* lse, con
 int fasn_flash_bwd_dkv(const FasnAttn* a, const void* dout, const float* lse, const float* delta,
                        void* dk, void* dv, cudaStream_t stream);
 
-// K2 (qmm_argmax.cu). Column tiles of pass 1: the scratch holds M * tiles.
-int fasn_qmm_tiles(int N);
-
-// K2. x (M,K) contiguous, bf16 (dtype 1) or f32 (dtype 0); w (K,N) int8
-// contiguous; scales (N,) f32; part_val/part_idx scratch of M * tiles(N);
-// out_idx (M,) int32, out_val (M,) f32.
+// K2 (qmm_argmax.cu). x (M,K) contiguous, bf16 (dtype 1) or f32 (dtype 0);
+// w (K,N) int8 contiguous; scales (N,) f32; out_idx (M,) int32, out_val
+// (M,) f32; part_val/part_idx scratch of M * slots. The plan
+// (kernels/quant_matmul.py qmm_argmax_plan): f32 x takes bm = 64 (64 x 64
+// tiles), ctas = slots = ceil(N / 64) column tiles, no TMA; bf16 x bm 64
+// (256 vocab columns a tile), 128 or 256 (128 columns), `ctas` persistent
+// CTAs, a multiple of the ceil(M / bm) row tiles and at most the tiles
+// (slots = ctas / row tiles), and use_tma where x's and w's row strides
+// and base addresses are multiples of 16 bytes. M, K, N >= 1. The
+// operator checks the plan.
 int fasn_qmm_argmax(const void* x, const void* w, const float* scales, float* part_val,
                     int* part_idx, int* out_idx, float* out_val, int M, int K, int N, int dtype,
-                    cudaStream_t stream);
+                    int bm, int ctas, int use_tma, cudaStream_t stream);
 
 // K3 (cache_update.cu). caches[t] (NL,B,KVH,S,row_bytes[t]) and news[t]
 // (NL,B,KVH,row_bytes[t]) contiguous and 4-byte aligned, row_bytes a

@@ -1,9 +1,15 @@
-// K7's tensor-core dequant matmul as pieces, shared by K7 (qmm.cu) and K9
-// (fused_mlp.cu): the TMA ring with its producer warp, persistent CTAs over
-// (row tile, K split, column tile), the bf16-x consumer that multiplies
-// out^T = W^T x^T with W's int8 columns converted to bf16 in registers, the
-// W8A8 consumer, and the fixed-order split-K sum. qmm.cu's header comment
-// describes the design; this file holds the code.
+// K7's tensor-core dequant matmul as pieces, shared by K7 (qmm.cu), K9
+// (fused_mlp.cu) and K2 (qmm_argmax.cu): the TMA ring with its producer
+// warp, persistent CTAs over (row tile, K split, column tile), the bf16-x
+// consumer that multiplies out^T = W^T x^T with W's int8 columns converted
+// to bf16 in registers, the W8A8 consumer, and the fixed-order split-K sum.
+// qmm.cu's header comment describes the design; this file holds the code.
+//
+// The bf16-x consumer hands each finished tile's accumulators to an
+// epilogue object (Epi): K7's and K9's down phase take WriteTile, which
+// writes the tile (write_pair); K2 takes its running argmax. WIDE (K2, bf16
+// x and int8 W only): a stage carries WIDE boxes of 128 columns of W, and
+// 2 * WIDE consumer warpgroups take 64 columns each.
 //
 // DUAL (K9's gate/up phase, bf16 x and int8 W only): a stage carries 64
 // columns of each of two weight matrices (Wg and Wu, the same columns),
@@ -94,10 +100,13 @@ inline int sum_blocks(long long total) {
 
 // S8: int8 x (W8A8), else bf16 x. BITS: 8 or 4 (grouped int4). BM: x rows
 // per CTA (64, 128 or, for bf16 x, 256). DUAL: K9's gate/up stage (above).
-template <bool S8, int BITS, int BM, bool DUAL = false>
+// WIDE: 128-column boxes of W a stage (above).
+template <bool S8, int BITS, int BM, bool DUAL = false, int WIDE = 1>
 struct Cfg {
   static_assert(!DUAL || (!S8 && BITS == 8), "the dual stage takes bf16 x and int8 W");
-  static constexpr int BN = DUAL ? 64 : 128;  // output columns per tile
+  static_assert(WIDE == 1 || (WIDE == 2 && !S8 && !DUAL && BITS == 8),
+                "wide stages take bf16 x and int8 W");
+  static constexpr int BN = DUAL ? 64 : 128 * WIDE;  // output columns per tile
   static constexpr int BK = S8 ? 128 : 64;    // logical K rows per stage: one 128-byte x row
   static constexpr int X_STAGE = BM * ROW;
   static constexpr int W_HALF = BK * 64;      // DUAL: one matrix's 64-byte rows
@@ -113,9 +122,9 @@ struct Cfg {
   static constexpr int BAR_AT = RING + B_BYTES + XCH_BYTES;  // full[STAGES], empty[STAGES]
   static constexpr int SMEM = BAR_AT + 2 * STAGES * 8 + 1024;  // + room to align to 1 KB
   static_assert(SMEM <= SMEM_MAX, "the ring does not fit");
-  // consumer warpgroups: bf16 x, one per 64 of the 128 columns (DUAL: one
+  // consumer warpgroups: bf16 x, one per 64 of the BN columns (DUAL: one
   // per matrix); int8 x, one per 64 rows of x
-  static constexpr int CONSUMERS = S8 ? 2 * BM : 256;
+  static constexpr int CONSUMERS = S8 ? 2 * BM : 256 * WIDE;
   static constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
   static constexpr int TX_BYTES = X_STAGE + W_STAGE;
 };
@@ -184,9 +193,9 @@ __device__ __forceinline__ Tile tile_of(int u, int M, int K, int splits, int per
 }
 
 // The shared-memory ring: stages of x and W, and their full and empty barriers.
-template <bool S8, int BITS, int BM, bool DUAL>
+template <bool S8, int BITS, int BM, bool DUAL, int WIDE = 1>
 struct Ring {
-  using C = Cfg<S8, BITS, BM, DUAL>;
+  using C = Cfg<S8, BITS, BM, DUAL, WIDE>;
   uint8_t* smem;
   uint32_t bars;
   __device__ uint32_t full(int s) const { return bars + 8 * s; }
@@ -213,10 +222,10 @@ struct Args {
 
 // the producer warp's fallback where TMA cannot go: element loads into the
 // layout TMA would have written (zeros past M, K and N)
-template <bool S8, int BITS, int BM, bool DUAL>
+template <bool S8, int BITS, int BM, bool DUAL, int WIDE>
 __device__ __forceinline__ void load_stage_predicated(uint8_t* xs, uint8_t* ws, const Args& g,
                                                       int m0, int n0, int t, int lane) {
-  using C = Cfg<S8, BITS, BM, DUAL>;
+  using C = Cfg<S8, BITS, BM, DUAL, WIDE>;
   constexpr int ES = S8 ? 1 : 2;  // bytes of one x element
   for (int e = lane; e < BM * C::BK; e += 32) {
     const int r = e / C::BK, c = e % C::BK, gm = m0 + r, gk = t * C::BK + c;
@@ -238,23 +247,33 @@ __device__ __forceinline__ void load_stage_predicated(uint8_t* xs, uint8_t* ws, 
       ws[half * C::W_HALF + sw64(o)] =
           (r < w_rows && gn < g.N) ? static_cast<uint8_t>(w[(long long)r * g.N + gn]) : uint8_t(0);
     }
-  } else {
+  } else if constexpr (WIDE == 1) {
     for (int e = lane; e < C::W_STAGE; e += 32) {
       const int r = w_row<BITS, C::BK>(t) + e / C::BN, gn = n0 + e % C::BN;
       ws[sw128(e)] = (r < w_rows && gn < g.N) ? static_cast<uint8_t>(g.w[(long long)r * g.N + gn])
                                               : uint8_t(0);
+    }
+  } else {  // box b: columns n0 + 128 b + [0, 128), as TMA would write it
+    for (int e = lane; e < C::W_STAGE; e += 32) {
+      const int b = e / (C::BK * ROW), o = e % (C::BK * ROW);
+      const int r = w_row<BITS, C::BK>(t) + o / ROW, gn = n0 + ROW * b + o % ROW;
+      ws[b * C::BK * ROW + sw128(o)] =
+          (r < w_rows && gn < g.N) ? static_cast<uint8_t>(g.w[(long long)r * g.N + gn])
+                                   : uint8_t(0);
     }
   }
 }
 
 // The producer warp: every tile's stages, in the consumers' order, by TMA
 // (x's box and W's rows, with the 128-byte swizzle; DUAL: Wg's and Wu's
-// 64-byte rows with the 64-byte swizzle) or predicated loads.
-template <bool S8, int BITS, int BM, bool DUAL>
-__device__ __forceinline__ void produce(const Ring<S8, BITS, BM, DUAL>& ring, const Args& g,
-                                        const CUtensorMap* xmap, const CUtensorMap* wmap,
-                                        const CUtensorMap* umap) {
-  using C = Cfg<S8, BITS, BM, DUAL>;
+// 64-byte rows with the 64-byte swizzle; WIDE 2: a second box of W's rows,
+// left out where its columns all lie past N, whose logits the epilogue
+// drops) or predicated loads.
+template <bool S8, int BITS, int BM, bool DUAL, int WIDE>
+__device__ __forceinline__ void produce(const Ring<S8, BITS, BM, DUAL, WIDE>& ring,
+                                        const Args& g, const CUtensorMap* xmap,
+                                        const CUtensorMap* wmap, const CUtensorMap* umap) {
+  using C = Cfg<S8, BITS, BM, DUAL, WIDE>;
   const int lane = threadIdx.x % 32;
   int stage = 0;
   uint32_t phase = 0;
@@ -265,17 +284,24 @@ __device__ __forceinline__ void produce(const Ring<S8, BITS, BM, DUAL>& ring, co
       mbar_wait(ring.empty(stage), phase ^ 1);
       if (g.use_tma) {
         if (lane == 0) {
-          mbar_expect_tx(ring.full(stage), C::TX_BYTES);
+          const bool second = WIDE == 2 && tile.n0 + ROW < g.N;
+          if constexpr (WIDE == 1)
+            mbar_expect_tx(ring.full(stage), C::TX_BYTES);
+          else
+            mbar_expect_tx(ring.full(stage), C::TX_BYTES - (second ? 0 : C::BK * ROW));
           tma_2d(smem_u32(ring.x_stage(stage)), xmap, ring.full(stage), t * C::BK, tile.m0);
           tma_2d(smem_u32(ring.w_stage(stage)), wmap, ring.full(stage), tile.n0,
                  w_row<BITS, C::BK>(t));
           if constexpr (DUAL)
             tma_2d(smem_u32(ring.w_stage(stage) + C::W_HALF), umap, ring.full(stage), tile.n0,
                    w_row<BITS, C::BK>(t));
+          if (second)
+            tma_2d(smem_u32(ring.w_stage(stage) + C::BK * ROW), wmap, ring.full(stage),
+                   tile.n0 + ROW, w_row<BITS, C::BK>(t));
         }
       } else {
-        load_stage_predicated<S8, BITS, BM, DUAL>(ring.x_stage(stage), ring.w_stage(stage), g,
-                                                  tile.m0, tile.n0, t, lane);
+        load_stage_predicated<S8, BITS, BM, DUAL, WIDE>(ring.x_stage(stage), ring.w_stage(stage),
+                                                        g, tile.m0, tile.n0, t, lane);
         fence_proxy_async();
         mbar_arrive(ring.full(stage));
       }
@@ -310,22 +336,50 @@ __device__ __forceinline__ void write_pair(const Args& g, int slab, int m, int n
   }
 }
 
+// The bf16-x consumer's epilogue for K7 and K9's down phase: each tile's
+// accumulators d (R = BM / 2 a thread; the layout is consume_bf16's)
+// through write_pair. finish() runs once a CTA's tiles are done.
+struct WriteTile {
+  template <int R>
+  __device__ __forceinline__ void tile(const Args& g, const Tile& tile, const float (&d)[R],
+                                       int wg, int warp, int lane) {
+    const int p = lane / 4, q = lane % 4;
+    const int n = tile.n0 + 64 * wg + 16 * warp + 2 * p;
+    if (n >= g.N) return;
+    const float s0 = g.scales[n], s1 = n + 1 < g.N ? g.scales[n + 1] : 0.f;
+#pragma unroll
+    for (int j = 0; j < R / 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int m = tile.m0 + 8 * j + 2 * q + c;
+        if (m < g.M) write_pair(g, tile.split, m, n, d[4 * j + c], d[4 * j + 2 + c], s0, s1);
+      }
+  }
+
+  template <int CONSUMERS>
+  __device__ __forceinline__ void finish(const Args&, uint8_t*) {}
+};
+
 // bf16 x: out^T = W^T x^T. Warpgroup wg owns 64 columns of W (columns n0 +
-// 64 wg + [0, 64); DUAL: columns n0 + [0, 64) of Wg for wg 0 and of Wu for
-// wg 1), 16 per warp, as wgmma's A operand in registers: each warp takes
+// 64 wg + [0, 64), the (wg % 2)-th half of box wg / 2; DUAL: columns n0 +
+// [0, 64) of Wg for wg 0 and of Wu for wg 1), 16 per warp, as wgmma's A
+// operand in registers: each warp takes
 // its W bytes from the stage with ldmatrix (16-bit pairs of columns,
 // transposed: a thread gets rows 2q, 2q + 1 of columns 2p, 2p + 1),
 // converts them to bf16 in registers, and feeds A row p from column 2p and
 // row p + 8 from column 2p + 1. x's stage is the B operand (BM x 64,
 // K-major). Nothing is written back to shared memory, and the warpgroups
 // never wait for each other in the main loop; three wgmma stay in flight
-// while the next k16 step converts.
-template <int BITS, int BM, bool DUAL>
-__device__ __forceinline__ void consume_bf16(const Ring<false, BITS, BM, DUAL>& ring,
-                                             const Args& g) {
-  using C = Cfg<false, BITS, BM, DUAL>;
+// while the next k16 step converts. Each finished tile goes to epi.tile
+// (DUAL: the SwiGLU epilogue below), and epi.finish ends the CTA's walk.
+template <int BITS, int BM, bool DUAL, int WIDE, typename Epi>
+__device__ __forceinline__ void consume_bf16(const Ring<false, BITS, BM, DUAL, WIDE>& ring,
+                                             const Args& g, Epi& epi) {
+  using C = Cfg<false, BITS, BM, DUAL, WIDE>;
   const int ct = threadIdx.x, wg = ct / 128, warp = (ct % 128) / 32, lane = ct % 32;
-  const uint32_t chunk = 4 * wg + warp;  // the warp's 16 columns: a 16-byte chunk of a W row
+  // the warp's 16 columns: a 16-byte chunk of a W row of box wg / 2
+  const uint32_t chunk = WIDE == 1 ? 4 * wg + warp : 4 * (wg % 2) + warp;
+  const uint32_t box = WIDE == 1 ? 0 : (wg / 2) * C::BK * ROW;
   int stage = 0;
   uint32_t phase = 0;
   for (int u = blockIdx.x; u < g.tiles; u += gridDim.x) {
@@ -343,7 +397,7 @@ __device__ __forceinline__ void consume_bf16(const Ring<false, BITS, BM, DUAL>& 
       for (int c = 0; c < 2; ++c) {
         const uint32_t k = 32 * c + lane;
         const uint32_t at = DUAL ? wb + wg * C::W_HALF + k * 64 + ((warp ^ ((k >> 1) & 3)) << 4)
-                                 : wb + k * ROW + ((chunk ^ (k & 7)) << 4);
+                                 : wb + box + k * ROW + ((chunk ^ (k & 7)) << 4);
         ldmatrix_x4_trans(raw[c], at);
       }
       const int h = nibble_of<BITS, C::BK>(tile.t_begin + it);
@@ -384,8 +438,8 @@ __device__ __forceinline__ void consume_bf16(const Ring<false, BITS, BM, DUAL>& 
 
     // d[4j + 2i + c]: A row 16 warp + p + 8i (column 2p + i of the warp's
     // 16), B column 8j + 2q + c (row of x)
-    const int p = lane / 4, q = lane % 4;
     if constexpr (DUAL) {
+      const int p = lane / 4, q = lane % 4;
       const int n = tile.n0 + 16 * warp + 2 * p;
       if (g.splits > 1) {  // each matrix's partial; the sum kernel forms h
         if (n >= g.N) continue;
@@ -431,18 +485,10 @@ __device__ __forceinline__ void consume_bf16(const Ring<false, BITS, BM, DUAL>& 
       // warpgroup 0 has read the hand-over: the next tile may overwrite it
       asm volatile("bar.sync 2, 256;" ::: "memory");
     } else {
-      const int n = tile.n0 + 64 * wg + 16 * warp + 2 * p;
-      if (n >= g.N) continue;
-      const float s0 = g.scales[n], s1 = n + 1 < g.N ? g.scales[n + 1] : 0.f;
-#pragma unroll
-      for (int j = 0; j < BM / 8; ++j)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int m = tile.m0 + 8 * j + 2 * q + c;
-          if (m < g.M) write_pair(g, tile.split, m, n, d[4 * j + c], d[4 * j + 2 + c], s0, s1);
-        }
+      epi.tile(g, tile, d, wg, warp, lane);
     }
   }
+  epi.template finish<C::CONSUMERS>(g, ring.smem);
 }
 
 // W's stage (BK rows x 128 bytes, N-contiguous, 128-byte swizzle) into
@@ -548,13 +594,15 @@ __device__ __forceinline__ void consume_s8(const Ring<true, BITS, BM, false>& ri
 // The body of a persistent tensor-core kernel: CTA b takes tiles b, b +
 // grid, ... (tile_of's order), and its producer runs on into the next tile
 // while the consumers write the last one. A tile goes through the epilogue
-// when there is one split, else its partial goes to `part`.
-template <bool S8, int BITS, int BM, bool DUAL>
+// when there is one split, else its partial goes to `part`; bf16 x hands
+// it to `epi` (WriteTile: the same).
+template <bool S8, int BITS, int BM, bool DUAL, int WIDE = 1, typename Epi = WriteTile>
 __device__ __forceinline__ void wgmma_body(const CUtensorMap* xmap, const CUtensorMap* wmap,
-                                           const CUtensorMap* umap, const Args& g) {
-  using C = Cfg<S8, BITS, BM, DUAL>;
+                                           const CUtensorMap* umap, const Args& g,
+                                           Epi epi = Epi()) {
+  using C = Cfg<S8, BITS, BM, DUAL, WIDE>;
   extern __shared__ uint8_t smem_raw[];
-  Ring<S8, BITS, BM, DUAL> ring;
+  Ring<S8, BITS, BM, DUAL, WIDE> ring;
   ring.smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   ring.bars = smem_u32(ring.smem + C::BAR_AT);
   if (threadIdx.x == 0) {
@@ -566,11 +614,11 @@ __device__ __forceinline__ void wgmma_body(const CUtensorMap* xmap, const CUtens
   }
   __syncthreads();
   if (threadIdx.x >= C::CONSUMERS)
-    produce<S8, BITS, BM, DUAL>(ring, g, xmap, wmap, umap);
+    produce<S8, BITS, BM, DUAL, WIDE>(ring, g, xmap, wmap, umap);
   else if constexpr (S8)
     consume_s8<BITS, BM>(ring, g);
   else
-    consume_bf16<BITS, BM, DUAL>(ring, g);
+    consume_bf16<BITS, BM, DUAL, WIDE>(ring, g, epi);
 }
 
 // a 2-D row-major (rows x cols) byte or bf16 map with a (box_cols x box_rows) box

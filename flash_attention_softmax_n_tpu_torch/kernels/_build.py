@@ -14,7 +14,8 @@ inline PTX of the tensor-core kernels (TMA, mbarriers, wgmma and its
 descriptors) and libcuda's tensor-map encoder, which K7, K1, K5, K6 and
 K10 include; ``attn_tile.h`` the TMA + wgmma attention tile of K1's, K5's,
 K6's and K10's bf16 kernels; ``qmm_tile.h`` K7's tensor-core dequant matmul
-(TMA ring, producer warp, converting consumers), on which K9 builds too.
+(TMA ring, producer warp, converting consumers), on which K9 and K2's bf16
+kernel build too.
 
 The library lands in ``_build/`` beside the package (listed in
 ``.gitignore``), named by a hash of the sources, flags and PyTorch version,

@@ -2,8 +2,10 @@
 
 Counterparts of ``quantized_matmul`` and ``quantized_matmul_argmax``
 (``flash_attention_softmax_n_tpu/kernels/quant_matmul.py``). On a CUDA
-tensor the hand-written kernels run (``csrc/qmm.cu``, ``csrc/qmm_argmax.cu``);
-on a CPU tensor their plain versions ``*_reference`` do. Both accumulate in
+tensor the hand-written kernels run (``csrc/qmm.cu``, ``csrc/qmm_argmax.cu``,
+both on the tensor-core pieces of ``csrc/qmm_tile.h`` for bf16 x, planned
+here by ``qmm_plan`` and ``qmm_argmax_plan``); on a CPU tensor their plain
+versions ``*_reference`` do. Both accumulate in
 f32 (int32 under W8A8) and apply the per-column scale after accumulation,
 which is not the plain route's ``x @ dequantize(w)`` (that rounds w * s to
 x's type first); K2's argmax can therefore pick another token at a near-tie
@@ -27,7 +29,8 @@ from flash_attention_softmax_n_tpu_torch.quant.qtensor import (
 __all__ = ["quantized_matmul", "quantized_matmul_reference",
            "quantize_rows", "quantized_matmul_argmax",
            "quantized_matmul_argmax_reference", "QMM_MODES", "QmmPlan",
-           "qmm_mode", "qmm_plan", "wgmma_plan"]
+           "qmm_mode", "qmm_plan", "wgmma_plan", "ArgmaxPlan",
+           "qmm_argmax_plan"]
 
 # K7's modes: bf16 x with int8 or int4 weights, int8 x (W8A8) with int8 or
 # int4 weights, and f32 x (either weight type)
@@ -138,6 +141,56 @@ def qmm_plan(m: int, k: int, n: int, mode: str) -> QmmPlan:
     return QmmPlan("scalar", 64, 64, 32, 1, splits, per, "scalar")
 
 
+class ArgmaxPlan(NamedTuple):
+    """How ``csrc/qmm_argmax.cu`` runs one (M, K, N) greedy lm_head."""
+
+    kernel: str    # "wgmma" (bf16 x, tensor cores) or "scalar" (f32 x)
+    bm: int        # x rows per tile: 64, 128 or 256 (scalar: 64)
+    bn: int        # vocab columns per tile: 256 at bm 64, else 128 (scalar: 64)
+    bk: int        # K rows per stage (scalar: per slice)
+    stages: int    # ring depth the kernel is built with (Cfg::STAGES; scalar: 1)
+    ctas: int      # persistent CTAs, a multiple of the row tiles (scalar: column tiles)
+    slots: int     # (value, index) pairs a row in the scratch, merged by the second kernel
+    producer: str  # "tma", "predicated" (row strides TMA cannot take) or "scalar"
+
+
+def qmm_argmax_plan(m: int, k: int, n: int,
+                    dtype: torch.dtype = torch.bfloat16) -> ArgmaxPlan:
+    """K2's plan for an (M, K, N) lm_head over x of ``dtype``.
+
+    bf16 x: the tensor-core kernel (``csrc/qmm_tile.h`` with the argmax
+    epilogue). The row tile is the smallest of 64, 128 and 256 that holds
+    M (256 above). At bm 64 a tile is 256 vocab columns (four consumer
+    warpgroups, two 128-column W boxes a stage), which halves x's share of
+    a stage's bytes (M64 K2048 N32000 on an H100: 0.035 against 0.044 ms
+    at 128 columns), else 128. A stage is 64 K rows (one 128-byte row of
+    x); the ring is as deep as shared memory allows (5-8 stages), which
+    ``stages`` reports: the kernel is built with that depth and does not
+    take it from the plan. K is never split, since an argmax of partial
+    sums is not the argmax of the sum. The CTAs are persistent, at most
+    one per SM, and a multiple of the row tiles, so that each keeps one
+    row tile and writes one (value, index) slot for each of its rows. The
+    producer is TMA unless K % 8 or N % 16 leaves a row stride off 16
+    bytes. f32 x: the scalar kernel, one CTA per 64 x 64 tile, one slot
+    per column tile.
+    """
+    if dtype == torch.float32:
+        tiles = math.ceil(n / 64)
+        return ArgmaxPlan("scalar", 64, 64, 32, 1, tiles, tiles, "scalar")
+    if dtype != torch.bfloat16:
+        raise ValueError(f"quantized_matmul_argmax takes bf16 or f32 x, got {dtype}")
+    bm = 64 if m <= 64 else 128 if m <= 128 else 256
+    bn = 256 if bm == 64 else 128
+    bk = 64
+    stages = min(_MAX_STAGES, (_SMEM - 2048) // (bm * 128 + bk * bn))
+    tiles_m = math.ceil(m / bm)
+    tiles = tiles_m * math.ceil(n / bn)
+    ctas = tiles_m * max(1, min(_SMS, tiles) // tiles_m)
+    aligned = (k * 2) % 16 == 0 and n % 16 == 0
+    return ArgmaxPlan("wgmma", bm, bn, bk, stages, ctas, ctas // tiles_m,
+                      "tma" if aligned else "predicated")
+
+
 def _route(x: torch.Tensor, what: str) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU one."""
     if x.is_cuda:
@@ -244,18 +297,19 @@ def quantized_matmul_argmax_reference(x2: torch.Tensor, w_values: torch.Tensor,
     return idx.to(torch.int32), val
 
 
-def _qmm_argmax_cuda(x2, w_values, w_scales):
-    m, n = x2.shape[0], w_values.shape[1]
+def _qmm_argmax_cuda(x2, w_values, w_scales, plan: Optional[ArgmaxPlan] = None):
+    m, k = x2.shape
+    n = w_values.shape[1]
+    plan = plan or qmm_argmax_plan(m, k, n, x2.dtype)
     ops = _build.ops()
     dev = x2.device
-    tiles = ops.qmm_tiles(n)
-    part_val = torch.empty((m, tiles), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((m, tiles), dtype=torch.int32, device=dev)
+    part_val = torch.empty((m, plan.slots), dtype=torch.float32, device=dev)
+    part_idx = torch.empty((m, plan.slots), dtype=torch.int32, device=dev)
     idx = torch.empty((m,), dtype=torch.int32, device=dev)
     val = torch.empty((m,), dtype=torch.float32, device=dev)
-    ops.qmm_argmax(x2.contiguous(), w_values.contiguous(),
+    ops.qmm_argmax(aligned16(x2), aligned16(w_values),
                    w_scales.reshape(-1).float().contiguous(), idx, val,
-                   part_val, part_idx)
+                   part_val, part_idx, plan.bm, plan.ctas, plan.producer == "tma")
     _build.LAUNCHES["qmm_argmax"] += 1
     return idx, val
 

@@ -11,6 +11,7 @@ rows), f32 inputs, head dims 32/64/128, ragged tiles, dense caches, and for
 the backward (K5, K6) bias, ALiBi and dropout in every combination; for
 K7-K9 every mode (int8, W8A8, int4, W4A8; dense, int8, int8-compute and
 fp8 caches), ragged M/N/F, slot lengths 0 and full, strided cache views;
+K2 at every row tile, ties met at each stage of its reduction, NaN and -inf rows, views off 16 bytes;
 K10 in its four modes at head dims 32/64/128, bf16 and f32, ragged L. The
 bf16 K1, K5, K6 and K10 run the TMA + wgmma tile (128-row tiles): L and S
 ending mid-tile, every bias broadcast, ALiBi, dropout (K5's and K6's masks
@@ -86,29 +87,103 @@ def test_flash_fwd_bias_broadcast(gen, bias_shape):
     torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-6)
 
 
+# K2 at every row tile (M 1-64: 64 rows and 256 vocab columns a tile; 100:
+# 128 rows; 256: 256; 300: two 256-row tiles) at the lm_head's K2048
+# N32000, and N that TMA cannot take (97, 1000: the predicated producer);
+# f32 x takes the scalar kernel
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mkn", [(1, 64, 97), (13, 200, 1000), (64, 2048, 32000)])
+@pytest.mark.parametrize("mkn", [(1, 64, 97), (13, 200, 1000), (1, 2048, 32000),
+                                 (13, 2048, 32000), (64, 2048, 32000), (100, 2048, 32000),
+                                 (256, 2048, 32000), (300, 2048, 32000)],
+                         ids=lambda c: "-".join(map(str, c)))
 def test_qmm_argmax_matches_plain(gen, dtype, mkn):
     m, k, n = mkn
     x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
-    x[-1, 3] = float("nan")  # a row whose logits are all NaN: index 0 wins
     w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda").to(torch.int8)
     s = torch.rand((n,), generator=gen, device="cuda") + 0.5
+    x[-1, 3] = float("nan")  # a row whose logits are all NaN: index 0 wins
+    if m > 1:  # a row whose logits are all -inf: index 0 wins
+        x[0, 0] = float("-inf")
+        w[0] = torch.randint(1, 128, (n,), generator=gen, device="cuda").to(torch.int8)
+    plan = qm.qmm_argmax_plan(m, k, n, dtype)
+    assert plan.kernel == ("wgmma" if dtype == torch.bfloat16 else "scalar")
+    before = _build.LAUNCHES["qmm_argmax"]
     idx, val = qm.quantized_matmul_argmax(x, w, s, return_max=True)
+    assert _build.LAUNCHES["qmm_argmax"] == before + 1
+    again = qm.quantized_matmul_argmax(x, w, s, return_max=True)
+    # bit-equal, the NaN row's value too
+    assert torch.equal(idx, again[0]) and torch.equal(val.view(torch.int32),
+                                                      again[1].view(torch.int32))
     idx_ref, val_ref = qm.quantized_matmul_argmax_reference(x, w, s)
     top2 = torch.topk((x.float() @ w.float()) * s, 2, dim=-1).values
     decided = (top2[:, 0] - top2[:, 1]) > 1e-4 * top2[:, 0].abs()
-    assert torch.equal(idx[decided], idx_ref[decided])
-    assert idx[-1].item() == idx_ref[-1].item() == 0
+    assert torch.equal(idx[decided], idx_ref[decided]), plan
+    assert idx[-1].item() == idx_ref[-1].item() == 0 and val[-1].isnan()
+    if m > 1:
+        assert idx[0].item() == idx_ref[0].item() == 0 and val[0].item() == float("-inf")
     torch.testing.assert_close(val, val_ref, atol=0, rtol=1e-5, equal_nan=True)
 
 
-def test_qmm_argmax_first_index_wins_ties(gen):
-    x = torch.ones((3, 64), device="cuda", dtype=torch.bfloat16)
-    w = torch.zeros((64, 300), device="cuda", dtype=torch.int8)
-    w[:, [70, 5, 260]] = 1  # a tie across tiles; column 5 is first
-    assert qm.quantized_matmul_argmax(x, w, torch.ones(300, device="cuda")).tolist() \
-        == [5, 5, 5]
+# Ties, each between columns that meet at one stage of K2's reduction: one
+# thread's pair, two lanes of a warp, two warps, two warpgroups (and at 256
+# columns the two W boxes), two tiles of one CTA's walk (the plan's CTA
+# count apart, in row tile 0: N128256 has 501 tiles of 256 at M <= 64), two
+# CTAs; a lone winner at column N - 1 (N 272: the second W box lies past N
+# and is not loaded; N 97, 1000: the predicated producer); and a three-way
+# tie across tiles with the first index not listed first, at N300 with one
+# K stage (K64), where the second W box also lies past N. (M, K, N, columns)
+_ARGMAX_TIES = [
+    (3, 256, 32000, [3, 2]), (3, 256, 32000, [9, 4]), (3, 256, 32000, [20, 5]),
+    (3, 256, 32000, [70, 10]), (3, 256, 32000, [200, 130, 60]),
+    (3, 256, 128256, [132 * 256 + 5, 5]), (100, 256, 32000, [132 * 128 + 5, 5]),
+    (300, 256, 32000, [66 * 128 + 5, 5]), (3, 256, 32000, [20000, 900]),
+    (300, 256, 32000, [20000, 900]), (3, 256, 32000, [31999]), (100, 256, 32000, [31999]),
+    (300, 256, 32000, [31999]), (3, 256, 272, [271]), (3, 256, 272, [271, 270]),
+    (3, 256, 97, [96]), (13, 256, 1000, [999]), (13, 256, 1000, [300, 130]),
+    (3, 64, 300, [70, 5, 260]),
+]
+
+
+@pytest.mark.parametrize("case", _ARGMAX_TIES, ids=lambda c: "-".join(map(str, c)))
+def test_qmm_argmax_first_index_wins_ties(gen, case):
+    m, k, n, cols = case
+    x = torch.ones((m, k), device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros((k, n), device="cuda", dtype=torch.int8)
+    w[:, cols] = 1
+    s = torch.ones(n, device="cuda")
+    idx, val = qm.quantized_matmul_argmax(x, w, s, return_max=True)
+    assert idx.tolist() == [min(cols)] * m, qm.qmm_argmax_plan(m, k, n)
+    assert val.tolist() == [float(k)] * m
+
+
+def test_qmm_argmax_view_off_16_bytes(gen):
+    # a contiguous view that starts 2 bytes past a 16-byte boundary (TMA's)
+    m, k, n = 5, 512, 4096
+    buf = torch.randn(m * k + 1, generator=gen, device="cuda").to(torch.bfloat16)
+    x = buf[1:].view(m, k)
+    assert x.data_ptr() % 16 != 0
+    w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda").to(torch.int8)
+    s = torch.rand((n,), generator=gen, device="cuda") + 0.5
+    assert qm.qmm_argmax_plan(m, k, n).producer == "tma"
+    idx, val = qm.quantized_matmul_argmax(x, w, s, return_max=True)
+    idx2, val2 = qm.quantized_matmul_argmax(x.clone(), w, s, return_max=True)
+    assert torch.equal(idx, idx2) and torch.equal(val, val2)
+    idx_ref, val_ref = qm.quantized_matmul_argmax_reference(x, w, s)
+    torch.testing.assert_close(val, val_ref, atol=0, rtol=1e-5)
+
+
+def test_qmm_argmax_bad_plans_raise(gen):
+    m, k, n = 64, 256, 1024
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda").to(torch.int8)
+    s = torch.ones(n, device="cuda")
+    plan = qm.qmm_argmax_plan(m, k, n)
+    with pytest.raises(ValueError, match="no kernel"):  # a row tile no kernel is built for
+        qm._qmm_argmax_cuda(x, w, s, plan._replace(bm=96))
+    with pytest.raises(ValueError, match="CTAs"):  # more CTAs than tiles
+        qm._qmm_argmax_cuda(x, w, s, plan._replace(ctas=plan.ctas + 1, slots=plan.ctas + 1))
+    with pytest.raises(ValueError, match="scalar plan"):  # f32 x
+        qm._qmm_argmax_cuda(x.float(), w, s, plan)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -152,6 +152,24 @@ def test_qmm_argmax_first_index_wins_ties():
     assert idx.tolist() == [2, 2]
 
 
+@pytest.mark.parametrize("m", [1, 3])
+def test_qmm_argmax_tie_across_tiles_matches_pallas(m):
+    # equal maxima at columns 130 and 300 of N1000: different 128-column
+    # tiles of the port's kernel and, at block_k 16384 (which caps JAX's
+    # vocab block at 256 columns), different blocks of JAX's grid
+    k, n = 256, 1000
+    rng = np.random.RandomState(m)
+    x = np.ones((m, k), np.float32)
+    w = rng.randint(-3, 2, size=(k, n)).astype(np.int8)
+    w[:, [130, 300]] = 1  # logit k; every other column sums to less
+    s = np.ones((1, n), np.float32)
+    j_idx, j_val = j_qmm_argmax(jnp.asarray(x), jnp.asarray(w), jnp.asarray(s),
+                                block_k=16384, return_max=True)
+    t_idx, t_val = t_qmm_argmax(_t(x), _t(w), _t(s), return_max=True)
+    assert np.asarray(j_idx).tolist() == t_idx.tolist() == [130] * m
+    assert np.asarray(j_val).tolist() == t_val.tolist() == [float(k)] * m
+
+
 def test_cache_append_bit_exact_and_in_place():
     rng = np.random.RandomState(2)
     nl, b, kvh, s, d = 2, 3, 2, 16, 8

@@ -1,6 +1,6 @@
 """Port parity: grouped int4 packing, the dequant matmul K7 and the fused
 SwiGLU MLP K9 (plain versions on the CPU) against the JAX package, whose
-Pallas kernels run in interpret mode.
+Pallas kernels run in interpret mode; K7's and K2's plans.
 
 Packing and int4 quantization are held bit-exact. ``quantized_matmul``:
 f32 within 1e-5 of max |out| (f32 sums in another order); bf16 within one
@@ -252,6 +252,83 @@ def test_int4_stage_order_matches_the_reference(mode):
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=0)
+
+
+# K2's plan at the lm_head's shapes (TinyLlama-1.1B: K2048 N32000; Llama-3's
+# N128256), around its row tiles and at N and K that TMA cannot take
+_ARGMAX_SHAPES = [(m, k, n) for m in (1, 8, 13, 63, 64, 65, 100, 128, 129, 256, 300, 1024,
+                                      4096)
+                  for k in (64, 200, 2048, 2052) for n in (97, 272, 1000, 32000, 32001, 128256)]
+
+
+def _argmax_walk(m, n, plan):
+    """the kernel's walk: CTA b takes tiles b, b + ctas, ... of (row tile
+    fastest, then column tile), each over every K stage (no split), and
+    writes its rows' slot b // (row tiles)"""
+    tiles_m, tiles_n = -(-m // plan.bm), -(-n // plan.bn)
+    seen, slots = {}, {}
+    for b in range(plan.ctas):
+        rows = set()
+        for u in range(b, tiles_m * tiles_n, plan.ctas):
+            tile = (u % tiles_m, u // tiles_m)
+            seen[tile] = seen.get(tile, 0) + 1
+            rows.add(tile[0])
+        assert len(rows) == 1, (m, n, plan, b)  # one row tile a CTA
+        key = (rows.pop(), b // tiles_m)
+        slots[key] = slots.get(key, 0) + 1
+    return tiles_m, tiles_n, seen, slots
+
+
+# the shapes by row tile: 64 (256 vocab columns a tile), 128 and 256
+@pytest.mark.parametrize("bm", [64, 128, 256])
+def test_qmm_argmax_plan_covers_every_tile_once(bm):
+    lo, hi = {64: (0, 64), 128: (64, 128), 256: (128, 1 << 30)}[bm]
+    shapes = [(m, k, n) for m, k, n in _ARGMAX_SHAPES if lo < m <= hi]
+    assert shapes
+    for m, k, n in shapes:
+        plan = tqm.qmm_argmax_plan(m, k, n)
+        assert plan.bm == bm
+        assert "splits" not in plan._fields and plan.bk == 64  # K walked whole
+        tiles_m, tiles_n, seen, slots = _argmax_walk(m, n, plan)
+        assert set(seen) == {(i, j) for i in range(tiles_m) for j in range(tiles_n)}
+        assert set(seen.values()) == {1}, (m, k, n, plan)
+        # every row tile has plan.slots CTAs, each writing its own slot once
+        assert set(slots) == {(i, t) for i in range(tiles_m) for t in range(plan.slots)}
+        assert set(slots.values()) == {1} and plan.ctas == tiles_m * plan.slots
+        assert plan.ctas <= 132, (m, n, plan)
+        assert plan.ctas == min(132, tiles_m * tiles_n) // tiles_m * tiles_m
+
+
+def test_qmm_argmax_plan_rows_width_and_ring():
+    for m, k, n in _ARGMAX_SHAPES:
+        plan = tqm.qmm_argmax_plan(m, k, n)
+        assert plan.bm == (64 if m <= 64 else 128 if m <= 128 else 256), (m, plan)
+        assert plan.bn == (256 if m <= 64 else 128)
+        # as deep a ring as shared memory holds beside 2 KB, at most 8
+        stage = plan.bm * 128 + plan.bk * plan.bn
+        assert plan.stages == min(8, (232448 - 2048) // stage)
+    # the serving lines: M64 (the fused loop's batch) and M256
+    assert tqm.qmm_argmax_plan(64, 2048, 32000) == tqm.ArgmaxPlan(
+        "wgmma", 64, 256, 64, 8, 125, 125, "tma")
+    assert tqm.qmm_argmax_plan(256, 2048, 32000) == tqm.ArgmaxPlan(
+        "wgmma", 256, 128, 64, 5, 132, 132, "tma")
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        tqm.qmm_argmax_plan(64, 2048, 32000, torch.float16)
+
+
+def test_qmm_argmax_plan_predicated_exactly_where_a_row_stride_is_unaligned():
+    for k in range(248, 280):
+        for n in range(240, 272):
+            plan = tqm.qmm_argmax_plan(64, k, n)
+            unaligned = (k * 2) % 16 != 0 or n % 16 != 0
+            assert plan.producer == ("predicated" if unaligned else "tma"), (k, n)
+
+
+def test_qmm_argmax_f32_plan_is_the_scalar_kernel():
+    for m, k, n in _ARGMAX_SHAPES:
+        plan = tqm.qmm_argmax_plan(m, k, n, torch.float32)
+        tiles = -(-n // 64)
+        assert plan == tqm.ArgmaxPlan("scalar", 64, 64, 32, 1, tiles, tiles, "scalar")
 
 
 def test_mlp_fusion_eligible_matches_jax():
