@@ -15,8 +15,11 @@ Phases, in order, each printing one JSON line:
 3. kernels: runs K1 flash_fwd, K2 qmm_argmax (M64 and M256; each line
    prints its plan, W's achieved GB/s, at M64 the other vocab tile width's
    device time, and, for information, cuBLAS's device time for the GEMM
-   and max over W dequantized to bf16), K3 cache_append, K4
-   tail_append, K7 qmm (int8, W8A8 and int4, at decode M64 and at the
+   and max over W dequantized to bf16), K3 cache_append and K4
+   tail_append (at utils/bench_cache_update.py's lines and seeds; each
+   line prints its tensors' vector widths, GB/s, host ms and, for
+   information, the device time of one PyTorch call a tensor), K7 qmm
+   (int8, W8A8 and int4, at decode M64 and at the
    admission groups' M1024 and M2048; each line prints its plan and
    producer, and the library call's own device time), K8 decode_attn
    (int8, fp8 and bf16 caches, at utils/bench_decode_attn.py's lines and
@@ -105,6 +108,8 @@ FLASH_FWD_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_kernel")
 FLASH_DQ_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_kernel")
 FLASH_DKV_KERNELS = ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_kernel")
 MINI_KERNELS = ("prefill_phase_wgmma_kernel", "prefill_phase_kernel")
+# K3's and K4's one kernel
+ROW_WRITE_KERNELS = ("append_rows_kernel",)
 # f32 outside the tensor cores, H100 SXM (NVIDIA's data sheet, 700 W)
 F32_FLOPS = 67e12
 
@@ -337,73 +342,43 @@ def check_qmm(torch, pkg, gen, *, M, K, N):
     return line
 
 
-def check_cache_append(torch, pkg, gen, *, NL, B, KVH, S, D):
-    cu = pkg["cache_update"]
-    dev = "cuda"
-
-    def qcache():
-        return (torch.randint(-128, 128, (NL, B, KVH, S, D), generator=gen,
-                              device=dev).to(torch.int8),
-                torch.rand((NL, B, KVH, S, 1), generator=gen, device=dev))
-
-    kv, ks = qcache()
-    vv, vs = qcache()
-    caches = (kv, ks, vv, vs)
-    news = tuple(c[:, :, :, 0].clone().random_(-128, 128, generator=gen)
-                 if c.dtype == torch.int8 else torch.rand(c.shape[:3] + (1,),
-                                                          generator=gen, device=dev)
-                 for c in caches)
-    pos = torch.randint(0, S, (B,), generator=gen, device=dev).to(torch.int32)
-    got = tuple(c.clone() for c in caches)
+def check_row_writes(torch, pkg, line):
+    """K3 or K4 at one of utils/bench_cache_update.py's lines (its inputs
+    and seeds): bit-exact with the plain version, each tensor's vector
+    width, the achieved GB/s, host ms (CUDA events less device time) and,
+    for information, the device time of the PyTorch calls that compute the
+    same writes one tensor at a time, from the same profiler session."""
+    cu, bench = pkg["cache_update"], pkg["bench_cache_update"]
+    caches, news, where = bench.line_inputs(line)
     want = tuple(c.clone() for c in caches)
-    cu.cache_append(got, news, pos)
-    cu.cache_append_reference(want, news, pos)
+    kernel, _, torch_calls = bench.line_calls(cu, line, caches, news, where)
+    _, plain, _ = bench.line_calls(cu, line, want, news, where)
+    kernel()
+    plain()
     torch.cuda.synchronize()
-    exact = all(torch.equal(a, b) for a, b in zip(got, want))
-    require(exact, "cache_append: kernel result is not bit-exact with the plain version")
-    rows_bytes = sum(nw.numel() * nw.element_size() for nw in news)
-    b_ms, b_by = bound_ms(2 * rows_bytes + B * 4)
-    return {"name": f"cache_append NL{NL} B{B} KVH{KVH} S{S} D{D} int8+scales",
-            "route": "cuda",
-            "source": "flash_attention_softmax_n_tpu_torch/csrc/cache_update.cu",
-            "replaces": f"{TPU_PKG}/kernels/cache_update.py:92 _kernel",
-            "counter": "cache_append",
+    name = bench.line_name(line)
+    require(all(torch.equal(a, b) for a, b in zip(caches, want)),
+            f"{name}: kernel result is not bit-exact with the plain version")
+    moved = bench.line_bytes(news, where)
+    b_ms, b_by = bound_ms(moved)
+    k_dev, lib_dev = device_ms_of(torch, [(kernel, ROW_WRITE_KERNELS), (torch_calls, None)])
+    ms = time_ms(torch, kernel)
+    ops = pkg["build"].ops()
+    k3 = line[0] == "cache_append"
+    return {"name": name, "route": "cuda", "source": f"{CSRC}/cache_update.cu",
+            "replaces": f"{TPU_PKG}/kernels/cache_update.py:"
+                        + ("92 _kernel" if k3 else "40 _tail_kernel"),
+            "counter": line[0],
             "max_abs_err": 0.0, "tolerance": "bit-exact",
-            "ms": time_ms(torch, lambda: cu.cache_append(got, news, pos)),
-            "device_ms": device_ms(torch, lambda: cu.cache_append(got, news, pos),
-                                   "write_rows_kernel"),
-            "plain_ms": time_ms(torch, lambda: cu.cache_append_reference(want, news, pos)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-
-
-def check_tail_append(torch, pkg, gen, *, NL, B, KVH, W, D):
-    cu = pkg["cache_update"]
-    dev = "cuda"
-    shape = (NL, B, KVH, W, D)
-    kt, vt = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-              for _ in range(2))
-    kn, vn = (torch.randn(shape[:3] + (D,), generator=gen, device=dev).to(torch.bfloat16)
-              for _ in range(2))
-    index = 37
-    got = (kt.clone(), vt.clone())
-    want = (kt.clone(), vt.clone())
-    cu.tail_append(*got, kn, vn, index)
-    cu.tail_append_reference(*want, kn, vn, index)
-    torch.cuda.synchronize()
-    require(all(torch.equal(a, b) for a, b in zip(got, want)),
-            "tail_append: kernel result is not bit-exact with the plain version")
-    b_ms, b_by = bound_ms(2 * 2 * kn.numel() * 2)
-    return {"name": f"tail_append NL{NL} B{B} KVH{KVH} W{W} D{D} bf16", "route": "cuda",
-            "source": "flash_attention_softmax_n_tpu_torch/csrc/cache_update.cu",
-            "replaces": f"{TPU_PKG}/kernels/cache_update.py:40 _tail_kernel",
-            "counter": "tail_append",
-            "max_abs_err": 0.0, "tolerance": "bit-exact",
-            "ms": time_ms(torch, lambda: cu.tail_append(*got, kn, vn, index)),
-            "device_ms": device_ms(torch, lambda: cu.tail_append(*got, kn, vn, index),
-                                   "write_rows_kernel"),
-            "plain_ms": time_ms(torch, lambda: cu.tail_append_reference(*want, kn, vn,
-                                                                        index)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "vector_bytes": [ops.cache_vector_bytes(c, nw) for c, nw in zip(caches, news)],
+            "ms": ms, "device_ms": k_dev, "host_ms": ms - k_dev if k_dev else None,
+            "gbps": moved / (k_dev * 1e-3) / 1e9 if k_dev else None,
+            "plain_ms": time_ms(torch, plain),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library": "none: no one PyTorch call writes every tensor",
+            "torch_calls_device_ms": lib_dev,
+            "torch_calls": ("index_put_ with (b, positions), one a tensor" if k3
+                            else "select(3, index).copy_, one a tensor")}
 
 
 def repeat_equal(torch, fn, first) -> bool:
@@ -1029,7 +1004,7 @@ SERVE_KERNELS = ("flash_fwd", "qmm_argmax", "cache_append", "tail_append")
 PALLAS_KERNELS = ("qmm", "decode_attn", "fused_mlp")
 # the port's kernels as torch.profiler names them (substrings)
 PROFILED_KERNELS = (*FLASH_FWD_KERNELS, *QMM_ARGMAX_KERNELS,
-                    "write_rows_kernel", *QMM_KERNELS, *DECODE_ATTN_KERNELS,
+                    *ROW_WRITE_KERNELS, *QMM_KERNELS, *DECODE_ATTN_KERNELS,
                     *FUSED_MLP_KERNELS)
 
 
@@ -1571,6 +1546,7 @@ def main() -> int:
         from flash_attention_softmax_n_tpu_torch.parallel import train as train_mod
         from flash_attention_softmax_n_tpu_torch.quant import kv_cache, qtensor, weights
         from flash_attention_softmax_n_tpu_torch.utils import (
+            bench_cache_update,
             bench_decode_attn,
             profile_prefill_phases,
             profiling,
@@ -1585,7 +1561,7 @@ def main() -> int:
            "weights": weights, "qtensor": qtensor, "kv_cache": kv_cache, "train": train_mod,
            "prefill_phases": prefill_phases_mod,
            "profile_prefill_phases": profile_prefill_phases,
-           "bench_decode_attn": bench_decode_attn}
+           "bench_decode_attn": bench_decode_attn, "bench_cache_update": bench_cache_update}
     global CHIP, K8_LINES
     K8_LINES = bench_decode_attn.LINES
     CHIP = profiling.H100
@@ -1618,11 +1594,9 @@ def main() -> int:
         # M = 64: the fused loop's batch below; M = 256: a fuller batch
         check_qmm(torch, pkg, gen, M=64, K=2048, N=32000),
         check_qmm(torch, pkg, gen, M=256, K=2048, N=32000),
-        # B = 4 and 64: the step path's and the fused loop's pools below
-        check_cache_append(torch, pkg, gen, NL=22, B=4, KVH=4, S=512, D=64),
-        check_cache_append(torch, pkg, gen, NL=22, B=256, KVH=4, S=512, D=64),
-        check_tail_append(torch, pkg, gen, NL=22, B=64, KVH=4, W=64, D=64),
-        check_tail_append(torch, pkg, gen, NL=22, B=256, KVH=4, W=64, D=64),
+        # K3 at B4 (the step path's pool below) and B256, K4 at B64 (the
+        # fused loop's batch) and B256
+        *(check_row_writes(torch, pkg, line) for line in bench_cache_update.LINES),
     ]
     for kd in kernels:
         kd["path"] = "serve"
@@ -1677,7 +1651,9 @@ def main() -> int:
                                                        "device_ms", "tflops", "plain_ms",
                                                        "bound_ms", "bound_by", "library_ms",
                                                        "library_device_ms", "cublas_device_ms",
-                                                       "w_gbps", "producer", "plan")
+                                                       "w_gbps", "producer", "plan",
+                                                       "host_ms", "gbps", "vector_bytes",
+                                                       "torch_calls_device_ms")
                                        if k in kd}})
     kernels += train_kernels(torch, pkg, gen)
 

@@ -14,6 +14,7 @@
 #include <c10/cuda/CUDAStream.h>
 #include <torch/library.h>
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <initializer_list>
@@ -267,7 +268,18 @@ int check_rows(const at::Tensor& cache, const at::Tensor& rows, const at::Tensor
               cache.scalar_type(), what, "new rows");
   const int64_t row_bytes = cache.size(4) * cache.element_size();
   TORCH_CHECK_VALUE(row_bytes % 4 == 0, what, ": rows must be a multiple of 4 bytes");
+  // the kernel counts cache rows and new rows' words in 32 bits
+  TORCH_CHECK_VALUE(cache.numel() / std::max<int64_t>(cache.size(4), 1) <= INT_MAX &&
+                        rows.numel() * rows.element_size() / 4 <= INT_MAX - 256,
+                    what, ": caches of 2^31 rows, or new rows of 2^31 words, are too large");
   return as_int(row_bytes, what);
+}
+
+// the bytes a thread of K3/K4 moves for this (cache, new rows) pair
+int64_t cache_vector_bytes(const at::Tensor& cache, const at::Tensor& rows) {
+  const char* what = "cache_vector_bytes";
+  const int row_bytes = check_rows(cache, rows, cache, what);
+  return fasn_row_vector_bytes(row_bytes, cache.data_ptr(), rows.data_ptr());
 }
 
 void cache_append(at::TensorList caches, at::TensorList news, const at::Tensor& positions) {
@@ -324,7 +336,7 @@ int64_t qmm_stage_k(int64_t x_dtype) {
 
 void qmm(const at::Tensor& x, const std::optional<at::Tensor>& x_scales, const at::Tensor& w,
          const at::Tensor& scales, const at::Tensor& out, const at::Tensor& part, int64_t bits,
-         int64_t bm, int64_t stages, int64_t splits, int64_t slices_per_split, bool tma) {
+         int64_t bm, int64_t splits, int64_t slices_per_split, bool tma) {
   const char* what = "quantized_matmul";
   TORCH_CHECK_VALUE(bits == 8 || bits == 4, what, ": bits must be 8 or 4, got ", bits);
   TORCH_CHECK_VALUE(x.dim() == 2 && w.dim() == 2, what, ": x (M, K) and w (K, N) are 2-D");
@@ -375,7 +387,7 @@ void qmm(const at::Tensor& x, const std::optional<at::Tensor>& x_scales, const a
   check_launch(fasn_qmm(x.data_ptr(), xs_ptr, w.data_ptr(), scales.data_ptr<float>(), part_ptr,
                         out.data_ptr(), as_int(M, what), as_int(K, what), as_int(N, what),
                         x_dtype, static_cast<int>(bits), dtype_code(out, what),
-                        static_cast<int>(bm), as_int(stages, what), as_int(splits, what),
+                        static_cast<int>(bm), as_int(splits, what),
                         as_int(slices_per_split, what), tma ? 1 : 0, stream_of(x)),
                what);
 }
@@ -613,6 +625,7 @@ TORCH_LIBRARY(fasn, m) {
   m.def(
       "qmm_argmax(Tensor x, Tensor w, Tensor scales, Tensor(a!) idx, Tensor(b!) val, "
       "Tensor(c!) part_val, Tensor(d!) part_idx, int bm, int ctas, bool tma) -> ()");
+  m.def("cache_vector_bytes(Tensor cache, Tensor rows) -> int");
   m.def("cache_append(Tensor(a!)[] caches, Tensor[] news, Tensor positions) -> ()");
   m.def(
       "tail_append(Tensor(a!) k_tail, Tensor(b!) v_tail, Tensor k_new, Tensor v_new, "
@@ -620,7 +633,7 @@ TORCH_LIBRARY(fasn, m) {
   m.def("qmm_stage_k(int x_dtype) -> int", &qmm_stage_k);
   m.def(
       "qmm(Tensor x, Tensor? x_scales, Tensor w, Tensor scales, Tensor(a!) out, "
-      "Tensor(b!) part, int bits, int bm, int stages, int splits, int slices_per_split, "
+      "Tensor(b!) part, int bits, int bm, int splits, int slices_per_split, "
       "bool tma) -> ()");
   m.def("fused_mlp_tiles(int f) -> int", &fused_mlp_tiles);
   m.def(
@@ -639,6 +652,7 @@ TORCH_LIBRARY_IMPL(fasn, CUDA, m) {
   m.impl("flash_bwd_dq", &flash_bwd_dq);
   m.impl("flash_bwd_dkv", &flash_bwd_dkv);
   m.impl("qmm_argmax", &qmm_argmax);
+  m.impl("cache_vector_bytes", &cache_vector_bytes);
   m.impl("cache_append", &cache_append);
   m.impl("tail_append", &tail_append);
   m.impl("qmm", &qmm);

@@ -106,8 +106,8 @@ __global__ void fused_mlp_down_sum_kernel(const float* __restrict__ part,
 
 template <int BM>
 cudaError_t gate_up(Args g, int stages, cudaStream_t stream) {
-  cudaError_t err =
-      launch_wgmma<false, 8, BM, true>(fused_mlp_gateup_kernel<BM>, g, stages, stream);
+  if (stages != Cfg<false, 8, BM, true>::STAGES) return cudaErrorInvalidValue;  // not the build's
+  cudaError_t err = launch_wgmma<false, 8, BM, true>(fused_mlp_gateup_kernel<BM>, g, stream);
   if (err != cudaSuccess || g.splits == 1) return err;
   fused_mlp_swiglu_sum_kernel<<<sum_blocks((long long)g.M * g.N), 256, 0, stream>>>(
       static_cast<const float*>(g.part), g.scales, g.scales2,
@@ -117,8 +117,8 @@ cudaError_t gate_up(Args g, int stages, cudaStream_t stream) {
 
 template <int BM>
 cudaError_t down(Args g, int stages, cudaStream_t stream) {
-  cudaError_t err =
-      launch_wgmma<false, 8, BM, false>(fused_mlp_down_kernel<BM>, g, stages, stream);
+  if (stages != Cfg<false, 8, BM, false>::STAGES) return cudaErrorInvalidValue;  // not the build's
+  cudaError_t err = launch_wgmma<false, 8, BM, false>(fused_mlp_down_kernel<BM>, g, stream);
   if (err != cudaSuccess || g.splits == 1) return err;
   fused_mlp_down_sum_kernel<<<sum_blocks((long long)g.M * g.N), 256, 0, stream>>>(
       static_cast<const float*>(g.part), g.scales, g.out, g.M, g.N, g.splits);

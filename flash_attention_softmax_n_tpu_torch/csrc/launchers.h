@@ -65,15 +65,22 @@ int fasn_qmm_argmax(const void* x, const void* w, const float* scales, float* pa
                     int* part_idx, int* out_idx, float* out_val, int M, int K, int N, int dtype,
                     int bm, int ctas, int use_tma, cudaStream_t stream);
 
-// K3 (cache_update.cu). caches[t] (NL,B,KVH,S,row_bytes[t]) and news[t]
-// (NL,B,KVH,row_bytes[t]) contiguous and 4-byte aligned, row_bytes a
-// multiple of 4, 1 <= n <= 4; positions (B,) int32 on the device.
+// K3 and K4 (cache_update.cu): the bytes a thread moves for rows of
+// row_bytes from src to dst, 16 where row_bytes % 16 == 0 and both are
+// 16-byte aligned, else 4; 0 where row_bytes or either address is not a
+// multiple of 4 (the kernel refuses those).
+int fasn_row_vector_bytes(int row_bytes, const void* dst, const void* src);
+
+// K3. caches[t] (NL,B,KVH,S,row_bytes[t]) and news[t] (NL,B,KVH,row_bytes[t])
+// contiguous and 4-byte aligned, row_bytes a multiple of 4, 1 <= n <= 4;
+// positions (B,) int32 on the device; rows at positions outside [0, S) are
+// skipped. NL*B*KVH*S and the vectors of each tensor's new rows fit an int.
 int fasn_cache_append(int n, void* const* caches, const void* const* news, const int* row_bytes,
                       const int* positions, int NL, int B, int KVH, int S, cudaStream_t stream);
 
 // K4 (cache_update.cu). k_tail/v_tail (NL,B,KVH,W,row_bytes), k_new/v_new
 // (NL,B,KVH,row_bytes) contiguous and 4-byte aligned; every row goes to
-// ring row `index`.
+// ring row `index`. Sizes as K3's.
 int fasn_tail_append(void* k_tail, void* v_tail, const void* k_new, const void* v_new,
                      int row_bytes, int index, int NL, int B, int KVH, int W,
                      cudaStream_t stream);
@@ -87,16 +94,15 @@ int fasn_qmm_stage_k(int x_dtype);
 // groups of 256 rows with K % 256 == 0, contiguous; scales (N,) f32; out
 // (M,N) contiguous, f32 (out_dtype 0) or bf16 (1). The plan
 // (kernels/quant_matmul.py qmm_plan): bm rows per tile (64 for f32 x; 64
-// or 128 for int8 x; 64, 128 or 256 for bf16 x), the ring's `stages` (1
-// for f32 x, otherwise the depth the kernel is built with), `splits`
-// ranges of `slices_per_split` slices (every slice in one, none empty; the
-// scratch holds splits * M * N four-byte partials when splits > 1), and
-// use_tma (bf16 or int8 x only) where x's and w's row strides and base
-// addresses are multiples of 16 bytes.
+// or 128 for int8 x; 64, 128 or 256 for bf16 x), `splits` ranges of
+// `slices_per_split` slices (every slice in one, none empty; the scratch
+// holds splits * M * N four-byte partials when splits > 1), and use_tma
+// (bf16 or int8 x only) where x's and w's row strides and base addresses
+// are multiples of 16 bytes. The tensor-core kernels' ring is as deep as
+// they are built (Cfg::STAGES), which the plan's `stages` reports.
 int fasn_qmm(const void* x, const float* x_scales, const void* w, const float* scales,
              void* partial, void* out, int M, int K, int N, int x_dtype, int bits, int out_dtype,
-             int bm, int stages, int splits, int slices_per_split, int use_tma,
-             cudaStream_t stream);
+             int bm, int splits, int slices_per_split, int use_tma, cudaStream_t stream);
 
 // K9 (fused_mlp.cu). f32 x: d_ff tiles of the scalar kernel, whose
 // scratch gu_part holds tiles * M * K f32.

@@ -224,27 +224,26 @@ __global__ void __launch_bounds__(Cfg<S8, BITS, BM>::THREADS, 1)
 }
 
 template <bool S8, int BITS, int BM>
-cudaError_t launch_tc(Args g, int stages, cudaStream_t stream) {
-  cudaError_t err =
-      launch_wgmma<S8, BITS, BM, false>(qmm_wgmma_kernel<S8, BITS, BM>, g, stages, stream);
+cudaError_t launch_tc(Args g, cudaStream_t stream) {
+  cudaError_t err = launch_wgmma<S8, BITS, BM, false>(qmm_wgmma_kernel<S8, BITS, BM>, g, stream);
   if (err != cudaSuccess || g.splits == 1) return err;
   return launch_sum(S8, g.part, g.scales, g.x_scales, g.out, g.out_bf16, g.M, g.N, g.splits,
                     stream);
 }
 
 template <bool S8, int BITS>
-cudaError_t by_rows(int bm, const Args& g, int stages, cudaStream_t stream) {
-  if (bm == 64) return launch_tc<S8, BITS, 64>(g, stages, stream);
-  if (bm == 128) return launch_tc<S8, BITS, 128>(g, stages, stream);
+cudaError_t by_rows(int bm, const Args& g, cudaStream_t stream) {
+  if (bm == 64) return launch_tc<S8, BITS, 64>(g, stream);
+  if (bm == 128) return launch_tc<S8, BITS, 128>(g, stream);
   if constexpr (!S8)  // W8A8 would need four consumer warpgroups
-    if (bm == 256) return launch_tc<S8, BITS, 256>(g, stages, stream);
+    if (bm == 256) return launch_tc<S8, BITS, 256>(g, stream);
   return cudaErrorInvalidValue;
 }
 
 template <bool S8>
-cudaError_t by_shape(int bits, int bm, const Args& g, int stages, cudaStream_t stream) {
-  if (bits == 8) return by_rows<S8, 8>(bm, g, stages, stream);
-  if (bits == 4) return by_rows<S8, 4>(bm, g, stages, stream);
+cudaError_t by_shape(int bits, int bm, const Args& g, cudaStream_t stream) {
+  if (bits == 8) return by_rows<S8, 8>(bm, g, stream);
+  if (bits == 4) return by_rows<S8, 4>(bm, g, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -256,7 +255,7 @@ extern "C" int fasn_qmm_stage_k(int x_dtype) {
 
 extern "C" int fasn_qmm(const void* x, const float* x_scales, const void* w, const float* scales,
                         void* partial, void* out, int M, int K, int N, int x_dtype, int bits,
-                        int out_dtype, int bm, int stages, int splits, int slices_per_split,
+                        int out_dtype, int bm, int splits, int slices_per_split,
                         int use_tma, cudaStream_t stream) {
   const int n_slices = (K + fasn_qmm_stage_k(x_dtype) - 1) / fasn_qmm_stage_k(x_dtype);
   // every slice in exactly one split, and no split empty
@@ -265,14 +264,14 @@ extern "C" int fasn_qmm(const void* x, const float* x_scales, const void* w, con
     return cudaErrorInvalidValue;
   const int8_t* wq = static_cast<const int8_t*>(w);
   if (x_dtype == 0)
-    return bm == F32_BM && stages == 1 && !use_tma
+    return bm == F32_BM && !use_tma
                ? launch_f32(bits, static_cast<const float*>(x), wq, scales,
                             static_cast<float*>(partial), out, out_dtype, M, K, N, splits,
                             slices_per_split, stream)
                : cudaErrorInvalidValue;
   const Args g{x,   x_dtype == 2 ? x_scales : nullptr, wq, scales, nullptr, nullptr, partial,
                out, out_dtype, M, K, N, splits, slices_per_split, use_tma, 0};
-  if (x_dtype == 1) return by_shape<false>(bits, bm, g, stages, stream);
-  if (x_dtype == 2) return by_shape<true>(bits, bm, g, stages, stream);
+  if (x_dtype == 1) return by_shape<false>(bits, bm, g, stream);
+  if (x_dtype == 2) return by_shape<true>(bits, bm, g, stream);
   return cudaErrorInvalidValue;
 }

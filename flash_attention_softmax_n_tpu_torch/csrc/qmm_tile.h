@@ -639,12 +639,11 @@ inline bool encode_2d(CUtensorMap* map, const void* base, CUtensorMapDataType ty
 
 // Launch `kernel` (a __global__ wrapper of wgmma_body<S8, BITS, BM, DUAL>,
 // taking (xmap, wmap, g), or (xmap, wmap, umap, g) under DUAL) with one
-// persistent CTA per SM at most; `stages` must be the ring the kernel is
-// built with (the plan's). Sets g.tiles. The split-K sum is the caller's.
+// persistent CTA per SM at most, its ring Cfg::STAGES deep. Sets g.tiles.
+// The split-K sum is the caller's.
 template <bool S8, int BITS, int BM, bool DUAL, typename Kernel>
-cudaError_t launch_wgmma(Kernel kernel, Args& g, int stages, cudaStream_t stream) {
+cudaError_t launch_wgmma(Kernel kernel, Args& g, cudaStream_t stream) {
   using C = Cfg<S8, BITS, BM, DUAL>;
-  if (stages != C::STAGES) return cudaErrorInvalidValue;  // the plan disagrees with the build
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;

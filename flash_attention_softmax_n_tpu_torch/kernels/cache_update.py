@@ -44,9 +44,11 @@ def tail_append_reference(k_tail: torch.Tensor, v_tail: torch.Tensor,
 
 
 def _cache_append_cuda(caches, news, positions):
-    _build.ops().cache_append(
-        list(caches), [nw.contiguous() for nw in news],
-        positions.to(torch.int32).contiguous())
+    # the operator checks device, shapes, dtypes and contiguity: nothing is
+    # converted here on every decode step but positions of another dtype
+    if positions.dtype != torch.int32:
+        positions = positions.to(torch.int32)
+    _build.ops().cache_append(caches, news, positions)
     _build.LAUNCHES["cache_append"] += 1
     return tuple(caches)
 
@@ -56,9 +58,10 @@ def cache_append(caches: Tuple[torch.Tensor, ...],
                  positions: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Write ``news[i][l, b]`` into ``caches[i][l, b, :, positions[b], :]``.
 
-    caches[i] (NL, B, KVH, S, D_i); news[i] (NL, B, KVH, D_i); positions
-    (B,) int32 in [0, S), clamped by the caller. Writes in place and
-    returns the caches.
+    caches[i] (NL, B, KVH, S, D_i); news[i] (NL, B, KVH, D_i), contiguous
+    on CUDA; positions (B,) int32 in [0, S), clamped by the caller (the
+    kernel skips rows at positions outside it). Writes in place and returns
+    the caches.
     """
     if caches[0].is_cuda:
         return _cache_append_cuda(caches, news, positions)
@@ -66,8 +69,7 @@ def cache_append(caches: Tuple[torch.Tensor, ...],
 
 
 def _tail_append_cuda(k_tail, v_tail, k_new, v_new, index):
-    _build.ops().tail_append(k_tail, v_tail, k_new.contiguous(),
-                             v_new.contiguous(), int(index))
+    _build.ops().tail_append(k_tail, v_tail, k_new, v_new, int(index))
     _build.LAUNCHES["tail_append"] += 1
     return k_tail, v_tail
 
@@ -77,7 +79,7 @@ def tail_append(k_tail: torch.Tensor, v_tail: torch.Tensor,
                 index: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write ``new[l, b]`` into ``tail[l, b, :, index, :]`` at one ring index
     shared by every slot, in place. k/v_tail (NL, B, KVH, W, D); k/v_new
-    (NL, B, KVH, D)."""
+    (NL, B, KVH, D), contiguous on CUDA."""
     if k_tail.is_cuda:
         return _tail_append_cuda(k_tail, v_tail, k_new, v_new, index)
     return tail_append_reference(k_tail, v_tail, k_new, v_new, index)

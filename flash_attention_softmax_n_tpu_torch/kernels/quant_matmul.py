@@ -49,7 +49,7 @@ class QmmPlan(NamedTuple):
     bm: int            # output rows per tile: 64, 128 or (bf16 x) 256
     bn: int            # output columns per tile
     bk: int            # logical K rows per stage (slice)
-    stages: int        # depth of the shared-memory ring
+    stages: int        # ring depth the kernel is built with (Cfg::STAGES; scalar: 1)
     splits: int        # K ranges, each summed by its own CTAs
     slices_per_split: int
     producer: str      # "tma", "predicated" (row strides TMA cannot take) or "scalar"
@@ -244,7 +244,7 @@ def _qmm_cuda(x2, x_scales, w_values, w_scales, bits, out_dtype):
     xs = None if x_scales is None else x_scales.reshape(-1).contiguous()
     ops.qmm(aligned16(x2), xs, aligned16(w_values),
             w_scales.reshape(-1).float().contiguous(), out, part, bits,
-            plan.bm, plan.stages, plan.splits, plan.slices_per_split,
+            plan.bm, plan.splits, plan.slices_per_split,
             plan.producer == "tma")
     _build.LAUNCHES["qmm"] += 1
     return out

@@ -12,6 +12,10 @@ the backward (K5, K6) bias, ALiBi and dropout in every combination; for
 K7-K9 every mode (int8, W8A8, int4, W4A8; dense, int8, int8-compute and
 fp8 caches), ragged M/N/F, slot lengths 0 and full, strided cache views;
 K2 at every row tile, ties met at each stage of its reduction, NaN and -inf rows, views off 16 bytes;
+K3 and K4 at both vector widths (16-byte vectors; 4-byte words for 12-byte
+rows and views off 16 bytes), the engine's four-tensor call with int8 or
+fp8 values, positions at 0, S - 1 and outside the cache (skipped), and row
+counts that fill no block;
 K10 in its four modes at head dims 32/64/128, bf16 and f32, ragged L. The
 bf16 K1, K5, K6 and K10 run the TMA + wgmma tile (128-row tiles): L and S
 ending mid-tile, every bias broadcast, ALiBi, dropout (K5's and K6's masks
@@ -210,6 +214,121 @@ def test_tail_append_every_index(gen):
         cu.tail_append(kt, vt, kn, vn, i)
         cu.tail_append_reference(*want, kn, vn, i)
     assert torch.equal(kt, want[0]) and torch.equal(vt, want[1])
+
+
+def _at_offset(t, offset):
+    """A contiguous copy of t whose first byte lies ``offset`` bytes past a
+    16-byte boundary (the allocator's blocks start on one)."""
+    nbytes = t.numel() * t.element_size()
+    buf = torch.zeros(nbytes + 16, dtype=torch.uint8, device=t.device)
+    out = buf[offset:offset + nbytes].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _kv_rows(gen, shape, dtype):
+    """random values of ``dtype`` (int8, fp8 e4m3, f32 scales, bf16, f32)"""
+    if dtype == torch.int8:
+        return torch.randint(-128, 128, shape, generator=gen, device="cuda").to(dtype)
+    if dtype == qt.FP8:
+        return torch.randint(0, 256, shape, generator=gen,
+                             device="cuda").to(torch.uint8).view(dtype)
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _append_both(caches, news, pos):
+    """(kernel's caches, plain version's caches), each from copies of
+    ``caches``, after one cache_append; slots whose position lies outside
+    [0, S) are left out of the plain version's call, as the kernel skips them"""
+    got = tuple(c.clone() for c in caches)
+    want = tuple(c.clone() for c in caches)
+    cu.cache_append(got, news, pos)
+    S = caches[0].shape[3]
+    for b, p in enumerate(pos.tolist()):
+        if 0 <= p < S:
+            cu.cache_append_reference(tuple(c[:, b:b + 1] for c in want),
+                                      tuple(nw[:, b:b + 1] for nw in news), pos[b:b + 1])
+    return got, want
+
+
+def _bytes_equal(a, b):
+    return torch.equal(qt.as_bytes(a), qt.as_bytes(b))
+
+
+# K3's and K4's two vector widths: 16-byte vectors where the row bytes are a
+# multiple of 16 and both base pointers 16-byte aligned, 4-byte words
+# otherwise: rows of 12 bytes, and caches or new rows offset by 4 bytes
+# (not by 16), which must take the word path and not raise
+# (dtype, D, cache offset, new rows' offset, vector bytes)
+_WIDTH_CASES = [(torch.bfloat16, 64, 0, 0, 16), (torch.int8, 64, 0, 0, 16),
+                (torch.float32, 3, 0, 0, 4), (torch.bfloat16, 6, 0, 0, 4),
+                (torch.int8, 64, 4, 0, 4), (torch.bfloat16, 64, 0, 4, 4),
+                (torch.float32, 4, 4, 4, 4), (torch.bfloat16, 64, 8, 0, 4)]
+
+
+@pytest.mark.parametrize("case", _WIDTH_CASES)
+def test_cache_append_vector_widths(gen, case):
+    dtype, d, c_off, n_off, vec = case
+    caches = tuple(_at_offset(_kv_rows(gen, (2, 5, 3, 17, d), dtype), c_off)
+                   for _ in range(2))
+    news = tuple(_at_offset(_kv_rows(gen, (2, 5, 3, d), dtype), n_off) for _ in range(2))
+    assert [_build.ops().cache_vector_bytes(c, nw) for c, nw in zip(caches, news)] == [vec] * 2
+    pos = torch.tensor([0, 16, 3, 3, 9], device="cuda", dtype=torch.int32)
+    got = tuple(_at_offset(c, c_off) for c in caches)
+    want = tuple(c.clone() for c in caches)
+    cu.cache_append(got, news, pos)
+    cu.cache_append_reference(want, news, pos)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("case", _WIDTH_CASES)
+def test_tail_append_vector_widths(gen, case):
+    dtype, d, c_off, n_off, vec = case
+    kt, vt = (_at_offset(_kv_rows(gen, (2, 3, 4, 8, d), dtype), c_off) for _ in range(2))
+    kn, vn = (_at_offset(_kv_rows(gen, (2, 3, 4, d), dtype), n_off) for _ in range(2))
+    assert _build.ops().cache_vector_bytes(kt, kn) == vec
+    want = (kt.clone(), vt.clone())
+    for i in (0, 5, 7):
+        cu.tail_append(kt, vt, kn, vn, i)
+        cu.tail_append_reference(*want, kn, vn, i)
+    assert torch.equal(kt, want[0]) and torch.equal(vt, want[1])
+
+
+# the engine's four-tensor call: k and v values (int8 or fp8, 64-byte rows
+# at D64, 16-byte vectors) with their f32 scale planes (4-byte rows, words)
+# in one launch, at row counts (NL, B, KVH) that fill no block, one, and
+# several of each tensor
+@pytest.mark.parametrize("values", ["int8", "fp8"])
+@pytest.mark.parametrize("rows", [(1, 1, 1), (1, 3, 1), (3, 5, 7), (22, 4, 4)])
+def test_cache_append_engine_call(gen, values, rows):
+    dtype = torch.int8 if values == "int8" else qt.FP8
+    S, D = 40, 64
+    caches, news = [], []
+    for _ in range(2):
+        caches += [_kv_rows(gen, (*rows, S, D), dtype),
+                   _kv_rows(gen, (*rows, S, 1), torch.float32)]
+        news += [_kv_rows(gen, (*rows, D), dtype), _kv_rows(gen, (*rows, 1), torch.float32)]
+    assert [_build.ops().cache_vector_bytes(c, nw)
+            for c, nw in zip(caches, news)] == [16, 4, 16, 4]
+    pos = torch.randint(0, S, (rows[1],), generator=gen, device="cuda").to(torch.int32)
+    got, want = _append_both(caches, news, pos)
+    assert all(_bytes_equal(a, b) for a, b in zip(got, want))
+
+
+# positions at 0 and S - 1 are written; those outside [0, S) (-1, S, far
+# past it) are skipped and leave the cache as it was
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_cache_append_positions_at_the_edges(gen, dtype):
+    S, D = 33, 64
+    caches = (_kv_rows(gen, (3, 7, 2, S, D), dtype),
+              _kv_rows(gen, (3, 7, 2, S, 1), torch.float32))
+    news = (_kv_rows(gen, (3, 7, 2, D), dtype), _kv_rows(gen, (3, 7, 2, 1), torch.float32))
+    pos = torch.tensor([0, S - 1, -1, S, 7, 1 << 20, S - 1], device="cuda",
+                       dtype=torch.int32)
+    got, want = _append_both(caches, news, pos)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for c, g in zip(caches, got):  # the skipped slots are untouched
+        assert torch.equal(c[:, [2, 3, 5]], g[:, [2, 3, 5]])
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
@@ -658,12 +777,12 @@ def test_qmm_plan_matches_the_kernels_and_bad_plans_raise(gen):
     out = torch.empty((64, 256), dtype=torch.bfloat16, device="cuda")
     part = torch.empty((2, 64, 256), device="cuda")
     with pytest.raises(ValueError, match="do not cover"):  # 8 slices, 2 x 3
-        ops.qmm(x, None, wv, ws, out, part, 8, 64, 8, 2, 3, True)
+        ops.qmm(x, None, wv, ws, out, part, 8, 64, 2, 3, True)
     with pytest.raises(ValueError, match="TMA"):  # N % 16 != 0
         ops.qmm(x, None, wv[:, :200].contiguous(), ws[:200].contiguous(),
-                out[:, :200].contiguous(), part, 8, 64, 8, 2, 4, True)
-    with pytest.raises(RuntimeError, match="invalid argument"):  # not the built ring
-        ops.qmm(x, None, wv, ws, out, part, 8, 64, 3, 2, 4, True)
+                out[:, :200].contiguous(), part, 8, 64, 2, 4, True)
+    with pytest.raises(ValueError, match="tile height"):  # no kernel has 96-row tiles
+        ops.qmm(x, None, wv, ws, out, part, 8, 96, 2, 4, True)
 
 
 # K9 at M either side of a 64-row tile and up to the fusion limit (512),

@@ -28,6 +28,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "import flash_attention_softmax_n_tpu_torch.models\n"
         "import flash_attention_softmax_n_tpu_torch.parallel\n"
         "import flash_attention_softmax_n_tpu_torch.quant\n"
+        "import flash_attention_softmax_n_tpu_torch.utils.bench_cache_update\n"
+        "import flash_attention_softmax_n_tpu_torch.utils.bench_decode_attn\n"
         "import flash_attention_softmax_n_tpu_torch.utils.profile_prefill_phases\n"
         "import flash_attention_softmax_n_tpu_torch.utils.profiling\n"
         "import chip_smoke\n"

@@ -170,33 +170,39 @@ def test_qmm_argmax_tie_across_tiles_matches_pallas(m):
     assert np.asarray(j_val).tolist() == t_val.tolist() == [float(k)] * m
 
 
-def test_cache_append_bit_exact_and_in_place():
+# one int8 value plane with its scales; the engine's four-tensor call, k and
+# v values (64-byte rows) with their scale planes (4-byte rows)
+@pytest.mark.parametrize("planes,d", [(1, 8), (2, 64)])
+def test_cache_append_bit_exact_and_in_place(planes, d):
     rng = np.random.RandomState(2)
-    nl, b, kvh, s, d = 2, 3, 2, 16, 8
-    vals = rng.randint(-128, 128, size=(nl, b, kvh, s, d)).astype(np.int8)
-    scls = rng.rand(nl, b, kvh, s, 1).astype(np.float32)
-    new_v = rng.randint(-128, 128, size=(nl, b, kvh, d)).astype(np.int8)
-    new_s = rng.rand(nl, b, kvh, 1).astype(np.float32)
+    nl, b, kvh, s = 2, 3, 2, 16
+    caches, news = [], []
+    for _ in range(planes):
+        caches += [rng.randint(-128, 128, size=(nl, b, kvh, s, d)).astype(np.int8),
+                   rng.rand(nl, b, kvh, s, 1).astype(np.float32)]
+        news += [rng.randint(-128, 128, size=(nl, b, kvh, d)).astype(np.int8),
+                 rng.rand(nl, b, kvh, 1).astype(np.float32)]
     pos = np.array([0, 9, 15], np.int32)
-    jv, js = jcu.cache_append((jnp.asarray(vals), jnp.asarray(scls)),
-                              (jnp.asarray(new_v), jnp.asarray(new_s)),
-                              jnp.asarray(pos))
-    tv, ts = _t(vals), _t(scls)
-    out = tcu.cache_append((tv, ts), (_t(new_v), _t(new_s)), _t(pos))
-    assert out[0] is tv and out[1] is ts
-    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
-    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    want = jcu.cache_append(tuple(map(jnp.asarray, caches)), tuple(map(jnp.asarray, news)),
+                            jnp.asarray(pos))
+    got = tuple(map(_t, caches))
+    out = tcu.cache_append(got, tuple(map(_t, news)), _t(pos))
+    assert len(out) == len(got) and all(o is g for o, g in zip(out, got))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def test_tail_append_bit_exact_and_in_place():
+# a ring index inside the ring, and at both of its ends (0 and W - 1)
+@pytest.mark.parametrize("index", [5, 0, 7])
+def test_tail_append_bit_exact_and_in_place(index):
     rng = np.random.RandomState(3)
     shape = (2, 3, 2, 8, 16)
     kt, vt = (rng.randn(*shape).astype(np.float32) for _ in range(2))
     kn, vn = (rng.randn(*shape[:3], 16).astype(np.float32) for _ in range(2))
     jk, jv = jcu.tail_append(jnp.asarray(kt), jnp.asarray(vt), jnp.asarray(kn),
-                             jnp.asarray(vn), jnp.asarray(5, jnp.int32))
+                             jnp.asarray(vn), jnp.asarray(index, jnp.int32))
     tk, tv = _t(kt), _t(vt)
-    out = tcu.tail_append(tk, tv, _t(kn), _t(vn), 5)
+    out = tcu.tail_append(tk, tv, _t(kn), _t(vn), index)
     assert out[0] is tk and out[1] is tv
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
