@@ -12,15 +12,14 @@ Phases, in order, each printing one JSON line:
 2. build: compiles ``flash_attention_softmax_n_tpu_torch/csrc/``: each
    ``*.cu`` kernel source with its own nvcc for sm_90a and the PyTorch
    operator bindings with the host C++ compiler, all started together;
-3. kernels: runs K1 flash_fwd, K2 qmm_argmax (M64 and M256; each line
-   prints its plan, W's achieved GB/s, at M64 the other vocab tile width's
-   device time, and, for information, cuBLAS's device time for the GEMM
+3. kernels: runs K1 flash_fwd, K2 qmm_argmax (M64, M72 and M256; each line
+   prints its plan, W's achieved GB/s, and, for information, cuBLAS's device time for the GEMM
    and max over W dequantized to bf16), K3 cache_append and K4
    tail_append (at utils/bench_cache_update.py's lines and seeds; each
    line prints its tensors' vector widths, GB/s, host ms and, for
    information, the device time of one PyTorch call a tensor), K7 qmm
-   (int8, W8A8 and int4, at decode M64 and at the
-   admission groups' M1024 and M2048; each line prints its plan and
+   (int8, W8A8 and int4, at decode M64, at the mixed steps' M80 and M192
+   and at the admission groups' M1024 and M2048; each line prints its plan and
    producer, and the library call's own device time), K8 decode_attn
    (int8, fp8 and bf16 caches, at utils/bench_decode_attn.py's lines and
    seeds; each line prints its split length and product design), K9
@@ -43,23 +42,39 @@ Phases, in order, each printing one JSON line:
    (each in f32 and bf16) required bit-equal to the plain hash; gradients
    are held element by element and as a whole (``BWD_NORM_TOL``);
 5. serving: the TinyLlama-1.1B shape (random weights from a seed, int8
-   weights, int8 KV) serves 96 requests through the fused decode loop and 4
-   through the step path, counting each kernel's launches on those runs, and
-   checks the tokens against ``greedy_generate`` and a teacher-forced
-   ``decoder_forward``; then
-6. profile: one 16-step fused chunk of 64 requests, three times
-   unprofiled and each time at once under ``torch.profiler``, gives the
-   device's busy time, its idle share against the unprofiled wall just
-   before (``idle_share_paired``, median and spread) and the kernels that
-   fill it, and against an admission-only run of the same requests the
-   decode step's own busy time. Phases 5-6 run twice: ``serve`` on the default routes (K1-K4, and
+   weights, int8 KV) serves 96 requests through 64 slots of the fused
+   decode loop, on an engine built as bench.py builds it (the default
+   piggybacked prefill, then ``prewarm(loop_steps=64, attn_lens=[256])``
+   capturing each greedy loop variant as a CUDA graph: its count, seconds
+   and graph pool bytes printed), so queued prompts prefill inside the
+   chunks (``piggyback_prompts`` must be > 0), and 4 through the step
+   path, counting each kernel's launches on those runs (a replay counts
+   the launches its capture made), and checks the tokens against
+   ``greedy_generate`` and a teacher-forced ``decoder_forward`` (the
+   queued requests, piggybacked ones among them, included); then
+6. profile: one 16-step fused chunk of 64 requests, run eagerly (capture
+   off) and replayed as a graph, each three times unprofiled and each time
+   at once under ``torch.profiler``, gives the device's busy time, its idle
+   share against the unprofiled wall just before (``idle_share_paired``,
+   median and spread) and the kernels that fill it (the replay must show
+   the route's decode kernels), and against an admission-only run of the
+   same requests the decode step's own busy time and device ops; on the
+   default route also the device time of one step's weight
+   dequantization. Phases 5-6 run twice: ``serve`` on the default routes (K1-K4, and
    K7-K9 must not launch) and ``serve_pallas`` with
    ``int8_mm_impl="pallas", decode_attn_impl="pallas"`` (K1-K4 and K7-K9
-   must all launch); then 8 requests each with int4 weights and with
-   ``act_bits=8`` go through the fused loop on the same routes (K7's int4
-   and W8A8 modes), held to the teacher-forced gate, and ``serve_fp8``
-   puts 8 requests through the fused loop and 2 through the step path with
-   fp8 e4m3 weights and an fp8 KV cache (K8's fp8 mode, K1, K3, K4);
+   must all launch); then 12 requests through 8 slots each with int4
+   weights and with ``act_bits=8`` go through the fused loop on the same
+   routes at 6 of the 22 layers (K7's int4 and W8A8 modes), held to the
+   teacher-forced gate, and ``serve_fp8`` puts 12 requests through the
+   fused loop and 2 through the step path with fp8 e4m3 weights and an fp8
+   KV cache (K8's fp8 mode, K1, K3, K4), each prewarmed and piggybacked as
+   in 5, and profiles its chunk as in 6; then
+6a. graph_parity: on the default route, the all-kernel route and fp8, a
+   plain 64-step chunk, a piggybacked 8-step chunk and a plain 6-step
+   chunk each replay their graph bit-equal to the eager loop from the same
+   state (tokens, first tokens, the cache's value, scale and length bytes,
+   launch counts), and ``prewarm`` leaves that state bit-equal;
 6b. prefill_phases: one run of the prefill-phase profile
    (``python -m flash_attention_softmax_n_tpu_torch.utils.profile_prefill_phases``)
    at B2 H32 L2048 hd64: K10's four modes and K1 without and with the
@@ -114,8 +129,14 @@ ROW_WRITE_KERNELS = ("append_rows_kernel",)
 F32_FLOPS = 67e12
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+    # where the run's time goes, on stderr
+    print(f"chip_smoke: {time.perf_counter() - T0:8.1f} s {obj.get('phase', '')}",
+          file=sys.stderr, flush=True)
 
 
 class SmokeFailure(RuntimeError):
@@ -1055,23 +1076,83 @@ def paired_idle_share(phase, pairs):
             "values": values, "busy_outliers": outliers}
 
 
-def profile_chunk(torch, eng_mod, cfg, params, phase="profile"):
-    """Where a fused chunk's time goes: 64 requests (64-token prompts) are
-    admitted and decoded in one 16-step chunk, IDLE_PAIRS times unprofiled
-    for the wall time, each followed at once by the same run under
-    ``torch.profiler`` for the device's busy time (the pair with the median
-    busy time also for the kernels that fill it, ``breakdown_pair``).
-    ``idle_share_paired`` is 1 - busy over the unprofiled wall just before,
-    its median and spread; ``idle_share_profiled`` (against the profiled
-    run's own wall, required in [0, 1]) and ``idle_share`` (the breakdown
-    pair's) are kept as earlier runs reported them. A last run admits the same requests with a budget
+def eager_engine(eng_mod):
+    """The engine with capture turned off: every chunk runs eagerly, as
+    before the loops were captured (the profile's comparison)."""
+
+    class EagerEngine(eng_mod.InferenceEngine):
+        def _capture(self, key):
+            pass
+
+    return EagerEngine
+
+
+def prewarm_line(torch, eng, phase):
+    """``eng.prewarm`` as bench.py calls it: prints the variant count, the
+    seconds and the bytes of the graphs' memory pool."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = eng.prewarm(loop_steps=64, attn_lens=[256])
+    torch.cuda.synchronize()
+    line = {"phase": f"{phase}_prewarm", "variants": n,
+            "seconds": time.perf_counter() - t0, "graphs": len(eng._graphs),
+            "pool_bytes": graph_pool_bytes(torch, eng)}
+    emit(line)
+    require(n > 0 and len(eng._graphs) == n, f"{phase}: prewarm captured {len(eng._graphs)} "
+            f"of {n} variants")
+    return line
+
+
+def graph_pool_bytes(torch, eng):
+    """Bytes of the segments in the engine's graph memory pool
+    (``torch.cuda.memory_snapshot``)."""
+    pool = eng._graph_pool
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if pool is not None and tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def dequant_step_ms(torch, pkg, params, cfg):
+    """Device ms of the default route's per-step weight dequantization: every
+    int8 layer weight that ``_mm`` dequantizes (``x @ dequantize(w)``),
+    once, as one decode step does."""
+    dec, qtensor = pkg["decoder"], pkg["qtensor"]
+    weights = [w for lp in dec.layer_views(params["layers"]) for w in lp.values()
+               if isinstance(w, qtensor.QTensor)]
+
+    def all_weights():
+        for w in weights:
+            qtensor.dequantize(w, cfg.dtype)
+
+    return device_ms(torch, all_weights, None, runs=3)
+
+
+def profile_chunk(torch, pkg, cfg, params, phase="profile", kv="int8"):
+    """Where a fused chunk's time goes, eagerly and replayed as a CUDA graph:
+    64 requests (64-token prompts) are admitted in 4 groups and decoded in
+    one 16-step chunk. For each loop (the engine with capture off; the
+    engine prewarmed), IDLE_PAIRS runs unprofiled for the wall time, each
+    followed at once by the same run under ``torch.profiler`` for the
+    device's busy time (the pair with the median busy time also for the
+    kernels that fill it, ``breakdown_pair``). ``idle_share_paired`` is 1 -
+    busy over the unprofiled wall just before, its median and spread;
+    ``idle_share_profiled`` (against the profiled run's own wall, required
+    in [0, 1]) and ``idle_share`` (the breakdown pair's) are kept as earlier
+    runs reported them. A last run admits the same requests with a budget
     of one token (the same four prefill groups, no decode step), so that
-    the 16 steps' own busy time is the difference."""
+    the 16 steps' own busy time and device ops are the difference. Each
+    engine serves the requests once first, unmeasured: the graph engine's
+    16-step variant runs eagerly then and is captured for the measured
+    runs. The graph's breakdown must show the route's decode kernels (K2
+    where the lm_head is int8, K4; K7, K8 and K9 on the all-kernel route)
+    inside the replay."""
     from torch.profiler import ProfilerActivity, profile
 
-    def run(budget):
-        eng = eng_mod.InferenceEngine(cfg, params, max_batch=64, max_len=512,
-                                      kv_quantization="int8", piggyback_prefill=False)
+    eng_mod = pkg["engine"]
+
+    def make(cls):
+        return cls(cfg, params, max_batch=64, max_len=512, kv_quantization=kv)
+
+    def run(eng, budget):
         rng = np.random.RandomState(1)
         for _ in range(64):
             eng.submit(rng.randint(0, cfg.vocab_size, size=64).tolist(), max_new_tokens=budget)
@@ -1084,10 +1165,12 @@ def profile_chunk(torch, eng_mod, cfg, params, phase="profile"):
                 f"{int(budget > 1)} chunk")
         return time.perf_counter() - t0
 
-    def profiled(budget):
-        """(wall s, {kernel name: (device ms, calls)}) of one run"""
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            wall_profiled = run(budget)
+    def profiled(eng, budget):
+        """(wall s, {kernel name: (device ms, calls)}) of one run; the
+        device's activity only (the host's ops, about 4 events a kernel,
+        cost seconds to collect and are not read)"""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wall_profiled = run(eng, budget)
         return wall_profiled, device_by_name(prof)
 
     def port_kernels(by_name):
@@ -1102,42 +1185,79 @@ def profile_chunk(torch, eng_mod, cfg, params, phase="profile"):
         return {k: {"calls": c, "ms": ms, "ms_per_call": ms / c}
                 for k, (ms, c) in sorted(ours.items())}
 
-    runs = []
-    for _ in range(IDLE_PAIRS):
-        wall_unprofiled = run(17)
-        runs.append((wall_unprofiled, *profiled(17)))
-    # the breakdown from the pair with the median busy time, as
-    # profile_step takes it: a profiler window can drop or stretch events
-    busy_of = [sum(ms for ms, _ in names.values()) for _, _, names in runs]
-    median_run = sorted(range(IDLE_PAIRS), key=busy_of.__getitem__)[IDLE_PAIRS // 2]
-    wall, wall_profiled, by_name = runs[median_run]
-    _, by_name_admit = profiled(1)
-    busy_ms = sum(ms for ms, _ in by_name.values())
+    eager, graph = make(eager_engine(eng_mod)), make(eng_mod.InferenceEngine)
+    run(eager, 17)
+    run(graph, 17)
+    require(list(graph._graphs) == [(16, 256, False)],
+            f"{phase}: the warm-up run captured {list(graph._graphs)}")
+    _, by_name_admit = profiled(eager, 1)
     busy_admit_ms = sum(ms for ms, _ in by_name_admit.values())
-    idle_profiled = 1.0 - busy_ms / 1e3 / wall_profiled
-    paired = paired_idle_share(phase, [(w, sum(ms for ms, _ in names.values()))
-                                       for w, _, names in runs])
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    emit({"phase": phase, "requests": 64, "steps": 16, "breakdown_pair": median_run,
-          "wall_s": wall,
-          "wall_s_profiled": wall_profiled,
-          "device_busy_s": busy_ms / 1e3 if busy_ms else None,
-          "idle_share_paired": paired,
-          "idle_share_profiled": idle_profiled,
-          "idle_share": 1.0 - busy_ms / 1e3 / wall if busy_ms else None,
-          "pairs": [{"wall_s": w, "wall_s_profiled": wp,
-                     "device_busy_s": sum(ms for ms, _ in names.values()) / 1e3}
-                    for w, wp, names in runs],
-          "device_ops": sum(c for _, c in by_name.values()),
-          "device_busy_admission_s": busy_admit_ms / 1e3,
-          "decode_step_busy_ms": (busy_ms - busy_admit_ms) / 16,
-          "port_kernels": port_kernels(by_name),
-          "port_kernels_admission": port_kernels(by_name_admit),
-          "top": [{"name": name[:90], "ms": ms, "calls": calls}
-                  for name, (ms, calls) in top]})
-    require(busy_ms > 0 and 0.0 <= idle_profiled <= 1.0,
-            f"{phase}: idle share {idle_profiled} against the profiled wall "
-            f"{wall_profiled} s is outside [0, 1] (device busy {busy_ms} ms)")
+    ops_admit = sum(c for _, c in by_name_admit.values())
+    lines = {}
+    for loop, eng in (("eager", eager), ("graph", graph)):
+        runs = []
+        for _ in range(IDLE_PAIRS):
+            wall_unprofiled = run(eng, 17)
+            runs.append((wall_unprofiled, *profiled(eng, 17)))
+        # the breakdown from the pair with the median busy time, as
+        # profile_step takes it: a profiler window can drop or stretch events
+        busy_of = [sum(ms for ms, _ in names.values()) for _, _, names in runs]
+        median_run = sorted(range(IDLE_PAIRS), key=busy_of.__getitem__)[IDLE_PAIRS // 2]
+        wall, wall_profiled, by_name = runs[median_run]
+        busy_ms = sum(ms for ms, _ in by_name.values())
+        ops = sum(c for _, c in by_name.values())
+        idle_profiled = 1.0 - busy_ms / 1e3 / wall_profiled
+        paired = paired_idle_share(f"{phase}_{loop}",
+                                   [(w, sum(ms for ms, _ in names.values()))
+                                    for w, _, names in runs])
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+        line = {"phase": phase if loop == "eager" else f"{phase}_graph", "loop": loop,
+                "requests": 64, "steps": 16, "breakdown_pair": median_run,
+                "wall_s": wall,
+                "wall_s_profiled": wall_profiled,
+                "device_busy_s": busy_ms / 1e3 if busy_ms else None,
+                "idle_share_paired": paired,
+                "idle_share_profiled": idle_profiled,
+                "idle_share": 1.0 - busy_ms / 1e3 / wall if busy_ms else None,
+                "pairs": [{"wall_s": w, "wall_s_profiled": wp,
+                           "device_busy_s": sum(ms for ms, _ in names.values()) / 1e3}
+                          for w, wp, names in runs],
+                "device_ops": ops,
+                "device_ops_per_step": (ops - ops_admit) / 16,
+                "device_busy_admission_s": busy_admit_ms / 1e3,
+                "decode_step_busy_ms": (busy_ms - busy_admit_ms) / 16,
+                "port_kernels": port_kernels(by_name),
+                "port_kernels_admission": port_kernels(by_name_admit),
+                "top": [{"name": name[:90], "ms": ms, "calls": calls}
+                        for name, (ms, calls) in top]}
+        require(busy_ms > 0 and 0.0 <= idle_profiled <= 1.0,
+                f"{phase}_{loop}: idle share {idle_profiled} against the profiled wall "
+                f"{wall_profiled} s is outside [0, 1] (device busy {busy_ms} ms)")
+        lines[loop] = line
+    pallas = cfg.int8_mm_impl == "pallas" and cfg.decode_attn_impl == "pallas"
+    if not pallas and kv == "int8":
+        # the default route dequantizes every int8 layer weight each step
+        dq = dequant_step_ms(torch, pkg, params, cfg)
+        for line in lines.values():
+            line["dequant_ms_per_step"] = dq
+            line["dequant_share_of_decode_busy"] = dq / line["decode_step_busy_ms"]
+    for line in lines.values():
+        emit(line)
+    # the replayed chunk ran the route's decode kernels: the graph run's
+    # calls less the admission run's
+    seen = lines["graph"]["port_kernels"]
+    admit = lines["graph"]["port_kernels_admission"]
+    decode_kernels = [ROW_WRITE_KERNELS]
+    if kv == "int8":  # the int8 lm_head: K2; fp8 weights take no K2, K7, K9
+        decode_kernels.append(QMM_ARGMAX_KERNELS)
+        if pallas:
+            decode_kernels += [QMM_KERNELS, FUSED_MLP_KERNELS]
+    if pallas:
+        decode_kernels.append(DECODE_ATTN_KERNELS)
+    for names in decode_kernels:
+        calls = sum(seen.get(k, {}).get("calls", 0) - admit.get(k, {}).get("calls", 0)
+                    for k in names)
+        require(calls > 0, f"{phase}_graph: the profiler saw no {names[0]} in the replayed chunk")
 
 
 def serve_requests(rng, cfg, n):
@@ -1173,35 +1293,52 @@ def teacher_forced_gate(torch, pkg, cfg, params, reqs, phase, extra=None):
     require(deficit <= 0.5, f"{phase}: teacher-forced logit deficit {deficit} > 0.5")
 
 
+def serve_fused(torch, pkg, cfg, params, phase, *, slots, requests, kv, seed):
+    """bench.py's engine (bench.py:528-536: the default piggyback_prefill,
+    prewarm(loop_steps=64, attn_lens=[256])) serves ``requests`` through
+    ``slots`` slots, so the queued ones can be piggybacked; returns (the
+    requests done in id order, the kernels' launches on the run). Requires
+    every budget met and some prompt piggybacked."""
+    eng_mod, build = pkg["engine"], pkg["build"]
+    eng = eng_mod.InferenceEngine(cfg, params, max_batch=slots, max_len=512,
+                                  kv_quantization=kv)
+    prewarm = prewarm_line(torch, eng, phase)
+    budgets = {}
+    for prompt, budget in serve_requests(np.random.RandomState(seed), cfg, requests):
+        budgets[eng.submit(prompt, max_new_tokens=budget)] = budget
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    done = sorted(eng.run_until_done(loop_steps=64), key=lambda r: r.request_id)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    n_tok = sum(len(r.output) for r in done)
+    counters = eng.counters_report()
+    require(len(done) == requests, f"{phase}: finished {len(done)} of {requests} requests")
+    check_served(done, budgets, cfg, phase)
+    emit({"phase": phase, "requests": len(done), "kv": kv, "tokens": n_tok,
+          "wall_s": wall, "tokens_per_s": n_tok / wall, "launches": launches,
+          "prewarm_s": prewarm["seconds"], "profile": eng.profile_report(),
+          "counters": counters})
+    require(counters.get("piggyback_prompts", 0) > 0,
+            f"{phase}: no prompt was piggybacked (the phase lost its subject)")
+    return done, launches
+
+
 def serve_route(torch, pkg, cfg, params, prefix=""):
     """96 requests through the fused loop and 4 step by step on one route,
     with every gate; returns the kernels' launches on the two runs."""
     dec, eng_mod, build = pkg["decoder"], pkg["engine"], pkg["build"]
     phase = (prefix + "_") if prefix else ""
-    # fused loop: 96 requests (bench.py)
-    eng = eng_mod.InferenceEngine(cfg, params, max_batch=64, max_len=512,
-                                  kv_quantization="int8", piggyback_prefill=False)
-    budgets = {}
-    for prompt, budget in serve_requests(np.random.RandomState(0), cfg, 96):
-        budgets[eng.submit(prompt, max_new_tokens=budget)] = budget
-    torch.cuda.synchronize()
-    build.reset_launches()
-    t0 = time.perf_counter()
-    done = eng.run_until_done(loop_steps=64)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    fused_launches = dict(build.LAUNCHES)
-    n_tok = sum(len(r.output) for r in done)
-    require(len(done) == 96, f"fused loop finished {len(done)} of 96 requests")
-    check_served(done, budgets, cfg, f"{phase}fused loop")
-    emit({"phase": f"{phase or 'serve_'}fused", "requests": len(done), "tokens": n_tok,
-          "wall_s": wall, "tokens_per_s": n_tok / wall, "launches": fused_launches,
-          "profile": eng.profile_report(), "counters": eng.counters_report()})
+    # fused loop: 96 requests through 64 slots (bench.py)
+    done, fused_launches = serve_fused(torch, pkg, cfg, params, f"{phase or 'serve_'}fused",
+                                       slots=64, requests=96, kv="int8", seed=0)
 
     # step path: 4 requests decoded one step at a time (K3 writes the cache)
     step_eng = eng_mod.InferenceEngine(cfg, params, max_batch=4, max_len=512,
-                                       kv_quantization="int8", piggyback_prefill=False)
-    first4 = sorted(done, key=lambda r: r.request_id)[:4]
+                                       kv_quantization="int8")
+    first4 = done[:4]
     for r in first4:
         step_eng.submit(r.prompt, max_new_tokens=len(r.output))
     build.reset_launches()
@@ -1228,9 +1365,11 @@ def serve_route(torch, pkg, cfg, params, prefix=""):
                                   kv_quantization="int8")[0].tolist()
         agree.append(lcp(r.output, ref) / len(r.output))
     mean_agree = float(np.mean(agree))
-    # teacher-forced check, which does not cascade
-    teacher_forced_gate(torch, pkg, cfg, params,
-                        step_done + sorted(done, key=lambda r: r.request_id)[:8],
+    # teacher-forced check, which does not cascade: the step path, the first
+    # 8 of the classic admission, and every request that queued behind the
+    # first 64 (the piggybacked ones among them, whose first token came from
+    # the mixed step)
+    teacher_forced_gate(torch, pkg, cfg, params, step_done + done[:8] + done[64:],
                         f"{phase}agreement",
                         {"greedy_generate_prefix_share": agree, "mean": mean_agree,
                          "threshold": 0.1})
@@ -1244,40 +1383,26 @@ def serve_route(torch, pkg, cfg, params, prefix=""):
     if not pallas:
         for name in PALLAS_KERNELS:
             require(launches[name] == 0, f"the default routes launched {name}")
-    profile_chunk(torch, eng_mod, cfg, params, f"{phase}profile")
+    profile_chunk(torch, pkg, cfg, params, f"{phase}profile")
     return launches
 
 
 def serve_mode(torch, pkg, cfg, params, mode, *, kv="int8", step_requests=0,
                launched=("flash_fwd", "qmm", "decode_attn", "tail_append"), idle=()):
-    """8 requests through the fused loop (and the first ``step_requests`` of
-    them again through the step path) with int4, W8A8 or fp8 weights and a
-    ``kv`` cache, on the pallas routes, held to budgets, vocabulary and the
-    teacher-forced gate; every kernel in ``launched`` must launch on the
-    runs and none in ``idle``. Returns the kernels' launches on the runs."""
+    """12 requests through 8 slots of the fused loop (and the first
+    ``step_requests`` of them again through the step path) with int4, W8A8
+    or fp8 weights and a ``kv`` cache, on the pallas routes, held to
+    budgets, vocabulary and the teacher-forced gate; every kernel in
+    ``launched`` must launch on the runs and none in ``idle``. Returns the
+    kernels' launches on the runs."""
     eng_mod, build = pkg["engine"], pkg["build"]
-    eng = eng_mod.InferenceEngine(cfg, params, max_batch=8, max_len=512,
-                                  kv_quantization=kv, piggyback_prefill=False)
-    budgets = {}
-    for prompt, budget in serve_requests(np.random.RandomState(2), cfg, 8):
-        budgets[eng.submit(prompt, max_new_tokens=budget)] = budget
-    torch.cuda.synchronize()
-    build.reset_launches()
-    t0 = time.perf_counter()
-    done = sorted(eng.run_until_done(loop_steps=64), key=lambda r: r.request_id)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(build.LAUNCHES)
-    require(len(done) == 8, f"serve_{mode}: finished {len(done)} of 8 requests")
-    check_served(done, budgets, cfg, f"serve_{mode}")
-    n_tok = sum(len(r.output) for r in done)
-    emit({"phase": f"serve_{mode}", "requests": 8, "kv": kv, "tokens": n_tok,
-          "wall_s": wall, "tokens_per_s": n_tok / wall, "launches": launches})
+    done, launches = serve_fused(torch, pkg, cfg, params, f"serve_{mode}",
+                                 slots=8, requests=12, kv=kv, seed=2)
     checked = list(done)
     if step_requests:
         # the step path: K3 writes each step's rows into the cache
         step_eng = eng_mod.InferenceEngine(cfg, params, max_batch=step_requests, max_len=512,
-                                           kv_quantization=kv, piggyback_prefill=False)
+                                           kv_quantization=kv)
         for r in done[:step_requests]:
             step_eng.submit(r.prompt, max_new_tokens=len(r.output))
         build.reset_launches()
@@ -1299,12 +1424,111 @@ def serve_mode(torch, pkg, cfg, params, mode, *, kv="int8", step_requests=0,
         require(launches[name] > 0, f"serve_{mode} never launched {name}")
     for name in idle:
         require(launches[name] == 0, f"serve_{mode} launched {name}")
+    if mode == "fp8":
+        profile_chunk(torch, pkg, cfg, params, "serve_fp8_profile", kv=kv)
     return launches
 
 
+def shallow(cfg, params, n_layers):
+    """The first ``n_layers`` layers of ``params``, at the same widths."""
+    from flash_attention_softmax_n_tpu_torch.quant.qtensor import QTensor
+
+    def cut(w):
+        if isinstance(w, QTensor):
+            return QTensor(w.values[:n_layers], w.scales[:n_layers], bits=w.bits,
+                           packed_axis=w.packed_axis)
+        return w[:n_layers]
+
+    return (dataclasses.replace(cfg, n_layers=n_layers),
+            dict(params, layers={k: cut(w) for k, w in params["layers"].items()}))
+
+
+def graph_parity(torch, pkg, cfg, params, route, kv):
+    """A captured loop replays bit-equal to the eager loop: 56 requests are
+    admitted into the 64 slots and 8 more queue; then a plain 64-step chunk,
+    a piggybacked 8-step chunk (the 8 queued prompts) and a plain 6-step
+    chunk (no ring: K3 writes the cache each step) each run eagerly from the
+    engine's state, the state is put back, the variant is captured and
+    replayed: tokens, first tokens and the cache's value, scale and length
+    bytes must be equal, and the replay must count the eager run's launches.
+    First, ``prewarm`` must leave that state bit-equal."""
+    eng_mod, qtensor = pkg["engine"], pkg["qtensor"]
+    build = pkg["build"]
+    eng = eng_mod.InferenceEngine(cfg, params, max_batch=64, max_len=512, kv_quantization=kv)
+    reqs = serve_requests(np.random.RandomState(3), cfg, 64)
+    for prompt, budget in reqs[:56]:
+        eng.submit(prompt, max_new_tokens=budget)
+    eng._finalize_admission(eng._admit_async())
+    for prompt, budget in reqs[56:]:
+        eng.submit(prompt, max_new_tokens=budget)
+    eng._active_mask()
+
+    def state():
+        return [qtensor.as_bytes(t).clone() for t in eng._state_tensors()]
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    start = state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = eng.prewarm(loop_steps=8, attn_lens=[256])
+    torch.cuda.synchronize()
+    prewarm_s = time.perf_counter() - t0
+    prewarm_equal = equal(state(), start)
+    del start
+    chunks = []
+    for key in ((64, 256, False), (8, 256, True), (6, 256, False)):
+        if key[2]:
+            piggy = eng._take_piggyback(key[0])
+            require(piggy is not None and len(piggy["reqs"]) == 8,
+                    f"graph_parity {route}/{kv}: the 8 queued prompts were not piggybacked")
+            eng._load_piggyback(piggy)
+        start = state()
+        before = dict(build.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager_out = [t.clone() for t in eng._loop(key)[::3]]  # tokens (and first tokens)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        eager_launches = {k: v - before[k] for k, v in build.LAUNCHES.items()}
+        eager_state = state()
+        for t, s in zip(eng._state_tensors(), start):
+            qtensor.as_bytes(t).copy_(s)
+        del start
+        t0 = time.perf_counter()
+        eng._capture(key)
+        capture_s = time.perf_counter() - t0
+        before = dict(build.LAUNCHES)
+        replay_out = eng._greedy_loop(key)[::3]
+        torch.cuda.synchronize()
+        replay_launches = {k: v - before[k] for k, v in build.LAUNCHES.items()}
+        chunks.append({"chunk": key[0], "attn_len": key[1], "piggy": key[2],
+                       "eager_s": eager_s, "capture_s": capture_s,
+                       "tokens_equal": equal(replay_out, eager_out),
+                       "state_equal": equal(state(), eager_state),
+                       "launches_equal": replay_launches == eager_launches,
+                       "launches": {k: v for k, v in replay_launches.items() if v}})
+        if key[2]:
+            eng._undo_piggyback(piggy)
+        del eager_state
+    emit({"phase": "graph_parity", "route": route, "kv": kv, "prewarm_variants": n,
+          "prewarm_s": prewarm_s, "prewarm_state_equal": prewarm_equal,
+          "pool_bytes": graph_pool_bytes(torch, eng), "chunks": chunks})
+    require(prewarm_equal, f"graph_parity {route}/{kv}: prewarm changed the engine's state")
+    for c in chunks:
+        require(c["tokens_equal"] and c["state_equal"] and c["launches_equal"],
+                f"graph_parity {route}/{kv}: chunk {c['chunk']} (piggy {c['piggy']}) "
+                f"replayed unlike the eager loop: {c}")
+
+
+INT4_W8A8_LAYERS = 6
+
+
 def serve(torch, pkg):
-    """Both serving routes at the TinyLlama-1.1B shape, then int4 and W8A8;
-    returns each path's launches."""
+    """Both serving routes at the TinyLlama-1.1B shape, then int4 and W8A8,
+    fp8, and the graphs' parity on three routes; returns each path's
+    launches."""
     dec, weights = pkg["decoder"], pkg["weights"]
     # TinyLlama-1.1B shape (bench.py build_model): vocab 32000, d 2048,
     # 22 layers, 32 query / 4 KV heads, d_ff 5632
@@ -1324,17 +1548,25 @@ def serve(torch, pkg):
                     "per-output-channel (grouped int4 for serve_int4, fp8 e4m3 for "
                     "serve_fp8)"})
     pallas = dataclasses.replace(cfg, int8_mm_impl="pallas", decode_attn_impl="pallas")
-    return {"serve": serve_route(torch, pkg, cfg, params),
-            "serve_pallas": serve_route(torch, pkg, pallas, params, "serve_pallas"),
-            "serve_int4": serve_mode(torch, pkg, pallas, params4, "int4"),
-            "serve_w8a8": serve_mode(torch, pkg, dataclasses.replace(pallas, act_bits=8),
-                                     params, "w8a8"),
-            # fp8 weights dequantize inline, as in JAX: K2, K7 and K9 stay idle
-            "serve_fp8": serve_mode(torch, pkg, pallas, params_fp8, "fp8", kv="fp8",
-                                    step_requests=2,
-                                    launched=("flash_fwd", "decode_attn", "tail_append",
-                                              "cache_append"),
-                                    idle=("qmm", "qmm_argmax", "fused_mlp"))}
+    launches = {"serve": serve_route(torch, pkg, cfg, params),
+                "serve_pallas": serve_route(torch, pkg, pallas, params, "serve_pallas"),
+                # K7's int4 and W8A8 modes at 6 of the 22 layers: each
+                # engine's prewarm replays the whole model 480 steps
+                "serve_int4": serve_mode(torch, pkg, *shallow(pallas, params4, INT4_W8A8_LAYERS),
+                                         "int4"),
+                "serve_w8a8": serve_mode(torch, pkg,
+                                         *shallow(dataclasses.replace(pallas, act_bits=8),
+                                                  params, INT4_W8A8_LAYERS), "w8a8"),
+                # fp8 weights dequantize inline, as in JAX: K2, K7 and K9 stay idle
+                "serve_fp8": serve_mode(torch, pkg, pallas, params_fp8, "fp8", kv="fp8",
+                                        step_requests=2,
+                                        launched=("flash_fwd", "decode_attn", "tail_append",
+                                                  "cache_append"),
+                                        idle=("qmm", "qmm_argmax", "fused_mlp"))}
+    graph_parity(torch, pkg, cfg, params, "default", "int8")
+    graph_parity(torch, pkg, pallas, params, "pallas", "int8")
+    graph_parity(torch, pkg, pallas, params_fp8, "pallas", "fp8")
+    return launches
 
 
 # ----------------------------------------------------------------------------
@@ -1591,8 +1823,11 @@ def main() -> int:
     kernels = [
         check_flash(torch, pkg, gen, B=16, H=32, L=128, S=128, D=64, masked=True),
         check_flash(torch, pkg, gen, B=2, H=32, L=2048, S=2048, D=64, masked=False),
-        # M = 64: the fused loop's batch below; M = 256: a fuller batch
+        # M = 64: the fused loop's batch below; M = 72: its mixed steps (64
+        # decode rows and 8 piggybacked prompts' last rows); M = 256: a
+        # fuller batch
         check_qmm(torch, pkg, gen, M=64, K=2048, N=32000),
+        check_qmm(torch, pkg, gen, M=72, K=2048, N=32000),
         check_qmm(torch, pkg, gen, M=256, K=2048, N=32000),
         # K3 at B4 (the step path's pool below) and B256, K4 at B64 (the
         # fused loop's batch) and B256
@@ -1613,6 +1848,10 @@ def main() -> int:
         check_dequant_mm(torch, pkg, gen, M=1024, K=5632, N=2048),
         check_dequant_mm(torch, pkg, gen, M=2048, K=2048, N=5632),
         check_dequant_mm(torch, pkg, gen, M=2048, K=5632, N=2048),
+        # the mixed steps' operand, 64 decode rows and 8 prompts' slices of
+        # 128 / chunk rows: M = 80 in a 64-step chunk, 192 in an 8-step one
+        check_dequant_mm(torch, pkg, gen, M=80, K=2048, N=5632),
+        check_dequant_mm(torch, pkg, gen, M=192, K=2048, N=5632),
         check_decode_attn(torch, pkg, K8_LINES[0]),  # B64 S512 int8
         check_decode_attn(torch, pkg, K8_LINES[1]),  # B64 S512 bf16
         check_fused_mlp(torch, pkg, gen, M=64, K=2048, F=5632),

@@ -9,9 +9,13 @@ Counterpart of the serving core of
   * decode either one step at a time (``engine_decode``: the new rows go
     into the cache by kernel K3) or in fused chunks of ``num_steps`` steps
     (``engine_decode_loop``): the steps stay on the device, new rows go to
-    a bf16 ring by kernel K4, greedy tokens come from the lm_head kernel
-    K2, and one flush per chunk moves the ring into the cache. The host
-    syncs once per chunk;
+    a bf16 ring by kernel K4 (K3 into the cache below 8 steps), greedy
+    tokens come from the lm_head kernel K2, and one flush per chunk moves
+    the ring into the cache. The host syncs once per chunk;
+  * piggybacked prefill: short queued prompts ride a chunk's decode steps
+    in slices, their rows in the same matmul operand as the decode rows;
+  * on CUDA each greedy chunk replays a CUDA graph of its loop variant
+    (``InferenceEngine.prewarm``);
   * ``cfg.int8_mm_impl="pallas"`` takes the int8 matmuls to kernel K7 and
     the decode MLP to K9 (models/decoder.py), and
     ``cfg.decode_attn_impl="pallas"`` the decode attention to K8, which
@@ -19,8 +23,8 @@ Counterpart of the serving core of
 
 The request queue and slot bookkeeping are host-side Python. JAX's
 functional updates become in-place writes into the engine's tensors.
-Chunked prefill past offset 0, piggybacked prefill, the prefix cache,
-prewarm and meshes are not ported yet (ROADMAP.md) and raise.
+Chunked prefill past offset 0, the prefix cache and meshes are not ported
+yet (ROADMAP.md) and raise.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 
 from flash_attention_softmax_n_tpu_torch._device import resolve_device
+from flash_attention_softmax_n_tpu_torch.kernels import _build
 from flash_attention_softmax_n_tpu_torch.kernels.cache_update import (
     cache_append,
     tail_append,
@@ -60,6 +65,7 @@ from flash_attention_softmax_n_tpu_torch.models.layers import (
 from flash_attention_softmax_n_tpu_torch.ops.flash_attention import (
     flash_attention_n,
 )
+from flash_attention_softmax_n_tpu_torch.ops.functional import softmax_n
 from flash_attention_softmax_n_tpu_torch.ops.sampling import sample_tokens
 from flash_attention_softmax_n_tpu_torch.quant.kv_cache import (
     init_quantized_kv_cache,
@@ -200,7 +206,8 @@ def _decode_step(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
                  tail: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  tail_index: Optional[int] = None,
                  tail_lengths: Optional[torch.Tensor] = None,
-                 greedy: bool = False):
+                 greedy: bool = False,
+                 prefill: Optional[Dict] = None):
     """One decode step for all slots: tokens (B,) -> (logits (B, V) or greedy
     tokens (B,), cache, tail).
 
@@ -208,10 +215,22 @@ def _decode_step(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
     an explicit extra key. The new rows of all layers are written once per
     step: into the cache at each slot's length (K3), or in ``tail`` mode
     into the ring at the shared ``tail_index`` (K4), the cache untouched
-    until the loop's flush. Lengths advance only for active slots.
+    until the loop's flush. Lengths advance only for active slots, in a new
+    tensor bound to ``cache["lengths"]`` (the caller's dict is a copy).
     ``greedy``: take the tokens from the lm_head kernel K2; the caller
     checks ``_greedy_fusable`` first.
+
+    ``prefill`` (the piggybacked prompts of the fused loop): {tokens (G, CS),
+    offset (int), true_lens (G,), ring_k/ring_v (NL, G, KVH, cap, hd)}. The
+    prompt rows and the decode rows flatten into one (1, B + G*CS, d)
+    operand, so norms, projections and the MLP run once over both; decode
+    rows attend the cache as above, prompt rows their ring ([0, offset)
+    rows of earlier steps) plus this chunk, causally. The chunk's k/v rows
+    go into the ring at ``offset``. The first output is then (decode tokens
+    (B,), each prompt's greedy token at its last true row in this chunk
+    (G,)), both from one lm_head call over B + G rows.
     """
+    bsz = tokens.shape[0]
     x = params["embed"][tokens][:, None].to(cfg.dtype)
     dev = x.device
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
@@ -220,7 +239,27 @@ def _decode_step(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
     positions = lengths[:, None].long()
     # in tail mode the cache holds only the pre-loop prefix
     lengths_main = lengths if tail is None else lengths - tail_lengths
-    k_rows, v_rows = [], []
+    if prefill is not None:
+        g, cs = prefill["tokens"].shape
+        off = prefill["offset"]
+        reps = cfg.n_heads // cfg.n_kv_heads
+        x_p = params["embed"][prefill["tokens"]].to(cfg.dtype)  # (G, CS, d)
+        x = torch.cat([x.reshape(1, bsz, -1), x_p.reshape(1, g * cs, -1)],
+                      dim=1)
+        pos_p = off + torch.arange(cs, device=dev)
+        pos_m = torch.cat([positions[:, 0], pos_p.repeat(g)])[None]
+        cap = prefill["ring_k"].shape[3]
+        # prompt-row mask over [ring (cap) | chunk (CS)], shared by the
+        # layers: ring row r is valid iff r < offset and r < true_len; chunk
+        # key j iff off + j < true_len and, causally, j <= the query's row
+        tl = prefill["true_lens"][:, None, None]  # (G, 1, 1)
+        ring_pos = torch.arange(cap, device=dev)
+        ring_ok = (ring_pos < off) & (ring_pos < tl)  # (G, 1, cap)
+        kpos = pos_p[None, :]
+        chunk_ok = (kpos <= pos_p[:, None]) & (kpos < tl)  # (G, CS, CS)
+        p_mask = torch.cat([ring_ok.expand(g, cs, cap), chunk_ok],
+                           dim=-1)[:, None]  # (G, 1, CS, cap + CS)
+    k_rows, v_rows, kp_rows, vp_rows = [], [], [], []
     layers = layer_views(params["layers"])
     for i in range(cfg.n_layers):
         kc, vc = _layer_cache(cache["k"], i), _layer_cache(cache["v"], i)
@@ -235,11 +274,47 @@ def _decode_step(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
                 k_tail=kt, v_tail=vt, tail_lengths=tail_lengths)
             return ctx[:, :, None, :].to(x.dtype), (k[:, :, 0], v[:, :, 0])
 
-        x, _, (kr, vr) = _layer(cfg, x, layers[i], attn)
+        def attn_mixed(q, k, v, kc=kc, vc=vc, kt=kt, vt=vt, i=i):
+            # q (1, H, M, hd), k/v (1, KVH, M, hd): one rope over the row
+            # axis, then the decode rows and the prompt rows part
+            nh = q.shape[1]
+            q = apply_rope(q, cos, sin, pos_m)
+            k = apply_rope(k, cos, sin, pos_m)
+            qd, kd, vd = (t[0, :, :bsz].transpose(0, 1) for t in (q, k, v))
+            ctx_d = _attention_over_slots(
+                cfg, qd, kc, vc, lengths_main, k_new=kd, v_new=vd,
+                k_tail=kt, v_tail=vt, tail_lengths=tail_lengths)
+            qp = q[0, :, bsz:].reshape(nh, g, cs, -1).transpose(0, 1)
+            kp, vp = (t[0, :, bsz:].reshape(cfg.n_kv_heads, g, cs, -1)
+                      .transpose(0, 1) for t in (k, v))
+            rk, rv = prefill["ring_k"][i], prefill["ring_v"][i]
+            keys = _repeat_kv(torch.cat([rk, kp.to(rk.dtype)], dim=2), reps)
+            vals = _repeat_kv(torch.cat([rv, vp.to(rv.dtype)], dim=2), reps)
+            s = torch.einsum("ghqe,ghse->ghqs", qp.float(), keys.float())
+            s = torch.where(p_mask, s * cfg.head_dim ** -0.5, -1e30)
+            pw = softmax_n(s, n=cfg.softmax_n, axis=-1)
+            ctx_p = torch.einsum("ghqs,ghse->ghqe", pw, vals.float())
+            ctx_m = torch.cat(
+                [ctx_d.transpose(0, 1).float(),
+                 ctx_p.transpose(0, 1).reshape(nh, g * cs, -1)], dim=1)[None]
+            return ctx_m.to(x.dtype), ((kd, vd), (kp, vp))
+
+        if prefill is None:
+            x, _, (kr, vr) = _layer(cfg, x, layers[i], attn)
+        else:
+            x, _, ((kr, vr), (kpr, vpr)) = _layer(cfg, x, layers[i],
+                                                  attn_mixed)
+            kp_rows.append(kpr)
+            vp_rows.append(vpr)
         k_rows.append(kr)
         v_rows.append(vr)
     k_rows = torch.stack(k_rows)  # (NL, B, KVH, hd)
     v_rows = torch.stack(v_rows)
+    if prefill is not None:
+        # the chunk's prompt rows into the ring at its offset, one copy each
+        for ring, rows in ((prefill["ring_k"], kp_rows),
+                           (prefill["ring_v"], vp_rows)):
+            ring[:, :, :, off:off + cs] = torch.stack(rows).to(ring.dtype)
 
     if tail is not None:
         tail = tail_append(tail[0], tail[1], k_rows.to(tail[0].dtype),
@@ -261,6 +336,23 @@ def _decode_step(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
 
     cache["lengths"] = torch.where(active, lengths + 1, lengths)
 
+    if prefill is not None:
+        # the decode rows and each prompt's last true row of this chunk
+        # (meaningful on its final chunk; the loop keeps that one) through
+        # one final norm and one lm_head call
+        last = torch.clamp(prefill["true_lens"] - off - 1, 0, cs - 1).long()
+        xg = x[0, bsz:].reshape(g, cs, -1)[torch.arange(g, device=dev), last]
+        xx = rms_norm(torch.cat([x[0, :bsz], xg])[:, None],
+                      params["final_norm"], cfg.norm_eps)
+        if _greedy_fusable(params, cfg):
+            lm = params["lm_head"]
+            tok = quantized_matmul_argmax(xx, lm.values, lm.scales)[:, 0]
+        else:
+            logits = _mm(xx, params["lm_head"], cfg.act_bits,
+                         cfg.int8_mm_impl).float()
+            tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+        return (tok[:bsz], tok[bsz:]), cache, tail
+
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if greedy:
         lm = params["lm_head"]
@@ -274,8 +366,11 @@ def _decode_step(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
 def engine_decode(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
                   cache: Dict, active: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
     """One decode step for all slots: tokens (B,) -> (logits (B, V), cache),
-    the new rows written into the cache in place (K3)."""
-    logits, cache, _ = _decode_step(params, cfg, tokens, cache, active)
+    the new rows written into the cache in place (K3) and the new lengths
+    copied into ``cache["lengths"]``."""
+    logits, step_cache, _ = _decode_step(params, cfg, tokens, dict(cache),
+                                         active)
+    cache["lengths"].copy_(step_cache["lengths"])
     return logits, cache
 
 
@@ -286,63 +381,142 @@ def engine_decode_loop(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
                        top_k: Optional[torch.Tensor] = None,
                        top_p: Optional[torch.Tensor] = None,
                        attn_len: Optional[int] = None,
-                       ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
-    """``num_steps >= 8`` decode steps that stay on the device (no host sync).
+                       p_tokens: Optional[torch.Tensor] = None,
+                       p_slots: Optional[torch.Tensor] = None,
+                       p_true_lens: Optional[torch.Tensor] = None,
+                       ) -> Tuple[torch.Tensor, ...]:
+    """``num_steps`` decode steps that stay on the device (no host sync).
 
     Returns ``(tokens_out (B, num_steps), cache, active)``. Greedy, or
     per-slot sampling when ``temps`` (with ``top_k``/``top_p`` and a
-    ``generator``) is given.
+    ``generator``) is given. Everything the loop changes is written in
+    place: cache rows, and the final lengths copied into
+    ``cache["lengths"]``; so a CUDA graph of the loop reads and writes the
+    caller's tensors.
 
-    New k/v rows go to a bf16 ring at the step index shared by all slots
-    (K4); attention covers cache prefix + ring + current token; one flush
-    per call moves the ring into the cache (quantizing it for int8 and fp8
-    caches).
-    Requires ``lengths + round_up(num_steps, 8) <= max_len`` for every
-    active slot. ``attn_len``: the attention reads only the first
-    ``attn_len`` cache rows (exact while ``attn_len >= max(active
-    lengths)``).
+    At ``num_steps >= 8`` (tail mode) new k/v rows go to a bf16 ring at the
+    step index shared by all slots (K4); attention covers cache prefix +
+    ring + current token; one flush per call moves the ring into the cache
+    (quantizing it for int8 and fp8 caches). Requires ``lengths +
+    round_up(num_steps, 8) <= max_len`` for every active slot. ``attn_len``
+    (tail mode): the attention reads only the first ``attn_len`` cache rows
+    (exact while ``attn_len >= max(active lengths)``). Shorter chunks write
+    each step's rows into the cache (K3), as ``engine_decode`` does.
+
+    Piggybacked admission (``p_tokens (G, cap)`` right-padded prompts,
+    ``p_slots (G,)``, ``p_true_lens (G,)``; tail mode, greedy, ``cap %
+    num_steps == 0``): each step prefills a cap/num_steps-token chunk of
+    every prompt through the decode step's matmuls (``_decode_step``'s
+    ``prefill``). The prompt rows collect in a ring flushed into the cache
+    after the tail flush, so the piggybacked slots must be inactive in
+    ``active``; their lengths are then set to their prompts'. Returns
+    ``(tokens, cache, active, first_tokens (G,))``, each prompt's greedy
+    first token.
     """
-    if num_steps < 8:
-        raise _not_ported("fused chunks of fewer than 8 steps")
     if temps is not None and generator is None:
         raise ValueError("temperature sampling requires generator")
 
     kc = cache["k"].values if isinstance(cache["k"], QTensor) else cache["k"]
     nl, bsz, kvh, s_len, hd = kc.shape
-    w = -(-num_steps // 8) * 8
-    tail = tuple(torch.zeros((nl, bsz, kvh, w, hd), dtype=cfg.dtype,
-                             device=kc.device) for _ in range(2))
-    base = cache["lengths"]
+    use_tail = num_steps >= 8
+    base = cache["lengths"]  # entry lengths, until the final copy below
     step_cache = dict(cache)
-    if attn_len is not None and attn_len < s_len:
-        def _window(c):
-            if isinstance(c, QTensor):
-                return QTensor(c.values[:, :, :, :attn_len],
-                               c.scales[:, :, :, :attn_len], bits=c.bits)
-            return c[:, :, :, :attn_len]
+    tail = None
+    if use_tail:
+        w = -(-num_steps // 8) * 8
+        tail = tuple(torch.zeros((nl, bsz, kvh, w, hd), dtype=cfg.dtype,
+                                 device=kc.device) for _ in range(2))
+        if attn_len is not None and attn_len < s_len:
+            def _window(c):
+                if isinstance(c, QTensor):
+                    return QTensor(c.values[:, :, :, :attn_len],
+                                   c.scales[:, :, :, :attn_len], bits=c.bits)
+                return c[:, :, :, :attn_len]
 
-        step_cache["k"] = _window(cache["k"])
-        step_cache["v"] = _window(cache["v"])
+            step_cache["k"] = _window(cache["k"])
+            step_cache["v"] = _window(cache["v"])
 
     greedy = temps is None and _greedy_fusable(params, cfg)
+    piggy = p_tokens is not None
+    if piggy:
+        if not use_tail or temps is not None:
+            raise ValueError("piggybacked prefill requires tail mode "
+                             "(num_steps >= 8) and greedy decode")
+        g, cap = p_tokens.shape
+        if cap % num_steps:
+            raise ValueError(f"piggyback cap {cap} must divide into "
+                             f"{num_steps} steps")
+        cs = cap // num_steps
+        ring = tuple(torch.zeros((nl, g, kvh, cap, hd), dtype=cfg.dtype,
+                                 device=kc.device) for _ in range(2))
+        # each prompt's final chunk: the step whose chunk holds its last row
+        p_final = torch.clamp(p_true_lens - 1, min=0) // cs
+        first = torch.zeros((g,), dtype=torch.int32, device=kc.device)
+
     tok = tokens
     outs = []
     for i in range(num_steps):
-        out, step_cache, tail = _decode_step(
-            params, cfg, tok, step_cache, active, tail=tail, tail_index=i,
-            tail_lengths=step_cache["lengths"] - base, greedy=greedy)
-        if greedy:
-            nxt = out  # argmax fused into the lm_head kernel
-        elif temps is not None:
-            nxt = sample_tokens(out, generator, temps, top_k, top_p)
+        if piggy:
+            pf = {"tokens": p_tokens[:, i * cs:(i + 1) * cs], "offset": i * cs,
+                  "true_lens": p_true_lens, "ring_k": ring[0],
+                  "ring_v": ring[1]}
+            (nxt, p_tok), step_cache, tail = _decode_step(
+                params, cfg, tok, step_cache, active, tail=tail,
+                tail_index=i, tail_lengths=step_cache["lengths"] - base,
+                prefill=pf)
+            first = torch.where(p_final == i, p_tok, first)
         else:
-            nxt = torch.argmax(out, dim=-1).to(torch.int32)
+            out, step_cache, tail = _decode_step(
+                params, cfg, tok, step_cache, active, tail=tail,
+                tail_index=i if use_tail else None,
+                tail_lengths=(step_cache["lengths"] - base if use_tail
+                              else None), greedy=greedy)
+            if greedy:
+                nxt = out  # argmax fused into the lm_head kernel
+            elif temps is not None:
+                nxt = sample_tokens(out, generator, temps, top_k, top_p)
+            else:
+                nxt = torch.argmax(out, dim=-1).to(torch.int32)
         tok = torch.where(active, nxt, tok)
         outs.append(tok)
 
-    cache["lengths"] = step_cache["lengths"]
-    _flush_tail(cfg, cache["k"], cache["v"], tail[0], tail[1], base)
-    return torch.stack(outs, dim=1), cache, active
+    if use_tail:
+        _flush_tail(cfg, cache["k"], cache["v"], tail[0], tail[1], base)
+    cache["lengths"].copy_(step_cache["lengths"])
+    toks = torch.stack(outs, dim=1)
+    if piggy:
+        # prompt rows after the tail flush: the piggybacked slots' garbage
+        # tail rows must lose
+        _flush_prefill_ring(cache["k"], cache["v"], ring[0], ring[1], p_slots)
+        cache["lengths"].scatter_(
+            0, p_slots.long(),
+            torch.clamp(p_true_lens, max=s_len).to(cache["lengths"].dtype))
+        return toks, cache, active, first
+    return toks, cache, active
+
+
+def _flush_prefill_ring(k_cache, v_cache, ring_k, ring_v, p_slots):
+    """Write piggybacked prompt rows (NL, G, KVH, cap, hd) into the cache at
+    rows [0, cap) of each prompt's slot, in place, quantizing for int8 and
+    fp8 caches (whose values move as bytes).
+
+    Padding prompts repeat a real one, so duplicate slots write identical
+    rows. Rows past a prompt's true length are garbage at positions its
+    slot's length excludes, as in the tail flush."""
+    cap = ring_k.shape[3]
+    slots = p_slots.long()
+
+    def write(dst, rows):
+        as_bytes(dst)[:, slots, :, :cap] = as_bytes(rows.to(dst.dtype))
+
+    for cache_kv, ring in ((k_cache, ring_k), (v_cache, ring_v)):
+        if isinstance(cache_kv, QTensor):
+            rq, rs = quantize_kv(ring, cache_kv.bits)
+            write(cache_kv.values, rq)
+            write(cache_kv.scales, rs)
+        else:
+            write(cache_kv, ring)
+    return k_cache, v_cache
 
 
 def _flush_tail(cfg: DecoderConfig, k_cache, v_cache, k_tail, v_tail, base):
@@ -384,15 +558,35 @@ def _flush_tail(cfg: DecoderConfig, k_cache, v_cache, k_tail, v_tail, base):
     return k_cache, v_cache
 
 
+@dataclasses.dataclass
+class _LoopGraph:
+    """One captured greedy loop variant: its CUDA graph, the output tensors
+    that each replay overwrites, and the kernel launches one replay makes
+    (``_build.LAUNCHES`` is a host counter that a replay does not bump)."""
+
+    graph: "torch.cuda.CUDAGraph"
+    outputs: Tuple[torch.Tensor, ...]
+    launches: Dict[str, int]
+
+
 class InferenceEngine:
     """Slot-based continuous-batching engine.
 
     Usage::
 
         eng = InferenceEngine(cfg, params, max_batch=8, max_len=2048,
-                              kv_quantization='int8', piggyback_prefill=False)
+                              kv_quantization='int8')
+        eng.prewarm(loop_steps=64)    # optional: capture the greedy loops
         rid = eng.submit([1, 2, 3], max_new_tokens=32)
         finished = eng.run_until_done(loop_steps=64)
+
+    On CUDA every greedy fused chunk replays a CUDA graph of its loop
+    variant (chunk length, attention window, piggyback payload or not),
+    captured by ``prewarm`` or at the variant's first dispatch, which runs
+    eagerly. The graphs read and write the engine's own tensors: the cache,
+    its lengths, and input buffers the host fills before each chunk. Chunks
+    with sampling rows and the step path run eagerly; on the CPU every
+    chunk does.
     """
 
     # admission group width: requests prefilled per batched dispatch
@@ -400,6 +594,11 @@ class InferenceEngine:
     # scheduling overhead of a chunk boundary in decode-step units, until
     # measured boundary/step times replace it
     _SCHED_OVERHEAD_STEPS = 4
+    # piggybacked prefill: prompts of up to _PIGGY_CAP tokens ride a decode
+    # chunk in cap/num_steps-token slices, at most _PIGGY_G a chunk (one
+    # payload shape per loop variant)
+    _PIGGY_CAP = 128
+    _PIGGY_G = 8
 
     def __init__(self, cfg: DecoderConfig, params: Dict, *,
                  max_batch: int = 8, max_len: Optional[int] = None,
@@ -409,14 +608,12 @@ class InferenceEngine:
                  piggyback_prefill: bool = True,
                  device=None):
         """``params`` must live on ``device`` (None: the card).
-        ``piggyback_prefill=True`` and ``mesh`` are not ported yet and
-        raise; prompts longer than ``prefill_chunk`` (the chunked lane) are
-        refused at ``submit``."""
+        ``piggyback_prefill``: queued greedy prompts of up to _PIGGY_CAP
+        tokens prefill inside the fused decode chunks. ``mesh`` is not
+        ported yet and raises; prompts longer than ``prefill_chunk`` (the
+        chunked lane) are refused at ``submit``."""
         if mesh is not None:
             raise _not_ported("meshed serving")
-        if piggyback_prefill:
-            raise _not_ported("piggybacked prefill; pass "
-                              "piggyback_prefill=False")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the "
@@ -424,7 +621,7 @@ class InferenceEngine:
         self.cfg = cfg
         self.params = params
         self.max_batch = max_batch
-        self.piggyback_prefill = False
+        self.piggyback_prefill = piggyback_prefill
         self.max_len = max_len or cfg.max_seq_len
         self.pad_token = pad_token
         self._CHUNK = prefill_chunk
@@ -436,8 +633,27 @@ class InferenceEngine:
         # host mirror of cache['lengths'] for scheduling, exact for live
         # slots, so chunk planning never waits on the device
         self._lengths_host = np.zeros((max_batch,), np.int64)
+        # the fused loop's inputs: persistent buffers that the host fills
+        # with copy_, so a captured loop reads them at every replay
         self._next_token = torch.zeros((max_batch,), dtype=torch.int32,
                                        device=self.device)
+        self._active = torch.zeros((max_batch,), dtype=torch.bool,
+                                   device=self.device)
+        g, cap = self._PIGGY_G, self._PIGGY_CAP
+        self._p_tokens = torch.zeros((g, cap), dtype=torch.int32,
+                                     device=self.device)
+        self._p_slots = torch.zeros((g,), dtype=torch.int32, device=self.device)
+        self._p_true_lens = torch.zeros((g,), dtype=torch.int32,
+                                        device=self.device)
+        # slots whose prompts prefill inside the in-flight chunk (slot ->
+        # Request); not in self.slots until their first token is back, so
+        # chunk planning and the active mask skip them and admission cannot
+        # take them
+        self._pending_prefill: Dict[int, Request] = {}
+        # captured greedy loops by (chunk, attn_len, piggy), all in one
+        # memory pool (see _capture)
+        self._graphs: Dict[Tuple[int, int, bool], _LoopGraph] = {}
+        self._graph_pool = None
         self._generator = torch.Generator(device=self.device).manual_seed(0)
         self.phase_times: Dict[str, float] = {}
         self.phase_counts: Dict[str, int] = {}
@@ -454,6 +670,7 @@ class InferenceEngine:
             self.cache = {
                 "k": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=cfg.dtype, device=self.device)}
+        # written in place only (never re-bound): a captured loop reads it
         self.cache["lengths"] = torch.zeros((max_batch,), dtype=torch.int32,
                                             device=self.device)
         self.cache.pop("length", None)
@@ -482,8 +699,41 @@ class InferenceEngine:
     def register_prefix(self, tokens: List[int]) -> int:
         raise _not_ported("the prefix cache (register_prefix)")
 
-    def prewarm(self, loop_steps: int = 64, attn_lens=None) -> int:
-        raise _not_ported("prewarm (CUDA graphs)")
+    def prewarm(self, loop_steps: int = 64,
+                attn_lens: Optional[List[int]] = None) -> int:
+        """Capture every greedy fused-loop variant this engine can dispatch
+        at ``loop_steps`` (``_loop_variants``) as a CUDA graph, so that no
+        chunk of the traffic after it pays a capture. Returns the number of
+        variants. ``attn_lens``: only these attention windows (each rounded
+        up to a multiple of 256, capped at max_len); default all.
+
+        Each variant first runs once eagerly on a side stream, so that the
+        kernels' first-use work (the library's build and load, kernel
+        attributes, the tensor-map entry point, cuBLAS's handle and
+        workspace) happens outside capture; then the cache (values, scales,
+        lengths) and the next tokens are restored bit for bit and every
+        variant is captured, which executes nothing. Greedy variants only:
+        chunks with sampling rows, and the step path, run eagerly. On the
+        CPU nothing is captured and the count is returned.
+        """
+        variants = self._loop_variants(loop_steps, attn_lens)
+        cold = [v for v in variants if v not in self._graphs]
+        if self.device.type != "cuda" or not cold:
+            return len(variants)
+        saved = [t.clone() for t in self._state_tensors()]
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for key in cold:
+                self._loop(key)
+        current.wait_stream(side)
+        for t, s in zip(self._state_tensors(), saved):
+            t.copy_(s)
+        del saved
+        for key in cold:
+            self._capture(key)
+        return len(variants)
 
     def step(self) -> List[Request]:
         """Admit queued requests into free slots, run one decode step.
@@ -512,21 +762,21 @@ class InferenceEngine:
                 self.slots[i] = None
             else:
                 self._next_host[i] = tok
-        self._next_token = self._to_device(self._next_host)
+        self._next_token.copy_(torch.from_numpy(self._next_host))
         return finished
 
     def run_until_done(self, max_steps: int = 100_000,
                        loop_steps: Optional[int] = None) -> List[Request]:
         """Drive all queued requests to completion.
 
-        ``loop_steps`` (at least 8): decode in fused chunks of up to that
-        many steps between scheduling points; falls back to single steps
-        only when a slot is too close to ``max_len`` for a chunk.
-        ``max_steps`` bounds decode-step work (a chunk counts its full
-        length, an admission-only iteration one).
+        ``loop_steps``: decode in fused chunks of up to that many steps
+        between scheduling points (tail mode from 8 steps); falls back to
+        single steps only when a slot is too close to ``max_len`` for a
+        chunk. With ``piggyback_prefill``, queued prompts that fit prefill
+        inside the chunk (``_take_piggyback``) before classic admission
+        fills the remaining slots. ``max_steps`` bounds decode-step work (a
+        chunk counts its full length, an admission-only iteration one).
         """
-        if loop_steps is not None and loop_steps < 8:
-            raise _not_ported("fused chunks of fewer than 8 steps")
         done = []
         steps_left = max_steps
         tic = time.perf_counter
@@ -540,6 +790,12 @@ class InferenceEngine:
         while steps_left > 0:
             if loop_steps is not None:
                 t0 = it0 = tic()
+                piggy = None
+                if any(s is not None for s in self.slots):
+                    # piggybacked prompts are taken before classic
+                    # admission, which then fills the slots that remain
+                    piggy = self._take_piggyback(
+                        self._fused_chunk_len(loop_steps))
                 pending = self._admit_async()
                 t0 = _t("admit_dispatch", t0)
                 if not any(s is not None for s in self.slots):
@@ -551,8 +807,13 @@ class InferenceEngine:
                     continue
                 chunk = self._fused_chunk_len(loop_steps)
                 t0 = _t("chunk_plan", t0)
+                if piggy is not None and not self._piggy_fits(chunk):
+                    # admission changed the plan to a chunk the payload
+                    # cannot split into: the prompts go back untouched
+                    self._undo_piggyback(piggy)
+                    piggy = None
                 if chunk:
-                    handle = self._dispatch_chunk(chunk)
+                    handle = self._dispatch_chunk(chunk, piggy)
                     t0 = _t("chunk_dispatch", t0)
                     done.extend(self._finalize_admission(pending))
                     t0 = _t("admit_sync", t0)
@@ -613,7 +874,9 @@ class InferenceEngine:
         return torch.as_tensor(a).to(self.device)
 
     def _active_mask(self) -> torch.Tensor:
-        return self._to_device(np.array([r is not None for r in self.slots]))
+        self._active.copy_(torch.from_numpy(
+            np.array([r is not None for r in self.slots])))
+        return self._active
 
     def _update_sched_ewma(self, boundary_s: float, step_s: float) -> None:
         a = 0.3
@@ -648,7 +911,7 @@ class InferenceEngine:
         while c <= loop_steps:
             cands.append(c)
             c *= 2
-        if loop_steps not in cands:
+        if loop_steps >= 8 and loop_steps not in cands:
             cands.append(loop_steps)
         overhead = self._sched_overhead_steps
         for c in cands:
@@ -676,22 +939,186 @@ class InferenceEngine:
             chunk //= 2
         return 0
 
-    def _dispatch_chunk(self, loop_steps: int):
+    def _piggy_fits(self, chunk: int) -> bool:
+        """Can a piggyback payload ride a ``chunk``-step chunk? Tail mode
+        (JAX's loop raises on a payload below 8 steps, which its scheduler
+        can reach at loop_steps 1, 2 or 4), the cap split evenly, and the
+        prompts' rows within max_len."""
+        cap = self._PIGGY_CAP
+        return (self.piggyback_prefill and 8 <= chunk <= cap
+                and cap % chunk == 0 and cap <= self.max_len)
+
+    def _take_piggyback(self, chunk: int) -> Optional[Dict]:
+        """Reserve up to _PIGGY_G queued prompts to prefill inside the next
+        chunk. Only a FIFO prefix of the queue goes, so ordering stays that
+        of classic admission: the first request that is not greedy, is
+        empty or is longer than _PIGGY_CAP stops the scan. Needs an
+        all-greedy slot pool (the mixed step takes argmaxes only)."""
+        if not self._piggy_fits(chunk) or not self.queue:
+            return None
+        if self._sampling_arrays(self.slots) is not None:
+            return None
+        free = [i for i in range(self.max_batch)
+                if self.slots[i] is None and i not in self._pending_prefill]
+        take: List[Request] = []
+        for req in self.queue:
+            if len(take) >= min(self._PIGGY_G, len(free)):
+                break
+            if (req.temperature != 0.0 or not req.prompt
+                    or len(req.prompt) > self._PIGGY_CAP):
+                break
+            take.append(req)
+        if not take:
+            return None
+        ids = {id(r) for r in take}
+        self.queue = deque(r for r in self.queue if id(r) not in ids)
+        slots = free[:len(take)]
+        for i, req in zip(slots, take):
+            self._pending_prefill[i] = req
+        pads = self._PIGGY_G - len(take)
+        toks = np.zeros((self._PIGGY_G, self._PIGGY_CAP), np.int32)
+        lens = np.zeros((self._PIGGY_G,), np.int32)
+        for gi, req in enumerate(take + [take[-1]] * pads):
+            toks[gi, :len(req.prompt)] = req.prompt
+            lens[gi] = len(req.prompt)
+        c = self.counters
+        c["piggyback_prompts"] = c.get("piggyback_prompts", 0) + len(take)
+        c["piggyback_tokens"] = (c.get("piggyback_tokens", 0)
+                                 + sum(len(r.prompt) for r in take))
+        return {"reqs": take, "slots": slots, "p_tokens": toks,
+                "p_slots": np.array(slots + [slots[-1]] * pads, np.int32),
+                "p_true_lens": lens}
+
+    def _undo_piggyback(self, piggy: Dict) -> None:
+        for req in reversed(piggy["reqs"]):
+            self.queue.appendleft(req)
+        for i in piggy["slots"]:
+            self._pending_prefill.pop(i, None)
+        c = self.counters
+        c["piggyback_prompts"] -= len(piggy["reqs"])
+        c["piggyback_tokens"] -= sum(len(r.prompt) for r in piggy["reqs"])
+
+    def _load_piggyback(self, piggy: Dict) -> None:
+        """Copy a payload from ``_take_piggyback`` into the loop's buffers."""
+        for buf, name in ((self._p_tokens, "p_tokens"),
+                          (self._p_slots, "p_slots"),
+                          (self._p_true_lens, "p_true_lens")):
+            buf.copy_(torch.from_numpy(piggy[name]))
+
+    def _loop_variants(self, loop_steps: int,
+                       attn_lens: Optional[List[int]] = None
+                       ) -> List[Tuple[int, int, bool]]:
+        """Every greedy loop variant (chunk, attn_len, piggy) that
+        ``run_until_done(loop_steps)`` can dispatch, as JAX's ``prewarm``
+        enumerates them: ``_chunk_steps``' candidates closed under
+        ``_fused_chunk_len``'s halving, times the attention windows (256s
+        up to max_len, or ``attn_lens``'), with a piggyback variant where
+        ``_piggy_fits``."""
+        cands = {loop_steps} if loop_steps >= 8 else set()
+        c = 8
+        while c <= loop_steps:
+            cands.add(c)
+            c *= 2
+        chunks, stack = set(), list(cands)
+        while stack:
+            c = stack.pop()
+            if c not in chunks:
+                chunks.add(c)
+                if c > 8:
+                    stack.append(c // 2)
+        if attn_lens is not None:
+            lens = sorted({min(self.max_len, -(-int(al) // 256) * 256)
+                           for al in attn_lens})
+        else:
+            lens = sorted({min(self.max_len, 256 * i)
+                           for i in range(1, -(-self.max_len // 256) + 1)})
+        out = []
+        for chunk in sorted(chunks):
+            for al in lens:
+                out.append((chunk, al, False))
+                if self._piggy_fits(chunk):
+                    out.append((chunk, al, True))
+        return out
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """The device state a loop changes or reads as input: the cache's
+        values, scales and lengths, and the next tokens."""
+        out = []
+        for kv in (self.cache["k"], self.cache["v"]):
+            out += [kv.values, kv.scales] if isinstance(kv, QTensor) else [kv]
+        return out + [self.cache["lengths"], self._next_token]
+
+    def _loop(self, key: Tuple[int, int, bool]) -> Tuple[torch.Tensor, ...]:
+        """Run one greedy loop variant eagerly on the engine's tensors."""
+        chunk, attn_len, piggy = key
+        p_kw = {}
+        if piggy:
+            p_kw = {"p_tokens": self._p_tokens, "p_slots": self._p_slots,
+                    "p_true_lens": self._p_true_lens}
+        return engine_decode_loop(
+            self.params, self.cfg, self._next_token, self.cache, self._active,
+            num_steps=chunk, attn_len=attn_len, **p_kw)
+
+    def _capture(self, key: Tuple[int, int, bool]) -> None:
+        """Capture one greedy loop variant as a CUDA graph. The variant must
+        have run eagerly before (first-use work cannot be captured); capture
+        executes nothing, and the launch counts its wrappers made are taken
+        back and kept for the replays.
+
+        All of an engine's graphs share one memory pool: a replay may
+        overwrite another graph's outputs, but only one chunk is in flight
+        and ``_finalize_chunk`` copies its outputs to the host before the
+        next dispatch, so no live output is overwritten."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        before = dict(_build.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool):
+            outputs = self._loop(key)
+        launches = {k: n - before[k] for k, n in _build.LAUNCHES.items()}
+        _build.LAUNCHES.update(before)
+        self._graphs[key] = _LoopGraph(graph, outputs, launches)
+
+    def _greedy_loop(self, key: Tuple[int, int, bool]
+                     ) -> Tuple[torch.Tensor, ...]:
+        """Replay the variant's graph; a variant not yet captured runs
+        eagerly and, on CUDA, is captured for its next dispatch."""
+        captured = self._graphs.get(key)
+        if captured is None:
+            out = self._loop(key)
+            if self.device.type == "cuda":
+                self._capture(key)
+            return out
+        captured.graph.replay()
+        for k, n in captured.launches.items():
+            _build.LAUNCHES[k] += n
+        return captured.outputs
+
+    def _dispatch_chunk(self, loop_steps: int, piggy: Optional[Dict] = None):
         """Enqueue one fused decode chunk; returns the bookkeeping handle
-        (device tokens + the slots active at entry). No sync."""
+        (device tokens, the slots active at entry, the piggyback payload and
+        its first tokens). No sync."""
         entry_active = [i for i, r in enumerate(self.slots) if r is not None]
         amax = max((int(self._lengths_host[i]) for i in entry_active),
                    default=0)
         # attention window: the loop attends cache rows up to the entry
         # lengths of active slots, bucketed to 256s
         attn_len = min(self.max_len, -(-max(amax, 1) // 256) * 256)
-        sample_kw = self._sampling_arrays(self.slots) or {}
-        if sample_kw:
-            sample_kw["generator"] = self._generator
-        toks, self.cache, _ = engine_decode_loop(
-            self.params, self.cfg, self._next_token, self.cache,
-            self._active_mask(), num_steps=loop_steps, attn_len=attn_len,
-            **sample_kw)
+        self._active_mask()
+        sample_kw = self._sampling_arrays(self.slots)
+        first_toks = None
+        if sample_kw is not None:
+            toks, self.cache, _ = engine_decode_loop(
+                self.params, self.cfg, self._next_token, self.cache,
+                self._active, num_steps=loop_steps, attn_len=attn_len,
+                generator=self._generator, **sample_kw)
+        else:
+            if piggy is not None:
+                self._load_piggyback(piggy)
+            out = self._greedy_loop((loop_steps, attn_len, piggy is not None))
+            toks = out[0]
+            if piggy is not None:
+                first_toks = out[3]
         for i in entry_active:
             self._lengths_host[i] += loop_steps
         c = self.counters
@@ -700,15 +1127,34 @@ class InferenceEngine:
                                       + loop_steps * self.max_batch)
         c["chunk_live_tokens"] = (c.get("chunk_live_tokens", 0)
                                   + loop_steps * len(entry_active))
-        return toks, entry_active
+        return toks, entry_active, piggy, first_toks
 
     def _finalize_chunk(self, handle) -> List[Request]:
         """Sync on a chunk's tokens and do the bookkeeping. Slots freed
         since dispatch are skipped; tokens past a budget or EOS are
-        discarded."""
-        toks, entry_active = handle
+        discarded. Copies the outputs to the host before anything else is
+        dispatched: a captured loop's next replay overwrites them."""
+        toks, entry_active, piggy, first_toks = handle
         toks_host = toks.cpu().numpy()
         finished = []
+        if piggy is not None:
+            # the piggybacked prompts' prefill finished inside the chunk:
+            # first-token bookkeeping as in _finalize_admission
+            first_host = first_toks.cpu().numpy()
+            for g, (i, req) in enumerate(zip(piggy["slots"], piggy["reqs"])):
+                tok = int(first_host[g])
+                req.output.append(tok)
+                del self._pending_prefill[i]
+                if (req.max_new_tokens <= 1
+                        or (req.eos_token is not None
+                            and tok == req.eos_token)):
+                    req.done = True
+                    finished.append(req)
+                else:
+                    self.slots[i] = req
+                    self._slot_budget[i] = req.max_new_tokens - 1
+                    self._lengths_host[i] = len(req.prompt)
+                    self._next_host[i] = tok
         for i in entry_active:
             req = self.slots[i]
             if req is None:
@@ -732,7 +1178,7 @@ class InferenceEngine:
                 self._slot_budget[i] = 0
             else:
                 self._next_host[i] = req.output[-1]
-        self._next_token = self._to_device(self._next_host)
+        self._next_token.copy_(torch.from_numpy(self._next_host))
         return finished
 
     # -- admission ------------------------------------------------------------
@@ -749,7 +1195,8 @@ class InferenceEngine:
         request (duplicate slot writes are idempotent). Enqueue only: the
         first tokens go into ``_next_token`` on the device and the host
         bookkeeping waits for ``_finalize_admission``."""
-        free = [i for i in range(self.max_batch) if self.slots[i] is None]
+        free = [i for i in range(self.max_batch)
+                if self.slots[i] is None and i not in self._pending_prefill]
         if not (free and self.queue):
             return []
         by_bucket: Dict[int, deque] = {}

@@ -43,11 +43,22 @@ def tail_append_reference(k_tail: torch.Tensor, v_tail: torch.Tensor,
     return k_tail, v_tail
 
 
+def _as_rows(new: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """``new`` as the operator takes it: ``dst``'s dtype, contiguous. Cast
+    and copy only where needed, as the plain versions cast; the engine's
+    rows need neither, so its decode steps convert nothing."""
+    if new.dtype != dst.dtype:
+        new = new.to(dst.dtype)
+    if not new.is_contiguous():
+        new = new.contiguous()
+    return new
+
+
 def _cache_append_cuda(caches, news, positions):
-    # the operator checks device, shapes, dtypes and contiguity: nothing is
-    # converted here on every decode step but positions of another dtype
+    # the operator checks device, shapes, dtypes and contiguity
     if positions.dtype != torch.int32:
         positions = positions.to(torch.int32)
+    news = tuple(_as_rows(n, c) for n, c in zip(news, caches))
     _build.ops().cache_append(caches, news, positions)
     _build.LAUNCHES["cache_append"] += 1
     return tuple(caches)
@@ -58,8 +69,8 @@ def cache_append(caches: Tuple[torch.Tensor, ...],
                  positions: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Write ``news[i][l, b]`` into ``caches[i][l, b, :, positions[b], :]``.
 
-    caches[i] (NL, B, KVH, S, D_i); news[i] (NL, B, KVH, D_i), contiguous
-    on CUDA; positions (B,) int32 in [0, S), clamped by the caller (the
+    caches[i] (NL, B, KVH, S, D_i); news[i] (NL, B, KVH, D_i), cast to
+    the cache's dtype; positions (B,) int32 in [0, S), clamped by the caller (the
     kernel skips rows at positions outside it). Writes in place and returns
     the caches.
     """
@@ -69,6 +80,7 @@ def cache_append(caches: Tuple[torch.Tensor, ...],
 
 
 def _tail_append_cuda(k_tail, v_tail, k_new, v_new, index):
+    k_new, v_new = _as_rows(k_new, k_tail), _as_rows(v_new, v_tail)
     _build.ops().tail_append(k_tail, v_tail, k_new, v_new, int(index))
     _build.LAUNCHES["tail_append"] += 1
     return k_tail, v_tail
@@ -79,7 +91,7 @@ def tail_append(k_tail: torch.Tensor, v_tail: torch.Tensor,
                 index: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write ``new[l, b]`` into ``tail[l, b, :, index, :]`` at one ring index
     shared by every slot, in place. k/v_tail (NL, B, KVH, W, D); k/v_new
-    (NL, B, KVH, D), contiguous on CUDA."""
+    (NL, B, KVH, D), cast to the ring's dtype."""
     if k_tail.is_cuda:
         return _tail_append_cuda(k_tail, v_tail, k_new, v_new, index)
     return tail_append_reference(k_tail, v_tail, k_new, v_new, index)

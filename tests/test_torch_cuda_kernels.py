@@ -14,13 +14,17 @@ fp8 caches), ragged M/N/F, slot lengths 0 and full, strided cache views;
 K2 at every row tile, ties met at each stage of its reduction, NaN and -inf rows, views off 16 bytes;
 K3 and K4 at both vector widths (16-byte vectors; 4-byte words for 12-byte
 rows and views off 16 bytes), the engine's four-tensor call with int8 or
-fp8 values, positions at 0, S - 1 and outside the cache (skipped), and row
-counts that fill no block;
+fp8 values, positions at 0, S - 1 and outside the cache (skipped), row
+counts that fill no block, and strided or f32 new rows (cast and copied as
+the plain versions take them);
 K10 in its four modes at head dims 32/64/128, bf16 and f32, ragged L. The
 bf16 K1, K5, K6 and K10 run the TMA + wgmma tile (128-row tiles): L and S
 ending mid-tile, every bias broadcast, ALiBi, dropout (K5's and K6's masks
 bit-equal to the hash), a ring block against an external lse, and
-misaligned inputs that must raise.
+misaligned inputs that must raise. The engine's CUDA graphs: each greedy
+loop variant (plain, piggybacked, under 8 steps) replays bit-equal to the
+eager loop on the default, all-kernel and fp8 routes, launch counts
+included, and ``prewarm`` leaves the engine's state bit-equal.
 Tolerances: forward f32 within 2e-5 (summation order), bf16 within 2e-2 (p
 rounded to bf16 before PV, as in the plain version), lse within 1e-4;
 gradients within 1e-4 (f32) or 2e-2 (bf16: ds rounds to bf16 on either side
@@ -347,6 +351,113 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
         cu.cache_append((cache,), (rows,), pos)
     with pytest.raises(ValueError, match="positions"):
         cu.cache_append((cache.clone(),), (rows,), pos[:2])
+
+
+# new rows as the plain versions take them: a strided view (the (..., D)
+# slice of wider rows) and f32 rows, cast to the cache's dtype; the result
+# must be bit-exact against the plain version on the same rows
+@pytest.mark.parametrize("target", ["int8_cache", "bf16_cache", "bf16_ring"])
+@pytest.mark.parametrize("rows", ["strided", "f32"])
+def test_row_writes_take_strided_and_f32_rows(gen, target, rows):
+    dtype = torch.int8 if target == "int8_cache" else torch.bfloat16
+    nl, b, kvh, s, d = 3, 5, 2, 17, 64
+
+    def new_rows():
+        t = _kv_rows(gen, (nl, b, kvh, 2 * d), dtype)
+        if rows == "strided":
+            t = t[..., :d]
+            assert not t.is_contiguous()
+        else:  # integer values in int8's range, exact in f32 and bf16
+            t = t[..., :d].float().round().clamp(-128, 127).contiguous()
+        return t
+
+    news = (new_rows(), new_rows())
+    if target == "bf16_ring":
+        got = tuple(_kv_rows(gen, (nl, b, kvh, 8, d), dtype) for _ in range(2))
+        want = tuple(t.clone() for t in got)
+        cu.tail_append(*got, *news, 5)
+        cu.tail_append_reference(*want, *news, 5)
+    else:
+        caches = tuple(_kv_rows(gen, (nl, b, kvh, s, d), dtype) for _ in range(2))
+        pos = torch.tensor([0, 16, 3, 3, 9], device="cuda", dtype=torch.int32)
+        got = tuple(c.clone() for c in caches)
+        want = tuple(c.clone() for c in caches)
+        cu.cache_append(got, news, pos)
+        cu.cache_append_reference(want, news, pos)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# ----------------------------------------------------------------------------
+# the engine's CUDA graphs: replay against the eager loop, prewarm
+# ----------------------------------------------------------------------------
+
+
+def _graph_engine(route, kv):
+    """A small int8 (or fp8) engine on the card with 8 live slots and 8
+    prompts still queued, which the mixed step can piggyback."""
+    import dataclasses
+
+    from flash_attention_softmax_n_tpu_torch.engine import InferenceEngine
+    from flash_attention_softmax_n_tpu_torch.models import decoder as dec
+    from flash_attention_softmax_n_tpu_torch.quant import weights as qw
+
+    cfg = dec.DecoderConfig(vocab_size=512, d_model=128, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=256, max_seq_len=512, softmax_n=1.0,
+                            dtype=torch.bfloat16)
+    cfg = dataclasses.replace(cfg, int8_mm_impl=route, decode_attn_impl=route)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = qw.quantize_decoder_weights(dec.init_decoder_params(cfg, g, device="cuda"),
+                                         bits=-8 if kv == "fp8" else 8)
+    eng = InferenceEngine(cfg, params, max_batch=16, max_len=256, kv_quantization=kv)
+    rng = np.random.RandomState(0)
+    for j in range(16):
+        eng.submit(rng.randint(0, 512, size=int(rng.randint(5, 100))).tolist(),
+                   max_new_tokens=40)
+    # admit the first 8 into live slots, leave 8 queued
+    queued = [eng.queue.pop() for _ in range(8)][::-1]
+    eng._finalize_admission(eng._admit_async())
+    eng.queue.extend(queued)
+    eng._active_mask()
+    return eng
+
+
+def _state(eng):
+    return [qt.as_bytes(t).clone() for t in eng._state_tensors()]
+
+
+@pytest.mark.parametrize("route,kv", [("xla", "int8"), ("pallas", "int8"),
+                                      ("pallas", "fp8")])
+def test_graph_replay_matches_eager_loop(gen, route, kv):
+    eng = _graph_engine(route, kv)
+    for key in ((16, 256, False), (8, 256, True), (6, 256, False)):
+        if key[2]:
+            eng._load_piggyback(eng._take_piggyback(key[0]))
+        start = _state(eng)
+        before = dict(_build.LAUNCHES)
+        eager = [t.clone() for t in eng._loop(key)[::3]]  # tokens, first
+        eager_launches = {k: n - before[k] for k, n in _build.LAUNCHES.items()}
+        eager_state = _state(eng)
+        for t, s in zip(eng._state_tensors(), start):
+            qt.as_bytes(t).copy_(s)
+        eng._capture(key)
+        assert _build.LAUNCHES == {k: n + eager_launches[k] for k, n in before.items()}
+        before = dict(_build.LAUNCHES)
+        replayed = eng._greedy_loop(key)[::3]
+        assert {k: n - before[k] for k, n in _build.LAUNCHES.items()} == eager_launches
+        assert all(torch.equal(a, b) for a, b in zip(replayed, eager))
+        assert all(torch.equal(a, b) for a, b in zip(_state(eng), eager_state))
+        if key[2]:  # both paths ran the payload: put it back in the queue
+            eng._undo_piggyback({"reqs": list(eng._pending_prefill.values()),
+                                 "slots": list(eng._pending_prefill)})
+
+
+def test_prewarm_leaves_the_state_bit_equal(gen):
+    eng = _graph_engine("pallas", "int8")
+    start = _state(eng)
+    assert eng.prewarm(loop_steps=16, attn_lens=[256]) == 4
+    assert sorted(eng._graphs) == [(8, 256, False), (8, 256, True),
+                                   (16, 256, False), (16, 256, True)]
+    assert all(torch.equal(a, b) for a, b in zip(_state(eng), start))
 
 
 # ----------------------------------------------------------------------------
