@@ -12,7 +12,9 @@ Phases, in order, each printing one JSON line:
 2. build: compiles ``flash_attention_softmax_n_tpu_torch/csrc/``: each
    ``*.cu`` kernel source with its own nvcc for sm_90a and the PyTorch
    operator bindings with the host C++ compiler, all started together;
-3. kernels: runs K1 flash_fwd, K2 qmm_argmax (M64, M72 and M256; each line
+3. kernels: runs K1 flash_fwd (B16 H32 L=S=128 under the engine's
+   admission mask, B2 H32 L=S=2048 causal, and B16 H32 L256 S512 under the
+   mask of a chunk at offset 256, as ``serve_prefix`` launches it), K2 qmm_argmax (M64, M72 and M256; each line
    prints its plan, W's achieved GB/s, and, for information, cuBLAS's device time for the GEMM
    and max over W dequantized to bf16), K3 cache_append and K4
    tail_append (at utils/bench_cache_update.py's lines and seeds; each
@@ -65,11 +67,23 @@ Phases, in order, each printing one JSON line:
    ``int8_mm_impl="pallas", decode_attn_impl="pallas"`` (K1-K4 and K7-K9
    must all launch); then 12 requests through 8 slots each with int4
    weights and with ``act_bits=8`` go through the fused loop on the same
-   routes at 6 of the 22 layers (K7's int4 and W8A8 modes), held to the
+   routes at 2 of the 22 layers (K7's int4 and W8A8 modes), held to the
    teacher-forced gate, and ``serve_fp8`` puts 12 requests through the
    fused loop and 2 through the step path with fp8 e4m3 weights and an fp8
    KV cache (K8's fp8 mode, K1, K3, K4), each prewarmed and piggybacked as
    in 5, and profiles its chunk as in 6; then
+5a. serve_prefix: bench.py's prefix pair on the default route: 64
+   requests, every even one behind a 256-token prefix (272-383 tokens),
+   through 64 slots of an engine prewarmed with ``attn_lens=[256, 512]``,
+   twice: prefix cache off (chunked prefill at offsets 0 and 256), then on
+   after ``register_prefix`` (32 hits, each a copy of the stored rows and
+   one chunk at offset 256); each run's tokens/s, counters, phases and
+   launches, one admission round's device busy time off and on, the share
+   of equal outputs (printed, not gated); held to budgets, the
+   teacher-forced gate, the counts of hits and reused tokens, a store
+   bit-equal to a cold 1-slot chunked prefill of the same tokens, and the
+   replay checks of 6a (a 16-step chunk for the 64-step one, windows of
+   512 rows) over slots holding the inserted rows; then
 6a. graph_parity: on the default route, the all-kernel route and fp8, a
    plain 64-step chunk, a piggybacked 8-step chunk and a plain 6-step
    chunk each replay their graph bit-equal to the eager loop from the same
@@ -228,7 +242,12 @@ def device_ms_of(torch, pairs, runs: int = TIMED_RUNS):
 # ----------------------------------------------------------------------------
 
 
-def check_flash(torch, pkg, gen, *, B, H, L, S, D, masked):
+def check_flash(torch, pkg, gen, *, B, H, L, S, D, masked, true_lens=None):
+    """K1 against its plain version at (B, H, L, S, D) bf16, causal
+    (``masked`` False) or under the engine's admission mask as a (B, 1, L,
+    S) bias with the causal flag off: key j is visible iff j < true_len and
+    j <= (S - L) + i, true lengths drawn from the range ``true_lens`` (lo,
+    hi], by default (15, S]. S > L is a chunk at offset S - L."""
     fa = pkg["flash_attention"]
     ops_fa = pkg["ops_flash_attention"]
     dev = "cuda"
@@ -239,7 +258,8 @@ def check_flash(torch, pkg, gen, *, B, H, L, S, D, masked):
     causal = kpos[None, :] <= torch.arange(L, device=dev)[:, None] + (S - L)
     if masked:
         # the engine's admission mask: right-padded prompts, causal inside
-        true_lens = torch.randint(16, S + 1, (B,), generator=gen, device=dev)
+        lo, hi = true_lens or (15, S)
+        true_lens = torch.randint(lo + 1, hi + 1, (B,), generator=gen, device=dev)
         visible = (kpos[None, None, :] < true_lens[:, None, None]) & causal[None]
         bias = ops_fa._mask_to_bias(visible[:, None])  # (B,1,L,S) f32
         is_causal = False
@@ -1087,12 +1107,12 @@ def eager_engine(eng_mod):
     return EagerEngine
 
 
-def prewarm_line(torch, eng, phase):
+def prewarm_line(torch, eng, phase, attn_lens=(256,)):
     """``eng.prewarm`` as bench.py calls it: prints the variant count, the
     seconds and the bytes of the graphs' memory pool."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    n = eng.prewarm(loop_steps=64, attn_lens=[256])
+    n = eng.prewarm(loop_steps=64, attn_lens=list(attn_lens))
     torch.cuda.synchronize()
     line = {"phase": f"{phase}_prewarm", "variants": n,
             "seconds": time.perf_counter() - t0, "graphs": len(eng._graphs),
@@ -1445,16 +1465,9 @@ def shallow(cfg, params, n_layers):
 
 def graph_parity(torch, pkg, cfg, params, route, kv):
     """A captured loop replays bit-equal to the eager loop: 56 requests are
-    admitted into the 64 slots and 8 more queue; then a plain 64-step chunk,
-    a piggybacked 8-step chunk (the 8 queued prompts) and a plain 6-step
-    chunk (no ring: K3 writes the cache each step) each run eagerly from the
-    engine's state, the state is put back, the variant is captured and
-    replayed: tokens, first tokens and the cache's value, scale and length
-    bytes must be equal, and the replay must count the eager run's launches.
-    First, ``prewarm`` must leave that state bit-equal."""
-    eng_mod, qtensor = pkg["engine"], pkg["qtensor"]
-    build = pkg["build"]
-    eng = eng_mod.InferenceEngine(cfg, params, max_batch=64, max_len=512, kv_quantization=kv)
+    admitted into the 64 slots and 8 more queue; then ``replay_parity``."""
+    eng = pkg["engine"].InferenceEngine(cfg, params, max_batch=64, max_len=512,
+                                        kv_quantization=kv)
     reqs = serve_requests(np.random.RandomState(3), cfg, 64)
     for prompt, budget in reqs[:56]:
         eng.submit(prompt, max_new_tokens=budget)
@@ -1462,6 +1475,19 @@ def graph_parity(torch, pkg, cfg, params, route, kv):
     for prompt, budget in reqs[56:]:
         eng.submit(prompt, max_new_tokens=budget)
     eng._active_mask()
+    replay_parity(torch, pkg, eng, route, kv)
+
+
+def replay_parity(torch, pkg, eng, route, kv, attn_len=256, chunk=64, extra=None):
+    """On an engine with live slots and 8 short prompts queued: a plain
+    ``chunk``-step chunk, a piggybacked 8-step chunk (the 8 queued prompts) and a
+    plain 6-step chunk (no ring: K3 writes the cache each step) over the
+    first ``attn_len`` cache rows each run eagerly from the engine's state,
+    the state is put back, the variant is captured and replayed: tokens,
+    first tokens and the cache's value, scale and length bytes must be
+    equal, and the replay must count the eager run's launches. First,
+    ``prewarm`` must leave that state bit-equal."""
+    qtensor, build = pkg["qtensor"], pkg["build"]
 
     def state():
         return [qtensor.as_bytes(t).clone() for t in eng._state_tensors()]
@@ -1472,13 +1498,13 @@ def graph_parity(torch, pkg, cfg, params, route, kv):
     start = state()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    n = eng.prewarm(loop_steps=8, attn_lens=[256])
+    n = eng.prewarm(loop_steps=8, attn_lens=[attn_len])
     torch.cuda.synchronize()
     prewarm_s = time.perf_counter() - t0
     prewarm_equal = equal(state(), start)
     del start
     chunks = []
-    for key in ((64, 256, False), (8, 256, True), (6, 256, False)):
+    for key in ((chunk, attn_len, False), (8, attn_len, True), (6, attn_len, False)):
         if key[2]:
             piggy = eng._take_piggyback(key[0])
             require(piggy is not None and len(piggy["reqs"]) == 8,
@@ -1512,8 +1538,8 @@ def graph_parity(torch, pkg, cfg, params, route, kv):
         if key[2]:
             eng._undo_piggyback(piggy)
         del eager_state
-    emit({"phase": "graph_parity", "route": route, "kv": kv, "prewarm_variants": n,
-          "prewarm_s": prewarm_s, "prewarm_state_equal": prewarm_equal,
+    emit({"phase": "graph_parity", "route": route, "kv": kv, **(extra or {}),
+          "prewarm_variants": n, "prewarm_s": prewarm_s, "prewarm_state_equal": prewarm_equal,
           "pool_bytes": graph_pool_bytes(torch, eng), "chunks": chunks})
     require(prewarm_equal, f"graph_parity {route}/{kv}: prewarm changed the engine's state")
     for c in chunks:
@@ -1522,7 +1548,170 @@ def graph_parity(torch, pkg, cfg, params, route, kv):
                 f"replayed unlike the eager loop: {c}")
 
 
-INT4_W8A8_LAYERS = 6
+# bench.py's prefix pair (bench.py:636-693): a 256-token prefix drawn from
+# RandomState(99) (:553-554, :653-654) on every even-numbered request
+PREFIX_LEN = 256
+PREFIX_SEED = 99
+
+
+def admission_busy(torch, pkg, cfg, params, reqs, prefix):
+    """(device busy ms, synchronised wall s) of one admission round of
+    ``reqs`` into a fresh 64-slot engine (``prefix`` registered unless
+    None): every request admitted in one ``_admit_async`` and its sync."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = pkg["engine"].InferenceEngine(cfg, params, max_batch=64, max_len=512,
+                                        kv_quantization="int8")
+    if prefix is not None:
+        eng.register_prefix(prefix)
+    for prompt, budget in reqs:
+        eng.submit(prompt, max_new_tokens=budget)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng._finalize_admission(eng._admit_async())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    require(not eng.queue, "serve_prefix: the admission round left requests queued")
+    return sum(ms for ms, _ in device_by_name(prof).values()), wall
+
+
+def serve_prefix(torch, pkg, cfg, params):
+    """bench.py's prefix pair on the default route (int8 weights and KV):
+    64 requests (prompts 16-127, budgets 16-63; every even one behind a
+    256-token prefix, so 272-383 tokens) through 64 slots of a prewarmed
+    engine (``prewarm(loop_steps=64, attn_lens=[256, 512])``, bench.py's
+    two windows), twice on the same engine: prefix cache off (the 32
+    prefixed prompts take the chunked lane, chunks at offsets 0 and 256),
+    then on after ``register_prefix`` (32 hits, each a copy of 256 stored
+    rows and one chunk at offset 256). Held to every budget, the
+    teacher-forced gate (every prefixed request of both runs and the first
+    8 others of each), K1 launching in both runs, the store bit-equal to
+    the rows a cold 1-slot engine writes for the same tokens through its
+    chunked lane, and the loop's replays bit-equal over the inserted rows.
+    Prints each run's tokens/s, counters, phases and launches, one
+    admission round's device busy time off and on, and the share of
+    requests whose outputs are equal in both runs. Returns the launches of
+    both runs."""
+    eng_mod, build, qtensor = pkg["engine"], pkg["build"], pkg["qtensor"]
+    eng = eng_mod.InferenceEngine(cfg, params, max_batch=64, max_len=512,
+                                  kv_quantization="int8")
+    prewarm = prewarm_line(torch, eng, "serve_prefix", attn_lens=(256, 512))
+    prefix = np.random.RandomState(PREFIX_SEED).randint(
+        0, cfg.vocab_size, size=PREFIX_LEN).tolist()
+    reqs = [(prefix + p if j % 2 == 0 else p, b)
+            for j, (p, b) in enumerate(serve_requests(np.random.RandomState(4), cfg, 64))]
+    prefixed = [j for j in range(64) if j % 2 == 0]
+    others = [j for j in range(64) if j % 2][:8]
+
+    def run(cache):
+        budgets, ids = {}, []
+        for prompt, budget in reqs:
+            rid = eng.submit(prompt, max_new_tokens=budget)
+            budgets[rid] = budget
+            ids.append(rid)
+        eng.counters_report()
+        eng.profile_report()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        done = {r.request_id: r for r in eng.run_until_done(loop_steps=64)}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        counters = eng.counters_report()
+        done = [done[i] for i in ids]
+        n_tok = sum(len(r.output) for r in done)
+        check_served(done, budgets, cfg, f"serve_prefix_{cache}")
+        emit({"phase": "serve_prefix", "cache": cache, "requests": len(done),
+              "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+              "prefill_chunk_offsets": sorted(eng._prefill_chunks),
+              "counters": {k: counters.get(k, 0) for k in (
+                  "prefix_hits", "prefix_reused_tokens", "prefill_groups", "prefill_tokens",
+                  "prefill_real_tokens", "piggyback_prompts", "chunks")},
+              "profile": eng.profile_report(),
+              "launches": {k: v for k, v in launches.items() if v}})
+        require(launches["flash_fwd"] > 0, f"serve_prefix_{cache}: K1 never launched")
+        return done, launches, counters
+
+    off, off_launches, off_counters = run("off")
+    require(PREFIX_LEN in eng._prefill_chunks,
+            "serve_prefix_off: no chunk ran at offset 256 (the chunked lane lost its subject)")
+    require(off_counters.get("prefix_hits", 0) == 0, "serve_prefix_off: a prefix hit "
+            "with no prefix registered")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.register_prefix(prefix)
+    torch.cuda.synchronize()
+    register_s = time.perf_counter() - t0
+    on, on_launches, on_counters = run("on")
+    require(on_counters.get("prefix_hits", 0) == 32
+            and on_counters.get("prefix_reused_tokens", 0) == 32 * PREFIX_LEN,
+            f"serve_prefix_on: {on_counters.get('prefix_hits')} hits reusing "
+            f"{on_counters.get('prefix_reused_tokens')} tokens, not 32 and {32 * PREFIX_LEN}")
+    teacher_forced_gate(torch, pkg, cfg, params,
+                        [off[j] for j in prefixed + others] + [on[j] for j in prefixed + others],
+                        "serve_prefix_agreement")
+
+    # the store against a cold 1-slot engine's chunked lane over the same
+    # tokens (one more token makes the prompt long enough for the lane)
+    store = eng._prefixes[0]["store"]
+    cold = eng_mod.InferenceEngine(cfg, params, max_batch=1, max_len=512,
+                                   kv_quantization="int8")
+    cold.submit(prefix + [1], max_new_tokens=1)
+    cold.run_until_done()
+    store_equal = {}
+    for name in ("k", "v"):
+        ref = cold.cache[name]
+        store_equal[name] = (
+            torch.equal(qtensor.as_bytes(store[name].values),
+                        qtensor.as_bytes(ref.values[:, 0, :, :PREFIX_LEN]))
+            and torch.equal(store[name].scales, ref.scales[:, 0, :, :PREFIX_LEN]))
+    del cold
+
+    # one admission round of the same requests, off and on, alternated
+    admit = {"off": [], "on": []}
+    for _ in range(IDLE_PAIRS):
+        for cache in ("off", "on"):
+            admit[cache].append(admission_busy(torch, pkg, cfg, params, reqs,
+                                               prefix if cache == "on" else None))
+    same = sum(a.output == b.output for a, b in zip(off, on))
+    emit({"phase": "serve_prefix_summary", "prefix_tokens": PREFIX_LEN,
+          "prewarm_s": prewarm["seconds"], "register_prefix_s": register_s,
+          "store_bit_equal_to_cold_prefill": store_equal,
+          "outputs_equal_share": same / len(off),
+          "prefixed_outputs_equal_share": sum(off[j].output == on[j].output
+                                              for j in prefixed) / len(prefixed),
+          "admission_busy_ms": {c: [b for b, _ in v] for c, v in admit.items()},
+          "admission_wall_s": {c: [w for _, w in v] for c, v in admit.items()},
+          "admission_busy_ms_median": {c: float(np.median([b for b, _ in v]))
+                                       for c, v in admit.items()}})
+    require(all(store_equal.values()), f"serve_prefix: the store differs from a cold "
+            f"1-slot chunked prefill of the same tokens: {store_equal}")
+
+    # the captured loops over live slots whose rows came from the store: 56
+    # requests admitted (28 hits), the 8 short ones of the stream queued
+    for prompt, budget in reqs[:56]:
+        eng.submit(prompt, max_new_tokens=budget)
+    eng._finalize_admission(eng._admit_async())
+    for j in range(57, 64, 2):
+        eng.submit(*reqs[j])
+    for prompt, budget in serve_requests(np.random.RandomState(5), cfg, 4):
+        eng.submit(prompt, max_new_tokens=budget)
+    eng._active_mask()
+    hits = eng.counters_report().get("prefix_hits", 0)
+    require(hits == 28, f"serve_prefix: {hits} of the 28 admitted prefixed requests hit")
+    replay_parity(torch, pkg, eng, "default", "int8", attn_len=512, chunk=16,
+                  extra={"prefix_hits": hits})
+    launches = {k: off_launches[k] + on_launches[k] for k in off_launches}
+    for name in ("flash_fwd", "qmm_argmax", "tail_append"):
+        require(launches[name] > 0, f"serve_prefix never launched {name}")
+    for name in PALLAS_KERNELS:
+        require(launches[name] == 0, f"serve_prefix launched {name}")
+    return launches
+
+
+INT4_W8A8_LAYERS = 2
 
 
 def serve(torch, pkg):
@@ -1550,7 +1739,7 @@ def serve(torch, pkg):
     pallas = dataclasses.replace(cfg, int8_mm_impl="pallas", decode_attn_impl="pallas")
     launches = {"serve": serve_route(torch, pkg, cfg, params),
                 "serve_pallas": serve_route(torch, pkg, pallas, params, "serve_pallas"),
-                # K7's int4 and W8A8 modes at 6 of the 22 layers: each
+                # K7's int4 and W8A8 modes at 2 of the 22 layers: each
                 # engine's prewarm replays the whole model 480 steps
                 "serve_int4": serve_mode(torch, pkg, *shallow(pallas, params4, INT4_W8A8_LAYERS),
                                          "int4"),
@@ -1562,7 +1751,8 @@ def serve(torch, pkg):
                                         step_requests=2,
                                         launched=("flash_fwd", "decode_attn", "tail_append",
                                                   "cache_append"),
-                                        idle=("qmm", "qmm_argmax", "fused_mlp"))}
+                                        idle=("qmm", "qmm_argmax", "fused_mlp")),
+                "serve_prefix": serve_prefix(torch, pkg, cfg, params)}
     graph_parity(torch, pkg, cfg, params, "default", "int8")
     graph_parity(torch, pkg, pallas, params, "pallas", "int8")
     graph_parity(torch, pkg, pallas, params_fp8, "pallas", "fp8")
@@ -1835,6 +2025,12 @@ def main() -> int:
     ]
     for kd in kernels:
         kd["path"] = "serve"
+    # K1 as serve_prefix's chunks at offset 256 launch it: 16 prompts of
+    # 257-512 tokens, 256 queries over 512 keys under the engine's mask
+    kd = check_flash(torch, pkg, gen, B=16, H=32, L=256, S=512, D=64, masked=True,
+                     true_lens=(256, 512))
+    kd["path"] = "serve_prefix"
+    kernels.append(kd)
     # K7-K9 at the pallas route's shapes: M = 64 the fused loop's batch
     # (N 2048 wq/wo, 256 wk/wv, 5632 w_gate/w_up), M = 1024 the profiled
     # chunk's admission group (16 x 64; K5632 N2048 is w_down), M = 2048 a

@@ -6,6 +6,11 @@ Counterpart of the serving core of
   * a fixed pool of ``max_batch`` slots sharing one preallocated KV cache
     (dense, int8 or fp8), with per-slot lengths on the device;
   * admission by batched prefill of same-bucket prompts (kernel K1);
+    prompts longer than ``prefill_chunk`` prefill chunk by chunk, each
+    chunk attending the rows already cached (``engine_prefill_chunk``);
+    registered prefixes (``register_prefix``) are prefilled once into a
+    store whose rows a matching prompt copies into its slot, prefilling
+    only its suffix;
   * decode either one step at a time (``engine_decode``: the new rows go
     into the cache by kernel K3) or in fused chunks of ``num_steps`` steps
     (``engine_decode_loop``): the steps stay on the device, new rows go to
@@ -23,13 +28,13 @@ Counterpart of the serving core of
 
 The request queue and slot bookkeeping are host-side Python. JAX's
 functional updates become in-place writes into the engine's tensors.
-Chunked prefill past offset 0, the prefix cache and meshes are not ported
-yet (ROADMAP.md) and raise.
+Meshes are not ported yet (ROADMAP.md) and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import time
 from collections import deque
@@ -73,8 +78,9 @@ from flash_attention_softmax_n_tpu_torch.quant.kv_cache import (
 )
 from flash_attention_softmax_n_tpu_torch.quant.qtensor import QTensor, as_bytes
 
-__all__ = ["Request", "InferenceEngine", "engine_prefill_batch",
-           "engine_prefill_chunk", "engine_decode", "engine_decode_loop"]
+__all__ = ["Request", "InferenceEngine", "engine_prefill",
+           "engine_prefill_batch", "engine_prefill_chunk", "engine_decode",
+           "engine_decode_loop"]
 
 
 def _not_ported(what: str):
@@ -132,66 +138,111 @@ def engine_prefill_batch(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
     """Prefill ``nb`` slots with (nb, Lb) right-padded prompts in one pass.
 
     Duplicate slot entries are idempotent. Returns (last-true-token logits
-    (nb, V), cache), the cache written in place.
+    (nb, V), cache), the cache written in place. The ``offset=0`` case of
+    ``engine_prefill_chunk``.
     """
     return engine_prefill_chunk(params, cfg, tokens, true_lens, slots,
                                 cache, offset=0)
+
+
+def _prefix_rows(cache_kv, i: int, slots: torch.Tensor, offset: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Layer ``i``'s cached rows [0, offset) of each slot, (nb, KVH, offset,
+    hd); a quantized cache dequantizes as JAX does: values to f32, times the
+    scales, cast to ``dtype``."""
+    if isinstance(cache_kv, QTensor):
+        vals = cache_kv.values[i, slots, :, :offset].float()
+        return (vals * cache_kv.scales[i, slots, :, :offset]).to(dtype)
+    return cache_kv[i, slots, :, :offset]
+
+
+def _write_rows(cache_kv, i: int, slots: torch.Tensor, offset: int,
+                rows: torch.Tensor) -> None:
+    """Write (nb, KVH, C, hd) rows into layer ``i`` at columns [offset,
+    offset + C) of each slot, in place, quantizing for int8 and fp8 caches
+    (whose values move as bytes)."""
+    c = rows.shape[2]
+    if isinstance(cache_kv, QTensor):
+        values, scales = quantize_kv(rows, cache_kv.bits)
+        as_bytes(cache_kv.values)[i, slots, :, offset:offset + c] = \
+            as_bytes(values)
+        cache_kv.scales[i, slots, :, offset:offset + c] = scales
+    else:
+        cache_kv[i, slots, :, offset:offset + c] = rows.to(cache_kv.dtype)
 
 
 def engine_prefill_chunk(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
                          true_lens: torch.Tensor, slots: torch.Tensor,
                          cache: Dict, *, offset: int
                          ) -> Tuple[torch.Tensor, Dict]:
-    """Prefill a (nb, C) chunk at column ``offset``; only ``offset=0`` (the
-    whole prompt in one chunk) is ported."""
-    if offset != 0:
-        raise _not_ported("chunked prefill at offset > 0")
+    """Continuation prefill: write a (nb, C) chunk at column ``offset``.
+
+    Each chunk attends the slots' cached rows [0, offset) plus itself
+    (causal within the chunk, positions and RoPE from ``offset``), so a
+    long prompt admits as ceil(len / C) bounded passes. Each layer gathers
+    its own prefix rows, dequantized for int8 and fp8 caches, so no copy of
+    every layer's prefix is held. The chunk's rows are written in place at
+    columns [offset, offset + C) and the slots' lengths set to
+    min(true_len, offset + C). Returns (logits (nb, V) at each row's last
+    true token within this chunk, meaningful on its final chunk; cache).
+    """
     nb, c = tokens.shape
     dev = tokens.device
     x = params["embed"][tokens].to(cfg.dtype)
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
                                 device=dev)
-    positions = torch.arange(c, device=dev)
+    positions = offset + torch.arange(c, device=dev)
     reps = cfg.n_heads // cfg.n_kv_heads
 
-    # chunk key j is valid iff j < true_len and, causally, j <= query row i
-    key_pos = torch.arange(c, device=dev)
-    valid = key_pos[None, None, :] < true_lens[:, None, None]  # (nb,1,C)
-    causal = key_pos[None, :] <= key_pos[:, None]  # (C,C)
-    mask = (valid & causal[None])[:, None]  # (nb,1,C,C)
+    # prefix keys are always valid (a chunk is only dispatched while
+    # true_len > offset); chunk key j is valid iff offset + j < true_len
+    # and, causally, j <= query row i
+    key_pos = torch.arange(offset + c, device=dev)
+    valid = key_pos[None, None, :] < true_lens[:, None, None]  # (nb,1,S)
+    causal = key_pos[None, :] <= positions[:, None]  # (C,S)
+    mask = (valid & causal[None])[:, None]  # (nb,1,C,S)
     impl = "xla" if cfg.attn_implementation == "xla" else "auto"
-
-    def write(cache_kv, i, new):
-        if isinstance(cache_kv, QTensor):
-            values, scales = quantize_kv(new, cache_kv.bits)
-            as_bytes(cache_kv.values)[i, slots, :, :c] = as_bytes(values)
-            cache_kv.scales[i, slots, :, :c] = scales
-        else:
-            cache_kv[i, slots, :, :c] = new.to(cache_kv.dtype)
 
     layers = layer_views(params["layers"])
     for i in range(cfg.n_layers):
         def attn(q, k, v, i=i):
             q = apply_rope(q, cos, sin, positions)
             k = apply_rope(k, cos, sin, positions)
-            write(cache["k"], i, k)
-            write(cache["v"], i, v)
+            kf, vf = k, v
+            if offset > 0:
+                kf = torch.cat([_prefix_rows(cache["k"], i, slots, offset,
+                                             cfg.dtype).to(k.dtype), k], dim=2)
+                vf = torch.cat([_prefix_rows(cache["v"], i, slots, offset,
+                                             cfg.dtype).to(v.dtype), v], dim=2)
+            _write_rows(cache["k"], i, slots, offset, k)
+            _write_rows(cache["v"], i, slots, offset, v)
             ctx = flash_attention_n(
-                q, _repeat_kv(k, reps), _repeat_kv(v, reps),
+                q, _repeat_kv(kf, reps), _repeat_kv(vf, reps),
                 softmax_n_param=cfg.softmax_n, attn_mask=mask,
                 implementation=impl)
             return ctx, None
 
         x, _, _ = _layer(cfg, x, layers[i], attn)
 
-    cache["lengths"][slots] = torch.clamp(true_lens, max=c).to(
+    cache["lengths"][slots] = torch.clamp(true_lens, max=offset + c).to(
         cache["lengths"].dtype)
-    last = torch.clamp(true_lens - 1, 0, c - 1).long()
+    last = torch.clamp(true_lens - offset - 1, 0, c - 1).long()
     x_last = x[torch.arange(nb, device=dev), last][:, None]
     x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
     logits = _mm(x_last, params["lm_head"], cfg.act_bits,
                  cfg.int8_mm_impl).float()
     return logits[:, 0], cache
+
+
+def engine_prefill(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
+                   true_len: torch.Tensor, slot: torch.Tensor,
+                   cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Prefill one slot with a (1, Lb) right-padded prompt; returns
+    (last-token logits (V,), cache)."""
+    logits, cache = engine_prefill_batch(params, cfg, tokens,
+                                         true_len.reshape(1),
+                                         slot.reshape(1), cache)
+    return logits[0], cache
 
 
 def _greedy_fusable(params: Dict, cfg: DecoderConfig) -> bool:
@@ -609,9 +660,10 @@ class InferenceEngine:
                  device=None):
         """``params`` must live on ``device`` (None: the card).
         ``piggyback_prefill``: queued greedy prompts of up to _PIGGY_CAP
-        tokens prefill inside the fused decode chunks. ``mesh`` is not
-        ported yet and raises; prompts longer than ``prefill_chunk`` (the
-        chunked lane) are refused at ``submit``."""
+        tokens prefill inside the fused decode chunks. ``prefill_chunk``:
+        prompts longer than this admit through chunked prefill
+        (``engine_prefill_chunk``), one bounded pass per chunk. ``mesh`` is
+        not ported yet and raises."""
         if mesh is not None:
             raise _not_ported("meshed serving")
         self.device = resolve_device(device)
@@ -659,6 +711,13 @@ class InferenceEngine:
         self.phase_counts: Dict[str, int] = {}
         self.chunk_log: List[Tuple[int, float]] = []
         self.counters: Dict[str, int] = {}
+        # the prefix cache: registered prefixes' KV rows live in stores of
+        # their own; a hit copies a store's rows into its slot and prefills
+        # only the suffix (register_prefix, _match_prefix)
+        self._kv_quantization = kv_quantization
+        self._prefixes: List[Dict] = []
+        self._prefix_inserts: Dict[Tuple[int, int], object] = {}
+        self._prefill_chunks: Dict[int, object] = {}
 
         if kv_quantization is not None:
             self.cache = init_quantized_kv_cache(
@@ -687,17 +746,10 @@ class InferenceEngine:
             raise ValueError(
                 "top_k/top_p require temperature > 0 (temperature=0 is "
                 "greedy argmax and ignores truncation)")
-        cc = self._CHUNK
-        if len(prompt) > cc and -(-len(prompt) // cc) * cc <= self.max_len:
-            raise _not_ported(f"chunked prefill of prompts longer than "
-                              f"prefill_chunk={cc}")
         req = Request(next(self._id_gen), list(prompt), max_new_tokens,
                       temperature, eos_token, top_k=top_k, top_p=top_p)
         self.queue.append(req)
         return req.request_id
-
-    def register_prefix(self, tokens: List[int]) -> int:
-        raise _not_ported("the prefix cache (register_prefix)")
 
     def prewarm(self, loop_steps: int = 64,
                 attn_lens: Optional[List[int]] = None) -> int:
@@ -1189,19 +1241,44 @@ class InferenceEngine:
 
     def _admit_async(self) -> List[Tuple[List[Tuple[int, Request]],
                                          torch.Tensor]]:
-        """Admit queued requests into free slots, prefilling same-bucket
-        groups in one batched forward. A group is padded to the smallest
-        power of two in [2, _ADMIT_G] that holds it by repeating its last
-        request (duplicate slot writes are idempotent). Enqueue only: the
-        first tokens go into ``_next_token`` on the device and the host
-        bookkeeping waits for ``_finalize_admission``."""
+        """Admit queued requests into free slots through three lanes:
+
+          * bucket: same-bucket prompts prefill together in one pass;
+          * chunked: prompts longer than ``prefill_chunk`` (whose
+            chunk-padded length fits max_len), grouped by chunk count,
+            prefill chunk by chunk (``engine_prefill_chunk``);
+          * prefix: prompts that start with a registered prefix get its
+            stored rows copied into their slots, then prefill only the
+            suffix chunks.
+
+        The lane holding the oldest queued request runs first, so that
+        sustained short traffic cannot starve a long prompt. A group is
+        padded to the smallest power of two in [2, _ADMIT_G] that holds it
+        by repeating its last request (duplicate slot writes are
+        idempotent). Enqueue only: the first tokens go into ``_next_token``
+        on the device and the host bookkeeping waits for
+        ``_finalize_admission``."""
         free = [i for i in range(self.max_batch)
                 if self.slots[i] is None and i not in self._pending_prefill]
         if not (free and self.queue):
             return []
         by_bucket: Dict[int, deque] = {}
         order: List[int] = []
+        long_reqs: List[Request] = []
+        by_prefix: Dict[Tuple[int, int, int], deque] = {}
+        cc = self._CHUNK
         for req in self.queue:
+            n_chunks = -(-len(req.prompt) // cc)
+            if self._prefixes:
+                m = self._match_prefix(req.prompt)
+                if m is not None and n_chunks * cc <= self.max_len:
+                    p, reuse = m
+                    by_prefix.setdefault((p["id"], reuse, n_chunks),
+                                         deque()).append(req)
+                    continue
+            if len(req.prompt) > cc and n_chunks * cc <= self.max_len:
+                long_reqs.append(req)
+                continue
             # clamp so a near-max_len prompt cannot pad past the cache
             bkt = min(_bucket(len(req.prompt)), self.max_len)
             if bkt not in by_bucket:
@@ -1209,51 +1286,236 @@ class InferenceEngine:
                 order.append(bkt)
             by_bucket[bkt].append(req)
         admitted: set = set()
-        nb_max = min(self._ADMIT_G, self.max_batch)
-        pending = []
-        while free and any(by_bucket.values()):
-            bucket = next(b for b in order if by_bucket[b])
-            dq = by_bucket[bucket]
+        nb = min(self._ADMIT_G, self.max_batch)
+        pending: List[Tuple[List[Tuple[int, Request]], torch.Tensor]] = []
+
+        def take_group(dq):
             group: List[Tuple[int, Request]] = []
-            while free and dq and len(group) < nb_max:
+            while free and dq and len(group) < nb:
                 req = dq.popleft()
                 admitted.add(id(req))
                 group.append((free.pop(0), req))
-            pending.append((group, self._prefill_group(group, nb_max, bucket)))
-            for i, req in group:
-                self.slots[i] = req
-                self._lengths_host[i] = len(req.prompt)
-                self._slot_budget[i] = req.max_new_tokens - 1
+            return group
+
+        def padded_tokens(padded_group, width):
+            tokens = np.full((len(padded_group), width), self.pad_token,
+                             np.int64)
+            for j, (_, r) in enumerate(padded_group):
+                tokens[j, :len(r.prompt)] = r.prompt
+            return tokens
+
+        def prefill_chunks(padded_group, true_lens, slots, first, n_chunks):
+            tokens = padded_tokens(padded_group, n_chunks * cc)
+            logits = None
+            for ci in range(first, n_chunks):
+                logits, self.cache = self._prefill_chunk(ci * cc)(
+                    params=self.params,
+                    tokens=self._to_device(tokens[:, ci * cc:(ci + 1) * cc]),
+                    true_lens=true_lens, slots=slots, cache=self.cache)
+            return logits
+
+        def run_bucket_lane():
+            while free and any(by_bucket.values()):
+                bucket = next(b for b in order if by_bucket[b])
+                group = take_group(by_bucket[bucket])
+
+                def prefill(padded_group, true_lens, slots, bucket=bucket):
+                    logits, self.cache = engine_prefill_batch(
+                        self.params, self.cfg,
+                        self._to_device(padded_tokens(padded_group, bucket)),
+                        true_lens, slots, self.cache)
+                    return logits
+
+                pending.append(self._admit_group(group, nb, prefill, bucket))
+
+        def run_chunked_lane():
+            # requests with the same chunk count share each chunk's pass
+            by_chunks: Dict[int, deque] = {}
+            for req in long_reqs:
+                by_chunks.setdefault(-(-len(req.prompt) // cc),
+                                     deque()).append(req)
+            for n_chunks in sorted(by_chunks):
+                dq = by_chunks[n_chunks]
+                while free and dq:
+                    group = take_group(dq)
+
+                    def prefill(padded_group, true_lens, slots,
+                                n_chunks=n_chunks):
+                        return prefill_chunks(padded_group, true_lens, slots,
+                                              0, n_chunks)
+
+                    pending.append(self._admit_group(group, nb, prefill,
+                                                     n_chunks * cc))
+
+        def run_prefix_lane():
+            for pkey in sorted(by_prefix):
+                pid, reuse, n_chunks = pkey
+                store = next(p["store"] for p in self._prefixes
+                             if p["id"] == pid)
+                dq = by_prefix[pkey]
+                while free and dq:
+                    group = take_group(dq)
+
+                    def prefill(padded_group, true_lens, slots,
+                                n_chunks=n_chunks, reuse=reuse, store=store):
+                        self.cache = self._prefix_insert(
+                            reuse, len(padded_group))(
+                            cache=self.cache, store=store, slots=slots)
+                        logits = prefill_chunks(padded_group, true_lens,
+                                                slots, reuse // cc, n_chunks)
+                        c = self.counters
+                        c["prefix_hits"] = c.get("prefix_hits", 0) + len(group)
+                        c["prefix_reused_tokens"] = (
+                            c.get("prefix_reused_tokens", 0)
+                            + reuse * len(group))
+                        # the reused rows were never prefilled
+                        c["prefill_real_tokens"] = (
+                            c.get("prefill_real_tokens", 0)
+                            - reuse * len(group))
+                        return logits
+
+                    pending.append(self._admit_group(
+                        group, nb, prefill, n_chunks * cc - reuse))
+
+        # anti-starvation: the lane of the oldest queued request runs first
+        lanes = [run_bucket_lane, run_prefix_lane, run_chunked_lane]
+        head = self.queue[0]
+        if long_reqs and head is long_reqs[0]:
+            lanes = [run_chunked_lane, run_prefix_lane, run_bucket_lane]
+        elif any(head is r for dq in by_prefix.values() for r in dq):
+            lanes = [run_prefix_lane, run_bucket_lane, run_chunked_lane]
+        for lane in lanes:
+            lane()
         if admitted:
             self.queue = deque(r for r in self.queue if id(r) not in admitted)
         return pending
 
-    def _prefill_group(self, group, nb_max: int, bucket: int) -> torch.Tensor:
-        """Prefill one padded group; returns its real rows' first tokens."""
-        nb = 2
-        while nb < len(group):
-            nb *= 2
-        nb = min(nb, nb_max)
-        padded = group + [group[-1]] * (nb - len(group))
+    def _admit_group(self, group, nb: int, prefill_fn, padded_len: int
+                     ) -> Tuple[List[Tuple[int, Request]], torch.Tensor]:
+        """The lanes' shared tail: pad the group to the smallest power of
+        two in [2, nb] that holds it, count it, run the lane's
+        ``prefill_fn(padded_group, true_lens, slots) -> logits``, sample,
+        push the real rows' first tokens into ``_next_token`` on the device
+        and take the slots. Returns (group, first tokens)."""
+        nb_g = 2
+        while nb_g < len(group):
+            nb_g *= 2
+        nb = min(nb, nb_g)
         c = self.counters
         c["prefill_groups"] = c.get("prefill_groups", 0) + 1
         c["prefill_rows"] = c.get("prefill_rows", 0) + nb
         c["prefill_real_rows"] = c.get("prefill_real_rows", 0) + len(group)
-        c["prefill_tokens"] = c.get("prefill_tokens", 0) + nb * bucket
+        c["prefill_tokens"] = c.get("prefill_tokens", 0) + nb * padded_len
         c["prefill_real_tokens"] = (c.get("prefill_real_tokens", 0)
                                     + sum(len(r.prompt) for _, r in group))
-        tokens = np.full((nb, bucket), self.pad_token, np.int64)
-        for j, (_, r) in enumerate(padded):
-            tokens[j, :len(r.prompt)] = r.prompt
+        padded = group + [group[-1]] * (nb - len(group))
         true_lens = self._to_device(np.array([len(r.prompt) for _, r in padded],
                                              np.int32))
         slots = self._to_device(np.array([i for i, _ in padded], np.int64))
-        logits, self.cache = engine_prefill_batch(
-            self.params, self.cfg, self._to_device(tokens), true_lens, slots,
-            self.cache)
+        logits = prefill_fn(padded, true_lens, slots)
         toks = self._sample(logits, [r for _, r in padded])[:len(group)]
         self._next_token[slots[:len(group)]] = toks
-        return toks
+        for i, req in group:
+            self.slots[i] = req
+            self._lengths_host[i] = len(req.prompt)
+            self._slot_budget[i] = req.max_new_tokens - 1
+        return group, toks
+
+    # -- prefix cache ---------------------------------------------------------
+
+    def register_prefix(self, tokens: List[int]) -> int:
+        """Prefill a shared prompt prefix once into a KV store of its own.
+
+        Only whole prefill chunks are stored (floor(len / prefill_chunk)
+        chunks), so a hit's suffix prefill starts at a chunk boundary. The
+        store is quantized as the main cache is, through the same chunked
+        prefill, so a hit equals having prefilled those rows in place.
+        Prompts match the longest registered prefix. Returns its id.
+        """
+        cc = self._CHUNK
+        rows = (len(tokens) // cc) * cc
+        if rows < cc:
+            raise ValueError(
+                f"prefix must be >= prefill_chunk={cc} tokens to be worth "
+                f"caching (got {len(tokens)})")
+        if rows > self.max_len:
+            raise ValueError("prefix longer than engine max_len")
+        cfg = self.cfg
+        if self._kv_quantization is not None:
+            scratch = init_quantized_kv_cache(
+                cfg.n_layers, 1, cfg.n_kv_heads, rows, cfg.head_dim,
+                mode=self._kv_quantization, device=self.device)
+        else:
+            shape = (cfg.n_layers, 1, cfg.n_kv_heads, rows, cfg.head_dim)
+            scratch = {"k": torch.zeros(shape, dtype=cfg.dtype,
+                                        device=self.device),
+                       "v": torch.zeros(shape, dtype=cfg.dtype,
+                                        device=self.device)}
+        scratch["lengths"] = torch.zeros((1,), dtype=torch.int32,
+                                         device=self.device)
+        scratch.pop("length", None)
+        true_lens = self._to_device(np.array([rows], np.int32))
+        slots = self._to_device(np.array([0], np.int64))
+        for ci in range(rows // cc):
+            toks = np.array([tokens[ci * cc:(ci + 1) * cc]], np.int64)
+            _, scratch = self._prefill_chunk(ci * cc)(
+                params=self.params, tokens=self._to_device(toks),
+                true_lens=true_lens, slots=slots, cache=scratch)
+        store = {}
+        for name in ("k", "v"):
+            kv = scratch[name]
+            store[name] = (QTensor(kv.values[:, 0], kv.scales[:, 0],
+                                   bits=kv.bits)
+                           if isinstance(kv, QTensor) else kv[:, 0])
+        pid = len(self._prefixes)
+        self._prefixes.append({"id": pid, "tokens": tuple(tokens[:rows]),
+                               "rows": rows, "store": store})
+        self._prefixes.sort(key=lambda p: -p["rows"])  # longest first
+        return pid
+
+    def _match_prefix(self, prompt: List[int]):
+        """(prefix entry, reused rows) for the longest registered prefix of
+        ``prompt``, or None. The reuse is whole chunks strictly inside the
+        prompt: at least one suffix token must remain to give the first
+        token's logits."""
+        cc = self._CHUNK
+        cap = ((len(prompt) - 1) // cc) * cc
+        for p in self._prefixes:
+            reuse = min(p["rows"], cap)
+            if reuse >= cc and tuple(prompt[:reuse]) == p["tokens"][:reuse]:
+                return p, reuse
+        return None
+
+    def _prefix_insert(self, rows: int, width: int):
+        """(cache, store, slots) -> cache: write the store's first ``rows``
+        rows into ``width`` slots, in place (values and scales, or dense
+        rows; fp8 values move as bytes)."""
+        key = (rows, width)
+        if key not in self._prefix_inserts:
+            def insert(cache, store, slots):
+                def wr(dst, src):
+                    as_bytes(dst)[:, slots, :, :rows] = \
+                        as_bytes(src)[:, None, :, :rows]
+
+                for name in ("k", "v"):
+                    ckv, skv = cache[name], store[name]
+                    if isinstance(ckv, QTensor):
+                        wr(ckv.values, skv.values)
+                        wr(ckv.scales, skv.scales)
+                    else:
+                        wr(ckv, skv)
+                return cache
+
+            self._prefix_inserts[key] = insert
+        return self._prefix_inserts[key]
+
+    def _prefill_chunk(self, offset: int):
+        """The chunked prefill at column ``offset``, called with keywords
+        (params, tokens, true_lens, slots, cache)."""
+        if offset not in self._prefill_chunks:
+            self._prefill_chunks[offset] = functools.partial(
+                engine_prefill_chunk, cfg=self.cfg, offset=offset)
+        return self._prefill_chunks[offset]
 
     def _finalize_admission(self, pending) -> List[Request]:
         """One sync for the whole admission round, then bookkeeping:

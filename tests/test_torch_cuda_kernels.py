@@ -24,7 +24,12 @@ bit-equal to the hash), a ring block against an external lse, and
 misaligned inputs that must raise. The engine's CUDA graphs: each greedy
 loop variant (plain, piggybacked, under 8 steps) replays bit-equal to the
 eager loop on the default, all-kernel and fp8 routes, launch counts
-included, and ``prewarm`` leaves the engine's state bit-equal.
+included, and ``prewarm`` leaves the engine's state bit-equal. Chunked
+prefill and the prefix cache: K1 at a chunk's rectangular shape with the
+engine's offset mask (f32 and bf16, n 0 and 1, repeats bit-equal), a
+prefix store bit-equal to a cold 1-slot chunked prefill of the same tokens,
+and prefix hits in a prewarmed engine (tokens of an engine that captures
+nothing; the loop variants then replay bit-equal over the inserted rows).
 Tolerances: forward f32 within 2e-5 (summation order), bf16 within 2e-2 (p
 rounded to bf16 before PV, as in the plain version), lse within 1e-4;
 gradients within 1e-4 (f32) or 2e-2 (bf16: ds rounds to bf16 on either side
@@ -425,11 +430,11 @@ def _state(eng):
     return [qt.as_bytes(t).clone() for t in eng._state_tensors()]
 
 
-@pytest.mark.parametrize("route,kv", [("xla", "int8"), ("pallas", "int8"),
-                                      ("pallas", "fp8")])
-def test_graph_replay_matches_eager_loop(gen, route, kv):
-    eng = _graph_engine(route, kv)
-    for key in ((16, 256, False), (8, 256, True), (6, 256, False)):
+def _check_replays(eng, keys=((16, 256, False), (8, 256, True), (6, 256, False))):
+    """Each loop variant in ``keys``, run eagerly from the engine's state,
+    then put back, captured and replayed: tokens, first tokens, the
+    cache's value, scale and length bytes and the launch counts equal."""
+    for key in keys:
         if key[2]:
             eng._load_piggyback(eng._take_piggyback(key[0]))
         start = _state(eng)
@@ -451,6 +456,12 @@ def test_graph_replay_matches_eager_loop(gen, route, kv):
                                  "slots": list(eng._pending_prefill)})
 
 
+@pytest.mark.parametrize("route,kv", [("xla", "int8"), ("pallas", "int8"),
+                                      ("pallas", "fp8")])
+def test_graph_replay_matches_eager_loop(gen, route, kv):
+    _check_replays(_graph_engine(route, kv))
+
+
 def test_prewarm_leaves_the_state_bit_equal(gen):
     eng = _graph_engine("pallas", "int8")
     start = _state(eng)
@@ -458,6 +469,129 @@ def test_prewarm_leaves_the_state_bit_equal(gen):
     assert sorted(eng._graphs) == [(8, 256, False), (8, 256, True),
                                    (16, 256, False), (16, 256, True)]
     assert all(torch.equal(a, b) for a, b in zip(_state(eng), start))
+
+
+# ----------------------------------------------------------------------------
+# chunked prefill and the prefix cache on the card
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [0.0, 1.0])
+def test_flash_fwd_at_a_chunk_offset(gen, dtype, n):
+    # K1 as a chunk at offset 128 launches it: 64 queries over 192 keys, the
+    # engine's mask (key j visible iff j < true_len and j <= 128 + i) as a
+    # (B, 1, L, S) bias, the causal flag off; true lengths in (128, 192]
+    B, H, L, S, d = 2, 4, 64, 192, 64
+    from flash_attention_softmax_n_tpu_torch.ops import flash_attention as ofa
+    q, k, v = (torch.randn((B, H, m, d), generator=gen, device="cuda").to(dtype)
+               for m in (L, S, S))
+    true_lens = torch.tensor([140, 192], device="cuda")
+    kpos = torch.arange(S, device="cuda")
+    visible = ((kpos[None, None, :] < true_lens[:, None, None])
+               & (kpos[None, :] <= torch.arange(L, device="cuda")[:, None] + S - L)[None])
+    bias = ofa._mask_to_bias(visible[:, None])
+    kw = dict(n=n, scale=d ** -0.5, is_causal=False)
+    before = _build.LAUNCHES["flash_fwd"]
+    got = fa.flash_fwd(q, k, v, bias, **kw)
+    assert _build.LAUNCHES["flash_fwd"] == before + 1
+    want = fa.flash_fwd_reference(q, k, v, bias, **kw)
+    if dtype == torch.bfloat16:
+        _check_bf16_fwd(got, want)
+    else:
+        torch.testing.assert_close(got[0], want[0], atol=2e-5, rtol=0)
+        torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=1e-6)
+    again = fa.flash_fwd(q, k, v, bias, **kw)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def _prefix_setup(max_batch, kv="int8"):
+    """The graph tests' bf16 model with int8 weights, engines of
+    ``max_batch`` slots with 64-token chunks over an int8 (or ``kv``) cache,
+    and a 128-token prefix."""
+    from flash_attention_softmax_n_tpu_torch.engine import InferenceEngine
+    from flash_attention_softmax_n_tpu_torch.models import decoder as dec
+    from flash_attention_softmax_n_tpu_torch.quant import weights as qw
+
+    cfg = dec.DecoderConfig(vocab_size=512, d_model=128, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=256, max_seq_len=512, softmax_n=1.0,
+                            dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = qw.quantize_decoder_weights(dec.init_decoder_params(cfg, g, device="cuda"),
+                                         bits=8)
+    prefix = np.random.RandomState(99).randint(0, 512, size=128).tolist()
+
+    def make(cls=InferenceEngine, slots=max_batch):
+        return cls(cfg, params, max_batch=slots, max_len=256, kv_quantization=kv,
+                   prefill_chunk=64)
+
+    return make, prefix
+
+
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+def test_prefix_store_bit_equal_to_a_cold_chunked_prefill(gen, kv):
+    # the store's rows against those a cold 1-slot engine writes for the
+    # same tokens through its chunked lane (two 64-token chunks at offsets 0
+    # and 64, one more at 128 for the prompt's last token): value and scale
+    # bytes equal; the later chunks read the cached prefix as fp8 too
+    make, prefix = _prefix_setup(4, kv)
+    eng = make()
+    assert eng.register_prefix(prefix) == 0
+    cold = make(slots=1)
+    cold.submit(prefix + [7], max_new_tokens=1)
+    before = _build.LAUNCHES["flash_fwd"]
+    cold.run_until_done()
+    assert _build.LAUNCHES["flash_fwd"] == before + 3 * 2  # 3 chunks x 2 layers
+    assert set(cold._prefill_chunks) == {0, 64, 128}
+    store = eng._prefixes[0]["store"]
+    for name in ("k", "v"):
+        ref = cold.cache[name]
+        assert torch.equal(qt.as_bytes(store[name].values),
+                           qt.as_bytes(ref.values[:, 0, :, :128]))
+        assert torch.equal(store[name].scales, ref.scales[:, 0, :, :128])
+
+
+def test_prefix_hit_inside_a_prewarmed_engine(gen):
+    # prefix hits served by a prewarmed engine (its greedy chunks replay
+    # graphs) give the tokens of an engine that captures nothing; then,
+    # with the inserted rows live in its cache, each loop variant still
+    # replays bit-equal to the eager loop
+    from flash_attention_softmax_n_tpu_torch.engine import InferenceEngine
+
+    class Eager(InferenceEngine):
+        def _capture(self, key):
+            pass
+
+    make, prefix = _prefix_setup(16)
+    rng = np.random.RandomState(1)
+    reqs = [(prefix + rng.randint(0, 512, size=int(rng.randint(1, 60))).tolist()
+             if j % 2 == 0 else rng.randint(0, 512, size=int(rng.randint(5, 100))).tolist(),
+             int(rng.randint(8, 40))) for j in range(12)]
+    outs = []
+    for eng in (make(), make(Eager)):
+        if not isinstance(eng, Eager):
+            eng.prewarm(loop_steps=16, attn_lens=[256])
+        eng.register_prefix(prefix)
+        for prompt, budget in reqs:
+            eng.submit(prompt, max_new_tokens=budget)
+        done = sorted(eng.run_until_done(loop_steps=16), key=lambda r: r.request_id)
+        assert eng.counters_report()["prefix_hits"] == 6
+        assert [len(r.output) for r in done] == [b for _, b in reqs]
+        outs.append([r.output for r in done])
+    assert outs[0] == outs[1]
+    # live slots over inserted prefix rows, and 8 short prompts queued for
+    # the piggybacked variant
+    eng = make()
+    eng.register_prefix(prefix)
+    for prompt, budget in reqs[:8]:
+        eng.submit(prompt, max_new_tokens=40)
+    eng._finalize_admission(eng._admit_async())
+    assert eng.counters_report()["prefix_hits"] == 4
+    for _ in range(8):
+        eng.submit(rng.randint(0, 512, size=int(rng.randint(5, 100))).tolist(),
+                   max_new_tokens=40)
+    eng._active_mask()
+    _check_replays(eng)
 
 
 # ----------------------------------------------------------------------------

@@ -22,6 +22,7 @@ from flash_attention_softmax_n_tpu.models import (
     DecoderConfig as JConfig,
     init_decoder_params as j_init,
 )
+from flash_attention_softmax_n_tpu.quant import kv_cache as jkv_mod
 from flash_attention_softmax_n_tpu.quant.qtensor import QTensor as JQTensor
 from flash_attention_softmax_n_tpu.quant.weights import (
     quantize_decoder_weights as j_quantize_weights,
@@ -35,6 +36,7 @@ from flash_attention_softmax_n_tpu_torch.engine import engine as teng
 from flash_attention_softmax_n_tpu_torch.models import DecoderConfig
 from flash_attention_softmax_n_tpu_torch.ops.sampling import sample_tokens
 from flash_attention_softmax_n_tpu_torch.quant.qtensor import QTensor
+from flash_attention_softmax_n_tpu_torch.quant.qtensor import as_bytes as qt_bytes
 
 torch.set_num_threads(2)
 TINY_KW = dict(vocab_size=97, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -151,10 +153,16 @@ def test_unported_paths_raise(jparams):
     eng.submit([1, 2, 3], max_new_tokens=6)
     done = eng.run_until_done(loop_steps=4)
     assert len(done[0].output) == 6 and eng.counters_report()["chunks"] == 2
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
-        eng.submit(list(range(40)), max_new_tokens=4)
-    with pytest.raises(NotImplementedError, match="prefix cache"):
-        eng.register_prefix([1] * 20)
+    # chunked prefill and the prefix cache serve; meshes still raise
+    eng.submit(list(range(40)), max_new_tokens=4)
+    assert len(eng.run_until_done(loop_steps=8)[0].output) == 4
+    assert set(eng._prefill_chunks) == {0, 16, 32}
+    assert eng.register_prefix([1] * 20) == 0
+    eng.submit([1] * 20 + [2], max_new_tokens=3)
+    assert len(eng.run_until_done(loop_steps=8)[0].output) == 3
+    assert eng.counters_report()["prefix_hits"] == 1
+    with pytest.raises(NotImplementedError, match="meshed serving"):
+        InferenceEngine(TTINY, tp, mesh=object(), device="cpu")
 
 
 @pytest.mark.parametrize("loop_steps", [4, 6, 8, 16])
@@ -264,3 +272,323 @@ def test_flush_prefill_ring_matches_jax(mode):
         else:
             np.testing.assert_array_equal(u8(t.values), u8(j.values))
             np.testing.assert_array_equal(t.scales.numpy(), np.asarray(j.scales))
+
+
+# ----------------------------------------------------------------------------
+# chunked prefill past offset 0 and the prefix cache
+# ----------------------------------------------------------------------------
+
+
+def _cache_pair(mode, rng, *, nl=2, b=4, kvh=2, s=64, hd=8, filled=16):
+    """The same cache on both sides: random rows everywhere (the prefix
+    rows [0, filled) of every slot among them), lengths ``filled``."""
+    lengths = np.full((b,), filled, np.int32)
+    if mode is None:
+        jc, tc = {}, {}
+        for name in ("k", "v"):
+            dense = rng.randn(nl, b, kvh, s, hd).astype(np.float32)
+            jc[name], tc[name] = jnp.asarray(dense), tensor_from_numpy(dense, "cpu")
+    else:
+        vdt, bits = ((np.int8, 8) if mode == "int8"
+                     else (ml_dtypes.float8_e4m3fn, -8))
+        jc, tc = {}, {}
+        for name in ("k", "v"):
+            if mode == "int8":
+                vals = rng.randint(-127, 128, size=(nl, b, kvh, s, hd)).astype(vdt)
+            else:
+                vals = (rng.randn(nl, b, kvh, s, hd) * 100).astype(vdt)
+            scl = (rng.rand(nl, b, kvh, s, 1) * 0.02).astype(np.float32)
+            jc[name] = JQTensor(jnp.asarray(vals), jnp.asarray(scl), bits=bits)
+            tc[name] = QTensor(tensor_from_numpy(vals, "cpu"),
+                               tensor_from_numpy(scl, "cpu"), bits=bits)
+    jc["lengths"] = jnp.asarray(lengths)
+    tc["lengths"] = torch.from_numpy(lengths.copy())
+    return jc, tc
+
+
+def _planes(cache):
+    """(name, array) of every plane of a cache, fp8 values as bytes."""
+    out = []
+    for name in ("k", "v"):
+        kv = cache[name]
+        if isinstance(kv, (QTensor, JQTensor)):
+            out += [(f"{name}.values", kv.values), (f"{name}.scales", kv.scales)]
+        else:
+            out.append((name, kv))
+    out.append(("lengths", cache["lengths"]))
+    return [(n, (a.view(torch.uint8) if a.dtype == torch.float8_e4m3fn else a).numpy()
+             if isinstance(a, torch.Tensor) else
+             (np.asarray(a).view(np.uint8) if a.dtype == jnp.float8_e4m3fn
+              else np.asarray(a))) for n, a in out]
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+def test_prefix_rows_and_row_writes_bit_equal_to_jax(mode):
+    # the prefix gather with its dequantization (f32 values times scales,
+    # then cast to the model dtype, bf16 here) and the chunk's quantized row
+    # writes, held bit for bit against the JAX engine's expressions
+    # (engine_prefill_chunk: the gather at engine.py:169-177, the write at
+    # :220-244) on the same inputs
+    rng = np.random.RandomState(11)
+    jc, tc = _cache_pair(mode, rng)
+    slots, offset = np.array([2, 0, 2], np.int32), 16
+    rows = (rng.randn(3, 2, 16, 8) * 3).astype(np.float32)
+    rows[2] = rows[0]  # a padded group repeats its last real row
+    ts = torch.from_numpy(slots).long()
+    for name in ("k", "v"):
+        got = teng._prefix_rows(tc[name], 1, ts, offset, torch.bfloat16)
+        jkv = jc[name]
+        if mode is None:  # a dense cache's rows as they are (f32)
+            np.testing.assert_array_equal(
+                got.numpy(), np.asarray(jkv[:, slots, :, :offset][1]))
+        else:
+            want = (jkv.values[:, slots, :, :offset].astype(jnp.float32)
+                    * jkv.scales[:, slots, :, :offset]).astype(jnp.bfloat16)[1]
+            np.testing.assert_array_equal(
+                got.view(torch.int16).numpy(), np.asarray(want).view(np.int16))
+        teng._write_rows(tc[name], 1, ts, offset, torch.from_numpy(rows))
+        new = jnp.asarray(rows)[None]  # one layer of JAX's (nl, nb, ...) stack
+        if mode is None:
+            for i in range(len(slots)):
+                jkv = jax.lax.dynamic_update_slice(
+                    jkv, new[:, i][:, None].astype(jkv.dtype),
+                    (1, slots[i], 0, offset, 0))
+        else:
+            values, scales = jkv_mod.quantize_kv(new, jkv.bits)
+            vals, scls = jkv.values, jkv.scales
+            for i in range(len(slots)):
+                idx = (1, slots[i], 0, offset, 0)
+                vals = jax.lax.dynamic_update_slice(
+                    vals, values[:, i][:, None].astype(vals.dtype), idx)
+                scls = jax.lax.dynamic_update_slice(
+                    scls, scales[:, i][:, None], idx)
+            jkv = JQTensor(vals, scls, bits=jkv.bits)
+        jc[name] = jkv
+    for (n, a), (_, b) in zip(_planes(tc), _planes(jc)):
+        np.testing.assert_array_equal(a, b, err_msg=n)
+
+
+@pytest.mark.parametrize("impl", ["xla", "auto"])
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+def test_prefill_chunk_at_offset_matches_jax(jparams, mode, impl):
+    # engine_prefill_chunk at offset 16 over the same cache: a 16-token
+    # chunk for slots 2 and 0 (the second prompt ends inside the chunk) and
+    # a padding row repeating the first. "auto" takes K1's plain version on
+    # the port and JAX's Pallas kernel in interpret mode. Logits within
+    # 1e-5; every row outside the chunk's columns, and the lengths, bit for
+    # bit. The chunk's rows come out of the two packages' f32 projections,
+    # which differ in the last bit (XLA's CPU matmul and rms_norm against
+    # torch's): dense rows within 1e-5; quantized scales within 1e-5
+    # relative, values within one step (a ratio that lands by a rounding
+    # boundary), dequantized within 1e-5 + one step
+    kw = dict(TINY_KW, attn_implementation=impl)
+    jcfg, tcfg = JConfig(**kw, dtype=jnp.float32), DecoderConfig(**kw, dtype=torch.float32)
+    rng = np.random.RandomState(12)
+    jc, tc = _cache_pair(mode, rng)
+    tokens = rng.randint(0, 97, size=(3, 16)).astype(np.int32)
+    tokens[2] = tokens[0]
+    true_lens = np.array([32, 25, 32], np.int32)
+    slots = np.array([2, 0, 2], np.int32)
+    jl, jc = jeng.engine_prefill_chunk(jparams, jcfg, jnp.asarray(tokens),
+                                       jnp.asarray(true_lens), jnp.asarray(slots),
+                                       jc, offset=16)
+    tl, tc_out = teng.engine_prefill_chunk(
+        _port(jparams), tcfg, torch.from_numpy(tokens).long(),
+        torch.from_numpy(true_lens), torch.from_numpy(slots).long(), tc, offset=16)
+    assert tc_out is tc  # written in place
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5, rtol=0)
+    chunk = np.zeros((4, 64), bool)
+    chunk[[2, 0], 16:32] = True  # (slot, column) the chunk writes
+    got, want = dict(_planes(tc)), dict(_planes(jc))
+    for n in got:
+        a, b = got[n], want[n]
+        if n == "lengths":
+            np.testing.assert_array_equal(a, [25, 16, 32, 16], err_msg=n)
+            np.testing.assert_array_equal(a, b, err_msg=n)
+            continue
+        outside = ~chunk[None, :, None, :, None]
+        np.testing.assert_array_equal(np.where(outside, a, 0), np.where(outside, b, 0),
+                                      err_msg=n)
+        if mode is None:
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=0, err_msg=n)
+        elif n.endswith("scales"):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=0, err_msg=n)
+    if mode is not None:
+        fp8 = mode == "fp8"
+        for name in ("k", "v"):
+            sa, sb = got[f"{name}.scales"], want[f"{name}.scales"]
+            va, vb = got[f"{name}.values"], want[f"{name}.values"]
+            if fp8:
+                va, vb = (v.view(ml_dtypes.float8_e4m3fn).astype(np.float32)
+                          for v in (va, vb))
+            else:
+                assert np.abs(va.astype(int) - vb.astype(int)).max() <= 1
+            step = sa * (1.0 if not fp8 else np.maximum(np.abs(va), 1) / 8)
+            assert (np.abs(va * sa - vb * sb) <= 1e-5 + step).all()
+
+
+def _engines(jparams, register=(), **kw):
+    """A JAX engine and the port's, both with ``kw``, each with
+    ``register`` registered as prefixes."""
+    kvq = kw.get("kv_quantization")
+    jp = j_quantize_weights(jparams, 8) if kvq == "int8" else jparams
+    engines = (JEngine(JTINY, jp, **kw),
+               InferenceEngine(TTINY, _port(jp), device="cpu", **kw))
+    for eng in engines:
+        for p in register:
+            eng.register_prefix(p)
+    return engines
+
+
+def _outputs(engine, prompts, budgets, loop_steps=8):
+    ids = [engine.submit(p, max_new_tokens=n) for p, n in zip(prompts, budgets)]
+    done = {r.request_id: r for r in engine.run_until_done(loop_steps=loop_steps)}
+    return ([done[i].output for i in ids], [r.request_id for r in done.values()],
+            engine.counters_report())
+
+
+def _serve_both(jparams, prompts, budgets, register=(), loop_steps=8, **kw):
+    """Serve ``prompts`` on both engines; the port's tokens, finish order
+    and prefix counters must equal JAX's. Returns the port's (outputs,
+    counters, engine)."""
+    jeng_, teng_ = _engines(jparams, register, **kw)
+    want, want_order, jrep = _outputs(jeng_, prompts, budgets, loop_steps)
+    got, order, rep = _outputs(teng_, prompts, budgets, loop_steps)
+    assert got == want
+    assert order == want_order
+    for key in ("prefix_hits", "prefix_reused_tokens", "prefill_real_tokens",
+                "prefill_tokens", "prefill_groups", "piggyback_prompts"):
+        assert rep.get(key) == jrep.get(key), key
+    return got, rep, teng_
+
+
+def test_chunked_prefill_matches_monolithic(jparams):
+    # prompts longer than prefill_chunk admit through chunked prefill; the
+    # same tokens as the monolithic prefill, and as JAX's chunked lane
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 97, size=n).tolist() for n in (40, 33, 17)]
+    budgets = [6] * 3
+    chunked, _, eng = _serve_both(jparams, prompts, budgets, max_batch=2,
+                                  max_len=128, prefill_chunk=16)
+    # chunked requests really took the chunked lane
+    assert set(eng._prefill_chunks) >= {0, 16, 32}
+    mono, _, mono_eng = _serve_both(jparams, prompts, budgets, max_batch=2,
+                                    max_len=128)
+    assert not mono_eng._prefill_chunks
+    assert chunked == mono
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_chunked_prefill_quantized_cache(jparams, mode):
+    # the chunk at offset 16 and 32 attends the dequantized prefix (f32
+    # values times scales), not the quantized decode read of the monolithic
+    # engine: the first token must agree and every budget be met
+    rng = np.random.RandomState(1)
+    prompt = rng.randint(0, 97, size=37).tolist()
+    want, _, _ = _serve_both(jparams, [prompt], [6], max_batch=1, max_len=128,
+                             kv_quantization=mode)
+    got, _, eng = _serve_both(jparams, [prompt], [6], max_batch=1, max_len=128,
+                              kv_quantization=mode, prefill_chunk=16)
+    assert set(eng._prefill_chunks) == {0, 16, 32}
+    assert got[0][0] == want[0][0] and len(got[0]) == len(want[0])
+
+
+def test_long_prompt_at_queue_head_admits_first(jparams):
+    # anti-starvation: with one contested slot, a long prompt at the queue
+    # head admits before a younger short one (the finish order is held
+    # against JAX's in _serve_both)
+    rng = np.random.RandomState(3)
+    long_p = rng.randint(0, 97, size=40).tolist()
+    _, _, eng = _serve_both(jparams, [long_p, [1, 2, 3]], [4, 4], max_batch=1,
+                            max_len=128, prefill_chunk=16)
+    eng.submit(long_p, max_new_tokens=4)   # rid 2 (long, head)
+    eng.submit([1, 2, 3], max_new_tokens=4)  # rid 3 (short)
+    assert [r.request_id for r in eng.run_until_done(loop_steps=8)] == [2, 3]
+
+
+def _prefix_prompts(seed, prefix_len, suffixes, others=()):
+    rng = np.random.RandomState(seed)
+    prefix = rng.randint(0, 97, size=prefix_len).tolist()
+    prompts = [prefix + rng.randint(0, 97, size=n).tolist() for n in suffixes]
+    return prefix, prompts + [rng.randint(0, 97, size=n).tolist() for n in others]
+
+
+def _cold_and_warm(jparams, prefix, prompts, **kw):
+    kw = dict(dict(max_batch=4, max_len=128, prefill_chunk=16), **kw)
+    budgets = [6] * len(prompts)
+    cold, _, _ = _serve_both(jparams, prompts, budgets, **kw)
+    warm, counters, _ = _serve_both(jparams, prompts, budgets, register=[prefix], **kw)
+    assert warm == cold
+    return counters
+
+
+def test_prefix_hit_matches_cold_prefill(jparams):
+    # three hits, a long prompt that does not match and a short one
+    prefix, prompts = _prefix_prompts(7, 33, (5, 11, 2), others=(40,))
+    prompts.append([4, 2])
+    counters = _cold_and_warm(jparams, prefix, prompts)
+    assert counters.get("prefix_hits", 0) == 3
+    # chunk 16: floor(33 / 16) * 16 = 32 rows reused per hit
+    assert counters.get("prefix_reused_tokens", 0) == 3 * 32
+
+
+def test_prefix_hit_matches_with_quantized_cache(jparams):
+    # the store is quantized as the cache is, so a hit equals prefilling the
+    # same rows in place
+    prefix, prompts = _prefix_prompts(8, 32, (3, 9))
+    counters = _cold_and_warm(jparams, prefix, prompts, kv_quantization="int8")
+    assert counters.get("prefix_hits", 0) == 2
+
+
+def test_prompt_equal_to_prefix(jparams):
+    # one suffix token must remain for the first token's logits: the reuse
+    # is whole chunks strictly inside the prompt
+    prefix, _ = _prefix_prompts(9, 32, ())
+    counters = _cold_and_warm(jparams, prefix, [prefix])
+    assert counters.get("prefix_hits", 0) == 1
+    assert counters.get("prefix_reused_tokens", 0) == 16  # one chunk
+
+
+def test_longest_prefix_wins(jparams):
+    rng = np.random.RandomState(10)
+    short = rng.randint(0, 97, size=16).tolist()
+    long_ = short + rng.randint(0, 97, size=16).tolist()
+    for eng in _engines(jparams, [short, long_], max_batch=2, max_len=128,
+                        prefill_chunk=16):
+        m = eng._match_prefix(long_ + [5, 6, 7])
+        assert m is not None and m[1] == 32 and m[0]["rows"] == 32
+
+
+def test_register_prefix_validation(jparams):
+    eng = InferenceEngine(TTINY, _port(jparams), max_batch=2, max_len=64,
+                          prefill_chunk=16, device="cpu")
+    with pytest.raises(ValueError, match="prefill_chunk"):
+        eng.register_prefix([1, 2, 3])
+    with pytest.raises(ValueError, match="max_len"):
+        eng.register_prefix(list(range(90)) * 2)
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+def test_prefix_store_matches_jax_and_a_cold_prefill(jparams, mode):
+    # the store against JAX's (values within one step, as the chunk rows in
+    # test_prefill_chunk_at_offset_matches_jax) and bit-equal to the rows a
+    # cold 1-slot engine writes for the same tokens through its chunked lane
+    prefix, _ = _prefix_prompts(13, 40, ())
+    jeng_, teng_ = _engines(jparams, [prefix], max_batch=1, max_len=64,
+                            kv_quantization=mode, prefill_chunk=16)
+    cold = InferenceEngine(TTINY, teng_.params, max_batch=1, max_len=64,
+                           kv_quantization=mode, prefill_chunk=16, device="cpu")
+    cold.submit(prefix, max_new_tokens=1)
+    cold.run_until_done()
+    store, jstore = teng_._prefixes[0]["store"], jeng_._prefixes[0]["store"]
+    assert teng_._prefixes[0]["rows"] == 32
+    for name in ("k", "v"):
+        got, want, ref = store[name], jstore[name], cold.cache[name]
+        if mode is None:
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+            assert torch.equal(got, ref[:, 0, :, :32])
+            continue
+        assert torch.equal(qt_bytes(got.values), qt_bytes(ref.values[:, 0, :, :32]))
+        assert torch.equal(got.scales, ref.scales[:, 0, :, :32])
+        np.testing.assert_allclose(got.scales.numpy(), np.asarray(want.scales),
+                                   rtol=1e-5)
