@@ -30,9 +30,13 @@ Phases, in order, each printing one JSON line:
    and K10 prefill_phase (its
    four modes, B2 H32 L2048 hd64) on the card at their paths' shapes and
    holds each against its plain PyTorch version on the same card tensors
-   (K2 and K7-K10 also run twice and must be bit-equal); K7's f32 mode (the
-   scalar kernel, on no path) at M64 and M1024, K2048 N2048, against
-   ``torch.matmul`` in f32; K1 and K10 lines give TFLOP/s too;
+   (K2 and K7-K10 also run twice and must be bit-equal); K1 at B4 H32
+   L=S=512 causal (the analysis phase's forward); K7's f32 mode (the
+   scalar kernel) with grouped int4 weights at BERT-base's shapes over
+   B8 x L512 (M4096: K768 N768, K768 N3072, K3072 N768; the surgery
+   phase's int4 BERT) and with int8 weights (on no path) at M64 and M1024,
+   K2048 N2048, each against ``torch.matmul`` in f32; K1 and K10 lines give
+   TFLOP/s too;
 4. train kernels: K1 with ALiBi and dropout, K5 flash_bwd_dq and K6
    flash_bwd_dkv against their plain versions (B2 H4 L200 S264 with bias,
    ALiBi and dropout, f32 and bf16, n 0 and 1, bf16 at d64 and d128, so
@@ -102,10 +106,31 @@ Phases, in order, each printing one JSON line:
    ``make_train_step``, counting the kernels' launches; the losses must be
    finite and fall, the gradients finite and not all zero; then three
    pairs of an unprofiled step and a step under ``torch.profiler`` give
-   the step's paired idle share.
+   the step's paired idle share;
+9. analysis: the TinyLlama-1.1B shape (22 layers, bf16, n 1, the serving
+   phases' weights from seed 0): ``register_activation_hooks`` over
+   ``decoder_forward(collect_taps=True)`` on four B4 x L512 batches (22
+   taps of 16 samples, finite, K1 22 times a forward), ``delta_perplexity``
+   of int8 weights on the default route and on ``int8_mm_impl="pallas"``
+   (K7 155 times a forward; perplexities finite and above 1, |relative|
+   below 0.05), ``output_attentions`` at B1 L512 (logits within relative L2
+   5e-2 of the K1 path's, null mass in [0, 1] and above 0), and
+   ``compute_weight_statistics`` and ``gate_report`` of activations and
+   weights (dense and int8 trees);
+10. surgery: BERT-base and XLNet-base (the published configs' widths) from
+   stand-in HF models (seeded HF-named state dicts, the configs'
+   attributes) through ``from_pretrained_hf(softmax_n_param=1.0)`` on the
+   card, f32: BERT-base at B8 x L512 with padded lengths 128-512 (12 taps
+   over two batches into ``gate_report``; int8 weights within 0.05 of
+   dense; int4 weights, K7's f32 mode 72 times a forward, within 1e-3 of
+   the same tree dequantized; ``output_attentions`` at B2, padded keys at
+   probability 0, null mass above 0); XLNet-base over two B4 x L256
+   segments with mems (finite, mems (12, 256, 4, 768)), its taps into
+   ``gate_report`` and ``summarize_attention`` of ``output_attentions``.
 
-Then it prints the kernels' JSON line (times, launches on the serving or
-the training run, bounds), the card's name and power limit from
+Then it prints the kernels' JSON line (times, launches on the serving,
+training, analysis or surgery run, each kernel's launches on the analysis
+and surgery runs, bounds), the card's name and power limit from
 nvidia-smi, and last ``{"ok": true, "device": {...}}``. Any failed check
 exits non-zero. The port is imported from the checkout; nothing of JAX is
 imported.
@@ -117,6 +142,7 @@ import dataclasses
 import json
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -488,21 +514,23 @@ def check_dequant_mm(torch, pkg, gen, *, M, K, N, mode="int8"):
             "library": "torch.matmul over the weights dequantized to bf16"}
 
 
-def check_dequant_f32(torch, pkg, gen, *, M, K, N):
-    """K7 with f32 activations (int8 weights, f32 out): the scalar kernel
-    ``qmm_splitk_kernel`` (and its split-K sum), bound by f32 operations at
-    67 TFLOP/s, against ``torch.matmul`` in f32 (TF32 off) over the weights
-    dequantized to f32."""
+def check_dequant_f32(torch, pkg, gen, *, M, K, N, bits=8):
+    """K7 with f32 activations (int8 or grouped int4 weights, f32 out): the
+    scalar kernel ``qmm_splitk_kernel`` (and its split-K sum), bound by f32
+    operations at 67 TFLOP/s, against ``torch.matmul`` in f32 (TF32 off)
+    over the weights dequantized to f32."""
     qm, qt = pkg["quant_matmul"], pkg["qtensor"]
     dev, dt = "cuda", torch.float32
     x = torch.randn((M, K), generator=gen, device=dev)
-    wq = qt.quantize(torch.randn((K, N), generator=gen, device=dev) * K ** -0.5, bits=8, axis=0)
+    wq = qt.quantize(torch.randn((K, N), generator=gen, device=dev) * K ** -0.5, bits=bits,
+                     axis=0)
 
     def kernel():
-        return qm._qmm_cuda(x, None, wq.values, wq.scales, 8, dt)
+        return qm._qmm_cuda(x, None, wq.values, wq.scales, bits, dt)
 
     def plain():
-        return qm.quantized_matmul_reference(x, None, wq.values, wq.scales, bits=8, out_dtype=dt)
+        return qm.quantized_matmul_reference(x, None, wq.values, wq.scales, bits=bits,
+                                             out_dtype=dt)
 
     w_f32 = qt.dequantize(wq, dt)
 
@@ -514,7 +542,7 @@ def check_dequant_f32(torch, pkg, gen, *, M, K, N):
     same = repeat_equal(torch, kernel, out)
     err = float((out - ref).abs().max())
     scale = float(ref.abs().max())
-    name = f"qmm f32 M{M} K{K} N{N} f32"
+    name = f"qmm f32{' int4' if bits == 4 else ''} M{M} K{K} N{N} f32"
     require(err <= 1e-5 * scale and same,
             f"{name}: max |out - plain| {err} > 1e-5 * {scale}, or repeat bit-equal {same}")
     b_ms, b_by = bound_ms(x.numel() * 4 + wq.values.numel() + N * 4 + M * N * 4,
@@ -523,7 +551,9 @@ def check_dequant_f32(torch, pkg, gen, *, M, K, N):
     return {"name": name, "route": "cuda", "source": f"{CSRC}/qmm.cu",
             "replaces": f"{TPU_PKG}/kernels/quant_matmul.py:65 _qmm_kernel",
             "counter": "qmm", "max_abs_err": err, "tolerance": "1e-5 max|out|",
-            "repeat_bit_equal": same, "ms": time_ms(torch, kernel), "device_ms": k_dev,
+            "repeat_bit_equal": same, "plan": pkg["quant_matmul"].qmm_plan(
+                M, K, N, "f32")._asdict(),
+            "ms": time_ms(torch, kernel), "device_ms": k_dev,
             "tflops": tflops(2.0 * M * K * N, k_dev), "plain_ms": time_ms(torch, plain),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(torch, library),
             "library_device_ms": lib_dev,
@@ -1943,6 +1973,390 @@ def train(torch, pkg):
     return launches
 
 
+# ----------------------------------------------------------------------------
+# phase 9: analysis at the TinyLlama-1.1B shape
+# ----------------------------------------------------------------------------
+
+ANALYSIS_BATCHES = 4
+
+
+class Since:
+    """Each call: the launches of every kernel since the last call."""
+
+    def __init__(self, build):
+        self.build, self.last = build, dict(build.LAUNCHES)
+
+    def __call__(self):
+        now = dict(self.build.LAUNCHES)
+        out = {k: now[k] - self.last[k] for k in now}
+        self.last = now
+        return out
+
+
+def finite_stats(d) -> bool:
+    return all(np.isfinite(v) for entry in d.values() for k, v in entry.items()
+               if k != "n_samples")
+
+
+def gate_counts(report):
+    """how many taps or weights pass at each bit width"""
+    return {k: sum(e[k] for e in report.values()) for k in ("int8_ok", "int4_ok", "fp8_ok")}
+
+
+def analysis(torch, pkg):
+    """The analysis path at the TinyLlama-1.1B shape (22 layers, bf16, n 1,
+    the serving phases' weights from seed 0): the decoder's taps streamed
+    through ``register_activation_hooks`` over four B4 x L512 batches,
+    ``delta_perplexity`` of int8 weights on the default and the all-kernel
+    routes, ``output_attentions`` against the K1 path, and weight statistics
+    and gate reports; returns the kernels' launches on the path."""
+    dec, weights, build, an = pkg["decoder"], pkg["weights"], pkg["build"], pkg["analysis"]
+    gates = pkg["gates"]
+    cfg = dec.DecoderConfig(**TINYLLAMA, n_layers=22, dtype=torch.bfloat16)
+    dense = dec.init_decoder_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                    device="cuda")
+    int8 = weights.quantize_decoder_weights(dense, bits=8)
+    rng = np.random.RandomState(0)
+    batches = [torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(4, 512))).cuda()
+               for _ in range(ANALYSIS_BATCHES)]
+    names = [f"layers.{i}.attention.output" for i in range(cfg.n_layers)]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    since = Since(build)
+
+    # taps, streamed: K1 22 times a forward
+    def apply_fn(tokens):
+        return dec.decoder_forward(dense, cfg, tokens, collect_taps=True)
+
+    hooked, stats = an.register_activation_hooks(apply_fn, names)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for tokens in batches:
+            _, stats = hooked(stats, tokens)
+    act = an.activation_stats_to_dict(stats)
+    taps_s = time.perf_counter() - t0
+    taps_launches = since()
+    act_report = gates.gate_report(act)
+    emit({"phase": "analysis_taps", "config": "TinyLlama-1.1B shape, 22 layers, bf16, n 1",
+          "batches": ANALYSIS_BATCHES, "batch": [4, 512], "seconds": taps_s,
+          "taps": len(act), "n_samples": sorted({e["n_samples"] for e in act.values()}),
+          "kurtosis_max": max(e["kurtosis"] for e in act.values()),
+          "kurtosis_min": min(e["kurtosis"] for e in act.values()),
+          "gate_pass": gate_counts(act_report), "launches": taps_launches})
+    require(len(act) == cfg.n_layers and all(e["n_samples"] == 4 * ANALYSIS_BATCHES
+                                             for e in act.values()),
+            f"analysis: {len(act)} taps, n_samples {[e['n_samples'] for e in act.values()]}")
+    require(finite_stats(act), "analysis: a tap's statistic is not finite")
+    require(taps_launches["flash_fwd"] == cfg.n_layers * ANALYSIS_BATCHES,
+            f"analysis: K1 launched {taps_launches['flash_fwd']} times over "
+            f"{ANALYSIS_BATCHES} forwards of {cfg.n_layers} layers")
+
+    # delta perplexity of int8 weights, on the default and all-kernel routes
+    pallas = dataclasses.replace(cfg, int8_mm_impl="pallas")
+    for route, rcfg in (("default", cfg), ("pallas", pallas)):
+        t0 = time.perf_counter()
+        out = an.delta_perplexity(dense, int8, rcfg, batches)
+        seconds = time.perf_counter() - t0
+        route_launches = since()
+        emit({"phase": "analysis_perplexity", "route": route, **out, "seconds": seconds,
+              "tokens": ANALYSIS_BATCHES * 4 * 512, "launches": route_launches})
+        require(all(np.isfinite(out[k]) and out[k] > 1.0 for k in ("ppl_dense", "ppl_quant")),
+                f"analysis_perplexity {route}: perplexities {out}")
+        require(abs(out["relative"]) < 0.05,
+                f"analysis_perplexity {route}: |relative| {abs(out['relative'])} >= 0.05")
+        # two passes (dense, int8) of every batch; K7 on the pallas route
+        # only: 7 matmuls a layer and the lm_head for each int8 forward
+        require(route_launches["flash_fwd"] == 2 * cfg.n_layers * ANALYSIS_BATCHES,
+                f"analysis_perplexity {route}: K1 launched {route_launches['flash_fwd']} times")
+        want_qmm = (7 * cfg.n_layers + 1) * ANALYSIS_BATCHES if route == "pallas" else 0
+        require(route_launches["qmm"] == want_qmm,
+                f"analysis_perplexity {route}: K7 launched {route_launches['qmm']} times, "
+                f"not {want_qmm}")
+
+    # output_attentions at B1 L512 against the K1 path's logits
+    tokens = batches[0][:1]
+    with torch.inference_mode():
+        logits, probs = dec.decoder_forward(dense, cfg, tokens, output_attentions=True)
+        materialized_k1 = since()["flash_fwd"]
+        k1 = dec.decoder_forward(dense, cfg, tokens)
+    rel = float(torch.linalg.vector_norm(logits - k1) / torch.linalg.vector_norm(k1))
+    summary = an.summarize_attention(probs)
+    null_mean, null_max = summary["null_mass_mean"], summary["null_mass_max"]
+    null_min = float(an.null_attention_mass(probs).min())
+    emit({"phase": "analysis_attentions", "shape": list(probs.shape),
+          "logits_rel_l2_vs_k1": rel, "tolerance": 5e-2,
+          "null_mass_mean": float(null_mean.mean()), "null_mass_max": float(null_max.max()),
+          "null_mass_min": null_min, "entropy_mean": float(summary["entropy_mean"].mean()),
+          "k1_launches_materialized": materialized_k1})
+    require(rel < 5e-2, f"analysis_attentions: logits relative L2 {rel} vs K1's >= 5e-2")
+    require(null_min >= -1e-6 and float(null_max.max()) <= 1.0 + 1e-6,
+            f"analysis_attentions: null mass outside [0, 1]: min {null_min}, "
+            f"max {float(null_max.max())}")
+    require(float(null_max.max()) > 0.0, "analysis_attentions: no null mass at n = 1")
+    require(materialized_k1 == 0, "analysis_attentions: output_attentions launched K1")
+    del probs
+
+    # weight statistics and the gates
+    t0 = time.perf_counter()
+    w_dense = an.compute_weight_statistics(dense)
+    w_int8 = an.compute_weight_statistics(int8)
+    emit({"phase": "analysis_weights", "seconds": time.perf_counter() - t0,
+          "dense_leaves": len(w_dense), "int8_leaves": len(w_int8),
+          "activation_gate": gate_counts(act_report), "activation_taps": len(act_report),
+          "weight_gate": gate_counts(gates.gate_report(w_dense, target="weights")),
+          "weight_gate_int8_tree": gate_counts(gates.gate_report(w_int8, target="weights")),
+          "weight_leaves": len(w_dense)})
+    require(finite_stats({k: v for k, v in w_dense.items() if "norm" not in k}),
+            "analysis_weights: a dense weight statistic is not finite")
+    require("layers/wq/0" in w_int8 and "layers/wq/1" in w_int8,
+            f"analysis_weights: QTensor leaves are not named <path>/0 and <path>/1: "
+            f"{sorted(w_int8)[:6]}")
+    del dense, int8
+    torch.cuda.synchronize()
+    return dict(build.LAUNCHES)
+
+
+# ----------------------------------------------------------------------------
+# phase 10: surgery at BERT-base and XLNet-base widths
+# ----------------------------------------------------------------------------
+
+# HF google-bert/bert-base-uncased config.json
+BERT_BASE = dict(model_type="bert", vocab_size=30522, hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=3072, max_position_embeddings=512,
+                 type_vocab_size=2, layer_norm_eps=1e-12, hidden_dropout_prob=0.1,
+                 attention_probs_dropout_prob=0.1, position_embedding_type="absolute",
+                 is_decoder=False, add_cross_attention=False)
+# HF xlnet/xlnet-base-cased config.json; mem_len 256 is this run's setting
+XLNET_BASE = dict(model_type="xlnet", vocab_size=32000, d_model=768, n_layer=12, n_head=12,
+                  d_head=64, d_inner=3072, ff_activation="gelu", attn_type="bi",
+                  bi_data=False, clamp_len=-1, same_length=False, mem_len=256,
+                  reuse_len=None, layer_norm_eps=1e-12, dropout=0.1)
+
+
+class StandIn:
+    """An HF model's stand-in: ``.config`` with HF's attribute names and
+    ``.state_dict()`` (this machine has no ``transformers``)."""
+
+    def __init__(self, config, sd):
+        self.config = types.SimpleNamespace(**config)
+        self._sd = sd
+
+    def state_dict(self):
+        return self._sd
+
+
+def bert_state_dict(torch, gen, c):
+    """HF BertModel-named tensors on the card: N(0, 0.02) weights, zero
+    biases, LayerNorm ones and zeros."""
+    d, f, dev = c["hidden_size"], c["intermediate_size"], "cuda"
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen, device=dev) * 0.02
+
+    def z(*shape):
+        return torch.zeros(shape, device=dev)
+
+    sd = {"embeddings.word_embeddings.weight": w(c["vocab_size"], d),
+          "embeddings.position_embeddings.weight": w(c["max_position_embeddings"], d),
+          "embeddings.token_type_embeddings.weight": w(c["type_vocab_size"], d),
+          "embeddings.LayerNorm.weight": torch.ones(d, device=dev),
+          "embeddings.LayerNorm.bias": z(d),
+          "pooler.dense.weight": w(d, d), "pooler.dense.bias": z(d)}
+    for i in range(c["num_hidden_layers"]):
+        p = f"encoder.layer.{i}."
+        for name, (o, n) in {"attention.self.query": (d, d), "attention.self.key": (d, d),
+                             "attention.self.value": (d, d),
+                             "attention.output.dense": (d, d),
+                             "intermediate.dense": (f, d), "output.dense": (d, f)}.items():
+            sd[p + name + ".weight"], sd[p + name + ".bias"] = w(o, n), z(o)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[p + name + ".weight"], sd[p + name + ".bias"] = torch.ones(d, device=dev), z(d)
+    return sd
+
+
+def xlnet_state_dict(torch, gen, c):
+    """HF XLNetModel-named tensors on the card, as ``bert_state_dict``."""
+    d, nh, dh, f, dev = c["d_model"], c["n_head"], c["d_head"], c["d_inner"], "cuda"
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen, device=dev) * 0.02
+
+    sd = {"word_embedding.weight": w(c["vocab_size"], d), "mask_emb": w(1, 1, d)}
+    for i in range(c["n_layer"]):
+        p = f"layer.{i}."
+        for name in "qkvor":
+            sd[p + "rel_attn." + name] = w(d, nh, dh)
+        for name in ("r_w_bias", "r_r_bias", "r_s_bias"):
+            sd[p + "rel_attn." + name] = w(nh, dh)
+        sd[p + "rel_attn.seg_embed"] = w(2, nh, dh)
+        for name in ("rel_attn.layer_norm", "ff.layer_norm"):
+            sd[p + name + ".weight"] = torch.ones(d, device=dev)
+            sd[p + name + ".bias"] = torch.zeros(d, device=dev)
+        sd[p + "ff.layer_1.weight"], sd[p + "ff.layer_1.bias"] = w(f, d), torch.zeros(f, device=dev)
+        sd[p + "ff.layer_2.weight"], sd[p + "ff.layer_2.bias"] = w(d, f), torch.zeros(d, device=dev)
+    return sd
+
+
+def rel_max_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def surgery_bert(torch, pkg):
+    bert, an, gates, qt = pkg["bert"], pkg["analysis"], pkg["gates"], pkg["qtensor"]
+    build, weights = pkg["build"], pkg["weights"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    cfg, params = pkg["surgery"].from_pretrained_hf(
+        StandIn(BERT_BASE, bert_state_dict(torch, gen, BERT_BASE)), softmax_n_param=1.0)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    require(cfg.softmax_n == 1.0 and cfg.dtype == torch.float32
+            and params["layers"]["q_w"].is_cuda, f"surgery_bert: {cfg}")
+    rng = np.random.RandomState(0)
+    B, L = 8, 512
+
+    def batch():
+        ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(B, L))).cuda()
+        lens = torch.from_numpy(rng.randint(128, L + 1, size=(B,))).cuda()
+        mask = (torch.arange(L, device="cuda")[None, :] < lens[:, None]).long()
+        return ids, mask
+
+    names = [f"encoder.layer.{i}.attention.output" for i in range(cfg.n_layers)]
+
+    def apply_fn(ids, mask):
+        return bert.bert_forward(params, cfg, ids, mask, collect_taps=True)
+
+    hooked, stats = an.register_activation_hooks(apply_fn, names)
+    batches = [batch() for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for ids, mask in batches:
+            out, stats = hooked(stats, ids, mask)
+    act = an.activation_stats_to_dict(stats)
+    taps_s = time.perf_counter() - t0
+    report = gates.gate_report(act)
+    ids, mask = batches[0]
+    with torch.inference_mode():
+        dense = bert.bert_forward(params, cfg, ids, mask)["last_hidden_state"]
+        int8 = bert.bert_forward(weights.quantize_bert_weights(params, bits=8), cfg, ids,
+                                 mask)["last_hidden_state"]
+        p4 = weights.quantize_bert_weights(params, bits=4)
+        deq = dict(p4, layers={k: qt.dequantize(v) if isinstance(v, qt.QTensor) else v
+                               for k, v in p4["layers"].items()})
+        torch.cuda.synchronize()
+        since = Since(build)
+        t0 = time.perf_counter()
+        int4 = bert.bert_forward(p4, cfg, ids, mask)["last_hidden_state"]
+        torch.cuda.synchronize()
+        int4_s = time.perf_counter() - t0
+        int4_launches = since()
+        t0 = time.perf_counter()
+        int4_deq = bert.bert_forward(deq, cfg, ids, mask)["last_hidden_state"]
+        torch.cuda.synchronize()
+        deq_s = time.perf_counter() - t0
+    require(sum(since().values()) == 0, "surgery_bert: the dequantized tree launched a kernel")
+    err8, err4 = rel_max_err(int8, dense), rel_max_err(int4, int4_deq)
+    emit({"phase": "surgery_bert", "config": "google-bert/bert-base-uncased widths, random "
+          "N(0, 0.02) from seed 0, softmax-1 surgery, f32", "convert_s": convert_s,
+          "batch": [B, L], "padded_lengths": [int(m.sum()) for m in mask],
+          "taps": len(act), "taps_s": taps_s,
+          "n_samples": sorted({e["n_samples"] for e in act.values()}),
+          "gate_pass": gate_counts(report), "taps_gated": len(report),
+          "int8_rel_max_err_vs_dense": err8, "int8_tolerance": 0.05,
+          "int4_rel_max_err_vs_dequantized": err4, "int4_tolerance": 1e-3,
+          "int4_forward_s": int4_s, "dequantized_forward_s": deq_s,
+          "int4_launches": int4_launches, "card": pkg["nvidia_smi"]})
+    require(len(act) == cfg.n_layers and finite_stats(act)
+            and all(e["n_samples"] == 2 * B for e in act.values()),
+            f"surgery_bert: taps {len(act)}, finite {finite_stats(act)}")
+    require(bool(torch.isfinite(dense).all()), "surgery_bert: dense output not finite")
+    require(err8 < 0.05, f"surgery_bert: int8 relative max error {err8} >= 0.05")
+    require(int4_launches["qmm"] == 6 * cfg.n_layers,
+            f"surgery_bert: int4 forward launched K7 {int4_launches['qmm']} times, not "
+            f"{6 * cfg.n_layers}")
+    require(err4 < 1e-3, f"surgery_bert: int4 against its dequantized tree {err4} >= 1e-3")
+
+    # output_attentions at B2 L512: padded keys get probability 0
+    with torch.inference_mode():
+        out = bert.bert_forward(params, cfg, ids[:2], mask[:2], output_attentions=True)
+    probs = out["attentions"]  # (n_layers, B, H, L, S)
+    pad = mask[:2] == 0
+    pad_mass = float((probs * pad[None, :, None, None, :]).amax())
+    summary = an.summarize_attention(probs)
+    emit({"phase": "surgery_bert_attentions", "shape": list(probs.shape),
+          "padded_key_prob_max": pad_mass, "padded_keys": int(pad.sum()),
+          "null_mass_mean": float(summary["null_mass_mean"].mean()),
+          "null_mass_max": float(summary["null_mass_max"].max())})
+    require(pad_mass == 0.0, f"surgery_bert: a padded key has probability {pad_mass}")
+    require(float(summary["null_mass_max"].max()) > 0.0, "surgery_bert: no null mass at n = 1")
+
+
+def surgery_xlnet(torch, pkg):
+    xlnet, an, gates = pkg["xlnet"], pkg["analysis"], pkg["gates"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    t0 = time.perf_counter()
+    cfg, params = pkg["surgery"].from_pretrained_hf(
+        StandIn(XLNET_BASE, xlnet_state_dict(torch, gen, XLNET_BASE)), softmax_n_param=1.0)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    require(cfg.softmax_n == 1.0 and cfg.mem_len == 256, f"surgery_xlnet: {cfg}")
+    rng = np.random.RandomState(1)
+    B, L = 4, 256
+    segs = [torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(B, L))).cuda()
+            for _ in range(2)]
+    names = [f"layer.{i}.rel_attn.output" for i in range(cfg.n_layers)]
+    mems = None
+
+    def apply_fn(ids, mems):
+        out, taps = xlnet.xlnet_forward(params, cfg, ids, mems=mems, use_mems=True,
+                                        collect_taps=True)
+        return out, taps
+
+    hooked, stats = an.register_activation_hooks(apply_fn, names, names)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        outs = []
+        for ids in segs:
+            out, stats = hooked(stats, ids, mems)
+            mems = out["mems"]
+            outs.append(out["last_hidden_state"])
+        attn = xlnet.xlnet_forward(params, cfg, segs[1], mems=mems, output_attentions=True)
+    act = an.activation_stats_to_dict(stats)
+    seconds = time.perf_counter() - t0
+    summary = an.summarize_attention(attn["attentions"])
+    emit({"phase": "surgery_xlnet", "config": "xlnet/xlnet-base-cased widths, random "
+          "N(0, 0.02) from seed 1, softmax-1 surgery, f32, mem_len 256",
+          "convert_s": convert_s, "segments": 2, "batch": [B, L], "seconds": seconds,
+          "mems_shape": list(mems.shape), "taps": len(act),
+          "gate_pass": gate_counts(gates.gate_report(act)),
+          "attentions_shape": list(attn["attentions"].shape),
+          "null_mass_mean": float(summary["null_mass_mean"].mean()),
+          "null_mass_max": float(summary["null_mass_max"].max())})
+    require(all(bool(torch.isfinite(o).all()) for o in outs)
+            and bool(torch.isfinite(mems).all()), "surgery_xlnet: outputs not finite")
+    require(tuple(mems.shape) == (cfg.n_layers, 256, B, cfg.d_model),
+            f"surgery_xlnet: mems of shape {tuple(mems.shape)}")
+    require(len(act) == cfg.n_layers and finite_stats(act)
+            and all(e["n_samples"] == 2 * B for e in act.values()),
+            f"surgery_xlnet: taps {len(act)}, finite {finite_stats(act)}")
+    require(float(summary["null_mass_max"].max()) > 0.0, "surgery_xlnet: no null mass at n = 1")
+
+
+def surgery(torch, pkg):
+    """BERT-base and XLNet-base through ``from_pretrained_hf`` from stand-in
+    HF models on the card; returns the kernels' launches on the path (K7's
+    f32 int4 mode on BERT's int4 forward)."""
+    build = pkg["build"]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    surgery_bert(torch, pkg)
+    surgery_xlnet(torch, pkg)
+    torch.cuda.synchronize()
+    return dict(build.LAUNCHES)
+
+
 def main() -> int:
     import torch
 
@@ -1951,6 +2365,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     try:
+        from flash_attention_softmax_n_tpu_torch import analysis as analysis_mod
+        from flash_attention_softmax_n_tpu_torch import surgery as surgery_mod
         from flash_attention_softmax_n_tpu_torch.engine import engine
         from flash_attention_softmax_n_tpu_torch.kernels import (
             _build,
@@ -1961,12 +2377,12 @@ def main() -> int:
             prefill_phases as prefill_phases_mod,
             quant_matmul,
         )
-        from flash_attention_softmax_n_tpu_torch.models import decoder
+        from flash_attention_softmax_n_tpu_torch.models import bert, decoder, xlnet
         from flash_attention_softmax_n_tpu_torch.ops import (
             flash_attention as ops_flash_attention,
         )
         from flash_attention_softmax_n_tpu_torch.parallel import train as train_mod
-        from flash_attention_softmax_n_tpu_torch.quant import kv_cache, qtensor, weights
+        from flash_attention_softmax_n_tpu_torch.quant import gates, kv_cache, qtensor, weights
         from flash_attention_softmax_n_tpu_torch.utils import (
             bench_cache_update,
             bench_decode_attn,
@@ -1983,7 +2399,9 @@ def main() -> int:
            "weights": weights, "qtensor": qtensor, "kv_cache": kv_cache, "train": train_mod,
            "prefill_phases": prefill_phases_mod,
            "profile_prefill_phases": profile_prefill_phases,
-           "bench_decode_attn": bench_decode_attn, "bench_cache_update": bench_cache_update}
+           "bench_decode_attn": bench_decode_attn, "bench_cache_update": bench_cache_update,
+           "analysis": analysis_mod, "surgery": surgery_mod, "gates": gates, "bert": bert,
+           "xlnet": xlnet}
     global CHIP, K8_LINES
     K8_LINES = bench_decode_attn.LINES
     CHIP = profiling.H100
@@ -2078,8 +2496,22 @@ def main() -> int:
     # K8's fp8 mode beside its int8 and bf16 lines at B64, held all the
     # same; no path runs fp8 at B64, so it stays out of the kernels line
     fp8_b64 = check_decode_attn(torch, pkg, K8_LINES[2])
-    # K7's f32 mode (the scalar kernel): no path gives K7 f32 activations,
-    # so its lines stay out of the kernels line too
+    # the analysis and surgery paths' lines draw from a generator of their
+    # own, so that every other line keeps the inputs it had before them
+    gen_analysis = torch.Generator(device="cuda").manual_seed(13)
+    # K1 at the analysis phase's shape: the TinyLlama-1.1B decoder's
+    # forward over B4 x L512 batches, causal
+    kd = check_flash(torch, pkg, gen_analysis, B=4, H=32, L=512, S=512, D=64, masked=False)
+    kd["path"] = "analysis"
+    kernels.append(kd)
+    # K7's f32 mode (the scalar kernel) with grouped int4 weights at
+    # BERT-base's three matmul shapes over the surgery phase's B8 x L512
+    for K, N in ((768, 768), (768, 3072), (3072, 768)):
+        kd = check_dequant_f32(torch, pkg, gen_analysis, M=4096, K=K, N=N, bits=4)
+        kd["path"] = "surgery"
+        kernels.append(kd)
+    # K7's f32 mode with int8 weights: no path gives it (an f32 BERT's int8
+    # weights dequantize inline), so these lines stay out of the kernels line
     f32_lines = [check_dequant_f32(torch, pkg, gen, M=M, K=2048, N=2048) for M in (64, 1024)]
     for kd in kernels + [fp8_b64] + f32_lines:
         emit({"phase": "kernel", **{k: kd[k] for k in ("name", "max_abs_err", "tolerance", "ms",
@@ -2097,8 +2529,13 @@ def main() -> int:
     launches["prefill_phases"] = prefill_phases(torch, pkg)
     train_agreement(torch, pkg)
     launches["train"] = train(torch, pkg)
+    launches["analysis"] = analysis(torch, pkg)
+    launches["surgery"] = surgery(torch, pkg)
     for kd in kernels:
-        kd["launches"] = launches[kd.pop("path")][kd.pop("counter")]
+        counter = kd.pop("counter")
+        kd["launches"] = launches[kd.pop("path")][counter]
+        kd["launches_analysis"] = launches["analysis"][counter]
+        kd["launches_surgery"] = launches["surgery"][counter]
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

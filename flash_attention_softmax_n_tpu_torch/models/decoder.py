@@ -24,6 +24,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from flash_attention_softmax_n_tpu_torch._device import resolve_device
+from flash_attention_softmax_n_tpu_torch.kernels.flash_attention import (
+    dropout_multiplier,
+)
 from flash_attention_softmax_n_tpu_torch.kernels.fused_mlp import (
     fused_mlp_matmul,
     mlp_fusion_eligible,
@@ -260,14 +263,22 @@ def _rope(cfg: DecoderConfig, device):
 
 
 def decoder_forward(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
-                    *, train: bool = False,
-                    generator: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
+                    *, collect_taps: bool = False, train: bool = False,
+                    generator: Optional[torch.Generator] = None,
+                    output_attentions: bool = False) -> Any:
     """Full-sequence causal forward: tokens (B, L) -> logits (B, L, V) f32.
 
+    ``collect_taps=True`` also returns the taps for the analysis collector:
+    'layers.{i}.attention.output' -> (B, L, D), each layer's attention
+    output projection. ``output_attentions=True`` takes the materializing
+    path instead of ``flash_attention_n`` (f32 scores, causal -inf,
+    softmax-N, dropout under ``train``) and also returns the probabilities,
+    (n_layers, B, H, L, L). The return is ``logits[, taps][, probs]``.
+
     ``train=True`` activates ``cfg.attn_dropout``, which then needs
-    ``generator``: one int32 seed per layer is drawn from it. ``cfg.remat``
-    recomputes each layer in the backward (``torch.utils.checkpoint``).
+    ``generator``: one int32 seed per layer is drawn from it, and both
+    paths drop with K1's hash mask of that seed. ``cfg.remat`` recomputes
+    each layer in the backward (``torch.utils.checkpoint``).
     """
     b, l = tokens.shape
     dp = cfg.attn_dropout if train else 0.0
@@ -287,27 +298,52 @@ def decoder_forward(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
                               generator=generator, device=generator.device,
                               dtype=torch.int32).to(x.device)
 
+    def materialized(q, k, v, seed):
+        scores = torch.einsum("bhle,bhse->bhls", q.float(), k.float())
+        scores = scores * cfg.head_dim ** -0.5
+        causal = torch.ones((l, l), dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~causal, float("-inf"))
+        probs = softmax_n(scores, n=cfg.softmax_n, axis=-1)
+        if dp > 0.0:
+            probs = probs * dropout_multiplier(seed, probs.shape, dp,
+                                               probs.device)
+        ctx = torch.einsum("bhls,bhsv->bhlv", probs.to(q.dtype), v)
+        return ctx, probs
+
     def block(x, lp, seed):
         def attn(q, k, v):
             q = apply_rope(q, cos, sin, positions)
             k = apply_rope(k, cos, sin, positions)
+            k, v = _repeat_kv(k, reps), _repeat_kv(v, reps)
+            if output_attentions:
+                return materialized(q, k, v, seed)
             ctx = flash_attention_n(
-                q, _repeat_kv(k, reps), _repeat_kv(v, reps),
-                softmax_n_param=cfg.softmax_n, is_causal=True, dropout_p=dp,
-                train=train, dropout_seed=seed,
+                q, k, v, softmax_n_param=cfg.softmax_n, is_causal=True,
+                dropout_p=dp, train=train, dropout_seed=seed,
                 implementation=cfg.attn_implementation)
             return ctx, None
 
-        return _layer(cfg, x, lp, attn)[0]
+        x, attn_out, probs = _layer(cfg, x, lp, attn)
+        return x, attn_out if collect_taps else None, probs
 
+    taps, probs = [], []
     for lp, seed in zip(layer_views(params["layers"]), seeds):
         if cfg.remat:
-            x = checkpoint(block, x, lp, seed, use_reentrant=False)
+            x, tap, p = checkpoint(block, x, lp, seed, use_reentrant=False)
         else:
-            x = block(x, lp, seed)
+            x, tap, p = block(x, lp, seed)
+        taps.append(tap)
+        probs.append(p)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _mm(x, params["lm_head"], cfg.act_bits,
-               cfg.int8_mm_impl).float()
+    logits = _mm(x, params["lm_head"], cfg.act_bits,
+                 cfg.int8_mm_impl).float()
+    out = (logits,)
+    if collect_taps:
+        out += ({f"layers.{i}.attention.output": t
+                 for i, t in enumerate(taps)},)
+    if output_attentions:
+        out += (torch.stack(probs),)
+    return out[0] if len(out) == 1 else out
 
 
 # ----------------------------------------------------------------------------

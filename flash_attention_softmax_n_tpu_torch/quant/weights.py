@@ -1,8 +1,7 @@
-"""Weight-only int8 / int4 / fp8 quantization of decoder parameter
+"""Weight-only int8 / int4 / fp8 quantization of decoder and BERT parameter
 dictionaries, and the fusion of the q/k/v and gate/up projections.
 
-Counterpart of ``fuse_decoder_projections`` and ``quantize_decoder_weights``
-in ``flash_attention_softmax_n_tpu/quant/weights.py``: stacked
+Counterpart of ``flash_attention_softmax_n_tpu/quant/weights.py``: stacked
 (n_layers, K, N) matmul weights get per-output-channel (..., 1, N) scales;
 embeddings stay full precision.
 """
@@ -15,12 +14,19 @@ import torch
 
 from flash_attention_softmax_n_tpu_torch.quant.qtensor import QTensor, quantize
 
-__all__ = ["DECODER_MATMUL_WEIGHTS", "fuse_decoder_projections",
-           "quantize_decoder_weights"]
+__all__ = ["DECODER_MATMUL_WEIGHTS", "BERT_MATMUL_WEIGHTS",
+           "fuse_decoder_projections", "quantize_decoder_weights",
+           "quantize_bert_weights"]
 
 DECODER_MATMUL_WEIGHTS = (
     "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
     "wqkv", "w_gu",
+)
+
+# the cross-attention projections exist only under add_cross_attention
+BERT_MATMUL_WEIGHTS = (
+    "q_w", "k_w", "v_w", "attn_out_w", "inter_w", "out_w",
+    "cross_q_w", "cross_k_w", "cross_v_w", "cross_out_w",
 )
 
 
@@ -58,4 +64,18 @@ def quantize_decoder_weights(params: Dict, bits: int = 8,
     if "lm_head" in params:
         out["lm_head"] = (_quantize_leaf(params["lm_head"], bits)
                           if quantize_lm_head else params["lm_head"])
+    return out
+
+
+def quantize_bert_weights(params: Dict, bits: int = 8,
+                          include: Optional[Iterable[str]] = None) -> Dict:
+    """Quantize the stacked BERT layer matmul weights to ``bits``
+    (``include``: a subset of ``BERT_MATMUL_WEIGHTS``); embeddings and the
+    pooler stay as they are."""
+    names = set(include) if include is not None else set(BERT_MATMUL_WEIGHTS)
+    out = dict(params)
+    out["layers"] = {
+        k: (_quantize_leaf(v, bits) if k in names else v)
+        for k, v in params["layers"].items()
+    }
     return out

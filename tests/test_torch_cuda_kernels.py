@@ -30,6 +30,10 @@ engine's offset mask (f32 and bf16, n 0 and 1, repeats bit-equal), a
 prefix store bit-equal to a cold 1-slot chunked prefill of the same tokens,
 and prefix hits in a prewarmed engine (tokens of an engine that captures
 nothing; the loop variants then replay bit-equal over the inserted rows).
+Surgery and analysis: K7's f32 mode with int4 weights at BERT-base's
+matmul shapes, an int4 BERT (six K7 launches a layer) within 1e-3 of its
+dequantized tree, and the decoder's taps on the card within bf16 tolerance
+of the CPU's (``output_attentions`` launches no K1).
 Tolerances: forward f32 within 2e-5 (summation order), bf16 within 2e-2 (p
 rounded to bf16 before PV, as in the plain version), lse within 1e-4;
 gradients within 1e-4 (f32) or 2e-2 (bf16: ds rounds to bf16 on either side
@@ -1428,3 +1432,67 @@ def test_decode_steps_with_quantized_cache_match_the_cpu(gen, kv):
     torch.testing.assert_close(_decode_logits(params, cfg, tokens, kv, "cuda"),
                                _decode_logits(params, cfg, tokens, kv, "cpu"),
                                atol=1e-4, rtol=0)
+
+
+# K7's f32 mode with grouped int4 weights at BERT-base's three matmul shapes
+# (K768: three 256-row groups; K3072), as bert_forward launches it on an
+# int4 tree in f32
+@pytest.mark.parametrize("kn", [(768, 768), (768, 3072), (3072, 768)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_qmm_f32_int4_at_bert_shapes(gen, kn):
+    k, n = kn
+    x = torch.randn((512, k), generator=gen, device="cuda")
+    wv, ws = _qweight(gen, k, n, 4)
+    assert qm.qmm_plan(512, k, n, "f32").kernel == "scalar"
+    before = _build.LAUNCHES["qmm"]
+    out = qm.quantized_matmul(x, wv, ws, bits=4)
+    assert _build.LAUNCHES["qmm"] == before + 1
+    assert torch.equal(out, qm.quantized_matmul(x, wv, ws, bits=4))
+    ref = qm.quantized_matmul_reference(x, None, wv, ws, bits=4, out_dtype=torch.float32)
+    torch.testing.assert_close(out, ref, atol=1e-5 * float(ref.abs().max()), rtol=0)
+
+
+def test_bert_int4_on_the_card_is_its_dequantized_tree(gen):
+    # an f32 BERT with int4 weights (every matmul's K % 256 == 0) runs K7's
+    # f32 mode, six launches a layer; held against plain f32 matmuls over the
+    # same weights dequantized (relative 1e-3: f32 on GPU)
+    from flash_attention_softmax_n_tpu_torch.models import bert as tb
+    from flash_attention_softmax_n_tpu_torch.quant.weights import quantize_bert_weights
+    cfg = tb.BertConfig(vocab_size=1000, d_model=768, n_layers=2, n_heads=12, d_ff=3072,
+                        softmax_n=1.0)
+    params = quantize_bert_weights(tb.init_bert_params(cfg, gen, device="cuda"), bits=4)
+    deq = dict(params, layers={k: qt.dequantize(v) if isinstance(v, qt.QTensor) else v
+                               for k, v in params["layers"].items()})
+    ids = torch.randint(0, 1000, (2, 64), generator=gen, device="cuda")
+    mask = torch.ones((2, 64), device="cuda")
+    mask[1, 40:] = 0
+    before = _build.LAUNCHES["qmm"]
+    got = tb.bert_forward(params, cfg, ids, mask)["last_hidden_state"]
+    assert _build.LAUNCHES["qmm"] == before + 6 * cfg.n_layers
+    want = tb.bert_forward(deq, cfg, ids, mask)["last_hidden_state"]
+    assert _build.LAUNCHES["qmm"] == before + 6 * cfg.n_layers
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-3
+
+
+def test_decoder_taps_on_the_card_match_the_cpu(gen):
+    # bf16, 2 layers: the taps and logits of decoder_forward(collect_taps)
+    # through K1 on the card against the same on the CPU (K1's plain
+    # version), within bf16 tolerance (2e-2 of the largest magnitude); the
+    # materializing output_attentions path launches no K1
+    from flash_attention_softmax_n_tpu_torch import models as tm
+    cfg = tm.DecoderConfig(vocab_size=97, d_model=256, n_layers=2, n_heads=4,
+                           n_kv_heads=2, d_ff=512, max_seq_len=128, dtype=torch.bfloat16)
+    params = tm.init_decoder_params(cfg, 0, device="cpu")
+    tokens = torch.randint(0, 97, (2, 64), generator=torch.Generator().manual_seed(1))
+    cuda = {k: (v.cuda() if isinstance(v, torch.Tensor) else {n: w.cuda() for n, w in v.items()})
+            for k, v in params.items()}
+    before = _build.LAUNCHES["flash_fwd"]
+    logits, taps = tm.decoder_forward(cuda, cfg, tokens.cuda(), collect_taps=True)
+    assert _build.LAUNCHES["flash_fwd"] == before + cfg.n_layers
+    ref_logits, ref_taps = tm.decoder_forward(params, cfg, tokens, collect_taps=True)
+    for got, want in [(logits, ref_logits), *((taps[n], ref_taps[n]) for n in ref_taps)]:
+        scale = float(want.float().abs().max())
+        torch.testing.assert_close(got.float().cpu(), want.float(), atol=2e-2 * scale, rtol=0)
+    _, probs = tm.decoder_forward(cuda, cfg, tokens.cuda(), output_attentions=True)
+    assert _build.LAUNCHES["flash_fwd"] == before + cfg.n_layers
+    assert tuple(probs.shape) == (2, 2, 4, 64, 64)

@@ -3,6 +3,7 @@ its entry points run on the card unless told otherwise."""
 
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -16,6 +17,7 @@ def test_port_and_chip_smoke_import_no_jax():
     code = (
         "import sys\n"
         "import flash_attention_softmax_n_tpu_torch as p\n"
+        "import flash_attention_softmax_n_tpu_torch.analysis\n"
         "import flash_attention_softmax_n_tpu_torch.convert\n"
         "import flash_attention_softmax_n_tpu_torch.engine\n"
         "import flash_attention_softmax_n_tpu_torch.kernels._build\n"
@@ -26,8 +28,14 @@ def test_port_and_chip_smoke_import_no_jax():
         "import flash_attention_softmax_n_tpu_torch.kernels.prefill_phases\n"
         "import flash_attention_softmax_n_tpu_torch.kernels.quant_matmul\n"
         "import flash_attention_softmax_n_tpu_torch.models\n"
+        "import flash_attention_softmax_n_tpu_torch.models.bert\n"
+        "import flash_attention_softmax_n_tpu_torch.models.xlnet\n"
+        "import flash_attention_softmax_n_tpu_torch.ops.relative_attention\n"
         "import flash_attention_softmax_n_tpu_torch.parallel\n"
         "import flash_attention_softmax_n_tpu_torch.quant\n"
+        "import flash_attention_softmax_n_tpu_torch.quant.gates\n"
+        "import flash_attention_softmax_n_tpu_torch.surgery\n"
+        "import flash_attention_softmax_n_tpu_torch.surgery.convert\n"
         "import flash_attention_softmax_n_tpu_torch.utils.bench_cache_update\n"
         "import flash_attention_softmax_n_tpu_torch.utils.bench_decode_attn\n"
         "import flash_attention_softmax_n_tpu_torch.utils.profile_prefill_phases\n"
@@ -41,7 +49,10 @@ def test_port_and_chip_smoke_import_no_jax():
         "       or m.startswith('flash_attention_softmax_n_tpu.')\n"
         "       or m == 'scripts' or m.startswith('scripts.')]\n"
         "print(bad)\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "hf = [m for m in sys.modules if m == 'transformers'\n"
+        "      or m.startswith('transformers.')]\n"
+        "assert not hf, hf\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -66,12 +77,42 @@ def test_entry_points_default_to_the_card():
         greedy_generate,
         init_decoder_params,
     )
+    from flash_attention_softmax_n_tpu_torch.analysis import (
+        init_activation_stats,
+        register_activation_hooks,
+    )
+    from flash_attention_softmax_n_tpu_torch.models.bert import (
+        BertConfig,
+        init_bert_kv_cache,
+        init_bert_params,
+    )
+    from flash_attention_softmax_n_tpu_torch.models.xlnet import (
+        XLNetConfig,
+        init_xlnet_params,
+    )
     from flash_attention_softmax_n_tpu_torch.quant import init_quantized_kv_cache
+    from flash_attention_softmax_n_tpu_torch.surgery import from_pretrained_hf
+    from flash_attention_softmax_n_tpu_torch.surgery.convert import (
+        bert_params_from_hf,
+        llama_params_from_hf,
+        xlnet_params_from_hf,
+    )
     from flash_attention_softmax_n_tpu_torch.utils import profile_prefill_phases
     cfg = DecoderConfig(vocab_size=16, d_model=8, n_layers=1, n_heads=2,
                         n_kv_heads=1, d_ff=8, max_seq_len=8,
                         dtype=torch.float32)
     params = init_decoder_params(cfg, 0, device="cpu")
+    bert = BertConfig(vocab_size=16, d_model=8, n_layers=1, n_heads=2, d_ff=8,
+                      max_position_embeddings=8)
+    xlnet = XLNetConfig(vocab_size=16, d_model=8, n_layers=1, n_heads=2, d_head=4,
+                        d_inner=8)
+    # an HF model's stand-in: its config's attributes and an empty state dict
+    stand_in = types.SimpleNamespace(
+        config=types.SimpleNamespace(
+            model_type="bert", vocab_size=16, hidden_size=8, num_hidden_layers=1,
+            num_attention_heads=2, intermediate_size=8, max_position_embeddings=8,
+            type_vocab_size=2, layer_norm_eps=1e-12),
+        state_dict=dict)
     calls = [
         lambda: InferenceEngine(cfg, params, piggyback_prefill=False),
         lambda: init_decoder_params(cfg, 0),
@@ -81,6 +122,15 @@ def test_entry_points_default_to_the_card():
         lambda: init_quantized_kv_cache(1, 1, 1, 4, 8, mode="fp8"),
         lambda: profile_prefill_phases.run((1, 1, 64, 32)),
         lambda: profile_prefill_phases.main(["--shape", "1,1,64,32"]),
+        lambda: init_bert_params(bert, 0),
+        lambda: init_bert_kv_cache(bert, 1),
+        lambda: init_xlnet_params(xlnet, 0),
+        lambda: bert_params_from_hf({}, bert),
+        lambda: llama_params_from_hf({}, cfg),
+        lambda: xlnet_params_from_hf({}, xlnet),
+        lambda: from_pretrained_hf(stand_in, 1.0),
+        lambda: init_activation_stats(["a"]),
+        lambda: register_activation_hooks(lambda x: (x, {}), ["a.attention.output"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
