@@ -45,8 +45,10 @@ Phases, in order, each printing one JSON line:
    TFLOP/s, and the backward pair with delta against SDPA's backward by
    device time), each run twice and required bit-equal, K1 with ALiBi and
    dropout held at the training shape, and the three kernels' dropout masks
-   (each in f32 and bf16) required bit-equal to the plain hash; gradients
-   are held element by element and as a whole (``BWD_NORM_TOL``);
+   (each in f32 and bf16) required bit-equal to the plain hash; a bf16
+   forward's o is held, K1 and its plain version each, against a float64
+   evaluation of the same function (``fwd_float64``, ``o_excess``);
+   gradients are held element by element and as a whole (``BWD_NORM_TOL``);
 5. serving: the TinyLlama-1.1B shape (random weights from a seed, int8
    weights, int8 KV) serves 96 requests through 64 slots of the fused
    decode loop, on an engine built as bench.py builds it (the default
@@ -126,11 +128,32 @@ Phases, in order, each printing one JSON line:
    the same tree dequantized; ``output_attentions`` at B2, padded keys at
    probability 0, null mass above 0); XLNet-base over two B4 x L256
    segments with mems (finite, mems (12, 256, 4, 768)), its taps into
-   ``gate_report`` and ``summarize_attention`` of ``output_attentions``.
+   ``gate_report`` and ``summarize_attention`` of ``output_attentions``;
+11. ring: TinyLlama-1.1B's attention width (H32, KVH4, d64), bf16, n = 1,
+   causal, B1 x L8192 as p = 4 sequence shards of 2048: all four ranks'
+   ring schedules in one process through ``parallel.ring_attention``'s
+   per-rank step functions (K1 at n = 0 with its lse on the 10 visiting
+   blocks that are not skipped, K5/K6 against the global lse, GQA K/V
+   unrepeated), held against single-device K1 (o against a float64
+   evaluation, lse within 1e-3) and K5/K6 (dq, dk, dv by ``norm_err``);
+   then K1 on a full and a causal block and K5/K6 on a full block, each
+   against its plain version, timed beside its bound and SDPA over the
+   whole ring with one zero key;
+12. train_mesh: a one-rank NCCL group (``initialize_distributed``) and
+   ``make_mesh({"data": 1, "model": 1, "sp": 1})``; ``make_train_step``
+   at the full TinyLlama-1.1B shape (22 layers, bf16, remat), 4 steps on
+   ``sp_axis="sp"`` at B1 x L4096 and 4 on the tensor-parallel path with
+   ``zero1=True`` at B2 x L2048: losses finite and falling, the first
+   within 1e-3 relative of the unmeshed step's; tokens/s, walls, peak
+   memory; then, in the same group,
+13. checkpoint: the TinyLlama-1.1B params, dense bf16 and int8, saved and
+   loaded (the reloaded logits bit-equal), and a train checkpoint of the
+   ZeRO-1 mesh run (2 layers, B1 x L512) saved at step 2 and resumed: the
+   losses of the uninterrupted run.
 
 Then it prints the kernels' JSON line (times, launches on the serving,
-training, analysis or surgery run, each kernel's launches on the analysis
-and surgery runs, bounds), the card's name and power limit from
+training, analysis, surgery or ring run, each kernel's launches on the
+analysis, surgery and train_mesh runs, bounds), the card's name and power limit from
 nvidia-smi, and last ``{"ok": true, "device": {...}}``. Any failed check
 exits non-zero. The port is imported from the checkout; nothing of JAX is
 imported.
@@ -797,13 +820,65 @@ def norm_err(got, want) -> float:
     return float((got.float() - want.float()).norm()) / max(1.0, float(want.float().norm()))
 
 
-def o_excess(got, want, want_abs) -> float:
-    """max of |o - o_plain| - (2^-7 |o_plain| + 2^-8 o_abs), o_abs the plain
-    forward with |v|: o may round one bf16 ulp apart, and each p, rounded
-    to bf16 against the running maximum in the kernel and the final one in
-    the plain version, half a bf16 ulp apart on either side"""
-    tol = 2.0 ** -7 * want.float().abs() + 2.0 ** -8 * want_abs.float()
-    return float(((got.float() - want.float()).abs() - tol).max())
+def fwd_float64(torch, fa, q, k, v, ex, *, n, causal, heads=4):
+    """K1's function evaluated in float64 on the card: the same q (scaled in
+    its dtype, as the kernels scale it), k, v, bias, ALiBi slopes and
+    dropout keep-mask (the hash of the seed and the coordinates, with the
+    kernels' f32 multiplier), p unrounded. Returns (o, o_abs), o_abs the
+    same with |v|, which bounds what rounding p can move. ``heads`` at a
+    time bound the (B, heads, L, S) float64 scores."""
+    B, H, L, D = q.shape
+    S = k.shape[2]
+    dev = q.device
+    qs = (q * torch.tensor(D ** -0.5, dtype=q.dtype)).double()
+    rate = ex["dropout_rate"]
+    mult = float(np.float32(1.0 / (1.0 - rate)))
+    qpos = torch.arange(L, device=dev)[:, None] + (S - L)
+    kpos = torch.arange(S, device=dev)[None, :]
+    outs, abss = [], []
+    for h0 in range(0, H, heads):
+        hs = slice(h0, min(H, h0 + heads))
+        s = qs[:, hs] @ k[:, hs].double().transpose(-1, -2)
+        if ex["bias"] is not None:
+            bias = ex["bias"]
+            s = s + (bias[:, hs] if bias.shape[1] != 1 else bias).double()
+        if ex["slopes"] is not None:
+            s = s - ex["slopes"][hs].double()[:, None, None] * (qpos - kpos).abs().double()
+        if causal:
+            s = s.masked_fill(kpos > qpos, float("-inf"))
+        m = s.amax(-1, keepdim=True)
+        if n > 0:
+            m = m.clamp(min=0.0)
+        p = torch.exp(s - m)
+        l = p.sum(-1, keepdim=True) + n * torch.exp(-m)
+        if rate > 0:
+            ar = lambda *r: torch.arange(*r, device=dev)  # noqa: E731
+            keep = fa.dropout_keep(ex["seed"].reshape(()), ar(B)[:, None, None, None],
+                                   ar(hs.start, hs.stop)[None, :, None, None],
+                                   ar(L)[None, None, :, None], ar(S)[None, None, None, :],
+                                   rate)
+            p = p * torch.where(keep, mult, 0.0).double()
+        outs.append((p @ v[:, hs].double()) / l)
+        abss.append((p @ v[:, hs].double().abs()) / l)
+        del s, p
+    return torch.cat(outs, 1), torch.cat(abss, 1)
+
+
+def o_excess(got, o64, o_abs64, p_roundings: int = 1) -> float:
+    """max of |o - o64| - allowance, o64 and o_abs64 from ``fwd_float64``.
+
+    The allowance, per element: 2^-8 |o64| + (p_roundings 2^-8 + 2^-11)
+    o_abs64. A bf16 o rounds to nearest, off by at most half an ulp, 2^-8
+    of |o| (2^-8 of the value at the bottom of its binade); each dropped p
+    is rounded to bf16 before PV (the kernel against its running maximum,
+    the plain version against the final one), off by up to 2^-8 of p, which
+    moves o by at most 2^-8 sum_j p_j |v_j| / l = 2^-8 o_abs. The ring
+    rounds once more: each block's o_b is bf16 before the fold
+    (``p_roundings=2``). 2^-11 o_abs covers the f32 arithmetic: scores,
+    ALiBi distances, exp and sums over at most 8192 keys (S 2^-24 of the
+    sum of |terms|), and the product of the two bf16 errors (2^-16)."""
+    tol = 2.0 ** -8 * o64.abs() + (p_roundings * 2.0 ** -8 + 2.0 ** -11) * o_abs64
+    return float(((got.double() - o64).abs() - tol).max())
 
 
 def check_attention(torch, fa, gen, dtype, *, n, causal, shape, **extras):
@@ -814,7 +889,7 @@ def check_attention(torch, fa, gen, dtype, *, n, causal, shape, **extras):
     q, k, v, do, ex = attn_inputs(torch, gen, dtype, B=B, H=H, L=L, S=S, D=D, **extras)
     o, lse = run_fwd(fa, False, q, k, v, ex, n=n, causal=causal)
     o_ref, lse_ref = run_fwd(fa, True, q, k, v, ex, n=n, causal=causal)
-    o_abs = run_fwd(fa, True, q, k, v.abs(), ex, n=n, causal=causal)[0]
+    o64, o_abs64 = fwd_float64(torch, fa, q, k, v, ex, n=n, causal=causal)
     got = run_bwd(fa, False, q, k, v, do, o_ref, lse_ref, ex, causal=causal)
     want = run_bwd(fa, True, q, k, v, do, o_ref, lse_ref, ex, causal=causal)
     again = (*run_fwd(fa, False, q, k, v, ex, n=n, causal=causal),
@@ -824,8 +899,10 @@ def check_attention(torch, fa, gen, dtype, *, n, causal, shape, **extras):
     repeat_equal = all((a is None and b is None) or torch.equal(a, b)
                        for a, b in zip(first, again))
     errs = {"o": float((o.float() - o_ref.float()).abs().max()),
-            "o_excess": o_excess(o, o_ref, o_abs),
+            "o_excess": o_excess(o, o64, o_abs64),
+            "o_excess_plain": o_excess(o_ref, o64, o_abs64),
             "lse": float((lse - lse_ref).abs().max())}
+    del o64, o_abs64
     norm, plain_max = {}, {}
     for name, g, w in zip(("dq", "dk", "dv", "dbias", "dslopes"), got, want):
         require((g is None) == (w is None), f"{name}: kernel and plain disagree on presence")
@@ -836,11 +913,13 @@ def check_attention(torch, fa, gen, dtype, *, n, causal, shape, **extras):
     f32 = dtype == torch.float32
     gtol = 1e-4 if f32 else 2e-2
     ntol = BWD_NORM_TOL["f32" if f32 else "bf16"]
-    o_ok = errs["o"] <= 2e-5 if f32 else errs["o_excess"] <= 1e-6
+    o_ok = (errs["o"] <= 2e-5 if f32
+            else errs["o_excess"] <= 0.0 and errs["o_excess_plain"] <= 0.0)
     name = (f"B{B} H{H} L{L} S{S} d{D} {'f32' if f32 else 'bf16'} n{n:g} "
             f"{'causal' if causal else 'full'} {sorted(k for k, v in extras.items() if v)}")
     require(o_ok and errs["lse"] <= 1e-3, f"K1 {name}: o/lse off the plain version: {errs}")
-    grad_errs = {k_: e for k_, e in errs.items() if k_ not in ("o", "o_excess", "lse")}
+    grad_errs = {k_: e for k_, e in errs.items()
+                 if k_ not in ("o", "o_excess", "o_excess_plain", "lse")}
     errs["norm"], errs["plain_max"] = norm, plain_max
     require(max(grad_errs.values()) <= gtol,
             f"K5/K6 {name}: gradients off the plain version (tol {gtol} of max(1, |plain|)): "
@@ -927,15 +1006,18 @@ def train_kernel_lines(torch, pkg, gen):
     ex_alibi = {**ex, "slopes": slopes}
     o_a, lse_a = run_fwd(fa, False, q, k, v, ex_alibi, n=n, causal=True)
     o_a_ref, lse_a_ref = run_fwd(fa, True, q, k, v, ex_alibi, n=n, causal=True)
-    o_a_abs = run_fwd(fa, True, q, k, v.abs(), ex_alibi, n=n, causal=True)[0]
+    o64, o_abs64 = fwd_float64(torch, fa, q, k, v, ex_alibi, n=n, causal=True)
     torch.cuda.synchronize()
     errs_a = {"o": float((o_a.float() - o_a_ref.float()).abs().max()),
-              "o_excess": o_excess(o_a, o_a_ref, o_a_abs),
+              "o_excess": o_excess(o_a, o64, o_abs64),
+              "o_excess_plain": o_excess(o_a_ref, o64, o_abs64),
               "lse": float((lse_a - lse_a_ref).abs().max())}
-    del o_a_ref, o_a_abs
+    del o_a_ref, o64, o_abs64
     emit({"phase": "kernel_check", "name": f"K1 {name} +alibi", "errors": errs_a})
-    require(errs_a["o_excess"] <= 1e-6 and errs_a["lse"] <= 1e-3,
-            f"K1 {name} +alibi: o/lse off the plain version: {errs_a}")
+    require(errs_a["o_excess"] <= 0.0 and errs_a["o_excess_plain"] <= 0.0
+            and errs_a["lse"] <= 1e-3,
+            f"K1 {name} +alibi: o/lse off the float64 evaluation or the plain "
+            f"version: {errs_a}")
 
     def k1_alibi():
         return run_fwd(fa, False, q, k, v, {**ex, "slopes": slopes}, n=n, causal=True)
@@ -972,7 +1054,8 @@ def train_kernel_lines(torch, pkg, gen):
     k5_dev, k6_dev, pair_dev, library_bwd_dev = device_ms_of(
         torch, [(wrapper_bwd, FLASH_DQ_KERNELS), (wrapper_bwd, FLASH_DKV_KERNELS),
                 (wrapper_bwd, None), (sdpa_bwd, None)])
-    common = {"route": "cuda", "tolerance": "o: 2^-7 |o_plain| + 2^-8 (p|v|)_plain; grads: "
+    common = {"route": "cuda", "tolerance": "o: 2^-8 |o64| + (2^-8 + 2^-11) (p|v|)64 of a "
+                                            "float64 evaluation, K1 and plain each; grads: "
                                             "2e-2 of max(1, |plain|) and "
                                             f"{BWD_NORM_TOL['bf16']} of max(1, ||plain||); repeat "
                                             "calls bit-equal", "path": "train"}
@@ -2357,6 +2440,450 @@ def surgery(torch, pkg):
     return dict(build.LAUNCHES)
 
 
+# ----------------------------------------------------------------------------
+# phase 11: ring attention over p = 4 sequence shards in one process
+# ----------------------------------------------------------------------------
+
+RING = dict(B=1, H=32, KVH=4, L=8192, D=64, P=4, n=1.0)
+RING_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def ring_schedule(torch, ra, qs, ks, vs, dos, *, n, scale, backward=True):
+    """Every rank's ring schedule, block by block, through the package's
+    per-rank step functions (what ``ring_attention_n`` runs on each rank,
+    with the rotation replaced by indexing the owner's shard): (outs, lses)
+    per query shard, then (dq, dk, dv) per shard, the accumulators summed
+    into their block's owner as the rotating ones arrive there."""
+    p = len(qs)
+    outs, lses = [], []
+    for my in range(p):
+        state = ra.ring_init(qs[my], vs[my])
+        for t in range(p):
+            owner = (my - t) % p
+            state = ra.ring_fold(state, ra.ring_block_forward(
+                qs[my], ks[owner], vs[owner], mode=ra.block_mode(True, p, my, t),
+                scale=scale, implementation="pallas"))
+        o, lse = ra.ring_finish(state, n, qs[my].dtype)
+        outs.append(o)
+        lses.append(lse)
+    if not backward:
+        return outs, lses, None
+    dq = [torch.zeros_like(x, dtype=torch.float32) for x in qs]
+    dk = [torch.zeros_like(x, dtype=torch.float32) for x in ks]
+    dv = [torch.zeros_like(x, dtype=torch.float32) for x in vs]
+    for my in range(p):
+        delta = torch.sum(dos[my].float() * outs[my].float(), dim=-1)
+        for t in range(p):
+            owner = (my - t) % p
+            g = ra.ring_block_backward(qs[my], ks[owner], vs[owner], outs[my], dos[my],
+                                       lses[my], delta, mode=ra.block_mode(True, p, my, t),
+                                       scale=scale, implementation="pallas")
+            if g is not None:
+                dq[my] += g[0]
+                dk[owner] += g[1]
+                dv[owner] += g[2]
+    return outs, lses, (dq, dk, dv)
+
+
+def ring_block_lines(torch, pkg, q, blocks, do, out, lse, *, launches, library):
+    """K1 at n = 0 with its lse on a visiting block, full and causal
+    (``blocks``: mode -> (k, v) repeated to q's heads), and K5/K6 against
+    the ring's global lse on the full block: each against its plain version
+    on the same block, timed beside its bound, the plain version and the
+    library's whole-ring call."""
+    fa, ops = pkg["flash_attention"], pkg["build"].ops()
+    # the operators alone take contiguous tensors; a shard is a view
+    q, do = q.contiguous(), do.contiguous()
+    B, H, Lb, D = q.shape
+    scale = D ** -0.5
+    bhld, bhl = B * H * Lb * D, B * H * Lb
+    ex = {"bias": None, "slopes": None, "seed": None, "dropout_rate": 0.0}
+    lines = []
+    for causal in (False, True):
+        kr, vr = blocks["causal" if causal else "full"]
+        pairs = B * H * (Lb * (Lb + 1) / 2 if causal else Lb * Lb)
+        o, lse_b = run_fwd(fa, False, q, kr, vr, ex, n=0.0, causal=causal)
+        o_ref, lse_ref = run_fwd(fa, True, q, kr, vr, ex, n=0.0, causal=causal)
+        o64, o_abs64 = fwd_float64(torch, fa, q, kr, vr, ex, n=0.0, causal=causal)
+        errs = {"o": float((o.float() - o_ref.float()).abs().max()),
+                "o_excess": o_excess(o, o64, o_abs64),
+                "o_excess_plain": o_excess(o_ref, o64, o_abs64),
+                "lse": float((lse_b - lse_ref).abs().max())}
+        del o64, o_abs64
+        name = f"flash_fwd ring block B{B} H{H} L{Lb} S{Lb} d{D} bf16 n0 " \
+               f"{'causal' if causal else 'full'} +lse"
+        require(errs["o_excess"] <= 0.0 and errs["o_excess_plain"] <= 0.0
+                and errs["lse"] <= 1e-3, f"K1 {name}: off the float64 evaluation or the "
+                                         f"plain version: {errs}")
+
+        def k1(causal=causal, kr=kr, vr=vr):
+            return run_fwd(fa, False, q, kr, vr, ex, n=0.0, causal=causal)
+
+        def plain(causal=causal, kr=kr, vr=vr):
+            return run_fwd(fa, True, q, kr, vr, ex, n=0.0, causal=causal)
+
+        b_ms, b_by = bound_ms(4 * bhld * 2 + bhl * 4, 4.0 * D * pairs)
+        dev_ms = device_ms(torch, k1, FLASH_FWD_KERNELS)
+        lines.append({"name": name, "route": "cuda", "source": f"{CSRC}/flash_fwd.cu",
+                      "replaces": f"{FLASH_PY}:345 _fwd_single_kernel, :279 _fwd_kernel, "
+                                  ":501 _fwd_pipeline_kernel (n = 0, lse out)",
+                      "counter": "flash_fwd", "path": "ring", "errors": errs,
+                      "max_abs_err": errs["o"], "max_abs_err_lse": errs["lse"],
+                      "tolerance": "o: 2^-8 |o64| + (2^-8 + 2^-11) (p|v|)64 of a float64 "
+                                   "evaluation, K1 and plain each; lse 1e-3",
+                      "ms": time_ms(torch, k1), "device_ms": dev_ms,
+                      "tflops": tflops(4.0 * D * pairs, dev_ms), "plain_ms": time_ms(torch, plain),
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": library["fwd"],
+                      "library": "SDPA forward over the whole ring (L8192, one zero key)",
+                      "launches_per_ring": launches["fwd"]})
+
+    # K5/K6 on the full block against the ring's global lse and out
+    kr, vr = blocks["full"]
+    pairs = B * H * Lb * Lb
+    delta = torch.sum(do.float() * out.float(), dim=-1)
+    got = fa.flash_bwd(q, kr, vr, None, None, None, out, lse, do, scale=scale,
+                       is_causal=False, delta=delta)[:3]
+    want = fa.flash_bwd_reference(q, kr, vr, None, None, None, out, lse, do, scale=scale,
+                                  is_causal=False, delta=delta)[:3]
+    torch.cuda.synchronize()
+    norm = {k_: norm_err(g, w) for k_, g, w in zip(("dq", "dk", "dv"), got, want)}
+    rel = {k_: rel_err(g, w) for k_, g, w in zip(("dq", "dk", "dv"), got, want)}
+    name = f"B{B} H{H} L{Lb} S{Lb} d{D} bf16 full, global lse"
+    require(max(rel.values()) <= 2e-2 and max(norm.values()) <= BWD_NORM_TOL["bf16"],
+            f"K5/K6 ring block {name}: off the plain version: rel {rel}, norm {norm}")
+    scale_q = float(torch.tensor(scale, dtype=q.dtype))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(kr), torch.empty_like(vr)
+
+    def k5():
+        ops.flash_bwd_dq(q, kr, vr, None, None, None, do, lse, delta, dq, None, None,
+                         scale_q, scale, False, 0, 1.0)
+
+    def k6():
+        ops.flash_bwd_dkv(q, kr, vr, None, None, None, do, lse, delta, dk, dv, scale_q,
+                          False, 0, 1.0)
+
+    def block_grads():
+        return fa.flash_attention_block_grads(q, kr, vr, out, lse, do, scale=scale,
+                                              delta=delta)
+
+    def plain_bwd():
+        return fa.flash_bwd_reference(q, kr, vr, None, None, None, out, lse, do,
+                                      scale=scale, is_causal=False, delta=delta)
+
+    k5_dev, k6_dev = device_ms_of(torch, [(block_grads, FLASH_DQ_KERNELS),
+                                          (block_grads, FLASH_DKV_KERNELS)])
+    plain_ms = time_ms(torch, plain_bwd)
+    common = {"route": "cuda", "path": "ring", "plain_ms": plain_ms,
+              "library_ms": library["bwd"],
+              "library": "SDPA backward over the whole ring (L8192, one zero key)",
+              "tolerance": f"2e-2 of max(1, |plain|) and {BWD_NORM_TOL['bf16']} of "
+                           "max(1, ||plain||)", "norm_err": norm,
+              "launches_per_ring": launches["bwd"]}
+    b5, by5 = bound_ms(5 * bhld * 2 + 2 * bhl * 4, 6.0 * D * pairs)
+    b6, by6 = bound_ms(6 * bhld * 2 + 2 * bhl * 4, 8.0 * D * pairs)
+    lines.append({**common, "name": f"flash_bwd_dq ring block {name}",
+                  "counter": "flash_bwd_dq", "source": f"{CSRC}/flash_bwd_dq.cu",
+                  "replaces": f"{FLASH_PY}:685 _bwd_dq_kernel (block grads, global lse)",
+                  "max_abs_err": rel["dq"], "ms": time_ms(torch, k5), "device_ms": k5_dev,
+                  "tflops": tflops(6.0 * D * pairs, k5_dev), "bound_ms": b5, "bound_by": by5})
+    lines.append({**common, "name": f"flash_bwd_dkv ring block {name}",
+                  "counter": "flash_bwd_dkv", "source": f"{CSRC}/flash_bwd_dkv.cu",
+                  "replaces": f"{FLASH_PY}:777 _bwd_dkv_kernel (block grads, global lse)",
+                  "max_abs_err": max(rel["dk"], rel["dv"]), "ms": time_ms(torch, k6),
+                  "device_ms": k6_dev, "tflops": tflops(8.0 * D * pairs, k6_dev),
+                  "bound_ms": b6, "bound_by": by6})
+    return lines
+
+
+def ring(torch, pkg):
+    """TinyLlama-1.1B's attention width (H32, KVH4, d64), bf16, n = 1,
+    causal, B1 x L8192 as p = 4 shards of 2048: every rank's schedule in
+    one process through the package's per-rank step functions, held
+    against single-device K1 (o within the float64 model with the ring's
+    second rounding, lse within 1e-3) and K5/K6 (dq, dk, dv by norm_err
+    within BWD_NORM_TOL); then the three kernels at a ring block's shape.
+    Returns (launches of one ring forward and backward, kernel lines)."""
+    ra, fa, build = pkg["ring_attention"], pkg["flash_attention"], pkg["build"]
+    B, H, KVH, L, D, P, n = (RING[k] for k in ("B", "H", "KVH", "L", "D", "P", "n"))
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q, do = (torch.randn((B, H, L, D), generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((B, KVH, L, D), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    scale = D ** -0.5
+    shard = lambda x: list(x.chunk(P, dim=2))  # noqa: E731
+    qs, ks, vs, dos = shard(q), shard(k), shard(v), shard(do)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    outs, lses, _ = ring_schedule(torch, ra, qs, ks, vs, dos, n=n, scale=scale,
+                                  backward=False)
+    torch.cuda.synchronize()
+    fwd_launches = {k_: build.LAUNCHES[k_] for k_ in RING_KERNELS}
+    build.reset_launches()
+    outs, lses, (dq, dk, dv) = ring_schedule(torch, ra, qs, ks, vs, dos, n=n, scale=scale)
+    torch.cuda.synchronize()
+    launches = {k_: build.LAUNCHES[k_] for k_ in RING_KERNELS}
+    bwd_launches = {k_: launches[k_] - fwd_launches[k_] for k_ in RING_KERNELS}
+    modes = [ra.block_mode(True, P, my, t) for my in range(P) for t in range(P)]
+    by_mode = {"full": modes.count(0), "causal": modes.count(1), "skipped": modes.count(2)}
+    require(fwd_launches["flash_fwd"] == by_mode["full"] + by_mode["causal"]
+            and bwd_launches["flash_bwd_dq"] == bwd_launches["flash_bwd_dkv"]
+            == by_mode["full"] + by_mode["causal"],
+            f"ring: launches {fwd_launches} / {bwd_launches} against blocks {by_mode}")
+
+    rep = H // KVH
+    kr, vr = (x.repeat_interleave(rep, dim=1) for x in (k, v))
+    o_ring, lse_ring = torch.cat(outs, 2), torch.cat(lses, 2)
+    o1, lse1 = fa.flash_fwd(q, kr, vr, None, n=n, scale=scale, is_causal=True)
+    ex = {"bias": None, "slopes": None, "seed": None, "dropout_rate": 0.0}
+    o64, o_abs64 = fwd_float64(torch, fa, q, kr, vr, ex, n=n, causal=True, heads=2)
+    g1 = fa.flash_bwd(q, kr, vr, None, None, None, o1, lse1, do, scale=scale,
+                      is_causal=True)[:3]
+    group = lambda g: g.float().reshape(B, KVH, rep, L, D).sum(2)  # noqa: E731
+    want = {"dq": g1[0].float(), "dk": group(g1[1]), "dv": group(g1[2])}
+    got = {"dq": torch.cat(dq, 2), "dk": torch.cat(dk, 2), "dv": torch.cat(dv, 2)}
+    torch.cuda.synchronize()
+    errs = {"o_excess_ring": o_excess(o_ring, o64, o_abs64, p_roundings=2),
+            "o_excess_single": o_excess(o1, o64, o_abs64),
+            "o_vs_single": float((o_ring.float() - o1.float()).abs().max()),
+            "lse_vs_single": float((lse_ring - lse1).abs().max()),
+            "norm_err": {k_: norm_err(got[k_], want[k_]) for k_ in got}}
+    del o64, o_abs64
+
+    # the library yardstick for the whole ring: SDPA with one zero key
+    # prepended (n = 1) over L8192, causal, GQA repeated; backward alone
+    zrow = torch.zeros((B, H, 1, D), dtype=q.dtype, device="cuda")
+    mask1 = torch.cat([torch.ones((L, 1), dtype=torch.bool, device="cuda"),
+                       torch.ones((L, L), dtype=torch.bool, device="cuda").tril()], -1)
+    ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                  for t in (q, torch.cat([zrow, kr], 2), torch.cat([zrow, vr], 2)))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask1,
+                                                                scale=scale)
+
+    out_l = sdpa()
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out_l, (ql, kl, vl), do, retain_graph=True)
+
+    library = {"fwd": time_ms(torch, sdpa, runs=10), "bwd": time_ms(torch, sdpa_bwd, runs=10)}
+    del out_l, ql, kl, vl
+
+    def ring_fwd():
+        return ring_schedule(torch, ra, qs, ks, vs, dos, n=n, scale=scale, backward=False)
+
+    def ring_fwd_bwd():
+        return ring_schedule(torch, ra, qs, ks, vs, dos, n=n, scale=scale)
+
+    ring_fwd_ms = time_ms(torch, ring_fwd, runs=10)
+    ring_all_ms = time_ms(torch, ring_fwd_bwd, runs=10)
+    emit({"phase": "ring", "config": "TinyLlama-1.1B attention width H32 KVH4 d64, bf16, "
+                                     "n 1, causal, B1 x L8192 as p = 4 shards of 2048",
+          "card": pkg["nvidia_smi"], "errors": errs,
+          "tolerance": {"o_excess_ring": "<= 0: 2^-8 |o64| + (2 2^-8 + 2^-11) (p|v|)64",
+                        "o_excess_single": "<= 0: 2^-8 |o64| + (2^-8 + 2^-11) (p|v|)64",
+                        "lse_vs_single": 1e-3, "norm_err": BWD_NORM_TOL["bf16"]},
+          "blocks": by_mode, "launches_forward": fwd_launches,
+          "launches_backward": bwd_launches,
+          "ring_forward_ms": ring_fwd_ms, "ring_forward_backward_ms": ring_all_ms,
+          "library_forward_ms": library["fwd"], "library_backward_ms": library["bwd"]})
+    require(errs["o_excess_ring"] <= 0.0 and errs["o_excess_single"] <= 0.0
+            and errs["lse_vs_single"] <= 1e-3
+            and max(errs["norm_err"].values()) <= BWD_NORM_TOL["bf16"],
+            f"ring: off single-device K1/K5/K6 or the float64 evaluation: {errs}")
+
+    # the kernels at a visiting block's shape: rank 1 against block 0
+    # (full) and its own block 1 (causal), with rank 1's global out and lse
+    blocks = {mode: (ks[b].repeat_interleave(rep, dim=1), vs[b].repeat_interleave(rep, dim=1))
+              for mode, b in (("full", 0), ("causal", 1))}
+    lines = ring_block_lines(torch, pkg, qs[1], blocks, dos[1], outs[1], lses[1],
+                             launches={"fwd": fwd_launches["flash_fwd"],
+                                       "bwd": bwd_launches["flash_bwd_dq"]}, library=library)
+    for line in lines:
+        emit({"phase": "kernel", **{k_: line.get(k_) for k_ in (
+            "name", "max_abs_err", "tolerance", "ms", "device_ms", "tflops", "plain_ms",
+            "bound_ms", "library_ms", "launches_per_ring")}})
+    return launches, lines
+
+
+# ----------------------------------------------------------------------------
+# phases 12-13: training over a mesh on a one-rank NCCL group, checkpoints
+# ----------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def mesh_steps(torch, pkg, cfg, params, tokens, mesh, steps=4, **kw):
+    """``steps`` AdamW steps of ``make_train_step(cfg, mesh, **kw)`` and the
+    unmeshed step's first loss on the same params and tokens."""
+    tr, build = pkg["train"], pkg["build"]
+    init, step = tr.make_train_step(cfg, learning_rate=3e-4)
+    p, o = init(clone_tree(params))
+    _, _, ref = step(p, o, tokens)
+    ref = ref.item()
+    del p, o
+    init, step = tr.make_train_step(cfg, mesh, learning_rate=3e-4, **kw)
+    p, o = init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    losses, walls = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        p, o, loss = step(p, o, tokens)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = {k_: build.LAUNCHES[k_] for k_ in TRAIN_KERNELS}
+    b, l = tokens.shape
+    out = {"losses": losses, "unmeshed_first_loss": ref,
+           "first_loss_rel_diff": abs(losses[0] - ref) / abs(ref), "step_wall_s": walls,
+           "tokens_per_s": [b * l / w for w in walls],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches}
+    del p, o
+    return out
+
+
+def train_mesh(torch, pkg):
+    """``make_train_step`` over a mesh at the full TinyLlama-1.1B shape (22
+    layers, bf16, n = 1, remat), on a one-rank NCCL group (the machine has
+    one card; NCCL takes no two ranks on one device): ``initialize_
+    distributed`` then ``make_mesh({"data": 1, "model": 1, "sp": 1})``;
+    4 steps with ``sp_axis="sp"`` (the ring, p = 1) at B1 x L4096, then 4
+    with the tensor-parallel path and ``zero1=True`` at B2 x L2048. Losses
+    finite and falling, the first within 1e-3 relative of the unmeshed
+    step's on the same params and tokens. The checkpoint phase runs inside
+    the same group; the group is destroyed at the end, failed or not."""
+    import torch.distributed as dist
+
+    dec, mesh_mod = pkg["decoder"], pkg["mesh"]
+    mesh_mod.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        mesh = mesh_mod.make_mesh({"data": 1, "model": 1, "sp": 1})
+        launches = {k_: 0 for k_ in TRAIN_KERNELS}
+        runs = {}
+        for name, (b, l), kw in (("sp", (1, 4096), {"sp_axis": "sp"}),
+                                 ("tp_zero1", (2, 2048), {"zero1": True})):
+            cfg = dec.DecoderConfig(**{**TINYLLAMA, "max_seq_len": l}, n_layers=22,
+                                    dtype=torch.bfloat16, remat=True)
+            params = dec.init_decoder_params(cfg, 0, device="cuda")
+            tokens = torch.from_numpy(
+                np.random.RandomState(3).randint(0, cfg.vocab_size, size=(b, l))).cuda()
+            runs[name] = mesh_steps(torch, pkg, cfg, params, tokens, mesh, **kw)
+            del params
+            for k_ in TRAIN_KERNELS:
+                launches[k_] += runs[name]["launches"][k_]
+        emit({"phase": "train_mesh", "config": "TinyLlama-1.1B shape, 22 layers, bf16, n 1, "
+                                               "remat, AdamW lr 3e-4; sp: B1 L4096 on "
+                                               "sp_axis='sp'; tp_zero1: B2 L2048, zero1",
+              "card": pkg["nvidia_smi"], "backend": dist.get_backend(),
+              "world_size": dist.get_world_size(), "mesh": dict(zip(mesh.mesh_dim_names,
+                                                                    mesh.mesh.shape)),
+              **{name: run for name, run in runs.items()}, "tolerance": 1e-3})
+        for name, run in runs.items():
+            losses = run["losses"]
+            require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                    f"train_mesh {name}: losses not finite or not falling: {losses}")
+            require(run["first_loss_rel_diff"] <= 1e-3,
+                    f"train_mesh {name}: first loss {losses[0]} against the unmeshed "
+                    f"{run['unmeshed_first_loss']}")
+            for k_, count in run["launches"].items():
+                require(count > 0, f"train_mesh {name} never launched {k_}")
+        checkpoint(torch, pkg, mesh)
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def checkpoint(torch, pkg, mesh):
+    """Save and load the TinyLlama-1.1B params (22 layers), dense bf16 and
+    int8, through ``utils.checkpoint``: the reloaded forward's logits
+    bit-equal (B1 L256). Then a train checkpoint: at the TinyLlama width
+    with the depth cut to 2 layers, bf16, B1 x L512 on the mesh with
+    ZeRO-1, 4 steps straight against 2, a save (the shards gathered), a
+    load (sharded again) and 2 more: the same losses."""
+    import tempfile
+
+    dec, ck, weights = pkg["decoder"], pkg["checkpoint"], pkg["weights"]
+    cfg = dec.DecoderConfig(**TINYLLAMA, n_layers=22, dtype=torch.bfloat16)
+    params = dec.init_decoder_params(cfg, 0, device="cuda")
+    tokens = torch.from_numpy(
+        np.random.RandomState(4).randint(0, cfg.vocab_size, size=(1, 256))).cuda()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, tree in (("dense_bf16", params),
+                           ("int8", weights.quantize_decoder_weights(params, bits=8))):
+            with torch.no_grad():
+                want = dec.decoder_forward(tree, cfg, tokens)
+            t0 = time.perf_counter()
+            ck.save_checkpoint(f"{tmp}/{name}", cfg, tree, metadata={"surgery": {
+                "softmax_n": cfg.softmax_n}})
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cfg2, back, meta = ck.load_checkpoint(f"{tmp}/{name}")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            with torch.no_grad():
+                got = dec.decoder_forward(back, cfg2, tokens)
+            size = sum(f.stat().st_size for f in Path(tmp, name).iterdir())
+            out[name] = {"bit_equal": bool(torch.equal(got, want)), "same_config": cfg2 == cfg,
+                         "softmax_n": meta["surgery"]["softmax_n"], "save_s": save_s,
+                         "load_s": load_s, "bytes": size}
+            del back, got, want
+        del params
+
+        tr = pkg["train"]
+        small = dec.DecoderConfig(**{**TINYLLAMA, "max_seq_len": 512}, n_layers=2,
+                                  dtype=torch.bfloat16)
+        toks = torch.from_numpy(
+            np.random.RandomState(5).randint(0, small.vocab_size, size=(1, 512))).cuda()
+
+        def adamw(leaves):
+            return torch.optim.AdamW(leaves, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                                     weight_decay=1e-4)
+
+        init, step = tr.make_train_step(small, mesh, optimizer=adamw, zero1=True)
+
+        def run(n_steps, p, o):
+            losses = []
+            for _ in range(n_steps):
+                p, o, loss = step(p, o, toks)
+                losses.append(loss.item())
+            return p, o, losses
+
+        start = dec.init_decoder_params(small, 1, device="cuda")
+        _, _, straight = run(4, *init(clone_tree(start)))
+        p, o, first = run(2, *init(start))
+        ck.save_train_checkpoint(f"{tmp}/train", small, p, o, step=2, mesh=mesh)
+        cfg3, p, o, step_r, _ = ck.load_train_checkpoint(f"{tmp}/train", adamw, mesh=mesh,
+                                                         zero1=True)
+        _, _, resumed = run(2, p, o)
+    resumed = first + resumed
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, straight))
+    emit({"phase": "checkpoint", "card": pkg["nvidia_smi"],
+          "config": "TinyLlama-1.1B shape, 22 layers, bf16 and int8; train resume at 2 "
+                    "layers, bf16, B1 L512, ZeRO-1 on the one-rank mesh", **out,
+          "train_resume": {"straight": straight, "resumed": resumed, "max_rel_diff": rel,
+                           "step": step_r, "same_config": cfg3 == small}, "tolerance": 1e-6})
+    for name, res in out.items():
+        require(res["bit_equal"] and res["same_config"],
+                f"checkpoint {name}: the reloaded forward or config differs: {res}")
+    require(step_r == 2 and rel <= 1e-6,
+            f"checkpoint: resumed losses {resumed} against {straight}")
+
+
 def main() -> int:
     import torch
 
@@ -2381,11 +2908,14 @@ def main() -> int:
         from flash_attention_softmax_n_tpu_torch.ops import (
             flash_attention as ops_flash_attention,
         )
+        from flash_attention_softmax_n_tpu_torch.parallel import mesh as mesh_mod
+        from flash_attention_softmax_n_tpu_torch.parallel import ring_attention
         from flash_attention_softmax_n_tpu_torch.parallel import train as train_mod
         from flash_attention_softmax_n_tpu_torch.quant import gates, kv_cache, qtensor, weights
         from flash_attention_softmax_n_tpu_torch.utils import (
             bench_cache_update,
             bench_decode_attn,
+            checkpoint as checkpoint_mod,
             profile_prefill_phases,
             profiling,
         )
@@ -2401,7 +2931,8 @@ def main() -> int:
            "profile_prefill_phases": profile_prefill_phases,
            "bench_decode_attn": bench_decode_attn, "bench_cache_update": bench_cache_update,
            "analysis": analysis_mod, "surgery": surgery_mod, "gates": gates, "bert": bert,
-           "xlnet": xlnet}
+           "xlnet": xlnet, "ring_attention": ring_attention, "mesh": mesh_mod,
+           "checkpoint": checkpoint_mod}
     global CHIP, K8_LINES
     K8_LINES = bench_decode_attn.LINES
     CHIP = profiling.H100
@@ -2531,11 +3062,15 @@ def main() -> int:
     launches["train"] = train(torch, pkg)
     launches["analysis"] = analysis(torch, pkg)
     launches["surgery"] = surgery(torch, pkg)
+    launches["ring"], ring_lines = ring(torch, pkg)
+    kernels += ring_lines
+    launches["train_mesh"] = train_mesh(torch, pkg)
     for kd in kernels:
         counter = kd.pop("counter")
         kd["launches"] = launches[kd.pop("path")][counter]
         kd["launches_analysis"] = launches["analysis"][counter]
         kd["launches_surgery"] = launches["surgery"][counter]
+        kd["launches_train_mesh"] = launches["train_mesh"].get(counter, 0)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,12 @@
 The port of the JAX package ``flash_attention_softmax_n_tpu`` (which stays
 the reference): softmax-N primitives, the fused flash-attention forward as a
 hand-written CUDA kernel, the int8 decoder and its continuous-batching
-serving engine, training on one card, BERT and XLNet with the HF
-converters and softmax-N surgery (``surgery``), and activation and weight
-statistics, perplexity and the outlier gates (``analysis``,
-``quant.gates``). Kernels run on CUDA tensors; CPU tensors take each
+serving engine, training on one card or over a ``torch.distributed`` mesh
+(tensor, data and sequence parallelism with ring attention, ZeRO-1:
+``parallel``), checkpoints in the JAX package's format
+(``utils.checkpoint``), BERT and XLNet with the HF converters and
+softmax-N surgery (``surgery``), and activation and weight statistics,
+perplexity and the outlier gates (``analysis``, ``quant.gates``). Kernels run on CUDA tensors; CPU tensors take each
 kernel's plain PyTorch version. Public API::
 
     from flash_attention_softmax_n_tpu_torch import (

@@ -173,7 +173,8 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_bwd_reference(q, k, v, bias, slopes, seed, o, lse, do, *,
                         scale: float, is_causal: bool,
                         dropout_rate: float = 0.0, grad_bias: bool = True,
-                        grad_slopes: bool = True):
+                        grad_slopes: bool = True,
+                        delta: Optional[torch.Tensor] = None):
     """Plain version of K5 and K6: (dq, dk, dv, dbias, dslopes).
 
     Arguments as ``flash_fwd_reference``, with the forward's o and lse (or,
@@ -186,13 +187,15 @@ def flash_bwd_reference(q, k, v, bias, slopes, seed, o, lse, do, *,
     bf16 kernel rounds it to bf16 for the tensor cores, within the card
     tests' tolerance). dbias is ds as f32 (B,H,L,S) when a bias is given
     and ``grad_bias``; dslopes (H,) is the sum of ``ds * -|dist|`` over
-    batch and positions when slopes are given and ``grad_slopes``.
+    batch and positions when slopes are given and ``grad_slopes``. A
+    caller's ``delta`` (B,H,L) f32 stands for ``rowsum(do * o)``.
     """
     qs, s = _scores_reference(q, k, bias, slopes, scale=scale,
                               is_causal=is_causal)
     p = torch.exp(s - torch.clamp(lse, min=DEAD_LSE)[..., None])
     do = do.to(q.dtype).float()
-    delta = torch.sum(do * o.float(), dim=-1, keepdim=True)
+    delta = (torch.sum(do * o.float(), dim=-1, keepdim=True) if delta is None
+             else delta.float()[..., None])
     dp = do @ v.float().transpose(-1, -2)
     pd = p
     if dropout_rate > 0.0:
@@ -262,13 +265,15 @@ def _flash_fwd_cuda(q, k, v, bias, slopes, seed, *, n, scale, is_causal,
 
 
 def _flash_bwd_cuda(q, k, v, bias, slopes, seed, o, lse, do, *, scale,
-                    is_causal, dropout_rate, grad_bias, grad_slopes):
+                    is_causal, dropout_rate, grad_bias, grad_slopes,
+                    delta=None):
     B, H, L, _ = q.shape
     S = k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     do = do.to(q.dtype).contiguous()
     # delta = rowsum(do * o) stays a torch op, as JAX leaves it to XLA
-    delta = torch.sum(do.float() * o.float(), dim=-1)
+    delta = (torch.sum(do.float() * o.float(), dim=-1) if delta is None
+             else delta.float().contiguous())
     lse = lse.float().contiguous()
     bias_p = _plane_bias(bias, L, S)
     slopes = _opt_f32(slopes)
@@ -316,11 +321,14 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_bwd(q, k, v, bias, slopes, seed, o, lse, do, *, scale: float,
               is_causal: bool, dropout_rate: float = 0.0,
-              grad_bias: bool = True, grad_slopes: bool = True):
+              grad_bias: bool = True, grad_slopes: bool = True,
+              delta: Optional[torch.Tensor] = None):
     """K5 and K6 on CUDA tensors, their plain version on CPU tensors:
-    (dq, dk, dv, dbias (B,H,L,S) f32 or None, dslopes (H,) f32 or None)."""
+    (dq, dk, dv, dbias (B,H,L,S) f32 or None, dslopes (H,) f32 or None).
+    ``delta`` (B,H,L) f32, if given, is ``rowsum(do * o)`` computed once by
+    the caller."""
     kw = dict(scale=scale, is_causal=is_causal, dropout_rate=dropout_rate,
-              grad_bias=grad_bias, grad_slopes=grad_slopes)
+              grad_bias=grad_bias, grad_slopes=grad_slopes, delta=delta)
     if q.is_cuda:
         return _flash_bwd_cuda(q, k, v, bias, slopes, seed, o, lse, do, **kw)
     _check_device(q, "flash_bwd")
@@ -428,6 +436,7 @@ def flash_attention_block_grads(
     *,
     scale: Optional[float] = None,
     is_causal: bool = False,
+    delta: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flash backward of ONE kv block against an external normalizer.
 
@@ -435,11 +444,13 @@ def flash_attention_block_grads(
     ``log(n + sum_j exp(s_j))`` over the full key range, ``out``/``dout``
     the global output and its cotangent. Returns (dq, dk, dv) of this block
     through K5/K6 (their plain version on CPU tensors). Ragged query rows
-    are masked in the kernels, so nothing is padded.
+    are masked in the kernels, so nothing is padded. ``delta`` (B, H, L)
+    f32 is ``rowsum(dout * out)``: a ring computes it once for all its
+    blocks; None computes it here.
     """
     if scale is None:
         scale = 1.0 / math.sqrt(query.shape[-1])
     dq, dk, dv, _, _ = flash_bwd(query, key, value, None, None, None, out,
                                  lse, dout, scale=float(scale),
-                                 is_causal=bool(is_causal))
+                                 is_causal=bool(is_causal), delta=delta)
     return dq, dk, dv

@@ -5,7 +5,11 @@ weights are stacked on axis 0 as in the JAX parameter tree; the JAX
 ``lax.scan`` over layers is a Python loop here. ``decoder_forward`` and
 prefill run causal ``flash_attention_n`` (kernel K1 on the card, with K5/K6
 as its backward when training); decode attends a KV cache with the ``+n``
-term in every step's denominator. Quantized weights route as in JAX
+term in every step's denominator. Under a mesh ``decoder_forward`` runs
+on one rank's explicit shards (``parallel/sharding.py``): Megatron tensor
+parallelism over ``"model"`` (``tp_mesh``, or the weights' own shapes under
+``sp_mesh``) and ring attention over a sequence axis (``sp_mesh``).
+Quantized weights route as in JAX
 (``_mm``): int8 to ``x @ dequantize(w)`` on the ``"xla"`` route and to the
 dequant matmul K7 on the ``"pallas"`` route, int4 and W8A8 to K7, fp8 to
 ``x @ dequantize(w)`` on either route, and the decode SwiGLU block to the
@@ -17,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -216,16 +220,137 @@ def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
                                                               l, hd)
 
 
-def _layer(cfg: DecoderConfig, x, lp, attn_fn):
+def _cols(w) -> int:
+    return (w.logical_shape if isinstance(w, QTensor) else w.shape)[-1]
+
+
+class _TensorParallel:
+    """How this rank's weights split the decoder over ``mesh``'s
+    ``"model"`` axis, read from their local shapes: any mix of sharded and
+    replicated leaves (``_fit_spec`` replicates what does not divide).
+    Megatron's pairing: a replicated activation enters column-parallel
+    products through ``copy_to_axis`` (all-reduce backward) and leaves
+    row-parallel ones through ``reduce_from_axis`` (all-reduce forward).
+    Without a mesh every method is the identity."""
+
+    def __init__(self, cfg: DecoderConfig, params: Dict, mesh=None):
+        layers, hd = params["layers"], cfg.head_dim
+        self.mesh = mesh
+        self.q_sharded = self.kv_sharded = self.mlp_sharded = False
+        self.embed_sharded = self.vocab_sharded = False
+        self.kv_index, self.reps = None, cfg.n_heads // cfg.n_kv_heads
+        if mesh is None:
+            return
+        # imported here: the parallel package imports this module
+        from flash_attention_softmax_n_tpu_torch.parallel import sharding
+        from flash_attention_softmax_n_tpu_torch.parallel.mesh import (
+            axis_index,
+            axis_size,
+        )
+        self._sharding = sharding
+        if "wqkv" in layers or "w_gu" in layers:
+            if axis_size(mesh, "model") > 1:
+                raise ValueError(
+                    "fused projections (wqkv/w_gu) cannot be tensor-sharded: "
+                    "the Megatron column split would cut across q/k/v "
+                    "boundaries. Quantize without fuse_decoder_projections "
+                    "for TP.")
+            return
+        hq, hkv = _cols(layers["wq"]), _cols(layers["wk"])
+        if hq % hd or hkv % hd:
+            raise ValueError(
+                f"a tensor-parallel shard of wq/wk ({hq}/{hkv} columns) "
+                f"splits a head of {hd}: pad the heads to a multiple of the "
+                "'model' axis")
+        hq, hkv = hq // hd, hkv // hd
+        tp = axis_index(mesh, "model")
+        self.q_sharded = hq < cfg.n_heads
+        self.kv_sharded = hkv < cfg.n_kv_heads
+        self.mlp_sharded = _cols(layers["w_gate"]) < cfg.d_ff
+        self.embed_sharded = _cols(params["embed"]) < cfg.d_model
+        self.vocab_sharded = _cols(params["lm_head"]) < cfg.vocab_size
+        # the kv heads this rank's query heads read, as indices into its
+        # local k/v (all kv heads once gathered when q is replicated)
+        rep = cfg.n_heads // cfg.n_kv_heads
+        q0 = tp * hq if self.q_sharded else 0
+        kv0 = tp * hkv if self.kv_sharded and self.q_sharded else 0
+        need = [(q0 + i) // rep - kv0 for i in range(hq)]
+        local = hkv if self.q_sharded or not self.kv_sharded else cfg.n_kv_heads
+        if min(need) < 0 or max(need) >= local:
+            raise ValueError(
+                "a tensor-parallel shard's query heads read kv heads of "
+                f"another shard ({cfg.n_heads} q, {cfg.n_kv_heads} kv heads): "
+                "shard wk/wv like wq or replicate them")
+        uniq = sorted(set(need))
+        grouped = [u for u in uniq for _ in range(hq // len(uniq))]
+        if need == grouped:
+            self.reps = hq // len(uniq)
+            self.kv_index = None if uniq == list(range(local)) else uniq
+        else:
+            self.reps, self.kv_index = 1, need
+
+    def _enter(self, h, sharded):
+        return self._sharding.copy_to_axis(h, self.mesh, "model") if sharded else h
+
+    def _leave(self, y, sharded):
+        return (self._sharding.reduce_from_axis(y, self.mesh, "model")
+                if sharded else y)
+
+    def _gather(self, x, dim):
+        return self._sharding.gather_from_axis(x, self.mesh, "model", dim)
+
+    def attn_in(self, h, lp):
+        """(h, wk, wv) for the q/k/v products. A replicated wk/wv read by
+        sharded query heads takes the all-reduce backward too: each rank
+        differentiates only its heads' share of it."""
+        h = self._enter(h, self.q_sharded or self.kv_sharded)
+        wk, wv = lp["wk"], lp["wv"]
+        if self.q_sharded and not self.kv_sharded:
+            wk, wv = self._enter(wk, True), self._enter(wv, True)
+        return h, wk, wv
+
+    def kv_heads(self, k):
+        """This rank's query heads' kv heads, unrepeated: gathered when
+        only the kv projection is sharded, then selected."""
+        if self.kv_sharded and not self.q_sharded:
+            k = self._gather(k, 1)
+        return k if self.kv_index is None else k[:, self.kv_index]
+
+    def attn_out(self, y):
+        return self._leave(y, self.q_sharded)
+
+    def mlp_in(self, h):
+        return self._enter(h, self.mlp_sharded)
+
+    def mlp_out(self, y):
+        return self._leave(y, self.mlp_sharded)
+
+    def embedding(self, x):
+        return self._gather(x, -1) if self.embed_sharded else x
+
+    def logits(self, x, lm_head, cfg: DecoderConfig):
+        """lm_head's logits, all-gathered along vocab when it is sharded
+        (before the f32 log-softmax; a vocab-parallel loss is later work)."""
+        x = self._enter(x, self.vocab_sharded)
+        y = _mm(x, lm_head, cfg.act_bits, cfg.int8_mm_impl)
+        return self._gather(y, -1) if self.vocab_sharded else y
+
+
+def _layer(cfg: DecoderConfig, x, lp, attn_fn, tp: "_TensorParallel" = None):
     """One transformer block. ``attn_fn(q, k, v) -> (ctx, extras)``.
 
     Fused projections (``wqkv`` for wq/wk/wv, ``w_gu`` for w_gate/w_up) are
-    split here.
+    split here. ``tp`` places the block's collectives when the weights are
+    a rank's tensor-parallel shards; q/k/v carry as many heads as the local
+    projections give.
     """
     ab, mi = cfg.act_bits, cfg.int8_mm_impl
 
     def mm(a, w):
         return _mm(a, w, ab, mi)
+
+    def heads(y):
+        return _split_heads(y, y.shape[-1] // cfg.head_dim)
 
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     if "wqkv" in lp:
@@ -236,11 +361,14 @@ def _layer(cfg: DecoderConfig, x, lp, attn_fn):
         k = _split_heads(qkv[..., qd:qd + kvd], cfg.n_kv_heads)
         v = _split_heads(qkv[..., qd + kvd:], cfg.n_kv_heads)
     else:
-        q = _split_heads(mm(h, lp["wq"]), cfg.n_heads)
-        k = _split_heads(mm(h, lp["wk"]), cfg.n_kv_heads)
-        v = _split_heads(mm(h, lp["wv"]), cfg.n_kv_heads)
+        wk, wv = lp["wk"], lp["wv"]
+        if tp is not None:
+            h, wk, wv = tp.attn_in(h, lp)
+        q, k, v = heads(mm(h, lp["wq"])), heads(mm(h, wk)), heads(mm(h, wv))
     ctx, extras = attn_fn(q, k, v)
     attn_out = mm(_merge_heads(ctx), lp["wo"])
+    if tp is not None:
+        attn_out = tp.attn_out(attn_out)
     x = x + attn_out
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     if "w_gu" in lp:
@@ -251,8 +379,12 @@ def _layer(cfg: DecoderConfig, x, lp, attn_fn):
         mlp = fused_mlp_matmul(h, wg.values, wg.scales, wu.values, wu.scales,
                                wd.values, wd.scales)
     else:
+        if tp is not None:
+            h = tp.mlp_in(h)
         mlp = mm(F.silu(mm(h, lp["w_gate"])) * mm(h, lp["w_up"]),
                  lp["w_down"])
+        if tp is not None:
+            mlp = tp.mlp_out(mlp)
     x = x + mlp
     return x, attn_out, extras
 
@@ -265,7 +397,9 @@ def _rope(cfg: DecoderConfig, device):
 def decoder_forward(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
                     *, collect_taps: bool = False, train: bool = False,
                     generator: Optional[torch.Generator] = None,
-                    output_attentions: bool = False) -> Any:
+                    output_attentions: bool = False, sp_mesh=None,
+                    sp_axis: str = "sp", tp_mesh=None,
+                    data_axes: Sequence[str] = ("data",)) -> Any:
     """Full-sequence causal forward: tokens (B, L) -> logits (B, L, V) f32.
 
     ``collect_taps=True`` also returns the taps for the analysis collector:
@@ -279,16 +413,45 @@ def decoder_forward(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
     ``generator``: one int32 seed per layer is drawn from it, and both
     paths drop with K1's hash mask of that seed. ``cfg.remat`` recomputes
     each layer in the backward (``torch.utils.checkpoint``).
+
+    Meshes (every rank of the mesh calls this on its own shards):
+    ``params`` are this rank's slices (``parallel.shard_pytree``) and
+    ``tokens`` its rows of the batch, split over ``data_axes``. Weights
+    sharded over ``"model"`` run Megatron tensor parallelism (the logits
+    come back whole). ``tp_mesh``: attention runs ``flash_attention_n`` on
+    the local (batch, head) slab, its dropout mask bit-identical to one
+    device's. ``sp_mesh``: ``tokens`` are also this rank's sequence shard
+    over ``sp_axis``, RoPE takes global positions, and attention runs as
+    ``ring_attention_n`` with GQA K/V unrepeated; dropout and
+    ``output_attentions`` raise there (the ring never forms the
+    probabilities), and ``output_attentions`` raises under ``tp_mesh`` too.
     """
     b, l = tokens.shape
     dp = cfg.attn_dropout if train else 0.0
     if dp > 0.0 and generator is None:
         raise ValueError("train=True with cfg.attn_dropout > 0 requires "
                          "generator")
-    x = params["embed"][tokens].to(cfg.dtype)
+    if dp > 0.0 and sp_mesh is not None:
+        raise NotImplementedError(
+            "ring (sequence-parallel) attention has no dropout path; "
+            "train with tp_mesh or dp-only sharding instead")
+    if output_attentions and (sp_mesh is not None or tp_mesh is not None):
+        raise NotImplementedError(
+            "output_attentions materializes (B, H, L, L) probabilities; "
+            "the sharded paths never form them — run without a mesh")
+    mesh = sp_mesh if sp_mesh is not None else tp_mesh
+    tp = _TensorParallel(cfg, params, mesh)
+    x = tp.embedding(params["embed"][tokens].to(cfg.dtype))
     cos, sin = _rope(cfg, x.device)
     positions = torch.arange(l, device=x.device)
-    reps = cfg.n_heads // cfg.n_kv_heads
+    if sp_mesh is not None:
+        from flash_attention_softmax_n_tpu_torch.parallel.mesh import (
+            axis_index,
+        )
+        from flash_attention_softmax_n_tpu_torch.parallel.ring_attention import (  # noqa: E501
+            ring_attention_n,
+        )
+        positions = positions + axis_index(sp_mesh, sp_axis) * l
     # every layer's seed is drawn before any layer runs: checkpoint replays
     # the default generators in the recompute but not a caller's, so a seed
     # drawn inside a checkpointed layer would give the recompute another mask
@@ -313,17 +476,26 @@ def decoder_forward(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
     def block(x, lp, seed):
         def attn(q, k, v):
             q = apply_rope(q, cos, sin, positions)
-            k = apply_rope(k, cos, sin, positions)
-            k, v = _repeat_kv(k, reps), _repeat_kv(v, reps)
+            k, v = tp.kv_heads(apply_rope(k, cos, sin, positions)), tp.kv_heads(v)
+            if sp_mesh is not None:
+                # GQA kv stays unrepeated: the ring rotates the small heads
+                ctx = ring_attention_n(
+                    q, k, v, mesh=sp_mesh, axis_name=sp_axis,
+                    softmax_n_param=cfg.softmax_n, is_causal=True,
+                    implementation=cfg.attn_implementation)
+                return ctx, None
+            k, v = _repeat_kv(k, tp.reps), _repeat_kv(v, tp.reps)
             if output_attentions:
                 return materialized(q, k, v, seed)
             ctx = flash_attention_n(
                 q, k, v, softmax_n_param=cfg.softmax_n, is_causal=True,
                 dropout_p=dp, train=train, dropout_seed=seed,
-                implementation=cfg.attn_implementation)
+                implementation=cfg.attn_implementation, mesh=tp_mesh,
+                batch_axis=tuple(data_axes),
+                head_axis="model" if tp.q_sharded else None)
             return ctx, None
 
-        x, attn_out, probs = _layer(cfg, x, lp, attn)
+        x, attn_out, probs = _layer(cfg, x, lp, attn, tp)
         return x, attn_out if collect_taps else None, probs
 
     taps, probs = [], []
@@ -335,8 +507,7 @@ def decoder_forward(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
         taps.append(tap)
         probs.append(p)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _mm(x, params["lm_head"], cfg.act_bits,
-                 cfg.int8_mm_impl).float()
+    logits = tp.logits(x, params["lm_head"], cfg).float()
     out = (logits,)
     if collect_taps:
         out += ({f"layers.{i}.attention.output": t

@@ -12,6 +12,10 @@ Counterpart of ``flash_attention_n``
 Inputs may be 2-D, 3-D or 4-D; 3-D K/V broadcast against 4-D Q; boolean
 masks (True = attend) become an f32 bias of -f32max/2, additive biases add
 to it, and both combine with ``is_causal``.
+
+Under ``mesh`` the inputs are one rank's (batch, head) slab, as the port's
+explicit shards hold them (``parallel/sharding.py``); JAX instead takes the
+global arrays and ``shard_map``s the kernel over them.
 """
 
 from __future__ import annotations
@@ -66,6 +70,49 @@ def _bias_to_4d(b: torch.Tensor, L: int, S: int) -> torch.Tensor:
     return b
 
 
+def _slab(mesh, batch_axis, head_axis, q4, bias, bias_grad, seed):
+    """(bias, seed) of this rank's (batch, head) slab under ``mesh``."""
+    from flash_attention_softmax_n_tpu_torch.parallel.mesh import (
+        axis_index,
+        axis_size,
+    )
+    from flash_attention_softmax_n_tpu_torch.parallel.sharding import (
+        copy_to_axis,
+    )
+
+    names = mesh.mesh_dim_names or ()
+    b_axes = tuple(a for a in ((batch_axis,) if isinstance(batch_axis, str)
+                               else batch_axis or ()) if a in names)
+    h_axes = (head_axis,) if head_axis in names else ()
+    broadcast = []
+    for dim, axes in ((0, b_axes), (1, h_axes)):
+        parts = math.prod(axis_size(mesh, a) for a in axes)
+        local = q4.shape[dim]
+        if bias is None or parts == 1 or bias.shape[dim] == local != 1:
+            continue
+        if bias.shape[dim] == 1:
+            broadcast += axes
+        elif bias.shape[dim] == local * parts:
+            bias = bias.narrow(dim, axis_index(mesh, axes) * local, local)
+        else:
+            raise ValueError(
+                f"bias dim {dim} of size {bias.shape[dim]} does not divide "
+                f"mesh axes {axes} over a slab of {local}")
+    if broadcast and bias_grad:
+        bias = copy_to_axis(bias, mesh, tuple(broadcast))
+    if seed is not None:
+        from flash_attention_softmax_n_tpu_torch.kernels.flash_attention import (  # noqa: E501
+            _MIX_C,
+            _MIX_D,
+        )
+        base = (axis_index(mesh, b_axes) * q4.shape[0] * _MIX_C
+                + axis_index(mesh, h_axes) * q4.shape[1] * _MIX_D)
+        # wrapping int32 arithmetic, as the hash reads its seed
+        seed = ((torch.as_tensor(seed).to(torch.int64) + base + 2 ** 31)
+                % 2 ** 32 - 2 ** 31).to(torch.int32)
+    return bias, seed
+
+
 def flash_attention_n(
     query: torch.Tensor,
     key: torch.Tensor,
@@ -84,6 +131,8 @@ def flash_attention_n(
     block_q: Optional[int] = None,
     block_k: Optional[int] = None,
     mesh=None,
+    batch_axis="data",
+    head_axis: Optional[str] = "model",
 ) -> torch.Tensor:
     """Scaled-dot-product attention with softmax-N (any real n >= 0).
 
@@ -95,11 +144,19 @@ def flash_attention_n(
     in its kernels; the ``'xla'`` route materializes it. ``block_q`` and
     ``block_k`` are accepted for the JAX package's signature and ignored:
     its TPU tiling is not ported, and the kernels choose their own tiles.
-    ``mesh`` is not ported yet.
+
+    ``mesh``: the inputs are this rank's slab of a problem split evenly,
+    batch over ``batch_axis`` (a name, or names outermost first) and heads
+    over ``head_axis``; axes the mesh lacks, or None, are skipped. Attention
+    rows are independent over batch and heads, so the kernels run on the
+    slab as they are, and only the global coordinates change: the dropout
+    seed takes the slab's global batch and head base (``seed + b0*C +
+    h0*D``, wrapping int32; the hash is linear in b and h), so the sharded
+    mask is bit-identical to the unsharded one. A bias dim of size 1 over a
+    sharded axis is a broadcast: its cotangent is summed over that axis, as
+    JAX's ``shard_map`` transpose sums it. A bias dim at the global size is
+    sliced to the slab; any other size does not divide and raises.
     """
-    if mesh is not None:
-        raise NotImplementedError("sharded attention (mesh) is not ported "
-                                  "yet; see ROADMAP.md")
     n = 0.0 if softmax_n_param is None else float(softmax_n_param)
     if n < 0:
         raise ValueError(f"softmax_n_param must be >= 0, got {n}")
@@ -138,6 +195,10 @@ def flash_attention_n(
         dropout_seed = torch.randint(0, 2 ** 31 - 1, (), generator=generator,
                                      device=generator.device,
                                      dtype=torch.int32)
+    if mesh is not None:
+        bias, dropout_seed = _slab(mesh, batch_axis, head_axis, q4, bias,
+                                   attn_bias is not None,
+                                   dropout_seed if use_dropout else None)
     if implementation == "auto":
         implementation = "pallas" if E == Ev else "xla"
     if implementation == "pallas" and E != Ev:

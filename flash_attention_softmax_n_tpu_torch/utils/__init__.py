@@ -1,2 +1,12 @@
-"""Profiling helpers (``profiling``) and the prefill-phase profile
+"""Checkpoints (``checkpoint``, in the JAX package's format), profiling
+helpers (``profiling``) and the prefill-phase profile
 (``python -m flash_attention_softmax_n_tpu_torch.utils.profile_prefill_phases``)."""
+from flash_attention_softmax_n_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
+    load_train_checkpoint,
+    save_checkpoint,
+    save_train_checkpoint,
+)
+
+__all__ = ["save_checkpoint", "load_checkpoint", "save_train_checkpoint",
+           "load_train_checkpoint"]

@@ -33,7 +33,13 @@ nothing; the loop variants then replay bit-equal over the inserted rows).
 Surgery and analysis: K7's f32 mode with int4 weights at BERT-base's
 matmul shapes, an int4 BERT (six K7 launches a layer) within 1e-3 of its
 dequantized tree, and the decoder's taps on the card within bf16 tolerance
-of the CPU's (``output_attentions`` launches no K1).
+of the CPU's (``output_attentions`` launches no K1). Multi-device
+training: the ring's per-rank schedule at p = 4 (K1 at n = 0 with its lse
+per visiting block, K5/K6 against the global lse, GQA K/V unrepeated)
+against single-device K1 and K5/K6, bf16 and f32, and
+``flash_attention_n(mesh=)``'s dropout on each (batch, head) slab of a
+{"data": 2, "model": 4} mesh bit-equal to the unmeshed kernel's (a stand-in
+mesh gives each slab its coordinates; no process group is needed).
 Tolerances: forward f32 within 2e-5 (summation order), bf16 within 2e-2 (p
 rounded to bf16 before PV, as in the plain version), lse within 1e-4;
 gradients within 1e-4 (f32) or 2e-2 (bf16: ds rounds to bf16 on either side
@@ -1496,3 +1502,114 @@ def test_decoder_taps_on_the_card_match_the_cpu(gen):
     _, probs = tm.decoder_forward(cuda, cfg, tokens.cuda(), output_attentions=True)
     assert _build.LAUNCHES["flash_fwd"] == before + cfg.n_layers
     assert tuple(probs.shape) == (2, 2, 4, 64, 64)
+
+
+# ----------------------------------------------------------------------------
+# multi-device training: the ring's schedule and the meshed kernel
+# ----------------------------------------------------------------------------
+
+
+def _ring_schedule(q, k, v, do, *, p, n, scale):
+    """All p ranks' ring schedules in one process, through the package's
+    per-rank step functions: (o, lse, dq, dk, dv) over the whole sequence
+    and the K1/K5/K6 launches they made."""
+    from flash_attention_softmax_n_tpu_torch.parallel import ring_attention as ra
+    shard = lambda x: list(x.chunk(p, dim=2))  # noqa: E731
+    qs, ks, vs, dos = shard(q), shard(k), shard(v), shard(do)
+    _build.reset_launches()
+    outs, lses = [], []
+    for my in range(p):
+        state = ra.ring_init(qs[my], vs[my])
+        for t in range(p):
+            owner = (my - t) % p
+            state = ra.ring_fold(state, ra.ring_block_forward(
+                qs[my], ks[owner], vs[owner], mode=ra.block_mode(True, p, my, t),
+                scale=scale, implementation="pallas"))
+        o, lse = ra.ring_finish(state, n, q.dtype)
+        outs.append(o)
+        lses.append(lse)
+    dq = [torch.zeros_like(x, dtype=torch.float32) for x in qs]
+    dk = [torch.zeros_like(x, dtype=torch.float32) for x in ks]
+    dv = [torch.zeros_like(x, dtype=torch.float32) for x in vs]
+    for my in range(p):
+        delta = torch.sum(dos[my].float() * outs[my].float(), dim=-1)
+        for t in range(p):
+            owner = (my - t) % p
+            g = ra.ring_block_backward(
+                qs[my], ks[owner], vs[owner], outs[my], dos[my], lses[my], delta,
+                mode=ra.block_mode(True, p, my, t), scale=scale,
+                implementation="pallas")
+            if g is not None:
+                dq[my] += g[0]
+                dk[owner] += g[1]
+                dv[owner] += g[2]
+    torch.cuda.synchronize()
+    launches = {k_: _build.LAUNCHES[k_]
+                for k_ in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    cat = lambda xs, dt: torch.cat(xs, dim=2).to(dt)  # noqa: E731
+    return (cat(outs, q.dtype), torch.cat(lses, dim=2), cat(dq, q.dtype),
+            cat(dk, k.dtype), cat(dv, v.dtype), launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_schedule_matches_single_device(gen, dtype):
+    B, H, KVH, L, D, p, n = 1, 8, 2, 1024, 64, 4, 1.0
+    q, do = (torch.randn((B, H, L, D), generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((B, KVH, L, D), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    scale = D ** -0.5
+    o, lse, dq, dk, dv, launches = _ring_schedule(q, k, v, do, p=p, n=n,
+                                                  scale=scale)
+    # p = 4 causal: 10 blocks launch (6 full, 4 diagonal), 6 are skipped
+    assert launches == {"flash_fwd": 10, "flash_bwd_dq": 10, "flash_bwd_dkv": 10}
+    rep = H // KVH
+    kr, vr = (x.repeat_interleave(rep, dim=1) for x in (k, v))
+    o1, lse1 = fa.flash_fwd(q, kr, vr, None, n=n, scale=scale, is_causal=True)
+    dq1, dk1, dv1, _, _ = fa.flash_bwd(q, kr, vr, None, None, None, o1, lse1, do,
+                                       scale=scale, is_causal=True)
+    group = lambda g: g.float().reshape(B, KVH, rep, L, D).sum(2)  # noqa: E731
+    f32 = dtype == torch.float32
+    # bf16: the ring rounds each block's o and gradients to bf16 once more
+    otol, gtol = (2e-5, 1e-4) if f32 else (2e-2, 1e-2)
+    assert float((o.float() - o1.float()).abs().max()) <= otol
+    assert float((lse - lse1).abs().max()) <= (1e-4 if f32 else 1e-3)
+    for got, want in ((dq, dq1.float()), (dk, group(dk1)), (dv, group(dv1))):
+        err = float((got.float() - want).norm()) / max(1.0, float(want.norm()))
+        assert err <= gtol, err
+
+
+class _MeshStandIn:
+    """The coordinates of one rank of {"data": 2, "model": 4}: what
+    ``flash_attention_n(mesh=)`` reads when no bias needs its cotangent
+    summed."""
+
+    mesh_dim_names = ("data", "model")
+    mesh = torch.zeros((2, 4))
+
+    def __init__(self, rank):
+        self.coord = {"data": rank // 4, "model": rank % 4}
+
+    def get_local_rank(self, name):
+        return self.coord[name]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_meshed_dropout_bit_equal_to_unmeshed(gen, dtype):
+    from flash_attention_softmax_n_tpu_torch.ops.flash_attention import (
+        flash_attention_n,
+    )
+    B, H, L, D = 4, 8, 256, 64
+    q, k, v = (torch.randn((B, H, L, D), generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    kw = dict(softmax_n_param=1.0, is_causal=True, dropout_p=0.35,
+              dropout_seed=torch.tensor(-424242, dtype=torch.int32),
+              implementation="pallas")
+    whole = flash_attention_n(q, k, v, **kw)
+    for rank in range(8):
+        d, m = divmod(rank, 4)
+        cut = lambda x: x[2 * d:2 * d + 2, 2 * m:2 * m + 2]  # noqa: E731
+        slab = flash_attention_n(cut(q), cut(k), cut(v), mesh=_MeshStandIn(rank),
+                                 **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(slab, cut(whole)), rank

@@ -100,8 +100,15 @@ def test_public_api_matches_jax(n, implementation):
     np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
 
 
-def test_unported_options_raise():
-    # ALiBi and dropout are ported: tests/test_torch_flash_backward.py
+def test_unported_options_raise(tmp_path):
+    # ALiBi and dropout are ported: tests/test_torch_flash_backward.py;
+    # mesh is too (tests/test_torch_parallel.py): on a mesh of one rank the
+    # slab is the whole problem, dropout mask included
+    from flash_attention_softmax_n_tpu_torch.parallel import make_mesh
+    from tests.torch_worlds import one_rank_group
     q, k, v = (_t(a) for a in _qkv(4, 1, 2, 8, 8, 32))
-    with pytest.raises(NotImplementedError):
-        t_flash(q, k, v, mesh=object())
+    kw = dict(softmax_n_param=1.0, is_causal=True, dropout_p=0.3,
+              dropout_seed=torch.tensor(7, dtype=torch.int32))
+    with one_rank_group(tmp_path):
+        got = t_flash(q, k, v, mesh=make_mesh({"data": 1, "model": 1}), **kw)
+    assert torch.equal(got, t_flash(q, k, v, **kw))

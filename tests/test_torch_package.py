@@ -32,11 +32,16 @@ def test_port_and_chip_smoke_import_no_jax():
         "import flash_attention_softmax_n_tpu_torch.models.xlnet\n"
         "import flash_attention_softmax_n_tpu_torch.ops.relative_attention\n"
         "import flash_attention_softmax_n_tpu_torch.parallel\n"
+        "import flash_attention_softmax_n_tpu_torch.parallel.mesh\n"
+        "import flash_attention_softmax_n_tpu_torch.parallel.ring_attention\n"
+        "import flash_attention_softmax_n_tpu_torch.parallel.sharding\n"
+        "import flash_attention_softmax_n_tpu_torch.parallel.train\n"
         "import flash_attention_softmax_n_tpu_torch.quant\n"
         "import flash_attention_softmax_n_tpu_torch.quant.gates\n"
         "import flash_attention_softmax_n_tpu_torch.surgery\n"
         "import flash_attention_softmax_n_tpu_torch.surgery.convert\n"
         "import flash_attention_softmax_n_tpu_torch.utils.bench_cache_update\n"
+        "import flash_attention_softmax_n_tpu_torch.utils.checkpoint\n"
         "import flash_attention_softmax_n_tpu_torch.utils.bench_decode_attn\n"
         "import flash_attention_softmax_n_tpu_torch.utils.profile_prefill_phases\n"
         "import flash_attention_softmax_n_tpu_torch.utils.profiling\n"
@@ -97,6 +102,7 @@ def test_entry_points_default_to_the_card():
         llama_params_from_hf,
         xlnet_params_from_hf,
     )
+    from flash_attention_softmax_n_tpu_torch.parallel import initialize_distributed
     from flash_attention_softmax_n_tpu_torch.utils import profile_prefill_phases
     cfg = DecoderConfig(vocab_size=16, d_model=8, n_layers=1, n_heads=2,
                         n_kv_heads=1, d_ff=8, max_seq_len=8,
@@ -131,6 +137,8 @@ def test_entry_points_default_to_the_card():
         lambda: from_pretrained_hf(stand_in, 1.0),
         lambda: init_activation_stats(["a"]),
         lambda: register_activation_hooks(lambda x: (x, {}), ["a.attention.output"]),
+        # NCCL on the card unless the caller asks for gloo on the CPU
+        lambda: initialize_distributed("localhost:1"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

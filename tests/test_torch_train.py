@@ -101,14 +101,28 @@ def test_remat_gives_the_same_grads(jparams):
         np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-7, rtol=0)
 
 
-def test_training_config_constructs_and_unported_raise():
+def test_training_config_constructs_and_unported_raise(jparams, tmp_path):
     tm.DecoderConfig(**TINY_KW, remat=True, attn_dropout=0.1)
     for kw in (dict(act_bits=8), dict(int8_mm_impl="pallas")):
         tm.DecoderConfig(**TINY_KW, remat=True, **kw)
-    for kw in (dict(mesh=object()), dict(sp_axis="sp"),
-               dict(dcn_data_axis="dcn"), dict(zero1=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # the meshed options are ported (tests/test_torch_parallel.py); without
+    # a mesh they raise
+    for kw in (dict(sp_axis="sp"), dict(dcn_data_axis="dcn"), dict(zero1=True)):
+        with pytest.raises(ValueError, match="need a mesh"):
             make_train_step(_configs()[1], **kw)
+    # a mesh of one rank takes the step of one device, SP ring and ZeRO-1
+    # included
+    from flash_attention_softmax_n_tpu_torch.parallel import make_mesh
+    from tests.torch_worlds import one_rank_group
+    cfg = _configs()[1]
+    init, step = make_train_step(cfg, learning_rate=1e-2)
+    _, _, want = step(*init(_port(jparams)), _tokens())
+    with one_rank_group(tmp_path):
+        mesh = make_mesh({"data": 1, "model": 1, "sp": 1})
+        for kw in (dict(sp_axis="sp"), dict(zero1=True)):
+            init, step = make_train_step(cfg, mesh, learning_rate=1e-2, **kw)
+            _, _, got = step(*init(_port(jparams)), _tokens())
+            np.testing.assert_allclose(got.item(), want.item(), rtol=1e-6)
 
 
 class TestDropout:
