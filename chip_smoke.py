@@ -149,11 +149,25 @@ Phases, in order, each printing one JSON line:
 13. checkpoint: the TinyLlama-1.1B params, dense bf16 and int8, saved and
    loaded (the reloaded logits bit-equal), and a train checkpoint of the
    ZeRO-1 mesh run (2 layers, B1 x L512) saved at step 2 and resumed: the
-   losses of the uninterrupted run.
+   losses of the uninterrupted run; then, in the same group,
+14. serve_mesh: ``InferenceEngine(mesh=make_mesh({"data": 1, "model": 1}))``
+   at the full TinyLlama-1.1B shape (22 layers, the serve phase's int8
+   weights, int8 KV, 64 slots, max_len 512): ``serve_fused``'s 96 requests
+   after ``prewarm`` and 4 through the step path, on the default and the
+   all-kernel routes, every token equal to an unmeshed engine's with the
+   same chunk plan and no piggybacking (a mesh turns it off); one 256-token
+   prefix registered on a 1-slot meshed engine, its 8 hits equal to cold
+   prefill; K1-K4 and K7-K9 must launch. Its kernel lines (phase 3) are at
+   the per-rank shapes of {"data": 2, "model": 4}: K2 on four vocab shards
+   of N32000 (M32 K2048 N8000), merged and held equal to K2 over the whole
+   vocabulary; K1 B16 H8 L=S=128 under the engine's mask; K3 NL22 B32 KVH1
+   S512 int8 + scales; K4 NL22 B32 KVH1 W64 bf16; K8 B32 KVH1 G8 S512 int8;
+   K7 at M32 (K2048 N512, N64, N1408; K512 N2048; K1408 N2048); K9 M32
+   K2048 F1408.
 
 Then it prints the kernels' JSON line (times, launches on the serving,
-training, analysis, surgery or ring run, each kernel's launches on the
-analysis, surgery and train_mesh runs, bounds), the card's name and power limit from
+training, analysis, surgery, ring or serve_mesh run, each kernel's launches on the
+analysis, surgery, train_mesh and serve_mesh runs, bounds), the card's name and power limit from
 nvidia-smi, and last ``{"ok": true, "device": {...}}``. Any failed check
 exits non-zero. The port is imported from the checkout; nothing of JAX is
 imported.
@@ -2802,9 +2816,10 @@ def train_mesh(torch, pkg):
             for k_, count in run["launches"].items():
                 require(count > 0, f"train_mesh {name} never launched {k_}")
         checkpoint(torch, pkg, mesh)
+        mesh_launches = serve_mesh(torch, pkg)
     finally:
         dist.destroy_process_group()
-    return launches
+    return launches, mesh_launches
 
 
 def checkpoint(torch, pkg, mesh):
@@ -2882,6 +2897,248 @@ def checkpoint(torch, pkg, mesh):
                 f"checkpoint {name}: the reloaded forward or config differs: {res}")
     require(step_r == 2 and rel <= 1e-6,
             f"checkpoint: resumed losses {resumed} against {straight}")
+
+
+# ----------------------------------------------------------------------------
+# phase 14: serving over a mesh, in the one-rank NCCL group of train_mesh
+# ----------------------------------------------------------------------------
+
+# the per-rank shapes of {"data": 2, "model": 4} at TinyLlama-1.1B's widths:
+# what each of 8 cards launches (64 slots / 2 = 32 a rank, 32 query and 4 KV
+# heads / 4, 32000 vocab columns / 4, d_ff 5632 / 4)
+MESH_DP, MESH_TP = 2, 4
+MESH_KERNELS = ("flash_fwd", "qmm_argmax", "cache_append", "tail_append", "qmm",
+                "decode_attn", "fused_mlp")
+
+
+def check_qmm_vocab_shards(torch, pkg, gen, *, M, K, N, P):
+    """K2 on each of ``P`` vocab shards of one (K, N) lm_head, in one
+    process, as the ranks of a ``"model"`` axis run it: each shard held
+    against its plain version as ``check_qmm`` holds it, and the engine's
+    merge (``engine._merge_shard_argmax`` over each shard's (max, index +
+    its first column)) required equal to K2 over all N columns on the same
+    rows (K is never split, so a column's value does not depend on its
+    shard, and a tie takes the lowest global column in both). Shard 0 is
+    timed, with its bound, plan and cuBLAS's GEMM + max beside it."""
+    qm, eng = pkg["quant_matmul"], pkg["engine"]
+    dev = "cuda"
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randint(-127, 128, (K, N), generator=gen, device=dev).to(torch.int8)
+    s = (torch.rand((1, N), generator=gen, device=dev) + 0.5) / (127.0 * K ** 0.5)
+    part = N // P
+    shards = [(w[:, r * part:(r + 1) * part].contiguous(),
+               s[:, r * part:(r + 1) * part].contiguous()) for r in range(P)]
+    vals, idxs, idx_ok, rel, err, undecided = [], [], True, 0.0, 0.0, 0
+    for r, (wr, sr) in enumerate(shards):
+        idx, val = qm.quantized_matmul_argmax(x, wr, sr, return_max=True)
+        idx_ref, val_ref = qm.quantized_matmul_argmax_reference(x, wr, sr)
+        top2 = torch.topk((x.float() @ wr.float()) * sr, 2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 1e-3
+        idx_ok &= bool(torch.equal(idx[decided], idx_ref[decided]))
+        rel = max(rel, float(((val - val_ref).abs() / val_ref.abs().clamp(min=1e-6)).max()))
+        err = max(err, float((val - val_ref).abs().max()))
+        undecided += int((~decided).sum())
+        vals.append(val.double())
+        idxs.append(idx + r * part)
+    merged = eng._merge_shard_argmax(torch.stack(vals), torch.stack(idxs).to(torch.int32))
+    whole = qm.quantized_matmul_argmax(x, w, s)
+    merge_equal = bool(torch.equal(merged, whole))
+    w0, s0 = shards[0]
+
+    def kernel():
+        return qm.quantized_matmul_argmax(x, w0, s0, return_max=True)
+
+    def plain():
+        return qm.quantized_matmul_argmax_reference(x, w0, s0)
+
+    w0_bf16 = w0.to(torch.bfloat16)
+
+    def cublas():
+        return torch.max((x @ w0_bf16) * s0, dim=-1)
+
+    same = repeat_equal(torch, kernel, kernel())
+    name = f"qmm_argmax M{M} K{K} N{part} (vocab shard of N{N} over {P})"
+    require(idx_ok and rel <= 1e-3 and same and merge_equal,
+            f"{name}: indices equal where the top-2 gap > 1e-3: {idx_ok}; max relative "
+            f"error of the max {rel} (tol 1e-3); repeat bit-equal {same}; merged tokens "
+            f"equal K2 over N{N}: {merge_equal}")
+    plan = qm.qmm_argmax_plan(M, K, part, x.dtype)
+    b_ms, b_by = bound_ms(x.numel() * 2 + w0.numel() + part * 4 + M * 8, 2.0 * M * K * part)
+    k_dev, cublas_dev = device_ms_of(torch, [(kernel, QMM_ARGMAX_KERNELS), (cublas, None)])
+    return {"name": name, "route": "cuda", "source": f"{CSRC}/qmm_argmax.cu",
+            "replaces": f"{TPU_PKG}/kernels/quant_matmul.py:117 _qmm_argmax_kernel",
+            "counter": "qmm_argmax", "max_abs_err": err, "max_rel_err": rel,
+            "tolerance": 1e-3, "undecided_rows": undecided, "repeat_bit_equal": same,
+            "merge_equal_whole_vocab": merge_equal, "plan": plan._asdict(),
+            "producer": plan.producer, "ms": time_ms(torch, kernel), "device_ms": k_dev,
+            "w_gbps": w0.numel() / (k_dev * 1e-3) / 1e9 if k_dev else None,
+            "plain_ms": time_ms(torch, plain), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "library": "none: no one PyTorch call computes it (a GEMM and a max)",
+            "cublas_device_ms": cublas_dev,
+            "cublas": "torch.max((x @ W) * s, -1) over W dequantized to bf16"}
+
+
+def mesh_kernel_lines(torch, pkg):
+    """Every kernel of the meshed serving path at the per-rank shapes of
+    {"data": 2, "model": 4} at TinyLlama-1.1B's widths, each against its
+    plain version, from a generator of its own (seed 15): K2 on four
+    vocab shards with the merge, K1 over an admission group on a rank's
+    heads, K3/K4 on its 32 slots and one KV head, K8 over its 8 query
+    heads of that KV head, K7 on the column shards (wq, wk/wv, gate/up) and
+    row shards (wo, w_down), K9 on a quarter of d_ff."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    b = 64 // MESH_DP
+    h, kvh, f, d = 32 // MESH_TP, 4 // MESH_TP, 5632 // MESH_TP, 2048
+    lines = [
+        check_qmm_vocab_shards(torch, pkg, gen, M=b, K=d, N=32000, P=MESH_TP),
+        check_flash(torch, pkg, gen, B=16, H=h, L=128, S=128, D=64, masked=True),
+        check_row_writes(torch, pkg, ("cache_append", 22, b, kvh, 512, 64, 906)),
+        check_row_writes(torch, pkg, ("tail_append", 22, b, kvh, 64, 64, 907)),
+        check_decode_attn(torch, pkg, (b, kvh, h // kvh, 512, 64, "int8", 806)),
+        *(check_dequant_mm(torch, pkg, gen, M=b, K=k, N=n)
+          for k, n in ((d, h * 64), (d, kvh * 64), (d, f), (h * 64, d), (f, d))),
+        check_fused_mlp(torch, pkg, gen, M=b, K=d, F=f),
+    ]
+    for kd in lines:
+        kd["path"] = "serve_mesh"
+    return lines
+
+
+def fixed_plan_engine(eng_mod, eager=False):
+    """The engine (capture off if ``eager``) planning chunks with the fixed
+    ``_SCHED_OVERHEAD_STEPS``, as a meshed engine does, instead of its
+    measured times: the unmeshed reference then plans the meshed run's
+    chunks, and the two compute the same function."""
+    base = eager_engine(eng_mod) if eager else eng_mod.InferenceEngine
+
+    class FixedPlanEngine(base):
+        _sched_overhead_steps = eng_mod.InferenceEngine._SCHED_OVERHEAD_STEPS
+
+    return FixedPlanEngine
+
+
+def serve_mesh_route(torch, pkg, cfg, params, mesh, route):
+    """``serve_fused``'s 96 requests (seed 0) through 64 slots of a meshed
+    engine after ``prewarm(loop_steps=64, attn_lens=[256])``, then the first
+    4 through its step path (K3), against the same on an unmeshed engine
+    (eager, the meshed run's chunk plan, no piggybacking, which a mesh
+    turns off): on one rank the ops are the same, so every token must be
+    equal. Returns the meshed runs' launches."""
+    eng_mod, build = pkg["engine"], pkg["build"]
+    reqs = serve_requests(np.random.RandomState(0), cfg, 96)
+
+    def run(eng, step=False):
+        ids = [eng.submit(p, max_new_tokens=n) for p, n in (reqs[:4] if step else reqs)]
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        done = {r.request_id: r for r in eng.run_until_done(
+            loop_steps=None if step else 64)}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(len(done) == len(ids), f"serve_mesh_{route}: finished {len(done)} of "
+                f"{len(ids)} requests")
+        return [done[i].output for i in ids], wall, dict(build.LAUNCHES)
+
+    ref_eng = fixed_plan_engine(eng_mod, eager=True)(
+        cfg, params, max_batch=64, max_len=512, kv_quantization="int8",
+        piggyback_prefill=False)
+    ref, _, _ = run(ref_eng)
+    ref_step, _, _ = run(ref_eng, step=True)
+    del ref_eng
+    eng = eng_mod.InferenceEngine(cfg, params, max_batch=64, max_len=512,
+                                  kv_quantization="int8", mesh=mesh)
+    prewarm = prewarm_line(torch, eng, f"serve_mesh_{route}")
+    out, wall, launches = run(eng)
+    counters = eng.counters_report()
+    out_step, step_wall, step_launches = run(eng, step=True)
+    n_tok = sum(len(o) for o in out)
+    emit({"phase": f"serve_mesh_{route}", "card": pkg["nvidia_smi"],
+          "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+          "config": f"TinyLlama-1.1B shape, 22 layers, int8 weights and KV, {route} route",
+          "requests": len(out), "tokens": n_tok, "wall_s": wall,
+          "tokens_per_s": n_tok / wall, "prewarm_s": prewarm["seconds"],
+          "variants": prewarm["variants"], "step_requests": 4, "step_wall_s": step_wall,
+          "equal_to_unmeshed": sum(a == b for a, b in zip(out, ref)),
+          "step_equal_to_unmeshed": sum(a == b for a, b in zip(out_step, ref_step)),
+          "counters": counters, "launches": launches, "step_launches": step_launches})
+    require(all(len(o) == n for o, (_, n) in zip(out, reqs)),
+            f"serve_mesh_{route}: a request did not emit exactly its budget")
+    require(out == ref and out_step == ref_step,
+            f"serve_mesh_{route}: the meshed tokens differ from the unmeshed engine's")
+    require(counters.get("piggyback_prompts", 0) == 0,
+            f"serve_mesh_{route}: a prompt was piggybacked under a mesh")
+    return {k: launches[k] + step_launches[k] for k in launches}
+
+
+def serve_mesh_prefix(torch, pkg, cfg, params, mesh):
+    """One 256-token prefix (bench.py's, seed 99) on a 1-slot meshed engine:
+    8 requests behind it (prompts 272-383 tokens, budgets 16-63) served
+    cold (the chunked lane: chunks at offsets 0 and 256), then again after
+    ``register_prefix`` (8 hits: the stored rows copied in, one chunk at
+    offset 256). One slot keeps every admission at one row, the store's
+    own prefill shape, so the hits must give the cold tokens exactly.
+    Returns both runs' launches."""
+    eng_mod, build = pkg["engine"], pkg["build"]
+    eng = eng_mod.InferenceEngine(cfg, params, max_batch=1, max_len=512,
+                                  kv_quantization="int8", mesh=mesh)
+    prefix = np.random.RandomState(PREFIX_SEED).randint(
+        0, cfg.vocab_size, size=PREFIX_LEN).tolist()
+    reqs = [(prefix + p, n) for p, n in serve_requests(np.random.RandomState(6), cfg, 8)]
+
+    def run():
+        ids = [eng.submit(p, max_new_tokens=n) for p, n in reqs]
+        eng.counters_report()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        done = {r.request_id: r for r in eng.run_until_done(loop_steps=64)}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return ([done[i].output for i in ids], wall, dict(build.LAUNCHES),
+                eng.counters_report())
+
+    cold, cold_wall, cold_launches, _ = run()
+    eng.register_prefix(prefix)
+    warm, warm_wall, warm_launches, counters = run()
+    emit({"phase": "serve_mesh_prefix", "prefix_tokens": PREFIX_LEN, "requests": 8,
+          "cold_wall_s": cold_wall, "warm_wall_s": warm_wall,
+          "equal": sum(a == b for a, b in zip(cold, warm)),
+          "counters": {k: counters.get(k, 0) for k in (
+              "prefix_hits", "prefix_reused_tokens", "prefill_groups", "chunks")}})
+    require(counters.get("prefix_hits", 0) == 8
+            and counters.get("prefix_reused_tokens", 0) == 8 * PREFIX_LEN,
+            f"serve_mesh_prefix: {counters.get('prefix_hits')} hits reusing "
+            f"{counters.get('prefix_reused_tokens')} tokens, not 8 and {8 * PREFIX_LEN}")
+    require(cold == warm, "serve_mesh_prefix: the prefix hits' tokens differ from cold "
+                          "prefill's")
+    return {k: cold_launches[k] + warm_launches[k] for k in cold_launches}
+
+
+def serve_mesh(torch, pkg):
+    """``InferenceEngine(mesh=make_mesh({"data": 1, "model": 1}))`` on the
+    one-rank NCCL group at the TinyLlama-1.1B shape (22 layers, bf16, the
+    serve phase's int8 weights from seed 0, int8 KV, 64 slots, max_len
+    512): the default route and the all-kernel route
+    (``serve_mesh_route``), then the prefix cache (``serve_mesh_prefix``).
+    Every kernel of the path must launch. Returns the meshed runs'
+    launches."""
+    dec, weights = pkg["decoder"], pkg["weights"]
+    mesh = pkg["mesh"].make_mesh({"data": 1, "model": 1})
+    cfg = dec.DecoderConfig(**TINYLLAMA, n_layers=22, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dense = dec.init_decoder_params(cfg, gen, device="cuda")
+    params = weights.quantize_decoder_weights(dense, bits=8)
+    del dense
+    pallas = dataclasses.replace(cfg, int8_mm_impl="pallas", decode_attn_impl="pallas")
+    runs = [serve_mesh_route(torch, pkg, cfg, params, mesh, "default"),
+            serve_mesh_route(torch, pkg, pallas, params, mesh, "pallas"),
+            serve_mesh_prefix(torch, pkg, cfg, params, mesh)]
+    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
+    for name in MESH_KERNELS:
+        require(launches[name] > 0, f"serve_mesh never launched {name}")
+    return launches
 
 
 def main() -> int:
@@ -3044,6 +3301,9 @@ def main() -> int:
     # K7's f32 mode with int8 weights: no path gives it (an f32 BERT's int8
     # weights dequantize inline), so these lines stay out of the kernels line
     f32_lines = [check_dequant_f32(torch, pkg, gen, M=M, K=2048, N=2048) for M in (64, 1024)]
+    # serve_mesh's kernels at the per-rank shapes of {"data": 2, "model": 4}
+    mesh_lines = mesh_kernel_lines(torch, pkg)
+    kernels += mesh_lines
     for kd in kernels + [fp8_b64] + f32_lines:
         emit({"phase": "kernel", **{k: kd[k] for k in ("name", "max_abs_err", "tolerance", "ms",
                                                        "device_ms", "tflops", "plain_ms",
@@ -3064,13 +3324,14 @@ def main() -> int:
     launches["surgery"] = surgery(torch, pkg)
     launches["ring"], ring_lines = ring(torch, pkg)
     kernels += ring_lines
-    launches["train_mesh"] = train_mesh(torch, pkg)
+    launches["train_mesh"], launches["serve_mesh"] = train_mesh(torch, pkg)
     for kd in kernels:
         counter = kd.pop("counter")
         kd["launches"] = launches[kd.pop("path")][counter]
         kd["launches_analysis"] = launches["analysis"][counter]
         kd["launches_surgery"] = launches["surgery"][counter]
         kd["launches_train_mesh"] = launches["train_mesh"].get(counter, 0)
+        kd["launches_serve_mesh"] = launches["serve_mesh"][counter]
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,11 +24,14 @@ Counterpart of the serving core of
   * ``cfg.int8_mm_impl="pallas"`` takes the int8 matmuls to kernel K7 and
     the decode MLP to K9 (models/decoder.py), and
     ``cfg.decode_attn_impl="pallas"`` the decode attention to K8, which
-    reads only each slot's valid cache rows.
+    reads only each slot's valid cache rows;
+  * tensor/data-parallel serving over a mesh (``mesh=``, see
+    ``parallel/serving.py``): one process per rank, each holding its
+    slots' cache rows over ``"data"`` and its KV heads and weight shards
+    over ``"model"``; the host scheduler runs alike on every rank.
 
 The request queue and slot bookkeeping are host-side Python. JAX's
 functional updates become in-place writes into the engine's tensors.
-Meshes are not ported yet (ROADMAP.md) and raise.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from flash_attention_softmax_n_tpu_torch._device import resolve_device
 from flash_attention_softmax_n_tpu_torch.kernels import _build
@@ -60,6 +64,7 @@ from flash_attention_softmax_n_tpu_torch.models.decoder import (
     _layer,
     _mm,
     _repeat_kv,
+    _TensorParallel,
     layer_views,
 )
 from flash_attention_softmax_n_tpu_torch.models.layers import (
@@ -72,6 +77,15 @@ from flash_attention_softmax_n_tpu_torch.ops.flash_attention import (
 )
 from flash_attention_softmax_n_tpu_torch.ops.functional import softmax_n
 from flash_attention_softmax_n_tpu_torch.ops.sampling import sample_tokens
+from flash_attention_softmax_n_tpu_torch.parallel.mesh import (
+    axis_index,
+    axis_size,
+)
+from flash_attention_softmax_n_tpu_torch.parallel.sharding import (
+    decoder_param_specs,
+    gather_from_axis,
+    shard_pytree,
+)
 from flash_attention_softmax_n_tpu_torch.quant.kv_cache import (
     init_quantized_kv_cache,
     quantize_kv,
@@ -81,10 +95,6 @@ from flash_attention_softmax_n_tpu_torch.quant.qtensor import QTensor, as_bytes
 __all__ = ["Request", "InferenceEngine", "engine_prefill",
            "engine_prefill_batch", "engine_prefill_chunk", "engine_decode",
            "engine_decode_loop"]
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet; see ROADMAP.md")
 
 
 @dataclasses.dataclass
@@ -134,7 +144,7 @@ def _layer_cache(cache_kv, i: int):
 
 def engine_prefill_batch(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
                          true_lens: torch.Tensor, slots: torch.Tensor,
-                         cache: Dict) -> Tuple[torch.Tensor, Dict]:
+                         cache: Dict, mesh=None) -> Tuple[torch.Tensor, Dict]:
     """Prefill ``nb`` slots with (nb, Lb) right-padded prompts in one pass.
 
     Duplicate slot entries are idempotent. Returns (last-true-token logits
@@ -142,7 +152,7 @@ def engine_prefill_batch(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
     ``engine_prefill_chunk``.
     """
     return engine_prefill_chunk(params, cfg, tokens, true_lens, slots,
-                                cache, offset=0)
+                                cache, offset=0, mesh=mesh)
 
 
 def _prefix_rows(cache_kv, i: int, slots: torch.Tensor, offset: int,
@@ -173,7 +183,7 @@ def _write_rows(cache_kv, i: int, slots: torch.Tensor, offset: int,
 
 def engine_prefill_chunk(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
                          true_lens: torch.Tensor, slots: torch.Tensor,
-                         cache: Dict, *, offset: int
+                         cache: Dict, *, offset: int, mesh=None
                          ) -> Tuple[torch.Tensor, Dict]:
     """Continuation prefill: write a (nb, C) chunk at column ``offset``.
 
@@ -185,10 +195,17 @@ def engine_prefill_chunk(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
     columns [offset, offset + C) and the slots' lengths set to
     min(true_len, offset + C). Returns (logits (nb, V) at each row's last
     true token within this chunk, meaningful on its final chunk; cache).
+
+    ``mesh``: ``params`` and ``cache`` are this rank's shards
+    (``parallel/serving.py``) and the rows are prompts whose slots the rank
+    owns, ``slots`` indexing its local cache. The weights run tensor
+    parallel over ``"model"`` and K1 on the rank's heads; the logits come
+    back whole.
     """
     nb, c = tokens.shape
     dev = tokens.device
-    x = params["embed"][tokens].to(cfg.dtype)
+    tp = _TensorParallel(cfg, params, mesh)
+    x = tp.embedding(params["embed"][tokens].to(cfg.dtype))
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
                                 device=dev)
     positions = offset + torch.arange(c, device=dev)
@@ -219,18 +236,18 @@ def engine_prefill_chunk(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
             ctx = flash_attention_n(
                 q, _repeat_kv(kf, reps), _repeat_kv(vf, reps),
                 softmax_n_param=cfg.softmax_n, attn_mask=mask,
-                implementation=impl)
+                implementation=impl, mesh=mesh, batch_axis=None,
+                head_axis="model")
             return ctx, None
 
-        x, _, _ = _layer(cfg, x, layers[i], attn)
+        x, _, _ = _layer(cfg, x, layers[i], attn, tp)
 
     cache["lengths"][slots] = torch.clamp(true_lens, max=offset + c).to(
         cache["lengths"].dtype)
     last = torch.clamp(true_lens - offset - 1, 0, c - 1).long()
     x_last = x[torch.arange(nb, device=dev), last][:, None]
     x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
-    logits = _mm(x_last, params["lm_head"], cfg.act_bits,
-                 cfg.int8_mm_impl).float()
+    logits = tp.logits(x_last, params["lm_head"], cfg).float()
     return logits[:, 0], cache
 
 
@@ -245,15 +262,53 @@ def engine_prefill(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
     return logits[0], cache
 
 
-def _greedy_fusable(params: Dict, cfg: DecoderConfig) -> bool:
-    """Can greedy sampling ride the lm_head kernel (int8 unpacked lm_head)?"""
+def _greedy_fusable(params: Dict, cfg: DecoderConfig, mesh=None,
+                    batch: Optional[int] = None) -> bool:
+    """Can greedy sampling ride the lm_head kernel (int8 unpacked lm_head)?
+
+    Under ``mesh`` also JAX's divisibility: the whole vocabulary over
+    ``"model"`` and the whole ``batch`` over ``"data"`` (global sizes: a
+    rank's shard of the lm_head divides by construction)."""
     lm = params["lm_head"]
-    return (isinstance(lm, QTensor) and lm.bits == 8
-            and lm.packed_axis is None and cfg.act_bits != 8)
+    ok = (isinstance(lm, QTensor) and lm.bits == 8
+          and lm.packed_axis is None and cfg.act_bits != 8)
+    if ok and mesh is not None:
+        ok = (cfg.vocab_size % axis_size(mesh, "model") == 0
+              and (batch is None or batch % axis_size(mesh, "data") == 0))
+    return ok
+
+
+def _merge_shard_argmax(vals: torch.Tensor, idxs: torch.Tensor) -> torch.Tensor:
+    """The global greedy token from each vocab shard's (max logit, global
+    index), stacked on dim 0 in shard order: the largest value and, on a
+    tie, the lowest global index, as an argmax over the whole vocabulary
+    takes it (within a shard K2 already keeps the lowest index)."""
+    best = vals.amax(dim=0, keepdim=True)
+    lowest = torch.iinfo(idxs.dtype).max
+    return torch.where(vals == best, idxs, lowest).amin(dim=0)
+
+
+def _sharded_lm_head_argmax(x: torch.Tensor, lm: QTensor, mesh) -> torch.Tensor:
+    """Greedy tokens under tensor parallelism: K2 over this rank's vocab
+    columns with ``return_max``, its index offset by the shard's first
+    global column, one all-gather of (value, index) over ``"model"`` and
+    ``_merge_shard_argmax``. x (B, 1, D) -> (B, 1) int32 global ids. One
+    rank on ``"model"`` holds the whole vocabulary: K2 alone."""
+    tp = axis_size(mesh, "model")
+    if tp == 1:
+        return quantized_matmul_argmax(x, lm.values, lm.scales)
+    idx, val = quantized_matmul_argmax(x, lm.values, lm.scales, return_max=True)
+    gidx = idx.long() + axis_index(mesh, "model") * lm.values.shape[1]
+    # f64 holds both the f32 value and any index exactly: one gather
+    pair = torch.stack([val.double(), gidx.double()])
+    parts = [torch.empty_like(pair) for _ in range(tp)]
+    dist.all_gather(parts, pair, group=mesh.get_group("model"))
+    both = torch.stack(parts)  # (tp, 2, B, 1)
+    return _merge_shard_argmax(both[:, 0], both[:, 1].to(torch.int32))
 
 
 def _decode_step(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
-                 cache: Dict, active: torch.Tensor, *,
+                 cache: Dict, active: torch.Tensor, *, mesh=None,
                  tail: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  tail_index: Optional[int] = None,
                  tail_lengths: Optional[torch.Tensor] = None,
@@ -271,6 +326,12 @@ def _decode_step(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
     ``greedy``: take the tokens from the lm_head kernel K2; the caller
     checks ``_greedy_fusable`` first.
 
+    ``mesh``: this rank's shards and slots (``parallel/serving.py``): the
+    layers run tensor parallel over ``"model"`` on the rank's heads, K3/K4
+    write its own slots' rows of its own KV heads with no communication,
+    and greedy tokens merge over the vocab shards
+    (``_sharded_lm_head_argmax``). No piggybacked ``prefill`` under a mesh.
+
     ``prefill`` (the piggybacked prompts of the fused loop): {tokens (G, CS),
     offset (int), true_lens (G,), ring_k/ring_v (NL, G, KVH, cap, hd)}. The
     prompt rows and the decode rows flatten into one (1, B + G*CS, d)
@@ -282,7 +343,8 @@ def _decode_step(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
     (G,)), both from one lm_head call over B + G rows.
     """
     bsz = tokens.shape[0]
-    x = params["embed"][tokens][:, None].to(cfg.dtype)
+    tp = _TensorParallel(cfg, params, mesh)
+    x = tp.embedding(params["embed"][tokens][:, None].to(cfg.dtype))
     dev = x.device
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
                                 device=dev)
@@ -351,7 +413,7 @@ def _decode_step(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
             return ctx_m.to(x.dtype), ((kd, vd), (kp, vp))
 
         if prefill is None:
-            x, _, (kr, vr) = _layer(cfg, x, layers[i], attn)
+            x, _, (kr, vr) = _layer(cfg, x, layers[i], attn, tp)
         else:
             x, _, ((kr, vr), (kpr, vpr)) = _layer(cfg, x, layers[i],
                                                   attn_mixed)
@@ -407,30 +469,36 @@ def _decode_step(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if greedy:
         lm = params["lm_head"]
-        tok = quantized_matmul_argmax(x, lm.values, lm.scales)
+        if mesh is not None:
+            tok = _sharded_lm_head_argmax(x, lm, mesh)
+        else:
+            tok = quantized_matmul_argmax(x, lm.values, lm.scales)
         return tok[:, 0], cache, tail
-    logits = _mm(x, params["lm_head"], cfg.act_bits,
-                 cfg.int8_mm_impl).float()
+    logits = tp.logits(x, params["lm_head"], cfg).float()
     return logits[:, 0], cache, tail
 
 
 def engine_decode(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
-                  cache: Dict, active: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+                  cache: Dict, active: torch.Tensor,
+                  mesh=None) -> Tuple[torch.Tensor, Dict]:
     """One decode step for all slots: tokens (B,) -> (logits (B, V), cache),
     the new rows written into the cache in place (K3) and the new lengths
-    copied into ``cache["lengths"]``."""
+    copied into ``cache["lengths"]``. ``mesh``: this rank's slots and
+    shards, the logits whole (see ``_decode_step``)."""
     logits, step_cache, _ = _decode_step(params, cfg, tokens, dict(cache),
-                                         active)
+                                         active, mesh=mesh)
     cache["lengths"].copy_(step_cache["lengths"])
     return logits, cache
 
 
 def engine_decode_loop(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
                        cache: Dict, active: torch.Tensor, *, num_steps: int,
+                       eos_token: Optional[int] = None,
                        generator: Optional[torch.Generator] = None,
                        temps: Optional[torch.Tensor] = None,
                        top_k: Optional[torch.Tensor] = None,
                        top_p: Optional[torch.Tensor] = None,
+                       mesh=None,
                        attn_len: Optional[int] = None,
                        p_tokens: Optional[torch.Tensor] = None,
                        p_slots: Optional[torch.Tensor] = None,
@@ -440,7 +508,9 @@ def engine_decode_loop(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
 
     Returns ``(tokens_out (B, num_steps), cache, active)``. Greedy, or
     per-slot sampling when ``temps`` (with ``top_k``/``top_p`` and a
-    ``generator``) is given. Everything the loop changes is written in
+    ``generator``) is given. ``eos_token``: a slot that emits it turns
+    inactive (a new ``active`` is returned); slots that hit it keep
+    emitting their last token. Everything the loop changes is written in
     place: cache rows, and the final lengths copied into
     ``cache["lengths"]``; so a CUDA graph of the loop reads and writes the
     caller's tensors.
@@ -463,9 +533,16 @@ def engine_decode_loop(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
     ``active``; their lengths are then set to their prompts'. Returns
     ``(tokens, cache, active, first_tokens (G,))``, each prompt's greedy
     first token.
+
+    ``mesh``: ``tokens``, ``active`` and ``cache`` are this rank's slots
+    and shards (``parallel/serving.py``); every rank of the mesh runs the
+    loop together. No piggybacked admission under a mesh (JAX's rule).
     """
     if temps is not None and generator is None:
         raise ValueError("temperature sampling requires generator")
+    if p_tokens is not None and mesh is not None:
+        raise ValueError("piggybacked prefill requires tail mode, greedy "
+                         "decode, and no mesh")
 
     kc = cache["k"].values if isinstance(cache["k"], QTensor) else cache["k"]
     nl, bsz, kvh, s_len, hd = kc.shape
@@ -487,7 +564,8 @@ def engine_decode_loop(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
             step_cache["k"] = _window(cache["k"])
             step_cache["v"] = _window(cache["v"])
 
-    greedy = temps is None and _greedy_fusable(params, cfg)
+    dp = axis_size(mesh, "data") if mesh is not None else 1
+    greedy = temps is None and _greedy_fusable(params, cfg, mesh, bsz * dp)
     piggy = p_tokens is not None
     if piggy:
         if not use_tail or temps is not None:
@@ -518,7 +596,7 @@ def engine_decode_loop(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
             first = torch.where(p_final == i, p_tok, first)
         else:
             out, step_cache, tail = _decode_step(
-                params, cfg, tok, step_cache, active, tail=tail,
+                params, cfg, tok, step_cache, active, mesh=mesh, tail=tail,
                 tail_index=i if use_tail else None,
                 tail_lengths=(step_cache["lengths"] - base if use_tail
                               else None), greedy=greedy)
@@ -529,6 +607,8 @@ def engine_decode_loop(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
             else:
                 nxt = torch.argmax(out, dim=-1).to(torch.int32)
         tok = torch.where(active, nxt, tok)
+        if eos_token is not None:
+            active = active & (tok != eos_token)
         outs.append(tok)
 
     if use_tail:
@@ -638,6 +718,19 @@ class InferenceEngine:
     its lengths, and input buffers the host fills before each chunk. Chunks
     with sampling rows and the step path run eagerly; on the CPU every
     chunk does.
+
+    Over a mesh (``mesh=``) every rank constructs the engine with the same
+    whole ``params`` and gets the same ``submit`` calls; it keeps only its
+    shards (``parallel/serving.py``): the weights over ``"model"``, its
+    slots' cache rows, lengths, next tokens and active flags over
+    ``"data"`` (rank ``d`` owns slots ``[d * B/dp, (d + 1) * B/dp)``) and
+    its KV heads. The host scheduler runs alike on every rank on the
+    global view: after each chunk, step and admission round one all-gather
+    over ``"data"`` brings every slot's tokens to every rank. An admission
+    group's rows prefill on the data rank that owns their slots (no rows
+    move between ranks). Piggybacked prefill is off under a mesh, as in
+    JAX, and the chunk planner takes the fixed ``_SCHED_OVERHEAD_STEPS``:
+    measured times differ between ranks, and the plans must not.
     """
 
     # admission group width: requests prefilled per batched dispatch
@@ -662,15 +755,39 @@ class InferenceEngine:
         ``piggyback_prefill``: queued greedy prompts of up to _PIGGY_CAP
         tokens prefill inside the fused decode chunks. ``prefill_chunk``:
         prompts longer than this admit through chunked prefill
-        (``engine_prefill_chunk``), one bounded pass per chunk. ``mesh`` is
-        not ported yet and raises."""
+        (``engine_prefill_chunk``), one bounded pass per chunk.
+
+        ``mesh``: a ``make_mesh`` mesh with ``'data'`` and ``'model'`` axes
+        (``max_batch`` divisible by the first, ``n_kv_heads`` by the
+        second); the engine then serves tensor/data-parallel on the mesh's
+        device (the card under NCCL, the CPU under gloo): ``device``, if
+        given, must agree, and ``params`` are the whole tensors there."""
         if mesh is not None:
-            raise _not_ported("meshed serving")
+            from flash_attention_softmax_n_tpu_torch.parallel.serving import (
+                check_serving_mesh,
+            )
+            if device is not None and (torch.device(device).type
+                                       != mesh.device_type):
+                raise ValueError(f"the mesh is on {mesh.device_type}, the "
+                                 f"engine asked for {device}")
+            check_serving_mesh(mesh, params, max_batch, cfg.n_kv_heads)
+            device = mesh.device_type
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the "
                              f"engine on {self.device}")
         self.cfg = cfg
+        self.mesh = mesh
+        # this rank's slots [_lo, _hi) and KV heads (all of them unmeshed)
+        self._dp, tp, data_index = 1, 1, 0
+        if mesh is not None:
+            self._dp, tp = axis_size(mesh, "data"), axis_size(mesh, "model")
+            data_index = axis_index(mesh, "data")
+            params = shard_pytree(params, decoder_param_specs(params), mesh)
+        local_batch = max_batch // self._dp
+        self._lo = data_index * local_batch
+        self._hi = self._lo + local_batch
+        kv_heads = cfg.n_kv_heads // tp
         self.params = params
         self.max_batch = max_batch
         self.piggyback_prefill = piggyback_prefill
@@ -687,9 +804,9 @@ class InferenceEngine:
         self._lengths_host = np.zeros((max_batch,), np.int64)
         # the fused loop's inputs: persistent buffers that the host fills
         # with copy_, so a captured loop reads them at every replay
-        self._next_token = torch.zeros((max_batch,), dtype=torch.int32,
+        self._next_token = torch.zeros((local_batch,), dtype=torch.int32,
                                        device=self.device)
-        self._active = torch.zeros((max_batch,), dtype=torch.bool,
+        self._active = torch.zeros((local_batch,), dtype=torch.bool,
                                    device=self.device)
         g, cap = self._PIGGY_G, self._PIGGY_CAP
         self._p_tokens = torch.zeros((g, cap), dtype=torch.int32,
@@ -706,7 +823,10 @@ class InferenceEngine:
         # memory pool (see _capture)
         self._graphs: Dict[Tuple[int, int, bool], _LoopGraph] = {}
         self._graph_pool = None
-        self._generator = torch.Generator(device=self.device).manual_seed(0)
+        # one stream a data rank: the ranks of a 'model' group sample the
+        # same rows from the same logits and must draw alike
+        self._generator = torch.Generator(device=self.device).manual_seed(
+            data_index)
         self.phase_times: Dict[str, float] = {}
         self.phase_counts: Dict[str, int] = {}
         self.chunk_log: List[Tuple[int, float]] = []
@@ -719,18 +839,20 @@ class InferenceEngine:
         self._prefix_inserts: Dict[Tuple[int, int], object] = {}
         self._prefill_chunks: Dict[int, object] = {}
 
+        # this rank's shard of the cache (kv_cache_specs' layout) is
+        # allocated as such, never as the whole cache
         if kv_quantization is not None:
             self.cache = init_quantized_kv_cache(
-                cfg.n_layers, max_batch, cfg.n_kv_heads, self.max_len,
+                cfg.n_layers, local_batch, kv_heads, self.max_len,
                 cfg.head_dim, mode=kv_quantization, device=self.device)
         else:
-            shape = (cfg.n_layers, max_batch, cfg.n_kv_heads, self.max_len,
+            shape = (cfg.n_layers, local_batch, kv_heads, self.max_len,
                      cfg.head_dim)
             self.cache = {
                 "k": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=cfg.dtype, device=self.device)}
         # written in place only (never re-bound): a captured loop reads it
-        self.cache["lengths"] = torch.zeros((max_batch,), dtype=torch.int32,
+        self.cache["lengths"] = torch.zeros((local_batch,), dtype=torch.int32,
                                             device=self.device)
         self.cache.pop("length", None)
 
@@ -799,8 +921,10 @@ class InferenceEngine:
 
         active = self._active_mask()
         logits, self.cache = engine_decode(self.params, self.cfg,
-                                           self._next_token, self.cache, active)
-        next_host = self._sample(logits, self.slots).cpu().numpy()
+                                           self._next_token, self.cache, active,
+                                           mesh=self.mesh)
+        next_host = self._gather_slots(self._sample(
+            logits, self.slots[self._lo:self._hi])).cpu().numpy()
         for i in active_slots:
             self._lengths_host[i] += 1
             req = self.slots[i]
@@ -814,7 +938,7 @@ class InferenceEngine:
                 self.slots[i] = None
             else:
                 self._next_host[i] = tok
-        self._next_token.copy_(torch.from_numpy(self._next_host))
+        self._load_next_tokens()
         return finished
 
     def run_until_done(self, max_steps: int = 100_000,
@@ -925,9 +1049,21 @@ class InferenceEngine:
     def _to_device(self, a) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
 
+    def _gather_slots(self, t: torch.Tensor) -> torch.Tensor:
+        """Every slot's rows of a tensor over this rank's slots: an
+        all-gather over ``"data"`` (a collective: every rank calls it)."""
+        if self._dp == 1:
+            return t
+        return gather_from_axis(t.contiguous(), self.mesh, "data", 0)
+
+    def _load_next_tokens(self) -> None:
+        """This rank's slots of the host's next tokens into ``_next_token``."""
+        self._next_token.copy_(torch.from_numpy(
+            self._next_host[self._lo:self._hi]))
+
     def _active_mask(self) -> torch.Tensor:
         self._active.copy_(torch.from_numpy(
-            np.array([r is not None for r in self.slots])))
+            np.array([r is not None for r in self.slots[self._lo:self._hi]])))
         return self._active
 
     def _update_sched_ewma(self, boundary_s: float, step_s: float) -> None:
@@ -941,6 +1077,8 @@ class InferenceEngine:
 
     @property
     def _sched_overhead_steps(self) -> int:
+        if self.mesh is not None:
+            return self._SCHED_OVERHEAD_STEPS
         b = getattr(self, "_ewma_boundary_s", None)
         s = getattr(self, "_ewma_step_s", None)
         if b and s:
@@ -995,9 +1133,9 @@ class InferenceEngine:
         """Can a piggyback payload ride a ``chunk``-step chunk? Tail mode
         (JAX's loop raises on a payload below 8 steps, which its scheduler
         can reach at loop_steps 1, 2 or 4), the cap split evenly, and the
-        prompts' rows within max_len."""
+        prompts' rows within max_len. Never under a mesh (JAX's rule)."""
         cap = self._PIGGY_CAP
-        return (self.piggyback_prefill and 8 <= chunk <= cap
+        return (self.piggyback_prefill and self.mesh is None and 8 <= chunk <= cap
                 and cap % chunk == 0 and cap <= self.max_len)
 
     def _take_piggyback(self, chunk: int) -> Optional[Dict]:
@@ -1109,7 +1247,7 @@ class InferenceEngine:
                     "p_true_lens": self._p_true_lens}
         return engine_decode_loop(
             self.params, self.cfg, self._next_token, self.cache, self._active,
-            num_steps=chunk, attn_len=attn_len, **p_kw)
+            num_steps=chunk, mesh=self.mesh, attn_len=attn_len, **p_kw)
 
     def _capture(self, key: Tuple[int, int, bool]) -> None:
         """Capture one greedy loop variant as a CUDA graph. The variant must
@@ -1160,10 +1298,12 @@ class InferenceEngine:
         sample_kw = self._sampling_arrays(self.slots)
         first_toks = None
         if sample_kw is not None:
+            # decided over every slot, as JAX does; this rank's rows
+            sample_kw = {k: v[self._lo:self._hi] for k, v in sample_kw.items()}
             toks, self.cache, _ = engine_decode_loop(
                 self.params, self.cfg, self._next_token, self.cache,
-                self._active, num_steps=loop_steps, attn_len=attn_len,
-                generator=self._generator, **sample_kw)
+                self._active, num_steps=loop_steps, mesh=self.mesh,
+                attn_len=attn_len, generator=self._generator, **sample_kw)
         else:
             if piggy is not None:
                 self._load_piggyback(piggy)
@@ -1187,7 +1327,7 @@ class InferenceEngine:
         discarded. Copies the outputs to the host before anything else is
         dispatched: a captured loop's next replay overwrites them."""
         toks, entry_active, piggy, first_toks = handle
-        toks_host = toks.cpu().numpy()
+        toks_host = self._gather_slots(toks).cpu().numpy()
         finished = []
         if piggy is not None:
             # the piggybacked prompts' prefill finished inside the chunk:
@@ -1230,7 +1370,7 @@ class InferenceEngine:
                 self._slot_budget[i] = 0
             else:
                 self._next_host[i] = req.output[-1]
-        self._next_token.copy_(torch.from_numpy(self._next_host))
+        self._load_next_tokens()
         return finished
 
     # -- admission ------------------------------------------------------------
@@ -1239,8 +1379,7 @@ class InferenceEngine:
         """Synchronous admission (the per-step path)."""
         return self._finalize_admission(self._admit_async())
 
-    def _admit_async(self) -> List[Tuple[List[Tuple[int, Request]],
-                                         torch.Tensor]]:
+    def _admit_async(self) -> List[List[Tuple[int, Request]]]:
         """Admit queued requests into free slots through three lanes:
 
           * bucket: same-bucket prompts prefill together in one pass;
@@ -1287,7 +1426,11 @@ class InferenceEngine:
             by_bucket[bkt].append(req)
         admitted: set = set()
         nb = min(self._ADMIT_G, self.max_batch)
-        pending: List[Tuple[List[Tuple[int, Request]], torch.Tensor]] = []
+        if self.mesh is not None:
+            # JAX's meshed widths: a multiple of the 'data' axis (which
+            # max_batch is, so rounding up stays <= max_batch)
+            nb = min(self.max_batch, -(-nb // self._dp) * self._dp)
+        pending: List[List[Tuple[int, Request]]] = []
 
         def take_group(dq):
             group: List[Tuple[int, Request]] = []
@@ -1323,7 +1466,7 @@ class InferenceEngine:
                     logits, self.cache = engine_prefill_batch(
                         self.params, self.cfg,
                         self._to_device(padded_tokens(padded_group, bucket)),
-                        true_lens, slots, self.cache)
+                        true_lens, slots, self.cache, mesh=self.mesh)
                     return logits
 
                 pending.append(self._admit_group(group, nb, prefill, bucket))
@@ -1391,15 +1534,23 @@ class InferenceEngine:
         return pending
 
     def _admit_group(self, group, nb: int, prefill_fn, padded_len: int
-                     ) -> Tuple[List[Tuple[int, Request]], torch.Tensor]:
+                     ) -> List[Tuple[int, Request]]:
         """The lanes' shared tail: pad the group to the smallest power of
         two in [2, nb] that holds it, count it, run the lane's
         ``prefill_fn(padded_group, true_lens, slots) -> logits``, sample,
         push the real rows' first tokens into ``_next_token`` on the device
-        and take the slots. Returns (group, first tokens)."""
+        (``_finalize_admission`` reads them there) and take the slots.
+        Returns the group.
+
+        Under a mesh the width is also rounded up to a multiple of the
+        ``'data'`` axis (JAX's), and each rank prefills only the padded rows
+        whose slots it owns, ``slots`` indexing its local cache, so no row's
+        K/V crosses ranks; a rank that owns none runs nothing."""
         nb_g = 2
         while nb_g < len(group):
             nb_g *= 2
+        if self.mesh is not None:
+            nb_g = -(-nb_g // self._dp) * self._dp
         nb = min(nb, nb_g)
         c = self.counters
         c["prefill_groups"] = c.get("prefill_groups", 0) + 1
@@ -1409,17 +1560,24 @@ class InferenceEngine:
         c["prefill_real_tokens"] = (c.get("prefill_real_tokens", 0)
                                     + sum(len(r.prompt) for _, r in group))
         padded = group + [group[-1]] * (nb - len(group))
-        true_lens = self._to_device(np.array([len(r.prompt) for _, r in padded],
-                                             np.int32))
-        slots = self._to_device(np.array([i for i, _ in padded], np.int64))
-        logits = prefill_fn(padded, true_lens, slots)
-        toks = self._sample(logits, [r for _, r in padded])[:len(group)]
-        self._next_token[slots[:len(group)]] = toks
+        # the padded rows whose slots this rank owns (all of them unmeshed)
+        mine = [j for j, (i, _) in enumerate(padded) if self._lo <= i < self._hi]
+        if mine:
+            rows = [padded[j] for j in mine]
+            true_lens = self._to_device(np.array(
+                [len(r.prompt) for _, r in rows], np.int32))
+            slots = self._to_device(np.array([i - self._lo for i, _ in rows],
+                                             np.int64))
+            logits = prefill_fn(rows, true_lens, slots)
+            first = self._sample(logits, [r for _, r in rows])
+            real = torch.tensor([k for k, j in enumerate(mine) if j < len(group)],
+                                device=self.device)
+            self._next_token[slots[real]] = first[real]
         for i, req in group:
             self.slots[i] = req
             self._lengths_host[i] = len(req.prompt)
             self._slot_budget[i] = req.max_new_tokens - 1
-        return group, toks
+        return group
 
     # -- prefix cache ---------------------------------------------------------
 
@@ -1431,6 +1589,10 @@ class InferenceEngine:
         store is quantized as the main cache is, through the same chunked
         prefill, so a hit equals having prefilled those rows in place.
         Prompts match the longest registered prefix. Returns its id.
+
+        Under a mesh every rank prefills the prefix alike into a store of
+        its own KV heads (JAX's store: replicated over ``"data"``, heads
+        over ``"model"``), from which it inserts only its own slots' rows.
         """
         cc = self._CHUNK
         rows = (len(tokens) // cc) * cc
@@ -1441,12 +1603,14 @@ class InferenceEngine:
         if rows > self.max_len:
             raise ValueError("prefix longer than engine max_len")
         cfg = self.cfg
+        kv_heads = (self.cache["k"].values if self._kv_quantization is not None
+                    else self.cache["k"]).shape[2]
         if self._kv_quantization is not None:
             scratch = init_quantized_kv_cache(
-                cfg.n_layers, 1, cfg.n_kv_heads, rows, cfg.head_dim,
+                cfg.n_layers, 1, kv_heads, rows, cfg.head_dim,
                 mode=self._kv_quantization, device=self.device)
         else:
-            shape = (cfg.n_layers, 1, cfg.n_kv_heads, rows, cfg.head_dim)
+            shape = (cfg.n_layers, 1, kv_heads, rows, cfg.head_dim)
             scratch = {"k": torch.zeros(shape, dtype=cfg.dtype,
                                         device=self.device),
                        "v": torch.zeros(shape, dtype=cfg.dtype,
@@ -1514,7 +1678,8 @@ class InferenceEngine:
         (params, tokens, true_lens, slots, cache)."""
         if offset not in self._prefill_chunks:
             self._prefill_chunks[offset] = functools.partial(
-                engine_prefill_chunk, cfg=self.cfg, offset=offset)
+                engine_prefill_chunk, cfg=self.cfg, offset=offset,
+                mesh=self.mesh)
         return self._prefill_chunks[offset]
 
     def _finalize_admission(self, pending) -> List[Request]:
@@ -1523,12 +1688,11 @@ class InferenceEngine:
         finished: List[Request] = []
         if not pending:
             return finished
-        all_toks = torch.cat([t for _, t in pending]).cpu().numpy()
-        k = 0
-        for group, _ in pending:
+        # each first token sits at its slot, on the rank that owns it
+        first = self._gather_slots(self._next_token).cpu().numpy()
+        for group in pending:
             for i, req in group:
-                tok = int(all_toks[k])
-                k += 1
+                tok = int(first[i])
                 req.output.append(tok)
                 if (req.max_new_tokens <= 1
                         or (req.eos_token is not None

@@ -164,11 +164,13 @@ def _mm(x: torch.Tensor, w, act_bits=None,
 
 
 def _mlp_fusable(h: torch.Tensor, lp: Dict, act_bits,
-                 int8_mm_impl: str = "xla") -> bool:
+                 int8_mm_impl: str = "xla", d_ff: Optional[int] = None) -> bool:
     """Does JAX route this SwiGLU block to the fused MLP kernel? int8
     unpacked gate/up/down on the ``"pallas"`` route, one token per row
     (L == 1), no activation quantization, and a shape that
-    ``mlp_fusion_eligible`` takes."""
+    ``mlp_fusion_eligible`` takes. ``d_ff``: the whole model's, when the
+    weights are a tensor-parallel shard of it (JAX decides on the global
+    shapes)."""
     ws = [lp.get("w_gate"), lp.get("w_up"), lp.get("w_down")]
     if int8_mm_impl != "pallas":
         return False
@@ -180,7 +182,7 @@ def _mlp_fusable(h: torch.Tensor, lp: Dict, act_bits,
     k, f = ws[0].values.shape
     return (tuple(ws[1].values.shape) == (k, f)
             and tuple(ws[2].values.shape) == (f, k)
-            and mlp_fusion_eligible(m_total, k, f, 8))
+            and mlp_fusion_eligible(m_total, k, d_ff or f, 8))
 
 
 def layer_views(layers: Dict) -> List[Dict]:
@@ -374,10 +376,17 @@ def _layer(cfg: DecoderConfig, x, lp, attn_fn, tp: "_TensorParallel" = None):
     if "w_gu" in lp:
         gate, up = torch.chunk(mm(h, lp["w_gu"]), 2, dim=-1)
         mlp = mm(F.silu(gate) * up, lp["w_down"])
-    elif _mlp_fusable(h, lp, ab, mi):
+    elif _mlp_fusable(h, lp, ab, mi, cfg.d_ff if tp is not None
+                      and tp.mlp_sharded else None):
+        # on a shard of d_ff: K9 over the rank's slice, then the
+        # row-parallel sum
         wg, wu, wd = lp["w_gate"], lp["w_up"], lp["w_down"]
+        if tp is not None:
+            h = tp.mlp_in(h)
         mlp = fused_mlp_matmul(h, wg.values, wg.scales, wu.values, wu.scales,
                                wd.values, wd.scales)
+        if tp is not None:
+            mlp = tp.mlp_out(mlp)
     else:
         if tp is not None:
             h = tp.mlp_in(h)

@@ -12,6 +12,10 @@ from flash_attention_softmax_n_tpu_torch.parallel.sharding import (
     kv_cache_specs,
     shard_pytree,
 )
+from flash_attention_softmax_n_tpu_torch.parallel.serving import (
+    make_sharded_decode,
+    shard_engine_state,
+)
 from flash_attention_softmax_n_tpu_torch.parallel.train import (
     TrainState,
     causal_lm_loss,
@@ -30,4 +34,6 @@ __all__ = [
     "causal_lm_loss",
     "make_train_step",
     "TrainState",
+    "shard_engine_state",
+    "make_sharded_decode",
 ]

@@ -1613,3 +1613,106 @@ def test_meshed_dropout_bit_equal_to_unmeshed(gen, dtype):
                                  **kw)
         torch.cuda.synchronize()
         assert torch.equal(slab, cut(whole)), rank
+
+
+# ----------------------------------------------------------------------------
+# serving over {"data": 2, "model": 4} at TinyLlama-1.1B's widths: the shapes
+# each of 8 cards launches (32 slots, 1 KV head and 8 query heads a rank)
+# ----------------------------------------------------------------------------
+
+
+# None: random rows; else the columns of a tie planted in every row, across
+# shards 1 and 3 (and within 3), and across shards 0, 1 and 3
+@pytest.mark.parametrize("ties", [None, [24001, 8005, 24003], [8005, 31999, 7999]],
+                         ids=["random", "tie_1_3", "tie_0_1_3"])
+def test_vocab_shard_merge_equals_whole_vocab(gen, ties):
+    # K2 on each of four 8000-column shards, the index offset and the
+    # engine's merge, against K2 over all 32000 columns on the same rows.
+    # K is never split, so a column's value is bit-equal either way; a tie
+    # takes the lowest global column
+    from flash_attention_softmax_n_tpu_torch.engine.engine import (
+        _merge_shard_argmax,
+    )
+    m, k, n, tp = 32, 2048, 32000, 4
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda").to(torch.int8)
+    s = torch.rand((n,), generator=gen, device="cuda") + 0.5
+    if ties is not None:
+        x, w, s = torch.ones_like(x), torch.zeros_like(w), torch.ones_like(s)
+        w[:, ties] = 1
+    whole = qm.quantized_matmul_argmax(x, w, s)
+    part = n // tp
+    vals, idxs = [], []
+    for r in range(tp):
+        cols = slice(r * part, (r + 1) * part)
+        idx, val = qm.quantized_matmul_argmax(x, w[:, cols].contiguous(),
+                                              s[cols].contiguous(), return_max=True)
+        vals.append(val.double())
+        idxs.append(idx + r * part)
+    merged = _merge_shard_argmax(torch.stack(vals), torch.stack(idxs).to(torch.int32))
+    assert torch.equal(merged, whole)
+    if ties is not None:
+        assert merged.tolist() == [min(ties)] * m
+
+
+def test_cache_rows_at_a_ranks_shard(gen):
+    # K3 at NL22 B32 KVH1 S512 D64 int8 with its scales (the engine's
+    # four-tensor call), K4 at NL22 B32 KVH1 W64 D64 bf16
+    caches, news = [], []
+    for _ in range(2):
+        caches += [_kv_rows(gen, (22, 32, 1, 512, 64), torch.int8),
+                   _kv_rows(gen, (22, 32, 1, 512, 1), torch.float32)]
+        news += [_kv_rows(gen, (22, 32, 1, 64), torch.int8),
+                 _kv_rows(gen, (22, 32, 1, 1), torch.float32)]
+    pos = torch.randint(0, 512, (32,), generator=gen, device="cuda").to(torch.int32)
+    got, want = _append_both(caches, news, pos)
+    assert all(_bytes_equal(a, b) for a, b in zip(got, want))
+    kt, vt = (torch.randn((22, 32, 1, 64, 64), generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    ref = (kt.clone(), vt.clone())
+    for i in (0, 31, 63):
+        kn, vn = (torch.randn((22, 32, 1, 64), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(2))
+        cu.tail_append(kt, vt, kn, vn, i)
+        cu.tail_append_reference(*ref, kn, vn, i)
+    assert torch.equal(kt, ref[0]) and torch.equal(vt, ref[1])
+
+
+# (K, N): wq, wk/wv, gate/up on the rank's columns; wo, w_down on its rows
+@pytest.mark.parametrize("kn", [(2048, 512), (2048, 64), (2048, 1408), (512, 2048),
+                                (1408, 2048)], ids=lambda c: "-".join(map(str, c)))
+def test_qmm_at_a_ranks_shard(gen, kn):
+    k, n = kn
+    x = torch.randn((32, k), generator=gen, device="cuda").to(torch.bfloat16)
+    wv, ws = _qweight(gen, k, n, 8)
+    out = qm.quantized_matmul(x, wv, ws, bits=8)
+    assert torch.equal(out, qm.quantized_matmul(x, wv, ws, bits=8))
+    ref = qm.quantized_matmul_reference(x, None, wv, ws, bits=8, out_dtype=torch.bfloat16)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7,
+                               atol=1e-5 * float(ref.float().abs().max()))
+
+
+def test_decode_attn_at_a_ranks_heads(gen):
+    # B32 KVH1 G8 S512 over an int8 cache, bf16 q
+    q, k, v, ks, vs, _ = _decode_inputs(gen, "int8", torch.bfloat16, 8, 64, B=32,
+                                        KVH=1, S=512)
+    lengths = torch.randint(0, 513, (32,), generator=gen, device="cuda").to(torch.int32)
+    qv = q.to(torch.bfloat16)
+    acc, m, l = da._decode_attn_cuda(qv, None, k, v, lengths, ks, vs)
+    acc_r, m_r, l_r = da.decode_attn_stats_reference(qv, None, k, v, lengths, ks, vs)
+    live = lengths > 0
+    torch.testing.assert_close(m[live], m_r[live], atol=1e-3, rtol=0)
+    torch.testing.assert_close(l[live], l_r[live], atol=0, rtol=1e-3)
+    torch.testing.assert_close(acc[live] / l[live][..., None],
+                               acc_r[live] / l_r[live][..., None], atol=2e-2, rtol=0)
+
+
+def test_fused_mlp_at_a_ranks_d_ff(gen):
+    # K9 at M32 K2048 F1408 (a quarter of d_ff 5632)
+    args = _mlp_inputs(gen, torch.bfloat16, 32, 2048, 1408)
+    out = fm.fused_mlp_matmul(*args)
+    assert torch.equal(out, fm.fused_mlp_matmul(*args))
+    ref = fm.fused_mlp_reference(*args)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=2e-2 * float(ref.float().abs().max()))
+    _assert_norm_close(out, ref, 1e-2)

@@ -35,8 +35,10 @@ from flash_attention_softmax_n_tpu_torch.engine import InferenceEngine
 from flash_attention_softmax_n_tpu_torch.engine import engine as teng
 from flash_attention_softmax_n_tpu_torch.models import DecoderConfig
 from flash_attention_softmax_n_tpu_torch.ops.sampling import sample_tokens
+from flash_attention_softmax_n_tpu_torch.parallel import make_mesh
 from flash_attention_softmax_n_tpu_torch.quant.qtensor import QTensor
 from flash_attention_softmax_n_tpu_torch.quant.qtensor import as_bytes as qt_bytes
+from tests import torch_worlds
 
 torch.set_num_threads(2)
 TINY_KW = dict(vocab_size=97, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -142,7 +144,7 @@ def test_sample_tokens_greedy_rows_and_top_k1():
     assert drawn.dtype == torch.int32 and ((drawn >= 0) & (drawn < 50)).all()
 
 
-def test_unported_paths_raise(jparams):
+def test_unported_paths_raise(jparams, tmp_path):
     tp = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     # the piggyback default, prewarm and chunks under 8 steps are ported
     assert InferenceEngine(TTINY, tp, device="cpu").piggyback_prefill
@@ -153,7 +155,7 @@ def test_unported_paths_raise(jparams):
     eng.submit([1, 2, 3], max_new_tokens=6)
     done = eng.run_until_done(loop_steps=4)
     assert len(done[0].output) == 6 and eng.counters_report()["chunks"] == 2
-    # chunked prefill and the prefix cache serve; meshes still raise
+    # chunked prefill and the prefix cache serve
     eng.submit(list(range(40)), max_new_tokens=4)
     assert len(eng.run_until_done(loop_steps=8)[0].output) == 4
     assert set(eng._prefill_chunks) == {0, 16, 32}
@@ -161,8 +163,20 @@ def test_unported_paths_raise(jparams):
     eng.submit([1] * 20 + [2], max_new_tokens=3)
     assert len(eng.run_until_done(loop_steps=8)[0].output) == 3
     assert eng.counters_report()["prefix_hits"] == 1
-    with pytest.raises(NotImplementedError, match="meshed serving"):
-        InferenceEngine(TTINY, tp, mesh=object(), device="cpu")
+    # meshes serve: a one-rank gloo mesh gives the unmeshed engine's tokens
+    # (piggybacking is off under a mesh, so off in both), and a device
+    # other than the mesh's raises
+    budgets = [11, 4, 9, 1, 12, 7]
+    want = _serve(InferenceEngine(TTINY, tp, max_batch=4, max_len=64,
+                                  piggyback_prefill=False, device="cpu"),
+                  8, budgets)
+    with torch_worlds.one_rank_group(tmp_path):
+        mesh = make_mesh({"data": 1, "model": 1})
+        got = _serve(InferenceEngine(TTINY, tp, max_batch=4, max_len=64,
+                                     mesh=mesh, device="cpu"), 8, budgets)
+        with pytest.raises(ValueError, match="the mesh is on cpu"):
+            InferenceEngine(TTINY, tp, mesh=mesh, device="cuda")
+    assert got == want
 
 
 @pytest.mark.parametrize("loop_steps", [4, 6, 8, 16])

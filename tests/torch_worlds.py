@@ -576,5 +576,255 @@ def case_train_resume(payload):
             "wq": tuple(params["layers"]["wq"].shape)}
 
 
+# ----------------------------------------------------------------------------
+# the 8-rank serving world: {"data": 2, "model": 4}
+# ----------------------------------------------------------------------------
+
+
+def _serving_mesh():
+    from flash_attention_softmax_n_tpu_torch.parallel import make_mesh
+    return make_mesh({"data": 2, "model": 4})
+
+
+def _data_index(mesh):
+    from flash_attention_softmax_n_tpu_torch.parallel.mesh import axis_index
+    return axis_index(mesh, "data")
+
+
+def case_sharded_decode(payload):
+    """make_sharded_decode over this rank's slots: dense, int8 and fp8
+    caches, 8 steps (the tail mode) from lengths 8, the cache not donated;
+    then the per-slot sampling variant on the dense cache."""
+    from flash_attention_softmax_n_tpu_torch.parallel import (
+        make_sharded_decode,
+        shard_engine_state,
+    )
+    from flash_attention_softmax_n_tpu_torch.quant.kv_cache import (
+        init_quantized_kv_cache,
+    )
+    mesh = _serving_mesh()
+    cfg = _cfg(payload["serve_cfg"])
+    params = _params(payload, "serve_params")
+    b, s = 4, 64
+    tok = _slab(torch.arange(b, dtype=torch.int32) + 3, mesh, {0: "data"})
+    active = torch.ones((b // 2,), dtype=torch.bool)
+    out = {}
+    for mode in (None, "int8", "fp8"):
+        if mode is None:
+            cache = {"k": _t(payload["decode_k"]), "v": _t(payload["decode_v"])}
+        else:
+            cache = init_quantized_kv_cache(cfg.n_layers, b, cfg.n_kv_heads, s,
+                                            cfg.head_dim, mode=mode,
+                                            device="cpu")
+            cache.pop("length")
+        cache["lengths"] = torch.full((b,), 8, dtype=torch.int32)
+        sp, sc = shard_engine_state(params, cache, mesh)
+        if mode is None:
+            dense = sc
+        loop = make_sharded_decode(cfg, mesh, num_steps=8, donate=False)
+        toks, after, _ = loop(sp, tok, sc, active)
+        out[mode] = {"tokens": toks.numpy(), "lengths": after["lengths"].numpy(),
+                     "kept": sc["lengths"].numpy(),
+                     "k_shape": tuple((sc["k"].values if mode else sc["k"]).shape)}
+    loop = make_sharded_decode(cfg, mesh, num_steps=8, donate=False,
+                               per_slot_sampling=True)
+    rows = {0: "data"}
+    temps = _slab(torch.tensor([0.0, 1.5, 0.0, 2.0]), mesh, rows)
+    top_k = _slab(torch.tensor([0, 8, 0, 0]), mesh, rows)
+    top_p = _slab(torch.tensor([1.0, 1.0, 1.0, 0.9]), mesh, rows)
+    gen = torch.Generator().manual_seed(3 + _data_index(mesh))
+    toks, _, _ = loop(sp, tok, dense, active, gen, temps, top_k, top_p)
+    out["sampled"] = toks.numpy()
+    loop = make_sharded_decode(cfg, mesh, num_steps=8, donate=False,
+                               temperature=1.5)
+    gen = torch.Generator().manual_seed(5 + _data_index(mesh))
+    out["tempered"] = loop(sp, tok, dense, active, gen)[0].numpy()
+    return out
+
+
+def case_sharded_argmax(payload):
+    """K2 over this rank's vocab columns and the cross-shard merge, on the
+    rank's rows: random weights, and two planted ties across shards."""
+    from flash_attention_softmax_n_tpu_torch.engine import engine
+    from flash_attention_softmax_n_tpu_torch.quant.qtensor import QTensor
+    mesh = _serving_mesh()
+    out = {}
+    for name, (x, values, scales) in payload["argmax"].items():
+        lm = QTensor(_slab(_t(values), mesh, {1: "model"}),
+                     _slab(_t(scales), mesh, {1: "model"}), bits=8)
+        xl = _slab(_t(x), mesh, {0: "data"})
+        out[name] = engine._sharded_lm_head_argmax(xl, lm, mesh).numpy()
+    return out
+
+
+def case_meshed_prefill(payload):
+    """engine_prefill_batch on this rank's shards and slots (K1's plain
+    version on its heads): logits, its cache rows and lengths."""
+    from flash_attention_softmax_n_tpu_torch.engine import engine_prefill_batch
+    from flash_attention_softmax_n_tpu_torch.parallel import shard_engine_state
+    mesh = _serving_mesh()
+    cfg = _cfg(payload["prefill_cfg"])
+    params = _params(payload, "prefill_params")
+    b, s = 4, 32
+    shape = (cfg.n_layers, b, cfg.n_kv_heads, s, cfg.head_dim)
+    cache = {"k": torch.zeros(shape), "v": torch.zeros(shape),
+             "lengths": torch.zeros((b,), dtype=torch.int32)}
+    sp, sc = shard_engine_state(params, cache, mesh)
+    rows = {0: "data"}
+    logits, sc = engine_prefill_batch(
+        sp, cfg, _slab(_t(payload["prefill_tokens"]).long(), mesh, rows),
+        _slab(_t(payload["prefill_lens"]), mesh, rows),
+        torch.arange(b // 2), sc, mesh=mesh)
+    return {"logits": _np(logits), "k": _np(sc["k"]),
+            "lengths": sc["lengths"].numpy()}
+
+
+def _serve_meshed(payload, key, prompts, budgets, *, register=(), prewarm=None,
+                  **engine_kw):
+    """Requests served by InferenceEngine(mesh=) on this rank: {request id:
+    tokens}, the counters, and prewarm's count if asked for."""
+    from flash_attention_softmax_n_tpu_torch.engine import InferenceEngine
+    from flash_attention_softmax_n_tpu_torch.quant.qtensor import QTensor
+    mesh = _serving_mesh()
+    cfg = _cfg(payload[key + "_cfg"])
+    eng = InferenceEngine(cfg, _params(payload, key + "_params"), mesh=mesh,
+                          device="cpu", **engine_kw)
+    variants = eng.prewarm(loop_steps=prewarm) if prewarm else None
+    for p in register:
+        eng.register_prefix(p)
+    for p, n in zip(prompts, budgets):
+        eng.submit(p, max_new_tokens=n)
+    done = eng.run_until_done(loop_steps=8)
+    kv = eng.cache["k"]
+    return {"tokens": {r.request_id: r.output for r in done},
+            "counters": eng.counters_report(), "variants": variants,
+            "next_token": tuple(eng._next_token.shape),
+            "cache": tuple((kv.values if isinstance(kv, QTensor) else kv).shape)}
+
+
+def case_engine_mesh(payload):
+    prompts = [[3, 1, 4, 1, 5], [9, 2, 6], [5, 3, 5, 8], [2, 7]]
+    return _serve_meshed(payload, "serve", prompts, [6, 7, 8, 9], max_batch=4,
+                         max_len=64)
+
+
+def case_engine_fused_argmax(payload):
+    """int8 weights, vocab 96: the fused loop's greedy tokens through K2 on
+    each vocab shard and the merge (its calls counted)."""
+    from flash_attention_softmax_n_tpu_torch.engine import engine
+    calls = [0]
+    merge = engine._sharded_lm_head_argmax
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return merge(*a, **k)
+
+    engine._sharded_lm_head_argmax = counted
+    try:
+        prompts = [[3, 1, 4, 1], [9, 2], [5, 3, 5], [2, 7, 1, 8]]
+        out = _serve_meshed(payload, "q96", prompts, [6] * 4, max_batch=4,
+                            max_len=64)
+    finally:
+        engine._sharded_lm_head_argmax = merge
+    cfg = _cfg(payload["q96_cfg"])
+    out["fusable"] = engine._greedy_fusable(
+        _params(payload, "q96_params"), cfg, _serving_mesh(), 4)
+    out["merges"] = calls[0]
+    return out
+
+
+def case_engine_chunked(payload):
+    return _serve_meshed(payload, "serve", payload["chunked_prompts"], [5, 5],
+                         max_batch=2, max_len=64, prefill_chunk=16)
+
+
+def case_engine_pallas_prefill(payload):
+    prompts = [[3, 1, 4, 1, 5], [9, 2, 6]]
+    return _serve_meshed(payload, "serve_auto", prompts, [5, 6], max_batch=2,
+                         max_len=64)
+
+
+def case_engine_prewarm(payload):
+    prompts = [[3, 1, 4, 1, 5], [9, 2, 6], [5, 3, 5, 8], [2, 7]]
+    return _serve_meshed(payload, "eng", prompts, [6, 7, 8, 9], prewarm=8,
+                         max_batch=4, max_len=64)
+
+
+def case_engine_prefix(payload):
+    out = {}
+    for kvq in (None, "int8"):
+        out[kvq] = _serve_meshed(payload, "eng", payload["prefix_prompts"],
+                                 [6] * 4, register=[payload["prefix"]],
+                                 max_batch=4, max_len=128, prefill_chunk=16,
+                                 kv_quantization=kvq)
+    return out
+
+
+def case_engine_all_kernel(payload):
+    """int8 weights and KV on the all-kernel route (K7 on the column and
+    row shards, K9 on the d_ff shard, K8 on the local heads, K2 and the
+    merge), with the shapes K9 saw."""
+    from flash_attention_softmax_n_tpu_torch.models import decoder
+    seen = []
+    fused = decoder.fused_mlp_matmul
+
+    def counted(x, wg, *rest):
+        seen.append((tuple(x.shape), tuple(wg.shape)))
+        return fused(x, wg, *rest)
+
+    decoder.fused_mlp_matmul = counted
+    try:
+        out = _serve_meshed(payload, "all", payload["all_prompts"], [7, 5, 9, 6],
+                            max_batch=4, max_len=64, kv_quantization="int8")
+    finally:
+        decoder.fused_mlp_matmul = fused
+    out["fused_mlp"] = sorted(set(seen))
+    out["fused_calls"] = len(seen)
+    return out
+
+
+def case_serving_rejections(payload):
+    """shard_engine_state's rejections (JAX's messages), and a piggyback
+    payload passed to a meshed loop."""
+    from flash_attention_softmax_n_tpu_torch.engine import engine_decode_loop
+    from flash_attention_softmax_n_tpu_torch.parallel import (
+        make_mesh,
+        shard_engine_state,
+    )
+    from flash_attention_softmax_n_tpu_torch.quant import (
+        fuse_decoder_projections,
+    )
+    mesh = _serving_mesh()
+    params = _params(payload, "serve_params")
+
+    def cache(b, kvh):
+        shape = (2, b, kvh, 64, 8)
+        return {"k": torch.zeros(shape), "v": torch.zeros(shape),
+                "lengths": torch.zeros((b,), dtype=torch.int32)}
+
+    calls = {
+        "axis": lambda: shard_engine_state(params, cache(4, 4),
+                                           make_mesh({"data": 2, "sp": 4})),
+        "batch": lambda: shard_engine_state(params, cache(3, 4), mesh),
+        "heads": lambda: shard_engine_state(params, cache(4, 2), mesh),
+        "fused": lambda: shard_engine_state(fuse_decoder_projections(params),
+                                            cache(4, 4), mesh),
+        "piggy": lambda: engine_decode_loop(
+            params, _cfg(payload["serve_cfg"]), torch.zeros(2, dtype=torch.int32),
+            cache(2, 4), torch.zeros(2, dtype=torch.bool), num_steps=8,
+            mesh=mesh, p_tokens=torch.zeros((1, 8), dtype=torch.int32),
+            p_slots=torch.zeros(1, dtype=torch.int32),
+            p_true_lens=torch.ones(1, dtype=torch.int32)),
+    }
+    out = {}
+    for name, fn in calls.items():
+        try:
+            fn()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
 CASES = {name[5:]: fn for name, fn in globals().items()
          if name.startswith("case_")}
