@@ -32,10 +32,13 @@ Phases, in order, each printing one JSON line:
    holds each against its plain PyTorch version on the same card tensors
    (K2 and K7-K10 also run twice and must be bit-equal); K1 at B4 H32
    L=S=512 causal (the analysis phase's forward); K7's f32 mode (the
-   scalar kernel) with grouped int4 weights at BERT-base's shapes over
-   B8 x L512 (M4096: K768 N768, K768 N3072, K3072 N768; the surgery
-   phase's int4 BERT) and with int8 weights (on no path) at M64 and M1024,
-   K2048 N2048, each against ``torch.matmul`` in f32; K1 and K10 lines give
+   f32 FMA kernel ``qmm_f32_kernel``; each line prints its plan: tile,
+   ring stages, splits, loader, and its shared-memory bytes) with grouped
+   int4 weights at BERT-base's shapes over B8 x L512 (M4096: K768 N768,
+   K768 N3072, K3072 N768; the surgery phase's int4 BERT) and with int8
+   weights (on no path) at M64 and M1024, K2048 N2048, and at the ragged
+   M300 K776 N200 (the cp.async loader), each against ``torch.matmul`` in
+   f32; K1 and K10 lines give
    TFLOP/s too;
 4. train kernels: K1 with ALiBi and dropout, K5 flash_bwd_dq and K6
    flash_bwd_dkv against their plain versions (B2 H4 L200 S264 with bias,
@@ -493,8 +496,8 @@ def repeat_equal(torch, fn, first) -> bool:
 
 
 # K7's kernels as torch.profiler names them: the tensor-core kernel, the f32
-# mode's scalar kernel and the split-K sum
-QMM_KERNELS = ("qmm_wgmma_kernel", "qmm_splitk_kernel", "qmm_splitk_sum_kernel")
+# mode's FMA kernel and the split-K sum
+QMM_KERNELS = ("qmm_wgmma_kernel", "qmm_f32_kernel", "qmm_splitk_sum_kernel")
 
 
 def check_dequant_mm(torch, pkg, gen, *, M, K, N, mode="int8"):
@@ -553,10 +556,16 @@ def check_dequant_mm(torch, pkg, gen, *, M, K, N, mode="int8"):
 
 def check_dequant_f32(torch, pkg, gen, *, M, K, N, bits=8):
     """K7 with f32 activations (int8 or grouped int4 weights, f32 out): the
-    scalar kernel ``qmm_splitk_kernel`` (and its split-K sum), bound by f32
+    f32 FMA kernel ``qmm_f32_kernel`` (and its split-K sum), bound by f32
     operations at 67 TFLOP/s, against ``torch.matmul`` in f32 (TF32 off)
-    over the weights dequantized to f32."""
+    over the weights dequantized to f32. Prints the plan (tile, ring
+    stages, splits, loader) and the kernel's shared-memory bytes a CTA,
+    and requires the kernel's ring to be as deep as the plan says."""
     qm, qt = pkg["quant_matmul"], pkg["qtensor"]
+    plan = qm.qmm_plan(M, K, N, "f32")
+    stages, smem = pkg["build"].ops().qmm_f32_layout(plan.bm)
+    require(stages == plan.stages, f"qmm f32 M{M} K{K} N{N}: the kernel's ring has {stages} "
+                                   f"stages, the plan {plan.stages}")
     dev, dt = "cuda", torch.float32
     x = torch.randn((M, K), generator=gen, device=dev)
     wq = qt.quantize(torch.randn((K, N), generator=gen, device=dev) * K ** -0.5, bits=bits,
@@ -588,9 +597,8 @@ def check_dequant_f32(torch, pkg, gen, *, M, K, N, bits=8):
     return {"name": name, "route": "cuda", "source": f"{CSRC}/qmm.cu",
             "replaces": f"{TPU_PKG}/kernels/quant_matmul.py:65 _qmm_kernel",
             "counter": "qmm", "max_abs_err": err, "tolerance": "1e-5 max|out|",
-            "repeat_bit_equal": same, "plan": pkg["quant_matmul"].qmm_plan(
-                M, K, N, "f32")._asdict(),
-            "ms": time_ms(torch, kernel), "device_ms": k_dev,
+            "repeat_bit_equal": same, "plan": plan._asdict(), "producer": plan.producer,
+            "smem_bytes": smem, "ms": time_ms(torch, kernel), "device_ms": k_dev,
             "tflops": tflops(2.0 * M * K * N, k_dev), "plain_ms": time_ms(torch, plain),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(torch, library),
             "library_device_ms": lib_dev,
@@ -3292,15 +3300,17 @@ def main() -> int:
     kd = check_flash(torch, pkg, gen_analysis, B=4, H=32, L=512, S=512, D=64, masked=False)
     kd["path"] = "analysis"
     kernels.append(kd)
-    # K7's f32 mode (the scalar kernel) with grouped int4 weights at
+    # K7's f32 mode (the f32 FMA kernel) with grouped int4 weights at
     # BERT-base's three matmul shapes over the surgery phase's B8 x L512
     for K, N in ((768, 768), (768, 3072), (3072, 768)):
         kd = check_dequant_f32(torch, pkg, gen_analysis, M=4096, K=K, N=N, bits=4)
         kd["path"] = "surgery"
         kernels.append(kd)
     # K7's f32 mode with int8 weights: no path gives it (an f32 BERT's int8
-    # weights dequantize inline), so these lines stay out of the kernels line
+    # weights dequantize inline), so these lines stay out of the kernels line;
+    # M300 K776 N200 takes the cp.async loader (W's rows off 16 bytes)
     f32_lines = [check_dequant_f32(torch, pkg, gen, M=M, K=2048, N=2048) for M in (64, 1024)]
+    f32_lines.append(check_dequant_f32(torch, pkg, gen, M=300, K=776, N=200))
     # serve_mesh's kernels at the per-rank shapes of {"data": 2, "model": 4}
     mesh_lines = mesh_kernel_lines(torch, pkg)
     kernels += mesh_lines
@@ -3310,6 +3320,7 @@ def main() -> int:
                                                        "bound_ms", "bound_by", "library_ms",
                                                        "library_device_ms", "cublas_device_ms",
                                                        "w_gbps", "producer", "plan",
+                                                       "smem_bytes",
                                                        "host_ms", "gbps", "vector_bytes",
                                                        "torch_calls_device_ms")
                                        if k in kd}})

@@ -19,6 +19,7 @@
 #include <cstdint>
 #include <initializer_list>
 #include <optional>
+#include <tuple>
 
 #include "launchers.h"
 
@@ -334,6 +335,13 @@ int64_t qmm_stage_k(int64_t x_dtype) {
   return fasn_qmm_stage_k(static_cast<int>(x_dtype));
 }
 
+std::tuple<int64_t, int64_t> qmm_f32_layout(int64_t bm) {
+  int stages = 0;
+  const int smem = fasn_qmm_f32_layout(static_cast<int>(bm), &stages);
+  TORCH_CHECK_VALUE(smem > 0, "qmm_f32_layout: f32 tiles are 64 or 128 rows, got ", bm);
+  return {stages, smem};
+}
+
 void qmm(const at::Tensor& x, const std::optional<at::Tensor>& x_scales, const at::Tensor& w,
          const at::Tensor& scales, const at::Tensor& out, const at::Tensor& part, int64_t bits,
          int64_t bm, int64_t splits, int64_t slices_per_split, bool tma) {
@@ -365,7 +373,7 @@ void qmm(const at::Tensor& x, const std::optional<at::Tensor>& x_scales, const a
   // row strides and base addresses are multiples of 16 bytes
   const int64_t stage_k = fasn_qmm_stage_k(x_dtype);
   const int64_t n_slices = (K + stage_k - 1) / stage_k;
-  TORCH_CHECK_VALUE(bm == 64 || (x_dtype != 0 && bm == 128) || (x_dtype == 1 && bm == 256),
+  TORCH_CHECK_VALUE(bm == 64 || bm == 128 || (x_dtype == 1 && bm == 256),
                     what, ": bm ", bm, " is not a tile height of this mode");
   TORCH_CHECK_VALUE(splits >= 1 && slices_per_split >= 1 &&
                         splits * slices_per_split >= n_slices &&
@@ -373,10 +381,10 @@ void qmm(const at::Tensor& x, const std::optional<at::Tensor>& x_scales, const a
                     what, ": ", splits, " splits of ", slices_per_split, " slices do not cover ",
                     n_slices, " slices once");
   if (tma) {
-    TORCH_CHECK_VALUE(x_dtype != 0 && (K * x.element_size()) % 16 == 0 && N % 16 == 0 &&
+    TORCH_CHECK_VALUE((K * x.element_size()) % 16 == 0 && N % 16 == 0 &&
                           reinterpret_cast<uintptr_t>(x.data_ptr()) % 16 == 0 &&
                           reinterpret_cast<uintptr_t>(w.data_ptr()) % 16 == 0,
-                      what, ": TMA needs bf16 or int8 x, 16-byte row strides and addresses");
+                      what, ": TMA needs 16-byte row strides and addresses");
   }
   void* part_ptr = nullptr;
   if (splits > 1) {
@@ -631,6 +639,7 @@ TORCH_LIBRARY(fasn, m) {
       "tail_append(Tensor(a!) k_tail, Tensor(b!) v_tail, Tensor k_new, Tensor v_new, "
       "int index) -> ()");
   m.def("qmm_stage_k(int x_dtype) -> int", &qmm_stage_k);
+  m.def("qmm_f32_layout(int bm) -> (int, int)", &qmm_f32_layout);
   m.def(
       "qmm(Tensor x, Tensor? x_scales, Tensor w, Tensor scales, Tensor(a!) out, "
       "Tensor(b!) part, int bits, int bm, int splits, int slices_per_split, "

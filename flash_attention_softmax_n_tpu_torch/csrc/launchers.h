@@ -89,17 +89,22 @@ int fasn_tail_append(void* k_tail, void* v_tail, const void* k_new, const void* 
 // ceil(K / this) slices are split among the CTAs of one output tile.
 int fasn_qmm_stage_k(int x_dtype);
 
+// K7's f32 mode (qmm_f32_kernel) with bm-row tiles: its shared-memory
+// bytes a CTA, and in *stages the depth of its ring; -1 for a bm it lacks.
+int fasn_qmm_f32_layout(int bm, int* stages);
+
 // K7. x (M,K) contiguous, f32 (x_dtype 0), bf16 (1) or int8 (2, W8A8, with
 // x_scales (M,) f32); w int8 (K,N), or int4 (bits 4) packed (K/2,N) in
 // groups of 256 rows with K % 256 == 0, contiguous; scales (N,) f32; out
 // (M,N) contiguous, f32 (out_dtype 0) or bf16 (1). The plan
-// (kernels/quant_matmul.py qmm_plan): bm rows per tile (64 for f32 x; 64
-// or 128 for int8 x; 64, 128 or 256 for bf16 x), `splits` ranges of
+// (kernels/quant_matmul.py qmm_plan): bm rows per tile (64 or 128 for f32
+// or int8 x; 64, 128 or 256 for bf16 x), `splits` ranges of
 // `slices_per_split` slices (every slice in one, none empty; the scratch
 // holds splits * M * N four-byte partials when splits > 1), and use_tma
-// (bf16 or int8 x only) where x's and w's row strides and base addresses
-// are multiples of 16 bytes. The tensor-core kernels' ring is as deep as
-// they are built (Cfg::STAGES), which the plan's `stages` reports.
+// where x's and w's row strides and base addresses are multiples of 16
+// bytes (else f32 x takes cp.async, bf16 and int8 x a predicated producer).
+// Each kernel's ring is as deep as it is built (Cfg::STAGES,
+// F32Cfg::STAGES), which the plan's `stages` reports.
 int fasn_qmm(const void* x, const float* x_scales, const void* w, const float* scales,
              void* partial, void* out, int M, int K, int N, int x_dtype, int bits, int out_dtype,
              int bm, int splits, int slices_per_split, int use_tma, cudaStream_t stream);

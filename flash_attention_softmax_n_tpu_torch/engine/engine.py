@@ -494,6 +494,7 @@ def engine_decode(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
 def engine_decode_loop(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
                        cache: Dict, active: torch.Tensor, *, num_steps: int,
                        eos_token: Optional[int] = None,
+                       temperature: float = 0.0,
                        generator: Optional[torch.Generator] = None,
                        temps: Optional[torch.Tensor] = None,
                        top_k: Optional[torch.Tensor] = None,
@@ -508,7 +509,9 @@ def engine_decode_loop(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
 
     Returns ``(tokens_out (B, num_steps), cache, active)``. Greedy, or
     per-slot sampling when ``temps`` (with ``top_k``/``top_p`` and a
-    ``generator``) is given. ``eos_token``: a slot that emits it turns
+    ``generator``) is given, or whole-batch sampling at a scalar
+    ``temperature > 0`` (with a ``generator``; ``temps`` takes precedence,
+    as in JAX). ``eos_token``: a slot that emits it turns
     inactive (a new ``active`` is returned); slots that hit it keep
     emitting their last token. Everything the loop changes is written in
     place: cache rows, and the final lengths copied into
@@ -538,6 +541,8 @@ def engine_decode_loop(params: Dict, cfg: DecoderConfig, tokens: torch.Tensor,
     and shards (``parallel/serving.py``); every rank of the mesh runs the
     loop together. No piggybacked admission under a mesh (JAX's rule).
     """
+    if temperature > 0.0 and temps is None:
+        temps = torch.full(tokens.shape, float(temperature), device=tokens.device)
     if temps is not None and generator is None:
         raise ValueError("temperature sampling requires generator")
     if p_tokens is not None and mesh is not None:

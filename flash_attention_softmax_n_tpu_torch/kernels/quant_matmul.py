@@ -3,8 +3,9 @@
 Counterparts of ``quantized_matmul`` and ``quantized_matmul_argmax``
 (``flash_attention_softmax_n_tpu/kernels/quant_matmul.py``). On a CUDA
 tensor the hand-written kernels run (``csrc/qmm.cu``, ``csrc/qmm_argmax.cu``,
-both on the tensor-core pieces of ``csrc/qmm_tile.h`` for bf16 x, planned
-here by ``qmm_plan`` and ``qmm_argmax_plan``); on a CPU tensor their plain
+both on the tensor-core pieces of ``csrc/qmm_tile.h`` for bf16 x, and K7 on
+an f32 FMA kernel for f32 x, planned here by ``qmm_plan`` and
+``qmm_argmax_plan``); on a CPU tensor their plain
 versions ``*_reference`` do. Both accumulate in
 f32 (int32 under W8A8) and apply the per-column scale after accumulation,
 which is not the plain route's ``x @ dequantize(w)`` (that rounds w * s to
@@ -45,14 +46,16 @@ _MIN_SLICES_PER_SPLIT = 2
 class QmmPlan(NamedTuple):
     """How ``csrc/qmm.cu`` runs one (M, K, N) product."""
 
-    kernel: str        # "wgmma" (tensor cores) or "scalar" (f32 x)
+    kernel: str        # "wgmma" (tensor cores) or "simt" (f32 x, f32 FMAs)
     bm: int            # output rows per tile: 64, 128 or (bf16 x) 256
     bn: int            # output columns per tile
     bk: int            # logical K rows per stage (slice)
-    stages: int        # ring depth the kernel is built with (Cfg::STAGES; scalar: 1)
+    stages: int        # ring depth the kernel is built with (Cfg::STAGES, F32Cfg::STAGES)
     splits: int        # K ranges, each summed by its own CTAs
     slices_per_split: int
-    producer: str      # "tma", "predicated" (row strides TMA cannot take) or "scalar"
+    # "tma", or where a row stride TMA cannot take: "predicated" (wgmma)
+    # or "cp.async" (simt)
+    producer: str
 
 
 # the time of a 256-row bf16 tile against a 128-row one at the same K
@@ -123,22 +126,35 @@ def wgmma_plan(m: int, k: int, n: int, *, int8_x: bool = False, dual: bool = Fal
                    "tma" if aligned else "predicated")
 
 
+def _f32_plan(m: int, k: int, n: int) -> QmmPlan:
+    """f32 x: the f32 FMA kernel's (BM x 64) tiles, 32-row stages, a ring
+    of three.
+
+    BM is 128 (three CTAs an SM), or 64 below M = 128 (four). Where the
+    tiles fill less than half the SMs, K is split into as many ranges (at
+    least two stages each) as put about two CTAs on each SM. The loader is
+    TMA where x's rows (K % 4) and W's (N % 16) are multiples of 16 bytes,
+    else cp.async.
+    """
+    bm = 64 if m < 128 else 128
+    tiles = math.ceil(m / bm) * math.ceil(n / 64)
+    want = 2 * _SMS // tiles if 2 * tiles <= _SMS else 1
+    splits, per = _split(math.ceil(k / 32), want)
+    return QmmPlan("simt", bm, 64, 32, 3, splits, per,
+                   "tma" if k % 4 == 0 and n % 16 == 0 else "cp.async")
+
+
 def qmm_plan(m: int, k: int, n: int, mode: str) -> QmmPlan:
     """The tiles, ring, K splits and producer of K7 for an (M, K, N)
     product in ``mode`` (``QMM_MODES``): ``wgmma_plan`` for bf16 or int8 x
-    (W's int8 or int4 columns 128 to a tile); f32 x takes the scalar kernel
-    (64x64 tiles, 32-deep slices, split to about two CTAs per SM), which
-    loads without TMA.
+    (W's int8 or int4 columns 128 to a tile); f32 x takes the SIMT kernel
+    (``_f32_plan``).
     """
     if mode not in QMM_MODES:
         raise ValueError(f"qmm_plan: mode {mode!r} is not one of {QMM_MODES}")
     if mode != "f32":
         return wgmma_plan(m, k, n, int8_x=mode in ("w8a8", "w4a8"))
-    tiles = math.ceil(m / 64) * math.ceil(n / 64)
-    # about two CTAs per SM in flight
-    want = math.ceil(2 * _SMS / tiles) if tiles < 2 * _SMS else 1
-    splits, per = _split(math.ceil(k / 32), want)
-    return QmmPlan("scalar", 64, 64, 32, 1, splits, per, "scalar")
+    return _f32_plan(m, k, n)
 
 
 class ArgmaxPlan(NamedTuple):

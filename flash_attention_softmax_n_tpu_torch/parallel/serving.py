@@ -132,10 +132,8 @@ def make_sharded_decode(cfg: DecoderConfig, mesh, *, num_steps: int = 1,
                        temps=temps, top_k=top_k, top_p=top_p)
     elif temperature > 0.0:
         def loop(params, tokens, cache, active, generator):
-            temps = torch.full(tokens.shape, float(temperature),
-                               device=tokens.device)
             return run(params, tokens, cache, active, generator=generator,
-                       temps=temps)
+                       temperature=temperature)
     else:
         def loop(params, tokens, cache, active):
             return run(params, tokens, cache, active)

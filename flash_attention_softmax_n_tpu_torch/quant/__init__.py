@@ -4,8 +4,10 @@ from flash_attention_softmax_n_tpu_torch.quant.gates import (
     outlier_gate,
 )
 from flash_attention_softmax_n_tpu_torch.quant.kv_cache import (
+    cached_attention_quantized,
     init_quantized_kv_cache,
     quantize_kv,
+    update_quantized_cache,
 )
 from flash_attention_softmax_n_tpu_torch.quant.qtensor import (
     QTensor,
@@ -24,4 +26,5 @@ __all__ = ["QTensor", "dequantize", "quantize", "pack_int4", "unpack_int4",
            "fuse_decoder_projections", "quantize_decoder_weights",
            "quantize_bert_weights", "KURTOSIS_THRESHOLDS", "outlier_gate",
            "gate_report",
-           "init_quantized_kv_cache", "quantize_kv"]
+           "init_quantized_kv_cache", "quantize_kv", "update_quantized_cache",
+           "cached_attention_quantized"]

@@ -1026,6 +1026,11 @@ def test_qmm_plan_matches_the_kernels_and_bad_plans_raise(gen):
     ops = _build.ops()
     for code, mode in ((0, "f32"), (1, "int8"), (2, "w8a8")):
         assert ops.qmm_stage_k(code) == qm.qmm_plan(64, 512, 256, mode).bk
+    # the f32 kernel's ring, as deep as the plan says, at both tile heights
+    for m, n in ((64, 256), (4096, 3072)):
+        plan = qm.qmm_plan(m, 768, n, "f32")
+        stages, smem = ops.qmm_f32_layout(plan.bm)
+        assert stages == plan.stages and 0 < smem <= 232448
     x = torch.randn((64, 512), generator=gen, device="cuda").to(torch.bfloat16)
     wv, ws = _qweight(gen, 512, 256, 8)
     ws = ws.reshape(-1).float().contiguous()
@@ -1449,13 +1454,42 @@ def test_qmm_f32_int4_at_bert_shapes(gen, kn):
     k, n = kn
     x = torch.randn((512, k), generator=gen, device="cuda")
     wv, ws = _qweight(gen, k, n, 4)
-    assert qm.qmm_plan(512, k, n, "f32").kernel == "scalar"
+    assert qm.qmm_plan(512, k, n, "f32").kernel == "simt"
     before = _build.LAUNCHES["qmm"]
     out = qm.quantized_matmul(x, wv, ws, bits=4)
     assert _build.LAUNCHES["qmm"] == before + 1
     assert torch.equal(out, qm.quantized_matmul(x, wv, ws, bits=4))
     ref = qm.quantized_matmul_reference(x, None, wv, ws, bits=4, out_dtype=torch.float32)
     torch.testing.assert_close(out, ref, atol=1e-5 * float(ref.abs().max()), rtol=0)
+
+
+# K7's f32 mode beyond BERT's shapes: int8 W at decode (M64, split K) and
+# at an admission group (M1024, 128-row tiles), ragged shapes that take the
+# cp.async loader (N200: W's rows off 16 bytes; N131 and K100: W's rows off
+# 4 bytes, x's off 16), and bf16 out (one bf16 ulp of the plain output on
+# top of 1e-5 max|ref|)
+_QMM_F32_CASES = [(64, 2048, 2048, 8, "f32", "tma"), (1024, 2048, 2048, 8, "f32", "tma"),
+                  (300, 776, 200, 8, "f32", "cp.async"), (300, 768, 200, 4, "f32", "cp.async"),
+                  (129, 100, 131, 8, "f32", "cp.async"), (4096, 768, 768, 4, "bf16", "tma"),
+                  (300, 776, 200, 8, "bf16", "cp.async")]
+
+
+@pytest.mark.parametrize("case", _QMM_F32_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_qmm_f32_matches_plain(gen, case):
+    m, k, n, bits, out, producer = case
+    od = torch.float32 if out == "f32" else torch.bfloat16
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    wv, ws = _qweight(gen, k, n, bits)
+    plan = qm.qmm_plan(m, k, n, "f32")
+    assert (plan.kernel, plan.producer) == ("simt", producer)
+    before = _build.LAUNCHES["qmm"]
+    got = qm.quantized_matmul(x, wv, ws, bits=bits, out_dtype=od)
+    assert _build.LAUNCHES["qmm"] == before + 1
+    assert torch.equal(got, qm.quantized_matmul(x, wv, ws, bits=bits, out_dtype=od))
+    ref = qm.quantized_matmul_reference(x, None, wv, ws, bits=bits, out_dtype=od)
+    assert got.dtype == od and got.shape == (m, n)
+    torch.testing.assert_close(got.float(), ref.float(), atol=1e-5 * float(ref.float().abs().max()),
+                               rtol=0 if od == torch.float32 else 2.0 ** -7)
 
 
 def test_bert_int4_on_the_card_is_its_dequantized_tree(gen):

@@ -179,6 +179,73 @@ def test_unported_paths_raise(jparams, tmp_path):
     assert got == want
 
 
+_LOOP_PROMPTS = [[3, 1, 4, 1, 5], [9, 2, 6], [5, 3, 5, 8, 9, 7, 9], [2, 7, 1]]
+_LOOP_TOK0 = np.array([11, 12, 13, 14], np.int32)
+
+
+def _loop_caches(jparams):
+    """The four prompts prefilled into slots 0-3 of a JAX cache (4 x 64),
+    and the same cache for the port"""
+    shape = (JTINY.n_layers, 4, JTINY.n_kv_heads, 64, JTINY.head_dim)
+    jc = {"k": jnp.zeros(shape, jnp.float32), "v": jnp.zeros(shape, jnp.float32),
+          "lengths": jnp.zeros((4,), jnp.int32)}
+    for slot, p in enumerate(_LOOP_PROMPTS):
+        _, jc = jeng.engine_prefill(jparams, JTINY, jnp.asarray([p], jnp.int32),
+                                    jnp.asarray(len(p), jnp.int32),
+                                    jnp.asarray(slot, jnp.int32), jc)
+
+    def port_cache():
+        return {n: tensor_from_numpy(np.asarray(v), "cpu") for n, v in jc.items()}
+
+    return jc, port_cache
+
+
+def _port_loop(jparams, port_cache, steps, **kw):
+    toks, _, _ = teng.engine_decode_loop(
+        _port(jparams), TTINY, torch.from_numpy(_LOOP_TOK0), port_cache(),
+        torch.ones(4, dtype=torch.bool), num_steps=steps, **kw)
+    return toks
+
+
+@pytest.mark.parametrize("steps", [4, 12])
+def test_decode_loop_temperature_zero_matches_jax(jparams, steps):
+    jc, port_cache = _loop_caches(jparams)
+    want, _, _ = jeng.engine_decode_loop(jparams, JTINY, jnp.asarray(_LOOP_TOK0), jc,
+                                         jnp.ones((4,), bool), num_steps=steps,
+                                         temperature=0.0)
+    got = _port_loop(jparams, port_cache, steps, temperature=0.0)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_decode_loop_temperature_needs_a_generator(jparams):
+    _, port_cache = _loop_caches(jparams)
+    with pytest.raises(ValueError, match="requires generator"):
+        _port_loop(jparams, port_cache, 4, temperature=0.7)
+
+
+def test_decode_loop_temperature_samples_from_the_generator(jparams):
+    _, port_cache = _loop_caches(jparams)
+    draws = [_port_loop(jparams, port_cache, 12, temperature=0.7,
+                        generator=torch.Generator().manual_seed(seed))
+             for seed in (5, 5)]
+    assert draws[0].dtype == torch.int32 and draws[0].shape == (4, 12)
+    assert ((draws[0] >= 0) & (draws[0] < TTINY.vocab_size)).all()
+    assert torch.equal(draws[0], draws[1])
+
+
+def test_decode_loop_temps_take_precedence_over_temperature(jparams):
+    # per-slot temps of 0 are greedy whatever the scalar temperature, in
+    # both packages
+    jc, port_cache = _loop_caches(jparams)
+    want, _, _ = jeng.engine_decode_loop(jparams, JTINY, jnp.asarray(_LOOP_TOK0), jc,
+                                         jnp.ones((4,), bool), num_steps=12,
+                                         temperature=0.7, rng=jax.random.PRNGKey(0),
+                                         temps=jnp.zeros((4,), jnp.float32))
+    got = _port_loop(jparams, port_cache, 12, temperature=0.7,
+                     generator=torch.Generator().manual_seed(0), temps=torch.zeros(4))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("loop_steps", [4, 6, 8, 16])
 def test_default_engine_matches_jax(jparams, loop_steps):
     # both engines on their defaults (piggyback_prefill=True, max_batch 8,

@@ -161,6 +161,29 @@ def test_public_api_matches_the_jax_package():
     assert tp.TRITON_INSTALLED is jp.TRITON_INSTALLED is False
 
 
+# names of a JAX subpackage's __all__ that the port does not export, each
+# with its reason
+_EXPORT_EXCEPTIONS = {
+    "kernels": {"FlashConfig": "the TPU's block sizes for the Pallas kernel; "
+                               "K1 plans its own tiles"},
+    "utils": {"V5E": "a TPU's chip spec; the port has H100",
+              "V5P": "a TPU's chip spec; the port has H100"},
+}
+
+
+@pytest.mark.parametrize("sub", ["analysis", "engine", "kernels", "models", "ops",
+                                 "parallel", "quant", "surgery", "utils"])
+def test_subpackage_exports_cover_the_jax_package(sub):
+    import importlib
+    jax_mod = importlib.import_module(f"flash_attention_softmax_n_tpu.{sub}")
+    port = importlib.import_module(f"flash_attention_softmax_n_tpu_torch.{sub}")
+    skip = _EXPORT_EXCEPTIONS.get(sub, {})
+    assert set(skip) <= set(jax_mod.__all__)
+    missing = set(jax_mod.__all__) - set(skip) - set(port.__all__)
+    assert not missing, f"{sub} lacks {sorted(missing)}"
+    assert all(hasattr(port, name) for name in port.__all__)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_triton_alias_warns_and_takes_the_fused_route(causal):
     import flash_attention_softmax_n_tpu_torch as tp

@@ -148,8 +148,10 @@ def test_qmm_plan_covers_every_slice_once(mode):
         assert plan.splits >= 1 and per >= 1, (m, k, n, plan)
         # consecutive ranges of `per` slices: all covered, the last not empty
         assert plan.splits * per >= n_slices > (plan.splits - 1) * per, (m, k, n, plan)
-        if mode == "f32" or m < 128:
+        if m < 128:
             assert plan.bm == 64
+        elif mode == "f32":
+            assert plan.bm == 128
         else:
             assert plan.bm in ((128, 256) if mode in ("int8", "int4") else (128,))
 
@@ -173,13 +175,15 @@ def test_qmm_plan_splits_only_narrow_products():
     plan = tqm.qmm_plan(64, 2048, 5632, "int8")  # 44 tiles
     assert plan.splits == 3 and 44 * plan.splits <= 132
     assert tqm.qmm_plan(64, 5632, 2048, "w8a8").splits == 8  # 16 tiles: 128, not 144
-    assert tqm.qmm_plan(64, 2048, 5632, "f32").splits > 1  # the scalar plan: 2 per SM
-    # the persistent kernel's tiles, splits included, stay within one round
-    for mode in ("int8", "int4", "w8a8", "w4a8"):
+    # f32: 88 tiles of 64 x 64, two thirds of the SMs, not split
+    assert tqm.qmm_plan(64, 2048, 5632, "f32").splits == 1
+    # the tiles, splits included, stay within one round (f32: two CTAs an SM)
+    for mode in ("int8", "int4", "w8a8", "w4a8", "f32"):
         for m, k, n in _plan_shapes(mode):
             plan = tqm.qmm_plan(m, k, n, mode)
             if plan.splits > 1:
-                assert -(-m // plan.bm) * -(-n // plan.bn) * plan.splits <= 132, (m, k, n)
+                ctas = -(-m // plan.bm) * -(-n // plan.bn) * plan.splits
+                assert ctas <= (264 if mode == "f32" else 132), (m, k, n)
 
 
 @pytest.mark.parametrize("mode", ["int4", "w4a8"])
@@ -204,12 +208,33 @@ def test_qmm_plan_predicated_exactly_where_a_row_stride_is_unaligned(mode):
             assert plan.producer == ("predicated" if unaligned else "tma"), (k, n)
 
 
+def test_qmm_f32_plan_takes_cp_async_exactly_where_tma_cannot():
+    # TMA needs 16-byte row strides: x's K % 4 (f32) and W's N % 16
+    for k in range(248, 320):
+        for n in range(240, 272):
+            plan = tqm.qmm_plan(300, k, n, "f32")
+            assert plan.kernel == "simt"
+            tma = k % 4 == 0 and n % 16 == 0
+            assert plan.producer == ("tma" if tma else "cp.async"), (k, n)
+    assert tqm.qmm_plan(300, 776, 200, "f32").producer == "cp.async"
+
+
 def test_qmm_mode_and_f32_plan():
     assert tqm.qmm_mode(torch.float32, 8) == tqm.qmm_mode(torch.float32, 4) == "f32"
     assert tqm.qmm_mode(torch.bfloat16, 4) == "int4"
     assert tqm.qmm_mode(torch.int8, 8) == "w8a8"
     plan = tqm.qmm_plan(64, 2048, 5632, "f32")
-    assert (plan.kernel, plan.producer, plan.bk) == ("scalar", "scalar", 32)
+    assert (plan.kernel, plan.producer, plan.bk, plan.bn) == ("simt", "tma", 32, 64)
+    # BERT-base over B8 x L512 (M4096): 128 x 64 tiles (384 at N768, three
+    # CTAs an SM), a ring of three, no split
+    for k, n in ((768, 768), (768, 3072), (3072, 768)):
+        plan = tqm.qmm_plan(4096, k, n, "f32")
+        assert (plan.bm, plan.bn, plan.stages, plan.splits, plan.producer) == (
+            128, 64, 3, 1, "tma"), (k, n, plan)
+    # decode (M64, 32 tiles of 64 x 64): K split to about two CTAs an SM
+    plan = tqm.qmm_plan(64, 2048, 2048, "f32")
+    assert (plan.bm, plan.splits, plan.slices_per_split) == (64, 8, 8)
+    assert tqm.qmm_plan(1024, 2048, 2048, "f32")[1:7] == (128, 64, 32, 3, 1, 64)
     with pytest.raises(ValueError, match="bf16 or f32"):
         tqm.qmm_mode(torch.float16, 8)
     with pytest.raises(ValueError, match="mode"):
