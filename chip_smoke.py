@@ -166,11 +166,29 @@ Phases, in order, each printing one JSON line:
    vocabulary; K1 B16 H8 L=S=128 under the engine's mask; K3 NL22 B32 KVH1
    S512 int8 + scales; K4 NL22 B32 KVH1 W64 bf16; K8 B32 KVH1 G8 S512 int8;
    K7 at M32 (K2048 N512, N64, N1408; K512 N2048; K1408 N2048); K9 M32
-   K2048 F1408.
+   K2048 F1408;
+15. serve_7b: Llama-7B at its published widths and full 32 layers (head
+   dim 128, 32 heads over 32 KV heads, d_ff 11008, vocab 32000), int8
+   weights on the card: ``utils/bench_7b.bench_decode`` at B48 (weights
+   synthesized in int8, as bench.py's 7B point) on the default and the
+   all-kernel routes, tokens/s eagerly and replayed as a CUDA graph with
+   the card's name and power limit (one run, no claim); then, with weights
+   quantized from N(0, 1/fan_in) leaf by leaf (``init_7b_int8``), 24
+   requests through 16 slots of a prewarmed engine on the all-kernel route
+   and 2 through its step path, and 8 + 2 with grouped int4 weights and an
+   fp8 KV cache, each held to budgets and the teacher-forced gate; K1-K4
+   and K7-K9 must launch. Its kernel lines (phase 3) are at the shapes the
+   path launches: K1 B8 H32 L=S=128 d128 under the engine's mask; K2 M48
+   K4096 N32000 and Llama-3-8B's M96 N128256; K3 NL32 B48 KVH32 S512 D128
+   int8 + scales; K4 NL32 B48 KVH32 W64 D128 bf16; K7 int8 at M48 K4096
+   N4096 and M1024 (K4096 N4096, N11008; K11008 N4096), int4 at M48 over
+   the same three; K8 B48 KVH32 G1 S512 d128 over int8 and fp8 caches; K9
+   M48 K4096 F11008 and Llama-3-8B's F14336. Every line there and in
+   phase 3 is also run twice and required bit-equal.
 
 Then it prints the kernels' JSON line (times, launches on the serving,
-training, analysis, surgery, ring or serve_mesh run, each kernel's launches on the
-analysis, surgery, train_mesh and serve_mesh runs, bounds), the card's name and power limit from
+training, analysis, surgery, ring, serve_mesh or serve_7b run, each kernel's launches on
+the analysis, surgery, train_mesh, serve_mesh and serve_7b runs, bounds), the card's name and power limit from
 nvidia-smi, and last ``{"ok": true, "device": {...}}``. Any failed check
 exits non-zero. The port is imported from the checkout; nothing of JAX is
 imported.
@@ -182,7 +200,6 @@ import dataclasses
 import json
 import sys
 import time
-import types
 from pathlib import Path
 
 import numpy as np
@@ -352,10 +369,11 @@ def check_flash(torch, pkg, gen, *, B, H, L, S, D, masked, true_lens=None):
     excess_o = float((diff - 2.0 ** -7 * o_ref.float().abs()).max())
     err_lse = float((lse - lse_ref).abs().max())
     tol_lse = 1e-3
+    same = repeat_equal(torch, kernel, (o, lse))
     name = f"flash_fwd B{B} H{H} L{L} S{S} d{D} {'mask' if masked else 'causal'}"
-    require(excess_o <= 2e-3 and err_lse <= tol_lse,
+    require(excess_o <= 2e-3 and err_lse <= tol_lse and same,
             f"{name}: max |o - plain| - 2^-7 |o_plain| is {excess_o} (tol 2e-3), "
-            f"max |lse - plain| {err_lse} (tol {tol_lse})")
+            f"max |lse - plain| {err_lse} (tol {tol_lse}), repeat bit-equal {same}")
 
     # the library yardstick: SDPA over K/V with one zero row prepended (the
     # reference library's trick for integer n = 1), under the same mask
@@ -380,6 +398,7 @@ def check_flash(torch, pkg, gen, *, B, H, L, S, D, masked, true_lens=None):
                         ":279 _fwd_kernel, :501 _fwd_pipeline_kernel",
             "counter": "flash_fwd",
             "max_abs_err": err_o, "max_abs_err_lse": err_lse, "tolerance": tol_o,
+            "repeat_bit_equal": same,
             "ms": time_ms(torch, kernel), "device_ms": dev_ms,
             "tflops": tflops(4.0 * pairs * D, dev_ms), "plain_ms": time_ms(torch, plain),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(torch, library)}
@@ -466,6 +485,11 @@ def check_row_writes(torch, pkg, line):
     name = bench.line_name(line)
     require(all(torch.equal(a, b) for a, b in zip(caches, want)),
             f"{name}: kernel result is not bit-exact with the plain version")
+    # the same writes again leave the same bytes
+    kernel()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(caches, want))
+    require(same, f"{name}: a repeated call changed the result")
     moved = bench.line_bytes(news, where)
     b_ms, b_by = bound_ms(moved)
     k_dev, lib_dev = device_ms_of(torch, [(kernel, ROW_WRITE_KERNELS), (torch_calls, None)])
@@ -476,7 +500,7 @@ def check_row_writes(torch, pkg, line):
             "replaces": f"{TPU_PKG}/kernels/cache_update.py:"
                         + ("92 _kernel" if k3 else "40 _tail_kernel"),
             "counter": line[0],
-            "max_abs_err": 0.0, "tolerance": "bit-exact",
+            "max_abs_err": 0.0, "tolerance": "bit-exact", "repeat_bit_equal": same,
             "vector_bytes": [ops.cache_vector_bytes(c, nw) for c, nw in zip(caches, news)],
             "ms": ms, "device_ms": k_dev, "host_ms": ms - k_dev if k_dev else None,
             "gbps": moved / (k_dev * 1e-3) / 1e9 if k_dev else None,
@@ -2238,70 +2262,6 @@ XLNET_BASE = dict(model_type="xlnet", vocab_size=32000, d_model=768, n_layer=12,
                   reuse_len=None, layer_norm_eps=1e-12, dropout=0.1)
 
 
-class StandIn:
-    """An HF model's stand-in: ``.config`` with HF's attribute names and
-    ``.state_dict()`` (this machine has no ``transformers``)."""
-
-    def __init__(self, config, sd):
-        self.config = types.SimpleNamespace(**config)
-        self._sd = sd
-
-    def state_dict(self):
-        return self._sd
-
-
-def bert_state_dict(torch, gen, c):
-    """HF BertModel-named tensors on the card: N(0, 0.02) weights, zero
-    biases, LayerNorm ones and zeros."""
-    d, f, dev = c["hidden_size"], c["intermediate_size"], "cuda"
-
-    def w(*shape):
-        return torch.randn(shape, generator=gen, device=dev) * 0.02
-
-    def z(*shape):
-        return torch.zeros(shape, device=dev)
-
-    sd = {"embeddings.word_embeddings.weight": w(c["vocab_size"], d),
-          "embeddings.position_embeddings.weight": w(c["max_position_embeddings"], d),
-          "embeddings.token_type_embeddings.weight": w(c["type_vocab_size"], d),
-          "embeddings.LayerNorm.weight": torch.ones(d, device=dev),
-          "embeddings.LayerNorm.bias": z(d),
-          "pooler.dense.weight": w(d, d), "pooler.dense.bias": z(d)}
-    for i in range(c["num_hidden_layers"]):
-        p = f"encoder.layer.{i}."
-        for name, (o, n) in {"attention.self.query": (d, d), "attention.self.key": (d, d),
-                             "attention.self.value": (d, d),
-                             "attention.output.dense": (d, d),
-                             "intermediate.dense": (f, d), "output.dense": (d, f)}.items():
-            sd[p + name + ".weight"], sd[p + name + ".bias"] = w(o, n), z(o)
-        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
-            sd[p + name + ".weight"], sd[p + name + ".bias"] = torch.ones(d, device=dev), z(d)
-    return sd
-
-
-def xlnet_state_dict(torch, gen, c):
-    """HF XLNetModel-named tensors on the card, as ``bert_state_dict``."""
-    d, nh, dh, f, dev = c["d_model"], c["n_head"], c["d_head"], c["d_inner"], "cuda"
-
-    def w(*shape):
-        return torch.randn(shape, generator=gen, device=dev) * 0.02
-
-    sd = {"word_embedding.weight": w(c["vocab_size"], d), "mask_emb": w(1, 1, d)}
-    for i in range(c["n_layer"]):
-        p = f"layer.{i}."
-        for name in "qkvor":
-            sd[p + "rel_attn." + name] = w(d, nh, dh)
-        for name in ("r_w_bias", "r_r_bias", "r_s_bias"):
-            sd[p + "rel_attn." + name] = w(nh, dh)
-        sd[p + "rel_attn.seg_embed"] = w(2, nh, dh)
-        for name in ("rel_attn.layer_norm", "ff.layer_norm"):
-            sd[p + name + ".weight"] = torch.ones(d, device=dev)
-            sd[p + name + ".bias"] = torch.zeros(d, device=dev)
-        sd[p + "ff.layer_1.weight"], sd[p + "ff.layer_1.bias"] = w(f, d), torch.zeros(f, device=dev)
-        sd[p + "ff.layer_2.weight"], sd[p + "ff.layer_2.bias"] = w(d, f), torch.zeros(d, device=dev)
-    return sd
-
-
 def rel_max_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
@@ -2312,7 +2272,7 @@ def surgery_bert(torch, pkg):
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     cfg, params = pkg["surgery"].from_pretrained_hf(
-        StandIn(BERT_BASE, bert_state_dict(torch, gen, BERT_BASE)), softmax_n_param=1.0)
+        pkg["standin"].standin(BERT_BASE, gen, "cuda"), softmax_n_param=1.0)
     torch.cuda.synchronize()
     convert_s = time.perf_counter() - t0
     require(cfg.softmax_n == 1.0 and cfg.dtype == torch.float32
@@ -2402,7 +2362,7 @@ def surgery_xlnet(torch, pkg):
     gen = torch.Generator(device="cuda").manual_seed(1)
     t0 = time.perf_counter()
     cfg, params = pkg["surgery"].from_pretrained_hf(
-        StandIn(XLNET_BASE, xlnet_state_dict(torch, gen, XLNET_BASE)), softmax_n_param=1.0)
+        pkg["standin"].standin(XLNET_BASE, gen, "cuda"), softmax_n_param=1.0)
     torch.cuda.synchronize()
     convert_s = time.perf_counter() - t0
     require(cfg.softmax_n == 1.0 and cfg.mem_len == 256, f"surgery_xlnet: {cfg}")
@@ -3149,12 +3109,199 @@ def serve_mesh(torch, pkg):
     return launches
 
 
-def main() -> int:
-    import torch
+# ----------------------------------------------------------------------------
+# phase 15: serve_7b, Llama-7B's geometry at full depth
+# ----------------------------------------------------------------------------
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
+SEVEN_B_KERNELS = SERVE_KERNELS + PALLAS_KERNELS
+
+
+def llama_configs(pkg):
+    """(Llama-7B, its first batch; Llama-3-8B, its first batch) of
+    utils/bench_7b.CONFIGS (scripts/bench_7b.py:122-138): Llama-7B's 32
+    heads over 32 KV heads (G = 1) at head dim 128, Llama-3-8B's 8 KV
+    heads, d_ff 14336 and vocabulary of 128256"""
+    (_, c7, b7), (_, c8, b8) = pkg["bench_7b"].CONFIGS
+    return c7, b7[0], c8, b8[0]
+
+
+def serve_7b_kernel_lines(torch, pkg):
+    """Every kernel of serve_7b's path at the shapes it launches, each
+    against its plain version and bit-equal on repeat, from a generator of
+    its own (seed 17): K1 over one admission group of bench_decode (B8 H32
+    L=S=128 d128 under the engine's mask); K2 over Llama-7B's vocabulary at
+    B48 and Llama-3-8B's at B96; K3 on the B48 int8 cache (NL32 KVH32 S512
+    D128 with scales) and K4 on a 64-step ring of it; K7 at decode M48 over
+    the projections (the engine fuses no projection: wq, wk, wv and wo are
+    each K4096 N4096), at the admission group's M1024 (K4096 N4096 and
+    N11008, K11008 N4096), and with int4 weights at M48 (the int4 route
+    takes the MLP to K7 too); K8 at B48 KVH32 G1 S512 d128 over int8 and
+    fp8 caches; K9 at M48 K4096 F11008 and Llama-3-8B's F14336."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    c7, b, c8, b8 = llama_configs(pkg)
+    d, f, nl, kvh = c7.d_model, c7.d_ff, c7.n_layers, c7.n_kv_heads
+    shapes = ((d, d), (d, f), (f, d))
+    lines = [
+        check_flash(torch, pkg, gen, B=8, H=c7.n_heads, L=128, S=128, D=c7.head_dim,
+                    masked=True),
+        check_qmm(torch, pkg, gen, M=b, K=d, N=c7.vocab_size),
+        check_qmm(torch, pkg, gen, M=b8, K=d, N=c8.vocab_size),
+        check_row_writes(torch, pkg, ("cache_append", nl, b, kvh, 512, 128, 911)),
+        check_row_writes(torch, pkg, ("tail_append", nl, b, kvh, 64, 128, 912)),
+        check_dequant_mm(torch, pkg, gen, M=b, K=d, N=d),
+        *(check_dequant_mm(torch, pkg, gen, M=1024, K=k, N=n) for k, n in shapes),
+        *(check_dequant_mm(torch, pkg, gen, M=b, K=k, N=n, mode="int4") for k, n in shapes),
+        check_decode_attn(torch, pkg, (b, kvh, 1, 512, 128, "int8", 813)),
+        check_decode_attn(torch, pkg, (b, kvh, 1, 512, 128, "fp8", 814)),
+        check_fused_mlp(torch, pkg, gen, M=b, K=d, F=f),
+        check_fused_mlp(torch, pkg, gen, M=b, K=d, F=c8.d_ff),
+    ]
+    for kd in lines:
+        kd["path"] = "serve_7b"
+    return lines
+
+
+def serve_7b_step(torch, pkg, cfg, params, done, kv, phase):
+    """The first 2 of ``done`` again through a 2-slot engine's step path
+    (K3 writes each step's rows into the cache); returns (the requests, the
+    kernels' launches on the run)."""
+    build = pkg["build"]
+    eng = pkg["engine"].InferenceEngine(cfg, params, max_batch=2, max_len=512,
+                                        kv_quantization=kv)
+    for r in done[:2]:
+        eng.submit(r.prompt, max_new_tokens=len(r.output))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    step_done = sorted(eng.run_until_done(), key=lambda r: r.request_id)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    emit({"phase": f"{phase}_step", "requests": 2,
+          "tokens": sum(len(r.output) for r in step_done),
+          "wall_s": time.perf_counter() - t0, "launches": launches})
+    require(len(step_done) == 2 and all(
+        len(a.output) == len(b.output) for a, b in zip(step_done, done)),
+        f"{phase}: the step path did not finish its requests with their budgets")
+    return step_done, launches
+
+
+def serve_7b(torch, pkg):
+    """Llama-7B at its published widths and full 32 layers, with int8
+    weights synthesized from seed 0 (``bench_7b.init_7b_int8_synth``, as
+    bench.py's 7B point builds them), on the card:
+
+    (a) ``bench_7b.bench_decode`` at B48 (prompts of 128 tokens, 32-step
+        windows, max_len 512, int8 KV) on the default route and on the
+        all-kernel route: tokens/s eagerly and replayed as a CUDA graph,
+        admission tokens/s, peak memory and the pre-flight estimate (one
+        run each, no claim); every slot must stay active and reach its
+        length;
+    (b) 24 requests (prompts 16-127, budgets 16-63) through 16 slots of an
+        engine built as bench.py builds it (piggybacked prefill, then
+        ``prewarm(loop_steps=64, attn_lens=[256])``) on the all-kernel
+        route, and 2 of them again through the step path, held to their
+        budgets and the teacher-forced gate;
+    (c) 8 requests through 8 slots with grouped int4 weights (synthesized,
+        seed 1) and an fp8 KV cache on the all-kernel route, chunks run
+        eagerly (no capture), under the same gate, and 2 through the step
+        path (K8's fp8 mode at G1 d128).
+
+    Every kernel of the serving path (K1-K4, K7-K9) must launch. Returns
+    the launches of the serving runs of (a)-(c): the counts are set to 0
+    just before each run and read just after it, so the teacher-forced
+    gates' reference forwards and the engines' prewarm are not counted."""
+    b7, build = pkg["bench_7b"], pkg["build"]
+    cfg, batch, _, _ = llama_configs(pkg)
+    pallas = dataclasses.replace(cfg, int8_mm_impl="pallas", decode_attn_impl="pallas")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = b7.init_7b_int8_synth(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "serve_7b_weights", "init": "init_7b_int8_synth",
+          "seconds": time.perf_counter() - t0,
+          "bytes": pkg["profiling"].pytree_bytes(params),
+          "config": "Llama-7B: 32 layers, d 4096, 32 heads over 32 KV heads, head dim 128, "
+                    "d_ff 11008, vocab 32000; int8 values uniform in [-127, 127] with "
+                    "per-output-channel scales 4.5 fan_in^-0.5 / 127 from seed 0"})
+    torch.cuda.synchronize()
+    build.reset_launches()
+    runs = []
+    for route, c in (("default", cfg), ("pallas", pallas)):
+        res = b7.bench_decode(c, params, kv_quantization="int8", batch=batch)
+        emit({"phase": "serve_7b_throughput", "route": route, "card": pkg["nvidia_smi"],
+              **res})
+        steps = 4 * res["decode_steps"]
+        require(res["active_slots"] == batch
+                and res["lengths"] == [res["prompt_len"] + steps],
+                f"serve_7b_throughput {route}: active slots {res['active_slots']}, "
+                f"lengths {res['lengths']}")
+        require(res["graph_tokens_per_s"] > 0 and res["eager_tokens_per_s"] > 0,
+                f"serve_7b_throughput {route}: no rate")
+    torch.cuda.synchronize()
+    runs.append(dict(build.LAUNCHES))
+    emit({"phase": "serve_7b_throughput", "launches": runs[-1]})
+
+    del params
+    torch.cuda.empty_cache()
+
+    # the gates read values: weights quantized from N(0, 1/fan_in), as every
+    # other serving phase's (the synthesized ones spread 2.6 times wider)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = b7.init_7b_int8(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "serve_7b_weights", "init": "init_7b_int8",
+          "seconds": time.perf_counter() - t0,
+          "peak_bytes": torch.cuda.max_memory_allocated()})
+    done, launches = serve_fused(torch, pkg, pallas, params, "serve_7b_fused", slots=16,
+                                 requests=24, kv="int8", seed=7)
+    step_done, step_launches = serve_7b_step(torch, pkg, pallas, params, done, "int8",
+                                             "serve_7b")
+    runs += [launches, step_launches]
+    teacher_forced_gate(torch, pkg, pallas, params, done + step_done, "serve_7b_agreement",
+                        {"peak_bytes": torch.cuda.max_memory_allocated()})
+    del params
+    torch.cuda.empty_cache()
+
+    params4 = b7.init_7b_int8(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda",
+                              bits=4)
+    eng = eager_engine(pkg["engine"])(pallas, params4, max_batch=8, max_len=512,
+                                      kv_quantization="fp8")
+    budgets = {}
+    for prompt, budget in serve_requests(np.random.RandomState(8), cfg, 8):
+        budgets[eng.submit(prompt, max_new_tokens=budget)] = budget
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    done4 = sorted(eng.run_until_done(loop_steps=64), key=lambda r: r.request_id)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runs.append(dict(build.LAUNCHES))
+    require(len(done4) == 8, f"serve_7b_int4_fp8: finished {len(done4)} of 8 requests")
+    check_served(done4, budgets, cfg, "serve_7b_int4_fp8")
+    n_tok = sum(len(r.output) for r in done4)
+    emit({"phase": "serve_7b_int4_fp8", "requests": 8, "kv": "fp8", "tokens": n_tok,
+          "wall_s": wall, "tokens_per_s": n_tok / wall, "launches": runs[-1],
+          "counters": eng.counters_report()})
+    del eng
+    step4, step_launches = serve_7b_step(torch, pkg, pallas, params4, done4, "fp8",
+                                         "serve_7b_int4_fp8")
+    runs.append(step_launches)
+    teacher_forced_gate(torch, pkg, pallas, params4, done4 + step4,
+                        "serve_7b_int4_fp8_agreement")
+    launches = {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}
+    del params4
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_7b", "launches": launches})
+    for name in SEVEN_B_KERNELS:
+        require(launches[name] > 0, f"serve_7b never launched {name}")
+    return launches
+
+
+def load_port():
+    """The port's modules that the phases use, by short name, imported from
+    the checkout beside this script; None if the port is not there."""
     sys.path.insert(0, str(ROOT))
     try:
         from flash_attention_softmax_n_tpu_torch import analysis as analysis_mod
@@ -3178,28 +3325,44 @@ def main() -> int:
         from flash_attention_softmax_n_tpu_torch.parallel import train as train_mod
         from flash_attention_softmax_n_tpu_torch.quant import gates, kv_cache, qtensor, weights
         from flash_attention_softmax_n_tpu_torch.utils import (
+            bench_7b,
             bench_cache_update,
             bench_decode_attn,
             checkpoint as checkpoint_mod,
             profile_prefill_phases,
             profiling,
+            standin,
         )
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
+        return None
+    return {"build": _build, "flash_attention": flash_attention,
+            "ops_flash_attention": ops_flash_attention, "quant_matmul": quant_matmul,
+            "cache_update": cache_update, "decode_attention": decode_attention,
+            "fused_mlp": fused_mlp, "decoder": decoder, "engine": engine,
+            "weights": weights, "qtensor": qtensor, "kv_cache": kv_cache, "train": train_mod,
+            "prefill_phases": prefill_phases_mod,
+            "profile_prefill_phases": profile_prefill_phases,
+            "bench_decode_attn": bench_decode_attn, "bench_cache_update": bench_cache_update,
+            "bench_7b": bench_7b, "profiling": profiling, "standin": standin,
+            "analysis": analysis_mod, "surgery": surgery_mod, "gates": gates, "bert": bert,
+            "xlnet": xlnet, "ring_attention": ring_attention, "mesh": mesh_mod,
+            "checkpoint": checkpoint_mod}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    pkg = {"build": _build, "flash_attention": flash_attention,
-           "ops_flash_attention": ops_flash_attention, "quant_matmul": quant_matmul,
-           "cache_update": cache_update, "decode_attention": decode_attention,
-           "fused_mlp": fused_mlp, "decoder": decoder, "engine": engine,
-           "weights": weights, "qtensor": qtensor, "kv_cache": kv_cache, "train": train_mod,
-           "prefill_phases": prefill_phases_mod,
-           "profile_prefill_phases": profile_prefill_phases,
-           "bench_decode_attn": bench_decode_attn, "bench_cache_update": bench_cache_update,
-           "analysis": analysis_mod, "surgery": surgery_mod, "gates": gates, "bert": bert,
-           "xlnet": xlnet, "ring_attention": ring_attention, "mesh": mesh_mod,
-           "checkpoint": checkpoint_mod}
+    pkg = load_port()
+    if pkg is None:
+        return 1
+    _build, profiling = pkg["build"], pkg["profiling"]
+    bench_cache_update, prefill_phases_mod = pkg["bench_cache_update"], pkg["prefill_phases"]
     global CHIP, K8_LINES
-    K8_LINES = bench_decode_attn.LINES
+    K8_LINES = pkg["bench_decode_attn"].LINES
     CHIP = profiling.H100
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3314,6 +3477,8 @@ def main() -> int:
     # serve_mesh's kernels at the per-rank shapes of {"data": 2, "model": 4}
     mesh_lines = mesh_kernel_lines(torch, pkg)
     kernels += mesh_lines
+    # serve_7b's kernels at Llama-7B's shapes (and Llama-3-8B's where they differ)
+    kernels += serve_7b_kernel_lines(torch, pkg)
     for kd in kernels + [fp8_b64] + f32_lines:
         emit({"phase": "kernel", **{k: kd[k] for k in ("name", "max_abs_err", "tolerance", "ms",
                                                        "device_ms", "tflops", "plain_ms",
@@ -3322,7 +3487,8 @@ def main() -> int:
                                                        "w_gbps", "producer", "plan",
                                                        "smem_bytes",
                                                        "host_ms", "gbps", "vector_bytes",
-                                                       "torch_calls_device_ms")
+                                                       "torch_calls_device_ms",
+                                                       "repeat_bit_equal")
                                        if k in kd}})
     kernels += train_kernels(torch, pkg, gen)
 
@@ -3336,6 +3502,7 @@ def main() -> int:
     launches["ring"], ring_lines = ring(torch, pkg)
     kernels += ring_lines
     launches["train_mesh"], launches["serve_mesh"] = train_mesh(torch, pkg)
+    launches["serve_7b"] = serve_7b(torch, pkg)
     for kd in kernels:
         counter = kd.pop("counter")
         kd["launches"] = launches[kd.pop("path")][counter]
@@ -3343,6 +3510,7 @@ def main() -> int:
         kd["launches_surgery"] = launches["surgery"][counter]
         kd["launches_train_mesh"] = launches["train_mesh"].get(counter, 0)
         kd["launches_serve_mesh"] = launches["serve_mesh"][counter]
+        kd["launches_serve_7b"] = launches["serve_7b"][counter]
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,7 +41,7 @@ import functools
 import itertools
 import time
 from collections import deque
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -705,6 +705,47 @@ class _LoopGraph:
     launches: Dict[str, int]
 
 
+def capture_loop(run: Callable[[], Tuple[torch.Tensor, ...]],
+                 pool=None) -> _LoopGraph:
+    """Capture ``run()`` (a greedy loop over tensors that stay in place) as
+    a CUDA graph in memory pool ``pool``. ``run`` must have run eagerly
+    before (first-use work cannot be captured); capture executes nothing,
+    and the launch counts its wrappers made are taken back and kept for the
+    replays."""
+    before = dict(_build.LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        outputs = run()
+    launches = {k: n - before.get(k, 0) for k, n in _build.LAUNCHES.items()}
+    _build.LAUNCHES.update(before)
+    return _LoopGraph(graph, outputs, launches)
+
+
+def warm_on_side_stream(runs: List[Callable[[], object]],
+                        device: torch.device) -> None:
+    """Run each of ``runs`` once eagerly on a side stream that the current
+    stream then waits for, so that the kernels' first-use work (the
+    library's build and load, kernel attributes, the tensor-map entry point,
+    cuBLAS's handle and workspace) happens before ``capture_loop``."""
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        for run in runs:
+            run()
+    current.wait_stream(side)
+
+
+def replay_loop(captured: _LoopGraph) -> Tuple[torch.Tensor, ...]:
+    """Replay a captured loop, add the launches its capture recorded to
+    ``_build.LAUNCHES`` and return its outputs (overwritten by each
+    replay)."""
+    captured.graph.replay()
+    for k, n in captured.launches.items():
+        _build.LAUNCHES[k] += n
+    return captured.outputs
+
+
 class InferenceEngine:
     """Slot-based continuous-batching engine.
 
@@ -900,13 +941,8 @@ class InferenceEngine:
         if self.device.type != "cuda" or not cold:
             return len(variants)
         saved = [t.clone() for t in self._state_tensors()]
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            for key in cold:
-                self._loop(key)
-        current.wait_stream(side)
+        warm_on_side_stream([functools.partial(self._loop, key) for key in cold],
+                            self.device)
         for t, s in zip(self._state_tensors(), saved):
             t.copy_(s)
         del saved
@@ -1255,10 +1291,8 @@ class InferenceEngine:
             num_steps=chunk, mesh=self.mesh, attn_len=attn_len, **p_kw)
 
     def _capture(self, key: Tuple[int, int, bool]) -> None:
-        """Capture one greedy loop variant as a CUDA graph. The variant must
-        have run eagerly before (first-use work cannot be captured); capture
-        executes nothing, and the launch counts its wrappers made are taken
-        back and kept for the replays.
+        """Capture one greedy loop variant as a CUDA graph (``capture_loop``;
+        the variant must have run eagerly before).
 
         All of an engine's graphs share one memory pool: a replay may
         overwrite another graph's outputs, but only one chunk is in flight
@@ -1266,13 +1300,8 @@ class InferenceEngine:
         next dispatch, so no live output is overwritten."""
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
-        before = dict(_build.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._graph_pool):
-            outputs = self._loop(key)
-        launches = {k: n - before[k] for k, n in _build.LAUNCHES.items()}
-        _build.LAUNCHES.update(before)
-        self._graphs[key] = _LoopGraph(graph, outputs, launches)
+        self._graphs[key] = capture_loop(lambda: self._loop(key),
+                                         self._graph_pool)
 
     def _greedy_loop(self, key: Tuple[int, int, bool]
                      ) -> Tuple[torch.Tensor, ...]:
@@ -1284,10 +1313,7 @@ class InferenceEngine:
             if self.device.type == "cuda":
                 self._capture(key)
             return out
-        captured.graph.replay()
-        for k, n in captured.launches.items():
-            _build.LAUNCHES[k] += n
-        return captured.outputs
+        return replay_loop(captured)
 
     def _dispatch_chunk(self, loop_steps: int, piggy: Optional[Dict] = None):
         """Enqueue one fused decode chunk; returns the bookkeeping handle

@@ -39,7 +39,14 @@ per visiting block, K5/K6 against the global lse, GQA K/V unrepeated)
 against single-device K1 and K5/K6, bf16 and f32, and
 ``flash_attention_n(mesh=)``'s dropout on each (batch, head) slab of a
 {"data": 2, "model": 4} mesh bit-equal to the unmeshed kernel's (a stand-in
-mesh gives each slab its coordinates; no process group is needed).
+mesh gives each slab its coordinates; no process group is needed). The 7B
+geometry: Llama-7B's serving shapes (head dim 128, 32 heads over 32 KV
+heads: G = 1) and Llama-3-8B's where its kernels differ (G = 4, d_ff 14336,
+vocab 128256): K1 over an admission group under the engine's mask, K8 as
+planned over bf16, int8 and fp8 caches, K2 at K4096, K7 with int8 and int4
+weights at the projections' and MLP's shapes, K9 at d_ff 11008 and 14336,
+K3 and K4 at KVH32 D128, each bit-equal on repeat; ``bench_7b.bench_decode``
+replays its windows through the engine's capture helpers.
 Tolerances: forward f32 within 2e-5 (summation order), bf16 within 2e-2 (p
 rounded to bf16 before PV, as in the plain version), lse within 1e-4;
 gradients within 1e-4 (f32) or 2e-2 (bf16: ds rounds to bf16 on either side
@@ -1750,3 +1757,160 @@ def test_fused_mlp_at_a_ranks_d_ff(gen):
     torch.testing.assert_close(out.float(), ref.float(), rtol=0,
                                atol=2e-2 * float(ref.float().abs().max()))
     _assert_norm_close(out, ref, 1e-2)
+
+
+# ----------------------------------------------------------------------------
+# Llama-7B's serving shapes (head dim 128, 32 heads over 32 KV heads: G = 1;
+# d 4096, d_ff 11008, vocab 32000) and Llama-3-8B's where its kernels differ
+# (8 KV heads: G = 4; d_ff 14336; vocab 128256): the serve_7b path
+# ----------------------------------------------------------------------------
+
+
+def test_flash_fwd_at_7b_admission(gen):
+    # K1 over one admission group: B8 H32 L=S=128 d128 bf16 under the
+    # engine's mask (key j visible iff j < true_len and j <= i) as a
+    # (B, 1, L, S) bias, the causal flag off
+    from flash_attention_softmax_n_tpu_torch.ops import flash_attention as ofa
+    B, H, L, d = 8, 32, 128, 128
+    q, k, v = (torch.randn((B, H, L, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    true_lens = torch.randint(16, L + 1, (B,), generator=gen, device="cuda")
+    kpos = torch.arange(L, device="cuda")
+    visible = ((kpos[None, None, :] < true_lens[:, None, None])
+               & (kpos[None, :] <= kpos[:, None])[None])
+    bias = ofa._mask_to_bias(visible[:, None])
+    kw = dict(n=1.0, scale=d ** -0.5, is_causal=False)
+    got = fa.flash_fwd(q, k, v, bias, **kw)
+    _check_bf16_fwd(got, fa.flash_fwd_reference(q, k, v, bias, **kw))
+    again = fa.flash_fwd(q, k, v, bias, **kw)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("b_kvh_g", [(48, 32, 1), (96, 8, 4)], ids=["7b-g1", "8b-g4"])
+def test_decode_attn_at_7b_heads(gen, cache, b_kvh_g):
+    # K8 as planned (split length and products) at S512 d128, bf16 q;
+    # slot 0 empty, slot 1 full, the rest drawn from 0..S
+    B, KVH, G = b_kvh_g
+    S, hd = 512, 128
+    full_k, full_v = (torch.randn((B, KVH, S, hd), generator=gen, device="cuda")
+                      for _ in range(2))
+    ks = vs = None
+    if cache == "bf16":
+        k, v = full_k.to(torch.bfloat16), full_v.to(torch.bfloat16)
+    else:
+        from flash_attention_softmax_n_tpu_torch.quant.kv_cache import quantize_kv
+        bits = -8 if cache == "fp8" else 8
+        (k, ks), (v, vs) = quantize_kv(full_k, bits), quantize_kv(full_v, bits)
+    q = (torch.randn((B, KVH, G, hd), generator=gen, device="cuda") * hd ** -0.5).to(
+        torch.bfloat16)
+    lengths = torch.randint(0, S + 1, (B,), generator=gen, device="cuda").to(torch.int32)
+    lengths[0], lengths[1] = 0, S
+    acc, m, l = da._decode_attn_cuda(q, None, k, v, lengths, ks, vs)
+    again = da._decode_attn_cuda(q, None, k, v, lengths, ks, vs)
+    assert all(torch.equal(a, b) for a, b in zip((acc, m, l), again))
+    acc_r, m_r, l_r = da.decode_attn_stats_reference(q, None, k, v, lengths, ks, vs)
+    assert torch.equal(acc[0], torch.zeros_like(acc[0])) and bool((l[0] == 0).all())
+    live = lengths > 0
+    torch.testing.assert_close(m[live], m_r[live], atol=1e-3, rtol=0)
+    torch.testing.assert_close(l[live], l_r[live], atol=0, rtol=1e-3)
+    torch.testing.assert_close(acc[live] / l[live][..., None],
+                               acc_r[live] / l_r[live][..., None], atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("mn", [(48, 32000), (96, 128256)], ids=["7b", "8b"])
+def test_qmm_argmax_at_7b_vocab(gen, mn):
+    # K2 over the lm_head at K4096: 64 stages of 64 rows; at N128256 501
+    # column tiles of 256
+    m, n = mn
+    k = 4096
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda").to(torch.int8)
+    s = (torch.rand((n,), generator=gen, device="cuda") + 0.5) / (127.0 * k ** 0.5)
+    idx, val = qm.quantized_matmul_argmax(x, w, s, return_max=True)
+    again = qm.quantized_matmul_argmax(x, w, s, return_max=True)
+    assert torch.equal(idx, again[0]) and torch.equal(val, again[1])
+    idx_ref, val_ref = qm.quantized_matmul_argmax_reference(x, w, s)
+    top2 = torch.topk((x.float() @ w.float()) * s, 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 1e-3
+    assert torch.equal(idx[decided], idx_ref[decided])
+    torch.testing.assert_close(val, val_ref, atol=0, rtol=1e-3)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("mkn", [(48, 4096, 4096), (48, 4096, 11008), (48, 11008, 4096),
+                                 (1024, 4096, 11008)], ids=lambda c: "-".join(map(str, c)))
+def test_qmm_at_7b_shapes(gen, bits, mkn):
+    # K7: the projections (the engine fuses none: wq, wk, wv and wo are each
+    # K4096 N4096), the MLP's matmuls (int4 takes them to K7 at decode; int8
+    # at admission), grouped int4 needing K % 256 == 0 (11008 = 43 * 256)
+    m, k, n = mkn
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    wv, ws = _qweight(gen, k, n, bits)
+    out = qm.quantized_matmul(x, wv, ws, bits=bits)
+    assert torch.equal(out, qm.quantized_matmul(x, wv, ws, bits=bits))
+    ref = qm.quantized_matmul_reference(x, None, wv, ws, bits=bits, out_dtype=torch.bfloat16)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7,
+                               atol=1e-5 * float(ref.float().abs().max()))
+
+
+@pytest.mark.parametrize("f", [11008, 14336])
+def test_fused_mlp_at_7b_d_ff(gen, f):
+    # K9 at M48 K4096: F11008 = 43 * 256 and F14336 = 56 * 256 gate/up
+    # columns, the down product's splits over F
+    args = _mlp_inputs(gen, torch.bfloat16, 48, 4096, f)
+    plan = fm.fused_mlp_plan(48, 4096, f, torch.bfloat16)
+    assert plan.kernel == "wgmma"
+    before = _build.LAUNCHES["fused_mlp"]
+    out = fm.fused_mlp_matmul(*args)
+    assert _build.LAUNCHES["fused_mlp"] == before + 1
+    assert torch.equal(out, fm.fused_mlp_matmul(*args))
+    ref = fm.fused_mlp_reference(*args)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=2e-2 * float(ref.float().abs().max()))
+    _assert_norm_close(out, ref, 1e-2)
+
+
+def test_cache_rows_at_7b_heads(gen):
+    # K3 at B48 KVH32 S512 D128 int8 with its scales (the engine's
+    # four-tensor call; 4 of the 32 layers), K4 at B48 KVH32 W64 D128 bf16
+    caches, news = [], []
+    for _ in range(2):
+        caches += [_kv_rows(gen, (4, 48, 32, 512, 128), torch.int8),
+                   _kv_rows(gen, (4, 48, 32, 512, 1), torch.float32)]
+        news += [_kv_rows(gen, (4, 48, 32, 128), torch.int8),
+                 _kv_rows(gen, (4, 48, 32, 1), torch.float32)]
+    pos = torch.randint(0, 512, (48,), generator=gen, device="cuda").to(torch.int32)
+    got, want = _append_both(caches, news, pos)
+    assert all(_bytes_equal(a, b) for a, b in zip(got, want))
+    kt, vt = (torch.randn((4, 48, 32, 64, 128), generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    ref = (kt.clone(), vt.clone())
+    for i in (0, 37, 63):
+        kn, vn = (torch.randn((4, 48, 32, 128), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(2))
+        cu.tail_append(kt, vt, kn, vn, i)
+        cu.tail_append_reference(*ref, kn, vn, i)
+    assert torch.equal(kt, ref[0]) and torch.equal(vt, ref[1])
+
+
+@pytest.mark.parametrize("route", ["xla", "pallas"])
+def test_bench_decode_replays_the_engines_graphs(gen, route):
+    # utils/bench_7b.bench_decode at a small head-dim-128 MHA geometry: its
+    # graph windows run through the engine's warm_on_side_stream,
+    # capture_loop and replay_loop, so K2 (one launch a greedy step) counts
+    # 7 windows of 8 steps: two warm-ups, two eager, one on the side stream
+    # before capture (both windows are 128 rows) and two replayed
+    from flash_attention_softmax_n_tpu_torch.models.decoder import DecoderConfig
+    from flash_attention_softmax_n_tpu_torch.utils import bench_7b
+
+    cfg = DecoderConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=2, n_kv_heads=2,
+                        d_ff=512, max_seq_len=256, softmax_n=1.0, dtype=torch.bfloat16,
+                        int8_mm_impl=route, decode_attn_impl=route)
+    params = bench_7b.init_7b_int8_synth(cfg, gen, "cuda")
+    _build.reset_launches()
+    res = bench_7b.bench_decode(cfg, params, kv_quantization="int8", batch=8,
+                                prompt_len=16, decode_steps=8, max_len=128)
+    assert res["graph_tokens_per_s"] > 0 and res["eager_tokens_per_s"] > 0
+    assert res["active_slots"] == 8 and res["lengths"] == [16 + 4 * 8]
+    assert _build.LAUNCHES["qmm_argmax"] == 7 * 8
