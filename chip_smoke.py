@@ -52,6 +52,15 @@ Phases, in order, each printing one JSON line:
    forward's o is held, K1 and its plain version each, against a float64
    evaluation of the same function (``fwd_float64``, ``o_excess``);
    gradients are held element by element and as a whole (``BWD_NORM_TOL``);
+   the same lines at the quant_study path's shapes: K1, K5 and K6 at B32
+   H16 L=S=512 d64 bf16 causal, n 1, and K7 int4 and W8A8 over M16384 at
+   K1024 N1024, N256, N2816 and K2816 N1024;
+4a. head_dims: K1, K5 and K6 at head dims 16, 80 and 96 (zero-padded by
+   the wrappers to 32, 128 and 128) and 256 (the scalar kernels, bf16
+   too), against their plain versions at B2 H4 L200 S264 under a (1, 4)
+   bias, causal, f32 and bf16, n 0 and 1, as in 4; then K1 at each head
+   dim at B32 H16 L=S=512 causal bf16, timed beside its bound, plain
+   version and SDPA, with the bytes the padding adds;
 5. serving: the TinyLlama-1.1B shape (random weights from a seed, int8
    weights, int8 KV) serves 96 requests through 64 slots of the fused
    decode loop, on an engine built as bench.py builds it (the default
@@ -64,7 +73,7 @@ Phases, in order, each printing one JSON line:
    ``greedy_generate`` and a teacher-forced ``decoder_forward`` (the
    queued requests, piggybacked ones among them, included); then
 6. profile: one 16-step fused chunk of 64 requests, run eagerly (capture
-   off) and replayed as a graph, each three times unprofiled and each time
+   off) and replayed as a graph, each twice unprofiled and each time
    at once under ``torch.profiler``, gives the device's busy time, its idle
    share against the unprofiled wall just before (``idle_share_paired``,
    median and spread) and the kernels that fill it (the replay must show
@@ -79,8 +88,9 @@ Phases, in order, each printing one JSON line:
    routes at 2 of the 22 layers (K7's int4 and W8A8 modes), held to the
    teacher-forced gate, and ``serve_fp8`` puts 12 requests through the
    fused loop and 2 through the step path with fp8 e4m3 weights and an fp8
-   KV cache (K8's fp8 mode, K1, K3, K4), each prewarmed and piggybacked as
-   in 5, and profiles its chunk as in 6; then
+   KV cache (K8's fp8 mode, K1, K3, K4), also at 2 layers, each prewarmed
+   and piggybacked as in 5, and profiles its chunk as in 6 (fp8 at all 22
+   layers runs in ``graph_parity``); then
 5a. serve_prefix: bench.py's prefix pair on the default route: 64
    requests, every even one behind a 256-token prefix (272-383 tokens),
    through 64 slots of an engine prewarmed with ``attn_lens=[256, 512]``,
@@ -109,7 +119,7 @@ Phases, in order, each printing one JSON line:
 8. train: the full TinyLlama-1.1B shape (22 layers, bf16, n = 1, attention
    dropout 0.1, remat) takes 4 AdamW steps on one B2 x L2048 batch through
    ``make_train_step``, counting the kernels' launches; the losses must be
-   finite and fall, the gradients finite and not all zero; then three
+   finite and fall, the gradients finite and not all zero; then two
    pairs of an unprofiled step and a step under ``torch.profiler`` give
    the step's paired idle share;
 9. analysis: the TinyLlama-1.1B shape (22 layers, bf16, n 1, the serving
@@ -122,6 +132,21 @@ Phases, in order, each printing one JSON line:
    5e-2 of the K1 path's, null mass in [0, 1] and above 0), and
    ``compute_weight_statistics`` and ``gate_report`` of activations and
    weights (dense and int8 trees);
+9a. quant_study: the quantization study (``utils/train_quant_study``) at
+   its full width and depth, 181M parameters (d1024, 16 layers, 16/4
+   heads of head dim 64, d_ff 2816), bf16 over f32 masters, remat, n 1: 20
+   steps of the study's optimizer (clip, warmup-cosine AdamW) on B32 x
+   L512 windows of this machine's 64 MiB corpus (its bytes, files and
+   sha256 printed), losses finite and falling, gradients finite, the first
+   loss within 5e-2 of the "xla" route's, K1 32, K5 16, K6 16 launches a
+   step, the median step's ms and tokens/s; then ``evaluate`` on 2
+   held-out batches (dense, int8-W and int4-W perplexity, cached decode
+   over 128 tokens of one batch, dense against int8 W + int8 KV: the study
+   decodes 2 x 512; 16 taps' kurtosis into the gates; weight statistics)
+   and W8A8 perplexity, each finite and above 1, |D int8-W| / dense at
+   most 1e-2, K7 452 times (int4 and W8A8 forwards); then
+   ``utils/eval_quant_ppl``'s model, 50 steps and its scores (K7's f32 mode
+   12 times);
 10. surgery: BERT-base and XLNet-base (the published configs' widths) from
    stand-in HF models (seeded HF-named state dicts, the configs'
    attributes) through ``from_pretrained_hf(softmax_n_param=1.0)`` on the
@@ -187,8 +212,9 @@ Phases, in order, each printing one JSON line:
    phase 3 is also run twice and required bit-equal.
 
 Then it prints the kernels' JSON line (times, launches on the serving,
-training, analysis, surgery, ring, serve_mesh or serve_7b run, each kernel's launches on
-the analysis, surgery, train_mesh, serve_mesh and serve_7b runs, bounds), the card's name and power limit from
+training, analysis, quant_study, head_dims, surgery, ring, serve_mesh or
+serve_7b run, each kernel's launches on the analysis, quant_study, surgery,
+train_mesh, serve_mesh and serve_7b runs, bounds), the card's name and power limit from
 nvidia-smi, and last ``{"ok": true, "device": {...}}``. Any failed check
 exits non-zero. The port is imported from the checkout; nothing of JAX is
 imported.
@@ -1016,13 +1042,14 @@ def check_dropout_masks(torch, fa):
     require(all(equal.values()), f"a kernel's dropout mask differs from the plain hash: {equal}")
 
 
-def train_kernel_lines(torch, pkg, gen):
-    """The three kernels at the training shape (B2 H32 L=S=2048 d64 bf16
-    causal, n = 1, dropout 0.1, as every layer of the train phase runs
-    them): errors, and times against their bounds, plain versions and
+def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, path="train"):
+    """The three kernels at a training shape (by default the train phase's,
+    B2 H32 L=S=2048 d64 bf16 causal, n = 1, dropout 0.1, as its every layer
+    runs them; the quant_study phase's is B32 H16 L512 without dropout):
+    errors, and times against their bounds, plain versions and
     scaled_dot_product_attention with one zero key/value row prepended."""
     fa, ops = pkg["flash_attention"], pkg["build"].ops()
-    B, H, L, D, n, rate = 2, 32, 2048, 64, 1.0, 0.1
+    n = 1.0
     (q, k, v, do, ex, o, lse), errs, name = check_attention(
         torch, fa, gen, torch.bfloat16, n=n, causal=True, shape=(B, H, L, L, D), rate=rate)
     emit({"phase": "kernel_check", "name": name, "errors": errs, "repeat_bit_equal": True})
@@ -1104,14 +1131,14 @@ def train_kernel_lines(torch, pkg, gen):
                                             "float64 evaluation, K1 and plain each; grads: "
                                             "2e-2 of max(1, |plain|) and "
                                             f"{BWD_NORM_TOL['bf16']} of max(1, ||plain||); repeat "
-                                            "calls bit-equal", "path": "train"}
+                                            "calls bit-equal", "path": path}
     b1, by1 = bound_ms(4 * bhld * 2 + bhl * 4, 4.0 * D * pairs)
     k1_dev = device_ms(torch, k1, FLASH_FWD_KERNELS)
     b5, by5 = bound_ms(5 * bhld * 2 + 2 * bhl * 4, 6.0 * D * pairs)
     b6, by6 = bound_ms(6 * bhld * 2 + 2 * bhl * 4, 8.0 * D * pairs)
-    shape = f"B{B} H{H} L{L} S{L} d{D} bf16 causal n1 dropout {rate}"
+    shape = f"B{B} H{H} L{L} S{L} d{D} bf16 causal n1" + (f" dropout {rate}" if rate else "")
     lines = [
-        {**common, "name": f"flash_fwd +dropout {shape}", "counter": "flash_fwd",
+        {**common, "name": f"flash_fwd {shape}", "counter": "flash_fwd",
          "source": f"{CSRC}/flash_fwd.cu",
          "replaces": f"{FLASH_PY}:345 _fwd_single_kernel, :279 _fwd_kernel, "
                      ":501 _fwd_pipeline_kernel (ALiBi and dropout)",
@@ -1171,6 +1198,58 @@ def train_kernels(torch, pkg, gen):
 
 
 # ----------------------------------------------------------------------------
+# phase 4a: head dims the kernels are not built for
+# ----------------------------------------------------------------------------
+
+# the head dims that head_dims holds: the JAX fine-tune example's 16, two
+# public decoders' 80 and 96, and 256, where the kernels' scalar versions
+# take bf16 too
+HEAD_DIMS = (16, 80, 96, 256)
+
+
+def head_dims(torch, pkg, gen):
+    """K1, K5 and K6 at head dims they are not built for, through the
+    wrappers that zero-pad D to the next of 32, 64, 128 and 256, and at
+    256: against their plain versions at B2 H4 L200 S264 under a (1, 4) bias
+    and causal, f32 and bf16, n 0 and 1, counting the launches; then K1 at
+    each D at the study's attention shape (B32 H16 L=S=512 causal bf16),
+    timed, with the bytes the padding adds. Returns (launches, kernel
+    lines)."""
+    fa, build = pkg["flash_attention"], pkg["build"]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    for d in HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for n in (0.0, 1.0):
+                _, errs, name = check_attention(torch, fa, gen, dtype, n=n, causal=True,
+                                                shape=(2, 4, 200, 264, d), bias_shape=(1, 4))
+                emit({"phase": "head_dims", "name": name, "padded_to": fa.kernel_head_dim(d),
+                      "errors": errs, "repeat_bit_equal": True})
+    launches = dict(build.LAUNCHES)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        require(launches[name] == 2 * 2 * 2 * len(HEAD_DIMS),
+                f"head_dims launched {name} {launches[name]} times")
+    lines = []
+    B, H, L = 32, 16, 512
+    for d in HEAD_DIMS:
+        kd = check_flash(torch, pkg, gen, B=B, H=H, L=L, S=L, D=d, masked=False)
+        dp = fa.kernel_head_dim(d)
+        # K1 reads q, k, v and writes o at dp columns; the pads read q, k
+        # and v at d and write them at dp, and o's first d columns are
+        # copied out
+        kd["pad_bytes"] = {"kernel": B * H * 4 * L * (dp - d) * 2,
+                           "pad_copies": B * H * L * (3 * (d + dp) + 2 * d) * 2 if dp != d
+                           else 0}
+        kd["padded_to"] = dp
+        kd["path"] = "head_dims"
+        emit({"phase": "head_dims_kernel", **{k: kd[k] for k in (
+            "name", "padded_to", "pad_bytes", "max_abs_err", "ms", "device_ms", "tflops",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+        lines.append(kd)
+    return launches, lines
+
+
+# ----------------------------------------------------------------------------
 # phase 5: serving at the TinyLlama-1.1B shape
 # ----------------------------------------------------------------------------
 
@@ -1209,8 +1288,10 @@ PROFILED_KERNELS = (*FLASH_FWD_KERNELS, *QMM_ARGMAX_KERNELS,
 
 
 # pairs for the paired idle share: an unprofiled run's synchronised wall,
-# then at once an identical profiled run's device busy time
-IDLE_PAIRS = 3
+# then at once an identical profiled run's device busy time (two: each pair
+# of the three profiles costs about 10 s, and the smoke must stay well
+# inside its time limit as its phases grow)
+IDLE_PAIRS = 2
 # The profiler adds a little device time of its own (the traced launches
 # run slightly longer), so a run that leaves the card almost never idle can
 # read a paired share just below 0; below -0.05 the pair is not one run's.
@@ -1870,7 +1951,10 @@ def serve_prefix(torch, pkg, cfg, params):
     return launches
 
 
-INT4_W8A8_LAYERS = 2
+# serve_int4, serve_w8a8 and serve_fp8 run 2 of the 22 layers: each
+# engine's prewarm replays the whole model 480 steps, and fp8's at 22
+# layers (prewarm and profile, 130 s) pushed the smoke near its time limit
+SHALLOW_LAYERS = 2
 
 
 def serve(torch, pkg):
@@ -1898,15 +1982,15 @@ def serve(torch, pkg):
     pallas = dataclasses.replace(cfg, int8_mm_impl="pallas", decode_attn_impl="pallas")
     launches = {"serve": serve_route(torch, pkg, cfg, params),
                 "serve_pallas": serve_route(torch, pkg, pallas, params, "serve_pallas"),
-                # K7's int4 and W8A8 modes at 2 of the 22 layers: each
-                # engine's prewarm replays the whole model 480 steps
-                "serve_int4": serve_mode(torch, pkg, *shallow(pallas, params4, INT4_W8A8_LAYERS),
+                # K7's int4 and W8A8 modes
+                "serve_int4": serve_mode(torch, pkg, *shallow(pallas, params4, SHALLOW_LAYERS),
                                          "int4"),
                 "serve_w8a8": serve_mode(torch, pkg,
                                          *shallow(dataclasses.replace(pallas, act_bits=8),
-                                                  params, INT4_W8A8_LAYERS), "w8a8"),
+                                                  params, SHALLOW_LAYERS), "w8a8"),
                 # fp8 weights dequantize inline, as in JAX: K2, K7 and K9 stay idle
-                "serve_fp8": serve_mode(torch, pkg, pallas, params_fp8, "fp8", kv="fp8",
+                "serve_fp8": serve_mode(torch, pkg, *shallow(pallas, params_fp8, SHALLOW_LAYERS),
+                                        "fp8", kv="fp8",
                                         step_requests=2,
                                         launched=("flash_fwd", "decode_attn", "tail_append",
                                                   "cache_append"),
@@ -2241,6 +2325,151 @@ def analysis(torch, pkg):
             f"analysis_weights: QTensor leaves are not named <path>/0 and <path>/1: "
             f"{sorted(w_int8)[:6]}")
     del dense, int8
+    torch.cuda.synchronize()
+    return dict(build.LAUNCHES)
+
+
+# ----------------------------------------------------------------------------
+# phase 9a: the quantization study at its full width
+# ----------------------------------------------------------------------------
+
+# the study's model (scripts/train_quant_study.py's defaults): 181M
+# parameters, head dim 64; its batches are B32 x L512
+STUDY = dict(d_model=1024, layers=16, heads=16, kv_heads=4, d_ff=2816, seq=512)
+STUDY_BATCH, STUDY_STEPS, STUDY_LR = 32, 20, 6e-4
+STUDY_EVAL_BATCHES, STUDY_DECODE_TOKENS = 2, 128
+QUANT_PPL_STEPS = 50
+
+
+def quant_study(torch, pkg):
+    """The quantization study's path at its full width and depth
+    (``utils/train_quant_study``): n = 1, bf16 compute over f32 masters,
+    remat; 20 steps of the study's optimizer (the trainer's schedule for
+    ``--steps 20``) on B32 x L512 windows of this machine's 64 MiB corpus,
+    the fused route's first loss held against the "xla" route's; then the
+    evaluation on 2 held-out batches (``evaluate``: dense, int8-W, int4-W
+    perplexity, cached decode over the first 128 tokens of one batch, dense
+    against int8 W + int8 KV, 16 taps' kurtosis and the gates, weight
+    statistics) and W8A8 perplexity; then ``eval_quant_ppl``'s model for 50
+    steps and its scores (int4 through K7's f32 mode). Returns the launches
+    of the whole phase."""
+    tqs, tppl, dec, build = (pkg["train_quant_study"], pkg["eval_quant_ppl"], pkg["decoder"],
+                             pkg["build"])
+    t_phase = time.perf_counter()
+    data, corpus = tqs.take_corpus(64)
+    split = int(len(data) * 0.98)
+    train_data, held = data[:split], data[split:]
+    emit({"phase": "quant_study_corpus", **corpus, "train_bytes": split,
+          "held_bytes": len(held), "seconds": time.perf_counter() - t_phase})
+    require(corpus["bytes"] == 64 * 1024 * 1024, f"quant_study: corpus {corpus}")
+
+    cfg = tqs.study_config(**STUDY, softmax_n=1.0)
+    cfg_init = dataclasses.replace(cfg, dtype=torch.float32)
+    warmup = min(500, max(1, STUDY_STEPS // 10))
+    params, opt = pkg["train"].init_train_state(
+        dec.init_decoder_params(cfg_init, 0, device="cuda"),
+        lambda leaves: tqs.OptaxAdamW(leaves, lr=STUDY_LR, warmup=warmup, steps=STUDY_STEPS,
+                                      end_value=0.1 * STUDY_LR))
+    n_params = sum(p.numel() for p in opt.param_groups[0]["params"])
+    rng = np.random.RandomState(0)
+    batches = [torch.from_numpy(tqs.sample_batch(rng, train_data, STUDY_BATCH, STUDY["seq"]))
+               .cuda() for _ in range(STUDY_STEPS)]
+    with torch.no_grad():
+        xla = dataclasses.replace(cfg, attn_implementation="xla")
+        loss_xla = float(pkg["train"].causal_lm_loss(tqs.cast_bf16(params), xla, batches[0]))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    since = Since(build)
+    losses, walls = [], []
+    for toks in batches:
+        t0 = time.perf_counter()
+        loss = tqs.train_step(params, opt, cfg, toks)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    train_launches = since()
+    grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in opt.param_groups[0]["params"])
+    step_ms = float(np.median(walls)) * 1e3
+    per_step = {k: train_launches[k] / STUDY_STEPS
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    emit({"phase": "quant_study_train", "card": pkg["nvidia_smi"],
+          "config": f"d{STUDY['d_model']} {STUDY['layers']} layers {STUDY['heads']}/"
+                    f"{STUDY['kv_heads']} heads d_ff {STUDY['d_ff']}, bf16 over f32 masters, "
+                    f"remat, n 1, B{STUDY_BATCH} L{STUDY['seq']}",
+          "params": n_params, "losses": losses, "loss_xla_first": loss_xla,
+          "step_ms": [w * 1e3 for w in walls], "step_ms_median": step_ms,
+          "tokens_per_s": STUDY_BATCH * STUDY["seq"] / (step_ms / 1e3),
+          "launches_per_step": per_step, "grads_finite": grads_finite,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    require(all(np.isfinite(losses)), f"quant_study: a loss is not finite: {losses}")
+    require(losses[-1] < losses[0], f"quant_study: the loss did not fall: {losses}")
+    require(grads_finite, "quant_study: a gradient is not finite")
+    require(abs(losses[0] - loss_xla) <= 5e-2 * abs(loss_xla),
+            f"quant_study: the fused route's first loss {losses[0]} is off the xla route's "
+            f"{loss_xla} by more than 5e-2")
+    # K1 in each layer's forward and again in its recompute; K5, K6 once
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    require(per_step == want, f"quant_study: launches per step {per_step}, not {want}")
+
+    t0 = time.perf_counter()
+    ev = tqs.held_out_windows(held, STUDY_EVAL_BATCHES, STUDY["seq"], STUDY_BATCH)
+    scores = tqs.evaluate(params, cfg, ev, [ev[0][:, :STUDY_DECODE_TOKENS]])
+    qp8 = pkg["weights"].quantize_decoder_weights(tqs.cast_bf16(tqs.detached(params)), bits=8)
+    ppl_w8a8 = pkg["analysis"].perplexity(qp8, dataclasses.replace(cfg, act_bits=8), ev)
+    eval_launches = since()
+    kurt = scores["kurtosis_summary"]
+    dense = scores["ppl_dense_bf16"]
+    emit({"phase": "quant_study_eval", "batches": [STUDY_EVAL_BATCHES, STUDY_BATCH,
+                                                    STUDY["seq"]],
+          "ppl_dense_bf16": dense, "ppl_int8_w": scores["ppl_int8_w"],
+          "ppl_int4_w": scores["ppl_int4_w"], "ppl_w8a8": ppl_w8a8,
+          "delta_int8_w": scores["delta_int8_w"], "delta_int4_w": scores["delta_int4_w"],
+          "delta_w8a8": ppl_w8a8 - dense,
+          "decode": f"1 batch x {STUDY_DECODE_TOKENS} tokens (the study: 2 x 512)",
+          "ppl_decode_dense": scores["ppl_decode_dense"],
+          "ppl_decode_int8w_int8kv": scores["ppl_decode_int8w_int8kv"],
+          "kurtosis": kurt, "gate_pass": gate_counts(scores["gate_report"]),
+          "weight_gate_pass": gate_counts(scores["weight_gate_report"]),
+          "weight_kurtosis_max": scores["weight_kurtosis_max"],
+          "launches": eval_launches, "seconds": time.perf_counter() - t0})
+    ppls = [dense, scores["ppl_int8_w"], scores["ppl_int4_w"], ppl_w8a8,
+            scores["ppl_decode_dense"], scores["ppl_decode_int8w_int8kv"]]
+    require(all(np.isfinite(p) and p > 1.0 for p in ppls), f"quant_study: perplexities {ppls}")
+    require(abs(scores["delta_int8_w"]) / dense <= 1e-2,
+            f"quant_study: |D int8-W| / dense {abs(scores['delta_int8_w']) / dense} > 1e-2")
+    require(len(scores["gate_report"]) == cfg.n_layers and np.isfinite(kurt["max"]),
+            f"quant_study: {len(scores['gate_report'])} taps, kurtosis {kurt}")
+    # int4 and W8A8 forwards: 7 matmuls a layer and the lm_head, each on K7
+    want_qmm = 2 * (7 * cfg.n_layers + 1) * STUDY_EVAL_BATCHES
+    require(eval_launches["qmm"] == want_qmm,
+            f"quant_study: K7 launched {eval_launches['qmm']} times, not {want_qmm}")
+    del params, opt, qp8, batches
+
+    # eval_quant_ppl's model: 50 steps, then its scores (f32; K7's f32 mode
+    # takes the int4 w_down, K = 512)
+    t0 = time.perf_counter()
+    pdata = tppl.load_corpus()
+    psplit = int(len(pdata) * 0.95)
+    pcfg = tppl.ppl_config()
+    pparams, _, plosses = tppl.train(dec.init_decoder_params(pcfg, 0, device="cuda"), pcfg,
+                                     pdata[:psplit], QUANT_PPL_STEPS, 0)
+    pev = tppl.eval_batches(pdata[psplit:], 4)
+    pscores = tppl.score(pparams, pcfg, pev, pev[:1])
+    ppl_launches = since()
+    emit({"phase": "quant_ppl", "steps": QUANT_PPL_STEPS, "corpus_bytes": len(pdata),
+          "loss_first": plosses[0], "loss_last": plosses[-1], **pscores,
+          "launches": ppl_launches, "seconds": time.perf_counter() - t0})
+    pp = [pscores[k] for k in ("ppl_dense_f32", "ppl_int8_w", "ppl_int4_w",
+                               "ppl_decode_dense", "ppl_decode_int8w_int8kv")]
+    require(all(np.isfinite(p) and p > 1.0 for p in pp), f"quant_ppl: perplexities {pp}")
+    require(plosses[-1] < plosses[0], f"quant_ppl: the loss did not fall: {plosses}")
+    require(abs(pscores["delta_int8_w"]) / pscores["ppl_dense_f32"] <= 1e-2,
+            f"quant_ppl: |D int8-W| / dense > 1e-2: {pscores}")
+    require(ppl_launches["qmm"] == 3 * 4,
+            f"quant_ppl: K7 launched {ppl_launches['qmm']} times, not 12 (3 layers x 4 "
+            "batches of the int4 forward)")
+    emit({"phase": "quant_study", "seconds": time.perf_counter() - t_phase})
     torch.cuda.synchronize()
     return dict(build.LAUNCHES)
 
@@ -3329,9 +3558,11 @@ def load_port():
             bench_cache_update,
             bench_decode_attn,
             checkpoint as checkpoint_mod,
+            eval_quant_ppl,
             profile_prefill_phases,
             profiling,
             standin,
+            train_quant_study,
         )
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
@@ -3347,7 +3578,8 @@ def load_port():
             "bench_7b": bench_7b, "profiling": profiling, "standin": standin,
             "analysis": analysis_mod, "surgery": surgery_mod, "gates": gates, "bert": bert,
             "xlnet": xlnet, "ring_attention": ring_attention, "mesh": mesh_mod,
-            "checkpoint": checkpoint_mod}
+            "checkpoint": checkpoint_mod, "train_quant_study": train_quant_study,
+            "eval_quant_ppl": eval_quant_ppl}
 
 
 def main() -> int:
@@ -3491,6 +3723,23 @@ def main() -> int:
                                                        "repeat_bit_equal")
                                        if k in kd}})
     kernels += train_kernels(torch, pkg, gen)
+    # the quant_study path's kernels at its shapes: K1, K5 and K6 at B32 H16
+    # L=S=512 d64 causal (GQA K/V repeated to 16 heads), K7 int4 and W8A8
+    # over B32 x L512 (M16384) at the study's K1024 N1024 (wq, wo), N256
+    # (wk, wv, lm_head), N2816 (w_gate, w_up) and K2816 N1024 (w_down)
+    gen_study = torch.Generator(device="cuda").manual_seed(18)
+    kernels += train_kernel_lines(torch, pkg, gen_study, B=32, H=16, L=512, D=64, rate=0.0,
+                                  path="quant_study")
+    for mode in ("int4", "w8a8"):
+        for K, N in ((1024, 1024), (1024, 256), (1024, 2816), (2816, 1024)):
+            kd = check_dequant_mm(torch, pkg, gen_study, M=16384, K=K, N=N, mode=mode)
+            kd["path"] = "quant_study"
+            emit({"phase": "kernel", **{k: kd[k] for k in (
+                "name", "max_abs_err", "tolerance", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_device_ms", "plan")}})
+            kernels.append(kd)
+    launches_head_dims, head_dim_lines = head_dims(torch, pkg, gen_study)
+    kernels += head_dim_lines
 
     # each main path's launches: counts set to 0 just before it, read after
     launches = serve(torch, pkg)
@@ -3498,6 +3747,8 @@ def main() -> int:
     train_agreement(torch, pkg)
     launches["train"] = train(torch, pkg)
     launches["analysis"] = analysis(torch, pkg)
+    launches["quant_study"] = quant_study(torch, pkg)
+    launches["head_dims"] = launches_head_dims
     launches["surgery"] = surgery(torch, pkg)
     launches["ring"], ring_lines = ring(torch, pkg)
     kernels += ring_lines
@@ -3507,6 +3758,7 @@ def main() -> int:
         counter = kd.pop("counter")
         kd["launches"] = launches[kd.pop("path")][counter]
         kd["launches_analysis"] = launches["analysis"][counter]
+        kd["launches_quant_study"] = launches["quant_study"][counter]
         kd["launches_surgery"] = launches["surgery"][counter]
         kd["launches_train_mesh"] = launches["train_mesh"].get(counter, 0)
         kd["launches_serve_mesh"] = launches["serve_mesh"][counter]

@@ -31,9 +31,9 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 import numpy as np
 import torch
 
-# a tiny Llama (HF LlamaConfig attributes); head dim 32, where the JAX
-# example's 16: the card's attention kernel K1 takes head dims 32, 64, 128
-TINY_LLAMA = dict(model_type="llama", vocab_size=256, hidden_size=128, intermediate_size=256,
+# the JAX example's tiny Llama (HF LlamaConfig attributes), head dim 16: on
+# the card K1, K5 and K6 run it zero-padded to head dim 32
+TINY_LLAMA = dict(model_type="llama", vocab_size=256, hidden_size=64, intermediate_size=128,
                   num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
                   rms_norm_eps=1e-6, rope_theta=10000.0)
 

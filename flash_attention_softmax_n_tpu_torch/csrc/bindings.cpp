@@ -70,7 +70,9 @@ void check_shape(const at::Tensor& t, at::IntArrayRef shape, at::ScalarType dtyp
                     " must be ", dtype, " ", shape, ", got ", t.scalar_type(), " ", t.sizes());
 }
 
-// the attention inputs that K1, K5 and K6 share (launchers.h FasnAttn)
+// the attention inputs that K1, K5 and K6 share (launchers.h FasnAttn):
+// head dims 32, 64, 128 and 256 (the wrappers zero-pad any other head dim
+// up to the next of these)
 FasnAttn attn_args(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
                    const std::optional<at::Tensor>& bias, const std::optional<at::Tensor>& slopes,
                    const std::optional<at::Tensor>& seed, double scale_q, bool causal,
@@ -79,8 +81,8 @@ FasnAttn attn_args(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v
   const int64_t B = q.size(0), H = q.size(1), L = q.size(2), D = q.size(3), S = k.size(2);
   FasnAttn a{};
   a.dtype = dtype_code(q, what);
-  TORCH_CHECK_VALUE(D == 32 || D == 64 || D == 128, what,
-                    " head dim must be one of (32, 64, 128), got ", D);
+  TORCH_CHECK_VALUE(D == 32 || D == 64 || D == 128 || D == 256, what,
+                    " head dim must be one of (32, 64, 128, 256), got ", D);
   for (const at::Tensor* t : {&q, &k, &v}) check_on(*t, q, what);
   check_shape(k, {B, H, S, D}, q.scalar_type(), what, "k");
   check_shape(v, {B, H, S, D}, q.scalar_type(), what, "v");

@@ -37,7 +37,8 @@
 // head, batch) loops over the query tiles of 64 rows; thread (ty, tx) owns
 // key rows ty + 16 i, query columns tx + 16 j of the transposed score tile,
 // and dk/dv columns tx + 16 c; the dropped p and ds go through shared
-// memory for the two transposed products.
+// memory for the two transposed products. At D 256 the tiles are 32 x 32
+// (scalar_tile, for shared memory) and the kernel takes bf16 too.
 //
 // lse is clamped at DEAD_LSE as in K5, so dead rows (n == 0, L > S) add
 // nothing; query rows past L and keys past S are masked in the tile.
@@ -54,8 +55,9 @@ namespace {
 
 template <int D>
 constexpr size_t dkv_smem_bytes() {
+  constexpr int TB = scalar_tile<D>();
   return sizeof(float) *
-         (size_t(2 * BK + 2 * BQ) * (D + 1) + size_t(2 * BK) * (BQ + 1) + size_t(2 * BQ));
+         (size_t(4 * TB) * (D + 1) + size_t(2 * TB) * (TB + 1) + size_t(2 * TB));
 }
 
 template <typename T, int D>
@@ -63,22 +65,23 @@ __global__ void __launch_bounds__(THREADS)
     flash_bwd_dkv_kernel(const FasnAttn a, const T* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          T* __restrict__ dk, T* __restrict__ dv) {
+  constexpr int TB = scalar_tile<D>(), R = TB / 16;
   constexpr int DP = D + 1;
-  constexpr int BQP = BQ + 1;
+  constexpr int BQP = TB + 1;
   constexpr int CD = D / 16;
   extern __shared__ float smem[];
-  float* sK = smem;            // BK x DP
-  float* sV = sK + BK * DP;    // BK x DP
-  float* sQ = sV + BK * DP;    // BQ x DP, q * scale_q rounded to T
-  float* sDO = sQ + BQ * DP;   // BQ x DP
-  float* sPD = sDO + BQ * DP;  // BK x BQP, dropped p rounded to T
-  float* sDS = sPD + BK * BQP; // BK x BQP, ds rounded to T
-  float* sL = sDS + BK * BQP;  // BQ, clamped lse
-  float* sD = sL + BQ;         // BQ, delta
+  float* sK = smem;            // TB x DP
+  float* sV = sK + TB * DP;    // TB x DP
+  float* sQ = sV + TB * DP;    // TB x DP, q * scale_q rounded to T
+  float* sDO = sQ + TB * DP;   // TB x DP
+  float* sPD = sDO + TB * DP;  // TB x BQP, dropped p rounded to T
+  float* sDS = sPD + TB * BQP; // TB x BQP, ds rounded to T
+  float* sL = sDS + TB * BQP;  // TB, clamped lse
+  float* sD = sL + TB;         // TB, delta
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int L = a.L, S = a.S;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * TB;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const long long bh = (long long)b * a.H + h;
   const T* qb = static_cast<const T*>(a.q) + bh * L * D;
@@ -88,7 +91,7 @@ __global__ void __launch_bounds__(THREADS)
   const ScoreMods mods = score_mods(a, b, h);
   const Dropout drop = dropout_of(a);
 
-  for (int i = tid; i < BK * D; i += THREADS) {
+  for (int i = tid; i < TB * D; i += THREADS) {
     const int r = i / D, c = i % D;
     float kv = 0.f, vv = 0.f;
     if (k0 + r < S) {
@@ -99,19 +102,19 @@ __global__ void __launch_bounds__(THREADS)
     sV[r * DP + c] = vv;
   }
 
-  float acc_k[R4][CD], acc_v[R4][CD];
+  float acc_k[R][CD], acc_v[R][CD];
 #pragma unroll
-  for (int i = 0; i < R4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < CD; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
 
   // the first query row that sees key k0 is k0 - (S - L)
   int q_begin = 0;
-  if (mods.causal) q_begin = max(0, k0 - mods.off) / BQ * BQ;
+  if (mods.causal) q_begin = max(0, k0 - mods.off) / TB * TB;
 
-  for (int q0 = q_begin; q0 < L; q0 += BQ) {
+  for (int q0 = q_begin; q0 < L; q0 += TB) {
     __syncthreads();
-    for (int i = tid; i < BQ * D; i += THREADS) {
+    for (int i = tid; i < TB * D; i += THREADS) {
       const int r = i / D, c = i % D;
       float qv = 0.f, dv_ = 0.f;
       if (q0 + r < L) {
@@ -121,7 +124,7 @@ __global__ void __launch_bounds__(THREADS)
       sQ[r * DP + c] = qv;
       sDO[r * DP + c] = dv_;
     }
-    if (tid < BQ) {
+    if (tid < TB) {
       const int qi = q0 + tid;
       sL[tid] = qi < L ? fmaxf(lse[bh * L + qi], DEAD_LSE) : 0.f;
       sD[tid] = qi < L ? delta[bh * L + qi] : 0.f;
@@ -129,38 +132,38 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();
 
     // transposed tiles: row = key ty + 16 i, column = query tx + 16 j
-    float s[R4][R4], dp[R4][R4];
+    float s[R][R], dp[R][R];
 #pragma unroll
-    for (int i = 0; i < R4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < R4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float kv[R4], vv[R4], qv[R4], dov[R4];
+      float kv[R], vv[R], qv[R], dov[R];
 #pragma unroll
-      for (int i = 0; i < R4; ++i) {
+      for (int i = 0; i < R; ++i) {
         kv[i] = sK[(ty + 16 * i) * DP + d];
         vv[i] = sV[(ty + 16 * i) * DP + d];
       }
 #pragma unroll
-      for (int j = 0; j < R4; ++j) {
+      for (int j = 0; j < R; ++j) {
         qv[j] = sQ[(tx + 16 * j) * DP + d];
         dov[j] = sDO[(tx + 16 * j) * DP + d];
       }
 #pragma unroll
-      for (int i = 0; i < R4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < R4; ++j) {
+        for (int j = 0; j < R; ++j) {
           s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
           dp[i][j] = fmaf(vv[i], dov[j], dp[i][j]);
         }
     }
 
 #pragma unroll
-    for (int i = 0; i < R4; ++i) {
+    for (int i = 0; i < R; ++i) {
       const int kj = k0 + ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < R4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int qc = tx + 16 * j, qi = q0 + qc;
         const float p = expf(mods(s[i][j], qi, kj) - sL[qc]);
         float pd = p, d = dp[i][j];
@@ -175,7 +178,7 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
 
-    const int qn = min(BQ, L - q0);
+    const int qn = min(TB, L - q0);
     for (int qq = 0; qq < qn; ++qq) {
       float dov[CD], qv[CD];
 #pragma unroll
@@ -184,7 +187,7 @@ __global__ void __launch_bounds__(THREADS)
         qv[c] = sQ[qq * DP + tx + 16 * c];
       }
 #pragma unroll
-      for (int i = 0; i < R4; ++i) {
+      for (int i = 0; i < R; ++i) {
         const float pd = sPD[(ty + 16 * i) * BQP + qq];
         const float ds = sDS[(ty + 16 * i) * BQP + qq];
 #pragma unroll
@@ -197,7 +200,7 @@ __global__ void __launch_bounds__(THREADS)
   }
 
 #pragma unroll
-  for (int i = 0; i < R4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int kj = k0 + ty + 16 * i;
     if (kj >= S) continue;
     T* dkrow = dk + (bh * S + kj) * D;
@@ -371,6 +374,15 @@ cudaError_t launch_wgmma(const FasnAttn& a, const void* dout, const float* lse,
 extern "C" int fasn_flash_bwd_dkv(const FasnAttn* a, const void* dout, const float* lse,
                                   const float* delta, void* dk, void* dv, cudaStream_t stream) {
   using namespace fasn;
+  auto scalar = [&](auto t, auto d) {
+    using T = typename decltype(t)::type;
+    constexpr int D = decltype(d)::value;
+    constexpr int TB = scalar_tile<D>();
+    const dim3 grid((a->S + TB - 1) / TB, a->H, a->B);
+    return launch(flash_bwd_dkv_kernel<T, D>, grid, dkv_smem_bytes<D>(), stream, *a,
+                  static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
+                  static_cast<T*>(dv));
+  };
   if (a->dtype == 1) {
     switch (a->D) {
       case 32:
@@ -379,18 +391,13 @@ extern "C" int fasn_flash_bwd_dkv(const FasnAttn* a, const void* dout, const flo
         return launch_wgmma<64>(*a, dout, lse, delta, dk, dv, stream);
       case 128:
         return launch_wgmma<128>(*a, dout, lse, delta, dk, dv, stream);
+      case 256:
+        // attn_tile.h's ring does not fit at D 256: the scalar kernel takes bf16
+        return scalar(Type<__nv_bfloat16>{}, Int<256>{});
       default:
         return cudaErrorInvalidValue;
     }
   }
   if (a->dtype != 0) return cudaErrorInvalidValue;
-  const dim3 grid((a->S + BK - 1) / BK, a->H, a->B);
-  auto f32 = [&](auto t, auto d) {
-    using T = typename decltype(t)::type;
-    constexpr int D = decltype(d)::value;
-    return launch(flash_bwd_dkv_kernel<T, D>, grid, dkv_smem_bytes<D>(), stream, *a,
-                  static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
-                  static_cast<T*>(dv));
-  };
-  return dispatch_d<float>(a->D, f32);
+  return dispatch_d<float, 256>(a->D, scalar);
 }

@@ -34,6 +34,8 @@
 // tolerance): 256 threads in K1's scalar layout, thread (ty, tx) owning
 // tile rows ty + 16 i, key columns tx + 16 j and dq columns tx + 16 c; ds
 // goes through shared memory, rounded to k's dtype, for the ds k product.
+// At D 256 the tiles are 32 x 32 (scalar_tile, for shared memory) and the
+// kernel takes bf16 too (the wrapper pads D in (128, 256] to 256).
 //
 // Both: the TPU's dslope accumulates over a sequential grid; here each
 // thread sums its rows' terms over the sweep and the kernel writes one
@@ -59,7 +61,8 @@ namespace {
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (size_t(2 * BQ + 2 * BK) * (D + 1) + size_t(BQ) * (BK + 1));
+  constexpr int TB = scalar_tile<D>();
+  return sizeof(float) * (size_t(4 * TB) * (D + 1) + size_t(TB) * (TB + 1));
 }
 
 template <typename T, int D>
@@ -68,19 +71,20 @@ __global__ void __launch_bounds__(THREADS)
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         float scale, T* __restrict__ dq, float* __restrict__ dbias,
                         float* __restrict__ dslope_rows) {
+  constexpr int TB = scalar_tile<D>(), R = TB / 16;
   constexpr int DP = D + 1;
-  constexpr int BKP = BK + 1;
+  constexpr int BKP = TB + 1;
   constexpr int CD = D / 16;
   extern __shared__ float smem[];
-  float* sQ = smem;            // BQ x DP, q * scale_q rounded to T
-  float* sDO = sQ + BQ * DP;   // BQ x DP
-  float* sK = sDO + BQ * DP;   // BK x DP
-  float* sV = sK + BK * DP;    // BK x DP
-  float* sDS = sV + BK * DP;   // BQ x BKP, ds rounded to T
+  float* sQ = smem;            // TB x DP, q * scale_q rounded to T
+  float* sDO = sQ + TB * DP;   // TB x DP
+  float* sK = sDO + TB * DP;   // TB x DP
+  float* sV = sK + TB * DP;    // TB x DP
+  float* sDS = sV + TB * DP;   // TB x BKP, ds rounded to T
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int L = a.L, S = a.S;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * TB;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const long long bh = (long long)b * a.H + h;
   const T* qb = static_cast<const T*>(a.q) + bh * L * D;
@@ -90,7 +94,7 @@ __global__ void __launch_bounds__(THREADS)
   const ScoreMods mods = score_mods(a, b, h);
   const Dropout drop = dropout_of(a);
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
+  for (int i = tid; i < TB * D; i += THREADS) {
     const int r = i / D, c = i % D;
     float qv = 0.f, dv = 0.f;
     if (q0 + r < L) {
@@ -101,9 +105,9 @@ __global__ void __launch_bounds__(THREADS)
     sDO[r * DP + c] = dv;
   }
 
-  float lse_r[R4], delta_r[R4], dsl[R4], acc[R4][CD];
+  float lse_r[R], delta_r[R], dsl[R], acc[R][CD];
 #pragma unroll
-  for (int i = 0; i < R4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int qi = q0 + ty + 16 * i;
     lse_r[i] = qi < L ? fmaxf(lse[bh * L + qi], DEAD_LSE) : 0.f;
     delta_r[i] = qi < L ? delta[bh * L + qi] : 0.f;
@@ -114,14 +118,14 @@ __global__ void __launch_bounds__(THREADS)
 
   int kv_end = S;
   if (mods.causal) {
-    const int last_row = min(q0 + BQ, L) - 1;
+    const int last_row = min(q0 + TB, L) - 1;
     kv_end = min(S, last_row + mods.off + 1);
   }
 
   int k0 = 0;
-  for (; k0 < kv_end; k0 += BK) {
+  for (; k0 < kv_end; k0 += TB) {
     __syncthreads();
-    for (int i = tid; i < BK * D; i += THREADS) {
+    for (int i = tid; i < TB * D; i += THREADS) {
       const int r = i / D, c = i % D;
       float kv = 0.f, vv = 0.f;
       if (k0 + r < S) {
@@ -133,38 +137,38 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
 
-    float s[R4][R4], dp[R4][R4];
+    float s[R][R], dp[R][R];
 #pragma unroll
-    for (int i = 0; i < R4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < R4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float qv[R4], dov[R4], kv[R4], vv[R4];
+      float qv[R], dov[R], kv[R], vv[R];
 #pragma unroll
-      for (int i = 0; i < R4; ++i) {
+      for (int i = 0; i < R; ++i) {
         qv[i] = sQ[(ty + 16 * i) * DP + d];
         dov[i] = sDO[(ty + 16 * i) * DP + d];
       }
 #pragma unroll
-      for (int j = 0; j < R4; ++j) {
+      for (int j = 0; j < R; ++j) {
         kv[j] = sK[(tx + 16 * j) * DP + d];
         vv[j] = sV[(tx + 16 * j) * DP + d];
       }
 #pragma unroll
-      for (int i = 0; i < R4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < R4; ++j) {
+        for (int j = 0; j < R; ++j) {
           s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
           dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
         }
     }
 
 #pragma unroll
-    for (int i = 0; i < R4; ++i) {
+    for (int i = 0; i < R; ++i) {
       const int qi = q0 + ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < R4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int kj = k0 + tx + 16 * j;
         const float p = expf(mods(s[i][j], qi, kj) - lse_r[i]);
         float d = dp[i][j];
@@ -177,13 +181,13 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
 
-    const int kn = min(BK, S - k0);
+    const int kn = min(TB, S - k0);
     for (int kk = 0; kk < kn; ++kk) {
       float kv[CD];
 #pragma unroll
       for (int c = 0; c < CD; ++c) kv[c] = sK[kk * DP + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < R4; ++i) {
+      for (int i = 0; i < R; ++i) {
         const float ds = sDS[(ty + 16 * i) * BKP + kk];
 #pragma unroll
         for (int c = 0; c < CD; ++c) acc[i][c] = fmaf(ds, kv[c], acc[i][c]);
@@ -194,14 +198,14 @@ __global__ void __launch_bounds__(THREADS)
   // causally invisible tiles were skipped: their dbias is zero
   if (dbias) {
     const int width = S - min(k0, S);
-    for (int i = tid; i < BQ * width; i += THREADS) {
+    for (int i = tid; i < TB * width; i += THREADS) {
       const int r = i / width, c = k0 + i % width;
       if (q0 + r < L) dbias[(bh * L + q0 + r) * S + c] = 0.f;
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < R4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int qi = q0 + ty + 16 * i;
     const float row = row_sum16(dsl[i]);
     if (qi >= L) continue;
@@ -362,6 +366,15 @@ extern "C" int fasn_flash_bwd_dq(const FasnAttn* a, const void* dout, const floa
                                  const float* delta, float scale, void* dq, float* dbias,
                                  float* dslope_rows, cudaStream_t stream) {
   using namespace fasn;
+  auto scalar = [&](auto t, auto d) {
+    using T = typename decltype(t)::type;
+    constexpr int D = decltype(d)::value;
+    constexpr int TB = scalar_tile<D>();
+    const dim3 grid((a->L + TB - 1) / TB, a->H, a->B);
+    return launch(flash_bwd_dq_kernel<T, D>, grid, dq_smem_bytes<D>(), stream, *a,
+                  static_cast<const T*>(dout), lse, delta, scale, static_cast<T*>(dq), dbias,
+                  dslope_rows);
+  };
   if (a->dtype == 1) {
     switch (a->D) {
       case 32:
@@ -370,18 +383,13 @@ extern "C" int fasn_flash_bwd_dq(const FasnAttn* a, const void* dout, const floa
         return launch_wgmma<64>(*a, dout, lse, delta, scale, dq, dbias, dslope_rows, stream);
       case 128:
         return launch_wgmma<128>(*a, dout, lse, delta, scale, dq, dbias, dslope_rows, stream);
+      case 256:
+        // attn_tile.h's ring does not fit at D 256: the scalar kernel takes bf16
+        return scalar(Type<__nv_bfloat16>{}, Int<256>{});
       default:
         return cudaErrorInvalidValue;
     }
   }
   if (a->dtype != 0) return cudaErrorInvalidValue;
-  const dim3 grid((a->L + BQ - 1) / BQ, a->H, a->B);
-  auto f32 = [&](auto t, auto d) {
-    using T = typename decltype(t)::type;
-    constexpr int D = decltype(d)::value;
-    return launch(flash_bwd_dq_kernel<T, D>, grid, dq_smem_bytes<D>(), stream, *a,
-                  static_cast<const T*>(dout), lse, delta, scale, static_cast<T*>(dq), dbias,
-                  dslope_rows);
-  };
-  return dispatch_d<float>(a->D, f32);
+  return dispatch_d<float, 256>(a->D, scalar);
 }

@@ -28,6 +28,13 @@ constexpr int THREADS = 256;
 // thread (ty, tx) = (tid / 16, tid % 16) owns tile rows ty + 16 i (i < 4)
 // and tile columns tx + 16 j (j < 4)
 constexpr int R4 = 4;
+// the backward's scalar kernels (K5, K6) take 32-row tiles (R 2) at D 256:
+// four 64-row f32 tiles of q, dout, k and v would need 263 KB of shared
+// memory, over the 227 KB a block may have
+template <int D>
+__host__ __device__ constexpr int scalar_tile() {
+  return D > 128 ? 32 : 64;
+}
 // rounded from double, as the Python side computes them
 constexpr float NEG_INF = (float)(-0.7 * (double)FLT_MAX);
 constexpr float DEAD_LSE = (float)(0.5 * -0.7 * (double)FLT_MAX);
@@ -128,9 +135,10 @@ __device__ __forceinline__ Dropout dropout_of(const FasnAttn& a) {
   return d;
 }
 
-// Calls f(Type<T>{}, Int<D>{}) for the head dim (32, 64, 128);
-// cudaErrorInvalidValue for anything else. The scalar kernels take T =
-// float (bf16 inputs run on attn_tile.h).
+// Calls f(Type<T>{}, Int<D>{}) for the head dim (32, 64, 128, and 256 up
+// to MAX_D); cudaErrorInvalidValue for anything else. The scalar kernels
+// take T = float, and K1's, K5's and K6's also T = bf16 at D 256, where
+// attn_tile.h's tile does not fit.
 template <typename T>
 struct Type {
   using type = T;
@@ -140,7 +148,7 @@ struct Int {
   static constexpr int value = N;
 };
 
-template <typename T, typename F>
+template <typename T, int MAX_D = 128, typename F>
 cudaError_t dispatch_d(int D, F& f) {
   switch (D) {
     case 32:
@@ -149,6 +157,9 @@ cudaError_t dispatch_d(int D, F& f) {
       return f(Type<T>{}, Int<64>{});
     case 128:
       return f(Type<T>{}, Int<128>{});
+    case 256:
+      if constexpr (MAX_D >= 256) return f(Type<T>{}, Int<256>{});
+      return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }

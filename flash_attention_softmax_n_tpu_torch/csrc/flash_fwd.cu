@@ -31,6 +31,10 @@
 // f32: flash_fwd_kernel, scalar f32 FMAs from shared memory on 64 x 64
 // tiles (wgmma has no f32 x f32 product, and TF32 would not hold f32's
 // tolerance); the training path's f32 runs and the card tests take it.
+// It also takes bf16 at D 256 (the wrapper pads D in (128, 256] to 256),
+// where a 128-row tile of Q, K or V is 64 KB and the wgmma kernel's ring
+// and O fragment do not fit: its shared memory holds f32 copies (214 KB).
+// Head dims 32, 64, 128 and 256 are built; the wrapper zero-pads others.
 //
 // Numerics follow the Pallas kernel: the scale is folded into q in q's
 // dtype (each consumer rewrites its Q rows in shared memory once), scores
@@ -329,6 +333,13 @@ cudaError_t launch_wgmma(const FasnAttn& a, float n, void* o, float* lse, cudaSt
 extern "C" int fasn_flash_fwd(const FasnAttn* a, float n, void* o, float* lse,
                               cudaStream_t stream) {
   using namespace fasn;
+  const dim3 grid((a->L + BQ - 1) / BQ, a->H, a->B);
+  auto scalar = [&](auto t, auto d) {
+    using T = typename decltype(t)::type;
+    constexpr int D = decltype(d)::value;
+    return launch(flash_fwd_kernel<T, D>, grid, fwd_smem_bytes<D>(), stream, *a, n,
+                  static_cast<T*>(o), lse);
+  };
   if (a->dtype == 1) {
     switch (a->D) {
       case 32:
@@ -337,17 +348,14 @@ extern "C" int fasn_flash_fwd(const FasnAttn* a, float n, void* o, float* lse,
         return launch_wgmma<64>(*a, n, o, lse, stream);
       case 128:
         return launch_wgmma<128>(*a, n, o, lse, stream);
+      case 256:
+        // attn_tile.h's ring of 64 KB tiles and its 128-float O fragment do
+        // not fit at D 256: the scalar kernel takes bf16 there
+        return scalar(Type<__nv_bfloat16>{}, Int<256>{});
       default:
         return cudaErrorInvalidValue;
     }
   }
   if (a->dtype != 0) return cudaErrorInvalidValue;
-  const dim3 grid((a->L + BQ - 1) / BQ, a->H, a->B);
-  auto f32 = [&](auto t, auto d) {
-    using T = typename decltype(t)::type;
-    constexpr int D = decltype(d)::value;
-    return launch(flash_fwd_kernel<T, D>, grid, fwd_smem_bytes<D>(), stream, *a, n,
-                  static_cast<T*>(o), lse);
-  };
-  return dispatch_d<float>(a->D, f32);
+  return dispatch_d<float, 256>(a->D, scalar);
 }

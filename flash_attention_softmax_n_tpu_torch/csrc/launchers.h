@@ -12,8 +12,8 @@
 extern "C" {
 
 // The attention inputs that K1, K5 and K6 share. q (B,H,L,D), k/v (B,H,S,D)
-// contiguous, bf16 (dtype 1) or f32 (dtype 0), D in {32, 64, 128}; bias null
-// or f32 with contiguous (L,S) planes at element strides bias_sb (batch) and
+// contiguous, bf16 (dtype 1) or f32 (dtype 0), D in {32, 64, 128, 256}; bias
+// null or f32 with contiguous (L,S) planes at element strides bias_sb (batch) and
 // bias_sh (head), 0 where broadcast; slopes null or (H,) f32 ALiBi slopes;
 // seed null (no dropout) or one int32 on the device, with the keep threshold
 // round(rate * 2^31) and the multiplier 1/(1-rate) in f32. `scale_q` is the

@@ -13,8 +13,11 @@ launches the hand-written kernels (``csrc/flash_fwd.cu`` K1,
 ``csrc/flash_bwd_dq.cu`` K5, ``csrc/flash_bwd_dkv.cu`` K6), a CPU tensor
 runs ``flash_fwd_reference`` / ``flash_bwd_reference``, the same arithmetic
 in plain PyTorch. L and S need no padding: the kernels mask ragged tiles
-themselves. The TPU's block policy, causal staircase and compiler fences
-have no counterpart here.
+themselves. The kernels are built for head dims 32, 64, 128 and 256; on
+CUDA tensors the wrappers zero-pad any other D up to the next of them and
+slice o, dq, dk and dv back (``kernel_head_dim``), as JAX pads D to its
+kernel's widths. The TPU's block policy, causal staircase and
+compiler fences have no counterpart here.
 
 Dropout is a counter-based hash of the global coordinates (seed, b, h,
 q_pos, k_pos), so the forward and both backward kernels regenerate one mask
@@ -221,6 +224,52 @@ def flash_bwd_reference(q, k, v, bias, slopes, seed, o, lse, do, *,
 # Kernel wrappers
 # ----------------------------------------------------------------------------
 
+# the head dims the kernels are built for (at 256 the scalar kernels, bf16
+# too: attn_tile.h's ring does not fit there)
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run ``d`` at: the next of
+    ``KERNEL_HEAD_DIMS``. Raises ValueError above 256."""
+    for dp in KERNEL_HEAD_DIMS:
+        if d <= dp:
+            return dp
+    raise ValueError(f"flash attention kernels (K1, K5, K6) take head dim at "
+                     f"most {KERNEL_HEAD_DIMS[-1]} on CUDA, got {d}")
+
+
+def _pad_head(t: torch.Tensor, dp: int) -> torch.Tensor:
+    d = t.shape[-1]
+    return t if d == dp else torch.nn.functional.pad(t, (0, dp - d))
+
+
+def _cut_head(t: torch.Tensor, d: int) -> torch.Tensor:
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
+
+
+def _padded_fwd(run, q, k, v, bias, **kw):
+    """``run`` (K1's launch, or its plain version) at ``kernel_head_dim``:
+    q, k and v zero-padded along D, o sliced back. Exact: zero columns add
+    nothing to q k^T and give zero columns of o. The scale stays the
+    caller's, of the true D."""
+    d = q.shape[-1]
+    dp = kernel_head_dim(d)
+    o, lse = run(*(_pad_head(t, dp) for t in (q, k, v)), bias, **kw)
+    return _cut_head(o, d), lse
+
+
+def _padded_bwd(run, q, k, v, bias, slopes, seed, o, lse, do, **kw):
+    """``run`` (K5 and K6, or their plain version) at ``kernel_head_dim``:
+    q, k, v, o and do zero-padded along D (delta = rowsum(do o) is
+    unchanged), dq, dk and dv sliced back; dbias and dslopes as they come."""
+    d = q.shape[-1]
+    dp = kernel_head_dim(d)
+    q, k, v, o, do = (_pad_head(t, dp) for t in (q, k, v, o, do))
+    dq, dk, dv, dbias, dslopes = run(q, k, v, bias, slopes, seed, o, lse, do,
+                                     **kw)
+    return _cut_head(dq, d), _cut_head(dk, d), _cut_head(dv, d), dbias, dslopes
+
 
 def _plane_bias(bias, L, S):
     """The kernels read contiguous f32 (L, S) planes; broadcast batch and
@@ -310,11 +359,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               is_causal: bool, slopes: Optional[torch.Tensor] = None,
               seed: Optional[torch.Tensor] = None, dropout_rate: float = 0.0
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 on CUDA tensors, its plain version on CPU tensors."""
+    """K1 on CUDA tensors (at ``kernel_head_dim``), its plain version on
+    CPU tensors."""
     kw = dict(n=n, scale=scale, is_causal=is_causal, slopes=slopes, seed=seed,
               dropout_rate=dropout_rate)
     if q.is_cuda:
-        return _flash_fwd_cuda(q, k, v, bias, **kw)
+        return _padded_fwd(_flash_fwd_cuda, q, k, v, bias, **kw)
     _check_device(q, "flash_fwd")
     return flash_fwd_reference(q, k, v, bias, **kw)
 
@@ -323,14 +373,16 @@ def flash_bwd(q, k, v, bias, slopes, seed, o, lse, do, *, scale: float,
               is_causal: bool, dropout_rate: float = 0.0,
               grad_bias: bool = True, grad_slopes: bool = True,
               delta: Optional[torch.Tensor] = None):
-    """K5 and K6 on CUDA tensors, their plain version on CPU tensors:
+    """K5 and K6 on CUDA tensors (at ``kernel_head_dim``), their plain
+    version on CPU tensors:
     (dq, dk, dv, dbias (B,H,L,S) f32 or None, dslopes (H,) f32 or None).
     ``delta`` (B,H,L) f32, if given, is ``rowsum(do * o)`` computed once by
     the caller."""
     kw = dict(scale=scale, is_causal=is_causal, dropout_rate=dropout_rate,
               grad_bias=grad_bias, grad_slopes=grad_slopes, delta=delta)
     if q.is_cuda:
-        return _flash_bwd_cuda(q, k, v, bias, slopes, seed, o, lse, do, **kw)
+        return _padded_bwd(_flash_bwd_cuda, q, k, v, bias, slopes, seed, o,
+                           lse, do, **kw)
     _check_device(q, "flash_bwd")
     return flash_bwd_reference(q, k, v, bias, slopes, seed, o, lse, do, **kw)
 

@@ -313,7 +313,10 @@ def load_train_checkpoint(directory, optimizer: Callable, *, device=None,
                     "save")
             value = value.to(leaf.device)
         state.setdefault(i, {})[e["name"]] = value
-    groups = [{**g, "params": [index[p] for p in g["params"]]}
+    # torch pairs a group's saved ids with its parameters by position, and
+    # the optimizer lists them in the loaded tree's order (sorted keys, as
+    # JAX saves them), which may differ from the order at save time
+    groups = [{**g, "params": sorted(index[p] for p in g["params"])}
               for g in blob["param_groups"]]
     opt.load_state_dict({"state": state, "param_groups": groups})
     return (config, params, opt, metadata.get("train_step", 0), metadata)

@@ -7,7 +7,8 @@ not at import). On the machine with the card run
 
 These cover what the serving and training shapes in ``chip_smoke.py`` do
 not: n = 0 and fractional n, rectangular causal with L < S and L > S (dead
-rows), f32 inputs, head dims 32/64/128, ragged tiles, dense caches, and for
+rows), f32 inputs, head dims 32/64/128/256 and, padded, 16/20/80/96/160,
+ragged tiles, dense caches, and for
 the backward (K5, K6) bias, ALiBi and dropout in every combination; for
 K7-K9 every mode (int8, W8A8, int4, W4A8; dense, int8, int8-compute and
 fp8 caches), ragged M/N/F, slot lengths 0 and full, strided cache views;
@@ -358,9 +359,12 @@ def test_cache_append_positions_at_the_edges(gen, dtype):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
-    q = torch.randn((1, 1, 8, 48), device="cuda")
+    # above 256 no kernel takes the head dim (48 runs padded to 64)
+    q = torch.randn((1, 1, 8, 300), device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_fwd(q, q, q, None, n=1.0, scale=0.1, is_causal=False)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_bwd(q, q, q, None, None, None, q, q[..., 0], q, scale=0.1, is_causal=False)
     half = torch.randn((1, 1, 8, 64), device="cuda").half()
     with pytest.raises(ValueError, match="bf16 or f32"):
         fa.flash_fwd(half, half, half, None, n=1.0, scale=0.1, is_causal=False)
@@ -904,6 +908,57 @@ def test_flash_bwd_wgmma_extras_match_plain(gen, d, extra):
                   "all": (2, 1)}.get(extra)
     _bwd_bf16(gen, 2, 3, 200, 264, d, bias_shape=bias_shape, alibi=extra in ("alibi", "all"),
               rate=0.25 if extra in ("dropout", "all") else 0.0)
+
+
+# head dims the kernels are not built for (16, 20, 80, 96, 160) run
+# zero-padded to the next of 32, 64, 128 and 256; 256 runs the scalar
+# kernels, bf16 too (K5 and K6 on 32-row tiles). Under a bias, ALiBi and
+# dropout, n 0 and 1, at chip_smoke's B2 H4 L200 S264; the backward from the
+# plain forward's o and lse; tolerances as above, repeats bit-equal; above
+# 256 every wrapper raises
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 20, 80, 96, 160, 256])
+@pytest.mark.parametrize("n", [0.0, 1.0])
+def test_flash_kernels_take_every_head_dim(gen, dtype, d, n):
+    q, k, v, do, ex = _attn_inputs(gen, dtype, 2, 4, 200, 264, d, bias_shape=(1, 4),
+                                   alibi=True, rate=0.25)
+    kw = dict(n=n, scale=d ** -0.5, is_causal=True, slopes=ex["slopes"], seed=ex["seed"],
+              dropout_rate=ex["dropout_rate"])
+    before = _build.LAUNCHES["flash_fwd"]
+    got = fa.flash_fwd(q, k, v, ex["bias"], **kw)
+    assert _build.LAUNCHES["flash_fwd"] == before + 1 and got[0].shape == q.shape
+    want = fa.flash_fwd_reference(q, k, v, ex["bias"], **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[0], want[0], atol=2e-5, rtol=0)
+        torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=1e-6)
+    else:
+        # chip_smoke.o_excess's allowance on each side: a bf16 o is half
+        # an ulp (2^-8 |o|) off, and each dropped p rounds to bf16 against
+        # its own running maximum (2^-8 of p, so 2^-8 sum p|v| / l of o),
+        # plus 2^-11 of that for the f32 arithmetic; sum p|v| / l is the
+        # plain version over |v| in f32
+        o_abs = fa.flash_fwd_reference(q.float(), k.float(), v.float().abs(), ex["bias"],
+                                       **kw)[0]
+        diff = (got[0].float() - want[0].float()).abs()
+        tol = 2.0 ** -7 * want[0].float().abs() + (2.0 ** -7 + 2.0 ** -10) * o_abs
+        assert float((diff - tol).max()) <= 0.0, float((diff - tol).max())
+        assert float((got[1] - want[1]).abs().max()) <= 1e-3
+    assert all(torch.equal(a, b) for a, b in zip(got, fa.flash_fwd(q, k, v, ex["bias"], **kw)))
+    o, lse = want
+    args = (q, k, v, ex["bias"], ex["slopes"], ex["seed"], o, lse, do)
+    bkw = dict(scale=d ** -0.5, is_causal=True, dropout_rate=ex["dropout_rate"])
+    before = {name: _build.LAUNCHES[name] for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+    grads = fa.flash_bwd(*args, **bkw)
+    assert all(_build.LAUNCHES[name] == c + 1 for name, c in before.items())
+    for name, g, w in zip(("dq", "dk", "dv", "dbias", "dslopes"), grads,
+                          fa.flash_bwd_reference(*args, **bkw)):
+        assert g.shape == w.shape, name
+        if dtype == torch.float32:
+            _assert_close(g, w, 1e-4)
+        else:
+            _assert_close(g, w, 1e-4 if name == "dbias" else 2e-2)
+            _assert_norm_close(g, w, _BWD_NORM_TOL)
+    assert all(torch.equal(a, b) for a, b in zip(grads, fa.flash_bwd(*args, **bkw)))
 
 
 def test_flash_bwd_wgmma_rejects_misaligned_inputs(gen):

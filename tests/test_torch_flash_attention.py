@@ -112,3 +112,74 @@ def test_unported_options_raise(tmp_path):
     with one_rank_group(tmp_path):
         got = t_flash(q, k, v, mesh=make_mesh({"data": 1, "model": 1}), **kw)
     assert torch.equal(got, t_flash(q, k, v, **kw))
+
+
+# On CUDA tensors the wrappers run K1, K5 and K6 at the next of 32, 64, 128
+# and 256, zero-padding q, k, v (and o, do) along D and slicing o, dq, dk,
+# dv back. Here the same padding runs around the plain versions (the CPU's
+# stand-in for the kernels) and must give the unpadded plain version's
+# results: zero columns add nothing to q k^T, give zero columns of o and
+# leave delta = rowsum(do o) alone. Under a bias, ALiBi and dropout, with
+# the true D's scale; f32 within 1e-6 of max(1, max |plain|) (only the
+# summation's blocking may differ)
+def test_kernel_head_dims():
+    from flash_attention_softmax_n_tpu_torch.kernels import flash_attention as fa
+    assert [fa.kernel_head_dim(d) for d in (1, 16, 20, 32, 33, 80, 96, 128, 129, 256)] == [
+        32, 32, 32, 32, 64, 128, 128, 128, 256, 256]
+    with pytest.raises(ValueError, match="head dim at most 256"):
+        fa.kernel_head_dim(257)
+
+
+@pytest.mark.parametrize("n", [0.0, 1.0])
+@pytest.mark.parametrize("d", [16, 20, 80, 96, 160])
+def test_head_dim_padding_is_exact(d, n):
+    from flash_attention_softmax_n_tpu_torch.kernels import flash_attention as fa
+    B, H, L, S = 2, 3, 40, 56
+    rng = np.random.RandomState(d)
+    q, k, v, do = (_t(rng.randn(B, H, m, d).astype(np.float32) * 0.5)
+                   for m in (L, S, S, L))
+    bias = _t(rng.randn(1, H, L, S).astype(np.float32) * 0.5)
+    slopes = _t(np.array([0.5, 0.25, 0.125], np.float32))
+    seed = torch.tensor([77], dtype=torch.int32)
+    kw = dict(n=n, scale=d ** -0.5, is_causal=True, slopes=slopes, seed=seed,
+              dropout_rate=0.2)
+    want = fa.flash_fwd_reference(q, k, v, bias, **kw)
+    got = fa._padded_fwd(fa.flash_fwd_reference, q, k, v, bias, **kw)
+    assert got[0].shape == q.shape
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=0)
+    o, lse = want
+    args = (q, k, v, bias, slopes, seed, o, lse, do)
+    bkw = dict(scale=d ** -0.5, is_causal=True, dropout_rate=0.2)
+    grads = fa._padded_bwd(fa.flash_bwd_reference, *args, **bkw)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias", "dslopes"), grads,
+                          fa.flash_bwd_reference(*args, **bkw)):
+        assert g.shape == w.shape, name
+        err = float((g - w).abs().max())
+        assert err <= 1e-6 * max(1.0, float(w.abs().max())), (name, err)
+
+
+# the port's public API at head dims that JAX pads (16 to 32 on the card,
+# 80 to 128 on both): forward and the three gradients against JAX's
+# (its Pallas kernel in interpret mode), f32 within 1e-5
+@pytest.mark.parametrize("d", [16, 80])
+def test_public_api_head_dims_match_jax(d):
+    import jax
+
+    rng = np.random.RandomState(5)
+    q, k, v, do = (rng.randn(1, 2, m, d).astype(np.float32) * 0.5
+                   for m in (70, 70, 70, 70))
+
+    def jfn(q, k, v):
+        return j_flash(q, k, v, softmax_n_param=1.0, is_causal=True,
+                       implementation="pallas")
+
+    want, vjp = jax.vjp(jfn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    jgrads = vjp(jnp.asarray(do))
+    tq, tk, tv = (_t(a).requires_grad_(True) for a in (q, k, v))
+    got = t_flash(tq, tk, tv, softmax_n_param=1.0, is_causal=True,
+                  implementation="pallas")
+    got.backward(_t(do))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=TOL, rtol=0)
+    for g, w in zip((tq.grad, tk.grad, tv.grad), jgrads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL, rtol=0)

@@ -43,6 +43,9 @@ def test_port_and_chip_smoke_import_no_jax():
         "import flash_attention_softmax_n_tpu_torch.utils.bench_cache_update\n"
         "import flash_attention_softmax_n_tpu_torch.utils.checkpoint\n"
         "import flash_attention_softmax_n_tpu_torch.utils.bench_decode_attn\n"
+        "import flash_attention_softmax_n_tpu_torch.utils.eval_quant_ppl\n"
+        "import flash_attention_softmax_n_tpu_torch.utils.eval_quant_study_v2\n"
+        "import flash_attention_softmax_n_tpu_torch.utils.train_quant_study\n"
         "import flash_attention_softmax_n_tpu_torch.utils.profile_prefill_phases\n"
         "import flash_attention_softmax_n_tpu_torch.utils.profiling\n"
         "import chip_smoke\n"
