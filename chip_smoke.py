@@ -56,11 +56,27 @@ Phases, in order, each printing one JSON line:
    H16 L=S=512 d64 bf16 causal, n 1, and K7 int4 and W8A8 over M16384 at
    K1024 N1024, N256, N2816 and K2816 N1024;
 4a. head_dims: K1, K5 and K6 at head dims 16, 80 and 96 (zero-padded by
-   the wrappers to 32, 128 and 128) and 256 (the scalar kernels, bf16
-   too), against their plain versions at B2 H4 L200 S264 under a (1, 4)
-   bias, causal, f32 and bf16, n 0 and 1, as in 4; then K1 at each head
-   dim at B32 H16 L=S=512 causal bf16, timed beside its bound, plain
-   version and SDPA, with the bytes the padding adds;
+   the wrappers to 32, 128 and 128), 256 (K1's 64-row TMA + wgmma kernel
+   ``flash_fwd_d256_kernel`` in bf16, the scalar kernels otherwise), 300
+   (padded to 384), 384 and 512 (the wide scalar kernels, f32 and bf16),
+   against their plain versions at B2 H4 L200 S264 under a (1, 4) bias,
+   ALiBi and dropout, causal, f32 and bf16, n 0 and 1, as in 4; then K1 at
+   each head dim at B32 H16 L=S=512 causal bf16, timed beside its bound,
+   plain version and SDPA, with the bytes the padding adds, o held against
+   a float64 evaluation too; K1, K5 and K6 at d256, 384 and 512 there as
+   phase 4 times its training lines (the backward pair against SDPA's
+   backward); K8 at
+   B8 KVH1 G8 S512 hd 256 over int8 and bf16 caches and hd 160 and 512
+   over int8 (split and products printed); K10's four modes at B2 H8 L1024
+   hd 80, 256 and 320;
+4b. head_dims_serve: a decoder at Gemma-2B's widths (d_model 2048, 8 heads
+   over 1 KV head, head dim 256, d_ff 16384, vocab 256000; 2 of its 18
+   layers), int8 weights quantized from N(0, 1/fan_in) draws, int8 KV,
+   max_len 512, on the all-kernel routes: 8 requests (prompts of 100-400
+   tokens, 32 new tokens) through 8 slots of an eager engine and 2 of them
+   through the step path, held to budgets and the teacher-forced gate; K1 at d256 under the engine's
+   mask, K8 at hd 256 (G 8), K2 at N 256000, K3, K4, K7 and K9 must
+   launch (K2's and K8's plans printed);
 5. serving: the TinyLlama-1.1B shape (random weights from a seed, int8
    weights, int8 KV) serves 96 requests through 64 slots of the fused
    decode loop, on an engine built as bench.py builds it (the default
@@ -89,11 +105,12 @@ Phases, in order, each printing one JSON line:
    teacher-forced gate, and ``serve_fp8`` puts 12 requests through the
    fused loop and 2 through the step path with fp8 e4m3 weights and an fp8
    KV cache (K8's fp8 mode, K1, K3, K4), also at 2 layers, each prewarmed
-   and piggybacked as in 5, and profiles its chunk as in 6 (fp8 at all 22
-   layers runs in ``graph_parity``); then
+   and piggybacked as in 5, and profiles its chunk as in 6; then
 5a. serve_prefix: bench.py's prefix pair on the default route: 64
    requests, every even one behind a 256-token prefix (272-383 tokens),
-   through 64 slots of an engine prewarmed with ``attn_lens=[256, 512]``,
+   through 64 slots of an engine prewarmed with ``attn_lens=[256, 512]``
+   (the serve phase's default-route engine, whose 256-row variants are
+   already captured),
    twice: prefix cache off (chunked prefill at offsets 0 and 256), then on
    after ``register_prefix`` (32 hits, each a copy of the stored rows and
    one chunk at offset 256); each run's tokens/s, counters, phases and
@@ -103,15 +120,17 @@ Phases, in order, each printing one JSON line:
    bit-equal to a cold 1-slot chunked prefill of the same tokens, and the
    replay checks of 6a (a 16-step chunk for the 64-step one, windows of
    512 rows) over slots holding the inserted rows; then
-6a. graph_parity: on the default route, the all-kernel route and fp8, a
-   plain 64-step chunk, a piggybacked 8-step chunk and a plain 6-step
-   chunk each replay their graph bit-equal to the eager loop from the same
-   state (tokens, first tokens, the cache's value, scale and length bytes,
-   launch counts), and ``prewarm`` leaves that state bit-equal;
+6a. graph_parity: on the default route (22 layers), the all-kernel route
+   and fp8 (2 layers), a plain 64-step chunk, a piggybacked 8-step chunk
+   and a plain 6-step chunk each replay their graph bit-equal to the eager
+   loop from the same state (tokens, first tokens, the cache's value,
+   scale and length bytes, launch counts), and ``prewarm`` leaves that
+   state bit-equal;
 6b. prefill_phases: one run of the prefill-phase profile
    (``python -m flash_attention_softmax_n_tpu_torch.utils.profile_prefill_phases``)
    at B2 H32 L2048 hd64: K10's four modes and K1 without and with the
-   causal mask, each timed, its lines printed;
+   causal mask, each timed, its lines printed; then its command line at
+   ``--shape 2,32,2048,80`` and ``--shape 2,8,1024,256``;
 7. train_agreement: the TinyLlama-1.1B width at 2 layers in f32: every
    parameter gradient of ``causal_lm_loss`` through the fused route (K1,
    K5, K6) against the same through plain tensor ops (``"xla"``), relative
@@ -179,8 +198,8 @@ Phases, in order, each printing one JSON line:
    ZeRO-1 mesh run (2 layers, B1 x L512) saved at step 2 and resumed: the
    losses of the uninterrupted run; then, in the same group,
 14. serve_mesh: ``InferenceEngine(mesh=make_mesh({"data": 1, "model": 1}))``
-   at the full TinyLlama-1.1B shape (22 layers, the serve phase's int8
-   weights, int8 KV, 64 slots, max_len 512): ``serve_fused``'s 96 requests
+   at the TinyLlama-1.1B widths (2 of its 22 layers, int8 weights, int8
+   KV, 64 slots, max_len 512): ``serve_fused``'s 96 requests
    after ``prewarm`` and 4 through the step path, on the default and the
    all-kernel routes, every token equal to an unmeshed engine's with the
    same chunk plan and no piggybacking (a mesh turns it off); one 256-token
@@ -212,9 +231,10 @@ Phases, in order, each printing one JSON line:
    phase 3 is also run twice and required bit-equal.
 
 Then it prints the kernels' JSON line (times, launches on the serving,
-training, analysis, quant_study, head_dims, surgery, ring, serve_mesh or
-serve_7b run, each kernel's launches on the analysis, quant_study, surgery,
-train_mesh, serve_mesh and serve_7b runs, bounds), the card's name and power limit from
+training, analysis, quant_study, head_dims, head_dims_serve, surgery, ring,
+serve_mesh or serve_7b run, each kernel's launches on the analysis,
+quant_study, surgery, train_mesh, serve_mesh, serve_7b and head_dims_serve
+runs, bounds), the card's name and power limit from
 nvidia-smi, and last ``{"ok": true, "device": {...}}``. Any failed check
 exits non-zero. The port is imported from the checkout; nothing of JAX is
 imported.
@@ -241,11 +261,17 @@ ROOT = Path(__file__).resolve().parent
 TPU_PKG = "flash_attention_softmax_n_tpu"
 CSRC = "flash_attention_softmax_n_tpu_torch/csrc"
 # K1's, K5's, K6's and K10's kernels as torch.profiler names them: bf16
-# inputs take the TMA + wgmma kernel, f32 the scalar one
-FLASH_FWD_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_kernel")
-FLASH_DQ_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_kernel")
-FLASH_DKV_KERNELS = ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_kernel")
-MINI_KERNELS = ("prefill_phase_wgmma_kernel", "prefill_phase_kernel")
+# inputs take the TMA + wgmma kernel (K1 at D 256 its 64-row one), f32 and
+# bf16 at D 256 the scalar one (but K1's bf16), every dtype above 256 the
+# wide scalar one
+FLASH_FWD_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_d256_kernel", "flash_fwd_kernel",
+                     "flash_fwd_wide_kernel")
+FLASH_DQ_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_kernel",
+                    "flash_bwd_dq_wide_kernel")
+FLASH_DKV_KERNELS = ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_kernel",
+                     "flash_bwd_dkv_wide_kernel")
+MINI_KERNELS = ("prefill_phase_wgmma_kernel", "prefill_phase_kernel",
+                "prefill_phase_wide_kernel")
 # K3's and K4's one kernel
 ROW_WRITE_KERNELS = ("append_rows_kernel",)
 # f32 outside the tensor cores, H100 SXM (NVIDIA's data sheet, 700 W)
@@ -351,12 +377,14 @@ def device_ms_of(torch, pairs, runs: int = TIMED_RUNS):
 # ----------------------------------------------------------------------------
 
 
-def check_flash(torch, pkg, gen, *, B, H, L, S, D, masked, true_lens=None):
+def check_flash(torch, pkg, gen, *, B, H, L, S, D, masked, true_lens=None, float64=False):
     """K1 against its plain version at (B, H, L, S, D) bf16, causal
     (``masked`` False) or under the engine's admission mask as a (B, 1, L,
     S) bias with the causal flag off: key j is visible iff j < true_len and
     j <= (S - L) + i, true lengths drawn from the range ``true_lens`` (lo,
-    hi], by default (15, S]. S > L is a chunk at offset S - L."""
+    hi], by default (15, S]. S > L is a chunk at offset S - L. With
+    ``float64`` (causal only) o is also held, K1 and its plain version
+    each, against ``fwd_float64`` (``o_excess`` <= 0)."""
     fa = pkg["flash_attention"]
     ops_fa = pkg["ops_flash_attention"]
     dev = "cuda"
@@ -400,6 +428,14 @@ def check_flash(torch, pkg, gen, *, B, H, L, S, D, masked, true_lens=None):
     require(excess_o <= 2e-3 and err_lse <= tol_lse and same,
             f"{name}: max |o - plain| - 2^-7 |o_plain| is {excess_o} (tol 2e-3), "
             f"max |lse - plain| {err_lse} (tol {tol_lse}), repeat bit-equal {same}")
+    excess64 = None
+    if float64:
+        ex = {"bias": None, "slopes": None, "seed": None, "dropout_rate": 0.0}
+        o64, o_abs64 = fwd_float64(torch, fa, q, k, v, ex, n=n_param, causal=True)
+        excess64 = {"kernel": o_excess(o, o64, o_abs64), "plain": o_excess(o_ref, o64, o_abs64)}
+        del o64, o_abs64
+        require(max(excess64.values()) <= 0.0,
+                f"{name}: o off the float64 evaluation (o_excess > 0): {excess64}")
 
     # the library yardstick: SDPA over K/V with one zero row prepended (the
     # reference library's trick for integer n = 1), under the same mask
@@ -424,7 +460,7 @@ def check_flash(torch, pkg, gen, *, B, H, L, S, D, masked, true_lens=None):
                         ":279 _fwd_kernel, :501 _fwd_pipeline_kernel",
             "counter": "flash_fwd",
             "max_abs_err": err_o, "max_abs_err_lse": err_lse, "tolerance": tol_o,
-            "repeat_bit_equal": same,
+            "o_excess_float64": excess64, "repeat_bit_equal": same,
             "ms": time_ms(torch, kernel), "device_ms": dev_ms,
             "tflops": tflops(4.0 * pairs * D, dev_ms), "plain_ms": time_ms(torch, plain),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(torch, library)}
@@ -1042,12 +1078,14 @@ def check_dropout_masks(torch, fa):
     require(all(equal.values()), f"a kernel's dropout mask differs from the plain hash: {equal}")
 
 
-def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, path="train"):
+def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, path="train",
+                       runs=TIMED_RUNS):
     """The three kernels at a training shape (by default the train phase's,
     B2 H32 L=S=2048 d64 bf16 causal, n = 1, dropout 0.1, as its every layer
     runs them; the quant_study phase's is B32 H16 L512 without dropout):
-    errors, and times against their bounds, plain versions and
-    scaled_dot_product_attention with one zero key/value row prepended."""
+    errors, and times (``runs`` calls each) against their bounds, plain
+    versions and scaled_dot_product_attention with one zero key/value row
+    prepended."""
     fa, ops = pkg["flash_attention"], pkg["build"].ops()
     n = 1.0
     (q, k, v, do, ex, o, lse), errs, name = check_attention(
@@ -1121,19 +1159,20 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
     def sdpa_bwd():
         return torch.autograd.grad(out_l, (ql, kl, vl), do, retain_graph=True)
 
-    plain_bwd_ms, library_bwd_ms = time_ms(torch, plain_bwd), time_ms(torch, sdpa_bwd)
+    plain_bwd_ms = time_ms(torch, plain_bwd, runs)
+    library_bwd_ms = time_ms(torch, sdpa_bwd, runs)
     # one profiler session: K5 and K6 alone, the wrapper's every kernel
     # (delta's torch ops, K5, K6), SDPA's backward's every kernel
     k5_dev, k6_dev, pair_dev, library_bwd_dev = device_ms_of(
         torch, [(wrapper_bwd, FLASH_DQ_KERNELS), (wrapper_bwd, FLASH_DKV_KERNELS),
-                (wrapper_bwd, None), (sdpa_bwd, None)])
+                (wrapper_bwd, None), (sdpa_bwd, None)], runs)
     common = {"route": "cuda", "tolerance": "o: 2^-8 |o64| + (2^-8 + 2^-11) (p|v|)64 of a "
                                             "float64 evaluation, K1 and plain each; grads: "
                                             "2e-2 of max(1, |plain|) and "
                                             f"{BWD_NORM_TOL['bf16']} of max(1, ||plain||); repeat "
                                             "calls bit-equal", "path": path}
     b1, by1 = bound_ms(4 * bhld * 2 + bhl * 4, 4.0 * D * pairs)
-    k1_dev = device_ms(torch, k1, FLASH_FWD_KERNELS)
+    k1_dev = device_ms(torch, k1, FLASH_FWD_KERNELS, runs)
     b5, by5 = bound_ms(5 * bhld * 2 + 2 * bhl * 4, 6.0 * D * pairs)
     b6, by6 = bound_ms(6 * bhld * 2 + 2 * bhl * 4, 8.0 * D * pairs)
     shape = f"B{B} H{H} L{L} S{L} d{D} bf16 causal n1" + (f" dropout {rate}" if rate else "")
@@ -1142,20 +1181,20 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
          "source": f"{CSRC}/flash_fwd.cu",
          "replaces": f"{FLASH_PY}:345 _fwd_single_kernel, :279 _fwd_kernel, "
                      ":501 _fwd_pipeline_kernel (ALiBi and dropout)",
-         "max_abs_err": errs["o"], "max_abs_err_lse": errs["lse"], "ms": time_ms(torch, k1),
-         "ms_with_alibi": time_ms(torch, k1_alibi),
+         "max_abs_err": errs["o"], "max_abs_err_lse": errs["lse"], "ms": time_ms(torch, k1, runs),
+         "ms_with_alibi": time_ms(torch, k1_alibi, runs),
          "device_ms": k1_dev, "tflops": tflops(4.0 * D * pairs, k1_dev),
-         "plain_ms": time_ms(torch, plain_fwd), "bound_ms": b1, "bound_by": by1,
-         "library_ms": time_ms(torch, sdpa)},
+         "plain_ms": time_ms(torch, plain_fwd, runs), "bound_ms": b1, "bound_by": by1,
+         "library_ms": time_ms(torch, sdpa, runs)},
         {**common, "name": f"flash_bwd_dq {shape}", "counter": "flash_bwd_dq",
          "source": f"{CSRC}/flash_bwd_dq.cu", "replaces": f"{FLASH_PY}:685 _bwd_dq_kernel",
-         "max_abs_err": errs["dq"], "ms": time_ms(torch, k5),
+         "max_abs_err": errs["dq"], "ms": time_ms(torch, k5, runs),
          "device_ms": k5_dev, "tflops": tflops(6.0 * D * pairs, k5_dev),
          "plain_ms": plain_bwd_ms, "bound_ms": b5, "bound_by": by5,
          "library_ms": library_bwd_ms},
         {**common, "name": f"flash_bwd_dkv {shape}", "counter": "flash_bwd_dkv",
          "source": f"{CSRC}/flash_bwd_dkv.cu", "replaces": f"{FLASH_PY}:777 _bwd_dkv_kernel",
-         "max_abs_err": max(errs["dk"], errs["dv"]), "ms": time_ms(torch, k6),
+         "max_abs_err": max(errs["dk"], errs["dv"]), "ms": time_ms(torch, k6, runs),
          "device_ms": k6_dev, "tflops": tflops(8.0 * D * pairs, k6_dev),
          "plain_ms": plain_bwd_ms, "bound_ms": b6, "bound_by": by6,
          "library_ms": library_bwd_ms},
@@ -1166,7 +1205,7 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
     # once each), not the 14·d the two kernels do: each recomputes S and dP
     b56, by56 = bound_ms(8 * bhld * 2 + bhl * 4, 10.0 * D * pairs)
     emit({"phase": "kernel_pair", "name": f"flash_bwd (delta + K5 + K6) {shape}",
-          "ms": time_ms(torch, wrapper_bwd), "device_ms": pair_dev,
+          "ms": time_ms(torch, wrapper_bwd, runs), "device_ms": pair_dev,
           "tflops": tflops(10.0 * D * pairs, pair_dev), "bound_ms": b56, "bound_by": by56,
           "library_ms": library_bwd_ms, "library_device_ms": library_bwd_dev,
           "vs_library_device": pair_dev / library_bwd_dev if pair_dev and library_bwd_dev
@@ -1202,19 +1241,33 @@ def train_kernels(torch, pkg, gen):
 # ----------------------------------------------------------------------------
 
 # the head dims that head_dims holds: the JAX fine-tune example's 16, two
-# public decoders' 80 and 96, and 256, where the kernels' scalar versions
-# take bf16 too
-HEAD_DIMS = (16, 80, 96, 256)
+# public decoders' 80 and 96, 256 (Gemma-2B's: K1's 64-row wgmma kernel in
+# bf16, the scalar kernels otherwise), and 300, 384 and 512 above it (300
+# padded to 384; the wide scalar kernels)
+HEAD_DIMS = (16, 80, 96, 256, 300, 384, 512)
+# K8 at head dims above 128 (bench_decode_attn.LINES' format): B8 KVH1 G8
+# S512, Gemma-2B's decode attention at hd 256 over int8 and bf16 caches,
+# and hd 160 and 512 over int8
+K8_WIDE_LINES = ((8, 1, 8, 512, 256, "int8", 901), (8, 1, 8, 512, 256, "bf16", 902),
+                 (8, 1, 8, 512, 160, "int8", 903), (8, 1, 8, 512, 512, "int8", 904))
+# K10's four modes at B2 H8 L1024 at head dims 80 (padded to 128), 256 (its
+# scalar kernel) and 320 (padded to 384, its wide kernel)
+K10_HEAD_DIMS = (80, 256, 320)
 
 
 def head_dims(torch, pkg, gen):
     """K1, K5 and K6 at head dims they are not built for, through the
-    wrappers that zero-pad D to the next of 32, 64, 128 and 256, and at
-    256: against their plain versions at B2 H4 L200 S264 under a (1, 4) bias
-    and causal, f32 and bf16, n 0 and 1, counting the launches; then K1 at
-    each D at the study's attention shape (B32 H16 L=S=512 causal bf16),
-    timed, with the bytes the padding adds. Returns (launches, kernel
-    lines)."""
+    wrappers that zero-pad D to the next of 32, 64, 128, 256 and the
+    multiples of 128 above, and at 256, 384 and 512: against their plain
+    versions at B2 H4 L200 S264 under a (1, 4) bias, ALiBi and dropout,
+    causal, f32 and bf16, n 0 and 1, counting the launches; then K1 at each
+    D at the study's attention shape (B32 H16 L=S=512 causal bf16), timed,
+    with the bytes the padding adds, o held against a float64 evaluation
+    too; K1, K5 and K6 at d256, 384 and 512 there as the training lines
+    time them (the backward pair against SDPA's backward); K8 at
+    ``K8_WIDE_LINES``; K10 at ``K10_HEAD_DIMS``. Returns (launches, kernel
+    lines): the K8 lines count their launches on head_dims_serve, the K10
+    lines on prefill_phases."""
     fa, build = pkg["flash_attention"], pkg["build"]
     torch.cuda.synchronize()
     build.reset_launches()
@@ -1222,7 +1275,8 @@ def head_dims(torch, pkg, gen):
         for dtype in (torch.float32, torch.bfloat16):
             for n in (0.0, 1.0):
                 _, errs, name = check_attention(torch, fa, gen, dtype, n=n, causal=True,
-                                                shape=(2, 4, 200, 264, d), bias_shape=(1, 4))
+                                                shape=(2, 4, 200, 264, d), bias_shape=(1, 4),
+                                                alibi=True, rate=0.25)
                 emit({"phase": "head_dims", "name": name, "padded_to": fa.kernel_head_dim(d),
                       "errors": errs, "repeat_bit_equal": True})
     launches = dict(build.LAUNCHES)
@@ -1232,7 +1286,7 @@ def head_dims(torch, pkg, gen):
     lines = []
     B, H, L = 32, 16, 512
     for d in HEAD_DIMS:
-        kd = check_flash(torch, pkg, gen, B=B, H=H, L=L, S=L, D=d, masked=False)
+        kd = check_flash(torch, pkg, gen, B=B, H=H, L=L, S=L, D=d, masked=False, float64=True)
         dp = fa.kernel_head_dim(d)
         # K1 reads q, k, v and writes o at dp columns; the pads read q, k
         # and v at d and write them at dp, and o's first d columns are
@@ -1243,10 +1297,108 @@ def head_dims(torch, pkg, gen):
         kd["padded_to"] = dp
         kd["path"] = "head_dims"
         emit({"phase": "head_dims_kernel", **{k: kd[k] for k in (
-            "name", "padded_to", "pad_bytes", "max_abs_err", "ms", "device_ms", "tflops",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+            "name", "padded_to", "pad_bytes", "max_abs_err", "o_excess_float64", "ms",
+            "device_ms", "tflops", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
         lines.append(kd)
+    # K1, K5 and K6 as the training lines time them: at d256 (K1's wgmma
+    # kernel, K5's and K6's scalar ones) and on the wide kernels at 384 (where
+    # 300 runs) and 512
+    for d in (256, 384, 512):
+        # the wide kernels take 12-80 ms a call: 5 calls a time there
+        lines += train_kernel_lines(torch, pkg, gen, B=B, H=H, L=L, D=d, rate=0.0,
+                                    path="head_dims", runs=TIMED_RUNS if d == 256 else 5)
+    da = pkg["decode_attention"]
+    for line in K8_WIDE_LINES:
+        kd = check_decode_attn(torch, pkg, line)
+        kd["path"] = "head_dims_serve"
+        emit({"phase": "head_dims_kernel", **{k: kd[k] for k in (
+            "name", "max_abs_err", "plan", "positions", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")}})
+        lines.append(kd)
+    require(da.decode_attn_plan(8, 1, 512, 512, 2, False) == da.WIDE_SPLIT,
+            "K8's plan at hd 512 over a bf16 cache is not its 16-position split")
+    for d in K10_HEAD_DIMS:
+        for mode in pkg["prefill_phases"].MODES:
+            kd = check_mini(torch, pkg, gen, mode=mode, B=2, H=8, L=1024, D=d)
+            kd["path"] = "prefill_phases"
+            emit({"phase": "head_dims_kernel", "padded_to": fa.kernel_head_dim(d),
+                  **{k: kd[k] for k in ("name", "max_abs_err", "ms", "device_ms", "tflops",
+                                        "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+            lines.append(kd)
     return launches, lines
+
+
+# Gemma-2B's published widths (google/gemma-2b config.json: hidden_size
+# 2048, 8 heads over 1 KV head, head_dim 256, intermediate_size 16384, vocab
+# 256000), which DecoderConfig takes as they are (d_model / n_heads = 256);
+# its 18 layers cut to HEAD_DIMS_SERVE_LAYERS, the one cut (depth)
+GEMMA_2B = dict(vocab_size=256000, d_model=2048, n_heads=8, n_kv_heads=1, d_ff=16384,
+                max_seq_len=2048, softmax_n=1.0)
+GEMMA_2B_LAYERS = 18
+HEAD_DIMS_SERVE_LAYERS = 2
+
+
+def head_dims_serve(torch, pkg):
+    """A decoder at Gemma-2B's attention widths (head dim 256, G = 8) on the
+    all-kernel routes: 2 of its 18 layers, int8 weights quantized from
+    N(0, 1/fan_in) draws (``init_7b_int8``), an int8 KV cache, max_len 512.
+    8 requests (prompts of 100-400 tokens, 32 new tokens each) go through 8
+    slots of an eager engine (capture off: nothing prewarmed), and the first
+    2 again through a 2-slot engine's step path, held to their budgets and
+    the teacher-forced gate; K1 (d256, under the engine's mask), K8 (hd
+    256, G 8), K2 (N 256000), K3, K4, K7 and K9 must launch. Prints K2's
+    and K8's plans at these shapes. Returns the launches of both runs."""
+    dec, eng_mod, build = pkg["decoder"], pkg["engine"], pkg["build"]
+    qm, da = pkg["quant_matmul"], pkg["decode_attention"]
+    cfg = dec.DecoderConfig(**GEMMA_2B, n_layers=HEAD_DIMS_SERVE_LAYERS, dtype=torch.bfloat16,
+                            int8_mm_impl="pallas", decode_attn_impl="pallas")
+    require(cfg.head_dim == 256, f"head_dims_serve: head dim {cfg.head_dim}, not 256")
+    t0 = time.perf_counter()
+    params = pkg["bench_7b"].init_7b_int8(cfg, torch.Generator(device="cuda").manual_seed(19),
+                                          device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    slots, requests, budget = 8, 8, 32
+    eng = eager_engine(eng_mod)(cfg, params, max_batch=slots, max_len=512,
+                                kv_quantization="int8")
+    rng = np.random.RandomState(19)
+    budgets = {}
+    for _ in range(requests):
+        prompt = rng.randint(0, cfg.vocab_size, size=int(rng.randint(100, 401))).tolist()
+        budgets[eng.submit(prompt, max_new_tokens=budget)] = budget
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    done = sorted(eng.run_until_done(loop_steps=64), key=lambda r: r.request_id)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    require(len(done) == requests, f"head_dims_serve: finished {len(done)} of {requests}")
+    check_served(done, budgets, cfg, "head_dims_serve")
+    n_tok = sum(len(r.output) for r in done)
+    k2 = qm.qmm_argmax_plan(slots, cfg.d_model, cfg.vocab_size)
+    emit({"phase": "head_dims_serve",
+          "config": f"Gemma-2B widths (d_model 2048, 8 heads over 1 KV head, head dim 256, "
+                    f"d_ff 16384, vocab 256000), {HEAD_DIMS_SERVE_LAYERS} of "
+                    f"{GEMMA_2B_LAYERS} layers, int8 weights from N(0, 1/fan_in), int8 KV, "
+                    f"all-kernel routes, eager engine",
+          "reduced": {"n_layers": [GEMMA_2B_LAYERS, HEAD_DIMS_SERVE_LAYERS]},
+          "init_s": init_s, "requests": len(done), "tokens": n_tok,
+          "prompt_tokens": [len(r.prompt) for r in done], "wall_s": wall,
+          "tokens_per_s": n_tok / wall, "launches": {k: v for k, v in launches.items() if v},
+          "k2_plan": k2._asdict(),
+          "k8_plan": {"split": da.decode_attn_plan(slots, 1, 512, 256, 1, False),
+                      "products": "mma" if da.decode_attn_products(
+                          torch.bfloat16, torch.int8, 256) == da.MMA else "fma"},
+          "counters": eng.counters_report()})
+    # the step path: K3 writes each step's rows (256 bytes of int8) into the cache
+    step_done, step_launches = serve_7b_step(torch, pkg, cfg, params, done, "int8",
+                                             "head_dims_serve")
+    launches = {k: launches[k] + step_launches[k] for k in launches}
+    teacher_forced_gate(torch, pkg, cfg, params, done + step_done, "head_dims_serve_agreement")
+    for name in SERVE_KERNELS + PALLAS_KERNELS:
+        require(launches[name] > 0, f"head_dims_serve never launched {name}")
+    return launches
 
 
 # ----------------------------------------------------------------------------
@@ -1553,12 +1705,14 @@ def teacher_forced_gate(torch, pkg, cfg, params, reqs, phase, extra=None):
     require(deficit <= 0.5, f"{phase}: teacher-forced logit deficit {deficit} > 0.5")
 
 
-def serve_fused(torch, pkg, cfg, params, phase, *, slots, requests, kv, seed):
+def serve_fused(torch, pkg, cfg, params, phase, *, slots, requests, kv, seed,
+                engines=None):
     """bench.py's engine (bench.py:528-536: the default piggyback_prefill,
     prewarm(loop_steps=64, attn_lens=[256])) serves ``requests`` through
     ``slots`` slots, so the queued ones can be piggybacked; returns (the
     requests done in id order, the kernels' launches on the run). Requires
-    every budget met and some prompt piggybacked."""
+    every budget met and some prompt piggybacked. The engine, its graphs
+    kept, is appended to ``engines`` if given."""
     eng_mod, build = pkg["engine"], pkg["build"]
     eng = eng_mod.InferenceEngine(cfg, params, max_batch=slots, max_len=512,
                                   kv_quantization=kv)
@@ -1583,17 +1737,21 @@ def serve_fused(torch, pkg, cfg, params, phase, *, slots, requests, kv, seed):
           "counters": counters})
     require(counters.get("piggyback_prompts", 0) > 0,
             f"{phase}: no prompt was piggybacked (the phase lost its subject)")
+    if engines is not None:
+        engines.append(eng)
     return done, launches
 
 
-def serve_route(torch, pkg, cfg, params, prefix=""):
+def serve_route(torch, pkg, cfg, params, prefix="", engines=None):
     """96 requests through the fused loop and 4 step by step on one route,
-    with every gate; returns the kernels' launches on the two runs."""
+    with every gate; returns the kernels' launches on the two runs (and
+    appends the fused loop's engine to ``engines`` if given)."""
     dec, eng_mod, build = pkg["decoder"], pkg["engine"], pkg["build"]
     phase = (prefix + "_") if prefix else ""
     # fused loop: 96 requests through 64 slots (bench.py)
     done, fused_launches = serve_fused(torch, pkg, cfg, params, f"{phase or 'serve_'}fused",
-                                       slots=64, requests=96, kv="int8", seed=0)
+                                       slots=64, requests=96, kv="int8", seed=0,
+                                       engines=engines)
 
     # step path: 4 requests decoded one step at a time (K3 writes the cache)
     step_eng = eng_mod.InferenceEngine(cfg, params, max_batch=4, max_len=512,
@@ -1816,12 +1974,15 @@ def admission_busy(torch, pkg, cfg, params, reqs, prefix):
     return sum(ms for ms, _ in device_by_name(prof).values()), wall
 
 
-def serve_prefix(torch, pkg, cfg, params):
+def serve_prefix(torch, pkg, cfg, params, eng):
     """bench.py's prefix pair on the default route (int8 weights and KV):
     64 requests (prompts 16-127, budgets 16-63; every even one behind a
     256-token prefix, so 272-383 tokens) through 64 slots of a prewarmed
     engine (``prewarm(loop_steps=64, attn_lens=[256, 512])``, bench.py's
-    two windows), twice on the same engine: prefix cache off (the 32
+    two windows; ``eng``, the serve phase's engine of the same
+    configuration, whose 256-row variants its own prewarm captured, so
+    only the 512-row ones are cold here), twice on the same engine:
+    prefix cache off (the 32
     prefixed prompts take the chunked lane, chunks at offsets 0 and 256),
     then on after ``register_prefix`` (32 hits, each a copy of 256 stored
     rows and one chunk at offset 256). Held to every budget, the
@@ -1834,8 +1995,8 @@ def serve_prefix(torch, pkg, cfg, params):
     requests whose outputs are equal in both runs. Returns the launches of
     both runs."""
     eng_mod, build, qtensor = pkg["engine"], pkg["build"], pkg["qtensor"]
-    eng = eng_mod.InferenceEngine(cfg, params, max_batch=64, max_len=512,
-                                  kv_quantization="int8")
+    require(not eng.queue and all(r is None for r in eng.slots) and not eng._prefixes,
+            "serve_prefix: the serve phase's engine is not idle")
     prewarm = prewarm_line(torch, eng, "serve_prefix", attn_lens=(256, 512))
     prefix = np.random.RandomState(PREFIX_SEED).randint(
         0, cfg.vocab_size, size=PREFIX_LEN).tolist()
@@ -1953,7 +2114,8 @@ def serve_prefix(torch, pkg, cfg, params):
 
 # serve_int4, serve_w8a8 and serve_fp8 run 2 of the 22 layers: each
 # engine's prewarm replays the whole model 480 steps, and fp8's at 22
-# layers (prewarm and profile, 130 s) pushed the smoke near its time limit
+# layers (prewarm and profile, 130 s) pushed the smoke near its time limit;
+# so do graph_parity's all-kernel and fp8 routes
 SHALLOW_LAYERS = 2
 
 
@@ -1980,7 +2142,8 @@ def serve(torch, pkg):
                     "per-output-channel (grouped int4 for serve_int4, fp8 e4m3 for "
                     "serve_fp8)"})
     pallas = dataclasses.replace(cfg, int8_mm_impl="pallas", decode_attn_impl="pallas")
-    launches = {"serve": serve_route(torch, pkg, cfg, params),
+    default_engine = []  # the serve phase's engine, for serve_prefix
+    launches = {"serve": serve_route(torch, pkg, cfg, params, engines=default_engine),
                 "serve_pallas": serve_route(torch, pkg, pallas, params, "serve_pallas"),
                 # K7's int4 and W8A8 modes
                 "serve_int4": serve_mode(torch, pkg, *shallow(pallas, params4, SHALLOW_LAYERS),
@@ -1995,10 +2158,12 @@ def serve(torch, pkg):
                                         launched=("flash_fwd", "decode_attn", "tail_append",
                                                   "cache_append"),
                                         idle=("qmm", "qmm_argmax", "fused_mlp")),
-                "serve_prefix": serve_prefix(torch, pkg, cfg, params)}
+                "serve_prefix": serve_prefix(torch, pkg, cfg, params, default_engine.pop())}
     graph_parity(torch, pkg, cfg, params, "default", "int8")
-    graph_parity(torch, pkg, pallas, params, "pallas", "int8")
-    graph_parity(torch, pkg, pallas, params_fp8, "pallas", "fp8")
+    # the all-kernel and fp8 routes' replays at 2 layers, as serve_fp8 runs
+    # them: what they hold does not depend on depth (22 layers: about 20 s each)
+    graph_parity(torch, pkg, *shallow(pallas, params, SHALLOW_LAYERS), "pallas", "int8")
+    graph_parity(torch, pkg, *shallow(pallas, params_fp8, SHALLOW_LAYERS), "pallas", "fp8")
     return launches
 
 
@@ -2007,13 +2172,23 @@ def serve(torch, pkg):
 # ----------------------------------------------------------------------------
 
 
+# the profile's command line at head dims K10 and K1 are not built for:
+# hd 80 (padded to 128) and 256 (K10's scalar kernel, K1's 64-row one)
+PREFILL_PHASE_WIDE_SHAPES = ("2,32,2048,80", "2,8,1024,256")
+
+
 def prefill_phases(torch, pkg):
     """One run of the prefill-phase profile entry point at its headline
-    shape; returns the kernels' launches on the run."""
-    build = pkg["build"]
+    shape, then its command line (``main``, 5 iterations) at
+    ``PREFILL_PHASE_WIDE_SHAPES``; returns the kernels' launches on the
+    runs."""
+    build, profile = pkg["build"], pkg["profile_prefill_phases"]
     torch.cuda.synchronize()
     build.reset_launches()
-    lines = pkg["profile_prefill_phases"].run((2, 32, 2048, 64), iters=10)
+    lines = profile.run((2, 32, 2048, 64), iters=10)
+    for shape in PREFILL_PHASE_WIDE_SHAPES:
+        require(profile.main(["--shape", shape, "--iters", "5"]) == 0,
+                f"prefill_phases --shape {shape} failed")
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
     for line in lines:
@@ -3253,7 +3428,8 @@ def serve_mesh_route(torch, pkg, cfg, params, mesh, route):
     n_tok = sum(len(o) for o in out)
     emit({"phase": f"serve_mesh_{route}", "card": pkg["nvidia_smi"],
           "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
-          "config": f"TinyLlama-1.1B shape, 22 layers, int8 weights and KV, {route} route",
+          "config": f"TinyLlama-1.1B widths, {cfg.n_layers} of 22 layers, int8 weights and "
+                    f"KV, {route} route",
           "requests": len(out), "tokens": n_tok, "wall_s": wall,
           "tokens_per_s": n_tok / wall, "prewarm_s": prewarm["seconds"],
           "variants": prewarm["variants"], "step_requests": 4, "step_wall_s": step_wall,
@@ -3313,17 +3489,25 @@ def serve_mesh_prefix(torch, pkg, cfg, params, mesh):
     return {k: cold_launches[k] + warm_launches[k] for k in cold_launches}
 
 
+# serve_mesh's depth: the TinyLlama-1.1B widths at 2 of its 22 layers. At
+# 22 layers its two prewarms, the unmeshed references and the prefix pair
+# took about 125 s of the smoke on an H100; what it checks (tokens equal to an
+# unmeshed engine's, the prefix hits to cold prefill, every kernel
+# launched) does not depend on depth
+SERVE_MESH_LAYERS = 2
+
+
 def serve_mesh(torch, pkg):
     """``InferenceEngine(mesh=make_mesh({"data": 1, "model": 1}))`` on the
-    one-rank NCCL group at the TinyLlama-1.1B shape (22 layers, bf16, the
-    serve phase's int8 weights from seed 0, int8 KV, 64 slots, max_len
-    512): the default route and the all-kernel route
+    one-rank NCCL group at the TinyLlama-1.1B widths (``SERVE_MESH_LAYERS``
+    of its 22 layers, bf16, int8 weights from seed 0, int8 KV, 64 slots,
+    max_len 512): the default route and the all-kernel route
     (``serve_mesh_route``), then the prefix cache (``serve_mesh_prefix``).
     Every kernel of the path must launch. Returns the meshed runs'
     launches."""
     dec, weights = pkg["decoder"], pkg["weights"]
     mesh = pkg["mesh"].make_mesh({"data": 1, "model": 1})
-    cfg = dec.DecoderConfig(**TINYLLAMA, n_layers=22, dtype=torch.bfloat16)
+    cfg = dec.DecoderConfig(**TINYLLAMA, n_layers=SERVE_MESH_LAYERS, dtype=torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(0)
     dense = dec.init_decoder_params(cfg, gen, device="cuda")
     params = weights.quantize_decoder_weights(dense, bits=8)
@@ -3749,6 +3933,7 @@ def main() -> int:
     launches["analysis"] = analysis(torch, pkg)
     launches["quant_study"] = quant_study(torch, pkg)
     launches["head_dims"] = launches_head_dims
+    launches["head_dims_serve"] = head_dims_serve(torch, pkg)
     launches["surgery"] = surgery(torch, pkg)
     launches["ring"], ring_lines = ring(torch, pkg)
     kernels += ring_lines
@@ -3763,6 +3948,7 @@ def main() -> int:
         kd["launches_train_mesh"] = launches["train_mesh"].get(counter, 0)
         kd["launches_serve_mesh"] = launches["serve_mesh"][counter]
         kd["launches_serve_7b"] = launches["serve_7b"][counter]
+        kd["launches_head_dims_serve"] = launches["head_dims_serve"][counter]
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

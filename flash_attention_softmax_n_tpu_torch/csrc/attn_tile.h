@@ -29,6 +29,11 @@
 // 2i + c], row 16 (t / 32) + (t % 32) / 4 + 8i and column 8j + 2 (t % 4)
 // + c. A row's values are spread over the 4 lanes of a quad, so row
 // reductions are two shuffles.
+//
+// Tiles, rings, loads and products take the rows of a tile as a template
+// parameter, ROWS, by default TQ = TK = 128: K1's kernel at D 256
+// (flash_fwd.cu) keeps every tile at 64 rows (a warpgroup's queries, a key
+// tile), where a 128-row tile of D 256 would be 64 KB.
 
 #pragma once
 
@@ -50,23 +55,24 @@ constexpr int CONSUMERS = 256;
 constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+// one box shape of ROWS rows serves q, k and v
+template <int D, int ROWS = TQ>
 struct Tile {
   static constexpr int BOX_COLS = D < 64 ? D : 64;
   static constexpr int BOXES = D / BOX_COLS;
   static constexpr int ROW = BOX_COLS * 2;       // bytes of one box row: 64 or 128
   static constexpr int LAYOUT = ROW == 128 ? 1 : 2;  // descriptor layout: 128- or 64-byte swizzle
   static constexpr int GROUP = 8 * ROW;          // bytes of 8 rows: one swizzle repeat
-  static constexpr int BOX = TQ * ROW;           // one 128-row box (TQ == TK)
-  static constexpr int TILE = BOXES * BOX;       // a whole 128-row tile of q, k or v
-  static_assert(TQ == TK, "one box shape serves q, k and v");
+  static constexpr int BOX = ROWS * ROW;         // one box of ROWS rows
+  static constexpr int TILE = BOXES * BOX;       // a whole tile of q, k or v
 };
 
-// RES resident tiles at the base (K1, K10: Q; K5: Q, dO; K6: K, V), then
-// slot s's two ring tiles (K and V; K6: Q and dO); the barriers after them.
-template <int D, int RES = 1>
+// RES resident tiles at the base (K1, K10: Q; K5: Q, dO; K6: K, V; K1 at D
+// 256: the two warpgroups' Q), then slot s's two ring tiles (K and V; K6: Q
+// and dO); the barriers after them.
+template <int D, int RES = 1, int ROWS = TQ>
 struct Ring {
-  using T = Tile<D>;
+  using T = Tile<D, ROWS>;
   static constexpr int BAR_AT = T::TILE * (RES + 2 * STAGES);
   // q_full, full_k[STAGES], full_v[STAGES], empty[STAGES]; + room to align
   static constexpr int SMEM = BAR_AT + 8 * (1 + 3 * STAGES) + 1024;
@@ -84,14 +90,14 @@ struct Ring {
 
 // The ring in dynamic shared memory, aligned to 1 KB; barriers initialised
 // by thread 0, then the whole CTA synchronises once.
-template <int D, int RES = 1>
-__device__ __forceinline__ Ring<D, RES> make_ring(uint8_t* smem_raw) {
-  Ring<D, RES> r;
+template <int D, int RES = 1, int ROWS = TQ>
+__device__ __forceinline__ Ring<D, RES, ROWS> make_ring(uint8_t* smem_raw) {
+  Ring<D, RES, ROWS> r;
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t pad = (1024 - (raw & 1023)) & 1023;
   r.mem = smem_raw + pad;
   r.base = raw + pad;
-  r.bars = r.base + Ring<D, RES>::BAR_AT;
+  r.bars = r.base + Ring<D, RES, ROWS>::BAR_AT;
   if (threadIdx.x == 0) {
     mbar_init(r.q_full(), 1);
     for (int s = 0; s < STAGES; ++s) {
@@ -105,42 +111,44 @@ __device__ __forceinline__ Ring<D, RES> make_ring(uint8_t* smem_raw) {
   return r;
 }
 
-// one 128-row tile (all its boxes) of head bh from row `row0`
-template <int D>
+// one tile (all its boxes) of head bh from row `row0`
+template <int D, int ROWS = TQ>
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                           int row0, int bh) {
+  using T = Tile<D, ROWS>;
 #pragma unroll
-  for (int b = 0; b < Tile<D>::BOXES; ++b)
-    tma_3d(dst + b * Tile<D>::BOX, map, bar, b * Tile<D>::BOX_COLS, row0, bh);
+  for (int b = 0; b < T::BOXES; ++b) tma_3d(dst + b * T::BOX, map, bar, b * T::BOX_COLS, row0, bh);
 }
 
-// The producer (one lane): the RES resident tiles from row `res_row` on
-// q_full, then `tiles` ring tiles in order from tile `first`; the first
-// `k_only` of them bring K alone (full_v is then arrived on without bytes,
-// so its phases stay those of the slot), the rest K and V from row (first
-// + i - k_only) * TK.
-template <int D, int RES>
-__device__ __forceinline__ void produce(const Ring<D, RES>& r,
+// The producer (one lane): the RES resident tiles, tile i from row res_row
+// + i * res_step, on q_full, then `tiles` ring tiles in order from tile
+// `first`; the first `k_only` of them bring K alone (full_v is then arrived
+// on without bytes, so its phases stay those of the slot), the rest K and V
+// from row (first + i - k_only) * ROWS. TRAP: how its waits end on a fault
+// (hopper.h mbar_wait).
+template <int D, int RES, int ROWS = TQ, bool TRAP = true>
+__device__ __forceinline__ void produce(const Ring<D, RES, ROWS>& r,
                                         const CUtensorMap* const (&res_maps)[RES], int res_row,
                                         const CUtensorMap* kmap, const CUtensorMap* vmap, int bh,
-                                        int first, int tiles, int k_only) {
-  using T = Tile<D>;
+                                        int first, int tiles, int k_only, int res_step = 0) {
+  using T = Tile<D, ROWS>;
   if (tiles == 0) return;
   mbar_expect_tx(r.q_full(), RES * T::TILE);
 #pragma unroll
-  for (int i = 0; i < RES; ++i) load_tile<D>(r.res(i), res_maps[i], r.q_full(), res_row, bh);
+  for (int i = 0; i < RES; ++i)
+    load_tile<D, ROWS>(r.res(i), res_maps[i], r.q_full(), res_row + i * res_step, bh);
   int stage = 0;
   uint32_t phase = 0;
   for (int i = 0; i < tiles; ++i) {
-    mbar_wait(r.empty(stage), phase ^ 1);
-    const int row = (first + (i < k_only ? i : i - k_only)) * TK;
+    mbar_wait<TRAP>(r.empty(stage), phase ^ 1);
+    const int row = (first + (i < k_only ? i : i - k_only)) * ROWS;
     mbar_expect_tx(r.full_k(stage), T::TILE);
-    load_tile<D>(r.k(stage), kmap, r.full_k(stage), row, bh);
+    load_tile<D, ROWS>(r.k(stage), kmap, r.full_k(stage), row, bh);
     if (i < k_only) {
       mbar_arrive(r.full_v(stage));
     } else {
       mbar_expect_tx(r.full_v(stage), T::TILE);
-      load_tile<D>(r.v(stage), vmap, r.full_v(stage), row, bh);
+      load_tile<D, ROWS>(r.v(stage), vmap, r.full_v(stage), row, bh);
     }
     if (++stage == STAGES) {
       stage = 0;
@@ -151,10 +159,11 @@ __device__ __forceinline__ void produce(const Ring<D, RES>& r,
 
 // issues s = A B^T over the D / 16 k16 steps as one wgmma group, without
 // waiting: A the 64 rows at `a`, B the 2 M rows at `b` (M = 64, 32 or 16
-// floats: 128, 64 or 32 rows), both K-major tiles of the ring's layout
-template <int D, int M>
+// floats: 128, 64 or 32 rows), both K-major tiles of the ring's layout with
+// boxes of ROWS rows
+template <int D, int M, int ROWS = TQ>
 __device__ __forceinline__ void qk_async(float (&s)[M], uint32_t a, uint32_t b) {
-  using T = Tile<D>;
+  using T = Tile<D, ROWS>;
   constexpr int PER_BOX = T::BOX_COLS / 16;
   wgmma_fence();
 #pragma unroll
@@ -178,10 +187,10 @@ __device__ __forceinline__ void qk(float (&s)[64], uint32_t q, uint32_t k, int w
 // p[kk] the A fragment of rows 16 kk .. 16 kk + 15 of V (rows x D, D
 // contiguous, from `v`), read MN-major: 8-row groups GROUP bytes apart, D's
 // 64-column boxes BOX bytes apart
-template <int D, int STEPS>
+template <int D, int STEPS, int ROWS = TQ>
 __device__ __forceinline__ void pv_async(float (&o)[D / 2], const uint32_t (&p)[STEPS][4],
                                          uint32_t v) {
-  using T = Tile<D>;
+  using T = Tile<D, ROWS>;
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < STEPS; ++kk)
@@ -224,12 +233,12 @@ __device__ __forceinline__ void to_a_frags(const float (&s)[M], uint32_t (&p)[M 
 }
 
 // x * scale_q rounded to bf16, in place over rows 64 wg .. 64 wg + 63 of
-// the 128-row tile at `tile` (generic address): each thread of the
-// warpgroup rewrites 16-byte chunks; the caller then fences the async proxy
-// and synchronises before wgmma reads the rows
-template <int D>
+// the tile at `tile` (generic address): each thread of the warpgroup
+// rewrites 16-byte chunks; the caller then fences the async proxy and
+// synchronises before wgmma reads the rows
+template <int D, int ROWS = TQ>
 __device__ __forceinline__ void scale_q_rows(uint8_t* tile, int wg, float scale_q) {
-  using T = Tile<D>;
+  using T = Tile<D, ROWS>;
   const int t = threadIdx.x % 128;
 #pragma unroll
   for (int b = 0; b < T::BOXES; ++b) {
@@ -257,11 +266,13 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// the 4-thread-quad row max of fragment row i (0: g, 1: g + 8)
-__device__ __forceinline__ float row_max(const float (&s)[64], int i) {
+// the 4-thread-quad row max of fragment row i (0: g, 1: g + 8) of an
+// m64nN fragment (M = N / 2 floats)
+template <int M>
+__device__ __forceinline__ float row_max(const float (&s)[M], int i) {
   float m = NEG_INF;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) m = fmaxf(m, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+  for (int j = 0; j < M / 4; ++j) m = fmaxf(m, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
   return quad_max(m);
 }
 
@@ -284,8 +295,9 @@ __device__ __forceinline__ void store_rows(const float (&o)[D / 2], __nv_bfloat1
 }
 
 // host: the 3-D map of a contiguous bf16 (B*H, rows, D) tensor with a
-// (box columns x 128 rows x 1 head) box, swizzled as the tile expects
-inline bool encode_rows(CUtensorMap* map, const void* base, long long heads, int rows, int D) {
+// (box columns x box_rows x 1 head) box, swizzled as the tile expects
+inline bool encode_rows(CUtensorMap* map, const void* base, long long heads, int rows, int D,
+                        int box_rows = TQ) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const int box_cols = D < 64 ? D : 64;
@@ -293,7 +305,8 @@ inline bool encode_rows(CUtensorMap* map, const void* base, long long heads, int
                               static_cast<cuuint64_t>(heads)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
                                  static_cast<cuuint64_t>(rows) * D * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), TQ, 1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows),
+                             1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
             unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -306,11 +319,13 @@ inline bool encode_rows(CUtensorMap* map, const void* base, long long heads, int
 struct AttnMaps {
   CUtensorMap q, k, v, dout;
 };
-inline bool encode_attn(AttnMaps* m, const FasnAttn& a, int D, const void* dout = nullptr) {
+inline bool encode_attn(AttnMaps* m, const FasnAttn& a, int D, const void* dout = nullptr,
+                        int box_rows = TQ) {
   const long long heads = (long long)a.B * a.H;
-  return encode_rows(&m->q, a.q, heads, a.L, D) && encode_rows(&m->k, a.k, heads, a.S, D) &&
-         encode_rows(&m->v, a.v, heads, a.S, D) &&
-         (dout == nullptr || encode_rows(&m->dout, dout, heads, a.L, D));
+  return encode_rows(&m->q, a.q, heads, a.L, D, box_rows) &&
+         encode_rows(&m->k, a.k, heads, a.S, D, box_rows) &&
+         encode_rows(&m->v, a.v, heads, a.S, D, box_rows) &&
+         (dout == nullptr || encode_rows(&m->dout, dout, heads, a.L, D, box_rows));
 }
 
 // grid: x the (b, h) pair, y the query tile, heaviest (last) first

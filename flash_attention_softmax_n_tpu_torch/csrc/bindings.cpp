@@ -56,7 +56,7 @@ void check_on(const at::Tensor& t, const at::Tensor& ref, const char* what) {
 }
 
 // bf16 inputs of the TMA kernels (K1, K5, K6, K10): each tensor's first row
-// on a 16-byte boundary, as TMA requires (their rows are 64-256 bytes)
+// on a 16-byte boundary, as TMA requires (their rows are 64-512 bytes)
 void check_tma(std::initializer_list<const at::Tensor*> ts, const char* what) {
   for (const at::Tensor* t : ts)
     TORCH_CHECK_VALUE(t->scalar_type() != at::kBFloat16 ||
@@ -70,9 +70,15 @@ void check_shape(const at::Tensor& t, at::IntArrayRef shape, at::ScalarType dtyp
                     " must be ", dtype, " ", shape, ", got ", t.scalar_type(), " ", t.sizes());
 }
 
-// the attention inputs that K1, K5 and K6 share (launchers.h FasnAttn):
-// head dims 32, 64, 128 and 256 (the wrappers zero-pad any other head dim
-// up to the next of these)
+// the head dims the attention kernels (K1, K5, K6, K10) are built for: 32,
+// 64, 128, 256 and any multiple of 128 above (the wrappers zero-pad any
+// other head dim up to the next of these, as JAX pads to its kernels')
+void check_head_dim(int64_t D, const char* what) {
+  TORCH_CHECK_VALUE(D == 32 || D == 64 || D == 128 || D == 256 || (D > 256 && D % 128 == 0),
+                    what, " head dim must be 32, 64, 128, 256 or a multiple of 128, got ", D);
+}
+
+// the attention inputs that K1, K5 and K6 share (launchers.h FasnAttn)
 FasnAttn attn_args(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
                    const std::optional<at::Tensor>& bias, const std::optional<at::Tensor>& slopes,
                    const std::optional<at::Tensor>& seed, double scale_q, bool causal,
@@ -81,8 +87,7 @@ FasnAttn attn_args(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v
   const int64_t B = q.size(0), H = q.size(1), L = q.size(2), D = q.size(3), S = k.size(2);
   FasnAttn a{};
   a.dtype = dtype_code(q, what);
-  TORCH_CHECK_VALUE(D == 32 || D == 64 || D == 128 || D == 256, what,
-                    " head dim must be one of (32, 64, 128, 256), got ", D);
+  check_head_dim(D, what);
   for (const at::Tensor* t : {&q, &k, &v}) check_on(*t, q, what);
   check_shape(k, {B, H, S, D}, q.scalar_type(), what, "k");
   check_shape(v, {B, H, S, D}, q.scalar_type(), what, "v");
@@ -519,8 +524,8 @@ void decode_attn(const at::Tensor& q, const std::optional<at::Tensor>& q_scales,
   TORCH_CHECK_VALUE(q.dim() == 4 && k.dim() == 4, what,
                     ": q (B, KVH, G, hd) and k (B, KVH, S, hd) are 4-D");
   const int64_t B = q.size(0), KVH = q.size(1), G = q.size(2), HD = q.size(3), S = k.size(2);
-  TORCH_CHECK_VALUE(G >= 1 && G <= 16 && HD >= 1 && HD <= 128, what,
-                    ": needs 1 <= G <= 16 query rows per KV head and hd <= 128, got G=", G,
+  TORCH_CHECK_VALUE(G >= 1 && G <= 16 && HD >= 1, what,
+                    ": needs 1 <= G <= 16 query rows per KV head and hd >= 1, got G=", G,
                     " hd=", HD);
   const c10::cuda::CUDAGuard guard(q.device());
   FasnDecode a{};
@@ -599,9 +604,8 @@ void prefill_phase(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v
   const char* what = "prefill_phase";
   TORCH_CHECK_VALUE(q.dim() == 4, what, ": q, k, v and o are (B, H, L, D)");
   TORCH_CHECK_VALUE(mode >= 0 && mode <= 3, what, ": mode must be 0-3, got ", mode);
+  check_head_dim(q.size(3), what);
   const int64_t D = q.size(3);
-  TORCH_CHECK_VALUE(D == 32 || D == 64 || D == 128, what,
-                    " head dim must be one of (32, 64, 128), got ", D);
   const c10::cuda::CUDAGuard guard(q.device());
   const int dtype = dtype_code(q, what);
   for (const at::Tensor* t : {&q, &k, &v, &o}) {

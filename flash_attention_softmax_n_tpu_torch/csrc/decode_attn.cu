@@ -23,11 +23,15 @@
 // set its time. The design shortens that chain and fills the card:
 // - Flash decoding with a split length chosen per call by the plan
 //   (kernels/decode_attention.py decode_attn_plan, which also keeps a
-//   split's k and v rows within 144 KB so that a few CTAs share an SM; the
+//   split's k and v rows within 48 KB so that a few CTAs share an SM; the
 //   operator checks only what the kernel needs, fasn_decode_attn_plan_ok):
 //   the longest of 256, 128, 64 and 32 positions that still gives about
 //   one CTA per SM over (split, KV head, slot) with every slot full (32 at
-//   B8 S256 and B2 S512, 256 at B64 S256 and S512). Splits past a slot's
+//   B8 S256 and B2 S512, 256 at B64 S256 and S512), and 16 where no
+//   longer split's rows fit the 48 KB (a wide head dim: bf16 at hd 512).
+//   Any head dim runs as it is: JAX pads hd to a multiple of 128 for its
+//   lanes, and zero columns would change no score and add only zero
+//   columns of acc, while padding the cache here would copy it. Splits past a slot's
 //   length cost little, but splitting its valid rows further costs a CTA's
 //   fixed chain and a merge step: the plan sees the window, not the
 //   lengths. Under int8 compute the split stays 256 positions:
@@ -86,7 +90,10 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int MAX_G = 16;
-constexpr int MAX_HD = 128;
+// int8 compute's products stay exact in f32 up to hd 1024 (1024 x 128 x
+// 128 = 2^24); the other modes take any hd whose layout fits a block
+constexpr int INT8C_MAX_HD = 1024;
+constexpr int MIN_SPLIT = 16;  // one mma tile of positions
 constexpr int MAX_SPLIT = 256;
 constexpr int INT8_SPLIT = 256;         // the Pallas kernel's tile: int8 compute's only split
 constexpr int SMEM_MAX = 227 * 1024;    // the H100's dynamic shared memory a block
@@ -419,10 +426,12 @@ __global__ void __launch_bounds__(THREADS)
     return;
   }
   // acc[g, d] = sum_p p[g, p] v[p, d]: one thread per (d, group of rows),
-  // four positions at a time
+  // four positions at a time; above 128 head dims a thread takes every
+  // THREADS-th one
   const int dgroups = max(1, THREADS / HD), dgs = (G + dgroups - 1) / dgroups;
-  const int d = tid % HD, g0 = (tid / HD) * dgs;
-  if (tid < dgroups * HD && g0 < G) {
+  for (int e = tid; e < dgroups * HD; e += THREADS) {
+    const int d = e % HD, g0 = (e / HD) * dgs;
+    if (g0 >= G) continue;
     float acc[MAX_G];
 #pragma unroll
     for (int j = 0; j < MAX_G; ++j) acc[j] = 0.f;
@@ -546,10 +555,11 @@ cudaError_t by_cache(const FasnDecode& a, int L, float* part_acc, float* part_m,
 extern "C" int fasn_decode_attn_plan_ok(int split, int products, int G, int HD, int q_dtype,
                                         int kv_dtype) {
   static const int elem[] = {4, 2, 1, 1};
-  if (G < 1 || G > MAX_G || HD < 1 || HD > MAX_HD || kv_dtype < 0 || kv_dtype > 3) return 0;
+  if (G < 1 || G > MAX_G || HD < 1 || kv_dtype < 0 || kv_dtype > 3) return 0;
   const bool int8c = q_dtype == 2;
-  if (int8c ? split != INT8_SPLIT
-            : split != 32 && split != 64 && split != 128 && split != MAX_SPLIT)
+  if (int8c ? split != INT8_SPLIT || HD > INT8C_MAX_HD
+            : split != MIN_SPLIT && split != 32 && split != 64 && split != 128 &&
+                  split != MAX_SPLIT)
     return 0;
   if (products == 1)  // the tensor-core products
     return q_dtype == 1 && kv_dtype >= 1 && HD % 16 == 0 &&

@@ -40,6 +40,12 @@
 // memory for the two transposed products. At D 256 the tiles are 32 x 32
 // (scalar_tile, for shared memory) and the kernel takes bf16 too.
 //
+// Above 256 (D a multiple of 128, as the wrapper pads it), f32 and bf16
+// take flash_bwd_dkv_wide_kernel: the same 64 x 64 tiles and thread
+// layout, one CTA for 128 columns of dk and dv, S^T and dP^T accumulated
+// over D in 64-column chunks (flash_common.h wide_dots), so that its shared
+// memory (165,888 bytes) does not grow with D.
+//
 // lse is clamped at DEAD_LSE as in K5, so dead rows (n == 0, L > S) add
 // nothing; query rows past L and keys past S are masked in the tile.
 
@@ -213,6 +219,117 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dkv_wide_kernel(const FasnAttn a, const T* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              T* __restrict__ dk, T* __restrict__ dv) {
+  constexpr int TB = 64, R = TB / 16;
+  constexpr int BQP = TB + 1;
+  constexpr int CD = WIDE_OC / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem + 4 * TB * WIDE_KP;  // TB x WIDE_OC: q * scale_q rounded to T, the CTA's columns
+  float* sDO = sQ + TB * WIDE_OC;       // TB x WIDE_OC
+  float* sPD = sDO + TB * WIDE_OC;      // TB x BQP, dropped p rounded to T
+  float* sDS = sPD + TB * BQP;          // TB x BQP, ds rounded to T
+  float* sL = sDS + TB * BQP;           // TB, clamped lse
+  float* sD = sL + TB;                  // TB, delta
+
+  const int D = a.D, chunks = D / WIDE_OC;
+  const int h = blockIdx.y, b = blockIdx.z / chunks, oc0 = blockIdx.z % chunks * WIDE_OC;
+  const int L = a.L, S = a.S;
+  const int k0 = blockIdx.x * TB;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const long long bh = (long long)b * a.H + h;
+  const T* qb = static_cast<const T*>(a.q) + bh * L * D;
+  const T* kb = static_cast<const T*>(a.k) + bh * S * D;
+  const T* vb = static_cast<const T*>(a.v) + bh * S * D;
+  const T* dob = dout + bh * L * D;
+  const ScoreMods mods = score_mods(a, b, h);
+  const Dropout drop = dropout_of(a);
+
+  float acc_k[R][CD], acc_v[R][CD];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < CD; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+  // the first query row that sees key k0 is k0 - (S - L)
+  int q_begin = 0;
+  if (mods.causal) q_begin = max(0, k0 - mods.off) / TB * TB;
+
+  for (int q0 = q_begin; q0 < L; q0 += TB) {
+    // transposed tiles: row = key ty + 16 i, column = query tx + 16 j
+    float s[R][R], dp[R][R];
+    wide_dots<T, R, true>(smem, D, kb, 1.f, k0, S, qb, a.scale_q, q0, L, vb, dob, s, dp);
+    wide_cols<T, TB>(sQ, qb, q0, L, D, oc0, a.scale_q);
+    wide_cols<T, TB>(sDO, dob, q0, L, D, oc0, 1.f);
+    if (tid < TB) {
+      const int qi = q0 + tid;
+      sL[tid] = qi < L ? fmaxf(lse[bh * L + qi], DEAD_LSE) : 0.f;
+      sD[tid] = qi < L ? delta[bh * L + qi] : 0.f;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int kj = k0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int qc = tx + 16 * j, qi = q0 + qc;
+        const float p = expf(mods(s[i][j], qi, kj) - sL[qc]);
+        float pd = p, d = dp[i][j];
+        if (drop.on) {
+          const float mult = drop(b, h, qi, kj);
+          pd = p * mult;
+          d *= mult;
+        }
+        sPD[(ty + 16 * i) * BQP + qc] = round_to<T>(pd);
+        sDS[(ty + 16 * i) * BQP + qc] = round_to<T>(p * (d - sD[qc]));
+      }
+    }
+    __syncthreads();
+
+    const int qn = min(TB, L - q0);
+    for (int qq = 0; qq < qn; ++qq) {
+      float dov[CD], qv[CD];
+#pragma unroll
+      for (int c = 0; c < CD; ++c) {
+        dov[c] = sDO[qq * WIDE_OC + tx + 16 * c];
+        qv[c] = sQ[qq * WIDE_OC + tx + 16 * c];
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float pd = sPD[(ty + 16 * i) * BQP + qq];
+        const float ds = sDS[(ty + 16 * i) * BQP + qq];
+#pragma unroll
+        for (int c = 0; c < CD; ++c) {
+          acc_v[i][c] = fmaf(pd, dov[c], acc_v[i][c]);
+          acc_k[i][c] = fmaf(ds, qv[c], acc_k[i][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int kj = k0 + ty + 16 * i;
+    if (kj >= S) continue;
+    T* dkrow = dk + (bh * S + kj) * D + oc0;
+    T* dvrow = dv + (bh * S + kj) * D + oc0;
+#pragma unroll
+    for (int c = 0; c < CD; ++c) {
+      dkrow[tx + 16 * c] = from_f32<T>(acc_k[i][c]);
+      dvrow[tx + 16 * c] = from_f32<T>(acc_v[i][c]);
+    }
+  }
+}
+
+constexpr size_t dkv_wide_smem_bytes() {
+  return sizeof(float) * (size_t(4 * 64) * WIDE_KP + size_t(2 * 64) * WIDE_OC +
+                          size_t(2 * 64) * 65 + size_t(2 * 64));
+}
+
 // ---------------------------------------------------------------------------
 // bf16: TMA and wgmma (attn_tile.h)
 // ---------------------------------------------------------------------------
@@ -383,6 +500,18 @@ extern "C" int fasn_flash_bwd_dkv(const FasnAttn* a, const void* dout, const flo
                   static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
                   static_cast<T*>(dv));
   };
+  if (a->dtype != 0 && a->dtype != 1) return cudaErrorInvalidValue;
+  if (wide_d(a->D)) {
+    const dim3 grid((a->S + 63) / 64, a->H, wide_z(a->B, a->D));
+    if (grid.z == 0) return cudaErrorInvalidValue;
+    if (a->dtype == 1)
+      return launch(flash_bwd_dkv_wide_kernel<__nv_bfloat16>, grid, dkv_wide_smem_bytes(), stream,
+                    *a, static_cast<const __nv_bfloat16*>(dout), lse, delta,
+                    static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv));
+    return launch(flash_bwd_dkv_wide_kernel<float>, grid, dkv_wide_smem_bytes(), stream, *a,
+                  static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
+                  static_cast<float*>(dv));
+  }
   if (a->dtype == 1) {
     switch (a->D) {
       case 32:
@@ -398,6 +527,5 @@ extern "C" int fasn_flash_bwd_dkv(const FasnAttn* a, const void* dout, const flo
         return cudaErrorInvalidValue;
     }
   }
-  if (a->dtype != 0) return cudaErrorInvalidValue;
   return dispatch_d<float, 256>(a->D, scalar);
 }

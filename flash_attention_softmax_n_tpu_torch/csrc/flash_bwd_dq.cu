@@ -37,6 +37,13 @@
 // At D 256 the tiles are 32 x 32 (scalar_tile, for shared memory) and the
 // kernel takes bf16 too (the wrapper pads D in (128, 256] to 256).
 //
+// Above 256 (D a multiple of 128, as the wrapper pads it), f32 and bf16
+// take flash_bwd_dq_wide_kernel: the same 64 x 64 tiles and thread layout,
+// one CTA for 128 columns of dq, S and dP accumulated over D in 64-column
+// chunks (flash_common.h wide_dots), so that its shared memory (115,968
+// bytes) does not grow with D; the CTA of the first column chunk writes
+// dbias and the dslope partials.
+//
 // Both: the TPU's dslope accumulates over a sequential grid; here each
 // thread sums its rows' terms over the sweep and the kernel writes one
 // partial per query row, which the wrapper sums in a fixed order: no
@@ -216,6 +223,112 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dq_wide_kernel(const FasnAttn a, const T* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             float scale, T* __restrict__ dq, float* __restrict__ dbias,
+                             float* __restrict__ dslope_rows) {
+  constexpr int TB = 64, R = TB / 16;
+  constexpr int BKP = TB + 1;
+  constexpr int CD = WIDE_OC / 16;
+  extern __shared__ float smem[];
+  float* sK = smem + 4 * TB * WIDE_KP;  // TB x WIDE_OC: the CTA's columns of k
+  float* sDS = sK + TB * WIDE_OC;       // TB x BKP, ds rounded to T
+
+  const int D = a.D, chunks = D / WIDE_OC;
+  const int h = blockIdx.y, b = blockIdx.z / chunks, oc0 = blockIdx.z % chunks * WIDE_OC;
+  const bool first = oc0 == 0;  // the column chunk that writes dbias and dslope
+  const int L = a.L, S = a.S;
+  const int q0 = blockIdx.x * TB;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const long long bh = (long long)b * a.H + h;
+  const T* qb = static_cast<const T*>(a.q) + bh * L * D;
+  const T* kb = static_cast<const T*>(a.k) + bh * S * D;
+  const T* vb = static_cast<const T*>(a.v) + bh * S * D;
+  const T* dob = dout + bh * L * D;
+  const ScoreMods mods = score_mods(a, b, h);
+  const Dropout drop = dropout_of(a);
+
+  float lse_r[R], delta_r[R], dsl[R], acc[R][CD];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    lse_r[i] = qi < L ? fmaxf(lse[bh * L + qi], DEAD_LSE) : 0.f;
+    delta_r[i] = qi < L ? delta[bh * L + qi] : 0.f;
+    dsl[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
+  }
+
+  int kv_end = S;
+  if (mods.causal) {
+    const int last_row = min(q0 + TB, L) - 1;
+    kv_end = min(S, last_row + mods.off + 1);
+  }
+
+  int k0 = 0;
+  for (; k0 < kv_end; k0 += TB) {
+    float s[R][R], dp[R][R];
+    wide_dots<T, R, true>(smem, D, qb, a.scale_q, q0, L, kb, 1.f, k0, S, dob, vb, s, dp);
+    wide_cols<T, TB>(sK, kb, k0, S, D, oc0, 1.f);
+
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int qi = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int kj = k0 + tx + 16 * j;
+        const float p = expf(mods(s[i][j], qi, kj) - lse_r[i]);
+        float d = dp[i][j];
+        if (drop.on) d *= drop(b, h, qi, kj);
+        const float ds = p * (d - delta_r[i]);
+        if (first && dbias && qi < L && kj < S) dbias[(bh * L + qi) * S + kj] = ds;
+        if (mods.alibi) dsl[i] += ds * -fabsf((float)(qi + mods.off - kj));
+        sDS[(ty + 16 * i) * BKP + tx + 16 * j] = round_to<T>(ds);
+      }
+    }
+    __syncthreads();
+
+    const int kn = min(TB, S - k0);
+    for (int kk = 0; kk < kn; ++kk) {
+      float kv[CD];
+#pragma unroll
+      for (int c = 0; c < CD; ++c) kv[c] = sK[kk * WIDE_OC + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float ds = sDS[(ty + 16 * i) * BKP + kk];
+#pragma unroll
+        for (int c = 0; c < CD; ++c) acc[i][c] = fmaf(ds, kv[c], acc[i][c]);
+      }
+    }
+  }
+
+  // causally invisible tiles were skipped: their dbias is zero
+  if (first && dbias) {
+    const int width = S - min(k0, S);
+    for (int i = tid; i < TB * width; i += THREADS) {
+      const int r = i / width, c = k0 + i % width;
+      if (q0 + r < L) dbias[(bh * L + q0 + r) * S + c] = 0.f;
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    const float row = row_sum16(dsl[i]);
+    if (qi >= L) continue;
+    if (first && dslope_rows && tx == 0) dslope_rows[bh * L + qi] = row;
+    T* dqrow = dq + (bh * L + qi) * D + oc0;
+#pragma unroll
+    for (int c = 0; c < CD; ++c) dqrow[tx + 16 * c] = from_f32<T>(scale * acc[i][c]);
+  }
+}
+
+constexpr size_t dq_wide_smem_bytes() {
+  return sizeof(float) * (size_t(4 * 64) * WIDE_KP + size_t(64) * WIDE_OC + size_t(64) * 65);
+}
+
 // ---------------------------------------------------------------------------
 // bf16: TMA and wgmma (attn_tile.h)
 // ---------------------------------------------------------------------------
@@ -375,6 +488,18 @@ extern "C" int fasn_flash_bwd_dq(const FasnAttn* a, const void* dout, const floa
                   static_cast<const T*>(dout), lse, delta, scale, static_cast<T*>(dq), dbias,
                   dslope_rows);
   };
+  if (a->dtype != 0 && a->dtype != 1) return cudaErrorInvalidValue;
+  if (wide_d(a->D)) {
+    const dim3 grid((a->L + 63) / 64, a->H, wide_z(a->B, a->D));
+    if (grid.z == 0) return cudaErrorInvalidValue;
+    if (a->dtype == 1)
+      return launch(flash_bwd_dq_wide_kernel<__nv_bfloat16>, grid, dq_wide_smem_bytes(), stream,
+                    *a, static_cast<const __nv_bfloat16*>(dout), lse, delta, scale,
+                    static_cast<__nv_bfloat16*>(dq), dbias, dslope_rows);
+    return launch(flash_bwd_dq_wide_kernel<float>, grid, dq_wide_smem_bytes(), stream, *a,
+                  static_cast<const float*>(dout), lse, delta, scale, static_cast<float*>(dq),
+                  dbias, dslope_rows);
+  }
   if (a->dtype == 1) {
     switch (a->D) {
       case 32:
@@ -390,6 +515,5 @@ extern "C" int fasn_flash_bwd_dq(const FasnAttn* a, const void* dout, const floa
         return cudaErrorInvalidValue;
     }
   }
-  if (a->dtype != 0) return cudaErrorInvalidValue;
   return dispatch_d<float, 256>(a->D, scalar);
 }

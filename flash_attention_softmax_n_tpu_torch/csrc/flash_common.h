@@ -137,8 +137,8 @@ __device__ __forceinline__ Dropout dropout_of(const FasnAttn& a) {
 
 // Calls f(Type<T>{}, Int<D>{}) for the head dim (32, 64, 128, and 256 up
 // to MAX_D); cudaErrorInvalidValue for anything else. The scalar kernels
-// take T = float, and K1's, K5's and K6's also T = bf16 at D 256, where
-// attn_tile.h's tile does not fit.
+// take T = float, and K5's, K6's and K10's also T = bf16 at D 256, where
+// attn_tile.h's 128-row tile does not fit.
 template <typename T>
 struct Type {
   using type = T;
@@ -162,6 +162,112 @@ cudaError_t dispatch_d(int D, F& f) {
       return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Head dims above 256 (multiples of WIDE_OC, as the wrappers pad them): the
+// wide scalar kernels of K1, K5, K6 and K10, f32 and bf16. A CTA takes
+// WIDE_OC columns of the outputs (column chunk blockIdx.z % (D / WIDE_OC))
+// and accumulates the scores it needs over the whole of D in WIDE_KC-column
+// chunks through shared memory, so its shared memory does not grow with D.
+// Every CTA of a tile forms the same scores in the same order, so the row
+// statistics (lse, delta) agree bit for bit across its column chunks; the
+// score products are done D / WIDE_OC times over, which a repair accepts.
+// ---------------------------------------------------------------------------
+constexpr int WIDE_KC = 64;   // D columns of a score chunk
+constexpr int WIDE_OC = 128;  // output columns of a CTA
+constexpr int WIDE_KP = WIDE_KC + 1;
+
+__host__ __device__ constexpr bool wide_d(int D) { return D > 256 && D % WIDE_OC == 0; }
+
+// the grid's z: (batch, column chunk) pairs; 0 if it does not fit
+inline unsigned wide_z(int B, int D) {
+  const long long z = (long long)B * (D / WIDE_OC);
+  return z <= 65535 ? static_cast<unsigned>(z) : 0u;
+}
+
+// columns d0 .. d0 + WIDE_KC of rows row0 .. row0 + TB - 1 of a (rows, D)
+// head into dst (TB x WIDE_KP), times `scale` rounded to T (scale 1 keeps a
+// value as it is), rows at or past `end` as zeros
+template <typename T, int TB>
+__device__ __forceinline__ void wide_chunk(float* dst, const T* src, int row0, int end, int D,
+                                           int d0, float scale) {
+  for (int i = threadIdx.x; i < TB * WIDE_KC; i += THREADS) {
+    const int r = i / WIDE_KC, c = i % WIDE_KC;
+    float x = 0.f;
+    if (row0 + r < end) x = round_to<T>(to_f32(src[(long long)(row0 + r) * D + d0 + c]) * scale);
+    dst[r * WIDE_KP + c] = x;
+  }
+}
+
+// s[i][j] = sum over d < D of A[a0 + ty + 16 i][d] B[b0 + tx + 16 j][d],
+// and with TWO also s2 = C E^T over the same rows (C's like A's, E's like
+// B's), in WIDE_KC-column chunks from column 0 up, as the scalar kernels
+// sum: A scaled by a_scale and B by b_scale, each rounded to T; A's and C's
+// rows at or past a_end and B's and E's past b_end as zeros. smem holds
+// the chunks: 2 (4 with TWO) x TB x WIDE_KP floats. Every chunk starts
+// with __syncthreads, so the caller's buffers of the previous tile are
+// free once it returns.
+template <typename T, int R, bool TWO>
+__device__ __forceinline__ void wide_dots(float* smem, int D, const T* A, float a_scale, int a0,
+                                          int a_end, const T* B, float b_scale, int b0, int b_end,
+                                          const T* C, const T* E, float (&s)[R][R],
+                                          float (&s2)[R][R]) {
+  constexpr int TB = 16 * R;
+  float* sA = smem;
+  float* sB = sA + TB * WIDE_KP;
+  float* sC = sB + TB * WIDE_KP;
+  float* sE = sC + TB * WIDE_KP;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < R; ++j) s[i][j] = s2[i][j] = 0.f;
+  for (int d0 = 0; d0 < D; d0 += WIDE_KC) {
+    __syncthreads();
+    wide_chunk<T, TB>(sA, A, a0, a_end, D, d0, a_scale);
+    wide_chunk<T, TB>(sB, B, b0, b_end, D, d0, b_scale);
+    if (TWO) {
+      wide_chunk<T, TB>(sC, C, a0, a_end, D, d0, 1.f);
+      wide_chunk<T, TB>(sE, E, b0, b_end, D, d0, 1.f);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int d = 0; d < WIDE_KC; ++d) {
+      float av[R], bv[R], cv[R], ev[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        av[i] = sA[(ty + 16 * i) * WIDE_KP + d];
+        if (TWO) cv[i] = sC[(ty + 16 * i) * WIDE_KP + d];
+      }
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        bv[j] = sB[(tx + 16 * j) * WIDE_KP + d];
+        if (TWO) ev[j] = sE[(tx + 16 * j) * WIDE_KP + d];
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+          if (TWO) s2[i][j] = fmaf(cv[i], ev[j], s2[i][j]);
+        }
+    }
+  }
+}
+
+// columns oc0 .. oc0 + WIDE_OC of rows row0 .. row0 + TB - 1 of a (rows, D)
+// head into dst (TB x WIDE_OC), times `scale` rounded to T, rows at or past
+// `end` as zeros
+template <typename T, int TB>
+__device__ __forceinline__ void wide_cols(float* dst, const T* src, int row0, int end, int D,
+                                          int oc0, float scale) {
+  for (int i = threadIdx.x; i < TB * WIDE_OC; i += THREADS) {
+    const int r = i / WIDE_OC, c = i % WIDE_OC;
+    float x = 0.f;
+    if (row0 + r < end) x = round_to<T>(to_f32(src[(long long)(row0 + r) * D + oc0 + c]) * scale);
+    dst[i] = x;
   }
 }
 

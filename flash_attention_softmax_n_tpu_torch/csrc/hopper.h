@@ -35,12 +35,22 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
 
 // until the phase of parity `parity` has completed; a phase that never
 // completes (a fault in the ring's bookkeeping) traps after about ten
-// seconds instead of holding the card
+// seconds instead of holding the card. With TRAP false the wait gives up
+// after about a second instead and the kernel runs on to a wrong result,
+// which the checks against the plain versions catch: a kernel whose
+// warpgroups trade registers with setmaxnreg takes it, since ptxas keeps
+// every thread at the launch's register count when one trap block serves
+// warpgroups of different counts
+template <bool TRAP = true>
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
   const long long start = clock64();
   while (!done) {
-    if (clock64() - start > (1ll << 34)) __trap();
+    if constexpr (TRAP) {
+      if (clock64() - start > (1ll << 34)) __trap();
+    } else if (clock64() - start > (1ll << 31)) {
+      return;
+    }
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
@@ -245,6 +255,18 @@ __device__ __forceinline__ void wgmma(int (&d)[64], uint64_t a, uint64_t b) {
       "}\n"
       : HOP_D64(HOP_R)
       : "l"(a), "l"(b), "r"(1));
+}
+
+// a warpgroup's registers a thread: N (a multiple of 8 in [24, 256]) from
+// here on, taken from (inc) or given back to (dec) the CTA's pool; every
+// warp of the warpgroup executes it
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
 }
 
 // keeps the compiler from moving accumulator accesses across wgmma

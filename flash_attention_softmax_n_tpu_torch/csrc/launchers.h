@@ -153,7 +153,8 @@ int fasn_fused_mlp(const FasnMlp* a, const FasnMlpPlan* plan, cudaStream_t strea
 // *_sb, *_sh, *_ss with unit stride along HD; k_scales/v_scales null
 // (dense) or f32
 // (B,KVH,S,1) at element strides ks_*/vs_*; lengths (B,) int32 on the
-// device. G <= 16, HD <= 128.
+// device. G <= 16; HD any whose layout fits a block (at most 1024 under
+// int8 compute).
 struct FasnDecode {
   const void* q;
   const float* q_scales;
@@ -168,10 +169,11 @@ struct FasnDecode {
 };
 
 // K8 (decode_attn.cu). 1 if the kernel takes this plan: `split` positions
-// per CTA (32, 64, 128 or 256; exactly 256 under int8 compute, q_dtype 2)
-// whose shared-memory layout fits a block, and `products` 0 (f32 FMAs, any
-// mode) or 1 (mma.sync: bf16 q, a bf16, int8 or fp8 cache, HD a multiple of
-// 16); 1 <= G <= 16, HD <= 128. The operator calls it once, before launching.
+// per CTA (16, 32, 64, 128 or 256; exactly 256 under int8 compute, q_dtype
+// 2) whose shared-memory layout fits a block, and `products` 0 (f32 FMAs,
+// any mode) or 1 (mma.sync: bf16 q, a bf16, int8 or fp8 cache, HD a
+// multiple of 16); 1 <= G <= 16, HD >= 1 (at most 1024 under int8
+// compute). The operator calls it once, before launching.
 int fasn_decode_attn_plan_ok(int split, int products, int G, int HD, int q_dtype, int kv_dtype);
 
 // K8. A plan that fasn_decode_attn_plan_ok accepts (kernels/decode_attention.py

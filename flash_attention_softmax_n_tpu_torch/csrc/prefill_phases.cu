@@ -29,7 +29,16 @@
 //
 // f32: prefill_phase_kernel, scalar f32 FMAs from shared memory, one CTA
 // per 64 query rows (flash_common.h's tile and thread layout, as K1's f32
-// kernel), the same two passes.
+// kernel), the same two passes. It takes bf16 too at D 256, where
+// attn_tile.h's 128-row tile does not fit (213,760 bytes of shared memory).
+//
+// Above 256 (D a multiple of 128, as the wrapper pads it), f32 and bf16
+// take prefill_phase_wide_kernel: the same tiles and passes, one CTA for
+// 128 columns of o, the scores accumulated over D in 64-column chunks
+// (flash_common.h wide_dots), so that its shared memory does not grow with
+// D. The wrapper (kernels/prefill_phases.py) zero-pads any other head dim
+// to the next of 32, 64, 128, 256 or a multiple of 128, which changes
+// neither s nor p.
 
 #include "attn_tile.h"
 #include "flash_common.h"
@@ -199,6 +208,122 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// keys past L score NEG_INF in every mode that takes a max (and p = 0 in
+// the others), keys past the query -1e30 when causal, as tile_scores masks
+__device__ __forceinline__ void mask_scores(int ty, int tx, int q0, int k0, int L, bool causal,
+                                            float (&s)[R4][R4]) {
+#pragma unroll
+  for (int i = 0; i < R4; ++i)
+#pragma unroll
+    for (int j = 0; j < R4; ++j) {
+      const int qi = q0 + ty + 16 * i, kj = k0 + tx + 16 * j;
+      if (kj >= L) s[i][j] = NEG_INF;
+      else if (causal && kj > qi) s[i][j] = MASKED;
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    prefill_phase_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, T* __restrict__ o, int H, int L, int D,
+                              int mode) {
+  constexpr int BKP = BK + 1;
+  constexpr int CD = WIDE_OC / 16;  // output columns per thread
+  extern __shared__ float smem[];
+  float* sV = smem + 2 * BQ * WIDE_KP;  // BK x WIDE_OC: the CTA's columns of v
+  float* sP = sV + BK * WIDE_OC;        // BQ x BKP
+
+  const int chunks = D / WIDE_OC;
+  const int h = blockIdx.y, b = blockIdx.z / chunks, oc0 = blockIdx.z % chunks * WIDE_OC;
+  const int q0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const long long bh = (long long)b * H + h;
+  const T* qb = q + bh * L * D;
+  const T* kb = k + bh * L * D;
+  const T* vb = v + bh * L * D;
+  const bool causal = mode == MASK_SOFTMAX;
+  const bool normalise = mode == SOFTMAX || mode == MASK_SOFTMAX;
+  // keys at or below the tile's last row are all a causal row can see
+  const int kv_end = causal ? min(L, q0 + BQ) : L;
+
+  // pass 1 (softmax modes): each row's max m and sum l = sum exp(s - m)
+  float m[R4], l[R4];
+#pragma unroll
+  for (int i = 0; i < R4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+  }
+  float s[R4][R4], unused[R4][R4];
+  if (normalise) {
+    for (int k0 = 0; k0 < kv_end; k0 += BK) {
+      wide_dots<T, R4, false>(smem, D, qb, 1.f, q0, L, kb, 1.f, k0, L, nullptr, nullptr, s,
+                              unused);
+      mask_scores(ty, tx, q0, k0, L, causal, s);
+#pragma unroll
+      for (int i = 0; i < R4; ++i) {
+        float rmax = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < R4; ++j) rmax = fmaxf(rmax, s[i][j]);
+        const float m_new = fmaxf(m[i], row_max16(rmax));
+        float rsum = 0.f;
+#pragma unroll
+        for (int j = 0; j < R4; ++j) rsum += expf(s[i][j] - m_new);
+        l[i] = l[i] * expf(m[i] - m_new) + row_sum16(rsum);
+        m[i] = m_new;
+      }
+    }
+  }
+
+  // pass 2: p from the final (m, l) or from s alone, rounded to T, then PV
+  float acc[R4][CD];
+#pragma unroll
+  for (int i = 0; i < R4; ++i)
+#pragma unroll
+    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
+  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+    wide_dots<T, R4, false>(smem, D, qb, 1.f, q0, L, kb, 1.f, k0, L, nullptr, nullptr, s, unused);
+    mask_scores(ty, tx, q0, k0, L, causal, s);
+    wide_cols<T, BK>(sV, vb, k0, L, D, oc0, 1.f);
+#pragma unroll
+    for (int i = 0; i < R4; ++i)
+#pragma unroll
+      for (int j = 0; j < R4; ++j) {
+        float p;
+        if (normalise) p = expf(s[i][j] - m[i]) / l[i];
+        else if (k0 + tx + 16 * j >= L) p = 0.f;
+        else p = mode == EXP_ONLY ? expf(s[i][j]) : s[i][j];
+        sP[(ty + 16 * i) * BKP + tx + 16 * j] = round_to<T>(p);
+      }
+    __syncthreads();
+    const int kn = min(BK, L - k0);
+    for (int kk = 0; kk < kn; ++kk) {
+      float vv[CD];
+#pragma unroll
+      for (int c = 0; c < CD; ++c) vv[c] = sV[kk * WIDE_OC + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < R4; ++i) {
+        const float p = sP[(ty + 16 * i) * BKP + kk];
+#pragma unroll
+        for (int c = 0; c < CD; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R4; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    if (qi >= L) continue;
+    T* orow = o + (bh * L + qi) * D + oc0;
+#pragma unroll
+    for (int c = 0; c < CD; ++c) orow[tx + 16 * c] = from_f32<T>(acc[i][c]);
+  }
+}
+
+constexpr size_t mini_wide_smem_bytes() {
+  return sizeof(float) *
+         (size_t(2 * BQ) * WIDE_KP + size_t(BK) * WIDE_OC + size_t(BQ) * (BK + 1));
+}
+
 // ---------------------------------------------------------------------------
 // bf16: TMA and wgmma (attn_tile.h)
 // ---------------------------------------------------------------------------
@@ -353,6 +478,27 @@ extern "C" int fasn_prefill_phase(const void* q, const void* k, const void* v, v
                                   int H, int L, int D, int dtype, int mode, cudaStream_t stream) {
   using namespace fasn;
   if (mode < DOTS_ONLY || mode > MASK_SOFTMAX || L < 1) return cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  if (wide_d(D)) {
+    const dim3 grid((L + BQ - 1) / BQ, H, wide_z(B, D));
+    if (grid.z == 0) return cudaErrorInvalidValue;
+    if (dtype == 1)
+      return launch(prefill_phase_wide_kernel<__nv_bfloat16>, grid, mini_wide_smem_bytes(), stream,
+                    static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+                    static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, L,
+                    D, mode);
+    return launch(prefill_phase_wide_kernel<float>, grid, mini_wide_smem_bytes(), stream,
+                  static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<float*>(o), H, L, D, mode);
+  }
+  const dim3 grid((L + BQ - 1) / BQ, H, B);
+  auto scalar = [&](auto t, auto d) {
+    using T = typename decltype(t)::type;
+    constexpr int Dc = decltype(d)::value;
+    return launch(prefill_phase_kernel<T, Dc>, grid, mini_smem_bytes<Dc>(), stream,
+                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<T*>(o), H, L, mode);
+  };
   if (dtype == 1) {
     const long long heads = (long long)B * H;
     switch (D) {
@@ -362,18 +508,12 @@ extern "C" int fasn_prefill_phase(const void* q, const void* k, const void* v, v
         return by_mode<64>(mode, q, k, v, o, heads, L, stream);
       case 128:
         return by_mode<128>(mode, q, k, v, o, heads, L, stream);
+      case 256:
+        // attn_tile.h's 128-row tile does not fit at D 256: the scalar kernel takes bf16
+        return scalar(Type<__nv_bfloat16>{}, Int<256>{});
       default:
         return cudaErrorInvalidValue;
     }
   }
-  if (dtype != 0) return cudaErrorInvalidValue;
-  const dim3 grid((L + BQ - 1) / BQ, H, B);
-  auto f32 = [&](auto t, auto d) {
-    using T = typename decltype(t)::type;
-    constexpr int Dc = decltype(d)::value;
-    return launch(prefill_phase_kernel<T, Dc>, grid, mini_smem_bytes<Dc>(), stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                  static_cast<T*>(o), H, L, mode);
-  };
-  return dispatch_d<float>(D, f32);
+  return dispatch_d<float, 256>(D, scalar);
 }

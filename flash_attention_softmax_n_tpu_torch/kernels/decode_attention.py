@@ -40,6 +40,9 @@ __all__ = ["decode_attention_n", "decode_attn_stats_reference", "decode_attn_pla
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 TILE = 256  # positions per tile of the Pallas kernel, and K8's longest split
 SPLITS = (256, 128, 64, 32)  # K8's split lengths, longest first
+# the split where no length of SPLITS fits its rows in _KV_SMEM (a wide head
+# dim: bf16 rows at hd 512 take 66 KB at 32 positions): one mma tile
+WIDE_SPLIT = 16
 _SMS = 132  # the H100's streaming multiprocessors
 _KV_SMEM = 48 * 1024  # shared bytes a split's k and v rows may take: 4 CTAs an SM
 FMA, MMA = 0, 1  # K8's products: f32 FMAs, or mma.sync in bf16
@@ -60,7 +63,10 @@ def decode_attn_plan(batch: int, kvh: int, s_len: int, hd: int, kv_elem: int,
     window, slots of 64-80 rows) ran K8 35% longer at 64-position splits
     (four CTAs per SM) than at 256. Under int8 compute it is the Pallas
     kernel's 256-position tile: p is requantized per row over each tile, so
-    another length computes another function.
+    another length computes another function. Where no length of
+    ``SPLITS`` fits its rows in the 48 KB (bf16 above hd 376, int8 above
+    hd 752), ``WIDE_SPLIT`` positions, whose layout fits a block up to about
+    hd 1,200 at f32 and 1,800 at bf16 (G 16).
     """
     if int8_compute:
         return TILE
@@ -69,7 +75,7 @@ def decode_attn_plan(batch: int, kvh: int, s_len: int, hd: int, kv_elem: int,
     for sp in fits:
         if batch * kvh * math.ceil(s_len / sp) >= _SMS:
             return sp
-    return fits[-1]
+    return fits[-1] if fits else WIDE_SPLIT
 
 
 def decode_attn_products(q_dtype: torch.dtype, kv_dtype: torch.dtype,

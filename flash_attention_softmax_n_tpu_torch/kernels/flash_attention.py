@@ -13,11 +13,11 @@ launches the hand-written kernels (``csrc/flash_fwd.cu`` K1,
 ``csrc/flash_bwd_dq.cu`` K5, ``csrc/flash_bwd_dkv.cu`` K6), a CPU tensor
 runs ``flash_fwd_reference`` / ``flash_bwd_reference``, the same arithmetic
 in plain PyTorch. L and S need no padding: the kernels mask ragged tiles
-themselves. The kernels are built for head dims 32, 64, 128 and 256; on
-CUDA tensors the wrappers zero-pad any other D up to the next of them and
-slice o, dq, dk and dv back (``kernel_head_dim``), as JAX pads D to its
-kernel's widths. The TPU's block policy, causal staircase and
-compiler fences have no counterpart here.
+themselves. The kernels are built for head dims 32, 64, 128, 256 and any
+multiple of 128 above; on CUDA tensors the wrappers zero-pad any other D up
+to the next of them and slice o, dq, dk and dv back (``kernel_head_dim``),
+as JAX pads D to its kernel's widths (a multiple of 128). The TPU's block
+policy, causal staircase and compiler fences have no counterpart here.
 
 Dropout is a counter-based hash of the global coordinates (seed, b, h,
 q_pos, k_pos), so the forward and both backward kernels regenerate one mask
@@ -224,19 +224,21 @@ def flash_bwd_reference(q, k, v, bias, slopes, seed, o, lse, do, *,
 # Kernel wrappers
 # ----------------------------------------------------------------------------
 
-# the head dims the kernels are built for (at 256 the scalar kernels, bf16
-# too: attn_tile.h's ring does not fit there)
+# the head dims the kernels are built for up to 256 (K1's bf16 at 256 on
+# 64-row tiles; K5's and K6's on their scalar kernels, bf16 too); above,
+# every multiple of WIDE_HEAD_DIM (the wide scalar kernels, f32 and bf16)
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+WIDE_HEAD_DIM = 128
 
 
 def kernel_head_dim(d: int) -> int:
     """The head dim the kernels run ``d`` at: the next of
-    ``KERNEL_HEAD_DIMS``. Raises ValueError above 256."""
+    ``KERNEL_HEAD_DIMS``, and above 256 the next multiple of 128, as JAX
+    pads D there."""
     for dp in KERNEL_HEAD_DIMS:
         if d <= dp:
             return dp
-    raise ValueError(f"flash attention kernels (K1, K5, K6) take head dim at "
-                     f"most {KERNEL_HEAD_DIMS[-1]} on CUDA, got {d}")
+    return -(-d // WIDE_HEAD_DIM) * WIDE_HEAD_DIM
 
 
 def _pad_head(t: torch.Tensor, dp: int) -> torch.Tensor:

@@ -14,7 +14,11 @@ and ``o = round(p) v``, p rounded to v's type, f32 sums, o in q's type.
 Each mode strips attention down to a phase, so their times say where an
 attention forward spends its time. ``mini`` launches K10 on a CUDA tensor
 and runs the plain version ``mini_reference`` on a CPU tensor;
-``mini_tolerance`` bounds how far two correct bf16 results lie apart.
+``mini_tolerance`` bounds how far two correct bf16 results lie apart. K10
+is built for head dims 32, 64, 128, 256 and the multiples of 128 above, as
+K1 is; on a CUDA tensor ``mini`` zero-pads any other hd up to the next of
+them and slices o back, which is exact: zero columns change neither s nor
+p and give zero columns of o.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from __future__ import annotations
 import torch
 
 from flash_attention_softmax_n_tpu_torch.kernels import _build
+from flash_attention_softmax_n_tpu_torch.kernels.flash_attention import (
+    _cut_head, _pad_head, kernel_head_dim)
 
 __all__ = ["MODES", "mini", "mini_reference", "mini_tolerance"]
 
@@ -69,17 +75,19 @@ def mini_tolerance(mode: str, q: torch.Tensor, k: torch.Tensor,
 
 
 def _mini_cuda(mode: str, q, k, v):
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    d = q.shape[-1]
+    dp = kernel_head_dim(d)
+    q, k, v = (_pad_head(t, dp).contiguous() for t in (q, k, v))
     o = torch.empty_like(q)
     _build.ops().prefill_phase(q, k, v, o, MODES.index(mode))
     _build.LAUNCHES[f"mini_{mode}"] += 1
-    return o
+    return _cut_head(o, d)
 
 
 def mini(mode: str, q: torch.Tensor, k: torch.Tensor,
          v: torch.Tensor) -> torch.Tensor:
-    """K10 on CUDA tensors, its plain version on CPU tensors. q, k, v
-    (B, H, L, hd) bf16 or f32, hd in (32, 64, 128) on the card."""
+    """K10 on CUDA tensors (at ``kernel_head_dim``), its plain version on
+    CPU tensors. q, k, v (B, H, L, hd) bf16 or f32, any hd."""
     _check_mode(mode)
     if q.is_cuda:
         return _mini_cuda(mode, q, k, v)

@@ -7,8 +7,8 @@ not at import). On the machine with the card run
 
 These cover what the serving and training shapes in ``chip_smoke.py`` do
 not: n = 0 and fractional n, rectangular causal with L < S and L > S (dead
-rows), f32 inputs, head dims 32/64/128/256 and, padded, 16/20/80/96/160,
-ragged tiles, dense caches, and for
+rows), f32 inputs, head dims 32/64/128/256/384/512 and, padded,
+16/20/80/96/160/288, ragged tiles, dense caches, and for
 the backward (K5, K6) bias, ALiBi and dropout in every combination; for
 K7-K9 every mode (int8, W8A8, int4, W4A8; dense, int8, int8-compute and
 fp8 caches), ragged M/N/F, slot lengths 0 and full, strided cache views;
@@ -18,8 +18,10 @@ rows and views off 16 bytes), the engine's four-tensor call with int8 or
 fp8 values, positions at 0, S - 1 and outside the cache (skipped), row
 counts that fill no block, and strided or f32 new rows (cast and copied as
 the plain versions take them);
-K10 in its four modes at head dims 32/64/128, bf16 and f32, ragged L. The
-bf16 K1, K5, K6 and K10 run the TMA + wgmma tile (128-row tiles): L and S
+K10 in its four modes at head dims 32/64/128 and, padded or on its scalar
+kernels, 80/256/320, bf16 and f32, ragged L; K8 at hd 160, 256 and 512. The
+bf16 K1, K5, K6 and K10 run the TMA + wgmma tile (128-row tiles; K1 at D
+256 on 64-row tiles with a producer warpgroup): L and S
 ending mid-tile, every bias broadcast, ALiBi, dropout (K5's and K6's masks
 bit-equal to the hash), a ring block against an external lse, and
 misaligned inputs that must raise. The engine's CUDA graphs: each greedy
@@ -359,12 +361,8 @@ def test_cache_append_positions_at_the_edges(gen, dtype):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
-    # above 256 no kernel takes the head dim (48 runs padded to 64)
-    q = torch.randn((1, 1, 8, 300), device="cuda")
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_fwd(q, q, q, None, n=1.0, scale=0.1, is_causal=False)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_bwd(q, q, q, None, None, None, q, q[..., 0], q, scale=0.1, is_causal=False)
+    # every head dim runs (zero-padded by the wrappers); dtypes and
+    # alignment are still refused
     half = torch.randn((1, 1, 8, 64), device="cuda").half()
     with pytest.raises(ValueError, match="bf16 or f32"):
         fa.flash_fwd(half, half, half, None, n=1.0, scale=0.1, is_causal=False)
@@ -780,7 +778,7 @@ def _check_bf16_fwd(got, want):
     assert float((lse - lse_ref).abs().max()) <= 1e-3
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("n", [0.0, 1.0])
 @pytest.mark.parametrize("shape", _WGMMA_SHAPES, ids=lambda s: "L{}-S{}-{}".format(*s))
 def test_flash_fwd_wgmma_matches_plain(gen, d, n, shape):
@@ -910,14 +908,15 @@ def test_flash_bwd_wgmma_extras_match_plain(gen, d, extra):
               rate=0.25 if extra in ("dropout", "all") else 0.0)
 
 
-# head dims the kernels are not built for (16, 20, 80, 96, 160) run
-# zero-padded to the next of 32, 64, 128 and 256; 256 runs the scalar
-# kernels, bf16 too (K5 and K6 on 32-row tiles). Under a bias, ALiBi and
+# head dims the kernels are not built for (16, 20, 80, 96, 160, 288) run
+# zero-padded to the next of 32, 64, 128, 256 and the multiples of 128
+# above; 256 runs K1's 64-row wgmma kernel in bf16 and the scalar kernels
+# otherwise (K5 and K6 on 32-row tiles, bf16 too); 384 and 512 (and 288 at
+# 384) the wide scalar kernels, f32 and bf16. Under a bias, ALiBi and
 # dropout, n 0 and 1, at chip_smoke's B2 H4 L200 S264; the backward from the
-# plain forward's o and lse; tolerances as above, repeats bit-equal; above
-# 256 every wrapper raises
+# plain forward's o and lse; tolerances as above, repeats bit-equal
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 20, 80, 96, 160, 256])
+@pytest.mark.parametrize("d", [16, 20, 80, 96, 160, 256, 288, 384, 512])
 @pytest.mark.parametrize("n", [0.0, 1.0])
 def test_flash_kernels_take_every_head_dim(gen, dtype, d, n):
     q, k, v, do, ex = _attn_inputs(gen, dtype, 2, 4, 200, 264, d, bias_shape=(1, 4),
@@ -1366,6 +1365,30 @@ def test_decode_attn_every_split_length(gen, split, cache, products):
                                acc_r[live] / l_r[live][..., None], atol=2e-2, rtol=0)
 
 
+# head dims above 128 (Gemma-2B's 256 among them), as planned: 32-position
+# splits, and 16 where a row is 1 KB or more (f32 at hd 256, bf16 and f32
+# at hd 512: 32 positions of them no longer fit 48 KB); against the plain version, repeats
+# bit-equal. Int8 compute keeps the Pallas kernel's 256-position tile, whose
+# k and v rows (270 KB at hd 512) do not fit a block: it still refuses there
+@pytest.mark.parametrize("hd", [160, 256, 512])
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8", "int8_compute", "fp8"])
+def test_decode_attn_wide_head_dims(gen, hd, cache):
+    q, k, v, ks, vs, lengths = _decode_inputs(gen, cache, torch.bfloat16, 8, hd, B=4, S=600)
+    qv, qs = _prep_q(q, cache, torch.bfloat16)
+    if cache == "int8_compute" and hd == 512:
+        with pytest.raises(ValueError, match="not a plan"):
+            da._decode_attn_cuda(qv, qs, k, v, lengths, ks, vs)
+        return
+    if cache != "int8_compute":
+        want = 16 if hd * k.element_size() >= 1024 else 32
+        assert da.decode_attn_plan(4, 2, 600, hd, k.element_size(), False) == want
+    got = da._decode_attn_cuda(qv, qs, k, v, lengths, ks, vs)
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, da._decode_attn_cuda(qv, qs, k, v, lengths, ks, vs)))
+    _assert_decode_close(got, qv, qs, k, v, ks, vs, lengths,
+                         1e-5 if cache == "f32" and qv.dtype == torch.float32 else 2e-2)
+
+
 def test_decode_attn_int8_compute_keeps_256_position_splits(gen):
     q, k, v, ks, vs, lengths = _decode_inputs(gen, "int8_compute", None, 8, 64)
     qv, qs = _prep_q(q, "int8_compute", None)
@@ -1429,9 +1452,11 @@ def test_decode_attn_products_agree(gen, cache, split):
 # ----------------------------------------------------------------------------
 
 
+# head dims K10 is not built for (80 at 128, 320 at 384) run zero-padded,
+# 256 on its scalar kernel (bf16 too), 384 (for 320) on its wide one
 @pytest.mark.parametrize("mode", pp.MODES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 80, 256, 320])
 @pytest.mark.parametrize("L", [64, 129, 200, 512, 2048])
 def test_prefill_phase_matches_plain(gen, mode, dtype, d, L):
     q, k, v = ((0.3 * torch.randn((2, 3, L, d), generator=gen, device="cuda")).to(dtype)
@@ -1450,9 +1475,8 @@ def test_prefill_phase_matches_plain(gen, mode, dtype, d, L):
 
 
 def test_prefill_phase_rejects_what_it_does_not_take(gen):
-    q = torch.randn((1, 2, 64, 48), device="cuda")
-    with pytest.raises(ValueError, match="head dim"):
-        pp.mini("softmax", q, q, q)
+    # every head dim runs (zero-padded by the wrapper); shapes and modes are
+    # still refused
     q = torch.randn((1, 2, 64, 64), device="cuda")
     with pytest.raises(ValueError, match="prefill_phase"):
         pp.mini("softmax", q, q[:, :, :32], q)

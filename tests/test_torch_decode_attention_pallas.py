@@ -8,7 +8,9 @@ non-multiple of the 256-position tile (S = 300 makes two tiles); with and
 without the tail window and the current token's self-term; n = 0 and 1.
 Both sides walk the same tiles with a running maximum and round at the
 same places, so f32 outputs are held within 1e-5 and bf16 ones within
-2e-2 (one bf16 ulp of the output for |out| < 2).
+2e-2 (one bf16 ulp of the output for |out| < 2). Head dims above 128 (200,
+which JAX pads to 256, and Gemma-2B's 256) over f32 and int8 caches; K8's
+split planner at head dims up to 1024.
 """
 
 import jax.numpy as jnp
@@ -34,8 +36,8 @@ def _bf16(a):
     return np.asarray(jnp.asarray(a).astype(jnp.bfloat16))
 
 
-def _inputs(rng, cache, group, extras):
-    b, kvh, s, hd, w = 4, 2, 300, 32, 8
+def _inputs(rng, cache, group, extras, hd=32):
+    b, kvh, s, w = 4, 2, 300, 8
     q = rng.randn(b, kvh * group, hd).astype(np.float32)
     kc = rng.randn(b, kvh, s, hd).astype(np.float32)
     vc = rng.randn(b, kvh, s, hd).astype(np.float32)
@@ -110,6 +112,39 @@ def test_pallas_route_differs_from_xla_only_in_q_rounding():
     xla = tda.decode_attention_n(*args, implementation="xla", **kws)
     assert not torch.equal(pallas, xla)
     torch.testing.assert_close(pallas_bf16_q, xla, atol=2e-2, rtol=0)
+
+
+# head dims above 128: JAX pads hd to a multiple of 128 for its kernel,
+# K8's plain version (and K8) take it as it is
+@pytest.mark.parametrize("extras", [False, True])
+@pytest.mark.parametrize("cache", ["f32", "int8"])
+@pytest.mark.parametrize("hd", [200, 256])
+def test_decode_attention_wide_head_dims_match_jax_pallas(hd, cache, extras):
+    rng = np.random.RandomState(hd + len(cache))
+    q, kc, vc, lengths, kw = _inputs(rng, cache, 4, extras, hd=hd)
+    q = q * hd ** -0.25  # keep the scores' spread that of hd 32
+    want = j_decode(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                    jnp.asarray(lengths), softmax_n_param=1.0, implementation="pallas",
+                    **{k: jnp.asarray(v) for k, v in kw.items()})
+    got = tda.decode_attention_n(_t(q), _t(kc), _t(vc), _t(lengths), softmax_n_param=1.0,
+                                 **{k: _t(v) for k, v in kw.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+# K8's split planner at wide head dims: a split whose k and v rows fit the
+# 48 KB where one of SPLITS does, else the 16-position WIDE_SPLIT; none raises
+@pytest.mark.parametrize("hd", [256, 512, 1024])
+@pytest.mark.parametrize("elem", [1, 2, 4])
+def test_decode_attn_plan_fits_wide_head_dims(hd, elem):
+    row = -(-hd * elem // 16) * 16 + 16
+    for b, kvh, s in ((8, 1, 512), (64, 4, 512), (1, 1, 64)):
+        split = tda.decode_attn_plan(b, kvh, s, hd, elem, False)
+        if split in tda.SPLITS:
+            assert 2 * split * row <= 48 * 1024
+        else:
+            assert split == tda.WIDE_SPLIT == 16
+            assert all(2 * sp * row > 48 * 1024 for sp in tda.SPLITS)
+    assert tda.decode_attn_plan(8, 1, 512, 256, 1, False) == 32  # Gemma-2B's decode, int8
 
 
 # K8's split planner (kernels/decode_attention.decode_attn_plan): the

@@ -123,15 +123,17 @@ def test_unported_options_raise(tmp_path):
 # the true D's scale; f32 within 1e-6 of max(1, max |plain|) (only the
 # summation's blocking may differ)
 def test_kernel_head_dims():
+    # up to 256 the next of 32, 64, 128, 256; above, the next multiple of
+    # 128, as JAX pads D there
     from flash_attention_softmax_n_tpu_torch.kernels import flash_attention as fa
     assert [fa.kernel_head_dim(d) for d in (1, 16, 20, 32, 33, 80, 96, 128, 129, 256)] == [
         32, 32, 32, 32, 64, 128, 128, 128, 256, 256]
-    with pytest.raises(ValueError, match="head dim at most 256"):
-        fa.kernel_head_dim(257)
+    assert [fa.kernel_head_dim(d) for d in (257, 300, 384, 385, 512, 520)] == [
+        384, 384, 384, 512, 512, 640]
 
 
 @pytest.mark.parametrize("n", [0.0, 1.0])
-@pytest.mark.parametrize("d", [16, 20, 80, 96, 160])
+@pytest.mark.parametrize("d", [16, 20, 80, 96, 160, 200, 300])
 def test_head_dim_padding_is_exact(d, n):
     from flash_attention_softmax_n_tpu_torch.kernels import flash_attention as fa
     B, H, L, S = 2, 3, 40, 56
@@ -160,9 +162,9 @@ def test_head_dim_padding_is_exact(d, n):
 
 
 # the port's public API at head dims that JAX pads (16 to 32 on the card,
-# 80 to 128 on both): forward and the three gradients against JAX's
-# (its Pallas kernel in interpret mode), f32 within 1e-5
-@pytest.mark.parametrize("d", [16, 80])
+# 80 to 128 on both, 300 to 384 on both): forward and the three gradients
+# against JAX's (its Pallas kernel in interpret mode), f32 within 1e-5
+@pytest.mark.parametrize("d", [16, 80, 300])
 def test_public_api_head_dims_match_jax(d):
     import jax
 

@@ -161,3 +161,32 @@ def test_engine_tokens_match_jax(jparams, calls, loop_steps):
     assert got == want
     assert [len(got[i]) for i in range(len(budgets))] == budgets
     assert calls["qmm"] > 0 and calls["fused_mlp"] > 0 and calls["decode_attn"] > 0
+
+
+# a decoder at head dim 256, Gemma-2B's (d_model 512 over 2 query heads and
+# 1 KV head, so G = 2): the fused attention (K1's plain version; JAX's
+# default route) at D 256 in prefill, K8's plain version at hd 256 in
+# decode, int8 weights through K7 and K9; greedy tokens and the engine's
+# equal to the JAX package's
+WIDE_KW = dict(vocab_size=97, d_model=512, n_layers=2, n_heads=2, n_kv_heads=1,
+               d_ff=256, max_seq_len=128, softmax_n=1.0, int8_mm_impl="pallas",
+               decode_attn_impl="pallas")
+
+
+def test_head_dim_256_decoder_tokens_match_jax(calls):
+    jc = jm.DecoderConfig(**WIDE_KW, dtype=jnp.float32)
+    tc = tm.DecoderConfig(**WIDE_KW, dtype=torch.float32)
+    assert tc.head_dim == 256
+    jp = j_quantize_weights(jm.init_decoder_params(jc, jax.random.PRNGKey(3)), 8)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    want = np.asarray(jm.greedy_generate(jp, jc, jnp.asarray(TOKENS), 6,
+                                         kv_quantization="int8"))
+    got = tm.greedy_generate(tp, tc, TOKENS, 6, kv_quantization="int8", device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+    budgets = [11, 4, 9, 1, 12, 7]
+    want = _serve(JEngine(jc, jp, max_batch=4, max_len=64, kv_quantization="int8",
+                          piggyback_prefill=False), 8, budgets)
+    got = _serve(InferenceEngine(tc, tp, max_batch=4, max_len=64, kv_quantization="int8",
+                                 piggyback_prefill=False, device="cpu"), 8, budgets)
+    assert got == want
+    assert calls["qmm"] > 0 and calls["fused_mlp"] > 0 and calls["decode_attn"] > 0

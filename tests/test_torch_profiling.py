@@ -142,6 +142,26 @@ def test_mini_reference_matches_jax_mini_kernel(mode):
     assert torch.equal(pp.mini(mode, tq, tk, tv), got)
 
 
+# head dims K10 is not built for (on the card 80 runs padded to 128, 320 to
+# 384): the plain version against the JAX kernel at the true width, within
+# mini_tolerance (one bf16 ulp of |o| and one p of a row rounded the other
+# way; o grows with hd in dots_only, so no absolute bound)
+@pytest.mark.parametrize("mode", pp.MODES)
+@pytest.mark.parametrize("hd", [80, 320])
+def test_mini_reference_matches_jax_mini_kernel_at_other_head_dims(mode, hd):
+    rng = np.random.RandomState(hd)
+    q, k, v = ((0.3 * rng.randn(1, 2, 512, hd)).astype(np.float32)
+               .astype(jnp.bfloat16) for _ in range(3))
+    want = np.asarray(_jax_mini(mode, jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v)), np.float32)
+    tq, tk, tv = (tensor_from_numpy(a, "cpu") for a in (q, k, v))
+    got = pp.mini_reference(mode, tq, tk, tv)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    tol = pp.mini_tolerance(mode, tq, tk, tv, got).numpy()
+    assert (np.abs(got.float().numpy() - want) <= tol).all()
+    assert torch.equal(pp.mini(mode, tq, tk, tv), got)
+
+
 @pytest.mark.parametrize("mode", pp.MODES)
 def test_mini_tolerance_catches_a_row_sum_3_percent_off(mode):
     # a kernel that drops one of 32 key tiles from l is about 3% off
