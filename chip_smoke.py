@@ -38,8 +38,9 @@ Phases, in order, each printing one JSON line:
    K768 N3072, K3072 N768; the surgery phase's int4 BERT) and with int8
    weights (on no path) at M64 and M1024, K2048 N2048, and at the ragged
    M300 K776 N200 (the cp.async loader), each against ``torch.matmul`` in
-   f32; K1 and K10 lines give
-   TFLOP/s too;
+   f32; K2's and K9's f32-x scalar modes (on no path) at M64 K2048 N32000
+   and M64 K2048 F5632, each beside cuBLAS over W dequantized to f32; K1
+   and K10 lines give TFLOP/s too;
 4. train kernels: K1 with ALiBi and dropout, K5 flash_bwd_dq and K6
    flash_bwd_dkv against their plain versions (B2 H4 L200 S264 with bias,
    ALiBi and dropout, f32 and bf16, n 0 and 1, bf16 at d64 and d128, so
@@ -56,8 +57,9 @@ Phases, in order, each printing one JSON line:
    H16 L=S=512 d64 bf16 causal, n 1, and K7 int4 and W8A8 over M16384 at
    K1024 N1024, N256, N2816 and K2816 N1024;
 4a. head_dims: K1, K5 and K6 at head dims 16, 80 and 96 (zero-padded by
-   the wrappers to 32, 128 and 128), 256 (K1's 64-row TMA + wgmma kernel
-   ``flash_fwd_d256_kernel`` in bf16, the scalar kernels otherwise), 300
+   the wrappers to 32, 128 and 128), 256 (the TMA + wgmma kernels
+   ``flash_fwd_d256_kernel``, ``flash_bwd_dq_d256_kernel`` and
+   ``flash_bwd_dkv_d256_kernel`` in bf16, the scalar kernels in f32), 300
    (padded to 384), 384 and 512 (the wide scalar kernels, f32 and bf16),
    against their plain versions at B2 H4 L200 S264 under a (1, 4) bias,
    ALiBi and dropout, causal, f32 and bf16, n 0 and 1, as in 4; then K1 at
@@ -65,10 +67,12 @@ Phases, in order, each printing one JSON line:
    plain version and SDPA, with the bytes the padding adds, o held against
    a float64 evaluation too; K1, K5 and K6 at d256, 384 and 512 there as
    phase 4 times its training lines (the backward pair against SDPA's
-   backward); K8 at
+   backward; at d256 it must have launched K5's and K6's D 256 kernels); K8 at
    B8 KVH1 G8 S512 hd 256 over int8 and bf16 caches and hd 160 and 512
    over int8 (split and products printed); K10's four modes at B2 H8 L1024
-   hd 80, 256 and 320;
+   hd 80, 256 and 320; and K1, K5 and K6 at train_d256's shape (B2 H8
+   L=S=2048 d256 bf16 causal, n 1, dropout 0.1) as phase 4 times its
+   training lines, K5 and K6 their D 256 kernels;
 4b. head_dims_serve: a decoder at Gemma-2B's widths (d_model 2048, 8 heads
    over 1 KV head, head dim 256, d_ff 16384, vocab 256000; 2 of its 18
    layers), int8 weights quantized from N(0, 1/fan_in) draws, int8 KV,
@@ -77,6 +81,11 @@ Phases, in order, each printing one JSON line:
    through the step path, held to budgets and the teacher-forced gate; K1 at d256 under the engine's
    mask, K8 at hd 256 (G 8), K2 at N 256000, K3, K4, K7 and K9 must
    launch (K2's and K8's plans printed);
+4c. train_d256: 4 AdamW steps at Gemma-2B's widths, 2 of its 18 layers
+   (bf16, n 1, attention dropout 0.1, remat, lr 3e-4, one B2 x L2048
+   batch): losses finite and falling, gradients finite, K1, K5 and K6
+   launched at head dim 256; step walls, peak memory and, under
+   ``torch.profiler``, the step's device ms by kernel;
 5. serving: the TinyLlama-1.1B shape (random weights from a seed, int8
    weights, int8 KV) serves 96 requests through 64 slots of the fused
    decode loop, on an engine built as bench.py builds it (the default
@@ -234,7 +243,7 @@ Then it prints the kernels' JSON line (times, launches on the serving,
 training, analysis, quant_study, head_dims, head_dims_serve, surgery, ring,
 serve_mesh or serve_7b run, each kernel's launches on the analysis,
 quant_study, surgery, train_mesh, serve_mesh, serve_7b and head_dims_serve
-runs, bounds), the card's name and power limit from
+runs, bounds; and on the train_d256 run), the card's name and power limit from
 nvidia-smi, and last ``{"ok": true, "device": {...}}``. Any failed check
 exits non-zero. The port is imported from the checkout; nothing of JAX is
 imported.
@@ -261,15 +270,17 @@ ROOT = Path(__file__).resolve().parent
 TPU_PKG = "flash_attention_softmax_n_tpu"
 CSRC = "flash_attention_softmax_n_tpu_torch/csrc"
 # K1's, K5's, K6's and K10's kernels as torch.profiler names them: bf16
-# inputs take the TMA + wgmma kernel (K1 at D 256 its 64-row one), f32 and
-# bf16 at D 256 the scalar one (but K1's bf16), every dtype above 256 the
-# wide scalar one
+# inputs take the TMA + wgmma kernel (K1, K5 and K6 at D 256 their own
+# D 256 ones), f32 (and K10's bf16 at D 256) the scalar one, every dtype
+# above 256 the wide scalar one
 FLASH_FWD_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_d256_kernel", "flash_fwd_kernel",
                      "flash_fwd_wide_kernel")
-FLASH_DQ_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_kernel",
-                    "flash_bwd_dq_wide_kernel")
-FLASH_DKV_KERNELS = ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_kernel",
-                     "flash_bwd_dkv_wide_kernel")
+FLASH_DQ_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_d256_kernel",
+                    "flash_bwd_dq_kernel", "flash_bwd_dq_wide_kernel")
+FLASH_DKV_KERNELS = ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_d256_kernel",
+                     "flash_bwd_dkv_kernel", "flash_bwd_dkv_wide_kernel")
+# bf16 K5 and K6 at D 256
+D256_BWD_KERNELS = ("flash_bwd_dq_d256_kernel", "flash_bwd_dkv_d256_kernel")
 MINI_KERNELS = ("prefill_phase_wgmma_kernel", "prefill_phase_kernel",
                 "prefill_phase_wide_kernel")
 # K3's and K4's one kernel
@@ -372,6 +383,21 @@ def device_ms_of(torch, pairs, runs: int = TIMED_RUNS):
     return out
 
 
+def kernel_names(torch, fn, known):
+    """Which of the kernel names ``known`` one call of ``fn`` launched, as
+    torch.profiler saw them"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [k for k in known if any(k in n for n in names)]
+
+
 # ----------------------------------------------------------------------------
 # phase 3: each kernel against its plain version
 # ----------------------------------------------------------------------------
@@ -472,16 +498,18 @@ QMM_ARGMAX_KERNELS = ("qmm_argmax_wgmma_kernel", "qmm_argmax_scalar_kernel",
                       "qmm_argmax_merge_kernel")
 
 
-def check_qmm(torch, pkg, gen, *, M, K, N):
-    """K2 at a serving shape (bf16 x, int8 W): held against its plain
-    version and required bit-equal over two calls. Prints the plan, W's
-    achieved GB/s (its bytes over the device time) and, for information,
-    cuBLAS's device time for
-    ``torch.max((x @ W_bf16) * s, -1)`` with W dequantized to bf16
+def check_qmm(torch, pkg, gen, *, M, K, N, dtype=None):
+    """K2 at a serving shape (bf16 x, int8 W; f32 x takes its scalar
+    kernel, on no path): held against its plain version and required
+    bit-equal over two calls. Prints the plan, W's achieved GB/s (its bytes
+    over the device time) and, for information, cuBLAS's device time for
+    ``torch.max((x @ W_x) * s, -1)`` with W dequantized to x's dtype
     beforehand, from the same profiler session."""
     qm = pkg["quant_matmul"]
     dev = "cuda"
-    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+    x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
     w = torch.randint(-127, 128, (K, N), generator=gen, device=dev).to(torch.int8)
     s = (torch.rand((1, N), generator=gen, device=dev) + 0.5) / (127.0 * K ** 0.5)
     plan = qm.qmm_argmax_plan(M, K, N, x.dtype)
@@ -492,10 +520,10 @@ def check_qmm(torch, pkg, gen, *, M, K, N):
     def plain():
         return qm.quantized_matmul_argmax_reference(x, w, s)
 
-    w_bf16 = w.to(torch.bfloat16)
+    w_x = w.to(dtype)
 
     def cublas():
-        return torch.max((x @ w_bf16) * s, dim=-1)
+        return torch.max((x @ w_x) * s, dim=-1)
 
     idx, val = kernel()
     idx_ref, val_ref = plain()
@@ -511,9 +539,10 @@ def check_qmm(torch, pkg, gen, *, M, K, N):
     require(idx_ok and rel <= 1e-3 and same,
             f"qmm_argmax: indices equal where the top-2 gap > 1e-3: {idx_ok}; "
             f"max relative error of the max {rel} (tol 1e-3); repeat bit-equal {same}")
-    b_ms, b_by = bound_ms(x.numel() * 2 + w.numel() + N * 4 + M * 8, 2.0 * M * K * N)
+    b_ms, b_by = bound_ms(x.numel() * x.element_size() + w.numel() + N * 4 + M * 8,
+                          2.0 * M * K * N, F32_FLOPS if f32 else None)
     k_dev, cublas_dev = device_ms_of(torch, [(kernel, QMM_ARGMAX_KERNELS), (cublas, None)])
-    line = {"name": f"qmm_argmax M{M} K{K} N{N}", "route": "cuda",
+    line = {"name": f"qmm_argmax M{M} K{K} N{N}" + (" f32" if f32 else ""), "route": "cuda",
             "source": f"{CSRC}/qmm_argmax.cu",
             "replaces": f"{TPU_PKG}/kernels/quant_matmul.py:117 _qmm_argmax_kernel",
             "counter": "qmm_argmax",
@@ -526,7 +555,8 @@ def check_qmm(torch, pkg, gen, *, M, K, N):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "library": "none: no one PyTorch call computes it (a GEMM and a max)",
             "cublas_device_ms": cublas_dev,
-            "cublas": "torch.max((x @ W) * s, -1) over W dequantized to bf16"}
+            "cublas": "torch.max((x @ W) * s, -1) over W dequantized to "
+                      + ("f32 (TF32 off)" if f32 else "bf16")}
     return line
 
 
@@ -699,13 +729,15 @@ FUSED_MLP_KERNELS = ("fused_mlp_gateup_kernel", "fused_mlp_swiglu_sum_kernel",
                      "fused_mlp_sum_kernel")
 
 
-def check_fused_mlp(torch, pkg, gen, *, M, K, F):
-    """K9 at a decode shape (bf16 x, int8 gate/up/down). Prints the plan of
-    both phases and, beside ``library: none``, the device time of cuBLAS
-    over the same weights dequantized to bf16 (three ``torch.matmul`` and a
-    silu), from the same profiler session."""
+def check_fused_mlp(torch, pkg, gen, *, M, K, F, dtype=None):
+    """K9 at a decode shape (bf16 x, int8 gate/up/down; f32 x takes its
+    scalar kernel, on no path). Prints the plan of both phases and, beside
+    ``library: none``, the device time of cuBLAS over the same weights
+    dequantized to x's dtype (three ``torch.matmul`` and a silu), from the
+    same profiler session."""
     fm, qt = pkg["fused_mlp"], pkg["qtensor"]
-    dev, dt = "cuda", torch.bfloat16
+    dev, dt = "cuda", dtype or torch.bfloat16
+    f32 = dt == torch.float32
     x = torch.randn((M, K), generator=gen, device=dev).to(dt)
     ws = [qt.quantize(torch.randn(shape, generator=gen, device=dev) * shape[0] ** -0.5,
                       bits=8, axis=0) for shape in ((K, F), (K, F), (F, K))]
@@ -731,28 +763,33 @@ def check_fused_mlp(torch, pkg, gen, *, M, K, F):
     err = float((out.float() - ref.float()).abs().max())
     scale = float(ref.float().abs().max())
     err_norm = norm_err(out, ref)
-    norm_tol = BWD_NORM_TOL["bf16"]
-    name = f"fused_mlp M{M} K{K} F{F} bf16"
-    # h rounds to bf16 before the down product, on either side of a tie
-    require(err <= 2e-2 * scale and err_norm <= norm_tol and same,
-            f"{name}: max |out - plain| {err} > 2e-2 * {scale}, or norm-wise {err_norm} > "
+    norm_tol = BWD_NORM_TOL["f32" if f32 else "bf16"]
+    name = f"fused_mlp M{M} K{K} F{F} {'f32' if f32 else 'bf16'}"
+    # bf16: h rounds to bf16 before the down product, on either side of a
+    # tie; f32: the sums' order alone
+    tol = 1e-5 if f32 else 2e-2
+    require(err <= tol * scale and err_norm <= norm_tol and same,
+            f"{name}: max |out - plain| {err} > {tol} * {scale}, or norm-wise {err_norm} > "
             f"{norm_tol}, or repeat bit-equal {same}")
-    b_ms, b_by = bound_ms(M * K * 2 * 2 + 3 * K * F + (2 * F + K) * 4, 6.0 * M * K * F)
+    b_ms, b_by = bound_ms(M * K * x.element_size() * 2 + 3 * K * F + (2 * F + K) * 4,
+                          6.0 * M * K * F, F32_FLOPS if f32 else None)
     k_dev, cublas_dev = device_ms_of(torch, [(kernel, FUSED_MLP_KERNELS), (cublas, None)])
     return {"name": name, "route": "cuda", "source": f"{CSRC}/fused_mlp.cu",
             "replaces": f"{TPU_PKG}/kernels/fused_mlp.py:44 _mlp_kernel",
             "counter": "fused_mlp", "max_abs_err": err, "norm_err": err_norm,
-            "tolerance": "2e-2 max|out|; norm-wise 1e-2 max(1, ||plain||)",
+            "tolerance": f"{tol} max|out|; norm-wise {norm_tol} max(1, ||plain||)",
             "repeat_bit_equal": same,
-            "plan": {"kernel": plan.kernel, "gate_up": plan.gate_up._asdict(),
-                     "down": plan.down._asdict()},
+            "plan": {"kernel": plan.kernel,
+                     "gate_up": plan.gate_up._asdict() if plan.gate_up else None,
+                     "down": plan.down._asdict() if plan.down else None},
             "ms": time_ms(torch, kernel), "device_ms": k_dev,
             "tflops": tflops(6.0 * M * K * F, k_dev),
             "plain_ms": time_ms(torch, plain), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,
             "library": "none: no one PyTorch call computes it (three GEMMs and a silu)",
             "cublas_device_ms": cublas_dev,
-            "cublas": "three torch.matmul and a silu over the weights dequantized to bf16"}
+            "cublas": "three torch.matmul and a silu over the weights dequantized to "
+                      + ("f32 (TF32 off)" if f32 else "bf16")}
 
 
 # K8's kernels as torch.profiler names them: the split kernel and the merge
@@ -1079,13 +1116,14 @@ def check_dropout_masks(torch, fa):
 
 
 def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, path="train",
-                       runs=TIMED_RUNS):
+                       runs=TIMED_RUNS, kernels=()):
     """The three kernels at a training shape (by default the train phase's,
     B2 H32 L=S=2048 d64 bf16 causal, n = 1, dropout 0.1, as its every layer
     runs them; the quant_study phase's is B32 H16 L512 without dropout):
     errors, and times (``runs`` calls each) against their bounds, plain
     versions and scaled_dot_product_attention with one zero key/value row
-    prepended."""
+    prepended. The backward pair's line names the K5 and K6 kernels it
+    launched, which must include ``kernels``."""
     fa, ops = pkg["flash_attention"], pkg["build"].ops()
     n = 1.0
     (q, k, v, do, ex, o, lse), errs, name = check_attention(
@@ -1204,7 +1242,12 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
     # bound counts what dq, dk and dv need, 10·d a pair (S, dP, dV, dK, dQ
     # once each), not the 14·d the two kernels do: each recomputes S and dP
     b56, by56 = bound_ms(8 * bhld * 2 + bhl * 4, 10.0 * D * pairs)
+    # which K5 and K6 kernels the pair launched
+    launched = kernel_names(torch, wrapper_bwd, (*FLASH_DQ_KERNELS, *FLASH_DKV_KERNELS))
+    require(all(k in launched for k in kernels),
+            f"flash_bwd {shape}: launched {launched}, not {kernels}")
     emit({"phase": "kernel_pair", "name": f"flash_bwd (delta + K5 + K6) {shape}",
+          "kernels": launched,
           "ms": time_ms(torch, wrapper_bwd, runs), "device_ms": pair_dev,
           "tflops": tflops(10.0 * D * pairs, pair_dev), "bound_ms": b56, "bound_by": by56,
           "library_ms": library_bwd_ms, "library_device_ms": library_bwd_dev,
@@ -1300,13 +1343,14 @@ def head_dims(torch, pkg, gen):
             "name", "padded_to", "pad_bytes", "max_abs_err", "o_excess_float64", "ms",
             "device_ms", "tflops", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
         lines.append(kd)
-    # K1, K5 and K6 as the training lines time them: at d256 (K1's wgmma
-    # kernel, K5's and K6's scalar ones) and on the wide kernels at 384 (where
-    # 300 runs) and 512
+    # K1, K5 and K6 as the training lines time them: at d256 (their bf16
+    # TMA + wgmma kernels, which K5 and K6 must have launched) and on the
+    # wide kernels at 384 (where 300 runs) and 512
     for d in (256, 384, 512):
         # the wide kernels take 12-80 ms a call: 5 calls a time there
         lines += train_kernel_lines(torch, pkg, gen, B=B, H=H, L=L, D=d, rate=0.0,
-                                    path="head_dims", runs=TIMED_RUNS if d == 256 else 5)
+                                    path="head_dims", runs=TIMED_RUNS if d == 256 else 5,
+                                    kernels=D256_BWD_KERNELS if d == 256 else ())
     da = pkg["decode_attention"]
     for line in K8_WIDE_LINES:
         kd = check_decode_attn(torch, pkg, line)
@@ -2253,7 +2297,7 @@ def train_agreement(torch, pkg):
     require(all(v == 0 for v in launches["xla"].values()), "the xla route launched a kernel")
 
 
-def profile_step(torch, step_fn, wall_s):
+def profile_step(torch, step_fn, wall_s, phase="train_profile"):
     """Training steps under torch.profiler: IDLE_PAIRS times an unprofiled
     step's synchronised wall, then at once a profiled step's device busy
     time (kernel and copy times on one stream, annotation ranges left out);
@@ -2283,7 +2327,7 @@ def profile_step(torch, step_fn, wall_s):
     median_run = sorted(range(IDLE_PAIRS), key=busy.__getitem__)[IDLE_PAIRS // 2]
     _, wall_profiled, by_name = runs[median_run]
     busy_ms = busy[median_run]
-    paired = paired_idle_share("train_profile",
+    paired = paired_idle_share(phase,
                                [(w, sum(ms for ms, _ in names.values()))
                                 for w, _, names in runs])
     ours = {}
@@ -2294,7 +2338,7 @@ def profile_step(torch, step_fn, wall_s):
                 ours[kernel] = (prev_ms + ms, prev_calls + calls)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     idle_profiled = 1.0 - busy_ms / 1e3 / wall_profiled
-    emit({"phase": "train_profile", "breakdown_pair": median_run,
+    emit({"phase": phase, "breakdown_pair": median_run,
           "wall_s_profiled": wall_profiled,
           "wall_s_unprofiled": wall_s,
           "device_busy_s": busy_ms / 1e3 if busy_ms else None,
@@ -2310,7 +2354,7 @@ def profile_step(torch, step_fn, wall_s):
           "top": [{"name": name[:90], "ms": ms, "calls": calls}
                   for name, (ms, calls) in top]})
     require(busy_ms > 0 and 0.0 <= idle_profiled <= 1.0,
-            f"train_profile: idle share {idle_profiled} against the profiled wall "
+            f"{phase}: idle share {idle_profiled} against the profiled wall "
             f"{wall_profiled} s is outside [0, 1] (device busy {busy_ms} ms)")
 
 
@@ -2358,6 +2402,70 @@ def train(torch, pkg):
         require(count > 0, f"the training run never launched {name}")
     profile_step(torch, lambda: step(params, opt, tokens, generator=gen),
                  float(np.median(walls[1:])))
+    return launches
+
+
+def train_d256(torch, pkg):
+    """4 AdamW steps (lr 3e-4) at Gemma-2B's widths (``GEMMA_2B``: head dim
+    256, 8 heads over 1 KV head, d_ff 16384, vocab 256000) and 2 of its 18
+    layers (``HEAD_DIMS_SERVE_LAYERS``, the one cut), as ``train`` trains:
+    bf16, n = 1, attention dropout 0.1, remat, one B2 x L2048 batch from
+    numpy.random.RandomState(0), random weights from seed 0, so that K1, K5
+    and K6 run at head dim 256 on a training path. The losses must be finite
+    and fall, the gradients finite and not all zero, and K1, K5 and K6
+    launch (K5 and K6 their D 256 kernels); then ``profile_step``'s device
+    ms by kernel. Returns the launches of the 4 steps."""
+    dec, tr, build = pkg["decoder"], pkg["train"], pkg["build"]
+    cfg = dec.DecoderConfig(**GEMMA_2B, n_layers=HEAD_DIMS_SERVE_LAYERS, dtype=torch.bfloat16,
+                            attn_dropout=0.1, remat=True)
+    require(cfg.head_dim == 256, f"train_d256: head dim {cfg.head_dim}, not 256")
+    init, step = tr.make_train_step(cfg, learning_rate=3e-4)
+    t0 = time.perf_counter()
+    params, opt = init(dec.init_decoder_params(cfg, 0, device="cuda"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for _, p in leaves(params))
+    b, l = 2, 2048
+    tokens = torch.from_numpy(
+        np.random.RandomState(0).randint(0, cfg.vocab_size, size=(b, l))).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    losses, walls = [], []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, tokens, generator=gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = {k: build.LAUNCHES[k] for k in TRAIN_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    grad_ok = {path: bool(torch.isfinite(p.grad).all()) and float(p.grad.abs().max()) > 0
+               for path, p in leaves(params)}
+    emit({"phase": "train_d256",
+          "config": f"Gemma-2B widths (d_model 2048, 8 heads over 1 KV head, head dim 256, "
+                    f"d_ff 16384, vocab 256000), {HEAD_DIMS_SERVE_LAYERS} of "
+                    f"{GEMMA_2B_LAYERS} layers, bf16, n 1, attn_dropout 0.1, remat, "
+                    f"AdamW lr 3e-4, B2 L2048",
+          "reduced": {"n_layers": [GEMMA_2B_LAYERS, HEAD_DIMS_SERVE_LAYERS]},
+          "card": pkg["nvidia_smi"], "params": n_params, "init_s": init_s,
+          "losses": losses, "step_wall_s": walls,
+          "tokens_per_s": [b * l / w for w in walls], "max_memory_allocated": peak,
+          "launches": launches,
+          "launches_expected": {"flash_fwd": 2 * HEAD_DIMS_SERVE_LAYERS * 4,
+                                "flash_bwd_dq": HEAD_DIMS_SERVE_LAYERS * 4,
+                                "flash_bwd_dkv": HEAD_DIMS_SERVE_LAYERS * 4},
+          "grads_finite_nonzero": all(grad_ok.values())})
+    require(all(np.isfinite(losses)), f"train_d256: a loss is not finite: {losses}")
+    require(losses[-1] < losses[0], f"train_d256: the loss did not fall over 4 steps: {losses}")
+    require(all(grad_ok.values()),
+            f"train_d256: gradients not finite or all zero: "
+            f"{[k for k, v in grad_ok.items() if not v]}")
+    for name, count in launches.items():
+        require(count > 0, f"train_d256 never launched {name}")
+    profile_step(torch, lambda: step(params, opt, tokens, generator=gen),
+                 float(np.median(walls[1:])), phase="train_d256_profile")
     return launches
 
 
@@ -3890,6 +3998,11 @@ def main() -> int:
     # M300 K776 N200 takes the cp.async loader (W's rows off 16 bytes)
     f32_lines = [check_dequant_f32(torch, pkg, gen, M=M, K=2048, N=2048) for M in (64, 1024)]
     f32_lines.append(check_dequant_f32(torch, pkg, gen, M=300, K=776, N=200))
+    # K2's and K9's f32-x scalar modes at their first serving lines' shapes:
+    # no path gives them f32 x, so they stay out of the kernels line too
+    f32_lines.append(check_qmm(torch, pkg, gen, M=64, K=2048, N=32000, dtype=torch.float32))
+    f32_lines.append(check_fused_mlp(torch, pkg, gen, M=64, K=2048, F=5632,
+                                     dtype=torch.float32))
     # serve_mesh's kernels at the per-rank shapes of {"data": 2, "model": 4}
     mesh_lines = mesh_kernel_lines(torch, pkg)
     kernels += mesh_lines
@@ -3924,6 +4037,11 @@ def main() -> int:
             kernels.append(kd)
     launches_head_dims, head_dim_lines = head_dims(torch, pkg, gen_study)
     kernels += head_dim_lines
+    # K1, K5 and K6 at train_d256's shape: Gemma-2B's 8 heads (K/V repeated
+    # from its one KV head) at B2 L=S=2048 d256 causal, dropout 0.1; K5 and
+    # K6 must launch their D 256 kernels
+    kernels += train_kernel_lines(torch, pkg, gen_study, B=2, H=8, L=2048, D=256, rate=0.1,
+                                  path="train_d256", kernels=D256_BWD_KERNELS)
 
     # each main path's launches: counts set to 0 just before it, read after
     launches = serve(torch, pkg)
@@ -3934,6 +4052,7 @@ def main() -> int:
     launches["quant_study"] = quant_study(torch, pkg)
     launches["head_dims"] = launches_head_dims
     launches["head_dims_serve"] = head_dims_serve(torch, pkg)
+    launches["train_d256"] = train_d256(torch, pkg)
     launches["surgery"] = surgery(torch, pkg)
     launches["ring"], ring_lines = ring(torch, pkg)
     kernels += ring_lines
@@ -3949,6 +4068,7 @@ def main() -> int:
         kd["launches_serve_mesh"] = launches["serve_mesh"][counter]
         kd["launches_serve_7b"] = launches["serve_7b"][counter]
         kd["launches_head_dims_serve"] = launches["head_dims_serve"][counter]
+        kd["launches_train_d256"] = launches["train_d256"].get(counter, 0)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

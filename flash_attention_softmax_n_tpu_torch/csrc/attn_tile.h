@@ -31,9 +31,11 @@
 // reductions are two shuffles.
 //
 // Tiles, rings, loads and products take the rows of a tile as a template
-// parameter, ROWS, by default TQ = TK = 128: K1's kernel at D 256
-// (flash_fwd.cu) keeps every tile at 64 rows (a warpgroup's queries, a key
-// tile), where a 128-row tile of D 256 would be 64 KB.
+// parameter, ROWS, by default TQ = TK = 128: K1's and K6's kernels at D 256
+// (flash_fwd.cu, flash_bwd_dkv.cu) keep every tile at 64 rows (a
+// warpgroup's queries, a key tile), where a 128-row tile of D 256 would be
+// 64 KB; K5's (flash_bwd_dq.cu) keeps 128-row Q and dO (RES_ROWS) beside
+// 32-row K and V ring tiles.
 
 #pragma once
 
@@ -67,20 +69,28 @@ struct Tile {
   static constexpr int TILE = BOXES * BOX;       // a whole tile of q, k or v
 };
 
-// RES resident tiles at the base (K1, K10: Q; K5: Q, dO; K6: K, V; K1 at D
-// 256: the two warpgroups' Q), then slot s's two ring tiles (K and V; K6: Q
-// and dO); the barriers after them.
-template <int D, int RES = 1, int ROWS = TQ>
+// RES resident tiles of RES_ROWS rows at the base (K1, K10: Q; K5: Q, dO;
+// K6: K, V; K1 at D 256: the two warpgroups' Q), then slot s's two ring
+// tiles of ROWS rows (K and V; K6: Q and dO); the barriers after them. K5
+// at D 256 keeps 128-row Q and dO beside 32-row ring tiles.
+template <int D, int RES = 1, int ROWS = TQ, int RES_ROWS = ROWS>
 struct Ring {
   using T = Tile<D, ROWS>;
-  static constexpr int BAR_AT = T::TILE * (RES + 2 * STAGES);
+  static constexpr int RES_TILE = Tile<D, RES_ROWS>::TILE;
+  static constexpr int BAR_AT = RES_TILE * RES + T::TILE * 2 * STAGES;
   // q_full, full_k[STAGES], full_v[STAGES], empty[STAGES]; + room to align
   static constexpr int SMEM = BAR_AT + 8 * (1 + 3 * STAGES) + 1024;
   uint8_t* mem;  // the generic address of `base`
   uint32_t base, bars;
   __device__ uint32_t q() const { return base; }
-  __device__ uint32_t res(int i) const { return base + T::TILE * i; }
-  __device__ uint32_t k(int s) const { return base + T::TILE * (RES + 2 * s); }
+  __device__ uint32_t res(int i) const { return base + RES_TILE * i; }
+  __device__ uint32_t k(int s) const {
+    // equal rows keep the formula the D 32/64/128 kernels were built and
+    // timed with, so that their instructions stay the ones measured; the
+    // general one below gives the same address
+    if constexpr (RES_ROWS == ROWS) return base + T::TILE * (RES + 2 * s);
+    return base + RES_TILE * RES + T::TILE * 2 * s;
+  }
   __device__ uint32_t v(int s) const { return k(s) + T::TILE; }
   __device__ uint32_t q_full() const { return bars; }
   __device__ uint32_t full_k(int s) const { return bars + 8 * (1 + s); }
@@ -90,14 +100,14 @@ struct Ring {
 
 // The ring in dynamic shared memory, aligned to 1 KB; barriers initialised
 // by thread 0, then the whole CTA synchronises once.
-template <int D, int RES = 1, int ROWS = TQ>
-__device__ __forceinline__ Ring<D, RES, ROWS> make_ring(uint8_t* smem_raw) {
-  Ring<D, RES, ROWS> r;
+template <int D, int RES = 1, int ROWS = TQ, int RES_ROWS = ROWS>
+__device__ __forceinline__ Ring<D, RES, ROWS, RES_ROWS> make_ring(uint8_t* smem_raw) {
+  Ring<D, RES, ROWS, RES_ROWS> r;
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t pad = (1024 - (raw & 1023)) & 1023;
   r.mem = smem_raw + pad;
   r.base = raw + pad;
-  r.bars = r.base + Ring<D, RES, ROWS>::BAR_AT;
+  r.bars = r.base + Ring<D, RES, ROWS, RES_ROWS>::BAR_AT;
   if (threadIdx.x == 0) {
     mbar_init(r.q_full(), 1);
     for (int s = 0; s < STAGES; ++s) {
@@ -126,17 +136,17 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, 
 // on without bytes, so its phases stay those of the slot), the rest K and V
 // from row (first + i - k_only) * ROWS. TRAP: how its waits end on a fault
 // (hopper.h mbar_wait).
-template <int D, int RES, int ROWS = TQ, bool TRAP = true>
-__device__ __forceinline__ void produce(const Ring<D, RES, ROWS>& r,
+template <int D, int RES, int ROWS = TQ, bool TRAP = true, int RES_ROWS = ROWS>
+__device__ __forceinline__ void produce(const Ring<D, RES, ROWS, RES_ROWS>& r,
                                         const CUtensorMap* const (&res_maps)[RES], int res_row,
                                         const CUtensorMap* kmap, const CUtensorMap* vmap, int bh,
                                         int first, int tiles, int k_only, int res_step = 0) {
   using T = Tile<D, ROWS>;
   if (tiles == 0) return;
-  mbar_expect_tx(r.q_full(), RES * T::TILE);
+  mbar_expect_tx(r.q_full(), RES * Tile<D, RES_ROWS>::TILE);
 #pragma unroll
   for (int i = 0; i < RES; ++i)
-    load_tile<D, ROWS>(r.res(i), res_maps[i], r.q_full(), res_row + i * res_step, bh);
+    load_tile<D, RES_ROWS>(r.res(i), res_maps[i], r.q_full(), res_row + i * res_step, bh);
   int stage = 0;
   uint32_t phase = 0;
   for (int i = 0; i < tiles; ++i) {
@@ -159,18 +169,20 @@ __device__ __forceinline__ void produce(const Ring<D, RES, ROWS>& r,
 
 // issues s = A B^T over the D / 16 k16 steps as one wgmma group, without
 // waiting: A the 64 rows at `a`, B the 2 M rows at `b` (M = 64, 32 or 16
-// floats: 128, 64 or 32 rows), both K-major tiles of the ring's layout with
-// boxes of ROWS rows
-template <int D, int M, int ROWS = TQ>
+// floats: 128, 64 or 32 rows), both K-major tiles of the ring's layout, A's
+// with boxes of ROWS rows and B's of BROWS
+template <int D, int M, int ROWS = TQ, int BROWS = ROWS>
 __device__ __forceinline__ void qk_async(float (&s)[M], uint32_t a, uint32_t b) {
   using T = Tile<D, ROWS>;
+  using TB = Tile<D, BROWS>;
   constexpr int PER_BOX = T::BOX_COLS / 16;
   wgmma_fence();
 #pragma unroll
   for (int st = 0; st < D / 16; ++st) {
     const uint32_t off = (st / PER_BOX) * T::BOX + (st % PER_BOX) * 32;
-    wgmma_ss(s, desc_of(a + off, 16, T::GROUP, T::LAYOUT), desc_of(b + off, 16, T::GROUP, T::LAYOUT),
-             st > 0);
+    const uint32_t off_b = (st / PER_BOX) * TB::BOX + (st % PER_BOX) * 32;
+    wgmma_ss(s, desc_of(a + off, 16, T::GROUP, T::LAYOUT),
+             desc_of(b + off_b, 16, TB::GROUP, TB::LAYOUT), st > 0);
   }
   wgmma_commit();
 }

@@ -32,13 +32,35 @@
 // low key tiles, which causal rows see most, launch first. Inputs must
 // start on 16 bytes (TMA); the operator raises otherwise.
 //
+// bf16 at D 256: flash_bwd_dkv_d256_kernel. dK and dV of 64 keys x 256
+// columns are 128 + 128 floats a thread of a warpgroup, more than its
+// registers, so the CTA splits the work by product: it takes 64 keys (K
+// and V resident, 32 KB each) and walks the query tiles of 64 rows (Q and
+// dO through a two-stage ring, 64 KB a slot; 208 KB with P) as the kernel
+// above does. Warpgroup 0 computes S^T = K Q_s^T and P, hands P (f32, 16
+// KB) to warpgroup 1 through shared memory under a named barrier, and
+// accumulates dV += (P mult)^T dO; warpgroup 1 computes dP^T = V dO^T,
+// then dS from P, and accumulates dK += dS^T Q_s. Each accumulates 128
+// floats over all 256 columns and no product is done twice (8 D
+// operations a pair), at the price of two barriers a tile (the Q_s one
+// and P's). Splitting by columns instead (each warpgroup dK and dV for 128
+// columns) needs no hand-over but forms S^T and dP^T in both (12 D a pair)
+// and keeps 192 floats live beside the fragments. A producer warpgroup at
+// 24 registers (setmaxnreg) leaves 240 to each consumer (at 40 and 232,
+// K1's split, ptxas spilled 8 bytes), and the waits give up instead of
+// trapping (hopper.h mbar_wait<false>), as in K1's D 256 kernel
+// (flash_fwd.cu). Each tile's dV or dK product runs on through the next
+// tile's Q_s rewrite and barrier before the warpgroup waits for it and
+// frees the slot. The CTAs of one head run side by side (a flat grid), so
+// the Q and dO tiles they all stream come from L2.
+//
 // f32: flash_bwd_dkv_kernel, scalar f32 FMAs from shared memory on 64 x 64
 // tiles (wgmma has no f32 x f32 product): one CTA per (KV tile of 64 keys,
 // head, batch) loops over the query tiles of 64 rows; thread (ty, tx) owns
 // key rows ty + 16 i, query columns tx + 16 j of the transposed score tile,
 // and dk/dv columns tx + 16 c; the dropped p and ds go through shared
 // memory for the two transposed products. At D 256 the tiles are 32 x 32
-// (scalar_tile, for shared memory) and the kernel takes bf16 too.
+// (scalar_tile, for shared memory).
 //
 // Above 256 (D a multiple of 128, as the wrapper pads it), f32 and bf16
 // take flash_bwd_dkv_wide_kernel: the same 64 x 64 tiles and thread
@@ -48,6 +70,8 @@
 //
 // lse is clamped at DEAD_LSE as in K5, so dead rows (n == 0, L > S) add
 // nothing; query rows past L and keys past S are masked in the tile.
+
+#include <climits>
 
 #include "attn_tile.h"
 #include "flash_common.h"
@@ -485,6 +509,183 @@ cudaError_t launch_wgmma(const FasnAttn& a, const void* dout, const float* lse,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at D 256: 64-row tiles split by product, a producer warpgroup,
+// setmaxnreg
+// ---------------------------------------------------------------------------
+
+constexpr int D256_ROWS = 64;  // rows of every tile: the CTA's keys, a query tile
+constexpr int D256_THREADS = attn::CONSUMERS + 128;
+using D256Ring = attn::Ring<256, 2, D256_ROWS>;  // resident: K, V; each slot: Q and dO
+// after the ring's barriers: warpgroup 0's P (f32, 64 x 64), each thread's
+// 32 values as 8 float4s 128 threads apart; then per warpgroup two buffers
+// (by tile parity) of a tile's per-query values
+constexpr int D256_P_AT = D256Ring::BAR_AT + 64;
+constexpr int D256_ROWS_AT = D256_P_AT + D256_ROWS * D256_ROWS * 4;
+constexpr int D256_SMEM = D256Ring::SMEM + 64 + D256_ROWS * D256_ROWS * 4 + 2 * 2 * D256_ROWS * 4;
+
+__global__ void __launch_bounds__(D256_THREADS, 1)
+    flash_bwd_dkv_d256_kernel(const __grid_constant__ CUtensorMap qmap,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap,
+                              const __grid_constant__ CUtensorMap domap, const FasnAttn a,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv) {
+  using namespace attn;
+  constexpr int D = 256, QT = D256_ROWS;
+  using T = Tile<D, QT>;
+  extern __shared__ uint8_t smem_raw[];
+  const D256Ring r = make_ring<D, 2, QT>(smem_raw);
+  // a flat grid, a head's key tiles side by side (the low ones, which
+  // causal rows see most, first): CTAs that run together stream the same
+  // Q and dO tiles, which L2 then serves
+  const int n_k = (a.S + QT - 1) / QT;
+  const int bh = blockIdx.x / n_k, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.x % n_k * QT;
+  const int L = a.L, S = a.S, off = S - L;
+  // the first query tile with a row that sees key k0 (row >= k0 - off);
+  // every tile from there on sees it
+  const int first = a.causal ? max(0, k0 - off) / QT : 0;
+  const int tiles = max(0, (L + QT - 1) / QT - first);
+  // the warpgroup's role, as a shuffled value: uniform across its warps,
+  // as setmaxnreg needs
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMERS) {
+      const CUtensorMap* const res[2] = {&kmap, &vmap};
+      produce<D, 2, QT, false>(r, res, k0, &qmap, &domap, bh, first, tiles, 0);
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int t = threadIdx.x % 128;
+    const int g = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
+    const ScoreMods mods = score_mods(a, b, h);
+    const Dropout drop = dropout_of(a);
+    const bool plain = mods.bias == nullptr && !mods.alibi;
+    // written and read in the same fragment order: no bank conflicts
+    float4* pbuf = reinterpret_cast<float4*>(r.mem + D256_P_AT) + t;
+    float acc[D / 2];  // warpgroup 0: dV; 1: dK
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    // thread t < 64 carries query t's value of the next tile (warpgroup 0:
+    // lse, then clamped and in log2 units; 1: delta; 0 past L) into the
+    // warpgroup's buffer
+    float* rows = reinterpret_cast<float*>(r.mem + D256_ROWS_AT) + wg * 2 * QT;
+    const float* row_src = (wg == 0 ? lse : delta) + (long long)bh * L;
+    const int qt = first * QT + t;  // query t of the first tile
+    float next = tiles > 0 && t < QT && qt < L ? row_src[qt] : 0.f;
+    if (tiles > 0) mbar_wait<false>(r.q_full(), 0);
+
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < tiles; ++it) {
+      const int q0 = (first + it) * QT;
+      // fragment row i: key k0 + g + 8 i; column: query q0 + 8 j + c0 + c,
+      // whose value is cv[8 j + c0 + c] (published by the barrier below)
+      float* cv = rows + (it % 2) * QT;
+      if (t < QT) {
+        cv[t] = wg == 0 ? fmaxf(next, DEAD_LSE) * LOG2E : next;
+        const int qn = qt + (it + 1) * QT;
+        next = it + 1 < tiles && qn < L ? row_src[qn] : 0.f;
+      }
+      mbar_wait<false>(r.full_k(stage), phase);
+      mbar_wait<false>(r.full_v(stage), phase);
+      // Q_s: each warpgroup rewrites two of the Q tile's four 64-column
+      // boxes, then both meet (which also frees P for this tile and
+      // publishes the tile's per-query values)
+      scale_q_rows<D / 2, QT>(r.mem + (r.k(stage) - r.base) + wg * 2 * T::BOX, 0, a.scale_q);
+      fence_proxy_async();
+      asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
+      // the previous tile's dV or dK product ran on through the above: wait
+      // for it, then free its slot
+      if (it > 0) {
+        wgmma_wait<0>();
+        fence_regs(acc);
+        if (t == 0) mbar_arrive(r.empty(stage ^ 1));
+      }
+      float s[QT / 2];
+      uint32_t f[QT / 16][4];
+      if (wg == 0) {
+        // S^T = K Q_s^T, P, then dV += (P mult)^T dO
+        qk_async<D, QT / 2, QT>(s, r.res(0), r.k(stage));
+        wgmma_wait<0>();
+        fence_regs(s);
+        if (!plain || q0 + QT > L || k0 + QT > S || (mods.causal && q0 + off < k0 + QT - 1)) {
+#pragma unroll
+          for (int e = 0; e < QT / 2; ++e)
+            s[e] = mods(s[e], q0 + 8 * (e / 4) + c0 + e % 2, k0 + g + 8 * ((e / 2) % 2));
+        }
+#pragma unroll
+        for (int e = 0; e < QT / 2; ++e)
+          s[e] = exp2f(fmaf(s[e], LOG2E, -cv[8 * (e / 4) + c0 + e % 2]));
+#pragma unroll
+        for (int v4 = 0; v4 < QT / 8; ++v4)
+          pbuf[v4 * 128] = make_float4(s[4 * v4], s[4 * v4 + 1], s[4 * v4 + 2], s[4 * v4 + 3]);
+        asm volatile("bar.arrive 2, %0;" ::"n"(CONSUMERS) : "memory");
+        if (drop.on) {
+#pragma unroll
+          for (int e = 0; e < QT / 2; ++e)
+            s[e] *= drop(b, h, q0 + 8 * (e / 4) + c0 + e % 2, k0 + g + 8 * ((e / 2) % 2));
+        }
+        to_a_frags(s, f);
+        pv_async<D, QT / 16, QT>(acc, f, r.v(stage));
+      } else {
+        // dP^T = V dO^T, then with warpgroup 0's P: dS, dK += dS^T Q_s
+        qk_async<D, QT / 2, QT>(s, r.res(1), r.v(stage));
+        wgmma_wait<0>();
+        fence_regs(s);
+        asm volatile("bar.sync 2, %0;" ::"n"(CONSUMERS) : "memory");
+#pragma unroll
+        for (int v4 = 0; v4 < QT / 8; ++v4) {
+          const float4 p4 = pbuf[v4 * 128];
+          const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int e = 4 * v4 + c;
+            const float d =
+                drop.on ? s[e] * drop(b, h, q0 + 8 * v4 + c0 + c % 2, k0 + g + 8 * (c / 2))
+                        : s[e];
+            s[e] = p[c] * (d - cv[8 * v4 + c0 + c % 2]);
+          }
+        }
+        to_a_frags(s, f);
+        pv_async<D, QT / 16, QT>(acc, f, r.k(stage));
+      }
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    if (tiles > 0) {
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    const int valid = min(QT, S - k0);
+    if (valid > 0)
+      store_rows<D>(acc, (wg == 0 ? dv : dk) + ((long long)bh * S + k0) * D, valid,
+                    [](int, float x) { return x; });
+  }
+}
+
+cudaError_t launch_d256(const FasnAttn& a, const void* dout, const float* lse,
+                        const float* delta, void* dk, void* dv, cudaStream_t stream) {
+  using namespace attn;
+  auto kernel = flash_bwd_dkv_d256_kernel;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, D256_SMEM);
+  if (err != cudaSuccess) return err;
+  AttnMaps m{};
+  if (!encode_attn(&m, a, 256, dout, D256_ROWS)) return cudaErrorInvalidValue;
+  const long long ctas = (long long)a.B * a.H * ((a.S + D256_ROWS - 1) / D256_ROWS);
+  if (ctas > INT_MAX) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(ctas), D256_THREADS, D256_SMEM, stream>>>(m.q, m.k, m.v, m.dout, a, lse, delta,
+                                                    static_cast<__nv_bfloat16*>(dk),
+                                                    static_cast<__nv_bfloat16*>(dv));
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace fasn
 
@@ -521,8 +722,7 @@ extern "C" int fasn_flash_bwd_dkv(const FasnAttn* a, const void* dout, const flo
       case 128:
         return launch_wgmma<128>(*a, dout, lse, delta, dk, dv, stream);
       case 256:
-        // attn_tile.h's ring does not fit at D 256: the scalar kernel takes bf16
-        return scalar(Type<__nv_bfloat16>{}, Int<256>{});
+        return launch_d256(*a, dout, lse, delta, dk, dv, stream);
       default:
         return cudaErrorInvalidValue;
     }

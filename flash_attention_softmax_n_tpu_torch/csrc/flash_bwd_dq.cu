@@ -29,13 +29,28 @@
 // launch first. Inputs must start on 16 bytes (TMA); the operator raises
 // otherwise.
 //
+// bf16 at D 256 (the wrapper pads D in (128, 256] to 256):
+// flash_bwd_dq_d256_kernel. A 128-row tile of D 256 is 64 KB and dQ an
+// m64n256 fragment, 128 floats a thread, so the kernel above does not fit;
+// this one keeps its walk over key tiles with K1's D 256 design
+// (flash_fwd.cu). Q and dO stay resident as 128-row tiles (64 KB each, the
+// two warpgroups' 64 rows in each box); K and V come through a two-stage
+// ring of 32-key tiles (Tile<256, 32>, 16 KB each; 192 KB in all), since
+// 64-key ones would pass 227 KB. A producer warpgroup drops to 40
+// registers (setmaxnreg) so that the two consumer warpgroups take 232:
+// dQ (128 floats), S and dP as m64n32 (16 each) and dS's A fragments fit
+// without spills, and the waits give up instead of trapping (hopper.h
+// mbar_wait<false>). Per tile each warpgroup issues S = Q K^T and dP = dO
+// V^T as two wgmma groups in flight, forms dS on the fragments, and adds
+// dS K (m64n256, K read MN-major) to dQ. The CTAs of one head run side by
+// side (a flat grid), so the K and V tiles they all stream come from L2.
+//
 // f32: flash_bwd_dq_kernel, scalar f32 FMAs from shared memory on 64 x 64
 // tiles (wgmma has no f32 x f32 product, and TF32 would not hold f32's
 // tolerance): 256 threads in K1's scalar layout, thread (ty, tx) owning
 // tile rows ty + 16 i, key columns tx + 16 j and dq columns tx + 16 c; ds
 // goes through shared memory, rounded to k's dtype, for the ds k product.
-// At D 256 the tiles are 32 x 32 (scalar_tile, for shared memory) and the
-// kernel takes bf16 too (the wrapper pads D in (128, 256] to 256).
+// At D 256 the tiles are 32 x 32 (scalar_tile, for shared memory).
 //
 // Above 256 (D a multiple of 128, as the wrapper pads it), f32 and bf16
 // take flash_bwd_dq_wide_kernel: the same 64 x 64 tiles and thread layout,
@@ -55,6 +70,8 @@
 // lse == NEG_INF) gets p = 0 and zero gradients. Query rows past L and keys
 // past S are masked in the tile, so nothing is padded, and a caller's
 // global lse (flash_attention_block_grads) works the same way.
+
+#include <climits>
 
 #include "attn_tile.h"
 #include "flash_common.h"
@@ -472,6 +489,167 @@ cudaError_t launch_wgmma(const FasnAttn& a, const void* dout, const float* lse,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at D 256: 32-key ring tiles, a producer warpgroup, setmaxnreg
+// ---------------------------------------------------------------------------
+
+constexpr int D256_KT = 32;  // keys of a ring tile
+constexpr int D256_THREADS = attn::CONSUMERS + 128;
+// resident: Q and dO, 128 rows each (64 KB each); each slot: 32-key K and V
+// tiles (16 KB each)
+using D256Ring = attn::Ring<256, 2, D256_KT, attn::TQ>;
+
+__global__ void __launch_bounds__(D256_THREADS, 1)
+    flash_bwd_dq_d256_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             const __grid_constant__ CUtensorMap domap, const FasnAttn a,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             float scale, __nv_bfloat16* __restrict__ dq,
+                             float* __restrict__ dbias, float* __restrict__ dslope_rows) {
+  using namespace attn;
+  constexpr int D = 256, KT = D256_KT;
+  using RT = Tile<D>;  // Q's and dO's 128-row tiles
+  extern __shared__ uint8_t smem_raw[];
+  const D256Ring r = make_ring<D, 2, KT, TQ>(smem_raw);
+  // a flat grid, a head's query tiles side by side (the heaviest, last,
+  // first): CTAs that run together stream the same K and V tiles, which L2
+  // then serves
+  const int n_q = (a.L + TQ - 1) / TQ;
+  const int bh = blockIdx.x / n_q, b = bh / a.H, h = bh % a.H;
+  const int q0 = (n_q - 1 - blockIdx.x % n_q) * TQ;
+  const int L = a.L, S = a.S, off = S - L;
+  // keys at or left of the tile's last row's diagonal
+  const int kv_end = a.causal ? min(S, min(q0 + TQ, L) + off) : S;
+  const int tiles = kv_end > 0 ? (kv_end + KT - 1) / KT : 0;
+  // the warpgroup's role, as a shuffled value: uniform across its warps,
+  // as setmaxnreg needs
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == CONSUMERS) {
+      const CUtensorMap* const res[2] = {&qmap, &domap};
+      produce<D, 2, KT, false>(r, res, q0, &kmap, &vmap, bh, 0, tiles, 0);
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int t = threadIdx.x % 128;
+    const int row0 = q0 + 64 * wg;  // the warpgroup's first query row
+    const int g = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
+    const ScoreMods mods = score_mods(a, b, h);
+    const Dropout drop = dropout_of(a);
+    const bool plain = mods.bias == nullptr && !mods.alibi;
+
+    // per fragment row: lse (clamped) in log2 units, delta, the dslope sum
+    float lse2[2], dl[2], dsl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = row0 + g + 8 * i;
+      lse2[i] = qi < L ? fmaxf(lse[(long long)bh * L + qi], DEAD_LSE) * LOG2E : 0.f;
+      dl[i] = qi < L ? delta[(long long)bh * L + qi] : 0.f;
+      dsl[i] = 0.f;
+    }
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    if (tiles > 0) {
+      mbar_wait<false>(r.q_full(), 0);
+      scale_q_rows<D>(r.mem, wg, a.scale_q);
+      fence_proxy_async();
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    }
+
+    // the tiles a warpgroup computes are a prefix of the keys: `done` ends it
+    int done = 0, stage = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < tiles; ++it) {
+      const int k0 = it * KT;
+      // both loads land before the slot is released, whether used or not
+      mbar_wait<false>(r.full_k(stage), phase);
+      mbar_wait<false>(r.full_v(stage), phase);
+      // no row of the warpgroup sees a key of this tile: skip it
+      if (row0 < L && k0 < S && !(mods.causal && k0 > row0 + 63 + off)) {
+        done = k0 + KT;
+        float s[KT / 2], dp[KT / 2];
+        qk_async<D, KT / 2, TQ, KT>(s, r.q() + wg * 64 * RT::ROW, r.k(stage));
+        qk_async<D, KT / 2, TQ, KT>(dp, r.res(1) + wg * 64 * RT::ROW, r.v(stage));
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        // masks, bias and ALiBi only where a key is past S or a diagonal
+        if (!plain || k0 + KT > S || (mods.causal && k0 + KT - 1 > row0 + off)) {
+#pragma unroll
+          for (int e = 0; e < KT / 2; ++e)
+            s[e] = mods(s[e], row0 + g + 8 * ((e / 2) % 2), k0 + 8 * (e / 4) + c0 + e % 2);
+        }
+#pragma unroll
+        for (int e = 0; e < KT / 2; ++e) {
+          const int i = (e / 2) % 2, qi = row0 + g + 8 * i, kj = k0 + 8 * (e / 4) + c0 + e % 2;
+          const float p = exp2f(fmaf(s[e], LOG2E, -lse2[i]));
+          const float d = drop.on ? dp[e] * drop(b, h, qi, kj) : dp[e];
+          const float ds = p * (d - dl[i]);
+          if (dbias && qi < L && kj < S) dbias[((long long)bh * L + qi) * S + kj] = ds;
+          if (mods.alibi) dsl[i] += ds * -fabsf((float)(qi + off - kj));
+          s[e] = ds;
+        }
+        uint32_t f[KT / 16][4];
+        to_a_frags(s, f);
+        pv_async<D, KT / 16, KT>(acc, f, r.k(stage));
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+      if (t == 0) mbar_arrive(r.empty(stage));
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    const int valid = min(64, L - row0);
+    if (valid > 0) {
+      // keys the warpgroup never visited are causally invisible: zero dbias
+      if (dbias) {
+        const int from = min(done, S), width = S - from;
+        for (int e = t; e < valid * width; e += 128)
+          dbias[((long long)bh * L + row0 + e / width) * S + from + e % width] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float row = quad_sum(dsl[i]);
+        if (dslope_rows && t % 4 == 0 && g + 8 * i < valid)
+          dslope_rows[(long long)bh * L + row0 + g + 8 * i] = row;
+      }
+      store_rows<D>(acc, dq + ((long long)bh * L + row0) * D, valid,
+                    [&](int, float x) { return scale * x; });
+    }
+  }
+}
+
+cudaError_t launch_d256(const FasnAttn& a, const void* dout, const float* lse,
+                        const float* delta, float scale, void* dq, float* dbias,
+                        float* dslope_rows, cudaStream_t stream) {
+  using namespace attn;
+  auto kernel = flash_bwd_dq_d256_kernel;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, D256Ring::SMEM);
+  if (err != cudaSuccess) return err;
+  // q and dout in 128-row boxes, k and v in 32-row ones
+  AttnMaps m{};
+  const long long heads = (long long)a.B * a.H;
+  if (!encode_rows(&m.q, a.q, heads, a.L, 256, TQ) ||
+      !encode_rows(&m.dout, dout, heads, a.L, 256, TQ) ||
+      !encode_rows(&m.k, a.k, heads, a.S, 256, D256_KT) ||
+      !encode_rows(&m.v, a.v, heads, a.S, 256, D256_KT))
+    return cudaErrorInvalidValue;
+  const long long ctas = heads * ((a.L + TQ - 1) / TQ);
+  if (ctas > INT_MAX) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(ctas), D256_THREADS, D256Ring::SMEM, stream>>>(
+      m.q, m.k, m.v, m.dout, a, lse, delta, scale, static_cast<__nv_bfloat16*>(dq), dbias,
+      dslope_rows);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace fasn
 
@@ -509,8 +687,7 @@ extern "C" int fasn_flash_bwd_dq(const FasnAttn* a, const void* dout, const floa
       case 128:
         return launch_wgmma<128>(*a, dout, lse, delta, scale, dq, dbias, dslope_rows, stream);
       case 256:
-        // attn_tile.h's ring does not fit at D 256: the scalar kernel takes bf16
-        return scalar(Type<__nv_bfloat16>{}, Int<256>{});
+        return launch_d256(*a, dout, lse, delta, scale, dq, dbias, dslope_rows, stream);
       default:
         return cudaErrorInvalidValue;
     }

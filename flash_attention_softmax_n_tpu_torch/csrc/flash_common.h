@@ -28,9 +28,9 @@ constexpr int THREADS = 256;
 // thread (ty, tx) = (tid / 16, tid % 16) owns tile rows ty + 16 i (i < 4)
 // and tile columns tx + 16 j (j < 4)
 constexpr int R4 = 4;
-// the backward's scalar kernels (K5, K6) take 32-row tiles (R 2) at D 256:
-// four 64-row f32 tiles of q, dout, k and v would need 263 KB of shared
-// memory, over the 227 KB a block may have
+// the backward's scalar f32 kernels (K5, K6) take 32-row tiles (R 2) at D
+// 256: four 64-row f32 tiles of q, dout, k and v would need 263 KB of
+// shared memory, over the 227 KB a block may have
 template <int D>
 __host__ __device__ constexpr int scalar_tile() {
   return D > 128 ? 32 : 64;
@@ -137,8 +137,8 @@ __device__ __forceinline__ Dropout dropout_of(const FasnAttn& a) {
 
 // Calls f(Type<T>{}, Int<D>{}) for the head dim (32, 64, 128, and 256 up
 // to MAX_D); cudaErrorInvalidValue for anything else. The scalar kernels
-// take T = float, and K5's, K6's and K10's also T = bf16 at D 256, where
-// attn_tile.h's 128-row tile does not fit.
+// take T = float, and K10's also T = bf16 at D 256, where attn_tile.h's
+// 128-row tile does not fit.
 template <typename T>
 struct Type {
   using type = T;

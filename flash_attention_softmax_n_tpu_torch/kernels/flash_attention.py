@@ -224,8 +224,8 @@ def flash_bwd_reference(q, k, v, bias, slopes, seed, o, lse, do, *,
 # Kernel wrappers
 # ----------------------------------------------------------------------------
 
-# the head dims the kernels are built for up to 256 (K1's bf16 at 256 on
-# 64-row tiles; K5's and K6's on their scalar kernels, bf16 too); above,
+# the head dims the kernels are built for up to 256 (bf16 K1, K5 and K6 at
+# 256 on their own TMA + wgmma kernels, f32 on the scalar ones); above,
 # every multiple of WIDE_HEAD_DIM (the wide scalar kernels, f32 and bf16)
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 WIDE_HEAD_DIM = 128

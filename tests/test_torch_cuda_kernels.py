@@ -20,8 +20,9 @@ counts that fill no block, and strided or f32 new rows (cast and copied as
 the plain versions take them);
 K10 in its four modes at head dims 32/64/128 and, padded or on its scalar
 kernels, 80/256/320, bf16 and f32, ragged L; K8 at hd 160, 256 and 512. The
-bf16 K1, K5, K6 and K10 run the TMA + wgmma tile (128-row tiles; K1 at D
-256 on 64-row tiles with a producer warpgroup): L and S
+bf16 K1, K5, K6 and K10 run the TMA + wgmma tile (128-row tiles; K1, K5
+and K6 at D 256 on kernels of their own with a producer warpgroup, which
+the d256 cases check ran, through torch.profiler): L and S
 ending mid-tile, every bias broadcast, ALiBi, dropout (K5's and K6's masks
 bit-equal to the hash), a ring block against an external lse, and
 misaligned inputs that must raise. The engine's CUDA graphs: each greedy
@@ -634,6 +635,26 @@ def _attn_inputs(gen, dtype, B, H, L, S, d, *, bias_shape=None, alibi=False,
     return q, k, v, do, extras
 
 
+# K5's and K6's bf16 kernels at D 256, as torch.profiler names them
+_D256_BWD_KERNELS = ("flash_bwd_dq_d256_kernel", "flash_bwd_dkv_d256_kernel")
+
+
+def _launched(fn):
+    """fn()'s result and the names of the CUDA kernels it launched"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _assert_d256_bwd_kernels(names):
+    for kernel in _D256_BWD_KERNELS:
+        assert any(kernel in n for n in names), (kernel, sorted(set(names)))
+
+
 def _assert_close(got, want, tol):
     err = float((got.float() - want.float()).abs().max())
     top = float(want.float().abs().max())
@@ -840,15 +861,23 @@ def test_flash_fwd_wgmma_rejects_misaligned_inputs(gen):
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 64),
-                                     (torch.bfloat16, 128)])
+                                     (torch.bfloat16, 128), (torch.bfloat16, 256)])
 def test_block_grads_against_an_external_lse(gen, dtype, d):
     # the ring's use: one kv block against a global lse (here from the same
-    # block and 50 more keys), o and dout of the whole range
+    # block and 50 more keys), o and dout of the whole range; bf16 at d256
+    # on K5's and K6's D 256 kernels, repeats bit-equal
     L, S = 200, 140
     q, k, v, do, _ = _attn_inputs(gen, dtype, 1, 2, L, S + 50, d)
     o, lse = fa.flash_fwd_reference(q, k, v, None, n=1.0, scale=d ** -0.5, is_causal=True)
     kb, vb = k[:, :, 50:].contiguous(), v[:, :, 50:].contiguous()
-    got = fa.flash_attention_block_grads(q, kb, vb, o, lse, do, is_causal=True)
+
+    def run():
+        return fa.flash_attention_block_grads(q, kb, vb, o, lse, do, is_causal=True)
+
+    got, names = _launched(run)
+    if d == 256:
+        _assert_d256_bwd_kernels(names)
+        assert all(torch.equal(a, b) for a, b in zip(got, run()))
     want = fa.flash_bwd_reference(q, kb, vb, None, None, None, o, lse, do,
                                   scale=d ** -0.5, is_causal=True)[:3]
     for g, w in zip(got, want):
@@ -859,7 +888,8 @@ def test_block_grads_against_an_external_lse(gen, dtype, d):
             _assert_norm_close(g, w, _BWD_NORM_TOL)
 
 
-# K5's and K6's bf16 kernels (TMA + wgmma, on K1's tile): the shapes of
+# K5's and K6's bf16 kernels (TMA + wgmma, on K1's tile; at d256 their own
+# 64-row kernels, which must be the ones launched): the shapes of
 # _WGMMA_SHAPES, each backward held alone against the plain version from
 # the plain forward's o and lse, within 2e-2 of max(1, |plain|) (ds and the
 # dropped p round to bf16 on either side of a tie; the kernel rounds the
@@ -874,7 +904,11 @@ def _bwd_bf16(gen, B, H, L, S, d, *, n=1.0, causal=True, **extras):
     args = (q, k, v, ex["bias"], ex["slopes"], ex["seed"], o, lse, do)
     bkw = dict(scale=d ** -0.5, is_causal=causal, dropout_rate=ex["dropout_rate"])
     before = {name: _build.LAUNCHES[name] for name in ("flash_bwd_dq", "flash_bwd_dkv")}
-    got = fa.flash_bwd(*args, **bkw)
+    if d == 256:
+        got, names = _launched(lambda: fa.flash_bwd(*args, **bkw))
+        _assert_d256_bwd_kernels(names)
+    else:
+        got = fa.flash_bwd(*args, **bkw)
     assert all(_build.LAUNCHES[name] == c + 1 for name, c in before.items())
     want = fa.flash_bwd_reference(*args, **bkw)
     for name, g, w in zip(("dq", "dk", "dv", "dbias", "dslopes"), got, want):
@@ -887,7 +921,7 @@ def _bwd_bf16(gen, B, H, L, S, d, *, n=1.0, causal=True, **extras):
     return got
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("n", [0.0, 1.0])
 @pytest.mark.parametrize("shape", _WGMMA_SHAPES, ids=lambda s: "L{}-S{}-{}".format(*s))
 def test_flash_bwd_wgmma_matches_plain(gen, d, n, shape):
@@ -898,7 +932,7 @@ def test_flash_bwd_wgmma_matches_plain(gen, d, n, shape):
         assert bool((dq[:, :, dead] == 0).all())
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("extra", ["bias11", "bias21", "bias13", "bias23", "alibi", "dropout",
                                    "all"])
 def test_flash_bwd_wgmma_extras_match_plain(gen, d, extra):
@@ -910,8 +944,8 @@ def test_flash_bwd_wgmma_extras_match_plain(gen, d, extra):
 
 # head dims the kernels are not built for (16, 20, 80, 96, 160, 288) run
 # zero-padded to the next of 32, 64, 128, 256 and the multiples of 128
-# above; 256 runs K1's 64-row wgmma kernel in bf16 and the scalar kernels
-# otherwise (K5 and K6 on 32-row tiles, bf16 too); 384 and 512 (and 288 at
+# above; 256 runs K1's, K5's and K6's D 256 wgmma kernels in bf16 and the
+# scalar kernels in f32 (K5 and K6 on 32-row tiles); 384 and 512 (and 288 at
 # 384) the wide scalar kernels, f32 and bf16. Under a bias, ALiBi and
 # dropout, n 0 and 1, at chip_smoke's B2 H4 L200 S264; the backward from the
 # plain forward's o and lse; tolerances as above, repeats bit-equal
@@ -960,11 +994,12 @@ def test_flash_kernels_take_every_head_dim(gen, dtype, d, n):
     assert all(torch.equal(a, b) for a, b in zip(grads, fa.flash_bwd(*args, **bkw)))
 
 
-def test_flash_bwd_wgmma_rejects_misaligned_inputs(gen):
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_bwd_wgmma_rejects_misaligned_inputs(gen, d):
     # contiguous bf16 views starting 4 bytes past an allocation: TMA needs 16
-    base = torch.randn(2 * 128 * 64 + 2, device="cuda").to(torch.bfloat16)
-    bad = base[2:].view(1, 2, 128, 64)
-    k = torch.randn((1, 2, 128, 64), device="cuda").to(torch.bfloat16)
+    base = torch.randn(2 * 128 * d + 2, device="cuda").to(torch.bfloat16)
+    bad = base[2:].view(1, 2, 128, d)
+    k = torch.randn((1, 2, 128, d), device="cuda").to(torch.bfloat16)
     rows = torch.zeros((1, 2, 128), device="cuda")
     ops = _build.ops()
     for q, do in ((bad, k), (k, bad)):
