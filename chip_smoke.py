@@ -60,16 +60,19 @@ Phases, in order, each printing one JSON line:
    the wrappers to 32, 128 and 128), 256 (the TMA + wgmma kernels
    ``flash_fwd_d256_kernel``, ``flash_bwd_dq_d256_kernel`` and
    ``flash_bwd_dkv_d256_kernel`` in bf16, the scalar kernels in f32), 300
-   (padded to 384), 384 and 512 (the wide scalar kernels, f32 and bf16),
+   (padded to 384), 384 and 512 (bf16 K5 and K6 on their wide TMA + wgmma
+   kernels ``flash_bwd_dq_wide_wgmma_kernel`` and
+   ``flash_bwd_dkv_wide_wgmma_kernel``; the wide scalar kernels otherwise),
    against their plain versions at B2 H4 L200 S264 under a (1, 4) bias,
    ALiBi and dropout, causal, f32 and bf16, n 0 and 1, as in 4; then K1 at
    each head dim at B32 H16 L=S=512 causal bf16, timed beside its bound,
    plain version and SDPA, with the bytes the padding adds, o held against
    a float64 evaluation too; K1, K5 and K6 at d256, 384 and 512 there as
    phase 4 times its training lines (the backward pair against SDPA's
-   backward; at d256 it must have launched K5's and K6's D 256 kernels); K8 at
-   B8 KVH1 G8 S512 hd 256 over int8 and bf16 caches and hd 160 and 512
-   over int8 (split and products printed); K10's four modes at B2 H8 L1024
+   backward; at d256 it must have launched K5's and K6's D 256 kernels, at
+   384 and 512 their wide ones); K8 at B8 KVH1 G8 S512 hd 256 over int8
+   and bf16 caches and hd 160 and 512 over int8, and at hd 512 under int8
+   compute (split and products printed); K10's four modes at B2 H8 L1024
    hd 80, 256 and 320; and K1, K5 and K6 at train_d256's shape (B2 H8
    L=S=2048 d256 bf16 causal, n 1, dropout 0.1) as phase 4 times its
    training lines, K5 and K6 their D 256 kernels;
@@ -271,16 +274,20 @@ TPU_PKG = "flash_attention_softmax_n_tpu"
 CSRC = "flash_attention_softmax_n_tpu_torch/csrc"
 # K1's, K5's, K6's and K10's kernels as torch.profiler names them: bf16
 # inputs take the TMA + wgmma kernel (K1, K5 and K6 at D 256 their own
-# D 256 ones), f32 (and K10's bf16 at D 256) the scalar one, every dtype
-# above 256 the wide scalar one
+# D 256 ones; K5 and K6 above 256 their wide ones), f32 (and K10's bf16 at
+# D 256) the scalar one, f32 (and K1's and K10's bf16) above 256 the wide
+# scalar one
 FLASH_FWD_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_d256_kernel", "flash_fwd_kernel",
                      "flash_fwd_wide_kernel")
 FLASH_DQ_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_d256_kernel",
-                    "flash_bwd_dq_kernel", "flash_bwd_dq_wide_kernel")
+                    "flash_bwd_dq_kernel", "flash_bwd_dq_wide_kernel",
+                    "flash_bwd_dq_wide_wgmma_kernel")
 FLASH_DKV_KERNELS = ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_d256_kernel",
-                     "flash_bwd_dkv_kernel", "flash_bwd_dkv_wide_kernel")
-# bf16 K5 and K6 at D 256
+                     "flash_bwd_dkv_kernel", "flash_bwd_dkv_wide_kernel",
+                     "flash_bwd_dkv_wide_wgmma_kernel")
+# bf16 K5 and K6 at D 256, and above it
 D256_BWD_KERNELS = ("flash_bwd_dq_d256_kernel", "flash_bwd_dkv_d256_kernel")
+WIDE_BWD_KERNELS = ("flash_bwd_dq_wide_wgmma_kernel", "flash_bwd_dkv_wide_wgmma_kernel")
 MINI_KERNELS = ("prefill_phase_wgmma_kernel", "prefill_phase_kernel",
                 "prefill_phase_wide_kernel")
 # K3's and K4's one kernel
@@ -792,26 +799,36 @@ def check_fused_mlp(torch, pkg, gen, *, M, K, F, dtype=None):
                       + ("f32 (TF32 off)" if f32 else "bf16")}
 
 
-# K8's kernels as torch.profiler names them: the split kernel and the merge
-DECODE_ATTN_KERNELS = ("decode_attn_split_kernel", "decode_attn_merge_kernel")
+# K8's kernels as torch.profiler names them: the split kernel and the
+# merge, and the int8-compute kernel, which takes int8 compute where the
+# split kernel's layout does not fit a block (hd above about 400)
+DECODE_ATTN_KERNELS = ("decode_attn_split_kernel", "decode_attn_merge_kernel",
+                       "decode_attn_int8c_kernel")
 
 
-def check_decode_attn(torch, pkg, line):
+def check_decode_attn(torch, pkg, line, int8_compute=False):
     """K8 at one of its serving lines (``bench_decode_attn.LINES``): bf16 q
     over an int8 or fp8 (with scales) or a bf16 cache view of one layer,
     lengths drawn from 0..S by the line's own seed, as the K8 benchmark
-    draws them. Prints the plan's split length, products and the CTAs of
-    its grid."""
+    draws them; with ``int8_compute`` (an int8 cache) q quantized per row
+    to int8, as ``decode_attention_n(int8_compute=True)`` quantizes it.
+    Prints the plan's split length, products and the CTAs of its grid."""
     da, kv = pkg["decode_attention"], pkg["kv_cache"]
     dev = "cuda"
     B, KVH, G, S, D, cache, _ = line
     q, k, v, ks, vs, lengths, full = pkg["bench_decode_attn"].line_inputs(kv, line)
+    qs = None
+    if int8_compute:
+        qf = q.float()
+        absmax = torch.amax(torch.abs(qf), dim=-1, keepdim=True)
+        qs = torch.where(absmax == 0, 1.0, absmax / 127.0)
+        q = torch.clamp(torch.round(qf / qs), -128, 127).to(torch.int8)
 
     def kernel():
-        return da._decode_attn_cuda(q, None, k, v, lengths, ks, vs)
+        return da._decode_attn_cuda(q, qs, k, v, lengths, ks, vs)
 
     def plain():
-        return da.decode_attn_stats_reference(q, None, k, v, lengths, ks, vs)
+        return da.decode_attn_stats_reference(q, qs, k, v, lengths, ks, vs)
 
     (acc, m, l), (acc_r, m_r, l_r) = kernel(), plain()
     torch.cuda.synchronize()
@@ -822,7 +839,8 @@ def check_decode_attn(torch, pkg, line):
     err_m = float((m[live] - m_r[live]).abs().max())
     err_l = float(((l[live] - l_r[live]).abs() / l_r[live]).max())
     empty_ok = bool((acc[~live] == 0).all() and (l[~live] == 0).all())
-    name = f"decode_attn B{B} KVH{KVH} G{G} S{S} d{D} {cache} cache, bf16 q"
+    name = (f"decode_attn B{B} KVH{KVH} G{G} S{S} d{D} {cache} cache, "
+            + ("int8 compute" if int8_compute else "bf16 q"))
     # p rounds to bf16 against a split's own maximum in the kernel and the
     # running one in the plain version
     require(err <= 2e-2 and err_m <= 1e-3 and err_l <= 1e-3 and empty_ok and same,
@@ -832,20 +850,22 @@ def check_decode_attn(torch, pkg, line):
     # the library yardstick: SDPA over a bf16 cache with a length mask
     kb, vb = (t.to(torch.bfloat16) for t in full)
     kb, vb = kb[1], vb[1]
-    qh = q.reshape(B, KVH * G, 1, D)
+    qh = (q.float() * qs if int8_compute else q).to(torch.bfloat16).reshape(B, KVH * G, 1, D)
     mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None].long())[:, None, None, :]
 
     def library():
         return torch.nn.functional.scaled_dot_product_attention(
             qh, kb, vb, attn_mask=mask, scale=1.0, enable_gqa=True)
 
-    split = da.decode_attn_plan(B, KVH, S, D, k.element_size(), False)
+    split = da.decode_attn_plan(B, KVH, S, D, k.element_size(), int8_compute)
     products = da.decode_attn_products(q.dtype, k.dtype, D)
     total = float(lengths.sum())
     elem = k.element_size()
-    bytes_moved = (q.numel() * 2 + total * KVH * (2 * D * elem + (8 if ks is not None else 0))
+    bytes_moved = (q.numel() * q.element_size() + (B * KVH * G * 4 if int8_compute else 0)
+                   + total * KVH * (2 * D * elem + (8 if ks is not None else 0))
                    + B * KVH * G * (D + 2) * 4 + B * 4)
-    b_ms, b_by = bound_ms(bytes_moved, 4.0 * G * D * KVH * total)
+    b_ms, b_by = bound_ms(bytes_moved, 4.0 * G * D * KVH * total,
+                          CHIP.int8_ops if int8_compute else None)
     return {"name": name, "route": "cuda", "source": f"{CSRC}/decode_attn.cu",
             "replaces": f"{TPU_PKG}/kernels/decode_attention.py:60 _kernel",
             "counter": "decode_attn", "max_abs_err": err, "max_abs_err_m": err_m,
@@ -1286,7 +1306,8 @@ def train_kernels(torch, pkg, gen):
 # the head dims that head_dims holds: the JAX fine-tune example's 16, two
 # public decoders' 80 and 96, 256 (Gemma-2B's: K1's 64-row wgmma kernel in
 # bf16, the scalar kernels otherwise), and 300, 384 and 512 above it (300
-# padded to 384; the wide scalar kernels)
+# padded to 384; bf16 K5 and K6 on their wide TMA + wgmma kernels, the
+# wide scalar kernels otherwise)
 HEAD_DIMS = (16, 80, 96, 256, 300, 384, 512)
 # K8 at head dims above 128 (bench_decode_attn.LINES' format): B8 KVH1 G8
 # S512, Gemma-2B's decode attention at hd 256 over int8 and bf16 caches,
@@ -1308,7 +1329,9 @@ def head_dims(torch, pkg, gen):
     with the bytes the padding adds, o held against a float64 evaluation
     too; K1, K5 and K6 at d256, 384 and 512 there as the training lines
     time them (the backward pair against SDPA's backward); K8 at
-    ``K8_WIDE_LINES``; K10 at ``K10_HEAD_DIMS``. Returns (launches, kernel
+    ``K8_WIDE_LINES`` and under int8 compute at their hd 512 line; K10 at
+    ``K10_HEAD_DIMS``.
+    Returns (launches, kernel
     lines): the K8 lines count their launches on head_dims_serve, the K10
     lines on prefill_phases."""
     fa, build = pkg["flash_attention"], pkg["build"]
@@ -1344,16 +1367,20 @@ def head_dims(torch, pkg, gen):
             "device_ms", "tflops", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
         lines.append(kd)
     # K1, K5 and K6 as the training lines time them: at d256 (their bf16
-    # TMA + wgmma kernels, which K5 and K6 must have launched) and on the
-    # wide kernels at 384 (where 300 runs) and 512
+    # TMA + wgmma kernels, which K5 and K6 must have launched) and at 384
+    # (where 300 runs) and 512 (K5 and K6 on their wide TMA + wgmma kernels,
+    # which they must have launched; K1 on its wide scalar one)
     for d in (256, 384, 512):
-        # the wide kernels take 12-80 ms a call: 5 calls a time there
         lines += train_kernel_lines(torch, pkg, gen, B=B, H=H, L=L, D=d, rate=0.0,
-                                    path="head_dims", runs=TIMED_RUNS if d == 256 else 5,
-                                    kernels=D256_BWD_KERNELS if d == 256 else ())
+                                    path="head_dims",
+                                    kernels=D256_BWD_KERNELS if d == 256 else WIDE_BWD_KERNELS)
     da = pkg["decode_attention"]
-    for line in K8_WIDE_LINES:
-        kd = check_decode_attn(torch, pkg, line)
+    # K8 at K8_WIDE_LINES, then under int8 compute at their hd 512 line (its
+    # sub-tiled kernel: the 256-position tile's k and v rows do not fit a
+    # block there)
+    for line, int8_compute in ([(line, False) for line in K8_WIDE_LINES]
+                               + [(K8_WIDE_LINES[3], True)]):
+        kd = check_decode_attn(torch, pkg, line, int8_compute=int8_compute)
         kd["path"] = "head_dims_serve"
         emit({"phase": "head_dims_kernel", **{k: kd[k] for k in (
             "name", "max_abs_err", "plan", "positions", "ms", "device_ms", "plain_ms",

@@ -210,6 +210,40 @@ __device__ __forceinline__ void pv_async(float (&o)[D / 2], const uint32_t (&p)[
   wgmma_commit();
 }
 
+// Above D 256 (K5's and K6's wide bf16 kernels) D streams through the ring
+// in 64-column chunks (Tile<64, ROWS>: one box of 128-byte rows, 128-byte
+// swizzle), and a score fragment sums over the chunks. Issues s (+)= A B^T
+// over one chunk's 4 k16 steps, without fencing or committing: A's 64 rows
+// at `a`, B's 2 M rows at `b`, both K-major; `zero` starts s from zero (the
+// chunk at column 0)
+template <int M>
+__device__ __forceinline__ void chunk_dots(float (&s)[M], uint32_t a, uint32_t b, bool zero) {
+  using T = Tile<64>;
+#pragma unroll
+  for (int st = 0; st < 4; ++st)
+    wgmma_ss(s, desc_of(a + st * 32, 16, T::GROUP, T::LAYOUT),
+             desc_of(b + st * 32, 16, T::GROUP, T::LAYOUT), !(zero && st == 0));
+}
+
+// o (fragment of m64nN) as bf16 into columns [0, N) of rows that lie `ld`
+// elements apart from `rows` (the wg's row 0, at its first column), where
+// the row is below `valid`; v(x) maps each value
+template <int N, typename F>
+__device__ __forceinline__ void store_cols(const float (&o)[N / 2], __nv_bfloat16* rows,
+                                           long long ld, int valid, F v) {
+  const int t = threadIdx.x % 128, r0 = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    if (r >= valid) continue;
+    __nv_bfloat16* row = rows + (long long)r * ld;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + c0) =
+          __floats2bfloat162_rn(v(o[4 * j + 2 * i]), v(o[4 * j + 2 * i + 1]));
+  }
+}
+
 // o += P V over the tile's 8 k16 steps
 template <int D>
 __device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&p)[TK / 16][4],

@@ -14,8 +14,11 @@
 // compute), k is rounded to q's type (exact from int8 and e4m3), p is rounded
 // to bf16 before the PV product unless the cache is f32, and under int8
 // compute p is requantized per row over each 256-position tile and both
-// products are integer (exact in f32 here: hd * 128 * 128 and 256 * 127 *
-// 128 stay below 2^24).
+// products are integer: exact in f32 in the split kernel, whose layout fits
+// only up to about hd 400 (hd * 128 * 128 and 256 * 127 * 128 stay below
+// 2^24), and in int32 in decode_attn_int8c_kernel, which takes the head
+// dims above (the tile's k and v rows, 270 KB at hd 512, do not fit a
+// block: they come through a buffer in sub-tiles).
 //
 // What bounds it on the H100: the valid k and v rows, read once, at 3.35
 // TB/s; at decode batch sizes that is well under a microsecond, so launch
@@ -34,9 +37,9 @@
 //   columns of acc, while padding the cache here would copy it. Splits past a slot's
 //   length cost little, but splitting its valid rows further costs a CTA's
 //   fixed chain and a merge step: the plan sees the window, not the
-//   lengths. Under int8 compute the split stays 256 positions:
-//   p is requantized over the Pallas kernel's 256-position tile, and a
-//   different tile is a different function. A split at or past the slot's
+//   lengths. Under int8 compute the split stays 256 positions at every
+//   head dim: p is requantized over the Pallas kernel's 256-position tile,
+//   and a different tile is a different function. A split at or past the slot's
 //   length exits at once, so only rows below lengths[b] are read.
 // - A CTA puts all of its split's valid k and v rows in flight at once,
 //   16-byte cp.async copies into padded shared rows (row pitch an odd
@@ -90,9 +93,6 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int MAX_G = 16;
-// int8 compute's products stay exact in f32 up to hd 1024 (1024 x 128 x
-// 128 = 2^24); the other modes take any hd whose layout fits a block
-constexpr int INT8C_MAX_HD = 1024;
 constexpr int MIN_SPLIT = 16;  // one mma tile of positions
 constexpr int MAX_SPLIT = 256;
 constexpr int INT8_SPLIT = 256;         // the Pallas kernel's tile: int8 compute's only split
@@ -468,6 +468,228 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// Int8 compute where the split kernel's layout (the 256-position tile's k
+// and v rows whole) does not fit a block: a wide head dim. The same
+// function, tile by tile: the tile's scores stay whole in shared memory
+// (G x 256 f32), q as int8, while k's rows and then v's come through one
+// buffer of SUB positions at a time (the longest of 256, 128, 64, 32, 16
+// whose layout fits, int8c_sub), and the requantized p as int8 rows. Both
+// products sum in int32 (__dp4a), exact at any head dim, as the Pallas
+// kernel's int32 dots are; PV's sums
+// over a tile's SUB-position pieces are integers below 256 * 128 * 128 =
+// 2^22, so carrying them in f32 between pieces (in this CTA's own rows of
+// part_acc) is exact too, and the results equal the split kernel's
+// wherever both fit.
+struct Int8cLayout {
+  int qb, pitch, q_at, s_at, ks_at, vs_at, rs_at, p_at, rows_at, bytes;
+  __host__ __device__ Int8cLayout(int G, int HD, int sub) {
+    qb = row_bytes(HD, 1);
+    pitch = qb + 16;
+    q_at = 0;
+    s_at = (G * qb + 15) / 16 * 16;
+    ks_at = s_at + G * INT8_SPLIT * 4;
+    vs_at = ks_at + INT8_SPLIT * 4;
+    rs_at = vs_at + INT8_SPLIT * 4;
+    p_at = (rs_at + MAX_G * 4 + 15) / 16 * 16;
+    rows_at = (p_at + G * INT8_SPLIT + 15) / 16 * 16;
+    bytes = rows_at + sub * pitch;
+  }
+};
+
+// the longest sub-tile whose layout fits a block; 0 if none does
+__host__ __device__ inline int int8c_sub(int G, int HD) {
+  for (int sub = INT8_SPLIT; sub >= MIN_SPLIT; sub /= 2)
+    if (Int8cLayout(G, HD, sub).bytes <= SMEM_MAX) return sub;
+  return 0;
+}
+
+// the sum of 16 int8 products of two 16-byte chunks, added to acc
+__device__ __forceinline__ int dot16(const uint4& x, const uint4& y, int acc) {
+  acc = __dp4a(static_cast<int>(x.x), static_cast<int>(y.x), acc);
+  acc = __dp4a(static_cast<int>(x.y), static_cast<int>(y.y), acc);
+  acc = __dp4a(static_cast<int>(x.z), static_cast<int>(y.z), acc);
+  return __dp4a(static_cast<int>(x.w), static_cast<int>(y.w), acc);
+}
+
+__global__ void __launch_bounds__(THREADS)
+    decode_attn_int8c_kernel(const FasnDecode a, int sub, int vec, float* __restrict__ part_acc,
+                             float* __restrict__ part_m, float* __restrict__ part_l) {
+  constexpr int L = INT8_SPLIT;
+  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int s0 = sp * L;
+  const int len = slot_length(a, b);
+  if (s0 >= len) return;
+  const int n = min(L, len - s0);
+  const int G = a.G, HD = a.HD, tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const Int8cLayout lay(G, HD, sub);
+  const int chunks = lay.qb / 16;
+
+  extern __shared__ __align__(16) uint8_t smem[];
+  int8_t* sQ = reinterpret_cast<int8_t*>(smem + lay.q_at);
+  float* sS = reinterpret_cast<float*>(smem + lay.s_at);
+  float* sKs = reinterpret_cast<float*>(smem + lay.ks_at);
+  float* sVs = reinterpret_cast<float*>(smem + lay.vs_at);
+  float* sRowScale = reinterpret_cast<float*>(smem + lay.rs_at);
+  int8_t* sP = reinterpret_cast<int8_t*>(smem + lay.p_at);
+  uint8_t* sRows = smem + lay.rows_at;
+
+  const long long bh = (long long)b * a.KVH + h;
+  const int8_t* k = static_cast<const int8_t*>(a.k) + b * a.k_sb + h * a.k_sh + (long long)s0 * a.k_ss;
+  const int8_t* v = static_cast<const int8_t*>(a.v) + b * a.v_sb + h * a.v_sh + (long long)s0 * a.v_ss;
+  // rows r0 .. r0 + rn of k or v into the buffer (zeros past HD)
+  auto load_rows = [&](const int8_t* src, long long ss, int r0, int rn) {
+    if (vec) {
+      for (int e = tid; e < rn * chunks; e += THREADS) {
+        const int r = e / chunks, c = e % chunks;
+        cp_async16(sRows + r * lay.pitch + 16 * c,
+                   reinterpret_cast<const uint8_t*>(src + (r0 + r) * ss) + 16 * c);
+      }
+      asm volatile("cp.async.commit_group;" ::: "memory");
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    } else {
+      for (int e = tid; e < rn * lay.qb; e += THREADS) {
+        const int r = e / lay.qb, d = e % lay.qb;
+        reinterpret_cast<int8_t*>(sRows + r * lay.pitch)[d] =
+            d < HD ? src[(r0 + r) * ss + d] : int8_t(0);
+      }
+    }
+  };
+
+  const int8_t* q = static_cast<const int8_t*>(a.q) + bh * G * HD;
+  for (int e = tid; e < G * lay.qb; e += THREADS) {
+    const int g = e / lay.qb, d = e % lay.qb;
+    sQ[e] = d < HD ? q[g * HD + d] : int8_t(0);
+  }
+  const float* ks = a.k_scales + b * a.ks_sb + h * a.ks_sh + (long long)s0 * a.ks_ss;
+  const float* vs = a.v_scales + b * a.vs_sb + h * a.vs_sh + (long long)s0 * a.vs_ss;
+  for (int r = tid; r < n; r += THREADS) {
+    sKs[r] = ks[r * a.ks_ss];
+    sVs[r] = vs[r * a.vs_ss];
+  }
+  const float* qs = a.q_scales + bh * G;
+
+  // scores, sub-tile by sub-tile: one thread per (position, group of rows)
+  for (int r0 = 0; r0 < n; r0 += sub) {
+    const int rn = min(sub, n - r0);
+    __syncthreads();  // the buffer's previous rows are consumed
+    load_rows(k, a.k_ss, r0, rn);
+    __syncthreads();
+    const int groups = max(1, min(G, THREADS / sub)), gs = (G + groups - 1) / groups;
+    for (int e = tid; e < sub * groups; e += THREADS) {
+      const int p = e % sub, g0 = (e / sub) * gs;
+      if (p >= rn || g0 >= G) continue;
+      int s[MAX_G];
+#pragma unroll
+      for (int j = 0; j < MAX_G; ++j) s[j] = 0;
+      const uint8_t* krow = sRows + p * lay.pitch;
+      for (int c = 0; c < chunks; ++c) {
+        const uint4 kc = *reinterpret_cast<const uint4*>(krow + 16 * c);
+#pragma unroll
+        for (int j = 0; j < MAX_G; ++j) {
+          if (j >= gs || g0 + j >= G) break;
+          s[j] = dot16(*reinterpret_cast<const uint4*>(sQ + (g0 + j) * lay.qb + 16 * c), kc, s[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < MAX_G; ++j) {
+        if (j >= gs || g0 + j >= G) break;
+        sS[(g0 + j) * L + r0 + p] = static_cast<float>(s[j]) * qs[g0 + j] * sKs[r0 + p];
+      }
+    }
+  }
+  __syncthreads();
+
+  // per row, as the split kernel: m, p = exp(s - m), l, the v scales
+  // folded into p, then p requantized to int8 over the tile (zeros past n)
+  const long long part_row = (bh * gridDim.x + sp) * G;
+  for (int g = warp; g < G; g += THREADS / 32) {
+    float* row = sS + g * L;
+    float m = NEG_INF;
+    for (int r = lane; r < n; r += 32) m = fmaxf(m, row[r]);
+    m = warp_max(m);
+    float l = 0.f, p_max = 0.f;
+    for (int r = lane; r < n; r += 32) {
+      float p = expf(row[r] - m);
+      l += p;
+      p = p * sVs[r];
+      p_max = fmaxf(p_max, p);
+      row[r] = p;
+    }
+    l = warp_sum(l);
+    p_max = warp_max(p_max);
+    const float r_scale = p_max == 0.f ? 1.f : p_max / 127.f;
+    for (int r = lane; r < L; r += 32)
+      sP[g * L + r] = r < n ? static_cast<int8_t>(fminf(fmaxf(rintf(row[r] / r_scale), -128.f),
+                                                        127.f))
+                            : int8_t(0);
+    if (lane == 0) {
+      sRowScale[g] = r_scale;
+      part_m[part_row + g] = m;
+      part_l[part_row + g] = l;
+    }
+  }
+
+  // acc[g, d .. d + 3] = sum_p p[g, p] v[p, d .. d + 3] in int32 a
+  // sub-tile: one thread per (4 head dims, group of rows), 4 positions a
+  // step, the 4 rows' words transposed with byte permutes so that __dp4a
+  // sums over positions against p's packed row (past n p is zero, so the
+  // buffer's stale rows there add nothing); the sub-tiles' sums carried in
+  // part_acc
+  float* out = part_acc + part_row * HD;
+  const int quads = lay.qb / 4;
+  const int qgroups = max(1, THREADS / quads), qgs = (G + qgroups - 1) / qgroups;
+  for (int r0 = 0; r0 < n; r0 += sub) {
+    const int rn = min(sub, n - r0);
+    const bool last = r0 + sub >= n;
+    __syncthreads();  // p is final; the buffer's k rows consumed
+    load_rows(v, a.v_ss, r0, rn);
+    __syncthreads();
+    for (int e = tid; e < qgroups * quads; e += THREADS) {
+      const int d4 = e % quads, g0 = (e / quads) * qgs;
+      if (g0 >= G) continue;
+      int acc[MAX_G][4];
+#pragma unroll
+      for (int j = 0; j < MAX_G; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[j][c] = 0;
+      for (int p = 0; p < rn; p += 4) {
+        const uint8_t* at = sRows + p * lay.pitch + 4 * d4;
+        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(at);
+        const uint32_t w1 = *reinterpret_cast<const uint32_t*>(at + lay.pitch);
+        const uint32_t w2 = *reinterpret_cast<const uint32_t*>(at + 2 * lay.pitch);
+        const uint32_t w3 = *reinterpret_cast<const uint32_t*>(at + 3 * lay.pitch);
+        const uint32_t lo01 = __byte_perm(w0, w1, 0x5140), hi01 = __byte_perm(w0, w1, 0x7362);
+        const uint32_t lo23 = __byte_perm(w2, w3, 0x5140), hi23 = __byte_perm(w2, w3, 0x7362);
+        // vt[c]: head dim d + c at positions p .. p + 3
+        const int vt[4] = {static_cast<int>(__byte_perm(lo01, lo23, 0x5410)),
+                           static_cast<int>(__byte_perm(lo01, lo23, 0x7632)),
+                           static_cast<int>(__byte_perm(hi01, hi23, 0x5410)),
+                           static_cast<int>(__byte_perm(hi01, hi23, 0x7632))};
+#pragma unroll
+        for (int j = 0; j < MAX_G; ++j) {
+          if (j >= qgs || g0 + j >= G) break;
+          const int pw = *reinterpret_cast<const int*>(sP + (g0 + j) * L + r0 + p);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[j][c] = __dp4a(pw, vt[c], acc[j][c]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < MAX_G; ++j) {
+        if (j >= qgs || g0 + j >= G) break;
+        const int g = g0 + j;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int d = 4 * d4 + c;
+          if (d >= HD) continue;
+          float total = static_cast<float>(acc[j][c]);
+          if (r0 > 0) total += out[g * HD + d];
+          out[g * HD + d] = last ? total * sRowScale[g] : total;
+        }
+      }
+    }
+  }
+}
+
 // merge a slot's valid splits in split order; one thread per (b, h, g, d)
 __global__ void decode_attn_merge_kernel(const FasnDecode a, int L, int n_splits,
                                          const float* __restrict__ part_acc,
@@ -536,6 +758,35 @@ cudaError_t launch(const FasnDecode& a, int L, float* part_acc, float* part_m, f
   return cudaGetLastError();
 }
 
+// int8 compute: the split kernel where its layout fits, else the sub-tiled
+// one (both take the 256-position tile)
+cudaError_t launch_int8c(const FasnDecode& a, float* part_acc, float* part_m, float* part_l,
+                         float* acc, float* m, float* l, cudaStream_t stream) {
+  if (Layout(a.G, a.HD, INT8_SPLIT, 1).bytes <= SMEM_MAX)
+    return launch<int8_t, int8_t, true>(a, INT8_SPLIT, part_acc, part_m, part_l, acc, m, l,
+                                        stream);
+  const int sub = int8c_sub(a.G, a.HD);
+  if (sub == 0) return cudaErrorInvalidValue;
+  const int n_splits = (a.S + INT8_SPLIT - 1) / INT8_SPLIT;
+  if (n_splits > 0) {
+    const Int8cLayout lay(a.G, a.HD, sub);
+    cudaError_t err = cudaFuncSetAttribute(
+        decode_attn_int8c_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
+    if (err != cudaSuccess) return err;
+    decode_attn_int8c_kernel<<<dim3(n_splits, a.KVH, a.B), THREADS, lay.bytes, stream>>>(
+        a, sub, vec_ok(a, 1) ? 1 : 0, part_acc, part_m, part_l);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const long long total = (long long)a.B * a.KVH * a.G * a.HD;
+  const int blocks = static_cast<int>((total + 255) / 256 < 132 * 16 ? (total + 255) / 256
+                                                                       : 132 * 16);
+  if (blocks == 0) return cudaSuccess;
+  decode_attn_merge_kernel<<<blocks, 256, 0, stream>>>(a, INT8_SPLIT, n_splits, part_acc, part_m,
+                                                       part_l, acc, m, l);
+  return cudaGetLastError();
+}
+
 template <typename QT>
 cudaError_t by_cache(const FasnDecode& a, int L, float* part_acc, float* part_m, float* part_l,
                      float* acc, float* m, float* l, cudaStream_t stream) {
@@ -557,13 +808,14 @@ extern "C" int fasn_decode_attn_plan_ok(int split, int products, int G, int HD, 
   static const int elem[] = {4, 2, 1, 1};
   if (G < 1 || G > MAX_G || HD < 1 || kv_dtype < 0 || kv_dtype > 3) return 0;
   const bool int8c = q_dtype == 2;
-  if (int8c ? split != INT8_SPLIT || HD > INT8C_MAX_HD
+  if (int8c ? split != INT8_SPLIT
             : split != MIN_SPLIT && split != 32 && split != 64 && split != 128 &&
                   split != MAX_SPLIT)
     return 0;
   if (products == 1)  // the tensor-core products
     return q_dtype == 1 && kv_dtype >= 1 && HD % 16 == 0 &&
            Layout(G, HD, split, elem[kv_dtype]).bytes <= SMEM_MAX;
+  if (int8c) return products == 0 && int8c_sub(G, HD) > 0;
   return products == 0 && Layout(G, HD, split, elem[kv_dtype]).bytes <= SMEM_MAX;
 }
 
@@ -584,5 +836,5 @@ extern "C" int fasn_decode_attn(const FasnDecode* a, int split, int products, fl
     return by_cache<float>(*a, split, part_acc, part_m, part_l, acc, m, l, stream);
   if (a->q_dtype == 1)
     return by_cache<__nv_bfloat16>(*a, split, part_acc, part_m, part_l, acc, m, l, stream);
-  return launch<int8_t, int8_t, true>(*a, split, part_acc, part_m, part_l, acc, m, l, stream);
+  return launch_int8c(*a, part_acc, part_m, part_l, acc, m, l, stream);
 }

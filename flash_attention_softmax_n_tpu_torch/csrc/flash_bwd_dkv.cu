@@ -62,11 +62,30 @@
 // memory for the two transposed products. At D 256 the tiles are 32 x 32
 // (scalar_tile, for shared memory).
 //
-// Above 256 (D a multiple of 128, as the wrapper pads it), f32 and bf16
-// take flash_bwd_dkv_wide_kernel: the same 64 x 64 tiles and thread
-// layout, one CTA for 128 columns of dk and dv, S^T and dP^T accumulated
-// over D in 64-column chunks (flash_common.h wide_dots), so that its shared
-// memory (165,888 bytes) does not grow with D.
+// bf16 above 256 (D a multiple of 128, as the wrapper pads it):
+// flash_bwd_dkv_wide_wgmma_kernel. K and V of 64 keys over all of D would
+// grow with D (128 KB at D 512), so D streams: one CTA takes 64 keys and
+// 128 columns of dk and dv (the column chunks of one key tile side by side
+// in a flat grid, then the head's key tiles, low ones first) and splits the
+// work by product as the D 256 kernel does. A producer warpgroup at 40
+// registers keeps a four-slot ring of 64-column chunks in flight with TMA,
+// each slot one chunk of the CTA's K and V rows and of the query tile's Q
+// and dO rows (32 KB), beside two buffers of the query tile's Q and dO at
+// the CTA's 128 columns (32 KB each) and P (16 KB): 210 KB in all,
+// whatever D. Warpgroup 0 scales each Q chunk in place (Q_s) while the
+// previous chunk's product runs and sums S^T += K Q_s^T over the chunks,
+// forms P, hands it to warpgroup 1 through shared memory (named barrier 3;
+// barrier 4 frees it for the next tile) and accumulates dV += (P mult)^T dO
+// at its 128 columns; warpgroup 1 sums dP^T += V dO^T, scales Q at the
+// output columns, forms dS from P and accumulates dK += dS^T Q_s. Each
+// accumulates 64 floats (m64n128). S^T and dP^T are formed D / 128 times
+// over, once per column chunk (issued products per causal pair: 16 d at D
+// 384, 20 d at 512, against 8 d needed).
+//
+// f32 above 256: flash_bwd_dkv_wide_kernel, the scalar 64 x 64 tiles and
+// thread layout, one CTA for 128 columns of dk and dv, S^T and dP^T
+// accumulated over D in 64-column chunks (flash_common.h wide_dots), so
+// that its shared memory (165,888 bytes) does not grow with D.
 //
 // lse is clamped at DEAD_LSE as in K5, so dead rows (n == 0, L > S) add
 // nothing; query rows past L and keys past S are masked in the tile.
@@ -686,6 +705,267 @@ cudaError_t launch_d256(const FasnAttn& a, const void* dout, const float* lse,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 above D 256: D in 64-column chunks through a ring, one CTA per 64
+// keys and 128 columns of dk and dv, split by product
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_ROWS = 64;    // the CTA's keys; query rows of a tile
+constexpr int WIDE_STAGES = 4;   // ring slots, each one 64-column chunk
+constexpr int WIDE_THREADS = attn::CONSUMERS + 128;
+
+// Shared memory: each slot holds one 64-column chunk of the CTA's 64 K and V
+// rows and of the query tile's 64 Q and dO rows (8 KB each); then two
+// buffers (by query tile parity) of the tile's Q and dO at the CTA's 128
+// output columns (two 64-column boxes each, 32 KB a buffer); warpgroup 0's
+// P (f32, 64 x 64, each thread's 32 values as 8 float4s 128 threads apart);
+// per warpgroup two buffers (by tile parity) of a tile's per-query values;
+// then the barriers: full and empty per slot, ocfull and ocempty per
+// column buffer.
+struct DkvWide {
+  static constexpr int K = 0, V = WIDE_ROWS * 128, Q = 2 * V, DO = 3 * V, SLOT = 4 * V;
+  static constexpr int OC_AT = WIDE_STAGES * SLOT;
+  static constexpr int QOC = 0, DOOC = WIDE_ROWS * 2 * 128, OC = 2 * DOOC;
+  static constexpr int P_AT = OC_AT + 2 * OC;
+  static constexpr int ROWS_AT = P_AT + WIDE_ROWS * WIDE_ROWS * 4;
+  static constexpr int BAR_AT = ROWS_AT + 2 * 2 * WIDE_ROWS * 4;
+  static constexpr int SMEM = BAR_AT + 8 * (2 * WIDE_STAGES + 4) + 1024;
+};
+static_assert(DkvWide::SMEM <= 232448, "K6's wide ring passes the H100's 227 KB");
+
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+    flash_bwd_dkv_wide_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                                    const __grid_constant__ CUtensorMap kmap,
+                                    const __grid_constant__ CUtensorMap vmap,
+                                    const __grid_constant__ CUtensorMap domap, const FasnAttn a,
+                                    const float* __restrict__ lse,
+                                    const float* __restrict__ delta,
+                                    __nv_bfloat16* __restrict__ dk,
+                                    __nv_bfloat16* __restrict__ dv) {
+  using namespace attn;
+  using W = DkvWide;
+  constexpr int QT = WIDE_ROWS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw), pad = (1024 - (raw & 1023)) & 1023;
+  uint8_t* const mem = smem_raw + pad;
+  const uint32_t base = raw + pad, bars = base + W::BAR_AT;
+  const auto full = [&](int s) { return bars + 8 * s; };
+  const auto empty = [&](int s) { return bars + 8 * (WIDE_STAGES + s); };
+  const auto ocfull = [&](int i) { return bars + 8 * (2 * WIDE_STAGES + i); };
+  const auto ocempty = [&](int i) { return bars + 8 * (2 * WIDE_STAGES + 2 + i); };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WIDE_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), CONSUMERS / 128);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(ocfull(i), 1);
+      mbar_init(ocempty(i), CONSUMERS / 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // a flat grid: a key tile's column chunks side by side, then the head's
+  // key tiles (the low ones, which causal rows see most, first), so that
+  // the CTAs that run together stream the same chunks, which L2 then serves
+  const int D = a.D, NC = D / 64, chunks = D / 128;
+  const int n_k = (a.S + QT - 1) / QT;
+  const int oc = blockIdx.x % chunks * 128;  // the CTA's first column of dk and dv
+  const int bh = blockIdx.x / chunks / n_k, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.x / chunks % n_k * QT;
+  const int L = a.L, S = a.S, off = S - L;
+  // the first query tile with a row that sees key k0 (row >= k0 - off);
+  // every tile from there on sees it
+  const int first = a.causal ? max(0, k0 - off) / QT : 0;
+  const int tiles = max(0, (L + QT - 1) / QT - first);
+  // the warpgroup's role, as a shuffled value: uniform across its warps,
+  // as setmaxnreg needs
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == CONSUMERS) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < tiles; ++it) {
+        const int q0 = (first + it) * QT, ob = it % 2;
+        // Q and dO at the CTA's output columns, for dK and dV
+        const uint32_t ocb = base + W::OC_AT + ob * W::OC;
+        mbar_wait<false>(ocempty(ob), ((it / 2) & 1) ^ 1);
+        mbar_expect_tx(ocfull(ob), W::OC);
+        for (int x = 0; x < 2; ++x) {
+          tma_3d(ocb + W::QOC + x * (W::OC / 4), &qmap, ocfull(ob), oc + 64 * x, q0, bh);
+          tma_3d(ocb + W::DOOC + x * (W::OC / 4), &domap, ocfull(ob), oc + 64 * x, q0, bh);
+        }
+        // the query tile's chunks over D, with the CTA's K and V rows
+        for (int c = 0; c < NC; ++c) {
+          mbar_wait<false>(empty(stage), phase ^ 1);
+          const uint32_t slot = base + stage * W::SLOT;
+          mbar_expect_tx(full(stage), W::SLOT);
+          tma_3d(slot + W::K, &kmap, full(stage), 64 * c, k0, bh);
+          tma_3d(slot + W::V, &vmap, full(stage), 64 * c, k0, bh);
+          tma_3d(slot + W::Q, &qmap, full(stage), 64 * c, q0, bh);
+          tma_3d(slot + W::DO, &domap, full(stage), 64 * c, q0, bh);
+          if (++stage == WIDE_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int t = threadIdx.x % 128;
+    const int g = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
+    const ScoreMods mods = score_mods(a, b, h);
+    const Dropout drop = dropout_of(a);
+    const bool plain = mods.bias == nullptr && !mods.alibi;
+    // written and read in the same fragment order: no bank conflicts
+    float4* pbuf = reinterpret_cast<float4*>(mem + W::P_AT) + t;
+    float acc[64];  // warpgroup 0: dV, 1: dK, at the CTA's 128 columns
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    // thread t < 64 carries query t's value of the next tile (warpgroup 0:
+    // lse, then clamped and in log2 units; 1: delta; 0 past L) into the
+    // warpgroup's buffer
+    float* rows = reinterpret_cast<float*>(mem + W::ROWS_AT) + wg * 2 * QT;
+    const float* row_src = (wg == 0 ? lse : delta) + (long long)bh * L;
+    const int qt = first * QT + t;  // query t of the first tile
+    float next = tiles > 0 && t < QT && qt < L ? row_src[qt] : 0.f;
+
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < tiles; ++it) {
+      const int q0 = (first + it) * QT, ob = it % 2;
+      const uint32_t ocb = base + W::OC_AT + ob * W::OC;
+      // fragment row i: key k0 + g + 8 i; column: query q0 + 8 j + c0 + c,
+      // whose value is cv[8 j + c0 + c] (published by the warpgroup's
+      // barrier below)
+      float* cv = rows + ob * QT;
+      if (t < QT) {
+        cv[t] = wg == 0 ? fmaxf(next, DEAD_LSE) * LOG2E : next;
+        const int qn = qt + (it + 1) * QT;
+        next = it + 1 < tiles && qn < L ? row_src[qn] : 0.f;
+      }
+      // warpgroup 0: S^T += K Q_s^T; 1: dP^T += V dO^T, chunk after chunk
+      float s[QT / 2];
+      int prev = 0;
+      for (int c = 0; c < NC; ++c) {
+        mbar_wait<false>(full(stage), phase);
+        const uint32_t slot = base + stage * W::SLOT;
+        if (wg == 0) {
+          // Q_s: the chunk's q * scale_q rounded to bf16, while the
+          // previous chunk's product runs
+          scale_q_rows<64, QT>(mem + stage * W::SLOT + W::Q, 0, a.scale_q);
+          fence_proxy_async();
+          asm volatile("bar.sync 1, 128;" ::: "memory");
+        }
+        // one wgmma sequence for both roles, the operands chosen by role:
+        // with a sequence in each branch (here and for dV/dK below) ptxas
+        // serialised the products (its C7515): 3.89 ms against 3.20 at B32
+        // H16 L=S=512 d512 causal on an NVIDIA H100 80GB HBM3
+        wgmma_fence();
+        chunk_dots(s, slot + (wg == 0 ? W::K : W::V), slot + (wg == 0 ? W::Q : W::DO), c == 0);
+        wgmma_commit();
+        // the previous chunk's group is done: free its slot
+        if (c > 0) {
+          wgmma_wait<1>();
+          if (t == 0) mbar_arrive(empty(prev));
+        }
+        prev = stage;
+        if (++stage == WIDE_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      if (wg == 1) {
+        // Q_s at the output columns, while the last chunk's product runs
+        // (the barrier also publishes the tile's delta)
+        mbar_wait<false>(ocfull(ob), (it / 2) & 1);
+        scale_q_rows<128, QT>(mem + W::OC_AT + ob * W::OC + W::QOC, 0, a.scale_q);
+        fence_proxy_async();
+        asm volatile("bar.sync 2, 128;" ::: "memory");
+      }
+      wgmma_wait<0>();
+      fence_regs(s);
+      if (t == 0) mbar_arrive(empty(prev));
+      if (wg == 0) {
+        // P from S^T, handed to warpgroup 1, then the dropout
+        if (!plain || q0 + QT > L || k0 + QT > S || (mods.causal && q0 + off < k0 + QT - 1)) {
+#pragma unroll
+          for (int e = 0; e < QT / 2; ++e)
+            s[e] = mods(s[e], q0 + 8 * (e / 4) + c0 + e % 2, k0 + g + 8 * ((e / 2) % 2));
+        }
+#pragma unroll
+        for (int e = 0; e < QT / 2; ++e)
+          s[e] = exp2f(fmaf(s[e], LOG2E, -cv[8 * (e / 4) + c0 + e % 2]));
+        // warpgroup 1 has read the previous tile's P
+        if (it > 0) asm volatile("bar.sync 4, %0;" ::"n"(CONSUMERS) : "memory");
+#pragma unroll
+        for (int v4 = 0; v4 < QT / 8; ++v4)
+          pbuf[v4 * 128] = make_float4(s[4 * v4], s[4 * v4 + 1], s[4 * v4 + 2], s[4 * v4 + 3]);
+        asm volatile("bar.arrive 3, %0;" ::"n"(CONSUMERS) : "memory");
+        if (drop.on) {
+#pragma unroll
+          for (int e = 0; e < QT / 2; ++e)
+            s[e] *= drop(b, h, q0 + 8 * (e / 4) + c0 + e % 2, k0 + g + 8 * ((e / 2) % 2));
+        }
+      } else {
+        // dS^T from warpgroup 0's P
+        asm volatile("bar.sync 3, %0;" ::"n"(CONSUMERS) : "memory");
+#pragma unroll
+        for (int v4 = 0; v4 < QT / 8; ++v4) {
+          const float4 p4 = pbuf[v4 * 128];
+          const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int e = 4 * v4 + c;
+            const float d =
+                drop.on ? s[e] * drop(b, h, q0 + 8 * v4 + c0 + c % 2, k0 + g + 8 * (c / 2))
+                        : s[e];
+            s[e] = p[c] * (d - cv[8 * v4 + c0 + c % 2]);
+          }
+        }
+        if (it + 1 < tiles) asm volatile("bar.arrive 4, %0;" ::"n"(CONSUMERS) : "memory");
+      }
+      // warpgroup 0: dV += (P mult)^T dO; 1: dK += dS^T Q_s; one wgmma
+      // sequence for both roles, B chosen by role (as above)
+      uint32_t f[QT / 16][4];
+      to_a_frags(s, f);
+      mbar_wait<false>(ocfull(ob), (it / 2) & 1);
+      pv_async<128, QT / 16, QT>(acc, f, ocb + (wg == 0 ? W::DOOC : W::QOC));
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (t == 0) mbar_arrive(ocempty(ob));
+    }
+
+    const int valid = min(QT, S - k0);
+    if (valid > 0)
+      store_cols<128>(acc, (wg == 0 ? dv : dk) + ((long long)bh * S + k0) * D + oc, D, valid,
+                      [](float x) { return x; });
+  }
+}
+
+cudaError_t launch_wide(const FasnAttn& a, const void* dout, const float* lse,
+                        const float* delta, void* dk, void* dv, cudaStream_t stream) {
+  using namespace attn;
+  auto kernel = flash_bwd_dkv_wide_wgmma_kernel;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DkvWide::SMEM);
+  if (err != cudaSuccess) return err;
+  // every map in 64-row boxes of 64 columns
+  AttnMaps m{};
+  if (!encode_attn(&m, a, a.D, dout, WIDE_ROWS)) return cudaErrorInvalidValue;
+  const long long ctas =
+      (long long)a.B * a.H * ((a.S + WIDE_ROWS - 1) / WIDE_ROWS) * (a.D / 128);
+  if (ctas > INT_MAX) return cudaErrorInvalidValue;
+  if (ctas == 0) return cudaSuccess;
+  kernel<<<static_cast<unsigned>(ctas), WIDE_THREADS, DkvWide::SMEM, stream>>>(
+      m.q, m.k, m.v, m.dout, a, lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv));
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace fasn
 
@@ -703,12 +983,9 @@ extern "C" int fasn_flash_bwd_dkv(const FasnAttn* a, const void* dout, const flo
   };
   if (a->dtype != 0 && a->dtype != 1) return cudaErrorInvalidValue;
   if (wide_d(a->D)) {
+    if (a->dtype == 1) return launch_wide(*a, dout, lse, delta, dk, dv, stream);
     const dim3 grid((a->S + 63) / 64, a->H, wide_z(a->B, a->D));
     if (grid.z == 0) return cudaErrorInvalidValue;
-    if (a->dtype == 1)
-      return launch(flash_bwd_dkv_wide_kernel<__nv_bfloat16>, grid, dkv_wide_smem_bytes(), stream,
-                    *a, static_cast<const __nv_bfloat16*>(dout), lse, delta,
-                    static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv));
     return launch(flash_bwd_dkv_wide_kernel<float>, grid, dkv_wide_smem_bytes(), stream, *a,
                   static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
                   static_cast<float*>(dv));

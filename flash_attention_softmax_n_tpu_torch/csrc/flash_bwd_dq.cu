@@ -10,7 +10,9 @@
 //
 // What bounds it on the H100: 6 D operations per visible (query, key) pair
 // (S = Q K^T, dP = dO V^T, dQ += dS K) at 989 TFLOP/s (bf16): 0.052 ms at
-// the training shape B2 H32 L=S=2048 d64 causal.
+// the training shape B2 H32 L=S=2048 d64 causal; at B32 H16 L=S=512 d512
+// causal the bytes bound it (q, k, v, dO read and dq written once, 3.35
+// TB/s): 0.40 ms.
 //
 // bf16: flash_bwd_dq_wgmma_kernel, on the attention tile of attn_tile.h
 // with Q and dO resident. One CTA takes 128 query rows of one (b, h); the
@@ -52,12 +54,30 @@
 // goes through shared memory, rounded to k's dtype, for the ds k product.
 // At D 256 the tiles are 32 x 32 (scalar_tile, for shared memory).
 //
-// Above 256 (D a multiple of 128, as the wrapper pads it), f32 and bf16
-// take flash_bwd_dq_wide_kernel: the same 64 x 64 tiles and thread layout,
-// one CTA for 128 columns of dq, S and dP accumulated over D in 64-column
-// chunks (flash_common.h wide_dots), so that its shared memory (115,968
-// bytes) does not grow with D; the CTA of the first column chunk writes
-// dbias and the dslope partials.
+// bf16 above 256 (D a multiple of 128, as the wrapper pads it):
+// flash_bwd_dq_wide_wgmma_kernel. A 128-row tile over all of D would pass
+// 227 KB (Q and dO alone at D 512), so D streams: one CTA takes 128 query
+// rows and 128 columns of dq (the column chunks of one query tile side by
+// side in a flat grid, then the head's query tiles, heaviest first), and a
+// producer warpgroup at 40 registers keeps a four-slot ring of 64-column
+// chunks in flight with TMA, each slot one chunk of the CTA's Q and dO rows
+// and of a 64-key K and V tile (48 KB), beside two buffers of the key
+// tile's K at the CTA's 128 columns (16 KB each; 224 KB in all, whatever
+// D). Each consumer warpgroup (232 registers) scales its 64 rows of the Q
+// chunk in place while the previous chunk's products run, and issues S +=
+// Q_s K^T and dP += dO V^T (m64n64, both operands K-major) chunk after
+// chunk into the same fragments, freeing a slot once the next chunk's
+// group is issued; then dS on the fragments and dQ += dS K at its 128
+// columns (m64n128, K read MN-major). S and dP are formed D / 128 times
+// over, once per column chunk (issued products per causal pair: 14 d at D
+// 384, 18 d at 512, against 6 d needed); the CTA of the first column chunk
+// writes dbias and the dslope partials.
+//
+// f32 above 256: flash_bwd_dq_wide_kernel, the scalar 64 x 64 tiles and
+// thread layout, one CTA for 128 columns of dq, S and dP accumulated over D
+// in 64-column chunks (flash_common.h wide_dots), so that its shared memory
+// (115,968 bytes) does not grow with D; the CTA of the first column chunk
+// writes dbias and the dslope partials.
 //
 // Both: the TPU's dslope accumulates over a sequential grid; here each
 // thread sums its rows' terms over the sweep and the kernel writes one
@@ -650,6 +670,252 @@ cudaError_t launch_d256(const FasnAttn& a, const void* dout, const float* lse,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 above D 256: D in 64-column chunks through a ring, one CTA per 128
+// columns of dq
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_KT = 64;      // keys of a key tile
+constexpr int WIDE_STAGES = 4;   // ring slots, each one 64-column chunk
+constexpr int WIDE_THREADS = attn::CONSUMERS + 128;
+
+// Shared memory: each slot holds one 64-column chunk of the CTA's 128 Q and
+// dO rows (16 KB each) and of the key tile's 64 K and V rows (8 KB each);
+// then two buffers (by key tile parity) of the key tile's K at the CTA's
+// 128 output columns (two 64-column boxes); then the barriers: full and
+// empty per slot, kfull and kempty per K buffer.
+struct DqWide {
+  static constexpr int Q = 0, DO = 128 * 128, K = 2 * DO, V = K + WIDE_KT * 128;
+  static constexpr int SLOT = V + WIDE_KT * 128;
+  static constexpr int KOC_AT = WIDE_STAGES * SLOT, KOC = WIDE_KT * 2 * 128;
+  static constexpr int BAR_AT = KOC_AT + 2 * KOC;
+  static constexpr int SMEM = BAR_AT + 8 * (2 * WIDE_STAGES + 4) + 1024;
+};
+static_assert(DqWide::SMEM <= 232448, "K5's wide ring passes the H100's 227 KB");
+
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+    flash_bwd_dq_wide_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                                   const __grid_constant__ CUtensorMap kmap,
+                                   const __grid_constant__ CUtensorMap vmap,
+                                   const __grid_constant__ CUtensorMap domap, const FasnAttn a,
+                                   const float* __restrict__ lse, const float* __restrict__ delta,
+                                   float scale, __nv_bfloat16* __restrict__ dq,
+                                   float* __restrict__ dbias, float* __restrict__ dslope_rows) {
+  using namespace attn;
+  using W = DqWide;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw), pad = (1024 - (raw & 1023)) & 1023;
+  uint8_t* const mem = smem_raw + pad;
+  const uint32_t base = raw + pad, bars = base + W::BAR_AT;
+  const auto full = [&](int s) { return bars + 8 * s; };
+  const auto empty = [&](int s) { return bars + 8 * (WIDE_STAGES + s); };
+  const auto kfull = [&](int i) { return bars + 8 * (2 * WIDE_STAGES + i); };
+  const auto kempty = [&](int i) { return bars + 8 * (2 * WIDE_STAGES + 2 + i); };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WIDE_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), CONSUMERS / 128);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(kfull(i), 1);
+      mbar_init(kempty(i), CONSUMERS / 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // a flat grid: a query tile's column chunks side by side, then the
+  // head's query tiles (the heaviest, last, first), so that the CTAs that
+  // run together stream the same chunks, which L2 then serves
+  const int D = a.D, NC = D / 64, chunks = D / 128;
+  const int n_q = (a.L + TQ - 1) / TQ;
+  const int oc = blockIdx.x % chunks * 128;  // the CTA's first column of dq
+  const int bh = blockIdx.x / chunks / n_q, b = bh / a.H, h = bh % a.H;
+  const int q0 = (n_q - 1 - blockIdx.x / chunks % n_q) * TQ;
+  const int L = a.L, S = a.S, off = S - L;
+  // keys at or left of the tile's last row's diagonal
+  const int kv_end = a.causal ? min(S, min(q0 + TQ, L) + off) : S;
+  const int tiles = kv_end > 0 ? (kv_end + WIDE_KT - 1) / WIDE_KT : 0;
+  // the warpgroup's role, as a shuffled value: uniform across its warps,
+  // as setmaxnreg needs
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == CONSUMERS) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < tiles; ++it) {
+        const int k0 = it * WIDE_KT, kb = it % 2;
+        // K at the CTA's output columns, for dQ += dS K
+        mbar_wait<false>(kempty(kb), ((it / 2) & 1) ^ 1);
+        mbar_expect_tx(kfull(kb), W::KOC);
+        for (int x = 0; x < 2; ++x)
+          tma_3d(base + W::KOC_AT + kb * W::KOC + x * (W::KOC / 2), &kmap, kfull(kb),
+                 oc + 64 * x, k0, bh);
+        // the key tile's chunks over D, with the CTA's Q and dO rows
+        for (int c = 0; c < NC; ++c) {
+          mbar_wait<false>(empty(stage), phase ^ 1);
+          const uint32_t slot = base + stage * W::SLOT;
+          mbar_expect_tx(full(stage), W::SLOT);
+          tma_3d(slot + W::Q, &qmap, full(stage), 64 * c, q0, bh);
+          tma_3d(slot + W::DO, &domap, full(stage), 64 * c, q0, bh);
+          tma_3d(slot + W::K, &kmap, full(stage), 64 * c, k0, bh);
+          tma_3d(slot + W::V, &vmap, full(stage), 64 * c, k0, bh);
+          if (++stage == WIDE_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int t = threadIdx.x % 128;
+    const int row0 = q0 + 64 * wg;  // the warpgroup's first query row
+    const int g = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
+    const ScoreMods mods = score_mods(a, b, h);
+    const Dropout drop = dropout_of(a);
+    const bool plain = mods.bias == nullptr && !mods.alibi;
+    const bool first = oc == 0;  // the column chunk that writes dbias and dslope
+
+    // per fragment row: lse (clamped) in log2 units, delta, the dslope sum
+    float lse2[2], dl[2], dsl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = row0 + g + 8 * i;
+      lse2[i] = qi < L ? fmaxf(lse[(long long)bh * L + qi], DEAD_LSE) * LOG2E : 0.f;
+      dl[i] = qi < L ? delta[(long long)bh * L + qi] : 0.f;
+      dsl[i] = 0.f;
+    }
+    float acc[64];  // dq at the CTA's 128 columns
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+    // the tiles a warpgroup computes are a prefix of the keys: `done` ends it
+    int done = 0, stage = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < tiles; ++it) {
+      const int k0 = it * WIDE_KT, kb = it % 2;
+      // no row of the warpgroup sees a key of this tile: its chunks are
+      // waited for (every load lands before its slot is released) and freed
+      const bool live = row0 < L && k0 < S && !(mods.causal && k0 > row0 + 63 + off);
+      if (!live) {
+        for (int c = 0; c < NC; ++c) {
+          mbar_wait<false>(full(stage), phase);
+          if (t == 0) mbar_arrive(empty(stage));
+          if (++stage == WIDE_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        mbar_wait<false>(kfull(kb), (it / 2) & 1);
+        if (t == 0) mbar_arrive(kempty(kb));
+        continue;
+      }
+      float s[WIDE_KT / 2], dp[WIDE_KT / 2];
+      int prev = 0;
+      for (int c = 0; c < NC; ++c) {
+        mbar_wait<false>(full(stage), phase);
+        const uint32_t slot = base + stage * W::SLOT;
+        // Q_s: the warpgroup's 64 rows of the chunk, q * scale_q rounded to
+        // bf16, while the previous chunk's products run
+        scale_q_rows<64>(mem + stage * W::SLOT + W::Q, wg, a.scale_q);
+        fence_proxy_async();
+        asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+        // S += Q_s K^T and dP += dO V^T over the chunk, one group
+        wgmma_fence();
+        chunk_dots(s, slot + W::Q + wg * 64 * 128, slot + W::K, c == 0);
+        chunk_dots(dp, slot + W::DO + wg * 64 * 128, slot + W::V, c == 0);
+        wgmma_commit();
+        // the previous chunk's group is done: free its slot
+        if (c > 0) {
+          wgmma_wait<1>();
+          if (t == 0) mbar_arrive(empty(prev));
+        }
+        prev = stage;
+        if (++stage == WIDE_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      if (t == 0) mbar_arrive(empty(prev));
+      done = k0 + WIDE_KT;
+      // masks, bias and ALiBi only where a key is past S or a diagonal
+      if (!plain || k0 + WIDE_KT > S || (mods.causal && k0 + WIDE_KT - 1 > row0 + off)) {
+#pragma unroll
+        for (int e = 0; e < WIDE_KT / 2; ++e)
+          s[e] = mods(s[e], row0 + g + 8 * ((e / 2) % 2), k0 + 8 * (e / 4) + c0 + e % 2);
+      }
+#pragma unroll
+      for (int e = 0; e < WIDE_KT / 2; ++e) {
+        const int i = (e / 2) % 2, qi = row0 + g + 8 * i, kj = k0 + 8 * (e / 4) + c0 + e % 2;
+        const float p = exp2f(fmaf(s[e], LOG2E, -lse2[i]));
+        const float d = drop.on ? dp[e] * drop(b, h, qi, kj) : dp[e];
+        const float ds = p * (d - dl[i]);
+        if (first && dbias && qi < L && kj < S) dbias[((long long)bh * L + qi) * S + kj] = ds;
+        if (first && mods.alibi) dsl[i] += ds * -fabsf((float)(qi + off - kj));
+        s[e] = ds;
+      }
+      // dQ += dS K at the CTA's columns: K read MN-major
+      uint32_t f[WIDE_KT / 16][4];
+      to_a_frags(s, f);
+      mbar_wait<false>(kfull(kb), (it / 2) & 1);
+      pv_async<128, WIDE_KT / 16, WIDE_KT>(acc, f, base + W::KOC_AT + kb * W::KOC);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (t == 0) mbar_arrive(kempty(kb));
+    }
+
+    const int valid = min(64, L - row0);
+    if (valid > 0) {
+      if (first) {
+        // keys the warpgroup never visited are causally invisible: zero dbias
+        if (dbias) {
+          const int from = min(done, S), width = S - from;
+          for (int e = t; e < valid * width; e += 128)
+            dbias[((long long)bh * L + row0 + e / width) * S + from + e % width] = 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float row = quad_sum(dsl[i]);
+          if (dslope_rows && t % 4 == 0 && g + 8 * i < valid)
+            dslope_rows[(long long)bh * L + row0 + g + 8 * i] = row;
+        }
+      }
+      store_cols<128>(acc, dq + ((long long)bh * L + row0) * D + oc, D, valid,
+                      [&](float x) { return scale * x; });
+    }
+  }
+}
+
+cudaError_t launch_wide(const FasnAttn& a, const void* dout, const float* lse,
+                        const float* delta, float scale, void* dq, float* dbias,
+                        float* dslope_rows, cudaStream_t stream) {
+  using namespace attn;
+  auto kernel = flash_bwd_dq_wide_wgmma_kernel;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DqWide::SMEM);
+  if (err != cudaSuccess) return err;
+  // q and dout in 128-row boxes, k and v in 64-row ones; 64 columns each
+  AttnMaps m{};
+  const long long heads = (long long)a.B * a.H;
+  if (!encode_rows(&m.q, a.q, heads, a.L, a.D, TQ) ||
+      !encode_rows(&m.dout, dout, heads, a.L, a.D, TQ) ||
+      !encode_rows(&m.k, a.k, heads, a.S, a.D, WIDE_KT) ||
+      !encode_rows(&m.v, a.v, heads, a.S, a.D, WIDE_KT))
+    return cudaErrorInvalidValue;
+  const long long ctas = heads * ((a.L + TQ - 1) / TQ) * (a.D / 128);
+  if (ctas > INT_MAX) return cudaErrorInvalidValue;
+  if (ctas == 0) return cudaSuccess;
+  kernel<<<static_cast<unsigned>(ctas), WIDE_THREADS, DqWide::SMEM, stream>>>(
+      m.q, m.k, m.v, m.dout, a, lse, delta, scale, static_cast<__nv_bfloat16*>(dq), dbias,
+      dslope_rows);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace fasn
 
@@ -668,12 +934,10 @@ extern "C" int fasn_flash_bwd_dq(const FasnAttn* a, const void* dout, const floa
   };
   if (a->dtype != 0 && a->dtype != 1) return cudaErrorInvalidValue;
   if (wide_d(a->D)) {
+    if (a->dtype == 1)
+      return launch_wide(*a, dout, lse, delta, scale, dq, dbias, dslope_rows, stream);
     const dim3 grid((a->L + 63) / 64, a->H, wide_z(a->B, a->D));
     if (grid.z == 0) return cudaErrorInvalidValue;
-    if (a->dtype == 1)
-      return launch(flash_bwd_dq_wide_kernel<__nv_bfloat16>, grid, dq_wide_smem_bytes(), stream,
-                    *a, static_cast<const __nv_bfloat16*>(dout), lse, delta, scale,
-                    static_cast<__nv_bfloat16*>(dq), dbias, dslope_rows);
     return launch(flash_bwd_dq_wide_kernel<float>, grid, dq_wide_smem_bytes(), stream, *a,
                   static_cast<const float*>(dout), lse, delta, scale, static_cast<float*>(dq),
                   dbias, dslope_rows);

@@ -167,7 +167,8 @@ cudaError_t dispatch_d(int D, F& f) {
 
 // ---------------------------------------------------------------------------
 // Head dims above 256 (multiples of WIDE_OC, as the wrappers pad them): the
-// wide scalar kernels of K1, K5, K6 and K10, f32 and bf16. A CTA takes
+// wide scalar kernels of K1 and K10 (f32 and bf16) and of K5 and K6 (f32;
+// their bf16 kernels stream D through attn_tile.h's chunk_dots). A CTA takes
 // WIDE_OC columns of the outputs (column chunk blockIdx.z % (D / WIDE_OC))
 // and accumulates the scores it needs over the whole of D in WIDE_KC-column
 // chunks through shared memory, so its shared memory does not grow with D.

@@ -19,10 +19,12 @@ fp8 values, positions at 0, S - 1 and outside the cache (skipped), row
 counts that fill no block, and strided or f32 new rows (cast and copied as
 the plain versions take them);
 K10 in its four modes at head dims 32/64/128 and, padded or on its scalar
-kernels, 80/256/320, bf16 and f32, ragged L; K8 at hd 160, 256 and 512. The
+kernels, 80/256/320, bf16 and f32, ragged L; K8 at hd 160, 256, 512, 520
+and 1152 (int8 compute too). The
 bf16 K1, K5, K6 and K10 run the TMA + wgmma tile (128-row tiles; K1, K5
-and K6 at D 256 on kernels of their own with a producer warpgroup, which
-the d256 cases check ran, through torch.profiler): L and S
+and K6 at D 256, and K5 and K6 above it, on kernels of their own with a
+producer warpgroup, which the d256 and wide cases check ran, through
+torch.profiler): L and S
 ending mid-tile, every bias broadcast, ALiBi, dropout (K5's and K6's masks
 bit-equal to the hash), a ring block against an external lse, and
 misaligned inputs that must raise. The engine's CUDA graphs: each greedy
@@ -635,23 +637,33 @@ def _attn_inputs(gen, dtype, B, H, L, S, d, *, bias_shape=None, alibi=False,
     return q, k, v, do, extras
 
 
-# K5's and K6's bf16 kernels at D 256, as torch.profiler names them
+# K5's and K6's bf16 kernels at D 256 and above it, as torch.profiler
+# names them
 _D256_BWD_KERNELS = ("flash_bwd_dq_d256_kernel", "flash_bwd_dkv_d256_kernel")
+_WIDE_BWD_KERNELS = ("flash_bwd_dq_wide_wgmma_kernel", "flash_bwd_dkv_wide_wgmma_kernel")
 
 
-def _launched(fn):
-    """fn()'s result and the names of the CUDA kernels it launched"""
+def _launched(fn, tries=3):
+    """fn()'s result, the names of the CUDA kernels it launched and how
+    many calls that took: torch.profiler at times records no device event
+    at all (PERF.md section 7), and fn then runs again under a new
+    profiler, up to ``tries`` calls"""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    return out, [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for calls in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return out, names, calls
 
 
-def _assert_d256_bwd_kernels(names):
-    for kernel in _D256_BWD_KERNELS:
+def _assert_bwd_kernels(names, d):
+    """bf16 K5 and K6 at D 256 and above ran their own TMA + wgmma kernels"""
+    for kernel in _D256_BWD_KERNELS if d == 256 else _WIDE_BWD_KERNELS:
         assert any(kernel in n for n in names), (kernel, sorted(set(names)))
 
 
@@ -799,7 +811,7 @@ def _check_bf16_fwd(got, want):
     assert float((lse - lse_ref).abs().max()) <= 1e-3
 
 
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 128, 256, 384, 512, 640])
 @pytest.mark.parametrize("n", [0.0, 1.0])
 @pytest.mark.parametrize("shape", _WGMMA_SHAPES, ids=lambda s: "L{}-S{}-{}".format(*s))
 def test_flash_fwd_wgmma_matches_plain(gen, d, n, shape):
@@ -861,11 +873,13 @@ def test_flash_fwd_wgmma_rejects_misaligned_inputs(gen):
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 64),
-                                     (torch.bfloat16, 128), (torch.bfloat16, 256)])
+                                     (torch.bfloat16, 128), (torch.bfloat16, 256),
+                                     (torch.bfloat16, 384)])
 def test_block_grads_against_an_external_lse(gen, dtype, d):
     # the ring's use: one kv block against a global lse (here from the same
     # block and 50 more keys), o and dout of the whole range; bf16 at d256
-    # on K5's and K6's D 256 kernels, repeats bit-equal
+    # on K5's and K6's D 256 kernels and at d384 on their wide ones,
+    # repeats bit-equal
     L, S = 200, 140
     q, k, v, do, _ = _attn_inputs(gen, dtype, 1, 2, L, S + 50, d)
     o, lse = fa.flash_fwd_reference(q, k, v, None, n=1.0, scale=d ** -0.5, is_causal=True)
@@ -874,9 +888,9 @@ def test_block_grads_against_an_external_lse(gen, dtype, d):
     def run():
         return fa.flash_attention_block_grads(q, kb, vb, o, lse, do, is_causal=True)
 
-    got, names = _launched(run)
-    if d == 256:
-        _assert_d256_bwd_kernels(names)
+    got, names, _ = _launched(run)
+    if d >= 256:
+        _assert_bwd_kernels(names, d)
         assert all(torch.equal(a, b) for a, b in zip(got, run()))
     want = fa.flash_bwd_reference(q, kb, vb, None, None, None, o, lse, do,
                                   scale=d ** -0.5, is_causal=True)[:3]
@@ -889,7 +903,8 @@ def test_block_grads_against_an_external_lse(gen, dtype, d):
 
 
 # K5's and K6's bf16 kernels (TMA + wgmma, on K1's tile; at d256 their own
-# 64-row kernels, which must be the ones launched): the shapes of
+# 64-row kernels and above 256 their wide ones, D streamed in 64-column
+# chunks, which must be the ones launched): the shapes of
 # _WGMMA_SHAPES, each backward held alone against the plain version from
 # the plain forward's o and lse, within 2e-2 of max(1, |plain|) (ds and the
 # dropped p round to bf16 on either side of a tie; the kernel rounds the
@@ -904,12 +919,13 @@ def _bwd_bf16(gen, B, H, L, S, d, *, n=1.0, causal=True, **extras):
     args = (q, k, v, ex["bias"], ex["slopes"], ex["seed"], o, lse, do)
     bkw = dict(scale=d ** -0.5, is_causal=causal, dropout_rate=ex["dropout_rate"])
     before = {name: _build.LAUNCHES[name] for name in ("flash_bwd_dq", "flash_bwd_dkv")}
-    if d == 256:
-        got, names = _launched(lambda: fa.flash_bwd(*args, **bkw))
-        _assert_d256_bwd_kernels(names)
+    calls = 1
+    if d >= 256:
+        got, names, calls = _launched(lambda: fa.flash_bwd(*args, **bkw))
+        _assert_bwd_kernels(names, d)
     else:
         got = fa.flash_bwd(*args, **bkw)
-    assert all(_build.LAUNCHES[name] == c + 1 for name, c in before.items())
+    assert all(_build.LAUNCHES[name] == c + calls for name, c in before.items())
     want = fa.flash_bwd_reference(*args, **bkw)
     for name, g, w in zip(("dq", "dk", "dv", "dbias", "dslopes"), got, want):
         assert (g is None) == (w is None), name
@@ -921,7 +937,7 @@ def _bwd_bf16(gen, B, H, L, S, d, *, n=1.0, causal=True, **extras):
     return got
 
 
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 128, 256, 384, 512, 640])
 @pytest.mark.parametrize("n", [0.0, 1.0])
 @pytest.mark.parametrize("shape", _WGMMA_SHAPES, ids=lambda s: "L{}-S{}-{}".format(*s))
 def test_flash_bwd_wgmma_matches_plain(gen, d, n, shape):
@@ -932,7 +948,7 @@ def test_flash_bwd_wgmma_matches_plain(gen, d, n, shape):
         assert bool((dq[:, :, dead] == 0).all())
 
 
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 128, 256, 384, 512, 640])
 @pytest.mark.parametrize("extra", ["bias11", "bias21", "bias13", "bias23", "alibi", "dropout",
                                    "all"])
 def test_flash_bwd_wgmma_extras_match_plain(gen, d, extra):
@@ -946,7 +962,7 @@ def test_flash_bwd_wgmma_extras_match_plain(gen, d, extra):
 # zero-padded to the next of 32, 64, 128, 256 and the multiples of 128
 # above; 256 runs K1's, K5's and K6's D 256 wgmma kernels in bf16 and the
 # scalar kernels in f32 (K5 and K6 on 32-row tiles); 384 and 512 (and 288 at
-# 384) the wide scalar kernels, f32 and bf16. Under a bias, ALiBi and
+# 384) the wide kernels (bf16: TMA + wgmma; f32: scalar). Under a bias, ALiBi and
 # dropout, n 0 and 1, at chip_smoke's B2 H4 L200 S264; the backward from the
 # plain forward's o and lse; tolerances as above, repeats bit-equal
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -994,7 +1010,7 @@ def test_flash_kernels_take_every_head_dim(gen, dtype, d, n):
     assert all(torch.equal(a, b) for a, b in zip(grads, fa.flash_bwd(*args, **bkw)))
 
 
-@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("d", [64, 256, 384])
 def test_flash_bwd_wgmma_rejects_misaligned_inputs(gen, d):
     # contiguous bf16 views starting 4 bytes past an allocation: TMA needs 16
     base = torch.randn(2 * 128 * d + 2, device="cuda").to(torch.bfloat16)
@@ -1403,17 +1419,16 @@ def test_decode_attn_every_split_length(gen, split, cache, products):
 # head dims above 128 (Gemma-2B's 256 among them), as planned: 32-position
 # splits, and 16 where a row is 1 KB or more (f32 at hd 256, bf16 and f32
 # at hd 512: 32 positions of them no longer fit 48 KB); against the plain version, repeats
-# bit-equal. Int8 compute keeps the Pallas kernel's 256-position tile, whose
-# k and v rows (270 KB at hd 512) do not fit a block: it still refuses there
-@pytest.mark.parametrize("hd", [160, 256, 512])
+# bit-equal. Int8 compute keeps the Pallas kernel's 256-position tile at
+# every hd: above about hd 400 its k and v rows (270 KB at hd 512) do not
+# fit a block, and decode_attn_int8c_kernel brings them in sub-tiles (int32
+# sums, exact past hd 1024, as at 1152; at 520 rows copied element by
+# element)
+@pytest.mark.parametrize("hd", [160, 256, 512, 520, 1152])
 @pytest.mark.parametrize("cache", ["f32", "bf16", "int8", "int8_compute", "fp8"])
 def test_decode_attn_wide_head_dims(gen, hd, cache):
     q, k, v, ks, vs, lengths = _decode_inputs(gen, cache, torch.bfloat16, 8, hd, B=4, S=600)
     qv, qs = _prep_q(q, cache, torch.bfloat16)
-    if cache == "int8_compute" and hd == 512:
-        with pytest.raises(ValueError, match="not a plan"):
-            da._decode_attn_cuda(qv, qs, k, v, lengths, ks, vs)
-        return
     if cache != "int8_compute":
         want = 16 if hd * k.element_size() >= 1024 else 32
         assert da.decode_attn_plan(4, 2, 600, hd, k.element_size(), False) == want

@@ -9,8 +9,8 @@ without the tail window and the current token's self-term; n = 0 and 1.
 Both sides walk the same tiles with a running maximum and round at the
 same places, so f32 outputs are held within 1e-5 and bf16 ones within
 2e-2 (one bf16 ulp of the output for |out| < 2). Head dims above 128 (200,
-which JAX pads to 256, and Gemma-2B's 256) over f32 and int8 caches; K8's
-split planner at head dims up to 1024.
+which JAX pads to 256, and Gemma-2B's 256) over f32 and int8 caches, and
+512 under ``int8_compute``; K8's split planner at head dims up to 1024.
 """
 
 import jax.numpy as jnp
@@ -128,6 +128,23 @@ def test_decode_attention_wide_head_dims_match_jax_pallas(hd, cache, extras):
                     **{k: jnp.asarray(v) for k, v in kw.items()})
     got = tda.decode_attention_n(_t(q), _t(kc), _t(vc), _t(lengths), softmax_n_param=1.0,
                                  **{k: _t(v) for k, v in kw.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+# int8 compute at hd 512, where the 256-position tile's k and v rows no
+# longer fit a block and K8 brings them in sub-tiles: the same function
+# (p requantized per row over each 256-position tile, integer products)
+@pytest.mark.parametrize("extras", [False, True])
+def test_decode_attention_int8_compute_wide_head_dim_matches_jax_pallas(extras):
+    hd = 512
+    rng = np.random.RandomState(hd + 7)
+    q, kc, vc, lengths, kw = _inputs(rng, "int8_compute", 4, extras, hd=hd)
+    q = q * hd ** -0.25  # keep the scores' spread that of hd 32
+    want = j_decode(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                    jnp.asarray(lengths), softmax_n_param=1.0, int8_compute=True,
+                    implementation="pallas", **{k: jnp.asarray(v) for k, v in kw.items()})
+    got = tda.decode_attention_n(_t(q), _t(kc), _t(vc), _t(lengths), softmax_n_param=1.0,
+                                 int8_compute=True, **{k: _t(v) for k, v in kw.items()})
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
