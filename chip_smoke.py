@@ -60,22 +60,26 @@ Phases, in order, each printing one JSON line:
    the wrappers to 32, 128 and 128), 256 (the TMA + wgmma kernels
    ``flash_fwd_d256_kernel``, ``flash_bwd_dq_d256_kernel`` and
    ``flash_bwd_dkv_d256_kernel`` in bf16, the scalar kernels in f32), 300
-   (padded to 384), 384 and 512 (bf16 K5 and K6 on their wide TMA + wgmma
-   kernels ``flash_bwd_dq_wide_wgmma_kernel`` and
+   (padded to 384), 384 and 512 (bf16 K1, K5 and K6 on their wide TMA +
+   wgmma kernels ``flash_fwd_wide_wgmma_kernel``,
+   ``flash_bwd_dq_wide_wgmma_kernel`` and
    ``flash_bwd_dkv_wide_wgmma_kernel``; the wide scalar kernels otherwise),
    against their plain versions at B2 H4 L200 S264 under a (1, 4) bias,
    ALiBi and dropout, causal, f32 and bf16, n 0 and 1, as in 4; then K1 at
    each head dim at B32 H16 L=S=512 causal bf16, timed beside its bound,
    plain version and SDPA, with the bytes the padding adds, o held against
-   a float64 evaluation too; K1, K5 and K6 at d256, 384 and 512 there as
-   phase 4 times its training lines (the backward pair against SDPA's
-   backward; at d256 it must have launched K5's and K6's D 256 kernels, at
-   384 and 512 their wide ones); K8 at B8 KVH1 G8 S512 hd 256 over int8
-   and bf16 caches and hd 160 and 512 over int8, and at hd 512 under int8
-   compute (split and products printed); K10's four modes at B2 H8 L1024
-   hd 80, 256 and 320; and K1, K5 and K6 at train_d256's shape (B2 H8
-   L=S=2048 d256 bf16 causal, n 1, dropout 0.1) as phase 4 times its
-   training lines, K5 and K6 their D 256 kernels;
+   a float64 evaluation too (at 300, 384 and 512 it must have launched
+   K1's wide TMA + wgmma kernel); K1, K5 and K6 at d256, 384 and 512 there
+   as phase 4 times its training lines (the backward pair against SDPA's
+   backward; at d256 it must have launched K5's and K6's D 256 kernels,
+   at 384 and 512 the three their wide ones); K8 at B8 KVH1 G8 S512 hd
+   256 over int8 and bf16 caches and hd 160 and 512 over int8, and at hd
+   512 under int8 compute (split and products printed); K10's four modes
+   at B2 H8 L1024 hd 80, 256, 320 and 512 (at 256 it must have launched
+   ``prefill_phase_d256_kernel``, at 320 and 512
+   ``prefill_phase_wide_wgmma_kernel``); and K1, K5 and K6 at train_d256's
+   shape (B2 H8 L=S=2048 d256 bf16 causal, n 1, dropout 0.1) as phase 4
+   times its training lines, K5 and K6 their D 256 kernels;
 4b. head_dims_serve: a decoder at Gemma-2B's widths (d_model 2048, 8 heads
    over 1 KV head, head dim 256, d_ff 16384, vocab 256000; 2 of its 18
    layers), int8 weights quantized from N(0, 1/fan_in) draws, int8 KV,
@@ -142,7 +146,8 @@ Phases, in order, each printing one JSON line:
    (``python -m flash_attention_softmax_n_tpu_torch.utils.profile_prefill_phases``)
    at B2 H32 L2048 hd64: K10's four modes and K1 without and with the
    causal mask, each timed, its lines printed; then its command line at
-   ``--shape 2,32,2048,80`` and ``--shape 2,8,1024,256``;
+   ``--shape 2,32,2048,80``, ``--shape 2,8,1024,256`` and
+   ``--shape 2,8,1024,512``;
 7. train_agreement: the TinyLlama-1.1B width at 2 layers in f32: every
    parameter gradient of ``causal_lm_loss`` through the fused route (K1,
    K5, K6) against the same through plain tensor ops (``"xla"``), relative
@@ -272,13 +277,13 @@ K8_LINES = ()
 ROOT = Path(__file__).resolve().parent
 TPU_PKG = "flash_attention_softmax_n_tpu"
 CSRC = "flash_attention_softmax_n_tpu_torch/csrc"
-# K1's, K5's, K6's and K10's kernels as torch.profiler names them: bf16
-# inputs take the TMA + wgmma kernel (K1, K5 and K6 at D 256 their own
-# D 256 ones; K5 and K6 above 256 their wide ones), f32 (and K10's bf16 at
-# D 256) the scalar one, f32 (and K1's and K10's bf16) above 256 the wide
-# scalar one
+# K1's, K5's, K6's and K10's kernels as torch.profiler names them (no name
+# a substring of another): bf16 inputs take the TMA + wgmma kernel (at D
+# 256 their own D 256 ones; above 256 their wide ones, K1's and K10's at D
+# 384 and 512), f32 the scalar one, f32 (and K1's and K10's bf16 above 512)
+# above 256 the wide scalar one
 FLASH_FWD_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_d256_kernel", "flash_fwd_kernel",
-                     "flash_fwd_wide_kernel")
+                     "flash_fwd_wide_kernel", "flash_fwd_wide_wgmma_kernel")
 FLASH_DQ_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_d256_kernel",
                     "flash_bwd_dq_kernel", "flash_bwd_dq_wide_kernel",
                     "flash_bwd_dq_wide_wgmma_kernel")
@@ -289,7 +294,12 @@ FLASH_DKV_KERNELS = ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_d256_kernel",
 D256_BWD_KERNELS = ("flash_bwd_dq_d256_kernel", "flash_bwd_dkv_d256_kernel")
 WIDE_BWD_KERNELS = ("flash_bwd_dq_wide_wgmma_kernel", "flash_bwd_dkv_wide_wgmma_kernel")
 MINI_KERNELS = ("prefill_phase_wgmma_kernel", "prefill_phase_kernel",
-                "prefill_phase_wide_kernel")
+                "prefill_phase_wide_kernel", "prefill_phase_d256_kernel",
+                "prefill_phase_wide_wgmma_kernel")
+# bf16 K1 at D 384 and 512, bf16 K10 at D 256 and at 384 and 512
+WIDE_FWD_KERNEL = "flash_fwd_wide_wgmma_kernel"
+MINI_D256_KERNEL = "prefill_phase_d256_kernel"
+MINI_WIDE_KERNEL = "prefill_phase_wide_wgmma_kernel"
 # K3's and K4's one kernel
 ROW_WRITE_KERNELS = ("append_rows_kernel",)
 # f32 outside the tensor cores, H100 SXM (NVIDIA's data sheet, 700 W)
@@ -345,23 +355,24 @@ def time_ms(torch, fn, runs: int = TIMED_RUNS) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
-def device_ms(torch, fn, kernel, runs: int = TIMED_RUNS):
+def device_ms(torch, fn, kernel, runs: int = TIMED_RUNS, launched=None):
     """Mean device time per call of the kernels whose name holds ``kernel``
     (a substring, a tuple of them, or None for every kernel, as for a
     library call) over ``runs`` calls under ``torch.profiler``: the kernels
     alone, without the host dispatch that CUDA events also count. None if
-    the profiler saw no such kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    return device_ms_of(torch, [(fn, kernel)], runs)[0]
+    the profiler saw no such kernel. ``launched``: as for ``device_ms_of``."""
+    return device_ms_of(torch, [(fn, kernel)], runs, launched)[0]
 
 
-def device_ms_of(torch, pairs, runs: int = TIMED_RUNS):
+def device_ms_of(torch, pairs, runs: int = TIMED_RUNS, launched=None):
     """``device_ms`` of several (fn, kernel) pairs in one profiler session
     (each session costs seconds of host time): each fn runs ``runs`` times
     in turn, and its device time is read from the events under its own
-    ``record_function`` range."""
+    ``record_function`` range. A list ``launched`` gets, for each pair, the
+    names of ``kernel`` that its fn launched, as the same profile saw them:
+    a profile of one call taken on its own at times showed none of the
+    call's kernels in the smoke's process, twice at the head_dims lines,
+    where the timing profiles around it recorded theirs (PERF.md section 7)."""
     from torch.autograd import DeviceType
     from torch.autograd.profiler import record_function
     from torch.profiler import ProfilerActivity, profile
@@ -382,27 +393,21 @@ def device_ms_of(torch, pairs, runs: int = TIMED_RUNS):
     for i, (_, kernel) in enumerate(pairs):
         names = (kernel,) if isinstance(kernel, str) else kernel
         span = ranges[f"device_ms_{i}"]
-        total_us = sum(e.time_range.elapsed_us() for e in events
-                       if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-                       and span.start <= e.time_range.start <= span.end
-                       and (names is None or any(k in e.name for k in names)))
+        mine = [e for e in events
+                if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                and span.start <= e.time_range.start <= span.end]
+        total_us = sum(e.time_range.elapsed_us() for e in mine
+                       if names is None or any(k in e.name for k in names))
         out.append(total_us / 1e3 / runs if total_us else None)
+        if launched is not None:
+            launched.append([k for k in names or () if any(k in e.name for e in mine)])
     return out
 
 
-def kernel_names(torch, fn, known):
-    """Which of the kernel names ``known`` one call of ``fn`` launched, as
-    torch.profiler saw them"""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return [k for k in known if any(k in n for n in names)]
+def k1_source(fa, D):
+    """the source of K1's bf16 kernel at head dim D"""
+    wide = fa.kernel_head_dim(D) in (384, 512)
+    return f"{CSRC}/flash_fwd_wide.cu" if wide else f"{CSRC}/flash_fwd.cu"
 
 
 # ----------------------------------------------------------------------------
@@ -410,14 +415,16 @@ def kernel_names(torch, fn, known):
 # ----------------------------------------------------------------------------
 
 
-def check_flash(torch, pkg, gen, *, B, H, L, S, D, masked, true_lens=None, float64=False):
+def check_flash(torch, pkg, gen, *, B, H, L, S, D, masked, true_lens=None, float64=False,
+                kernels=()):
     """K1 against its plain version at (B, H, L, S, D) bf16, causal
     (``masked`` False) or under the engine's admission mask as a (B, 1, L,
     S) bias with the causal flag off: key j is visible iff j < true_len and
     j <= (S - L) + i, true lengths drawn from the range ``true_lens`` (lo,
     hi], by default (15, S]. S > L is a chunk at offset S - L. With
     ``float64`` (causal only) o is also held, K1 and its plain version
-    each, against ``fwd_float64`` (``o_excess`` <= 0)."""
+    each, against ``fwd_float64`` (``o_excess`` <= 0). The K1 kernels the
+    call launched must include ``kernels``."""
     fa = pkg["flash_attention"]
     ops_fa = pkg["ops_flash_attention"]
     dev = "cuda"
@@ -486,12 +493,14 @@ def check_flash(torch, pkg, gen, *, B, H, L, S, D, masked, true_lens=None, float
     if bias is not None:
         bytes_moved += bias.numel() * 4
     b_ms, b_by = bound_ms(bytes_moved, 4.0 * pairs * D)
-    dev_ms = device_ms(torch, kernel, FLASH_FWD_KERNELS)
-    return {"name": name, "route": "cuda",
-            "source": "flash_attention_softmax_n_tpu_torch/csrc/flash_fwd.cu",
+    launched = []
+    dev_ms = device_ms(torch, kernel, FLASH_FWD_KERNELS, launched=launched)
+    launched = launched[0]
+    require(all(k in launched for k in kernels), f"{name}: launched {launched}, not {kernels}")
+    return {"name": name, "route": "cuda", "source": k1_source(fa, D),
             "replaces": f"{TPU_PKG}/kernels/flash_attention.py:345 _fwd_single_kernel, "
                         ":279 _fwd_kernel, :501 _fwd_pipeline_kernel",
-            "counter": "flash_fwd",
+            "counter": "flash_fwd", "launched": launched,
             "max_abs_err": err_o, "max_abs_err_lse": err_lse, "tolerance": tol_o,
             "o_excess_float64": excess64, "repeat_bit_equal": same,
             "ms": time_ms(torch, kernel), "device_ms": dev_ms,
@@ -880,9 +889,10 @@ def check_decode_attn(torch, pkg, line, int8_compute=False):
             "library": "scaled_dot_product_attention(enable_gqa=True), bf16 cache, length mask"}
 
 
-def check_mini(torch, pkg, gen, *, mode, B, H, L, D):
+def check_mini(torch, pkg, gen, *, mode, B, H, L, D, kernels=()):
     """K10 in one mode at the prefill-phase profile's shape: bf16 q, k, v
-    of 0.3·N(0, 1), as the profile draws them."""
+    of 0.3·N(0, 1), as the profile draws them. The K10 kernels the call
+    launched must include ``kernels``."""
     pp = pkg["prefill_phases"]
     q, k, v = ((0.3 * torch.randn((B, H, L, D), generator=gen, device="cuda"))
                .to(torch.bfloat16) for _ in range(3))
@@ -918,10 +928,14 @@ def check_mini(torch, pkg, gen, *, mode, B, H, L, D):
     # mask_softmax needs only the causal half of the score square
     pairs = B * H * (L * (L + 1) / 2 if mode == "mask_softmax" else L * L)
     b_ms, b_by = bound_ms(4 * B * H * L * D * 2, 4.0 * D * pairs)
-    dev_ms = device_ms(torch, kernel, MINI_KERNELS)
+    launched = []
+    dev_ms = device_ms(torch, kernel, MINI_KERNELS, launched=launched)
+    launched = launched[0]
+    require(all(k in launched for k in kernels), f"{name}: launched {launched}, not {kernels}")
     return {"name": name, "route": "cuda", "source": f"{CSRC}/prefill_phases.cu",
             "replaces": "scripts/profile_prefill_phases.py:45 _mini_kernel",
-            "counter": f"mini_{mode}", "max_abs_err": err, "max_excess_over_tol": excess,
+            "counter": f"mini_{mode}", "launched": launched, "max_abs_err": err,
+            "max_excess_over_tol": excess,
             "tolerance": "2^-7 (|o_plain| + row max |p| * head max |v|), mini_tolerance",
             "repeat_bit_equal": same,
             "ms": time_ms(torch, kernel), "device_ms": dev_ms,
@@ -1142,8 +1156,8 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
     runs them; the quant_study phase's is B32 H16 L512 without dropout):
     errors, and times (``runs`` calls each) against their bounds, plain
     versions and scaled_dot_product_attention with one zero key/value row
-    prepended. The backward pair's line names the K5 and K6 kernels it
-    launched, which must include ``kernels``."""
+    prepended. The K1 line and the backward pair's line name the K1 and the
+    K5 and K6 kernels they launched, which must include ``kernels``."""
     fa, ops = pkg["flash_attention"], pkg["build"].ops()
     n = 1.0
     (q, k, v, do, ex, o, lse), errs, name = check_attention(
@@ -1221,24 +1235,32 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
     library_bwd_ms = time_ms(torch, sdpa_bwd, runs)
     # one profiler session: K5 and K6 alone, the wrapper's every kernel
     # (delta's torch ops, K5, K6), SDPA's backward's every kernel
+    launched = []
     k5_dev, k6_dev, pair_dev, library_bwd_dev = device_ms_of(
         torch, [(wrapper_bwd, FLASH_DQ_KERNELS), (wrapper_bwd, FLASH_DKV_KERNELS),
-                (wrapper_bwd, None), (sdpa_bwd, None)], runs)
+                (wrapper_bwd, None), (sdpa_bwd, None)], runs, launched)
+    # which K5 and K6 kernels the pair launched
+    launched_bwd = launched[0] + launched[1]
     common = {"route": "cuda", "tolerance": "o: 2^-8 |o64| + (2^-8 + 2^-11) (p|v|)64 of a "
                                             "float64 evaluation, K1 and plain each; grads: "
                                             "2e-2 of max(1, |plain|) and "
                                             f"{BWD_NORM_TOL['bf16']} of max(1, ||plain||); repeat "
                                             "calls bit-equal", "path": path}
     b1, by1 = bound_ms(4 * bhld * 2 + bhl * 4, 4.0 * D * pairs)
-    k1_dev = device_ms(torch, k1, FLASH_FWD_KERNELS, runs)
+    launched = []
+    k1_dev = device_ms(torch, k1, FLASH_FWD_KERNELS, runs, launched)
+    launched_k1 = launched[0]
+    require(all(k in launched_k1 for k in kernels if k in FLASH_FWD_KERNELS),
+            f"flash_fwd B{B} H{H} L{L} d{D}: launched {launched_k1}, not {kernels}")
     b5, by5 = bound_ms(5 * bhld * 2 + 2 * bhl * 4, 6.0 * D * pairs)
     b6, by6 = bound_ms(6 * bhld * 2 + 2 * bhl * 4, 8.0 * D * pairs)
     shape = f"B{B} H{H} L{L} S{L} d{D} bf16 causal n1" + (f" dropout {rate}" if rate else "")
     lines = [
         {**common, "name": f"flash_fwd {shape}", "counter": "flash_fwd",
-         "source": f"{CSRC}/flash_fwd.cu",
+         "source": k1_source(fa, D),
          "replaces": f"{FLASH_PY}:345 _fwd_single_kernel, :279 _fwd_kernel, "
                      ":501 _fwd_pipeline_kernel (ALiBi and dropout)",
+         "launched": launched_k1,
          "max_abs_err": errs["o"], "max_abs_err_lse": errs["lse"], "ms": time_ms(torch, k1, runs),
          "ms_with_alibi": time_ms(torch, k1_alibi, runs),
          "device_ms": k1_dev, "tflops": tflops(4.0 * D * pairs, k1_dev),
@@ -1262,12 +1284,10 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
     # bound counts what dq, dk and dv need, 10·d a pair (S, dP, dV, dK, dQ
     # once each), not the 14·d the two kernels do: each recomputes S and dP
     b56, by56 = bound_ms(8 * bhld * 2 + bhl * 4, 10.0 * D * pairs)
-    # which K5 and K6 kernels the pair launched
-    launched = kernel_names(torch, wrapper_bwd, (*FLASH_DQ_KERNELS, *FLASH_DKV_KERNELS))
-    require(all(k in launched for k in kernels),
-            f"flash_bwd {shape}: launched {launched}, not {kernels}")
+    require(all(k in launched_bwd for k in kernels if k not in FLASH_FWD_KERNELS),
+            f"flash_bwd {shape}: launched {launched_bwd}, not {kernels}")
     emit({"phase": "kernel_pair", "name": f"flash_bwd (delta + K5 + K6) {shape}",
-          "kernels": launched,
+          "kernels": launched_bwd,
           "ms": time_ms(torch, wrapper_bwd, runs), "device_ms": pair_dev,
           "tflops": tflops(10.0 * D * pairs, pair_dev), "bound_ms": b56, "bound_by": by56,
           "library_ms": library_bwd_ms, "library_device_ms": library_bwd_dev,
@@ -1306,7 +1326,7 @@ def train_kernels(torch, pkg, gen):
 # the head dims that head_dims holds: the JAX fine-tune example's 16, two
 # public decoders' 80 and 96, 256 (Gemma-2B's: K1's 64-row wgmma kernel in
 # bf16, the scalar kernels otherwise), and 300, 384 and 512 above it (300
-# padded to 384; bf16 K5 and K6 on their wide TMA + wgmma kernels, the
+# padded to 384; bf16 K1, K5 and K6 on their wide TMA + wgmma kernels, the
 # wide scalar kernels otherwise)
 HEAD_DIMS = (16, 80, 96, 256, 300, 384, 512)
 # K8 at head dims above 128 (bench_decode_attn.LINES' format): B8 KVH1 G8
@@ -1315,8 +1335,11 @@ HEAD_DIMS = (16, 80, 96, 256, 300, 384, 512)
 K8_WIDE_LINES = ((8, 1, 8, 512, 256, "int8", 901), (8, 1, 8, 512, 256, "bf16", 902),
                  (8, 1, 8, 512, 160, "int8", 903), (8, 1, 8, 512, 512, "int8", 904))
 # K10's four modes at B2 H8 L1024 at head dims 80 (padded to 128), 256 (its
-# scalar kernel) and 320 (padded to 384, its wide kernel)
-K10_HEAD_DIMS = (80, 256, 320)
+# D 256 kernel), 320 (padded to 384) and 512 (its wide TMA + wgmma kernel),
+# and the K10 kernel each must launch in bf16
+K10_HEAD_DIMS = (80, 256, 320, 512)
+K10_HEAD_DIM_KERNELS = {256: (MINI_D256_KERNEL,), 320: (MINI_WIDE_KERNEL,),
+                        512: (MINI_WIDE_KERNEL,)}
 
 
 def head_dims(torch, pkg, gen):
@@ -1352,8 +1375,11 @@ def head_dims(torch, pkg, gen):
     lines = []
     B, H, L = 32, 16, 512
     for d in HEAD_DIMS:
-        kd = check_flash(torch, pkg, gen, B=B, H=H, L=L, S=L, D=d, masked=False, float64=True)
         dp = fa.kernel_head_dim(d)
+        # bf16 K1 at D 384 and 512 (and d300, run at 384): its wide TMA +
+        # wgmma kernel
+        kd = check_flash(torch, pkg, gen, B=B, H=H, L=L, S=L, D=d, masked=False, float64=True,
+                         kernels=(WIDE_FWD_KERNEL,) if dp in (384, 512) else ())
         # K1 reads q, k, v and writes o at dp columns; the pads read q, k
         # and v at d and write them at dp, and o's first d columns are
         # copied out
@@ -1368,12 +1394,13 @@ def head_dims(torch, pkg, gen):
         lines.append(kd)
     # K1, K5 and K6 as the training lines time them: at d256 (their bf16
     # TMA + wgmma kernels, which K5 and K6 must have launched) and at 384
-    # (where 300 runs) and 512 (K5 and K6 on their wide TMA + wgmma kernels,
-    # which they must have launched; K1 on its wide scalar one)
+    # (where 300 runs) and 512 (all three on their wide TMA + wgmma
+    # kernels, which they must have launched)
     for d in (256, 384, 512):
         lines += train_kernel_lines(torch, pkg, gen, B=B, H=H, L=L, D=d, rate=0.0,
                                     path="head_dims",
-                                    kernels=D256_BWD_KERNELS if d == 256 else WIDE_BWD_KERNELS)
+                                    kernels=D256_BWD_KERNELS if d == 256
+                                    else (*WIDE_BWD_KERNELS, WIDE_FWD_KERNEL))
     da = pkg["decode_attention"]
     # K8 at K8_WIDE_LINES, then under int8 compute at their hd 512 line (its
     # sub-tiled kernel: the 256-position tile's k and v rows do not fit a
@@ -1390,7 +1417,8 @@ def head_dims(torch, pkg, gen):
             "K8's plan at hd 512 over a bf16 cache is not its 16-position split")
     for d in K10_HEAD_DIMS:
         for mode in pkg["prefill_phases"].MODES:
-            kd = check_mini(torch, pkg, gen, mode=mode, B=2, H=8, L=1024, D=d)
+            kd = check_mini(torch, pkg, gen, mode=mode, B=2, H=8, L=1024, D=d,
+                            kernels=K10_HEAD_DIM_KERNELS.get(d, ()))
             kd["path"] = "prefill_phases"
             emit({"phase": "head_dims_kernel", "padded_to": fa.kernel_head_dim(d),
                   **{k: kd[k] for k in ("name", "max_abs_err", "ms", "device_ms", "tflops",
@@ -2244,8 +2272,9 @@ def serve(torch, pkg):
 
 
 # the profile's command line at head dims K10 and K1 are not built for:
-# hd 80 (padded to 128) and 256 (K10's scalar kernel, K1's 64-row one)
-PREFILL_PHASE_WIDE_SHAPES = ("2,32,2048,80", "2,8,1024,256")
+# hd 80 (padded to 128), 256 (their D 256 kernels) and 512 (their wide TMA
+# + wgmma kernels)
+PREFILL_PHASE_WIDE_SHAPES = ("2,32,2048,80", "2,8,1024,256", "2,8,1024,512")
 
 
 def prefill_phases(torch, pkg):

@@ -31,11 +31,12 @@
 // reductions are two shuffles.
 //
 // Tiles, rings, loads and products take the rows of a tile as a template
-// parameter, ROWS, by default TQ = TK = 128: K1's and K6's kernels at D 256
-// (flash_fwd.cu, flash_bwd_dkv.cu) keep every tile at 64 rows (a
-// warpgroup's queries, a key tile), where a 128-row tile of D 256 would be
-// 64 KB; K5's (flash_bwd_dq.cu) keeps 128-row Q and dO (RES_ROWS) beside
-// 32-row K and V ring tiles.
+// parameter, ROWS, by default TQ = TK = 128: K1's, K6's and K10's kernels
+// at D 256 (flash_fwd.cu, flash_bwd_dkv.cu, prefill_phases.cu) keep every
+// tile at 64 rows (a warpgroup's queries, a key tile), where a 128-row
+// tile of D 256 would be 64 KB; K5's (flash_bwd_dq.cu) keeps 128-row Q and
+// dO (RES_ROWS) beside 32-row K and V ring tiles; K1's and K10's wide
+// kernels (WideRing) keep 64-row Q beside 32-key K and V ring tiles.
 
 #pragma once
 
@@ -223,6 +224,58 @@ __device__ __forceinline__ void chunk_dots(float (&s)[M], uint32_t a, uint32_t b
   for (int st = 0; st < 4; ++st)
     wgmma_ss(s, desc_of(a + st * 32, 16, T::GROUP, T::LAYOUT),
              desc_of(b + st * 32, 16, T::GROUP, T::LAYOUT), !(zero && st == 0));
+}
+
+// K1's and K10's wide bf16 forward kernels (D 384 and 512) form S once per
+// key tile over all of D: a CTA takes 64 query rows, and its two consumer
+// warpgroups each own half of D (HALF columns of Q, K, V and o). The ring:
+// Q resident as Tile<D, 64>, then KT-key K and V tiles in the two-stage
+// ring, the barriers, and after them the exchange buffers through which the
+// two warpgroups add their halves of S: one 64 x KT f32 buffer a warpgroup
+// for each parity of the exchange, so that a warpgroup writes the next
+// exchange's buffer only after the barrier behind which the other read it.
+template <int D>
+struct WideRing {
+  static constexpr int KT = 32;       // keys of a ring tile
+  static constexpr int HALF = D / 2;  // columns a warpgroup owns
+  static constexpr int THREADS = CONSUMERS + 128;  // + the producer warpgroup
+  using R = Ring<D, 1, KT, 64>;
+  static constexpr int X_AT = R::BAR_AT + 64;  // the barriers take 56 bytes
+  static constexpr int X_BYTES = 64 * KT * 4;  // one warpgroup's half of S
+  static constexpr int SMEM = X_AT + 4 * X_BYTES + 1024;
+  // a warpgroup's first box of Q, and of a ring tile
+  static constexpr int Q_HALF = (HALF / 64) * Tile<D, 64>::BOX;
+  static constexpr int KV_HALF = (HALF / 64) * Tile<D, KT>::BOX;
+};
+
+// s = Q K^T over all of D for the slot's KT keys at `k` (Q at `q`, scaled
+// already): the warpgroup's product over its HALF columns, then the other
+// warpgroup's, read from the exchange buffers at `x` (generic address) of
+// parity `par` behind named barrier 3, added to it. IEEE addition
+// commutes, so the two warpgroups hold the same bits, and so the same row
+// statistics and p.
+template <int D>
+__device__ __forceinline__ void wide_scores(float (&s)[WideRing<D>::KT / 2], uint32_t q,
+                                            uint32_t k, uint8_t* x, int wg, int par) {
+  using W = WideRing<D>;
+  qk_async<W::HALF, W::KT / 2, 64, W::KT>(s, q + wg * W::Q_HALF, k + wg * W::KV_HALF);
+  wgmma_wait<0>();
+  fence_regs(s);
+  const int t = threadIdx.x % 128;
+  float4* mine = reinterpret_cast<float4*>(x + (2 * par + wg) * W::X_BYTES);
+  const float4* other = reinterpret_cast<const float4*>(x + (2 * par + 1 - wg) * W::X_BYTES);
+#pragma unroll
+  for (int c = 0; c < W::KT / 8; ++c)
+    mine[c * 128 + t] = make_float4(s[4 * c], s[4 * c + 1], s[4 * c + 2], s[4 * c + 3]);
+  asm volatile("bar.sync 3, 256;" ::: "memory");
+#pragma unroll
+  for (int c = 0; c < W::KT / 8; ++c) {
+    const float4 o = other[c * 128 + t];
+    s[4 * c] += o.x;
+    s[4 * c + 1] += o.y;
+    s[4 * c + 2] += o.z;
+    s[4 * c + 3] += o.w;
+  }
 }
 
 // o (fragment of m64nN) as bf16 into columns [0, N) of rows that lie `ld`

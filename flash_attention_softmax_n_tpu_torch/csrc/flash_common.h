@@ -137,8 +137,7 @@ __device__ __forceinline__ Dropout dropout_of(const FasnAttn& a) {
 
 // Calls f(Type<T>{}, Int<D>{}) for the head dim (32, 64, 128, and 256 up
 // to MAX_D); cudaErrorInvalidValue for anything else. The scalar kernels
-// take T = float, and K10's also T = bf16 at D 256, where attn_tile.h's
-// 128-row tile does not fit.
+// take T = float.
 template <typename T>
 struct Type {
   using type = T;
@@ -167,8 +166,10 @@ cudaError_t dispatch_d(int D, F& f) {
 
 // ---------------------------------------------------------------------------
 // Head dims above 256 (multiples of WIDE_OC, as the wrappers pad them): the
-// wide scalar kernels of K1 and K10 (f32 and bf16) and of K5 and K6 (f32;
-// their bf16 kernels stream D through attn_tile.h's chunk_dots). A CTA takes
+// wide scalar kernels of K1 and K10 (f32, and bf16 above 512: their bf16
+// kernels at 384 and 512 take all of D a CTA, attn_tile.h's WideRing) and
+// of K5 and K6 (f32; their bf16 kernels stream D through attn_tile.h's
+// chunk_dots). A CTA takes
 // WIDE_OC columns of the outputs (column chunk blockIdx.z % (D / WIDE_OC))
 // and accumulates the scores it needs over the whole of D in WIDE_KC-column
 // chunks through shared memory, so its shared memory does not grow with D.

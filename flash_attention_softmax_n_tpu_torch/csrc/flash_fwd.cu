@@ -51,12 +51,17 @@
 // tolerance); the training path's f32 runs and the card tests take it.
 // Head dims 32, 64, 128 and 256 are built.
 //
-// Above 256 (the wrapper pads D to a multiple of 128 there, as JAX does),
-// f32 and bf16 take flash_fwd_wide_kernel: flash_fwd_kernel's tiles and
-// thread layout, one CTA for 128 columns of o, the scores accumulated over
-// D in 64-column chunks (flash_common.h wide_dots), so that its shared
-// memory (82,688 bytes) does not grow with D; the CTA of the first column
-// chunk writes lse.
+// Above 256 the wrapper pads D to a multiple of 128, as JAX does.
+//
+// bf16 at D 384 and 512: flash_fwd_wide_wgmma_kernel (flash_fwd_wide.cu,
+// a translation unit of its own), 64 query rows and all of D a CTA.
+//
+// f32 above 256, and bf16 above 512 (an O fragment of D / 2 columns would
+// not fit a warpgroup's registers), take flash_fwd_wide_kernel:
+// flash_fwd_kernel's tiles and thread layout, one CTA for 128 columns of o,
+// the scores accumulated over D in 64-column chunks (flash_common.h
+// wide_dots), so that its shared memory (82,688 bytes) does not grow with
+// D; the CTA of the first column chunk writes lse.
 //
 // Numerics follow the Pallas kernel: the scale is folded into q in q's
 // dtype (each consumer rewrites its Q rows in shared memory once), scores
@@ -613,6 +618,8 @@ extern "C" int fasn_flash_fwd(const FasnAttn* a, float n, void* o, float* lse,
                   static_cast<T*>(o), lse);
   };
   if (a->dtype != 0 && a->dtype != 1) return cudaErrorInvalidValue;
+  if (a->dtype == 1 && (a->D == 384 || a->D == 512))
+    return fasn_flash_fwd_wide(a, n, o, lse, stream);
   if (wide_d(a->D)) {
     const dim3 wide_grid((a->L + BQ - 1) / BQ, a->H, wide_z(a->B, a->D));
     if (wide_grid.z == 0) return cudaErrorInvalidValue;

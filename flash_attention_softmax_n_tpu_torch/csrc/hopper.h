@@ -128,6 +128,7 @@ __device__ __forceinline__ void wgmma_wait() {
 #define HOP_D16(c, i) HOP_D4(c, i), HOP_D4(c, i + 4), HOP_D4(c, i + 8), HOP_D4(c, i + 12)
 #define HOP_D32(c) HOP_D16(c, 0), HOP_D16(c, 16)
 #define HOP_D64(c) HOP_D32(c), HOP_D16(c, 32), HOP_D16(c, 48)
+#define HOP_D96(c) HOP_D64(c), HOP_D16(c, 64), HOP_D16(c, 80)
 #define HOP_D128(c) HOP_D64(c), HOP_D16(c, 64), HOP_D16(c, 80), HOP_D16(c, 96), HOP_D16(c, 112)
 #define HOP_REGS16 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
@@ -139,6 +140,13 @@ __device__ __forceinline__ void wgmma_wait() {
   "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "  \
   "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "  \
   "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define HOP_REGS96                                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "  \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "  \
+  "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "  \
+  "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "  \
+  "%92, %93, %94, %95}"
 #define HOP_REGS128                                                                                \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "   \
   "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "    \
@@ -152,8 +160,8 @@ __device__ __forceinline__ void wgmma_wait() {
 #define HOP_R(r) "+r"(r)
 
 // d += A (64 x 16, bf16, in registers) * B (16 x N, bf16, in shared memory;
-// K-major, or MN-major where TB is 1), N = 256, 128, 64 or 32 by the size
-// of d
+// K-major, or MN-major where TB is 1), N = 256, 192, 128, 64 or 32 by the
+// size of d
 template <int TB = 0>
 __device__ __forceinline__ void wgmma(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -164,6 +172,19 @@ __device__ __forceinline__ void wgmma(float (&d)[128], const uint32_t (&a)[4], u
       ", {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n"
       "}\n"
       : HOP_D128(HOP_F)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+}
+
+template <int TB = 0>
+__device__ __forceinline__ void wgmma(float (&d)[96], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " HOP_REGS96
+      ", {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n"
+      "}\n"
+      : HOP_D96(HOP_F)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
 }
 

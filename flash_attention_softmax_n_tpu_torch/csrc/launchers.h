@@ -37,6 +37,10 @@ struct FasnAttn {
 // q, k and v must start on 16 bytes, and L, S >= 1.
 int fasn_flash_fwd(const FasnAttn* a, float n, void* o, float* lse, cudaStream_t stream);
 
+// K1's bf16 kernel at D 384 and 512 (flash_fwd_wide.cu), which
+// fasn_flash_fwd calls for those inputs; the same arguments.
+int fasn_flash_fwd_wide(const FasnAttn* a, float n, void* o, float* lse, cudaStream_t stream);
+
 // K5 (flash_bwd_dq.cu): dq like q from dout like q, lse (B,H,L) f32 (the
 // forward's, or a caller's global one) and delta = rowsum(dout * o) (B,H,L)
 // f32; dq is multiplied by `scale` (unrounded). dbias null or (B,H,L,S) f32;

@@ -27,18 +27,31 @@
 // mask_softmax stops at the tile holding the diagonal: keys past it would
 // add exp(-1e30 - m) = 0.
 //
+// bf16 at D 256: prefill_phase_d256_kernel, on K1's flash_fwd_d256_kernel's
+// structure: every tile 64 rows (Q as the two warpgroups' tiles, K and V
+// tiles of 64 keys in a two-stage ring, 192 KB), a producer warpgroup at 40
+// registers and two consumers at 232 (setmaxnreg), the same two passes.
+//
+// bf16 at D 384 and 512: prefill_phase_wide_wgmma_kernel, on K1's
+// flash_fwd_wide_wgmma_kernel's structure (attn_tile.h WideRing): 64 query
+// rows and all of D a CTA, K and V tiles of 32 keys, the two consumer
+// warpgroups each owning half of D and adding their partial S through
+// shared memory (wide_scores), so S is formed once per key tile and both
+// hold the same bits, the same two passes.
+//
 // f32: prefill_phase_kernel, scalar f32 FMAs from shared memory, one CTA
 // per 64 query rows (flash_common.h's tile and thread layout, as K1's f32
-// kernel), the same two passes. It takes bf16 too at D 256, where
-// attn_tile.h's 128-row tile does not fit (213,760 bytes of shared memory).
-//
-// Above 256 (D a multiple of 128, as the wrapper pads it), f32 and bf16
-// take prefill_phase_wide_kernel: the same tiles and passes, one CTA for
-// 128 columns of o, the scores accumulated over D in 64-column chunks
+// kernel), the same two passes (wgmma has no f32 x f32 product, and TF32
+// would not hold f32's tolerance). Above 256 (D a multiple of 128, as the
+// wrapper pads it), f32, and bf16 above 512, take
+// prefill_phase_wide_kernel: the same tiles and passes, one CTA for 128
+// columns of o, the scores accumulated over D in 64-column chunks
 // (flash_common.h wide_dots), so that its shared memory does not grow with
 // D. The wrapper (kernels/prefill_phases.py) zero-pads any other head dim
 // to the next of 32, 64, 128, 256 or a multiple of 128, which changes
 // neither s nor p.
+
+#include <climits>
 
 #include "attn_tile.h"
 #include "flash_common.h"
@@ -456,18 +469,301 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, l
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t by_mode(int mode, const void* q, const void* k, const void* v, void* o,
-                    long long heads, int L, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bf16 at D 256 and above: the per-element steps of both passes on an
+// m64nN score fragment (M = N / 2 floats; attn_tile.h's layout), which the
+// D 256 and the wide kernels share
+// ---------------------------------------------------------------------------
+
+// keys past L score NEG_INF, keys past the query MASKED when causal; keys
+// from k0, the warpgroup's rows from row0
+template <bool CAUSAL, int M>
+__device__ __forceinline__ void mask_fragment(float (&s)[M], int row0, int k0, int L) {
+  const int t = threadIdx.x % 128, g = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (t % 4);
+#pragma unroll
+  for (int e = 0; e < M; ++e) {
+    const int qi = row0 + g + 8 * ((e / 2) % 2), kj = k0 + 8 * (e / 4) + c0 + e % 2;
+    if (kj >= L) s[e] = NEG_INF;
+    else if (CAUSAL && kj > qi) s[e] = MASKED;
+  }
+}
+
+// pass 1: each fragment row's max m and the quad's partial sum l of
+// exp(s - m)
+template <int M>
+__device__ __forceinline__ void row_stats(const float (&s)[M], float (&m)[2], float (&l)[2]) {
+  using attn::row_max;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = fmaxf(m[i], row_max(s, i));
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < M / 4; ++j)
+      sum += expf(s[4 * j + 2 * i] - m_new) + expf(s[4 * j + 2 * i + 1] - m_new);
+    l[i] = l[i] * expf(m[i] - m_new) + sum;
+    m[i] = m_new;
+  }
+}
+
+// pass 2: p of MODE in place, from the final (m, l) or from s alone; keys
+// from k0
+template <int MODE, int M>
+__device__ __forceinline__ void mode_p(float (&s)[M], const float (&m)[2], const float (&l)[2],
+                                       int k0, int L) {
+  const int c0 = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int e = 0; e < M; ++e) {
+    const int i = (e / 2) % 2, kj = k0 + 8 * (e / 4) + c0 + e % 2;
+    if (MODE == SOFTMAX || MODE == MASK_SOFTMAX) s[e] = expf(s[e] - m[i]) / l[i];
+    else if (kj >= L) s[e] = 0.f;
+    else if (MODE == EXP_ONLY) s[e] = attn::exp_fast(s[e]);  // K1's exp
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at D 256: 64-row tiles, a producer warpgroup, setmaxnreg (K1's
+// flash_fwd_d256_kernel's structure)
+// ---------------------------------------------------------------------------
+
+constexpr int D256_ROWS = 64;  // rows of every tile: a warpgroup's queries, a key tile
+constexpr int D256_THREADS = attn::CONSUMERS + 128;
+using D256Ring = attn::Ring<256, 2, D256_ROWS>;  // resident: the two warpgroups' Q tiles
+
+template <int MODE>
+__global__ void __launch_bounds__(D256_THREADS, 1)
+    prefill_phase_d256_kernel(const __grid_constant__ CUtensorMap qmap,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap,
+                              __nv_bfloat16* __restrict__ o, int L) {
+  using namespace attn;
+  constexpr int D = 256, KT = D256_ROWS;
+  constexpr bool CAUSAL = MODE == MASK_SOFTMAX;
+  constexpr bool NORMALISE = MODE == SOFTMAX || MODE == MASK_SOFTMAX;
+  extern __shared__ uint8_t smem_raw[];
+  const D256Ring r = make_ring<D, 2, KT>(smem_raw);
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TQ;
+  // keys at or below the tile's last row are all a causal row can see
+  const int kv_end = CAUSAL ? min(L, q0 + TQ) : L;
+  const int n_k = (kv_end + KT - 1) / KT;
+  const int k_only = NORMALISE ? n_k : 0;  // pass 1 needs no V
+  // the warpgroup's role, as a shuffled value: uniform across its warps,
+  // as setmaxnreg needs
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == CONSUMERS) {
+      const CUtensorMap* const res[2] = {&qmap, &qmap};
+      produce<D, 2, KT, false>(r, res, q0, &kmap, &vmap, bh, 0, k_only + n_k, k_only, KT);
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int t = threadIdx.x % 128;
+    const int row0 = q0 + 64 * wg;  // the warpgroup's first query row
+    const uint32_t q = r.res(wg);  // the warpgroup's own Q tile
+    mbar_wait<false>(r.q_full(), 0);
+    int stage = 0;
+    uint32_t phase = 0;
+
+    // the tile's scores, masked only on tiles that reach L or the diagonal
+    auto scores = [&](float (&s)[KT / 2], int k0) {
+      qk_async<D, KT / 2, KT>(s, q, r.k(stage));
+      wgmma_wait<0>();
+      fence_regs(s);
+      if (k0 + KT > L || (CAUSAL && k0 + KT - 1 > row0)) mask_fragment<CAUSAL>(s, row0, k0, L);
+    };
+    auto release = [&]() {
+      if (t == 0) mbar_arrive(r.empty(stage));
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
+    // whether a row of the warpgroup sees a key of the tile from k0 (the
+    // tile is skipped otherwise)
+    auto active = [&](int k0) { return row0 < L && (!CAUSAL || k0 <= row0 + 63); };
+
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    for (int it = 0; it < k_only; ++it) {
+      mbar_wait<false>(r.full_k(stage), phase);
+      if (active(it * KT)) {
+        float s[KT / 2];
+        scores(s, it * KT);
+        row_stats(s, m, l);
+      }
+      release();
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = quad_sum(l[i]);
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int it = 0; it < n_k; ++it) {
+      const int k0 = it * KT;
+      mbar_wait<false>(r.full_k(stage), phase);
+      if (active(k0)) {
+        float s[KT / 2];
+        scores(s, k0);
+        mode_p<MODE>(s, m, l, k0, L);
+        uint32_t p[KT / 16][4];
+        to_a_frags(s, p);
+        mbar_wait<false>(r.full_v(stage), phase);
+        pv_async<D, KT / 16, KT>(acc, p, r.v(stage));
+        wgmma_wait<0>();
+        fence_regs(acc);
+      } else {
+        mbar_wait<false>(r.full_v(stage), phase);  // the slot is refilled only once V has landed
+      }
+      release();
+    }
+
+    if (L - row0 > 0)
+      store_rows<D>(acc, o + ((long long)bh * L + row0) * D, L - row0,
+                    [](int, float x) { return x; });
+  }
+}
+
+template <int MODE>
+cudaError_t launch_d256(const void* q, const void* k, const void* v, void* o, long long heads,
+                        int L, cudaStream_t stream) {
+  using namespace attn;
+  auto kernel = prefill_phase_d256_kernel<MODE>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, D256Ring::SMEM);
+  if (err != cudaSuccess) return err;
+  CUtensorMap qm{}, km{}, vm{};
+  if (!encode_rows(&qm, q, heads, L, 256, D256_ROWS) ||
+      !encode_rows(&km, k, heads, L, 256, D256_ROWS) ||
+      !encode_rows(&vm, v, heads, L, 256, D256_ROWS))
+    return cudaErrorInvalidValue;
+  kernel<<<tile_grid(heads, L), D256_THREADS, D256Ring::SMEM, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), L);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at D 384 and 512: 64 query rows and all of D a CTA, S formed once per
+// key tile (K1's flash_fwd_wide_wgmma_kernel's structure, attn_tile.h
+// WideRing and wide_scores)
+// ---------------------------------------------------------------------------
+
+template <int D, int MODE>
+__global__ void __launch_bounds__(attn::WideRing<D>::THREADS, 1)
+    prefill_phase_wide_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                                    const __grid_constant__ CUtensorMap kmap,
+                                    const __grid_constant__ CUtensorMap vmap,
+                                    __nv_bfloat16* __restrict__ o, int L) {
+  using namespace attn;
+  using W = WideRing<D>;
+  constexpr int KT = W::KT, HALF = W::HALF;
+  constexpr bool CAUSAL = MODE == MASK_SOFTMAX;
+  constexpr bool NORMALISE = MODE == SOFTMAX || MODE == MASK_SOFTMAX;
+  extern __shared__ uint8_t smem_raw[];
+  const typename W::R r = make_ring<D, 1, KT, 64>(smem_raw);
+  // a flat grid, a head's query tiles side by side (K1's wide kernel's)
+  const int n_q = (L + 63) / 64;
+  const int bh = blockIdx.x / n_q;
+  const int q0 = (n_q - 1 - blockIdx.x % n_q) * 64;
+  // keys at or below the tile's last row are all a causal row can see
+  const int kv_end = CAUSAL ? min(L, q0 + 64) : L;
+  const int n_k = (kv_end + KT - 1) / KT;
+  const int k_only = NORMALISE ? n_k : 0;  // pass 1 needs no V
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == CONSUMERS) {
+      const CUtensorMap* const res[1] = {&qmap};
+      produce<D, 1, KT, false, 64>(r, res, q0, &kmap, &vmap, bh, 0, k_only + n_k, k_only);
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int t = threadIdx.x % 128;
+    mbar_wait<false>(r.q_full(), 0);
+    int stage = 0, use = 0;  // use: the exchanges so far, whose parity picks the buffers
+    uint32_t phase = 0;
+
+    // the tile's scores over all of D, masked only on tiles that reach L or
+    // the diagonal
+    auto scores = [&](float (&s)[KT / 2], int k0) {
+      wide_scores<D>(s, r.q(), r.k(stage), r.mem + W::X_AT, wg, use++ & 1);
+      if (k0 + KT > L || (CAUSAL && k0 + KT - 1 > q0)) mask_fragment<CAUSAL>(s, q0, k0, L);
+    };
+    auto release = [&]() {
+      if (t == 0) mbar_arrive(r.empty(stage));
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
+
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    for (int it = 0; it < k_only; ++it) {
+      mbar_wait<false>(r.full_k(stage), phase);
+      float s[KT / 2];
+      scores(s, it * KT);
+      row_stats(s, m, l);
+      release();
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = quad_sum(l[i]);
+
+    // pass 2, PV over the warpgroup's half of V
+    float acc[HALF / 2];
+#pragma unroll
+    for (int i = 0; i < HALF / 2; ++i) acc[i] = 0.f;
+    for (int it = 0; it < n_k; ++it) {
+      const int k0 = it * KT;
+      mbar_wait<false>(r.full_k(stage), phase);
+      float s[KT / 2];
+      scores(s, k0);
+      mode_p<MODE>(s, m, l, k0, L);
+      uint32_t p[KT / 16][4];
+      to_a_frags(s, p);
+      mbar_wait<false>(r.full_v(stage), phase);
+      pv_async<HALF, KT / 16, KT>(acc, p, r.v(stage) + wg * W::KV_HALF);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release();
+    }
+
+    store_cols<HALF>(acc, o + ((long long)bh * L + q0) * D + wg * HALF, D, min(64, L - q0),
+                     [](float x) { return x; });
+  }
+}
+
+template <int D, int MODE>
+cudaError_t launch_wide_wgmma(const void* q, const void* k, const void* v, void* o,
+                              long long heads, int L, cudaStream_t stream) {
+  using W = attn::WideRing<D>;
+  auto kernel = prefill_phase_wide_wgmma_kernel<D, MODE>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W::SMEM);
+  if (err != cudaSuccess) return err;
+  CUtensorMap qm{}, km{}, vm{};
+  if (!attn::encode_rows(&qm, q, heads, L, D, 64) ||
+      !attn::encode_rows(&km, k, heads, L, D, W::KT) ||
+      !attn::encode_rows(&vm, v, heads, L, D, W::KT))
+    return cudaErrorInvalidValue;
+  const long long ctas = heads * ((L + 63) / 64);
+  if (ctas > INT_MAX) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(ctas), W::THREADS, W::SMEM, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), L);
+  return cudaGetLastError();
+}
+
+// f(Int<MODE>{}) for the mode's launch
+template <typename F>
+cudaError_t by_mode(int mode, F f) {
   switch (mode) {
     case DOTS_ONLY:
-      return launch_wgmma<D, DOTS_ONLY>(q, k, v, o, heads, L, stream);
+      return f(Int<DOTS_ONLY>{});
     case EXP_ONLY:
-      return launch_wgmma<D, EXP_ONLY>(q, k, v, o, heads, L, stream);
+      return f(Int<EXP_ONLY>{});
     case SOFTMAX:
-      return launch_wgmma<D, SOFTMAX>(q, k, v, o, heads, L, stream);
+      return f(Int<SOFTMAX>{});
     default:
-      return launch_wgmma<D, MASK_SOFTMAX>(q, k, v, o, heads, L, stream);
+      return f(Int<MASK_SOFTMAX>{});
   }
 }
 
@@ -479,6 +775,13 @@ extern "C" int fasn_prefill_phase(const void* q, const void* k, const void* v, v
   using namespace fasn;
   if (mode < DOTS_ONLY || mode > MASK_SOFTMAX || L < 1) return cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  const long long heads = (long long)B * H;
+  if (dtype == 1 && (D == 384 || D == 512))
+    return by_mode(mode, [&](auto md) {
+      constexpr int MODE = decltype(md)::value;
+      return D == 384 ? launch_wide_wgmma<384, MODE>(q, k, v, o, heads, L, stream)
+                      : launch_wide_wgmma<512, MODE>(q, k, v, o, heads, L, stream);
+    });
   if (wide_d(D)) {
     const dim3 grid((L + BQ - 1) / BQ, H, wide_z(B, D));
     if (grid.z == 0) return cudaErrorInvalidValue;
@@ -500,20 +803,21 @@ extern "C" int fasn_prefill_phase(const void* q, const void* k, const void* v, v
                   static_cast<T*>(o), H, L, mode);
   };
   if (dtype == 1) {
-    const long long heads = (long long)B * H;
-    switch (D) {
-      case 32:
-        return by_mode<32>(mode, q, k, v, o, heads, L, stream);
-      case 64:
-        return by_mode<64>(mode, q, k, v, o, heads, L, stream);
-      case 128:
-        return by_mode<128>(mode, q, k, v, o, heads, L, stream);
-      case 256:
-        // attn_tile.h's 128-row tile does not fit at D 256: the scalar kernel takes bf16
-        return scalar(Type<__nv_bfloat16>{}, Int<256>{});
-      default:
-        return cudaErrorInvalidValue;
-    }
+    return by_mode(mode, [&](auto md) {
+      constexpr int MODE = decltype(md)::value;
+      switch (D) {
+        case 32:
+          return launch_wgmma<32, MODE>(q, k, v, o, heads, L, stream);
+        case 64:
+          return launch_wgmma<64, MODE>(q, k, v, o, heads, L, stream);
+        case 128:
+          return launch_wgmma<128, MODE>(q, k, v, o, heads, L, stream);
+        case 256:
+          return launch_d256<MODE>(q, k, v, o, heads, L, stream);
+        default:
+          return cudaErrorInvalidValue;
+      }
+    });
   }
   return dispatch_d<float, 256>(D, scalar);
 }

@@ -44,7 +44,7 @@ __all__ = ["LAUNCHES", "BUILD_SECONDS", "reset_launches", "build", "ops"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu",
+KERNELS = ("flash_fwd.cu", "flash_fwd_wide.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu",
            "qmm_argmax.cu", "cache_update.cu", "qmm.cu", "fused_mlp.cu",
            "decode_attn.cu", "prefill_phases.cu")
 BINDINGS = "bindings.cpp"

@@ -226,7 +226,10 @@ def flash_bwd_reference(q, k, v, bias, slopes, seed, o, lse, do, *,
 
 # the head dims the kernels are built for up to 256 (bf16 K1, K5 and K6 at
 # 256 on their own TMA + wgmma kernels, f32 on the scalar ones); above,
-# every multiple of WIDE_HEAD_DIM (the wide scalar kernels, f32 and bf16)
+# every multiple of WIDE_HEAD_DIM: bf16 K5 and K6 on their wide TMA + wgmma
+# kernels at every such D, bf16 K1 on its wide TMA + wgmma kernel at 384
+# and 512 (and on the wide scalar kernel above 512), f32 on the wide scalar
+# kernels
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 WIDE_HEAD_DIM = 128
 

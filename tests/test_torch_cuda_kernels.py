@@ -637,10 +637,11 @@ def _attn_inputs(gen, dtype, B, H, L, S, d, *, bias_shape=None, alibi=False,
     return q, k, v, do, extras
 
 
-# K5's and K6's bf16 kernels at D 256 and above it, as torch.profiler
-# names them
+# K5's and K6's bf16 kernels at D 256 and above it, K1's at D 384 and 512,
+# as torch.profiler names them
 _D256_BWD_KERNELS = ("flash_bwd_dq_d256_kernel", "flash_bwd_dkv_d256_kernel")
 _WIDE_BWD_KERNELS = ("flash_bwd_dq_wide_wgmma_kernel", "flash_bwd_dkv_wide_wgmma_kernel")
+_WIDE_FWD_KERNEL = "flash_fwd_wide_wgmma_kernel"
 
 
 def _launched(fn, tries=3):
@@ -665,6 +666,16 @@ def _assert_bwd_kernels(names, d):
     """bf16 K5 and K6 at D 256 and above ran their own TMA + wgmma kernels"""
     for kernel in _D256_BWD_KERNELS if d == 256 else _WIDE_BWD_KERNELS:
         assert any(kernel in n for n in names), (kernel, sorted(set(names)))
+
+
+def _fwd_launched(fn, d):
+    """fn()'s result; bf16 K1 at D 384 and 512 must have run its wide TMA +
+    wgmma kernel"""
+    if d not in (384, 512):
+        return fn()
+    out, names, _ = _launched(fn)
+    assert any(_WIDE_FWD_KERNEL in n for n in names), sorted(set(names))
+    return out
 
 
 def _assert_close(got, want, tol):
@@ -811,6 +822,20 @@ def _check_bf16_fwd(got, want):
     assert float((lse - lse_ref).abs().max()) <= 1e-3
 
 
+def _check_bf16_fwd_dropped(got, want, q, k, v, bias, kw):
+    """bf16 o against the plain version under bias, ALiBi and dropout, with
+    chip_smoke.o_excess's allowance on each side: a bf16 o is half an ulp
+    (2^-8 |o|) off, and each dropped p rounds to bf16 against its own
+    running maximum (2^-8 of p, so 2^-8 sum p|v| / l of o), plus 2^-11 of
+    that for the f32 arithmetic; sum p|v| / l is the plain version over |v|
+    in f32. lse within 1e-3."""
+    o_abs = fa.flash_fwd_reference(q.float(), k.float(), v.float().abs(), bias, **kw)[0]
+    diff = (got[0].float() - want[0].float()).abs()
+    tol = 2.0 ** -7 * want[0].float().abs() + (2.0 ** -7 + 2.0 ** -10) * o_abs
+    assert float((diff - tol).max()) <= 0.0, float((diff - tol).max())
+    assert float((got[1] - want[1]).abs().max()) <= 1e-3
+
+
 @pytest.mark.parametrize("d", [32, 64, 128, 256, 384, 512, 640])
 @pytest.mark.parametrize("n", [0.0, 1.0])
 @pytest.mark.parametrize("shape", _WGMMA_SHAPES, ids=lambda s: "L{}-S{}-{}".format(*s))
@@ -819,7 +844,7 @@ def test_flash_fwd_wgmma_matches_plain(gen, d, n, shape):
     q, k, v = (torch.randn((1, 2, m, d), generator=gen, device="cuda").to(torch.bfloat16)
                for m in (L, S, S))
     kw = dict(n=n, scale=d ** -0.5, is_causal=causal)
-    got = fa.flash_fwd(q, k, v, None, **kw)
+    got = _fwd_launched(lambda: fa.flash_fwd(q, k, v, None, **kw), d)
     _check_bf16_fwd(got, fa.flash_fwd_reference(q, k, v, None, **kw))
     again = fa.flash_fwd(q, k, v, None, **kw)
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
@@ -829,7 +854,7 @@ def test_flash_fwd_wgmma_matches_plain(gen, d, n, shape):
         assert bool((got[1][:, :, dead] == fa.NEG_INF).all())
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 384, 512])
 @pytest.mark.parametrize("extra", ["bias11", "bias21", "bias13", "bias23", "alibi", "dropout",
                                    "all"])
 def test_flash_fwd_wgmma_extras_match_plain(gen, d, extra):
@@ -840,8 +865,17 @@ def test_flash_fwd_wgmma_extras_match_plain(gen, d, extra):
                                   rate=0.25 if extra in ("dropout", "all") else 0.0)
     kw = dict(n=1.0, scale=d ** -0.5, is_causal=True, slopes=ex["slopes"], seed=ex["seed"],
               dropout_rate=ex["dropout_rate"])
-    got = fa.flash_fwd(q, k, v, ex["bias"], **kw)
-    _check_bf16_fwd(got, fa.flash_fwd_reference(q, k, v, ex["bias"], **kw))
+    got = _fwd_launched(lambda: fa.flash_fwd(q, k, v, ex["bias"], **kw), d)
+    want = fa.flash_fwd_reference(q, k, v, ex["bias"], **kw)
+    if d <= 128:
+        _check_bf16_fwd(got, want)
+    else:
+        # at D 384 and 512 o has 3-4x the columns, and 2e-3 is no bound on
+        # the rounding of dropped p (the "all" case read up to 3.3e-3 on
+        # the D 64-256 kernels over eight seeds, both sides within the
+        # float64 evaluation's allowance): the allowance that
+        # test_flash_kernels_take_every_head_dim holds these D to
+        _check_bf16_fwd_dropped(got, want, q, k, v, ex["bias"], kw)
     assert torch.equal(got[0], fa.flash_fwd(q, k, v, ex["bias"], **kw)[0])
 
 
@@ -859,17 +893,24 @@ def test_flash_fwd_bf16_dropout_mask_bit_equal_to_the_hash(gen):
     assert torch.equal(o != 0, keep)
 
 
-def test_flash_fwd_wgmma_rejects_misaligned_inputs(gen):
-    # contiguous bf16 views starting 4 bytes past an allocation: TMA needs 16
-    base = torch.randn(2 * 128 * 64 + 2, device="cuda").to(torch.bfloat16)
-    q = base[2:].view(1, 2, 128, 64)
-    k = torch.randn((1, 2, 128, 64), device="cuda").to(torch.bfloat16)
+@pytest.mark.parametrize("d", [64, 384, 512])
+def test_flash_fwd_wgmma_rejects_misaligned_inputs(gen, d):
+    # contiguous bf16 views starting 4 bytes past an allocation: TMA needs
+    # 16; the same call on aligned inputs then runs (at D 384 and 512 on K1's
+    # wide TMA + wgmma kernel)
+    base = torch.randn(2 * 128 * d + 2, device="cuda").to(torch.bfloat16)
+    q = base[2:].view(1, 2, 128, d)
+    k = torch.randn((1, 2, 128, d), device="cuda").to(torch.bfloat16)
     before = _build.LAUNCHES["flash_fwd"]
     with pytest.raises(ValueError, match="16-byte boundary"):
         fa.flash_fwd(q, k, k, None, n=1.0, scale=0.125, is_causal=True)
     with pytest.raises(ValueError, match="16-byte boundary"):
         pp.mini("softmax", q, k, k)
     assert _build.LAUNCHES["flash_fwd"] == before
+    got = _fwd_launched(lambda: fa.flash_fwd(k, k, k, None, n=1.0, scale=0.125,
+                                             is_causal=True), d)
+    _check_bf16_fwd(got, fa.flash_fwd_reference(k, k, k, None, n=1.0, scale=0.125,
+                                                is_causal=True))
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 64),
@@ -962,11 +1003,13 @@ def test_flash_bwd_wgmma_extras_match_plain(gen, d, extra):
 # zero-padded to the next of 32, 64, 128, 256 and the multiples of 128
 # above; 256 runs K1's, K5's and K6's D 256 wgmma kernels in bf16 and the
 # scalar kernels in f32 (K5 and K6 on 32-row tiles); 384 and 512 (and 288 at
-# 384) the wide kernels (bf16: TMA + wgmma; f32: scalar). Under a bias, ALiBi and
-# dropout, n 0 and 1, at chip_smoke's B2 H4 L200 S264; the backward from the
-# plain forward's o and lse; tolerances as above, repeats bit-equal
+# 384) the wide kernels (bf16: TMA + wgmma; f32: scalar); 640 K5's and K6's
+# wide TMA + wgmma kernels in bf16 and the wide scalar kernels otherwise (K1
+# in bf16 too). Under a bias, ALiBi and dropout, n 0 and 1, at chip_smoke's
+# B2 H4 L200 S264; the backward from the plain forward's o and lse;
+# tolerances as above, repeats bit-equal
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 20, 80, 96, 160, 256, 288, 384, 512])
+@pytest.mark.parametrize("d", [16, 20, 80, 96, 160, 256, 288, 384, 512, 640])
 @pytest.mark.parametrize("n", [0.0, 1.0])
 def test_flash_kernels_take_every_head_dim(gen, dtype, d, n):
     q, k, v, do, ex = _attn_inputs(gen, dtype, 2, 4, 200, 264, d, bias_shape=(1, 4),
@@ -974,24 +1017,18 @@ def test_flash_kernels_take_every_head_dim(gen, dtype, d, n):
     kw = dict(n=n, scale=d ** -0.5, is_causal=True, slopes=ex["slopes"], seed=ex["seed"],
               dropout_rate=ex["dropout_rate"])
     before = _build.LAUNCHES["flash_fwd"]
-    got = fa.flash_fwd(q, k, v, ex["bias"], **kw)
-    assert _build.LAUNCHES["flash_fwd"] == before + 1 and got[0].shape == q.shape
+    got, names, calls = _launched(lambda: fa.flash_fwd(q, k, v, ex["bias"], **kw))
+    assert _build.LAUNCHES["flash_fwd"] == before + calls and got[0].shape == q.shape
+    if dtype == torch.bfloat16 and fa.kernel_head_dim(d) in (384, 512):
+        assert any(_WIDE_FWD_KERNEL in n for n in names), sorted(set(names))
+    elif fa.kernel_head_dim(d) > 256:
+        assert any("flash_fwd_wide_kernel" in n for n in names), sorted(set(names))
     want = fa.flash_fwd_reference(q, k, v, ex["bias"], **kw)
     if dtype == torch.float32:
         torch.testing.assert_close(got[0], want[0], atol=2e-5, rtol=0)
         torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=1e-6)
     else:
-        # chip_smoke.o_excess's allowance on each side: a bf16 o is half
-        # an ulp (2^-8 |o|) off, and each dropped p rounds to bf16 against
-        # its own running maximum (2^-8 of p, so 2^-8 sum p|v| / l of o),
-        # plus 2^-11 of that for the f32 arithmetic; sum p|v| / l is the
-        # plain version over |v| in f32
-        o_abs = fa.flash_fwd_reference(q.float(), k.float(), v.float().abs(), ex["bias"],
-                                       **kw)[0]
-        diff = (got[0].float() - want[0].float()).abs()
-        tol = 2.0 ** -7 * want[0].float().abs() + (2.0 ** -7 + 2.0 ** -10) * o_abs
-        assert float((diff - tol).max()) <= 0.0, float((diff - tol).max())
-        assert float((got[1] - want[1]).abs().max()) <= 1e-3
+        _check_bf16_fwd_dropped(got, want, q, k, v, ex["bias"], kw)
     assert all(torch.equal(a, b) for a, b in zip(got, fa.flash_fwd(q, k, v, ex["bias"], **kw)))
     o, lse = want
     args = (q, k, v, ex["bias"], ex["slopes"], ex["seed"], o, lse, do)
@@ -1502,18 +1539,27 @@ def test_decode_attn_products_agree(gen, cache, split):
 # ----------------------------------------------------------------------------
 
 
-# head dims K10 is not built for (80 at 128, 320 at 384) run zero-padded,
-# 256 on its scalar kernel (bf16 too), 384 (for 320) on its wide one
+# head dims K10 is not built for (80 at 128, 320 at 384) run zero-padded;
+# in bf16, 256 on its D 256 kernel and 384 (for 320) and 512 on its wide
+# TMA + wgmma one, which must be the ones launched; f32 on its scalar and
+# wide scalar kernels
+_MINI_KERNELS = {256: "prefill_phase_d256_kernel", 384: "prefill_phase_wide_wgmma_kernel",
+                 512: "prefill_phase_wide_wgmma_kernel"}
+
+
 @pytest.mark.parametrize("mode", pp.MODES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128, 80, 256, 320])
+@pytest.mark.parametrize("d", [32, 64, 128, 80, 256, 320, 512])
 @pytest.mark.parametrize("L", [64, 129, 200, 512, 2048])
 def test_prefill_phase_matches_plain(gen, mode, dtype, d, L):
     q, k, v = ((0.3 * torch.randn((2, 3, L, d), generator=gen, device="cuda")).to(dtype)
                for _ in range(3))
     before = _build.LAUNCHES[f"mini_{mode}"]
-    out = pp.mini(mode, q, k, v)
-    assert _build.LAUNCHES[f"mini_{mode}"] == before + 1
+    out, names, calls = _launched(lambda: pp.mini(mode, q, k, v))
+    assert _build.LAUNCHES[f"mini_{mode}"] == before + calls
+    kernel = _MINI_KERNELS.get(fa.kernel_head_dim(d)) if dtype == torch.bfloat16 else None
+    if kernel is not None:
+        assert any(kernel in n for n in names), (kernel, sorted(set(names)))
     assert out.dtype == dtype and out.shape == q.shape
     assert torch.equal(out, pp.mini(mode, q, k, v))
     ref = pp.mini_reference(mode, q, k, v)

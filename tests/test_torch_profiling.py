@@ -147,7 +147,7 @@ def test_mini_reference_matches_jax_mini_kernel(mode):
 # mini_tolerance (one bf16 ulp of |o| and one p of a row rounded the other
 # way; o grows with hd in dots_only, so no absolute bound)
 @pytest.mark.parametrize("mode", pp.MODES)
-@pytest.mark.parametrize("hd", [80, 320])
+@pytest.mark.parametrize("hd", [80, 256, 320, 512])
 def test_mini_reference_matches_jax_mini_kernel_at_other_head_dims(mode, hd):
     rng = np.random.RandomState(hd)
     q, k, v = ((0.3 * rng.randn(1, 2, 512, hd)).astype(np.float32)
