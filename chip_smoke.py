@@ -38,16 +38,19 @@ Phases, in order, each printing one JSON line:
    K768 N3072, K3072 N768; the surgery phase's int4 BERT) and with int8
    weights (on no path) at M64 and M1024, K2048 N2048, and at the ragged
    M300 K776 N200 (the cp.async loader), each against ``torch.matmul`` in
-   f32; K2's and K9's f32-x scalar modes (on no path) at M64 K2048 N32000
-   and M64 K2048 F5632, each beside cuBLAS over W dequantized to f32; K1
-   and K10 lines give TFLOP/s too;
+   f32; K2's and K9's f32-x modes (on no path; K7's f32 tiles with an
+   argmax epilogue, and K9's two f32 phases) at M64 and M256, K2048 N32000
+   and K2048 F5632, each required to launch its f32 kernels, beside cuBLAS
+   over W dequantized to f32; K1 and K10 lines give TFLOP/s too;
 4. train kernels: K1 with ALiBi and dropout, K5 flash_bwd_dq and K6
    flash_bwd_dkv against their plain versions (B2 H4 L200 S264 with bias,
    ALiBi and dropout, f32 and bf16, n 0 and 1, bf16 at d64 and d128, so
    both chunk shapes of the bf16 wgmma kernels run; then the training shape
    B2 H32 L=S=2048 d64 bf16 causal with dropout, timed: each kernel's
    TFLOP/s, and the backward pair with delta against SDPA's backward by
-   device time), each run twice and required bit-equal, K1 with ALiBi and
+   device time; then train_agreement's B2 H32 L=S=1024 d64 f32 causal,
+   timed the same way against f32 bounds and f32 SDPA, whose kernels name
+   its backend), each run twice and required bit-equal, K1 with ALiBi and
    dropout held at the training shape, and the three kernels' dropout masks
    (each in f32 and bf16) required bit-equal to the plain hash; a bf16
    forward's o is held, K1 and its plain version each, against a float64
@@ -151,7 +154,7 @@ Phases, in order, each printing one JSON line:
 7. train_agreement: the TinyLlama-1.1B width at 2 layers in f32: every
    parameter gradient of ``causal_lm_loss`` through the fused route (K1,
    K5, K6) against the same through plain tensor ops (``"xla"``), relative
-   L2 error at most 1e-3;
+   L2 error at most 1e-3, counting the fused route's launches;
 8. train: the full TinyLlama-1.1B shape (22 layers, bf16, n = 1, attention
    dropout 0.1, remat) takes 4 AdamW steps on one B2 x L2048 batch through
    ``make_train_step``, counting the kernels' launches; the losses must be
@@ -290,6 +293,8 @@ FLASH_DQ_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_d256_kernel",
 FLASH_DKV_KERNELS = ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_d256_kernel",
                      "flash_bwd_dkv_kernel", "flash_bwd_dkv_wide_kernel",
                      "flash_bwd_dkv_wide_wgmma_kernel")
+# f32 K1, K5 and K6 at D <= 256: the scalar kernels
+F32_ATTN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 # bf16 K5 and K6 at D 256, and above it
 D256_BWD_KERNELS = ("flash_bwd_dq_d256_kernel", "flash_bwd_dkv_d256_kernel")
 WIDE_BWD_KERNELS = ("flash_bwd_dq_wide_wgmma_kernel", "flash_bwd_dkv_wide_wgmma_kernel")
@@ -304,6 +309,8 @@ MINI_WIDE_KERNEL = "prefill_phase_wide_wgmma_kernel"
 ROW_WRITE_KERNELS = ("append_rows_kernel",)
 # f32 outside the tensor cores, H100 SXM (NVIDIA's data sheet, 700 W)
 F32_FLOPS = 67e12
+# shared memory of one H100 SM; each CTA also takes 1 KB the card reserves
+SM_SMEM = 233472
 
 
 T0 = time.perf_counter()
@@ -369,38 +376,53 @@ def device_ms_of(torch, pairs, runs: int = TIMED_RUNS, launched=None):
     (each session costs seconds of host time): each fn runs ``runs`` times
     in turn, and its device time is read from the events under its own
     ``record_function`` range. A list ``launched`` gets, for each pair, the
-    names of ``kernel`` that its fn launched, as the same profile saw them:
-    a profile of one call taken on its own at times showed none of the
-    call's kernels in the smoke's process, twice at the head_dims lines,
-    where the timing profiles around it recorded theirs (PERF.md section 7)."""
+    names of ``kernel`` that its fn launched, as the same profile saw them
+    (for ``kernel`` None, the names of its four longest kernels: a library
+    call's backend). A session in which some fn's range holds none of its
+    kernels (for None, no device event) is taken again, up to three times:
+    late in the smoke's process a profile at times records none of a
+    call's kernels, where the profiles around it record theirs (PERF.md
+    section 7)."""
     from torch.autograd import DeviceType
     from torch.autograd.profiler import record_function
     from torch.profiler import ProfilerActivity, profile
 
+    wanted = [(k,) if isinstance(k, str) else k for _, k in pairs]
     for fn, _ in pairs:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i, (fn, _) in enumerate(pairs):
-            with record_function(f"device_ms_{i}"):
-                for _ in range(runs):
-                    fn()
-                torch.cuda.synchronize()
-    events = prof.events()
-    ranges = {e.name: e.time_range for e in events
-              if e.device_type == DeviceType.CPU and e.name.startswith("device_ms_")}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i, (fn, _) in enumerate(pairs):
+                with record_function(f"device_ms_{i}"):
+                    for _ in range(runs):
+                        fn()
+                    torch.cuda.synchronize()
+        events = prof.events()
+        ranges = {e.name: e.time_range for e in events
+                  if e.device_type == DeviceType.CPU and e.name.startswith("device_ms_")}
+        spans = [ranges[f"device_ms_{i}"] for i in range(len(pairs))]
+        mines = [[e for e in events
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                  and span.start <= e.time_range.start <= span.end] for span in spans]
+        # every fn's kernels (for None, any kernel) are in its range
+        if all(any(names is None or any(n in e.name for n in names) for e in mine)
+               for names, mine in zip(wanted, mines)):
+            break
     out = []
-    for i, (_, kernel) in enumerate(pairs):
-        names = (kernel,) if isinstance(kernel, str) else kernel
-        span = ranges[f"device_ms_{i}"]
-        mine = [e for e in events
-                if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-                and span.start <= e.time_range.start <= span.end]
+    for names, mine in zip(wanted, mines):
         total_us = sum(e.time_range.elapsed_us() for e in mine
                        if names is None or any(k in e.name for k in names))
         out.append(total_us / 1e3 / runs if total_us else None)
-        if launched is not None:
-            launched.append([k for k in names or () if any(k in e.name for e in mine)])
+        if launched is None:
+            continue
+        if names is None:
+            us = {}
+            for e in mine:
+                us[e.name] = us.get(e.name, 0) + e.time_range.elapsed_us()
+            launched.append([n[:120] for n in sorted(us, key=lambda n: -us[n])[:4]])
+        else:
+            launched.append([k for k in names if any(k in e.name for e in mine)])
     return out
 
 
@@ -509,16 +531,18 @@ def check_flash(torch, pkg, gen, *, B, H, L, S, D, masked, true_lens=None, float
 
 
 # K2's kernels as torch.profiler names them: bf16 x's tensor-core kernel,
-# f32 x's scalar kernel, and the merge of both
-QMM_ARGMAX_KERNELS = ("qmm_argmax_wgmma_kernel", "qmm_argmax_scalar_kernel",
+# f32 x's f32 FMA kernel, and the merge of both
+QMM_ARGMAX_KERNELS = ("qmm_argmax_wgmma_kernel", "qmm_argmax_f32_kernel",
                       "qmm_argmax_merge_kernel")
+K2_F32_KERNELS = ("qmm_argmax_f32_kernel", "qmm_argmax_merge_kernel")
 
 
-def check_qmm(torch, pkg, gen, *, M, K, N, dtype=None):
-    """K2 at a serving shape (bf16 x, int8 W; f32 x takes its scalar
+def check_qmm(torch, pkg, gen, *, M, K, N, dtype=None, kernels=()):
+    """K2 at a serving shape (bf16 x, int8 W; f32 x takes its f32 FMA
     kernel, on no path): held against its plain version and required
     bit-equal over two calls. Prints the plan, W's achieved GB/s (its bytes
-    over the device time) and, for information, cuBLAS's device time for
+    over the device time), the K2 kernels it launched (which must include
+    ``kernels``) and, for information, cuBLAS's device time for
     ``torch.max((x @ W_x) * s, -1)`` with W dequantized to x's dtype
     beforehand, from the same profiler session."""
     qm = pkg["quant_matmul"]
@@ -557,15 +581,20 @@ def check_qmm(torch, pkg, gen, *, M, K, N, dtype=None):
             f"max relative error of the max {rel} (tol 1e-3); repeat bit-equal {same}")
     b_ms, b_by = bound_ms(x.numel() * x.element_size() + w.numel() + N * 4 + M * 8,
                           2.0 * M * K * N, F32_FLOPS if f32 else None)
-    k_dev, cublas_dev = device_ms_of(torch, [(kernel, QMM_ARGMAX_KERNELS), (cublas, None)])
+    launched = []
+    k_dev, cublas_dev = device_ms_of(torch, [(kernel, QMM_ARGMAX_KERNELS), (cublas, None)],
+                                     launched=launched)
+    require(all(k_ in launched[0] for k_ in kernels),
+            f"qmm_argmax M{M} K{K} N{N}: launched {launched[0]}, not {kernels}")
     line = {"name": f"qmm_argmax M{M} K{K} N{N}" + (" f32" if f32 else ""), "route": "cuda",
             "source": f"{CSRC}/qmm_argmax.cu",
             "replaces": f"{TPU_PKG}/kernels/quant_matmul.py:117 _qmm_argmax_kernel",
             "counter": "qmm_argmax",
             "max_abs_err": err, "max_rel_err": rel, "tolerance": 1e-3,
             "undecided_rows": int((~decided).sum()), "repeat_bit_equal": same,
-            "plan": plan._asdict(), "producer": plan.producer,
+            "plan": plan._asdict(), "producer": plan.producer, "launched": launched[0],
             "ms": time_ms(torch, kernel), "device_ms": k_dev,
+            "tflops": tflops(2.0 * M * K * N, k_dev),
             "w_gbps": w.numel() / (k_dev * 1e-3) / 1e9 if k_dev else None,
             "plain_ms": time_ms(torch, plain),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -739,18 +768,21 @@ def check_dequant_f32(torch, pkg, gen, *, M, K, N, bits=8):
 
 # K9's kernels as torch.profiler names them: bf16 x's gate/up phase (and
 # its split sum, which forms h), its down phase (K7's kernel under K9's
-# name) and that phase's split sum; f32 x's scalar kernel and its sum
+# name) and that phase's split sum; f32 x's the same four on K7's f32 tiles
+K9_F32_KERNELS = ("fused_mlp_gateup_f32_kernel", "fused_mlp_swiglu_sum_f32_kernel",
+                  "fused_mlp_down_f32_kernel", "fused_mlp_down_sum_f32_kernel")
 FUSED_MLP_KERNELS = ("fused_mlp_gateup_kernel", "fused_mlp_swiglu_sum_kernel",
-                     "fused_mlp_down_kernel", "fused_mlp_down_sum_kernel", "fused_mlp_kernel",
-                     "fused_mlp_sum_kernel")
+                     "fused_mlp_down_kernel", "fused_mlp_down_sum_kernel", *K9_F32_KERNELS)
 
 
-def check_fused_mlp(torch, pkg, gen, *, M, K, F, dtype=None):
-    """K9 at a decode shape (bf16 x, int8 gate/up/down; f32 x takes its
-    scalar kernel, on no path). Prints the plan of both phases and, beside
-    ``library: none``, the device time of cuBLAS over the same weights
-    dequantized to x's dtype (three ``torch.matmul`` and a silu), from the
-    same profiler session."""
+def check_fused_mlp(torch, pkg, gen, *, M, K, F, dtype=None, kernels=()):
+    """K9 at a decode shape (bf16 x, int8 gate/up/down; f32 x takes its f32
+    FMA phases, on no path). Prints the plan of both phases, the K9 kernels
+    it launched (which must include ``kernels``; then, for f32, the gate/up
+    tile's shared memory is held against the build's) and, beside ``library:
+    none``, the device time of cuBLAS over the same weights dequantized to
+    x's dtype (three ``torch.matmul`` and a silu), from the same profiler
+    session."""
     fm, qt = pkg["fused_mlp"], pkg["qtensor"]
     dev, dt = "cuda", dtype or torch.bfloat16
     f32 = dt == torch.float32
@@ -760,6 +792,13 @@ def check_fused_mlp(torch, pkg, gen, *, M, K, F, dtype=None):
     args = (x, ws[0].values, ws[0].scales, ws[1].values, ws[1].scales, ws[2].values,
             ws[2].scales)
     plan = fm.fused_mlp_plan(M, K, F, dt)
+    smem = None
+    if f32 and kernels:  # this tree's f32 phases: the build's ring as the plan's
+        stages, smem = pkg["build"].ops().qmm_f32_layout(plan.gate_up.bm, True)
+        ctas = pkg["quant_matmul"].F32_CTAS_PER_SM[plan.gate_up.bm]
+        require(stages == plan.gate_up.stages and ctas * (smem + 1024) <= SM_SMEM,
+                f"fused_mlp M{M} K{K} F{F} f32: the gate/up kernel's ring has {stages} stages "
+                f"in {smem} B, the plan {plan.gate_up.stages} stages at {ctas} CTAs an SM")
 
     def kernel():
         return fm._fused_mlp_cuda(*args)
@@ -789,7 +828,11 @@ def check_fused_mlp(torch, pkg, gen, *, M, K, F, dtype=None):
             f"{norm_tol}, or repeat bit-equal {same}")
     b_ms, b_by = bound_ms(M * K * x.element_size() * 2 + 3 * K * F + (2 * F + K) * 4,
                           6.0 * M * K * F, F32_FLOPS if f32 else None)
-    k_dev, cublas_dev = device_ms_of(torch, [(kernel, FUSED_MLP_KERNELS), (cublas, None)])
+    launched = []
+    k_dev, cublas_dev = device_ms_of(torch, [(kernel, FUSED_MLP_KERNELS), (cublas, None)],
+                                     launched=launched)
+    require(all(k_ in launched[0] for k_ in kernels),
+            f"{name}: launched {launched[0]}, not {kernels}")
     return {"name": name, "route": "cuda", "source": f"{CSRC}/fused_mlp.cu",
             "replaces": f"{TPU_PKG}/kernels/fused_mlp.py:44 _mlp_kernel",
             "counter": "fused_mlp", "max_abs_err": err, "norm_err": err_norm,
@@ -798,6 +841,7 @@ def check_fused_mlp(torch, pkg, gen, *, M, K, F, dtype=None):
             "plan": {"kernel": plan.kernel,
                      "gate_up": plan.gate_up._asdict() if plan.gate_up else None,
                      "down": plan.down._asdict() if plan.down else None},
+            "smem_bytes": smem, "launched": launched[0],
             "ms": time_ms(torch, kernel), "device_ms": k_dev,
             "tflops": tflops(6.0 * M * K * F, k_dev),
             "plain_ms": time_ms(torch, plain), "bound_ms": b_ms, "bound_by": b_by,
@@ -1150,18 +1194,23 @@ def check_dropout_masks(torch, fa):
 
 
 def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, path="train",
-                       runs=TIMED_RUNS, kernels=()):
+                       runs=TIMED_RUNS, kernels=(), dtype=None):
     """The three kernels at a training shape (by default the train phase's,
     B2 H32 L=S=2048 d64 bf16 causal, n = 1, dropout 0.1, as its every layer
-    runs them; the quant_study phase's is B32 H16 L512 without dropout):
-    errors, and times (``runs`` calls each) against their bounds, plain
+    runs them; the quant_study phase's is B32 H16 L512 without dropout;
+    train_agreement's B2 H32 L1024 f32): errors, and times (``runs`` calls
+    each) against their bounds (f32: operations at 67 TFLOP/s), plain
     versions and scaled_dot_product_attention with one zero key/value row
-    prepended. The K1 line and the backward pair's line name the K1 and the
-    K5 and K6 kernels they launched, which must include ``kernels``."""
+    prepended (its kernels' names say which backend it took). The K1 line
+    and the backward pair's line name the K1 and the K5 and K6 kernels they
+    launched, which must include ``kernels``."""
     fa, ops = pkg["flash_attention"], pkg["build"].ops()
     n = 1.0
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+    es, peak = (4, F32_FLOPS) if f32 else (2, None)
     (q, k, v, do, ex, o, lse), errs, name = check_attention(
-        torch, fa, gen, torch.bfloat16, n=n, causal=True, shape=(B, H, L, L, D), rate=rate)
+        torch, fa, gen, dtype, n=n, causal=True, shape=(B, H, L, L, D), rate=rate)
     emit({"phase": "kernel_check", "name": name, "errors": errs, "repeat_bit_equal": True})
     scale = D ** -0.5
     pairs = B * H * L * (L + 1) / 2  # causal (query, key) pairs
@@ -1234,27 +1283,32 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
     plain_bwd_ms = time_ms(torch, plain_bwd, runs)
     library_bwd_ms = time_ms(torch, sdpa_bwd, runs)
     # one profiler session: K5 and K6 alone, the wrapper's every kernel
-    # (delta's torch ops, K5, K6), SDPA's backward's every kernel
+    # (delta's torch ops, K5, K6), SDPA's backward's and forward's every
+    # kernel
     launched = []
-    k5_dev, k6_dev, pair_dev, library_bwd_dev = device_ms_of(
+    k5_dev, k6_dev, pair_dev, library_bwd_dev, library_fwd_dev = device_ms_of(
         torch, [(wrapper_bwd, FLASH_DQ_KERNELS), (wrapper_bwd, FLASH_DKV_KERNELS),
-                (wrapper_bwd, None), (sdpa_bwd, None)], runs, launched)
-    # which K5 and K6 kernels the pair launched
+                (wrapper_bwd, None), (sdpa_bwd, None), (sdpa, None)], runs, launched)
+    # which K5 and K6 kernels the pair launched; which backend SDPA took
     launched_bwd = launched[0] + launched[1]
-    common = {"route": "cuda", "tolerance": "o: 2^-8 |o64| + (2^-8 + 2^-11) (p|v|)64 of a "
-                                            "float64 evaluation, K1 and plain each; grads: "
-                                            "2e-2 of max(1, |plain|) and "
-                                            f"{BWD_NORM_TOL['bf16']} of max(1, ||plain||); repeat "
-                                            "calls bit-equal", "path": path}
-    b1, by1 = bound_ms(4 * bhld * 2 + bhl * 4, 4.0 * D * pairs)
+    library_kernels = launched[4] + launched[3]
+    tolerance = ("o: 2e-5 of the plain version; grads: 1e-4 of max(1, |plain|) and "
+                 f"{BWD_NORM_TOL['f32']} of max(1, ||plain||); repeat calls bit-equal" if f32
+                 else "o: 2^-8 |o64| + (2^-8 + 2^-11) (p|v|)64 of a float64 evaluation, K1 and "
+                 "plain each; grads: 2e-2 of max(1, |plain|) and "
+                 f"{BWD_NORM_TOL['bf16']} of max(1, ||plain||); repeat calls bit-equal")
+    common = {"route": "cuda", "tolerance": tolerance, "path": path,
+              "library_kernels": library_kernels}
+    b1, by1 = bound_ms(4 * bhld * es + bhl * 4, 4.0 * D * pairs, peak)
     launched = []
     k1_dev = device_ms(torch, k1, FLASH_FWD_KERNELS, runs, launched)
     launched_k1 = launched[0]
     require(all(k in launched_k1 for k in kernels if k in FLASH_FWD_KERNELS),
             f"flash_fwd B{B} H{H} L{L} d{D}: launched {launched_k1}, not {kernels}")
-    b5, by5 = bound_ms(5 * bhld * 2 + 2 * bhl * 4, 6.0 * D * pairs)
-    b6, by6 = bound_ms(6 * bhld * 2 + 2 * bhl * 4, 8.0 * D * pairs)
-    shape = f"B{B} H{H} L{L} S{L} d{D} bf16 causal n1" + (f" dropout {rate}" if rate else "")
+    b5, by5 = bound_ms(5 * bhld * es + 2 * bhl * 4, 6.0 * D * pairs, peak)
+    b6, by6 = bound_ms(6 * bhld * es + 2 * bhl * 4, 8.0 * D * pairs, peak)
+    shape = (f"B{B} H{H} L{L} S{L} d{D} {'f32' if f32 else 'bf16'} causal n1"
+             + (f" dropout {rate}" if rate else ""))
     lines = [
         {**common, "name": f"flash_fwd {shape}", "counter": "flash_fwd",
          "source": k1_source(fa, D),
@@ -1265,7 +1319,7 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
          "ms_with_alibi": time_ms(torch, k1_alibi, runs),
          "device_ms": k1_dev, "tflops": tflops(4.0 * D * pairs, k1_dev),
          "plain_ms": time_ms(torch, plain_fwd, runs), "bound_ms": b1, "bound_by": by1,
-         "library_ms": time_ms(torch, sdpa, runs)},
+         "library_ms": time_ms(torch, sdpa, runs), "library_device_ms": library_fwd_dev},
         {**common, "name": f"flash_bwd_dq {shape}", "counter": "flash_bwd_dq",
          "source": f"{CSRC}/flash_bwd_dq.cu", "replaces": f"{FLASH_PY}:685 _bwd_dq_kernel",
          "max_abs_err": errs["dq"], "ms": time_ms(torch, k5, runs),
@@ -1283,7 +1337,7 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
     # against SDPA's backward, both by device time and by CUDA events. Its
     # bound counts what dq, dk and dv need, 10·d a pair (S, dP, dV, dK, dQ
     # once each), not the 14·d the two kernels do: each recomputes S and dP
-    b56, by56 = bound_ms(8 * bhld * 2 + bhl * 4, 10.0 * D * pairs)
+    b56, by56 = bound_ms(8 * bhld * es + bhl * 4, 10.0 * D * pairs, peak)
     require(all(k in launched_bwd for k in kernels if k not in FLASH_FWD_KERNELS),
             f"flash_bwd {shape}: launched {launched_bwd}, not {kernels}")
     emit({"phase": "kernel_pair", "name": f"flash_bwd (delta + K5 + K6) {shape}",
@@ -1292,11 +1346,11 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
           "tflops": tflops(10.0 * D * pairs, pair_dev), "bound_ms": b56, "bound_by": by56,
           "library_ms": library_bwd_ms, "library_device_ms": library_bwd_dev,
           "vs_library_device": pair_dev / library_bwd_dev if pair_dev and library_bwd_dev
-          else None})
+          else None, "library_kernels": library_kernels})
     for line in lines:
         emit({"phase": "kernel", **{k_: line.get(k_) for k_ in (
             "name", "max_abs_err", "tolerance", "ms", "ms_with_alibi", "device_ms", "tflops",
-            "plain_ms", "bound_ms", "library_ms")}})
+            "plain_ms", "bound_ms", "library_ms", "library_device_ms", "library_kernels")}})
     emit({"phase": "kernel_note", "note": "flash_bwd plain_ms and library_ms cover dq, dk "
           "and dv together (one plain backward, one SDPA backward); max_abs_err of the "
           "backward lines is relative to max(1, |plain|); the kernel_check lines give "
@@ -2321,7 +2375,8 @@ def train_agreement(torch, pkg):
     """Every parameter gradient of causal_lm_loss at the TinyLlama-1.1B width
     (2 layers, f32, B2 L1024, no dropout) through the fused route (K1, K5,
     K6) against the same through plain tensor ops: relative L2 error at most
-    1e-3, the f32-on-GPU tolerance of BASELINE.md."""
+    1e-3, the f32-on-GPU tolerance of BASELINE.md. Returns the fused route's
+    launches."""
     dec, tr, build = pkg["decoder"], pkg["train"], pkg["build"]
     kw = dict(TINYLLAMA, n_layers=2, dtype=torch.float32)
     params = dec.init_decoder_params(dec.DecoderConfig(**kw), 1, device="cuda")
@@ -2351,6 +2406,7 @@ def train_agreement(torch, pkg):
     require(all(launches["pallas"][k] > 0 for k in TRAIN_KERNELS),
             f"the fused route did not launch every training kernel: {launches['pallas']}")
     require(all(v == 0 for v in launches["xla"].values()), "the xla route launched a kernel")
+    return launches["pallas"]
 
 
 def profile_step(torch, step_fn, wall_s, phase="train_profile"):
@@ -4054,11 +4110,18 @@ def main() -> int:
     # M300 K776 N200 takes the cp.async loader (W's rows off 16 bytes)
     f32_lines = [check_dequant_f32(torch, pkg, gen, M=M, K=2048, N=2048) for M in (64, 1024)]
     f32_lines.append(check_dequant_f32(torch, pkg, gen, M=300, K=776, N=200))
-    # K2's and K9's f32-x scalar modes at their first serving lines' shapes:
-    # no path gives them f32 x, so they stay out of the kernels line too
-    f32_lines.append(check_qmm(torch, pkg, gen, M=64, K=2048, N=32000, dtype=torch.float32))
-    f32_lines.append(check_fused_mlp(torch, pkg, gen, M=64, K=2048, F=5632,
-                                     dtype=torch.float32))
+    # K2's and K9's f32-x modes (K7's f32 tiles) at their serving lines'
+    # shapes, M64 and M256: no path gives them f32 x, so they stay out of the
+    # kernels line too; each must launch its f32 kernels
+    for M in (64, 256):
+        f32_lines.append(check_qmm(torch, pkg, gen, M=M, K=2048, N=32000, dtype=torch.float32,
+                                   kernels=K2_F32_KERNELS))
+    # M64 splits the gate/up phase (3 ranges, summed by the swiglu sum), M256
+    # does not; both split the down phase
+    unsplit = tuple(k for k in K9_F32_KERNELS if k != "fused_mlp_swiglu_sum_f32_kernel")
+    for M, want in ((64, K9_F32_KERNELS), (256, unsplit)):
+        f32_lines.append(check_fused_mlp(torch, pkg, gen, M=M, K=2048, F=5632,
+                                         dtype=torch.float32, kernels=want))
     # serve_mesh's kernels at the per-rank shapes of {"data": 2, "model": 4}
     mesh_lines = mesh_kernel_lines(torch, pkg)
     kernels += mesh_lines
@@ -4076,6 +4139,11 @@ def main() -> int:
                                                        "repeat_bit_equal")
                                        if k in kd}})
     kernels += train_kernels(torch, pkg, gen)
+    # K1, K5 and K6 in f32 at train_agreement's shape (the TinyLlama-1.1B
+    # width: B2 H32 L=S=1024 d64 causal, n 1, no dropout): its scalar kernels
+    kernels += train_kernel_lines(torch, pkg, gen, B=2, H=32, L=1024, D=64, rate=0.0,
+                                  path="train_agreement", dtype=torch.float32,
+                                  kernels=F32_ATTN_KERNELS)
     # the quant_study path's kernels at its shapes: K1, K5 and K6 at B32 H16
     # L=S=512 d64 causal (GQA K/V repeated to 16 heads), K7 int4 and W8A8
     # over B32 x L512 (M16384) at the study's K1024 N1024 (wq, wo), N256
@@ -4102,7 +4170,7 @@ def main() -> int:
     # each main path's launches: counts set to 0 just before it, read after
     launches = serve(torch, pkg)
     launches["prefill_phases"] = prefill_phases(torch, pkg)
-    train_agreement(torch, pkg)
+    launches["train_agreement"] = train_agreement(torch, pkg)
     launches["train"] = train(torch, pkg)
     launches["analysis"] = analysis(torch, pkg)
     launches["quant_study"] = quant_study(torch, pkg)

@@ -231,14 +231,16 @@ void qmm_argmax(const at::Tensor& x, const at::Tensor& w, const at::Tensor& scal
   check_shape(scales, {N}, at::kFloat, what, "scales");
   check_shape(idx, {M}, at::kInt, what, "idx");
   check_shape(val, {M}, at::kFloat, what, "val");
-  // the plan: f32 x, the scalar kernel's 64 x 64 tiles, a slot per column
-  // tile; bf16 x, 64 x 256, 128 x 128 or 256 x 128 tiles on persistent CTAs
-  // a multiple of the row tiles, a slot per CTA of a row tile
+  // the plan: f32 x, 64 x 64 or 128 x 64 tiles, one CTA a tile and a slot
+  // a column tile; bf16 x, 64 x 256, 128 x 128 or 256 x 128 tiles on
+  // persistent CTAs a multiple of the row tiles, a slot per CTA of a row tile
   int64_t slots;
   if (dtype == 0) {
-    TORCH_CHECK_VALUE(bm == 64 && ctas == (N + 63) / 64 && !tma, what,
-                      ": f32 x takes the scalar plan (64 x 64 tiles, one CTA a column tile)");
-    slots = ctas;
+    TORCH_CHECK_VALUE(bm == 64 || bm == 128, what, ": no f32 kernel takes ", bm, "-row tiles");
+    const int64_t tiles_m = (M + bm - 1) / bm, tiles_n = (N + 63) / 64;
+    TORCH_CHECK_VALUE(ctas == tiles_m * tiles_n, what, ": f32 x takes one CTA a tile, ",
+                      tiles_m * tiles_n, ", not ", ctas);
+    slots = tiles_n;
   } else {
     TORCH_CHECK_VALUE(bm == 64 || bm == 128 || bm == 256, what, ": no kernel takes ", bm,
                       "-row tiles");
@@ -250,10 +252,10 @@ void qmm_argmax(const at::Tensor& x, const at::Tensor& w, const at::Tensor& scal
     slots = ctas / tiles_m;
   }
   if (tma) {
-    TORCH_CHECK_VALUE(dtype == 1 && (K * 2) % 16 == 0 && N % 16 == 0 &&
+    TORCH_CHECK_VALUE((K * x.element_size()) % 16 == 0 && N % 16 == 0 &&
                           reinterpret_cast<uintptr_t>(x.data_ptr()) % 16 == 0 &&
                           reinterpret_cast<uintptr_t>(w.data_ptr()) % 16 == 0,
-                      what, ": TMA needs bf16 x, 16-byte row strides and addresses");
+                      what, ": TMA needs 16-byte row strides and addresses");
   }
   check_shape(part_val, {M, slots}, at::kFloat, what, "part_val");
   check_shape(part_idx, {M, slots}, at::kInt, what, "part_idx");
@@ -342,9 +344,9 @@ int64_t qmm_stage_k(int64_t x_dtype) {
   return fasn_qmm_stage_k(static_cast<int>(x_dtype));
 }
 
-std::tuple<int64_t, int64_t> qmm_f32_layout(int64_t bm) {
+std::tuple<int64_t, int64_t> qmm_f32_layout(int64_t bm, bool dual) {
   int stages = 0;
-  const int smem = fasn_qmm_f32_layout(static_cast<int>(bm), &stages);
+  const int smem = fasn_qmm_f32_layout(static_cast<int>(bm), dual ? 1 : 0, &stages);
   TORCH_CHECK_VALUE(smem > 0, "qmm_f32_layout: f32 tiles are 64 or 128 rows, got ", bm);
   return {stages, smem};
 }
@@ -407,23 +409,23 @@ void qmm(const at::Tensor& x, const std::optional<at::Tensor>& x_scales, const a
                what);
 }
 
-int64_t fused_mlp_tiles(int64_t f) { return fasn_fused_mlp_tiles(as_int(f, "fused_mlp_tiles")); }
-
-// one phase of K9's bf16 plan: a tile height of the kernels, K slices
-// covered once, TMA only where x's and w's row strides and bases are
-// multiples of 16 bytes
+// one phase of K9's plan: a tile height of the kernels (bf16 x 64, 128 or
+// 256; f32 x 64 or 128), K slices (64 rows for bf16 x, 32 for f32) covered
+// once, TMA only where x's and w's row strides and bases are multiples of
+// 16 bytes
 void check_mlp_phase(const char* what, const char* phase, int64_t bm, int64_t k, int64_t n,
                      int64_t splits, int64_t per, int64_t tma, const at::Tensor& x,
                      std::initializer_list<const at::Tensor*> ws) {
-  TORCH_CHECK_VALUE(bm == 64 || bm == 128 || bm == 256, what, ": ", phase, " bm ", bm,
+  const bool f32 = x.scalar_type() == at::kFloat;
+  TORCH_CHECK_VALUE(bm == 64 || bm == 128 || (bm == 256 && !f32), what, ": ", phase, " bm ", bm,
                     " is not a tile height");
-  const int64_t n_slices = (k + 63) / 64;
+  const int64_t bk = f32 ? 32 : 64, n_slices = (k + bk - 1) / bk;
   TORCH_CHECK_VALUE(splits >= 1 && per >= 1 && splits * per >= n_slices &&
                         (splits - 1) * per < n_slices,
                     what, ": ", phase, " ", splits, " splits of ", per, " slices do not cover ",
                     n_slices, " slices once");
   if (tma) {
-    bool ok = (k * 2) % 16 == 0 && n % 16 == 0 &&
+    bool ok = (k * x.element_size()) % 16 == 0 && n % 16 == 0 &&
               reinterpret_cast<uintptr_t>(x.data_ptr()) % 16 == 0;
     for (const at::Tensor* w : ws) ok = ok && reinterpret_cast<uintptr_t>(w->data_ptr()) % 16 == 0;
     TORCH_CHECK_VALUE(ok, what, ": ", phase, " TMA needs 16-byte row strides and addresses");
@@ -448,36 +450,25 @@ void fused_mlp(const at::Tensor& x, const at::Tensor& wg, const at::Tensor& sg,
   check_shape(su, {F}, at::kFloat, what, "su");
   check_shape(sd, {K}, at::kFloat, what, "sd");
   check_shape(out, {M, K}, x.scalar_type(), what, "out");
-  FasnMlpPlan p{};
-  if (a.dtype == 0) {
-    TORCH_CHECK_VALUE(K % 64 == 0 && F % 64 == 0, what,
-                      ": f32 x needs K and F in multiples of 64, got K=", K, " F=", F);
+  TORCH_CHECK_VALUE(plan.size() == 10, what, ": the plan has 10 entries, got ", plan.size());
+  check_mlp_phase(what, "gate/up", plan[0], K, F, plan[2], plan[3], plan[4], x, {&wg, &wu});
+  check_on(h, x, what);
+  check_shape(h, {M, F}, x.scalar_type(), what, "h");
+  check_mlp_phase(what, "down", plan[5], F, K, plan[7], plan[8], plan[9], h, {&wd});
+  if (plan[2] > 1) {
     check_on(gu_part, x, what);
-    check_shape(gu_part, {fasn_fused_mlp_tiles(as_int(F, what)), M, K}, at::kFloat, what,
-                "gu_part");
+    check_shape(gu_part, {2 * plan[2], M, F}, at::kFloat, what, "gu_part");
     a.gu_part = gu_part.data_ptr<float>();
-  } else {
-    TORCH_CHECK_VALUE(plan.size() == 10, what, ": the bf16 plan has 10 entries, got ",
-                      plan.size());
-    check_mlp_phase(what, "gate/up", plan[0], K, F, plan[2], plan[3], plan[4], x, {&wg, &wu});
-    check_on(h, x, what);
-    check_shape(h, {M, F}, at::kBFloat16, what, "h");
-    check_mlp_phase(what, "down", plan[5], F, K, plan[7], plan[8], plan[9], h, {&wd});
-    if (plan[2] > 1) {
-      check_on(gu_part, x, what);
-      check_shape(gu_part, {2 * plan[2], M, F}, at::kFloat, what, "gu_part");
-      a.gu_part = gu_part.data_ptr<float>();
-    }
-    if (plan[7] > 1) {
-      check_on(dn_part, x, what);
-      check_shape(dn_part, {plan[7], M, K}, at::kFloat, what, "dn_part");
-      a.dn_part = dn_part.data_ptr<float>();
-    }
-    a.h = h.data_ptr();
-    int q[10];
-    for (int i = 0; i < 10; ++i) q[i] = as_int(plan[i], what);
-    p = FasnMlpPlan{q[0], q[1], q[2], q[3], q[4] != 0, q[5], q[6], q[7], q[8], q[9] != 0};
   }
+  if (plan[7] > 1) {
+    check_on(dn_part, x, what);
+    check_shape(dn_part, {plan[7], M, K}, at::kFloat, what, "dn_part");
+    a.dn_part = dn_part.data_ptr<float>();
+  }
+  a.h = h.data_ptr();
+  int q[10];
+  for (int i = 0; i < 10; ++i) q[i] = as_int(plan[i], what);
+  const FasnMlpPlan p{q[0], q[1], q[2], q[3], q[4] != 0, q[5], q[6], q[7], q[8], q[9] != 0};
   a.x = x.data_ptr();
   a.wg = wg.data_ptr();
   a.sg = sg.data_ptr<float>();
@@ -645,12 +636,11 @@ TORCH_LIBRARY(fasn, m) {
       "tail_append(Tensor(a!) k_tail, Tensor(b!) v_tail, Tensor k_new, Tensor v_new, "
       "int index) -> ()");
   m.def("qmm_stage_k(int x_dtype) -> int", &qmm_stage_k);
-  m.def("qmm_f32_layout(int bm) -> (int, int)", &qmm_f32_layout);
+  m.def("qmm_f32_layout(int bm, bool dual=False) -> (int, int)", &qmm_f32_layout);
   m.def(
       "qmm(Tensor x, Tensor? x_scales, Tensor w, Tensor scales, Tensor(a!) out, "
       "Tensor(b!) part, int bits, int bm, int splits, int slices_per_split, "
       "bool tma) -> ()");
-  m.def("fused_mlp_tiles(int f) -> int", &fused_mlp_tiles);
   m.def(
       "fused_mlp(Tensor x, Tensor wg, Tensor sg, Tensor wu, Tensor su, Tensor wd, Tensor sd, "
       "Tensor(a!) out, Tensor(b!) h, Tensor(c!) gu_part, Tensor(d!) dn_part, int[] plan) -> ()");

@@ -36,12 +36,26 @@
 // (TMA, or predicated loads where a row stride is not a multiple of 16
 // bytes) before the launch; the launcher checks it.
 //
-// f32 x keeps the scalar kernel, as K7's f32 mode does: wgmma has no f32 x
-// f32 product, and TF32 would not hold 1e-5. Each CTA takes one (64 rows x
-// 64 d_ff columns) tile: it accumulates g and u over K in 32-deep slices
-// staged in shared memory, forms its h tile, and writes its partial down
-// product (64 rows x K, f32) to a scratch buffer; fused_mlp_sum_kernel sums
-// the d_ff tiles' partials in tile order, applies sd and casts. No serving
+// f32 x: the same two phases on K7's f32 tiles (qmm_tile.h f32_tile: f32
+// FMAs, 8 x 8 outputs a thread, a TMA or cp.async ring of three 32-row
+// stages, W converted to f32 once per CTA per stage), bound by 6*M*K*F
+// operations at 67 TFLOP/s: wgmma has no f32 x f32 product, and TF32 would
+// not hold 1e-5.
+// 1. fused_mlp_gateup_f32_kernel: a tile is 32 d_ff columns of both Wg and
+//    Wu (a stage carries both matrices' rows, converted once per CTA into
+//    one 64-column f32 tile) by 64 rows of x below M = 128, else 128; each
+//    thread holds g and u of the same (row, column) pairs, and the epilogue
+//    forms h = silu(g * sg) * (u * su) in f32 (x's type: h is never
+//    rounded). Where the tiles fill less than half the CTA slots (four CTAs
+//    an SM at 64 rows, three at 128), K is split into as many ranges as
+//    fill them (176 tiles, 3 splits at M64 F5632); the partials go to a
+//    scratch buffer and fused_mlp_swiglu_sum_f32_kernel sums them in split
+//    order and forms h.
+// 2. fused_mlp_down_f32_kernel: h @ Wd with sd after accumulation, K7's f32
+//    kernel under K9's name (launched from here, so K7's launch count does
+//    not move), split as K7's f32 plan splits it and summed in split order
+//    by fused_mlp_down_sum_f32_kernel.
+// Any K and F: the cp.async loader takes rows off 16 bytes. No serving
 // path gives K9 f32 x.
 
 #include <cuda.h>
@@ -50,6 +64,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper.h"
 #include "launchers.h"
@@ -78,13 +93,14 @@ __global__ void __launch_bounds__(Cfg<false, 8, BM>::THREADS, 1)
   wgmma_body<false, 8, BM, false>(&xmap, &wmap, nullptr, g);
 }
 
-// h[m][f] = silu(g * sg) * (u * su) in bf16, g and u summed over the splits'
-// partials (part[2s][m][f] and part[2s + 1][m][f]) in split order
-__global__ void fused_mlp_swiglu_sum_kernel(const float* __restrict__ part,
-                                            const float* __restrict__ sg,
-                                            const float* __restrict__ su,
-                                            __nv_bfloat16* __restrict__ h, int M, int F,
-                                            int splits) {
+// h[m][f] = silu(g * sg) * (u * su) in H (bf16 or f32), g and u summed
+// over the splits' partials (part[2s][m][f] and part[2s + 1][m][f]) in
+// split order
+template <typename H>
+__device__ __forceinline__ void swiglu_sum(const float* __restrict__ part,
+                                           const float* __restrict__ sg,
+                                           const float* __restrict__ su, H* __restrict__ h, int M,
+                                           int F, int splits) {
   const long long total = (long long)M * F;
   for (long long at = blockIdx.x * (long long)blockDim.x + threadIdx.x; at < total;
        at += (long long)gridDim.x * blockDim.x) {
@@ -94,8 +110,20 @@ __global__ void fused_mlp_swiglu_sum_kernel(const float* __restrict__ part,
       us += part[(2 * s + 1) * total + at];
     }
     const int f = static_cast<int>(at % F);
-    h[at] = __float2bfloat16(swiglu(gs * sg[f], us * su[f]));
+    const float v = swiglu(gs * sg[f], us * su[f]);
+    if constexpr (std::is_same<H, float>::value)
+      h[at] = v;
+    else
+      h[at] = __float2bfloat16(v);
   }
+}
+
+__global__ void fused_mlp_swiglu_sum_kernel(const float* __restrict__ part,
+                                            const float* __restrict__ sg,
+                                            const float* __restrict__ su,
+                                            __nv_bfloat16* __restrict__ h, int M, int F,
+                                            int splits) {
+  swiglu_sum(part, sg, su, h, M, F, splits);
 }
 
 __global__ void fused_mlp_down_sum_kernel(const float* __restrict__ part,
@@ -138,155 +166,156 @@ cudaError_t by_rows(int bm, bool gate_up_phase, const Args& g, int stages, cudaS
 }
 
 // ---------------------------------------------------------------------------
-// f32 x: the scalar kernel
+// f32 x: K7's f32 tiles (qmm_tile.h f32_tile), the same two phases
 // ---------------------------------------------------------------------------
 
-constexpr int S_BM = 64;
-constexpr int S_BF = 64;  // d_ff columns per CTA
-constexpr int S_BK = 32;  // K rows per slice of the gate/up products
-constexpr int S_BC = 64;  // output columns per chunk of the down product
-constexpr int S_THREADS = 256;
-
-__global__ void __launch_bounds__(S_THREADS)
-    fused_mlp_kernel(const float* __restrict__ x, const int8_t* __restrict__ wg,
-                     const float* __restrict__ sg, const int8_t* __restrict__ wu,
-                     const float* __restrict__ su, const int8_t* __restrict__ wd,
-                     float* __restrict__ part, int M, int K, int F) {
-  // sX (S_BM x S_BK+1) | sG, sU (S_BK x S_BF+1 each), reused as sD
-  // (S_BF x S_BC+1) | sH (S_BM x S_BF+1)
-  __shared__ float smem[S_BM * (S_BK + 1) + 2 * S_BK * (S_BF + 1) + S_BM * (S_BF + 1)];
-  float (*sX)[S_BK + 1] = reinterpret_cast<float (*)[S_BK + 1]>(smem);
-  float (*sG)[S_BF + 1] = reinterpret_cast<float (*)[S_BF + 1]>(smem + S_BM * (S_BK + 1));
-  float (*sU)[S_BF + 1] =
-      reinterpret_cast<float (*)[S_BF + 1]>(smem + S_BM * (S_BK + 1) + S_BK * (S_BF + 1));
-  float (*sD)[S_BC + 1] = reinterpret_cast<float (*)[S_BC + 1]>(smem + S_BM * (S_BK + 1));
-  float (*sH)[S_BF + 1] =
-      reinterpret_cast<float (*)[S_BF + 1]>(smem + S_BM * (S_BK + 1) + 2 * S_BK * (S_BF + 1));
-  static_assert(S_BF * (S_BC + 1) <= 2 * S_BK * (S_BF + 1), "sD must fit in sG and sU");
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int f0 = blockIdx.x * S_BF, m0 = blockIdx.y * S_BM;
-
-  float acc_g[4][4], acc_u[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc_g[i][j] = acc_u[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += S_BK) {
-    for (int e = tid; e < S_BM * S_BK; e += S_THREADS) {
-      const int r = e / S_BK, c = e % S_BK, gm = m0 + r;
-      sX[r][c] = gm < M ? x[(long long)gm * K + k0 + c] : 0.f;
-    }
-    for (int e = tid; e < S_BK * S_BF; e += S_THREADS) {
-      const int r = e / S_BF, c = e % S_BF;
-      const long long at = (long long)(k0 + r) * F + f0 + c;
-      sG[r][c] = static_cast<float>(wg[at]);
-      sU[r][c] = static_cast<float>(wu[at]);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < S_BK; ++kk) {
-      float xv[4], gv[4], uv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xv[i] = sX[ty + 16 * i][kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        gv[j] = sG[kk][tx + 16 * j];
-        uv[j] = sU[kk][tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc_g[i][j] = fmaf(xv[i], gv[j], acc_g[i][j]);
-          acc_u[i][j] = fmaf(xv[i], uv[j], acc_u[i][j]);
-        }
-    }
-    __syncthreads();
-  }
-
+// (a) BM rows of x by 32 d_ff columns of both Wg and Wu (DUAL): thread (tx,
+// ty) holds g (acc[i][j]) and u (acc[i][4 + j]) of d_ff columns f0 + 4 tx +
+// j, j < 4, of rows m0 + ty + TY i. One split: h = silu(g * sg) * (u * su)
+// in f32; several: the split's g and u partials to part[2z] and part[2z + 1].
+template <int BM>
+__device__ __forceinline__ void swiglu_f32_tile(const F32Args& g, const float* __restrict__ su,
+                                                const F32Sums& t) {
+  using C = F32Cfg<BM, true>;
+  const float(&acc)[8][8] = t.acc;
+  const int f = t.n0 + 4 * t.tx, ty = t.ty, m0 = t.m0;
+  if (f >= g.N) return;
+  const int count = min(4, g.N - f);
+  const bool vec = g.N % 4 == 0, split = gridDim.z > 1;
+  const long long total = (long long)g.M * g.N;
+  float s_g[4], s_u[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const int c = tx + 16 * j;
-    const float s_g = sg[f0 + c], s_u = su[f0 + c];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) sH[ty + 16 * i][c] = swiglu(acc_g[i][j] * s_g, acc_u[i][j] * s_u);
+    s_g[j] = j < count ? g.scales[f + j] : 0.f;
+    s_u[j] = j < count ? su[f + j] : 0.f;
   }
-
-  float* out_part = part + (long long)blockIdx.x * M * K;
-  for (int c0 = 0; c0 < K; c0 += S_BC) {
-    __syncthreads();  // sH written; sD free for the next chunk
-    for (int e = tid; e < S_BF * S_BC; e += S_THREADS) {
-      const int r = e / S_BC, c = e % S_BC;
-      sD[r][c] = static_cast<float>(wd[(long long)(f0 + r) * K + c0 + c]);
-    }
-    __syncthreads();
-    float acc[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + ty + C::TY * i;
+    if (m >= g.M) continue;
+    const long long at = (long long)m * g.N + f;
+    if (split) {
+      const float gp[4] = {acc[i][0], acc[i][1], acc[i][2], acc[i][3]};
+      const float up[4] = {acc[i][4], acc[i][5], acc[i][6], acc[i][7]};
+      store4(g.part + 2 * blockIdx.z * total, false, at, gp, count, vec);
+      store4(g.part + (2 * blockIdx.z + 1) * total, false, at, up, count, vec);
+    } else {
+      float h[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-    for (int f = 0; f < S_BF; ++f) {
-      float hv[4], dv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) hv[i] = sH[ty + 16 * i][f];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dv[j] = sD[f][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(hv[i], dv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + ty + 16 * i;
-      if (row >= M) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        out_part[(long long)row * K + c0 + tx + 16 * j] = acc[i][j];
+      for (int j = 0; j < 4; ++j) h[j] = swiglu(acc[i][j] * s_g[j], acc[i][4 + j] * s_u[j]);
+      store4(g.out, false, at, h, count, vec);
     }
   }
 }
 
-// sum the d_ff tiles' partials in tile order, scale by sd
-__global__ void fused_mlp_sum_kernel(const float* __restrict__ part, const float* __restrict__ sd,
-                                     float* __restrict__ out, int M, int K, int tiles) {
-  const long long total = (long long)M * K;
-  for (long long at = blockIdx.x * (long long)blockDim.x + threadIdx.x; at < total;
-       at += (long long)gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    for (int t = 0; t < tiles; ++t) acc += part[t * total + at];
-    out[at] = acc * sd[at % K];
-  }
+template <int BM, bool TMA>
+__global__ void __launch_bounds__(F32Cfg<BM, true>::THREADS, F32Cfg<BM, true>::MIN_BLOCKS)
+    fused_mlp_gateup_f32_kernel(const __grid_constant__ CUtensorMap xmap,
+                                const __grid_constant__ CUtensorMap wmap,
+                                const __grid_constant__ CUtensorMap umap, const F32Args g,
+                                const int8_t* __restrict__ wu, const float* __restrict__ su) {
+  F32Sums t;
+  f32_tile<8, BM, TMA, true>(&xmap, &wmap, &umap, g, wu, t);
+  swiglu_f32_tile<BM>(g, su, t);
 }
 
-cudaError_t launch_f32(const float* x, const int8_t* wg, const float* sg, const int8_t* wu,
-                       const float* su, const int8_t* wd, const float* sd, float* part,
-                       float* out, int M, int K, int F, cudaStream_t stream) {
-  if (K % S_BC != 0 || F % S_BF != 0) return cudaErrorInvalidValue;
-  const int tiles = F / S_BF;
-  dim3 grid(tiles, (M + S_BM - 1) / S_BM);
-  fused_mlp_kernel<<<grid, S_THREADS, 0, stream>>>(x, wg, sg, wu, su, wd, part, M, K, F);
-  cudaError_t err = cudaGetLastError();
+__global__ void fused_mlp_swiglu_sum_f32_kernel(const float* __restrict__ part,
+                                                const float* __restrict__ sg,
+                                                const float* __restrict__ su,
+                                                float* __restrict__ h, int M, int F,
+                                                int splits) {
+  swiglu_sum(part, sg, su, h, M, F, splits);
+}
+
+// (b) h @ Wd with sd after accumulation: K7's f32 kernel under K9's name
+template <int BM, bool TMA>
+__global__ void __launch_bounds__(F32Cfg<BM>::THREADS, F32Cfg<BM>::MIN_BLOCKS)
+    fused_mlp_down_f32_kernel(const __grid_constant__ CUtensorMap xmap,
+                              const __grid_constant__ CUtensorMap wmap, const F32Args g) {
+  f32_body<8, BM, TMA>(&xmap, &wmap, g);
+}
+
+__global__ void fused_mlp_down_sum_f32_kernel(const float* __restrict__ part,
+                                              const float* __restrict__ sd,
+                                              void* __restrict__ out, int M, int K, int splits) {
+  splitk_sum(part, sd, nullptr, out, 0, M, K, splits);
+}
+
+template <int BM, bool TMA>
+cudaError_t gate_up_f32(const F32Args& g, const int8_t* wu, const float* su, int splits,
+                        cudaStream_t stream) {
+  const auto kernel = fused_mlp_gateup_f32_kernel<BM, TMA>;
+  cudaError_t err = f32_smem<BM, true>(kernel);
   if (err != cudaSuccess) return err;
-  fused_mlp_sum_kernel<<<sum_blocks((long long)M * K), 256, 0, stream>>>(part, sd, out, M, K,
-                                                                          tiles);
+  CUtensorMap xmap{}, wmap{}, umap{};  // left zero for the cp.async loader, which reads none
+  if (TMA && !f32_maps<8, BM, true>(&xmap, &wmap, &umap, g, wu)) return cudaErrorInvalidValue;
+  const dim3 grid((g.N + F32Cfg<BM, true>::BN - 1) / F32Cfg<BM, true>::BN, (g.M + BM - 1) / BM,
+                  splits);
+  kernel<<<grid, F32Cfg<BM, true>::THREADS, F32Cfg<BM, true>::SMEM, stream>>>(xmap, wmap, umap,
+                                                                              g, wu, su);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  fused_mlp_swiglu_sum_f32_kernel<<<sum_blocks((long long)g.M * g.N), 256, 0, stream>>>(
+      g.part, g.scales, su, static_cast<float*>(g.out), g.M, g.N, splits);
   return cudaGetLastError();
 }
 
-}  // namespace
+template <int BM, bool TMA>
+cudaError_t down_f32(const F32Args& g, int splits, cudaStream_t stream) {
+  const auto kernel = fused_mlp_down_f32_kernel<BM, TMA>;
+  cudaError_t err = f32_smem<BM>(kernel);
+  if (err != cudaSuccess) return err;
+  CUtensorMap xmap{}, wmap{};  // left zero for the cp.async loader, which reads none
+  if (TMA && !f32_maps<8, BM>(&xmap, &wmap, nullptr, g)) return cudaErrorInvalidValue;
+  const dim3 grid((g.N + F32_BN - 1) / F32_BN, (g.M + BM - 1) / BM, splits);
+  kernel<<<grid, F32Cfg<BM>::THREADS, F32Cfg<BM>::SMEM, stream>>>(xmap, wmap, g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  fused_mlp_down_sum_f32_kernel<<<sum_blocks((long long)g.M * g.N), 256, 0, stream>>>(
+      g.part, g.scales, g.out, g.M, g.N, splits);
+  return cudaGetLastError();
+}
 
-extern "C" int fasn_fused_mlp_tiles(int F) { return F / S_BF; }
+template <int BM, bool TMA>
+cudaError_t phase_f32(bool gate_up_phase, const F32Args& g, const int8_t* wu, const float* su,
+                      int splits, cudaStream_t stream) {
+  return gate_up_phase ? gate_up_f32<BM, TMA>(g, wu, su, splits, stream)
+                       : down_f32<BM, TMA>(g, splits, stream);
+}
+
+// one phase of the f32 plan: 64 or 128 rows a tile, the ring F32Cfg builds
+cudaError_t by_rows_f32(int bm, bool tma, bool gate_up_phase, const F32Args& g,
+                        const int8_t* wu, const float* su, int stages, int splits,
+                        cudaStream_t stream) {
+  if (stages != F32Cfg<64>::STAGES) return cudaErrorInvalidValue;  // not the build's
+  if (bm == 64)
+    return tma ? phase_f32<64, true>(gate_up_phase, g, wu, su, splits, stream)
+               : phase_f32<64, false>(gate_up_phase, g, wu, su, splits, stream);
+  if (bm == 128)
+    return tma ? phase_f32<128, true>(gate_up_phase, g, wu, su, splits, stream)
+               : phase_f32<128, false>(gate_up_phase, g, wu, su, splits, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
 
 extern "C" int fasn_fused_mlp(const FasnMlp* a, const FasnMlpPlan* plan, cudaStream_t stream) {
   const int8_t* wg = static_cast<const int8_t*>(a->wg);
   const int8_t* wu = static_cast<const int8_t*>(a->wu);
   const int8_t* wd = static_cast<const int8_t*>(a->wd);
-  if (a->dtype == 0)
-    return launch_f32(static_cast<const float*>(a->x), wg, a->sg, wu, a->su, wd, a->sd,
-                      a->gu_part, static_cast<float*>(a->out), a->M, a->K, a->F, stream);
+  if (a->dtype == 0) {
+    // x (M x K) times Wg and Wu (K x F) -> h (M x F, f32)
+    const F32Args gu{static_cast<const float*>(a->x), wg, a->sg, a->gu_part, a->h, 0, a->M, a->K,
+                     a->F, plan->gu_per};
+    cudaError_t err = by_rows_f32(plan->gu_bm, plan->gu_tma, true, gu, wu, a->su,
+                                  plan->gu_stages, plan->gu_splits, stream);
+    if (err != cudaSuccess) return err;
+    // h (M x F) times Wd (F x K) -> out (M x K)
+    const F32Args dn{static_cast<const float*>(a->h), wd, a->sd, a->dn_part, a->out, 0, a->M,
+                     a->F, a->K, plan->dn_per};
+    return by_rows_f32(plan->dn_bm, plan->dn_tma, false, dn, nullptr, nullptr, plan->dn_stages,
+                       plan->dn_splits, stream);
+  }
   if (a->dtype != 1) return cudaErrorInvalidValue;
   // x (M x K) times Wg and Wu (K x F) -> h (M x F)
   const Args gu{a->x, nullptr, wg, a->sg, wu, a->su, a->gu_part, a->h, 1, a->M, a->K, a->F,

@@ -58,13 +58,14 @@ int fasn_flash_bwd_dkv(const FasnAttn* a, const void* dout, const float* lse, co
 // K2 (qmm_argmax.cu). x (M,K) contiguous, bf16 (dtype 1) or f32 (dtype 0);
 // w (K,N) int8 contiguous; scales (N,) f32; out_idx (M,) int32, out_val
 // (M,) f32; part_val/part_idx scratch of M * slots. The plan
-// (kernels/quant_matmul.py qmm_argmax_plan): f32 x takes bm = 64 (64 x 64
-// tiles), ctas = slots = ceil(N / 64) column tiles, no TMA; bf16 x bm 64
-// (256 vocab columns a tile), 128 or 256 (128 columns), `ctas` persistent
-// CTAs, a multiple of the ceil(M / bm) row tiles and at most the tiles
-// (slots = ctas / row tiles), and use_tma where x's and w's row strides
-// and base addresses are multiples of 16 bytes. M, K, N >= 1. The
-// operator checks the plan.
+// (kernels/quant_matmul.py qmm_argmax_plan): f32 x takes bm 64 or 128
+// (bm x 64 tiles), ctas = ceil(M / bm) * ceil(N / 64) and slots =
+// ceil(N / 64), a slot per column tile; bf16 x bm 64 (256 vocab columns a
+// tile), 128 or 256 (128 columns), `ctas` persistent CTAs, a multiple of
+// the ceil(M / bm) row tiles and at most the tiles (slots = ctas / row
+// tiles); use_tma where x's and w's row strides and base addresses are
+// multiples of 16 bytes (else f32 x takes cp.async, bf16 x a predicated
+// producer). M, K, N >= 1. The operator checks the plan.
 int fasn_qmm_argmax(const void* x, const void* w, const float* scales, float* part_val,
                     int* part_idx, int* out_idx, float* out_val, int M, int K, int N, int dtype,
                     int bm, int ctas, int use_tma, cudaStream_t stream);
@@ -93,9 +94,10 @@ int fasn_tail_append(void* k_tail, void* v_tail, const void* k_new, const void* 
 // ceil(K / this) slices are split among the CTAs of one output tile.
 int fasn_qmm_stage_k(int x_dtype);
 
-// K7's f32 mode (qmm_f32_kernel) with bm-row tiles: its shared-memory
-// bytes a CTA, and in *stages the depth of its ring; -1 for a bm it lacks.
-int fasn_qmm_f32_layout(int bm, int* stages);
+// K7's f32 mode (qmm_f32_kernel) with bm-row tiles, or (dual) K9's f32
+// gate/up phase: its shared-memory bytes a CTA, and in *stages the depth of
+// its ring; -1 for a bm it lacks.
+int fasn_qmm_f32_layout(int bm, int dual, int* stages);
 
 // K7. x (M,K) contiguous, f32 (x_dtype 0), bf16 (1) or int8 (2, W8A8, with
 // x_scales (M,) f32); w int8 (K,N), or int4 (bits 4) packed (K/2,N) in
@@ -113,15 +115,11 @@ int fasn_qmm(const void* x, const float* x_scales, const void* w, const float* s
              void* partial, void* out, int M, int K, int N, int x_dtype, int bits, int out_dtype,
              int bm, int splits, int slices_per_split, int use_tma, cudaStream_t stream);
 
-// K9 (fused_mlp.cu). f32 x: d_ff tiles of the scalar kernel, whose
-// scratch gu_part holds tiles * M * K f32.
-int fasn_fused_mlp_tiles(int F);
-
-// K9's inputs. x (M,K) contiguous, f32 (dtype 0) or bf16 (1); wg, wu int8
-// (K,F) and wd int8 (F,K) contiguous; sg, su (F,) and sd (K,) f32; out (M,K)
-// like x. bf16: h (M,F) bf16 scratch; gu_part (2 * gu_splits, M, F) and
-// dn_part (dn_splits, M, K) f32 scratch where the phase splits K. f32: K % 64
-// == 0 and F % 64 == 0, gu_part as fasn_fused_mlp_tiles says.
+// K9's inputs (fused_mlp.cu). x (M,K) contiguous, f32 (dtype 0) or bf16
+// (1); wg, wu int8 (K,F) and wd int8 (F,K) contiguous; sg, su (F,) and sd
+// (K,) f32; out (M,K) like x; h (M,F) scratch like x; gu_part (2 *
+// gu_splits, M, F) and dn_part (dn_splits, M, K) f32 scratch where the
+// phase splits K.
 struct FasnMlp {
   const void* x;
   const void* wg;
@@ -137,18 +135,20 @@ struct FasnMlp {
   int M, K, F, dtype;
 };
 
-// K9's plan for bf16 x (kernels/fused_mlp.py fused_mlp_plan), one set per
-// phase (gu: x @ [Wg | Wu] -> h, 64 d_ff columns a tile; dn: h @ Wd, K7's
-// tiles): rows per tile (64, 128 or 256), the ring's stages (the depth the
-// kernel is built with), splits ranges of per 64-row K slices (every slice
-// in one, none empty), and TMA where the row strides and base addresses are
-// multiples of 16 bytes (else the predicated producer).
+// K9's plan (kernels/fused_mlp.py fused_mlp_plan), one set per phase (gu:
+// x @ [Wg | Wu] -> h, 64 (bf16) or 32 (f32) d_ff columns of each a tile;
+// dn: h @ Wd, K7's tiles): rows per tile (bf16 x 64, 128 or 256; f32 x 64
+// or 128), the ring's stages (the depth the kernel is built with), splits
+// ranges of per K slices (64 rows for bf16 x, 32 for f32; every slice in
+// one, none empty), and TMA where the row strides and base addresses are
+// multiples of 16 bytes (else the predicated producer, or for f32 x
+// cp.async).
 struct FasnMlpPlan {
   int gu_bm, gu_stages, gu_splits, gu_per, gu_tma;
   int dn_bm, dn_stages, dn_splits, dn_per, dn_tma;
 };
 
-// K9. plan is read for bf16 x only; the operator has checked it.
+// K9. The operator has checked the plan.
 int fasn_fused_mlp(const FasnMlp* a, const FasnMlpPlan* plan, cudaStream_t stream);
 
 // K8's inputs. q (B,KVH,G,HD) contiguous, f32 (q_dtype 0), bf16 (1) or

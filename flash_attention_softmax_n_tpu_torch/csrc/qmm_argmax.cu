@@ -8,9 +8,11 @@
 // wins over any number, as in torch.max) and the (M, N) logits never
 // written to device memory.
 //
-// What bounds it on the H100: at decode sizes (M64, K2048, N32000) the
-// bytes of W, read once: 65.5 MB at 3.35 TB/s, 0.0197 ms; at M256 the
-// operations, 2*M*K*N at 989 TFLOP/s (bf16), 0.0339 ms.
+// What bounds it on the H100: for bf16 x at decode sizes (M64, K2048,
+// N32000) the bytes of W, read once: 65.5 MB at 3.35 TB/s, 0.0197 ms; at
+// M256 the operations, 2*M*K*N at 989 TFLOP/s (bf16), 0.0339 ms; for f32
+// x the operations at 67 TFLOP/s (f32 outside the tensor cores), 0.125 ms
+// at M64.
 //
 // bf16 x: qmm_argmax_wgmma_kernel, K7's tensor-core pieces (qmm_tile.h)
 // with an argmax epilogue in place of K7's write. Persistent CTAs walk
@@ -37,10 +39,17 @@
 // so the answer does not depend on the order of either reduction: no
 // atomics, and repeated calls are bit-equal.
 //
-// f32 x keeps qmm_argmax_scalar_kernel: 64 x 64 tiles of scalar f32 FMAs
-// over 32-deep K slices staged in shared memory, one slot per column tile,
-// merged by the same second kernel. wgmma has no f32 x f32 product, and no
-// serving route gives K2 f32 x.
+// f32 x: qmm_argmax_f32_kernel, K7's f32 tiles (qmm_tile.h f32_tile: f32
+// FMAs, 8 x 8 outputs a thread, a TMA or cp.async ring of three 32-row
+// stages, W converted to f32 once per CTA per stage) over the whole of K,
+// bound by 2*M*K*N operations at 67 TFLOP/s (wgmma has no f32 x f32
+// product, and one TF32 pass would not hold f32's tolerance). One CTA a
+// (BM x 64) tile, BM 64 below M = 128 (four CTAs an SM: 500 CTAs, about one
+// wave, at M64 N32000), else 128 (three). Its epilogue scales each sum,
+// drops columns >= N and takes each row's winner over the 8 threads that
+// share the row (shuffles), and writes one (value, index) slot a row for
+// each column tile; the same merge kernel reduces the slots. No serving
+// route gives K2 f32 x.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -163,77 +172,79 @@ __global__ void __launch_bounds__(Cfg<false, 8, BM, false, WIDE>::THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// f32 x: scalar FMAs on (64 x 64) tiles, 32-deep K slices
+// f32 x: K7's f32 tiles (qmm_tile.h f32_tile) with an argmax epilogue
 // ---------------------------------------------------------------------------
 
-constexpr int F32_BM = 64;
-constexpr int F32_BN = 64;
-constexpr int F32_BK = 32;
-constexpr int F32_THREADS = 256;
-
-__global__ void __launch_bounds__(F32_THREADS)
-    qmm_argmax_scalar_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
-                             const float* __restrict__ scales, float* __restrict__ part_val,
-                             int* __restrict__ part_idx, int M, int K, int N, int n_tiles) {
-  __shared__ float sX[F32_BM][F32_BK + 1];
-  __shared__ float sW[F32_BK][F32_BN + 1];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int n0 = blockIdx.x * F32_BN, m0 = blockIdx.y * F32_BM;
-
-  float acc[4][4];
+// A (BM x 64) tile over the whole of K, then each row's winner among the
+// tile's columns: thread (tx, ty) holds columns n0 + 4 tx + 32 h + [0, 4)
+// of rows m0 + ty + TY i, scaled after accumulation, columns >= N dropped;
+// the row's 8 threads (tx: 8 consecutive lanes of one warp) meet by shuffles,
+// and tx 0 writes the row's (value, index) to slot blockIdx.x (a slot per
+// column tile).
+template <int BM>
+__device__ __forceinline__ void argmax_f32_tile(const F32Args& g, const F32Sums& t,
+                                                float* __restrict__ part_val,
+                                                int* __restrict__ part_idx) {
+  using C = F32Cfg<BM>;
+  const int tx = t.tx, ty = t.ty, n0 = t.n0, m0 = t.m0, slots = gridDim.x;
+  float s[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += F32_BK) {
-    for (int e = tid; e < F32_BM * F32_BK; e += F32_THREADS) {
-      const int r = e / F32_BK, c = e % F32_BK;
-      const int gm = m0 + r, gk = k0 + c;
-      sX[r][c] = (gm < M && gk < K) ? x[(long long)gm * K + gk] : 0.f;
-    }
-    for (int e = tid; e < F32_BK * F32_BN; e += F32_THREADS) {
-      const int r = e / F32_BN, c = e % F32_BN;
-      const int gk = k0 + r, gn = n0 + c;
-      sW[r][c] = (gk < K && gn < N) ? (float)w[(long long)gk * N + gn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < F32_BK; ++kk) {
-      float xv[4], wv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xv[i] = sX[ty + 16 * i][kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = sW[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int j = 0; j < 8; ++j) {
+    const int n = n0 + 32 * (j / 4) + 4 * tx + j % 4;
+    s[j] = n < g.N ? g.scales[n] : 0.f;
   }
-
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float bv = -INFINITY;
+  for (int i = 0; i < 8; ++i) {
+    float bv = -INFINITY;  // with index INT_MAX: loses to every column
     int bi = INT_MAX;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col < N) take_better(acc[i][j] * scales[col], col, bv, bi);
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + 32 * (j / 4) + 4 * tx + j % 4;
+      if (n < g.N) take_better(t.acc[i][j] * s[j], n, bv, bi);
     }
 #pragma unroll
-    for (int s = 8; s > 0; s >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, s);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, s);
+    for (int o = 1; o < 8; o <<= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
       take_better(ov, oi, bv, bi);
     }
-    const int row = m0 + ty + 16 * i;
-    if (tx == 0 && row < M) {
-      part_val[(long long)row * n_tiles + blockIdx.x] = bv;
-      part_idx[(long long)row * n_tiles + blockIdx.x] = bi;
+    const int m = m0 + ty + C::TY * i;
+    if (tx == 0 && m < g.M) {
+      part_val[(long long)m * slots + blockIdx.x] = bv;
+      part_idx[(long long)m * slots + blockIdx.x] = bi;
     }
   }
+}
+
+template <int BM, bool TMA>
+__global__ void __launch_bounds__(F32Cfg<BM>::THREADS, F32Cfg<BM>::MIN_BLOCKS)
+    qmm_argmax_f32_kernel(const __grid_constant__ CUtensorMap xmap,
+                          const __grid_constant__ CUtensorMap wmap, const F32Args g,
+                          float* __restrict__ part_val, int* __restrict__ part_idx) {
+  F32Sums t;
+  f32_tile<8, BM, TMA>(&xmap, &wmap, nullptr, g, nullptr, t);
+  argmax_f32_tile<BM>(g, t, part_val, part_idx);
+}
+
+template <int BM, bool TMA>
+cudaError_t launch_f32_tiles(const F32Args& g, float* part_val, int* part_idx,
+                             cudaStream_t stream) {
+  const auto kernel = qmm_argmax_f32_kernel<BM, TMA>;
+  cudaError_t err = f32_smem<BM>(kernel);
+  if (err != cudaSuccess) return err;
+  CUtensorMap xmap{}, wmap{};  // left zero for the cp.async loader, which reads none
+  if (TMA && !f32_maps<8, BM>(&xmap, &wmap, nullptr, g)) return cudaErrorInvalidValue;
+  const dim3 grid((g.N + F32_BN - 1) / F32_BN, (g.M + BM - 1) / BM);
+  kernel<<<grid, F32Cfg<BM>::THREADS, F32Cfg<BM>::SMEM, stream>>>(xmap, wmap, g, part_val,
+                                                                  part_idx);
+  return cudaGetLastError();
+}
+
+template <int BM>
+cudaError_t launch_f32_loader(bool tma, const F32Args& g, float* part_val, int* part_idx,
+                              cudaStream_t stream) {
+  return tma ? launch_f32_tiles<BM, true>(g, part_val, part_idx, stream)
+             : launch_f32_tiles<BM, false>(g, part_val, part_idx, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -305,13 +316,17 @@ extern "C" int fasn_qmm_argmax(const void* x, const void* w, const float* scales
                                cudaStream_t stream) {
   const int8_t* wq = static_cast<const int8_t*>(w);
   if (dtype == 0) {
-    const int n_tiles = (N + F32_BN - 1) / F32_BN;
-    dim3 grid(n_tiles, (M + F32_BM - 1) / F32_BM);
-    qmm_argmax_scalar_kernel<<<grid, F32_THREADS, 0, stream>>>(
-        static_cast<const float*>(x), wq, scales, part_val, part_idx, M, K, N, n_tiles);
-    cudaError_t err = cudaGetLastError();
+    // every K stage in the one split: an argmax of partial sums is not the
+    // argmax of the sum
+    const F32Args f{static_cast<const float*>(x), wq, scales, nullptr, nullptr, 0, M, K, N,
+                    (K + F32_BK - 1) / F32_BK};
+    const bool tma = use_tma != 0;
+    cudaError_t err = bm == 64    ? launch_f32_loader<64>(tma, f, part_val, part_idx, stream)
+                      : bm == 128 ? launch_f32_loader<128>(tma, f, part_val, part_idx, stream)
+                                  : cudaErrorInvalidValue;
     if (err != cudaSuccess) return err;
-    return launch_merge(part_val, part_idx, out_idx, out_val, M, n_tiles, stream);
+    return launch_merge(part_val, part_idx, out_idx, out_val, M, (N + F32_BN - 1) / F32_BN,
+                        stream);
   }
   if (dtype != 1) return cudaErrorInvalidValue;
   const int n_slices = (K + Cfg<false, 8, 64>::BK - 1) / Cfg<false, 8, 64>::BK;

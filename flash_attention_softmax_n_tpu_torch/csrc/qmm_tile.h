@@ -2,8 +2,10 @@
 // (fused_mlp.cu) and K2 (qmm_argmax.cu): the TMA ring with its producer
 // warp, persistent CTAs over (row tile, K split, column tile), the bf16-x
 // consumer that multiplies out^T = W^T x^T with W's int8 columns converted
-// to bf16 in registers, the W8A8 consumer, and the fixed-order split-K sum.
-// qmm.cu's header comment describes the design; this file holds the code.
+// to bf16 in registers, the W8A8 consumer, and the fixed-order split-K sum;
+// and K7's f32 mode (F32Cfg, f32_tile: f32 FMAs fed by a TMA or cp.async
+// ring), on which K2's and K9's f32-x kernels run too. qmm.cu's header
+// comment describes the design; this file holds the code.
 //
 // The bf16-x consumer hands each finished tile's accumulators to an
 // epilogue object (Epi): K7's and K9's down phase take WriteTile, which
@@ -672,6 +674,391 @@ cudaError_t launch_wgmma(Kernel kernel, Args& g, cudaStream_t stream) {
   else
     kernel<<<grid, C::THREADS, C::SMEM, stream>>>(xmap, wmap, g);
   return cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// The f32 mode (qmm.cu's header describes it): f32 FMAs on (BM x 64) tiles,
+// 8 x 8 outputs a thread, fed by an asynchronous ring of 32-row K stages.
+// f32_tile leaves a tile's sums in registers for an epilogue: K7's
+// qmm_f32_kernel and K9's down phase write them (F32Write, f32_body); K2's
+// qmm_argmax_f32_kernel takes each row's winner and K9's gate/up phase
+// forms h from them (F32Sums).
+// DUAL (K9's gate/up phase, int8 W): a tile is 32 d_ff columns of each of
+// two weight matrices (Wg and Wu, the same columns). A stage carries both
+// matrices' 32-byte rows, and the converted tile's columns 0-31 are Wg's,
+// 32-63 Wu's, so that a thread's outputs j and 4 + j (j < 4) are g and u of
+// one (row, column), and fma_f32_stage serves both modes unchanged.
+// ---------------------------------------------------------------------------
+
+constexpr int F32_BK = 32;  // logical K rows per stage: one 128-byte row of x
+constexpr int F32_BN = 64;  // output columns per tile
+// cp.async: the aligned words that cover a W row's 64 bytes
+constexpr int F32_WORDS = F32_BN / 4 + 1;
+// bytes of one W row in a stage: TMA writes 64, cp.async its 17 words
+template <bool TMA>
+constexpr int F32_W_PITCH = TMA ? F32_BN : 80;
+// DUAL: one matrix's 32-byte rows (cp.async: the 9 words that cover them),
+// Wu's after Wg's
+constexpr int F32_DUAL_WORDS = F32_BN / 8 + 1;
+template <bool TMA>
+constexpr int F32_DUAL_PITCH = TMA ? F32_BN / 2 : 48;
+template <bool TMA>
+constexpr int F32_DUAL_U_AT = F32_BK * F32_DUAL_PITCH<TMA>;
+
+// BM 128: three CTAs an SM (12 warps); BM 64 (below M = 128): four (8
+// warps). Shared memory: the ring's x stages (BM x 128 bytes, 128-byte
+// swizzle), its W stages, two converted W tiles (32 x 64 f32) and the
+// ring's full barriers.
+template <int BM, bool DUAL = false>
+struct F32Cfg {
+  static constexpr int THREADS = BM;  // BM / 8 rows of threads by 8 columns
+  static constexpr int TY = BM / 8;   // a thread's rows: ty + TY i, i < 8
+  static constexpr int STAGES = 3;
+  static constexpr int MIN_BLOCKS = BM == 128 ? 3 : 4;
+  // 4-k blocks a pass of the FMA loop, half a stage: warps of several CTAs
+  // drift apart and run faster from less code than from a whole stage
+  static constexpr int UNROLL = 4;
+  static constexpr int BN = DUAL ? F32_BN / 2 : F32_BN;  // a tile's columns of each matrix
+  static constexpr int X_STAGE = BM * 128;
+  static constexpr int W_STAGE = DUAL ? 2 * F32_DUAL_U_AT<false> : F32_BK * F32_W_PITCH<false>;
+  static constexpr int WF = F32_BK * F32_BN * 4;
+  static constexpr int W_AT = STAGES * X_STAGE;
+  static constexpr int WF_AT = W_AT + STAGES * W_STAGE;
+  static constexpr int BAR_AT = WF_AT + 2 * WF;
+  static constexpr int SMEM = BAR_AT + 8 * STAGES + 1024;  // + room to align to 1 KB
+  static_assert(TY % 8 == 0, "a thread's rows share their swizzle phase");
+  static_assert(W_STAGE % 128 == 0 && X_STAGE % 1024 == 0, "TMA writes 128-byte aligned boxes");
+  // MIN_BLOCKS CTAs an SM, each with its 1 KB the card reserves
+  static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "the CTAs do not fit an SM");
+};
+
+// x (M x K f32), W (K x N, or K/2 x N packed int4) and its column scales;
+// part: the split partials, f32, [splits][M][N] ([2 * split + matrix][M][N]
+// under DUAL); out: M x N, f32 or bf16; per: K stages a split
+struct F32Args {
+  const float* x;
+  const int8_t* w;
+  const float* scales;
+  float* part;
+  void* out;
+  int out_bf16, M, K, N, per;
+};
+
+// 4 bytes from global to shared memory, `bytes` of them read and the rest zero
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// the bytes of a W row in [4 word, 4 word + 4) that lie in W (total bytes)
+__device__ __forceinline__ int word_bytes(long long total, long long word) {
+  const long long left = total - 4 * word;
+  return left >= 4 ? 4 : left > 0 ? static_cast<int>(left) : 0;
+}
+
+// the cp.async loader: stage t into the layout TMA writes for x (zeros past
+// M and K), and each W row's 64 bytes from column n0 as the 17 aligned words
+// that cover them (zeros past the array), so that any N works; DUAL: each
+// matrix's 32 bytes as 9 words, Wg's rows (g.w) then Wu's (w2)
+template <int BITS, int BM, bool DUAL = false>
+__device__ __forceinline__ void load_f32_stage(uint8_t* xs, uint8_t* ws, const F32Args& g,
+                                               int m0, int n0, int t, int tid,
+                                               const int8_t* w2 = nullptr) {
+  using C = F32Cfg<BM, DUAL>;
+#pragma unroll 4
+  for (int u = 0; u < BM * F32_BK / C::THREADS; ++u) {
+    const int e = tid + C::THREADS * u;
+    const int r = e / F32_BK, c = e % F32_BK, gm = m0 + r, gk = t * F32_BK + c;
+    const bool in = gm < g.M && gk < g.K;
+    cp_async4(smem_u32(xs + sw128(r * 128 + 4 * c)), in ? g.x + (long long)gm * g.K + gk : g.x,
+              in ? 4 : 0);
+  }
+  const long long total = (long long)(BITS == 4 ? g.K / 2 : g.K) * g.N;
+  const int wr = w_row<BITS, F32_BK>(t);
+  if constexpr (DUAL) {
+    static_assert(BITS == 8, "the dual stage takes int8 W");
+    constexpr int ONE = F32_BK * F32_DUAL_WORDS;  // one matrix's words
+    for (int e = tid; e < 2 * ONE; e += C::THREADS) {
+      const int mat = e / ONE, r = e % ONE / F32_DUAL_WORDS, c = e % F32_DUAL_WORDS;
+      const long long word = (((long long)(wr + r) * g.N + n0) >> 2) + c;
+      const int bytes = word_bytes(total, word);
+      const int8_t* w = mat ? w2 : g.w;
+      cp_async4(smem_u32(ws + mat * F32_DUAL_U_AT<false> + r * F32_DUAL_PITCH<false> + 4 * c),
+                bytes ? w + 4 * word : w, bytes);
+    }
+  } else {
+    for (int e = tid; e < F32_BK * F32_WORDS; e += C::THREADS) {
+      const int r = e / F32_WORDS, c = e % F32_WORDS;
+      const long long word = (((long long)(wr + r) * g.N + n0) >> 2) + c;
+      const int bytes = word_bytes(total, word);
+      cp_async4(smem_u32(ws + r * F32_W_PITCH<false> + 4 * c), bytes ? g.w + 4 * word : g.w,
+                bytes);
+    }
+  }
+}
+
+// W's stage into f32 in logical K order (nibbles sign-extended), once per
+// CTA: a warp reads two rows' words and writes their 128 values; each
+// thread converts the same column word of THREADS / 16-row-apart rows,
+// unrolled, so that the step costs little beside the stage's FMAs. DUAL:
+// words 0-7 of a converted row are Wg's, 8-15 Wu's; the Wu half of a warp
+// takes rows 2 apart from its Wg half's (r0 ^ 2), so that the warp's four
+// 32-byte rows fall in 32 different banks.
+template <int BITS, int BM, bool TMA, bool DUAL = false>
+__device__ __forceinline__ void convert_f32_stage(const uint8_t* ws, float* wf, const F32Args& g,
+                                                  int n0, int t, int tid) {
+  constexpr int STEP = F32Cfg<BM, DUAL>::THREADS / 16;
+  static_assert(F32_BN / 4 == 16 && F32_BK % STEP == 0, "half a warp a row, a thread a word");
+  static_assert(!DUAL || STEP >= 4, "r0 ^ 2 stays among the first STEP rows");
+  constexpr int PITCH = DUAL ? F32_DUAL_PITCH<TMA> : F32_W_PITCH<TMA>;
+  const int h = nibble_of<BITS, F32_BK>(t), c = tid % 16;
+  const int r0 = DUAL && c >= 8 ? (tid / 16) ^ 2 : tid / 16;
+  const uint8_t* src = DUAL ? ws + (c / 8) * F32_DUAL_U_AT<TMA> : ws;
+  const int cw = DUAL ? c % 8 : c;
+  // cp.async: row r's first byte sat (its offset in W) % 4 into its first word
+  const long long first = (long long)(w_row<BITS, F32_BK>(t) + r0) * g.N + n0;
+#pragma unroll
+  for (int u = 0; u < F32_BK / STEP; ++u) {
+    const int r = r0 + STEP * u;
+    const uint32_t* row = reinterpret_cast<const uint32_t*>(src + r * PITCH);
+    uint32_t v = row[cw];
+    if (!TMA)
+      v = __funnelshift_r(v, row[cw + 1],
+                          8 * static_cast<int>((first + (long long)STEP * u * g.N) & 3));
+    if (BITS == 4) v = nibbles(v, h);
+    v ^= 0x80808080u;
+    *reinterpret_cast<float4*>(wf + r * F32_BN + 4 * c) =
+        make_float4(biased_byte_f32(v, 0), biased_byte_f32(v, 1), biased_byte_f32(v, 2),
+                    biased_byte_f32(v, 3));
+  }
+}
+
+// acc[i][j] += x[row i][k] * w[k][column j] over the stage's 32 k: x read
+// along K from its swizzled stage (a thread's rows share one swizzle phase),
+// W from its converted tile (a warp's 8 columns of threads read 128
+// contiguous bytes); 4 shared-memory vector reads a k for 64 FMAs.
+template <int BM>
+__device__ __forceinline__ void fma_f32_stage(const uint8_t* xs, const float* wf, int tx, int ty,
+                                              float (&acc)[8][8]) {
+  using C = F32Cfg<BM>;
+  const uint8_t* xrow = xs + ty * 128;
+  const float* wcol = wf + 4 * tx;
+#pragma unroll C::UNROLL
+  for (int q = 0; q < F32_BK / 4; ++q) {
+    const int chunk = (q ^ (ty & 7)) << 4;
+    float4 xv[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      xv[i] = *reinterpret_cast<const float4*>(xrow + C::TY * 128 * i + chunk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 w0 = *reinterpret_cast<const float4*>(wcol + (4 * q + kk) * F32_BN);
+      const float4 w1 = *reinterpret_cast<const float4*>(wcol + (4 * q + kk) * F32_BN + 32);
+      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float a = kk == 0 ? xv[i].x : kk == 1 ? xv[i].y : kk == 2 ? xv[i].z : xv[i].w;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a, wv[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+// four consecutive outputs of a row from `at`, `count` of them in range;
+// vector stores where N % 4 == 0 keeps them aligned
+__device__ __forceinline__ void store4(void* out, bool bf16, long long at, const float (&v)[4],
+                                       int count, bool vec) {
+  if (vec && count == 4) {
+    if (bf16) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(out) + at) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                     *reinterpret_cast<const uint32_t*>(&hi));
+    } else {
+      *reinterpret_cast<float4*>(static_cast<float*>(out) + at) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+    return;
+  }
+  for (int j = 0; j < count && j < 4; ++j) store_out(out, bf16, at + j, v[j], 0.f, false);
+}
+
+// f32_tile's default epilogue, K7's write: the tile's sums scaled and
+// written, 4 outputs at a time, with one split; else its f32 partial to
+// part[split][M][N]. It is written out in f32_tile itself, beside the
+// accumulators: called through a function instead, it reorders K7's
+// registers in the SASS.
+struct F32Write {};
+
+// The other epilogue: a tile's sums and where they lie, taken out of
+// f32_tile for the caller's epilogue after it. With K2's epilogue called
+// inside f32_tile instead, its 128-row kernel's main loop compiled slower
+// (M256 K2048 N32000 on an H100: 0.88-0.98 against 0.85 ms).
+struct F32Sums {
+  float acc[8][8];
+  int tx, ty, n0, m0;
+  __device__ __forceinline__ void operator()(const float (&a)[8][8], int x, int y, int n,
+                                             int m) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = a[i][j];
+    tx = x;
+    ty = y;
+    n0 = n;
+    m0 = m;
+  }
+};
+
+// One tile's sums over its split's K stages, then K7's write (F32Write)
+// or epi(acc, tx, ty, n0, m0) (F32Sums). The CTA's tile: columns n0 = blockIdx.x * BN
+// (of each matrix under DUAL), rows m0 = blockIdx.y * BM, split
+// blockIdx.z. Thread (tx, ty) = (tid % 8, tid / 8) holds rows m0 + ty +
+// TY i and columns n0 + 4 tx + 32 h + [0, 4) (DUAL: h = 0 Wg's, h = 1
+// Wu's columns n0 + 4 tx + [0, 4)). Stage j goes to ring slot j % STAGES,
+// STAGES - 1 stages ahead of the FMAs; W's stage j + 1 converts into one W
+// tile while the FMAs read stage j's in the other; one barrier a stage.
+// umap and w2: Wu's map and rows under DUAL.
+template <int BITS, int BM, bool TMA, bool DUAL = false, typename Epi = F32Write>
+__device__ __forceinline__ void f32_tile(const CUtensorMap* xmap, const CUtensorMap* wmap,
+                                         const CUtensorMap* umap, const F32Args& g,
+                                         const int8_t* w2, Epi&& epi = Epi()) {
+  using C = F32Cfg<BM, DUAL>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t bars = smem_u32(smem + C::BAR_AT);
+  const int tid = threadIdx.x, tx = tid % 8, ty = tid / 8;
+  const int n0 = blockIdx.x * C::BN, m0 = blockIdx.y * BM;
+  const int t0 = blockIdx.z * g.per;
+  const int nk = min((g.K + F32_BK - 1) / F32_BK, t0 + g.per) - t0;
+  auto x_stage = [&](int j) { return smem + (j % C::STAGES) * C::X_STAGE; };
+  auto w_stage = [&](int j) { return smem + C::W_AT + (j % C::STAGES) * C::W_STAGE; };
+  auto w_tile = [&](int j) { return reinterpret_cast<float*>(smem + C::WF_AT + (j & 1) * C::WF); };
+
+  if (TMA && tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // issue stage j (cp.async: every thread commits one group a call, so that
+  // the groups count stages)
+  auto load = [&](int j) {
+    if (TMA) {
+      if (tid == 0 && j < nk) {
+        const uint32_t bar = bars + 8 * (j % C::STAGES);
+        mbar_expect_tx(bar, C::X_STAGE + F32_BK * F32_BN);
+        tma_2d(smem_u32(x_stage(j)), xmap, bar, (t0 + j) * F32_BK, m0);
+        tma_2d(smem_u32(w_stage(j)), wmap, bar, n0, w_row<BITS, F32_BK>(t0 + j));
+        if (DUAL)
+          tma_2d(smem_u32(w_stage(j) + F32_DUAL_U_AT<true>), umap, bar, n0,
+                 w_row<BITS, F32_BK>(t0 + j));
+      }
+    } else {
+      if (j < nk)
+        load_f32_stage<BITS, BM, DUAL>(x_stage(j), w_stage(j), g, m0, n0, t0 + j, tid, w2);
+      cp_async_commit();
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int j = 0; j < C::STAGES - 1; ++j) load(j);
+  if (TMA)
+    mbar_wait(bars, 0);
+  else
+    cp_async_wait<C::STAGES - 2>();
+  __syncthreads();
+  convert_f32_stage<BITS, BM, TMA, DUAL>(w_stage(0), w_tile(0), g, n0, t0, tid);
+  for (int it = 0; it < nk; ++it) {
+    // stage it + 1 has landed: for cp.async, this thread's groups up to it
+    if (it + 1 < nk) {
+      if (TMA)
+        mbar_wait(bars + 8 * ((it + 1) % C::STAGES), ((it + 1) / C::STAGES) & 1);
+      else
+        cp_async_wait<C::STAGES - 3>();
+    }
+    // every thread's copies of stage it + 1 and W tile it are visible, and
+    // stage it - 1's slot and W tile it - 1 are read
+    __syncthreads();
+    load(it + C::STAGES - 1);
+    if (it + 1 < nk)
+      convert_f32_stage<BITS, BM, TMA, DUAL>(w_stage(it + 1), w_tile(it + 1), g, n0, t0 + it + 1,
+                                             tid);
+    fma_f32_stage<BM>(x_stage(it), w_tile(it), tx, ty, acc);
+  }
+  if constexpr (!std::is_same<Epi, F32Write>::value) {  // F32Sums&
+    epi(acc, tx, ty, n0, m0);
+  } else {
+    const bool direct = gridDim.z == 1, vec = g.N % 4 == 0;
+    void* dst = direct ? g.out : static_cast<void*>(g.part + (long long)blockIdx.z * g.M * g.N);
+    const bool bf16 = direct && g.out_bf16;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + 32 * h + 4 * tx;
+      if (n >= g.N) continue;
+      const int count = min(4, g.N - n);
+      float s[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[j] = direct && j < count ? g.scales[n + j] : 1.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int m = m0 + ty + C::TY * i;
+        if (m >= g.M) continue;
+        // the scale after accumulation, as scaled() applies it
+        const float v[4] = {acc[i][4 * h] * s[0], acc[i][4 * h + 1] * s[1],
+                            acc[i][4 * h + 2] * s[2], acc[i][4 * h + 3] * s[3]};
+        store4(dst, bf16, (long long)m * g.N + n, v, count, vec);
+      }
+    }
+  }
+}
+
+// the body of K7's f32 kernel and of K9's f32 down phase: f32_tile with
+// K7's write
+template <int BITS, int BM, bool TMA>
+__device__ __forceinline__ void f32_body(const CUtensorMap* xmap, const CUtensorMap* wmap,
+                                         const F32Args& g) {
+  f32_tile<BITS, BM, TMA>(xmap, wmap, nullptr, g, nullptr);
+}
+
+// The f32 mode's tensor maps for TMA: x's (BM x 32) f32 box with the
+// 128-byte swizzle; W's (32 x BN) byte box (a nibble's packed rows under
+// int4), and under DUAL Wu's (w2) too. False where the encoder fails.
+template <int BITS, int BM, bool DUAL = false>
+bool f32_maps(CUtensorMap* xmap, CUtensorMap* wmap, CUtensorMap* umap, const F32Args& g,
+              const int8_t* w2 = nullptr) {
+  using C = F32Cfg<BM, DUAL>;
+  const int w_rows = BITS == 4 ? g.K / 2 : g.K;
+  bool ok = encode_2d(xmap, g.x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, g.M, g.K, F32_BK, BM,
+                      CU_TENSOR_MAP_SWIZZLE_128B) &&
+            encode_2d(wmap, g.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w_rows, g.N, C::BN, F32_BK,
+                      CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (DUAL)
+    ok = ok && encode_2d(umap, w2, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w_rows, g.N, C::BN, F32_BK,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
+  return ok;
+}
+
+// the shared memory of a kernel's f32 tiles (F32Cfg::SMEM), set as the
+// kernel's dynamic limit
+template <int BM, bool DUAL = false, typename Kernel>
+cudaError_t f32_smem(Kernel kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              F32Cfg<BM, DUAL>::SMEM);
 }
 
 }  // namespace qmm_tile

@@ -9,9 +9,9 @@ with g and u accumulated in f32 and scaled before the silu, h = silu(g)*u
 rounded to x's type before the down product, and sd applied after the
 down product's accumulation. On a CUDA tensor the hand-written kernel
 (``csrc/fused_mlp.cu``) runs; on a CPU tensor the plain version
-``fused_mlp_reference`` does. For bf16 x the kernel runs two tensor-core
-phases, planned here by ``fused_mlp_plan``: x @ [Wg | Wu] into h, then
-h @ Wd; f32 x takes a scalar kernel.
+``fused_mlp_reference`` does. The kernel runs two phases, planned here by
+``fused_mlp_plan``: x @ [Wg | Wu] into h, then h @ Wd; on the tensor cores
+for bf16 x, on K7's f32 FMA tiles for f32 x.
 
 ``mlp_fusion_eligible`` is JAX's routing predicate, copied with its TPU
 VMEM arithmetic: it decides which function the decoder computes (the fused
@@ -21,6 +21,7 @@ must route exactly as JAX does. It sets no tile of K9.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -28,8 +29,16 @@ import torch.nn.functional as F
 
 from flash_attention_softmax_n_tpu_torch.kernels import _build
 from flash_attention_softmax_n_tpu_torch.kernels.quant_matmul import (
+    F32_BK,
+    F32_CTAS_PER_SM,
+    F32_STAGES,
     QmmPlan,
+    _f32_plan,
+    _split,
+    _SMS,
     aligned16,
+    f32_producer,
+    f32_rows,
     wgmma_plan,
 )
 
@@ -79,18 +88,35 @@ _DOWN_MAX_SPLITS = 4
 class MlpPlan(NamedTuple):
     """How ``csrc/fused_mlp.cu`` runs one (M, K, F) MLP."""
 
-    kernel: str                  # "wgmma" (bf16 x) or "scalar" (f32 x)
-    gate_up: Optional[QmmPlan]   # x @ [Wg | Wu] -> h: 64 d_ff columns of each a tile
-    down: Optional[QmmPlan]      # h @ Wd: K7's tiles, at most _DOWN_MAX_SPLITS splits
+    kernel: str      # "wgmma" (bf16 x) or "simt" (f32 x, f32 FMAs)
+    gate_up: QmmPlan  # x @ [Wg | Wu] -> h: 64 (wgmma) or 32 (simt) d_ff columns of each a tile
+    down: QmmPlan     # h @ Wd: K7's tiles (wgmma: at most _DOWN_MAX_SPLITS splits)
+
+
+def _f32_gate_up_plan(m: int, k: int, f: int) -> QmmPlan:
+    """f32 x's gate/up phase: K7's f32 FMA tiles of 32 d_ff columns of both
+    Wg and Wu (64 f32 columns converted a stage), BM rows as ``_f32_plan``
+    takes them. Where the tiles fill less than half the CTA slots (four
+    CTAs an SM at 64 rows, three at 128), K is split into as many ranges
+    (at least two stages each) as fill the slots: at M64 F5632, 3 splits
+    against none take the phase from 0.137 to 0.085 ms on an H100 80GB
+    HBM3 (700 W), where ``_f32_plan``'s rule would not split."""
+    bm = f32_rows(m)
+    tiles = math.ceil(m / bm) * math.ceil(f / 32)
+    slots = F32_CTAS_PER_SM[bm] * _SMS
+    want = slots // tiles if 2 * tiles <= slots else 1
+    splits, per = _split(math.ceil(k / F32_BK), want)
+    return QmmPlan("simt", bm, 32, F32_BK, F32_STAGES, splits, per, f32_producer(k, f))
 
 
 def fused_mlp_plan(m: int, k: int, f: int, x_dtype: torch.dtype) -> MlpPlan:
-    """K9's plan for x (M, K) of ``x_dtype`` and d_ff F: for bf16 x the
+    """K9's plan for x (M, K) of ``x_dtype`` and d_ff F. bf16 x: the
     tensor-core plan of each phase (``quant_matmul.wgmma_plan``; the gate/up
-    phase's stage carries 64 columns of both Wg and Wu), for f32 x the
-    scalar kernel."""
+    phase's stage carries 64 columns of both Wg and Wu). f32 x: the f32 FMA
+    tiles, the gate/up phase's 32 columns of both (``_f32_gate_up_plan``),
+    the down phase as K7's f32 mode plans h (M, F) @ Wd (F, K)."""
     if x_dtype == torch.float32:
-        return MlpPlan("scalar", None, None)
+        return MlpPlan("simt", _f32_gate_up_plan(m, k, f), _f32_plan(m, f, k))
     if x_dtype != torch.bfloat16:
         raise ValueError(f"fused_mlp_matmul takes bf16 or f32 inputs, got {x_dtype}")
     return MlpPlan("wgmma", wgmma_plan(m, k, f, dual=True),
@@ -125,16 +151,11 @@ def _fused_mlp_cuda(x2, wg, sg, wu, su, wd, sd):
         return s.reshape(-1).float().contiguous()
 
     out = torch.empty((m, k), dtype=x2.dtype, device=dev)
-    h = dn_part = f32(0)
-    if plan.kernel == "scalar":
-        gu_part, ints = f32(ops.fused_mlp_tiles(f), m, k), []
-    else:
-        gu, dn = plan.gate_up, plan.down
-        h = torch.empty((m, f), dtype=torch.bfloat16, device=dev)
-        gu_part = f32(2 * gu.splits, m, f) if gu.splits > 1 else f32(0)
-        if dn.splits > 1:
-            dn_part = f32(dn.splits, m, k)
-        ints = _phase_ints(gu) + _phase_ints(dn)
+    gu, dn = plan.gate_up, plan.down
+    h = torch.empty((m, f), dtype=x2.dtype, device=dev)
+    gu_part = f32(2 * gu.splits, m, f) if gu.splits > 1 else f32(0)
+    dn_part = f32(dn.splits, m, k) if dn.splits > 1 else f32(0)
+    ints = _phase_ints(gu) + _phase_ints(dn)
     ops.fused_mlp(aligned16(x2), aligned16(wg), vec(sg), aligned16(wu), vec(su),
                   aligned16(wd), vec(sd), out, h, gu_part, dn_part, ints)
     _build.LAUNCHES["fused_mlp"] += 1
@@ -148,8 +169,7 @@ def fused_mlp_matmul(x: torch.Tensor,
                      ) -> torch.Tensor:
     """silu(x @ Wg) * (x @ Wu) @ Wd with int8 weights: x (..., K) bf16 or
     f32; wg/wu int8 (K, F) with per-column scales (F,); wd int8 (F, K) with
-    per-column scales (K,). Returns (..., K) in x's type. With f32 x the
-    kernel takes K and F in multiples of 64."""
+    per-column scales (K,). Returns (..., K) in x's type."""
     k = x.shape[-1]
     f = wg_values.shape[1]
     if (tuple(wg_values.shape) != (k, f) or tuple(wu_values.shape) != (k, f)

@@ -3,8 +3,8 @@
 Counterparts of ``quantized_matmul`` and ``quantized_matmul_argmax``
 (``flash_attention_softmax_n_tpu/kernels/quant_matmul.py``). On a CUDA
 tensor the hand-written kernels run (``csrc/qmm.cu``, ``csrc/qmm_argmax.cu``,
-both on the tensor-core pieces of ``csrc/qmm_tile.h`` for bf16 x, and K7 on
-an f32 FMA kernel for f32 x, planned here by ``qmm_plan`` and
+both on the tensor-core pieces of ``csrc/qmm_tile.h`` for bf16 x and on
+its f32 FMA tiles for f32 x, planned here by ``qmm_plan`` and
 ``qmm_argmax_plan``); on a CPU tensor their plain
 versions ``*_reference`` do. Both accumulate in
 f32 (int32 under W8A8) and apply the per-column scale after accumulation,
@@ -31,7 +31,7 @@ __all__ = ["quantized_matmul", "quantized_matmul_reference",
            "quantize_rows", "quantized_matmul_argmax",
            "quantized_matmul_argmax_reference", "QMM_MODES", "QmmPlan",
            "qmm_mode", "qmm_plan", "wgmma_plan", "ArgmaxPlan",
-           "qmm_argmax_plan"]
+           "qmm_argmax_plan", "f32_rows", "f32_producer"]
 
 # K7's modes: bf16 x with int8 or int4 weights, int8 x (W8A8) with int8 or
 # int4 weights, and f32 x (either weight type)
@@ -126,6 +126,24 @@ def wgmma_plan(m: int, k: int, n: int, *, int8_x: bool = False, dual: bool = Fal
                    "tma" if aligned else "predicated")
 
 
+# the f32 FMA tiles (``csrc/qmm_tile.h`` F32Cfg): K rows a stage, the
+# ring's depth, and the CTAs an SM holds at 64 and 128 rows a tile
+F32_BK = 32
+F32_STAGES = 3
+F32_CTAS_PER_SM = {64: 4, 128: 3}
+
+
+def f32_rows(m: int) -> int:
+    """rows of x a tile of the f32 FMA kernels: 128, or 64 below M = 128"""
+    return 64 if m < 128 else 128
+
+
+def f32_producer(k: int, n: int) -> str:
+    """TMA where x's f32 rows (K % 4) and W's byte rows (N % 16) are
+    multiples of 16 bytes, else the cp.async loader"""
+    return "tma" if k % 4 == 0 and n % 16 == 0 else "cp.async"
+
+
 def _f32_plan(m: int, k: int, n: int) -> QmmPlan:
     """f32 x: the f32 FMA kernel's (BM x 64) tiles, 32-row stages, a ring
     of three.
@@ -136,12 +154,11 @@ def _f32_plan(m: int, k: int, n: int) -> QmmPlan:
     TMA where x's rows (K % 4) and W's (N % 16) are multiples of 16 bytes,
     else cp.async.
     """
-    bm = 64 if m < 128 else 128
+    bm = f32_rows(m)
     tiles = math.ceil(m / bm) * math.ceil(n / 64)
     want = 2 * _SMS // tiles if 2 * tiles <= _SMS else 1
-    splits, per = _split(math.ceil(k / 32), want)
-    return QmmPlan("simt", bm, 64, 32, 3, splits, per,
-                   "tma" if k % 4 == 0 and n % 16 == 0 else "cp.async")
+    splits, per = _split(math.ceil(k / F32_BK), want)
+    return QmmPlan("simt", bm, 64, F32_BK, F32_STAGES, splits, per, f32_producer(k, n))
 
 
 def qmm_plan(m: int, k: int, n: int, mode: str) -> QmmPlan:
@@ -160,14 +177,15 @@ def qmm_plan(m: int, k: int, n: int, mode: str) -> QmmPlan:
 class ArgmaxPlan(NamedTuple):
     """How ``csrc/qmm_argmax.cu`` runs one (M, K, N) greedy lm_head."""
 
-    kernel: str    # "wgmma" (bf16 x, tensor cores) or "scalar" (f32 x)
-    bm: int        # x rows per tile: 64, 128 or 256 (scalar: 64)
-    bn: int        # vocab columns per tile: 256 at bm 64, else 128 (scalar: 64)
-    bk: int        # K rows per stage (scalar: per slice)
-    stages: int    # ring depth the kernel is built with (Cfg::STAGES; scalar: 1)
-    ctas: int      # persistent CTAs, a multiple of the row tiles (scalar: column tiles)
+    kernel: str    # "wgmma" (bf16 x, tensor cores) or "simt" (f32 x, f32 FMAs)
+    bm: int        # x rows per tile: 64, 128 or 256 (simt: 64 or 128)
+    bn: int        # vocab columns per tile: 256 at bm 64, else 128 (simt: 64)
+    bk: int        # K rows per stage
+    stages: int    # ring depth the kernel is built with (Cfg::STAGES, F32Cfg::STAGES)
+    ctas: int      # wgmma: persistent CTAs, a multiple of the row tiles; simt: one a tile
     slots: int     # (value, index) pairs a row in the scratch, merged by the second kernel
-    producer: str  # "tma", "predicated" (row strides TMA cannot take) or "scalar"
+    producer: str  # "tma", or where a row stride TMA cannot take "predicated" (wgmma)
+                   # or "cp.async" (simt)
 
 
 def qmm_argmax_plan(m: int, k: int, n: int,
@@ -187,12 +205,19 @@ def qmm_argmax_plan(m: int, k: int, n: int,
     one per SM, and a multiple of the row tiles, so that each keeps one
     row tile and writes one (value, index) slot for each of its rows. The
     producer is TMA unless K % 8 or N % 16 leaves a row stride off 16
-    bytes. f32 x: the scalar kernel, one CTA per 64 x 64 tile, one slot
-    per column tile.
+    bytes.
+
+    f32 x: K7's f32 FMA tiles (``_f32_plan``'s rows: 64 below M = 128,
+    else 128; 64 vocab columns; a ring of three 32-row stages) over the
+    whole of K, one CTA a tile (500 at M64 N32000: about one wave at four
+    CTAs an SM), one slot a row for each column tile; TMA where K % 4 and
+    N % 16 allow it, else cp.async.
     """
     if dtype == torch.float32:
-        tiles = math.ceil(n / 64)
-        return ArgmaxPlan("scalar", 64, 64, 32, 1, tiles, tiles, "scalar")
+        bm = f32_rows(m)
+        tiles_n = math.ceil(n / 64)
+        return ArgmaxPlan("simt", bm, 64, F32_BK, F32_STAGES, math.ceil(m / bm) * tiles_n,
+                          tiles_n, f32_producer(k, n))
     if dtype != torch.bfloat16:
         raise ValueError(f"quantized_matmul_argmax takes bf16 or f32 x, got {dtype}")
     bm = 64 if m <= 64 else 128 if m <= 128 else 256

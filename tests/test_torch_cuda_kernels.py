@@ -126,7 +126,8 @@ def test_flash_fwd_bias_broadcast(gen, bias_shape):
 # K2 at every row tile (M 1-64: 64 rows and 256 vocab columns a tile; 100:
 # 128 rows; 256: 256; 300: two 256-row tiles) at the lm_head's K2048
 # N32000, and N that TMA cannot take (97, 1000: the predicated producer);
-# f32 x takes the scalar kernel
+# f32 x takes K7's f32 tiles (64 rows below M = 128, else 128: M300 three
+# row tiles) with the argmax epilogue, cp.async where N % 16
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mkn", [(1, 64, 97), (13, 200, 1000), (1, 2048, 32000),
                                  (13, 2048, 32000), (64, 2048, 32000), (100, 2048, 32000),
@@ -142,7 +143,7 @@ def test_qmm_argmax_matches_plain(gen, dtype, mkn):
         x[0, 0] = float("-inf")
         w[0] = torch.randint(1, 128, (n,), generator=gen, device="cuda").to(torch.int8)
     plan = qm.qmm_argmax_plan(m, k, n, dtype)
-    assert plan.kernel == ("wgmma" if dtype == torch.bfloat16 else "scalar")
+    assert plan.kernel == ("wgmma" if dtype == torch.bfloat16 else "simt")
     before = _build.LAUNCHES["qmm_argmax"]
     idx, val = qm.quantized_matmul_argmax(x, w, s, return_max=True)
     assert _build.LAUNCHES["qmm_argmax"] == before + 1
@@ -192,6 +193,50 @@ def test_qmm_argmax_first_index_wins_ties(gen, case):
     assert val.tolist() == [float(k)] * m
 
 
+# K2's f32 kernel at a K that is no multiple of 4 (x's rows off 16 bytes:
+# the cp.async loader) and at two and three 128-row tiles, with the NaN and
+# -inf rows of test_qmm_argmax_matches_plain
+@pytest.mark.parametrize("mkn", [(13, 203, 1000), (70, 130, 4001), (200, 2048, 32000),
+                                 (300, 203, 32000)], ids=lambda c: "-".join(map(str, c)))
+def test_qmm_argmax_f32_loaders_and_row_tiles(gen, mkn):
+    m, k, n = mkn
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda").to(torch.int8)
+    s = torch.rand((n,), generator=gen, device="cuda") + 0.5
+    x[-1, 3] = float("nan")
+    x[0, 0] = float("-inf")
+    w[0] = torch.randint(1, 128, (n,), generator=gen, device="cuda").to(torch.int8)
+    plan = qm.qmm_argmax_plan(m, k, n, torch.float32)
+    assert plan.kernel == "simt" and plan.bm == (64 if m < 128 else 128)
+    assert plan.producer == ("tma" if k % 4 == 0 and n % 16 == 0 else "cp.async")
+    idx, val = qm.quantized_matmul_argmax(x, w, s, return_max=True)
+    again = qm.quantized_matmul_argmax(x, w, s, return_max=True)
+    assert torch.equal(idx, again[0]) and torch.equal(val.view(torch.int32),
+                                                      again[1].view(torch.int32))
+    idx_ref, val_ref = qm.quantized_matmul_argmax_reference(x, w, s)
+    top2 = torch.topk((x.float() @ w.float()) * s, 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 1e-4 * top2[:, 0].abs()
+    assert torch.equal(idx[decided], idx_ref[decided]), plan
+    assert idx[-1].item() == idx_ref[-1].item() == 0 and val[-1].isnan()
+    assert idx[0].item() == idx_ref[0].item() == 0 and val[0].item() == float("-inf")
+    torch.testing.assert_close(val, val_ref, atol=0, rtol=1e-5, equal_nan=True)
+
+
+# K2's f32 kernel at the ties of _ARGMAX_TIES: in one thread, between the
+# threads of a row, between tiles (CTAs, met in the merge), and a lone
+# winner at column N - 1
+@pytest.mark.parametrize("case", _ARGMAX_TIES, ids=lambda c: "-".join(map(str, c)))
+def test_qmm_argmax_f32_first_index_wins_ties(gen, case):
+    m, k, n, cols = case
+    x = torch.ones((m, k), device="cuda")
+    w = torch.zeros((k, n), device="cuda", dtype=torch.int8)
+    w[:, cols] = 1
+    s = torch.ones(n, device="cuda")
+    idx, val = qm.quantized_matmul_argmax(x, w, s, return_max=True)
+    assert idx.tolist() == [min(cols)] * m, qm.qmm_argmax_plan(m, k, n, torch.float32)
+    assert val.tolist() == [float(k)] * m
+
+
 def test_qmm_argmax_view_off_16_bytes(gen):
     # a contiguous view that starts 2 bytes past a 16-byte boundary (TMA's)
     m, k, n = 5, 512, 4096
@@ -218,8 +263,14 @@ def test_qmm_argmax_bad_plans_raise(gen):
         qm._qmm_argmax_cuda(x, w, s, plan._replace(bm=96))
     with pytest.raises(ValueError, match="CTAs"):  # more CTAs than tiles
         qm._qmm_argmax_cuda(x, w, s, plan._replace(ctas=plan.ctas + 1, slots=plan.ctas + 1))
-    with pytest.raises(ValueError, match="scalar plan"):  # f32 x
+    with pytest.raises(ValueError, match="one CTA a tile"):  # f32 x under the bf16 plan
         qm._qmm_argmax_cuda(x.float(), w, s, plan)
+    plan32 = qm.qmm_argmax_plan(m, k, n, torch.float32)
+    qm._qmm_argmax_cuda(x.float(), w, s, plan32)
+    with pytest.raises(ValueError, match="no f32 kernel"):  # f32 tiles are 64 or 128 rows
+        qm._qmm_argmax_cuda(x.float(), w, s, plan32._replace(bm=256, ctas=4))
+    with pytest.raises(ValueError, match="TMA needs"):  # x's f32 rows off 16 bytes
+        qm._qmm_argmax_cuda(x[:, :253].float(), w[:253], s, plan32)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1214,6 +1265,8 @@ def _mlp_inputs(gen, dtype, m, k, f):
 @pytest.mark.parametrize("mkf", _MLP_SHAPES, ids=lambda c: "-".join(map(str, c)))
 def test_fused_mlp_matches_plain(gen, dtype, mkf):
     args = _mlp_inputs(gen, dtype, *mkf)
+    plan = fm.fused_mlp_plan(*mkf, dtype)
+    assert plan.kernel == ("wgmma" if dtype == torch.bfloat16 else "simt")
     before = _build.LAUNCHES["fused_mlp"]
     out = fm.fused_mlp_matmul(*args)
     assert _build.LAUNCHES["fused_mlp"] == before + 1
@@ -1226,6 +1279,66 @@ def test_fused_mlp_matches_plain(gen, dtype, mkf):
         # as a whole too: an error on a few tiles, small beside max |plain|,
         # still moves the norm (h rounds to bf16 on either side of a tie)
         _assert_norm_close(out, ref, 1e-2)
+
+
+# K9's f32 phases: the gate/up phase split (M64 F5632: 3 ranges) and not
+# (M256: 128-row tiles), K and F that no 16-byte row takes (the cp.async
+# loaders: K 126 and 200, F 90 and 300, h's rows F * 4 bytes), both phases
+# split at a small shape; f32 within 1e-5 of max |plain| and as a whole
+@pytest.mark.parametrize("mkf", [(64, 2048, 5632), (256, 2048, 5632), (13, 200, 300),
+                                 (5, 126, 90), (130, 512, 1000)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_fused_mlp_f32_phases(gen, mkf):
+    m, k, f = mkf
+    plan = fm.fused_mlp_plan(m, k, f, torch.float32)
+    assert plan.gate_up.producer == ("tma" if k % 4 == 0 and f % 16 == 0 else "cp.async")
+    assert plan.down.producer == ("tma" if f % 4 == 0 and k % 16 == 0 else "cp.async")
+    if mkf == (64, 2048, 5632):
+        assert plan.gate_up.splits == 3
+    if mkf == (256, 2048, 5632):
+        assert plan.gate_up.splits == 1 and plan.gate_up.bm == 128
+    args = _mlp_inputs(gen, torch.float32, m, k, f)
+    before = _build.LAUNCHES["fused_mlp"]
+    out = fm.fused_mlp_matmul(*args)
+    assert _build.LAUNCHES["fused_mlp"] == before + 1
+    again = fm.fused_mlp_matmul(*args)
+    ref = fm.fused_mlp_reference(*args)
+    assert out.dtype == torch.float32 and torch.equal(out, again)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    _assert_norm_close(out, ref, 1e-5)
+
+
+def test_fused_mlp_f32_layout_and_bad_plans(gen):
+    # the f32 tiles' ring is the plan's, and their CTAs an SM fit its 228 KB
+    # (each with the 1 KB the card reserves)
+    for bm in (64, 128):
+        for dual in (False, True):
+            stages, smem = _build.ops().qmm_f32_layout(bm, dual)
+            assert stages == qm.F32_STAGES
+            assert qm.F32_CTAS_PER_SM[bm] * (smem + 1024) <= 233472
+    x, wg, sg, wu, su, wd, sd = _mlp_inputs(gen, torch.float32, 64, 512, 256)
+    sg, su, sd = (t.reshape(-1).float().contiguous() for t in (sg, su, sd))
+    plan = fm.fused_mlp_plan(64, 512, 256, torch.float32)
+    out, h = torch.empty_like(x), torch.empty((64, 256), device="cuda")
+    gp = torch.empty((2 * plan.gate_up.splits, 64, 256), device="cuda")
+    dp = torch.empty((plan.down.splits, 64, 512), device="cuda")
+    good = fm._phase_ints(plan.gate_up) + fm._phase_ints(plan.down)
+    fm_ops = _build.ops().fused_mlp
+    fm_ops(x, wg, sg, wu, su, wd, sd, out, h, gp, dp, good)
+    torch.testing.assert_close(out, fm.fused_mlp_reference(x, wg, sg, wu, su, wd, sd), rtol=0,
+                               atol=1e-5 * float(out.abs().max()))
+    bad_rows = list(good)
+    bad_rows[0] = 256  # no f32 kernel takes 256-row tiles
+    with pytest.raises(ValueError, match="tile height"):
+        fm_ops(x, wg, sg, wu, su, wd, sd, out, h, gp, dp, bad_rows)
+    bad_cover = list(good)
+    bad_cover[8] = 1  # one 32-row slice a down split: 8 slices are not covered
+    with pytest.raises(ValueError, match="do not cover"):
+        fm_ops(x, wg, sg, wu, su, wd, sd, out, h, gp, dp, bad_cover)
+    bad_ring = list(good)
+    bad_ring[1] = 4  # not the ring the kernel is built with
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        fm_ops(x, wg, sg, wu, su, wd, sd, out, h, gp, dp, bad_ring)
 
 
 @pytest.mark.parametrize("mkf", [(13, 200, 300), (64, 2048, 5640)],

@@ -350,10 +350,76 @@ def test_qmm_argmax_plan_predicated_exactly_where_a_row_stride_is_unaligned():
 
 
 def test_qmm_argmax_f32_plan_is_the_scalar_kernel():
+    # f32 x runs on the FMA pipes, outside the tensor cores: K7's f32 tiles
+    # over the whole of K, one CTA a (bm x 64) tile, one slot a column tile
     for m, k, n in _ARGMAX_SHAPES:
         plan = tqm.qmm_argmax_plan(m, k, n, torch.float32)
+        bm = 64 if m < 128 else 128
         tiles = -(-n // 64)
-        assert plan == tqm.ArgmaxPlan("scalar", 64, 64, 32, 1, tiles, tiles, "scalar")
+        assert plan == tqm.ArgmaxPlan("simt", bm, 64, 32, 3, -(-m // bm) * tiles, tiles,
+                                      plan.producer), (m, k, n)
+    # the serving lines: M64 (500 CTAs, about one wave at four an SM) and M256
+    assert tqm.qmm_argmax_plan(64, 2048, 32000, torch.float32) == tqm.ArgmaxPlan(
+        "simt", 64, 64, 32, 3, 500, 500, "tma")
+    assert tqm.qmm_argmax_plan(256, 2048, 32000, torch.float32) == tqm.ArgmaxPlan(
+        "simt", 128, 64, 32, 3, 1000, 500, "tma")
+
+
+def _f32_argmax_grid(m, n, plan):
+    """qmm_argmax_f32_kernel's grid: block (x, y) is column tile x of row
+    tile y over every K stage, and writes slot x of the row tile's rows;
+    returns each block's (rows, columns) and slot"""
+    return [((range(y * plan.bm, min(m, (y + 1) * plan.bm)),
+              range(x * plan.bn, min(n, (x + 1) * plan.bn))), x)
+            for y in range(-(-m // plan.bm)) for x in range(-(-n // plan.bn))]
+
+
+# by row tile: 64 rows below M = 128, 128 from there
+@pytest.mark.parametrize("bm", [64, 128])
+def test_qmm_argmax_f32_tiles_cover_every_column_once(bm):
+    shapes = [(m, k, n) for m, k, n in _ARGMAX_SHAPES if (m < 128) == (bm == 64)]
+    assert shapes
+    for m, k, n in shapes:
+        plan = tqm.qmm_argmax_plan(m, k, n, torch.float32)
+        assert plan.bm == bm and plan.bk == 32 and "splits" not in plan._fields
+        blocks = _f32_argmax_grid(m, n, plan)
+        assert len(blocks) == plan.ctas
+        # the row tiles partition M, and each row tile's column tiles N
+        row_tiles = sorted({(r.start, r.stop) for (r, _), _ in blocks})
+        assert [a for a, _ in row_tiles] == list(range(0, m, bm))
+        assert all(b == min(m, a + bm) for a, b in row_tiles)
+        for start, _ in row_tiles:
+            cols = [(c.start, c.stop, slot) for (r, c), slot in blocks if r.start == start]
+            assert [a for a, _, _ in cols] == list(range(0, n, 64))
+            assert all(b == min(n, a + 64) for a, b, _ in cols)
+            # one slot a row for each column tile, each written once
+            assert [slot for _, _, slot in cols] == list(range(plan.slots))
+
+
+@pytest.mark.parametrize("k", [200, 201, 202, 203, 2048, 2050])
+def test_qmm_argmax_f32_takes_tma_exactly_where_row_strides_allow(k):
+    # TMA needs 16-byte rows: x's f32 K % 4, W's int8 N % 16
+    for n in range(240, 272):
+        plan = tqm.qmm_argmax_plan(64, k, n, torch.float32)
+        assert plan.producer == ("tma" if k % 4 == 0 and n % 16 == 0 else "cp.async"), (k, n)
+
+
+# F32Cfg's shared memory (csrc/qmm_tile.h): a ring of three stages (x's BM
+# rows of 128 bytes, W's 32 rows in an 80-byte pitch), two converted 32 x 64
+# f32 W tiles, barriers and 1 KB to align; K9's gate/up tile (dual) carries
+# two matrices' 32-byte rows in a 48-byte pitch. Four CTAs an SM at BM 64, three at 128, each with
+# the 1 KB the card reserves, within the SM's 228 KB
+@pytest.mark.parametrize("dual", [False, True])
+@pytest.mark.parametrize("bm", [64, 128])
+def test_f32_tiles_fit_their_ctas_an_sm(bm, dual):
+    w_stage = 2 * tqm.F32_BK * 48 if dual else tqm.F32_BK * 80
+    smem = (tqm.F32_STAGES * (bm * 128 + w_stage) + 2 * tqm.F32_BK * 64 * 4
+            + 8 * tqm.F32_STAGES + 1024)
+    assert tqm.F32_CTAS_PER_SM[bm] * (smem + 1024) <= 233472
+    assert smem <= 232448
+    # K7's f32 kernel keeps its 74,264 bytes at BM 128
+    if bm == 128 and not dual:
+        assert smem == 74264
 
 
 def test_mlp_fusion_eligible_matches_jax():
