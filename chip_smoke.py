@@ -49,8 +49,12 @@ Phases, in order, each printing one JSON line:
    B2 H32 L=S=2048 d64 bf16 causal with dropout, timed: each kernel's
    TFLOP/s, and the backward pair with delta against SDPA's backward by
    device time; then train_agreement's B2 H32 L=S=1024 d64 f32 causal,
-   timed the same way against f32 bounds and f32 SDPA, whose kernels name
-   its backend), each run twice and required bit-equal, K1 with ALiBi and
+   timed the same way against f32 SDPA, whose kernels name its backend: K1
+   on its scalar f32 kernel against the f32 FMA bound, K5 and K6 required
+   to launch their split-TF32 kernels ``flash_bwd_dq_tf32x3_kernel`` and
+   ``flash_bwd_dkv_tf32x3_kernel``, against three TF32 operations an f32
+   one with the f32 FMA bound beside it), each run twice and required
+   bit-equal, K1 with ALiBi and
    dropout held at the training shape, and the three kernels' dropout masks
    (each in f32 and bf16) required bit-equal to the plain hash; a bf16
    forward's o is held, K1 and its plain version each, against a float64
@@ -62,7 +66,8 @@ Phases, in order, each printing one JSON line:
 4a. head_dims: K1, K5 and K6 at head dims 16, 80 and 96 (zero-padded by
    the wrappers to 32, 128 and 128), 256 (the TMA + wgmma kernels
    ``flash_fwd_d256_kernel``, ``flash_bwd_dq_d256_kernel`` and
-   ``flash_bwd_dkv_d256_kernel`` in bf16, the scalar kernels in f32), 300
+   ``flash_bwd_dkv_d256_kernel`` in bf16, the scalar kernels in f32; f32
+   K5 and K6 at 16, 80 and 96 on their split-TF32 kernels), 300
    (padded to 384), 384 and 512 (bf16 K1, K5 and K6 on their wide TMA +
    wgmma kernels ``flash_fwd_wide_wgmma_kernel``,
    ``flash_bwd_dq_wide_wgmma_kernel`` and
@@ -283,18 +288,20 @@ CSRC = "flash_attention_softmax_n_tpu_torch/csrc"
 # K1's, K5's, K6's and K10's kernels as torch.profiler names them (no name
 # a substring of another): bf16 inputs take the TMA + wgmma kernel (at D
 # 256 their own D 256 ones; above 256 their wide ones, K1's and K10's at D
-# 384 and 512), f32 the scalar one, f32 (and K1's and K10's bf16 above 512)
+# 384 and 512), f32 the scalar one (K5 and K6 at D 32-128 their
+# split-TF32 TMA + wgmma ones), f32 (and K1's and K10's bf16 above 512)
 # above 256 the wide scalar one
 FLASH_FWD_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_d256_kernel", "flash_fwd_kernel",
                      "flash_fwd_wide_kernel", "flash_fwd_wide_wgmma_kernel")
 FLASH_DQ_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_d256_kernel",
                     "flash_bwd_dq_kernel", "flash_bwd_dq_wide_kernel",
-                    "flash_bwd_dq_wide_wgmma_kernel")
+                    "flash_bwd_dq_wide_wgmma_kernel", "flash_bwd_dq_tf32x3_kernel")
 FLASH_DKV_KERNELS = ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_d256_kernel",
                      "flash_bwd_dkv_kernel", "flash_bwd_dkv_wide_kernel",
-                     "flash_bwd_dkv_wide_wgmma_kernel")
-# f32 K1, K5 and K6 at D <= 256: the scalar kernels
-F32_ATTN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+                     "flash_bwd_dkv_wide_wgmma_kernel", "flash_bwd_dkv_tf32x3_kernel")
+# f32 at D <= 128: K1's scalar kernel, K5's and K6's split-TF32 ones
+F32_ATTN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_tf32x3_kernel",
+                    "flash_bwd_dkv_tf32x3_kernel")
 # bf16 K5 and K6 at D 256, and above it
 D256_BWD_KERNELS = ("flash_bwd_dq_d256_kernel", "flash_bwd_dkv_d256_kernel")
 WIDE_BWD_KERNELS = ("flash_bwd_dq_wide_wgmma_kernel", "flash_bwd_dkv_wide_wgmma_kernel")
@@ -1199,7 +1206,10 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
     B2 H32 L=S=2048 d64 bf16 causal, n = 1, dropout 0.1, as its every layer
     runs them; the quant_study phase's is B32 H16 L512 without dropout;
     train_agreement's B2 H32 L1024 f32): errors, and times (``runs`` calls
-    each) against their bounds (f32: operations at 67 TFLOP/s), plain
+    each) against their bounds (f32: operations at 67 TFLOP/s; K5's and
+    K6's split-TF32 kernels at D <= 128 three TF32 operations for each f32
+    one at 495 TFLOP/s, with the f32 FMA bound beside it as
+    ``bound_ms_f32_fma``), plain
     versions and scaled_dot_product_attention with one zero key/value row
     prepended (its kernels' names say which backend it took). The K1 line
     and the backward pair's line name the K1 and the K5 and K6 kernels they
@@ -1209,6 +1219,11 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
     dtype = dtype or torch.bfloat16
     f32 = dtype == torch.float32
     es, peak = (4, F32_FLOPS) if f32 else (2, None)
+    # K5 and K6 in f32 at D <= 128: three TF32 passes an f32 product
+    split = f32 and fa.kernel_head_dim(D) <= 128
+    bwd_passes, bwd_peak = (3, CHIP.tf32_flops) if split else (1, peak)
+    dq_source, dkv_source = (("flash_bwd_f32.cu",) * 2 if split
+                             else ("flash_bwd_dq.cu", "flash_bwd_dkv.cu"))
     (q, k, v, do, ex, o, lse), errs, name = check_attention(
         torch, fa, gen, dtype, n=n, causal=True, shape=(B, H, L, L, D), rate=rate)
     emit({"phase": "kernel_check", "name": name, "errors": errs, "repeat_bit_equal": True})
@@ -1305,8 +1320,13 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
     launched_k1 = launched[0]
     require(all(k in launched_k1 for k in kernels if k in FLASH_FWD_KERNELS),
             f"flash_fwd B{B} H{H} L{L} d{D}: launched {launched_k1}, not {kernels}")
-    b5, by5 = bound_ms(5 * bhld * es + 2 * bhl * 4, 6.0 * D * pairs, peak)
-    b6, by6 = bound_ms(6 * bhld * es + 2 * bhl * 4, 8.0 * D * pairs, peak)
+    b5, by5 = bound_ms(5 * bhld * es + 2 * bhl * 4, bwd_passes * 6.0 * D * pairs, bwd_peak)
+    b6, by6 = bound_ms(6 * bhld * es + 2 * bhl * 4, bwd_passes * 8.0 * D * pairs, bwd_peak)
+
+    def fma_bound(nbytes, ops):
+        """the f32 FMA bound beside a split-TF32 one (None elsewhere)"""
+        return bound_ms(nbytes, ops, peak)[0] if split else None
+
     shape = (f"B{B} H{H} L{L} S{L} d{D} {'f32' if f32 else 'bf16'} causal n1"
              + (f" dropout {rate}" if rate else ""))
     lines = [
@@ -1321,13 +1341,17 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
          "plain_ms": time_ms(torch, plain_fwd, runs), "bound_ms": b1, "bound_by": by1,
          "library_ms": time_ms(torch, sdpa, runs), "library_device_ms": library_fwd_dev},
         {**common, "name": f"flash_bwd_dq {shape}", "counter": "flash_bwd_dq",
-         "source": f"{CSRC}/flash_bwd_dq.cu", "replaces": f"{FLASH_PY}:685 _bwd_dq_kernel",
+         "source": f"{CSRC}/{dq_source}",
+         "replaces": f"{FLASH_PY}:685 _bwd_dq_kernel",
+         "bound_ms_f32_fma": fma_bound(5 * bhld * es + 2 * bhl * 4, 6.0 * D * pairs),
          "max_abs_err": errs["dq"], "ms": time_ms(torch, k5, runs),
          "device_ms": k5_dev, "tflops": tflops(6.0 * D * pairs, k5_dev),
          "plain_ms": plain_bwd_ms, "bound_ms": b5, "bound_by": by5,
          "library_ms": library_bwd_ms},
         {**common, "name": f"flash_bwd_dkv {shape}", "counter": "flash_bwd_dkv",
-         "source": f"{CSRC}/flash_bwd_dkv.cu", "replaces": f"{FLASH_PY}:777 _bwd_dkv_kernel",
+         "source": f"{CSRC}/{dkv_source}",
+         "replaces": f"{FLASH_PY}:777 _bwd_dkv_kernel",
+         "bound_ms_f32_fma": fma_bound(6 * bhld * es + 2 * bhl * 4, 8.0 * D * pairs),
          "max_abs_err": max(errs["dk"], errs["dv"]), "ms": time_ms(torch, k6, runs),
          "device_ms": k6_dev, "tflops": tflops(8.0 * D * pairs, k6_dev),
          "plain_ms": plain_bwd_ms, "bound_ms": b6, "bound_by": by6,
@@ -1337,20 +1361,22 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
     # against SDPA's backward, both by device time and by CUDA events. Its
     # bound counts what dq, dk and dv need, 10·d a pair (S, dP, dV, dK, dQ
     # once each), not the 14·d the two kernels do: each recomputes S and dP
-    b56, by56 = bound_ms(8 * bhld * es + bhl * 4, 10.0 * D * pairs, peak)
+    b56, by56 = bound_ms(8 * bhld * es + bhl * 4, bwd_passes * 10.0 * D * pairs, bwd_peak)
     require(all(k in launched_bwd for k in kernels if k not in FLASH_FWD_KERNELS),
             f"flash_bwd {shape}: launched {launched_bwd}, not {kernels}")
     emit({"phase": "kernel_pair", "name": f"flash_bwd (delta + K5 + K6) {shape}",
           "kernels": launched_bwd,
           "ms": time_ms(torch, wrapper_bwd, runs), "device_ms": pair_dev,
           "tflops": tflops(10.0 * D * pairs, pair_dev), "bound_ms": b56, "bound_by": by56,
+          "bound_ms_f32_fma": fma_bound(8 * bhld * es + bhl * 4, 10.0 * D * pairs),
           "library_ms": library_bwd_ms, "library_device_ms": library_bwd_dev,
           "vs_library_device": pair_dev / library_bwd_dev if pair_dev and library_bwd_dev
           else None, "library_kernels": library_kernels})
     for line in lines:
         emit({"phase": "kernel", **{k_: line.get(k_) for k_ in (
             "name", "max_abs_err", "tolerance", "ms", "ms_with_alibi", "device_ms", "tflops",
-            "plain_ms", "bound_ms", "library_ms", "library_device_ms", "library_kernels")}})
+            "plain_ms", "bound_ms", "bound_ms_f32_fma", "library_ms", "library_device_ms",
+            "library_kernels")}})
     emit({"phase": "kernel_note", "note": "flash_bwd plain_ms and library_ms cover dq, dk "
           "and dv together (one plain backward, one SDPA backward); max_abs_err of the "
           "backward lines is relative to max(1, |plain|); the kernel_check lines give "
@@ -4140,7 +4166,8 @@ def main() -> int:
                                        if k in kd}})
     kernels += train_kernels(torch, pkg, gen)
     # K1, K5 and K6 in f32 at train_agreement's shape (the TinyLlama-1.1B
-    # width: B2 H32 L=S=1024 d64 causal, n 1, no dropout): its scalar kernels
+    # width: B2 H32 L=S=1024 d64 causal, n 1, no dropout): K1's scalar
+    # kernel, K5's and K6's split-TF32 ones
     kernels += train_kernel_lines(torch, pkg, gen, B=2, H=32, L=1024, D=64, rate=0.0,
                                   path="train_agreement", dtype=torch.float32,
                                   kernels=F32_ATTN_KERNELS)

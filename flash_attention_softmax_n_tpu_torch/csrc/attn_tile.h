@@ -37,6 +37,8 @@
 // tile of D 256 would be 64 KB; K5's (flash_bwd_dq.cu) keeps 128-row Q and
 // dO (RES_ROWS) beside 32-row K and V ring tiles; K1's and K10's wide
 // kernels (WideRing) keep 64-row Q beside 32-key K and V ring tiles.
+// F32Tile (below) describes the f32 tiles of K5's and K6's split-TF32
+// kernels (flash_bwd_f32.cu), whose k8 steps have the bf16 tiles' 32 bytes.
 
 #pragma once
 
@@ -394,22 +396,24 @@ __device__ __forceinline__ void store_rows(const float (&o)[D / 2], __nv_bfloat1
 }
 
 // host: the 3-D map of a contiguous bf16 (B*H, rows, D) tensor with a
-// (box columns x box_rows x 1 head) box, swizzled as the tile expects
+// (box columns x box_rows x 1 head) box, swizzled as the tile expects; with
+// f32 true, of an f32 tensor in F32Tile's boxes of 32 columns
 inline bool encode_rows(CUtensorMap* map, const void* base, long long heads, int rows, int D,
-                        int box_rows = TQ) {
+                        int box_rows = TQ, bool f32 = false) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const int box_cols = D < 64 ? D : 64;
+  const int es = f32 ? 4 : 2;  // bytes of an element
+  const int box_cols = D * es < 128 ? D : 128 / es;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(rows) * D * 2};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * es,
+                                 static_cast<cuuint64_t>(rows) * D * es};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows),
                              1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            box_cols * es == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -426,6 +430,49 @@ inline bool encode_attn(AttnMaps* m, const FasnAttn& a, int D, const void* dout 
          encode_rows(&m->v, a.v, heads, a.S, D, box_rows) &&
          (dout == nullptr || encode_rows(&m->dout, dout, heads, a.L, D, box_rows));
 }
+
+// ---------------------------------------------------------------------------
+// f32 tiles of K5's and K6's split-TF32 kernels (flash_bwd_f32.cu)
+// ---------------------------------------------------------------------------
+
+// ROWS rows of COLS f32 values along K (a wgmma operand's M or N rows),
+// K-major: boxes of 32 columns with 128-byte rows and the 128-byte swizzle,
+// or for COLS 16 one box of 64-byte rows and the 64-byte swizzle. A k8
+// step is 32 bytes of a row, as a bf16 k16 step is, so the descriptors are
+// those of the bf16 tiles. TMA lands q, k, v and dout rows in these boxes
+// (encode_rows with f32 true); the kernels write the others.
+template <int COLS, int ROWS>
+struct F32Tile {
+  static constexpr int BOX_COLS = COLS < 32 ? COLS : 32;
+  static constexpr int BOXES = COLS / BOX_COLS;
+  static constexpr int ROW = BOX_COLS * 4;           // bytes of one box row: 128 or 64
+  static constexpr int LAYOUT = ROW == 128 ? 1 : 2;  // descriptor layout: 128- or 64-byte swizzle
+  static constexpr uint32_t SWZ = ROW == 128 ? 0x70u : 0x30u;  // the row bits the chunk takes
+  static constexpr int GROUP = 8 * ROW;              // bytes of 8 rows
+  static constexpr int BOX = ROWS * ROW;
+  static constexpr int TILE = BOXES * BOX;
+  static_assert(COLS % BOX_COLS == 0 && (ROW == 128 || ROW == 64) && ROWS % 8 == 0,
+                "F32Tile: 16, 32 or a multiple of 32 columns, rows a multiple of 8");
+
+  // byte offset of element (r, c) from the tile's start, swizzled: the
+  // 16-byte chunk within the row XOR the row within the swizzle's repeat
+  // (a box starts on 1024 bytes, or 512 for 64-byte rows)
+  static __device__ __forceinline__ uint32_t at(int r, int c) {
+    const uint32_t off = (c / BOX_COLS) * BOX + r * ROW + (c % BOX_COLS) * 4;
+    return off ^ ((off >> 3) & SWZ);
+  }
+  // the descriptor of k8 step `st` (columns 8 st .. 8 st + 7) of the rows
+  // from `row0` (a multiple of 8) of the tile at `base`: desc_of(base +
+  // offset), the offset added to the address field last (shared addresses
+  // are below 2^18, so it carries into no other field), so that the fields
+  // of `base` are formed once for all of a tile's steps
+  static __device__ __forceinline__ uint64_t desc(uint32_t base, int st, int row0 = 0) {
+    constexpr int PER_BOX = BOX_COLS / 8;
+    const uint32_t off = (st / PER_BOX) * BOX + row0 * ROW + (st % PER_BOX) * 32;
+    const uint64_t d = desc_of(base, 16, GROUP, LAYOUT);
+    return (d & ~0xFFFFFFFFull) | static_cast<uint32_t>(static_cast<uint32_t>(d) + (off >> 4));
+  }
+};
 
 // grid: x the (b, h) pair, y the query tile, heaviest (last) first
 inline dim3 tile_grid(long long heads, int L) {

@@ -55,13 +55,16 @@ void check_on(const at::Tensor& t, const at::Tensor& ref, const char* what) {
                     ": tensors must start on a 4-byte boundary");
 }
 
-// bf16 inputs of the TMA kernels (K1, K5, K6, K10): each tensor's first row
-// on a 16-byte boundary, as TMA requires (their rows are 64-512 bytes)
-void check_tma(std::initializer_list<const at::Tensor*> ts, const char* what) {
+// bf16 inputs of the TMA kernels (K1, K5, K6, K10), and with f32 true f32
+// ones too (K5's and K6's split-TF32 kernels at D 32-128): each tensor's
+// first row on a 16-byte boundary, as TMA requires (their rows are 64-512
+// bytes)
+void check_tma(std::initializer_list<const at::Tensor*> ts, const char* what, bool f32 = false) {
   for (const at::Tensor* t : ts)
-    TORCH_CHECK_VALUE(t->scalar_type() != at::kBFloat16 ||
+    TORCH_CHECK_VALUE((t->scalar_type() != at::kBFloat16 && !f32) ||
                           reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0,
-                      what, ": bf16 tensors must start on a 16-byte boundary (TMA)");
+                      what, ": ", f32 ? "f32" : "bf16",
+                      " tensors must start on a 16-byte boundary (TMA)");
 }
 
 void check_shape(const at::Tensor& t, at::IntArrayRef shape, at::ScalarType dtype,
@@ -168,7 +171,7 @@ void flash_bwd_dq(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
   const FasnAttn a = attn_args(q, k, v, bias, slopes, seed, scale_q, causal, drop_threshold,
                                drop_mult, what);
   check_bwd_rows(q, dout, lse, delta, what);
-  check_tma({&q, &k, &v, &dout}, what);
+  check_tma({&q, &k, &v, &dout}, what, q.scalar_type() == at::kFloat && q.size(3) <= 128);
   check_on(dq, q, what);
   check_shape(dq, q.sizes(), q.scalar_type(), what, "dq");
   float* dbias_ptr = nullptr;
@@ -203,7 +206,7 @@ void flash_bwd_dkv(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v
   const FasnAttn a = attn_args(q, k, v, bias, slopes, seed, scale_q, causal, drop_threshold,
                                drop_mult, what);
   check_bwd_rows(q, dout, lse, delta, what);
-  check_tma({&q, &k, &v, &dout}, what);
+  check_tma({&q, &k, &v, &dout}, what, q.scalar_type() == at::kFloat && q.size(3) <= 128);
   check_on(dk, q, what);
   check_on(dv, q, what);
   check_shape(dk, k.sizes(), k.scalar_type(), what, "dk");

@@ -54,13 +54,16 @@
 // frees the slot. The CTAs of one head run side by side (a flat grid), so
 // the Q and dO tiles they all stream come from L2.
 //
-// f32: flash_bwd_dkv_kernel, scalar f32 FMAs from shared memory on 64 x 64
-// tiles (wgmma has no f32 x f32 product): one CTA per (KV tile of 64 keys,
-// head, batch) loops over the query tiles of 64 rows; thread (ty, tx) owns
-// key rows ty + 16 i, query columns tx + 16 j of the transposed score tile,
-// and dk/dv columns tx + 16 c; the dropped p and ds go through shared
-// memory for the two transposed products. At D 256 the tiles are 32 x 32
-// (scalar_tile, for shared memory).
+// f32 at D 32, 64 and 128: flash_bwd_dkv_tf32x3_kernel (flash_bwd_f32.cu,
+// entered through fasn_flash_bwd_dkv_tf32x3): split-TF32 wgmma products,
+// three TF32 passes on each operand's head and rest, which hold f32's
+// tolerance (that file's header). f32 at D 256: flash_bwd_dkv_kernel,
+// scalar f32 FMAs from shared memory on 32 x 32 tiles (scalar_tile, for
+// shared memory): one CTA per (KV tile of 32 keys, head, batch) loops over
+// the query tiles of 32 rows; thread (ty, tx) owns key rows ty + 16 i,
+// query columns tx + 16 j of the transposed score tile, and dk/dv columns
+// tx + 16 c; the dropped p and ds go through shared memory for the two
+// transposed products.
 //
 // bf16 above 256 (D a multiple of 128, as the wrapper pads it):
 // flash_bwd_dkv_wide_wgmma_kernel. K and V of 64 keys over all of D would
@@ -972,15 +975,6 @@ cudaError_t launch_wide(const FasnAttn& a, const void* dout, const float* lse,
 extern "C" int fasn_flash_bwd_dkv(const FasnAttn* a, const void* dout, const float* lse,
                                   const float* delta, void* dk, void* dv, cudaStream_t stream) {
   using namespace fasn;
-  auto scalar = [&](auto t, auto d) {
-    using T = typename decltype(t)::type;
-    constexpr int D = decltype(d)::value;
-    constexpr int TB = scalar_tile<D>();
-    const dim3 grid((a->S + TB - 1) / TB, a->H, a->B);
-    return launch(flash_bwd_dkv_kernel<T, D>, grid, dkv_smem_bytes<D>(), stream, *a,
-                  static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
-                  static_cast<T*>(dv));
-  };
   if (a->dtype != 0 && a->dtype != 1) return cudaErrorInvalidValue;
   if (wide_d(a->D)) {
     if (a->dtype == 1) return launch_wide(*a, dout, lse, delta, dk, dv, stream);
@@ -1004,5 +998,10 @@ extern "C" int fasn_flash_bwd_dkv(const FasnAttn* a, const void* dout, const flo
         return cudaErrorInvalidValue;
     }
   }
-  return dispatch_d<float, 256>(a->D, scalar);
+  if (a->D != 256) return fasn_flash_bwd_dkv_tf32x3(a, dout, lse, delta, dk, dv, stream);
+  constexpr int TB = scalar_tile<256>();
+  const dim3 grid((a->S + TB - 1) / TB, a->H, a->B);
+  return launch(flash_bwd_dkv_kernel<float, 256>, grid, dkv_smem_bytes<256>(), stream, *a,
+                static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
+                static_cast<float*>(dv));
 }

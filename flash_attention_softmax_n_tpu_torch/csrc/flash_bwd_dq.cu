@@ -47,12 +47,16 @@
 // dS K (m64n256, K read MN-major) to dQ. The CTAs of one head run side by
 // side (a flat grid), so the K and V tiles they all stream come from L2.
 //
-// f32: flash_bwd_dq_kernel, scalar f32 FMAs from shared memory on 64 x 64
-// tiles (wgmma has no f32 x f32 product, and TF32 would not hold f32's
-// tolerance): 256 threads in K1's scalar layout, thread (ty, tx) owning
-// tile rows ty + 16 i, key columns tx + 16 j and dq columns tx + 16 c; ds
-// goes through shared memory, rounded to k's dtype, for the ds k product.
-// At D 256 the tiles are 32 x 32 (scalar_tile, for shared memory).
+// f32 at D 32, 64 and 128: flash_bwd_dq_tf32x3_kernel (flash_bwd_f32.cu,
+// a translation unit of its own, entered through fasn_flash_bwd_dq_tf32x3).
+// wgmma has no f32 x f32 product and one TF32 pass keeps about 10 mantissa
+// bits, but three passes on each operand's TF32 head and rest (split-TF32)
+// hold f32's tolerance at 2.5x the f32 FMA peak; that file's header says
+// how. f32 at D 256: flash_bwd_dq_kernel, scalar f32 FMAs from shared
+// memory on 32 x 32 tiles (scalar_tile, for shared memory): 256 threads in
+// K1's scalar layout, thread (ty, tx) owning tile rows ty + 16 i, key
+// columns tx + 16 j and dq columns tx + 16 c; ds goes through shared
+// memory, rounded to k's dtype, for the ds k product.
 //
 // bf16 above 256 (D a multiple of 128, as the wrapper pads it):
 // flash_bwd_dq_wide_wgmma_kernel. A 128-row tile over all of D would pass
@@ -923,15 +927,6 @@ extern "C" int fasn_flash_bwd_dq(const FasnAttn* a, const void* dout, const floa
                                  const float* delta, float scale, void* dq, float* dbias,
                                  float* dslope_rows, cudaStream_t stream) {
   using namespace fasn;
-  auto scalar = [&](auto t, auto d) {
-    using T = typename decltype(t)::type;
-    constexpr int D = decltype(d)::value;
-    constexpr int TB = scalar_tile<D>();
-    const dim3 grid((a->L + TB - 1) / TB, a->H, a->B);
-    return launch(flash_bwd_dq_kernel<T, D>, grid, dq_smem_bytes<D>(), stream, *a,
-                  static_cast<const T*>(dout), lse, delta, scale, static_cast<T*>(dq), dbias,
-                  dslope_rows);
-  };
   if (a->dtype != 0 && a->dtype != 1) return cudaErrorInvalidValue;
   if (wide_d(a->D)) {
     if (a->dtype == 1)
@@ -956,5 +951,11 @@ extern "C" int fasn_flash_bwd_dq(const FasnAttn* a, const void* dout, const floa
         return cudaErrorInvalidValue;
     }
   }
-  return dispatch_d<float, 256>(a->D, scalar);
+  if (a->D != 256)
+    return fasn_flash_bwd_dq_tf32x3(a, dout, lse, delta, scale, dq, dbias, dslope_rows, stream);
+  constexpr int TB = scalar_tile<256>();
+  const dim3 grid((a->L + TB - 1) / TB, a->H, a->B);
+  return launch(flash_bwd_dq_kernel<float, 256>, grid, dq_smem_bytes<256>(), stream, *a,
+                static_cast<const float*>(dout), lse, delta, scale, static_cast<float*>(dq),
+                dbias, dslope_rows);
 }

@@ -5,8 +5,9 @@
 // every dropout decision the same way. The prefill-phase kernel K10
 // (prefill_phases.cu) takes the tile shape, conversions, reductions and
 // launch helpers. The tile shape, thread layout and 16-lane reductions are
-// those of the scalar f32 kernels; the bf16 kernels of K1, K5, K6 and K10
-// run on attn_tile.h's tensor-core tile and take the score modifiers, the
+// those of the scalar f32 kernels; the bf16 kernels of K1, K5, K6 and K10,
+// and K5's and K6's f32 kernels at D <= 128 (flash_bwd_f32.cu), run on
+// attn_tile.h's tensor-core tiles and take the score modifiers, the
 // dropout hash, NEG_INF and DEAD_LSE from here. Device code: only the .cu files, compiled by
 // nvcc, include it.
 

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels: K7
-// (qmm.cu), K1 (flash_fwd.cu), K5 (flash_bwd_dq.cu), K6 (flash_bwd_dkv.cu)
-// and K10 (prefill_phases.cu). Inline PTX for
+// (qmm.cu), K1 (flash_fwd.cu), K5 (flash_bwd_dq.cu), K6 (flash_bwd_dkv.cu;
+// both in f32 at D <= 128 in flash_bwd_f32.cu) and K10 (prefill_phases.cu).
+// Inline PTX for
 // shared-memory addresses, mbarriers, TMA loads, proxy fences, wgmma
 // operand descriptors and wgmma itself, and on the host libcuda's
 // cuTensorMapEncodeTiled. Device code: only the .cu files, compiled by
@@ -275,6 +276,78 @@ __device__ __forceinline__ void wgmma(int (&d)[64], uint64_t a, uint64_t b) {
       ", %64, %65, p;\n"
       "}\n"
       : HOP_D64(HOP_R)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// TF32 products (K5's and K6's split-TF32 kernels, flash_bwd_f32.cu): d +=
+// A (64 x 8) * B (8 x N), f32 accumulators, N by the size of d: A in shared
+// memory N = 64, 32 or 16, A in registers N = 64 or 32. TF32 has no
+// transpose bit: A and B in shared memory are both K-major (8 f32 values,
+// 32 bytes, along K per row). The tensor cores read the top 19 bits of
+// each f32 word (sign, exponent, 10 mantissa bits) and ignore the low 13.
+// A in registers: a[0] (row g, k t), a[1] (row g + 8, k t), a[2] (row g, k
+// t + 4), a[3] (row g + 8, k t + 4) of the warp's 16 rows, g = lane / 4,
+// t = lane % 4.
+#define HOP_D8(c) HOP_D4(c, 0), HOP_D4(c, 4)
+#define HOP_REGS8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " HOP_REGS32
+      ", %32, %33, p, 1, 1;\n"
+      "}\n"
+      : HOP_D32(HOP_F)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " HOP_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : HOP_D32(HOP_F)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " HOP_REGS16
+      ", %16, %17, p, 1, 1;\n"
+      "}\n"
+      : HOP_D16(HOP_F, 0)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " HOP_REGS16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : HOP_D16(HOP_F, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 " HOP_REGS8
+      ", %8, %9, p, 1, 1;\n"
+      "}\n"
+      : HOP_D8(HOP_F)
       : "l"(a), "l"(b), "r"(1));
 }
 

@@ -55,6 +55,16 @@ int fasn_flash_bwd_dq(const FasnAttn* a, const void* dout, const float* lse, con
 int fasn_flash_bwd_dkv(const FasnAttn* a, const void* dout, const float* lse, const float* delta,
                        void* dk, void* dv, cudaStream_t stream);
 
+// K5's and K6's split-TF32 kernels for f32 at D 32, 64 and 128
+// (flash_bwd_f32.cu), which fasn_flash_bwd_dq and fasn_flash_bwd_dkv call
+// for those inputs; the same arguments. TMA: q, k, v and dout must start on
+// 16 bytes.
+int fasn_flash_bwd_dq_tf32x3(const FasnAttn* a, const void* dout, const float* lse,
+                             const float* delta, float scale, void* dq, float* dbias,
+                             float* dslope_rows, cudaStream_t stream);
+int fasn_flash_bwd_dkv_tf32x3(const FasnAttn* a, const void* dout, const float* lse,
+                              const float* delta, void* dk, void* dv, cudaStream_t stream);
+
 // K2 (qmm_argmax.cu). x (M,K) contiguous, bf16 (dtype 1) or f32 (dtype 0);
 // w (K,N) int8 contiguous; scales (N,) f32; out_idx (M,) int32, out_val
 // (M,) f32; part_val/part_idx scratch of M * slots. The plan

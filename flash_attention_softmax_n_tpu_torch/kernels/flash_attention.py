@@ -10,7 +10,8 @@ flash backward: ``p = exp(s - lse)`` are the softmax-N probabilities and
 
 ``flash_fwd`` and ``flash_bwd`` pick by the tensors' device: a CUDA tensor
 launches the hand-written kernels (``csrc/flash_fwd.cu`` K1,
-``csrc/flash_bwd_dq.cu`` K5, ``csrc/flash_bwd_dkv.cu`` K6), a CPU tensor
+``csrc/flash_bwd_dq.cu`` K5, ``csrc/flash_bwd_dkv.cu`` K6; f32 K5 and K6 at
+head dims 32-128 in ``csrc/flash_bwd_f32.cu``), a CPU tensor
 runs ``flash_fwd_reference`` / ``flash_bwd_reference``, the same arithmetic
 in plain PyTorch. L and S need no padding: the kernels mask ragged tiles
 themselves. The kernels are built for head dims 32, 64, 128, 256 and any
@@ -37,8 +38,8 @@ from flash_attention_softmax_n_tpu_torch.kernels import _build
 
 __all__ = ["flash_attention_n_fused", "flash_attention_block_grads",
            "flash_fwd", "flash_fwd_reference", "flash_bwd",
-           "flash_bwd_reference", "dropout_keep", "dropout_multiplier",
-           "NEG_INF", "DEAD_LSE"]
+           "flash_bwd_reference", "flash_bwd_tf32x3_reference",
+           "dropout_keep", "dropout_multiplier", "NEG_INF", "DEAD_LSE"]
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 # any real lse is above DEAD_LSE; only the dead-row sentinel NEG_INF is
@@ -116,12 +117,13 @@ def _dropout_args(rate: float) -> Tuple[int, float]:
 # ----------------------------------------------------------------------------
 
 
-def _scores_reference(q, k, bias, slopes, *, scale, is_causal):
+def _scores_reference(q, k, bias, slopes, *, scale, is_causal, mm=torch.matmul):
     """(q scaled in q's dtype as f32, f32 (B,H,L,S) masked scores) as the
-    kernels form them: bias, then ALiBi, then the causal mask."""
+    kernels form them: bias, then ALiBi, then the causal mask. ``mm`` is the
+    product (``flash_bwd_tf32x3_reference``'s split)."""
     L, S = q.shape[2], k.shape[2]
     qs = (q * torch.tensor(scale, dtype=q.dtype)).float()
-    s = qs @ k.float().transpose(-1, -2)
+    s = mm(qs, k.float().transpose(-1, -2))
     if bias is not None:
         s = s + bias.float()
     qpos = torch.arange(L, device=q.device)[:, None]
@@ -177,7 +179,7 @@ def flash_bwd_reference(q, k, v, bias, slopes, seed, o, lse, do, *,
                         scale: float, is_causal: bool,
                         dropout_rate: float = 0.0, grad_bias: bool = True,
                         grad_slopes: bool = True,
-                        delta: Optional[torch.Tensor] = None):
+                        delta: Optional[torch.Tensor] = None, mm=torch.matmul):
     """Plain version of K5 and K6: (dq, dk, dv, dbias, dslopes).
 
     Arguments as ``flash_fwd_reference``, with the forward's o and lse (or,
@@ -191,24 +193,25 @@ def flash_bwd_reference(q, k, v, bias, slopes, seed, o, lse, do, *,
     tests' tolerance). dbias is ds as f32 (B,H,L,S) when a bias is given
     and ``grad_bias``; dslopes (H,) is the sum of ``ds * -|dist|`` over
     batch and positions when slopes are given and ``grad_slopes``. A
-    caller's ``delta`` (B,H,L) f32 stands for ``rowsum(do * o)``.
+    caller's ``delta`` (B,H,L) f32 stands for ``rowsum(do * o)``. ``mm``
+    is the product of the five matmuls.
     """
     qs, s = _scores_reference(q, k, bias, slopes, scale=scale,
-                              is_causal=is_causal)
+                              is_causal=is_causal, mm=mm)
     p = torch.exp(s - torch.clamp(lse, min=DEAD_LSE)[..., None])
     do = do.to(q.dtype).float()
     delta = (torch.sum(do * o.float(), dim=-1, keepdim=True) if delta is None
              else delta.float()[..., None])
-    dp = do @ v.float().transpose(-1, -2)
+    dp = mm(do, v.float().transpose(-1, -2))
     pd = p
     if dropout_rate > 0.0:
         mult = dropout_multiplier(seed, p.shape, dropout_rate, q.device)
         dp = dp * mult
         pd = p * mult
     ds = p * (dp - delta)
-    dq = ((ds.to(k.dtype).float() @ k.float()) * scale).to(q.dtype)
-    dk = (ds.to(q.dtype).float().transpose(-1, -2) @ qs).to(k.dtype)
-    dv = (pd.transpose(-1, -2) @ do).to(v.dtype)
+    dq = (mm(ds.to(k.dtype).float(), k.float()) * scale).to(q.dtype)
+    dk = mm(ds.to(q.dtype).float().transpose(-1, -2), qs).to(k.dtype)
+    dv = mm(pd.transpose(-1, -2), do).to(v.dtype)
     dbias = ds if bias is not None and grad_bias else None
     dslopes = None
     if slopes is not None and grad_slopes:
@@ -220,12 +223,58 @@ def flash_bwd_reference(q, k, v, bias, slopes, seed, o, lse, do, *,
     return dq, dk, dv, dbias, dslopes
 
 
+# The tensor cores read a TF32 operand from an f32 word and ignore its low 13
+# bits (0xFFFFE000 keeps sign, exponent and 10 mantissa bits)
+_TF32_KEEP = -8192
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x as the tensor cores read it in TF32: the low 13 bits dropped."""
+    return (x.contiguous().view(torch.int32) & _TF32_KEEP).view(torch.float32)
+
+
+def _tf32_head(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (to nearest, ties away from zero), as the kernels
+    round it: 2^12 added to the bits, then the low 13 dropped."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & _TF32_KEEP).view(torch.float32)
+
+
+def _tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """a @ b as K5's and K6's f32 kernels at D <= 128 form it
+    (``csrc/flash_bwd_f32.cu``): each f32 operand x is its TF32 head
+    (``_tf32_head``) plus its rest x - head (exact in f32, read as TF32 by
+    the tensor cores, ``_tf32``); the two cross products first, then the
+    heads', rest x rest dropped. ``passes=1`` is one TF32 pass over the
+    operands as they stand (the tensor cores' own truncation)."""
+    if passes == 1:
+        return _tf32(a) @ _tf32(b)
+    a_hi, b_hi = _tf32_head(a), _tf32_head(b)
+    return (_tf32(a - a_hi) @ b_hi + a_hi @ _tf32(b - b_hi)) + a_hi @ b_hi
+
+
+def flash_bwd_tf32x3_reference(q, k, v, bias, slopes, seed, o, lse, do, *,
+                               scale: float, is_causal: bool,
+                               dropout_rate: float = 0.0, passes: int = 3,
+                               **kw):
+    """``flash_bwd_reference`` in f32 with every product taken as the
+    split-TF32 kernels take it (``_tf32x3_matmul``; ``passes=1``: one TF32
+    pass). A plain emulation of their numerics for the CPU tests; no path
+    calls it. Sums run in the CPU's f32 order, not the tensor cores'."""
+    if q.dtype != torch.float32:
+        raise ValueError("the split-TF32 kernels take f32 inputs")
+    return flash_bwd_reference(
+        q, k, v, bias, slopes, seed, o, lse, do, scale=scale,
+        is_causal=is_causal, dropout_rate=dropout_rate,
+        mm=lambda a, b: _tf32x3_matmul(a, b, passes), **kw)
+
+
 # ----------------------------------------------------------------------------
 # Kernel wrappers
 # ----------------------------------------------------------------------------
 
 # the head dims the kernels are built for up to 256 (bf16 K1, K5 and K6 at
-# 256 on their own TMA + wgmma kernels, f32 on the scalar ones); above,
+# 256 on their own TMA + wgmma kernels, f32 on the scalar ones; f32 K5 and
+# K6 at 32, 64 and 128 on the split-TF32 TMA + wgmma kernels); above,
 # every multiple of WIDE_HEAD_DIM: bf16 K5 and K6 on their wide TMA + wgmma
 # kernels at every such D, bf16 K1 on its wide TMA + wgmma kernel at 384
 # and 512 (and on the wide scalar kernel above 512), f32 on the wide scalar

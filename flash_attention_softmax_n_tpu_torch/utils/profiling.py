@@ -40,10 +40,13 @@ class ChipSpec:
     bf16_flops: float  # peak dense bf16 FLOP/s
     int8_ops: float    # peak dense int8 OP/s
     hbm_bw: float      # device-memory bytes/s
+    # peak dense TF32 FLOP/s (K5's and K6's split-TF32 f32 kernels take three
+    # TF32 operations for each f32 one); None where the chip has no TF32
+    tf32_flops: Optional[float] = None
 
 
 # NVIDIA H100 SXM data sheet, dense rates at the 700 W limit
-H100 = ChipSpec("H100 SXM", 989e12, 1979e12, 3.35e12)
+H100 = ChipSpec("H100 SXM", 989e12, 1979e12, 3.35e12, 495e12)
 
 
 def card_description(device: torch.device) -> str:

@@ -1116,6 +1116,96 @@ def test_flash_bwd_wgmma_rejects_misaligned_inputs(gen, d):
                               torch.empty_like(k), 0.125, True, 0, 1.0)
 
 
+# K5's and K6's f32 kernels at D 32, 64 and 128: split-TF32 products on TMA +
+# wgmma (csrc/flash_bwd_f32.cu), which must be the ones launched (and not
+# the scalar flash_bwd_dq_kernel / flash_bwd_dkv_kernel): the shapes of
+# _WGMMA_SHAPES (L and S ending mid-tile against K5's 64-row query tiles
+# and 32- or 64-key tiles, K6's 64-key tiles and 16- or 32-row query tiles;
+# rectangular causal both ways, dead rows at n = 0; non-causal), each
+# backward held alone against the plain version from the plain forward's o
+# and lse, within 1e-4 of max(1, |plain|) element-wise, as every f32 card
+# test holds K5 and K6; at chip_smoke's shapes (B2 H3 L200 S264 under the
+# extras, train_agreement's) also within 1e-5 of max(1, ||plain||) as a
+# whole, as check_attention holds them (three TF32 passes drop about 2^-21
+# of a product; where dq and dk are exactly zero, as at L = S = 1 with n =
+# 0, p = 1 and ds = dp - delta keeps dp's 2^-21 of sum |do v|, which
+# max(1, ||plain||) leaves absolute: 1.2e-5 of the norm at d128, 4.1e-6 at
+# d64 on an H100, against at most 1.5e-6 at every other shape here);
+# repeat calls bit-equal
+_TF32X3_BWD_KERNELS = ("flash_bwd_dq_tf32x3_kernel", "flash_bwd_dkv_tf32x3_kernel")
+_F32_NORM_TOL = 1e-5
+
+
+def _bwd_f32(gen, B, H, L, S, d, *, n=1.0, causal=True, norm=False, **extras):
+    q, k, v, do, ex = _attn_inputs(gen, torch.float32, B, H, L, S, d, **extras)
+    kw = dict(n=n, scale=d ** -0.5, is_causal=causal, slopes=ex["slopes"], seed=ex["seed"],
+              dropout_rate=ex["dropout_rate"])
+    o, lse = fa.flash_fwd_reference(q, k, v, ex["bias"], **kw)
+    args = (q, k, v, ex["bias"], ex["slopes"], ex["seed"], o, lse, do)
+    bkw = dict(scale=d ** -0.5, is_causal=causal, dropout_rate=ex["dropout_rate"])
+    before = {name: _build.LAUNCHES[name] for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+    got, names, calls = _launched(lambda: fa.flash_bwd(*args, **bkw))
+    assert all(_build.LAUNCHES[name] == c + calls for name, c in before.items())
+    for kernel in _TF32X3_BWD_KERNELS:
+        assert any(kernel in nm for nm in names), (kernel, sorted(set(names)))
+    # no name is a substring of another: the scalar kernels did not run
+    assert not any(scalar in nm for scalar in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+                   for nm in names), sorted(set(names))
+    want = fa.flash_bwd_reference(*args, **bkw)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias", "dslopes"), got, want):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            assert g.dtype == torch.float32 and g.shape == w.shape, name
+            _assert_close(g, w, 1e-4)
+            if norm:
+                _assert_norm_close(g, w, _F32_NORM_TOL)
+    again = fa.flash_bwd(*args, **bkw)
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, again))
+    return got
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("n", [0.0, 1.0])
+@pytest.mark.parametrize("shape", _WGMMA_SHAPES, ids=lambda s: "L{}-S{}-{}".format(*s))
+def test_flash_bwd_tf32x3_matches_plain(gen, d, n, shape):
+    L, S, causal = shape
+    dq, dk, dv, _, _ = _bwd_f32(gen, 1, 2, L, S, d, n=n, causal=causal)
+    if n == 0 and causal and L > S:
+        dead = torch.arange(L, device="cuda") + (S - L) < 0
+        assert bool((dq[:, :, dead] == 0).all())
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("extra", ["bias11", "bias21", "bias13", "bias23", "alibi", "dropout",
+                                   "all"])
+def test_flash_bwd_tf32x3_extras_match_plain(gen, d, extra):
+    # dbias from every bias broadcast, dslopes from ALiBi, dropout's hash
+    bias_shape = {"bias11": (1, 1), "bias21": (2, 1), "bias13": (1, 3), "bias23": (2, 3),
+                  "all": (2, 1)}.get(extra)
+    _bwd_f32(gen, 2, 3, 200, 264, d, norm=True, bias_shape=bias_shape,
+             alibi=extra in ("alibi", "all"), rate=0.25 if extra in ("dropout", "all") else 0.0)
+
+
+def test_flash_bwd_tf32x3_at_train_agreements_shape(gen):
+    # B2 H32 L=S=1024 d64 causal, n 1: the f32 training path's (chip_smoke
+    # train_agreement); every query tile crosses the diagonal at its end
+    _bwd_f32(gen, 2, 32, 1024, 1024, 64, norm=True)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_flash_bwd_tf32x3_rejects_misaligned_inputs(gen, d):
+    # contiguous f32 views starting 4 bytes past an allocation: TMA needs 16
+    base = torch.randn(2 * 128 * d + 1, device="cuda")
+    bad = base[1:].view(1, 2, 128, d)
+    k = torch.randn((1, 2, 128, d), device="cuda")
+    rows = torch.zeros((1, 2, 128), device="cuda")
+    for q, do in ((bad, k), (k, bad)):
+        before = {name: _build.LAUNCHES[name] for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            fa.flash_bwd(q, k, k, None, None, None, k, rows, do, scale=0.125, is_causal=True)
+        assert all(_build.LAUNCHES[name] == c for name, c in before.items())
+
+
 # ----------------------------------------------------------------------------
 # K7 (dequant matmul), K9 (fused MLP), K8 (decode attention)
 # ----------------------------------------------------------------------------

@@ -55,7 +55,7 @@ def _roof_keys(r):
 def test_attention_roofline_matches_jax(args):
     b, h, lq, lk, hd, causal, nbytes = args
     for j_chip, t_chip in ((jprof.V5E, tprof.ChipSpec("v5e", 197e12, 394e12, 819e9)),
-                           (jprof.ChipSpec(*dataclasses.astuple(tprof.H100)),
+                           (jprof.ChipSpec(*dataclasses.astuple(tprof.H100)[:4]),
                             tprof.H100)):
         want = jprof.attention_roofline(b, h, lq, lk, hd, causal=causal,
                                         dtype_bytes=nbytes, chip=j_chip)
@@ -70,8 +70,8 @@ def test_attention_roofline_matches_jax(args):
 
 
 def test_h100_spec_is_the_data_sheet():
-    assert (tprof.H100.bf16_flops, tprof.H100.int8_ops, tprof.H100.hbm_bw) == (
-        989e12, 1979e12, 3.35e12)
+    assert (tprof.H100.bf16_flops, tprof.H100.int8_ops, tprof.H100.hbm_bw,
+            tprof.H100.tf32_flops) == (989e12, 1979e12, 3.35e12, 495e12)
     assert tprof.card_description(torch.device("cpu")) == "cpu"
 
 
