@@ -49,12 +49,12 @@ Phases, in order, each printing one JSON line:
    B2 H32 L=S=2048 d64 bf16 causal with dropout, timed: each kernel's
    TFLOP/s, and the backward pair with delta against SDPA's backward by
    device time; then train_agreement's B2 H32 L=S=1024 d64 f32 causal,
-   timed the same way against f32 SDPA, whose kernels name its backend: K1
-   on its scalar f32 kernel against the f32 FMA bound, K5 and K6 required
-   to launch their split-TF32 kernels ``flash_bwd_dq_tf32x3_kernel`` and
-   ``flash_bwd_dkv_tf32x3_kernel``, against three TF32 operations an f32
-   one with the f32 FMA bound beside it), each run twice and required
-   bit-equal, K1 with ALiBi and
+   timed the same way against f32 SDPA, whose kernels name its backend: K1,
+   K5 and K6 required to launch their split-TF32 kernels
+   ``flash_fwd_tf32x3_kernel``, ``flash_bwd_dq_tf32x3_kernel`` and
+   ``flash_bwd_dkv_tf32x3_kernel`` (f32 K1 at B2 H4 L200 S264 too), against
+   three TF32 operations an f32 one with the f32 FMA bound beside it), each
+   run twice and required bit-equal, K1 with ALiBi and
    dropout held at the training shape, and the three kernels' dropout masks
    (each in f32 and bf16) required bit-equal to the plain hash; a bf16
    forward's o is held, K1 and its plain version each, against a float64
@@ -67,7 +67,8 @@ Phases, in order, each printing one JSON line:
    the wrappers to 32, 128 and 128), 256 (the TMA + wgmma kernels
    ``flash_fwd_d256_kernel``, ``flash_bwd_dq_d256_kernel`` and
    ``flash_bwd_dkv_d256_kernel`` in bf16, the scalar kernels in f32; f32
-   K5 and K6 at 16, 80 and 96 on their split-TF32 kernels), 300
+   K1, K5 and K6 at 16, 80 and 96 on their split-TF32 kernels, which K1
+   must have launched), 300
    (padded to 384), 384 and 512 (bf16 K1, K5 and K6 on their wide TMA +
    wgmma kernels ``flash_fwd_wide_wgmma_kernel``,
    ``flash_bwd_dq_wide_wgmma_kernel`` and
@@ -80,7 +81,9 @@ Phases, in order, each printing one JSON line:
    K1's wide TMA + wgmma kernel); K1, K5 and K6 at d256, 384 and 512 there
    as phase 4 times its training lines (the backward pair against SDPA's
    backward; at d256 it must have launched K5's and K6's D 256 kernels,
-   at 384 and 512 the three their wide ones); K8 at B8 KVH1 G8 S512 hd
+   at 384 and 512 the three their wide ones), and in f32 at B2 H8 L=S=1024
+   causal against f32 SDPA (the scalar kernels at d256, the wide scalar
+   ones at 384 and 512, which they must have launched); K8 at B8 KVH1 G8 S512 hd
    256 over int8 and bf16 caches and hd 160 and 512 over int8, and at hd
    512 under int8 compute (split and products printed); K10's four modes
    at B2 H8 L1024 hd 80, 256, 320 and 512 (at 256 it must have launched
@@ -159,7 +162,8 @@ Phases, in order, each printing one JSON line:
 7. train_agreement: the TinyLlama-1.1B width at 2 layers in f32: every
    parameter gradient of ``causal_lm_loss`` through the fused route (K1,
    K5, K6) against the same through plain tensor ops (``"xla"``), relative
-   L2 error at most 1e-3, counting the fused route's launches;
+   L2 error at most 1e-3, counting the fused route's launches, which must
+   include K1's, K5's and K6's split-TF32 kernels;
 8. train: the full TinyLlama-1.1B shape (22 layers, bf16, n = 1, attention
    dropout 0.1, remat) takes 4 AdamW steps on one B2 x L2048 batch through
    ``make_train_step``, counting the kernels' launches; the losses must be
@@ -288,20 +292,25 @@ CSRC = "flash_attention_softmax_n_tpu_torch/csrc"
 # K1's, K5's, K6's and K10's kernels as torch.profiler names them (no name
 # a substring of another): bf16 inputs take the TMA + wgmma kernel (at D
 # 256 their own D 256 ones; above 256 their wide ones, K1's and K10's at D
-# 384 and 512), f32 the scalar one (K5 and K6 at D 32-128 their
+# 384 and 512), f32 the scalar one (K1, K5 and K6 at D 32-128 their
 # split-TF32 TMA + wgmma ones), f32 (and K1's and K10's bf16 above 512)
 # above 256 the wide scalar one
 FLASH_FWD_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_d256_kernel", "flash_fwd_kernel",
-                     "flash_fwd_wide_kernel", "flash_fwd_wide_wgmma_kernel")
+                     "flash_fwd_wide_kernel", "flash_fwd_wide_wgmma_kernel",
+                     "flash_fwd_tf32x3_kernel")
 FLASH_DQ_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_d256_kernel",
                     "flash_bwd_dq_kernel", "flash_bwd_dq_wide_kernel",
                     "flash_bwd_dq_wide_wgmma_kernel", "flash_bwd_dq_tf32x3_kernel")
 FLASH_DKV_KERNELS = ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_d256_kernel",
                      "flash_bwd_dkv_kernel", "flash_bwd_dkv_wide_kernel",
                      "flash_bwd_dkv_wide_wgmma_kernel", "flash_bwd_dkv_tf32x3_kernel")
-# f32 at D <= 128: K1's scalar kernel, K5's and K6's split-TF32 ones
-F32_ATTN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_tf32x3_kernel",
-                    "flash_bwd_dkv_tf32x3_kernel")
+# f32 at D <= 128: K1's, K5's and K6's split-TF32 kernels
+F32_FWD_KERNEL = "flash_fwd_tf32x3_kernel"
+F32_ATTN_KERNELS = (F32_FWD_KERNEL, "flash_bwd_dq_tf32x3_kernel", "flash_bwd_dkv_tf32x3_kernel")
+# f32 at D 256 and above it: K1's, K5's and K6's scalar and wide scalar kernels
+F32_D256_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+F32_WIDE_KERNELS = ("flash_fwd_wide_kernel", "flash_bwd_dq_wide_kernel",
+                    "flash_bwd_dkv_wide_kernel")
 # bf16 K5 and K6 at D 256, and above it
 D256_BWD_KERNELS = ("flash_bwd_dq_d256_kernel", "flash_bwd_dkv_d256_kernel")
 WIDE_BWD_KERNELS = ("flash_bwd_dq_wide_wgmma_kernel", "flash_bwd_dkv_wide_wgmma_kernel")
@@ -433,10 +442,12 @@ def device_ms_of(torch, pairs, runs: int = TIMED_RUNS, launched=None):
     return out
 
 
-def k1_source(fa, D):
-    """the source of K1's bf16 kernel at head dim D"""
-    wide = fa.kernel_head_dim(D) in (384, 512)
-    return f"{CSRC}/flash_fwd_wide.cu" if wide else f"{CSRC}/flash_fwd.cu"
+def k1_source(fa, D, f32=False):
+    """the source of K1's kernel at head dim D, bf16 or (``f32``) f32"""
+    dp = fa.kernel_head_dim(D)
+    if f32:
+        return f"{CSRC}/flash_fwd_f32.cu" if dp <= 128 else f"{CSRC}/flash_fwd.cu"
+    return f"{CSRC}/flash_fwd_wide.cu" if dp in (384, 512) else f"{CSRC}/flash_fwd.cu"
 
 
 # ----------------------------------------------------------------------------
@@ -1111,19 +1122,41 @@ def o_excess(got, o64, o_abs64, p_roundings: int = 1) -> float:
     return float(((got.double() - o64).abs() - tol).max())
 
 
-def check_attention(torch, fa, gen, dtype, *, n, causal, shape, **extras):
+def run_profiled(torch, fn):
+    """fn()'s result and the names of the CUDA kernels torch.profiler saw
+    it launch"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def check_attention(torch, fa, gen, dtype, *, n, causal, shape, fwd_kernel=None, **extras):
     """K1, K5 and K6 against their plain versions on one input, each run
     twice; both backward versions take the plain forward's o and lse, so
-    each kernel is held alone. Returns the inputs and the errors."""
+    each kernel is held alone. With ``fwd_kernel`` both K1 calls run under
+    torch.profiler and one of them must show that kernel (a profile at
+    times records no device event, PERF.md section 7). Returns the inputs
+    and the errors."""
     B, H, L, S, D = shape
     q, k, v, do, ex = attn_inputs(torch, gen, dtype, B=B, H=H, L=L, S=S, D=D, **extras)
-    o, lse = run_fwd(fa, False, q, k, v, ex, n=n, causal=causal)
+
+    def k1():
+        return run_fwd(fa, False, q, k, v, ex, n=n, causal=causal)
+
+    def fwd():
+        return (k1(), []) if fwd_kernel is None else run_profiled(torch, k1)
+
+    (o, lse), names = fwd()
     o_ref, lse_ref = run_fwd(fa, True, q, k, v, ex, n=n, causal=causal)
     o64, o_abs64 = fwd_float64(torch, fa, q, k, v, ex, n=n, causal=causal)
     got = run_bwd(fa, False, q, k, v, do, o_ref, lse_ref, ex, causal=causal)
     want = run_bwd(fa, True, q, k, v, do, o_ref, lse_ref, ex, causal=causal)
-    again = (*run_fwd(fa, False, q, k, v, ex, n=n, causal=causal),
-             *run_bwd(fa, False, q, k, v, do, o_ref, lse_ref, ex, causal=causal))
+    again_fwd, again_names = fwd()
+    again = (*again_fwd, *run_bwd(fa, False, q, k, v, do, o_ref, lse_ref, ex, causal=causal))
     torch.cuda.synchronize()
     first = (o, lse, *got)
     repeat_equal = all((a is None and b is None) or torch.equal(a, b)
@@ -1148,6 +1181,8 @@ def check_attention(torch, fa, gen, dtype, *, n, causal, shape, **extras):
     name = (f"B{B} H{H} L{L} S{S} d{D} {'f32' if f32 else 'bf16'} n{n:g} "
             f"{'causal' if causal else 'full'} {sorted(k for k, v in extras.items() if v)}")
     require(o_ok and errs["lse"] <= 1e-3, f"K1 {name}: o/lse off the plain version: {errs}")
+    require(fwd_kernel is None or any(fwd_kernel in nm for nm in names + again_names),
+            f"K1 {name}: launched {sorted(set(names + again_names))}, not {fwd_kernel}")
     grad_errs = {k_: e for k_, e in errs.items()
                  if k_ not in ("o", "o_excess", "o_excess_plain", "lse")}
     errs["norm"], errs["plain_max"] = norm, plain_max
@@ -1206,9 +1241,9 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
     B2 H32 L=S=2048 d64 bf16 causal, n = 1, dropout 0.1, as its every layer
     runs them; the quant_study phase's is B32 H16 L512 without dropout;
     train_agreement's B2 H32 L1024 f32): errors, and times (``runs`` calls
-    each) against their bounds (f32: operations at 67 TFLOP/s; K5's and
-    K6's split-TF32 kernels at D <= 128 three TF32 operations for each f32
-    one at 495 TFLOP/s, with the f32 FMA bound beside it as
+    each) against their bounds (f32: operations at 67 TFLOP/s; K1's, K5's
+    and K6's split-TF32 kernels at D <= 128 three TF32 operations for each
+    f32 one at 495 TFLOP/s, with the f32 FMA bound beside it as
     ``bound_ms_f32_fma``), plain
     versions and scaled_dot_product_attention with one zero key/value row
     prepended (its kernels' names say which backend it took). The K1 line
@@ -1219,9 +1254,9 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
     dtype = dtype or torch.bfloat16
     f32 = dtype == torch.float32
     es, peak = (4, F32_FLOPS) if f32 else (2, None)
-    # K5 and K6 in f32 at D <= 128: three TF32 passes an f32 product
+    # K1, K5 and K6 in f32 at D <= 128: three TF32 passes an f32 product
     split = f32 and fa.kernel_head_dim(D) <= 128
-    bwd_passes, bwd_peak = (3, CHIP.tf32_flops) if split else (1, peak)
+    passes, op_peak = (3, CHIP.tf32_flops) if split else (1, peak)
     dq_source, dkv_source = (("flash_bwd_f32.cu",) * 2 if split
                              else ("flash_bwd_dq.cu", "flash_bwd_dkv.cu"))
     (q, k, v, do, ex, o, lse), errs, name = check_attention(
@@ -1314,14 +1349,14 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
                  f"{BWD_NORM_TOL['bf16']} of max(1, ||plain||); repeat calls bit-equal")
     common = {"route": "cuda", "tolerance": tolerance, "path": path,
               "library_kernels": library_kernels}
-    b1, by1 = bound_ms(4 * bhld * es + bhl * 4, 4.0 * D * pairs, peak)
+    b1, by1 = bound_ms(4 * bhld * es + bhl * 4, passes * 4.0 * D * pairs, op_peak)
     launched = []
     k1_dev = device_ms(torch, k1, FLASH_FWD_KERNELS, runs, launched)
     launched_k1 = launched[0]
     require(all(k in launched_k1 for k in kernels if k in FLASH_FWD_KERNELS),
             f"flash_fwd B{B} H{H} L{L} d{D}: launched {launched_k1}, not {kernels}")
-    b5, by5 = bound_ms(5 * bhld * es + 2 * bhl * 4, bwd_passes * 6.0 * D * pairs, bwd_peak)
-    b6, by6 = bound_ms(6 * bhld * es + 2 * bhl * 4, bwd_passes * 8.0 * D * pairs, bwd_peak)
+    b5, by5 = bound_ms(5 * bhld * es + 2 * bhl * 4, passes * 6.0 * D * pairs, op_peak)
+    b6, by6 = bound_ms(6 * bhld * es + 2 * bhl * 4, passes * 8.0 * D * pairs, op_peak)
 
     def fma_bound(nbytes, ops):
         """the f32 FMA bound beside a split-TF32 one (None elsewhere)"""
@@ -1331,10 +1366,11 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
              + (f" dropout {rate}" if rate else ""))
     lines = [
         {**common, "name": f"flash_fwd {shape}", "counter": "flash_fwd",
-         "source": k1_source(fa, D),
+         "source": k1_source(fa, D, f32),
          "replaces": f"{FLASH_PY}:345 _fwd_single_kernel, :279 _fwd_kernel, "
                      ":501 _fwd_pipeline_kernel (ALiBi and dropout)",
          "launched": launched_k1,
+         "bound_ms_f32_fma": fma_bound(4 * bhld * es + bhl * 4, 4.0 * D * pairs),
          "max_abs_err": errs["o"], "max_abs_err_lse": errs["lse"], "ms": time_ms(torch, k1, runs),
          "ms_with_alibi": time_ms(torch, k1_alibi, runs),
          "device_ms": k1_dev, "tflops": tflops(4.0 * D * pairs, k1_dev),
@@ -1361,7 +1397,7 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
     # against SDPA's backward, both by device time and by CUDA events. Its
     # bound counts what dq, dk and dv need, 10·d a pair (S, dP, dV, dK, dQ
     # once each), not the 14·d the two kernels do: each recomputes S and dP
-    b56, by56 = bound_ms(8 * bhld * es + bhl * 4, bwd_passes * 10.0 * D * pairs, bwd_peak)
+    b56, by56 = bound_ms(8 * bhld * es + bhl * 4, passes * 10.0 * D * pairs, op_peak)
     require(all(k in launched_bwd for k in kernels if k not in FLASH_FWD_KERNELS),
             f"flash_bwd {shape}: launched {launched_bwd}, not {kernels}")
     emit({"phase": "kernel_pair", "name": f"flash_bwd (delta + K5 + K6) {shape}",
@@ -1388,11 +1424,13 @@ def train_kernels(torch, pkg, gen):
     fa = pkg["flash_attention"]
     # bf16 at d128 too: K5's and K6's wgmma kernels cut their tiles into
     # other chunks there (K6: 32 query rows)
+    # (f32 K1 must launch its split-TF32 kernel)
     for dtype, d in ((torch.float32, 64), (torch.bfloat16, 64), (torch.bfloat16, 128)):
         for n in (0.0, 1.0):
             _, errs, name = check_attention(
                 torch, fa, gen, dtype, n=n, causal=True, shape=(2, 4, 200, 264, d),
-                bias_shape=(1, 4), alibi=True, rate=0.25)
+                bias_shape=(1, 4), alibi=True, rate=0.25,
+                fwd_kernel=F32_FWD_KERNEL if dtype == torch.float32 else None)
             emit({"phase": "kernel_check", "name": name, "errors": errs,
                   "repeat_bit_equal": True})
     check_dropout_masks(torch, fa)
@@ -1431,7 +1469,8 @@ def head_dims(torch, pkg, gen):
     D at the study's attention shape (B32 H16 L=S=512 causal bf16), timed,
     with the bytes the padding adds, o held against a float64 evaluation
     too; K1, K5 and K6 at d256, 384 and 512 there as the training lines
-    time them (the backward pair against SDPA's backward); K8 at
+    time them (the backward pair against SDPA's backward), and in f32 at B2
+    H8 L=S=1024 (their scalar kernels, against f32 SDPA); K8 at
     ``K8_WIDE_LINES`` and under int8 compute at their hd 512 line; K10 at
     ``K10_HEAD_DIMS``.
     Returns (launches, kernel
@@ -1442,10 +1481,13 @@ def head_dims(torch, pkg, gen):
     build.reset_launches()
     for d in HEAD_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
+            # f32 K1 at 16, 80 and 96 (run at 32 and 128): its split-TF32 kernel
+            split = dtype == torch.float32 and fa.kernel_head_dim(d) <= 128
             for n in (0.0, 1.0):
                 _, errs, name = check_attention(torch, fa, gen, dtype, n=n, causal=True,
                                                 shape=(2, 4, 200, 264, d), bias_shape=(1, 4),
-                                                alibi=True, rate=0.25)
+                                                alibi=True, rate=0.25,
+                                                fwd_kernel=F32_FWD_KERNEL if split else None)
                 emit({"phase": "head_dims", "name": name, "padded_to": fa.kernel_head_dim(d),
                       "errors": errs, "repeat_bit_equal": True})
     launches = dict(build.LAUNCHES)
@@ -1481,6 +1523,14 @@ def head_dims(torch, pkg, gen):
                                     path="head_dims",
                                     kernels=D256_BWD_KERNELS if d == 256
                                     else (*WIDE_BWD_KERNELS, WIDE_FWD_KERNEL))
+    # and in f32 at B2 H8 L=S=1024 causal, n 1 (their scalar kernels at
+    # d256, the wide scalar ones at 384 and 512), against f32 SDPA; from a
+    # generator of their own, so that every other line keeps its inputs
+    gen_f32 = torch.Generator(device="cuda").manual_seed(256)
+    for d in (256, 384, 512):
+        lines += train_kernel_lines(torch, pkg, gen_f32, B=2, H=8, L=1024, D=d, rate=0.0,
+                                    path="head_dims", runs=10, dtype=torch.float32,
+                                    kernels=F32_D256_KERNELS if d == 256 else F32_WIDE_KERNELS)
     da = pkg["decode_attention"]
     # K8 at K8_WIDE_LINES, then under int8 compute at their hd 512 line (its
     # sub-tiled kernel: the 256-position tile's k and v rows do not fit a
@@ -2401,8 +2451,10 @@ def train_agreement(torch, pkg):
     """Every parameter gradient of causal_lm_loss at the TinyLlama-1.1B width
     (2 layers, f32, B2 L1024, no dropout) through the fused route (K1, K5,
     K6) against the same through plain tensor ops: relative L2 error at most
-    1e-3, the f32-on-GPU tolerance of BASELINE.md. Returns the fused route's
-    launches."""
+    1e-3, the f32-on-GPU tolerance of BASELINE.md; the fused route must
+    have launched K1's, K5's and K6's split-TF32 kernels (the same loss and
+    gradients again under torch.profiler, after the counts are read).
+    Returns the fused route's launches."""
     dec, tr, build = pkg["decoder"], pkg["train"], pkg["build"]
     kw = dict(TINYLLAMA, n_layers=2, dtype=torch.float32)
     params = dec.init_decoder_params(dec.DecoderConfig(**kw), 1, device="cuda")
@@ -2424,14 +2476,21 @@ def train_agreement(torch, pkg):
                         / torch.linalg.vector_norm(b.float()))
             for (path, _), a, b in zip(named, grads["pallas"], grads["xla"])}
     worst = max(errs.values())
+    fused = dec.DecoderConfig(**kw, attn_implementation="pallas")
+    kernels = []
+    device_ms_of(torch, [(lambda: torch.autograd.grad(tr.causal_lm_loss(params, fused, tokens),
+                                                      [p for _, p in named]),
+                          F32_ATTN_KERNELS)], 1, kernels)
     emit({"phase": "train_agreement", "config": "TinyLlama-1.1B width, 2 layers, f32, B2 L1024",
           "card": pkg["nvidia_smi"],
           "loss": losses, "rel_l2_err": errs, "max_rel_l2_err": worst, "tolerance": 1e-3,
-          "launches": launches})
+          "launches": launches, "kernels": kernels[0]})
     require(worst <= 1e-3, f"fused-route gradients differ from plain ops: {worst} > 1e-3")
     require(all(launches["pallas"][k] > 0 for k in TRAIN_KERNELS),
             f"the fused route did not launch every training kernel: {launches['pallas']}")
     require(all(v == 0 for v in launches["xla"].values()), "the xla route launched a kernel")
+    require(all(k in kernels[0] for k in F32_ATTN_KERNELS),
+            f"the fused route launched {kernels[0]}, not {F32_ATTN_KERNELS}")
     return launches["pallas"]
 
 
@@ -4166,8 +4225,8 @@ def main() -> int:
                                        if k in kd}})
     kernels += train_kernels(torch, pkg, gen)
     # K1, K5 and K6 in f32 at train_agreement's shape (the TinyLlama-1.1B
-    # width: B2 H32 L=S=1024 d64 causal, n 1, no dropout): K1's scalar
-    # kernel, K5's and K6's split-TF32 ones
+    # width: B2 H32 L=S=1024 d64 causal, n 1, no dropout): their split-TF32
+    # kernels
     kernels += train_kernel_lines(torch, pkg, gen, B=2, H=32, L=1024, D=64, rate=0.0,
                                   path="train_agreement", dtype=torch.float32,
                                   kernels=F32_ATTN_KERNELS)

@@ -37,8 +37,9 @@
 // tile of D 256 would be 64 KB; K5's (flash_bwd_dq.cu) keeps 128-row Q and
 // dO (RES_ROWS) beside 32-row K and V ring tiles; K1's and K10's wide
 // kernels (WideRing) keep 64-row Q beside 32-key K and V ring tiles.
-// F32Tile (below) describes the f32 tiles of K5's and K6's split-TF32
-// kernels (flash_bwd_f32.cu), whose k8 steps have the bf16 tiles' 32 bytes.
+// F32Tile (below) describes the f32 tiles of K1's, K5's and K6's split-TF32
+// kernels (flash_fwd_f32.cu, flash_bwd_f32.cu), whose k8 steps have the
+// bf16 tiles' 32 bytes.
 
 #pragma once
 
@@ -432,7 +433,7 @@ inline bool encode_attn(AttnMaps* m, const FasnAttn& a, int D, const void* dout 
 }
 
 // ---------------------------------------------------------------------------
-// f32 tiles of K5's and K6's split-TF32 kernels (flash_bwd_f32.cu)
+// f32 tiles of the split-TF32 kernels (flash_fwd_f32.cu, flash_bwd_f32.cu)
 // ---------------------------------------------------------------------------
 
 // ROWS rows of COLS f32 values along K (a wgmma operand's M or N rows),

@@ -6,7 +6,8 @@
 // (prefill_phases.cu) takes the tile shape, conversions, reductions and
 // launch helpers. The tile shape, thread layout and 16-lane reductions are
 // those of the scalar f32 kernels; the bf16 kernels of K1, K5, K6 and K10,
-// and K5's and K6's f32 kernels at D <= 128 (flash_bwd_f32.cu), run on
+// and K1's, K5's and K6's f32 kernels at D <= 128 (flash_fwd_f32.cu,
+// flash_bwd_f32.cu), run on
 // attn_tile.h's tensor-core tiles and take the score modifiers, the
 // dropout hash, NEG_INF and DEAD_LSE from here. Device code: only the .cu files, compiled by
 // nvcc, include it.

@@ -46,10 +46,12 @@
 // softmax on the fragment, one for O += P V with V read MN-major), and the
 // two overlap each other.
 //
-// f32: flash_fwd_kernel, scalar f32 FMAs from shared memory on 64 x 64
-// tiles (wgmma has no f32 x f32 product, and TF32 would not hold f32's
-// tolerance); the training path's f32 runs and the card tests take it.
-// Head dims 32, 64, 128 and 256 are built.
+// f32 at D 32, 64 and 128: flash_fwd_tf32x3_kernel (flash_fwd_f32.cu, a
+// translation unit of its own, entered through fasn_flash_fwd_tf32x3):
+// wgmma has no f32 x f32 product, but three TF32 passes on each operand's
+// rounded head and rest hold f32's tolerance (tf32x3.h), as K5's and K6's
+// f32 kernels showed. f32 at D 256: flash_fwd_kernel, scalar f32 FMAs from
+// shared memory on 64 x 64 tiles.
 //
 // Above 256 the wrapper pads D to a multiple of 128, as JAX does.
 //
@@ -610,13 +612,6 @@ cudaError_t launch_d256(const FasnAttn& a, float n, void* o, float* lse, cudaStr
 extern "C" int fasn_flash_fwd(const FasnAttn* a, float n, void* o, float* lse,
                               cudaStream_t stream) {
   using namespace fasn;
-  const dim3 grid((a->L + BQ - 1) / BQ, a->H, a->B);
-  auto scalar = [&](auto t, auto d) {
-    using T = typename decltype(t)::type;
-    constexpr int D = decltype(d)::value;
-    return launch(flash_fwd_kernel<T, D>, grid, fwd_smem_bytes<D>(), stream, *a, n,
-                  static_cast<T*>(o), lse);
-  };
   if (a->dtype != 0 && a->dtype != 1) return cudaErrorInvalidValue;
   if (a->dtype == 1 && (a->D == 384 || a->D == 512))
     return fasn_flash_fwd_wide(a, n, o, lse, stream);
@@ -643,5 +638,8 @@ extern "C" int fasn_flash_fwd(const FasnAttn* a, float n, void* o, float* lse,
         return cudaErrorInvalidValue;
     }
   }
-  return dispatch_d<float, 256>(a->D, scalar);
+  if (a->D != 256) return fasn_flash_fwd_tf32x3(a, n, o, lse, stream);
+  const dim3 grid((a->L + BQ - 1) / BQ, a->H, a->B);
+  return launch(flash_fwd_kernel<float, 256>, grid, fwd_smem_bytes<256>(), stream, *a, n,
+                static_cast<float*>(o), lse);
 }

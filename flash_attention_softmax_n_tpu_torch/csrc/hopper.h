@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels: K7
-// (qmm.cu), K1 (flash_fwd.cu), K5 (flash_bwd_dq.cu), K6 (flash_bwd_dkv.cu;
-// both in f32 at D <= 128 in flash_bwd_f32.cu) and K10 (prefill_phases.cu).
+// (qmm.cu), K1 (flash_fwd.cu; in f32 at D <= 128 flash_fwd_f32.cu), K5
+// (flash_bwd_dq.cu), K6 (flash_bwd_dkv.cu; both in f32 at D <= 128 in
+// flash_bwd_f32.cu) and K10 (prefill_phases.cu).
 // Inline PTX for
 // shared-memory addresses, mbarriers, TMA loads, proxy fences, wgmma
 // operand descriptors and wgmma itself, and on the host libcuda's
@@ -279,7 +280,7 @@ __device__ __forceinline__ void wgmma(int (&d)[64], uint64_t a, uint64_t b) {
       : "l"(a), "l"(b), "r"(1));
 }
 
-// TF32 products (K5's and K6's split-TF32 kernels, flash_bwd_f32.cu): d +=
+// TF32 products (the split-TF32 kernels of K1, K5 and K6, tf32x3.h): d +=
 // A (64 x 8) * B (8 x N), f32 accumulators, N by the size of d: A in shared
 // memory N = 64, 32 or 16, A in registers N = 64 or 32. TF32 has no
 // transpose bit: A and B in shared memory are both K-major (8 f32 values,

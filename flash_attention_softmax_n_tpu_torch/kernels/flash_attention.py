@@ -10,10 +10,11 @@ flash backward: ``p = exp(s - lse)`` are the softmax-N probabilities and
 
 ``flash_fwd`` and ``flash_bwd`` pick by the tensors' device: a CUDA tensor
 launches the hand-written kernels (``csrc/flash_fwd.cu`` K1,
-``csrc/flash_bwd_dq.cu`` K5, ``csrc/flash_bwd_dkv.cu`` K6; f32 K5 and K6 at
-head dims 32-128 in ``csrc/flash_bwd_f32.cu``), a CPU tensor
-runs ``flash_fwd_reference`` / ``flash_bwd_reference``, the same arithmetic
-in plain PyTorch. L and S need no padding: the kernels mask ragged tiles
+``csrc/flash_bwd_dq.cu`` K5, ``csrc/flash_bwd_dkv.cu`` K6; in f32 at head
+dims 32-128 the split-TF32 kernels, K1's in ``csrc/flash_fwd_f32.cu``, K5's
+and K6's in ``csrc/flash_bwd_f32.cu``), a CPU tensor runs
+``flash_fwd_reference`` / ``flash_bwd_reference``, the same arithmetic in
+plain PyTorch. L and S need no padding: the kernels mask ragged tiles
 themselves. The kernels are built for head dims 32, 64, 128, 256 and any
 multiple of 128 above; on CUDA tensors the wrappers zero-pad any other D up
 to the next of them and slice o, dq, dk and dv back (``kernel_head_dim``),
@@ -37,8 +38,8 @@ import torch
 from flash_attention_softmax_n_tpu_torch.kernels import _build
 
 __all__ = ["flash_attention_n_fused", "flash_attention_block_grads",
-           "flash_fwd", "flash_fwd_reference", "flash_bwd",
-           "flash_bwd_reference", "flash_bwd_tf32x3_reference",
+           "flash_fwd", "flash_fwd_reference", "flash_fwd_tf32x3_reference",
+           "flash_bwd", "flash_bwd_reference", "flash_bwd_tf32x3_reference",
            "dropout_keep", "dropout_multiplier", "NEG_INF", "DEAD_LSE"]
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
@@ -141,7 +142,7 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float, is_causal: bool,
                         slopes: Optional[torch.Tensor] = None,
                         seed: Optional[torch.Tensor] = None,
-                        dropout_rate: float = 0.0
+                        dropout_rate: float = 0.0, mm=torch.matmul
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K1: (o (B,H,L,D) in q's dtype, lse (B,H,L) f32).
 
@@ -149,10 +150,11 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B,H,L,S); slopes None or (H,) f32 ALiBi slopes; seed a 1-element int32
     tensor when ``dropout_rate > 0``. The scale folds into q in q's dtype;
     scores and statistics are f32; l sums the undropped p, and p is then
-    dropped and rounded to v's dtype before the PV product.
+    dropped and rounded to v's dtype before the PV product. ``mm`` is the
+    product of the two matmuls.
     """
     _, s = _scores_reference(q, k, bias, slopes, scale=scale,
-                             is_causal=is_causal)
+                             is_causal=is_causal, mm=mm)
     m = torch.amax(s, dim=-1, keepdim=True)
     if n > 0:
         m = torch.clamp(m, min=0.0)
@@ -162,7 +164,7 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = l + n * torch.exp(-m)
     if dropout_rate > 0.0:
         p = p * dropout_multiplier(seed, p.shape, dropout_rate, q.device)
-    acc = p.to(v.dtype).float() @ v.float()
+    acc = mm(p.to(v.dtype).float(), v.float())
     if n == 0:
         # rows with no visible key (rectangular causal, L > S)
         dead = (l == 0.0) | (m == NEG_INF)
@@ -240,8 +242,8 @@ def _tf32_head(x: torch.Tensor) -> torch.Tensor:
 
 
 def _tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
-    """a @ b as K5's and K6's f32 kernels at D <= 128 form it
-    (``csrc/flash_bwd_f32.cu``): each f32 operand x is its TF32 head
+    """a @ b as K1's, K5's and K6's f32 kernels at D <= 128 form it
+    (``csrc/tf32x3.h``): each f32 operand x is its TF32 head
     (``_tf32_head``) plus its rest x - head (exact in f32, read as TF32 by
     the tensor cores, ``_tf32``); the two cross products first, then the
     heads', rest x rest dropped. ``passes=1`` is one TF32 pass over the
@@ -250,6 +252,22 @@ def _tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.T
         return _tf32(a) @ _tf32(b)
     a_hi, b_hi = _tf32_head(a), _tf32_head(b)
     return (_tf32(a - a_hi) @ b_hi + a_hi @ _tf32(b - b_hi)) + a_hi @ b_hi
+
+
+def flash_fwd_tf32x3_reference(q, k, v, bias, *, n: float, scale: float,
+                               is_causal: bool, slopes=None, seed=None,
+                               dropout_rate: float = 0.0, passes: int = 3):
+    """``flash_fwd_reference`` in f32 with both products (q k^T and p v)
+    taken as K1's split-TF32 kernel takes them (``_tf32x3_matmul``;
+    ``passes=1``: one TF32 pass). A plain emulation of its numerics for the
+    CPU tests; no path calls it. Sums run in the CPU's f32 order, and p
+    against the rows' final maxima where the kernel takes its running ones."""
+    if q.dtype != torch.float32:
+        raise ValueError("the split-TF32 kernels take f32 inputs")
+    return flash_fwd_reference(
+        q, k, v, bias, n=n, scale=scale, is_causal=is_causal, slopes=slopes,
+        seed=seed, dropout_rate=dropout_rate,
+        mm=lambda a, b: _tf32x3_matmul(a, b, passes))
 
 
 def flash_bwd_tf32x3_reference(q, k, v, bias, slopes, seed, o, lse, do, *,
@@ -273,8 +291,8 @@ def flash_bwd_tf32x3_reference(q, k, v, bias, slopes, seed, o, lse, do, *,
 # ----------------------------------------------------------------------------
 
 # the head dims the kernels are built for up to 256 (bf16 K1, K5 and K6 at
-# 256 on their own TMA + wgmma kernels, f32 on the scalar ones; f32 K5 and
-# K6 at 32, 64 and 128 on the split-TF32 TMA + wgmma kernels); above,
+# 256 on their own TMA + wgmma kernels, f32 on the scalar ones; f32 K1, K5
+# and K6 at 32, 64 and 128 on the split-TF32 TMA + wgmma kernels); above,
 # every multiple of WIDE_HEAD_DIM: bf16 K5 and K6 on their wide TMA + wgmma
 # kernels at every such D, bf16 K1 on its wide TMA + wgmma kernel at 384
 # and 512 (and on the wide scalar kernel above 512), f32 on the wide scalar

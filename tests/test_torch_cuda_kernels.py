@@ -27,7 +27,9 @@ producer warpgroup, which the d256 and wide cases check ran, through
 torch.profiler): L and S
 ending mid-tile, every bias broadcast, ALiBi, dropout (K5's and K6's masks
 bit-equal to the hash), a ring block against an external lse, and
-misaligned inputs that must raise. The engine's CUDA graphs: each greedy
+misaligned inputs that must raise; f32 K1, K5 and K6 at D 32-128 run their
+split-TF32 kernels, held the same way and also against the plain
+emulation of their split (which the profiler checks ran). The engine's CUDA graphs: each greedy
 loop variant (plain, piggybacked, under 8 steps) replays bit-equal to the
 eager loop on the default, all-kernel and fp8 routes, launch counts
 included, and ``prewarm`` leaves the engine's state bit-equal. Chunked
@@ -1204,6 +1206,79 @@ def test_flash_bwd_tf32x3_rejects_misaligned_inputs(gen, d):
         with pytest.raises(ValueError, match="16-byte boundary"):
             fa.flash_bwd(q, k, k, None, None, None, k, rows, do, scale=0.125, is_causal=True)
         assert all(_build.LAUNCHES[name] == c for name, c in before.items())
+
+
+# K1's f32 kernel at D 32, 64 and 128: split-TF32 products on TMA + wgmma
+# (csrc/flash_fwd_f32.cu), which must be the one launched (and not the
+# scalar flash_fwd_kernel): the shapes of _WGMMA_SHAPES (L and S ending
+# mid-tile against its 64-row query tiles and 32- or 64-key tiles;
+# rectangular causal both ways, dead rows at n = 0; non-causal) and the
+# extras, o within 2e-5 and lse within 1e-3 of the plain version and of the
+# plain emulation of its split (flash_fwd_tf32x3_reference), as
+# chip_smoke.check_attention holds f32 K1; repeat calls bit-equal
+_TF32X3_FWD_KERNEL = "flash_fwd_tf32x3_kernel"
+
+
+def _fwd_f32(gen, B, H, L, S, d, *, n=1.0, causal=True, **extras):
+    q, k, v, _, ex = _attn_inputs(gen, torch.float32, B, H, L, S, d, **extras)
+    kw = dict(n=n, scale=d ** -0.5, is_causal=causal, slopes=ex["slopes"], seed=ex["seed"],
+              dropout_rate=ex["dropout_rate"])
+    before = _build.LAUNCHES["flash_fwd"]
+    got, names, calls = _launched(lambda: fa.flash_fwd(q, k, v, ex["bias"], **kw))
+    assert _build.LAUNCHES["flash_fwd"] == before + calls
+    assert any(_TF32X3_FWD_KERNEL in nm for nm in names), sorted(set(names))
+    # no name is a substring of another: the scalar kernel did not run
+    assert not any("flash_fwd_kernel" in nm for nm in names), sorted(set(names))
+    for want in (fa.flash_fwd_reference(q, k, v, ex["bias"], **kw),
+                 fa.flash_fwd_tf32x3_reference(q, k, v, ex["bias"], **kw)):
+        assert got[0].dtype == torch.float32 and got[0].shape == want[0].shape
+        torch.testing.assert_close(got[0], want[0], atol=2e-5, rtol=0)
+        assert float((got[1] - want[1]).abs().max()) <= 1e-3
+    again = fa.flash_fwd(q, k, v, ex["bias"], **kw)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    return got
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("n", [0.0, 1.0])
+@pytest.mark.parametrize("shape", _WGMMA_SHAPES, ids=lambda s: "L{}-S{}-{}".format(*s))
+def test_flash_fwd_tf32x3_matches_plain(gen, d, n, shape):
+    L, S, causal = shape
+    o, lse = _fwd_f32(gen, 1, 2, L, S, d, n=n, causal=causal)
+    if n == 0 and causal and L > S:
+        dead = torch.arange(L, device="cuda") + (S - L) < 0
+        assert bool((o[:, :, dead] == 0).all())
+        assert bool((lse[:, :, dead] == fa.NEG_INF).all())
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("extra", ["bias11", "bias21", "bias13", "bias23", "alibi", "dropout",
+                                   "all"])
+def test_flash_fwd_tf32x3_extras_match_plain(gen, d, extra):
+    # every bias broadcast, ALiBi, dropout's hash
+    bias_shape = {"bias11": (1, 1), "bias21": (2, 1), "bias13": (1, 3), "bias23": (2, 3),
+                  "all": (2, 1)}.get(extra)
+    _fwd_f32(gen, 2, 3, 200, 264, d, bias_shape=bias_shape, alibi=extra in ("alibi", "all"),
+             rate=0.25 if extra in ("dropout", "all") else 0.0)
+
+
+def test_flash_fwd_tf32x3_at_train_agreements_shape(gen):
+    # B2 H32 L=S=1024 d64 causal, n 1: the f32 training path's (chip_smoke
+    # train_agreement)
+    _fwd_f32(gen, 2, 32, 1024, 1024, 64)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_flash_fwd_tf32x3_rejects_misaligned_inputs(gen, d):
+    # contiguous f32 views starting 4 bytes past an allocation: TMA needs 16
+    base = torch.randn(2 * 128 * d + 1, device="cuda")
+    bad = base[1:].view(1, 2, 128, d)
+    k = torch.randn((1, 2, 128, d), device="cuda")
+    for q, kv in ((bad, k), (k, bad)):
+        before = _build.LAUNCHES["flash_fwd"]
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            fa.flash_fwd(q, kv, kv, None, n=1.0, scale=0.125, is_causal=True)
+        assert _build.LAUNCHES["flash_fwd"] == before
 
 
 # ----------------------------------------------------------------------------
