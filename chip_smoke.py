@@ -66,15 +66,19 @@ Phases, in order, each printing one JSON line:
 4a. head_dims: K1, K5 and K6 at head dims 16, 80 and 96 (zero-padded by
    the wrappers to 32, 128 and 128), 256 (the TMA + wgmma kernels
    ``flash_fwd_d256_kernel``, ``flash_bwd_dq_d256_kernel`` and
-   ``flash_bwd_dkv_d256_kernel`` in bf16, the scalar kernels in f32; f32
+   ``flash_bwd_dkv_d256_kernel`` in bf16, K1's scalar kernel in f32; f32
    K1, K5 and K6 at 16, 80 and 96 on their split-TF32 kernels, which K1
    must have launched), 300
    (padded to 384), 384 and 512 (bf16 K1, K5 and K6 on their wide TMA +
    wgmma kernels ``flash_fwd_wide_wgmma_kernel``,
    ``flash_bwd_dq_wide_wgmma_kernel`` and
-   ``flash_bwd_dkv_wide_wgmma_kernel``; the wide scalar kernels otherwise),
+   ``flash_bwd_dkv_wide_wgmma_kernel``; f32 K1 on its wide scalar kernel),
+   f32 K5 and K6 at 256 and above on their wide split-TF32 kernels
+   ``flash_bwd_dq_tf32x3_wide_kernel`` and
+   ``flash_bwd_dkv_tf32x3_wide_kernel``, which they must have launched,
    against their plain versions at B2 H4 L200 S264 under a (1, 4) bias,
-   ALiBi and dropout, causal, f32 and bf16, n 0 and 1, as in 4; then K1 at
+   ALiBi and dropout, causal, f32 and bf16, n 0 and 1, as in 4, and in f32
+   at 640 with n 1 (K5's and K6's column groups); then K1 at
    each head dim at B32 H16 L=S=512 causal bf16, timed beside its bound,
    plain version and SDPA, with the bytes the padding adds, o held against
    a float64 evaluation too (at 300, 384 and 512 it must have launched
@@ -82,8 +86,10 @@ Phases, in order, each printing one JSON line:
    as phase 4 times its training lines (the backward pair against SDPA's
    backward; at d256 it must have launched K5's and K6's D 256 kernels,
    at 384 and 512 the three their wide ones), and in f32 at B2 H8 L=S=1024
-   causal against f32 SDPA (the scalar kernels at d256, the wide scalar
-   ones at 384 and 512, which they must have launched); K8 at B8 KVH1 G8 S512 hd
+   causal against f32 SDPA (K1 its scalar kernel at d256, the wide scalar
+   one at 384 and 512, K5 and K6 their wide split-TF32 kernels, which they
+   must have launched; their bounds three TF32 operations an f32 one, the
+   f32 FMA bound beside it); K8 at B8 KVH1 G8 S512 hd
    256 over int8 and bf16 caches and hd 160 and 512 over int8, and at hd
    512 under int8 compute (split and products printed); K10's four modes
    at B2 H8 L1024 hd 80, 256, 320 and 512 (at 256 it must have launched
@@ -292,25 +298,28 @@ CSRC = "flash_attention_softmax_n_tpu_torch/csrc"
 # K1's, K5's, K6's and K10's kernels as torch.profiler names them (no name
 # a substring of another): bf16 inputs take the TMA + wgmma kernel (at D
 # 256 their own D 256 ones; above 256 their wide ones, K1's and K10's at D
-# 384 and 512), f32 the scalar one (K1, K5 and K6 at D 32-128 their
-# split-TF32 TMA + wgmma ones), f32 (and K1's and K10's bf16 above 512)
-# above 256 the wide scalar one
+# 384 and 512), f32 K1 the scalar one at D 256, the wide scalar one above
+# (and K1's and K10's bf16 above 512); f32 K1, K5 and K6 at D 32-128 their
+# split-TF32 TMA + wgmma ones, f32 K5 and K6 at 256 and above their wide
+# split-TF32 ones, each after its pre-pass (the ``_split_kernel``s, counted
+# in K5's and K6's device time)
 FLASH_FWD_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_d256_kernel", "flash_fwd_kernel",
                      "flash_fwd_wide_kernel", "flash_fwd_wide_wgmma_kernel",
                      "flash_fwd_tf32x3_kernel")
 FLASH_DQ_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_d256_kernel",
-                    "flash_bwd_dq_kernel", "flash_bwd_dq_wide_kernel",
-                    "flash_bwd_dq_wide_wgmma_kernel", "flash_bwd_dq_tf32x3_kernel")
+                    "flash_bwd_dq_wide_wgmma_kernel", "flash_bwd_dq_tf32x3_kernel",
+                    "flash_bwd_dq_tf32x3_wide_kernel", "flash_bwd_dq_tf32x3_split_kernel")
 FLASH_DKV_KERNELS = ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_d256_kernel",
-                     "flash_bwd_dkv_kernel", "flash_bwd_dkv_wide_kernel",
-                     "flash_bwd_dkv_wide_wgmma_kernel", "flash_bwd_dkv_tf32x3_kernel")
+                     "flash_bwd_dkv_wide_wgmma_kernel", "flash_bwd_dkv_tf32x3_kernel",
+                     "flash_bwd_dkv_tf32x3_wide_kernel", "flash_bwd_dkv_tf32x3_split_kernel")
 # f32 at D <= 128: K1's, K5's and K6's split-TF32 kernels
 F32_FWD_KERNEL = "flash_fwd_tf32x3_kernel"
 F32_ATTN_KERNELS = (F32_FWD_KERNEL, "flash_bwd_dq_tf32x3_kernel", "flash_bwd_dkv_tf32x3_kernel")
-# f32 at D 256 and above it: K1's, K5's and K6's scalar and wide scalar kernels
-F32_D256_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
-F32_WIDE_KERNELS = ("flash_fwd_wide_kernel", "flash_bwd_dq_wide_kernel",
-                    "flash_bwd_dkv_wide_kernel")
+# f32 at D 256 and above it: K1's scalar and wide scalar kernels, K5's and
+# K6's wide split-TF32 kernels
+F32_D256_FWD_KERNEL = "flash_fwd_kernel"
+F32_WIDE_FWD_KERNEL = "flash_fwd_wide_kernel"
+F32_WIDE_BWD_KERNELS = ("flash_bwd_dq_tf32x3_wide_kernel", "flash_bwd_dkv_tf32x3_wide_kernel")
 # bf16 K5 and K6 at D 256, and above it
 D256_BWD_KERNELS = ("flash_bwd_dq_d256_kernel", "flash_bwd_dkv_d256_kernel")
 WIDE_BWD_KERNELS = ("flash_bwd_dq_wide_wgmma_kernel", "flash_bwd_dkv_wide_wgmma_kernel")
@@ -1134,13 +1143,15 @@ def run_profiled(torch, fn):
     return out, [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def check_attention(torch, fa, gen, dtype, *, n, causal, shape, fwd_kernel=None, **extras):
+def check_attention(torch, fa, gen, dtype, *, n, causal, shape, fwd_kernel=None,
+                    bwd_kernels=(), **extras):
     """K1, K5 and K6 against their plain versions on one input, each run
     twice; both backward versions take the plain forward's o and lse, so
     each kernel is held alone. With ``fwd_kernel`` both K1 calls run under
     torch.profiler and one of them must show that kernel (a profile at
-    times records no device event, PERF.md section 7). Returns the inputs
-    and the errors."""
+    times records no device event, PERF.md section 7); with
+    ``bwd_kernels`` both K5/K6 calls do, and they must show each of those.
+    Returns the inputs and the errors."""
     B, H, L, S, D = shape
     q, k, v, do, ex = attn_inputs(torch, gen, dtype, B=B, H=H, L=L, S=S, D=D, **extras)
 
@@ -1153,10 +1164,18 @@ def check_attention(torch, fa, gen, dtype, *, n, causal, shape, fwd_kernel=None,
     (o, lse), names = fwd()
     o_ref, lse_ref = run_fwd(fa, True, q, k, v, ex, n=n, causal=causal)
     o64, o_abs64 = fwd_float64(torch, fa, q, k, v, ex, n=n, causal=causal)
-    got = run_bwd(fa, False, q, k, v, do, o_ref, lse_ref, ex, causal=causal)
+
+    def bwd():
+        def k56():
+            return run_bwd(fa, False, q, k, v, do, o_ref, lse_ref, ex, causal=causal)
+
+        return run_profiled(torch, k56) if bwd_kernels else (k56(), [])
+
+    got, bwd_names = bwd()
     want = run_bwd(fa, True, q, k, v, do, o_ref, lse_ref, ex, causal=causal)
     again_fwd, again_names = fwd()
-    again = (*again_fwd, *run_bwd(fa, False, q, k, v, do, o_ref, lse_ref, ex, causal=causal))
+    again_bwd, again_bwd_names = bwd()
+    again = (*again_fwd, *again_bwd)
     torch.cuda.synchronize()
     first = (o, lse, *got)
     repeat_equal = all((a is None and b is None) or torch.equal(a, b)
@@ -1183,6 +1202,10 @@ def check_attention(torch, fa, gen, dtype, *, n, causal, shape, fwd_kernel=None,
     require(o_ok and errs["lse"] <= 1e-3, f"K1 {name}: o/lse off the plain version: {errs}")
     require(fwd_kernel is None or any(fwd_kernel in nm for nm in names + again_names),
             f"K1 {name}: launched {sorted(set(names + again_names))}, not {fwd_kernel}")
+    # a profile that records no device event leaves the other call's
+    require(all(any(kn in nm for nm in bwd_names + again_bwd_names) for kn in bwd_kernels),
+            f"K5/K6 {name}: launched {sorted(set(bwd_names + again_bwd_names))}, not "
+            f"{bwd_kernels}")
     grad_errs = {k_: e for k_, e in errs.items()
                  if k_ not in ("o", "o_excess", "o_excess_plain", "lse")}
     errs["norm"], errs["plain_max"] = norm, plain_max
@@ -1241,10 +1264,10 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
     B2 H32 L=S=2048 d64 bf16 causal, n = 1, dropout 0.1, as its every layer
     runs them; the quant_study phase's is B32 H16 L512 without dropout;
     train_agreement's B2 H32 L1024 f32): errors, and times (``runs`` calls
-    each) against their bounds (f32: operations at 67 TFLOP/s; K1's, K5's
-    and K6's split-TF32 kernels at D <= 128 three TF32 operations for each
-    f32 one at 495 TFLOP/s, with the f32 FMA bound beside it as
-    ``bound_ms_f32_fma``), plain
+    each) against their bounds (f32: operations at 67 TFLOP/s; the
+    split-TF32 kernels, K1's at D <= 128 and K5's and K6's at every D,
+    three TF32 operations for each f32 one at 495 TFLOP/s, with the f32 FMA
+    bound beside it as ``bound_ms_f32_fma``), plain
     versions and scaled_dot_product_attention with one zero key/value row
     prepended (its kernels' names say which backend it took). The K1 line
     and the backward pair's line name the K1 and the K5 and K6 kernels they
@@ -1254,11 +1277,14 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
     dtype = dtype or torch.bfloat16
     f32 = dtype == torch.float32
     es, peak = (4, F32_FLOPS) if f32 else (2, None)
-    # K1, K5 and K6 in f32 at D <= 128: three TF32 passes an f32 product
-    split = f32 and fa.kernel_head_dim(D) <= 128
-    passes, op_peak = (3, CHIP.tf32_flops) if split else (1, peak)
-    dq_source, dkv_source = (("flash_bwd_f32.cu",) * 2 if split
-                             else ("flash_bwd_dq.cu", "flash_bwd_dkv.cu"))
+    # K1 in f32 at D <= 128, K5 and K6 in f32 at every D: three TF32 passes
+    # an f32 product
+    split_fwd = f32 and fa.kernel_head_dim(D) <= 128
+    passes_fwd, op_peak_fwd = (3, CHIP.tf32_flops) if split_fwd else (1, peak)
+    passes, op_peak = (3, CHIP.tf32_flops) if f32 else (1, peak)
+    dq_source, dkv_source = (("flash_bwd_dq.cu", "flash_bwd_dkv.cu") if not f32
+                             else ("flash_bwd_f32.cu",) * 2 if fa.kernel_head_dim(D) <= 128
+                             else ("flash_bwd_f32_wide.cu",) * 2)
     (q, k, v, do, ex, o, lse), errs, name = check_attention(
         torch, fa, gen, dtype, n=n, causal=True, shape=(B, H, L, L, D), rate=rate)
     emit({"phase": "kernel_check", "name": name, "errors": errs, "repeat_bit_equal": True})
@@ -1349,7 +1375,7 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
                  f"{BWD_NORM_TOL['bf16']} of max(1, ||plain||); repeat calls bit-equal")
     common = {"route": "cuda", "tolerance": tolerance, "path": path,
               "library_kernels": library_kernels}
-    b1, by1 = bound_ms(4 * bhld * es + bhl * 4, passes * 4.0 * D * pairs, op_peak)
+    b1, by1 = bound_ms(4 * bhld * es + bhl * 4, passes_fwd * 4.0 * D * pairs, op_peak_fwd)
     launched = []
     k1_dev = device_ms(torch, k1, FLASH_FWD_KERNELS, runs, launched)
     launched_k1 = launched[0]
@@ -1358,9 +1384,9 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
     b5, by5 = bound_ms(5 * bhld * es + 2 * bhl * 4, passes * 6.0 * D * pairs, op_peak)
     b6, by6 = bound_ms(6 * bhld * es + 2 * bhl * 4, passes * 8.0 * D * pairs, op_peak)
 
-    def fma_bound(nbytes, ops):
+    def fma_bound(nbytes, ops, on=f32):
         """the f32 FMA bound beside a split-TF32 one (None elsewhere)"""
-        return bound_ms(nbytes, ops, peak)[0] if split else None
+        return bound_ms(nbytes, ops, peak)[0] if on else None
 
     shape = (f"B{B} H{H} L{L} S{L} d{D} {'f32' if f32 else 'bf16'} causal n1"
              + (f" dropout {rate}" if rate else ""))
@@ -1370,7 +1396,7 @@ def train_kernel_lines(torch, pkg, gen, *, B=2, H=32, L=2048, D=64, rate=0.1, pa
          "replaces": f"{FLASH_PY}:345 _fwd_single_kernel, :279 _fwd_kernel, "
                      ":501 _fwd_pipeline_kernel (ALiBi and dropout)",
          "launched": launched_k1,
-         "bound_ms_f32_fma": fma_bound(4 * bhld * es + bhl * 4, 4.0 * D * pairs),
+         "bound_ms_f32_fma": fma_bound(4 * bhld * es + bhl * 4, 4.0 * D * pairs, split_fwd),
          "max_abs_err": errs["o"], "max_abs_err_lse": errs["lse"], "ms": time_ms(torch, k1, runs),
          "ms_with_alibi": time_ms(torch, k1_alibi, runs),
          "device_ms": k1_dev, "tflops": tflops(4.0 * D * pairs, k1_dev),
@@ -1443,10 +1469,13 @@ def train_kernels(torch, pkg, gen):
 
 # the head dims that head_dims holds: the JAX fine-tune example's 16, two
 # public decoders' 80 and 96, 256 (Gemma-2B's: K1's 64-row wgmma kernel in
-# bf16, the scalar kernels otherwise), and 300, 384 and 512 above it (300
-# padded to 384; bf16 K1, K5 and K6 on their wide TMA + wgmma kernels, the
-# wide scalar kernels otherwise)
+# bf16, its scalar kernel in f32), and 300, 384 and 512 above it (300
+# padded to 384; bf16 K1, K5 and K6 on their wide TMA + wgmma kernels, f32
+# K1 on its wide scalar kernel); f32 K5 and K6 at 256 and above on their
+# wide split-TF32 kernels; and f32 alone at 640 (K5's and K6's column
+# groups: two of 320 columns in K5, three in K6)
 HEAD_DIMS = (16, 80, 96, 256, 300, 384, 512)
+F32_ONLY_HEAD_DIM = 640
 # K8 at head dims above 128 (bench_decode_attn.LINES' format): B8 KVH1 G8
 # S512, Gemma-2B's decode attention at hd 256 over int8 and bf16 caches,
 # and hd 160 and 512 over int8
@@ -1465,12 +1494,15 @@ def head_dims(torch, pkg, gen):
     wrappers that zero-pad D to the next of 32, 64, 128, 256 and the
     multiples of 128 above, and at 256, 384 and 512: against their plain
     versions at B2 H4 L200 S264 under a (1, 4) bias, ALiBi and dropout,
-    causal, f32 and bf16, n 0 and 1, counting the launches; then K1 at each
+    causal, f32 and bf16, n 0 and 1, and in f32 at 640 with n 1, counting
+    the launches (f32 K5 and K6 at 256 and above must show their wide
+    split-TF32 kernels); then K1 at each
     D at the study's attention shape (B32 H16 L=S=512 causal bf16), timed,
     with the bytes the padding adds, o held against a float64 evaluation
     too; K1, K5 and K6 at d256, 384 and 512 there as the training lines
     time them (the backward pair against SDPA's backward), and in f32 at B2
-    H8 L=S=1024 (their scalar kernels, against f32 SDPA); K8 at
+    H8 L=S=1024 (K1's scalar kernels, K5's and K6's wide split-TF32 ones,
+    against f32 SDPA); K8 at
     ``K8_WIDE_LINES`` and under int8 compute at their hd 512 line; K10 at
     ``K10_HEAD_DIMS``.
     Returns (launches, kernel
@@ -1479,20 +1511,27 @@ def head_dims(torch, pkg, gen):
     fa, build = pkg["flash_attention"], pkg["build"]
     torch.cuda.synchronize()
     build.reset_launches()
-    for d in HEAD_DIMS:
-        for dtype in (torch.float32, torch.bfloat16):
-            # f32 K1 at 16, 80 and 96 (run at 32 and 128): its split-TF32 kernel
-            split = dtype == torch.float32 and fa.kernel_head_dim(d) <= 128
-            for n in (0.0, 1.0):
-                _, errs, name = check_attention(torch, fa, gen, dtype, n=n, causal=True,
-                                                shape=(2, 4, 200, 264, d), bias_shape=(1, 4),
-                                                alibi=True, rate=0.25,
-                                                fwd_kernel=F32_FWD_KERNEL if split else None)
-                emit({"phase": "head_dims", "name": name, "padded_to": fa.kernel_head_dim(d),
-                      "errors": errs, "repeat_bit_equal": True})
+    # d640 from a generator of its own, so that every other line keeps its
+    # inputs. That fixes nothing: on inputs shifted by a d640 draw, bf16 K1's
+    # d300 kernel line missed check_flash's bound (ROADMAP Queue C, C9)
+    gen640 = torch.Generator(device="cuda").manual_seed(F32_ONLY_HEAD_DIM)
+    cases = [(d, dtype, n, gen) for d in HEAD_DIMS for dtype in (torch.float32, torch.bfloat16)
+             for n in (0.0, 1.0)] + [(F32_ONLY_HEAD_DIM, torch.float32, 1.0, gen640)]
+    for d, dtype, n, g in cases:
+        f32 = dtype == torch.float32
+        # f32 K1 at 16, 80 and 96 (run at 32 and 128): its split-TF32
+        # kernel; f32 K5 and K6 at 256 and above: their wide split-TF32 ones
+        split = f32 and fa.kernel_head_dim(d) <= 128
+        _, errs, name = check_attention(
+            torch, fa, g, dtype, n=n, causal=True, shape=(2, 4, 200, 264, d),
+            bias_shape=(1, 4), alibi=True, rate=0.25,
+            fwd_kernel=F32_FWD_KERNEL if split else None,
+            bwd_kernels=F32_WIDE_BWD_KERNELS if f32 and fa.kernel_head_dim(d) >= 256 else ())
+        emit({"phase": "head_dims", "name": name, "padded_to": fa.kernel_head_dim(d),
+              "errors": errs, "repeat_bit_equal": True})
     launches = dict(build.LAUNCHES)
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        require(launches[name] == 2 * 2 * 2 * len(HEAD_DIMS),
+        require(launches[name] == 2 * len(cases),
                 f"head_dims launched {name} {launches[name]} times")
     lines = []
     B, H, L = 32, 16, 512
@@ -1523,14 +1562,17 @@ def head_dims(torch, pkg, gen):
                                     path="head_dims",
                                     kernels=D256_BWD_KERNELS if d == 256
                                     else (*WIDE_BWD_KERNELS, WIDE_FWD_KERNEL))
-    # and in f32 at B2 H8 L=S=1024 causal, n 1 (their scalar kernels at
-    # d256, the wide scalar ones at 384 and 512), against f32 SDPA; from a
-    # generator of their own, so that every other line keeps its inputs
+    # and in f32 at B2 H8 L=S=1024 causal, n 1 (K1 on its scalar kernel at
+    # d256, the wide scalar one at 384 and 512; K5 and K6 on their wide
+    # split-TF32 kernels), against f32 SDPA; from a generator of their own,
+    # so that every other line keeps its inputs
     gen_f32 = torch.Generator(device="cuda").manual_seed(256)
     for d in (256, 384, 512):
-        lines += train_kernel_lines(torch, pkg, gen_f32, B=2, H=8, L=1024, D=d, rate=0.0,
-                                    path="head_dims", runs=10, dtype=torch.float32,
-                                    kernels=F32_D256_KERNELS if d == 256 else F32_WIDE_KERNELS)
+        lines += train_kernel_lines(
+            torch, pkg, gen_f32, B=2, H=8, L=1024, D=d, rate=0.0, path="head_dims", runs=10,
+            dtype=torch.float32,
+            kernels=(F32_D256_FWD_KERNEL if d == 256 else F32_WIDE_FWD_KERNEL,
+                     *F32_WIDE_BWD_KERNELS))
     da = pkg["decode_attention"]
     # K8 at K8_WIDE_LINES, then under int8 compute at their hd 512 line (its
     # sub-tiled kernel: the 256-position tile's k and v rows do not fit a

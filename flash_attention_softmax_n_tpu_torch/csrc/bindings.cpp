@@ -6,10 +6,13 @@
 // that card, and raises with the CUDA error if the launch is refused.
 // Outputs and scratch are allocated by the Python wrappers
 // (flash_attention_softmax_n_tpu_torch/kernels/) and passed in, marked
-// mutable in the schemas. The kernels themselves live in the .cu files and
+// mutable in the schemas, but for the f32 pre-pass's scratch of K5 and K6
+// at D >= 256 (bwd_scratch), an internal of the operator that the caching
+// allocator hands out on the launch's stream. The kernels themselves live in the .cu files and
 // are reached through launchers.h.
 
 #include <ATen/core/Tensor.h>
+#include <c10/cuda/CUDACachingAllocator.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
 #include <torch/library.h>
@@ -56,9 +59,9 @@ void check_on(const at::Tensor& t, const at::Tensor& ref, const char* what) {
 }
 
 // bf16 inputs of the TMA kernels (K1, K5, K6, K10), and with f32 true f32
-// ones too (K1's, K5's and K6's split-TF32 kernels at D 32-128): each tensor's
-// first row on a 16-byte boundary, as TMA requires (their rows are 64-512
-// bytes)
+// ones too (K1's split-TF32 kernel at D 32-128, K5's and K6's at every D:
+// TMA, or above 128 their pre-pass's 16-byte loads): each tensor's first
+// row on a 16-byte boundary (their rows are 64 bytes or more)
 void check_tma(std::initializer_list<const at::Tensor*> ts, const char* what, bool f32 = false) {
   for (const at::Tensor* t : ts)
     TORCH_CHECK_VALUE((t->scalar_type() != at::kBFloat16 && !f32) ||
@@ -159,6 +162,16 @@ void check_bwd_rows(const at::Tensor& q, const at::Tensor& dout, const at::Tenso
   check_shape(delta, {q.size(0), q.size(1), q.size(2)}, at::kFloat, what, "delta");
 }
 
+// the device scratch of K5's (dkv 0) or K6's (1) f32 pre-pass, none where
+// the kernels take none: from PyTorch's caching allocator on the current
+// device, back to it when the DataPtr goes, after the work queued on the
+// stream it was taken on, the launch's
+c10::DataPtr bwd_scratch(const FasnAttn& a, int dkv) {
+  const size_t bytes = fasn_flash_bwd_tf32x3_wide_scratch(&a, dkv);
+  if (bytes == 0) return c10::DataPtr();
+  return c10::cuda::CUDACachingAllocator::get()->allocate(bytes);
+}
+
 void flash_bwd_dq(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
                   const std::optional<at::Tensor>& bias, const std::optional<at::Tensor>& slopes,
                   const std::optional<at::Tensor>& seed, const at::Tensor& dout,
@@ -171,7 +184,7 @@ void flash_bwd_dq(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
   const FasnAttn a = attn_args(q, k, v, bias, slopes, seed, scale_q, causal, drop_threshold,
                                drop_mult, what);
   check_bwd_rows(q, dout, lse, delta, what);
-  check_tma({&q, &k, &v, &dout}, what, q.scalar_type() == at::kFloat && q.size(3) <= 128);
+  check_tma({&q, &k, &v, &dout}, what, q.scalar_type() == at::kFloat);
   check_on(dq, q, what);
   check_shape(dq, q.sizes(), q.scalar_type(), what, "dq");
   float* dbias_ptr = nullptr;
@@ -189,9 +202,11 @@ void flash_bwd_dq(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
                 "dslope_rows");
     dslope_ptr = dslope_rows->data_ptr<float>();
   }
+  const c10::DataPtr scratch = bwd_scratch(a, 0);
   check_launch(fasn_flash_bwd_dq(&a, dout.data_ptr(), lse.data_ptr<float>(),
                                  delta.data_ptr<float>(), static_cast<float>(scale),
-                                 dq.data_ptr(), dbias_ptr, dslope_ptr, stream_of(q)),
+                                 dq.data_ptr(), dbias_ptr, dslope_ptr, scratch.get(),
+                                 stream_of(q)),
                what);
 }
 
@@ -206,14 +221,15 @@ void flash_bwd_dkv(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v
   const FasnAttn a = attn_args(q, k, v, bias, slopes, seed, scale_q, causal, drop_threshold,
                                drop_mult, what);
   check_bwd_rows(q, dout, lse, delta, what);
-  check_tma({&q, &k, &v, &dout}, what, q.scalar_type() == at::kFloat && q.size(3) <= 128);
+  check_tma({&q, &k, &v, &dout}, what, q.scalar_type() == at::kFloat);
   check_on(dk, q, what);
   check_on(dv, q, what);
   check_shape(dk, k.sizes(), k.scalar_type(), what, "dk");
   check_shape(dv, v.sizes(), v.scalar_type(), what, "dv");
+  const c10::DataPtr scratch = bwd_scratch(a, 1);
   check_launch(fasn_flash_bwd_dkv(&a, dout.data_ptr(), lse.data_ptr<float>(),
                                   delta.data_ptr<float>(), dk.data_ptr(), dv.data_ptr(),
-                                  stream_of(q)),
+                                  scratch.get(), stream_of(q)),
                what);
 }
 

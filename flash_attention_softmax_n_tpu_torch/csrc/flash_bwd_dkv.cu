@@ -57,13 +57,11 @@
 // f32 at D 32, 64 and 128: flash_bwd_dkv_tf32x3_kernel (flash_bwd_f32.cu,
 // entered through fasn_flash_bwd_dkv_tf32x3): split-TF32 wgmma products,
 // three TF32 passes on each operand's head and rest, which hold f32's
-// tolerance (that file's header). f32 at D 256: flash_bwd_dkv_kernel,
-// scalar f32 FMAs from shared memory on 32 x 32 tiles (scalar_tile, for
-// shared memory): one CTA per (KV tile of 32 keys, head, batch) loops over
-// the query tiles of 32 rows; thread (ty, tx) owns key rows ty + 16 i,
-// query columns tx + 16 j of the transposed score tile, and dk/dv columns
-// tx + 16 c; the dropped p and ds go through shared memory for the two
-// transposed products.
+// tolerance (that file's header). f32 at D 256 and above:
+// flash_bwd_dkv_tf32x3_wide_kernel (flash_bwd_f32_wide.cu, entered through
+// fasn_flash_bwd_dkv_tf32x3_wide): the same split after a pre-pass, one CTA
+// per 64 keys and up to 256 columns of dk and dv, split by product as the
+// bf16 D 256 kernel is, S^T and dP^T formed once per 256 columns.
 //
 // bf16 above 256 (D a multiple of 128, as the wrapper pads it):
 // flash_bwd_dkv_wide_wgmma_kernel. K and V of 64 keys over all of D would
@@ -85,11 +83,6 @@
 // over, once per column chunk (issued products per causal pair: 16 d at D
 // 384, 20 d at 512, against 8 d needed).
 //
-// f32 above 256: flash_bwd_dkv_wide_kernel, the scalar 64 x 64 tiles and
-// thread layout, one CTA for 128 columns of dk and dv, S^T and dP^T
-// accumulated over D in 64-column chunks (flash_common.h wide_dots), so
-// that its shared memory (165,888 bytes) does not grow with D.
-//
 // lse is clamped at DEAD_LSE as in K5, so dead rows (n == 0, L > S) add
 // nothing; query rows past L and keys past S are masked in the tile.
 
@@ -100,281 +93,6 @@
 
 namespace fasn {
 namespace {
-
-// ---------------------------------------------------------------------------
-// f32: scalar FMAs
-// ---------------------------------------------------------------------------
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  constexpr int TB = scalar_tile<D>();
-  return sizeof(float) *
-         (size_t(4 * TB) * (D + 1) + size_t(2 * TB) * (TB + 1) + size_t(2 * TB));
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_dkv_kernel(const FasnAttn a, const T* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         T* __restrict__ dk, T* __restrict__ dv) {
-  constexpr int TB = scalar_tile<D>(), R = TB / 16;
-  constexpr int DP = D + 1;
-  constexpr int BQP = TB + 1;
-  constexpr int CD = D / 16;
-  extern __shared__ float smem[];
-  float* sK = smem;            // TB x DP
-  float* sV = sK + TB * DP;    // TB x DP
-  float* sQ = sV + TB * DP;    // TB x DP, q * scale_q rounded to T
-  float* sDO = sQ + TB * DP;   // TB x DP
-  float* sPD = sDO + TB * DP;  // TB x BQP, dropped p rounded to T
-  float* sDS = sPD + TB * BQP; // TB x BQP, ds rounded to T
-  float* sL = sDS + TB * BQP;  // TB, clamped lse
-  float* sD = sL + TB;         // TB, delta
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int L = a.L, S = a.S;
-  const int k0 = blockIdx.x * TB;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const long long bh = (long long)b * a.H + h;
-  const T* qb = static_cast<const T*>(a.q) + bh * L * D;
-  const T* kb = static_cast<const T*>(a.k) + bh * S * D;
-  const T* vb = static_cast<const T*>(a.v) + bh * S * D;
-  const T* dob = dout + bh * L * D;
-  const ScoreMods mods = score_mods(a, b, h);
-  const Dropout drop = dropout_of(a);
-
-  for (int i = tid; i < TB * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    float kv = 0.f, vv = 0.f;
-    if (k0 + r < S) {
-      kv = to_f32(kb[(long long)(k0 + r) * D + c]);
-      vv = to_f32(vb[(long long)(k0 + r) * D + c]);
-    }
-    sK[r * DP + c] = kv;
-    sV[r * DP + c] = vv;
-  }
-
-  float acc_k[R][CD], acc_v[R][CD];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  // the first query row that sees key k0 is k0 - (S - L)
-  int q_begin = 0;
-  if (mods.causal) q_begin = max(0, k0 - mods.off) / TB * TB;
-
-  for (int q0 = q_begin; q0 < L; q0 += TB) {
-    __syncthreads();
-    for (int i = tid; i < TB * D; i += THREADS) {
-      const int r = i / D, c = i % D;
-      float qv = 0.f, dv_ = 0.f;
-      if (q0 + r < L) {
-        qv = round_to<T>(to_f32(qb[(long long)(q0 + r) * D + c]) * a.scale_q);
-        dv_ = to_f32(dob[(long long)(q0 + r) * D + c]);
-      }
-      sQ[r * DP + c] = qv;
-      sDO[r * DP + c] = dv_;
-    }
-    if (tid < TB) {
-      const int qi = q0 + tid;
-      sL[tid] = qi < L ? fmaxf(lse[bh * L + qi], DEAD_LSE) : 0.f;
-      sD[tid] = qi < L ? delta[bh * L + qi] : 0.f;
-    }
-    __syncthreads();
-
-    // transposed tiles: row = key ty + 16 i, column = query tx + 16 j
-    float s[R][R], dp[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[R], vv[R], qv[R], dov[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        kv[i] = sK[(ty + 16 * i) * DP + d];
-        vv[i] = sV[(ty + 16 * i) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        qv[j] = sQ[(tx + 16 * j) * DP + d];
-        dov[j] = sDO[(tx + 16 * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], dov[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int kj = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int qc = tx + 16 * j, qi = q0 + qc;
-        const float p = expf(mods(s[i][j], qi, kj) - sL[qc]);
-        float pd = p, d = dp[i][j];
-        if (drop.on) {
-          const float mult = drop(b, h, qi, kj);
-          pd = p * mult;
-          d *= mult;
-        }
-        sPD[(ty + 16 * i) * BQP + qc] = round_to<T>(pd);
-        sDS[(ty + 16 * i) * BQP + qc] = round_to<T>(p * (d - sD[qc]));
-      }
-    }
-    __syncthreads();
-
-    const int qn = min(TB, L - q0);
-    for (int qq = 0; qq < qn; ++qq) {
-      float dov[CD], qv[CD];
-#pragma unroll
-      for (int c = 0; c < CD; ++c) {
-        dov[c] = sDO[qq * DP + tx + 16 * c];
-        qv[c] = sQ[qq * DP + tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float pd = sPD[(ty + 16 * i) * BQP + qq];
-        const float ds = sDS[(ty + 16 * i) * BQP + qq];
-#pragma unroll
-        for (int c = 0; c < CD; ++c) {
-          acc_v[i][c] = fmaf(pd, dov[c], acc_v[i][c]);
-          acc_k[i][c] = fmaf(ds, qv[c], acc_k[i][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int kj = k0 + ty + 16 * i;
-    if (kj >= S) continue;
-    T* dkrow = dk + (bh * S + kj) * D;
-    T* dvrow = dv + (bh * S + kj) * D;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) {
-      dkrow[tx + 16 * c] = from_f32<T>(acc_k[i][c]);
-      dvrow[tx + 16 * c] = from_f32<T>(acc_v[i][c]);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_dkv_wide_kernel(const FasnAttn a, const T* __restrict__ dout,
-                              const float* __restrict__ lse, const float* __restrict__ delta,
-                              T* __restrict__ dk, T* __restrict__ dv) {
-  constexpr int TB = 64, R = TB / 16;
-  constexpr int BQP = TB + 1;
-  constexpr int CD = WIDE_OC / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem + 4 * TB * WIDE_KP;  // TB x WIDE_OC: q * scale_q rounded to T, the CTA's columns
-  float* sDO = sQ + TB * WIDE_OC;       // TB x WIDE_OC
-  float* sPD = sDO + TB * WIDE_OC;      // TB x BQP, dropped p rounded to T
-  float* sDS = sPD + TB * BQP;          // TB x BQP, ds rounded to T
-  float* sL = sDS + TB * BQP;           // TB, clamped lse
-  float* sD = sL + TB;                  // TB, delta
-
-  const int D = a.D, chunks = D / WIDE_OC;
-  const int h = blockIdx.y, b = blockIdx.z / chunks, oc0 = blockIdx.z % chunks * WIDE_OC;
-  const int L = a.L, S = a.S;
-  const int k0 = blockIdx.x * TB;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const long long bh = (long long)b * a.H + h;
-  const T* qb = static_cast<const T*>(a.q) + bh * L * D;
-  const T* kb = static_cast<const T*>(a.k) + bh * S * D;
-  const T* vb = static_cast<const T*>(a.v) + bh * S * D;
-  const T* dob = dout + bh * L * D;
-  const ScoreMods mods = score_mods(a, b, h);
-  const Dropout drop = dropout_of(a);
-
-  float acc_k[R][CD], acc_v[R][CD];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  // the first query row that sees key k0 is k0 - (S - L)
-  int q_begin = 0;
-  if (mods.causal) q_begin = max(0, k0 - mods.off) / TB * TB;
-
-  for (int q0 = q_begin; q0 < L; q0 += TB) {
-    // transposed tiles: row = key ty + 16 i, column = query tx + 16 j
-    float s[R][R], dp[R][R];
-    wide_dots<T, R, true>(smem, D, kb, 1.f, k0, S, qb, a.scale_q, q0, L, vb, dob, s, dp);
-    wide_cols<T, TB>(sQ, qb, q0, L, D, oc0, a.scale_q);
-    wide_cols<T, TB>(sDO, dob, q0, L, D, oc0, 1.f);
-    if (tid < TB) {
-      const int qi = q0 + tid;
-      sL[tid] = qi < L ? fmaxf(lse[bh * L + qi], DEAD_LSE) : 0.f;
-      sD[tid] = qi < L ? delta[bh * L + qi] : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int kj = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int qc = tx + 16 * j, qi = q0 + qc;
-        const float p = expf(mods(s[i][j], qi, kj) - sL[qc]);
-        float pd = p, d = dp[i][j];
-        if (drop.on) {
-          const float mult = drop(b, h, qi, kj);
-          pd = p * mult;
-          d *= mult;
-        }
-        sPD[(ty + 16 * i) * BQP + qc] = round_to<T>(pd);
-        sDS[(ty + 16 * i) * BQP + qc] = round_to<T>(p * (d - sD[qc]));
-      }
-    }
-    __syncthreads();
-
-    const int qn = min(TB, L - q0);
-    for (int qq = 0; qq < qn; ++qq) {
-      float dov[CD], qv[CD];
-#pragma unroll
-      for (int c = 0; c < CD; ++c) {
-        dov[c] = sDO[qq * WIDE_OC + tx + 16 * c];
-        qv[c] = sQ[qq * WIDE_OC + tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float pd = sPD[(ty + 16 * i) * BQP + qq];
-        const float ds = sDS[(ty + 16 * i) * BQP + qq];
-#pragma unroll
-        for (int c = 0; c < CD; ++c) {
-          acc_v[i][c] = fmaf(pd, dov[c], acc_v[i][c]);
-          acc_k[i][c] = fmaf(ds, qv[c], acc_k[i][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int kj = k0 + ty + 16 * i;
-    if (kj >= S) continue;
-    T* dkrow = dk + (bh * S + kj) * D + oc0;
-    T* dvrow = dv + (bh * S + kj) * D + oc0;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) {
-      dkrow[tx + 16 * c] = from_f32<T>(acc_k[i][c]);
-      dvrow[tx + 16 * c] = from_f32<T>(acc_v[i][c]);
-    }
-  }
-}
-
-constexpr size_t dkv_wide_smem_bytes() {
-  return sizeof(float) * (size_t(4 * 64) * WIDE_KP + size_t(2 * 64) * WIDE_OC +
-                          size_t(2 * 64) * 65 + size_t(2 * 64));
-}
 
 // ---------------------------------------------------------------------------
 // bf16: TMA and wgmma (attn_tile.h)
@@ -973,35 +691,26 @@ cudaError_t launch_wide(const FasnAttn& a, const void* dout, const float* lse,
 }  // namespace fasn
 
 extern "C" int fasn_flash_bwd_dkv(const FasnAttn* a, const void* dout, const float* lse,
-                                  const float* delta, void* dk, void* dv, cudaStream_t stream) {
+                                  const float* delta, void* dk, void* dv, void* scratch,
+                                  cudaStream_t stream) {
   using namespace fasn;
   if (a->dtype != 0 && a->dtype != 1) return cudaErrorInvalidValue;
-  if (wide_d(a->D)) {
-    if (a->dtype == 1) return launch_wide(*a, dout, lse, delta, dk, dv, stream);
-    const dim3 grid((a->S + 63) / 64, a->H, wide_z(a->B, a->D));
-    if (grid.z == 0) return cudaErrorInvalidValue;
-    return launch(flash_bwd_dkv_wide_kernel<float>, grid, dkv_wide_smem_bytes(), stream, *a,
-                  static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
-                  static_cast<float*>(dv));
+  if (a->dtype == 0) {
+    if (a->D >= 256)
+      return fasn_flash_bwd_dkv_tf32x3_wide(a, dout, lse, delta, dk, dv, scratch, stream);
+    return fasn_flash_bwd_dkv_tf32x3(a, dout, lse, delta, dk, dv, stream);
   }
-  if (a->dtype == 1) {
-    switch (a->D) {
-      case 32:
-        return launch_wgmma<32>(*a, dout, lse, delta, dk, dv, stream);
-      case 64:
-        return launch_wgmma<64>(*a, dout, lse, delta, dk, dv, stream);
-      case 128:
-        return launch_wgmma<128>(*a, dout, lse, delta, dk, dv, stream);
-      case 256:
-        return launch_d256(*a, dout, lse, delta, dk, dv, stream);
-      default:
-        return cudaErrorInvalidValue;
-    }
+  if (wide_d(a->D)) return launch_wide(*a, dout, lse, delta, dk, dv, stream);
+  switch (a->D) {
+    case 32:
+      return launch_wgmma<32>(*a, dout, lse, delta, dk, dv, stream);
+    case 64:
+      return launch_wgmma<64>(*a, dout, lse, delta, dk, dv, stream);
+    case 128:
+      return launch_wgmma<128>(*a, dout, lse, delta, dk, dv, stream);
+    case 256:
+      return launch_d256(*a, dout, lse, delta, dk, dv, stream);
+    default:
+      return cudaErrorInvalidValue;
   }
-  if (a->D != 256) return fasn_flash_bwd_dkv_tf32x3(a, dout, lse, delta, dk, dv, stream);
-  constexpr int TB = scalar_tile<256>();
-  const dim3 grid((a->S + TB - 1) / TB, a->H, a->B);
-  return launch(flash_bwd_dkv_kernel<float, 256>, grid, dkv_smem_bytes<256>(), stream, *a,
-                static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
-                static_cast<float*>(dv));
 }

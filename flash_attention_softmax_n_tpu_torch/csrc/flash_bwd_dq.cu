@@ -52,11 +52,10 @@
 // wgmma has no f32 x f32 product and one TF32 pass keeps about 10 mantissa
 // bits, but three passes on each operand's TF32 head and rest (split-TF32)
 // hold f32's tolerance at 2.5x the f32 FMA peak; that file's header says
-// how. f32 at D 256: flash_bwd_dq_kernel, scalar f32 FMAs from shared
-// memory on 32 x 32 tiles (scalar_tile, for shared memory): 256 threads in
-// K1's scalar layout, thread (ty, tx) owning tile rows ty + 16 i, key
-// columns tx + 16 j and dq columns tx + 16 c; ds goes through shared
-// memory, rounded to k's dtype, for the ds k product.
+// how. f32 at D 256 and above: flash_bwd_dq_tf32x3_wide_kernel
+// (flash_bwd_f32_wide.cu, entered through fasn_flash_bwd_dq_tf32x3_wide):
+// the same split after a pre-pass, one CTA per 64 query rows and up to 512
+// columns of dq, S and dP formed once per 512 columns.
 //
 // bf16 above 256 (D a multiple of 128, as the wrapper pads it):
 // flash_bwd_dq_wide_wgmma_kernel. A 128-row tile over all of D would pass
@@ -77,14 +76,8 @@
 // 384, 18 d at 512, against 6 d needed); the CTA of the first column chunk
 // writes dbias and the dslope partials.
 //
-// f32 above 256: flash_bwd_dq_wide_kernel, the scalar 64 x 64 tiles and
-// thread layout, one CTA for 128 columns of dq, S and dP accumulated over D
-// in 64-column chunks (flash_common.h wide_dots), so that its shared memory
-// (115,968 bytes) does not grow with D; the CTA of the first column chunk
-// writes dbias and the dslope partials.
-//
-// Both: the TPU's dslope accumulates over a sequential grid; here each
-// thread sums its rows' terms over the sweep and the kernel writes one
+// Every kernel: the TPU's dslope accumulates over a sequential grid; here
+// each thread sums its rows' terms over the sweep and the kernel writes one
 // partial per query row, which the wrapper sums in a fixed order: no
 // atomics, so two calls give bit-identical results. Keys a row never
 // visits (causally invisible tiles) get zero dbias. Scores are formed
@@ -102,273 +95,6 @@
 
 namespace fasn {
 namespace {
-
-// ---------------------------------------------------------------------------
-// f32: scalar FMAs
-// ---------------------------------------------------------------------------
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  constexpr int TB = scalar_tile<D>();
-  return sizeof(float) * (size_t(4 * TB) * (D + 1) + size_t(TB) * (TB + 1));
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_dq_kernel(const FasnAttn a, const T* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        float scale, T* __restrict__ dq, float* __restrict__ dbias,
-                        float* __restrict__ dslope_rows) {
-  constexpr int TB = scalar_tile<D>(), R = TB / 16;
-  constexpr int DP = D + 1;
-  constexpr int BKP = TB + 1;
-  constexpr int CD = D / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;            // TB x DP, q * scale_q rounded to T
-  float* sDO = sQ + TB * DP;   // TB x DP
-  float* sK = sDO + TB * DP;   // TB x DP
-  float* sV = sK + TB * DP;    // TB x DP
-  float* sDS = sV + TB * DP;   // TB x BKP, ds rounded to T
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int L = a.L, S = a.S;
-  const int q0 = blockIdx.x * TB;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const long long bh = (long long)b * a.H + h;
-  const T* qb = static_cast<const T*>(a.q) + bh * L * D;
-  const T* kb = static_cast<const T*>(a.k) + bh * S * D;
-  const T* vb = static_cast<const T*>(a.v) + bh * S * D;
-  const T* dob = dout + bh * L * D;
-  const ScoreMods mods = score_mods(a, b, h);
-  const Dropout drop = dropout_of(a);
-
-  for (int i = tid; i < TB * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    float qv = 0.f, dv = 0.f;
-    if (q0 + r < L) {
-      qv = round_to<T>(to_f32(qb[(long long)(q0 + r) * D + c]) * a.scale_q);
-      dv = to_f32(dob[(long long)(q0 + r) * D + c]);
-    }
-    sQ[r * DP + c] = qv;
-    sDO[r * DP + c] = dv;
-  }
-
-  float lse_r[R], delta_r[R], dsl[R], acc[R][CD];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    lse_r[i] = qi < L ? fmaxf(lse[bh * L + qi], DEAD_LSE) : 0.f;
-    delta_r[i] = qi < L ? delta[bh * L + qi] : 0.f;
-    dsl[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
-  }
-
-  int kv_end = S;
-  if (mods.causal) {
-    const int last_row = min(q0 + TB, L) - 1;
-    kv_end = min(S, last_row + mods.off + 1);
-  }
-
-  int k0 = 0;
-  for (; k0 < kv_end; k0 += TB) {
-    __syncthreads();
-    for (int i = tid; i < TB * D; i += THREADS) {
-      const int r = i / D, c = i % D;
-      float kv = 0.f, vv = 0.f;
-      if (k0 + r < S) {
-        kv = to_f32(kb[(long long)(k0 + r) * D + c]);
-        vv = to_f32(vb[(long long)(k0 + r) * D + c]);
-      }
-      sK[r * DP + c] = kv;
-      sV[r * DP + c] = vv;
-    }
-    __syncthreads();
-
-    float s[R][R], dp[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[R], dov[R], kv[R], vv[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        qv[i] = sQ[(ty + 16 * i) * DP + d];
-        dov[i] = sDO[(ty + 16 * i) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        kv[j] = sK[(tx + 16 * j) * DP + d];
-        vv[j] = sV[(tx + 16 * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int qi = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        const float p = expf(mods(s[i][j], qi, kj) - lse_r[i]);
-        float d = dp[i][j];
-        if (drop.on) d *= drop(b, h, qi, kj);
-        const float ds = p * (d - delta_r[i]);
-        if (dbias && qi < L && kj < S) dbias[(bh * L + qi) * S + kj] = ds;
-        if (mods.alibi) dsl[i] += ds * -fabsf((float)(qi + mods.off - kj));
-        sDS[(ty + 16 * i) * BKP + tx + 16 * j] = round_to<T>(ds);
-      }
-    }
-    __syncthreads();
-
-    const int kn = min(TB, S - k0);
-    for (int kk = 0; kk < kn; ++kk) {
-      float kv[CD];
-#pragma unroll
-      for (int c = 0; c < CD; ++c) kv[c] = sK[kk * DP + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float ds = sDS[(ty + 16 * i) * BKP + kk];
-#pragma unroll
-        for (int c = 0; c < CD; ++c) acc[i][c] = fmaf(ds, kv[c], acc[i][c]);
-      }
-    }
-  }
-
-  // causally invisible tiles were skipped: their dbias is zero
-  if (dbias) {
-    const int width = S - min(k0, S);
-    for (int i = tid; i < TB * width; i += THREADS) {
-      const int r = i / width, c = k0 + i % width;
-      if (q0 + r < L) dbias[(bh * L + q0 + r) * S + c] = 0.f;
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    const float row = row_sum16(dsl[i]);
-    if (qi >= L) continue;
-    if (dslope_rows && tx == 0) dslope_rows[bh * L + qi] = row;
-    T* dqrow = dq + (bh * L + qi) * D;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) dqrow[tx + 16 * c] = from_f32<T>(scale * acc[i][c]);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_dq_wide_kernel(const FasnAttn a, const T* __restrict__ dout,
-                             const float* __restrict__ lse, const float* __restrict__ delta,
-                             float scale, T* __restrict__ dq, float* __restrict__ dbias,
-                             float* __restrict__ dslope_rows) {
-  constexpr int TB = 64, R = TB / 16;
-  constexpr int BKP = TB + 1;
-  constexpr int CD = WIDE_OC / 16;
-  extern __shared__ float smem[];
-  float* sK = smem + 4 * TB * WIDE_KP;  // TB x WIDE_OC: the CTA's columns of k
-  float* sDS = sK + TB * WIDE_OC;       // TB x BKP, ds rounded to T
-
-  const int D = a.D, chunks = D / WIDE_OC;
-  const int h = blockIdx.y, b = blockIdx.z / chunks, oc0 = blockIdx.z % chunks * WIDE_OC;
-  const bool first = oc0 == 0;  // the column chunk that writes dbias and dslope
-  const int L = a.L, S = a.S;
-  const int q0 = blockIdx.x * TB;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const long long bh = (long long)b * a.H + h;
-  const T* qb = static_cast<const T*>(a.q) + bh * L * D;
-  const T* kb = static_cast<const T*>(a.k) + bh * S * D;
-  const T* vb = static_cast<const T*>(a.v) + bh * S * D;
-  const T* dob = dout + bh * L * D;
-  const ScoreMods mods = score_mods(a, b, h);
-  const Dropout drop = dropout_of(a);
-
-  float lse_r[R], delta_r[R], dsl[R], acc[R][CD];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    lse_r[i] = qi < L ? fmaxf(lse[bh * L + qi], DEAD_LSE) : 0.f;
-    delta_r[i] = qi < L ? delta[bh * L + qi] : 0.f;
-    dsl[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
-  }
-
-  int kv_end = S;
-  if (mods.causal) {
-    const int last_row = min(q0 + TB, L) - 1;
-    kv_end = min(S, last_row + mods.off + 1);
-  }
-
-  int k0 = 0;
-  for (; k0 < kv_end; k0 += TB) {
-    float s[R][R], dp[R][R];
-    wide_dots<T, R, true>(smem, D, qb, a.scale_q, q0, L, kb, 1.f, k0, S, dob, vb, s, dp);
-    wide_cols<T, TB>(sK, kb, k0, S, D, oc0, 1.f);
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int qi = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        const float p = expf(mods(s[i][j], qi, kj) - lse_r[i]);
-        float d = dp[i][j];
-        if (drop.on) d *= drop(b, h, qi, kj);
-        const float ds = p * (d - delta_r[i]);
-        if (first && dbias && qi < L && kj < S) dbias[(bh * L + qi) * S + kj] = ds;
-        if (mods.alibi) dsl[i] += ds * -fabsf((float)(qi + mods.off - kj));
-        sDS[(ty + 16 * i) * BKP + tx + 16 * j] = round_to<T>(ds);
-      }
-    }
-    __syncthreads();
-
-    const int kn = min(TB, S - k0);
-    for (int kk = 0; kk < kn; ++kk) {
-      float kv[CD];
-#pragma unroll
-      for (int c = 0; c < CD; ++c) kv[c] = sK[kk * WIDE_OC + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float ds = sDS[(ty + 16 * i) * BKP + kk];
-#pragma unroll
-        for (int c = 0; c < CD; ++c) acc[i][c] = fmaf(ds, kv[c], acc[i][c]);
-      }
-    }
-  }
-
-  // causally invisible tiles were skipped: their dbias is zero
-  if (first && dbias) {
-    const int width = S - min(k0, S);
-    for (int i = tid; i < TB * width; i += THREADS) {
-      const int r = i / width, c = k0 + i % width;
-      if (q0 + r < L) dbias[(bh * L + q0 + r) * S + c] = 0.f;
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    const float row = row_sum16(dsl[i]);
-    if (qi >= L) continue;
-    if (first && dslope_rows && tx == 0) dslope_rows[bh * L + qi] = row;
-    T* dqrow = dq + (bh * L + qi) * D + oc0;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) dqrow[tx + 16 * c] = from_f32<T>(scale * acc[i][c]);
-  }
-}
-
-constexpr size_t dq_wide_smem_bytes() {
-  return sizeof(float) * (size_t(4 * 64) * WIDE_KP + size_t(64) * WIDE_OC + size_t(64) * 65);
-}
 
 // ---------------------------------------------------------------------------
 // bf16: TMA and wgmma (attn_tile.h)
@@ -925,37 +651,26 @@ cudaError_t launch_wide(const FasnAttn& a, const void* dout, const float* lse,
 
 extern "C" int fasn_flash_bwd_dq(const FasnAttn* a, const void* dout, const float* lse,
                                  const float* delta, float scale, void* dq, float* dbias,
-                                 float* dslope_rows, cudaStream_t stream) {
+                                 float* dslope_rows, void* scratch, cudaStream_t stream) {
   using namespace fasn;
   if (a->dtype != 0 && a->dtype != 1) return cudaErrorInvalidValue;
-  if (wide_d(a->D)) {
-    if (a->dtype == 1)
-      return launch_wide(*a, dout, lse, delta, scale, dq, dbias, dslope_rows, stream);
-    const dim3 grid((a->L + 63) / 64, a->H, wide_z(a->B, a->D));
-    if (grid.z == 0) return cudaErrorInvalidValue;
-    return launch(flash_bwd_dq_wide_kernel<float>, grid, dq_wide_smem_bytes(), stream, *a,
-                  static_cast<const float*>(dout), lse, delta, scale, static_cast<float*>(dq),
-                  dbias, dslope_rows);
-  }
-  if (a->dtype == 1) {
-    switch (a->D) {
-      case 32:
-        return launch_wgmma<32>(*a, dout, lse, delta, scale, dq, dbias, dslope_rows, stream);
-      case 64:
-        return launch_wgmma<64>(*a, dout, lse, delta, scale, dq, dbias, dslope_rows, stream);
-      case 128:
-        return launch_wgmma<128>(*a, dout, lse, delta, scale, dq, dbias, dslope_rows, stream);
-      case 256:
-        return launch_d256(*a, dout, lse, delta, scale, dq, dbias, dslope_rows, stream);
-      default:
-        return cudaErrorInvalidValue;
-    }
-  }
-  if (a->D != 256)
+  if (a->dtype == 0) {
+    if (a->D >= 256)
+      return fasn_flash_bwd_dq_tf32x3_wide(a, dout, lse, delta, scale, dq, dbias, dslope_rows,
+                                           scratch, stream);
     return fasn_flash_bwd_dq_tf32x3(a, dout, lse, delta, scale, dq, dbias, dslope_rows, stream);
-  constexpr int TB = scalar_tile<256>();
-  const dim3 grid((a->L + TB - 1) / TB, a->H, a->B);
-  return launch(flash_bwd_dq_kernel<float, 256>, grid, dq_smem_bytes<256>(), stream, *a,
-                static_cast<const float*>(dout), lse, delta, scale, static_cast<float*>(dq),
-                dbias, dslope_rows);
+  }
+  if (wide_d(a->D)) return launch_wide(*a, dout, lse, delta, scale, dq, dbias, dslope_rows, stream);
+  switch (a->D) {
+    case 32:
+      return launch_wgmma<32>(*a, dout, lse, delta, scale, dq, dbias, dslope_rows, stream);
+    case 64:
+      return launch_wgmma<64>(*a, dout, lse, delta, scale, dq, dbias, dslope_rows, stream);
+    case 128:
+      return launch_wgmma<128>(*a, dout, lse, delta, scale, dq, dbias, dslope_rows, stream);
+    case 256:
+      return launch_d256(*a, dout, lse, delta, scale, dq, dbias, dslope_rows, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

@@ -10,9 +10,9 @@
 // bias, ALiBi, dropout, causal and rectangular causal from flash_common.h,
 // dead rows (lse at DEAD_LSE) with zero gradients. fasn_flash_bwd_dq and
 // fasn_flash_bwd_dkv call fasn_flash_bwd_dq_tf32x3 and
-// fasn_flash_bwd_dkv_tf32x3 for f32 at D 32, 64 and 128 (f32 at D 256
-// keeps their scalar kernels, above 256 the wide scalar ones); the kernels
-// have a translation unit of their own so that the instructions of those
+// fasn_flash_bwd_dkv_tf32x3 for f32 at D 32, 64 and 128 (f32 at D 256 and
+// above takes flash_bwd_f32_wide.cu's kernels); the kernels have a
+// translation unit of their own so that the instructions of those
 // files' kernels stay the ones measured before them.
 //
 // The split and the transposed layout are tf32x3.h's: three TF32 passes a

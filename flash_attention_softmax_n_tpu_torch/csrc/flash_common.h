@@ -7,7 +7,7 @@
 // launch helpers. The tile shape, thread layout and 16-lane reductions are
 // those of the scalar f32 kernels; the bf16 kernels of K1, K5, K6 and K10,
 // and K1's, K5's and K6's f32 kernels at D <= 128 (flash_fwd_f32.cu,
-// flash_bwd_f32.cu), run on
+// flash_bwd_f32.cu) and K5's and K6's above (flash_bwd_f32_wide.cu), run on
 // attn_tile.h's tensor-core tiles and take the score modifiers, the
 // dropout hash, NEG_INF and DEAD_LSE from here. Device code: only the .cu files, compiled by
 // nvcc, include it.
@@ -30,13 +30,6 @@ constexpr int THREADS = 256;
 // thread (ty, tx) = (tid / 16, tid % 16) owns tile rows ty + 16 i (i < 4)
 // and tile columns tx + 16 j (j < 4)
 constexpr int R4 = 4;
-// the backward's scalar f32 kernels (K5, K6) take 32-row tiles (R 2) at D
-// 256: four 64-row f32 tiles of q, dout, k and v would need 263 KB of
-// shared memory, over the 227 KB a block may have
-template <int D>
-__host__ __device__ constexpr int scalar_tile() {
-  return D > 128 ? 32 : 64;
-}
 // rounded from double, as the Python side computes them
 constexpr float NEG_INF = (float)(-0.7 * (double)FLT_MAX);
 constexpr float DEAD_LSE = (float)(0.5 * -0.7 * (double)FLT_MAX);
@@ -169,9 +162,9 @@ cudaError_t dispatch_d(int D, F& f) {
 // ---------------------------------------------------------------------------
 // Head dims above 256 (multiples of WIDE_OC, as the wrappers pad them): the
 // wide scalar kernels of K1 and K10 (f32, and bf16 above 512: their bf16
-// kernels at 384 and 512 take all of D a CTA, attn_tile.h's WideRing) and
-// of K5 and K6 (f32; their bf16 kernels stream D through attn_tile.h's
-// chunk_dots). A CTA takes
+// kernels at 384 and 512 take all of D a CTA, attn_tile.h's WideRing; K5
+// and K6 stream D through attn_tile.h's chunk_dots in bf16 and
+// flash_bwd_f32_wide.cu's ring in f32). A CTA takes
 // WIDE_OC columns of the outputs (column chunk blockIdx.z % (D / WIDE_OC))
 // and accumulates the scores it needs over the whole of D in WIDE_KC-column
 // chunks through shared memory, so its shared memory does not grow with D.
@@ -206,57 +199,39 @@ __device__ __forceinline__ void wide_chunk(float* dst, const T* src, int row0, i
 }
 
 // s[i][j] = sum over d < D of A[a0 + ty + 16 i][d] B[b0 + tx + 16 j][d],
-// and with TWO also s2 = C E^T over the same rows (C's like A's, E's like
-// B's), in WIDE_KC-column chunks from column 0 up, as the scalar kernels
-// sum: A scaled by a_scale and B by b_scale, each rounded to T; A's and C's
-// rows at or past a_end and B's and E's past b_end as zeros. smem holds
-// the chunks: 2 (4 with TWO) x TB x WIDE_KP floats. Every chunk starts
-// with __syncthreads, so the caller's buffers of the previous tile are
-// free once it returns.
-template <typename T, int R, bool TWO>
+// in WIDE_KC-column chunks from column 0 up, as the scalar kernels sum: A
+// scaled by a_scale and B by b_scale, each rounded to T; A's rows at or
+// past a_end and B's past b_end as zeros. smem holds the chunks: 2 x TB x
+// WIDE_KP floats. Every chunk starts with __syncthreads, so the caller's
+// buffers of the previous tile are free once it returns.
+template <typename T, int R>
 __device__ __forceinline__ void wide_dots(float* smem, int D, const T* A, float a_scale, int a0,
                                           int a_end, const T* B, float b_scale, int b0, int b_end,
-                                          const T* C, const T* E, float (&s)[R][R],
-                                          float (&s2)[R][R]) {
+                                          float (&s)[R][R]) {
   constexpr int TB = 16 * R;
   float* sA = smem;
   float* sB = sA + TB * WIDE_KP;
-  float* sC = sB + TB * WIDE_KP;
-  float* sE = sC + TB * WIDE_KP;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < R; ++j) s[i][j] = s2[i][j] = 0.f;
+    for (int j = 0; j < R; ++j) s[i][j] = 0.f;
   for (int d0 = 0; d0 < D; d0 += WIDE_KC) {
     __syncthreads();
     wide_chunk<T, TB>(sA, A, a0, a_end, D, d0, a_scale);
     wide_chunk<T, TB>(sB, B, b0, b_end, D, d0, b_scale);
-    if (TWO) {
-      wide_chunk<T, TB>(sC, C, a0, a_end, D, d0, 1.f);
-      wide_chunk<T, TB>(sE, E, b0, b_end, D, d0, 1.f);
-    }
     __syncthreads();
 #pragma unroll 4
     for (int d = 0; d < WIDE_KC; ++d) {
-      float av[R], bv[R], cv[R], ev[R];
+      float av[R], bv[R];
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        av[i] = sA[(ty + 16 * i) * WIDE_KP + d];
-        if (TWO) cv[i] = sC[(ty + 16 * i) * WIDE_KP + d];
-      }
+      for (int i = 0; i < R; ++i) av[i] = sA[(ty + 16 * i) * WIDE_KP + d];
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        bv[j] = sB[(tx + 16 * j) * WIDE_KP + d];
-        if (TWO) ev[j] = sE[(tx + 16 * j) * WIDE_KP + d];
-      }
+      for (int j = 0; j < R; ++j) bv[j] = sB[(tx + 16 * j) * WIDE_KP + d];
 #pragma unroll
       for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < R; ++j) {
-          s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-          if (TWO) s2[i][j] = fmaf(cv[i], ev[j], s2[i][j]);
-        }
+        for (int j = 0; j < R; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
     }
   }
 }

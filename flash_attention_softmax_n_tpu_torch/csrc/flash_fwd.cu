@@ -257,9 +257,8 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    float s[R4][R4], unused[R4][R4];
-    wide_dots<T, R4, false>(smem, D, qb, a.scale_q, q0, L, kb, 1.f, k0, S, nullptr, nullptr, s,
-                            unused);
+    float s[R4][R4];
+    wide_dots<T, R4>(smem, D, qb, a.scale_q, q0, L, kb, 1.f, k0, S, s);
     wide_cols<T, BK>(sV, vb, k0, S, D, oc0, 1.f);
 
 #pragma unroll

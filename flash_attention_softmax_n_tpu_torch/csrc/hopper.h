@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels: K7
 // (qmm.cu), K1 (flash_fwd.cu; in f32 at D <= 128 flash_fwd_f32.cu), K5
 // (flash_bwd_dq.cu), K6 (flash_bwd_dkv.cu; both in f32 at D <= 128 in
-// flash_bwd_f32.cu) and K10 (prefill_phases.cu).
+// flash_bwd_f32.cu, above in flash_bwd_f32_wide.cu) and K10
+// (prefill_phases.cu).
 // Inline PTX for
 // shared-memory addresses, mbarriers, TMA loads, proxy fences, wgmma
 // operand descriptors and wgmma itself, and on the host libcuda's

@@ -49,15 +49,17 @@ int fasn_flash_fwd_wide(const FasnAttn* a, float n, void* o, float* lse, cudaStr
 // forward's, or a caller's global one) and delta = rowsum(dout * o) (B,H,L)
 // f32; dq is multiplied by `scale` (unrounded). dbias null or (B,H,L,S) f32;
 // dslope_rows null or (B,H,L) f32, each query row's sum of ds * -|dist|.
-// bf16 takes the TMA kernel: q, k, v and dout must start on 16 bytes.
+// Every kernel takes q, k, v and dout starting on 16 bytes (TMA, or the f32
+// pre-pass's vector loads). `scratch`: device memory of
+// fasn_flash_bwd_tf32x3_wide_scratch(a, 0) bytes (null where that is 0).
 int fasn_flash_bwd_dq(const FasnAttn* a, const void* dout, const float* lse, const float* delta,
-                      float scale, void* dq, float* dbias, float* dslope_rows,
+                      float scale, void* dq, float* dbias, float* dslope_rows, void* scratch,
                       cudaStream_t stream);
 
-// K6 (flash_bwd_dkv.cu): dk like k and dv like v, from the inputs of K5;
-// bf16 takes the TMA kernel, as K5 does.
+// K6 (flash_bwd_dkv.cu): dk like k and dv like v, from the inputs of K5; its
+// scratch fasn_flash_bwd_tf32x3_wide_scratch(a, 1) bytes.
 int fasn_flash_bwd_dkv(const FasnAttn* a, const void* dout, const float* lse, const float* delta,
-                       void* dk, void* dv, cudaStream_t stream);
+                       void* dk, void* dv, void* scratch, cudaStream_t stream);
 
 // K5's and K6's split-TF32 kernels for f32 at D 32, 64 and 128
 // (flash_bwd_f32.cu), which fasn_flash_bwd_dq and fasn_flash_bwd_dkv call
@@ -68,6 +70,20 @@ int fasn_flash_bwd_dq_tf32x3(const FasnAttn* a, const void* dout, const float* l
                              float* dslope_rows, cudaStream_t stream);
 int fasn_flash_bwd_dkv_tf32x3(const FasnAttn* a, const void* dout, const float* lse,
                               const float* delta, void* dk, void* dv, cudaStream_t stream);
+
+// K5's and K6's split-TF32 kernels for f32 at D 256 and at the multiples of
+// 128 above it (flash_bwd_f32_wide.cu), which fasn_flash_bwd_dq and
+// fasn_flash_bwd_dkv call for those inputs, with their arguments: a
+// pre-pass writes each operand's TF32 head and rest (and the transposes) to
+// `scratch`, of fasn_flash_bwd_tf32x3_wide_scratch(a, dkv) bytes (K5: dkv
+// 0; K6: 1; 0 bytes for the inputs the kernels do not take).
+size_t fasn_flash_bwd_tf32x3_wide_scratch(const FasnAttn* a, int dkv);
+int fasn_flash_bwd_dq_tf32x3_wide(const FasnAttn* a, const void* dout, const float* lse,
+                                  const float* delta, float scale, void* dq, float* dbias,
+                                  float* dslope_rows, void* scratch, cudaStream_t stream);
+int fasn_flash_bwd_dkv_tf32x3_wide(const FasnAttn* a, const void* dout, const float* lse,
+                                   const float* delta, void* dk, void* dv, void* scratch,
+                                   cudaStream_t stream);
 
 // K2 (qmm_argmax.cu). x (M,K) contiguous, bf16 (dtype 1) or f32 (dtype 0);
 // w (K,N) int8 contiguous; scales (N,) f32; out_idx (M,) int32, out_val

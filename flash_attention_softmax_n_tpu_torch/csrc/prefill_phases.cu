@@ -266,11 +266,10 @@ __global__ void __launch_bounds__(THREADS)
     m[i] = NEG_INF;
     l[i] = 0.f;
   }
-  float s[R4][R4], unused[R4][R4];
+  float s[R4][R4];
   if (normalise) {
     for (int k0 = 0; k0 < kv_end; k0 += BK) {
-      wide_dots<T, R4, false>(smem, D, qb, 1.f, q0, L, kb, 1.f, k0, L, nullptr, nullptr, s,
-                              unused);
+      wide_dots<T, R4>(smem, D, qb, 1.f, q0, L, kb, 1.f, k0, L, s);
       mask_scores(ty, tx, q0, k0, L, causal, s);
 #pragma unroll
       for (int i = 0; i < R4; ++i) {
@@ -294,7 +293,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    wide_dots<T, R4, false>(smem, D, qb, 1.f, q0, L, kb, 1.f, k0, L, nullptr, nullptr, s, unused);
+    wide_dots<T, R4>(smem, D, qb, 1.f, q0, L, kb, 1.f, k0, L, s);
     mask_scores(ty, tx, q0, k0, L, causal, s);
     wide_cols<T, BK>(sV, vb, k0, L, D, oc0, 1.f);
 #pragma unroll

@@ -1,7 +1,10 @@
-// The split-TF32 ("3xTF32") pieces of the f32 attention kernels at head
-// dims 32, 64 and 128: K1's flash_fwd_tf32x3_kernel (flash_fwd_f32.cu) and
+// The split-TF32 ("3xTF32") pieces of the f32 attention kernels: at head
+// dims 32, 64 and 128 K1's flash_fwd_tf32x3_kernel (flash_fwd_f32.cu) and
 // K5's and K6's flash_bwd_dq_tf32x3_kernel and flash_bwd_dkv_tf32x3_kernel
-// (flash_bwd_f32.cu), one consumer warpgroup and a producer warp a CTA.
+// (flash_bwd_f32.cu), one consumer warpgroup and a producer warp a CTA; at
+// 256 and above K5's and K6's flash_bwd_dq_tf32x3_wide_kernel and
+// flash_bwd_dkv_tf32x3_wide_kernel (flash_bwd_f32_wide.cu), two consumer
+// warpgroups and a producer warpgroup, on operands split by a pre-pass.
 //
 // The split. wgmma has no f32 product, and one TF32 product keeps about 10
 // of f32's 23 mantissa bits (a single pass misses chip_smoke's 1e-5 of the

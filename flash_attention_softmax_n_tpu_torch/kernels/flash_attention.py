@@ -12,7 +12,8 @@ flash backward: ``p = exp(s - lse)`` are the softmax-N probabilities and
 launches the hand-written kernels (``csrc/flash_fwd.cu`` K1,
 ``csrc/flash_bwd_dq.cu`` K5, ``csrc/flash_bwd_dkv.cu`` K6; in f32 at head
 dims 32-128 the split-TF32 kernels, K1's in ``csrc/flash_fwd_f32.cu``, K5's
-and K6's in ``csrc/flash_bwd_f32.cu``), a CPU tensor runs
+and K6's in ``csrc/flash_bwd_f32.cu``, and K5's and K6's at 256 and above
+in ``csrc/flash_bwd_f32_wide.cu``), a CPU tensor runs
 ``flash_fwd_reference`` / ``flash_bwd_reference``, the same arithmetic in
 plain PyTorch. L and S need no padding: the kernels mask ragged tiles
 themselves. The kernels are built for head dims 32, 64, 128, 256 and any
@@ -241,13 +242,25 @@ def _tf32_head(x: torch.Tensor) -> torch.Tensor:
     return ((x.contiguous().view(torch.int32) + 0x1000) & _TF32_KEEP).view(torch.float32)
 
 
-def _tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
-    """a @ b as K1's, K5's and K6's f32 kernels at D <= 128 form it
+def _tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3,
+                   chunk: Optional[int] = None) -> torch.Tensor:
+    """a @ b as K1's, K5's and K6's f32 kernels form it
     (``csrc/tf32x3.h``): each f32 operand x is its TF32 head
     (``_tf32_head``) plus its rest x - head (exact in f32, read as TF32 by
     the tensor cores, ``_tf32``); the two cross products first, then the
     heads', rest x rest dropped. ``passes=1`` is one TF32 pass over the
-    operands as they stand (the tensor cores' own truncation)."""
+    operands as they stand (the tensor cores' own truncation). With
+    ``chunk``, the contraction runs in chunks of that many columns of a
+    (rows of b), each chunk's three passes summed on their own and the
+    chunks added in f32 in order, as K5's and K6's kernels at D >= 256 sum
+    every product (``csrc/flash_bwd_f32_wide.cu``: 32 columns of D for S
+    and dP, 32 keys or query rows a tile for dQ, dK and dV)."""
+    if chunk is not None:
+        out = None
+        for c in range(0, a.shape[-1], chunk):
+            part = _tf32x3_matmul(a[..., c:c + chunk], b[..., c:c + chunk, :], passes)
+            out = part if out is None else out + part
+        return out
     if passes == 1:
         return _tf32(a) @ _tf32(b)
     a_hi, b_hi = _tf32_head(a), _tf32_head(b)
@@ -273,17 +286,19 @@ def flash_fwd_tf32x3_reference(q, k, v, bias, *, n: float, scale: float,
 def flash_bwd_tf32x3_reference(q, k, v, bias, slopes, seed, o, lse, do, *,
                                scale: float, is_causal: bool,
                                dropout_rate: float = 0.0, passes: int = 3,
-                               **kw):
+                               chunk: Optional[int] = None, **kw):
     """``flash_bwd_reference`` in f32 with every product taken as the
     split-TF32 kernels take it (``_tf32x3_matmul``; ``passes=1``: one TF32
-    pass). A plain emulation of their numerics for the CPU tests; no path
-    calls it. Sums run in the CPU's f32 order, not the tensor cores'."""
+    pass; ``chunk``: in chunks of the contraction added in f32, as the
+    kernels at D >= 256 sum, ``chunk=32``). A plain emulation of their
+    numerics for the CPU tests; no path calls it. Sums within a product run
+    in the CPU's f32 order, not the tensor cores'."""
     if q.dtype != torch.float32:
         raise ValueError("the split-TF32 kernels take f32 inputs")
     return flash_bwd_reference(
         q, k, v, bias, slopes, seed, o, lse, do, scale=scale,
         is_causal=is_causal, dropout_rate=dropout_rate,
-        mm=lambda a, b: _tf32x3_matmul(a, b, passes), **kw)
+        mm=lambda a, b: _tf32x3_matmul(a, b, passes, chunk), **kw)
 
 
 # ----------------------------------------------------------------------------
@@ -291,12 +306,13 @@ def flash_bwd_tf32x3_reference(q, k, v, bias, slopes, seed, o, lse, do, *,
 # ----------------------------------------------------------------------------
 
 # the head dims the kernels are built for up to 256 (bf16 K1, K5 and K6 at
-# 256 on their own TMA + wgmma kernels, f32 on the scalar ones; f32 K1, K5
-# and K6 at 32, 64 and 128 on the split-TF32 TMA + wgmma kernels); above,
-# every multiple of WIDE_HEAD_DIM: bf16 K5 and K6 on their wide TMA + wgmma
-# kernels at every such D, bf16 K1 on its wide TMA + wgmma kernel at 384
-# and 512 (and on the wide scalar kernel above 512), f32 on the wide scalar
-# kernels
+# 256 on their own TMA + wgmma kernels; f32 K1, K5 and K6 at 32, 64 and 128
+# on the split-TF32 TMA + wgmma kernels, f32 K5 and K6 at 256 on the wide
+# split-TF32 ones, f32 K1 on its scalar kernel); above, every multiple of
+# WIDE_HEAD_DIM: bf16 K5 and K6 on their wide TMA + wgmma kernels and f32
+# K5 and K6 on their wide split-TF32 ones at every such D, bf16 K1 on its
+# wide TMA + wgmma kernel at 384 and 512 (and on the wide scalar kernel
+# above 512), f32 K1 on the wide scalar kernel
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 WIDE_HEAD_DIM = 128
 

@@ -1054,11 +1054,11 @@ def test_flash_bwd_wgmma_extras_match_plain(gen, d, extra):
 
 # head dims the kernels are not built for (16, 20, 80, 96, 160, 288) run
 # zero-padded to the next of 32, 64, 128, 256 and the multiples of 128
-# above; 256 runs K1's, K5's and K6's D 256 wgmma kernels in bf16 and the
-# scalar kernels in f32 (K5 and K6 on 32-row tiles); 384 and 512 (and 288 at
-# 384) the wide kernels (bf16: TMA + wgmma; f32: scalar); 640 K5's and K6's
-# wide TMA + wgmma kernels in bf16 and the wide scalar kernels otherwise (K1
-# in bf16 too). Under a bias, ALiBi and dropout, n 0 and 1, at chip_smoke's
+# above; 256 runs K1's, K5's and K6's D 256 wgmma kernels in bf16, K1's
+# scalar kernel in f32; 384 and 512 (and 288 at 384) the wide kernels
+# (bf16: TMA + wgmma; f32 K1: scalar); 640 K5's and K6's wide TMA + wgmma
+# kernels in bf16 and K1's wide scalar kernel otherwise (in bf16 too); f32
+# K5 and K6 at 256 and above their wide split-TF32 kernels. Under a bias, ALiBi and dropout, n 0 and 1, at chip_smoke's
 # B2 H4 L200 S264; the backward from the plain forward's o and lse;
 # tolerances as above, repeats bit-equal
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1118,11 +1118,15 @@ def test_flash_bwd_wgmma_rejects_misaligned_inputs(gen, d):
                               torch.empty_like(k), 0.125, True, 0, 1.0)
 
 
-# K5's and K6's f32 kernels at D 32, 64 and 128: split-TF32 products on TMA +
-# wgmma (csrc/flash_bwd_f32.cu), which must be the ones launched (and not
-# the scalar flash_bwd_dq_kernel / flash_bwd_dkv_kernel): the shapes of
+# K5's and K6's f32 kernels: split-TF32 products on TMA + wgmma, at D 32, 64
+# and 128 flash_bwd_dq_tf32x3_kernel / flash_bwd_dkv_tf32x3_kernel
+# (csrc/flash_bwd_f32.cu), at 256 and above flash_bwd_dq_tf32x3_wide_kernel
+# / flash_bwd_dkv_tf32x3_wide_kernel after their pre-passes
+# (csrc/flash_bwd_f32_wide.cu; 640 runs K5's two column groups and K6's
+# three), which must be the ones launched, and no f32 kernel of the other
+# width (the scalar f32 kernels are gone): the shapes of
 # _WGMMA_SHAPES (L and S ending mid-tile against K5's 64-row query tiles
-# and 32- or 64-key tiles, K6's 64-key tiles and 16- or 32-row query tiles;
+# and 16- to 64-key tiles, K6's 64-key tiles and 16- or 32-row query tiles;
 # rectangular causal both ways, dead rows at n = 0; non-causal), each
 # backward held alone against the plain version from the plain forward's o
 # and lse, within 1e-4 of max(1, |plain|) element-wise, as every f32 card
@@ -1135,6 +1139,9 @@ def test_flash_bwd_wgmma_rejects_misaligned_inputs(gen, d):
 # d64 on an H100, against at most 1.5e-6 at every other shape here);
 # repeat calls bit-equal
 _TF32X3_BWD_KERNELS = ("flash_bwd_dq_tf32x3_kernel", "flash_bwd_dkv_tf32x3_kernel")
+_TF32X3_WIDE_BWD_KERNELS = ("flash_bwd_dq_tf32x3_split_kernel", "flash_bwd_dq_tf32x3_wide_kernel",
+                            "flash_bwd_dkv_tf32x3_split_kernel",
+                            "flash_bwd_dkv_tf32x3_wide_kernel")
 _F32_NORM_TOL = 1e-5
 
 
@@ -1148,11 +1155,13 @@ def _bwd_f32(gen, B, H, L, S, d, *, n=1.0, causal=True, norm=False, **extras):
     before = {name: _build.LAUNCHES[name] for name in ("flash_bwd_dq", "flash_bwd_dkv")}
     got, names, calls = _launched(lambda: fa.flash_bwd(*args, **bkw))
     assert all(_build.LAUNCHES[name] == c + calls for name, c in before.items())
-    for kernel in _TF32X3_BWD_KERNELS:
+    wide = fa.kernel_head_dim(d) >= 256
+    ran, other = ((_TF32X3_WIDE_BWD_KERNELS, _TF32X3_BWD_KERNELS) if wide
+                  else (_TF32X3_BWD_KERNELS, _TF32X3_WIDE_BWD_KERNELS))
+    for kernel in ran:
         assert any(kernel in nm for nm in names), (kernel, sorted(set(names)))
-    # no name is a substring of another: the scalar kernels did not run
-    assert not any(scalar in nm for scalar in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
-                   for nm in names), sorted(set(names))
+    # no name is a substring of another: the other width's kernels did not run
+    assert not any(k in nm for k in other for nm in names), sorted(set(names))
     want = fa.flash_bwd_reference(*args, **bkw)
     for name, g, w in zip(("dq", "dk", "dv", "dbias", "dslopes"), got, want):
         assert (g is None) == (w is None), name
@@ -1166,7 +1175,7 @@ def _bwd_f32(gen, B, H, L, S, d, *, n=1.0, causal=True, norm=False, **extras):
     return got
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256, 384, 512, 640])
 @pytest.mark.parametrize("n", [0.0, 1.0])
 @pytest.mark.parametrize("shape", _WGMMA_SHAPES, ids=lambda s: "L{}-S{}-{}".format(*s))
 def test_flash_bwd_tf32x3_matches_plain(gen, d, n, shape):
@@ -1177,7 +1186,7 @@ def test_flash_bwd_tf32x3_matches_plain(gen, d, n, shape):
         assert bool((dq[:, :, dead] == 0).all())
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256, 384, 512, 640])
 @pytest.mark.parametrize("extra", ["bias11", "bias21", "bias13", "bias23", "alibi", "dropout",
                                    "all"])
 def test_flash_bwd_tf32x3_extras_match_plain(gen, d, extra):
@@ -1194,9 +1203,10 @@ def test_flash_bwd_tf32x3_at_train_agreements_shape(gen):
     _bwd_f32(gen, 2, 32, 1024, 1024, 64, norm=True)
 
 
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [32, 128, 256, 384, 512, 640])
 def test_flash_bwd_tf32x3_rejects_misaligned_inputs(gen, d):
     # contiguous f32 views starting 4 bytes past an allocation: TMA needs 16
+    # (at 256 and above the pre-pass's 16-byte loads)
     base = torch.randn(2 * 128 * d + 1, device="cuda")
     bad = base[1:].view(1, 2, 128, d)
     k = torch.randn((1, 2, 128, d), device="cuda")
@@ -1206,6 +1216,70 @@ def test_flash_bwd_tf32x3_rejects_misaligned_inputs(gen, d):
         with pytest.raises(ValueError, match="16-byte boundary"):
             fa.flash_bwd(q, k, k, None, None, None, k, rows, do, scale=0.125, is_causal=True)
         assert all(_build.LAUNCHES[name] == c for name, c in before.items())
+
+
+@pytest.mark.parametrize("d", [256, 640])
+def test_flash_bwd_tf32x3_wide_guarded_repeats(gen, d):
+    # K5's and K6's wide split-TF32 kernels (640: both column-group paths)
+    # under bias, ALiBi and dropout, called through the operators with every
+    # f32 input and output inside 16 KB of NaN on each side and the outputs
+    # filled with NaN before each call: 16 calls, every other one beside a
+    # matmul on a second stream, must each give flash_bwd's gradients bit
+    # for bit (a read past an input, a race on the ring or the exchange
+    # buffers, or an output element left unwritten would show) and leave
+    # every guard NaN (a write past an output would show)
+    B, H, L, S, rate = 2, 3, 200, 264, 0.25
+    q, k, v, do, ex = _attn_inputs(gen, torch.float32, B, H, L, S, d, bias_shape=(2, 1),
+                                   alibi=True, rate=rate)
+    kw = dict(scale=d ** -0.5, is_causal=True, dropout_rate=rate)
+    o, lse = fa.flash_fwd_reference(q, k, v, ex["bias"], n=1.0, slopes=ex["slopes"],
+                                    seed=ex["seed"], **kw)
+    want = fa.flash_bwd(q, k, v, ex["bias"], ex["slopes"], ex["seed"], o, lse, do, **kw)
+    guard = 4096
+
+    def guarded(shape):
+        n = int(np.prod(shape))
+        buf = torch.full((2 * guard + n,), float("nan"), device="cuda")
+        return buf, buf[guard:guard + n].view(shape)
+
+    def placed(t):
+        buf, view = guarded(t.shape)
+        view.copy_(t)
+        return buf, view
+
+    delta = torch.sum(do * o, dim=-1)
+    ins = [placed(t) for t in (q, k, v, fa._plane_bias(ex["bias"], L, S), ex["slopes"], do, lse,
+                               delta)]
+    outs = [guarded(s) for s in ((B, H, L, d), (B, H, S, d), (B, H, S, d), (B, H, L, S),
+                                 (B, H, L))]
+    qg, kg, vg, bg, sg, dog, lseg, dg = (view for _, view in ins)
+    dq, dk, dv, dbias, dslope_rows = (view for _, view in outs)
+    seed = fa._seed_arg(ex["seed"], rate, q.device)
+    thresh, mult = fa._dropout_args(rate)
+    scale_q = fa._scale_q(d ** -0.5, torch.float32)
+    ops = _build.ops()
+    side = torch.cuda.Stream()
+    noise = torch.randn((4096, 4096), generator=gen, device="cuda")
+    for rep in range(16):
+        for view in (dq, dk, dv, dbias, dslope_rows):
+            view.fill_(float("nan"))
+        if rep % 2:
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                torch.mm(noise, noise)
+        ops.flash_bwd_dq(qg, kg, vg, bg, sg, seed, dog, lseg, dg, dq, dbias, dslope_rows,
+                         scale_q, d ** -0.5, True, thresh, mult)
+        ops.flash_bwd_dkv(qg, kg, vg, bg, sg, seed, dog, lseg, dg, dk, dv, scale_q, True,
+                          thresh, mult)
+        got = (dq, dk, dv, dbias, torch.sum(dslope_rows, dim=(0, 2)))
+        for name, g, w in zip(("dq", "dk", "dv", "dbias", "dslopes"), got, want):
+            assert torch.equal(g, w), (rep, name)
+        torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for name, (buf, view) in zip(("q", "k", "v", "bias", "slopes", "do", "lse", "delta", "dq",
+                                  "dk", "dv", "dbias", "dslope_rows"), ins + outs):
+        n = view.numel()
+        assert bool(torch.isnan(buf[:guard]).all() and torch.isnan(buf[guard + n:]).all()), name
 
 
 # K1's f32 kernel at D 32, 64 and 128: split-TF32 products on TMA + wgmma

@@ -1,5 +1,7 @@
 """The numeric plan of K5's and K6's f32 kernels at head dims 32, 64 and 128
-(``csrc/flash_bwd_f32.cu``), checked on the CPU before the card runs it.
+(``csrc/flash_bwd_f32.cu``) and at 256 and above
+(``csrc/flash_bwd_f32_wide.cu``), checked on the CPU before the card runs
+it.
 
 Those kernels take every product of the f32 backward as three TF32 passes
 (``kernels/flash_attention._tf32x3_matmul``: each operand's TF32 head, x
@@ -11,7 +13,10 @@ f32 ``flash_attention_n_fused`` backward (its Pallas kernels in interpret
 mode, as the JAX package's tests run them), at the card kernels' tile edges
 (K5's 64-row query tiles and 32- or 64-key tiles, K6's 64-key tiles and 16-
 or 32-row query tiles: L and S ending mid-tile, L > S with dead rows at n =
-0, non-causal) and under a bias, ALiBi and dropout. Tolerances are the
+0, non-causal) and under a bias, ALiBi and dropout. At D >= 256 the
+emulation sums every product as those kernels do, in chunks of 32 of the
+contraction (columns of D, keys or query rows) added in f32
+(``chunk=32``). Tolerances are the
 smoke's f32 ones (``chip_smoke.check_attention``): each gradient within
 1e-4 of max(1, max |jax|) element-wise and within 1e-5 of max(1, ||jax||)
 as a whole. One TF32 pass (the heads' product alone) misses them.
@@ -96,44 +101,81 @@ def _assert_within(errs):
 
 
 CASES = [(72, 100, True, 1.0), (65, 65, False, 0.0), (70, 30, True, 0.0), (33, 130, True, 1.0)]
+# the head dims of the kernels at D <= 128 and, above, of the wide kernels
+# (256, and the multiples of 128 the wrappers pad to: 640 takes K5's and
+# K6's column groups)
+HEAD_DIMS = [32, 64, 128, 256, 384, 512, 640]
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
+def _chunk(D):
+    """the emulation's product at D: the wide kernels' 32-chunk sums above
+    128"""
+    return 32 if D >= 256 else None
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("case", CASES, ids=["L72-S100-causal-n1", "L65-S65-full-n0",
                                              "L70-S30-causal-n0", "L33-S130-causal-n1"])
 def test_tf32x3_grads_match_jax(D, case):
     L, S, causal, n = case
     want, inputs, bkw = _case(30 + D, D, L, S, n=n, causal=causal)
-    got = fa.flash_bwd_tf32x3_reference(*inputs, **bkw)
+    got = fa.flash_bwd_tf32x3_reference(*inputs, **bkw, chunk=_chunk(D))
     _assert_within(_errors(got, want))
     if n == 0 and L > S:
         dead = np.arange(L) + (S - L) < 0
         assert bool((got[0][:, :, dead] == 0).all())
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", HEAD_DIMS)
 def test_tf32x3_bias_alibi_dropout_grads_match_jax(D):
     # every modifier at once: a (1, H) bias (dbias), ALiBi (dslopes) and
     # dropout (the hash at each (b, h, q, k)), causal with L < S
     want, inputs, bkw = _case(40 + D, D, 48, 80, n=1.0, causal=True, bias=True, alibi=True,
                               rate=0.2)
-    got = fa.flash_bwd_tf32x3_reference(*inputs, **bkw)
+    got = fa.flash_bwd_tf32x3_reference(*inputs, **bkw, chunk=_chunk(D))
     errs = _errors(got, want)
     assert set(errs) == set(NAMES)
     _assert_within(errs)
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", HEAD_DIMS)
 def test_one_tf32_pass_misses_the_f32_tolerance(D):
     # the heads' product alone keeps about 10 mantissa bits: its gradients
     # leave 1e-5 of the norm (and 1e-4 element-wise) far behind, where the
     # three passes stay inside
     want, inputs, bkw = _case(50 + D, D, 72, 100, n=1.0, causal=True, bias=True, alibi=True)
-    three = _errors(fa.flash_bwd_tf32x3_reference(*inputs, **bkw), want)
-    one = _errors(fa.flash_bwd_tf32x3_reference(*inputs, **bkw, passes=1), want)
+    chunk = _chunk(D)
+    three = _errors(fa.flash_bwd_tf32x3_reference(*inputs, **bkw, chunk=chunk), want)
+    one = _errors(fa.flash_bwd_tf32x3_reference(*inputs, **bkw, passes=1, chunk=chunk), want)
     _assert_within(three)
     assert all(one[name][1] > 10 * NORM_TOL for name in ("dq", "dk", "dv")), one
     assert max(e for e, _ in one.values()) > ELEM_TOL, one
+
+
+def test_tf32x3_chunked_products_match_jax_at_d512():
+    # the wide kernels' sums (every product in 32-wide chunks of its
+    # contraction, three passes each, the chunks added in f32) hold the
+    # tolerance at D 512 as the unchunked products do, and move the
+    # gradients by less than the split's own error
+    want, inputs, bkw = _case(60, 512, 72, 100, n=1.0, causal=True, bias=True, alibi=True,
+                              rate=0.2)
+    chunked = fa.flash_bwd_tf32x3_reference(*inputs, **bkw, chunk=32)
+    whole = fa.flash_bwd_tf32x3_reference(*inputs, **bkw)
+    _assert_within(_errors(chunked, want))
+    _assert_within(_errors(whole, want))
+    for name, c, w in zip(NAMES, chunked, whole):
+        assert not torch.equal(c, w), name
+        assert float((c - w).norm()) <= NORM_TOL * max(1.0, float(w.norm())), name
+
+
+def test_tf32x3_chunked_product_sums_chunks_in_order():
+    # chunk c of a's columns (and of b's rows) alone, three passes, then f32
+    # sums from the first chunk up; a ragged last chunk keeps its columns
+    rng = np.random.RandomState(5)
+    a, b = (torch.from_numpy(rng.randn(*s).astype(np.float32)) for s in ((6, 80), (80, 5)))
+    parts = [fa._tf32x3_matmul(a[:, c:c + 32], b[c:c + 32]) for c in (0, 32, 64)]
+    assert torch.equal(fa._tf32x3_matmul(a, b, chunk=32), (parts[0] + parts[1]) + parts[2])
+    assert torch.equal(fa._tf32x3_matmul(a, b, chunk=80), fa._tf32x3_matmul(a, b))
 
 
 def test_tf32_split_is_exact():
