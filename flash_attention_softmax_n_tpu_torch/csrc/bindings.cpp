@@ -6,10 +6,10 @@
 // that card, and raises with the CUDA error if the launch is refused.
 // Outputs and scratch are allocated by the Python wrappers
 // (flash_attention_softmax_n_tpu_torch/kernels/) and passed in, marked
-// mutable in the schemas, but for the f32 pre-pass's scratch of K5 and K6
-// at D >= 256 (bwd_scratch), an internal of the operator that the caching
-// allocator hands out on the launch's stream. The kernels themselves live in the .cu files and
-// are reached through launchers.h.
+// mutable in the schemas, but for the f32 pre-pass's scratch of K1, K5 and
+// K6 at D >= 256 (scratch_of), an internal of the operator that the
+// caching allocator hands out on the launch's stream. The kernels
+// themselves live in the .cu files and are reached through launchers.h.
 
 #include <ATen/core/Tensor.h>
 #include <c10/cuda/CUDACachingAllocator.h>
@@ -59,9 +59,9 @@ void check_on(const at::Tensor& t, const at::Tensor& ref, const char* what) {
 }
 
 // bf16 inputs of the TMA kernels (K1, K5, K6, K10), and with f32 true f32
-// ones too (K1's split-TF32 kernel at D 32-128, K5's and K6's at every D:
-// TMA, or above 128 their pre-pass's 16-byte loads): each tensor's first
-// row on a 16-byte boundary (their rows are 64 bytes or more)
+// ones too (K1's, K5's and K6's split-TF32 kernels at every D: TMA, or
+// above 128 their pre-pass's 16-byte loads): each tensor's first row on a
+// 16-byte boundary (their rows are 64 bytes or more)
 void check_tma(std::initializer_list<const at::Tensor*> ts, const char* what, bool f32 = false) {
   for (const at::Tensor* t : ts)
     TORCH_CHECK_VALUE((t->scalar_type() != at::kBFloat16 && !f32) ||
@@ -135,6 +135,15 @@ FasnAttn attn_args(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v
   return a;
 }
 
+// the device scratch of an f32 pre-pass (K1's, K5's, K6's at D >= 256),
+// none where `bytes` is 0: from PyTorch's caching allocator on the current
+// device, back to it when the DataPtr goes, after the work queued on the
+// stream it was taken on, the launch's
+c10::DataPtr scratch_of(size_t bytes) {
+  if (bytes == 0) return c10::DataPtr();
+  return c10::cuda::CUDACachingAllocator::get()->allocate(bytes);
+}
+
 void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
                const std::optional<at::Tensor>& bias, const std::optional<at::Tensor>& slopes,
                const std::optional<at::Tensor>& seed, const at::Tensor& o, const at::Tensor& lse,
@@ -143,13 +152,14 @@ void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
   const c10::cuda::CUDAGuard guard(q.device());
   const FasnAttn a = attn_args(q, k, v, bias, slopes, seed, scale, causal, drop_threshold,
                                drop_mult, what);
-  check_tma({&q, &k, &v}, what, q.scalar_type() == at::kFloat && q.size(3) <= 128);
+  check_tma({&q, &k, &v}, what, q.scalar_type() == at::kFloat);
   check_on(o, q, what);
   check_on(lse, q, what);
   check_shape(o, q.sizes(), q.scalar_type(), what, "o");
   check_shape(lse, {q.size(0), q.size(1), q.size(2)}, at::kFloat, what, "lse");
+  const c10::DataPtr scratch = scratch_of(fasn_flash_fwd_tf32x3_wide_scratch(&a));
   check_launch(fasn_flash_fwd(&a, static_cast<float>(n), o.data_ptr(), lse.data_ptr<float>(),
-                              stream_of(q)),
+                              scratch.get(), stream_of(q)),
                what);
 }
 
@@ -162,15 +172,6 @@ void check_bwd_rows(const at::Tensor& q, const at::Tensor& dout, const at::Tenso
   check_shape(delta, {q.size(0), q.size(1), q.size(2)}, at::kFloat, what, "delta");
 }
 
-// the device scratch of K5's (dkv 0) or K6's (1) f32 pre-pass, none where
-// the kernels take none: from PyTorch's caching allocator on the current
-// device, back to it when the DataPtr goes, after the work queued on the
-// stream it was taken on, the launch's
-c10::DataPtr bwd_scratch(const FasnAttn& a, int dkv) {
-  const size_t bytes = fasn_flash_bwd_tf32x3_wide_scratch(&a, dkv);
-  if (bytes == 0) return c10::DataPtr();
-  return c10::cuda::CUDACachingAllocator::get()->allocate(bytes);
-}
 
 void flash_bwd_dq(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
                   const std::optional<at::Tensor>& bias, const std::optional<at::Tensor>& slopes,
@@ -202,7 +203,7 @@ void flash_bwd_dq(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
                 "dslope_rows");
     dslope_ptr = dslope_rows->data_ptr<float>();
   }
-  const c10::DataPtr scratch = bwd_scratch(a, 0);
+  const c10::DataPtr scratch = scratch_of(fasn_flash_bwd_tf32x3_wide_scratch(&a, 0));
   check_launch(fasn_flash_bwd_dq(&a, dout.data_ptr(), lse.data_ptr<float>(),
                                  delta.data_ptr<float>(), static_cast<float>(scale),
                                  dq.data_ptr(), dbias_ptr, dslope_ptr, scratch.get(),
@@ -226,7 +227,7 @@ void flash_bwd_dkv(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v
   check_on(dv, q, what);
   check_shape(dk, k.sizes(), k.scalar_type(), what, "dk");
   check_shape(dv, v.sizes(), v.scalar_type(), what, "dv");
-  const c10::DataPtr scratch = bwd_scratch(a, 1);
+  const c10::DataPtr scratch = scratch_of(fasn_flash_bwd_tf32x3_wide_scratch(&a, 1));
   check_launch(fasn_flash_bwd_dkv(&a, dout.data_ptr(), lse.data_ptr<float>(),
                                   delta.data_ptr<float>(), dk.data_ptr(), dv.data_ptr(),
                                   scratch.get(), stream_of(q)),

@@ -161,9 +161,10 @@ cudaError_t dispatch_d(int D, F& f) {
 
 // ---------------------------------------------------------------------------
 // Head dims above 256 (multiples of WIDE_OC, as the wrappers pad them): the
-// wide scalar kernels of K1 and K10 (f32, and bf16 above 512: their bf16
-// kernels at 384 and 512 take all of D a CTA, attn_tile.h's WideRing; K5
-// and K6 stream D through attn_tile.h's chunk_dots in bf16 and
+// wide scalar kernels of K1 (bf16 above 512: its bf16 kernel at 384 and
+// 512 takes all of D a CTA, attn_tile.h's WideRing, and f32 K1 streams D
+// through flash_fwd_f32_wide.cu's ring) and K10 (f32, and bf16 above 512;
+// K5 and K6 stream D through attn_tile.h's chunk_dots in bf16 and
 // flash_bwd_f32_wide.cu's ring in f32). A CTA takes
 // WIDE_OC columns of the outputs (column chunk blockIdx.z % (D / WIDE_OC))
 // and accumulates the scores it needs over the whole of D in WIDE_KC-column

@@ -50,20 +50,22 @@
 // translation unit of its own, entered through fasn_flash_fwd_tf32x3):
 // wgmma has no f32 x f32 product, but three TF32 passes on each operand's
 // rounded head and rest hold f32's tolerance (tf32x3.h), as K5's and K6's
-// f32 kernels showed. f32 at D 256: flash_fwd_kernel, scalar f32 FMAs from
-// shared memory on 64 x 64 tiles.
+// f32 kernels showed. f32 at D 256 and above: flash_fwd_tf32x3_wide_kernel
+// after its pre-pass (flash_fwd_f32_wide.cu, entered through
+// fasn_flash_fwd_tf32x3_wide), 64 query rows a CTA, Q and K streamed in
+// 32-column chunks of D, V^T's heads and rests from device scratch.
 //
 // Above 256 the wrapper pads D to a multiple of 128, as JAX does.
 //
 // bf16 at D 384 and 512: flash_fwd_wide_wgmma_kernel (flash_fwd_wide.cu,
 // a translation unit of its own), 64 query rows and all of D a CTA.
 //
-// f32 above 256, and bf16 above 512 (an O fragment of D / 2 columns would
-// not fit a warpgroup's registers), take flash_fwd_wide_kernel:
-// flash_fwd_kernel's tiles and thread layout, one CTA for 128 columns of o,
-// the scores accumulated over D in 64-column chunks (flash_common.h
-// wide_dots), so that its shared memory (82,688 bytes) does not grow with
-// D; the CTA of the first column chunk writes lse.
+// bf16 above 512 (an O fragment of D / 2 columns would not fit a
+// warpgroup's registers) takes flash_fwd_wide_kernel: scalar FMAs from
+// shared memory on 64 x 64 tiles with 16 x 16 threads, one CTA for 128
+// columns of o, the scores accumulated over D in 64-column chunks
+// (flash_common.h wide_dots), so that its shared memory (82,688 bytes)
+// does not grow with D; the CTA of the first column chunk writes lse.
 //
 // Numerics follow the Pallas kernel: the scale is folded into q in q's
 // dtype (each consumer rewrites its Q rows in shared memory once), scores
@@ -80,145 +82,8 @@ namespace fasn {
 namespace {
 
 // ---------------------------------------------------------------------------
-// f32: scalar FMAs
+// bf16 above D 512: scalar FMAs
 // ---------------------------------------------------------------------------
-
-template <int D>
-constexpr size_t fwd_smem_bytes() {
-  return sizeof(float) *
-         (size_t(BQ) * (D + 1) + size_t(BK) * (D + 1) + size_t(BK) * D + size_t(BQ) * (BK + 1));
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_fwd_kernel(const FasnAttn a, float n, T* __restrict__ o, float* __restrict__ lse) {
-  constexpr int DP = D + 1;
-  constexpr int BKP = BK + 1;
-  constexpr int CD = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;          // BQ x DP
-  float* sK = sQ + BQ * DP;  // BK x DP
-  float* sV = sK + BK * DP;  // BK x D
-  float* sP = sV + BK * D;   // BQ x BKP
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int L = a.L, S = a.S;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const long long bh = (long long)b * a.H + h;
-  const T* qb = static_cast<const T*>(a.q) + bh * L * D;
-  const T* kb = static_cast<const T*>(a.k) + bh * S * D;
-  const T* vb = static_cast<const T*>(a.v) + bh * S * D;
-  const ScoreMods mods = score_mods(a, b, h);
-  const Dropout drop = dropout_of(a);
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    float val = 0.f;
-    if (q0 + r < L) val = round_to<T>(to_f32(qb[(long long)(q0 + r) * D + c]) * a.scale_q);
-    sQ[r * DP + c] = val;
-  }
-
-  float m[R4], l[R4], acc[R4][CD];
-#pragma unroll
-  for (int i = 0; i < R4; ++i) {
-    m[i] = n > 0.f ? 0.f : NEG_INF;
-    l[i] = n;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
-  }
-
-  int kv_end = S;
-  if (mods.causal) {
-    const int last_row = min(q0 + BQ, L) - 1;
-    kv_end = min(S, last_row + mods.off + 1);
-  }
-
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int r = i / D, c = i % D;
-      float kv = 0.f, vv = 0.f;
-      if (k0 + r < S) {
-        kv = to_f32(kb[(long long)(k0 + r) * D + c]);
-        vv = to_f32(vb[(long long)(k0 + r) * D + c]);
-      }
-      sK[r * DP + c] = kv;
-      sV[r * D + c] = vv;
-    }
-    __syncthreads();
-
-    float s[R4][R4];
-#pragma unroll
-    for (int i = 0; i < R4; ++i)
-#pragma unroll
-      for (int j = 0; j < R4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[R4], kv[R4];
-#pragma unroll
-      for (int i = 0; i < R4; ++i) qv[i] = sQ[(ty + 16 * i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < R4; ++j) kv[j] = sK[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < R4; ++i)
-#pragma unroll
-        for (int j = 0; j < R4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < R4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      float rmax = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < R4; ++j) {
-        s[i][j] = mods(s[i][j], qi, k0 + tx + 16 * j);
-        rmax = fmaxf(rmax, s[i][j]);
-      }
-      rmax = row_max16(rmax);
-      const float m_new = fmaxf(m[i], rmax);
-      const float alpha = expf(m[i] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < R4; ++j) {
-        float p = expf(s[i][j] - m_new);
-        rsum += p;  // the denominator takes the undropped p
-        if (drop.on) p *= drop(b, h, qi, k0 + tx + 16 * j);
-        sP[(ty + 16 * i) * BKP + tx + 16 * j] = round_to<T>(p);
-      }
-      rsum = row_sum16(rsum);
-      l[i] = l[i] * alpha + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CD; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-    const int kn = min(BK, S - k0);
-    for (int kk = 0; kk < kn; ++kk) {
-      float vv[CD];
-#pragma unroll
-      for (int c = 0; c < CD; ++c) vv[c] = sV[kk * D + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < R4; ++i) {
-        const float p = sP[(ty + 16 * i) * BKP + kk];
-#pragma unroll
-        for (int c = 0; c < CD; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R4; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= L) continue;
-    const bool dead = n == 0.f && (l[i] == 0.f || m[i] == NEG_INF);
-    T* orow = o + (bh * L + qi) * D;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) orow[tx + 16 * c] = from_f32<T>(dead ? 0.f : acc[i][c] / l[i]);
-    if (tx == 0) lse[bh * L + qi] = dead ? NEG_INF : m[i] + logf(l[i]);
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -608,37 +473,31 @@ cudaError_t launch_d256(const FasnAttn& a, float n, void* o, float* lse, cudaStr
 }  // namespace
 }  // namespace fasn
 
-extern "C" int fasn_flash_fwd(const FasnAttn* a, float n, void* o, float* lse,
+extern "C" int fasn_flash_fwd(const FasnAttn* a, float n, void* o, float* lse, void* scratch,
                               cudaStream_t stream) {
   using namespace fasn;
   if (a->dtype != 0 && a->dtype != 1) return cudaErrorInvalidValue;
-  if (a->dtype == 1 && (a->D == 384 || a->D == 512))
-    return fasn_flash_fwd_wide(a, n, o, lse, stream);
+  if (a->dtype == 0) {
+    if (a->D >= 256) return fasn_flash_fwd_tf32x3_wide(a, n, o, lse, scratch, stream);
+    return fasn_flash_fwd_tf32x3(a, n, o, lse, stream);
+  }
+  if (a->D == 384 || a->D == 512) return fasn_flash_fwd_wide(a, n, o, lse, stream);
   if (wide_d(a->D)) {
     const dim3 wide_grid((a->L + BQ - 1) / BQ, a->H, wide_z(a->B, a->D));
     if (wide_grid.z == 0) return cudaErrorInvalidValue;
-    if (a->dtype == 1)
-      return launch(flash_fwd_wide_kernel<__nv_bfloat16>, wide_grid, wide_smem_bytes(), stream, *a,
-                    n, static_cast<__nv_bfloat16*>(o), lse);
-    return launch(flash_fwd_wide_kernel<float>, wide_grid, wide_smem_bytes(), stream, *a, n,
-                  static_cast<float*>(o), lse);
+    return launch(flash_fwd_wide_kernel<__nv_bfloat16>, wide_grid, wide_smem_bytes(), stream, *a,
+                  n, static_cast<__nv_bfloat16*>(o), lse);
   }
-  if (a->dtype == 1) {
-    switch (a->D) {
-      case 32:
-        return launch_wgmma<32>(*a, n, o, lse, stream);
-      case 64:
-        return launch_wgmma<64>(*a, n, o, lse, stream);
-      case 128:
-        return launch_wgmma<128>(*a, n, o, lse, stream);
-      case 256:
-        return launch_d256(*a, n, o, lse, stream);
-      default:
-        return cudaErrorInvalidValue;
-    }
+  switch (a->D) {
+    case 32:
+      return launch_wgmma<32>(*a, n, o, lse, stream);
+    case 64:
+      return launch_wgmma<64>(*a, n, o, lse, stream);
+    case 128:
+      return launch_wgmma<128>(*a, n, o, lse, stream);
+    case 256:
+      return launch_d256(*a, n, o, lse, stream);
+    default:
+      return cudaErrorInvalidValue;
   }
-  if (a->D != 256) return fasn_flash_fwd_tf32x3(a, n, o, lse, stream);
-  const dim3 grid((a->L + BQ - 1) / BQ, a->H, a->B);
-  return launch(flash_fwd_kernel<float, 256>, grid, fwd_smem_bytes<256>(), stream, *a, n,
-                static_cast<float*>(o), lse);
 }

@@ -9,9 +9,9 @@
 // a phantom key (m = 0, l = n), l summing the undropped p, p then times the
 // dropout multiplier of its global (b, h, q, k), o and lse out, and at n ==
 // 0 a row with no visible key o = 0, lse = NEG_INF. fasn_flash_fwd calls
-// fasn_flash_fwd_tf32x3 for f32 at D 32, 64 and 128 (f32 at D 256 keeps the
-// scalar flash_fwd_kernel, above 256 the wide scalar one); the kernel has a
-// translation unit of its own so that flash_fwd.cu's kernels compile as
+// fasn_flash_fwd_tf32x3 for f32 at D 32, 64 and 128 (f32 at D 256 and above
+// takes flash_fwd_tf32x3_wide_kernel, flash_fwd_f32_wide.cu); the kernel has
+// a translation unit of its own so that flash_fwd.cu's kernels compile as
 // before.
 //
 // The split and the transposed layout are tf32x3.h's (K5's and K6's

@@ -33,13 +33,25 @@ struct FasnAttn {
   int causal;
 };
 
-// K1 (flash_fwd.cu): o like q, lse (B,H,L) f32. bf16, and f32 at D 32-128,
-// take TMA kernels: q, k and v must start on 16 bytes, and L, S >= 1.
-int fasn_flash_fwd(const FasnAttn* a, float n, void* o, float* lse, cudaStream_t stream);
+// K1 (flash_fwd.cu): o like q, lse (B,H,L) f32. bf16 up to D 512, and f32
+// at every D, take TMA kernels: q, k and v must start on 16 bytes, and L, S
+// >= 1. `scratch`: device memory of fasn_flash_fwd_tf32x3_wide_scratch(a)
+// bytes (null where that is 0).
+int fasn_flash_fwd(const FasnAttn* a, float n, void* o, float* lse, void* scratch,
+                   cudaStream_t stream);
 
 // K1's split-TF32 kernel for f32 at D 32, 64 and 128 (flash_fwd_f32.cu),
 // which fasn_flash_fwd calls for those inputs; the same arguments.
 int fasn_flash_fwd_tf32x3(const FasnAttn* a, float n, void* o, float* lse, cudaStream_t stream);
+
+// K1's split-TF32 kernel for f32 at D 256 and at the multiples of 128 above
+// it (flash_fwd_f32_wide.cu), which fasn_flash_fwd calls for those inputs,
+// with its arguments: a pre-pass writes V^T's TF32 heads and rests to
+// `scratch`, of fasn_flash_fwd_tf32x3_wide_scratch(a) bytes (0 for the
+// inputs the kernel does not take).
+size_t fasn_flash_fwd_tf32x3_wide_scratch(const FasnAttn* a);
+int fasn_flash_fwd_tf32x3_wide(const FasnAttn* a, float n, void* o, float* lse, void* scratch,
+                               cudaStream_t stream);
 
 // K1's bf16 kernel at D 384 and 512 (flash_fwd_wide.cu), which
 // fasn_flash_fwd calls for those inputs; the same arguments.

@@ -3,7 +3,8 @@
 // K5's and K6's flash_bwd_dq_tf32x3_kernel and flash_bwd_dkv_tf32x3_kernel
 // (flash_bwd_f32.cu), one consumer warpgroup and a producer warp a CTA; at
 // 256 and above K5's and K6's flash_bwd_dq_tf32x3_wide_kernel and
-// flash_bwd_dkv_tf32x3_wide_kernel (flash_bwd_f32_wide.cu), two consumer
+// flash_bwd_dkv_tf32x3_wide_kernel (flash_bwd_f32_wide.cu) and K1's
+// flash_fwd_tf32x3_wide_kernel (flash_fwd_f32_wide.cu), two consumer
 // warpgroups and a producer warpgroup, on operands split by a pre-pass.
 //
 // The split. wgmma has no f32 product, and one TF32 product keeps about 10
@@ -34,6 +35,8 @@
 // (split_frags).
 
 #pragma once
+
+#include <climits>
 
 #include "attn_tile.h"
 
@@ -177,6 +180,81 @@ __device__ __forceinline__ void add_tile_product(float (&acc)[D / 2],
 #pragma unroll
     for (int i = 0; i < NC / 2; ++i) acc[c * NC / 2 + i] += part[i];
   }
+}
+
+// The pre-pass of the wide kernels (K5's and K6's in flash_bwd_f32_wide.cu,
+// K1's in flash_fwd_f32_wide.cu): the operands a product reads transposed
+// over all of D, which no CTA holds, written once a call to device
+// scratch that the operator allocates.
+
+// one input (B*H, R, D) f32: its heads (x times mul, rounded to TF32) at
+// head bh and rests at head BH + bh, transposed, (2 BH, D, R rounded up to
+// 32), row j of each 8 at position k8_slot(j), zeros past R
+struct SplitJob {
+  const float* x;
+  float* outT;
+  int R;
+  float mul;
+};
+struct SplitJobs {
+  SplitJob j[2];
+  int jobs, BH, D;
+};
+
+// a block: 32 rows x 32 columns of one job's head; 256 threads, a 16-byte
+// vector each
+__device__ __forceinline__ void split_pass(const SplitJobs& js) {
+  __shared__ float th[32][33], tl[32][33];
+  const int job = blockIdx.x % js.jobs, bh = blockIdx.x / js.jobs;
+  const SplitJob& J = js.j[job];
+  const int R = J.R, D = js.D, Rp = (R + 31) / 32 * 32;
+  const int r0 = blockIdx.y * 32, c0 = blockIdx.z * 32;
+  if (r0 >= Rp) return;
+  const long long BH = js.BH;
+  const int t = threadIdx.x, r = t / 8, c = 4 * (t % 8);
+  float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (r0 + r < R) {
+    x = *reinterpret_cast<const float4*>(J.x + ((long long)bh * R + r0 + r) * D + c0 + c);
+    x = make_float4(x.x * J.mul, x.y * J.mul, x.z * J.mul, x.w * J.mul);
+  }
+  const float4 h = make_float4(tf32_head(x.x), tf32_head(x.y), tf32_head(x.z), tf32_head(x.w));
+  const float4 l = make_float4(x.x - h.x, x.y - h.y, x.z - h.z, x.w - h.w);
+  const float hs[4] = {h.x, h.y, h.z, h.w}, ls[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    th[r][c + e] = hs[e];
+    tl[r][c + e] = ls[e];
+  }
+  __syncthreads();
+  // position p of output row c0 + i holds row j of the block, k8_slot(j) = p
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const int o = t + 256 * n, i = o / 32, p = o % 32;
+    const int j = (p & ~7) | ((p & 3) << 1) | ((p >> 2) & 1);
+    const long long ot = ((long long)bh * D + c0 + i) * Rp + r0 + p;
+    J.outT[ot] = th[j][i];
+    J.outT[BH * D * Rp + ot] = tl[j][i];
+  }
+}
+
+// scratch floats of one operand's transposed heads and rests (R rows)
+inline long long plane_t_floats(long long BH, int R, int D) {
+  return 2 * BH * (long long)D * ((R + 31) / 32 * 32);
+}
+
+template <typename Kernel>
+cudaError_t launch_split(Kernel kernel, const SplitJobs& js, int rows, cudaStream_t stream) {
+  const long long bx = (long long)js.jobs * js.BH, by = (rows + 31) / 32;
+  if (bx > INT_MAX || by > 65535 || js.D / 32 > 65535) return cudaErrorInvalidValue;
+  kernel<<<dim3(static_cast<unsigned>(bx), static_cast<unsigned>(by), js.D / 32), 256, 0,
+           stream>>>(js);
+  return cudaGetLastError();
+}
+
+// host: the map of an operand's transposes (2 BH planes of D rows x Rp),
+// boxes of 64 rows x 32
+inline bool encode_split_t(CUtensorMap* m, const float* p, long long BH, int R, int D) {
+  return encode_rows(m, p, 2 * BH, D, (R + 31) / 32 * 32, 64, true);
 }
 
 }  // namespace attn

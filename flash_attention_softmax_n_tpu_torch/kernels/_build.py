@@ -16,7 +16,8 @@ K10 include; ``attn_tile.h`` the TMA + wgmma attention tile of K1's, K5's,
 K6's and K10's bf16 kernels and the f32 tiles of the split-TF32 kernels;
 ``tf32x3.h`` the split-TF32 pieces of K1's (``flash_fwd_f32.cu``) and K5's
 and K6's (``flash_bwd_f32.cu``) f32 kernels at head dims 32-128 and of
-K5's and K6's above (``flash_bwd_f32_wide.cu``);
+K1's, K5's and K6's above (``flash_fwd_f32_wide.cu``,
+``flash_bwd_f32_wide.cu``), their pre-pass among them;
 ``qmm_tile.h`` K7's tensor-core dequant matmul (TMA ring, producer warp,
 converting consumers), on which K9 and K2's bf16 kernel build too.
 
@@ -47,9 +48,10 @@ __all__ = ["LAUNCHES", "BUILD_SECONDS", "reset_launches", "build", "ops"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("flash_fwd.cu", "flash_fwd_wide.cu", "flash_fwd_f32.cu", "flash_bwd_dq.cu",
-           "flash_bwd_dkv.cu", "flash_bwd_f32.cu", "flash_bwd_f32_wide.cu", "qmm_argmax.cu",
-           "cache_update.cu", "qmm.cu", "fused_mlp.cu", "decode_attn.cu", "prefill_phases.cu")
+KERNELS = ("flash_fwd.cu", "flash_fwd_wide.cu", "flash_fwd_f32.cu", "flash_fwd_f32_wide.cu",
+           "flash_bwd_dq.cu", "flash_bwd_dkv.cu", "flash_bwd_f32.cu", "flash_bwd_f32_wide.cu",
+           "qmm_argmax.cu", "cache_update.cu", "qmm.cu", "fused_mlp.cu", "decode_attn.cu",
+           "prefill_phases.cu")
 BINDINGS = "bindings.cpp"
 HEADERS = ("launchers.h", "flash_common.h", "hopper.h", "attn_tile.h", "tf32x3.h", "qmm_tile.h")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -12,8 +12,9 @@ flash backward: ``p = exp(s - lse)`` are the softmax-N probabilities and
 launches the hand-written kernels (``csrc/flash_fwd.cu`` K1,
 ``csrc/flash_bwd_dq.cu`` K5, ``csrc/flash_bwd_dkv.cu`` K6; in f32 at head
 dims 32-128 the split-TF32 kernels, K1's in ``csrc/flash_fwd_f32.cu``, K5's
-and K6's in ``csrc/flash_bwd_f32.cu``, and K5's and K6's at 256 and above
-in ``csrc/flash_bwd_f32_wide.cu``), a CPU tensor runs
+and K6's in ``csrc/flash_bwd_f32.cu``, and at 256 and above K1's in
+``csrc/flash_fwd_f32_wide.cu``, K5's and K6's in
+``csrc/flash_bwd_f32_wide.cu``), a CPU tensor runs
 ``flash_fwd_reference`` / ``flash_bwd_reference``, the same arithmetic in
 plain PyTorch. L and S need no padding: the kernels mask ragged tiles
 themselves. The kernels are built for head dims 32, 64, 128, 256 and any
@@ -143,7 +144,7 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float, is_causal: bool,
                         slopes: Optional[torch.Tensor] = None,
                         seed: Optional[torch.Tensor] = None,
-                        dropout_rate: float = 0.0, mm=torch.matmul
+                        dropout_rate: float = 0.0, mm=torch.matmul, mm_pv=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K1: (o (B,H,L,D) in q's dtype, lse (B,H,L) f32).
 
@@ -152,7 +153,7 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensor when ``dropout_rate > 0``. The scale folds into q in q's dtype;
     scores and statistics are f32; l sums the undropped p, and p is then
     dropped and rounded to v's dtype before the PV product. ``mm`` is the
-    product of the two matmuls.
+    product of the two matmuls, ``mm_pv`` (if given) that of P V.
     """
     _, s = _scores_reference(q, k, bias, slopes, scale=scale,
                              is_causal=is_causal, mm=mm)
@@ -165,7 +166,7 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = l + n * torch.exp(-m)
     if dropout_rate > 0.0:
         p = p * dropout_multiplier(seed, p.shape, dropout_rate, q.device)
-    acc = mm(p.to(v.dtype).float(), v.float())
+    acc = (mm_pv or mm)(p.to(v.dtype).float(), v.float())
     if n == 0:
         # rows with no visible key (rectangular causal, L > S)
         dead = (l == 0.0) | (m == NEG_INF)
@@ -252,9 +253,10 @@ def _tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3,
     operands as they stand (the tensor cores' own truncation). With
     ``chunk``, the contraction runs in chunks of that many columns of a
     (rows of b), each chunk's three passes summed on their own and the
-    chunks added in f32 in order, as K5's and K6's kernels at D >= 256 sum
-    every product (``csrc/flash_bwd_f32_wide.cu``: 32 columns of D for S
-    and dP, 32 keys or query rows a tile for dQ, dK and dV)."""
+    chunks added in f32 in order, as K1's, K5's and K6's kernels at D >=
+    256 sum every product (``csrc/flash_fwd_f32_wide.cu``,
+    ``csrc/flash_bwd_f32_wide.cu``: 32 columns of D for S and dP, a tile of
+    keys or query rows for P V, dQ, dK and dV)."""
     if chunk is not None:
         out = None
         for c in range(0, a.shape[-1], chunk):
@@ -267,20 +269,34 @@ def _tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3,
     return (_tf32(a - a_hi) @ b_hi + a_hi @ _tf32(b - b_hi)) + a_hi @ b_hi
 
 
+# K1's f32 kernel at D >= 256 (``csrc/flash_fwd_f32_wide.cu``) sums S = Q_s
+# K^T in chunks of 32 columns of D and P V in tiles of 64 keys, each
+# chunk's three passes on their own, added in f32
+TF32X3_WIDE_FWD_CHUNK = (32, 64)
+
+
 def flash_fwd_tf32x3_reference(q, k, v, bias, *, n: float, scale: float,
                                is_causal: bool, slopes=None, seed=None,
-                               dropout_rate: float = 0.0, passes: int = 3):
+                               dropout_rate: float = 0.0, passes: int = 3,
+                               chunk: Optional[Tuple[int, int]] = None):
     """``flash_fwd_reference`` in f32 with both products (q k^T and p v)
-    taken as K1's split-TF32 kernel takes them (``_tf32x3_matmul``;
-    ``passes=1``: one TF32 pass). A plain emulation of its numerics for the
-    CPU tests; no path calls it. Sums run in the CPU's f32 order, and p
-    against the rows' final maxima where the kernel takes its running ones."""
+    taken as K1's split-TF32 kernels take them (``_tf32x3_matmul``;
+    ``passes=1``: one TF32 pass). ``chunk`` (columns of D, keys): S in
+    chunks of that many columns of D and P V in tiles of that many keys,
+    each chunk's passes summed on their own and the chunks added in f32 in
+    order, as the kernel at D >= 256 sums (``TF32X3_WIDE_FWD_CHUNK``; its
+    two warpgroups each sum half of D's chunks in order, then add the two
+    halves). A plain emulation of their numerics for the CPU tests; no path
+    calls it. Sums within a chunk run in the CPU's f32 order, and p against
+    the rows' final maxima where the kernels take their running ones."""
     if q.dtype != torch.float32:
         raise ValueError("the split-TF32 kernels take f32 inputs")
+    s_chunk, pv_chunk = chunk if chunk is not None else (None, None)
     return flash_fwd_reference(
         q, k, v, bias, n=n, scale=scale, is_causal=is_causal, slopes=slopes,
         seed=seed, dropout_rate=dropout_rate,
-        mm=lambda a, b: _tf32x3_matmul(a, b, passes))
+        mm=lambda a, b: _tf32x3_matmul(a, b, passes, s_chunk),
+        mm_pv=lambda a, b: _tf32x3_matmul(a, b, passes, pv_chunk))
 
 
 def flash_bwd_tf32x3_reference(q, k, v, bias, slopes, seed, o, lse, do, *,
@@ -307,12 +323,11 @@ def flash_bwd_tf32x3_reference(q, k, v, bias, slopes, seed, o, lse, do, *,
 
 # the head dims the kernels are built for up to 256 (bf16 K1, K5 and K6 at
 # 256 on their own TMA + wgmma kernels; f32 K1, K5 and K6 at 32, 64 and 128
-# on the split-TF32 TMA + wgmma kernels, f32 K5 and K6 at 256 on the wide
-# split-TF32 ones, f32 K1 on its scalar kernel); above, every multiple of
-# WIDE_HEAD_DIM: bf16 K5 and K6 on their wide TMA + wgmma kernels and f32
-# K5 and K6 on their wide split-TF32 ones at every such D, bf16 K1 on its
-# wide TMA + wgmma kernel at 384 and 512 (and on the wide scalar kernel
-# above 512), f32 K1 on the wide scalar kernel
+# on the split-TF32 TMA + wgmma kernels, at 256 on the wide split-TF32
+# ones); above, every multiple of WIDE_HEAD_DIM: bf16 K5 and K6 on their
+# wide TMA + wgmma kernels and f32 K1, K5 and K6 on their wide split-TF32
+# ones at every such D, bf16 K1 on its wide TMA + wgmma kernel at 384 and
+# 512 (and on the wide scalar kernel above 512)
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 WIDE_HEAD_DIM = 128
 

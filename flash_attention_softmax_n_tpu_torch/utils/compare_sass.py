@@ -4,8 +4,9 @@ Compiles each ``csrc/*.cu`` of both roots with ``nvcc -cubin`` and the
 build's flags (``kernels/_build.NVCC_FLAGS``), splits ``cuobjdump -sass`` at
 each ``Function :``, and compares every function the two share,
 instruction by instruction, with the encodings and addresses left out and
-the names demangled, the anonymous namespace's and ``qmm_tile::`` dropped
-(a type that moved into the shared header keeps its function's name).
+the names demangled, the anonymous namespace's, ``qmm_tile::`` and
+``attn::`` dropped (a type that moved into a shared header keeps its
+function's name).
 Needs the CUDA toolkit; run on the machine with the card, for example
 against the parent unpacked by ``git archive`` into ``tmp_parent``::
 
@@ -34,7 +35,8 @@ sys.path.insert(0, str(HERE))
 from flash_attention_softmax_n_tpu_torch.kernels import _build  # noqa: E402
 
 _ENCODING = re.compile(r"/\*[^*]*\*/")
-_NAMESPACES = re.compile(r"\(anonymous namespace\)::|<unnamed>::|qmm_tile::|_GLOBAL__N__[0-9a-f_]+")
+_NAMESPACES = re.compile(r"\(anonymous namespace\)::|<unnamed>::|qmm_tile::|(?<!\w)attn::|"
+                         r"_GLOBAL__N__[0-9a-f_]+")
 
 
 def _tool(name: str) -> str:

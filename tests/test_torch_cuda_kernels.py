@@ -27,9 +27,11 @@ producer warpgroup, which the d256 and wide cases check ran, through
 torch.profiler): L and S
 ending mid-tile, every bias broadcast, ALiBi, dropout (K5's and K6's masks
 bit-equal to the hash), a ring block against an external lse, and
-misaligned inputs that must raise; f32 K1, K5 and K6 at D 32-128 run their
-split-TF32 kernels, held the same way and also against the plain
-emulation of their split (which the profiler checks ran). The engine's CUDA graphs: each greedy
+misaligned inputs that must raise; f32 K1, K5 and K6 run their
+split-TF32 kernels at every D (32-128 and, wide, 256 and above), held the
+same way and also against the plain emulation of their split (which the
+profiler checks ran), the wide ones also repeated bit-equal inside NaN
+guards. The engine's CUDA graphs: each greedy
 loop variant (plain, piggybacked, under 8 steps) replays bit-equal to the
 eager loop on the default, all-kernel and fp8 routes, launch counts
 included, and ``prewarm`` leaves the engine's state bit-equal. Chunked
@@ -1054,11 +1056,10 @@ def test_flash_bwd_wgmma_extras_match_plain(gen, d, extra):
 
 # head dims the kernels are not built for (16, 20, 80, 96, 160, 288) run
 # zero-padded to the next of 32, 64, 128, 256 and the multiples of 128
-# above; 256 runs K1's, K5's and K6's D 256 wgmma kernels in bf16, K1's
-# scalar kernel in f32; 384 and 512 (and 288 at 384) the wide kernels
-# (bf16: TMA + wgmma; f32 K1: scalar); 640 K5's and K6's wide TMA + wgmma
-# kernels in bf16 and K1's wide scalar kernel otherwise (in bf16 too); f32
-# K5 and K6 at 256 and above their wide split-TF32 kernels. Under a bias, ALiBi and dropout, n 0 and 1, at chip_smoke's
+# above; 256 runs K1's, K5's and K6's D 256 wgmma kernels in bf16; 384 and
+# 512 (and 288 at 384) the wide TMA + wgmma kernels in bf16; 640 K5's and
+# K6's wide TMA + wgmma kernels in bf16 and K1's wide scalar kernel; f32
+# K1, K5 and K6 at 256 and above their wide split-TF32 kernels. Under a bias, ALiBi and dropout, n 0 and 1, at chip_smoke's
 # B2 H4 L200 S264; the backward from the plain forward's o and lse;
 # tolerances as above, repeats bit-equal
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1072,7 +1073,9 @@ def test_flash_kernels_take_every_head_dim(gen, dtype, d, n):
     before = _build.LAUNCHES["flash_fwd"]
     got, names, calls = _launched(lambda: fa.flash_fwd(q, k, v, ex["bias"], **kw))
     assert _build.LAUNCHES["flash_fwd"] == before + calls and got[0].shape == q.shape
-    if dtype == torch.bfloat16 and fa.kernel_head_dim(d) in (384, 512):
+    if dtype == torch.float32 and fa.kernel_head_dim(d) >= 256:
+        assert any(_TF32X3_WIDE_FWD_KERNELS[1] in n for n in names), sorted(set(names))
+    elif fa.kernel_head_dim(d) in (384, 512):
         assert any(_WIDE_FWD_KERNEL in n for n in names), sorted(set(names))
     elif fa.kernel_head_dim(d) > 256:
         assert any("flash_fwd_wide_kernel" in n for n in names), sorted(set(names))
@@ -1282,15 +1285,21 @@ def test_flash_bwd_tf32x3_wide_guarded_repeats(gen, d):
         assert bool(torch.isnan(buf[:guard]).all() and torch.isnan(buf[guard + n:]).all()), name
 
 
-# K1's f32 kernel at D 32, 64 and 128: split-TF32 products on TMA + wgmma
-# (csrc/flash_fwd_f32.cu), which must be the one launched (and not the
-# scalar flash_fwd_kernel): the shapes of _WGMMA_SHAPES (L and S ending
-# mid-tile against its 64-row query tiles and 32- or 64-key tiles;
-# rectangular causal both ways, dead rows at n = 0; non-causal) and the
-# extras, o within 2e-5 and lse within 1e-3 of the plain version and of the
-# plain emulation of its split (flash_fwd_tf32x3_reference), as
-# chip_smoke.check_attention holds f32 K1; repeat calls bit-equal
+# K1's f32 kernels: split-TF32 products on TMA + wgmma, at D 32, 64 and 128
+# flash_fwd_tf32x3_kernel (csrc/flash_fwd_f32.cu), at 256 and above (300 at
+# 384) flash_fwd_tf32x3_wide_kernel after its pre-pass
+# (csrc/flash_fwd_f32_wide.cu), which must be the ones launched (and not
+# the other width's, nor the scalar flash_fwd_kernel or
+# flash_fwd_wide_kernel that they replaced): the shapes of _WGMMA_SHAPES (L
+# and S ending mid-tile against their 64-row query tiles and 32- or 64-key
+# tiles; rectangular causal both ways, dead rows at n = 0; non-causal) and
+# the extras, o within 2e-5 and lse within 1e-3 of the plain version and of
+# the plain emulation of the split (flash_fwd_tf32x3_reference, at D >= 256
+# chunked as the wide kernel sums), as chip_smoke.check_attention holds f32
+# K1; repeat calls bit-equal
 _TF32X3_FWD_KERNEL = "flash_fwd_tf32x3_kernel"
+_TF32X3_WIDE_FWD_KERNELS = ("flash_fwd_tf32x3_split_kernel", "flash_fwd_tf32x3_wide_kernel")
+_TF32X3_FWD_DIMS = [32, 64, 128, 256, 300, 384, 512, 640]
 
 
 def _fwd_f32(gen, B, H, L, S, d, *, n=1.0, causal=True, **extras):
@@ -1300,11 +1309,19 @@ def _fwd_f32(gen, B, H, L, S, d, *, n=1.0, causal=True, **extras):
     before = _build.LAUNCHES["flash_fwd"]
     got, names, calls = _launched(lambda: fa.flash_fwd(q, k, v, ex["bias"], **kw))
     assert _build.LAUNCHES["flash_fwd"] == before + calls
-    assert any(_TF32X3_FWD_KERNEL in nm for nm in names), sorted(set(names))
-    # no name is a substring of another: the scalar kernel did not run
-    assert not any("flash_fwd_kernel" in nm for nm in names), sorted(set(names))
+    wide = fa.kernel_head_dim(d) >= 256
+    ran, other = (((*_TF32X3_WIDE_FWD_KERNELS,), (_TF32X3_FWD_KERNEL,)) if wide
+                  else ((_TF32X3_FWD_KERNEL,), _TF32X3_WIDE_FWD_KERNELS))
+    for kernel in ran:
+        assert any(kernel in nm for nm in names), (kernel, sorted(set(names)))
+    # no name is a substring of another: neither the other width's kernels
+    # nor the scalar ones ran
+    for kernel in (*other, "flash_fwd_kernel", "flash_fwd_wide_kernel"):
+        assert not any(kernel in nm for nm in names), (kernel, sorted(set(names)))
+    chunk = fa.TF32X3_WIDE_FWD_CHUNK if wide else None
     for want in (fa.flash_fwd_reference(q, k, v, ex["bias"], **kw),
-                 fa.flash_fwd_tf32x3_reference(q, k, v, ex["bias"], **kw)):
+                 fa._padded_fwd(fa.flash_fwd_tf32x3_reference, q, k, v, ex["bias"],
+                                chunk=chunk, **kw)):
         assert got[0].dtype == torch.float32 and got[0].shape == want[0].shape
         torch.testing.assert_close(got[0], want[0], atol=2e-5, rtol=0)
         assert float((got[1] - want[1]).abs().max()) <= 1e-3
@@ -1313,7 +1330,7 @@ def _fwd_f32(gen, B, H, L, S, d, *, n=1.0, causal=True, **extras):
     return got
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", _TF32X3_FWD_DIMS)
 @pytest.mark.parametrize("n", [0.0, 1.0])
 @pytest.mark.parametrize("shape", _WGMMA_SHAPES, ids=lambda s: "L{}-S{}-{}".format(*s))
 def test_flash_fwd_tf32x3_matches_plain(gen, d, n, shape):
@@ -1325,7 +1342,7 @@ def test_flash_fwd_tf32x3_matches_plain(gen, d, n, shape):
         assert bool((lse[:, :, dead] == fa.NEG_INF).all())
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", _TF32X3_FWD_DIMS)
 @pytest.mark.parametrize("extra", ["bias11", "bias21", "bias13", "bias23", "alibi", "dropout",
                                    "all"])
 def test_flash_fwd_tf32x3_extras_match_plain(gen, d, extra):
@@ -1342,9 +1359,10 @@ def test_flash_fwd_tf32x3_at_train_agreements_shape(gen):
     _fwd_f32(gen, 2, 32, 1024, 1024, 64)
 
 
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [32, 128, 256, 640])
 def test_flash_fwd_tf32x3_rejects_misaligned_inputs(gen, d):
     # contiguous f32 views starting 4 bytes past an allocation: TMA needs 16
+    # (at 256 and above the pre-pass's 16-byte loads of v too)
     base = torch.randn(2 * 128 * d + 1, device="cuda")
     bad = base[1:].view(1, 2, 128, d)
     k = torch.randn((1, 2, 128, d), device="cuda")
@@ -1353,6 +1371,67 @@ def test_flash_fwd_tf32x3_rejects_misaligned_inputs(gen, d):
         with pytest.raises(ValueError, match="16-byte boundary"):
             fa.flash_fwd(q, kv, kv, None, n=1.0, scale=0.125, is_causal=True)
         assert _build.LAUNCHES["flash_fwd"] == before
+
+
+def test_flash_fwd_tf32x3_at_the_smokes_wide_shapes(gen):
+    # B2 H8 L=S=1024 causal, n 1, d256 / 384 / 512: chip_smoke head_dims'
+    # f32 timed lines; every query tile crosses the diagonal at its end
+    for d in (256, 384, 512):
+        _fwd_f32(gen, 2, 8, 1024, 1024, d)
+
+
+@pytest.mark.parametrize("d", [256, 640])
+def test_flash_fwd_tf32x3_wide_guarded_repeats(gen, d):
+    # K1's wide split-TF32 kernel and its pre-pass (640: two column groups)
+    # under bias, ALiBi and dropout, called through the operator with every
+    # f32 input and output inside 16 KB of NaN on each side and the outputs
+    # filled with NaN before each call: 16 calls, every other one beside a
+    # matmul on a second stream, must each give flash_fwd's o and lse bit
+    # for bit (a read past an input, a race on the ring, the exchange
+    # buffers or the pre-pass's scratch, or an output element left unwritten
+    # would show) and leave every guard NaN (a write past an output would
+    # show)
+    B, H, L, S, rate = 2, 3, 200, 264, 0.25
+    q, k, v, _, ex = _attn_inputs(gen, torch.float32, B, H, L, S, d, bias_shape=(2, 1),
+                                  alibi=True, rate=rate)
+    kw = dict(n=1.0, scale=d ** -0.5, is_causal=True, dropout_rate=rate)
+    want = fa.flash_fwd(q, k, v, ex["bias"], slopes=ex["slopes"], seed=ex["seed"], **kw)
+    guard = 4096
+
+    def guarded(shape):
+        n = int(np.prod(shape))
+        buf = torch.full((2 * guard + n,), float("nan"), device="cuda")
+        return buf, buf[guard:guard + n].view(shape)
+
+    def placed(t):
+        buf, view = guarded(t.shape)
+        view.copy_(t)
+        return buf, view
+
+    ins = [placed(t) for t in (q, k, v, fa._plane_bias(ex["bias"], L, S), ex["slopes"])]
+    outs = [guarded(s) for s in ((B, H, L, d), (B, H, L))]
+    qg, kg, vg, bg, sg = (view for _, view in ins)
+    o, lse = (view for _, view in outs)
+    seed = fa._seed_arg(ex["seed"], rate, q.device)
+    thresh, mult = fa._dropout_args(rate)
+    scale_q = fa._scale_q(d ** -0.5, torch.float32)
+    ops = _build.ops()
+    side = torch.cuda.Stream()
+    noise = torch.randn((4096, 4096), generator=gen, device="cuda")
+    for rep in range(16):
+        for view in (o, lse):
+            view.fill_(float("nan"))
+        if rep % 2:
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                torch.mm(noise, noise)
+        ops.flash_fwd(qg, kg, vg, bg, sg, seed, o, lse, scale_q, 1.0, True, thresh, mult)
+        assert torch.equal(o, want[0]) and torch.equal(lse, want[1]), rep
+        torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for name, (buf, view) in zip(("q", "k", "v", "bias", "slopes", "o", "lse"), ins + outs):
+        n = view.numel()
+        assert bool(torch.isnan(buf[:guard]).all() and torch.isnan(buf[guard + n:]).all()), name
 
 
 # ----------------------------------------------------------------------------
